@@ -1,0 +1,111 @@
+"""Rules the port keeps: no JAX (or flax, msgpack, or the JAX package) in
+the port or its smoke script, the card by default with no silent CPU
+fallback, small source files only, and ctypes bindings that match the
+kernels' C launchers."""
+
+import ast
+import os
+import re
+
+import pytest
+import torch
+
+from fast_image_recognition_tpu_torch import device as port_device
+from fast_image_recognition_tpu_torch.kernels import build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "fast_image_recognition_tpu_torch")
+BANNED = ("jax", "jaxlib", "flax", "msgpack", "fast_image_recognition_tpu")
+
+
+def _port_files(suffixes):
+    for root, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for f in files:
+            if f.endswith(suffixes):
+                yield os.path.join(root, f)
+
+
+def _python_sources():
+    yield from _port_files((".py",))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_port_or_smoke_script():
+    offenders = []
+    for path in _python_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in BANNED:
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {n}")
+    assert not offenders, offenders
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_device.default_device()
+    with pytest.raises(RuntimeError):
+        port_device.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
+    from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
+    from fast_image_recognition_tpu_torch.serving import RecognitionService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
+    with pytest.raises(RuntimeError):
+        device_dataset(2, 1, 8)
+
+
+def test_port_files_are_small_source_text():
+    paths = list(_port_files(("",))) + [
+        os.path.join(REPO, "chip_smoke.py"),
+        *(os.path.join(REPO, "tests", f) for f in os.listdir(os.path.join(REPO, "tests"))
+          if f.startswith("test_torch_")),
+    ]
+    total = 0
+    for p in paths:
+        if p.endswith((".pyc", ".so")):
+            continue
+        size = os.path.getsize(p)
+        total += size
+        assert size < 200_000, p
+        open(p, encoding="utf-8").read()  # text, not binary
+    assert total < 1_000_000
+
+
+def test_ctypes_bindings_match_the_c_launchers():
+    """Each ``extern "C"`` launcher takes as many arguments as its ctypes
+    binding declares (the .cu files cannot be compiled here)."""
+    expected = {"tilemin2_packed_launch": 8, "topk_l2_launch": 13}
+    for name, src in build.SOURCES.items():
+        text = open(os.path.join(build.KERNEL_DIR, src)).read()
+        for fn, n_args in expected.items():
+            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+            if m:
+                assert len(m.group(1).split(",")) == n_args, fn
+                expected[fn] = None
+    assert all(v is None for v in expected.values()), expected
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    assert not (tmp_path / "_build").exists()
