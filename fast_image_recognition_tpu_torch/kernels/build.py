@@ -23,6 +23,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from fast_image_recognition_tpu_torch.kernels.plain import TILE_G
+
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(KERNEL_DIR), "_build")
 SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu"}
@@ -121,22 +123,20 @@ def _raise_on(status: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with cudaError_t {status}")
 
 
-def launch_tilemin2_packed(
-    q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int = 1024
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kernels/packed_scan.cu``: per (query, 1024-row tile) min and
     second-min packed keys, ``[B, n_tiles]`` int32 each."""
     _check(q_aug, "q_aug", torch.bfloat16, 2)
     _check(g_aug, "g_aug", torch.bfloat16, 2)
     b, da = q_aug.shape
-    if tile_g != 1024 or g_aug.shape[0] % tile_g or g_aug.shape[1] != da or da % 16:
+    if g_aug.shape[0] % TILE_G or g_aug.shape[1] != da or da % 16:
         raise ValueError(
-            f"packed scan takes 1024-row tiles and Da % 16 == 0; got tile_g={tile_g}, "
+            f"packed scan takes whole {TILE_G}-row tiles and Da % 16 == 0; got "
             f"q_aug {tuple(q_aug.shape)}, g_aug {tuple(g_aug.shape)}"
         )
     if q_aug.device != g_aug.device:
         raise ValueError("q_aug and g_aug are on different devices")
-    n_tiles = g_aug.shape[0] // tile_g
+    n_tiles = g_aug.shape[0] // TILE_G
     k1 = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
     k2 = torch.empty_like(k1)
     lib = _lib("packed_scan")

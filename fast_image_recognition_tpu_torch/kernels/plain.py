@@ -14,30 +14,30 @@ import torch
 
 BIG_DIST = 3.4e38
 INT_BIG = 2**31 - 1
+TILE_G = 1024  # gallery rows per packed-scan tile, as in packed_scan.cu
 
 
 def tilemin2_packed_plain(
     q_aug: torch.Tensor,  # [B, Da] bf16 augmented queries
-    g_aug: torch.Tensor,  # [Np, Da] bf16 augmented gallery, Np % tile_g == 0
-    tile_g: int = 1024,
+    g_aug: torch.Tensor,  # [Np, Da] bf16 augmented gallery, Np % TILE_G == 0
     chunk_tiles: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per (query, gallery tile) min and second-min packed int32 key:
-    ``(f32 bits of the augmented dot) & ~(tile_g-1) | row_in_tile``.
+    ``(f32 bits of the augmented dot) & ~(TILE_G-1) | row_in_tile``.
     Returns ``(k1, k2)``, each ``[B, n_tiles]`` int32 (counterpart of
     ``_tilemin2_packed_kernel``, ops/distance_kernel.py:393)."""
     b = q_aug.shape[0]
-    n_tiles = g_aug.shape[0] // tile_g
+    n_tiles = g_aug.shape[0] // TILE_G
     qf = q_aug.to(torch.float32)
-    rows = torch.arange(tile_g, dtype=torch.int32, device=q_aug.device)
+    rows = torch.arange(TILE_G, dtype=torch.int32, device=q_aug.device)
     k1 = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
     k2 = torch.empty_like(k1)
     for t0 in range(0, n_tiles, chunk_tiles):
         t1 = min(t0 + chunk_tiles, n_tiles)
-        g = g_aug[t0 * tile_g : t1 * tile_g].to(torch.float32)
+        g = g_aug[t0 * TILE_G : t1 * TILE_G].to(torch.float32)
         # bf16 x bf16 products are exact in fp32; only the sum order differs
-        cross = (qf @ g.T).view(b, t1 - t0, tile_g)
-        key = (cross.view(torch.int32) & ~(tile_g - 1)) | rows
+        cross = (qf @ g.T).view(b, t1 - t0, TILE_G)
+        key = (cross.view(torch.int32) & ~(TILE_G - 1)) | rows
         m1 = key.min(dim=2).values
         key = torch.where(key == m1[..., None], INT_BIG, key)
         k1[:, t0:t1] = m1

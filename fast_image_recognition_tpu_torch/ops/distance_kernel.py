@@ -16,7 +16,7 @@ import torch
 from fast_image_recognition_tpu_torch.kernels import build, plain
 
 BIG_DIST = plain.BIG_DIST
-TILE_G = 1024
+TILE_G = plain.TILE_G
 _PAD_SQ_NORM = 1e38  # finite in bf16: BIG_DIST rounds to inf, and inf - inf = NaN
 
 
@@ -38,39 +38,37 @@ def _row_sq_norms(g: torch.Tensor) -> torch.Tensor:
     return (gf * gf).sum(dim=1)
 
 
-def pad_gallery(gallery: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
+def pad_gallery(gallery: torch.Tensor) -> torch.Tensor:
     """Zero-pad rows to a tile multiple (once, at build time)."""
     n = gallery.shape[0]
-    np_ = _round_up(max(n, tile_g), tile_g)
+    np_ = _round_up(max(n, TILE_G), TILE_G)
     if np_ == n:
         return gallery
     return torch.nn.functional.pad(gallery, (0, 0, 0, np_ - n))
 
 
-def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
-    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), tile_g]`` fp32,
+def gallery_sq_norms(gallery: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), TILE_G]`` fp32,
     BIG_DIST on rows >= n_valid."""
-    gallery = pad_gallery(gallery, tile_g)
+    gallery = pad_gallery(gallery)
     np_ = gallery.shape[0]
-    n_tiles = np_ // tile_g
+    n_tiles = np_ // TILE_G
     gsq = _row_sq_norms(gallery)
     gsq = torch.where(torch.arange(np_, device=gsq.device) < n_valid, gsq, BIG_DIST)
-    gsq = gsq.view(n_tiles, tile_g)
+    gsq = gsq.view(n_tiles, TILE_G)
     n_rows = _round_up(n_tiles, 8)
     if n_rows != n_tiles:
         gsq = torch.nn.functional.pad(gsq, (0, 0, 0, n_rows - n_tiles), value=BIG_DIST)
     return gsq
 
 
-def pack_gallery_aug(
-    gallery: torch.Tensor, n_valid: Optional[int] = None, tile_g: int = TILE_G
-) -> torch.Tensor:
+def pack_gallery_aug(gallery: torch.Tensor, n_valid: Optional[int] = None) -> torch.Tensor:
     """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]``, columns
-    padded to a 128 multiple, rows to ``tile_g`` with |g|^2 = 1e38. With the
+    padded to a 128 multiple, rows to ``TILE_G`` with |g|^2 = 1e38. With the
     query-side ``[-2q, 1, 1, |q|^2_hi, |q|^2_lo]`` one bf16 dot gives the
     whole squared distance; the hi/lo split carries the norm to ~2^-17."""
     n = gallery.shape[0] if n_valid is None else int(n_valid)
-    g = pad_gallery(gallery, tile_g).to(torch.bfloat16)
+    g = pad_gallery(gallery).to(torch.bfloat16)
     np_, d = g.shape
     gsq = torch.where(torch.arange(np_, device=g.device) < n, _row_sq_norms(g), _PAD_SQ_NORM)
     hi = gsq.to(torch.bfloat16)
@@ -100,38 +98,36 @@ def _augment_queries(queries: torch.Tensor, d: int, da: int) -> torch.Tensor:
     return qa
 
 
-def _key_to_dist(keys: torch.Tensor, tile_g: int) -> torch.Tensor:
-    return torch.clamp_min((keys & ~(tile_g - 1)).view(torch.float32), 0.0)
+def _key_to_dist(keys: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min((keys & ~(TILE_G - 1)).view(torch.float32), 0.0)
 
 
-def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int = TILE_G):
+def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
     """Per (query, tile) min and second-min packed keys, ``[B, n_tiles]``
     int32 each: ``kernels/packed_scan.cu`` on the card, the plain version
     on the CPU."""
     if _on_card(q_aug):
-        return build.launch_tilemin2_packed(q_aug, g_aug, tile_g)
-    return plain.tilemin2_packed_plain(q_aug, g_aug, tile_g)
+        return build.launch_tilemin2_packed(q_aug, g_aug)
+    return plain.tilemin2_packed_plain(q_aug, g_aug)
 
 
-def decode_tile_keys(
-    k1: torch.Tensor, k2: torch.Tensor, tile_g: int = TILE_G
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def decode_tile_keys(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed keys -> (d1, global row of each tile's best, d2)."""
-    tiles = torch.arange(k1.shape[1], dtype=torch.int32, device=k1.device) * tile_g
-    out_i = tiles[None, :] + (k1 & (tile_g - 1))
-    return _key_to_dist(k1, tile_g), out_i, _key_to_dist(k2, tile_g)
+    tiles = torch.arange(k1.shape[1], dtype=torch.int32, device=k1.device) * TILE_G
+    out_i = tiles[None, :] + (k1 & (TILE_G - 1))
+    return _key_to_dist(k1), out_i, _key_to_dist(k2)
 
 
 def tile_min2_l2_packed(
-    queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, *, tile_g: int = TILE_G
+    queries: torch.Tensor, gallery_aug: torch.Tensor, d: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d1 [B, n_tiles] raw squared L2 of each tile's best row, its global
     index [B, n_tiles], d2 [B, n_tiles] the tile's second-best distance).
     Distances are not divided by ``d`` and are quantized toward zero by
     ~2^-13 relative (conservative for a lower bound)."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
-    k1, k2 = tilemin2_keys(qa, gallery_aug, tile_g)
-    return decode_tile_keys(k1, k2, tile_g)
+    k1, k2 = tilemin2_keys(qa, gallery_aug)
+    return decode_tile_keys(k1, k2)
 
 
 def certify_tiles(
@@ -154,7 +150,7 @@ def certify_tiles(
 
 
 def topk_candidates_l2_packed_cert(
-    queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int, *, tile_g: int = TILE_G
+    queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Certified candidates: (cand [B, R] rows, bound [B]).
 
@@ -163,7 +159,7 @@ def topk_candidates_l2_packed_cert(
     ``cand``: unselected tiles have a PCA-space min >= the (R+1)-th tile
     min, and unscored rows of selected tiles are >= their tile's second
     min; projection only shrinks distances."""
-    return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d, tile_g=tile_g), r)
+    return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d), r)
 
 
 def topk_l2(

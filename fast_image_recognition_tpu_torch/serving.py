@@ -123,11 +123,10 @@ class RecognitionService:
 
     # ------------------------------------------------------------------ #
 
-    def _match_emb(self, emb: torch.Tensor) -> torch.Tensor:
-        """[B, D] fp32 normalized embeddings -> [B] int64 gallery rows."""
-        if self.match == "exact":
-            _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
-            return idx[:, 0].to(torch.int64)
+    def _certified(self, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The PCA path before escalation: [B, D] fp32 normalized
+        embeddings -> (cand [B, R] int64 rows, the rescored best row of
+        each probe [B] int64, escalate mask [B] bool)."""
         qp = (emb - self._mu) @ self._w
         cand, bound = topk_candidates_l2_packed_cert(qp, self.gal_aug, self.pca_dim, self.rescore)
         cand = cand.to(torch.int64)
@@ -139,7 +138,7 @@ class RecognitionService:
         rsq = torch.einsum("brd,brd->br", rows, rows)
         d = rsq - 2.0 * cross  # + |q|^2, constant per probe
         best = torch.argmin(d, dim=1, keepdim=True)
-        idx = cand.gather(1, best)[:, 0]
+        idx_fast = cand.gather(1, best)[:, 0]
         # certificate: the rescored best (true squared L2) must clear the
         # lower bound on every unscored row, with slack for bf16 operand
         # rounding and the 2^-13 key quantization
@@ -147,6 +146,14 @@ class RecognitionService:
         d1 = d.gather(1, best)[:, 0] + qsq
         slack = self.escalate
         esc = d1 + slack * qsq > (1.0 - slack) * bound
+        return cand, idx_fast, esc
+
+    def _match_emb(self, emb: torch.Tensor) -> torch.Tensor:
+        """[B, D] fp32 normalized embeddings -> [B] int64 gallery rows."""
+        if self.match == "exact":
+            _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
+            return idx[:, 0].to(torch.int64)
+        _, idx, esc = self._certified(emb)
         self.last_escalated = esc
         if bool(esc.any()):
             rows_esc = esc.nonzero()[:, 0]

@@ -94,6 +94,37 @@ def test_pca_packed_certified_top1_matches_jax(setup, escalate, rescore):
         assert not esc.any()  # the certificate clears every probe
 
 
+@pytest.mark.parametrize("clustered", [False, True])
+def test_certified_pick_is_nearest_candidate(setup, clustered):
+    """The pick before escalation is the candidate nearest the probe by a
+    plain fp32 rescore, within 2^-12 relative + 1e-5 (fp32 rounding of
+    1280-term sums); on the planted gallery it is the planted row and
+    nothing escalates. ``clustered`` replaces the first rows with 32 per
+    probe (noise 0.5), where the pick is a near-tie among them."""
+    _, _, _, serve, images, gal, planted = setup
+    with torch.no_grad():
+        emb = torch.from_numpy(_unit(serve(torch.from_numpy(images))["embedding"].numpy()))
+    if clustered:
+        rng = np.random.default_rng(7)
+        gal = gal.copy()
+        gal[: PROBES * 32] = _unit(
+            np.repeat(emb.numpy(), 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32, 1280)) / np.sqrt(1280)
+        )
+    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu")
+    cand, pick, esc = ps._certified(emb)
+    assert cand.shape == (PROBES, 4)  # rescore 48, capped at the gallery's 4 tiles
+    assert pick.shape == esc.shape == (PROBES,)
+    assert (cand == pick[:, None]).any(dim=1).all()
+    e16 = emb.to(torch.bfloat16).to(torch.float32)
+    g = ps.gallery.to(torch.float32)
+    d_cand = ((e16[:, None, :] - g[cand]) ** 2).sum(-1).min(dim=1).values
+    d_pick = ((e16 - g[pick]) ** 2).sum(-1)
+    assert (d_pick <= d_cand + 2.0**-12 * d_cand + 1e-5).all()
+    if not clustered:
+        np.testing.assert_array_equal(pick.numpy(), planted)
+        assert not esc.any()
+
+
 def test_exact_match_top1_matches_jax(setup):
     ji, pi, _ = _pair(setup, match="exact")
     _assert_same_top1(setup, ji, pi)
