@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"tilemin2_packed": 0, "topk_l2": 0}
+LAUNCHES: Dict[str, int] = {"tilemin2_packed": 0, "tilemin_packed": 0, "topk_l2": 0}
 # ptxas resource lines of the last build of each library (registers,
 # shared memory, spills), for the smoke run to print
 BUILD_LOG: Dict[str, str] = {}
@@ -98,6 +98,8 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "packed_scan":
             lib.tilemin2_packed_launch.argtypes = [P, P, P, P, I, I, I, P]
             lib.tilemin2_packed_launch.restype = I
+            lib.tilemin_packed_launch.argtypes = [P, P, P, I, I, I, I, P]
+            lib.tilemin_packed_launch.restype = I
         else:
             lib.topk_l2_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
             lib.topk_l2_launch.restype = I
@@ -123,20 +125,26 @@ def _raise_on(status: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with cudaError_t {status}")
 
 
-def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/packed_scan.cu``: per (query, 1024-row tile) min and
-    second-min packed keys, ``[B, n_tiles]`` int32 each."""
+def _check_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> int:
+    """Validate a packed scan's operands; returns the number of tiles."""
     _check(q_aug, "q_aug", torch.bfloat16, 2)
     _check(g_aug, "g_aug", torch.bfloat16, 2)
-    b, da = q_aug.shape
-    if g_aug.shape[0] % TILE_G or g_aug.shape[1] != da or da % 16:
+    da = q_aug.shape[1]
+    if g_aug.shape[0] % tile_g or g_aug.shape[1] != da or da % 16:
         raise ValueError(
-            f"packed scan takes whole {TILE_G}-row tiles and Da % 16 == 0; got "
+            f"packed scan takes whole {tile_g}-row tiles and Da % 16 == 0; got "
             f"q_aug {tuple(q_aug.shape)}, g_aug {tuple(g_aug.shape)}"
         )
     if q_aug.device != g_aug.device:
         raise ValueError("q_aug and g_aug are on different devices")
-    n_tiles = g_aug.shape[0] // TILE_G
+    return g_aug.shape[0] // tile_g
+
+
+def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kernels/packed_scan.cu``: per (query, 1024-row tile) min and
+    second-min packed keys, ``[B, n_tiles]`` int32 each."""
+    n_tiles = _check_packed(q_aug, g_aug, TILE_G)
+    b, da = q_aug.shape
     k1 = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
     k2 = torch.empty_like(k1)
     lib = _lib("packed_scan")
@@ -151,6 +159,27 @@ def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[to
         )
     LAUNCHES["tilemin2_packed"] += 1
     return k1, k2
+
+
+def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
+    """``kernels/packed_scan.cu``: per (query, ``tile_g``-row tile) min
+    packed key, ``[B, n_tiles]`` int32; ``tile_g`` is 128, 256, 512 or 1024."""
+    if tile_g not in (128, 256, 512, 1024):
+        raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
+    n_tiles = _check_packed(q_aug, g_aug, tile_g)
+    b, da = q_aug.shape
+    keys = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
+    lib = _lib("packed_scan")
+    with torch.cuda.device(q_aug.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(
+            lib.tilemin_packed_launch(
+                q_aug.data_ptr(), g_aug.data_ptr(), keys.data_ptr(), b, n_tiles, da, tile_g, stream,
+            ),
+            "tilemin_packed",
+        )
+    LAUNCHES["tilemin_packed"] += 1
+    return keys
 
 
 def launch_topk_l2(

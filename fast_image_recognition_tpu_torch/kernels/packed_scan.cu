@@ -1,12 +1,16 @@
-// Certified packed tile-min-2 scan for Hopper (sm_90a).
+// Packed tile-min scans for Hopper (sm_90a): the certified min-2 scan and
+// the single-min scan.
 //
-// Replaces the Pallas TPU kernel `_tilemin2_packed_kernel`
-// (fast_image_recognition_tpu/ops/distance_kernel.py:393, launched by
-// `_tilemin2_packed_block` :430). For every gallery tile of TILE_G = 1024
-// rows and every query it emits the smallest and second-smallest packed
-// int32 key
+// `tilemin2_packed_launch` replaces the Pallas TPU kernel
+// `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/distance_kernel.py:393,
+// launched by `_tilemin2_packed_block` :430); `tilemin_packed_launch`
+// replaces `_tilemin_packed_kernel` (:350, launched by `_tilemin_packed_block`
+// :607), which the early-exit cascade runs once per level. For every gallery
+// tile of `tile_g` rows (1024 for the min-2 scan; 128, 256, 512 or 1024 for
+// the single-min scan) and every query they emit the smallest (and, for the
+// min-2 scan, the second-smallest) packed int32 key
 //
-//     key = (f32 bits of q_aug . g_aug) & ~(TILE_G - 1) | row_in_tile
+//     key = (f32 bits of q_aug . g_aug) & ~(tile_g - 1) | row_in_tile
 //
 // where the augmented columns ([-2q, 1, 1, |q|^2_hi, |q|^2_lo] against
 // [g, |g|^2_hi, |g|^2_lo, 1, 1], see ops/distance_kernel.py) make the dot
@@ -14,18 +18,21 @@
 // bit patterns order as int32 and one integer min carries value and argmin;
 // a slightly negative distance has the sign bit set and sorts below every
 // positive key, as on the TPU. Pad rows carry |g|^2 = 1e38 and never win.
+// Equal keys cannot occur within a tile (the row bits differ), so the order
+// is (quantized distance, row) whatever the order of the reduction.
 //
 // Bound: at B = 1024, Np = 1,000,448, Da = 128 the work is 2*B*Np*Da = 262 GFLOP of
 // bf16 tensor-core products against 256 MB of gallery: operations bound
-// (0.265 ms at 989 TFLOP/s vs 0.076 ms at 3.35 TB/s). Design: one block owns
-// (64 queries, one 1024-row tile); the query block stays in shared memory,
-// the tile streams through in 64-row sub-tiles, WMMA bf16 x bf16 -> fp32
-// products (what the MXU does with preferred_element_type=f32) land in a
-// shared fp32 tile, and each warp reduces 8 query columns to (m1, m2)
-// pairs in registers, combined across lanes with warp shuffles. Query
-// blocks vary fastest in the grid, so the 16 blocks that read one gallery
-// tile run together and share it through L2. No cp.async/TMA pipelining
-// and no wgmma yet: a simple, correct first kernel.
+// (0.265 ms at 989 TFLOP/s vs 0.076 ms at 3.35 TB/s); at the cascade's
+// survivor capacities of a few hundred queries it is bytes bound. Design:
+// one block owns (64 queries, one tile); the query block stays in shared
+// memory, the tile streams through in 64-row sub-tiles, WMMA bf16 x bf16 ->
+// fp32 products (what the MXU does with preferred_element_type=f32) land in
+// a shared fp32 tile, and each warp reduces 8 query columns to keys in
+// registers, combined across lanes with warp shuffles. Query blocks vary
+// fastest in the grid, so the blocks that read one gallery tile run
+// together and share it through L2. No cp.async/TMA pipelining and no
+// wgmma yet: a simple, correct first kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,7 +43,7 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int TILE_G = 1024;   // gallery rows per output tile
+constexpr int TILE_G2 = 1024;  // gallery rows per tile of the min-2 scan
 constexpr int QB = 64;         // queries per block
 constexpr int RB = 64;         // gallery rows per sub-tile
 constexpr int THREADS = 256;   // 8 warps
@@ -51,12 +58,14 @@ __device__ __forceinline__ void pair_combine(int& m1, int& m2, int b1, int b2) {
     m1 = lo;
 }
 
+// EMIT2: also track and write the second-smallest key (out2).
+template <bool EMIT2>
 __global__ void __launch_bounds__(THREADS)
-tilemin2_packed_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ g,
-                       int32_t* __restrict__ out1,
-                       int32_t* __restrict__ out2,
-                       int B, int n_tiles, int da) {
+tilemin_packed_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ g,
+                      int32_t* __restrict__ out1,
+                      int32_t* __restrict__ out2,
+                      int B, int n_tiles, int da, int tile_g) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int ld = da + PAD;
     __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [QB][ld]
@@ -83,9 +92,10 @@ tilemin2_packed_kernel(const __nv_bfloat16* __restrict__ q,
 
     const int mf = warp >> 1;        // 16-row slice of the sub-tile
     const int nf = (warp & 1) * 2;   // first of two 16-query slices
-    const __nv_bfloat16* gtile = g + (size_t)tile * TILE_G * da;
+    const __nv_bfloat16* gtile = g + (size_t)tile * tile_g * da;
+    const int mask = ~(tile_g - 1);
 
-    for (int sub = 0; sub < TILE_G / RB; ++sub) {
+    for (int sub = 0; sub < tile_g / RB; ++sub) {
         const __nv_bfloat16* src = gtile + (size_t)sub * RB * da;
         for (int v = tid; v < RB * vpr; v += THREADS) {
             const int r = v / vpr, c = v % vpr;
@@ -117,9 +127,13 @@ tilemin2_packed_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
             for (int h = 0; h < RB / 32; ++h) {
                 const int r = lane + 32 * h;
-                const int key = (__float_as_int(col[r]) & ~(TILE_G - 1)) | (sub * RB + r);
-                if (key < m1[i]) { m2[i] = m1[i]; m1[i] = key; }
-                else if (key < m2[i]) { m2[i] = key; }
+                const int key = (__float_as_int(col[r]) & mask) | (sub * RB + r);
+                if (EMIT2) {
+                    if (key < m1[i]) { m2[i] = m1[i]; m1[i] = key; }
+                    else if (key < m2[i]) { m2[i] = key; }
+                } else {
+                    m1[i] = min(m1[i], key);
+                }
             }
         }
         // The next sub-tile's g_s writes follow the barrier above (all
@@ -132,15 +146,37 @@ tilemin2_packed_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
             const int b1 = __shfl_xor_sync(0xffffffffu, m1[i], off);
-            const int b2 = __shfl_xor_sync(0xffffffffu, m2[i], off);
-            pair_combine(m1[i], m2[i], b1, b2);
+            if (EMIT2) {
+                const int b2 = __shfl_xor_sync(0xffffffffu, m2[i], off);
+                pair_combine(m1[i], m2[i], b1, b2);
+            } else {
+                m1[i] = min(m1[i], b1);
+            }
         }
         const int qi = q0 + warp * QPW + i;
         if (lane == 0 && qi < B) {
             out1[(size_t)qi * n_tiles + tile] = m1[i];
-            out2[(size_t)qi * n_tiles + tile] = m2[i];
+            if (EMIT2) out2[(size_t)qi * n_tiles + tile] = m2[i];
         }
     }
+}
+
+template <bool EMIT2>
+int launch(const void* q, const void* g, void* out1, void* out2, int B,
+           int n_tiles, int da, int tile_g, void* stream) {
+    if (B <= 0 || n_tiles <= 0 || da <= 0 || da % 16 != 0 || n_tiles > 65535 ||
+        tile_g < 128 || tile_g > 1024 || (tile_g & (tile_g - 1)) != 0)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(QB + RB) * (da + PAD) * sizeof(__nv_bfloat16) +
+                        (size_t)QB * ACC_LD * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        tilemin_packed_kernel<EMIT2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((B + QB - 1) / QB, n_tiles);
+    tilemin_packed_kernel<EMIT2><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)g, (int32_t*)out1,
+        (int32_t*)out2, B, n_tiles, da, tile_g);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -150,16 +186,13 @@ tilemin2_packed_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int tilemin2_packed_launch(const void* q, const void* g, void* out1,
                                       void* out2, int B, int n_tiles, int da,
                                       void* stream) {
-    if (B <= 0 || n_tiles <= 0 || da <= 0 || da % 16 != 0 || n_tiles > 65535)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(QB + RB) * (da + PAD) * sizeof(__nv_bfloat16) +
-                        (size_t)QB * ACC_LD * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        tilemin2_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((B + QB - 1) / QB, n_tiles);
-    tilemin2_packed_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)g, (int32_t*)out1,
-        (int32_t*)out2, B, n_tiles, da);
-    return (int)cudaGetLastError();
+    return launch<true>(q, g, out1, out2, B, n_tiles, da, TILE_G2, stream);
+}
+
+// q: [B, da] bf16, g: [n_tiles * tile_g, da] bf16, out: [B, n_tiles] int32;
+// tile_g is 128, 256, 512 or 1024. Returns a cudaError_t value.
+extern "C" int tilemin_packed_launch(const void* q, const void* g, void* out,
+                                     int B, int n_tiles, int da, int tile_g,
+                                     void* stream) {
+    return launch<false>(q, g, out, nullptr, B, n_tiles, da, tile_g, stream);
 }

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's two CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each computes the same function as its kernel, in straightforward chunked
 PyTorch: the CPU tests run them, and ``chip_smoke.py`` holds each kernel
@@ -14,7 +14,32 @@ import torch
 
 BIG_DIST = 3.4e38
 INT_BIG = 2**31 - 1
-TILE_G = 1024  # gallery rows per packed-scan tile, as in packed_scan.cu
+TILE_G = 1024  # gallery rows per tile of the min-2 packed scan, as in packed_scan.cu
+
+
+def tilemin_packed_plain(
+    q_aug: torch.Tensor,  # [B, Da] bf16 augmented queries
+    g_aug: torch.Tensor,  # [Np, Da] bf16 augmented gallery, Np % tile_g == 0
+    tile_g: int = TILE_G,
+    chunk_rows: int = 65536,
+) -> torch.Tensor:
+    """Per (query, gallery tile) min packed int32 key
+    ``(f32 bits of the augmented dot) & ~(tile_g-1) | row_in_tile``,
+    ``[B, n_tiles]`` (counterpart of ``_tilemin_packed_kernel``,
+    ops/distance_kernel.py:350)."""
+    b = q_aug.shape[0]
+    n_tiles = g_aug.shape[0] // tile_g
+    qf = q_aug.to(torch.float32)
+    rows = torch.arange(tile_g, dtype=torch.int32, device=q_aug.device)
+    out = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
+    step = max(1, chunk_rows // tile_g)
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        g = g_aug[t0 * tile_g : t1 * tile_g].to(torch.float32)
+        # bf16 x bf16 products are exact in fp32; only the sum order differs
+        cross = (qf @ g.T).view(b, t1 - t0, tile_g)
+        out[:, t0:t1] = ((cross.view(torch.int32) & ~(tile_g - 1)) | rows).min(dim=2).values
+    return out
 
 
 def tilemin2_packed_plain(

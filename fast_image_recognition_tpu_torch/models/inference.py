@@ -1,7 +1,8 @@
 """Folded EfficientNet serving forward in PyTorch (counterpart of
 ``fast_image_recognition_tpu/models/inference.py``: ``_fold_conv_bn``,
 ``fold_backbone``, ``fold_preprocess_into_stem``, ``_block``,
-``folded_stem_pp``, ``folded_head`` and ``folded_forward(fused=False)``).
+``folded_stem_pp``, ``folded_blocks``, ``folded_head`` and
+``folded_forward(fused=False)``).
 
 Every inference BatchNorm is folded into the conv before it
 (``W' = W * gamma/sqrt(var+eps)``, ``b = beta - mean * gamma/sqrt(var+eps)``)
@@ -20,7 +21,7 @@ conv pads explicitly with ``F.pad`` instead of ``padding='same'``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -182,6 +183,11 @@ class FoldedEfficientNet(nn.Module):
 
     ``forward(images)``: uint8 (or 0..255 float) NHWC ``[B, R, R, 3]`` ->
     ``{'embedding': [B, F] fp32 pooled features, 'taps': {name: [B, C] fp32}}``.
+    The segment primitives :meth:`stem`, :meth:`run_blocks` and
+    :meth:`head` run the same forward in pieces (the early-exit cascade
+    runs stem -> blocks ``[0, e0)`` -> ``[e0, e1)`` -> ... -> head on a
+    shrinking batch); their activations are NCHW in ``channels_last``
+    memory.
     """
 
     def __init__(
@@ -208,7 +214,8 @@ class FoldedEfficientNet(nn.Module):
         self.register_buffer("head_w", _oihw(folded["head_w"]))
         self.register_buffer("head_b", folded["head_b"].clone())
 
-    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
+        """Raw NHWC images -> the stem's activation (``folded_stem_pp``)."""
         if images.shape[1] != self.resolution or images.shape[2] != self.resolution:
             raise ValueError(
                 f"images are {tuple(images.shape[1:3])}, the folded stem "
@@ -216,12 +223,25 @@ class FoldedEfficientNet(nn.Module):
             )
         # NHWC -> NCHW view: already channels_last in memory
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        h = _conv(x, self.stem_w, self.stem_b, stride=2) - self.stem_corr
-        h = F.silu(h)
+        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2) - self.stem_corr)
+
+    def run_blocks(self, h: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
+        """Blocks ``[start, end)`` (``folded_blocks``)."""
+        for blk in self.blocks[start:end]:
+            h = blk(h)
+        return h
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """Head conv + swish + fp32 global mean pool -> ``[B, F]``
+        (``folded_head``)."""
+        h = F.silu(_conv(h, self.head_w, self.head_b))
+        return h.to(torch.float32).mean(dim=(2, 3))
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        h = self.stem(images)
         taps: Dict[str, torch.Tensor] = {}
         for name, blk in zip(self.names, self.blocks):
             h = blk(h)
             if name in self.taps:
                 taps[name] = h.to(torch.float32).mean(dim=(2, 3))
-        h = F.silu(_conv(h, self.head_w, self.head_b))
-        return {"embedding": h.to(torch.float32).mean(dim=(2, 3)), "taps": taps}
+        return {"embedding": self.head(h), "taps": taps}

@@ -1,4 +1,4 @@
-"""Gallery scans of the serving path (counterpart of the packed-scan and
+"""Gallery scans of the serving paths (counterpart of the packed-scan and
 top-k part of ``fast_image_recognition_tpu/ops/distance_kernel.py``).
 
 Each wrapper runs the hand-written CUDA kernel (``kernels/*.cu``) on a CUDA
@@ -38,10 +38,16 @@ def _row_sq_norms(g: torch.Tensor) -> torch.Tensor:
     return (gf * gf).sum(dim=1)
 
 
-def pad_gallery(gallery: torch.Tensor) -> torch.Tensor:
+def _check_tile_g(tile_g: int) -> int:
+    if tile_g not in (128, 256, 512, 1024):
+        raise ValueError(f"tile_g must be a power of two from 128 to 1024, got {tile_g}")
+    return tile_g
+
+
+def pad_gallery(gallery: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
     """Zero-pad rows to a tile multiple (once, at build time)."""
     n = gallery.shape[0]
-    np_ = _round_up(max(n, TILE_G), TILE_G)
+    np_ = _round_up(max(n, tile_g), _check_tile_g(tile_g))
     if np_ == n:
         return gallery
     return torch.nn.functional.pad(gallery, (0, 0, 0, np_ - n))
@@ -62,13 +68,15 @@ def gallery_sq_norms(gallery: torch.Tensor, n_valid: int) -> torch.Tensor:
     return gsq
 
 
-def pack_gallery_aug(gallery: torch.Tensor, n_valid: Optional[int] = None) -> torch.Tensor:
+def pack_gallery_aug(
+    gallery: torch.Tensor, n_valid: Optional[int] = None, tile_g: int = TILE_G
+) -> torch.Tensor:
     """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]``, columns
-    padded to a 128 multiple, rows to ``TILE_G`` with |g|^2 = 1e38. With the
+    padded to a 128 multiple, rows to ``tile_g`` with |g|^2 = 1e38. With the
     query-side ``[-2q, 1, 1, |q|^2_hi, |q|^2_lo]`` one bf16 dot gives the
     whole squared distance; the hi/lo split carries the norm to ~2^-17."""
     n = gallery.shape[0] if n_valid is None else int(n_valid)
-    g = pad_gallery(gallery).to(torch.bfloat16)
+    g = pad_gallery(gallery, tile_g).to(torch.bfloat16)
     np_, d = g.shape
     gsq = torch.where(torch.arange(np_, device=g.device) < n, _row_sq_norms(g), _PAD_SQ_NORM)
     hi = gsq.to(torch.bfloat16)
@@ -98,8 +106,58 @@ def _augment_queries(queries: torch.Tensor, d: int, da: int) -> torch.Tensor:
     return qa
 
 
-def _key_to_dist(keys: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min((keys & ~(TILE_G - 1)).view(torch.float32), 0.0)
+def _key_to_dist(keys: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
+    return torch.clamp_min((keys & ~(tile_g - 1)).view(torch.float32), 0.0)
+
+
+def _key_to_row(keys: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
+    """Global gallery row of each ``[B, n_tiles]`` packed key."""
+    tiles = torch.arange(keys.shape[1], dtype=torch.int32, device=keys.device) * tile_g
+    return tiles[None, :] + (keys & (tile_g - 1))
+
+
+def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
+    """Per (query, tile) min packed key, ``[B, n_tiles]`` int32: the
+    single-min kernel of ``kernels/packed_scan.cu`` on the card, the plain
+    version on the CPU."""
+    if _on_card(q_aug):
+        return build.launch_tilemin_packed(q_aug, g_aug, tile_g)
+    return plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
+
+
+def tile_min_l2_packed(
+    queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, tile_g: int = TILE_G
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dist [B, n_tiles] squared L2 of each tile's best row divided by
+    ``d``, its global row [B, n_tiles] int32). Distances are quantized to
+    ~2^-13 relative: they select tiles, and the caller rescores."""
+    qa = _augment_queries(queries, d, gallery_aug.shape[1])
+    keys = tilemin_keys(qa, gallery_aug, _check_tile_g(tile_g))
+    return _key_to_dist(keys, tile_g) / d, _key_to_row(keys, tile_g)
+
+
+def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
+    """[B, n_tiles] tile minima -> [B, R] columns of the R nearest tiles.
+    A stable ascending sort is ``lax.top_k(-d)``'s rule: ties go to the
+    lower tile."""
+    if select != "exact":
+        raise NotImplementedError(f"select={select!r} is not ported yet")
+    return torch.sort(d, dim=1, stable=True).indices[:, :r]
+
+
+def topk_candidates_l2_packed(
+    queries: torch.Tensor,
+    gallery_aug: torch.Tensor,
+    d: int,
+    r: int,
+    tile_g: int = TILE_G,
+    select: str = "exact",
+) -> torch.Tensor:
+    """Candidate rows [B, R] int32: the best row of each of the R nearest
+    tiles by the single-min packed scan. They hold the exact 1-NN up to
+    bf16 operand rounding and the key quantization; callers rescore."""
+    dt, it = tile_min_l2_packed(queries, gallery_aug, d, tile_g)
+    return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
 def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
@@ -113,9 +171,7 @@ def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
 
 def decode_tile_keys(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed keys -> (d1, global row of each tile's best, d2)."""
-    tiles = torch.arange(k1.shape[1], dtype=torch.int32, device=k1.device) * TILE_G
-    out_i = tiles[None, :] + (k1 & (TILE_G - 1))
-    return _key_to_dist(k1), out_i, _key_to_dist(k2)
+    return _key_to_dist(k1), _key_to_row(k1), _key_to_dist(k2)
 
 
 def tile_min2_l2_packed(

@@ -1,7 +1,9 @@
 """End-to-end recognition serving on the card (counterpart of
-``fast_image_recognition_tpu/serving.py`` ``RecognitionService``).
+``fast_image_recognition_tpu/serving.py``: ``RecognitionService``,
+``CascadeRecognitionService``, ``make_tap_embed_fn`` and
+``build_cascade_service``).
 
-One call per batch: the BN- and preprocess-folded backbone forward on raw
+``RecognitionService``: one call per batch: the BN- and preprocess-folded backbone forward on raw
 uint8 images, L2 normalization, and a 1-NN match against a
 device-resident bf16 gallery.
 
@@ -12,8 +14,16 @@ device-resident bf16 gallery.
   rescored distance does not clear the certificate's lower bound by the
   ``escalate`` slack take the exact full-D scan (``kernels/topk_l2.cu``).
   Only those probes are scanned, and a batch that is certified whole skips
-  the scan: the check costs one host sync.
+  the scan: the check costs one host sync. With ``escalate=None`` the
+  candidates come from the single-min packed scan and the rescored best
+  row is the answer, uncertified.
 - ``match='exact'``: the exact full-D scan for every probe.
+
+``CascadeRecognitionService``: the early-exit twin. The backbone runs in
+segments that end at exit taps; after each segment the probes still live
+are matched (single-min packed scan, ``rescore`` rows rescored in full D)
+and a probe exits when ``d1 < ratio^2 * d2``. Survivors are compacted into
+the next segment's static capacity. No host sync per batch.
 
 Other modes of the JAX service (``int8``, ``sharded``, the f32/bf16/int8
 PCA scans, approximate tile selection) raise ``NotImplementedError``.
@@ -21,16 +31,24 @@ PCA scans, approximate tile selection) raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from fast_image_recognition_tpu_torch.models.efficientnet import (
+    backbone_info,
+    block_plan,
+    default_taps,
+)
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet
 from fast_image_recognition_tpu_torch.ops.distance_kernel import (
     pack_gallery_aug,
     pad_gallery,
+    topk_candidates_l2_packed,
     topk_candidates_l2_packed_cert,
     topk_l2,
 )
@@ -45,6 +63,44 @@ def _normalize(emb: torch.Tensor) -> torch.Tensor:
     return emb / torch.clamp_min(torch.linalg.vector_norm(emb, dim=1, keepdim=True), 1e-30)
 
 
+def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tuple[torch.Tensor, int]:
+    """Host float rows -> padded bf16 rows on ``device``; a bf16 tensor is
+    taken as already padded. Returns (gallery, n_valid)."""
+    if isinstance(gallery, torch.Tensor) and gallery.dtype == torch.bfloat16:
+        return gallery.to(device), int(n_valid if n_valid is not None else gallery.shape[0])
+    g = torch.as_tensor(np.asarray(gallery, np.float32))
+    n = int(n_valid if n_valid is not None else g.shape[0])
+    return pad_gallery(g.to(device, torch.bfloat16)), n
+
+
+def _pca_assets(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int, tile_g: int = 1024):
+    """PCA fit on a small host sample of the gallery (only these rows
+    leave the device) and the packed gallery of the projected rows:
+    (pca_dim, mean [D] fp32, components [D, P] fp32, augmented gallery)."""
+    m = min(n_valid, pca_sample)
+    sample = gallery[:m].to(torch.float32).cpu().numpy()
+    pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
+    dev = gallery.device
+    mu = torch.tensor(pca.mean, dtype=torch.float32, device=dev)
+    w = torch.tensor(pca.components.T, dtype=torch.float32, device=dev)
+    mu16, w16 = mu.to(torch.bfloat16), w.to(torch.bfloat16)
+    gal_pca = torch.empty((gallery.shape[0], w.shape[1]), dtype=torch.bfloat16, device=dev)
+    for s in range(0, gallery.shape[0], _PROJECTION_ROWS):
+        gal_pca[s : s + _PROJECTION_ROWS] = (gallery[s : s + _PROJECTION_ROWS] - mu16) @ w16
+    return int(w.shape[1]), mu, w, pack_gallery_aug(gal_pca, n_valid, tile_g)
+
+
+def _rescore(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """``|g|^2 - 2 q.g`` [B, R] of the candidate rows, in fp32 from the bf16
+    rows and the bf16-rounded query (a bf16 einsum would round the
+    products' sum to bf16 and flip near-tie winners)."""
+    rows = gallery[cand].to(torch.float32)  # [B, R, D]
+    e16 = emb.to(torch.bfloat16).to(torch.float32)
+    cross = torch.einsum("bd,brd->br", e16, rows)
+    rsq = torch.einsum("brd,brd->br", rows, rows)
+    return rsq - 2.0 * cross
+
+
 class RecognitionService:
     """Folded-backbone extract + device-resident gallery 1-NN.
 
@@ -53,8 +109,8 @@ class RecognitionService:
     host float rows (L2-normalized) or an already padded bf16 tensor on
     ``device`` (pass ``n_valid`` for the true row count). ``labels``
     (optional ``[N]``) makes :meth:`identify` return labels too. After each
-    ``match='pca'`` call, ``last_escalated`` holds the ``[B]`` bool mask of
-    the probes that took the exact scan. The defaults are the main path's
+    ``match='pca'`` call with an ``escalate`` slack, ``last_escalated``
+    holds the ``[B]`` bool mask of the probes that took the exact scan. The defaults are the main path's
     (``bench.py --config e2e``): PCA-124, packed scan, rescore 48, slack 0.05.
     """
 
@@ -83,43 +139,22 @@ class RecognitionService:
         self.rescore = int(rescore)
         if match not in ("pca", "exact"):
             raise NotImplementedError(f"match={match!r} is not ported yet")
-        if match == "pca" and (pca_scan != "packed" or select != "exact" or escalate is None):
+        if match == "pca" and (pca_scan != "packed" or select != "exact"):
             raise NotImplementedError(
-                "only match='pca' with pca_scan='packed', select='exact' and an "
-                "escalate slack is ported"
+                "only match='pca' with pca_scan='packed' and select='exact' is ported"
             )
         self.serve = serving_fn if serving_fn is not None else make_serving_fn(
             variables, info, resolution=self.resolution, device=self.device
         )
 
-        if isinstance(gallery, torch.Tensor) and gallery.dtype == torch.bfloat16:
-            self.gallery = gallery.to(self.device)
-            self.n_valid = int(n_valid if n_valid is not None else gallery.shape[0])
-        else:
-            g = torch.as_tensor(np.asarray(gallery, np.float32))
-            self.n_valid = int(n_valid if n_valid is not None else g.shape[0])
-            self.gallery = pad_gallery(g.to(self.device, torch.bfloat16))
+        self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
         self.labels = None if labels is None else np.asarray(labels)
-        self.escalate = float(escalate) if match == "pca" else None
+        self.escalate = float(escalate) if match == "pca" and escalate is not None else None
 
         if match == "pca":
-            # fit on a small host sample: only these rows leave the device
-            m = min(self.n_valid, pca_sample)
-            sample = self.gallery[:m].to(torch.float32).cpu().numpy()
-            pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
-            self.pca_dim = int(pca.components.shape[0])
-            self._mu = torch.tensor(pca.mean, dtype=torch.float32, device=self.device)
-            self._w = torch.tensor(pca.components.T, dtype=torch.float32, device=self.device)
-            mu16, w16 = self._mu.to(torch.bfloat16), self._w.to(torch.bfloat16)
-            gal_pca = torch.empty(
-                (self.gallery.shape[0], self.pca_dim), dtype=torch.bfloat16, device=self.device
+            self.pca_dim, self._mu, self._w, self.gal_aug = _pca_assets(
+                self.gallery, self.n_valid, pca_dim, pca_sample
             )
-            for s in range(0, self.gallery.shape[0], _PROJECTION_ROWS):
-                gal_pca[s : s + _PROJECTION_ROWS] = (
-                    self.gallery[s : s + _PROJECTION_ROWS] - mu16
-                ) @ w16
-            self.gal_aug = pack_gallery_aug(gal_pca, self.n_valid)
-            del gal_pca
 
     # ------------------------------------------------------------------ #
 
@@ -130,13 +165,7 @@ class RecognitionService:
         qp = (emb - self._mu) @ self._w
         cand, bound = topk_candidates_l2_packed_cert(qp, self.gal_aug, self.pca_dim, self.rescore)
         cand = cand.to(torch.int64)
-        # rescore in fp32 from bf16 rows (a bf16 einsum would round the
-        # products' sum to bf16 and flip near-tie winners)
-        rows = self.gallery[cand].to(torch.float32)  # [B, R, D]
-        e16 = emb.to(torch.bfloat16).to(torch.float32)
-        cross = torch.einsum("bd,brd->br", e16, rows)
-        rsq = torch.einsum("brd,brd->br", rows, rows)
-        d = rsq - 2.0 * cross  # + |q|^2, constant per probe
+        d = _rescore(self.gallery, emb, cand)  # + |q|^2, constant per probe
         best = torch.argmin(d, dim=1, keepdim=True)
         idx_fast = cand.gather(1, best)[:, 0]
         # certificate: the rescored best (true squared L2) must clear the
@@ -153,6 +182,12 @@ class RecognitionService:
         if self.match == "exact":
             _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
             return idx[:, 0].to(torch.int64)
+        if self.escalate is None:
+            qp = (emb - self._mu) @ self._w
+            cand = topk_candidates_l2_packed(qp, self.gal_aug, self.pca_dim, self.rescore)
+            cand = cand.to(torch.int64)
+            best = torch.argmin(_rescore(self.gallery, emb, cand), dim=1, keepdim=True)
+            return cand.gather(1, best)[:, 0]
         _, idx, esc = self._certified(emb)
         self.last_escalated = esc
         if bool(esc.any()):
@@ -178,3 +213,388 @@ class RecognitionService:
         """Raw image batch -> (gallery rows [B] int64, labels [B] or None)."""
         idx = self.identify_device(images).cpu().numpy()
         return idx, (None if self.labels is None else self.labels[idx])
+
+
+# ---------------------------------------------------------------------- #
+# early-exit cascade                                                      #
+# ---------------------------------------------------------------------- #
+
+
+def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
+    """NCHW activation ``[B, C, H, W]`` -> ``[B, g*g*C]`` fp32 adaptive mean
+    pooling, flattened in the JAX package's NHWC order ``(gh, gw, C)``. H
+    and W are cropped to a multiple of the grid first; g=1 is plain GAP."""
+    b, c, hh, ww = h.shape
+    gh, gw = min(g, hh), min(g, ww)
+    h = h[:, :, : (hh // gh) * gh, : (ww // gw) * gw].to(torch.float32)
+    h = h.reshape(b, c, gh, hh // gh, gw, ww // gw).mean(dim=(3, 5))
+    return h.permute(0, 2, 3, 1).reshape(b, gh * gw * c)
+
+
+def _tap_forward(net: FoldedEfficientNet, images: torch.Tensor, taps: Sequence[str], grid: int):
+    """Whole forward: (grid-pooled feats of the tapped blocks in network
+    order, normalized final embedding)."""
+    tapset = set(taps)
+    h = net.stem(images)
+    feats = []
+    for name, blk in zip(net.names, net.blocks):
+        h = blk(h)
+        if name in tapset:
+            feats.append(_grid_pool(h, grid))
+    return feats, _normalize(net.head(h))
+
+
+def make_tap_embed_fn(
+    variables: Optional[Dict[str, Any]],
+    info: Dict[str, Any],
+    resolution: Optional[int] = None,
+    taps: Sequence[str] = (),
+    grid: int = 1,
+    *,
+    serving_fn: Optional[FoldedEfficientNet] = None,
+    device: DeviceLike = None,
+) -> Callable:
+    """``fn(images) -> (list of [B, g*g*C_l] fp32 tap feats, [B, D]
+    normalized final embedding)`` over the folded forward: the extractor
+    that builds per-level galleries. grid=1 is plain GAP, the tap embedding
+    the level-gallery cascade matches on."""
+    dev = resolve_device(device)
+    net = serving_fn if serving_fn is not None else make_serving_fn(
+        variables, info, resolution=resolution, device=dev
+    )
+
+    @torch.no_grad()
+    def fn(images):
+        return _tap_forward(net, torch.as_tensor(images, device=dev), taps, grid)
+
+    return fn
+
+
+def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> List[np.ndarray]:
+    """Ridge fit per tap of ``[feats, 1] @ A ~ emb`` on the host in fp32:
+    ``A = (X^T X + ridge * n * I)^-1 X^T emb``, ``[F_l + 1, D]`` each."""
+    out = []
+    for x in feats:
+        x = np.concatenate([x, np.ones((len(x), 1), np.float32)], axis=1)
+        xtx = x.T @ x + ridge * len(x) * np.eye(x.shape[1], dtype=np.float32)
+        out.append(np.linalg.solve(xtx, x.T @ emb))
+    return out
+
+
+class CascadeRecognitionService:
+    """Early-exit recognition serving (``CascadeRecognitionService`` of the
+    JAX package, serving.py:483).
+
+    The backbone runs in segments that end at the exit ``taps``. After each
+    segment the live probes get an embedding and are matched: the packed
+    single-min scan (``kernels/packed_scan.cu``) picks the best row of each
+    of the ``rescore`` nearest tiles, those rows are rescored in full D,
+    and a probe exits when ``d1 < ratio^2 * d2``. ``d2`` is the runner-up
+    candidate (``d2_rule='row'``) or the nearest candidate of another label
+    (``'class'``, which needs ``labels``). Survivors, least confident
+    first, are compacted into the next segment's static capacity; the
+    overflow exits with this level's answer and is counted as forced.
+
+    Two modes:
+
+    - ``galleries=None`` (readout): an affine readout per tap, ridge-fit on
+      calibration images, predicts the final embedding from grid-pooled
+      tap features; every level matches against the final gallery in its
+      PCA space.
+    - ``galleries=[...]`` (level): one gallery per tap, row-aligned with
+      the final gallery; each level matches its own GAP tap embedding
+      against its own gallery, unprojected.
+
+    ``variables`` holds the numpy ``params``/``batch_stats`` of a checkpoint
+    (or pass a built module as ``serving_fn``). ``ratio`` is read at every
+    call. :meth:`identify_device` makes no host sync: capacities are
+    Python ints, from :meth:`calibrate` or a fixed default.
+    """
+
+    def __init__(
+        self,
+        variables: Optional[Dict[str, Any]],
+        info: Dict[str, Any],
+        gallery,
+        *,
+        labels: Optional[np.ndarray] = None,
+        resolution: Optional[int] = None,
+        taps: Optional[Sequence[str]] = None,
+        grid: int = 2,
+        pca_dim: int = 124,
+        rescore: int = 48,
+        ratio: float = 0.7,
+        d2_rule: str = "row",
+        n_valid: Optional[int] = None,
+        pca_sample: int = 8192,
+        calib_total: int = 4096,
+        calib_batch: int = 1024,
+        ridge: float = 1e-3,
+        calib_images=None,
+        galleries: Optional[Sequence] = None,
+        seed: int = 17,
+        serving_fn: Optional[FoldedEfficientNet] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.info = info
+        self.resolution = int(resolution or info["resolution"])
+        self.dim = int(info["embedding_dim"])
+        self.grid = int(grid)
+        self.rescore = int(rescore)
+        self.ratio = float(ratio)
+        if d2_rule not in ("row", "class"):
+            raise ValueError("d2_rule must be 'row' or 'class'")
+        if d2_rule == "class" and labels is None:
+            raise ValueError("d2_rule='class' needs gallery labels")
+        self.d2_rule = d2_rule
+        self.labels = None if labels is None else np.asarray(labels)
+        self.net = serving_fn if serving_fn is not None else make_serving_fn(
+            variables, info, resolution=self.resolution, device=self.device
+        )
+
+        plan = block_plan(info["variant"])
+        if taps is None:
+            taps = default_taps(info["variant"], "early")[:2]
+        self.taps = list(taps)
+        name_to_idx = {b["name"]: i for i, b in enumerate(plan)}
+        tap_idx = [name_to_idx[t] for t in self.taps]
+        if tap_idx != sorted(tap_idx):
+            raise ValueError("taps must be in network order")
+        bounds = [0] + [i + 1 for i in tap_idx] + [len(plan)]
+        self.segments = list(zip(bounds[:-1], bounds[1:]))
+        self.num_levels = len(self.segments)
+
+        self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
+        # the ratio rule needs a real runner-up, so small galleries shrink
+        # the scan tile until there are >= 8 tiles (1M rows stay at 1024);
+        # galleries stay padded to 1024 rows, so whole pad tiles can exist
+        self._tile_g = 1024
+        while self._tile_g > 128 and self.n_valid < 8 * self._tile_g:
+            self._tile_g //= 2
+        self.pca_dim, self._mu, self._w, self._gal_aug = _pca_assets(
+            self.gallery, self.n_valid, pca_dim, pca_sample, self._tile_g
+        )
+        self._labels_dev = None
+        if d2_rule == "class":
+            lab_pad = np.full(int(self.gallery.shape[0]), -1, np.int64)
+            lab_pad[: self.n_valid] = self.labels[: self.n_valid]
+            self._labels_dev = torch.as_tensor(lab_pad, device=self.device)
+
+        self.mode = "readout" if galleries is None else "level"
+        self._readouts: Optional[List[torch.Tensor]] = None
+        self._tap_assets: List[Dict[str, Any]] = []
+        if self.mode == "level":
+            if len(galleries) != self.num_levels - 1:
+                raise ValueError(
+                    f"need one tap gallery per exit level ({self.num_levels - 1}), "
+                    f"got {len(galleries)}"
+                )
+            self.grid = 1
+            for g_l in galleries:
+                if int(g_l.shape[0]) < self.n_valid:
+                    raise ValueError(
+                        "tap galleries must be row-aligned with the final gallery "
+                        "(row r = the same enrolled image at every level); got "
+                        f"{int(g_l.shape[0])} rows < n_valid {self.n_valid}"
+                    )
+                gpad, _ = _device_gallery(g_l, self.n_valid, self.device)
+                if gpad.shape[0] != self.gallery.shape[0]:
+                    raise ValueError(
+                        "tap galleries must pad to the final gallery's row count "
+                        "(pass n_valid and same pre-pad row counts)"
+                    )
+                self._tap_assets.append({
+                    "gal": gpad,
+                    "aug": pack_gallery_aug(gpad, self.n_valid, self._tile_g),
+                    "dim": int(gpad.shape[1]),
+                })
+        else:
+            self._fit_readouts(calib_images, calib_total, calib_batch, ridge, seed)
+        self.survivor_fractions: Optional[List[float]] = None
+        self._capacities: Optional[Tuple[int, ...]] = None
+
+    # ------------------------------------------------------------------ #
+
+    def _fit_readouts(self, calib_images, calib_total, calib_batch, ridge, seed) -> None:
+        """Ridge-fit per-tap affine readouts tap feats -> final embedding on
+        calibration images (given, or uint8 noise drawn from
+        ``np.random.default_rng(seed)`` in the JAX package's order)."""
+        rng = np.random.default_rng(seed)
+        res = self.resolution
+        if calib_images is not None:
+            calib_images = np.asarray(calib_images)
+            calib_total = len(calib_images)
+        feats: Optional[List[list]] = None
+        embs = []
+        done = 0
+        with torch.no_grad():
+            while done < calib_total:
+                b = min(calib_batch, calib_total - done)
+                if calib_images is not None:
+                    imgs = calib_images[done : done + b]
+                else:
+                    imgs = rng.integers(0, 255, (b, res, res, 3), np.int64).astype(np.uint8)
+                f, e = _tap_forward(self.net, torch.as_tensor(imgs, device=self.device), self.taps, self.grid)
+                if feats is None:
+                    feats = [[] for _ in f]
+                for j, t in enumerate(f):
+                    feats[j].append(t.cpu().numpy())
+                embs.append(e.cpu().numpy())
+                done += b
+        readouts = _solve_readouts([np.concatenate(fl) for fl in feats], np.concatenate(embs), ridge)
+        self._readouts = [torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in readouts]
+
+    def _match_top2(self, emb, gal_aug, gallery, project: bool = True, dim: Optional[int] = None):
+        """Normalized [b, D] queries -> (best row [b] int64, d1 [b], d2 [b])
+        via the single-min packed candidate scan and an fp32 rescore of the
+        bf16 rows. d1/d2 are true squared L2 distances (|q|^2 = 1).
+        ``project=True`` scans in the final gallery's PCA space; ``False``
+        scans the query as it is against a same-space (tap) gallery."""
+        qp = (emb - self._mu) @ self._w if project else emb
+        cand = topk_candidates_l2_packed(
+            qp, gal_aug, dim if dim is not None else self.pca_dim, self.rescore, self._tile_g
+        ).to(torch.int64)
+        d = torch.clamp_min(1.0 + _rescore(gallery, emb, cand), 0.0)
+        # whole pad tiles (the gallery pads to 1024 rows, the tile may be
+        # smaller) give zero rows at d = 1 that could beat every real row
+        d = torch.where(cand < self.n_valid, d, math.inf)
+        if d.shape[1] < 2:
+            # one candidate: no runner-up, so the rule must never fire
+            return cand[:, 0], d[:, 0], d[:, 0]
+        if self.d2_rule == "class":
+            best = torch.argmin(d, dim=1, keepdim=True)
+            clab = self._labels_dev[cand]  # [b, R]
+            d2 = torch.where(clab != clab.gather(1, best), d, math.inf).min(dim=1).values
+            return cand.gather(1, best)[:, 0], d.gather(1, best)[:, 0], d2
+        # stable ascending sort = lax.top_k(-d, 2): ties to the lower column
+        top = torch.sort(d, dim=1, stable=True).indices[:, :2]
+        d12 = d.gather(1, top)
+        return cand.gather(1, top[:, :1])[:, 0], d12[:, 0], d12[:, 1]
+
+    def _level_match(self, level: int, emb: torch.Tensor):
+        """Match at ``level`` (the last level is the final embedding)."""
+        if self.mode == "level" and level < self.num_levels - 1:
+            a = self._tap_assets[level]
+            return self._match_top2(emb, a["aug"], a["gal"], project=False, dim=a["dim"])
+        return self._match_top2(emb, self._gal_aug, self.gallery)
+
+    def _level_embedding(self, level: int, h: torch.Tensor) -> torch.Tensor:
+        """Normalized embedding of a tap's activation: GAP (level mode) or
+        the readout's prediction of the final embedding."""
+        if self.mode == "level":
+            return _normalize(_grid_pool(h, 1))
+        a = self._readouts[level]
+        return _normalize(_grid_pool(h, self.grid) @ a[:-1] + a[-1])
+
+    def _run(self, images: torch.Tensor, caps: Tuple[int, ...], trace: Optional[list] = None):
+        """One batch through the cascade -> ``[2B+1]`` int32
+        ``[preds | exit_level | forced]``. With ``trace`` a list, each
+        level appends its ``gidx``, ``live``, ``d1`` and ``margin``."""
+        net = self.net
+        b = int(images.shape[0])
+        dev = images.device
+        ratio2 = self.ratio * self.ratio
+        preds = torch.zeros((b,), dtype=torch.int32, device=dev)
+        exit_level = torch.zeros((b,), dtype=torch.int32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        gidx = torch.arange(b, device=dev)
+        forced = torch.zeros((), dtype=torch.int32, device=dev)
+        carry = images
+        for level, (start, end) in enumerate(self.segments):
+            final = level == self.num_levels - 1
+            h = net.run_blocks(net.stem(carry) if level == 0 else carry, start, end)
+            emb = _normalize(net.head(h)) if final else self._level_embedding(level, h)
+            lp, d1, d2 = self._level_match(level, emb)
+            live = ~done[gidx]
+            # fire iff sqrt(d1/d2) < ratio  <=>  ratio^2 * d2 - d1 > 0
+            margin = ratio2 * d2 - d1
+            fire = live if final else (margin > 0) & live
+            preds = preds.index_copy(0, gidx, torch.where(live, lp.to(torch.int32), preds[gidx]))
+            lvl = torch.full_like(gidx, level, dtype=torch.int32)
+            exit_level = exit_level.index_copy(0, gidx, torch.where(live, lvl, exit_level[gidx]))
+            done = done.index_copy(0, gidx, done[gidx] | fire)
+            if trace is not None:
+                trace.append({"gidx": gidx, "live": live, "d1": d1, "margin": margin})
+            if final:
+                break
+            surv = live & ~fire
+            c_next = min(caps[level + 1], int(gidx.shape[0]))
+            # keep the least confident survivors (most negative margin);
+            # the overflow, closest to firing, exits here and is counted
+            order = torch.sort(torch.where(surv, margin, math.inf), stable=True).indices[:c_next]
+            forced = forced + torch.clamp_min(surv.sum(dtype=torch.int32) - c_next, 0)
+            gidx = gidx[order]
+            carry = h[order]
+        return torch.cat([preds, exit_level, forced[None]])
+
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def calibrate(self, images, slack: float = 1.3, multiple: int = 64) -> List[float]:
+        """Measure per-level survivor fractions on a representative batch
+        and size the static capacities: ``cap_l = roundup(B * frac * slack,
+        multiple)``, at most B."""
+        x = torch.as_tensor(images, device=self.device)
+        feats, _ = _tap_forward(self.net, x, self.taps, self.grid)
+        b = int(x.shape[0])
+        alive = np.ones(b, dtype=bool)
+        fractions: List[float] = []
+        for level in range(self.num_levels - 1):
+            if self.mode == "level":
+                emb = _normalize(feats[level])
+            else:
+                a = self._readouts[level]
+                emb = _normalize(feats[level] @ a[:-1] + a[-1])
+            _, d1, d2 = self._level_match(level, emb)
+            margin = (self.ratio * self.ratio * d2 - d1).cpu().numpy()
+            alive = alive & ~(margin > 0)
+            fractions.append(float(alive.mean()))
+        self.survivor_fractions = fractions
+        caps = [b]
+        m = min(multiple, b)
+        for frac in fractions:
+            c = max(1, math.ceil(b * frac * slack))
+            caps.append(min(b, -(-c // m) * m))
+        self._capacities = tuple(caps)
+        return fractions
+
+    def capacities_for(self, batch: int) -> Tuple[int, ...]:
+        if self._capacities is not None and self._capacities[0] == batch:
+            return self._capacities
+        # uncalibrated default: a quarter of the batch per later level
+        return (batch,) + (max(64, batch // 4) if batch >= 256 else batch,) * (self.num_levels - 1)
+
+    @torch.no_grad()
+    def identify_device(self, images, capacities: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Raw uint8 NHWC image batch -> ``[2B+1]`` int32 on the device:
+        ``[preds | exit_level | forced]`` (the timing-loop surface)."""
+        x = torch.as_tensor(images, device=self.device)
+        caps = tuple(capacities) if capacities else self.capacities_for(int(x.shape[0]))
+        return self._run(x, caps)
+
+    def identify(self, images, capacities: Optional[Sequence[int]] = None):
+        """Raw image batch -> (gallery rows [B] int64, labels [B] or None,
+        stats with ``break_counts`` and ``forced_fraction``)."""
+        packed = self.identify_device(images, capacities).cpu().numpy()
+        b = (packed.shape[0] - 1) // 2
+        idx = packed[:b].astype(np.int64)
+        exit_level = packed[b : 2 * b]
+        stats = {
+            "break_counts": (np.bincount(exit_level, minlength=self.num_levels) / b).tolist(),
+            "forced_fraction": float(packed[2 * b]) / b,
+        }
+        return idx, (None if self.labels is None else self.labels[idx]), stats
+
+
+def build_cascade_service(
+    variant: str,
+    gallery,
+    labels: Optional[np.ndarray] = None,
+    *,
+    variables: Dict[str, Any],
+    **kwargs,
+) -> CascadeRecognitionService:
+    """Cascade service from a zoo variant name and a checkpoint's numpy
+    ``params``/``batch_stats`` (the port does not initialize weights)."""
+    return CascadeRecognitionService(variables, backbone_info(variant), gallery, labels=labels, **kwargs)

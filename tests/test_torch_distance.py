@@ -153,3 +153,5 @@ def test_unported_options_raise_and_card_wrappers_check_device():
         build.launch_topk_l2(q, q, 1, 2)
     with pytest.raises(ValueError, match="CUDA"):
         build.launch_tilemin2_packed(q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.launch_tilemin_packed(q, q, 128)

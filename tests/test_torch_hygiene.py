@@ -62,11 +62,22 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
-    from fast_image_recognition_tpu_torch.serving import RecognitionService
+    from fast_image_recognition_tpu_torch.serving import (
+        CascadeRecognitionService,
+        RecognitionService,
+        build_cascade_service,
+        make_tap_embed_fn,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
+    with pytest.raises(RuntimeError):
+        CascadeRecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
+    with pytest.raises(RuntimeError):
+        build_cascade_service("b0", torch.zeros((4, 1280)), variables=None)
+    with pytest.raises(RuntimeError):
+        make_tap_embed_fn(None, backbone_info("b0"))
     with pytest.raises(RuntimeError):
         device_dataset(2, 1, 8)
 
@@ -91,7 +102,7 @@ def test_port_files_are_small_source_text():
 def test_ctypes_bindings_match_the_c_launchers():
     """Each ``extern "C"`` launcher takes as many arguments as its ctypes
     binding declares (the .cu files cannot be compiled here)."""
-    expected = {"tilemin2_packed_launch": 8, "topk_l2_launch": 13}
+    expected = {"tilemin2_packed_launch": 8, "tilemin_packed_launch": 8, "topk_l2_launch": 13}
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
         for fn, n_args in expected.items():

@@ -94,6 +94,16 @@ def test_pca_packed_certified_top1_matches_jax(setup, escalate, rescore):
         assert not esc.any()  # the certificate clears every probe
 
 
+def test_pca_packed_uncertified_top1_matches_jax(setup):
+    """``escalate=None``: the rescored best of the single-min packed scan's
+    candidates, uncertified (JAX serving.py:298-305); rescore 2 of the
+    gallery's 4 tiles, so the tile selection decides."""
+    ji, pi, ps = _pair(setup, escalate=None, rescore=2)
+    _assert_same_top1(setup, ji, pi)
+    np.testing.assert_array_equal(pi, setup[-1])  # the planted rows win
+    assert ps.escalate is None and not hasattr(ps, "last_escalated")
+
+
 @pytest.mark.parametrize("clustered", [False, True])
 def test_certified_pick_is_nearest_candidate(setup, clustered):
     """The pick before escalation is the candidate nearest the probe by a
