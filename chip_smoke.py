@@ -4,26 +4,38 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
-sources in the checkout with ``nvcc``, drives the main serving path at full
-width (EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
-class-structured gallery, PCA-124 certified packed scan, 48-row rescore,
-exact escalation at slack 0.05, batch 1024), holds every kernel against its
-plain PyTorch version on the main path's own tensors, and checks the
-answers against the exact full-D match. The pick before escalation is held
-against a plain rescore of its candidates, and a second 1M-row layout,
-where the certificate clears, holds the certified answer itself against the
-exact scan. It then drives the early-exit twin of the main path
-(``bench.py``'s cascade line): the level-gallery cascade with exit taps
-block3a/block4a/block5c, four row-aligned 1M-row galleries, ratio 0.85,
-``d2_rule='class'`` and capacities calibrated at slack 1.3 on held-out
-probes, holds its single-min scan kernel against its plain version at the
-cascade's shapes, and reruns the cascade with the scan bound to the plain
-version to hold its decisions. Each path (the main path, ``match='exact'``,
-the cascade, ``escalate=None``, the planted layout) counts its kernel
-launches on its own. One flushed line per phase, with the seconds since
-start. The last line is ``{"ok": true, "device": ...}``;
-any failure raises and the exit code is not 0. It needs one card and
-imports nothing of JAX.
+sources in the checkout with ``nvcc``, holds every kernel against its plain
+PyTorch version at the shapes of the paths below and at odd ones (widths
+that are no multiple of 8, batches of 1 and 130, tiles of nothing but
+padding), and drives, each with its own launch counts:
+
+- the main serving path at full width (bench.py's plain e2e line:
+  EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
+  class-structured gallery, PCA-124 certified packed scan, 48-row rescore,
+  exact escalation at slack 0.05 in one masked launch per call, batch
+  1024), once under ``torch.cuda.set_sync_debug_mode("error")``, with its
+  answers checked against ``match='exact'`` and the pick before escalation
+  against a plain rescore, and its exact step timed at 5 % escalation;
+  ``match='exact'``; the fp32 oracle
+  (``topk_l2(precise=True)``, bench.py's ``_exact_fp32_nn``) that every
+  agreement below is taken against;
+- the JAX package's default service (PCA-128, fp32-score tile scan) and
+  its ``pca_scan='bf16'``, ``pca_scan='int8'`` and ``match='int8'`` modes
+  on the same gallery;
+- the early-exit twin (bench.py's cascade line): the level-gallery cascade
+  with exit taps block3a/block4a/block5c, four row-aligned 1M-row
+  galleries, ratio 0.85, ``d2_rule='class'`` and capacities calibrated at
+  slack 1.3 on held-out probes, rerun with its scan bound to the plain
+  version to hold its decisions; ``escalate=None``; a planted 1M-row layout
+  where the certificate clears (also without a host sync);
+- bench.py's ``--config bf``: a 1M x 1536 bf16 gallery, the fused bf16
+  scan, a feature-window scan of it, and ``--quant``: the int8 scan with
+  exact rescore, ``compute`` int8 and bf16.
+
+One flushed line per phase, with the seconds since start. The line before
+the card's name and power limit holds the kernels' JSON; the last line is
+``{"ok": true, "device": ...}``. Any failure raises and the exit code is
+not 0. It needs one card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import sys
 import time
 
 T0 = time.time()
-BUDGET_S = 300.0  # a run takes well under a minute of command time
+BUDGET_S = 300.0  # a run takes one to two minutes of command time
 CKPT = os.path.join("benchmarks", "trained_b0_224_synthetic1024_s0.npz")
 GALLERY = 1_000_000
 IDENTITIES = 4096
@@ -47,8 +59,12 @@ TAPS = ["block3a", "block4a", "block5c"]  # bench.py's cascade exit taps
 RATIO = 0.85  # bench.py --cascade-ratio
 SLACK = 1.3  # bench.py --slack
 NEAR_TIE = 2.0**-8  # exit-rule margin within NEAR_TIE * d1 of zero
+BF_DIM = 1536  # bench.py --config bf
+BF_WINDOW = (256, 1024)  # a feature window of the bf gallery (the TWD partial-range scan)
 # published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12  # CUDA-core FMA, no tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -95,9 +111,20 @@ def host_ms(fn, reps: int) -> float:
     return (time.time() - t) / reps * 1e3
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_launches(path: str, launches: dict, **counts) -> None:
+    """Record the launch counts of ``path`` (counted since the last reset)
+    and require ``counts``, every other kernel 0."""
+    from fast_image_recognition_tpu_torch.kernels import build
+
+    launches[path] = dict(build.LAUNCHES)
+    want = {k: counts.get(k, 0) for k in build.LAUNCHES}
+    if launches[path] != want:
+        raise AssertionError(f"{path} launches {launches[path]}, expected {want}")
 
 
 def _unit(x):
@@ -260,49 +287,225 @@ def check_cert_scan(svc, emb, report):
     )
 
 
-def check_topk(gallery, n_valid, queries, k, report=None):
-    """topk_l2 kernel vs its plain version on the main path's gallery."""
+def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False):
+    """topk_l2 kernel (bf16, windowed or precise) vs its plain version on
+    the path's gallery. The kernel's rows are rescored here: each must sit
+    at the distance the kernel reports, and may differ from the plain pick
+    only where the two tie within the sum-order tolerance: 2^-12 relative
+    + 1e-6 for bf16 products; 2^-16 absolute for the fp32 oracle (sums of
+    1536 products of unit vectors in another order: ~sqrt(D) 2^-24 typical,
+    D 2^-24 at worst)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
 
-    q = queries.to(torch.bfloat16).contiguous()
-    kd, ki = build.launch_topk_l2(q, gallery, k, n_valid)
-    pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid)
+    q = queries.to(torch.float32 if precise else torch.bfloat16).contiguous()
+    launch = lambda: build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise)  # noqa: E731
+    kd, ki = launch()
+    pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise)
     torch.cuda.synchronize()
     err = (kd - pd).abs().max().item()
     idx_eq = (ki == pi).float().mean().item()
-    # the kernel's rows, rescored here: each must sit at the distance the
-    # kernel reports, and a row may differ from the plain pick only where
-    # the two tie within fp32 sum-order rounding (2^-12 relative)
+    b, dim = q.shape
+    lo, hi = window if window is not None else (0, dim)
     in_range = bool(((ki >= 0) & (ki < n_valid)).all())
-    rows = gallery[ki.clamp(0, n_valid - 1).long()].to(torch.float32)  # [B, k, D]
-    qf = q.to(torch.float32)
+    rows = gallery[ki.clamp(0, n_valid - 1).long()][:, :, lo:hi].to(torch.float32)  # [B, k, W]
+    qf = q[:, lo:hi].to(torch.float32)
     d_rows = torch.clamp_min(
         (qf * qf).sum(1)[:, None] + (rows * rows).sum(2) - 2.0 * torch.einsum("bd,bkd->bk", qf, rows), 0.0
     )
     del rows
-    tol = 2.0**-12 * pd.abs() + 1e-6
+    tol = torch.full_like(pd, 2.0**-16) if precise else 2.0**-12 * pd.abs() + 1e-6
     ok = in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
     ok = ok and bool(((kd - d_rows).abs() <= tol).all())
-    b, dim = q.shape
-    ms = cuda_ms(lambda: build.launch_topk_l2(q, gallery, k, n_valid), reps=3)
-    plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid), reps=1)
-    g = gallery[:n_valid]
-    yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
-    b_ms, b_by = bound(2.0 * b * n_valid * dim, n_valid * dim * 2 + b * dim * 2 + b * k * 8)
+    width = hi - lo
+    ms = cuda_ms(launch, reps=3)
+    plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise), reps=1)
+    yard_ms = None
+    if not precise and window is None:  # no fp32 copy of the gallery for the oracle
+        g = gallery[:n_valid]
+        yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
+    b_ms, b_by = bound(2.0 * b * n_valid * width, n_valid * width * gallery.element_size() + b * width * q.element_size()
+                       + b * k * 8, PEAK_FP32_FLOPS if precise else PEAK_BF16_FLOPS)
+    variant = "precise" if precise else f"window {window}" if window else "bf16"
     phase(
-        f"topk_l2 B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
+        f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"matmul+topk yardstick {yard_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
+        f"matmul+topk yardstick {'not measured' if yard_ms is None else f'{yard_ms:.3f} ms'}, "
+        f"bound {b_ms:.3f} ms ({b_by})"
     )
     if not ok:
-        raise AssertionError(f"topk_l2 kernel (k={k}) disagrees with its plain version")
+        raise AssertionError(f"topk_l2 kernel ({variant}, k={k}) disagrees with its plain version")
     if report is not None:
-        report["topk_l2"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        report.setdefault(key, []).append(dict(
+            shape=f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else ""),
+            max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, yardstick_matmul_topk_ms=yard_ms,
+        ))
+
+
+def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None):
+    """bf16 tile scan (``quant=None``) or int8 tile scan (``quant=(qs, gsc,
+    compute)``) kernel vs its plain version on the path's tensors. Scores
+    lie within [-3, 3] here (|g|^2 <= 1 and unit queries): the fp32 sum
+    order of the dot moves them by < 2^-16, a bf16 score, rounded three
+    times by at most half a bf16 ulp below magnitude 4, by < 2^-6, and the
+    int8 scan with bf16 products summed in fp32
+    past 2^24 by < 2^-12 of its cross term. The kernel's minima must agree
+    with the plain ones within that; its rows, rescored here from the same
+    operands, must sit at its minima within that, and may differ from the
+    plain rows only at such ties. A minimum at a row past n_valid (its
+    |g|^2 is BIG_DIST) is not rescored from the row's data. ``report=None``
+    checks without timing. Returns (kernel minima, kernel rows, plain
+    minima)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+
+    gsq = gsq.reshape(-1)
+    if quant is None:
+        launch = lambda: build.launch_tilemin(q, g, gsq, tile_g, bf16_scores)  # noqa: E731
+        run_plain = lambda: plain.tilemin_plain(q, g, gsq, tile_g, bf16_scores)  # noqa: E731
+        tol = 2.0**-6 if bf16_scores else 2.0**-16
+    else:
+        qs, gsc, compute = quant
+        gsc = gsc.reshape(-1)
+        launch = lambda: build.launch_tilemin_quant(q, qs, g, gsq, gsc, tile_g, compute)  # noqa: E731
+        run_plain = lambda: plain.tilemin_quant_plain(q, qs, g, gsq, gsc, tile_g, compute)  # noqa: E731
+        tol = 0.0 if compute == "int8" else 2.0**-12
+    kd, ki = launch()
+    pd, pi = run_plain()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pd)
+    err = (kd - pd)[fin].abs().max().item()
+    both_inf = bool((torch.isinf(kd) == torch.isinf(pd)).all())
+    idx_eq = (ki == pi).float().mean().item()
+    val_eq = (kd == pd).float().mean().item()
+
+    # rescore the returned rows from the same operands (fp32 sums; float64
+    # for the exact int8 dot)
+    def rescore(rows):
+        wide = torch.float64 if quant is not None and quant[2] == "int8" else torch.float32
+        cross = torch.einsum("bd,btd->bt", q.to(wide), g[rows.long()].to(wide)).to(torch.float32)
+        if quant is None:
+            return gsq[rows.long()] - 2.0 * cross
+        return gsq[rows.long()] - (2.0 * qs)[:, None] * (cross * gsc[rows.long()])
+
+    if quant is None:  # score magnitude scale for the bf16 tolerance
+        scale = 1.0
+    else:
+        scale = (2.0 * qs.abs().max() * gsc.abs().max() * q.shape[1] * 127 * 127).item()
+    atol = tol * scale + (2.0**-16 if quant is None or quant[2] != "int8" else 0.0)
+    d_k, d_p = rescore(ki), rescore(pi)
+    fin_k = torch.isfinite(kd) & (gsq[ki.long()] < 1e37)
+    rows_ok = bool(((d_k - kd).abs() <= atol)[fin_k].all()) and bool(((ki == pi) | ((d_k - d_p).abs() <= atol)).all())
+    ok = err <= atol and both_inf and rows_ok and bool((ki // tile_g == torch.arange(ki.shape[1], device=ki.device)).all())
+    b, d = q.shape
+    np_ = g.shape[0]
+    n_tiles = ki.shape[1]
+    if report is None:
+        phase(
+            f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
+            f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
+            f"{'ok' if rows_ok else 'WRONG'}"
         )
+        if not ok:
+            raise AssertionError(f"tile scan kernel disagrees with its plain version ({name})")
+        return kd, ki, pd
+    ms = cuda_ms(launch, reps=10 if d <= 128 else 3)
+    plain_ms = cuda_ms(run_plain, reps=1)
+    if quant is None:
+        yard_ms = cuda_ms(lambda: (q @ g.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
+        b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d * 2 + np_ * 4 + b * d * 2 + b * n_tiles * 8)
+    else:
+        # the library's matmul of the same operands, then the per-tile min:
+        # torch._int_mm (int8 x int8 -> int32) for compute int8, a bf16
+        # matmul of the same values for compute bf16
+        if quant[2] == "int8":
+            yard = lambda: torch._int_mm(q, g.t()).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
+        else:
+            gb, qb = g.to(torch.bfloat16), q.to(torch.bfloat16)
+            yard = lambda: (qb @ gb.T).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
+        try:
+            yard_ms = cuda_ms(yard, reps=3)
+        except RuntimeError as e:  # a yardstick, not a gate: say why it is missing
+            print(f"  {name}: matmul+min yardstick not measured: {str(e).splitlines()[0]}", flush=True)
+            yard_ms = None
+        yard = gb = qb = None
+        peak = PEAK_INT8_OPS if quant[2] == "int8" else PEAK_BF16_FLOPS
+        b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8, peak)
+    phase(
+        f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
+        f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
+        f"{'ok' if rows_ok else 'WRONG'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+min yardstick "
+        f"{'not measured' if yard_ms is None else f'{yard_ms:.3f} ms'}, bound {b_ms:.3f} ms ({b_by})"
+    )
+    if not ok:
+        raise AssertionError(f"tile scan kernel disagrees with its plain version ({name})")
+    report.append(dict(
+        shape=name, b=b, np=np_, d=d, tile_g=tile_g, max_abs_err=err, rows_equal=idx_eq, minima_equal=val_eq,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, yardstick_matmul_min_ms=yard_ms,
+    ))
+    return kd, ki, pd
+
+
+# (rows, n_valid, D, B) off the main path: widths no multiple of 8, a
+# batch of 1 and one past two query blocks, n_valid inside a tile
+EDGE_SHAPES = [(5000, 4321, 124, 130), (9000, 9000, 40, 64), (3000, 2900, 120, 1)]
+
+
+def check_edge_shapes(dev):
+    """The tile scans and the top-k variants against their plain versions
+    at :data:`EDGE_SHAPES`, untimed: galleries padded with ``pad_cols`` as
+    the services pad them, tile_g 128 to 1024, so that some tiles hold
+    nothing but rows past n_valid (real rows up to the gallery's size,
+    zeros after). There each minimum must equal the plain one bit for
+    bit: BIG_DIST with fp32 scores, inf with bf16 scores, at the tile's
+    first row. Returns the number of such whole-pad (query, tile) pairs
+    checked."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import plain
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+    from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    big = torch.tensor(plain.BIG_DIST, dtype=torch.float32).item()
+    pad_pairs = 0
+    for n, nv, d, b in EDGE_SHAPES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:b] + 0.1 * torch.randn((b, d), generator=gen, device=dev))
+        q16 = dk.pad_cols(q32.to(torch.bfloat16), 8)
+        tag = f"edge N={n} n_valid={nv} D={d} B={b}"
+        for tg in (128, 256, 512, 1024):
+            g16 = dk.pad_cols(dk.pad_gallery(g32.to(torch.bfloat16), tg), 8)
+            gsq = dk.gallery_sq_norms(g16, nv, tg)
+            scans = [(f"{tag} {'bf16' if bf else 'f32'}-scores",
+                      dict(q=q16, g=g16, bf16_scores=bf), float("inf") if bf else big) for bf in (False, True)]
+            if tg == 128:
+                gq, gs = quantize_rows(g16)
+                qq, qs = quantize_rows(q32)
+                gsc = dk.quant_gallery_scales(gs, nv, tg)
+                scans += [(f"{tag} int8-scan-{c}", dict(q=dk.pad_cols(qq), g=dk.pad_cols(gq), quant=(qs, gsc, c)), big)
+                          for c in ("int8", "bf16")]
+            for name, kw, pad_value in scans:
+                kd, ki, pd = check_tile_scan(name, kw.pop("q"), kw.pop("g"), gsq, tg, None, **kw)
+                whole_pad = torch.arange(kd.shape[1], device=dev) * tg >= nv
+                if bool(whole_pad.any()):
+                    first = (torch.arange(kd.shape[1], device=dev, dtype=torch.int32) * tg)[None, whole_pad]
+                    if not (bool((kd[:, whole_pad] == pd[:, whole_pad]).all())
+                            and bool((kd[:, whole_pad] == pad_value).all())
+                            and bool((ki[:, whole_pad] == first).all())):
+                        raise AssertionError(f"whole-pad tiles disagree ({name}, tile_g={tg})")
+                    pad_pairs += int(whole_pad.sum()) * b
+        q8 = dk.pad_cols(q32, 8)
+        check_topk(dk.pad_cols(g32, 8), nv, q8, 16, precise=True)  # fp32 rows
+        g8 = dk.pad_cols(g32.to(torch.bfloat16), 8)
+        check_topk(g8, nv, q8, 3, window=(5, d - 3), precise=True)
+        check_topk(g8, nv, q8, 5, window=(1, d - 1))
+        check_topk(g8, nv, q8, 16)
+    return pad_pairs
 
 
 def check_single_scan(name, qa, ga, tile_g, report):
@@ -350,6 +553,81 @@ def check_single_scan(name, qa, ga, tile_g, report):
         shape=name, b=b, np=np_, da=da, tile_g=tile_g, max_abs_err=err, keys_equal=key_eq,
         ms=ms, plain_ms=plain_ms, yardstick_matmul_min_ms=yard_ms, bound_ms=b_ms, bound_by=b_by,
     ))
+
+
+def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
+    """The exact scan of the escalated probes when about ``share`` of the
+    batch escalates (the certificate's working case; the class-structured
+    layout escalates every probe, the planted one none), three ways on
+    the same embeddings and mask: the service's ``_escalate`` (escalated
+    probes moved to the front, one masked launch), the same mask with
+    the probes left in place (every 64-query block with an escalated
+    probe scans), and the gather of the escalated rows behind a host sync
+    (``nonzero``), as the previous serving code did. All three must give
+    the same rows. Returns the timings (host clock between syncs)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    esc = torch.rand(emb.shape[0], generator=gen, device=dev) < share
+    with torch.no_grad():
+        _, pick, _ = svc._certified(emb)
+    pick = pick.to(torch.int32)
+
+    def grouped():
+        return svc._escalate(emb, pick, esc)
+
+    def in_place():
+        _, ei = dk.topk_l2(emb, gallery, 1, n_valid=svc.n_valid, row_mask=esc)
+        return torch.where(esc, ei[:, 0], pick)
+
+    def gathered():
+        rows = esc.nonzero()[:, 0]
+        out = pick.clone()
+        if rows.numel():
+            out[rows] = dk.topk_l2(emb[rows], gallery, 1, n_valid=svc.n_valid)[1][:, 0]
+        return out
+
+    ways = {"front": grouped, "in_place": in_place, "gather_sync": gathered}
+    with torch.no_grad():
+        outs = {k: f() for k, f in ways.items()}
+        if not all(bool((o == outs["gather_sync"]).all()) for o in outs.values()):
+            raise AssertionError("the escalation ways disagree")
+        ms = {k: [] for k in ways}
+        for k in ("gather_sync", "front", "in_place", "in_place", "front", "gather_sync"):
+            ms[k].append(host_ms(ways[k], TIMED_CALLS))
+    n_esc = int(esc.sum())
+    # 64-query blocks of the exact scan that hold an escalated probe (BATCH % 64 == 0)
+    front_blocks, in_place_blocks = -(-n_esc // 64), int(esc.view(-1, 64).any(dim=1).sum())
+    row = dict(escalated=n_esc, batch=emb.shape[0], scanned_blocks_front=front_blocks,
+               scanned_blocks_in_place=in_place_blocks, **{f"{k}_ms": v for k, v in ms.items()})
+    phase(
+        f"partial escalation ({n_esc} of {emb.shape[0]} probes): exact step {ms['front']} ms with the escalated "
+        f"probes in front ({front_blocks} query blocks scan), {ms['in_place']} ms in place ({in_place_blocks} blocks), "
+        f"{ms['gather_sync']} ms by gather behind a host sync; same rows all three"
+    )
+    return row
+
+
+def random_unit_gallery(n: int, dim: int, dev, seed: int = 1):
+    """bench.py's ``_planted_gallery_device`` with nothing to plant (its bf
+    config): every row, padding included (n rounded up to 1024), is
+    normalize(N(0, I)) in bf16, drawn on the card from a ``torch.Generator``
+    a chunk at a time (no fp32 copy of the gallery)."""
+    import torch
+
+    n_pad = -(-n // 1024) * 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gal = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n_pad, 65536):
+        rows = torch.randn((min(65536, n_pad - s), dim), generator=gen, device=dev)
+        gal[s : s + rows.shape[0]] = (rows * torch.rsqrt(torch.clamp_min((rows * rows).sum(1), 1e-30))[:, None]).to(
+            torch.bfloat16
+        )
+    return gal
 
 
 def near_ties(trace, caps, b):
@@ -435,6 +713,7 @@ def main() -> int:
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.kernels import plain
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+    from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
     from fast_image_recognition_tpu_torch.serving import (
         CascadeRecognitionService,
         RecognitionService,
@@ -444,6 +723,10 @@ def main() -> int:
 
     # 1. environment
     dev = default_device()
+    # default_device() turns TF32 off: the fp32 oracle and its plain check
+    # (an fp32 matmul) must contract in true fp32
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is enabled")
     smi = nvidia_smi_line()
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True, check=True)
     phase(
@@ -459,6 +742,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
     phase(f"built {sorted(build.SOURCES)} with nvcc in {time.time() - t:.1f} s")
+    pad_pairs = check_edge_shapes(dev)
+    phase(f"edge shapes {EDGE_SHAPES}: every kernel agrees with its plain version; {pad_pairs} (query, "
+          f"whole-pad tile) minima bit-equal to the plain ones (BIG_DIST with fp32 scores, inf with bf16)")
 
     # 3. workload: trained B0@224, unseen identities rendered on the card
     t = time.time()
@@ -487,7 +773,10 @@ def main() -> int:
     phase(f"rendered and embedded {2 * IDENTITIES} images at {RES} in {time.time() - t:.1f} s, sigma {sigma:.4f}")
     t = time.time()
     gallery, labels = class_structured_gallery(GALLERY, enroll, sigma)
-    svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
+    # bench.py's main path passes --pca-dim 124 --pca-scan packed; the
+    # service's own defaults are the JAX package's (PCA-128, f32 scores)
+    svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
+                             pca_dim=124, pca_scan="packed", device=dev)
     exact = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
                                match="exact", device=dev)
     torch.cuda.synchronize()
@@ -495,12 +784,19 @@ def main() -> int:
 
     # 4. each kernel against its plain version at the main path's shapes
     report = {}
-    probe_batch = svc.embed(images)
+    probe_batch = svc._embed(images)
     check_cert_scan(svc, probe_batch, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report)
     check_topk(gallery, GALLERY, probe_batch[:256], 16)
+    check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
+    torch.cuda.synchronize()
+    t = time.time()
+    masked_empty_ms = cuda_ms(lambda: dk.topk_l2(probe_batch, gallery, 1, n_valid=GALLERY,
+                                                 row_mask=torch.zeros(BATCH, dtype=torch.bool, device=dev)), reps=10)
+    phase(f"topk_l2 with an empty escalation mask (B={BATCH}, N={GALLERY}): {masked_empty_ms:.4f} ms per launch")
 
-    # 5. the main path: warm-up and timed calls, counted on their own
+    # 5. the main path: warm-up and timed calls, counted on their own; then
+    # one call under sync debug "error" (it raises on any host sync)
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     idx = svc.identify_device(images)
@@ -512,44 +808,57 @@ def main() -> int:
         masks.append(svc.last_escalated)
     torch.cuda.synchronize()
     sec = (time.time() - t) / TIMED_CALLS
-    launches = {"pca": dict(build.LAUNCHES)}
+    launches = {}
+    # one exact-scan launch per call, whatever the escalation mask holds
+    check_launches("pca", launches, tilemin2_packed=len(masks) * -(-BATCH // 1024), topk_l2=len(masks))
     esc_calls = sum(bool(m.any()) for m in masks)
     esc_share = svc.last_escalated.float().mean().item()
-    expect = {"tilemin2_packed": len(masks) * -(-BATCH // 1024), "tilemin_packed": 0, "topk_l2": esc_calls}
-    if launches["pca"] != expect:
-        raise AssertionError(f"main path launches {launches['pca']}, expected {expect}")
-    for name in ("tilemin2_packed", "topk_l2"):
-        if launches["pca"][name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx_sync = svc.identify_device(images)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not bool((idx_sync == idx).all()):
+        raise AssertionError("the main path's answers changed under sync debug mode")
 
     # 6. match='exact' on the same batch, counted on its own
     build.reset_launch_counts()
     idx_exact = exact.identify_device(images)
     torch.cuda.synchronize()
-    launches["exact"] = dict(build.LAUNCHES)
-    if launches["exact"] != {"tilemin2_packed": 0, "tilemin_packed": 0, "topk_l2": 1}:
-        raise AssertionError(f"match='exact' launches {launches['exact']}")
+    check_launches("exact", launches, topk_l2=1)
     with torch.no_grad():
-        emb = svc.embed(images)
-        embed_ms = host_ms(lambda: svc.embed(images), TIMED_CALLS)
+        emb = svc._embed(images)
+        embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
         match_ms = host_ms(lambda: svc._match_emb(emb), TIMED_CALLS)
         exact_ms = host_ms(lambda: exact._match_emb(emb), TIMED_CALLS)
         fast_agree_pct = check_certified_pick(svc, emb, idx_exact)
-    idx, idx_exact = idx.cpu().numpy(), idx_exact.cpu().numpy()
+
+    # the fp32 oracle of every agreement_pct of bench.py (_exact_fp32_nn),
+    # one precise launch per call, counted on its own
+    build.reset_launch_counts()
+    with torch.no_grad():
+        idx_oracle = dk.topk_l2(emb, gallery, 1, n_valid=GALLERY, precise=True)[1][:, 0]
+    torch.cuda.synchronize()
+    check_launches("oracle", launches, topk_l2_precise=1)
+    idx, idx_exact, idx_oracle = idx.cpu().numpy(), idx_exact.cpu().numpy(), idx_oracle.cpu().numpy()
     if idx.shape != (BATCH,) or not ((idx >= 0) & (idx < GALLERY)).all():
         raise AssertionError("main path returned rows outside the gallery")
     truth = np.arange(BATCH)
     err_pct = 100.0 * float(np.mean(labels[idx] != truth))
     agree_pct = 100.0 * float(np.mean(idx == idx_exact))
     label_agree_pct = 100.0 * float(np.mean(labels[idx] == labels[idx_exact]))
+    oracle_pct = 100.0 * float(np.mean(idx == idx_oracle))
+    exact_oracle_pct = 100.0 * float(np.mean(idx_exact == idx_oracle))
     exact_err_pct = 100.0 * float(np.mean(labels[idx_exact] != truth))
     phase(
         f"main path: {BATCH / sec:.1f} img/s ({1e3 * sec:.1f} ms/batch of {BATCH}, {smi}), "
         f"identity error {err_pct:.3f}% (exact match {exact_err_pct:.3f}%), top-1 agreement "
-        f"with match='exact' {agree_pct:.3f}% rows / {label_agree_pct:.3f}% labels, "
+        f"with match='exact' {agree_pct:.3f}% rows / {label_agree_pct:.3f}% labels, with the fp32 "
+        f"oracle {oracle_pct:.3f}% rows (match='exact' {exact_oracle_pct:.3f}%), "
         f"escalated {100 * esc_share:.2f}% of probes ({esc_calls} of {len(masks)} calls); "
-        f"pick before escalation agrees {fast_agree_pct:.3f}%; launches {launches}"
+        f"pick before escalation agrees {fast_agree_pct:.3f}%; no host sync in identify_device; "
+        f"launches {launches['pca']}"
     )
     phase(
         f"breakdown per batch of {BATCH}: embed {embed_ms:.1f} ms, pca match "
@@ -558,7 +867,56 @@ def main() -> int:
     )
     if agree_pct < 99.0:
         raise AssertionError(f"top-1 agreement with match='exact' is {agree_pct:.3f}% < 99%")
+    esc_rows = check_partial_escalation(svc, emb, gallery, dev)
     del svc, exact
+
+    # 6b. the JAX package's default service (PCA-128, fp32-score tile scan)
+    # and its other scans on the same gallery and batch, each counted alone
+    modes = [
+        ("default", {}, "tilemin"),
+        ("pca_scan='bf16'", dict(pca_scan="bf16"), "tilemin"),
+        ("pca_scan='int8'", dict(pca_scan="int8"), "tilemin_quant"),
+        ("match='int8'", dict(match="int8"), "tilemin_quant"),
+    ]
+    tile_report = {"tilemin": [], "tilemin_quant": []}
+    mode_rows = []
+    for name, kw, kernel in modes:
+        t = time.time()
+        ms_ = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
+                                 device=dev, **kw)
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        if name == "default":
+            # the tile scan kernel at this path's shapes, both score modes
+            with torch.no_grad():
+                qp = ((emb - ms_._mu) @ ms_._w).to(torch.bfloat16).contiguous()
+            for bf in (False, True):
+                check_tile_scan(f"pca{ms_.pca_dim}-{'bf16' if bf else 'f32'}-scores", qp, ms_._gal_pca, ms_._gal_sq,
+                                1024, tile_report["tilemin"], bf16_scores=bf)
+        build.reset_launch_counts()
+        out = ms_.identify_device(images)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(TIMED_CALLS):
+            out = ms_.identify_device(images)
+        torch.cuda.synchronize()
+        m_sec = (time.time() - t) / TIMED_CALLS
+        check_launches(f"service {name}", launches, **{kernel: TIMED_CALLS + 1})
+        out = out.cpu().numpy()
+        if out.dtype != np.int32 or not ((out >= 0) & (out < GALLERY)).all():
+            raise AssertionError(f"service {name} returned rows outside the gallery")
+        row = dict(mode=name, img_s=BATCH / m_sec, ms=1e3 * m_sec,
+                   error_pct=100.0 * float(np.mean(labels[out] != truth)),
+                   agreement_pct=100.0 * float(np.mean(out == idx_oracle)),
+                   exact_agreement_pct=100.0 * float(np.mean(out == idx_exact)))
+        mode_rows.append(row)
+        phase(
+            f"service {name} (PCA-{getattr(ms_, 'pca_dim', '-')}, built in {build_s:.1f} s): {row['img_s']:.1f} img/s "
+            f"({row['ms']:.1f} ms/batch), identity error {row['error_pct']:.3f}%, agreement with the fp32 oracle "
+            f"{row['agreement_pct']:.3f}% (with match='exact' {row['exact_agreement_pct']:.3f}%); "
+            f"launches {launches[f'service {name}']}"
+        )
+        del ms_
 
     # 7. the early-exit cascade (bench.py's second e2e line): per-tap
     # galleries at each tap's own intra-class spread, row-aligned with the
@@ -618,11 +976,7 @@ def main() -> int:
         out = casc.identify_device(images)
     torch.cuda.synchronize()
     casc_sec = (time.time() - t) / TIMED_CALLS
-    launches["cascade"] = dict(build.LAUNCHES)
-    calls = TIMED_CALLS + 2
-    expect = {"tilemin2_packed": 0, "tilemin_packed": calls * casc.num_levels, "topk_l2": 0}
-    if launches["cascade"] != expect:
-        raise AssertionError(f"cascade launches {launches['cascade']}, expected {expect}")
+    check_launches("cascade", launches, tilemin_packed=(TIMED_CALLS + 2) * casc.num_levels)
     packed = out.cpu().numpy()
     idx_c, exit_level, forced = packed[:BATCH].astype(np.int64), packed[BATCH : 2 * BATCH], int(packed[-1])
     if packed.shape != (2 * BATCH + 1,) or not ((idx_c >= 0) & (idx_c < GALLERY)).all():
@@ -630,12 +984,13 @@ def main() -> int:
     exit_fr = (np.bincount(exit_level, minlength=casc.num_levels) / BATCH).tolist()
     casc_err = 100.0 * float(np.mean(labels[idx_c] != truth))
     casc_label_agree = 100.0 * float(np.mean(labels[idx_c] == labels[idx_exact]))
+    casc_oracle_agree = 100.0 * float(np.mean(labels[idx_c] == labels[idx_oracle]))
     plain_ips = BATCH / sec
     casc_ips = BATCH / casc_sec
     phase(
         f"cascade path: {casc_ips:.1f} img/s ({1e3 * casc_sec:.1f} ms/batch of {BATCH}, {smi}), "
-        f"identity error {casc_err:.3f}%, label agreement with match='exact' "
-        f"{casc_label_agree:.3f}%, exit fractions {[round(f, 4) for f in exit_fr]}, survivor "
+        f"identity error {casc_err:.3f}%, label agreement with the fp32 oracle {casc_oracle_agree:.3f}% "
+        f"(with match='exact' {casc_label_agree:.3f}%), exit fractions {[round(f, 4) for f in exit_fr]}, survivor "
         f"fractions {[round(f, 4) for f in fracs]}, capacities {caps}, forced fraction "
         f"{forced / BATCH:.4f}, speed-up over the plain line {casc_ips / plain_ips:.3f}x "
         f"({plain_ips:.1f} img/s); no host sync in identify_device; launches {launches['cascade']}"
@@ -677,13 +1032,11 @@ def main() -> int:
 
     # 11. match='pca' with escalate=None: the uncertified single-min path
     svc_none = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                                  escalate=None, device=dev)
+                                  pca_dim=124, pca_scan="packed", escalate=None, device=dev)
     build.reset_launch_counts()
     idx_none = svc_none.identify_device(images)
     torch.cuda.synchronize()
-    launches["pca_escalate_none"] = dict(build.LAUNCHES)
-    if launches["pca_escalate_none"] != {"tilemin2_packed": 0, "tilemin_packed": 1, "topk_l2": 0}:
-        raise AssertionError(f"escalate=None launches {launches['pca_escalate_none']}")
+    check_launches("pca_escalate_none", launches, tilemin_packed=1)
     idx_none = idx_none.cpu().numpy()
     phase(
         f"match='pca' escalate=None: identity error {100 * float(np.mean(labels[idx_none] != truth)):.3f}%, "
@@ -696,15 +1049,23 @@ def main() -> int:
     # 12. the match on a layout where the certificate clears, counted on its own
     t = time.time()
     probes, gal_p, planted = planted_gallery(GALLERY, BATCH, enroll.shape[1], dev)
-    svc_p = RecognitionService(None, info, gal_p, n_valid=GALLERY, serving_fn=serve, device=dev)
+    svc_p = RecognitionService(None, info, gal_p, n_valid=GALLERY, serving_fn=serve, pca_dim=124,
+                               pca_scan="packed", device=dev)
     build.reset_launch_counts()
     with torch.no_grad():
         idx_p = svc_p._match_emb(probes)
+        torch.cuda.synchronize()
+        # the certified layout too runs without a host sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx_p2 = svc_p._match_emb(probes)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    launches["pca_planted"] = dict(build.LAUNCHES)
+    check_launches("pca_planted", launches, tilemin2_packed=2, topk_l2=2)
     esc_p = svc_p.last_escalated
-    if launches["pca_planted"] != {"tilemin2_packed": 1, "tilemin_packed": 0, "topk_l2": int(bool(esc_p.any()))}:
-        raise AssertionError(f"planted layout launches {launches['pca_planted']}")
+    if not bool((idx_p2 == idx_p).all()):
+        raise AssertionError("the planted layout's answers changed under sync debug mode")
     _, ei = build.launch_topk_l2(probes.to(torch.bfloat16), gal_p, 1, GALLERY)
     ei = ei[:, 0].to(torch.int64)
     with torch.no_grad():
@@ -722,30 +1083,121 @@ def main() -> int:
     )
     if cert_share < 0.99 or cert_agree < 1.0 or planted_pct < 100.0:
         raise AssertionError("the certified answer on the planted layout is not the exact one")
-    del svc_p, gal_p
+    del svc_p, gal_p, probes
+
+    # 13. bench.py --config bf: a 1M x 1536 bf16 gallery of random unit
+    # rows, queries = normalize(row i + 1e-2 noise), so the truth of query
+    # i is row i
+    t = time.time()
+    gal_bf = random_unit_gallery(GALLERY, BF_DIM, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    q_bf = _unit(gal_bf[:BATCH].to(torch.float32) + 1e-2 * torch.randn((BATCH, BF_DIM), generator=gen, device=dev))
+    torch.cuda.synchronize()
+    phase(f"bf gallery {tuple(gal_bf.shape)} bf16 built in {time.time() - t:.1f} s")
+    check_topk(gal_bf, GALLERY, q_bf, 1, report)
+    check_topk(gal_bf, GALLERY, q_bf, 1, report, key="topk_l2_precise", precise=True)
+    check_topk(gal_bf, GALLERY, q_bf, 1, report, key="topk_l2_windowed", window=BF_WINDOW)
+    build.reset_launch_counts()
+    idx_oracle_bf = dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY, precise=True)[1][:, 0].cpu().numpy()
+    check_launches("oracle_bf", launches, topk_l2_precise=1)
+
+    bf_found = {}
+
+    def bf_line(name, run, path, **counts):
+        build.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(TIMED_CALLS):
+            out = run()
+        torch.cuda.synchronize()
+        b_sec = (time.time() - t) / TIMED_CALLS
+        check_launches(path, launches, **{k: v * (TIMED_CALLS + 1) for k, v in counts.items()})
+        found = bf_found[path] = out[1][:, 0].cpu().numpy()
+        row = dict(line=name, queries_s=BATCH / b_sec, ms=1e3 * b_sec,
+                   error_pct=100.0 * float(np.mean(found != truth)),
+                   agreement_pct=100.0 * float(np.mean(found == idx_oracle_bf)),
+                   bf16_scan_agreement_pct=100.0 * float(np.mean(found == bf_found.get("bf", found))))
+        phase(
+            f"bf line, {name}: {row['queries_s']:.1f} queries/s ({row['ms']:.2f} ms per batch of {BATCH}, "
+            f"{smi}), error {row['error_pct']:.3f}%, agreement with the fp32 oracle {row['agreement_pct']:.3f}% "
+            f"(with the bf16 scan {row['bf16_scan_agreement_pct']:.3f}%); launches {launches[path]}"
+        )
+        return row
+
+    bf_rows = [bf_line("fused brute-force (topk_l2, k=1)",
+                       lambda: dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY), "bf", topk_l2=1)]
+    # the partial-range scan of the same gallery (feature window)
+    bf_rows.append(bf_line(f"feature window {list(BF_WINDOW)}",
+                           lambda: dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY, window=BF_WINDOW),
+                           "bf_windowed", topk_l2_windowed=1))
+
+    # 14. bench.py --config bf --quant: quantize once, then the int8 scan
+    # with an exact rescore of the best row of each of the 16 nearest tiles
+    t = time.time()
+    gal_q, scales = quantize_rows(gal_bf)
+    gsq_bf = dk.gallery_sq_norms(gal_bf, GALLERY)
+    gsc_bf = dk.quant_gallery_scales(scales, GALLERY)
+    del scales
+    torch.cuda.synchronize()
+    phase(f"bf gallery quantized to int8 with norms and scales in {time.time() - t:.1f} s")
+    q_i8, q_sc = quantize_rows(q_bf)
+    for compute in ("int8", "bf16"):
+        check_tile_scan(f"bf-quant-{compute}", q_i8, gal_q, gsq_bf, 1024, tile_report["tilemin_quant"],
+                        quant=(q_sc, gsc_bf, compute))
+    for compute in ("int8", "bf16"):
+        bf_rows.append(bf_line(
+            f"int8-scan+rescore ({compute}, r=16)",
+            lambda compute=compute: dk.topk_l2_quant(q_bf, gal_q, gsq_bf, gsc_bf, gal_bf, 1, r=16, compute=compute),
+            f"bf_quant_{compute}", tilemin_quant=1,
+        ))
+    del gal_q, gsq_bf, gsc_bf, gal_bf
 
     src = "fast_image_recognition_tpu_torch/kernels/"
+
+    def first(entries):
+        return {k: entries[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    def by_path(name):
+        return {p: c[name] for p, c in launches.items()}
+
     rows = [
         dict(name="tilemin2_packed", route="cuda", source=src + "packed_scan.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:393",
-             launches=launches["pca"]["tilemin2_packed"],
-             launches_by_path={p: c["tilemin2_packed"] for p, c in launches.items()},
+             launches=launches["pca"]["tilemin2_packed"], launches_by_path=by_path("tilemin2_packed"),
              **report["tilemin2_packed"]),
         dict(name="topk_l2", route="cuda", source=src + "topk_l2.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92",
-             launches=launches["pca"]["topk_l2"],
-             launches_by_path={p: c["topk_l2"] for p, c in launches.items()},
-             **report["topk_l2"]),
+             launches=launches["pca"]["topk_l2"], launches_by_path=by_path("topk_l2"),
+             empty_mask_ms=masked_empty_ms, **first(report["topk_l2"]), shapes=report["topk_l2"]),
         dict(name="tilemin_packed", route="cuda", source=src + "packed_scan.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:350",
-             launches=launches["cascade"]["tilemin_packed"],
-             launches_by_path={p: c["tilemin_packed"] for p, c in launches.items()},
+             launches=launches["cascade"]["tilemin_packed"], launches_by_path=by_path("tilemin_packed"),
              **{k: scan_report["shapes"][0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None, shapes=scan_report["shapes"], per_level=scan_report["per_level"]),
+        dict(name="tilemin", route="cuda", source=src + "tile_scan.cu",
+             replaces="fast_image_recognition_tpu/ops/distance_kernel.py:174",
+             launches=launches["service default"]["tilemin"], launches_by_path=by_path("tilemin"),
+             **first(tile_report["tilemin"]), shapes=tile_report["tilemin"]),
+        dict(name="tilemin_quant", route="cuda", source=src + "tile_scan.cu",
+             replaces="fast_image_recognition_tpu/ops/distance_kernel.py:671",
+             launches=launches["bf_quant_int8"]["tilemin_quant"], launches_by_path=by_path("tilemin_quant"),
+             **first(tile_report["tilemin_quant"]), shapes=tile_report["tilemin_quant"]),
+        dict(name="topk_l2_precise", route="cuda", source=src + "topk_l2.cu",
+             replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (precise=True)",
+             launches=launches["oracle"]["topk_l2_precise"], launches_by_path=by_path("topk_l2_precise"),
+             **first(report["topk_l2_precise"]), shapes=report["topk_l2_precise"]),
+        dict(name="topk_l2_windowed", route="cuda", source=src + "topk_l2.cu",
+             replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (window)",
+             launches=launches["bf_windowed"]["topk_l2_windowed"], launches_by_path=by_path("topk_l2_windowed"),
+             **first(report["topk_l2_windowed"]), shapes=report["topk_l2_windowed"]),
     ]
+    print(json.dumps({"lines": {"service_modes": mode_rows, "bf": bf_rows, "partial_escalation": esc_rows}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
-    phase("done")
+    phase(f"done: total command time {time.time() - T0:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

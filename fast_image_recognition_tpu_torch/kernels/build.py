@@ -27,7 +27,7 @@ from fast_image_recognition_tpu_torch.kernels.plain import TILE_G
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(KERNEL_DIR), "_build")
-SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu"}
+SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu", "tile_scan": "tile_scan.cu"}
 NVCC_FLAGS = [
     "-O3",
     "-std=c++17",
@@ -39,7 +39,15 @@ NVCC_FLAGS = [
     "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"tilemin2_packed": 0, "tilemin_packed": 0, "topk_l2": 0}
+LAUNCHES: Dict[str, int] = {
+    "tilemin2_packed": 0,
+    "tilemin_packed": 0,
+    "topk_l2": 0,
+    "topk_l2_windowed": 0,
+    "topk_l2_precise": 0,
+    "tilemin": 0,
+    "tilemin_quant": 0,
+}
 # ptxas resource lines of the last build of each library (registers,
 # shared memory, spills), for the smoke run to print
 BUILD_LOG: Dict[str, str] = {}
@@ -100,9 +108,16 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.tilemin2_packed_launch.restype = I
             lib.tilemin_packed_launch.argtypes = [P, P, P, I, I, I, I, P]
             lib.tilemin_packed_launch.restype = I
+        elif name == "tile_scan":
+            lib.tilemin_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+            lib.tilemin_launch.restype = I
+            lib.tilemin_quant_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+            lib.tilemin_quant_launch.restype = I
         else:
-            lib.topk_l2_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+            lib.topk_l2_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
             lib.topk_l2_launch.restype = I
+            lib.topk_l2_precise_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            lib.topk_l2_precise_launch.restype = I
             lib.topk_l2_segment_rows.argtypes = []
             lib.topk_l2_segment_rows.restype = I
             lib.topk_l2_list_len.argtypes = [I]
@@ -183,21 +198,47 @@ def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int)
 
 
 def launch_topk_l2(
-    q: torch.Tensor, g: torch.Tensor, k: int, n_valid: int
+    q: torch.Tensor,
+    g: torch.Tensor,
+    k: int,
+    n_valid: int,
+    window: Optional[Tuple[int, int]] = None,
+    precise: bool = False,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kernels/topk_l2.cu``: exact top-k raw squared L2 distances
-    ``[B, k]`` fp32 and row indices ``[B, k]`` int32 (-1 past n_valid)."""
-    _check(q, "queries", torch.bfloat16, 2)
-    _check(g, "gallery", torch.bfloat16, 2)
+    ``[B, k]`` fp32 and row indices ``[B, k]`` int32 (-1 past n_valid).
+    bf16 queries and rows on the tensor cores, or with ``precise`` fp32
+    queries against fp32 or bf16 rows on the CUDA cores. ``window=(start,
+    end)`` scans the feature lanes [start, end) only. Query rows where the
+    bool ``row_mask`` is False come back empty ``(BIG_DIST, -1)`` (not with
+    ``precise``)."""
+    _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
+    if precise:
+        if g.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"gallery must be fp32 or bf16, got {g.dtype}")
+        _check(g, "gallery", g.dtype, 2)
+    else:
+        _check(g, "gallery", torch.bfloat16, 2)
     b, d = q.shape
     n = g.shape[0]
-    if g.shape[1] != d or d % 8 or not 1 <= k <= 16 or not 0 < n_valid <= n:
+    start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
+    if g.shape[1] != d or d % 8 or not 1 <= k <= 16 or not 0 < n_valid <= n or not 0 <= start < end <= d:
         raise ValueError(
-            f"topk_l2 kernel takes D % 8 == 0, 1 <= k <= 16, 0 < n_valid <= N; got "
-            f"queries {tuple(q.shape)}, gallery {tuple(g.shape)}, k={k}, n_valid={n_valid}"
+            f"topk_l2 kernel takes D % 8 == 0, 1 <= k <= 16, 0 < n_valid <= N, 0 <= start < end <= D; "
+            f"got queries {tuple(q.shape)}, gallery {tuple(g.shape)}, k={k}, n_valid={n_valid}, "
+            f"window {window}"
         )
     if q.device != g.device:
         raise ValueError("queries and gallery are on different devices")
+    mask_ptr = None
+    if row_mask is not None:
+        if precise:
+            raise ValueError("row_mask is not taken with precise=True")
+        if row_mask.shape != (b,) or row_mask.dtype != torch.bool or row_mask.device != q.device:
+            raise ValueError("row_mask must be a [B] bool tensor on the queries' device")
+        row_mask = row_mask.contiguous()  # bool is one byte: read as uint8
+        mask_ptr = row_mask.data_ptr()
     lib = _lib("topk_l2")
     seg = lib.topk_l2_segment_rows()
     n_seg = -(-n_valid // seg)
@@ -206,14 +247,106 @@ def launch_topk_l2(
     part_i = torch.empty((b, n_seg, kk), dtype=torch.int32, device=q.device)
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    sizes = (b, n, n_valid, d, k, n_seg, start, end)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if precise:
+            status = lib.topk_l2_precise_launch(
+                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), part_d.data_ptr(),
+                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
+            )
+        else:
+            status = lib.topk_l2_launch(
+                q.data_ptr(), g.data_ptr(), mask_ptr, part_d.data_ptr(), part_i.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
+            )
+    name = "topk_l2_precise" if precise else "topk_l2" if window is None else "topk_l2_windowed"
+    _raise_on(status, name)
+    LAUNCHES[name] += 1
+    return out_d, out_i
+
+
+def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int) -> int:
+    """Validate a tile scan's operands; returns the number of tiles."""
+    if tile_g not in (128, 256, 512, 1024):
+        raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
+    _check(q, "queries", dtype, 2)
+    _check(g, "gallery", dtype, 2)
+    d = q.shape[1]
+    if g.shape[0] % tile_g or g.shape[1] != d or d % vec:
+        raise ValueError(
+            f"tile scan takes whole {tile_g}-row tiles and D % {vec} == 0; got "
+            f"queries {tuple(q.shape)}, gallery {tuple(g.shape)}"
+        )
+    if q.device != g.device:
+        raise ValueError("queries and gallery are on different devices")
+    return g.shape[0] // tile_g
+
+
+def _check_rows(t: torch.Tensor, what: str, n_rows: int, device: torch.device) -> None:
+    _check(t, what, torch.float32, t.dim())
+    if t.numel() < n_rows or t.device != device:
+        raise ValueError(f"{what} must hold >= {n_rows} fp32 values on {device}")
+
+
+def launch_tilemin(
+    q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kernels/tile_scan.cu``: per (query, tile) min of ``|g|^2 - 2 q.g``
+    and the lowest row at it, ``[B, n_tiles]`` fp32 and int32 (global
+    rows). ``gsq`` holds |g|^2 in row order (the ``gallery_sq_norms``
+    layout), BIG_DIST on pad rows."""
+    n_tiles = _check_scan(q, g, torch.bfloat16, 8, tile_g)
+    _check_rows(gsq, "gsq", g.shape[0], q.device)
+    b, d = q.shape
+    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+    lib = _lib("tile_scan")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(
-            lib.topk_l2_launch(
-                q.data_ptr(), g.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), b, n, n_valid, d, k, n_seg, stream,
+            lib.tilemin_launch(
+                q.data_ptr(), g.data_ptr(), gsq.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                b, n_tiles, d, tile_g, int(bf16_scores), stream,
             ),
-            "topk_l2",
+            "tilemin",
         )
-    LAUNCHES["topk_l2"] += 1
+    LAUNCHES["tilemin"] += 1
+    return out_d, out_i
+
+
+def launch_tilemin_quant(
+    q: torch.Tensor,
+    qs: torch.Tensor,
+    g: torch.Tensor,
+    gsq: torch.Tensor,
+    gsc: torch.Tensor,
+    tile_g: int,
+    compute: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kernels/tile_scan.cu``: per (query, tile) min of ``gsq - (2 s_q)
+    (q.g s_g)`` over int8 queries and rows and the lowest row at it,
+    ``[B, n_tiles]`` fp32 and int32. ``compute`` is ``'int8'`` (int32 dot)
+    or ``'bf16'`` (bf16 products summed in fp32)."""
+    if compute not in ("int8", "bf16"):
+        raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
+    n_tiles = _check_scan(q, g, torch.int8, 16, tile_g)
+    b, d = q.shape
+    _check_rows(qs, "qs", b, q.device)
+    _check_rows(gsq, "gsq", g.shape[0], q.device)
+    _check_rows(gsc, "gsc", g.shape[0], q.device)
+    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+    lib = _lib("tile_scan")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(
+            lib.tilemin_quant_launch(
+                q.data_ptr(), qs.data_ptr(), g.data_ptr(), gsq.data_ptr(), gsc.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), b, n_tiles, d, tile_g, int(compute == "int8"),
+                stream,
+            ),
+            "tilemin_quant",
+        )
+    LAUNCHES["tilemin_quant"] += 1
     return out_d, out_i

@@ -70,27 +70,128 @@ def tilemin2_packed_plain(
     return k1, k2
 
 
-def topk_l2_plain(
+def _tile_argmin(s: torch.Tensor, tile_g: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, rows] scores of whole tiles -> per tile (min, lowest row at the
+    min) ``[B, rows // tile_g]``: the ``_masked_argmin`` rule, equal values
+    go to the lowest row."""
+    b = s.shape[0]
+    s = s.view(b, -1, tile_g)
+    mins = s.min(dim=2).values
+    cols = torch.arange(tile_g, dtype=torch.int32, device=s.device)
+    arg = torch.where(s == mins[..., None], cols, INT_BIG).min(dim=2).values
+    return mins, arg
+
+
+def tilemin_plain(
     q: torch.Tensor,  # [B, D] bf16
-    g: torch.Tensor,  # [N, D] bf16
-    k: int,
-    n_valid: Optional[int] = None,
+    g: torch.Tensor,  # [Np, D] bf16, Np % tile_g == 0
+    gsq: torch.Tensor,  # [>= Np] fp32 |g|^2 in row order, BIG_DIST on pad rows
+    tile_g: int = TILE_G,
+    bf16_scores: bool = False,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32 from bf16
-    values, rows >= n_valid excluded, ties to the lowest row index, empty
-    slots ``(BIG_DIST, -1)``. Returns raw squared distances ``[B, k]`` fp32
-    and indices ``[B, k]`` int32 (counterpart of ``_topk_kernel``,
-    ops/distance_kernel.py:92)."""
-    n = g.shape[0] if n_valid is None else int(n_valid)
+    """Per (query, tile) min and argmin of ``|g|^2 - 2 q.g`` (counterpart of
+    ``_tilemin_kernel``, ops/distance_kernel.py:174): bf16 x bf16 products
+    summed in fp32; the score in fp32, or with ``bf16_scores`` rounded to
+    bf16 at each step (``|g|^2``, ``2 q.g`` and their difference, nearest
+    even). Returns (min [B, n_tiles] fp32, global row [B, n_tiles] int32);
+    ties go to the lowest row."""
     b = q.shape[0]
+    n_tiles = g.shape[0] // tile_g
     qf = q.to(torch.float32)
+    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+    step = max(1, chunk_rows // tile_g)
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        r0, r1 = t0 * tile_g, t1 * tile_g
+        cross2 = 2.0 * (qf @ g[r0:r1].to(torch.float32).T)
+        gs = gsq[r0:r1]
+        if bf16_scores:
+            s = (_bf16(gs)[None, :] - _bf16(cross2)).to(torch.bfloat16).to(torch.float32)
+        else:
+            s = gs[None, :] - cross2
+        mins, arg = _tile_argmin(s, tile_g)
+        out_d[:, t0:t1] = mins
+        out_i[:, t0:t1] = arg + torch.arange(t0, t1, dtype=torch.int32, device=q.device)[None, :] * tile_g
+    return out_d, out_i
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tilemin_quant_plain(
+    q: torch.Tensor,  # [B, D] int8
+    qs: torch.Tensor,  # [B] fp32 query scales
+    g: torch.Tensor,  # [Np, D] int8, Np % tile_g == 0
+    gsq: torch.Tensor,  # [>= Np] fp32 true |g|^2, BIG_DIST on pad rows
+    gsc: torch.Tensor,  # [>= Np] fp32 row scales, 0 on pad rows
+    tile_g: int = TILE_G,
+    compute: str = "int8",
+    chunk_rows: int = 32768,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)`` in
+    fp32, one rounding per operation in that order (counterpart of
+    ``_tilemin_quant_kernel``, ops/distance_kernel.py:671). ``'int8'``:
+    the exact integer dot (float64 sums of int8 products are exact here),
+    rounded to fp32; ``'bf16'``: the int8 values as bf16 (exact), products
+    summed in fp32. Returns (min [B, n_tiles] fp32, global row int32)."""
+    if compute not in ("int8", "bf16"):
+        raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
+    b = q.shape[0]
+    n_tiles = g.shape[0] // tile_g
+    wide = torch.float64 if compute == "int8" else torch.float32
+    qw = q.to(wide)
+    qs2 = (2.0 * qs.to(torch.float32))[:, None]
+    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+    step = max(1, chunk_rows // tile_g)
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        r0, r1 = t0 * tile_g, t1 * tile_g
+        cross = (qw @ g[r0:r1].to(wide).T).to(torch.float32)
+        s = gsq[r0:r1][None, :] - qs2 * (cross * gsc[r0:r1][None, :])
+        mins, arg = _tile_argmin(s, tile_g)
+        out_d[:, t0:t1] = mins
+        out_i[:, t0:t1] = arg + torch.arange(t0, t1, dtype=torch.int32, device=q.device)[None, :] * tile_g
+    return out_d, out_i
+
+
+def topk_l2_plain(
+    q: torch.Tensor,  # [B, D] bf16, or fp32 with ``precise``
+    g: torch.Tensor,  # [N, D] bf16 (or fp32 with ``precise``)
+    k: int,
+    n_valid: Optional[int] = None,
+    window: Optional[Tuple[int, int]] = None,
+    precise: bool = False,
+    row_mask: Optional[torch.Tensor] = None,
+    chunk_rows: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact L2 top-k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32 from the
+    stored values, rows >= n_valid excluded, ties to the lowest row index,
+    empty slots ``(BIG_DIST, -1)``. ``window=(start, end)`` zeroes the
+    feature lanes outside ``[start, end)`` in q, g and |q|^2. ``precise``
+    takes fp32 queries and contracts in fp32 (never TF32). Query rows where
+    ``row_mask`` is False come back empty. Returns raw squared distances
+    ``[B, k]`` fp32 and indices ``[B, k]`` int32 (counterpart of
+    ``_topk_kernel``, ops/distance_kernel.py:92)."""
+    n = g.shape[0] if n_valid is None else int(n_valid)
+    b, dim = q.shape
+    qf = q.to(torch.float32)
+    fmask = None
+    if window is not None:
+        lanes = torch.arange(dim, device=q.device)
+        fmask = ((lanes >= window[0]) & (lanes < window[1])).to(torch.float32)
+        qf = qf * fmask
     qsq = (qf * qf).sum(dim=1, keepdim=True)
     best_d = torch.full((b, k), BIG_DIST, dtype=torch.float32, device=q.device)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
     for r0 in range(0, n, chunk_rows):
         r1 = min(r0 + chunk_rows, n)
         gf = g[r0:r1].to(torch.float32)
+        if fmask is not None:
+            gf = gf * fmask
         gsq = (gf * gf).sum(dim=1)
         d = torch.clamp_min((qsq + gsq[None, :]) - 2.0 * (qf @ gf.T), 0.0)
         idx = torch.arange(r0, r1, device=q.device).expand(b, -1)
@@ -100,4 +201,7 @@ def topk_l2_plain(
         order = torch.sort(all_d, dim=1, stable=True).indices[:, :k]
         best_d = all_d.gather(1, order)
         best_i = all_i.gather(1, order)
+    if row_mask is not None:
+        best_d = torch.where(row_mask[:, None], best_d, BIG_DIST)
+        best_i = torch.where(row_mask[:, None], best_i, -1)
     return best_d, best_i.to(torch.int32)

@@ -1,10 +1,15 @@
-"""Gallery scans of the serving paths (counterpart of the packed-scan and
-top-k part of ``fast_image_recognition_tpu/ops/distance_kernel.py``).
+"""Gallery scans of the serving paths (counterpart of
+``fast_image_recognition_tpu/ops/distance_kernel.py``: the packed, bf16 and
+int8 tile scans, the candidate selections built on them, and the exact
+top-k with its feature window and fp32 ``precise`` mode).
 
 Each wrapper runs the hand-written CUDA kernel (``kernels/*.cu``) on a CUDA
 tensor and its plain PyTorch version (``kernels/plain.py``) on a CPU
 tensor; any other device raises. Shapes, padding and the augmented layouts
-live here, in Python the CPU tests reach.
+live here, in Python the CPU tests reach. A gallery may carry
+:func:`pad_cols` zero columns past its queries' width; on the card its
+width must be a multiple of 8 lanes (16 for the int8 scans), so a caller
+pads it once where it is built.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from fast_image_recognition_tpu_torch.kernels import build, plain
+from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
 BIG_DIST = plain.BIG_DIST
 TILE_G = plain.TILE_G
@@ -32,10 +38,38 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _row_sq_norms(g: torch.Tensor) -> torch.Tensor:
-    """fp32 |row|^2 of a bf16 matrix (exact squares, fp32 sums)."""
-    gf = g.to(torch.float32)
-    return (gf * gf).sum(dim=1)
+def _row_sq_norms(g: torch.Tensor, chunk_rows: int = 65536) -> torch.Tensor:
+    """fp32 |row|^2 of a bf16 matrix (exact squares, fp32 sums), a chunk
+    of rows at a time (no fp32 copy of a large gallery)."""
+    out = torch.empty((g.shape[0],), dtype=torch.float32, device=g.device)
+    for s in range(0, g.shape[0], chunk_rows):
+        gf = g[s : s + chunk_rows].to(torch.float32)
+        out[s : s + chunk_rows] = (gf * gf).sum(dim=1)
+    return out
+
+
+COL_ALIGN = 16  # the card's scans load 16-byte vectors: 8 bf16 or 16 int8 lanes
+
+
+def pad_cols(x: torch.Tensor, m: int = COL_ALIGN) -> torch.Tensor:
+    """Zero columns up to a multiple of ``m``: pad a gallery once, where it
+    is built (zeros change no dot product or norm). The scans take such a
+    gallery with queries of the unpadded width."""
+    d = x.shape[1]
+    return x if d % m == 0 else torch.nn.functional.pad(x, (0, _round_up(d, m) - d))
+
+
+def _match_cols(q: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
+    """Queries zero-padded (cheap, per call) to the gallery's width, which
+    may exceed theirs by :func:`pad_cols`'s padding. On the card the
+    gallery's width must be a multiple of ``m``: the scans never copy a
+    gallery per call."""
+    dq, dg = q.shape[1], g.shape[1]
+    if dg not in (dq, _round_up(dq, COL_ALIGN)):
+        raise ValueError(f"queries [{q.shape[0]}, {dq}] do not fit a gallery of width {dg}")
+    if g.device.type == "cuda" and dg % m:
+        raise ValueError(f"gallery width {dg} is not a multiple of {m}: pad it once with pad_cols")
+    return q if dq == dg else torch.nn.functional.pad(q, (0, dg - dq))
 
 
 def _check_tile_g(tile_g: int) -> int:
@@ -53,19 +87,35 @@ def pad_gallery(gallery: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
     return torch.nn.functional.pad(gallery, (0, 0, 0, np_ - n))
 
 
-def gallery_sq_norms(gallery: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), TILE_G]`` fp32,
-    BIG_DIST on rows >= n_valid."""
-    gallery = pad_gallery(gallery)
-    np_ = gallery.shape[0]
-    n_tiles = np_ // TILE_G
-    gsq = _row_sq_norms(gallery)
-    gsq = torch.where(torch.arange(np_, device=gsq.device) < n_valid, gsq, BIG_DIST)
-    gsq = gsq.view(n_tiles, TILE_G)
+def _tile_rows(v: torch.Tensor, tile_g: int, fill: float) -> torch.Tensor:
+    """Per-row values [Np] -> the kernel layout ``[roundup(n_tiles, 8),
+    tile_g]``, extra rows filled with ``fill``."""
+    n_tiles = v.shape[0] // tile_g
+    v = v.view(n_tiles, tile_g)
     n_rows = _round_up(n_tiles, 8)
     if n_rows != n_tiles:
-        gsq = torch.nn.functional.pad(gsq, (0, 0, 0, n_rows - n_tiles), value=BIG_DIST)
-    return gsq
+        v = torch.nn.functional.pad(v, (0, 0, 0, n_rows - n_tiles), value=fill)
+    return v
+
+
+def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
+    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), tile_g]`` fp32,
+    BIG_DIST on rows >= n_valid. Compute it once per gallery and pass it
+    to the scans."""
+    gallery = pad_gallery(gallery, tile_g)
+    gsq = _row_sq_norms(gallery)
+    gsq = torch.where(torch.arange(gallery.shape[0], device=gsq.device) < n_valid, gsq, BIG_DIST)
+    return _tile_rows(gsq, tile_g, BIG_DIST)
+
+
+def quant_gallery_scales(scales: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
+    """Per-row dequantization scales in the layout of
+    :func:`gallery_sq_norms`, 0 on rows >= n_valid and on pads."""
+    n = scales.shape[0]
+    np_ = _round_up(max(n, tile_g), _check_tile_g(tile_g))
+    s = torch.nn.functional.pad(scales.to(torch.float32), (0, np_ - n))
+    s = torch.where(torch.arange(np_, device=s.device) < n_valid, s, 0.0)
+    return _tile_rows(s, tile_g, 0.0)
 
 
 def pack_gallery_aug(
@@ -218,6 +268,160 @@ def topk_candidates_l2_packed_cert(
     return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d), r)
 
 
+def tilemin_scores(
+    q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (query, tile) min of ``|g|^2 - 2 q.g`` over bf16 operands and its
+    lowest row, ``[B, n_tiles]`` fp32 and int32: ``kernels/tile_scan.cu`` on
+    the card, the plain version on the CPU."""
+    gsq = gsq.reshape(-1)
+    q = _match_cols(q, g, 8)
+    if _on_card(q):
+        return build.launch_tilemin(q, g, gsq, tile_g, bf16_scores)
+    return plain.tilemin_plain(q, g, gsq, tile_g, bf16_scores)
+
+
+def tile_min_l2(
+    queries: torch.Tensor,
+    gallery: torch.Tensor,
+    *,
+    n_valid: Optional[int] = None,
+    tile_g: int = TILE_G,
+    gsq: Optional[torch.Tensor] = None,
+    precise_scores: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-gallery-tile L2 min: (dist [B, n_tiles] squared L2 of each
+    tile's best row divided by D, its global row [B, n_tiles] int32).
+
+    The products always run on bf16 operands (fp32 inputs are rounded), so
+    the 1-NN stays in its tile's min up to bf16 operand rounding; callers
+    rescore. ``precise_scores=False`` rounds the scores to bf16 as well,
+    which makes near-equal rows tie (the lowest row wins). ``gsq``: a
+    precomputed :func:`gallery_sq_norms` of the same gallery. |q|^2 is
+    taken from the queries as given, before the bf16 cast."""
+    d = queries.shape[1]
+    n = gallery.shape[0] if n_valid is None else int(n_valid)
+    gallery = pad_gallery(gallery, _check_tile_g(tile_g))
+    if gallery.dtype != torch.bfloat16:
+        gallery = gallery.to(torch.bfloat16)
+    if gsq is None:
+        gsq = gallery_sq_norms(gallery, n, tile_g)
+    qf = queries.to(torch.float32)
+    qsq = (qf * qf).sum(dim=1)
+    out_d, out_i = tilemin_scores(queries.to(torch.bfloat16).contiguous(), gallery, gsq, tile_g, not precise_scores)
+    return torch.clamp_min(out_d + qsq[:, None], 0.0) / d, out_i
+
+
+def topk_candidates_l2(
+    queries: torch.Tensor,
+    gallery: torch.Tensor,
+    r: int,
+    *,
+    n_valid: Optional[int] = None,
+    tile_g: int = TILE_G,
+    gsq: Optional[torch.Tensor] = None,
+    precise_scores: bool = True,
+    select: str = "exact",
+) -> torch.Tensor:
+    """Candidate rows [B, R] int32: the best row of each of the R nearest
+    tiles by :func:`tile_min_l2`. They hold the exact 1-NN up to bf16
+    operand rounding; callers rescore."""
+    dt, it = tile_min_l2(
+        queries, gallery, n_valid=n_valid, tile_g=tile_g, gsq=gsq, precise_scores=precise_scores
+    )
+    return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
+
+
+def tilemin_quant_scores(
+    q: torch.Tensor,
+    qs: torch.Tensor,
+    g: torch.Tensor,
+    gsq: torch.Tensor,
+    gsc: torch.Tensor,
+    tile_g: int,
+    compute: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (query, tile) min of ``gsq - (2 s_q)(q.g s_g)`` over int8
+    operands and its lowest row: ``kernels/tile_scan.cu`` on the card, the
+    plain version on the CPU."""
+    gsq, gsc = gsq.reshape(-1), gsc.reshape(-1)
+    q = _match_cols(q, g, 16)
+    if _on_card(q):
+        return build.launch_tilemin_quant(q, qs, g, gsq, gsc, tile_g, compute)
+    return plain.tilemin_quant_plain(q, qs, g, gsq, gsc, tile_g, compute)
+
+
+def tile_min_l2_quant(
+    queries: torch.Tensor,
+    gallery_q: torch.Tensor,
+    gsq_rows: torch.Tensor,
+    gsc_rows: torch.Tensor,
+    *,
+    tile_g: int = TILE_G,
+    compute: str = "int8",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-gallery-tile approximate L2 min over an int8 gallery (padded to
+    ``tile_g`` rows): (dist [B, n_tiles] divided by D, global row [B,
+    n_tiles] int32). Queries are quantized per row here; ``gsq_rows`` is
+    :func:`gallery_sq_norms` of the gallery before quantization and
+    ``gsc_rows`` :func:`quant_gallery_scales`. ``compute='int8'`` takes
+    the exact int32 dot, ``'bf16'`` sums bf16 products in fp32."""
+    if compute not in ("int8", "bf16"):
+        raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
+    d = queries.shape[1]
+    qf = queries.to(torch.float32)
+    qsq = (qf * qf).sum(dim=1)
+    q_i8, qs = quantize_rows(qf)
+    out_d, out_i = tilemin_quant_scores(q_i8, qs, gallery_q, gsq_rows, gsc_rows, _check_tile_g(tile_g), compute)
+    return torch.clamp_min(out_d + qsq[:, None], 0.0) / d, out_i
+
+
+def topk_candidates_l2_quant(
+    queries: torch.Tensor,
+    gallery_q: torch.Tensor,
+    gsq_rows: torch.Tensor,
+    gsc_rows: torch.Tensor,
+    r: int,
+    *,
+    tile_g: int = TILE_G,
+    compute: str = "int8",
+    select: str = "exact",
+) -> torch.Tensor:
+    """:func:`topk_candidates_l2` over an int8 gallery: [B, R] int32 rows,
+    the 1-NN among them up to int8 rounding near-ties; callers rescore."""
+    dt, it = tile_min_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, tile_g=tile_g, compute=compute)
+    return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
+
+
+def topk_l2_quant(
+    queries: torch.Tensor,
+    gallery_q: torch.Tensor,
+    gsq_rows: torch.Tensor,
+    gsc_rows: torch.Tensor,
+    rescore_gallery: torch.Tensor,
+    k: int = 1,
+    *,
+    r: int = 16,
+    tile_g: int = TILE_G,
+    compute: str = "int8",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-rescored top-k over an int8-scanned gallery: the best row of
+    each of the ``r`` nearest tiles by the int8 scan, rescored in fp32 from
+    ``rescore_gallery``'s rows and the queries in its dtype. Returns
+    (distances [B, k'] divided by D, rows [B, k'] int32) with
+    ``k' = min(k, r, n_tiles)``; ties go to the earlier candidate."""
+    cand = topk_candidates_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, r, tile_g=tile_g, compute=compute)
+    rows = rescore_gallery[cand.long()].to(torch.float32)  # [B, R, D]
+    qf = queries.to(rescore_gallery.dtype).to(torch.float32)
+    cross = torch.einsum("bd,brd->br", qf, rows)
+    rsq = torch.einsum("brd,brd->br", rows, rows)
+    qsq = (qf * qf).sum(dim=1)
+    dist = torch.clamp_min(qsq[:, None] + rsq - 2.0 * cross, 0.0)
+    # stable ascending sort = lax.top_k(-dist): ties to the earlier column
+    sel = torch.sort(dist, dim=1, stable=True).indices[:, : min(k, cand.shape[1])]
+    return dist.gather(1, sel) / queries.shape[1], cand.gather(1, sel)
+
+
 def topk_l2(
     queries: torch.Tensor,
     gallery: torch.Tensor,
@@ -226,24 +430,41 @@ def topk_l2(
     n_valid: Optional[int] = None,
     window: Optional[Tuple[int, int]] = None,
     precise: bool = False,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k over the gallery: (distances [B, k] divided by D,
-    indices [B, k] int32, -1 past ``n_valid``). Queries are rounded to the
-    gallery's bf16 (an fp32 gallery is cast to bf16 first), as the JAX
-    package's non-precise path does."""
-    if window is not None:
-        raise NotImplementedError("topk_l2(window=...) is not ported yet")
-    if precise:
-        raise NotImplementedError("topk_l2(precise=True) is not ported yet")
+    """Exact L2 top-k over the gallery: (distances [B, k] divided by the
+    window width, indices [B, k] int32, -1 past ``n_valid``).
+
+    By default queries are rounded to bf16 (an fp32 gallery is cast to
+    bf16 first), as the JAX package's fast path does. ``precise=True`` is
+    the fp32 oracle: fp32 queries against the rows as stored (fp32, or bf16
+    upcast exactly), contracted in fp32. ``window=(start, end)`` scans the
+    feature lanes [start, end) only. ``row_mask`` ([B] bool, not with
+    ``precise``): query rows where it is False come back empty
+    ``(BIG_DIST / width, -1)``, and on the card the kernel skips query
+    blocks without a True, so a mask that is all False costs one launch
+    and no scan (and no host sync)."""
     if not 1 <= k <= 16:
         raise NotImplementedError(f"topk_l2 supports 1 <= k <= 16, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)
-    if gallery.dtype != torch.bfloat16:
-        gallery = gallery.to(torch.bfloat16)
-    q = queries.to(gallery.dtype).contiguous()
-    d = q.shape[1]
-    if _on_card(q):
-        dist, idx = build.launch_topk_l2(q, gallery.contiguous(), k, n)
+    d = queries.shape[1]
+    start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
+    if not 0 <= start < end <= d:
+        raise ValueError(f"window must satisfy 0 <= start < end <= {d}, got {window}")
+    if precise:
+        if row_mask is not None:
+            raise ValueError("row_mask is not taken with precise=True")
+        if gallery.dtype not in (torch.float32, torch.bfloat16):
+            gallery = gallery.to(torch.float32)
+        q = queries.to(torch.float32).contiguous()
     else:
-        dist, idx = plain.topk_l2_plain(q, gallery, k, n)
-    return dist / d, idx
+        if gallery.dtype != torch.bfloat16:
+            gallery = gallery.to(torch.bfloat16)
+        q = queries.to(torch.bfloat16).contiguous()
+    gallery = gallery.contiguous()
+    q = _match_cols(q, gallery, 8)
+    if _on_card(q):
+        dist, idx = build.launch_topk_l2(q, gallery, k, n, window, precise, row_mask)
+    else:
+        dist, idx = plain.topk_l2_plain(q, gallery, k, n, window, precise, row_mask)
+    return dist / (end - start), idx

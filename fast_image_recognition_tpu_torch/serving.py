@@ -1,23 +1,32 @@
 """End-to-end recognition serving on the card (counterpart of
 ``fast_image_recognition_tpu/serving.py``: ``RecognitionService``,
-``CascadeRecognitionService``, ``make_tap_embed_fn`` and
+``CascadeRecognitionService``, ``make_tap_embed_fn``, ``build_service`` and
 ``build_cascade_service``).
 
-``RecognitionService``: one call per batch: the BN- and preprocess-folded backbone forward on raw
-uint8 images, L2 normalization, and a 1-NN match against a
-device-resident bf16 gallery.
+``RecognitionService``: one call per batch: the BN- and preprocess-folded
+backbone forward on raw uint8 images, L2 normalization, and a 1-NN match
+against a device-resident bf16 gallery.
 
-- ``match='pca'`` with ``pca_scan='packed'`` and ``select='exact'``: a
-  PCA-``pca_dim`` projection of the gallery is scanned by the certified
-  packed tile-min-2 kernel (``kernels/packed_scan.cu``); the best row of
-  each of the ``rescore`` nearest tiles is rescored in full D; probes whose
-  rescored distance does not clear the certificate's lower bound by the
-  ``escalate`` slack take the exact full-D scan (``kernels/topk_l2.cu``).
-  Only those probes are scanned, and a batch that is certified whole skips
-  the scan: the check costs one host sync. With ``escalate=None`` the
-  candidates come from the single-min packed scan and the rescored best
-  row is the answer, uncertified.
+- ``match='pca'``: candidates come from a PCA-``pca_dim`` projection of
+  the gallery, one row per tile of the ``rescore`` nearest tiles, and are
+  rescored in full D. The scan is ``pca_scan``:
+
+  - ``'f32'`` (the default) and ``'bf16'``: the tile-min scan
+    (``kernels/tile_scan.cu`` ``tilemin_launch``) with fp32 or bf16 scores;
+  - ``'int8'``: the tile-min scan over the int8-quantized projection
+    (``tilemin_quant_launch``);
+  - ``'packed'`` (bench.py's ``--pca-dim 124 --pca-scan packed``): the
+    packed scans of ``kernels/packed_scan.cu``. With ``select='exact'`` and
+    an ``escalate`` slack, the min-2 scan certifies each probe and the
+    probes whose rescored distance does not clear the certificate's lower
+    bound take the exact full-D scan (``kernels/topk_l2.cu``): one launch
+    per call with the escalation mask on the card, so a certified batch
+    pays only the launch and nothing waits for the host. With
+    ``escalate=None`` the single-min packed scan's rescored best row is
+    the answer, uncertified.
 - ``match='exact'``: the exact full-D scan for every probe.
+- ``match='int8'``: the int8 scan of the full-D gallery, then an exact
+  rescore of the best row of each of the ``min(rescore, 16)`` nearest tiles.
 
 ``CascadeRecognitionService``: the early-exit twin. The backbone runs in
 segments that end at exit taps; after each segment the probes still live
@@ -25,8 +34,7 @@ are matched (single-min packed scan, ``rescore`` rows rescored in full D)
 and a probe exits when ``d1 < ratio^2 * d2``. Survivors are compacted into
 the next segment's static capacity. No host sync per batch.
 
-Other modes of the JAX service (``int8``, ``sharded``, the f32/bf16/int8
-PCA scans, approximate tile selection) raise ``NotImplementedError``.
+``match='sharded'`` and ``select='approx'`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,13 +54,20 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet
 from fast_image_recognition_tpu_torch.ops.distance_kernel import (
+    gallery_sq_norms,
     pack_gallery_aug,
+    pad_cols,
     pad_gallery,
+    quant_gallery_scales,
+    topk_candidates_l2,
     topk_candidates_l2_packed,
     topk_candidates_l2_packed_cert,
+    topk_candidates_l2_quant,
     topk_l2,
+    topk_l2_quant,
 )
 from fast_image_recognition_tpu_torch.ops.pca import fit_pca
+from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
 # gallery rows projected per step: bounds the bf16 temporaries of the fit
 _PROJECTION_ROWS = 65536
@@ -73,10 +88,11 @@ def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tu
     return pad_gallery(g.to(device, torch.bfloat16)), n
 
 
-def _pca_assets(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int, tile_g: int = 1024):
+def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int):
     """PCA fit on a small host sample of the gallery (only these rows
-    leave the device) and the packed gallery of the projected rows:
-    (pca_dim, mean [D] fp32, components [D, P] fp32, augmented gallery)."""
+    leave the device) and the projection of every (padded) row in bf16:
+    (pca_dim, mean [D] fp32, components [D, P] fp32, projected rows [Np, P]
+    bf16)."""
     m = min(n_valid, pca_sample)
     sample = gallery[:m].to(torch.float32).cpu().numpy()
     pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
@@ -87,7 +103,7 @@ def _pca_assets(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: i
     gal_pca = torch.empty((gallery.shape[0], w.shape[1]), dtype=torch.bfloat16, device=dev)
     for s in range(0, gallery.shape[0], _PROJECTION_ROWS):
         gal_pca[s : s + _PROJECTION_ROWS] = (gallery[s : s + _PROJECTION_ROWS] - mu16) @ w16
-    return int(w.shape[1]), mu, w, pack_gallery_aug(gal_pca, n_valid, tile_g)
+    return int(w.shape[1]), mu, w, gal_pca
 
 
 def _rescore(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -108,10 +124,12 @@ class RecognitionService:
     (or pass a built module as ``serving_fn``). ``gallery`` is ``[N, D]``
     host float rows (L2-normalized) or an already padded bf16 tensor on
     ``device`` (pass ``n_valid`` for the true row count). ``labels``
-    (optional ``[N]``) makes :meth:`identify` return labels too. After each
-    ``match='pca'`` call with an ``escalate`` slack, ``last_escalated``
-    holds the ``[B]`` bool mask of the probes that took the exact scan. The defaults are the main path's
-    (``bench.py --config e2e``): PCA-124, packed scan, rescore 48, slack 0.05.
+    (optional ``[N]``) makes :meth:`identify` return labels too. The
+    defaults are the JAX package's: PCA-128, the fp32-score tile scan,
+    rescore 48. ``escalate`` applies only to ``pca_scan='packed'`` with
+    ``select='exact'`` (bench.py's main path passes ``pca_dim=124,
+    pca_scan='packed'``); after each such call ``last_escalated`` holds
+    the ``[B]`` bool mask of the probes that took the exact scan.
     """
 
     def __init__(
@@ -123,9 +141,9 @@ class RecognitionService:
         labels: Optional[np.ndarray] = None,
         resolution: Optional[int] = None,
         match: str = "pca",
-        pca_dim: int = 124,
+        pca_dim: int = 128,
         rescore: int = 48,
-        pca_scan: str = "packed",
+        pca_scan: str = "f32",
         select: str = "exact",
         escalate: Optional[float] = 0.05,
         n_valid: Optional[int] = None,
@@ -135,31 +153,50 @@ class RecognitionService:
     ):
         self.device = resolve_device(device)
         self.resolution = int(resolution or info["resolution"])
+        self.dim = int(info["embedding_dim"])
         self.match = match
         self.rescore = int(rescore)
-        if match not in ("pca", "exact"):
-            raise NotImplementedError(f"match={match!r} is not ported yet")
-        if match == "pca" and (pca_scan != "packed" or select != "exact"):
-            raise NotImplementedError(
-                "only match='pca' with pca_scan='packed' and select='exact' is ported"
-            )
+        if match == "sharded":
+            raise NotImplementedError("match='sharded' is not ported yet")
+        if match not in ("pca", "exact", "int8"):
+            raise ValueError(f"unknown match mode {match!r}")
+        if match == "pca" and pca_scan not in ("packed", "f32", "bf16", "int8"):
+            raise ValueError(f"unknown pca_scan {pca_scan!r}")
+        if select != "exact":
+            raise NotImplementedError(f"select={select!r} is not ported yet")
         self.serve = serving_fn if serving_fn is not None else make_serving_fn(
             variables, info, resolution=self.resolution, device=self.device
         )
 
         self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
         self.labels = None if labels is None else np.asarray(labels)
-        self.escalate = float(escalate) if match == "pca" and escalate is not None else None
+        # the certificate exists only for the packed min-2 scan (JAX
+        # serving.py:151-158)
+        self.escalate = float(escalate) if escalate is not None and match == "pca" and pca_scan == "packed" else None
+        self.pca_scan = pca_scan
 
         if match == "pca":
-            self.pca_dim, self._mu, self._w, self.gal_aug = _pca_assets(
+            self.pca_dim, self._mu, self._w, gal_pca = _pca_project(
                 self.gallery, self.n_valid, pca_dim, pca_sample
             )
+            if pca_scan == "packed":
+                self.gal_aug = pack_gallery_aug(gal_pca, self.n_valid)
+            else:
+                gal_pca = pad_cols(gal_pca)  # once, for the card's 16-byte loads
+                self._gal_sq = gallery_sq_norms(gal_pca, self.n_valid)
+                if pca_scan == "int8":
+                    gal_pca, pscales = quantize_rows(gal_pca)
+                    self._gal_sc = quant_gallery_scales(pscales, self.n_valid)
+                self._gal_pca = gal_pca
+        elif match == "int8":
+            self._gal_q, scales = quantize_rows(pad_cols(self.gallery))
+            self._gal_sq = gallery_sq_norms(self.gallery, self.n_valid)
+            self._gal_sc = quant_gallery_scales(scales, self.n_valid)
 
     # ------------------------------------------------------------------ #
 
     def _certified(self, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The PCA path before escalation: [B, D] fp32 normalized
+        """The packed PCA path before escalation: [B, D] fp32 normalized
         embeddings -> (cand [B, R] int64 rows, the rescored best row of
         each probe [B] int64, escalate mask [B] bool)."""
         qp = (emb - self._mu) @ self._w
@@ -177,42 +214,87 @@ class RecognitionService:
         esc = d1 + slack * qsq > (1.0 - slack) * bound
         return cand, idx_fast, esc
 
+    def _candidates(self, emb: torch.Tensor) -> torch.Tensor:
+        """Uncertified PCA candidates [B, R] int64 of the configured scan."""
+        qp = (emb - self._mu) @ self._w
+        if self.pca_scan == "packed":
+            cand = topk_candidates_l2_packed(qp, self.gal_aug, self.pca_dim, self.rescore)
+        elif self.pca_scan == "int8":
+            cand = topk_candidates_l2_quant(qp, self._gal_pca, self._gal_sq, self._gal_sc, self.rescore)
+        else:
+            cand = topk_candidates_l2(
+                qp, self._gal_pca, self.rescore, n_valid=self.n_valid, gsq=self._gal_sq,
+                precise_scores=self.pca_scan != "bf16",
+            )
+        return cand.to(torch.int64)
+
     def _match_emb(self, emb: torch.Tensor) -> torch.Tensor:
-        """[B, D] fp32 normalized embeddings -> [B] int64 gallery rows."""
+        """[B, D] fp32 normalized embeddings -> [B] int32 gallery rows on
+        the device, with no host sync."""
         if self.match == "exact":
             _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
-            return idx[:, 0].to(torch.int64)
+            return idx[:, 0]
+        if self.match == "int8":
+            _, idx = topk_l2_quant(
+                emb, self._gal_q, self._gal_sq, self._gal_sc, self.gallery, k=1, r=min(self.rescore, 16)
+            )
+            return idx[:, 0]
         if self.escalate is None:
-            qp = (emb - self._mu) @ self._w
-            cand = topk_candidates_l2_packed(qp, self.gal_aug, self.pca_dim, self.rescore)
-            cand = cand.to(torch.int64)
+            cand = self._candidates(emb)
             best = torch.argmin(_rescore(self.gallery, emb, cand), dim=1, keepdim=True)
-            return cand.gather(1, best)[:, 0]
+            return cand.gather(1, best)[:, 0].to(torch.int32)
         _, idx, esc = self._certified(emb)
         self.last_escalated = esc
-        if bool(esc.any()):
-            rows_esc = esc.nonzero()[:, 0]
-            _, ei = topk_l2(emb[rows_esc], self.gallery, k=1, n_valid=self.n_valid)
-            idx = idx.index_put((rows_esc,), ei[:, 0].to(torch.int64))
-        return idx
+        return self._escalate(emb, idx, esc)
+
+    def _escalate(self, emb: torch.Tensor, idx_fast: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
+        """[B] int32 rows: the exact scan's answer where ``esc`` holds, the
+        certified pick elsewhere. One ``topk_l2`` launch whatever ``esc``
+        holds, with no host sync: the escalated probes move to the front
+        (their order kept), so only the ceil(n_esc / 64) query blocks that
+        hold them scan and the rest return at once."""
+        e = esc.to(torch.int32)
+        # destination of each probe: escalated ones first, each group in order
+        pos = torch.where(esc, e.cumsum(0) - 1, e.sum() + (1 - e).cumsum(0) - 1)
+        front = torch.empty_like(emb).index_copy_(0, pos, emb)
+        mask = torch.empty_like(esc).index_copy_(0, pos, esc)
+        _, ei = topk_l2(front, self.gallery, k=1, n_valid=self.n_valid, row_mask=mask)
+        return torch.where(esc, ei[pos, 0], idx_fast.to(torch.int32))
 
     @torch.no_grad()
-    def embed(self, images) -> torch.Tensor:
+    def _embed(self, images) -> torch.Tensor:
         """Raw image batch -> L2-normalized ``[B, D]`` fp32 embeddings on
         the service device."""
         images = torch.as_tensor(images, device=self.device)
         return _normalize(self.serve(images)["embedding"])
 
+    def embed(self, images) -> np.ndarray:
+        """Raw image batch -> L2-normalized ``[B, D]`` fp32 embeddings as a
+        host numpy array (the extract-features product)."""
+        return self._embed(images).cpu().numpy()
+
     @torch.no_grad()
     def identify_device(self, images) -> torch.Tensor:
-        """Raw uint8 NHWC image batch -> ``[B]`` int64 gallery rows on the
-        device (the timing-loop surface)."""
-        return self._match_emb(self.embed(images))
+        """Raw uint8 NHWC image batch -> ``[B]`` int32 gallery rows on the
+        device (the timing-loop surface: nothing waits for the host)."""
+        return self._match_emb(self._embed(images))
 
     def identify(self, images) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Raw image batch -> (gallery rows [B] int64, labels [B] or None)."""
-        idx = self.identify_device(images).cpu().numpy()
+        idx = self.identify_device(images).cpu().numpy().astype(np.int64)
         return idx, (None if self.labels is None else self.labels[idx])
+
+    def match_flops(self, batch: int) -> float:
+        """Match FLOPs per batch (the backbone's are apart): the full-D scan
+        for ``exact`` and ``int8`` (int8 changes the rate, not the count);
+        projection, PCA scan and rescore for ``pca``."""
+        if self.match in ("exact", "int8"):
+            return 2.0 * batch * self.n_valid * self.dim
+        return (
+            2.0 * batch * self.dim * self.pca_dim
+            + 2.0 * batch * self.n_valid * self.pca_dim
+            + 2.0 * batch * self.rescore * self.dim * 2
+        )
 
 
 # ---------------------------------------------------------------------- #
@@ -372,9 +454,9 @@ class CascadeRecognitionService:
         self._tile_g = 1024
         while self._tile_g > 128 and self.n_valid < 8 * self._tile_g:
             self._tile_g //= 2
-        self.pca_dim, self._mu, self._w, self._gal_aug = _pca_assets(
-            self.gallery, self.n_valid, pca_dim, pca_sample, self._tile_g
-        )
+        self.pca_dim, self._mu, self._w, gal_pca = _pca_project(self.gallery, self.n_valid, pca_dim, pca_sample)
+        self._gal_aug = pack_gallery_aug(gal_pca, self.n_valid, self._tile_g)
+        del gal_pca
         self._labels_dev = None
         if d2_rule == "class":
             lab_pad = np.full(int(self.gallery.shape[0]), -1, np.int64)
@@ -587,14 +669,35 @@ class CascadeRecognitionService:
         return idx, (None if self.labels is None else self.labels[idx]), stats
 
 
+def build_service(
+    variant: str,
+    gallery,
+    labels: Optional[np.ndarray] = None,
+    *,
+    seed: int = 0,
+    variables: Dict[str, Any],
+    **kwargs,
+) -> RecognitionService:
+    """Recognition service from a zoo variant name and a checkpoint's numpy
+    ``params``/``batch_stats``. ``seed`` seeds the JAX package's random
+    backbone init; the port does not initialize weights, so it is taken
+    for the same signature and not used."""
+    del seed
+    return RecognitionService(variables, backbone_info(variant), gallery, labels=labels, **kwargs)
+
+
 def build_cascade_service(
     variant: str,
     gallery,
     labels: Optional[np.ndarray] = None,
     *,
+    seed: int = 0,
     variables: Dict[str, Any],
     **kwargs,
 ) -> CascadeRecognitionService:
     """Cascade service from a zoo variant name and a checkpoint's numpy
-    ``params``/``batch_stats`` (the port does not initialize weights)."""
+    ``params``/``batch_stats``. ``seed`` is taken as in
+    :func:`build_service` and not passed on: the service's own ``seed``
+    (17) seeds its calibration noise, as in the JAX package."""
+    del seed
     return CascadeRecognitionService(variables, backbone_info(variant), gallery, labels=labels, **kwargs)

@@ -38,6 +38,8 @@ from fast_image_recognition_tpu_torch.serving import (
     build_cascade_service,
     make_tap_embed_fn,
 )
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
 
 RES = 32
 REL = 2.0**-12

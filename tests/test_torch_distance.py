@@ -20,6 +20,8 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
 
 N_VALID, N_PAD, DIM = 3000, 4096, 124
 REL = 2.0**-12
@@ -139,19 +141,30 @@ def test_gallery_sq_norms_layout(gallery):
 
 
 def test_unported_options_raise_and_card_wrappers_check_device():
+    """k > 16 is not ported; other devices than CPU and CUDA raise; every
+    launcher refuses CPU tensors before any build is attempted (the plain
+    versions serve the CPU, the kernels only the card)."""
     q = torch.zeros((2, 16), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        P.topk_l2(q, q, 1, window=(0, 8))
-    with pytest.raises(NotImplementedError):
-        P.topk_l2(q, q, 1, precise=True)
-    with pytest.raises(NotImplementedError):
         P.topk_l2(q, q, 17)
+    with pytest.raises(NotImplementedError):
+        P.topk_l2(q, q, 17, precise=True)
     with pytest.raises(ValueError):
         P.topk_l2(q.to("meta"), q.to("meta"), 1)
-    # the launchers refuse CPU tensors before any build is attempted
+    with pytest.raises(ValueError):
+        P.tile_min_l2(q.to("meta"), q.to("meta"), tile_g=128)
+    f = q.float()
+    i8 = torch.zeros((2, 16), dtype=torch.int8)
+    rows = torch.zeros(1024)
     with pytest.raises(ValueError, match="CUDA"):
         build.launch_topk_l2(q, q, 1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.launch_topk_l2(f, q, 1, 2, window=(0, 8), precise=True)
     with pytest.raises(ValueError, match="CUDA"):
         build.launch_tilemin2_packed(q, q)
     with pytest.raises(ValueError, match="CUDA"):
         build.launch_tilemin_packed(q, q, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.launch_tilemin(q, q, rows, 128, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.launch_tilemin_quant(i8, rows, i8, rows, rows, 128, "int8")

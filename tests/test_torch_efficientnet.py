@@ -24,6 +24,8 @@ from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
 
 CKPT = os.path.join(
     os.path.dirname(__file__), "..", "benchmarks", "trained_b0_224_synthetic1024_s0.npz"

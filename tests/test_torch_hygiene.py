@@ -66,6 +66,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         CascadeRecognitionService,
         RecognitionService,
         build_cascade_service,
+        build_service,
         make_tap_embed_fn,
     )
 
@@ -76,6 +77,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         CascadeRecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
     with pytest.raises(RuntimeError):
         build_cascade_service("b0", torch.zeros((4, 1280)), variables=None)
+    with pytest.raises(RuntimeError):
+        build_service("b0", torch.zeros((4, 1280)), variables=None)
     with pytest.raises(RuntimeError):
         make_tap_embed_fn(None, backbone_info("b0"))
     with pytest.raises(RuntimeError):
@@ -102,7 +105,14 @@ def test_port_files_are_small_source_text():
 def test_ctypes_bindings_match_the_c_launchers():
     """Each ``extern "C"`` launcher takes as many arguments as its ctypes
     binding declares (the .cu files cannot be compiled here)."""
-    expected = {"tilemin2_packed_launch": 8, "tilemin_packed_launch": 8, "topk_l2_launch": 13}
+    expected = {
+        "tilemin2_packed_launch": 8,
+        "tilemin_packed_launch": 8,
+        "topk_l2_launch": 16,
+        "topk_l2_precise_launch": 16,
+        "tilemin_launch": 11,
+        "tilemin_quant_launch": 13,
+    }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
         for fn, n_args in expected.items():

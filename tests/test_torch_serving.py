@@ -1,5 +1,8 @@
 """The port's RecognitionService against the JAX package's on the same
-random-init B0@64 weights, probe images and gallery.
+random-init B0@64 weights, probe images and gallery, end to end
+(``pca`` with the packed scan, ``exact``); the other scans and the
+builders are held against JAX at the match level in
+test_torch_serving_modes.py.
 
 The gallery lies in a 96-dimensional span that holds the probes'
 embeddings, so PCA-124 keeps every distance and the packed scan's
@@ -24,6 +27,8 @@ from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.serving import RecognitionService
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
 
 RES, PROBES, N = 64, 32, 4000
 
@@ -64,10 +69,11 @@ def setup():
 
 
 def _pair(setup, **kw):
+    """Both services with the same arguments: bench.py's main-path PCA
+    (124, packed) unless ``kw`` says otherwise."""
     model, (variables, jax_serve), np_vars, serve, images, gal, _ = setup
-    js = JaxService(model, variables, jax_info("b0"), gal, resolution=RES, pca_dim=124,
-                    pca_scan="packed" if kw.get("match", "pca") == "pca" else "f32",
-                    serving_fn=jax_serve, **kw)
+    kw = {"pca_dim": 124, "pca_scan": "packed", **kw}
+    js = JaxService(model, variables, jax_info("b0"), gal, resolution=RES, serving_fn=jax_serve, **kw)
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve,
                             device="cpu", **kw)
     return np.asarray(js.identify_device(images)), ps.identify_device(torch.from_numpy(images)).numpy(), ps
@@ -120,7 +126,8 @@ def test_certified_pick_is_nearest_candidate(setup, clustered):
         gal[: PROBES * 32] = _unit(
             np.repeat(emb.numpy(), 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32, 1280)) / np.sqrt(1280)
         )
-    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu")
+    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
+                            pca_dim=124, pca_scan="packed")
     cand, pick, esc = ps._certified(emb)
     assert cand.shape == (PROBES, 4)  # rescore 48, capped at the gallery's 4 tiles
     assert pick.shape == esc.shape == (PROBES,)
@@ -138,9 +145,12 @@ def test_certified_pick_is_nearest_candidate(setup, clustered):
 def test_exact_match_top1_matches_jax(setup):
     ji, pi, _ = _pair(setup, match="exact")
     _assert_same_top1(setup, ji, pi)
+    assert pi.dtype == ji.dtype == np.int32  # identify_device's rows
 
 
 def test_identify_labels_and_unported_modes(setup):
+    """``identify`` returns int64 rows and their labels; ``sharded`` and
+    ``select='approx'`` are not ported and raise; unknown modes raise."""
     _, _, np_vars, serve, images, gal, planted = setup
     labels = np.arange(N) % 7
     ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES,
@@ -148,8 +158,12 @@ def test_identify_labels_and_unported_modes(setup):
     idx, lab = ps.identify(images[:4])
     np.testing.assert_array_equal(idx, planted[:4])
     np.testing.assert_array_equal(lab, labels[planted[:4]])
-    for kw in (dict(match="int8"), dict(match="sharded"), dict(pca_scan="f32"), dict(select="approx")):
+    assert idx.dtype == np.int64
+    for kw in (dict(match="sharded"), dict(select="approx")):
         with pytest.raises(NotImplementedError):
+            RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
+    for kw in (dict(match="nope"), dict(pca_scan="nope")):
+        with pytest.raises(ValueError):
             RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
 
 
@@ -171,8 +185,8 @@ def _jax_escalation(js, emb):
 
 @pytest.mark.parametrize("clustered", [False, True])
 def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
-    """Default service (PCA-124, rescore 48, slack 0.05): same embeddings
-    in, same top-1 and same certificate decisions out. With 32 rows per
+    """The main path's service (PCA-124 packed, rescore 48, slack 0.05):
+    same embeddings in, same top-1 and same certificate decisions out. With 32 rows per
     identity (the class-structured workload of chip_smoke.py) the within-
     tile second minimum is as near as the best row, so both packages
     escalate every probe; on the planted gallery neither does."""
@@ -187,7 +201,7 @@ def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
     js = JaxService(model, variables, jax_info("b0"), gal, resolution=RES, pca_dim=124,
                     pca_scan="packed", serving_fn=jax_serve)
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve,
-                            device="cpu")
+                            device="cpu", pca_dim=124, pca_scan="packed")
     pi = ps._match_emb(torch.from_numpy(emb)).numpy()
     ji = np.asarray(js._match_emb(jnp.asarray(emb), *js.match_args))
     dj, dp = ((emb - gal[ji]) ** 2).sum(1), ((emb - gal[pi]) ** 2).sum(1)
@@ -197,3 +211,21 @@ def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
     # a decision may differ only where the test sits on its threshold
     assert ((jesc == pesc) | (margin < 2.0**-8)).all()
     assert pesc.all() if clustered else not pesc.any()
+
+
+def test_return_types_match_jax(setup):
+    """As in the JAX package, ``identify_device`` gives int32 rows on the
+    device (the JAX side's are checked in the tests above) and ``embed`` a
+    host numpy [B, D] fp32 array of unit rows; ``identify`` int64 rows."""
+    _, _, _, serve, images, gal, planted = setup
+    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
+                            match="exact")
+    rows = ps.identify_device(torch.from_numpy(images[:4]))
+    assert isinstance(rows, torch.Tensor) and rows.dtype == torch.int32
+    emb = ps.embed(images[:4])
+    assert isinstance(emb, np.ndarray) and emb.dtype == np.float32 and emb.shape == (4, 1280)
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, rtol=1e-5)
+    np.testing.assert_array_equal(emb, ps._embed(images[:4]).numpy())
+    idx, _ = ps.identify(images[:4])
+    assert idx.dtype == np.int64
+    np.testing.assert_array_equal(idx, planted[:4])

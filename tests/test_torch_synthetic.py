@@ -10,9 +10,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import fast_image_recognition_tpu.data.synthetic_device as J
 import fast_image_recognition_tpu_torch.data.synthetic_device as P
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch and BLAS thread for this module: the suite runs several
+    workers on a few cores, where spinning thread pools stall each other
+    (a module took 10x longer with the default pools under load). Every
+    port test file that computes imports this fixture, which makes it
+    autouse there too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("num_classes,seed", [(5, 0), (17, 3000)])
