@@ -30,7 +30,15 @@ padding), and drives, each with its own launch counts:
   where the certificate clears (also without a host sync);
 - bench.py's ``--config bf``: a 1M x 1536 bf16 gallery, the fused bf16
   scan, a feature-window scan of it, and ``--quant``: the int8 scan with
-  exact rescore, ``compute`` int8 and bf16.
+  exact rescore, ``compute`` int8 and bf16;
+- the opt-in fused MBConv forward (``make_infer_fn(fused=True,
+  space_to_depth=True)``): the fused block kernel against its plain
+  version at each of B0's twelve stride-1 blocks, fed the per-op forward's
+  activations, and at edge shapes (batches of 1 and 130, an odd plane,
+  relu6, no SE, no expand, k=7, an inflated expand bias); the
+  space-to-depth stem against the plain stem at fp32; and the plain
+  line's service on the fused module, its embedding held against the
+  per-op forward's and its labels against the per-op line's.
 
 One flushed line per phase, with the seconds since start. The line before
 the card's name and power limit holds the kernels' JSON; the last line is
@@ -321,17 +329,27 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     width = hi - lo
     ms = cuda_ms(launch, reps=3)
     plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise), reps=1)
-    yard_ms = None
-    if not precise and window is None:  # no fp32 copy of the gallery for the oracle
-        g = gallery[:n_valid]
+    # yardsticks, not the same function: the library's matmul of the same
+    # operands (fp32 in true fp32 for the oracle, on an fp32 copy of the
+    # gallery; the window's columns for a windowed scan) plus topk or min
+    g = gallery[:n_valid]
+    if precise:
+        g = g.to(torch.float32)
         yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
+    elif window is not None:
+        ql, gl = q[:, lo:hi], g[:, lo:hi]
+        yard_ms = cuda_ms(lambda: (ql @ gl.T).min(dim=1), reps=1)
+        ql = gl = None
+    else:
+        yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
+    g = None
     b_ms, b_by = bound(2.0 * b * n_valid * width, n_valid * width * gallery.element_size() + b * width * q.element_size()
                        + b * k * 8, PEAK_FP32_FLOPS if precise else PEAK_BF16_FLOPS)
     variant = "precise" if precise else f"window {window}" if window else "bf16"
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"matmul+topk yardstick {'not measured' if yard_ms is None else f'{yard_ms:.3f} ms'}, "
+        f"matmul+{'min' if window else 'topk'} yardstick {yard_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms ({b_by})"
     )
     if not ok:
@@ -340,7 +358,7 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
         report.setdefault(key, []).append(dict(
             shape=f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else ""),
             max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, yardstick_matmul_topk_ms=yard_ms,
+            library_ms=None, **{f"yardstick_matmul_{'min' if window else 'topk'}_ms": yard_ms},
         ))
 
 
@@ -691,6 +709,319 @@ def cascade_breakdown(casc, images, caps, report):
     return rows
 
 
+# kernel vs plain tolerance of the fused MBConv block: both round to bf16 at
+# the same places and differ only in fp32 summation order, which can flip
+# a bf16 rounding; a flipped output rounding is one bf16 ulp, at most 2^-8
+# of the largest output, and a flipped hidden value moves the project's
+# sum by far less. 2^-6 of max |plain| leaves a factor of 4.
+MB_TOL = 2.0**-6
+
+
+def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
+    """Least time of one stride-1 block: the expand and project products
+    at the bf16 tensor-core peak, the depthwise taps at the fp32 CUDA-core
+    peak, or one read of x and the weights and one write of y."""
+    pix = b * hw * hw
+    t_mm = 2.0 * pix * ((cin * ce if has_expand else 0) + ce * cout) / PEAK_BF16_FLOPS
+    t_dw = 2.0 * pix * ce * k * k / PEAK_FP32_FLOPS
+    t_bytes = (2.0 * pix * (cin + cout) + param_bytes) / PEAK_HBM_BYTES
+    t_ops = max(t_mm, t_dw)
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
+
+
+def run_mbconv_pair(x, q, cfg):
+    """The fused block's kernel and plain version on the same input:
+    (kernel out, plain out, relative max |difference| over max |plain|,
+    share of bit-equal outputs, the two launchers)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import plain
+    from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
+
+    k = cfg["kernel"]
+    pads = tuple(mb._same_pads(n, k, 1)[1:] for n in x.shape[2:])
+    run_k = lambda: mb.mbconv(x, q, cfg)  # noqa: E731
+    run_p = lambda: plain.mbconv_plain(x, q, k, pads, cfg["activation"], cfg["residual"])  # noqa: E731
+    yk, yp = run_k(), run_p()
+    torch.cuda.synchronize()
+    if not yk.is_contiguous(memory_format=torch.channels_last) or yk.shape != yp.shape:
+        raise AssertionError("the mbconv kernel's output has the wrong shape or layout")
+    rel = ((yk.float() - yp.float()).abs().max() / torch.clamp_min(yp.float().abs().max(), 1e-30)).item()
+    eq = (yk == yp).float().mean().item()
+    return yk, yp, rel, eq, run_k, run_p
+
+
+def check_mbconv_blocks(net, net_f, images, report):
+    """The fused MBConv kernel against its plain version at each stride-1
+    block of the folded forward, fed the activation the per-op forward
+    produces at that block's input, with the fused module's folded
+    weights; timed beside its bound and the per-op block (cuDNN and
+    elementwise ops; not one library call, so no ``library_ms``)."""
+    import torch
+
+    rows = []
+    with torch.no_grad():
+        h = net.stem(images)
+        for i, (name, blk) in enumerate(zip(net.names, net.blocks)):
+            if str(i) in net_f.fused_blocks:
+                if not h.is_contiguous(memory_format=torch.channels_last):
+                    raise AssertionError(f"the per-op input of {name} is not channels_last")
+                fb = net_f.fused_blocks[str(i)]
+                q = {n: getattr(fb, n) for n in fb.param_names}
+                yk, yp, rel, eq, run_k, run_p = run_mbconv_pair(h, q, fb.cfg)
+                err = (yk.float() - yp.float()).abs().max().item()
+                del yk, yp
+                ms = cuda_ms(run_k, reps=5)
+                plain_ms = cuda_ms(run_p, reps=1)
+                per_op_ms = cuda_ms(lambda blk=blk, h=h: blk(h), reps=5)
+                b, cin, hw, _ = h.shape
+                ce, cout = q["w_dw"].shape[1], q["w_proj"].shape[1]
+                pbytes = sum(t.numel() * t.element_size() for t in q.values())
+                b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp" in q, pbytes)
+                row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"],
+                           max_abs_err=err, rel_err=rel, bit_equal=eq, ms=ms, plain_ms=plain_ms,
+                           per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by,
+                           dw_round_trip_ms=4.0 * b * hw * hw * ce / PEAK_HBM_BYTES * 1e3)
+                rows.append(row)
+                print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']}: rel err {rel:.2e} "
+                      f"(bit-equal {100 * eq:.2f}%), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, per-op "
+                      f"{per_op_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+                if rel > MB_TOL:
+                    raise AssertionError(f"mbconv kernel disagrees with its plain version at {name}: {rel:.3e}")
+            h = blk(h)
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "per_op_ms", "bound_ms", "dw_round_trip_ms")}
+    phase(f"mbconv blocks ({len(rows)} stride-1 blocks, B={images.shape[0]}): every kernel output within "
+          f"{MB_TOL:.2e} of max |plain|; summed kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"per-op {tot['per_op_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (+ {tot['dw_round_trip_ms']:.3f} ms "
+          f"of depthwise round trip at the memory rate)")
+    report["blocks"] = rows
+    report["total"] = tot
+    return rows
+
+
+def check_mbconv_edges(net_f, dev):
+    """The fused MBConv kernel against its plain version off the main
+    path's shapes, untimed: batches of 1 and 130, an odd plane (15),
+    relu6, no SE, no expand, k=7 (random weights), and an expand bias
+    inflated 50x, where any act(b_exp) leaking into the SAME border taps
+    would dominate the edge rows and columns. Returns the cases."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+
+    def params(i):
+        fb = net_f.fused_blocks[str(i)]
+        return {n: getattr(fb, n) for n in fb.param_names}, dict(fb.cfg)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    cases = []
+    for name, i, b, hw, change in [
+        ("block4b", 6, 130, 15, {}),
+        ("block5b", 9, 1, 15, {}),
+        ("block2b relu6", 2, 130, 15, {"activation": "relu6"}),
+        ("block6b no SE", 12, 130, 7, {"has_se": False}),
+        ("block1a no expand", 0, 1, 15, {}),
+        ("block1a no expand", 0, 130, 15, {}),
+        ("block2b b_exp x50", 2, 130, 15, {"b_exp": 50.0}),
+    ]:
+        q, cfg = params(i)
+        if "b_exp" in change:
+            q["b_exp"] = q["b_exp"] * change.pop("b_exp")
+        cfg.update(change)
+        if not cfg["has_se"]:
+            q = {n: t for n, t in q.items() if not n.startswith(("w_se", "b_se"))}
+        cases.append((f"{name} B={b} {hw}x{hw}", q, cfg, b, hw))
+    cin, ce, cout = 32, 64, 32
+    q7 = dict(w_exp=rnd(cin, ce, scale=0.2, dtype=torch.bfloat16), b_exp=rnd(ce, scale=0.1),
+              w_dw=rnd(49, ce, scale=0.2), b_dw=rnd(ce, scale=0.1), w_se1=rnd(ce, 8, scale=0.2),
+              b_se1=rnd(8, scale=0.1), w_se2=rnd(8, ce, scale=0.2), b_se2=rnd(ce, scale=0.1),
+              w_proj=rnd(ce, cout, scale=0.2, dtype=torch.bfloat16), b_proj=rnd(cout, scale=0.1))
+    cfg7 = dict(kernel=7, stride=1, has_expand=True, has_se=True, residual=True, activation="swish")
+    cases.append(("k7 random weights B=130 15x15", q7, cfg7, 130, 15))
+    out = []
+    with torch.no_grad():
+        for name, q, cfg, b, hw in cases:
+            c_in = q["w_exp"].shape[0] if "w_exp" in q else q["w_dw"].shape[1]
+            x = rnd(b, hw, hw, c_in, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+            yk, yp, rel, eq, _, _ = run_mbconv_pair(x, q, cfg)
+            border = max(
+                ((yk.float() - yp.float())[sl].abs().max() / torch.clamp_min(yp.float()[sl].abs().max(), 1e-30)).item()
+                for sl in ((slice(None), slice(None), slice(None), [0, 1, -2, -1]),
+                           (slice(None), slice(None), [0, 1, -2, -1], slice(None)))
+            )
+            print(f"  mbconv edge {name}: rel err {rel:.2e}, border rows/columns {border:.2e}, "
+                  f"bit-equal {100 * eq:.2f}%", flush=True)
+            if rel > MB_TOL or border > MB_TOL:
+                raise AssertionError(f"mbconv kernel disagrees with its plain version ({name})")
+            out.append(dict(case=name, rel_err=rel, border_rel_err=border, bit_equal=eq))
+    return out
+
+
+def device_trace(fn):
+    """One call of ``fn`` (after a warm-up) under ``torch.profiler``
+    (CUPTI): the device's busy time (kernels and copies on the one
+    stream, which do not overlap), the window from the first device
+    activity's start to the last one's end, the idle share of that window,
+    and device time summed by kernel name. None where the trace holds no
+    device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    start = min(e.time_range.start for e in dev)
+    end = max(e.time_range.end for e in dev)
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return dict(window_ms=(end - start) / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / max(end - start, 1e-9),
+                events=len(dev), by_name=by_name)
+
+
+def check_s2d_stem(np_vars, net, net_f, images, dev):
+    """The space-to-depth stem against the plain stride-2 stem at fp32
+    (TF32 off, ``device.py``), within the JAX package's 2e-5; then both
+    stems' times in bf16, the serving type."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+
+    kw = dict(resolution=RES, dtype=torch.float32, device=dev)
+    plain32, s2d32 = make_infer_fn(np_vars, "b0", **kw), make_infer_fn(np_vars, "b0", space_to_depth=True, **kw)
+    if not s2d32.space_to_depth or plain32.space_to_depth:
+        raise AssertionError("the space-to-depth fold is missing")
+    with torch.no_grad():
+        a, b = plain32.stem(images), s2d32.stem(images)
+        err = (a - b).abs().max().item()
+        ok = bool(torch.allclose(b, a, rtol=2e-5, atol=2e-5))
+        scale = a.abs().max().item()
+        del a, b
+        ms_plain = cuda_ms(lambda: net.stem(images), reps=5)
+        ms_s2d = cuda_ms(lambda: net_f.stem(images), reps=5)
+    phase(f"s2d stem (fp32, TF32 off, B={images.shape[0]}): max |s2d - plain| {err:.3e} of max |plain| {scale:.3f}, "
+          f"within rtol=atol=2e-5: {ok}; bf16 stem {ms_plain:.3f} ms plain, {ms_s2d:.3f} ms space-to-depth")
+    if not ok:
+        raise AssertionError("the space-to-depth stem disagrees with the plain stem")
+    return dict(max_abs_err=err, max_abs=scale, plain_stem_ms=ms_plain, s2d_stem_ms=ms_s2d)
+
+
+def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev):
+    """bench.py's plain line (PCA-124 packed, rescore 48, escalate 0.05)
+    on the fused module: ``RecognitionService(serving_fn=net_f)``, timed
+    over TIMED_CALLS calls ending in a sync, one call under sync debug
+    "error", launches counted; its embedding against the per-op module's
+    (JAX's 0.05), its rows and labels against the per-op line's ``idx``
+    and the fp32 oracle. A label that differs from the per-op line's must
+    come from a near-tie that the embedding difference swapped: each
+    line's pick is the nearer of the two picks to that line's own
+    embedding, within 2^-7 of the distance (the scans round query and rows
+    to bf16). Last, one call of
+    each line (``svc_u`` is the per-op plain line) under the profiler:
+    device idle share and the fused kernel's two launches' device time."""
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.serving import RecognitionService
+
+    n_fused = len(net_f.fused_blocks)
+    if n_fused != 12:
+        raise AssertionError(f"the fused module fuses {n_fused} blocks, B0 has 12 stride-1 blocks")
+    svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=net_f,
+                             pca_dim=124, pca_scan="packed", device=dev)
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = svc.identify_device(images)
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(TIMED_CALLS):
+        out = svc.identify_device(images)
+    torch.cuda.synchronize()
+    sec = (time.time() - t) / TIMED_CALLS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out2 = svc.identify_device(images)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    calls = TIMED_CALLS + 2
+    check_launches("fused", launches, mbconv=2 * n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
+    if not bool((out2 == out).all()):
+        raise AssertionError("the fused path's answers changed under sync debug mode")
+    with torch.no_grad():
+        embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
+        eu, ef = net(images)["embedding"], net_f(images)["embedding"]
+        emb_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
+        nu, nf = _unit(eu), _unit(ef)
+        idx_f = out.to(torch.int64)
+        idx_u = torch.as_tensor(idx, device=dev)
+        gf, gu = gallery[idx_f].to(torch.float32), gallery[idx_u].to(torch.float32)
+
+        def dist(e, g):
+            return ((e - g) ** 2).sum(1)
+
+        d_ff, d_fu, d_uf, d_uu = dist(nf, gf), dist(nf, gu), dist(nu, gf), dist(nu, gu)
+        swapped = ((d_ff <= d_fu + 2.0**-7 * torch.maximum(d_ff, d_fu))
+                   & (d_uu <= d_uf + 2.0**-7 * torch.maximum(d_uf, d_uu))).cpu().numpy()
+    idx_f = idx_f.cpu().numpy()
+    truth = np.arange(len(idx_f))
+    label_differs = labels[idx_f] != labels[idx]
+    row = dict(img_s=len(idx_f) / sec, ms=1e3 * sec, embed_ms=embed_ms, speedup_over_plain_line=plain_sec / sec,
+               error_pct=100.0 * float(np.mean(labels[idx_f] != truth)),
+               row_agreement_plain_line_pct=100.0 * float(np.mean(idx_f == idx)),
+               label_agreement_plain_line_pct=100.0 * float(np.mean(~label_differs)),
+               row_agreement_oracle_pct=100.0 * float(np.mean(idx_f == idx_oracle)),
+               label_agreement_oracle_pct=100.0 * float(np.mean(labels[idx_f] == labels[idx_oracle])),
+               label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)),
+               embedding_rel_diff=emb_rel,
+               escalated_pct=100.0 * svc.last_escalated.float().mean().item(), peak_gib=peak_gib,
+               launches=launches["fused"])
+    phase(
+        f"fused path: {row['img_s']:.1f} img/s ({row['ms']:.1f} ms/batch of {len(idx_f)}, embed {embed_ms:.1f} ms, "
+        f"{row['speedup_over_plain_line']:.3f}x the per-op plain line), identity error {row['error_pct']:.3f}%, "
+        f"agreement with the per-op line {row['row_agreement_plain_line_pct']:.3f}% rows / "
+        f"{row['label_agreement_plain_line_pct']:.3f}% labels ({row['label_differs_not_near_tie']} label differences "
+        f"outside near-ties), with the fp32 oracle {row['row_agreement_oracle_pct']:.3f}% rows / "
+        f"{row['label_agreement_oracle_pct']:.3f}% labels; embedding max |fused - per-op| {emb_rel:.4f} of max "
+        f"|per-op|; escalated {row['escalated_pct']:.2f}%; peak device memory {peak_gib:.2f} GiB; no host sync "
+        f"in identify_device; launches {launches['fused']}"
+    )
+    if emb_rel > 0.05:
+        raise AssertionError(f"the fused embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
+    if row["label_differs_not_near_tie"]:
+        raise AssertionError("the fused path's labels differ from the per-op line's beyond near-ties")
+    for line, s_ in (("plain", svc_u), ("fused", svc)):
+        try:  # a measurement, not a gate: say why it is missing
+            tr = device_trace(lambda s_=s_: s_.identify_device(images))
+        except Exception as e:  # noqa: BLE001
+            print(f"  {line} line trace not measured: {type(e).__name__}: {str(e).splitlines()[0]}", flush=True)
+            tr = None
+        if tr is None:
+            row[f"trace_{line}"] = None
+            continue
+        by = tr.pop("by_name")
+        tr["mbconv_expand_dw_ms"] = sum(v for k, v in by.items() if "expand_dw_kernel" in k)
+        tr["mbconv_se_project_ms"] = sum(v for k, v in by.items() if "se_project_kernel" in k)
+        tr["top"] = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+        row[f"trace_{line}"] = tr
+        print(f"  {line} line, one call traced: device busy {tr['busy_ms']:.2f} ms of a {tr['window_ms']:.2f} ms "
+              f"window (idle share {100 * tr['idle_share']:.1f}%, {tr['events']} device activities); mbconv "
+              f"expand+depthwise {tr['mbconv_expand_dw_ms']:.2f} ms, SE+project {tr['mbconv_se_project_ms']:.2f} ms; "
+              f"top {[(k[:60], round(v, 3)) for k, v in tr['top']]}", flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -711,6 +1042,7 @@ def main() -> int:
     from fast_image_recognition_tpu_torch.kernels import build
     from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.kernels import plain
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
     from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
@@ -868,7 +1200,24 @@ def main() -> int:
     if agree_pct < 99.0:
         raise AssertionError(f"top-1 agreement with match='exact' is {agree_pct:.3f}% < 99%")
     esc_rows = check_partial_escalation(svc, emb, gallery, dev)
-    del svc, exact
+
+    # 6a. the fused MBConv path (make_infer_fn(fused=True, space_to_depth=True)):
+    # its kernel at each stride-1 block and at edge shapes, the
+    # space-to-depth stem, then the plain line's service on the fused module
+    t = time.time()
+    np_vars = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    serve_f = make_infer_fn(np_vars, "b0", resolution=RES, fused=True, space_to_depth=True, device=dev)
+    torch.cuda.synchronize()
+    phase(f"folded the fused module (fused=True, space_to_depth=True) in {time.time() - t:.1f} s")
+    mb_report = {}
+    check_mbconv_blocks(serve, serve_f, images, mb_report)
+    mb_report["edges"] = check_mbconv_edges(serve_f, dev)
+    phase(f"mbconv edge shapes: {len(mb_report['edges'])} cases, every kernel output within {MB_TOL:.2e} of "
+          f"max |plain|, border rows and columns included")
+    s2d_row = check_s2d_stem(np_vars, serve, serve_f, images, dev)
+    fused_row = check_fused_path(serve, serve_f, svc, info, gallery, labels, images, idx, idx_oracle, sec, launches,
+                                 dev)
+    del serve_f, svc, exact
 
     # 6b. the JAX package's default service (PCA-128, fp32-score tile scan)
     # and its other scans on the same gallery and batch, each counted alone
@@ -1192,9 +1541,20 @@ def main() -> int:
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (window)",
              launches=launches["bf_windowed"]["topk_l2_windowed"], launches_by_path=by_path("topk_l2_windowed"),
              **first(report["topk_l2_windowed"]), shapes=report["topk_l2_windowed"]),
+        dict(name="mbconv", route="cuda", source=src + "mbconv.cu",
+             replaces="fast_image_recognition_tpu/ops/mbconv_kernel.py:82",
+             launches=launches["fused"]["mbconv"], launches_by_path=by_path("mbconv"),
+             shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed (two launches per block)",
+             max_abs_err=max(r["max_abs_err"] for r in mb_report["blocks"]),
+             ms=mb_report["total"]["ms"], plain_ms=mb_report["total"]["plain_ms"],
+             bound_ms=mb_report["total"]["bound_ms"],
+             bound_by=max(("operations", "bytes"), key=lambda by: sum(
+                 r["bound_ms"] for r in mb_report["blocks"] if r["bound_by"] == by)),
+             library_ms=None, yardstick_per_op_ms=mb_report["total"]["per_op_ms"],
+             blocks=mb_report["blocks"], edges=mb_report["edges"]),
     ]
-    print(json.dumps({"lines": {"service_modes": mode_rows, "bf": bf_rows, "partial_escalation": esc_rows}}),
-          flush=True)
+    print(json.dumps({"lines": {"service_modes": mode_rows, "bf": bf_rows, "partial_escalation": esc_rows,
+                                "fused_path": fused_row, "s2d_stem": s2d_row}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     phase(f"done: total command time {time.time() - T0:.1f} s")

@@ -27,7 +27,12 @@ from fast_image_recognition_tpu_torch.kernels.plain import TILE_G
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(KERNEL_DIR), "_build")
-SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu", "tile_scan": "tile_scan.cu"}
+SOURCES = {
+    "packed_scan": "packed_scan.cu",
+    "topk_l2": "topk_l2.cu",
+    "tile_scan": "tile_scan.cu",
+    "mbconv": "mbconv.cu",
+}
 NVCC_FLAGS = [
     "-O3",
     "-std=c++17",
@@ -47,6 +52,7 @@ LAUNCHES: Dict[str, int] = {
     "topk_l2_precise": 0,
     "tilemin": 0,
     "tilemin_quant": 0,
+    "mbconv": 0,  # two launches per block: expand + depthwise, then SE + project
 }
 # ptxas resource lines of the last build of each library (registers,
 # shared memory, spills), for the smoke run to print
@@ -108,6 +114,11 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.tilemin2_packed_launch.restype = I
             lib.tilemin_packed_launch.argtypes = [P, P, P, I, I, I, I, P]
             lib.tilemin_packed_launch.restype = I
+        elif name == "mbconv":
+            lib.mbconv_expand_dw_launch.argtypes = [P] * 7 + [I] * 11 + [P]
+            lib.mbconv_expand_dw_launch.restype = I
+            lib.mbconv_se_project_launch.argtypes = [P] * 10 + [I] * 6 + [P]
+            lib.mbconv_se_project_launch.restype = I
         elif name == "tile_scan":
             lib.tilemin_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
             lib.tilemin_launch.restype = I
@@ -350,3 +361,78 @@ def launch_tilemin_quant(
         )
     LAUNCHES["tilemin_quant"] += 1
     return out_d, out_i
+
+
+def launch_mbconv(
+    x: torch.Tensor,
+    q: Dict[str, torch.Tensor],
+    kernel: int,
+    pad_low: Tuple[int, int],
+    tile: Tuple[int, int],
+    relu6: bool,
+    residual: bool,
+) -> torch.Tensor:
+    """``kernels/mbconv.cu``: one stride-1 MBConv block on ``x`` [B, Cin,
+    H, W] bf16 in channels_last memory, params ``q`` in the
+    ``ops.mbconv_kernel.prepare_params`` layout, SAME ``pad_low`` (H, W)
+    and the first launch's output ``tile`` (th, tw). Two launches, each
+    counted under ``mbconv``. Returns [B, Cout, H, W] bf16 channels_last."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16 or x.dim() != 4:
+        raise ValueError(f"x must be 4-d bf16, got {x.dim()}-d {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last) or x.data_ptr() % 16:
+        raise ValueError("x must be channels_last contiguous and 16-byte aligned")
+    b, cin, h, w = x.shape
+    has_expand, has_se = "w_exp" in q, "w_se1" in q
+    ce = q["w_dw"].shape[1]
+    cout = q["w_proj"].shape[1]
+    s = q["w_se1"].shape[1] if has_se else 0
+    want = {"w_dw": ((kernel * kernel, ce), torch.float32), "b_dw": ((ce,), torch.float32),
+            "w_proj": ((ce, cout), torch.bfloat16), "b_proj": ((cout,), torch.float32)}
+    if has_expand:
+        want.update(w_exp=((cin, ce), torch.bfloat16), b_exp=((ce,), torch.float32))
+    if has_se:
+        want.update(w_se1=((ce, s), torch.float32), b_se1=((s,), torch.float32),
+                    w_se2=((s, ce), torch.float32), b_se2=((ce,), torch.float32))
+    for n, (shape, dtype) in want.items():
+        _check(q[n], n, dtype, len(shape))
+        if tuple(q[n].shape) != shape or q[n].device != x.device:
+            raise ValueError(f"{n} must be {shape} on {x.device}, got {tuple(q[n].shape)} on {q[n].device}")
+    if (cin % 8 or ce % 8 or cout % 8 or kernel not in (3, 5, 7) or (not has_expand and cin != ce)
+            or (residual and cin != cout) or not 1 <= b <= 65535):
+        raise ValueError(
+            f"mbconv kernel takes Cin, Ce, Cout % 8 == 0, k in (3, 5, 7), Cin == Ce without expand, "
+            f"Cin == Cout with residual, 1 <= B <= 65535; got x {tuple(x.shape)}, Ce={ce}, Cout={cout}, k={kernel}"
+        )
+    th, tw = tile
+    n_tiles = -(-h // th) * -(-w // tw)
+    dw = torch.empty((b, h, w, ce), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((b, n_tiles, ce), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=x.device, memory_format=torch.channels_last)
+
+    def ptr(n: str) -> Optional[int]:
+        return q[n].data_ptr() if n in q else None
+
+    lib = _lib("mbconv")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(
+            lib.mbconv_expand_dw_launch(
+                x.data_ptr(), ptr("w_exp"), ptr("b_exp"), q["w_dw"].data_ptr(), q["b_dw"].data_ptr(),
+                dw.data_ptr(), part.data_ptr(), b, h, w, cin, ce, kernel, pad_low[0], pad_low[1], th, tw,
+                int(relu6), stream,
+            ),
+            "mbconv_expand_dw",
+        )
+        LAUNCHES["mbconv"] += 1
+        _raise_on(
+            lib.mbconv_se_project_launch(
+                dw.data_ptr(), part.data_ptr(), ptr("w_se1"), ptr("b_se1"), ptr("w_se2"), ptr("b_se2"),
+                q["w_proj"].data_ptr(), q["b_proj"].data_ptr(), x.data_ptr() if residual else None,
+                out.data_ptr(), b, h * w, ce, cout, s, n_tiles, stream,
+            ),
+            "mbconv_se_project",
+        )
+        LAUNCHES["mbconv"] += 1
+    return out

@@ -8,9 +8,10 @@ them.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 BIG_DIST = 3.4e38
 INT_BIG = 2**31 - 1
@@ -205,3 +206,54 @@ def topk_l2_plain(
         best_d = torch.where(row_mask[:, None], best_d, BIG_DIST)
         best_i = torch.where(row_mask[:, None], best_i, -1)
     return best_d, best_i.to(torch.int32)
+
+
+def act_plain(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The MBConv activations on fp32 values (``_act``,
+    ops/mbconv_kernel.py:76): ``relu6`` or swish."""
+    return torch.clamp(x, 0.0, 6.0) if activation == "relu6" else F.silu(x)
+
+
+def mbconv_plain(
+    x: torch.Tensor,  # [B, Cin, H, W] in the working dtype (bf16 on the card)
+    q: Dict[str, torch.Tensor],  # ops.mbconv_kernel.prepare_params layout
+    kernel: int,
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],  # ((low, high) in H, (low, high) in W)
+    activation: str,
+    residual: bool,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """One folded stride-1 MBConv block, ``[B, Cout, H, W]`` channels_last
+    in ``x.dtype`` (counterpart of ``_mbconv_kernel``,
+    ops/mbconv_kernel.py:82). It rounds to ``x.dtype`` where
+    ``kernels/mbconv.cu`` rounds to bf16: the hidden tensor after expand,
+    bias and activation; the depthwise output after its bias and
+    activation (the kernel stores it between its two launches; the TPU
+    kernel keeps it in fp32); the SE-scaled hidden before the project; the
+    output. The depthwise sums, the SE pool (of the unrounded depthwise
+    output) and the SE MLP stay fp32, and the project adds bias and
+    residual in fp32. In fp32 every rounding is a no-op."""
+    dt = x.dtype
+    b, _, h, w = x.shape
+    ce = q["w_dw"].shape[1]
+    cout = q["w_proj"].shape[1]
+    (pl_h, ph_h), (pl_w, ph_w) = pads
+    w_dw = q["w_dw"].t().reshape(ce, 1, kernel, kernel)
+    out = torch.empty((b, cout, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
+    for s in range(0, b, chunk):
+        xs = x[s : s + chunk].permute(0, 2, 3, 1).to(torch.float32)  # NHWC
+        hid = xs
+        if "w_exp" in q:
+            hid = act_plain(xs @ q["w_exp"].to(torch.float32) + q["b_exp"], activation).to(dt)
+        hid = F.pad(hid.permute(0, 3, 1, 2).to(torch.float32), (pl_w, ph_w, pl_h, ph_h))
+        a = act_plain(F.conv2d(hid, w_dw, groups=ce) + q["b_dw"][None, :, None, None], activation)
+        d = a.to(dt).to(torch.float32)
+        if "w_se1" in q:
+            se = F.silu(a.mean(dim=(2, 3)) @ q["w_se1"] + q["b_se1"])
+            gate = torch.sigmoid(se @ q["w_se2"] + q["b_se2"])
+            d = (d * gate[:, :, None, None]).to(dt).to(torch.float32)
+        y = d.permute(0, 2, 3, 1) @ q["w_proj"].to(torch.float32) + q["b_proj"]
+        if residual:
+            y = y + xs
+        out[s : s + chunk] = y.permute(0, 3, 1, 2).to(dt)
+    return out

@@ -1,19 +1,26 @@
 """EfficientNet static configuration (counterpart of the static half of
 ``fast_image_recognition_tpu/models/efficientnet.py``: ``VARIANTS``,
-``round_filters``, ``round_repeats``, ``block_plan``, ``default_taps`` and
-the preprocessing constants). The trainable flax module is not ported:
-the port serves folded weights only (``models/inference.py``)."""
+``round_filters``, ``round_repeats``, ``block_plan``, ``default_taps``, the preprocessing
+constants and ``preprocess_images``). The trainable flax module is not
+ported: the port serves folded weights only (``models/inference.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
 
 # torchvision-style ImageNet normalization on 0..255 inputs
 # (dnn_feature_extractor.py:116-119 in the reference)
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
+# Keras "tf"-mode preprocess_input (x/127.5 - 1), the MobileNet(V2) /
+# Inception* / ResNetV2 members' preprocess
+TF_MODE_MEAN = (127.5, 127.5, 127.5)
+TF_MODE_STD = (127.5, 127.5, 127.5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +125,24 @@ def backbone_info(name: str) -> Dict[str, Any]:
         taps=default_taps(name),
         preprocess="torch",
     )
+
+
+def preprocess_images(
+    images: torch.Tensor,
+    resolution: Optional[int] = None,
+    mean: Sequence[float] = MEAN_RGB,
+    std: Sequence[float] = STDDEV_RGB,
+) -> torch.Tensor:
+    """uint8/float RGB NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC,
+    bilinearly resized to ``resolution`` first where the size differs.
+    ``jax.image.resize(method='bilinear')`` antialiases when it shrinks,
+    which is ``F.interpolate(antialias=True)`` with half-pixel centres."""
+    x = images.to(torch.float32)
+    if resolution is not None and (x.shape[1] != resolution or x.shape[2] != resolution):
+        x = F.interpolate(
+            x.permute(0, 3, 1, 2), size=(resolution, resolution), mode="bilinear",
+            align_corners=False, antialias=True,
+        ).permute(0, 2, 3, 1)
+    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return (x - m) / s

@@ -6,12 +6,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.inference import (
-    FoldedEfficientNet,
-    fold_backbone,
-    fold_preprocess_into_stem,
-)
+from fast_image_recognition_tpu_torch.device import DeviceLike
+from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, TF_MODE_STD
+from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, make_infer_fn
 
 
 def make_serving_fn(
@@ -22,17 +19,19 @@ def make_serving_fn(
     device: DeviceLike = None,
 ) -> FoldedEfficientNet:
     """Folded bf16 serving module on ``device``: raw uint8 NHWC images ->
-    ``{'embedding', 'taps'}``. ``variables`` holds the numpy
-    ``params``/``batch_stats`` trees of a checkpoint."""
+    ``{'embedding', 'taps'}``, through :func:`make_infer_fn` with the
+    family's preprocess constants (TF_MODE_* for ``preprocess == 'tf'``).
+    ``variables`` holds the numpy ``params``/``batch_stats`` trees of a
+    checkpoint."""
     if info.get("family") != "efficientnet":
         raise NotImplementedError(
             f"family {info.get('family')!r} is not ported; only EfficientNet serves"
         )
-    if info.get("preprocess", "torch") != "torch":
-        raise NotImplementedError("only the MEAN_RGB/STDDEV_RGB preprocess is ported")
-    dev = resolve_device(device)
-    res = int(resolution or info["resolution"])
-    folded, configs = fold_backbone(variables, info["variant"])
-    folded = fold_preprocess_into_stem(folded, res)
-    module = FoldedEfficientNet(folded, configs, res, taps=taps)
-    return module.to(dev).eval()
+    pp = info.get("preprocess", "torch")
+    if pp not in ("torch", "tf"):
+        raise NotImplementedError(f"preprocess {pp!r} is not ported")
+    mean, std = (TF_MODE_MEAN, TF_MODE_STD) if pp == "tf" else (None, None)
+    return make_infer_fn(
+        variables, info["variant"], taps=taps, resolution=int(resolution or info["resolution"]),
+        mean=mean, std=std, device=device,
+    )

@@ -1,21 +1,29 @@
 """Folded EfficientNet serving forward in PyTorch (counterpart of
 ``fast_image_recognition_tpu/models/inference.py``: ``_fold_conv_bn``,
-``fold_backbone``, ``fold_preprocess_into_stem``, ``_block``,
-``folded_stem_pp``, ``folded_blocks``, ``folded_head`` and
-``folded_forward(fused=False)``).
+``fold_backbone``, ``fold_preprocess_into_stem``,
+``fold_stem_space_to_depth``, ``_block``, ``folded_stem``,
+``folded_stem_pp``, ``folded_blocks``, ``folded_head``, ``folded_forward``
+and ``make_infer_fn``).
 
 Every inference BatchNorm is folded into the conv before it
 (``W' = W * gamma/sqrt(var+eps)``, ``b = beta - mean * gamma/sqrt(var+eps)``)
-in float64 on the host, and the ``(x - MEAN_RGB) / STDDEV_RGB`` preprocess
-is folded into the stem: the stem reads raw uint8 images, and a constant
-correction map (the conv of the constant mean image) makes the fold exact
-at the SAME-padding borders too.
+in float64 on the host, and the ``(x - mean) / std`` preprocess is folded
+into the stem: the stem reads raw uint8 images, and a constant correction
+map (the conv of the constant mean image) makes the fold exact at the
+SAME-padding borders too. Images of another size than the module's
+resolution take the explicit path instead: resize, normalize, raw stem.
+
+``fused=True`` sends every stride-1 MBConv block through
+``ops.mbconv_kernel`` (the hand-written CUDA kernel on the card); the
+stride-2 blocks and the cascade's segment primitive :meth:`run_blocks`
+stay per-op, as in the JAX package.
 
 Layout: the public surface keeps the JAX package's NHWC images and HWIO
 folded weights, so tests compare like with like; the module itself runs
-NCHW tensors in ``channels_last`` memory (what cuDNN wants) with OIHW
-weights. TF "SAME" padding is asymmetric on stride-2 layers, so every
-conv pads explicitly with ``F.pad`` instead of ``padding='same'``.
+NCHW tensors in ``channels_last`` memory (what cuDNN and the fused kernel
+want) with OIHW weights. TF "SAME" padding is asymmetric on stride-2
+layers, so every conv pads explicitly with ``F.pad`` instead of
+``padding='same'``.
 """
 
 from __future__ import annotations
@@ -28,11 +36,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 from fast_image_recognition_tpu_torch.models.efficientnet import (
     MEAN_RGB,
     STDDEV_RGB,
+    VARIANTS,
     block_plan,
+    preprocess_images,
 )
+from fast_image_recognition_tpu_torch.ops.mbconv_kernel import mbconv, prepare_params
 
 _BN_EPS = 1e-3
 
@@ -124,12 +136,18 @@ def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
 
 
 def fold_preprocess_into_stem(
-    folded: Dict[str, Any], resolution: int, dtype: torch.dtype = torch.bfloat16
+    folded: Dict[str, Any],
+    resolution: int,
+    dtype: torch.dtype = torch.bfloat16,
+    mean: Optional[Sequence[float]] = None,
+    std: Optional[Sequence[float]] = None,
 ) -> Dict[str, Any]:
-    """Adds ``stem_pp_w`` (HWIO, scaled by 1/STD) and ``stem_pp_corr``
-    ([1, R/2, R/2, C] fp32): conv((x-m)/s, W) == conv(x, W/s) - conv(m, W/s)."""
-    std = torch.tensor(STDDEV_RGB, dtype=torch.float32)
-    mean = torch.tensor(MEAN_RGB, dtype=torch.float32)
+    """Adds ``stem_pp_w`` (HWIO, scaled by 1/std) and ``stem_pp_corr``
+    ([1, R/2, R/2, C] fp32): conv((x-m)/s, W) == conv(x, W/s) - conv(m, W/s).
+    ``mean``/``std`` default to MEAN_RGB/STDDEV_RGB (TF_MODE_* for the
+    Keras 'tf'-mode families)."""
+    std = torch.tensor(STDDEV_RGB if std is None else std, dtype=torch.float32)
+    mean = torch.tensor(MEAN_RGB if mean is None else mean, dtype=torch.float32)
     w = folded["stem_w"].to(torch.float32)  # [3, 3, 3, C], dtype-rounded
     w_pp = w / std[None, None, :, None]
     const = mean[None, :, None, None].expand(1, 3, resolution, resolution)
@@ -137,6 +155,27 @@ def fold_preprocess_into_stem(
     out = dict(folded)
     out["stem_pp_w"] = w_pp.to(dtype)
     out["stem_pp_corr"] = corr.permute(0, 2, 3, 1).contiguous()  # NHWC fp32
+    return out
+
+
+def fold_stem_space_to_depth(folded: Dict[str, Any], resolution: int) -> Dict[str, Any]:
+    """Rewrite the preprocess-folded stride-2 3x3 stem as a stride-1 2x2
+    conv over 12-channel half-resolution blocks (adds ``stem_s2d_w``
+    [2, 2, 12, C] HWIO): ``K2[p, q, (r, s, c), o] = Wpad[2p + r, 2q + s, c,
+    o]`` with W zero-padded to 4x4 taps; the input packs ``x[2i+r, 2j+s,
+    c]`` into channel ``(r*2+s)*3+c``. Exact for even resolutions (SAME
+    pad_low is 0 there); odd ones and other kernel sizes keep the plain
+    stem. Opt-in, as in the JAX package."""
+    if resolution % 2:
+        return folded
+    w = folded["stem_pp_w"]  # [3, 3, 3, C]
+    k, _, cin, cout = w.shape
+    if k != 3:
+        return folded
+    w4 = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))  # [4, 4, 3, C]
+    k2 = w4.reshape(2, 2, 2, 2, cin, cout).permute(0, 2, 1, 3, 4, 5)
+    out = dict(folded)
+    out["stem_s2d_w"] = k2.reshape(2, 2, 4 * cin, cout).contiguous()
     return out
 
 
@@ -178,15 +217,42 @@ class _FoldedBlock(nn.Module):
         return h
 
 
+class _FusedBlock(nn.Module):
+    """One stride-1 MBConv block through ``ops.mbconv_kernel.mbconv``: the
+    fused CUDA kernel on the card, its plain version on the CPU. It runs
+    in bf16, the kernel's type, and returns the module's dtype."""
+
+    def __init__(self, p: Dict[str, torch.Tensor], cfg: Dict[str, Any]):
+        super().__init__()
+        q = prepare_params(p, cfg)
+        for n, t in q.items():
+            self.register_buffer(n, t)
+        self.param_names = tuple(q)
+        self.cfg = {k: cfg[k] for k in ("kernel", "stride", "has_expand", "has_se", "residual")}
+        self.cfg["activation"] = cfg.get("activation", "swish")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a no-op where the producer already wrote channels_last (cuDNN does)
+        h = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        y = mbconv(h, {n: getattr(self, n) for n in self.param_names}, self.cfg)
+        return y.to(x.dtype)
+
+
 class FoldedEfficientNet(nn.Module):
     """BN- and preprocess-folded EfficientNet forward on raw images.
 
-    ``forward(images)``: uint8 (or 0..255 float) NHWC ``[B, R, R, 3]`` ->
+    ``forward(images)``: uint8 (or 0..255 float) NHWC ``[B, R', R', 3]`` ->
     ``{'embedding': [B, F] fp32 pooled features, 'taps': {name: [B, C] fp32}}``.
+    At the module's resolution with the preprocess folded (``stem_pp_w``)
+    the stem reads the raw images (``folded_stem_pp``; with ``stem_s2d_w``
+    as a space-to-depth conv); otherwise the images are resized to the
+    resolution and normalized with ``mean``/``std`` first
+    (``preprocess_images`` + ``folded_stem``). ``fused=True`` runs the
+    stride-1 blocks of :meth:`forward` through the fused MBConv kernel.
     The segment primitives :meth:`stem`, :meth:`run_blocks` and
-    :meth:`head` run the same forward in pieces (the early-exit cascade
-    runs stem -> blocks ``[0, e0)`` -> ``[e0, e1)`` -> ... -> head on a
-    shrinking batch); their activations are NCHW in ``channels_last``
+    :meth:`head` run the same forward in pieces, per-op (the early-exit
+    cascade runs stem -> blocks ``[0, e0)`` -> ``[e0, e1)`` -> ... -> head
+    on a shrinking batch); their activations are NCHW in ``channels_last``
     memory.
     """
 
@@ -196,37 +262,58 @@ class FoldedEfficientNet(nn.Module):
         configs: List[Dict[str, Any]],
         resolution: int,
         taps: Sequence[str] = (),
+        fused: bool = False,
+        mean: Optional[Sequence[float]] = None,
+        std: Optional[Sequence[float]] = None,
     ):
         super().__init__()
-        if "stem_pp_w" not in folded:
-            raise ValueError("fold_preprocess_into_stem(...) first")
         self.resolution = int(resolution)
-        self.dtype = folded["stem_pp_w"].dtype
+        self.dtype = folded["stem_w"].dtype
         self.names = [c["name"] for c in configs]
         self.taps = tuple(taps)
-        self.register_buffer("stem_w", _oihw(folded["stem_pp_w"]))
+        self.mean = tuple(MEAN_RGB if mean is None else mean)
+        self.std = tuple(STDDEV_RGB if std is None else std)
+        self.register_buffer("stem_w", _oihw(folded["stem_w"]))  # raw stem, explicit preprocess
         self.register_buffer("stem_b", folded["stem_b"].clone())
-        corr = folded["stem_pp_corr"].permute(0, 3, 1, 2).to(self.dtype)
-        self.register_buffer("stem_corr", corr.contiguous(memory_format=torch.channels_last))
+        self.folded_preprocess = "stem_pp_w" in folded
+        self.space_to_depth = "stem_s2d_w" in folded
+        if self.folded_preprocess:
+            self.register_buffer("stem_pp_w", _oihw(folded["stem_pp_w"]))
+            corr = folded["stem_pp_corr"].permute(0, 3, 1, 2).to(self.dtype)
+            self.register_buffer("stem_corr", corr.contiguous(memory_format=torch.channels_last))
+        if self.space_to_depth:
+            self.register_buffer("stem_s2d_w", _oihw(folded["stem_s2d_w"]))
         self.blocks = nn.ModuleList(
             _FoldedBlock(p, c) for p, c in zip(folded["blocks"], configs)
+        )
+        self.fused_blocks = nn.ModuleDict(
+            {str(i): _FusedBlock(p, c) for i, (p, c) in enumerate(zip(folded["blocks"], configs))
+             if fused and c["stride"] == 1}
         )
         self.register_buffer("head_w", _oihw(folded["head_w"]))
         self.register_buffer("head_b", folded["head_b"].clone())
 
     def stem(self, images: torch.Tensor) -> torch.Tensor:
-        """Raw NHWC images -> the stem's activation (``folded_stem_pp``)."""
-        if images.shape[1] != self.resolution or images.shape[2] != self.resolution:
-            raise ValueError(
-                f"images are {tuple(images.shape[1:3])}, the folded stem "
-                f"expects {self.resolution}x{self.resolution}"
-            )
-        # NHWC -> NCHW view: already channels_last in memory
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2) - self.stem_corr)
+        """Raw NHWC images -> the stem's activation."""
+        r = self.resolution
+        if self.folded_preprocess and images.shape[1] == r and images.shape[2] == r:
+            if self.space_to_depth:
+                # [B, R, R, 3] -> [B, R/2, R/2, 12], channel (r*2+s)*3+c, then
+                # the SAME high pad and a stride-1 2x2 VALID conv
+                b, _, _, c = images.shape
+                x = images.to(self.dtype).reshape(b, r // 2, 2, r // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+                x = x.reshape(b, r // 2, r // 2, 4 * c).permute(0, 3, 1, 2)
+                h = F.conv2d(F.pad(x, (0, 1, 0, 1)), self.stem_s2d_w, self.stem_b)
+            else:
+                # NHWC -> NCHW view: already channels_last in memory
+                x = images.permute(0, 3, 1, 2).to(self.dtype)
+                h = _conv(x, self.stem_pp_w, self.stem_b, stride=2)
+            return F.silu(h - self.stem_corr)
+        x = preprocess_images(images, r, self.mean, self.std).to(self.dtype).permute(0, 3, 1, 2)
+        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2))
 
     def run_blocks(self, h: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
-        """Blocks ``[start, end)`` (``folded_blocks``)."""
+        """Blocks ``[start, end)``, per-op (``folded_blocks``)."""
         for blk in self.blocks[start:end]:
             h = blk(h)
         return h
@@ -240,8 +327,39 @@ class FoldedEfficientNet(nn.Module):
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         h = self.stem(images)
         taps: Dict[str, torch.Tensor] = {}
-        for name, blk in zip(self.names, self.blocks):
-            h = blk(h)
+        for i, (name, blk) in enumerate(zip(self.names, self.blocks)):
+            h = self.fused_blocks[str(i)](h) if str(i) in self.fused_blocks else blk(h)
             if name in self.taps:
                 taps[name] = h.to(torch.float32).mean(dim=(2, 3))
         return {"embedding": self.head(h), "taps": taps}
+
+
+def make_infer_fn(
+    variables: Dict[str, Any],
+    variant: str = "b0",
+    taps: Sequence[str] = (),
+    resolution: Optional[int] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    fold_preprocess: bool = True,
+    mean: Optional[Sequence[float]] = None,
+    std: Optional[Sequence[float]] = None,
+    fused: bool = False,
+    space_to_depth: bool = False,
+    device: DeviceLike = None,
+) -> FoldedEfficientNet:
+    """Fold a checkpoint's numpy ``params``/``batch_stats`` and return the
+    serving module on ``device`` (JAX ``make_infer_fn``, which returns
+    ``(fn, folded)``; here the module holds both). ``mean``/``std`` select
+    the preprocessing constants (default MEAN_RGB/STDDEV_RGB).
+    ``fused=True`` runs the stride-1 MBConv blocks through the fused
+    kernel; ``space_to_depth=True`` (with ``fold_preprocess``) rewrites the
+    stem as a space-to-depth conv."""
+    dev = resolve_device(device)
+    folded, configs = fold_backbone(variables, variant, dtype=dtype)
+    res = int(resolution or VARIANTS[variant].resolution)
+    if fold_preprocess:
+        folded = fold_preprocess_into_stem(folded, res, dtype=dtype, mean=mean, std=std)
+        if space_to_depth:
+            folded = fold_stem_space_to_depth(folded, res)
+    module = FoldedEfficientNet(folded, configs, res, taps=taps, fused=fused, mean=mean, std=std)
+    return module.to(dev).eval()

@@ -1,11 +1,16 @@
 """The port's folded EfficientNet forward against the JAX package's
-``folded_forward`` (``fused=False``) on the same uint8 images and weights.
+``folded_forward`` (``fused=False``) on the same uint8 images and weights,
+with the preprocess folded into the stem, as a space-to-depth stem, and
+explicit (resize + normalize) for images of another size.
 
 Tolerances: in float32 both sides compute the same convolutions with
 another summation order, so embeddings and taps agree to rtol 1e-4 of the
-reference's largest magnitude. In bf16 the two frameworks round
-intermediates at different places; the embeddings must then point the
-same way (cosine >= 0.999).
+reference's largest magnitude; the resize differs by float32 rounding of
+the interpolation weights (within 1e-4 of 255), which the same tolerance
+covers. In bf16 the two frameworks round intermediates at different
+places; the embeddings must then point the same way (cosine >= 0.999).
+The space-to-depth stem is a re-layout of the same linear map: 2e-5, the
+JAX package's own tolerance.
 """
 
 import os
@@ -16,10 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from fast_image_recognition_tpu.models import backbone_info as jax_info
 from fast_image_recognition_tpu.models import create_backbone
+from fast_image_recognition_tpu.models import efficientnet as jeff
 from fast_image_recognition_tpu.models.efficientnet import EfficientNet
+from fast_image_recognition_tpu.models.fold import make_serving_fn as jax_serving_fn
 from fast_image_recognition_tpu.models import inference as jinf
 from fast_image_recognition_tpu_torch.models import inference as pinf
+from fast_image_recognition_tpu_torch.models import efficientnet as peff
 from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
@@ -119,10 +128,70 @@ def test_same_padding_matches_tf_rule():
         _close(out, ref, 1e-5)
 
 
+def _cos(a, b):
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
 def test_wrong_resolution_and_family_raise(random_b0_64):
+    """A 64-px image into a 32-px serving module is resized as the JAX
+    package resizes it (it used to raise); other families still raise."""
     variables, images = random_b0_64
     serve = make_serving_fn(variables, backbone_info("b0"), resolution=32, device="cpu")
-    with pytest.raises(ValueError):
-        serve(torch.from_numpy(images))
+    with torch.no_grad():
+        pemb = serve(torch.from_numpy(images))["embedding"].numpy()
+    model = EfficientNet(variant="b0")
+    jfn, jparams = jax_serving_fn(model, variables, jax_info("b0"), resolution=32)
+    jemb = np.asarray(jax.jit(jfn)(jparams, jnp.asarray(images))["embedding"], np.float32)
+    assert pemb.shape == jemb.shape == (3, 1280)
+    assert (_cos(pemb, jemb) >= 0.999).all(), _cos(pemb, jemb)
     with pytest.raises(NotImplementedError):
         make_serving_fn(variables, {"family": "mobilenetv2", "resolution": 224}, device="cpu")
+
+
+def test_preprocess_constants_and_resize_match_jax():
+    assert peff.TF_MODE_MEAN == jeff.TF_MODE_MEAN and peff.TF_MODE_STD == jeff.TF_MODE_STD
+    assert peff.MEAN_RGB == jeff.MEAN_RGB and peff.STDDEV_RGB == jeff.STDDEV_RGB
+    rng = np.random.default_rng(4)
+    for size, res, kw in [(64, 32, {}), (24, 37, {}), (50, 32, dict(mean=peff.TF_MODE_MEAN, std=peff.TF_MODE_STD))]:
+        x = rng.integers(0, 256, (2, size, size, 3)).astype(np.uint8)
+        want = np.asarray(jeff.preprocess_images(jnp.asarray(x), res, **kw))
+        got = peff.preprocess_images(torch.from_numpy(x), res, **kw).numpy()
+        assert got.shape == want.shape == (2, res, res, 3)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("size,tf_mode", [(64, False), (20, False), (32, True), (48, True)])
+def test_explicit_preprocess_branch_matches_jax_fp32(random_b0_64, size, tf_mode):
+    """A 32-px make_infer_fn fed images of another size (downscale 64,
+    48; upscale 20) resizes, normalizes and runs the raw stem; at 32 px
+    the folded stem runs. ``tf_mode`` passes the TF_MODE constants."""
+    variables, _ = random_b0_64
+    images = np.random.default_rng(size).integers(0, 256, (2, size, size, 3)).astype(np.uint8)
+    kw = dict(mean=peff.TF_MODE_MEAN, std=peff.TF_MODE_STD) if tf_mode else {}
+    model = EfficientNet(variant="b0", dtype=jnp.float32)
+    jfn, jfolded = jinf.make_infer_fn(model, variables, resolution=32, dtype=jnp.float32, **kw)
+    want = np.asarray(jax.jit(jfn)(jfolded, jnp.asarray(images))["embedding"])
+    module = pinf.make_infer_fn(variables, "b0", resolution=32, dtype=torch.float32, device="cpu", **kw)
+    with torch.no_grad():
+        got = module(torch.from_numpy(images))["embedding"].numpy()
+    _close(got, want, 1e-4)
+
+
+def test_space_to_depth_stem_is_exact_fp32(random_b0_64):
+    """fold_stem_space_to_depth re-lays the same linear map out (the JAX
+    package's weights, and the forward with and without it, agree)."""
+    variables, images = random_b0_64
+    model = EfficientNet(variant="b0", dtype=jnp.float32)
+    _, jfolded = jinf.make_infer_fn(model, variables, resolution=64, dtype=jnp.float32, space_to_depth=True)
+    module = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, space_to_depth=True,
+                                device="cpu")
+    plain_stem = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, device="cpu")
+    assert module.space_to_depth and not plain_stem.space_to_depth
+    np.testing.assert_allclose(module.stem_s2d_w.permute(2, 3, 1, 0).numpy(), np.asarray(jfolded["stem_s2d_w"]),
+                               rtol=1e-6, atol=1e-7)
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        np.testing.assert_allclose(module.stem(x).numpy(), plain_stem.stem(x).numpy(), rtol=2e-5, atol=2e-5)
+        e1 = module(x)["embedding"].numpy()
+        e2 = plain_stem(x)["embedding"].numpy()
+    np.testing.assert_allclose(e1, e2, rtol=2e-5, atol=2e-5)

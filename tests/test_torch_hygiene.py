@@ -62,6 +62,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.serving import (
         CascadeRecognitionService,
         RecognitionService,
@@ -83,6 +84,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_tap_embed_fn(None, backbone_info("b0"))
     with pytest.raises(RuntimeError):
         device_dataset(2, 1, 8)
+    with pytest.raises(RuntimeError):
+        make_infer_fn(None, fused=True)
 
 
 def test_port_files_are_small_source_text():
@@ -112,6 +115,8 @@ def test_ctypes_bindings_match_the_c_launchers():
         "topk_l2_precise_launch": 16,
         "tilemin_launch": 11,
         "tilemin_quant_launch": 13,
+        "mbconv_expand_dw_launch": 19,
+        "mbconv_se_project_launch": 17,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
