@@ -38,7 +38,17 @@ padding), and drives, each with its own launch counts:
   relu6, no SE, no expand, k=7, an inflated expand bias); the
   space-to-depth stem against the plain stem at fp32; and the plain
   line's service on the fused module, its embedding held against the
-  per-op forward's and its labels against the per-op line's.
+  per-op forward's and its labels against the per-op line's;
+- chi2 1-NN: the chi2 kernel against its plain version (exact division)
+  at ``scripts/chi2_cost.py``'s shape (1024 x 102,400 x 1536, fp32 and
+  bf16 rows) and at edge shapes (B = 1 and 130, D = 100, rows past
+  n_valid, equal rows); the port's ``chi2_cost`` with every kind, its
+  probe agreement with the fp64 oracle gated; and the exact brute-force
+  harness: a feature-file round trip, then ``evaluate_matcher`` on
+  ``BruteForceMatcher`` (L2, a 256-feature prefix, int8, chi2 and KL on
+  sum-normalized rows) over ``make_gallery_and_probes``' 102,400 rows, the
+  L2 rows held against an fp64 argmin and the chi2 rows against
+  ``chi2_nn``'s.
 
 One flushed line per phase, with the seconds since start. The line before
 the card's name and power limit holds the kernels' JSON; the last line is
@@ -1022,6 +1032,254 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     return row
 
 
+# chi2 1-NN and the exact brute-force harness over feature files
+CHI2_B, CHI2_N, CHI2_D = 1024, 102_400, 1536  # scripts/chi2_cost.py's defaults
+CHI2_TOL = 2.0**-16  # rcp.approx.ftz: 1 ulp per term; fp32 sums in another order: < 2^-20 here
+CHI2_SLOW_ITERS = 1  # chi2_cost --iters for its eager streamed chi2 and KL scans (~4 and ~8 s a call)
+BF_CLASSES, BF_PER_CLASS = 1024, 100  # brute-force line: 102,400 gallery rows + 1 probe per class
+# SFU reciprocals of one H100 SXM: 16 per clock per SM, 132 SMs, 1.98 GHz boost
+PEAK_SFU_RCP = 16 * 132 * 1.98e9
+
+
+def chi2_rescore(q, g, rows):
+    """Exact fp32 sums ``sum (g - q)^2 / max(g + q, 1e-30)`` of each query
+    against its row (the plain version's division)."""
+    import torch
+
+    r = g[rows.long()].to(torch.float32)
+    return ((r - q).square() / (r + q).clamp_min(1e-30)).sum(dim=1)
+
+
+def chi2_bound(b, n, d, g_bytes):
+    """(bound ms, detail): the larger of one SFU reciprocal per triple, 6
+    fp32 operations per triple (JAX's CostEstimate, chi2_kernel.py:159) at
+    67 TFLOP/s, and one read of the operands plus the [B] outputs."""
+    triples = float(b) * n * d
+    t = dict(reciprocals=triples / PEAK_SFU_RCP * 1e3, fp32=6.0 * triples / PEAK_FP32_FLOPS * 1e3,
+             bytes=(n * d * g_bytes + b * d * 4 + b * 8) / PEAK_HBM_BYTES * 1e3)
+    return max(t.values()), t
+
+
+def check_chi2(q, g, n_valid, tag, timed=False):
+    """chi2 kernel vs its plain version (exact division) on the same
+    tensors. Its minima must lie within CHI2_TOL relative of the plain
+    ones; its rows may differ from the plain rows only at near-ties: each
+    row, rescored exactly here, must lie within CHI2_TOL of the plain
+    minimum. Returns (report dict, kernel min, kernel rows)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+
+    kd, ki = build.launch_chi2(q, g, n_valid)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    pd, pi = plain.chi2_nn_plain(q, g, n_valid)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)  # one call: the plain version takes seconds here
+    in_range = bool(((ki >= 0) & (ki < n_valid)).all())
+    d_rows = chi2_rescore(q, g, ki)
+    tol = CHI2_TOL * pd
+    rel = ((kd - pd).abs() / pd.clamp_min(1e-30)).max().item()
+    ok = in_range and bool(((kd - pd).abs() <= tol).all()) and bool(((d_rows - pd).abs() <= tol).all())
+    idx_eq = (ki == pi).float().mean().item()
+    b, d = q.shape
+    row = dict(shape=f"B={b} N={g.shape[0]} n_valid={n_valid} D={d} gallery {str(g.dtype).split('.')[-1]}",
+               max_abs_err=(kd - pd).abs().max().item(), max_rel_err=rel, indices_equal=idx_eq, plain_ms=plain_ms)
+    if timed:
+        row["ms"] = cuda_ms(lambda: build.launch_chi2(q, g, n_valid), reps=5)
+        row["bound_ms"], terms = chi2_bound(b, n_valid, d, g.element_size())
+        row.update(bound_by="operations", bound_detail="SFU reciprocals, one per (query, row, feature)",
+                   bound_terms_ms=terms, library_ms=None)
+    phase(f"chi2 {tag} {row['shape']}: max rel gap {rel:.2e}, indices equal {100 * idx_eq:.3f}%"
+          + (f"; kernel {row['ms']:.3f} ms, plain {plain_ms:.1f} ms, bound {row['bound_ms']:.3f} ms "
+             f"(reciprocals; fp32 {terms['fp32']:.3f}, bytes {terms['bytes']:.3f})" if timed else ""))
+    if not ok:
+        raise AssertionError(f"chi2 kernel disagrees with its plain version ({tag}, {row['shape']})")
+    return row, kd, ki
+
+
+def check_chi2_edges(dev):
+    """The chi2 kernel at edge shapes, untimed: B = 1 and 130, D = 100 (no
+    multiple of 32), N = 1000 with zero rows past n_valid = 900 (their
+    score sum(q) undercuts every real row for the down-scaled queries, so
+    the mask must hold), n_valid = 896 (a whole 64-row kernel tile and a
+    ragged one past it), a bf16 gallery, and equal rows (lowest row)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+
+    def rows(m, d):
+        x = torch.rand((m, d), generator=gen, device=dev)
+        return x / x.sum(dim=1, keepdim=True)
+
+    n, nv, d = 1000, 900, 100
+    g = rows(n, d)
+    g[nv:] = 0.0
+    out = []
+    for b in (1, 130):
+        q = rows(b, d)
+        q[::2] *= 0.01  # sum(q) = 0.01: a zero row would beat every real row
+        unmasked = plain.chi2_nn_plain(q, g, n)[1]
+        if not bool((unmasked >= nv).any()):
+            raise AssertionError("edge case does not exercise the row mask")
+        for gal, nv_ in ((g, nv), (g.to(torch.bfloat16), nv), (g, 896)):
+            out.append(check_chi2(q, gal, nv_, "edge")[0])
+        dup = g.clone()
+        dup[[300, 520, 777]] = dup[40].clone()  # four equal rows
+        q2 = q.clone()
+        q2[0] = dup[40]
+        if b > 1:
+            dup[[610, 611]] = q2[1]  # a query's exact match, twice
+        row, kd, ki = check_chi2(q2, dup, nv, "ties")
+        if ki[0].item() != 40 or kd[0].item() != 0.0 or (b > 1 and ki[1].item() != 610):
+            raise AssertionError(f"chi2 kernel broke the lowest-row tie rule: {ki[:2].tolist()}")
+        out.append(row)
+    return out
+
+
+class Recording:
+    """A matcher that keeps its last ``SearchResult`` (evaluate_matcher
+    returns only the metrics)."""
+
+    def __init__(self, matcher):
+        self.matcher, self.name = matcher, matcher.name
+
+    def set_budget(self, n):
+        self.matcher.set_budget(n)
+
+    def search(self, queries):
+        self.last = self.matcher.search(queries)
+        return self.last
+
+
+def run_chi2_slice(dev, launches, smi):
+    """chi2 kernel checks, ``chi2_cost`` and the brute-force line. Returns
+    (the kernels-line row of ``chi2``, the lines' JSON)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.config import DistanceKind
+    from fast_image_recognition_tpu_torch.data import (
+        load_feature_file,
+        make_gallery_and_probes,
+        make_synthetic_gallery,
+        normalize_features,
+        write_feature_file,
+    )
+    from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
+    from fast_image_recognition_tpu_torch.scripts import chi2_cost
+    from fast_image_recognition_tpu_torch.search import BruteForceMatcher
+
+    # 15. the kernel at chi2_cost's shape (its own data), fp32 and bf16 rows
+    g, q = chi2_cost.make_data(CHI2_N, CHI2_B, CHI2_D, dev)
+    shapes = [check_chi2(q, g, CHI2_N, "kernel vs plain", timed=True)[0],
+              check_chi2(q, g.to(torch.bfloat16), CHI2_N, "kernel vs plain", timed=True)[0]]
+    edges = check_chi2_edges(dev)
+    phase(f"chi2 edge shapes: {len(edges)} cases within {CHI2_TOL:.2e} of the plain minima, rows past n_valid "
+          f"never returned, equal rows to the lowest")
+    del g, q
+
+    # 16. chi2_cost at its defaults, every kind; the eager streamed chi2 and
+    # KL scans timed over CHI2_SLOW_ITERS calls
+    build.reset_launch_counts()
+    cost = chi2_cost.main(["--kinds", "chi2,kl", "--iters", str(CHI2_SLOW_ITERS)])
+    cost += chi2_cost.main(["--kinds", "l2,chi2_pallas,chi2_pallas_bf16"])
+    iters = 5  # chi2_cost's default
+    check_launches("chi2_cost", launches, chi2=2 * (iters + 2))  # warm-up, iters, probe: one launch each
+    by_kind = {ln["metric"].split("(")[1].split()[0]: ln for ln in cost}
+    for kind, ln in by_kind.items():
+        floor = 0.9 if kind == "chi2_pallas_bf16" else 1.0  # tests/test_chi2_kernel.py:49-57
+        if ln["probe_agreement"] < floor:
+            raise AssertionError(f"chi2_cost {kind}: probe agreement {ln['probe_agreement']} < {floor}")
+    phase("chi2_cost lines (" + smi + "): " + "; ".join(
+        f"{k} {ln['value']} q/s ({1e3 * ln['sec_per_batch']:.1f} ms/batch), agreement {ln['probe_agreement']}"
+        for k, ln in by_kind.items()) + f"; launches {launches['chi2_cost']}")
+
+    # 17. the brute-force harness: a feature-file round trip, then 1-NN
+    # over 102,400 rows, each matcher counted on its own
+    t = time.time()
+    feats, labels = make_synthetic_gallery(101, 10, CHI2_D, seed=5)
+    names = [f"class_{c:03d}" for c in range(101)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "features.txt")
+        write_feature_file(path, feats, labels, names)
+        db = load_feature_file(path, CHI2_D)
+    if not (np.array_equal(db.features, normalize_features(feats)) and np.array_equal(db.labels, labels)
+            and db.class_names == names):
+        raise AssertionError("feature file round trip changed the rows")
+    gal, glab, probes, plab = make_gallery_and_probes(BF_CLASSES, BF_PER_CLASS, 1, CHI2_D, seed=7)
+    gal_s, probes_s = normalize_features(gal, l2=False), normalize_features(probes, l2=False)
+    phase(f"feature file round trip ({db.num_images} rows x {CHI2_D}) exact; gallery {gal.shape} and "
+          f"{probes.shape[0]} probes made in {time.time() - t:.1f} s")
+    with torch.no_grad():
+        qt, gt = torch.from_numpy(probes).to(dev), torch.from_numpy(gal).to(dev)
+        q64, g64 = qt.double(), gt.double()
+        d64 = (q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :] - 2.0 * (q64 @ g64.T)
+        oracle = d64.argmin(dim=1)
+        del q64, g64
+
+    def near_tie_ok(rows):
+        rows = torch.as_tensor(rows, device=dev).long()
+        d_pick, d_best = d64.gather(1, rows[:, None])[:, 0], d64.gather(1, oracle[:, None])[:, 0]
+        return bool(((rows == oracle) | (d_pick - d_best <= CHI2_TOL * d_best)).all())
+
+    bf_rows = []
+    cases = [("l2", gal, probes, dict()), ("l2 max_features=256", gal, probes, dict(max_features=256)),
+             ("int8", gal, probes, dict(precision="int8")),
+             ("chi2", gal_s, probes_s, dict(kind=DistanceKind.CHI2)),
+             ("kl", gal_s, probes_s, dict(kind=DistanceKind.KL))]
+    for name, g_np, p_np, kw in cases:
+        m = Recording(BruteForceMatcher(g_np, device=dev, **kw))
+        build.reset_launch_counts()
+        res = evaluate_matcher(m, glab, p_np, plab, verbose=False)  # a warm-up batch, then one of 1024
+        check_launches(f"matcher {name}", launches, **({"tilemin_quant": 2} if name == "int8" else {}))
+        idx = m.last.indices
+        row = dict(matcher=name, summary=res.summary(), ms_per_image=res.ms_per_image, error_pct=res.error_rate)
+        if name in ("l2", "int8"):  # full-D L2: reported, and gated for "l2" below
+            row["l2_fp64_argmin_agreement_pct"] = 100.0 * float(np.mean(idx == oracle.cpu().numpy()))
+        if name == "l2" and not near_tie_ok(idx):
+            raise AssertionError("the L2 matcher's rows are not the fp64 argmin's beyond near-ties")
+        if name == "chi2":
+            build.reset_launch_counts()
+            dn, inn = chi2_nn(torch.from_numpy(probes_s).to(dev), torch.from_numpy(gal_s).to(dev))
+            check_launches("chi2_nn (brute-force data)", launches, chi2=1)
+            dn, inn = dn.cpu().numpy(), inn.cpu().numpy()
+            row["chi2_nn_rows_equal_pct"] = 100.0 * float(np.mean(idx == inn))
+            # equal rows: both distances are the exact formula, summed in
+            # another order; other rows: a near-tie of the refined distance
+            if not (np.abs(m.last.distances - dn) <= CHI2_TOL * dn).all():
+                raise AssertionError("the chi2 matcher's rows differ from chi2_nn's beyond near-ties")
+        bf_rows.append(row)
+        agree = (f", fp64 L2 argmin agreement {row['l2_fp64_argmin_agreement_pct']:.3f}%"
+                 if "l2_fp64_argmin_agreement_pct" in row else "")
+        if name == "chi2":
+            agree = f", rows equal to chi2_nn's {row['chi2_nn_rows_equal_pct']:.3f}%"
+        phase(f"brute-force {name}: {res.summary()} ({smi}){agree}; launches {launches[f'matcher {name}']}")
+        del m
+    del d64, qt, gt
+
+    s_by = {k: by_kind[k]["sec_per_batch"] * 1e3 for k in by_kind}
+    kernel_row = dict(
+        name="chi2", route="cuda", source="fast_image_recognition_tpu_torch/kernels/chi2.cu",
+        replaces="fast_image_recognition_tpu/ops/chi2_kernel.py:55",
+        launches=launches["chi2_cost"]["chi2"], launches_by_path={p: c["chi2"] for p, c in launches.items()},
+        **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        bound_detail=shapes[0]["bound_detail"],
+        yardstick_streamed_topk_chi2_ms=s_by["chi2"], yardstick_streamed_topk_l2_ms=s_by["l2"],
+        shapes=shapes, edges=edges,
+    )
+    return kernel_row, {"chi2_cost": cost, "brute_force": bf_rows}
+
+
 def main() -> int:
     import torch
 
@@ -1503,6 +1761,10 @@ def main() -> int:
         ))
     del gal_q, gsq_bf, gsc_bf, gal_bf
 
+    # 15-17. chi2 1-NN: its kernel, scripts/chi2_cost.py, and the exact
+    # brute-force harness over feature files
+    chi2_row, chi2_lines = run_chi2_slice(dev, launches, smi)
+
     src = "fast_image_recognition_tpu_torch/kernels/"
 
     def first(entries):
@@ -1552,9 +1814,10 @@ def main() -> int:
                  r["bound_ms"] for r in mb_report["blocks"] if r["bound_by"] == by)),
              library_ms=None, yardstick_per_op_ms=mb_report["total"]["per_op_ms"],
              blocks=mb_report["blocks"], edges=mb_report["edges"]),
+        chi2_row,
     ]
     print(json.dumps({"lines": {"service_modes": mode_rows, "bf": bf_rows, "partial_escalation": esc_rows,
-                                "fused_path": fused_row, "s2d_stem": s2d_row}}), flush=True)
+                                "fused_path": fused_row, "s2d_stem": s2d_row, **chi2_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     phase(f"done: total command time {time.time() - T0:.1f} s")

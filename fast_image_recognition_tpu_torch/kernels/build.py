@@ -32,6 +32,7 @@ SOURCES = {
     "topk_l2": "topk_l2.cu",
     "tile_scan": "tile_scan.cu",
     "mbconv": "mbconv.cu",
+    "chi2": "chi2.cu",
 }
 NVCC_FLAGS = [
     "-O3",
@@ -53,6 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "tilemin": 0,
     "tilemin_quant": 0,
     "mbconv": 0,  # two launches per block: expand + depthwise, then SE + project
+    "chi2": 0,
 }
 # ptxas resource lines of the last build of each library (registers,
 # shared memory, spills), for the smoke run to print
@@ -119,6 +121,9 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.mbconv_expand_dw_launch.restype = I
             lib.mbconv_se_project_launch.argtypes = [P] * 10 + [I] * 6 + [P]
             lib.mbconv_se_project_launch.restype = I
+        elif name == "chi2":
+            lib.chi2_launch.argtypes = [P, P, I, P, I, I, I, P]
+            lib.chi2_launch.restype = I
         elif name == "tile_scan":
             lib.tilemin_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
             lib.tilemin_launch.restype = I
@@ -436,3 +441,43 @@ def launch_mbconv(
         )
         LAUNCHES["mbconv"] += 1
     return out
+
+
+def launch_chi2(q: torch.Tensor, g: torch.Tensor, n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kernels/chi2.cu``: per query the least ``sum (g - q)^2 *
+    rcp(max(g + q, 1e-30))`` over rows [0, n_valid) and the lowest row at
+    it: (min [B] fp32, unnormalized; row [B] int32). ``q`` [B, D] fp32,
+    ``g`` [N, D] fp32 or bf16. One launch whatever B is."""
+    for t, what in ((q, "queries"), (g, "gallery")):
+        if t.device.type != "cuda":
+            raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous 2-d tensor")
+    if q.dtype != torch.float32 or g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"chi2 takes fp32 queries and an fp32 or bf16 gallery, got {q.dtype}, {g.dtype}")
+    b, d = q.shape
+    n = g.shape[0]
+    if b < 1 or d < 1 or g.shape[1] != d or not 0 < n_valid <= n:
+        raise ValueError(
+            f"chi2 kernel takes B, D >= 1 and 0 < n_valid <= N; got queries {tuple(q.shape)}, "
+            f"gallery {tuple(g.shape)}, n_valid={n_valid}"
+        )
+    if q.device != g.device:
+        raise ValueError("queries and gallery are on different devices")
+    # all bits set: the kernel's atomicMin keeps the least (distance bits, row) key
+    keys = torch.full((b,), -1, dtype=torch.int64, device=q.device)
+    lib = _lib("chi2")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(
+            lib.chi2_launch(
+                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), keys.data_ptr(), b, int(n_valid), d,
+                stream,
+            ),
+            "chi2",
+        )
+    LAUNCHES["chi2"] += 1
+    # distances are >= 0, so the key's high word is the fp32 bits of the min
+    dist = (keys >> 32).to(torch.int32).view(torch.float32)
+    rows = (keys & 0xFFFFFFFF).to(torch.int32)
+    return dist, rows

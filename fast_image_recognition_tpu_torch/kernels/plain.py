@@ -208,6 +208,40 @@ def topk_l2_plain(
     return best_d, best_i.to(torch.int32)
 
 
+def chi2_nn_plain(
+    q: torch.Tensor,  # [B, D] fp32
+    g: torch.Tensor,  # [N, D] fp32 or bf16
+    n_valid: Optional[int] = None,
+    tile_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """chi2 1-NN: per query the least ``sum (g - q)^2 / max(g + q, 1e-30)``
+    in fp32 with exact division over rows [0, n_valid), and the lowest row
+    at it (counterpart of ``_chi2_kernel``, ops/chi2_kernel.py:55). Works
+    through ``tile_rows`` gallery rows at a time (default: the [B, tile, D]
+    broadcast under 2^26 elements, a multiple of 128 rows, as
+    ``_elementwise_tile`` is driven). Returns (min [B] fp32, unnormalized;
+    row [B] int32)."""
+    b, d = q.shape
+    n = g.shape[0] if n_valid is None else int(n_valid)
+    if tile_rows is None:
+        tile_rows = max(128, (1 << 26) // max(b * d, 1)) // 128 * 128
+    qf = q.to(torch.float32)[:, None, :]
+    best_d = torch.full((b,), BIG_DIST, dtype=torch.float32, device=q.device)
+    best_i = torch.full((b,), -1, dtype=torch.int32, device=q.device)
+    for r0 in range(0, n, tile_rows):
+        gt = g[r0 : min(r0 + tile_rows, n)].to(torch.float32)[None]
+        s = (qf + gt).clamp_min_(1e-30)
+        dist = (qf - gt).square_().div_(s).sum(dim=2)  # [B, T]
+        del s
+        m = dist.min(dim=1).values
+        cols = torch.arange(dist.shape[1], dtype=torch.int32, device=q.device)
+        arg = torch.where(dist == m[:, None], cols, INT_BIG).min(dim=1).values
+        better = m < best_d  # strict: an earlier tile keeps its row on a tie
+        best_i = torch.where(better, arg + r0, best_i)
+        best_d = torch.where(better, m, best_d)
+    return best_d, best_i
+
+
 def act_plain(x: torch.Tensor, activation: str) -> torch.Tensor:
     """The MBConv activations on fp32 values (``_act``,
     ops/mbconv_kernel.py:76): ``relu6`` or swish."""

@@ -63,6 +63,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
     from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+    from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
+    from fast_image_recognition_tpu_torch.scripts import chi2_cost
+    from fast_image_recognition_tpu_torch.search import BruteForceMatcher
     from fast_image_recognition_tpu_torch.serving import (
         CascadeRecognitionService,
         RecognitionService,
@@ -86,6 +89,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         device_dataset(2, 1, 8)
     with pytest.raises(RuntimeError):
         make_infer_fn(None, fused=True)
+    rows = torch.rand((8, 16)).numpy()
+    with pytest.raises(RuntimeError):
+        chi2_nn(rows, rows)
+    with pytest.raises(RuntimeError):
+        BruteForceMatcher(rows)
+    with pytest.raises(RuntimeError):
+        chi2_cost.main(["--gallery", "8", "--batch", "2", "--dim", "16", "--iters", "1"])
 
 
 def test_port_files_are_small_source_text():
@@ -117,6 +127,7 @@ def test_ctypes_bindings_match_the_c_launchers():
         "tilemin_quant_launch": 13,
         "mbconv_expand_dw_launch": 19,
         "mbconv_se_project_launch": 17,
+        "chi2_launch": 8,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
