@@ -7,7 +7,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout with ``nvcc``, holds every kernel against its plain
 PyTorch version at the shapes of the paths below and at odd ones (widths
 that are no multiple of 8, batches of 1 and 130, tiles of nothing but
-padding), and drives, each with its own launch counts:
+padding; for the two scans on the Hopper main loop, ``topk_l2`` bf16 and
+the min-2 packed scan, batches around their 128-query tiles, n_valid
+below and across their gallery sub-tiles, 64-lane chunks, windows and
+row masks), and drives, each with its own launch counts:
 
 - the main serving path at full width (bench.py's plain e2e line:
   EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
@@ -84,6 +87,20 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # CUDA-core FMA, no tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# the times of the first port's WMMA designs that the sm90 main loop
+# (kernels/sm90_scan.cuh) replaced, at the same shapes, as PERF.md's kernel
+# table records them (an NVIDIA H100 80GB HBM3 at 700 W). They are read,
+# not measured here: the smoke run prints them in its phase text beside its
+# own times, and never in a JSON line.
+PREVIOUS_DESIGN_NOTE = "replaced WMMA design (read from PERF.md's kernel table, H100 80GB HBM3, 700 W)"
+PREVIOUS_DESIGN_MS = {
+    "B=1024 N=1000000 D=1280 k=1": 23.200,
+    "B=256 N=1000000 D=1280 k=16": 9.759,
+    "B=1024 N=1000000 D=1536 k=1": 27.557,
+    "B=1024 N=1000000 D=1536 k=1 window=[256, 1024]": 14.369,
+    "tilemin2_packed B=1024 Np=1000448 Da=128": 2.566,
+    "partial escalation, escalated probes in front": 5.167,
+}
 
 
 def phase(msg: str) -> None:
@@ -290,52 +307,68 @@ def check_cert_scan(svc, emb, report):
         lambda: (qa @ ga.T).view(b, n_tiles, 1024).min(dim=2), reps=3
     )
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4)
+    prev = PREVIOUS_DESIGN_MS.get(f"tilemin2_packed B={b} Np={np_} Da={da}")
     phase(
         f"packed scan B={b} Np={np_} Da={da}: keys equal {100 * key_eq:.3f}%, "
         f"max |d| gap {err:.3e} ({rel:.2e} rel), candidate sets equal "
         f"{100 * same_set.float().mean().item():.3f}%, bound gap {bound_rel:.2e} rel; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+min yardstick "
         f"{yard_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
+        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
         raise AssertionError("packed scan kernel disagrees with its plain version")
     report["tilemin2_packed"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={b} Np={np_} Da={da}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, yardstick_matmul_min_ms=yard_ms,
     )
 
 
-def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False):
+def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
+               row_mask=None):
     """topk_l2 kernel (bf16, windowed or precise) vs its plain version on
     the path's gallery. The kernel's rows are rescored here: each must sit
     at the distance the kernel reports, and may differ from the plain pick
     only where the two tie within the sum-order tolerance: 2^-12 relative
     + 1e-6 for bf16 products; 2^-16 absolute for the fp32 oracle (sums of
     1536 products of unit vectors in another order: ~sqrt(D) 2^-24 typical,
-    D 2^-24 at worst)."""
+    D 2^-24 at worst). Query rows outside ``row_mask`` must come back
+    empty, (BIG_DIST, -1), from both. Timed beside its bound, plain
+    version and yardstick only with a ``report``."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
 
     q = queries.to(torch.float32 if precise else torch.bfloat16).contiguous()
-    launch = lambda: build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise)  # noqa: E731
+    launch = lambda: build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise,  # noqa: E731
+                                          row_mask=row_mask)
     kd, ki = launch()
-    pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise)
+    pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask)
     torch.cuda.synchronize()
-    err = (kd - pd).abs().max().item()
-    idx_eq = (ki == pi).float().mean().item()
     b, dim = q.shape
+    on = torch.ones(b, dtype=torch.bool, device=q.device) if row_mask is None else row_mask
+    off_ok = bool((kd[~on] == pd[~on]).all()) and bool((ki[~on] == -1).all()) and bool((pi[~on] == -1).all())
+    kd, ki, pd, pi = kd[on], ki[on], pd[on], pi[on]
+    err = (kd - pd).abs().max().item() if kd.numel() else 0.0
+    idx_eq = (ki == pi).float().mean().item() if ki.numel() else 1.0
     lo, hi = window if window is not None else (0, dim)
     in_range = bool(((ki >= 0) & (ki < n_valid)).all())
     rows = gallery[ki.clamp(0, n_valid - 1).long()][:, :, lo:hi].to(torch.float32)  # [B, k, W]
-    qf = q[:, lo:hi].to(torch.float32)
+    qf = q[on][:, lo:hi].to(torch.float32)
     d_rows = torch.clamp_min(
         (qf * qf).sum(1)[:, None] + (rows * rows).sum(2) - 2.0 * torch.einsum("bd,bkd->bk", qf, rows), 0.0
     )
     del rows
     tol = torch.full_like(pd, 2.0**-16) if precise else 2.0**-12 * pd.abs() + 1e-6
-    ok = in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
+    ok = off_ok and in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
     ok = ok and bool(((kd - d_rows).abs() <= tol).all())
+    variant = "precise" if precise else f"window {window}" if window else "bf16"
+    masked = "" if row_mask is None else f" mask {int(on.sum())}/{b}"
+    if report is None:
+        if not ok:
+            raise AssertionError(f"topk_l2 kernel ({variant}, B={b}, N={n_valid}, D={dim}, k={k}{masked}) "
+                                 f"disagrees with its plain version")
+        return
     width = hi - lo
     ms = cuda_ms(launch, reps=3)
     plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise), reps=1)
@@ -355,21 +388,20 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     g = None
     b_ms, b_by = bound(2.0 * b * n_valid * width, n_valid * width * gallery.element_size() + b * width * q.element_size()
                        + b * k * 8, PEAK_FP32_FLOPS if precise else PEAK_BF16_FLOPS)
-    variant = "precise" if precise else f"window {window}" if window else "bf16"
+    shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
+    prev = None if precise else PREVIOUS_DESIGN_MS.get(shape)
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"matmul+{'min' if window else 'topk'} yardstick {yard_ms:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by})"
+        f"bound {b_ms:.3f} ms ({b_by})" + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
         raise AssertionError(f"topk_l2 kernel ({variant}, k={k}) disagrees with its plain version")
-    if report is not None:
-        report.setdefault(key, []).append(dict(
-            shape=f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else ""),
-            max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, **{f"yardstick_matmul_{'min' if window else 'topk'}_ms": yard_ms},
-        ))
+    report.setdefault(key, []).append(dict(
+        shape=shape, max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, **{f"yardstick_matmul_{'min' if window else 'topk'}_ms": yard_ms},
+    ))
 
 
 def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None):
@@ -536,6 +568,98 @@ def check_edge_shapes(dev):
     return pad_pairs
 
 
+# the two scans on the sm90 main loop at the edges of their tiles: query
+# tiles of 128 (B), gallery sub-tiles of 256 (k = 1) and 128 rows (k > 1)
+# with n_valid below one and not a multiple of one, the rows past n_valid
+# holding copies of the queries (they would win if they leaked in),
+# 64-lane chunks (D = 8, 40, 1280; Da = 48, 128) and windows on and off
+# the 8-lane boundary
+SCAN_EDGE_B = (1, 127, 128, 129, 257)
+TOPK_EDGES = [(600, 100, 8), (5000, 4321, 40), (3000, 2900, 1280)]  # (rows, n_valid, D)
+TOPK_EDGE_K = (1, 2, 3, 16)
+ROW_MASKS = ("empty", "first", "last", 64, 65, 128, 129)  # a prefix of that many queries
+MIN2_EDGES = [(3600, 1800, 40, 48), (2100, 2100, 124, 128)]  # (rows, n_valid, d, Da)
+
+
+def check_min2(qa, ga, n_valid):
+    """Min-2 packed scan kernel vs its plain version, untimed: decoded
+    distances within 2^-12 relative + 1e-6 (key quantization and fp32 sum
+    order), the rows the keys carry rescored here in fp32 at their keys'
+    distances and equal to the plain rows but at near-ties, and whole-pad
+    tiles (every row >= n_valid) never holding a winner: tiles with a
+    valid row return one, whole-pad tiles only pad distances (~1e38)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+
+    k1, k2 = build.launch_tilemin2_packed(qa, ga)
+    p1, p2 = plain.tilemin2_packed_plain(qa, ga)
+    torch.cuda.synchronize()
+    qf = qa.to(torch.float32)
+    ok = True
+    for keys, ref in ((k1, p1), (k2, p2)):
+        kd, pd = dk._key_to_dist(keys), dk._key_to_dist(ref)
+        d_rows = [torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[dk._key_to_row(kk).long()].to(torch.float32)), 0.0)
+                  for kk in (keys, ref)]
+        tol = 2.0**-12 * pd.abs() + 1e-6
+        ok = ok and bool(((kd - pd).abs() <= tol).all())
+        ok = ok and bool(((d_rows[0] - kd).abs() <= tol).all()) and bool(((d_rows[0] - d_rows[1]).abs() <= tol).all())
+    rows = dk._key_to_row(k1)
+    whole_pad = torch.arange(k1.shape[1], device=k1.device) * 1024 >= n_valid
+    ok = ok and bool((rows[:, ~whole_pad] < n_valid).all()) and bool((k1 != k2).all())
+    ok = ok and bool((dk._key_to_dist(k1)[:, whole_pad] >= 1e37).all())
+    if not ok:
+        raise AssertionError(f"min-2 packed scan kernel disagrees with its plain version (B={qa.shape[0]}, "
+                             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]})")
+
+
+def check_sm90_edges(dev):
+    """The topk_l2 bf16 kernel and the min-2 packed scan against their
+    plain versions at :data:`SCAN_EDGE_B`, :data:`TOPK_EDGES` (every k of
+    :data:`TOPK_EDGE_K`, windows (1, D-1), (5, D-3) and, where D allows,
+    the chunk-aligned (64, 192); :data:`ROW_MASKS` at B = 257) and
+    :data:`MIN2_EDGES`, untimed. Returns the number of cases."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    cases = 0
+    for n, nv, d in TOPK_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[: max(SCAN_EDGE_B)] + 0.1 * torch.randn((max(SCAN_EDGE_B), d), generator=gen, device=dev))
+        g32[nv : nv + max(SCAN_EDGE_B)] = q32[: n - nv]  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        windows = [None, (1, d - 1)] + ([(5, d - 3)] if d > 8 else []) + ([(64, 192)] if d >= 192 else [])
+        for b in SCAN_EDGE_B:
+            for k in TOPK_EDGE_K:
+                for w in windows:
+                    check_topk(g16, nv, q32[:b], k, window=w)
+                    cases += 1
+        b = max(SCAN_EDGE_B)
+        for m in ROW_MASKS:
+            mask = torch.zeros(b, dtype=torch.bool, device=dev)
+            if m == "first":
+                mask[0] = True
+            elif m == "last":
+                mask[-1] = True
+            elif m != "empty":
+                mask[:m] = True
+            for k in (1, 3):
+                check_topk(g16, nv, q32[:b], k, row_mask=mask)
+                cases += 1
+    for n, nv, d, da in MIN2_EDGES:
+        g16 = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
+        ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pad rows keep their data, |g|^2 = 1e38
+        for b in SCAN_EDGE_B:
+            q = _unit(g16[:b].to(torch.float32) + 0.1 * torch.randn((b, d), generator=gen, device=dev))
+            check_min2(dk._augment_queries(q, d, da), ga, nv)
+            cases += 1
+    return cases
+
+
 def check_single_scan(name, qa, ga, tile_g, report):
     """Single-min packed scan kernel vs its plain version on the cascade's
     tensors: equal keys, decoded distances within 2^-12 relative, and the
@@ -589,12 +713,13 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
     layout escalates every probe, the planted one none), three ways on
     the same embeddings and mask: the service's ``_escalate`` (escalated
     probes moved to the front, one masked launch), the same mask with
-    the probes left in place (every 64-query block with an escalated
-    probe scans), and the gather of the escalated rows behind a host sync
-    (``nonzero``), as the previous serving code did. All three must give
+    the probes left in place (every query tile of the kernel with an
+    escalated probe scans), and the gather of the escalated rows behind a
+    host sync (``nonzero``), as the previous serving code did. All three must give
     the same rows. Returns the timings (host clock between syncs)."""
     import torch
 
+    from fast_image_recognition_tpu_torch.kernels import build
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
 
     gen = torch.Generator(device=dev)
@@ -627,14 +752,18 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
         for k in ("gather_sync", "front", "in_place", "in_place", "front", "gather_sync"):
             ms[k].append(host_ms(ways[k], TIMED_CALLS))
     n_esc = int(esc.sum())
-    # 64-query blocks of the exact scan that hold an escalated probe (BATCH % 64 == 0)
-    front_blocks, in_place_blocks = -(-n_esc // 64), int(esc.view(-1, 64).any(dim=1).sum())
-    row = dict(escalated=n_esc, batch=emb.shape[0], scanned_blocks_front=front_blocks,
+    # query tiles of the exact scan's kernel that hold an escalated probe
+    qt = build.topk_l2_query_rows()
+    front_blocks = -(-n_esc // qt)
+    in_place_blocks = int(torch.nn.functional.pad(esc, (0, -esc.shape[0] % qt)).view(-1, qt).any(dim=1).sum())
+    prev = PREVIOUS_DESIGN_MS["partial escalation, escalated probes in front"]
+    row = dict(escalated=n_esc, batch=emb.shape[0], query_tile=qt, scanned_blocks_front=front_blocks,
                scanned_blocks_in_place=in_place_blocks, **{f"{k}_ms": v for k, v in ms.items()})
     phase(
         f"partial escalation ({n_esc} of {emb.shape[0]} probes): exact step {ms['front']} ms with the escalated "
-        f"probes in front ({front_blocks} query blocks scan), {ms['in_place']} ms in place ({in_place_blocks} blocks), "
-        f"{ms['gather_sync']} ms by gather behind a host sync; same rows all three"
+        f"probes in front ({front_blocks} query tiles of {qt} scan), {ms['in_place']} ms in place ({in_place_blocks} "
+        f"tiles), {ms['gather_sync']} ms by gather behind a host sync; same rows all three; "
+        f"{PREVIOUS_DESIGN_NOTE}: {prev} ms in front"
     )
     return row
 
@@ -1335,6 +1464,11 @@ def main() -> int:
     pad_pairs = check_edge_shapes(dev)
     phase(f"edge shapes {EDGE_SHAPES}: every kernel agrees with its plain version; {pad_pairs} (query, "
           f"whole-pad tile) minima bit-equal to the plain ones (BIG_DIST with fp32 scores, inf with bf16)")
+    n_cases = check_sm90_edges(dev)
+    phase(f"sm90 scan edges: {n_cases} cases of topk_l2 (bf16; B {list(SCAN_EDGE_B)}, (rows, n_valid, D) "
+          f"{TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row masks {list(ROW_MASKS)}) "
+          f"and the min-2 packed scan ((rows, n_valid, d, Da) {MIN2_EDGES}) agree with their plain versions; no row "
+          f"past n_valid returned, no whole-pad tile won")
 
     # 3. workload: trained B0@224, unseen identities rendered on the card
     t = time.time()
@@ -1377,7 +1511,7 @@ def main() -> int:
     probe_batch = svc._embed(images)
     check_cert_scan(svc, probe_batch, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report)
-    check_topk(gallery, GALLERY, probe_batch[:256], 16)
+    check_topk(gallery, GALLERY, probe_batch[:256], 16, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
     torch.cuda.synchronize()
     t = time.time()

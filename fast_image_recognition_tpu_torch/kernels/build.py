@@ -4,8 +4,9 @@ Each ``*.cu`` file in this directory exposes ``extern "C"`` launchers that
 take raw device pointers, sizes and a ``cudaStream_t`` and return a
 ``cudaError_t`` value. They are compiled at first use by ``nvcc`` alone
 (no ninja, no PyTorch headers) into a shared library under
-``fast_image_recognition_tpu_torch/_build/``, named by a hash of the source
-and the flags, and loaded with ``ctypes``. A failed build or a non-zero
+``fast_image_recognition_tpu_torch/_build/``, named by a hash of the source,
+the headers beside it (``*.cuh``, e.g. the Hopper main loop
+``sm90_scan.cuh``) and the flags, and loaded with ``ctypes``. A failed build or a non-zero
 launch status raises; nothing falls back to the plain versions.
 
 Every launcher wrapper adds one to ``LAUNCHES[name]`` where it launches its
@@ -75,9 +76,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(KERNEL_DIR, SOURCES[name]), "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{h[:16]}.so")
+    """Library path keyed by the source, every header of the directory
+    (a header edit must not load a stale library) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(KERNEL_DIR) if f.endswith(".cuh"))
+    for f in [SOURCES[name], *headers]:
+        with open(os.path.join(KERNEL_DIR, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -134,8 +140,10 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.topk_l2_launch.restype = I
             lib.topk_l2_precise_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
             lib.topk_l2_precise_launch.restype = I
-            lib.topk_l2_segment_rows.argtypes = []
+            lib.topk_l2_segment_rows.argtypes = [I]
             lib.topk_l2_segment_rows.restype = I
+            lib.topk_l2_query_rows.argtypes = []
+            lib.topk_l2_query_rows.restype = I
             lib.topk_l2_list_len.argtypes = [I]
             lib.topk_l2_list_len.restype = I
         _LIBS[name] = lib
@@ -154,6 +162,12 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
 def _raise_on(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what} launch failed with cudaError_t {status}")
+
+
+def topk_l2_query_rows() -> int:
+    """Queries per bf16 pass-1 block of ``kernels/topk_l2.cu``: a row mask
+    skips the blocks that hold no masked query."""
+    return _lib("topk_l2").topk_l2_query_rows()
 
 
 def _check_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> int:
@@ -256,7 +270,7 @@ def launch_topk_l2(
         row_mask = row_mask.contiguous()  # bool is one byte: read as uint8
         mask_ptr = row_mask.data_ptr()
     lib = _lib("topk_l2")
-    seg = lib.topk_l2_segment_rows()
+    seg = lib.topk_l2_segment_rows(int(precise))
     n_seg = -(-n_valid // seg)
     kk = lib.topk_l2_list_len(k)
     part_d = torch.empty((b, n_seg, kk), dtype=torch.float32, device=q.device)

@@ -1,0 +1,305 @@
+// The Hopper main loop shared by the redesigned gallery scans
+// (kernels/topk_l2.cu `topk_l2_launch`, kernels/packed_scan.cu
+// `tilemin2_packed_launch`): a ring of TMA boxes in shared memory filled by
+// one producer thread, `wgmma` products read by two consumer warpgroups
+// straight from that ring, and `mbarrier`s between them. sm_90a only.
+//
+// Layout. Every operand is a row-major [rows, cols] bf16 matrix whose rows
+// are contiguous along the contraction (queries [B, D], gallery rows
+// [N, D]): both `wgmma` operands are K-major, A = 64 queries per consumer
+// warpgroup, B = up to 256 gallery rows. A TMA box is [box_rows x 64]
+// features = 128 bytes a row, stored with the 128-byte swizzle (the
+// 16-byte chunk c of row r lands at chunk c ^ (r % 8) of its 128-byte
+// line), which is the layout a `wgmma` shared-memory descriptor of mode
+// SWIZZLE_128B reads: 8-row groups 1024 bytes apart, the k-th 16-feature
+// slice at +32 bytes. Each line holds one row's 64 features whatever the
+// swizzle, so a row's partial |g|^2 is the sum of squares over its line.
+// TMA fills the part of a box past the tensor's extent with zeros, which
+// covers a ragged D, B and N with no masking in the main loop.
+//
+// Pipeline. full[s] completes when stage s has landed (one arrive with
+// the expected byte count, then the TMA transactions); empty[s] completes
+// when both consumer warpgroups have released it (one arrive each, after
+// `wgmma.wait_group` shows their products of that stage are done). The
+// producer warpgroup gives its registers to the consumers (`setmaxnreg`).
+// A wait that has not completed after ~2^35 clocks traps, so a pipeline
+// fault is a launch error, not a hung card.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int KCHUNK = 64;        // bf16 features per box row: one 128-byte swizzle line
+constexpr int LINE_BYTES = 128;
+constexpr int WG_THREADS = 128;   // one warpgroup
+constexpr int CONSUMERS = 256;    // two consumer warpgroups
+constexpr int THREADS = 384;      // + one producer warpgroup
+constexpr int SMEM_ALIGN = 1024;  // a 128-byte swizzle repeats every 8 lines
+constexpr int BAR_CONSUMERS = 1;  // named barrier of the 256 consumer threads (0 is __syncthreads)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// First SMEM_ALIGN-aligned byte of the dynamic shared memory (the caller
+// requests SMEM_ALIGN extra bytes).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+    const uint32_t a = smem_u32(raw);
+    return raw + ((SMEM_ALIGN - (a % SMEM_ALIGN)) % SMEM_ALIGN);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the barrier initializations visible to the async proxy (TMA);
+// the caller then synchronizes the block.
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    if (mbar_try_wait(addr, parity)) return;
+    const long long t0 = clock64();
+    while (!mbar_try_wait(addr, parity))
+        if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// One 2-D TMA box [box_rows x 64] at (column c0, row c1) into `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand
+// starting at `p` (1024-byte aligned tile, plus 32 bytes per 16-feature
+// slice): leading offset unused (1), 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+    const uint64_t addr = smem_u32(p);
+    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across a wgmma launch or wait.
+template <int R>
+__device__ __forceinline__ void acc_fence(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Orders generic-proxy writes to shared memory before later async-proxy
+// (wgmma, TMA) accesses.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// fp32 sum of squares of 8 bf16 values; with `lead` > 0 the first `lead`
+// of them count as zero.
+__device__ __forceinline__ float sq8(uint4 v, int lead = 0) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        float lo = __uint_as_float(w[j] << 16), hi = __uint_as_float(w[j] & 0xFFFF0000u);
+        if (2 * j < lead) lo = 0.0f;
+        if (2 * j + 1 < lead) hi = 0.0f;
+        s = fmaf(lo, lo, s);
+        s = fmaf(hi, hi, s);
+    }
+    return s;
+}
+
+// Sum of squares of the logical 16-byte chunks [c0, c0 + n) of the
+// swizzled line of row `r` (logical chunk c sits at physical chunk
+// c ^ (r % 8)); the first `lead` features of logical chunk 0 count as
+// zero. Rows of one warp read distinct chunk positions: no bank conflicts.
+template <int N>
+__device__ __forceinline__ float line_sq(const unsigned char* tile, int r, int c0, int lead) {
+    const unsigned char* line = tile + r * LINE_BYTES;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        const int c = c0 + i;
+        const uint4 v = *reinterpret_cast<const uint4*>(line + ((c ^ (r & 7)) << 4));
+        s += sq8(v, c == 0 ? lead : 0);
+    }
+    return s;
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<256> {
+    static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db) { wgmma_m64n256k16(d, da, db); }
+};
+template <>
+struct Wgmma<128> {
+    static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) { wgmma_m64n128k16(d, da, db); }
+};
+
+// The accumulator of an m64nNk16 product: thread t of the warpgroup holds,
+// for j < N / 8, h, c in {0, 1}, d[4 j + 2 h + c] at query row
+// 16 (t / 32) + (t % 32) / 4 + 8 h and gallery column 8 j + 2 (t % 4) + c.
+__device__ __forceinline__ int acc_row(int t, int h) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * h; }
+__device__ __forceinline__ int acc_col(int t, int j, int c) { return 8 * j + 2 * (t & 3) + c; }
+
+// ---- host ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (the
+// library does not link libcuda itself).
+inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// Map of a row-major bf16 matrix [rows, cols] with `stride` bytes between
+// rows (a multiple of 16; `base` 16-byte aligned), read in boxes of
+// [box_rows x 64] with the 128-byte swizzle; zeros past the extent.
+// Returns a cudaError_t value.
+inline int encode_bf16_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+    const EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)stride};
+    const cuuint32_t box[2] = {(cuuint32_t)KCHUNK, (cuuint32_t)box_rows};
+    const cuuint32_t estr[2] = {1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+                          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int sm_count() {
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            n = 0;
+    }
+    return n;
+}
+
+}  // namespace sm90

@@ -14,57 +14,63 @@
 // wrapper divides by end - start instead of D).
 //
 // `topk_l2_launch`: bf16 queries and rows, bf16 x bf16 -> fp32 tensor-core
-// products. An optional per-query mask skips the query blocks that hold no
+// products; an optional per-query mask skips the query tiles that hold no
 // masked query (one launch serves an escalation that may be empty without
 // a host sync). Bound: at B = 1024 against 1M x 1280 bf16 the work is
 // 2*B*N*D = 2.6 TFLOP against 2.6 GB: operations bound (2.65 ms at 989
-// TFLOP/s vs 0.78 ms at 3.35 TB/s).
+// TFLOP/s vs 0.78 ms at 3.35 TB/s). Pass 1, `topk_pass1_sm90`, is built
+// on the main loop of sm90_scan.cuh:
+//  - a block owns (128 queries, a 2048-row gallery segment): two consumer
+//    warpgroups of 64 queries are the `wgmma` M side, 256 gallery rows
+//    (128 for k > 1) the N side; each stage of the 4-stage TMA ring holds
+//    one 64-feature chunk of both. The segment is short so that one
+//    active query tile (a partial escalation) still runs ~4 waves of
+//    blocks on 132 SMs;
+//  - the window: both tensor maps start at the 8-lane boundary below
+//    `start` and end at `end`, so TMA zero-fills every lane past the
+//    window and the loop visits only the chunks that meet it; the few
+//    lanes below `start` are zeroed in the staged queries (then the cross
+//    term needs no gallery masking) and skipped in the norms;
+//  - |g|^2 is summed from the landed tiles by the consumers while their
+//    products run (one row a thread, conflict-free through the swizzle),
+//    |q|^2 the same way during the first sub-tile;
+//  - the epilogue stays in registers: each thread forms d for its two
+//    query rows at its accumulator columns, keeps its best (d, row) (k = 1)
+//    or a register top-K (k > 1), and merges over the 4 lanes of a row
+//    with shuffles (k = 1) or through shared memory (k > 1) once per
+//    segment. No fp32 product tile goes through shared memory.
+// Past the tensor cores, what holds it back is by estimate shared memory:
+// per stage the TMA writes, the `wgmma` operand reads and the norm reads
+// come to ~1.2x the product time at 128 bytes per clock. The gallery is
+// read from L2 once per query tile.
 //
 // `topk_l2_precise_launch` (`precise=True`, the fp32 oracle): fp32 queries
 // against rows stored in fp32 or in bf16 (upcast per tile, exact), an fp32
 // contraction with fp32 accumulation on the CUDA cores (FFMA; no TF32 and
 // no tensor cores, so every product and sum is an IEEE fp32 operation, as
 // in the JAX package's HIGHEST-precision dot). Bound: 2.6-3.1 TFLOP at 67
-// TFLOP/s of fp32 FMA, 39-47 ms, operations bound.
+// TFLOP/s of fp32 FMA, 39-47 ms, operations bound. Its pass 1 keeps the
+// first port's design: grid (64-query block, 8192-row segment), 128-row
+// sub-tiles in 32-wide chunks staged k-major through shared memory, a
+// register-blocked product of 8 rows x 4 queries per thread, the squared
+// norms summed from the registers that load them, the fp32 tile through
+// shared memory into a per-thread top-K, the four lists of a query merged
+// in shared memory. No cp.async/TMA pipelining there.
 //
-// Design, two passes:
-//  1. grid (64-query block, 8192-row gallery segment). The block streams
-//     its segment in 128-row sub-tiles, each in feature chunks through
-//     shared memory (bf16: WMMA over 64-wide chunks; precise: a register-
-//     blocked FFMA product of 8 rows x 4 queries per thread over 32-wide
-//     chunks stored k-major); the squared norms of the same rows are summed
-//     from the registers that load them. Each thread keeps a register top-K
-//     of (distance, row) for one query over every fourth row; the four lists
-//     of a query merge in shared memory and the segment's top-K goes to a
-//     [B, n_seg, K] scratch.
-//  2. one thread per query merges its n_seg lists into the final top-k.
-// K is a compile-time power of two >= k so the lists stay in registers.
+// Pass 2 (both): one warp per query merges its n_seg segment lists into
+// the final top-k. K is a compile-time power of two >= k so the lists stay
+// in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90_scan.cuh"
 
 namespace {
 
 constexpr float BIG_DIST = 3.4e38f;
 constexpr int NO_ROW = INT32_MAX;  // empty slot; becomes -1 on output
-constexpr int QB = 64;             // queries per block
-constexpr int RB = 128;            // gallery rows per sub-tile
-constexpr int KC = 64;             // feature chunk
-constexpr int THREADS = 256;       // 8 warps
-constexpr int PAD = 8;             // bf16 row padding in shared memory
-constexpr int LDS = KC + PAD;      // bf16 elements per staged row
-constexpr int ACC_LD = QB + 4;     // fp32 tile, [row][query]
-constexpr int SEG_ROWS = 8192;     // gallery rows per pass-1 block
-constexpr int PHASES = THREADS / QB;  // threads sharing one query
-
-constexpr size_t SMEM_Q = (size_t)QB * LDS * 2;
-constexpr size_t SMEM_G = (size_t)RB * LDS * 2;
-constexpr size_t SMEM_ACC = (size_t)RB * ACC_LD * 4;
-constexpr size_t SMEM_BYTES = SMEM_Q + SMEM_G + SMEM_ACC + (QB + RB) * 4;
 
 __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
     return d < bd || (d == bd && i < bi);
@@ -84,33 +90,244 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
     }
 }
 
-__device__ __forceinline__ float sq8(uint4 v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        s = fmaf(f.x, f.x, s);
-        s = fmaf(f.y, f.y, s);
-    }
-    return s;
+// ---- bf16: topk_pass1_sm90 ----
+
+constexpr int QT = 128;         // queries per block: two consumer warpgroups of 64
+constexpr int SEG_ROWS = 2048;  // gallery rows per block
+constexpr int STAGES = 4;       // TMA ring depth
+
+template <int K>
+struct Bf16Tile {
+    static constexpr int BN = K == 1 ? 256 : 128;  // gallery rows per sub-tile (wgmma N)
+    static constexpr int Q_BYTES = QT * sm90::LINE_BYTES;
+    static constexpr int G_BYTES = BN * sm90::LINE_BYTES;
+    static constexpr int STAGE_BYTES = Q_BYTES + G_BYTES;
+    static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+    // ring, |g|^2 of two sub-tiles, |q|^2, full[] and empty[] barriers
+    static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + (2 * BN + QT) * 4 + 2 * STAGES * 8;
+    static_assert((size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
+};
+
+// d from one accumulator value, with the rounding of the plain version:
+// (|q|^2 + |g|^2) - 2 q.g, each step rounded once, no contraction.
+__device__ __forceinline__ float dist(float qsq, float gsq, float cross) {
+    return fmaxf(__fsub_rn(__fadd_rn(qsq, gsq), __fmul_rn(2.0f, cross)), 0.0f);
 }
 
-// Loads the 8 bf16 values [col, col + 8) of row `row` of a [rows, D]
-// matrix as one 16-byte vector, zero past the last row and outside the
-// feature window [start, end).
-__device__ __forceinline__ uint4 load_vec(const __nv_bfloat16* m, long row, long rows, int D,
-                                          int col, int start, int end) {
-    if (row >= rows || col >= end || col + 8 <= start) return make_uint4(0u, 0u, 0u, 0u);
-    uint4 v = *reinterpret_cast<const uint4*>(m + row * (long)D + col);
-    if (col < start || col + 8 > end) {
-        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            if (col + j < start || col + j >= end) h[j] = __float2bfloat16_rn(0.0f);
+// grid (query tiles, segments); 384 threads: warpgroups 0-1 consume, 2
+// produces. qmap: queries [B, end - base] (from lane base = start & ~7),
+// boxes [128 x 64]; gmap: rows [n_valid, end - base], boxes [BN x 64].
+// lead = start - base lanes of the first chunk are outside the window.
+template <int K>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                const uint8_t* __restrict__ row_mask, float* __restrict__ part_d, int* __restrict__ part_i,
+                int B, int n_valid, int n_seg, int n_chunks, int lead) {
+    using T = Bf16Tile<K>;
+    constexpr int BN = T::BN;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    float* gsq_s = reinterpret_cast<float*>(smem + T::RING_BYTES);  // [2][BN]
+    float* qsq_s = gsq_s + 2 * BN;                                   // [QT]
+    uint64_t* full = reinterpret_cast<uint64_t*>(qsq_s + QT);        // [STAGES]
+    uint64_t* empty = full + STAGES;                                 // [STAGES]
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QT;
+    const int seg = blockIdx.y;
+    const int seg0 = seg * SEG_ROWS;
+    const int seg1 = min(n_valid, seg0 + SEG_ROWS);
+    if (row_mask != nullptr) {
+        const int qi = q0 + tid;
+        // a block whose queries are all masked out has nothing to do
+        if (!__syncthreads_or(tid < QT && qi < B && row_mask[qi])) return;
     }
-    return v;
+    const int n_sub = (seg1 - seg0 + BN - 1) / BN;
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            int s = 0;
+            uint32_t ph = 0;
+            for (int sub = 0; sub < n_sub; ++sub) {
+                for (int c = 0; c < n_chunks; ++c) {
+                    sm90::mbar_wait(&empty[s], ph ^ 1);
+                    unsigned char* st = smem + s * T::STAGE_BYTES;
+                    sm90::mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
+                    sm90::tma_load_2d(st, &qmap, &full[s], c * sm90::KCHUNK, q0);
+                    sm90::tma_load_2d(st + T::Q_BYTES, &gmap, &full[s], c * sm90::KCHUNK, seg0 + sub * BN);
+                    if (++s == STAGES) { s = 0; ph ^= 1; }
+                }
+            }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int lane = tid & 31;
+        // |g|^2: BN = 256, thread tid sums line tid; BN = 128, half a line
+        constexpr int G_CHUNKS = 8 * BN / sm90::CONSUMERS;
+        const int g_row = tid * BN / sm90::CONSUMERS;
+        const int g_c0 = (tid * G_CHUNKS) % 8;
+        // |q|^2: half a line of query row tid / 2 (rows of this warpgroup)
+        const int q_row = tid >> 1, q_c0 = (tid & 1) * 4;
+
+        float acc[BN / 2];
+        float bd[2][K];
+        int bi[2][K];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < K; ++j) { bd[h][j] = BIG_DIST; bi[h][j] = NO_ROW; }
+        float qsq[2] = {0.0f, 0.0f};
+
+        int s = 0, prev = 0;
+        uint32_t ph = 0;
+        for (int sub = 0; sub < n_sub; ++sub) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+            float gpart = 0.0f, qpart = 0.0f;
+            for (int c = 0; c < n_chunks; ++c) {
+                sm90::mbar_wait(&full[s], ph);
+                unsigned char* st = smem + s * T::STAGE_BYTES;
+                const unsigned char* qa = st + wg * 64 * sm90::LINE_BYTES;
+                if (c == 0 && lead > 0) {
+                    // zero this warpgroup's query lanes below the window
+                    if (t < 64) {
+                        const int r = wg * 64 + t;
+                        uint4* v = reinterpret_cast<uint4*>(st + r * sm90::LINE_BYTES + ((r & 7) << 4));
+                        uint4 x = *v;
+                        uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+                        for (int e = 0; e < 8; ++e)
+                            if (e < lead) w[e >> 1] &= (e & 1) ? 0x0000FFFFu : 0xFFFF0000u;
+                        *v = make_uint4(w[0], w[1], w[2], w[3]);
+                    }
+                    sm90::fence_proxy_async();
+                    sm90::named_bar_sync(2 + wg, sm90::WG_THREADS);
+                }
+                sm90::acc_fence(acc);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < sm90::KCHUNK / 16; ++kk)
+                    sm90::Wgmma<BN>::mma(acc, sm90::sw128_desc(qa + 32 * kk),
+                                         sm90::sw128_desc(st + T::Q_BYTES + 32 * kk));
+                sm90::wgmma_commit();
+                // the norms, while the products run
+                gpart += sm90::line_sq<G_CHUNKS>(st + T::Q_BYTES, g_row, g_c0, c == 0 ? lead : 0);
+                if (sub == 0) qpart += sm90::line_sq<4>(st, q_row, q_c0, 0);
+                sm90::wgmma_wait<1>();
+                sm90::acc_fence(acc);
+                if (c > 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
+                prev = s;
+                if (++s == STAGES) { s = 0; ph ^= 1; }
+            }
+            sm90::wgmma_wait<0>();
+            sm90::acc_fence(acc);
+            if (t == 0) sm90::mbar_arrive(&empty[prev]);
+
+            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            if (G_CHUNKS == 4) gpart += __shfl_xor_sync(0xffffffffu, gpart, 1);
+            if (G_CHUNKS == 8 || (tid & 1) == 0) gbuf[g_row] = gpart;
+            if (sub == 0) {
+                qpart += __shfl_xor_sync(0xffffffffu, qpart, 1);
+                if ((tid & 1) == 0) qsq_s[q_row] = qpart;
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            if (sub == 0) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) qsq[h] = qsq_s[wg * 64 + sm90::acc_row(t, h)];
+            }
+            const int r0 = seg0 + sub * BN;
+            const int lim = seg1 - r0;  // columns >= lim are past the segment or n_valid
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int col = sm90::acc_col(t, j, c);
+                    const float g2 = gbuf[col];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float d = dist(qsq[h], g2, acc[4 * j + 2 * h + c]);
+                        if (K == 1) {
+                            // columns rise within a thread: strict < keeps the lowest row
+                            if (col < lim && d < bd[h][0]) { bd[h][0] = d; bi[h][0] = r0 + col; }
+                        } else if (col < lim) {
+                            insert<K>(bd[h], bi[h], d, r0 + col);
+                        }
+                    }
+                }
+            }
+        }
+
+        // the segment's top-K of each query: merge the 4 lanes of a row
+        if constexpr (K == 1) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {
+                    const float od = __shfl_xor_sync(0xffffffffu, bd[h][0], off);
+                    const int oi = __shfl_xor_sync(0xffffffffu, bi[h][0], off);
+                    if (before(od, oi, bd[h][0], bi[h][0])) { bd[h][0] = od; bi[h][0] = oi; }
+                }
+                const int qi = q0 + wg * 64 + sm90::acc_row(t, h);
+                if ((lane & 3) == 0 && qi < B) {
+                    part_d[(size_t)qi * n_seg + seg] = bd[h][0];
+                    part_i[(size_t)qi * n_seg + seg] = bi[h][0];
+                }
+            }
+        } else {
+            // the ring is idle: every stage has landed and been consumed
+            float* ld_s = reinterpret_cast<float*>(smem);  // [QT][4][K]
+            int* li_s = reinterpret_cast<int*>(ld_s + QT * 4 * K);
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int o = ((wg * 64 + sm90::acc_row(t, h)) * 4 + (lane & 3)) * K;
+#pragma unroll
+                for (int j = 0; j < K; ++j) { ld_s[o + j] = bd[h][j]; li_s[o + j] = bi[h][j]; }
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            if (tid < QT) {
+                float md[K];
+                int mi[K];
+#pragma unroll
+                for (int j = 0; j < K; ++j) { md[j] = ld_s[tid * 4 * K + j]; mi[j] = li_s[tid * 4 * K + j]; }
+                for (int p = 1; p < 4; ++p)
+#pragma unroll
+                    for (int j = 0; j < K; ++j)
+                        insert<K>(md, mi, ld_s[(tid * 4 + p) * K + j], li_s[(tid * 4 + p) * K + j]);
+                const int qi = q0 + tid;
+                if (qi < B) {
+                    const size_t o = ((size_t)qi * n_seg + seg) * K;
+#pragma unroll
+                    for (int j = 0; j < K; ++j) { part_d[o + j] = md[j]; part_i[o + j] = mi[j]; }
+                }
+            }
+        }
+    }
 }
+
+// ---- precise: topk_pass1_precise (fp32, CUDA cores) ----
+
+constexpr int QB = 64;              // queries per block
+constexpr int RB = 128;             // gallery rows per sub-tile
+constexpr int THREADS = 256;        // 8 warps
+constexpr int ACC_LD = QB + 4;      // fp32 tile, [row][query]
+constexpr int SEG_PRECISE = 8192;   // gallery rows per pass-1 block
+constexpr int PHASES = THREADS / QB;  // threads sharing one query
+constexpr size_t SMEM_ACC = (size_t)RB * ACC_LD * 4;
 
 // Merges the PHASES lists of each query of the block through shared memory
 // (which the caller no longer needs) and writes the segment's top-K.
@@ -150,99 +367,9 @@ __device__ __forceinline__ void scan_subtile(const float* acc_s, const float* qs
     for (int r = ep; r < RB; r += PHASES) {
         const long row = r0 + r;
         if (row >= seg1) break;
-        const float cross = acc_s[r * ACC_LD + eq];
-        const float d = fmaxf(__fsub_rn(__fadd_rn(qsq, gsq_s[r]), __fmul_rn(2.0f, cross)), 0.0f);
+        const float d = dist(qsq, gsq_s[r], acc_s[r * ACC_LD + eq]);
         insert<K>(bd, bi, d, (int)row);
     }
-}
-
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-topk_pass1(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ g,
-           const uint8_t* __restrict__ row_mask, float* __restrict__ part_d,
-           int* __restrict__ part_i, int B, int N, int n_valid, int D, int n_seg, int start,
-           int end) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);               // [QB][LDS]
-    __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_Q);      // [RB][LDS]
-    float* acc_s = reinterpret_cast<float*>(smem + SMEM_Q + SMEM_G);           // [RB][ACC_LD]
-    float* qsq_s = reinterpret_cast<float*>(smem + SMEM_Q + SMEM_G + SMEM_ACC);  // [QB]
-    float* gsq_s = qsq_s + QB;                                                    // [RB]
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int q0 = blockIdx.x * QB;
-    const int seg = blockIdx.y;
-    const long seg0 = (long)seg * SEG_ROWS;
-    const long seg1 = min((long)n_valid, seg0 + SEG_ROWS);
-    if (row_mask != nullptr) {
-        const int qi = q0 + tid;
-        // a block whose queries are all masked out has nothing to do
-        if (!__syncthreads_or(tid < QB && qi < B && row_mask[qi])) return;
-    }
-
-    // loaders: q chunk = 64 rows x 8 vectors (4 threads a row, 2 vectors
-    // each); g chunk = 128 rows x 8 vectors (2 threads a row, 4 each)
-    const int qr = tid >> 2, qp = tid & 3;
-    const int gr = tid >> 1, gp = tid & 1;
-    // epilogue: one query per thread, every PHASES-th row of the sub-tile
-    const int eq = tid % QB, ep = tid / QB;
-
-    float bd[K];
-    int bi[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) { bd[j] = BIG_DIST; bi[j] = NO_ROW; }
-
-    for (long r0 = seg0; r0 < seg1; r0 += RB) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[QB / 16];
-#pragma unroll
-        for (int n = 0; n < QB / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-        float qpart = 0.0f, gpart = 0.0f;
-
-        for (int k0 = start / KC * KC; k0 < end; k0 += KC) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                const int c = qp + 4 * j;
-                const uint4 v = load_vec(q, q0 + qr, B, D, k0 + 8 * c, start, end);
-                qpart += sq8(v);
-                *reinterpret_cast<uint4*>(q_s + qr * LDS + 8 * c) = v;
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = gp + 2 * j;
-                const uint4 v = load_vec(g, r0 + gr, N, D, k0 + 8 * c, start, end);
-                gpart += sq8(v);
-                *reinterpret_cast<uint4*>(g_s + gr * LDS + 8 * c) = v;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KC; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, g_s + warp * 16 * LDS + kk, LDS);
-#pragma unroll
-                for (int n = 0; n < QB / 16; ++n) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-                    wmma::load_matrix_sync(b, q_s + n * 16 * LDS + kk, LDS);
-                    wmma::mma_sync(acc[n], a, b, acc[n]);
-                }
-            }
-            __syncthreads();  // staging buffers are rewritten next chunk
-        }
-        qpart += __shfl_xor_sync(0xffffffffu, qpart, 1);
-        qpart += __shfl_xor_sync(0xffffffffu, qpart, 2);
-        gpart += __shfl_xor_sync(0xffffffffu, gpart, 1);
-        if (qp == 0) qsq_s[qr] = qpart;
-        if (gp == 0) gsq_s[gr] = gpart;
-#pragma unroll
-        for (int n = 0; n < QB / 16; ++n)
-            wmma::store_matrix_sync(acc_s + warp * 16 * ACC_LD + n * 16, acc[n], ACC_LD,
-                                    wmma::mem_row_major);
-        __syncthreads();
-
-        scan_subtile<K>(acc_s, qsq_s, gsq_s, r0, seg1, eq, ep, bd, bi);
-        __syncthreads();  // acc_s / norms are rewritten by the next sub-tile
-    }
-    emit_segment<K>(smem, bd, bi, eq, ep, q0, B, seg, n_seg, part_d, part_i);
 }
 
 // Loads the values [col, col + EPV) of row `row` of a [rows, D] matrix of
@@ -330,8 +457,8 @@ topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * QB;
     const int seg = blockIdx.y;
-    const long seg0 = (long)seg * SEG_ROWS;
-    const long seg1 = min((long)n_valid, seg0 + SEG_ROWS);
+    const long seg0 = (long)seg * SEG_PRECISE;
+    const long seg1 = min((long)n_valid, seg0 + SEG_PRECISE);
     // product: rows tr*8 .. +8 against queries tq*4 .. +4
     const int tr = tid / 16, tq = tid % 16;
     const int eq = tid % QB, ep = tid / QB;
@@ -386,28 +513,45 @@ topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
     emit_segment<K>(smem, bd, bi, eq, ep, q0, B, seg, n_seg, part_d, part_i);
 }
 
+// One warp per query merges its n_seg lists: each lane inserts every
+// 32nd list, then the 32 lane lists merge over a shuffle butterfly.
 template <int K>
 __global__ void topk_pass2(const float* __restrict__ part_d, const int* __restrict__ part_i,
                            const uint8_t* __restrict__ row_mask, float* __restrict__ out_d,
                            int32_t* __restrict__ out_i, int B, int n_seg, int k) {
-    const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-    if (qi >= B) return;
+    const int lane = threadIdx.x & 31;
+    const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (qi >= B) return;  // the whole warp
     float bd[K];
     int bi[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) { bd[j] = BIG_DIST; bi[j] = NO_ROW; }
     if (row_mask == nullptr || row_mask[qi]) {
         const size_t base = (size_t)qi * n_seg * K;
-        for (int s = 0; s < n_seg; ++s)
+        for (int s = lane; s < n_seg; s += 32)
 #pragma unroll
             for (int j = 0; j < K; ++j)
                 insert<K>(bd, bi, part_d[base + (size_t)s * K + j], part_i[base + (size_t)s * K + j]);
     }
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-        if (j < k) {
-            out_d[(size_t)qi * k + j] = bd[j];
-            out_i[(size_t)qi * k + j] = bi[j] == NO_ROW ? -1 : bi[j];
+    for (int off = 16; off > 0; off >>= 1) {
+        float od[K];
+        int oi[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            od[j] = __shfl_xor_sync(0xffffffffu, bd[j], off);
+            oi[j] = __shfl_xor_sync(0xffffffffu, bi[j], off);
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) insert<K>(bd, bi, od[j], oi[j]);
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            if (j < k) {
+                out_d[(size_t)qi * k + j] = bd[j];
+                out_i[(size_t)qi * k + j] = bi[j] == NO_ROW ? -1 : bi[j];
+            }
         }
     }
 }
@@ -420,45 +564,73 @@ struct Args {
     int B, N, n_valid, D, k, n_seg, start, end;
 };
 
+constexpr int PASS2_WARPS = 8;
+
+template <int K>
+int launch_pass2(const Args& a, cudaStream_t stream) {
+    topk_pass2<K><<<(a.B + PASS2_WARPS - 1) / PASS2_WARPS, 32 * PASS2_WARPS, 0, stream>>>(
+        (const float*)a.part_d, (const int*)a.part_i, a.row_mask, (float*)a.out_d, (int32_t*)a.out_i, a.B,
+        a.n_seg, a.k);
+    return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+    using T = Bf16Tile<K>;
+    // both maps start at the 8-lane (16-byte) boundary below the window
+    const int base = a.start & ~7;
+    const long cols = a.end - base;
+    const __nv_bfloat16* q = (const __nv_bfloat16*)a.q + base;
+    const __nv_bfloat16* g = (const __nv_bfloat16*)a.g + base;
+    CUtensorMap qmap, gmap;
+    int err = sm90::encode_bf16_map(&qmap, q, cols, a.B, (long)a.D * 2, QT);
+    if (err == 0) err = sm90::encode_bf16_map(&gmap, g, cols, a.n_valid, (long)a.D * 2, T::BN);
+    if (err != 0) return err;
+    const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
+    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.B + QT - 1) / QT, a.n_seg);
+    topk_pass1_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+        qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
+        a.start - base);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return launch_pass2<K>(a, stream);
+}
+
+template <int K, typename GT>
+int launch_precise(const Args& a, cudaStream_t stream) {
+    static_assert((size_t)PHASES * QB * K * 8 <= SMEM_P, "merge lists must fit the staging buffers");
+    const dim3 grid1((a.B + QB - 1) / QB, a.n_seg);
+    cudaError_t err = cudaFuncSetAttribute(topk_pass1_precise<K, GT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_P);
+    if (err != cudaSuccess) return (int)err;
+    topk_pass1_precise<K, GT><<<grid1, THREADS, SMEM_P, stream>>>(
+        (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
+        a.n_seg, a.start, a.end);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_pass2<K>(a, stream);
+}
+
 // PRECISE: fp32 queries against GT rows on the CUDA cores; otherwise bf16
 // on the tensor cores (GT unused).
 template <int K, bool PRECISE, typename GT>
 int launch(const Args& a, cudaStream_t stream) {
-    static_assert((size_t)PHASES * QB * K * 8 <= SMEM_Q + SMEM_G + SMEM_ACC,
-                  "merge lists must fit the staging buffers");
-    static_assert((size_t)PHASES * QB * K * 8 <= SMEM_P, "merge lists must fit the staging buffers");
-    const dim3 grid1((a.B + QB - 1) / QB, a.n_seg);
-    cudaError_t err;
-    if constexpr (PRECISE) {
-        err = cudaFuncSetAttribute(topk_pass1_precise<K, GT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_P);
-        if (err != cudaSuccess) return (int)err;
-        topk_pass1_precise<K, GT><<<grid1, THREADS, SMEM_P, stream>>>(
-            (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N,
-            a.n_valid, a.D, a.n_seg, a.start, a.end);
-    } else {
-        err = cudaFuncSetAttribute(topk_pass1<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)SMEM_BYTES);
-        if (err != cudaSuccess) return (int)err;
-        topk_pass1<K><<<grid1, THREADS, SMEM_BYTES, stream>>>(
-            (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.g, a.row_mask, (float*)a.part_d,
-            (int*)a.part_i, a.B, a.N, a.n_valid, a.D, a.n_seg, a.start, a.end);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    topk_pass2<K><<<(a.B + 127) / 128, 128, 0, stream>>>(
-        (const float*)a.part_d, (const int*)a.part_i, a.row_mask, (float*)a.out_d,
-        (int32_t*)a.out_i, a.B, a.n_seg, a.k);
-    return (int)cudaGetLastError();
+    if constexpr (PRECISE) return launch_precise<K, GT>(a, stream);
+    else return launch_bf16<K>(a, stream);
 }
 
 int list_len(int k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
+int segment_rows(bool precise) { return precise ? SEG_PRECISE : SEG_ROWS; }
 
 template <bool PRECISE, typename GT>
 int dispatch(const Args& a, void* stream) {
+    const int seg = segment_rows(PRECISE);
     if (a.B <= 0 || a.N <= 0 || a.n_valid <= 0 || a.n_valid > a.N || a.D <= 0 || a.D % 8 != 0 ||
-        a.k < 1 || a.k > 16 || a.n_seg != (a.n_valid + SEG_ROWS - 1) / SEG_ROWS ||
-        a.n_seg > 65535 || a.start < 0 || a.start >= a.end || a.end > a.D)
+        a.k < 1 || a.k > 16 || a.n_seg != (a.n_valid + seg - 1) / seg || a.n_seg > 65535 ||
+        a.start < 0 || a.start >= a.end || a.end > a.D)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (list_len(a.k)) {
@@ -472,17 +644,23 @@ int dispatch(const Args& a, void* stream) {
 
 }  // namespace
 
-extern "C" int topk_l2_segment_rows() { return SEG_ROWS; }
+// Gallery rows per pass-1 block (one [B, n_seg, K] scratch entry each).
+extern "C" int topk_l2_segment_rows(int precise) { return segment_rows(precise != 0); }
+
+// Queries per bf16 pass-1 block: a row mask skips the blocks without a
+// masked one (the precise pass takes no row mask).
+extern "C" int topk_l2_query_rows() { return QT; }
 
 // Scratch size of K (the power of two >= k) the caller allocates per
 // (query, segment) for pass 1.
 extern "C" int topk_l2_list_len(int k) { return list_len(k); }
 
-// q: [B, D] bf16, g: [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0),
-// row_mask: [B] uint8 or null (queries with 0 come back empty and blocks
-// without a 1 skip the scan), part_d/part_i: [B, n_seg,
-// topk_l2_list_len(k)] scratch, out_d: [B, k] fp32 raw squared distances
-// over the window [start, end), out_i: [B, k] int32. Returns a cudaError_t.
+// q: [B, D] bf16, g: [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0;
+// both 16-byte aligned), row_mask: [B] uint8 or null (queries with 0 come
+// back empty and query tiles without a 1 skip the scan), part_d/part_i:
+// [B, n_seg, topk_l2_list_len(k)] scratch, out_d: [B, k] fp32 raw squared
+// distances over the window [start, end), out_i: [B, k] int32. Returns a
+// cudaError_t.
 extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask, void* part_d,
                               void* part_i, void* out_d, void* out_i, int B, int N, int n_valid,
                               int D, int k, int n_seg, int start, int end, void* stream) {

@@ -6,6 +6,7 @@ kernels' C launchers."""
 import ast
 import os
 import re
+import shutil
 
 import pytest
 import torch
@@ -128,15 +129,38 @@ def test_ctypes_bindings_match_the_c_launchers():
         "mbconv_expand_dw_launch": 19,
         "mbconv_se_project_launch": 17,
         "chi2_launch": 8,
+        "topk_l2_segment_rows": 1,
+        "topk_l2_query_rows": 0,
+        "topk_l2_list_len": 1,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
         for fn, n_args in expected.items():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
             if m:
-                assert len(m.group(1).split(",")) == n_args, fn
+                params = [a for a in m.group(1).split(",") if a.strip() not in ("", "void")]
+                assert len(params) == n_args, fn
                 expected[fn] = None
     assert all(v is None for v in expected.values()), expected
+
+
+def test_build_key_covers_the_headers(monkeypatch, tmp_path):
+    """A library is named by its source, every ``*.cuh`` beside it and the
+    flags: editing the shared main loop header must not load a stale
+    library."""
+    for f in os.listdir(build.KERNEL_DIR):
+        if f.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(build.KERNEL_DIR, f), tmp_path / f)
+    monkeypatch.setattr(build, "KERNEL_DIR", str(tmp_path))
+    before = {n: build._target(n) for n in build.SOURCES}
+    assert (tmp_path / "sm90_scan.cuh").exists()
+    with open(tmp_path / "sm90_scan.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: build._target(n) for n in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+    with open(tmp_path / "topk_l2.cu", "a") as fh:
+        fh.write("// edited\n")
+    assert build._target("topk_l2") != after["topk_l2"] and build._target("chi2") == after["chi2"]
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,0 +1,143 @@
+"""The two scans that the card runs on its Hopper main loop, ``topk_l2``
+(bf16, with a feature window and a row mask) and the certified min-2
+packed scan (``tile_min2_l2_packed``, ``topk_candidates_l2_packed_cert``),
+at the edges of the card kernels' tiles, against the JAX package's Pallas
+kernels in interpret mode on the same numpy-seeded inputs. The port runs
+its plain versions here (CPU tensors); ``chip_smoke.py`` holds the kernels
+against those plain versions at the same kinds of edges on the card.
+
+Edges: batches around the kernels' 128-query tile (1, 127, 128, 129);
+n_valid below one gallery sub-tile (100 rows) and not a multiple of one
+(555, 900), the rows past n_valid holding copies of the queries (they
+would win if they leaked in); widths 8 and 40 (inside one 64-lane chunk);
+windows on and off the 8-lane boundary; augmented widths 48 and 128;
+tiles of nothing but padding.
+
+Tolerances, as in test_torch_distance.py:
+- exact top-k: distances to rtol 1e-3; indices equal except where the two
+  rows' distances over the window, from the bf16 values both sides scan,
+  tie within 2^-12 relative (fp32 sum order);
+- packed keys: decoded distances within 2^-12 relative + 1e-6, the rows
+  they carry equal except at such near-ties;
+- certified candidates: equal sets except tiles swapped at such a
+  near-tie; the bound within 2^-12 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fast_image_recognition_tpu.ops.distance_kernel as J
+import fast_image_recognition_tpu_torch.ops.distance_kernel as P
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
+REL = 2.0**-12
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+
+
+def _data(n, n_valid, d, b, seed):
+    """Unit rows and queries near rows of the gallery; the rows past
+    n_valid are copies of the queries."""
+    rng = np.random.default_rng(seed)
+    g = _unit(rng.standard_normal((n, d)))
+    q = _unit(g[rng.integers(0, n_valid, b)] + 0.3 * rng.standard_normal((b, d)) / np.sqrt(d))
+    m = min(b, n - n_valid)
+    g[n_valid : n_valid + m] = q[:m]
+    return g, q
+
+
+def _check_topk(q, g, n_valid, window, jd, ji, pd, pi):
+    lo, hi = window if window is not None else (0, q.shape[1])
+    assert pi.dtype == np.int32 and pi.shape == ji.shape
+    assert ((pi >= 0) & (pi < n_valid)).all() and ((ji >= 0) & (ji < n_valid)).all()
+    np.testing.assert_allclose(pd, jd, rtol=1e-3)
+    qb, gb = _bf16(q)[:, lo:hi], _bf16(g)[:, lo:hi]
+    d_port = ((qb[:, None, :] - gb[pi]) ** 2).sum(-1)
+    d_jax = ((qb[:, None, :] - gb[ji]) ** 2).sum(-1)
+    np.testing.assert_allclose(pd * (hi - lo), d_port, rtol=1e-3, atol=1e-5)
+    assert ((pi == ji) | (np.abs(d_port - d_jax) <= REL * d_jax + 1e-7)).all()
+
+
+# (rows, n_valid, D, B, k, window): every B, n_valid, D, k and window kind
+# of the card's edge cases, without their full product (each JAX shape
+# compiles anew)
+TOPK_CASES = [
+    (300, 100, 8, 1, 1, None),
+    (300, 100, 8, 129, 16, (1, 7)),
+    (700, 555, 40, 127, 3, (5, 37)),
+    (700, 555, 40, 129, 1, (1, 39)),
+    (700, 555, 40, 1, 16, None),
+    (700, 555, 40, 128, 2, (8, 32)),
+]
+
+
+@pytest.mark.parametrize("n, n_valid, d, b, k, window", TOPK_CASES)
+def test_topk_l2_edges_match_jax(n, n_valid, d, b, k, window):
+    g, q = _data(n, n_valid, d, b, seed=n + b + k)
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k,
+                                                n_valid=n_valid, window=window))
+    pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
+                                           n_valid=n_valid, window=window))
+    _check_topk(q, g, n_valid, window, jd, ji, pd, pi)
+
+
+@pytest.mark.parametrize("mask", ["empty", "first", "last", 64, 65, 128, 129])
+def test_topk_l2_row_masks_match_jax(mask):
+    """The row masks the card checks, on 129 queries (two query tiles):
+    masked-in rows give JAX's unmasked answer, the others come back empty
+    (BIG_DIST, -1)."""
+    n, n_valid, d, b, k = 700, 555, 40, 129, 3
+    g, q = _data(n, n_valid, d, b, seed=11)
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, n_valid=n_valid))
+    on = np.zeros(b, dtype=bool)
+    if mask == "first":
+        on[0] = True
+    elif mask == "last":
+        on[-1] = True
+    elif mask != "empty":
+        on[:mask] = True
+    pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
+                                           n_valid=n_valid, row_mask=torch.from_numpy(on)))
+    assert (pi[~on] == -1).all() and (pd[~on] > 1e36).all()
+    _check_topk(q[on], g, n_valid, None, jd[on], ji[on], pd[on], pi[on])
+
+
+# (rows, n_valid, d, Da, B): Da 48 is one ragged 64-lane chunk; 900 of
+# 2500 rows leaves two tiles of nothing but padding
+MIN2_CASES = [(2500, 900, 40, 48, 1), (2500, 900, 40, 48, 129), (700, 555, 124, 128, 127), (700, 555, 124, 128, 128)]
+
+
+@pytest.mark.parametrize("n, n_valid, d, da, b", MIN2_CASES)
+def test_tile_min2_and_certificate_edges_match_jax(n, n_valid, d, da, b):
+    g, q = _data(n, n_valid, d, b, seed=n + b)
+    jaug = J.pack_gallery_aug(jnp.asarray(g, jnp.bfloat16), n_valid)[:, :da]
+    paug = P.pack_gallery_aug(torch.from_numpy(g).to(torch.bfloat16), n_valid)[:, :da].contiguous()
+    jd1, ji, jd2 = (np.asarray(x) for x in J.tile_min2_l2_packed(jnp.asarray(q), jaug, d))
+    pd1, pi, pd2 = (x.numpy() for x in P.tile_min2_l2_packed(torch.from_numpy(q), paug, d))
+    np.testing.assert_allclose(pd1, jd1, rtol=REL, atol=1e-6)
+    np.testing.assert_allclose(pd2, jd2, rtol=REL, atol=1e-6)
+    whole_pad = np.arange(pd1.shape[1]) * 1024 >= n_valid
+    assert (pi[:, ~whole_pad] < n_valid).all() and (pd1[:, whole_pad] > 1e37).all()
+    # a tile's best row may differ only at a near-tie of the bf16 values
+    qb, gb = _bf16(q), _bf16(g)
+    rows = np.minimum(pi, n - 1), np.minimum(ji, n - 1)
+    d_port, d_jax = (((qb[:, None, :] - gb[r]) ** 2).sum(-1) for r in rows)
+    real = ~whole_pad[None, :]
+    assert (((pi == ji) | (np.abs(d_port - d_jax) <= REL * d_jax + 1e-6)) | ~real).all()
+
+    r = 2 if whole_pad.sum() else 1  # fewer candidates than tiles with a valid row
+    jc, jb = (np.asarray(x) for x in J.topk_candidates_l2_packed_cert(jnp.asarray(q), jaug, d, r))
+    pc, pb = (x.numpy() for x in P.topk_candidates_l2_packed_cert(torch.from_numpy(q), paug, d, r))
+    np.testing.assert_allclose(pb, jb, rtol=REL)
+    for row in range(b):
+        if set(pc[row]) != set(jc[row]):
+            kth = np.sort(jd1[row])[r - 1 : r + 1]
+            assert kth[1] - kth[0] <= REL * kth[1] + 1e-6
