@@ -7,9 +7,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout with ``nvcc``, holds every kernel against its plain
 PyTorch version at the shapes of the paths below and at odd ones (widths
 that are no multiple of 8, batches of 1 and 130, tiles of nothing but
-padding; for the two scans on the Hopper main loop, ``topk_l2`` bf16 and
-the min-2 packed scan, batches around their 128-query tiles, n_valid
-below and across their gallery sub-tiles, 64-lane chunks, windows and
+padding; for the four scans on the Hopper main loop, ``topk_l2`` bf16,
+the min-2 and single-min packed scans and the int8 tile scan, batches
+around their 128-query tiles, n_valid below and across their gallery
+sub-tiles, 64-lane and 128-byte chunks, tile_g 128 to 1024, windows and
 row masks), and drives, each with its own launch counts:
 
 - the main serving path at full width (bench.py's plain e2e line:
@@ -64,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +102,14 @@ PREVIOUS_DESIGN_MS = {
     "B=1024 N=1000000 D=1536 k=1 window=[256, 1024]": 14.369,
     "tilemin2_packed B=1024 Np=1000448 Da=128": 2.566,
     "partial escalation, escalated probes in front": 5.167,
+    "tilemin_quant bf-quant-int8": 23.550,
+    "tilemin_packed block3a": 2.339,
+    "tilemin_packed final-pca": 2.337,
+    "tilemin_packed block3a-131072-rows": 0.371,
+    "tilemin_packed L0": 2.336,
+    "tilemin_packed L1": 1.189,
+    "tilemin_packed L2": 0.753,
+    "tilemin_packed L3": 0.463,
 }
 
 
@@ -149,6 +159,52 @@ def host_ms(fn, reps: int) -> float:
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_names(mangled: list) -> dict:
+    """Mangled kernel symbol -> its name with template arguments
+    (``cu++filt``, beside ``nvcc``), without namespace and parameters."""
+    from fast_image_recognition_tpu_torch.kernels import build
+
+    if not mangled:
+        return {}
+    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    out = subprocess.run([filt, *mangled], capture_output=True, text=True, check=True, timeout=60)
+    names = []
+    for n in out.stdout.splitlines():
+        # "void <unnamed>::name<(bool)0, (int)1024>(params)" -> "name<0, 1024>"
+        n, depth = n.strip(), 0
+        for i in range(len(n) - 1, -1, -1):  # cut the parameter list, the last (...) group
+            depth += {")": 1, "(": -1}.get(n[i], 0)
+            if depth == 0:
+                n = n[:i]
+                break
+        n = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:bool|int)\)", "", n)
+        names.append(n)
+    return dict(zip(mangled, names))
+
+
+def sass_mma_counts(libs: dict) -> dict:
+    """Per kernel of the built libraries, its tensor-core instructions in
+    the SASS (``cuobjdump -sass``): HGMMA and IGMMA are ``wgmma`` (float
+    and integer), HMMA and IMMA the ``mma.sync`` that WMMA compiles to."""
+    from fast_image_recognition_tpu_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    counts = {}
+    for path in libs.values():
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True, timeout=300)
+        fn = None
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = dict(HGMMA=0, IGMMA=0, HMMA=0, IMMA=0)
+            elif fn is not None:
+                for op in counts[fn]:
+                    counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    names = kernel_names(list(counts))
+    return {names[k]: v for k, v in counts.items()}
 
 
 def check_launches(path: str, launches: dict, **counts) -> None:
@@ -494,11 +550,13 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         yard = gb = qb = None
         peak = PEAK_INT8_OPS if quant[2] == "int8" else PEAK_BF16_FLOPS
         b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8, peak)
+    prev = PREVIOUS_DESIGN_MS.get(f"tilemin_quant {name}")
     phase(
         f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
         f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
         f"{'ok' if rows_ok else 'WRONG'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+min yardstick "
         f"{'not measured' if yard_ms is None else f'{yard_ms:.3f} ms'}, bound {b_ms:.3f} ms ({b_by})"
+        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
         raise AssertionError(f"tile scan kernel disagrees with its plain version ({name})")
@@ -568,17 +626,22 @@ def check_edge_shapes(dev):
     return pad_pairs
 
 
-# the two scans on the sm90 main loop at the edges of their tiles: query
+# the four scans on the sm90 main loop at the edges of their tiles: query
 # tiles of 128 (B), gallery sub-tiles of 256 (k = 1) and 128 rows (k > 1)
 # with n_valid below one and not a multiple of one, the rows past n_valid
 # holding copies of the queries (they would win if they leaked in),
-# 64-lane chunks (D = 8, 40, 1280; Da = 48, 128) and windows on and off
-# the 8-lane boundary
+# 64-lane chunks (D = 8, 40, 1280; Da = 48, 128), 128-byte int8 chunks
+# (D = 16, 144, 1536), windows on and off the 8-lane boundary, tile_g 128
+# (two tiles a sub-tile; an odd tile count leaves a last half past the
+# gallery) to 1024, and whole-pad tiles after n_valid
 SCAN_EDGE_B = (1, 127, 128, 129, 257)
 TOPK_EDGES = [(600, 100, 8), (5000, 4321, 40), (3000, 2900, 1280)]  # (rows, n_valid, D)
 TOPK_EDGE_K = (1, 2, 3, 16)
 ROW_MASKS = ("empty", "first", "last", 64, 65, 128, 129)  # a prefix of that many queries
 MIN2_EDGES = [(3600, 1800, 40, 48), (2100, 2100, 124, 128)]  # (rows, n_valid, d, Da)
+SINGLE_EDGES = [(3600, 1800, 40, 48), (2100, 1000, 124, 128)]  # (rows, n_valid, d, Da)
+SINGLE_EDGE_B = SCAN_EDGE_B + (192, 320)  # + the cascade's survivor batches off the 128 grid
+QUANT_EDGES = [(5000, 2100, 16), (2900, 1300, 144), (5000, 2100, 1536)]  # (rows, n_valid, D)
 
 
 def check_min2(qa, ga, n_valid):
@@ -614,19 +677,75 @@ def check_min2(qa, ga, n_valid):
                              f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]})")
 
 
+def check_single(qa, ga, n_valid, tile_g):
+    """Single-min packed scan kernel vs its plain version, untimed: keys
+    equal, or at a near-tie (fp32 sum order) decoded distances within
+    2^-12 relative + 1e-6 with the rows the keys carry rescored here in
+    fp32 at their keys' distances and at the plain rows' within that;
+    tiles with a valid row return one, whole-pad tiles only pad distances
+    (~1e38)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+
+    keys = build.launch_tilemin_packed(qa, ga, tile_g)
+    ref = plain.tilemin_packed_plain(qa, ga, tile_g)
+    torch.cuda.synchronize()
+    kd, pd = dk._key_to_dist(keys, tile_g), dk._key_to_dist(ref, tile_g)
+    rows = dk._key_to_row(keys, tile_g)
+    d_rows = [torch.clamp_min(torch.einsum("bd,btd->bt", qa.to(torch.float32), ga[r.long()].to(torch.float32)), 0.0)
+              for r in (rows, dk._key_to_row(ref, tile_g))]
+    tol = 2.0**-12 * pd.abs() + 1e-6
+    near = ((kd - pd).abs() <= tol) & ((d_rows[0] - kd).abs() <= tol) & ((d_rows[0] - d_rows[1]).abs() <= tol)
+    whole_pad = torch.arange(keys.shape[1], device=keys.device) * tile_g >= n_valid
+    ok = bool(((keys == ref) | near).all()) and bool((rows[:, ~whole_pad] < n_valid).all())
+    ok = ok and bool((kd[:, whole_pad] >= 1e37).all())
+    if not ok:
+        raise AssertionError(f"single-min packed scan kernel disagrees with its plain version (B={qa.shape[0]}, "
+                             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]}, tile_g={tile_g})")
+
+
+def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
+    """int8 tile scan kernel (int8 compute) vs its plain version, untimed:
+    the exact int32 dot and the same four roundings give equal minima and
+    rows; a whole-pad tile (every row >= n_valid) returns 3.4e38 at its
+    first row."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+
+    kd, ki = build.launch_tilemin_quant(q, qs, g, gsq, gsc, tile_g, "int8")
+    pd, pi = plain.tilemin_quant_plain(q, qs, g, gsq, gsc, tile_g, "int8")
+    torch.cuda.synchronize()
+    n_tiles = kd.shape[1]
+    whole_pad = torch.arange(n_tiles, device=kd.device) * tile_g >= n_valid
+    first = (torch.arange(n_tiles, device=kd.device, dtype=torch.int32) * tile_g)[None, whole_pad]
+    big = torch.tensor(3.4e38, dtype=torch.float32).item()
+    ok = bool((kd == pd).all()) and bool((ki == pi).all())
+    ok = ok and bool((kd[:, whole_pad] == big).all()) and bool((ki[:, whole_pad] == first).all())
+    if not ok:
+        raise AssertionError(f"int8 tile scan kernel disagrees with its plain version (B={q.shape[0]}, "
+                             f"Np={g.shape[0]}, n_valid={n_valid}, D={q.shape[1]}, tile_g={tile_g})")
+
+
 def check_sm90_edges(dev):
-    """The topk_l2 bf16 kernel and the min-2 packed scan against their
-    plain versions at :data:`SCAN_EDGE_B`, :data:`TOPK_EDGES` (every k of
+    """The topk_l2 bf16 kernel, the min-2 and single-min packed scans and
+    the int8 tile scan against their plain versions at
+    :data:`SCAN_EDGE_B`, :data:`TOPK_EDGES` (every k of
     :data:`TOPK_EDGE_K`, windows (1, D-1), (5, D-3) and, where D allows,
-    the chunk-aligned (64, 192); :data:`ROW_MASKS` at B = 257) and
-    :data:`MIN2_EDGES`, untimed. Returns the number of cases."""
+    the chunk-aligned (64, 192); :data:`ROW_MASKS` at B = 257),
+    :data:`MIN2_EDGES`, :data:`SINGLE_EDGES` (B in :data:`SINGLE_EDGE_B`,
+    tile_g 128-1024) and :data:`QUANT_EDGES` (tile_g 128 and 1024),
+    untimed. Returns the number of cases of each kernel."""
     import torch
 
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+    from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    cases = 0
+    cases = dict(topk_l2=0, tilemin2_packed=0, tilemin_packed=0, tilemin_quant=0)
     for n, nv, d in TOPK_EDGES:
         g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
         q32 = _unit(g32[: max(SCAN_EDGE_B)] + 0.1 * torch.randn((max(SCAN_EDGE_B), d), generator=gen, device=dev))
@@ -637,7 +756,7 @@ def check_sm90_edges(dev):
             for k in TOPK_EDGE_K:
                 for w in windows:
                     check_topk(g16, nv, q32[:b], k, window=w)
-                    cases += 1
+                    cases["topk_l2"] += 1
         b = max(SCAN_EDGE_B)
         for m in ROW_MASKS:
             mask = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -649,14 +768,39 @@ def check_sm90_edges(dev):
                 mask[:m] = True
             for k in (1, 3):
                 check_topk(g16, nv, q32[:b], k, row_mask=mask)
-                cases += 1
+                cases["topk_l2"] += 1
     for n, nv, d, da in MIN2_EDGES:
         g16 = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
         ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pad rows keep their data, |g|^2 = 1e38
         for b in SCAN_EDGE_B:
             q = _unit(g16[:b].to(torch.float32) + 0.1 * torch.randn((b, d), generator=gen, device=dev))
             check_min2(dk._augment_queries(q, d, da), ga, nv)
-            cases += 1
+            cases["tilemin2_packed"] += 1
+    bmax = max(SINGLE_EDGE_B)
+    for n, nv, d, da in SINGLE_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:bmax] + 0.1 * torch.randn((bmax, d), generator=gen, device=dev))
+        g32[nv : nv + bmax] = q32[: n - nv]  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        for tg in (128, 256, 512, 1024):
+            ga = dk.pack_gallery_aug(g16, nv, tg)[:, :da].contiguous()  # pad rows keep their data, |g|^2 = 1e38
+            for b in SINGLE_EDGE_B:
+                check_single(dk._augment_queries(q32[:b], d, da), ga, nv, tg)
+                cases["tilemin_packed"] += 1
+    bmax = max(SCAN_EDGE_B)
+    for n, nv, d in QUANT_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:bmax] + 0.1 * torch.randn((bmax, d), generator=gen, device=dev))
+        g32[nv : nv + bmax] = q32  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        for tg in (128, 1024):
+            gq, gs = quantize_rows(dk.pad_gallery(g16, tg))
+            gsq = dk.gallery_sq_norms(g16, nv, tg).reshape(-1)
+            gsc = dk.quant_gallery_scales(gs, nv, tg).reshape(-1)
+            for b in SCAN_EDGE_B:
+                qq, qs = quantize_rows(q32[:b])
+                check_quant_edge(qq, qs, gq, gsq, gsc, nv, tg)
+                cases["tilemin_quant"] += 1
     return cases
 
 
@@ -693,11 +837,13 @@ def check_single_scan(name, qa, ga, tile_g, report):
     plain_ms = cuda_ms(lambda: plain.tilemin_packed_plain(qa, ga, tile_g), reps=2)
     yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4)
+    prev = PREVIOUS_DESIGN_MS.get(f"tilemin_packed {name}")
     phase(
         f"single-min scan {name} B={b} Np={np_} Da={da} tile_g={tile_g}: keys equal "
         f"{100 * key_eq:.3f}%, rows equal {100 * row_eq:.3f}%, max |d| gap {err:.3e} "
         f"({rel:.2e} rel), rescored rows {'ok' if rows_ok else 'WRONG'}; kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, matmul+min yardstick {yard_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
+        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if rel > 2.0**-12 or not rows_ok:
         raise AssertionError(f"single-min scan kernel disagrees with its plain version ({name})")
@@ -1455,20 +1601,40 @@ def main() -> int:
 
     # 2. build every kernel of the path, one nvcc per source, in parallel
     t = time.time()
-    build.build()
+    libs = build.build()
+    entries = {n: re.findall(r"Compiling entry function '(\S+)'", log) for n, log in build.BUILD_LOG.items()}
+    names = kernel_names([e for v in entries.values() for e in v])
     for name, log in build.BUILD_LOG.items():
+        kernel = spill = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = names[m.group(1)]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"  ptxas {name} {kernel}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
     phase(f"built {sorted(build.SOURCES)} with nvcc in {time.time() - t:.1f} s")
+    # the kernels on the Hopper main loop issue wgmma and no WMMA
+    mma = sass_mma_counts(libs)
+    sm90 = {k: v for k, v in mma.items() if "_sm90" in k}
+    families = ("topk_pass1_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90")
+    if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
+            v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
+        raise AssertionError(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
+    phase("SASS tensor-core instructions per kernel, HGMMA/IGMMA (wgmma) and HMMA/IMMA (WMMA's mma.sync): "
+          + "; ".join(f"{k} {v['HGMMA']}/{v['IGMMA']}/{v['HMMA']}/{v['IMMA']}" for k, v in sorted(mma.items())
+                      if any(v.values())))
     pad_pairs = check_edge_shapes(dev)
     phase(f"edge shapes {EDGE_SHAPES}: every kernel agrees with its plain version; {pad_pairs} (query, "
           f"whole-pad tile) minima bit-equal to the plain ones (BIG_DIST with fp32 scores, inf with bf16)")
     n_cases = check_sm90_edges(dev)
-    phase(f"sm90 scan edges: {n_cases} cases of topk_l2 (bf16; B {list(SCAN_EDGE_B)}, (rows, n_valid, D) "
-          f"{TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row masks {list(ROW_MASKS)}) "
-          f"and the min-2 packed scan ((rows, n_valid, d, Da) {MIN2_EDGES}) agree with their plain versions; no row "
-          f"past n_valid returned, no whole-pad tile won")
+    phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases}: topk_l2 (bf16; B {list(SCAN_EDGE_B)}, "
+          f"(rows, n_valid, D) {TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row "
+          f"masks {list(ROW_MASKS)}), the min-2 packed scan ((rows, n_valid, d, Da) {MIN2_EDGES}), the single-min "
+          f"packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; keys equal but near-ties) and "
+          f"the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; minima and rows equal) agree "
+          f"with their plain versions; no row past n_valid returned, no whole-pad tile won")
 
     # 3. workload: trained B0@224, unseen identities rendered on the card
     t = time.time()
@@ -1737,11 +1903,12 @@ def main() -> int:
         f"({plain_ips:.1f} img/s); no host sync in identify_device; launches {launches['cascade']}"
     )
     per_level = cascade_breakdown(casc, images, caps, scan_report)
+    prev = [PREVIOUS_DESIGN_MS.get(f"tilemin_packed L{r['level']}") for r in per_level]
     phase("cascade breakdown per level: " + "; ".join(
         f"L{r['level']} B={r['batch']}: segment {r['segment_ms']:.2f} ms, match {r['match_ms']:.2f} ms, "
-        f"scan kernel {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']})"
-        for r in per_level
-    ))
+        f"scan kernel {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']}; before {p} ms)"
+        for r, p in zip(per_level, prev)
+    ) + f"; 'before' is the {PREVIOUS_DESIGN_NOTE}")
 
     # 10. the same call with the single-min scan bound to its plain version
     # here (the package has no such switch): decisions must agree except

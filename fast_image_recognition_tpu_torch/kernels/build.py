@@ -170,14 +170,18 @@ def topk_l2_query_rows() -> int:
     return _lib("topk_l2").topk_l2_query_rows()
 
 
+MAX_PACKED_DA = 640  # augmented width whose resident queries fit beside two ring stages (packed_scan.cu)
+
+
 def _check_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> int:
     """Validate a packed scan's operands; returns the number of tiles."""
     _check(q_aug, "q_aug", torch.bfloat16, 2)
     _check(g_aug, "g_aug", torch.bfloat16, 2)
     da = q_aug.shape[1]
-    if g_aug.shape[0] % tile_g or g_aug.shape[1] != da or da % 16:
+    # the kernel keeps the queries' 64-lane chunks resident beside its ring
+    if g_aug.shape[0] % tile_g or g_aug.shape[1] != da or da % 16 or da > MAX_PACKED_DA:
         raise ValueError(
-            f"packed scan takes whole {tile_g}-row tiles and Da % 16 == 0; got "
+            f"packed scan takes whole {tile_g}-row tiles and Da % 16 == 0, Da <= {MAX_PACKED_DA}; got "
             f"q_aug {tuple(q_aug.shape)}, g_aug {tuple(g_aug.shape)}"
         )
     if q_aug.device != g_aug.device:

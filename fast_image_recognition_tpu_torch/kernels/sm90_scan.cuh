@@ -1,18 +1,22 @@
 // The Hopper main loop shared by the redesigned gallery scans
 // (kernels/topk_l2.cu `topk_l2_launch`, kernels/packed_scan.cu
-// `tilemin2_packed_launch`): a ring of TMA boxes in shared memory filled by
-// one producer thread, `wgmma` products read by two consumer warpgroups
-// straight from that ring, and `mbarrier`s between them. sm_90a only.
+// `tilemin2_packed_launch` and `tilemin_packed_launch`, kernels/tile_scan.cu
+// `tilemin_quant_launch` with int8 compute): a ring of TMA boxes in shared
+// memory filled by one producer thread, `wgmma` products read by two
+// consumer warpgroups straight from that ring, and `mbarrier`s between
+// them. sm_90a only.
 //
-// Layout. Every operand is a row-major [rows, cols] bf16 matrix whose rows
-// are contiguous along the contraction (queries [B, D], gallery rows
-// [N, D]): both `wgmma` operands are K-major, A = 64 queries per consumer
-// warpgroup, B = up to 256 gallery rows. A TMA box is [box_rows x 64]
-// features = 128 bytes a row, stored with the 128-byte swizzle (the
-// 16-byte chunk c of row r lands at chunk c ^ (r % 8) of its 128-byte
-// line), which is the layout a `wgmma` shared-memory descriptor of mode
-// SWIZZLE_128B reads: 8-row groups 1024 bytes apart, the k-th 16-feature
-// slice at +32 bytes. Each line holds one row's 64 features whatever the
+// Layout. Every operand is a row-major [rows, cols] bf16 or int8 matrix
+// whose rows are contiguous along the contraction (queries [B, D], gallery
+// rows [N, D]): both `wgmma` operands are K-major (for int8 the only
+// layout `wgmma` takes), A = 64 queries per consumer warpgroup, B = up to
+// 256 gallery rows. A TMA box is [box_rows x 128 bytes] (64 bf16 or 128
+// int8 features a row), stored with the 128-byte swizzle (the 16-byte
+// chunk c of row r lands at chunk c ^ (r % 8) of its 128-byte line),
+// which is the layout a `wgmma` shared-memory descriptor of mode
+// SWIZZLE_128B reads: 8-row groups 1024 bytes apart, the k-th 32-byte
+// slice (16 bf16 features of a k16 product, 32 int8 features of a k32
+// one) at +32 bytes. Each line holds one row's features whatever the
 // swizzle, so a row's partial |g|^2 is the sum of squares over its line.
 // TMA fills the part of a box past the tensor's extent with zeros, which
 // covers a ragged D, B and N with no masking in the main loop.
@@ -34,6 +38,7 @@
 namespace sm90 {
 
 constexpr int KCHUNK = 64;        // bf16 features per box row: one 128-byte swizzle line
+constexpr int KCHUNK_S8 = 128;    // int8 features per box row
 constexpr int LINE_BYTES = 128;
 constexpr int WG_THREADS = 128;   // one warpgroup
 constexpr int CONSUMERS = 256;    // two consumer warpgroups
@@ -127,6 +132,11 @@ template <int R>
 __device__ __forceinline__ void acc_fence(float (&d)[R]) {
 #pragma unroll
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void acc_fence(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Orders generic-proxy writes to shared memory before later async-proxy
@@ -244,7 +254,41 @@ struct Wgmma<128> {
     static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) { wgmma_m64n128k16(d, da, db); }
 };
 
-// The accumulator of an m64nNk16 product: thread t of the warpgroup holds,
+// int8 x int8 -> exact int32 sums, 32 features per instruction; the
+// accumulator fragment has the layout of the bf16 ones (acc_row, acc_col).
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// The accumulator of an m64nNk16 (bf16) or m64nNk32 (int8) product: thread t of the warpgroup holds,
 // for j < N / 8, h, c in {0, 1}, d[4 j + 2 h + c] at query row
 // 16 (t / 32) + (t % 32) / 4 + 8 h and gallery column 8 j + 2 (t % 4) + c.
 __device__ __forceinline__ int acc_row(int t, int h) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * h; }
@@ -274,21 +318,31 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// Map of a row-major bf16 matrix [rows, cols] with `stride` bytes between
-// rows (a multiple of 16; `base` 16-byte aligned), read in boxes of
-// [box_rows x 64] with the 128-byte swizzle; zeros past the extent.
-// Returns a cudaError_t value.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+// Map of a row-major matrix [rows, cols] of `elem_bytes`-byte elements
+// with `stride` bytes between rows (a multiple of 16; `base` 16-byte
+// aligned), read in boxes of [box_rows x 128 bytes] with the 128-byte
+// swizzle; zeros past the extent. Returns a cudaError_t value.
+inline int encode_sw128_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
+                            long cols, long rows, long stride, int box_rows) {
     const EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)stride};
-    const cuuint32_t box[2] = {(cuuint32_t)KCHUNK, (cuuint32_t)box_rows};
+    const cuuint32_t box[2] = {(cuuint32_t)(LINE_BYTES / elem_bytes), (cuuint32_t)box_rows};
     const cuuint32_t estr[2] = {1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+    return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, stride, box_rows);
+}
+
+// int8: TMA has no signed 8-bit type; UINT8 copies the bits unchanged.
+inline int encode_s8_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+    return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, cols, rows, stride, box_rows);
 }
 
 inline int sm_count() {

@@ -1,17 +1,21 @@
-"""The two scans that the card runs on its Hopper main loop, ``topk_l2``
-(bf16, with a feature window and a row mask) and the certified min-2
-packed scan (``tile_min2_l2_packed``, ``topk_candidates_l2_packed_cert``),
-at the edges of the card kernels' tiles, against the JAX package's Pallas
-kernels in interpret mode on the same numpy-seeded inputs. The port runs
-its plain versions here (CPU tensors); ``chip_smoke.py`` holds the kernels
-against those plain versions at the same kinds of edges on the card.
+"""The scans that the card runs on its Hopper main loop, ``topk_l2``
+(bf16, with a feature window and a row mask), the certified min-2 packed
+scan (``tile_min2_l2_packed``, ``topk_candidates_l2_packed_cert``), the
+single-min packed scan (``tile_min_l2_packed``) and the int8 tile scan
+(``tile_min_l2_quant(compute='int8')``), at the edges of the card
+kernels' tiles, against the JAX package's Pallas kernels in interpret mode
+on the same numpy-seeded inputs. The port runs its plain versions here
+(CPU tensors); ``chip_smoke.py`` holds the kernels against those plain
+versions at the same kinds of edges on the card.
 
-Edges: batches around the kernels' 128-query tile (1, 127, 128, 129);
-n_valid below one gallery sub-tile (100 rows) and not a multiple of one
-(555, 900), the rows past n_valid holding copies of the queries (they
-would win if they leaked in); widths 8 and 40 (inside one 64-lane chunk);
-windows on and off the 8-lane boundary; augmented widths 48 and 128;
-tiles of nothing but padding.
+Edges: batches around the kernels' 128-query tile (1, 127, 128, 129, and
+the cascade's 192); n_valid below one gallery sub-tile (100 rows) and not
+a multiple of one (555, 700, 900), the rows past n_valid holding copies of
+the queries (they would win if they leaked in); widths 8 and 40 (inside
+one 64-lane chunk), int8 widths 16 and 144 (ragged against the 128-byte
+line); windows on and off the 8-lane boundary; augmented widths 48 and
+128; tile_g 128 to 1024 against the kernels' 256-row sub-tiles; tiles of
+nothing but padding.
 
 Tolerances, as in test_torch_distance.py:
 - exact top-k: distances to rtol 1e-3; indices equal except where the two
@@ -20,7 +24,12 @@ Tolerances, as in test_torch_distance.py:
 - packed keys: decoded distances within 2^-12 relative + 1e-6, the rows
   they carry equal except at such near-ties;
 - certified candidates: equal sets except tiles swapped at such a
-  near-tie; the bound within 2^-12 relative.
+  near-tie; the bound within 2^-12 relative;
+- int8 tile scan, as in test_torch_quant.py: tile minima within 2^-20
+  relative + 1e-8 at D = 128, i.e. 1.28e-6 on the raw squared distance
+  (D times the returned mean; the JAX package's CPU compile may contract
+  the epilogue into an FMA, a few ulp at magnitude 1), rows equal except
+  where the two rows' float64 scores tie within 2^-20 relative + 1e-6.
 """
 
 import jax.numpy as jnp
@@ -30,6 +39,8 @@ import torch
 
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
+from fast_image_recognition_tpu.ops.quant import quantize_rows as j_quantize
+from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
 
 REL = 2.0**-12
@@ -141,3 +152,77 @@ def test_tile_min2_and_certificate_edges_match_jax(n, n_valid, d, da, b):
         if set(pc[row]) != set(jc[row]):
             kth = np.sort(jd1[row])[r - 1 : r + 1]
             assert kth[1] - kth[0] <= REL * kth[1] + 1e-6
+
+
+# (rows, n_valid, d, Da, B, tile_g): the single-min scan at the tile_g
+# below and inside the card's 256-row sub-tile's reach that the other
+# tests leave out; 700 of 1100 rows leaves whole-pad tiles after n_valid
+SINGLE_CASES = [
+    (1100, 700, 40, 48, 1, 256),
+    (1100, 700, 124, 128, 129, 256),
+    (1100, 700, 40, 48, 192, 256),
+    (1100, 700, 124, 128, 1, 512),
+    (1100, 700, 40, 48, 129, 512),
+    (1100, 700, 124, 128, 192, 512),
+]
+
+
+@pytest.mark.parametrize("n, n_valid, d, da, b, tile_g", SINGLE_CASES)
+def test_tile_min_packed_edges_match_jax(n, n_valid, d, da, b, tile_g):
+    g, q = _data(n, n_valid, d, b, seed=n + b + tile_g)
+    jaug = J.pack_gallery_aug(jnp.asarray(g, jnp.bfloat16), n_valid, tile_g)[:, :da]
+    paug = P.pack_gallery_aug(torch.from_numpy(g).to(torch.bfloat16), n_valid, tile_g)[:, :da].contiguous()
+    jd, ji = (np.asarray(x) for x in J.tile_min_l2_packed(jnp.asarray(q), jaug, d, tile_g=tile_g))
+    pd, pi = (x.numpy() for x in P.tile_min_l2_packed(torch.from_numpy(q), paug, d, tile_g))
+    assert pi.dtype == np.int32 and pd.shape == pi.shape == (b, paug.shape[0] // tile_g)
+    np.testing.assert_allclose(pd, jd, rtol=REL, atol=1e-6)
+    whole_pad = np.arange(pd.shape[1]) * tile_g >= n_valid
+    assert whole_pad.any() and (pi[:, ~whole_pad] < n_valid).all() and (pd[:, whole_pad] > 1e35).all()
+    # a tile's best row may differ only at a near-tie of the bf16 values
+    qb, gb = _bf16(q), _bf16(g)
+    rows = np.minimum(pi, n - 1), np.minimum(ji, n - 1)
+    d_port, d_jax = (((qb[:, None, :] - gb[r]) ** 2).sum(-1) for r in rows)
+    assert ((pi == ji) | (np.abs(d_port - d_jax) <= REL * d_jax + 1e-6) | whole_pad[None, :]).all()
+
+
+# (rows, n_valid, D, B, tile_g): the int8 scan at D 16 and 144 (one and
+# two 128-byte lines, both ragged), batches of 1 and 129 around its
+# 128-query tile, tile_g 128 (two tiles a 256-row sub-tile) and 1024 (four
+# sub-tiles a tile); 700 of 1100 rows leaves whole-pad tiles after n_valid
+QUANT_CASES = [
+    (1100, 700, 16, 1, 128),
+    (1100, 700, 16, 129, 1024),
+    (1100, 700, 144, 129, 128),
+    (1100, 700, 144, 1, 1024),
+]
+QUANT_REL = 2.0**-20
+
+
+@pytest.mark.parametrize("n, n_valid, d, b, tile_g", QUANT_CASES)
+def test_tile_min_quant_int8_edges_match_jax(n, n_valid, d, b, tile_g):
+    g, q = _data(n, n_valid, d, b, seed=n + d + b)
+    gp = np.zeros((-(-n // tile_g) * tile_g, d), np.float32)
+    gp[:n] = g
+    jg, pg = jnp.asarray(gp, jnp.bfloat16), torch.from_numpy(gp).to(torch.bfloat16)
+    (jq, js), (pq, ps) = j_quantize(jg), quantize_rows(pg)
+    j_assets = (jq, J.gallery_sq_norms(jg, n_valid, tile_g), J.quant_gallery_scales(js, n_valid, tile_g))
+    p_assets = (pq, P.gallery_sq_norms(pg, n_valid, tile_g), P.quant_gallery_scales(ps, n_valid, tile_g))
+    jd, ji = (np.asarray(x) for x in J.tile_min_l2_quant(jnp.asarray(q), *j_assets, tile_g=tile_g, compute="int8"))
+    pd, pi = (x.numpy() for x in P.tile_min_l2_quant(torch.from_numpy(q), *p_assets, tile_g=tile_g, compute="int8"))
+    n_tiles = gp.shape[0] // tile_g
+    assert pi.dtype == np.int32 and pd.shape == pi.shape == (b, n_tiles)
+    np.testing.assert_allclose(pd * d, jd * d, rtol=QUANT_REL, atol=1e-8 * 128)
+    # whole-pad tiles: the pad score 3.4e38 at the tile's first row
+    whole_pad = np.arange(n_tiles) * tile_g >= n_valid
+    first = (np.arange(n_tiles) * tile_g)[None, whole_pad]
+    assert whole_pad.any() and (pi[:, whole_pad] == first).all() and (ji[:, whole_pad] == first).all()
+    assert (pi[:, ~whole_pad] < n_valid).all() and (pd[:, whole_pad] > 1e36).all()
+    # each row's int8 score, recomputed in float64 from the same operands
+    qv, qs = (a.numpy().astype(np.float64) for a in quantize_rows(torch.from_numpy(q)))
+    gv = pq.numpy().astype(np.float64)
+    gsq, gsc = (a.numpy().reshape(-1).astype(np.float64) for a in p_assets[1:])
+
+    def score(rows):
+        return gsq[rows] - 2.0 * qs[:, None] * np.einsum("bd,btd->bt", qv, gv[rows]) * gsc[rows]
+
+    assert ((pi == ji) | (np.abs(score(pi) - score(ji)) <= QUANT_REL * np.abs(score(ji)) + 1e-6)).all()
