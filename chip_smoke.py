@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
-sources in the checkout with ``nvcc``, holds every kernel against its plain
-PyTorch version at the shapes of the paths below and at odd ones (widths
-that are no multiple of 8, batches of 1 and 130, tiles of nothing but
-padding; for the four scans on the Hopper main loop, ``topk_l2`` bf16,
-the min-2 and single-min packed scans and the int8 tile scan, batches
-around their 128-query tiles, n_valid below and across their gallery
-sub-tiles, 64-lane and 128-byte chunks, tile_g 128 to 1024, windows and
-row masks), and drives, each with its own launch counts:
+sources in the checkout with ``nvcc``, checks in their SASS that the scans
+run on ``wgmma`` and that no scan is left on WMMA, holds every kernel
+against its plain PyTorch version at the shapes of the paths below and at
+odd ones (widths that are no multiple of 8, batches of 1 and 130, tiles of
+nothing but padding; for the scans on the Hopper main loop, ``topk_l2``
+bf16, the min-2 and single-min packed scans, and the bf16 and int8 tile
+scans, batches around their 128- and 256-query tiles, n_valid below and
+across their gallery sub-tiles, 64-lane and 128-byte chunks, tile_g 128
+to 1024, windows and row masks; ``topk_l2`` at k = 17, 64 and 256, bf16
+and precise; the packed scans at augmented widths 768, 832 and 1,536,
+where their queries stream; galleries past the old caps of 65,535
+blocks), and drives, each with its own launch counts:
 
 - the main serving path at full width (bench.py's plain e2e line:
   EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
@@ -19,8 +23,12 @@ row masks), and drives, each with its own launch counts:
   exact escalation at slack 0.05 in one masked launch per call, batch
   1024), once under ``torch.cuda.set_sync_debug_mode("error")``, with its
   answers checked against ``match='exact'`` and the pick before escalation
-  against a plain rescore, and its exact step timed at 5 % escalation;
-  ``match='exact'``; the fp32 oracle
+  against a plain rescore, and its exact step timed at 5 % escalation; the
+  same service at PCA-700 (augmented width 768) over a 131,072-row slice,
+  held against ``match='exact'`` on that slice, with its streamed min-2
+  scan held against the plain version on the service's own tensors and
+  its pick before escalation against a plain rescore; ``match='exact'``;
+  the fp32 oracle
   (``topk_l2(precise=True)``, bench.py's ``_exact_fp32_nn``) that every
   agreement below is taken against;
 - the JAX package's default service (PCA-128, fp32-score tile scan) and
@@ -110,6 +118,9 @@ PREVIOUS_DESIGN_MS = {
     "tilemin_packed L1": 1.189,
     "tilemin_packed L2": 0.753,
     "tilemin_packed L3": 0.463,
+    "tilemin pca128-f32-scores": 2.488,
+    "tilemin pca128-bf16-scores": 2.523,
+    "tilemin_quant bf-quant-bf16": 35.371,
 }
 
 
@@ -307,7 +318,8 @@ def check_certified_pick(svc, emb, idx_exact):
 
 def check_cert_scan(svc, emb, report):
     """Packed scan kernel vs its plain version on the main path's tensors:
-    the service's augmented PCA gallery and the batch's projected probes."""
+    the service's augmented PCA gallery and the batch's projected probes.
+    Appends the timed shape to ``report["tilemin2_packed"]``."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -374,10 +386,10 @@ def check_cert_scan(svc, emb, report):
     )
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
         raise AssertionError("packed scan kernel disagrees with its plain version")
-    report["tilemin2_packed"] = dict(
+    report.setdefault("tilemin2_packed", []).append(dict(
         shape=f"B={b} Np={np_} Da={da}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, yardstick_matmul_min_ms=yard_ms,
-    )
+    ))
 
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
@@ -460,7 +472,7 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     ))
 
 
-def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None):
+def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None, verbose=True):
     """bf16 tile scan (``quant=None``) or int8 tile scan (``quant=(qs, gsc,
     compute)``) kernel vs its plain version on the path's tensors. Scores
     lie within [-3, 3] here (|g|^2 <= 1 and unit queries): the fp32 sum
@@ -472,8 +484,8 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
     operands, must sit at its minima within that, and may differ from the
     plain rows only at such ties. A minimum at a row past n_valid (its
     |g|^2 is BIG_DIST) is not rescored from the row's data. ``report=None``
-    checks without timing. Returns (kernel minima, kernel rows, plain
-    minima)."""
+    checks without timing (and without a phase line if not ``verbose``).
+    Returns (kernel minima, kernel rows, plain minima)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -520,11 +532,12 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
     np_ = g.shape[0]
     n_tiles = ki.shape[1]
     if report is None:
-        phase(
-            f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
-            f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
-            f"{'ok' if rows_ok else 'WRONG'}"
-        )
+        if verbose:
+            phase(
+                f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
+                f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
+                f"{'ok' if rows_ok else 'WRONG'}"
+            )
         if not ok:
             raise AssertionError(f"tile scan kernel disagrees with its plain version ({name})")
         return kd, ki, pd
@@ -550,7 +563,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         yard = gb = qb = None
         peak = PEAK_INT8_OPS if quant[2] == "int8" else PEAK_BF16_FLOPS
         b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8, peak)
-    prev = PREVIOUS_DESIGN_MS.get(f"tilemin_quant {name}")
+    prev = PREVIOUS_DESIGN_MS.get(f"{'tilemin' if quant is None else 'tilemin_quant'} {name}")
     phase(
         f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
         f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
@@ -638,10 +651,21 @@ SCAN_EDGE_B = (1, 127, 128, 129, 257)
 TOPK_EDGES = [(600, 100, 8), (5000, 4321, 40), (3000, 2900, 1280)]  # (rows, n_valid, D)
 TOPK_EDGE_K = (1, 2, 3, 16)
 ROW_MASKS = ("empty", "first", "last", 64, 65, 128, 129)  # a prefix of that many queries
-MIN2_EDGES = [(3600, 1800, 40, 48), (2100, 2100, 124, 128)]  # (rows, n_valid, d, Da)
-SINGLE_EDGES = [(3600, 1800, 40, 48), (2100, 1000, 124, 128)]  # (rows, n_valid, d, Da)
+TOPK_LARGE_K = (17, 64, 256)  # k > 16: lists in the pass-1 scratch
+TOPK_LARGE_K_EDGES = [(5000, 4321, 40), (3000, 2900, 1280), (20000, 17000, 40)]  # (rows, n_valid, D); 3 segments
+TOPK_LARGE_K_B = (1, 129, 257)
+# Da above 640: the packed scans stream their queries through the ring
+WIDE_PACKED = [(2100, 2000, 700, 768), (3600, 1800, 800, 832), (2100, 1000, 1500, 1536)]  # (rows, n_valid, d, Da)
+MIN2_EDGES = [(3600, 1800, 40, 48), (2100, 2100, 124, 128)] + WIDE_PACKED
+SINGLE_EDGES = [(3600, 1800, 40, 48), (2100, 1000, 124, 128)] + WIDE_PACKED
 SINGLE_EDGE_B = SCAN_EDGE_B + (192, 320)  # + the cascade's survivor batches off the 128 grid
 QUANT_EDGES = [(5000, 2100, 16), (2900, 1300, 144), (5000, 2100, 1536)]  # (rows, n_valid, D)
+# the bf16 tile scan (resident queries up to D = 640, streamed above) and
+# the int8 scan with bf16 compute (256-query tiles)
+TILE_EDGES = [(3000, 2900, 16), (5000, 4321, 40), (2100, 1000, 128), (3000, 2050, 200), (2600, 1300, 1536)]
+TILE_EDGE_B = (1, 64, 130)
+QUANT_BF16_EDGES = [(5000, 2100, 16), (2900, 1300, 144), (2600, 1300, 1536)]  # (rows, n_valid, D)
+QUANT_BF16_EDGE_B = (1, 64, 130, 257)
 
 
 def check_min2(qa, ga, n_valid):
@@ -743,9 +767,12 @@ def check_sm90_edges(dev):
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
     from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
+    from fast_image_recognition_tpu_torch.kernels import plain
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    cases = dict(topk_l2=0, tilemin2_packed=0, tilemin_packed=0, tilemin_quant=0)
+    cases = dict(topk_l2=0, topk_l2_large_k=0, tilemin2_packed=0, tilemin_packed=0, tilemin_quant=0, tilemin=0,
+                 tilemin_quant_bf16=0)
     for n, nv, d in TOPK_EDGES:
         g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
         q32 = _unit(g32[: max(SCAN_EDGE_B)] + 0.1 * torch.randn((max(SCAN_EDGE_B), d), generator=gen, device=dev))
@@ -769,6 +796,23 @@ def check_sm90_edges(dev):
             for k in (1, 3):
                 check_topk(g16, nv, q32[:b], k, row_mask=mask)
                 cases["topk_l2"] += 1
+    bmax = max(TOPK_LARGE_K_B)
+    for n, nv, d in TOPK_LARGE_K_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:bmax] + 0.1 * torch.randn((bmax, d), generator=gen, device=dev))
+        g32[nv : nv + bmax] = q32[: n - nv]  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        for b in TOPK_LARGE_K_B:
+            for k in TOPK_LARGE_K:
+                check_topk(g16, nv, q32[:b], k)
+                check_topk(g32, nv, q32[:b], k, precise=True)
+                check_topk(g16, nv, q32[:b], k, window=(5, d - 3))
+                check_topk(g16, nv, q32[:b], k, window=(1, d - 1), precise=True)
+                cases["topk_l2_large_k"] += 4
+        mask = torch.zeros(bmax, dtype=torch.bool, device=dev)
+        mask[:129] = True
+        check_topk(g16, nv, q32, 64, row_mask=mask)
+        cases["topk_l2_large_k"] += 1
     for n, nv, d, da in MIN2_EDGES:
         g16 = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
         ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pad rows keep their data, |g|^2 = 1e38
@@ -801,7 +845,154 @@ def check_sm90_edges(dev):
                 qq, qs = quantize_rows(q32[:b])
                 check_quant_edge(qq, qs, gq, gsq, gsc, nv, tg)
                 cases["tilemin_quant"] += 1
+    big = torch.tensor(plain.BIG_DIST, dtype=torch.float32).item()
+
+    def whole_pad_ok(kd, ki, pd, nv, tg, pad_value):
+        """(query, whole-pad tile) minima bit-equal to the plain ones and
+        to ``pad_value``, at the tile's first row"""
+        whole_pad = torch.arange(kd.shape[1], device=dev) * tg >= nv
+        first = (torch.arange(kd.shape[1], device=dev, dtype=torch.int32) * tg)[None, whole_pad]
+        return (bool((kd[:, whole_pad] == pd[:, whole_pad]).all()) and bool((kd[:, whole_pad] == pad_value).all())
+                and bool((ki[:, whole_pad] == first).all()))
+
+    bmax = max(TILE_EDGE_B)
+    for n, nv, d in TILE_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:bmax] + 0.1 * torch.randn((bmax, d), generator=gen, device=dev))
+        g32[nv : nv + bmax] = q32[: n - nv]  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        for tg in (128, 256, 512, 1024):
+            gp = dk.pad_gallery(g16, tg)
+            gsq = dk.gallery_sq_norms(gp, nv, tg)
+            for b in TILE_EDGE_B:
+                for bf in (False, True):
+                    name = f"edge N={n} n_valid={nv} D={d} B={b} {'bf16' if bf else 'f32'}-scores"
+                    kd, ki, pd = check_tile_scan(name, q32[:b].to(torch.bfloat16).contiguous(), gp, gsq, tg, None,
+                                                 bf16_scores=bf, verbose=False)
+                    if not whole_pad_ok(kd, ki, pd, nv, tg, float("inf") if bf else big):
+                        raise AssertionError(f"whole-pad tiles disagree ({name}, tile_g={tg})")
+                    cases["tilemin"] += 1
+    bmax = max(QUANT_BF16_EDGE_B)
+    for n, nv, d in QUANT_BF16_EDGES:
+        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+        q32 = _unit(g32[:bmax] + 0.1 * torch.randn((bmax, d), generator=gen, device=dev))
+        g32[nv : nv + bmax] = q32[: n - nv]  # rows past n_valid that would win
+        g16 = g32.to(torch.bfloat16)
+        for tg in (128, 1024):
+            gq, gs = quantize_rows(dk.pad_gallery(g16, tg))
+            gsq = dk.gallery_sq_norms(g16, nv, tg).reshape(-1)
+            gsc = dk.quant_gallery_scales(gs, nv, tg).reshape(-1)
+            for b in QUANT_BF16_EDGE_B:
+                qq, qs = quantize_rows(q32[:b])
+                name = f"edge N={n} n_valid={nv} D={d} B={b} int8-scan-bf16"
+                kd, ki, pd = check_tile_scan(name, qq, gq, gsq, tg, None, quant=(qs, gsc, "bf16"), verbose=False)
+                if not whole_pad_ok(kd, ki, pd, nv, tg, big):
+                    raise AssertionError(f"whole-pad tiles disagree ({name}, tile_g={tg})")
+                cases["tilemin_quant_bf16"] += 1
     return cases
+
+
+def check_big_grids(dev):
+    """Galleries past the old 65,535-block grid caps, each kernel against
+    its plain version, untimed: the bf16 tile scan at tile_g 128 over more
+    than 65,535 tiles (8.4M rows, D = 16), the int8 scan (both computes)
+    over more than 65,535 segments of 2,048 rows (134M rows, D = 16) and
+    ``topk_l2`` over more than 65,535 segments of 8,192 rows (537M rows, D
+    = 8): bf16 at k = 1, ``precise`` at k = 1 and bf16 at k = 17. Returns a
+    description of each."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    b = 130  # two 128-query tiles
+    done = []
+    n_tiles = 65_600
+    g = _unit(torch.randn((n_tiles * 128, 16), generator=gen, device=dev)).to(torch.bfloat16)
+    q = _unit(torch.randn((b, 16), generator=gen, device=dev)).to(torch.bfloat16)
+    nv = n_tiles * 128 - 200  # the last tile holds only rows past n_valid
+    check_tile_scan(f"big-grid {n_tiles} tiles", q, g, dk.gallery_sq_norms(g, nv, 128), 128, None)
+    done.append(f"tilemin {n_tiles} tiles of 128 x 16")
+    del g
+    n_tiles = 131_073  # 65,537 segments of 2,048 rows at tile_g 1024
+    n = n_tiles * 1024
+    g8 = torch.randint(-127, 128, (n, 16), generator=gen, device=dev, dtype=torch.int8)
+    gsq = torch.rand((n,), generator=gen, device=dev) + 0.5
+    gsc = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
+    q8 = torch.randint(-127, 128, (b, 16), generator=gen, device=dev, dtype=torch.int8)
+    qs = torch.rand((b,), generator=gen, device=dev) * 0.01 + 1e-3
+    check_quant_edge(q8, qs, g8, gsq, gsc, n, 1024)
+    check_tile_scan(f"big-grid {n_tiles} tiles int8-scan-bf16", q8, g8, gsq, 1024, None, quant=(qs, gsc, "bf16"))
+    done.append(f"tilemin_quant int8 and bf16 over {n} x 16 ({-(-n // 2048)} segments)")
+    del g8, gsq, gsc
+    # 65,537 segments of 8,192 rows (precise and k > 16), 8.6 GB of bf16
+    # rows; the bf16 register-list pass sees 262,148 segments of 2,048
+    n = 65_537 * 8192
+    g = torch.empty((n, 8), dtype=torch.bfloat16, device=dev)
+    for r0 in range(0, n, 1 << 26):
+        r1 = min(n, r0 + (1 << 26))
+        g[r0:r1] = _unit(torch.randn((r1 - r0, 8), generator=gen, device=dev)).to(torch.bfloat16)
+    q = _unit(torch.randn((65, 8), generator=gen, device=dev))  # two query blocks of 64
+    check_topk(g, n, q, 1)
+    check_topk(g, n, q, 1, precise=True)
+    check_topk(g, n, q, 17)
+    done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 and bf16 k=17: "
+                f"{n // 8192} segments)")
+    del g
+    torch.cuda.empty_cache()
+    return done
+
+
+def check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report):
+    """``RecognitionService(pca_scan='packed', pca_dim=700)`` over a
+    131,072-row slice of the main gallery: Da = 768, so both packed scans
+    stream their queries. The min-2 scan (``tilemin_packed_stream_sm90``)
+    is held against its plain version on the service's own augmented
+    gallery and projected probes (:func:`check_cert_scan`, timed into
+    ``report``), and the pick made before escalation against a plain
+    rescore of its candidates (:func:`check_certified_pick`): on this
+    class-structured gallery the certificate rarely clears, so the final
+    picks mostly come from ``topk_l2``. Those (identify_device, counted
+    alone) must equal ``match='exact'``'s on the same slice, but where the
+    two rows' distances (fp32, from the bf16 rows and bf16 queries both
+    paths rescore) tie within 2^-12 relative + 1e-6."""
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.serving import RecognitionService
+
+    n = 131_072
+    t = time.time()
+    kw = dict(labels=labels[:n], n_valid=n, serving_fn=serve, device=dev)
+    svc = RecognitionService(None, info, gallery[:n], pca_dim=700, pca_scan="packed", **kw)
+    exact = RecognitionService(None, info, gallery[:n], match="exact", **kw)
+    da = svc.gal_aug.shape[1]
+    if da != 768:
+        raise AssertionError(f"the PCA-700 packed service has Da = {da}, not 768")
+    build.reset_launch_counts()
+    idx = svc.identify_device(images)
+    torch.cuda.synchronize()
+    check_launches("pca700", launches, tilemin2_packed=1, topk_l2=1)
+    esc = svc.last_escalated.float().mean().item()
+    with torch.no_grad():
+        idx_e = exact._match_emb(emb)
+        e16 = emb.to(torch.bfloat16).to(torch.float32)
+        d = [((e16 - gallery[i.long()].to(torch.float32)) ** 2).sum(-1) for i in (idx, idx_e)]
+        check_cert_scan(svc, emb, report)
+        fast_agree = check_certified_pick(svc, emb, idx_e)
+    differ = idx != idx_e
+    tie = (d[0] - d[1]).abs() <= 2.0**-12 * d[1] + 1e-6
+    phase(
+        f"service pca_scan='packed' pca_dim=700 (Da={da}) over {n} rows, built in {time.time() - t:.1f} s: rows "
+        f"equal to match='exact' {100 * (1 - differ.float().mean().item()):.3f}%, the rest near-ties: "
+        f"{bool((tie | ~differ).all())}; escalated {100 * esc:.2f}%; pick before escalation at the least rescored "
+        f"distance of its candidates, equal to match='exact' {fast_agree:.3f}%; identity error "
+        f"{100 * float(np.mean(labels[idx.cpu().numpy()] != np.arange(len(idx)))):.3f}%; launches {launches['pca700']}"
+    )
+    if not bool((tie | ~differ).all()):
+        raise AssertionError("the PCA-700 packed service disagrees with match='exact' beyond near-ties")
 
 
 def check_single_scan(name, qa, ga, tile_g, report):
@@ -1618,10 +1809,21 @@ def main() -> int:
     # the kernels on the Hopper main loop issue wgmma and no WMMA
     mma = sass_mma_counts(libs)
     sm90 = {k: v for k, v in mma.items() if "_sm90" in k}
-    families = ("topk_pass1_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90")
+    families = ("topk_pass1_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90", "tilemin_sm90",
+                "tilemin_quant_bf16_sm90")
     if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
             v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
         raise AssertionError(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
+    topk_lib = build._lib("topk_l2")
+    if topk_lib.topk_l2_max_k() != build.TOPK_MAX_K:
+        raise AssertionError("kernels/topk_l2.cu and build.TOPK_MAX_K disagree on the largest k")
+    if any(topk_lib.topk_l2_segment_rows(p, k) != build.topk_l2_segment_rows_for(bool(p), k)
+           for p in (0, 1) for k in (1, 16, 17, build.TOPK_MAX_K)):
+        raise AssertionError("kernels/topk_l2.cu and build.topk_l2_segment_rows_for disagree on segment rows")
+    # no scan of the tile-scan library is left on WMMA
+    tile_lib = sass_mma_counts({"tile_scan": libs["tile_scan"]})
+    if any(v["HMMA"] + v["IMMA"] for v in tile_lib.values()):
+        raise AssertionError(f"kernels/tile_scan.cu still issues HMMA/IMMA: {tile_lib}")
     phase("SASS tensor-core instructions per kernel, HGMMA/IGMMA (wgmma) and HMMA/IMMA (WMMA's mma.sync): "
           + "; ".join(f"{k} {v['HGMMA']}/{v['IGMMA']}/{v['HMMA']}/{v['IMMA']}" for k, v in sorted(mma.items())
                       if any(v.values())))
@@ -1631,10 +1833,16 @@ def main() -> int:
     n_cases = check_sm90_edges(dev)
     phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases}: topk_l2 (bf16; B {list(SCAN_EDGE_B)}, "
           f"(rows, n_valid, D) {TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row "
-          f"masks {list(ROW_MASKS)}), the min-2 packed scan ((rows, n_valid, d, Da) {MIN2_EDGES}), the single-min "
-          f"packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; keys equal but near-ties) and "
-          f"the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; minima and rows equal) agree "
-          f"with their plain versions; no row past n_valid returned, no whole-pad tile won")
+          f"masks {list(ROW_MASKS)}), topk_l2 at k {list(TOPK_LARGE_K)} (bf16, precise, windows, a row mask; "
+          f"{TOPK_LARGE_K_EDGES}, B {list(TOPK_LARGE_K_B)}), the min-2 packed scan ((rows, n_valid, d, Da) "
+          f"{MIN2_EDGES}), the single-min packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; "
+          f"keys equal but near-ties), the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; "
+          f"minima and rows equal), the bf16 tile scan ({TILE_EDGES}, B {list(TILE_EDGE_B)}, tile_g 128-1024, "
+          f"both score modes) and the int8 scan with bf16 compute ({QUANT_BF16_EDGES}, B {list(QUANT_BF16_EDGE_B)}, "
+          f"tile_g 128 and 1024) agree with their plain versions; no row past n_valid returned, no whole-pad tile "
+          f"won, whole-pad tile minima bit-equal to the plain ones")
+    big_grids = check_big_grids(dev)
+    phase("grids past 65,535 blocks agree with the plain versions: " + "; ".join(big_grids))
 
     # 3. workload: trained B0@224, unseen identities rendered on the card
     t = time.time()
@@ -1678,6 +1886,7 @@ def main() -> int:
     check_cert_scan(svc, probe_batch, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report)
     check_topk(gallery, GALLERY, probe_batch[:256], 16, report)
+    check_topk(gallery, GALLERY, probe_batch[:256], 32, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
     torch.cuda.synchronize()
     t = time.time()
@@ -1758,6 +1967,7 @@ def main() -> int:
     if agree_pct < 99.0:
         raise AssertionError(f"top-1 agreement with match='exact' is {agree_pct:.3f}% < 99%")
     esc_rows = check_partial_escalation(svc, emb, gallery, dev)
+    check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report)
 
     # 6a. the fused MBConv path (make_infer_fn(fused=True, space_to_depth=True)):
     # its kernel at each stride-1 block and at edge shapes, the
@@ -2078,7 +2288,7 @@ def main() -> int:
         dict(name="tilemin2_packed", route="cuda", source=src + "packed_scan.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:393",
              launches=launches["pca"]["tilemin2_packed"], launches_by_path=by_path("tilemin2_packed"),
-             **report["tilemin2_packed"]),
+             **first(report["tilemin2_packed"]), shapes=report["tilemin2_packed"]),
         dict(name="topk_l2", route="cuda", source=src + "topk_l2.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92",
              launches=launches["pca"]["topk_l2"], launches_by_path=by_path("topk_l2"),

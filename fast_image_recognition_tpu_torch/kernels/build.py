@@ -140,12 +140,14 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.topk_l2_launch.restype = I
             lib.topk_l2_precise_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
             lib.topk_l2_precise_launch.restype = I
-            lib.topk_l2_segment_rows.argtypes = [I]
+            lib.topk_l2_segment_rows.argtypes = [I, I]
             lib.topk_l2_segment_rows.restype = I
             lib.topk_l2_query_rows.argtypes = []
             lib.topk_l2_query_rows.restype = I
             lib.topk_l2_list_len.argtypes = [I]
             lib.topk_l2_list_len.restype = I
+            lib.topk_l2_max_k.argtypes = []
+            lib.topk_l2_max_k.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -170,23 +172,42 @@ def topk_l2_query_rows() -> int:
     return _lib("topk_l2").topk_l2_query_rows()
 
 
-MAX_PACKED_DA = 640  # augmented width whose resident queries fit beside two ring stages (packed_scan.cu)
+# The kernels index gallery rows with int32 and keep some headroom past the
+# last row (a sub-tile or segment of rows): the same limit as the JAX
+# package's int32 row indices.
+MAX_ROWS = 2**31 - 1 - 2048
+TOPK_MAX_K = 256  # kernels/topk_l2.cu MAX_K: lists of up to 256 (query, segment) entries
+
+
+def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
+    """Gallery rows per ``topk_l2`` pass-1 block, as ``kernels/topk_l2.cu``
+    ``segment_rows`` gives them: 2,048 for the bf16 register-list pass,
+    8,192 for ``precise`` and for k > 16."""
+    return 8192 if precise or k > 16 else 2048
+
+
+def packed_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], tile_g: int) -> int:
+    """The packed scans' shape rules (``kernels/packed_scan.cu``), without a
+    card: returns the number of tiles or raises. Any augmented width Da (a
+    multiple of 16) and any number of whole tiles up to :data:`MAX_ROWS`."""
+    (b, da), (np_, g_da) = q_shape, g_shape
+    if tile_g not in (128, 256, 512, 1024):
+        raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
+    if b < 1 or np_ < tile_g or np_ % tile_g or g_da != da or da < 16 or da % 16 or np_ > MAX_ROWS:
+        raise ValueError(
+            f"packed scan takes whole {tile_g}-row tiles (at most {MAX_ROWS} rows) and Da % 16 == 0; got "
+            f"q_aug {tuple(q_shape)}, g_aug {tuple(g_shape)}"
+        )
+    return np_ // tile_g
 
 
 def _check_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> int:
     """Validate a packed scan's operands; returns the number of tiles."""
     _check(q_aug, "q_aug", torch.bfloat16, 2)
     _check(g_aug, "g_aug", torch.bfloat16, 2)
-    da = q_aug.shape[1]
-    # the kernel keeps the queries' 64-lane chunks resident beside its ring
-    if g_aug.shape[0] % tile_g or g_aug.shape[1] != da or da % 16 or da > MAX_PACKED_DA:
-        raise ValueError(
-            f"packed scan takes whole {tile_g}-row tiles and Da % 16 == 0, Da <= {MAX_PACKED_DA}; got "
-            f"q_aug {tuple(q_aug.shape)}, g_aug {tuple(g_aug.shape)}"
-        )
     if q_aug.device != g_aug.device:
         raise ValueError("q_aug and g_aug are on different devices")
-    return g_aug.shape[0] // tile_g
+    return packed_scan_tiles(tuple(q_aug.shape), tuple(g_aug.shape), tile_g)
 
 
 def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -213,8 +234,6 @@ def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[to
 def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
     """``kernels/packed_scan.cu``: per (query, ``tile_g``-row tile) min
     packed key, ``[B, n_tiles]`` int32; ``tile_g`` is 128, 256, 512 or 1024."""
-    if tile_g not in (128, 256, 512, 1024):
-        raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
     n_tiles = _check_packed(q_aug, g_aug, tile_g)
     b, da = q_aug.shape
     keys = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
@@ -229,6 +248,27 @@ def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int)
         )
     LAUNCHES["tilemin_packed"] += 1
     return keys
+
+
+def topk_l2_args(
+    q_shape: Tuple[int, int], g_shape: Tuple[int, int], k: int, n_valid: int, window: Optional[Tuple[int, int]],
+    precise: bool = False,
+) -> Tuple[int, int]:
+    """``kernels/topk_l2.cu``'s argument rules, without a card: returns the
+    window ``(start, end)`` or raises. Any k up to :data:`TOPK_MAX_K`; rows
+    up to int32 less one segment of the mode
+    (:func:`topk_l2_segment_rows_for`), the launcher's own limit."""
+    (b, d), (n, g_d) = q_shape, g_shape
+    start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
+    max_rows = 2**31 - 1 - topk_l2_segment_rows_for(precise, k)
+    if (b < 1 or g_d != d or d % 8 or not 1 <= k <= TOPK_MAX_K or not 0 < n_valid <= n or n_valid > max_rows
+            or not 0 <= start < end <= d):
+        raise ValueError(
+            f"topk_l2 kernel takes D % 8 == 0, 1 <= k <= {TOPK_MAX_K}, 0 < n_valid <= N (at most {max_rows}), "
+            f"0 <= start < end <= D; got queries {tuple(q_shape)}, gallery {tuple(g_shape)}, k={k}, "
+            f"n_valid={n_valid}, window {window}"
+        )
+    return start, end
 
 
 def launch_topk_l2(
@@ -256,13 +296,7 @@ def launch_topk_l2(
         _check(g, "gallery", torch.bfloat16, 2)
     b, d = q.shape
     n = g.shape[0]
-    start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
-    if g.shape[1] != d or d % 8 or not 1 <= k <= 16 or not 0 < n_valid <= n or not 0 <= start < end <= d:
-        raise ValueError(
-            f"topk_l2 kernel takes D % 8 == 0, 1 <= k <= 16, 0 < n_valid <= N, 0 <= start < end <= D; "
-            f"got queries {tuple(q.shape)}, gallery {tuple(g.shape)}, k={k}, n_valid={n_valid}, "
-            f"window {window}"
-        )
+    start, end = topk_l2_args(tuple(q.shape), tuple(g.shape), k, n_valid, window, precise)
     if q.device != g.device:
         raise ValueError("queries and gallery are on different devices")
     mask_ptr = None
@@ -274,7 +308,7 @@ def launch_topk_l2(
         row_mask = row_mask.contiguous()  # bool is one byte: read as uint8
         mask_ptr = row_mask.data_ptr()
     lib = _lib("topk_l2")
-    seg = lib.topk_l2_segment_rows(int(precise))
+    seg = lib.topk_l2_segment_rows(int(precise), k)
     n_seg = -(-n_valid // seg)
     kk = lib.topk_l2_list_len(k)
     part_d = torch.empty((b, n_seg, kk), dtype=torch.float32, device=q.device)
@@ -300,21 +334,29 @@ def launch_topk_l2(
     return out_d, out_i
 
 
-def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int) -> int:
-    """Validate a tile scan's operands; returns the number of tiles."""
+def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int) -> int:
+    """The tile scans' shape rules (``kernels/tile_scan.cu``), without a
+    card: returns the number of tiles or raises. D a multiple of ``vec``
+    (8 bf16 or 16 int8 lanes) and any number of whole tiles up to
+    :data:`MAX_ROWS`."""
+    (b, d), (np_, g_d) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
+    if b < 1 or np_ < tile_g or np_ % tile_g or g_d != d or d < vec or d % vec or np_ > MAX_ROWS:
+        raise ValueError(
+            f"tile scan takes whole {tile_g}-row tiles (at most {MAX_ROWS} rows) and D % {vec} == 0; got "
+            f"queries {tuple(q_shape)}, gallery {tuple(g_shape)}"
+        )
+    return np_ // tile_g
+
+
+def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int) -> int:
+    """Validate a tile scan's operands; returns the number of tiles."""
     _check(q, "queries", dtype, 2)
     _check(g, "gallery", dtype, 2)
-    d = q.shape[1]
-    if g.shape[0] % tile_g or g.shape[1] != d or d % vec:
-        raise ValueError(
-            f"tile scan takes whole {tile_g}-row tiles and D % {vec} == 0; got "
-            f"queries {tuple(q.shape)}, gallery {tuple(g.shape)}"
-        )
     if q.device != g.device:
         raise ValueError("queries and gallery are on different devices")
-    return g.shape[0] // tile_g
+    return tile_scan_tiles(tuple(q.shape), tuple(g.shape), vec, tile_g)
 
 
 def _check_rows(t: torch.Tensor, what: str, n_rows: int, device: torch.device) -> None:
@@ -361,7 +403,8 @@ def launch_tilemin_quant(
     """``kernels/tile_scan.cu``: per (query, tile) min of ``gsq - (2 s_q)
     (q.g s_g)`` over int8 queries and rows and the lowest row at it,
     ``[B, n_tiles]`` fp32 and int32. ``compute`` is ``'int8'`` (int32 dot)
-    or ``'bf16'`` (bf16 products summed in fp32)."""
+    or ``'bf16'`` (bf16 products summed in fp32; the queries go to the
+    kernel as bf16, converted here, exactly, once per call)."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     n_tiles = _check_scan(q, g, torch.int8, 16, tile_g)
@@ -371,6 +414,8 @@ def launch_tilemin_quant(
     _check_rows(gsc, "gsc", g.shape[0], q.device)
     out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+    if compute == "bf16":
+        q = q.to(torch.bfloat16)
     lib = _lib("tile_scan")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -30,7 +30,12 @@
 // main loop of sm90_scan.cuh. A block keeps 128 queries resident in shared
 // memory (TMA, once) as the `wgmma` A operand of two consumer warpgroups,
 // and streams its run of 256-row sub-tiles through a 4-stage TMA ring in
-// [256 rows x 64 features] boxes, the N side of m64n256k16 products. The
+// [256 rows x 64 features] boxes, the N side of m64n256k16 products.
+// Resident queries take 16 KB per 64 lanes and fit beside two ring stages
+// up to Da = 640; above it `tilemin_packed_stream_sm90<TWO, TILE_G>` takes
+// over, the same scan with each ring stage carrying the 64-lane chunk of
+// the queries beside the gallery box (as `topk_pass1_sm90` and
+// `tilemin_quant_sm90` do), so Da has no limit. The
 // epilogue stays in registers: each thread turns its accumulators into
 // keys and keeps, for its two query rows, the least key (TWO: the two
 // least, three integer min/max a key) of the current tile; at the tile's
@@ -215,17 +220,130 @@ tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_const
     }
 }
 
+// The same scan for da > 640, whose queries do not fit beside the ring:
+// each of its 4 ring stages is [QT x 64] query lanes, then [BN x 64]
+// gallery lanes, loaded together. A separate kernel, so that the resident
+// one above compiles as it did (its issue-bound epilogue is sensitive to
+// how it compiles: one template with a streaming switch ran the single-min
+// scan ~8 % slower on the card; `tilemin_sm90`, kernels/tile_scan.cu,
+// measured the other way and keeps its switch).
+template <bool TWO, int TILE_G>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+tilemin_packed_stream_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                           int32_t* __restrict__ out1, int32_t* __restrict__ out2, int B, int n_tiles,
+                           int n_chunks, int run, int stages) {
+    constexpr int SUBS = TILE_G > BN ? TILE_G / BN : 1;  // sub-tiles per unit
+    constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;  // tiles per unit
+    constexpr int STAGE = Q_BOX + G_BOX;  // bytes of one ring stage: queries, then rows
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = sm90::aligned_smem(smem_raw);  // [stages][STAGE]
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+    uint64_t* empty = full + stages;
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QT;
+    const int unit0 = blockIdx.y * run;
+    const int unit1 = min((n_tiles + TILES - 1) / TILES, unit0 + run);
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            int s = 0;
+            uint32_t ph = 0;
+            for (int unit = unit0; unit < unit1; ++unit)
+                for (int sub = 0; sub < SUBS; ++sub)
+                    for (int c = 0; c < n_chunks; ++c) {
+                        sm90::mbar_wait(&empty[s], ph ^ 1);
+                        sm90::mbar_arrive_expect_tx(&full[s], STAGE);
+                        sm90::tma_load_2d(ring + s * STAGE, &qmap, &full[s], c * sm90::KCHUNK, q0);
+                        sm90::tma_load_2d(ring + s * STAGE + Q_BOX, &gmap, &full[s], c * sm90::KCHUNK,
+                                          (unit * SUBS + sub) * BN);
+                        if (++s == stages) { s = 0; ph ^= 1; }
+                    }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;
+        const unsigned char* qa = ring + wg * 64 * sm90::LINE_BYTES;  // this warpgroup's 64 queries in stage 0
+        float acc[BN / 2];
+        int s = 0, prev = 0;
+        uint32_t ph = 0;
+        for (int unit = unit0; unit < unit1; ++unit) {
+            int m1[2] = {INT32_MAX, INT32_MAX}, m2[2] = {INT32_MAX, INT32_MAX};
+            for (int sub = 0; sub < SUBS; ++sub) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+                for (int c = 0; c < n_chunks; ++c) {
+                    sm90::mbar_wait(&full[s], ph);
+                    const unsigned char* gb = ring + s * STAGE + Q_BOX;
+                    const unsigned char* qc = qa + s * STAGE;
+                    sm90::acc_fence(acc);
+                    sm90::wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < sm90::KCHUNK / 16; ++kk)
+                        sm90::Wgmma<BN>::mma(acc, sm90::sw128_desc(qc + 32 * kk), sm90::sw128_desc(gb + 32 * kk));
+                    sm90::wgmma_commit();
+                    sm90::wgmma_wait<1>();
+                    sm90::acc_fence(acc);
+                    if (c > 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
+                    prev = s;
+                    if (++s == stages) { s = 0; ph ^= 1; }
+                }
+                sm90::wgmma_wait<0>();
+                sm90::acc_fence(acc);
+                if (t == 0) sm90::mbar_arrive(&empty[prev]);
+                // keys of this sub-tile into (m1, m2) of the thread's two
+                // rows; its columns 8 j + 2 (t % 4) + c rise with j, and at
+                // TILE_G 128 the columns of j >= 16 are the second tile's
+#pragma unroll
+                for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int row = TILES == 1 ? sub * BN + sm90::acc_col(t, j, c)
+                                                   : sm90::acc_col(t, j, c) - (j < BN / 16 ? 0 : TILE_G);
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const int key = (__float_as_int(acc[4 * j + 2 * h + c]) & ~(TILE_G - 1)) | row;
+                            if (TWO) m2[h] = min(m2[h], max(m1[h], key));
+                            m1[h] = min(m1[h], key);
+                        }
+                    }
+                    if (TILES == 2 && j == BN / 16 - 1)
+                        store_keys<TWO>(m1, m2, out1, out2, q0 + wg * 64, t, B, n_tiles, 2 * unit);
+                }
+            }
+            store_keys<TWO>(m1, m2, out1, out2, q0 + wg * 64, t, B, n_tiles, unit * TILES + TILES - 1);
+        }
+    }
+}
+
 template <bool TWO, int TILE_G>
 int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_tiles, int da, void* stream) {
     constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;
     if (B <= 0 || n_tiles <= 0 || da <= 0 || da % 16 != 0 || (long)n_tiles * TILE_G > INT32_MAX - BN)
         return (int)cudaErrorInvalidValue;
     const int n_chunks = (da + sm90::KCHUNK - 1) / sm90::KCHUNK;
-    // alignment slack, resident queries, the ring and (2 stages + 1) barriers
-    const int fixed = sm90::SMEM_ALIGN + n_chunks * Q_BOX + (2 * MAX_STAGES + 1) * 8;
-    const int stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) / G_BOX);
-    if (stages < 2) return (int)cudaErrorInvalidValue;
-    const size_t smem = fixed + (size_t)stages * G_BOX;
+    // alignment slack, resident queries, the ring and (2 stages + 1)
+    // barriers; queries that leave room for fewer than two gallery stages
+    // (da > 640) stream through the ring instead
+    const int bars = (2 * MAX_STAGES + 1) * 8;
+    const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - sm90::SMEM_ALIGN - n_chunks * Q_BOX - bars) / G_BOX);
+    const bool stream_q = resident_stages < 2;
+    const int stages = stream_q ? min(MAX_STAGES, (SMEM_LIMIT - sm90::SMEM_ALIGN - bars) / (Q_BOX + G_BOX))
+                                : resident_stages;
+    const size_t smem = stream_q ? sm90::SMEM_ALIGN + bars + (size_t)stages * (Q_BOX + G_BOX)
+                                 : sm90::SMEM_ALIGN + bars + (size_t)n_chunks * Q_BOX + (size_t)stages * G_BOX;
     CUtensorMap qmap, gmap;
     int err = sm90::encode_bf16_map(&qmap, q, da, B, (long)da * 2, QT);
     if (err == 0) err = sm90::encode_bf16_map(&gmap, g, da, (long)n_tiles * TILE_G, (long)da * 2, BN);
@@ -237,7 +355,7 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
     if (sms <= 0) return (int)cudaErrorInvalidDevice;
     const int n_runs = max(1, min(n_units, sms / n_qt));
     const int run = (n_units + n_runs - 1) / n_runs;
-    auto kernel = tilemin_packed_sm90<TWO, TILE_G>;
+    auto kernel = stream_q ? tilemin_packed_stream_sm90<TWO, TILE_G> : tilemin_packed_sm90<TWO, TILE_G>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(n_qt, (n_units + run - 1) / run);
@@ -249,9 +367,9 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
 }  // namespace
 
 // q: [B, da] bf16, g: [n_tiles * 1024, da] bf16 (both 16-byte aligned;
-// da % 16 == 0 and the queries' ceil(da / 64) chunks must fit shared
-// memory beside two ring stages: da <= 640), out1/out2: [B, n_tiles]
-// int32. Returns a cudaError_t value (0 on success); launches on `stream`.
+// da % 16 == 0, any width: resident queries up to da = 640, streamed above
+// it), out1/out2: [B, n_tiles] int32. Returns a cudaError_t value (0 on
+// success); launches on `stream`.
 extern "C" int tilemin2_packed_launch(const void* q, const void* g, void* out1,
                                       void* out2, int B, int n_tiles, int da,
                                       void* stream) {

@@ -169,14 +169,20 @@ def topk_l2_plain(
     row_mask: Optional[torch.Tensor] = None,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32 from the
-    stored values, rows >= n_valid excluded, ties to the lowest row index,
-    empty slots ``(BIG_DIST, -1)``. ``window=(start, end)`` zeroes the
-    feature lanes outside ``[start, end)`` in q, g and |q|^2. ``precise``
-    takes fp32 queries and contracts in fp32 (never TF32). Query rows where
-    ``row_mask`` is False come back empty. Returns raw squared distances
-    ``[B, k]`` fp32 and indices ``[B, k]`` int32 (counterpart of
-    ``_topk_kernel``, ops/distance_kernel.py:92)."""
+    """Exact L2 top-k for any k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32
+    from the stored values, rows >= n_valid excluded, ties to the lowest row
+    index, empty slots ``(BIG_DIST, -1)``. ``window=(start, end)`` zeroes
+    the feature lanes outside ``[start, end)`` in q, g and |q|^2.
+    ``precise`` takes fp32 queries and contracts in fp32 (never TF32).
+    Query rows where ``row_mask`` is False come back empty. Returns raw
+    squared distances ``[B, k]`` fp32 and indices ``[B, k]`` int32
+    (counterpart of ``_topk_kernel``, ops/distance_kernel.py:92).
+
+    Works through ``chunk_rows`` rows at a time: each chunk's distances
+    join the carried top-k, and ``torch.topk`` of the int64 keys ``(fp32
+    bits of d) << 32 | (row + 1)`` keeps the k least. The distances are >=
+    0, so their bits order as integers and the keys order by (d, row): ties
+    go to the lowest row whatever order ``topk`` breaks them in."""
     n = g.shape[0] if n_valid is None else int(n_valid)
     b, dim = q.shape
     qf = q.to(torch.float32)
@@ -186,8 +192,8 @@ def topk_l2_plain(
         fmask = ((lanes >= window[0]) & (lanes < window[1])).to(torch.float32)
         qf = qf * fmask
     qsq = (qf * qf).sum(dim=1, keepdim=True)
-    best_d = torch.full((b, k), BIG_DIST, dtype=torch.float32, device=q.device)
-    best_i = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
+    empty = (torch.tensor(BIG_DIST, dtype=torch.float32).view(torch.int32).to(torch.int64) << 32).item()
+    best = torch.full((b, k), empty, dtype=torch.int64, device=q.device)  # (BIG_DIST, row -1)
     for r0 in range(0, n, chunk_rows):
         r1 = min(r0 + chunk_rows, n)
         gf = g[r0:r1].to(torch.float32)
@@ -195,17 +201,15 @@ def topk_l2_plain(
             gf = gf * fmask
         gsq = (gf * gf).sum(dim=1)
         d = torch.clamp_min((qsq + gsq[None, :]) - 2.0 * (qf @ gf.T), 0.0)
-        idx = torch.arange(r0, r1, device=q.device).expand(b, -1)
-        # carry first, rows ascending: a stable sort keeps the lowest index
-        all_d = torch.cat([best_d, d], dim=1)
-        all_i = torch.cat([best_i, idx], dim=1)
-        order = torch.sort(all_d, dim=1, stable=True).indices[:, :k]
-        best_d = all_d.gather(1, order)
-        best_i = all_i.gather(1, order)
+        bits = d.view(torch.int32).to(torch.int64) & 0x7FFFFFFF  # -0.0 as 0.0
+        keys = (bits << 32) | torch.arange(r0 + 1, r1 + 1, device=q.device)
+        best = torch.topk(torch.cat([best, keys], dim=1), k, dim=1, largest=False, sorted=True).values
+    best_d = (best >> 32).to(torch.int32).view(torch.float32)
+    best_i = ((best & 0xFFFFFFFF) - 1).to(torch.int32)
     if row_mask is not None:
         best_d = torch.where(row_mask[:, None], best_d, BIG_DIST)
         best_i = torch.where(row_mask[:, None], best_i, -1)
-    return best_d, best_i.to(torch.int32)
+    return best_d, best_i
 
 
 def chi2_nn_plain(

@@ -1,5 +1,6 @@
 // Per-tile min and argmin scans for Hopper (sm_90a): the bf16 tile scan
-// and the int8 tile scan.
+// and the int8 tile scan, all three on the main loop of sm90_scan.cuh
+// (TMA ring, `wgmma`, `mbarrier`s).
 //
 // `tilemin_launch` replaces the Pallas TPU kernel `_tilemin_kernel`
 // (fast_image_recognition_tpu/ops/distance_kernel.py:174, launched by
@@ -29,60 +30,80 @@
 // `__fsub_rn`: no contraction into an FMA), so the scores equal the plain
 // PyTorch version's bit for bit when the dots do.
 //
-// Bound: at B = 1024 against 1,000,448 x 128 bf16 rows the work is
+// Bounds: at B = 1024 against 1,000,448 x 128 bf16 rows the bf16 scan is
 // 2*B*Np*D = 262 GFLOP against 256 MB: operations bound (0.265 ms at 989
 // TFLOP/s); the int8 scan at D = 1536 is 3.15e12 int8 operations against
-// 1.54 GB: 1.59 ms at 1,979 TOPS, operations bound.
+// 1.54 GB: 1.59 ms at 1,979 TOPS (int8 compute), 3.18 ms at 989 TFLOP/s
+// (bf16 compute); operations bound.
 //
-// The int8 scan with int8 compute (`tilemin_quant_sm90`) runs on the main
-// loop of sm90_scan.cuh: a block owns (128 queries, a 2048-row segment of
-// whole tiles), two consumer warpgroups of 64 queries are the M side of
-// m64n256k32 s8 x s8 -> s32 `wgmma` products, 256 gallery rows the N
-// side. 128 int8 queries take 192 KB at D = 1536, so they do not stay
-// resident: each stage of the 4-stage TMA ring holds one 128-feature chunk
-// of the queries and of the sub-tile ([128 x 128] + [256 x 128] bytes).
-// Query tiles vary fastest in the grid, so the query tiles of a segment
-// run together and read it from HBM about once (from L2 once per query
-// tile). The epilogue stays in registers: |g|^2 and s_g of the sub-tile's
-// rows reach shared memory once (plain loads issued before its products,
-// stored after them), each thread forms the scores of its two query rows
-// at its 64 accumulator columns and keeps one (score, row) a row with a
-// strict < over rising columns; a tile of any `tile_g` ends at the end of
-// one of the sub-tile's two 128-row halves, where the 4 lanes of a row
-// merge with shuffles in (score, row) order and one (min, row) per
-// (query, tile) is written.
+// `tilemin_sm90` (the bf16 scan) has the packed scans' shape
+// (kernels/packed_scan.cu): a block keeps 128 queries resident in shared
+// memory as the `wgmma` A operand of two consumer warpgroups (streamed
+// through the ring beside the gallery above D = 640, so D has no limit)
+// and runs through whole tiles of 256-row sub-tiles in [256 x 64] boxes,
+// the N side of m64n256k16 products; the grid is (query tiles, runs) sized
+// to one block per SM. Each sub-tile's |g|^2 is loaded before its
+// products and reaches shared memory after them, a copy for each
+// warpgroup, so that the two warpgroups do not wait for each other and one
+// warpgroup's epilogue overlaps the other's products. The
+// epilogue stays in registers: each thread forms the scores of its two
+// query rows at its 64 accumulator columns (fp32: one FMA, since -2 q.g is
+// exact; bf16: rounded at the TPU kernel's three places) and keeps one
+// (score, row) a row with a strict < over rising columns, starting from
+// (inf, the tile's first row), so a tile of nothing but inf scores returns
+// its first row, as the plain version does; a tile ends at the end of one
+// of the sub-tile's two 128-row halves, where the 4 lanes of a row merge
+// in (score, row) order and one (min, row) per (query, tile) is written.
 //
-// The bf16 tile scan and the int8 scan with bf16 compute keep the first
-// port's design (`tile_scan_kernel`): one block owns (64 queries, one tile)
-// and walks the tile in 64-row sub-tiles; each sub-tile's products run on
-// the tensor cores through WMMA (bf16 -> fp32) over 128-wide feature chunks
-// staged in shared memory (the query chunk stays resident when D <= 128),
-// land in a shared tile, and each warp reduces 8 query columns to (score,
-// row) pairs in registers, combined across lanes with warp shuffles.
-// (score, row) ordering makes the result independent of the reduction
-// order. Query blocks vary fastest in the grid, so the blocks that read one
-// tile run together and share it through L2. No TMA pipelining and no
-// `wgmma` there yet.
+// `tilemin_quant_sm90` (int8 compute) takes the same epilogue over s8
+// `wgmma` m64n256k32 products: a block owns (128 queries, a 2048-row
+// segment of whole tiles); 128 int8 queries take 192 KB at D = 1536, so
+// each stage of the 4-stage ring holds one 128-feature chunk of the
+// queries and of the sub-tile ([128 x 128] + [256 x 128] bytes).
+//
+// `tilemin_quant_bf16_sm90` (bf16 compute) computes bf16 products of the
+// int8 values summed in fp32, as the TPU kernel does after upcasting both
+// operands (not the exact int32 dot: the fp32 sums round past 2^24). The
+// gallery stays int8 from HBM to shared memory (TMA has no signed 8-bit
+// type; UINT8 maps copy the bits), which halves its bytes, and the
+// warpgroups convert it: here the gallery is the `wgmma` A operand, taken
+// from registers. Each consumer warpgroup turns its 64 rows x 16 features
+// of the landed int8 box into bf16 fragments (two 32-bit shared loads, a
+// byte permute, four int-to-float conversions and two bf16x2 packs per
+// row and k16 step) and multiplies them against 256 queries, the N side,
+// which the wrapper converted to bf16 once per call (int8 values are exact
+// in bf16) and which stream through the ring beside the gallery. A block
+// owns (256 queries, a 2048-row segment); each stage of the 2-stage ring
+// holds one 128-feature chunk: [256 x 128] bf16 queries in two 64-lane
+// boxes and [128 x 128] int8 rows. Rows now run along M, so the min over a
+// tile's rows crosses lanes: each thread takes the (score, row) min of its
+// two rows per query column, the 8 lanes that share a query column halve
+// their 64 columns three times with shuffles (each lane ends with 8
+// columns), the 8 warps' results meet in shared memory, and one consumer
+// thread per query keeps the running (min, row) of the tile.
+//
+// In every scan the blocks run query tile fastest, so the blocks that read
+// one stretch of the gallery run together and share it through L2; the
+// segments fold into the grid's x dimension, so a gallery may have any
+// number of tiles up to int32 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90_scan.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int QB = 64;        // queries per block
-constexpr int RB = 64;        // gallery rows per sub-tile
-constexpr int KC = 128;       // feature chunk (elements)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int PAD = 16;       // elements of row padding in shared memory
-constexpr int LDS = KC + PAD;
-constexpr int ACC_LD = RB + 4;  // accumulator tile, [query][row]
-constexpr int QPW = QB / (THREADS / 32);  // query columns reduced per warp
+constexpr float BIG_DIST = 3.4e38f;
+constexpr int QT = 128;         // queries per block: two consumer warpgroups of 64
+constexpr int BN = 256;         // gallery rows per sub-tile (wgmma N)
+constexpr int HALF = BN / 2;    // rows per half: the smallest tile_g
+constexpr int MAX_STAGES = 4;   // TMA ring depth
+constexpr int MAX_GRID_Y = 65535;  // the grid's y limit
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
+
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
     return d < bd || (d == bd && i < bi);
@@ -92,157 +113,224 @@ __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Stages rows [row0, row0 + nrows) x features [k0, k0 + KC) of a [*, D]
-// matrix of In (bf16 or int8) into `dst` as bf16 rows of LDS elements,
-// zero past D and past `rows`. Int8 into bf16 converts exactly.
-template <typename In>
-__device__ __forceinline__ void stage(const In* __restrict__ src, long row0, long rows, int nrows,
-                                      int D, int k0, __nv_bfloat16* dst) {
-    constexpr int EPV = 16 / sizeof(In);  // elements per 16-byte vector
-    constexpr int VPR = KC / EPV;
-    for (int v = threadIdx.x; v < nrows * VPR; v += THREADS) {
-        const int r = v / VPR, c = v % VPR;
-        const long row = row0 + r;
-        const int col = k0 + c * EPV;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < rows && col < D) val = *reinterpret_cast<const uint4*>(src + row * (long)D + col);
-        __nv_bfloat16* out = dst + r * LDS + c * EPV;
-        if constexpr (sizeof(In) == 2) {
-            *reinterpret_cast<uint4*>(out) = val;
-        } else {  // int8 -> bf16, exact
-            const int8_t* b = reinterpret_cast<const int8_t*>(&val);
+// The (score, row) of each of the thread's two query rows, merged over the
+// 4 lanes of a row, written as (query, tile) if both exist; then reset to
+// (inf, next_row).
+__device__ __forceinline__ void store_tile(float (&bv)[2], int (&bi)[2], float* __restrict__ out_d,
+                                           int32_t* __restrict__ out_i, int q, int t, int B, int n_tiles,
+                                           int tile, int next_row) {
 #pragma unroll
-            for (int j = 0; j < EPV; ++j) out[j] = __float2bfloat16_rn((float)b[j]);
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, bv[h], off);
+            const int oi = __shfl_xor_sync(0xffffffffu, bi[h], off);
+            if (before(ov, oi, bv[h], bi[h])) { bv[h] = ov; bi[h] = oi; }
         }
+        const int qi = q + sm90::acc_row(t, h);
+        if ((t & 3) == 0 && qi < B && tile < n_tiles) {
+            out_d[(size_t)qi * n_tiles + tile] = bv[h];
+            out_i[(size_t)qi * n_tiles + tile] = bi[h];
+        }
+        bv[h] = inf();
+        bi[h] = next_row;
     }
 }
 
-// MODE 0: fp32 scores; 1: bf16 scores; 2: int8 scan (gsq - 2 s_q cross s_g)
-// with bf16 products.
-template <typename In, int MODE>
-__global__ void __launch_bounds__(THREADS)
-tile_scan_kernel(const In* __restrict__ q, const float* __restrict__ qs,
-                 const In* __restrict__ g, const float* __restrict__ gsq,
-                 const float* __restrict__ gsc, float* __restrict__ out_d,
-                 int32_t* __restrict__ out_i, int B, int n_tiles, int D, int tile_g) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [QB][LDS]
-    __nv_bfloat16* g_s = q_s + QB * LDS;                          // [RB][LDS]
-    float* acc_s = reinterpret_cast<float*>(g_s + RB * LDS);      // [QB][ACC_LD]
-    float* gsq_s = reinterpret_cast<float*>(acc_s + QB * ACC_LD);  // [RB]
-    float* gsc_s = gsq_s + RB;                                      // [RB]
-    float* qs2_s = gsc_s + RB;                                      // [QB]
+// ---- the bf16 scan: tilemin_sm90 ----
+
+constexpr int Q_BOX = QT * sm90::LINE_BYTES;  // one 64-lane chunk of the queries
+constexpr int G_BOX = BN * sm90::LINE_BYTES;  // one 64-lane chunk of a sub-tile
+
+// grid (query tiles, runs of `run` units); 384 threads: warpgroups 0-1
+// consume, 2 produces. A unit is one tile of tile_g >= 256 rows (tile_g /
+// 256 sub-tiles) or one sub-tile that holds two tiles of 128. qmap: [B, D]
+// boxes [128 x 64]; gmap: [n_tiles * tile_g, D] boxes [256 x 64]; n_chunks
+// = ceil(D / 64). STREAM: the queries are not resident; each ring stage is
+// [QT x 64] query lanes, then [BN x 64] gallery lanes. Both instances share
+// this text because it measured faster: a resident-only copy without the
+// switch ran the scan ~7 % slower on the card. The packed scans measured
+// the other way and keep two kernels (kernels/packed_scan.cu); these
+// issue-bound epilogues move with how their text compiles, so each scan
+// keeps the form that won an A/B of both in one run.
+template <bool BF16S, bool STREAM>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+             const float* __restrict__ gsq, float* __restrict__ out_d, int32_t* __restrict__ out_i, int B,
+             int n_tiles, int tile_g, int n_chunks, int run, int stages) {
+    constexpr int STAGE = STREAM ? Q_BOX + G_BOX : G_BOX;  // bytes of one ring stage
+    constexpr int G_OFF = STREAM ? Q_BOX : 0;              // the gallery box within a stage
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    unsigned char* q_s = smem;                                      // [n_chunks][QT x 64], resident
+    unsigned char* ring = STREAM ? smem : smem + n_chunks * Q_BOX;  // [stages][STAGE]
+    float* g2_s = reinterpret_cast<float*>(ring + stages * STAGE);  // [2 warpgroups][2][BN]
+    uint64_t* full = reinterpret_cast<uint64_t*>(g2_s + 4 * BN);
+    uint64_t* empty = full + stages;
+    uint64_t* q_full = empty + stages;
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int q0 = blockIdx.x * QB;
-    const int tile = blockIdx.y;
-    const long tile0 = (long)tile * tile_g;
-    const int n_chunks = (D + KC - 1) / KC;
-    const int mf = warp >> 1;       // 16-row slice of the sub-tile
-    const int nf = (warp & 1) * 2;  // first of two 16-query slices
-
-    if (MODE == 2 && tid < QB) qs2_s[tid] = q0 + tid < B ? 2.0f * qs[q0 + tid] : 0.0f;
-
-    float bv[QPW];
-    int bi[QPW];
-#pragma unroll
-    for (int i = 0; i < QPW; ++i) { bv[i] = __int_as_float(0x7f800000); bi[i] = INT32_MAX; }
-
-    for (int sub = 0; sub < tile_g / RB; ++sub) {
-        const long r0 = tile0 + (long)sub * RB;
-        if (tid < RB) {
-            gsq_s[tid] = gsq[r0 + tid];
-            if (MODE == 2) gsc_s[tid] = gsc[r0 + tid];
+    const int q0 = blockIdx.x * QT;
+    const int n_rows = n_tiles * tile_g;
+    const int unit_rows = max(tile_g, BN);
+    const int subs = unit_rows / BN;  // sub-tiles per unit
+    const int unit0 = blockIdx.y * run;
+    const int unit1 = min((n_rows + unit_rows - 1) / unit_rows, unit0 + run);
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
         }
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-        wmma::fill_fragment(c0, 0.0f);
-        wmma::fill_fragment(c1, 0.0f);
-        for (int kc = 0; kc < n_chunks; ++kc) {
-            if (n_chunks > 1 || sub == 0) stage<In>(q, q0, B, QB, D, kc * KC, q_s);
-            stage<In>(g, r0, r0 + RB, RB, D, kc * KC, g_s);
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KC; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b0, b1;
-                wmma::load_matrix_sync(a, g_s + mf * 16 * LDS + kk, LDS);
-                wmma::load_matrix_sync(b0, q_s + nf * 16 * LDS + kk, LDS);
-                wmma::load_matrix_sync(b1, q_s + (nf + 1) * 16 * LDS + kk, LDS);
-                wmma::mma_sync(c0, a, b0, c0);
-                wmma::mma_sync(c1, a, b1, c1);
-            }
-            __syncthreads();  // staging buffers are rewritten next chunk
-        }
-        // column-major store: acc_s[query * ACC_LD + row]
-        wmma::store_matrix_sync(acc_s + nf * 16 * ACC_LD + mf * 16, c0, ACC_LD, wmma::mem_col_major);
-        wmma::store_matrix_sync(acc_s + (nf + 1) * 16 * ACC_LD + mf * 16, c1, ACC_LD, wmma::mem_col_major);
-        __syncthreads();
-
-#pragma unroll
-        for (int i = 0; i < QPW; ++i) {
-            const int ql = warp * QPW + i;
-            const float* col = acc_s + ql * ACC_LD;
-#pragma unroll
-            for (int h = 0; h < RB / 32; ++h) {
-                const int r = lane + 32 * h;
-                float s;
-                if (MODE == 2) {
-                    s = __fsub_rn(gsq_s[r], __fmul_rn(qs2_s[ql], __fmul_rn(col[r], gsc_s[r])));
-                } else if (MODE == 1) {
-                    const float m = bf16_round(__fmul_rn(2.0f, col[r]));
-                    s = bf16_round(__fsub_rn(bf16_round(gsq_s[r]), m));
-                } else {
-                    s = __fsub_rn(gsq_s[r], __fmul_rn(2.0f, col[r]));
-                }
-                const int row = sub * RB + r;
-                if (before(s, row, bv[i], bi[i])) { bv[i] = s; bi[i] = row; }
-            }
-        }
-        // the next sub-tile writes gsq_s and the staging buffers only after
-        // the barrier above; acc_s only after the chunk loop's barriers
-        __syncthreads();
+        sm90::mbar_init(q_full, 1);
+        sm90::mbar_init_fence();
     }
+    __syncthreads();
 
-#pragma unroll
-    for (int i = 0; i < QPW; ++i) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, bv[i], off);
-            const int oi = __shfl_xor_sync(0xffffffffu, bi[i], off);
-            if (before(ov, oi, bv[i], bi[i])) { bv[i] = ov; bi[i] = oi; }
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            if (!STREAM) {
+                sm90::mbar_arrive_expect_tx(q_full, n_chunks * Q_BOX);
+                for (int c = 0; c < n_chunks; ++c)
+                    sm90::tma_load_2d(q_s + c * Q_BOX, &qmap, q_full, c * sm90::KCHUNK, q0);
+            }
+            int s = 0;
+            uint32_t ph = 0;
+            for (int unit = unit0; unit < unit1; ++unit)
+                for (int sub = 0; sub < subs; ++sub)
+                    for (int c = 0; c < n_chunks; ++c) {
+                        sm90::mbar_wait(&empty[s], ph ^ 1);
+                        sm90::mbar_arrive_expect_tx(&full[s], STAGE);
+                        if (STREAM) sm90::tma_load_2d(ring + s * STAGE, &qmap, &full[s], c * sm90::KCHUNK, q0);
+                        sm90::tma_load_2d(ring + s * STAGE + G_OFF, &gmap, &full[s], c * sm90::KCHUNK,
+                                          (unit * subs + sub) * BN);
+                        if (++s == stages) { s = 0; ph ^= 1; }
+                    }
         }
-        const int qi = q0 + warp * QPW + i;
-        if (lane == 0 && qi < B) {
-            out_d[(size_t)qi * n_tiles + tile] = bv[i];
-            out_i[(size_t)qi * n_tiles + tile] = (int32_t)(tile0 + bi[i]);
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        // this warpgroup's 64 queries: resident chunks, or the stage's
+        const unsigned char* qa = (STREAM ? ring : q_s) + wg * 64 * sm90::LINE_BYTES;
+        float acc[BN / 2];
+        float bv[2] = {inf(), inf()};
+        int bi[2] = {unit0 * unit_rows, unit0 * unit_rows};  // an all-inf tile returns its first row
+        int s = 0, prev = 0, it = 0;
+        uint32_t ph = 0;
+        if (!STREAM) sm90::mbar_wait(q_full, 0);
+        for (int unit = unit0; unit < unit1; ++unit) {
+            for (int sub = 0; sub < subs; ++sub, ++it) {
+                const int r0 = (unit * subs + sub) * BN;
+                // this sub-tile's |g|^2, two rows a thread of each warpgroup;
+                // the loads land while the products run
+                float g2_own[2];
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int gr = r0 + t + i * HALF;
+                    g2_own[i] = gr < n_rows ? gsq[gr] : BIG_DIST;
+                }
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+                for (int c = 0; c < n_chunks; ++c) {
+                    sm90::mbar_wait(&full[s], ph);
+                    const unsigned char* gb = ring + s * STAGE + G_OFF;
+                    const unsigned char* qc = qa + (STREAM ? s * STAGE : c * Q_BOX);
+                    sm90::acc_fence(acc);
+                    sm90::wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < sm90::KCHUNK / 16; ++kk)
+                        sm90::wgmma_m64n256k16(acc, sm90::sw128_desc(qc + 32 * kk), sm90::sw128_desc(gb + 32 * kk));
+                    sm90::wgmma_commit();
+                    sm90::wgmma_wait<1>();
+                    sm90::acc_fence(acc);
+                    if (c > 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
+                    prev = s;
+                    if (++s == stages) { s = 0; ph ^= 1; }
+                }
+                sm90::wgmma_wait<0>();
+                sm90::acc_fence(acc);
+                if (t == 0) sm90::mbar_arrive(&empty[prev]);
+
+                // each warpgroup its own copy, two buffers: one barrier of
+                // the warpgroup per sub-tile, so the two warpgroups' epilogues
+                // need not run at the same time
+                float* g2b = g2_s + (2 * wg + (it & 1)) * BN;
+#pragma unroll
+                for (int i = 0; i < 2; ++i) g2b[t + i * HALF] = BF16S ? bf16_round(g2_own[i]) : g2_own[i];
+                sm90::named_bar_sync(2 + wg, sm90::WG_THREADS);
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+#pragma unroll
+                    for (int j = 0; j < HALF / 8; ++j) {
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const int col = sm90::acc_col(t, half * HALF / 8 + j, c);
+                            const float g2 = g2b[col];
+#pragma unroll
+                            for (int h = 0; h < 2; ++h) {
+                                const float x = acc[4 * (half * HALF / 8 + j) + 2 * h + c];
+                                // -2 x is exact, so one FMA rounds as g2 - 2 x does
+                                const float score = BF16S ? bf16_round(__fsub_rn(g2, bf16_round(__fmul_rn(2.0f, x))))
+                                                          : __fmaf_rn(-2.0f, x, g2);
+                                // columns rise within a thread: strict < keeps the lowest row
+                                if (score < bv[h]) { bv[h] = score; bi[h] = r0 + col; }
+                            }
+                        }
+                    }
+                    const int end = r0 + (half + 1) * HALF;
+                    if ((end & (tile_g - 1)) == 0)  // a tile ends with this half
+                        store_tile(bv, bi, out_d, out_i, q0 + wg * 64, t, B, n_tiles, end / tile_g - 1, end);
+                }
+            }
         }
     }
 }
 
-template <typename In, int MODE>
-int launch(const void* q, const void* qs, const void* g, const void* gsq, const void* gsc,
-           void* out_d, void* out_i, int B, int n_tiles, int D, int tile_g, void* stream) {
-    if (B <= 0 || n_tiles <= 0 || n_tiles > 65535 || D <= 0 || D % (16 / (int)sizeof(In)) != 0 ||
-        tile_g < 128 || tile_g > 1024 || (tile_g & (tile_g - 1)) != 0 ||
-        (long)n_tiles * tile_g > INT32_MAX)
+template <bool BF16S>
+int launch_tilemin(const void* q, const void* g, const void* gsq, void* out_d, void* out_i, int B, int n_tiles,
+                   int D, int tile_g, void* stream) {
+    if (B <= 0 || n_tiles <= 0 || D <= 0 || D % 8 != 0 || tile_g < HALF || tile_g > 1024 ||
+        (tile_g & (tile_g - 1)) != 0 || (long)n_tiles * tile_g > INT32_MAX - BN)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(QB + RB) * LDS * sizeof(__nv_bfloat16) + (size_t)QB * ACC_LD * sizeof(float) +
-                        (size_t)(2 * RB + QB) * sizeof(float);
-    auto kernel = tile_scan_kernel<In, MODE>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((B + QB - 1) / QB, n_tiles);
-    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const In*)q, (const float*)qs, (const In*)g, (const float*)gsq, (const float*)gsc,
-        (float*)out_d, (int32_t*)out_i, B, n_tiles, D, tile_g);
+    const int n_rows = n_tiles * tile_g;
+    const int n_chunks = (D + sm90::KCHUNK - 1) / sm90::KCHUNK;
+    // alignment slack, |g|^2 of two sub-tiles for each warpgroup, (2 stages + 1) barriers, and
+    // the resident queries with the ring; queries that leave room for fewer
+    // than two gallery stages (D > 640) stream through the ring instead
+    const int fixed = sm90::SMEM_ALIGN + 4 * BN * 4 + (2 * MAX_STAGES + 1) * 8;
+    const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - fixed - n_chunks * Q_BOX) / G_BOX);
+    const bool stream_q = resident_stages < 2;
+    const int stages = stream_q ? min(MAX_STAGES, (SMEM_LIMIT - fixed) / (Q_BOX + G_BOX)) : resident_stages;
+    const size_t smem = stream_q ? fixed + (size_t)stages * (Q_BOX + G_BOX)
+                                 : fixed + (size_t)n_chunks * Q_BOX + (size_t)stages * G_BOX;
+    CUtensorMap qmap, gmap;
+    int err = sm90::encode_bf16_map(&qmap, q, D, B, (long)D * 2, QT);
+    if (err == 0) err = sm90::encode_bf16_map(&gmap, g, D, n_rows, (long)D * 2, BN);
+    if (err != 0) return err;
+    // one block per SM: the query tiles of a run of units side by side
+    const int unit_rows = max(tile_g, BN);
+    const int n_units = (n_rows + unit_rows - 1) / unit_rows;
+    const int n_qt = (B + QT - 1) / QT;
+    const int sms = sm90::sm_count();
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    const int n_runs = max(1, min(n_units, sms / n_qt));
+    const int run = (n_units + n_runs - 1) / n_runs;
+    auto kernel = stream_q ? tilemin_sm90<BF16S, true> : tilemin_sm90<BF16S, false>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(n_qt, (n_units + run - 1) / run);
+    kernel<<<grid, sm90::THREADS, smem, (cudaStream_t)stream>>>(qmap, gmap, (const float*)gsq, (float*)out_d,
+                                                                  (int32_t*)out_i, B, n_tiles, tile_g, n_chunks,
+                                                                  run, stages);
     return (int)cudaGetLastError();
 }
 
 // ---- the int8 scan with int8 compute: tilemin_quant_sm90 ----
 
-constexpr float BIG_DIST = 3.4e38f;
 constexpr int QT8 = 128;        // queries per block: two consumer warpgroups of 64
 constexpr int BN8 = 256;        // gallery rows per sub-tile (wgmma N)
 constexpr int HALF8 = BN8 / 2;  // rows per half: the smallest tile_g
@@ -255,14 +343,15 @@ constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 // ring, |g|^2 and s_g of two sub-tiles, full[] and empty[] barriers
 constexpr size_t SMEM8 = sm90::SMEM_ALIGN + RING_BYTES + 4 * BN8 * 4 + 2 * STAGES * 8;
 
-// grid (query tiles, segments); 384 threads: warpgroups 0-1 consume, 2
-// produces. qmap: [B, D] int8 boxes [128 x 128]; gmap: [n_rows, D] int8
-// boxes [256 x 128]; n_rows = n_tiles * tile_g; n_chunks = ceil(D / 128).
+// grid (query tiles, segments from seg_base); 384 threads: warpgroups 0-1
+// consume, 2 produces. qmap: [B, D] int8 boxes [128 x 128]; gmap: [n_rows,
+// D] int8 boxes [256 x 128]; n_rows = n_tiles * tile_g; n_chunks = ceil(D /
+// 128).
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                    const float* __restrict__ qs, const float* __restrict__ gsq, const float* __restrict__ gsc,
                    float* __restrict__ out_d, int32_t* __restrict__ out_i, int B, int n_tiles, int tile_g,
-                   int n_chunks) {
+                   int n_chunks, int seg_base) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = sm90::aligned_smem(smem_raw);
     float* gsq_s = reinterpret_cast<float*>(smem + RING_BYTES);  // [2][BN8]
@@ -273,7 +362,7 @@ tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_consta
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * QT8;
     const int n_rows = n_tiles * tile_g;
-    const int seg0 = blockIdx.y * SEG_ROWS;
+    const int seg0 = (seg_base + blockIdx.y) * SEG_ROWS;
     const int n_sub = (min(n_rows, seg0 + SEG_ROWS) - seg0 + BN8 - 1) / BN8;
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) {
@@ -405,13 +494,257 @@ int launch_quant_sm90(const void* q, const void* qs, const void* g, const void* 
     if (err == 0) err = sm90::encode_s8_map(&gmap, g, D, n_rows, D, BN8);
     if (err != 0) return err;
     const int n_chunks = (D + sm90::KCHUNK_S8 - 1) / sm90::KCHUNK_S8;
-    const dim3 grid((B + QT8 - 1) / QT8, (unsigned)((n_rows + SEG_ROWS - 1) / SEG_ROWS));
-    if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+    const int n_seg = (int)((n_rows + SEG_ROWS - 1) / SEG_ROWS);
     cudaError_t e = cudaFuncSetAttribute(tilemin_quant_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM8);
     if (e != cudaSuccess) return (int)e;
-    tilemin_quant_sm90<<<grid, sm90::THREADS, SMEM8, (cudaStream_t)stream>>>(
-        qmap, gmap, (const float*)qs, (const float*)gsq, (const float*)gsc, (float*)out_d, (int32_t*)out_i, B,
+    // at most 65,535 segments a launch (the grid's y limit)
+    for (int sb = 0; sb < n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid((B + QT8 - 1) / QT8, min(MAX_GRID_Y, n_seg - sb));
+        tilemin_quant_sm90<<<grid, sm90::THREADS, SMEM8, (cudaStream_t)stream>>>(
+            qmap, gmap, (const float*)qs, (const float*)gsq, (const float*)gsc, (float*)out_d, (int32_t*)out_i, B,
+            n_tiles, tile_g, n_chunks, sb);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+
+// ---- the int8 scan with bf16 compute: tilemin_quant_bf16_sm90 ----
+
+constexpr int QTB = 256;     // queries per block (wgmma N)
+constexpr int RB = 128;      // gallery rows per sub-tile: 64 (wgmma M) per consumer warpgroup
+constexpr int STAGES_B = 2;  // TMA ring depth
+constexpr int QB_BOX = QTB * sm90::LINE_BYTES;  // [256 x 64] bf16 queries: half a 128-feature chunk
+constexpr int GB_BOX = RB * sm90::LINE_BYTES;   // [128 x 128] int8 rows
+constexpr int STAGE_B = 2 * QB_BOX + GB_BOX;
+constexpr int RED_BYTES = 2 * 8 * QTB * 8;      // two buffers of (min, row) [8 warps][QTB]
+constexpr size_t SMEM_B = sm90::SMEM_ALIGN + (size_t)STAGES_B * STAGE_B + RED_BYTES + QTB * 4 + 2 * STAGES_B * 8;
+
+// int8 -> bf16 of bytes 2 i and 2 i + 1 of x, packed as bf16x2 (lower
+// byte in the lower half); exact.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t x, int i) {
+    const float lo = __int2float_rn((int)(int8_t)(x >> (16 * i)));
+    const float hi = __int2float_rn((int)(int8_t)(x >> (16 * i + 8)));
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (v, r) <- the (score, row) least of itself and (ov, oi)
+__device__ __forceinline__ void keep_least(float& v, int& r, float ov, int oi) {
+    if (before(ov, oi, v, r)) { v = ov; r = oi; }
+}
+
+// grid (query tiles of 256 x segments, query tile fastest); 384 threads:
+// warpgroups 0-1 consume, 2 produces. qmap: [B, D] bf16 (the int8 queries
+// converted) boxes [256 x 64]; gmap: [n_rows, D] int8 boxes [128 x 128];
+// n_chunks = ceil(D / 128).
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                        const float* __restrict__ qs, const float* __restrict__ gsq,
+                        const float* __restrict__ gsc, float* __restrict__ out_d, int32_t* __restrict__ out_i,
+                        int B, int D, int n_tiles, int tile_g, int n_chunks) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    float* red_v = reinterpret_cast<float*>(smem + STAGES_B * STAGE_B);  // [2][8][QTB]
+    int* red_r = reinterpret_cast<int*>(red_v + 2 * 8 * QTB);            // [2][8][QTB]
+    float* qs2_s = reinterpret_cast<float*>(red_r + 2 * 8 * QTB);        // [QTB]
+    uint64_t* full = reinterpret_cast<uint64_t*>(qs2_s + QTB);           // [STAGES_B]
+    uint64_t* empty = full + STAGES_B;                                   // [STAGES_B]
+
+    const int tid = threadIdx.x;
+    const int n_qt = (B + QTB - 1) / QTB;
+    const int q0 = (int)(blockIdx.x % n_qt) * QTB;
+    const int n_rows = n_tiles * tile_g;
+    const int seg0 = (int)(blockIdx.x / n_qt) * SEG_ROWS;
+    const int n_sub = (min(n_rows, seg0 + SEG_ROWS) - seg0) / RB;  // whole tiles of >= 128 rows
+    if (tid == 0) {
+        for (int s = 0; s < STAGES_B; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full; a 64-lane query box
+        // entirely past D is not loaded, and its products are skipped
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            int s = 0;
+            uint32_t ph = 0;
+            for (int sub = 0; sub < n_sub; ++sub)
+                for (int c = 0; c < n_chunks; ++c) {
+                    const bool two = D - c * sm90::KCHUNK_S8 > sm90::KCHUNK;
+                    sm90::mbar_wait(&empty[s], ph ^ 1);
+                    unsigned char* st = smem + s * STAGE_B;
+                    sm90::mbar_arrive_expect_tx(&full[s], (two ? 2 : 1) * QB_BOX + GB_BOX);
+                    sm90::tma_load_2d(st, &qmap, &full[s], c * sm90::KCHUNK_S8, q0);
+                    if (two) sm90::tma_load_2d(st + QB_BOX, &qmap, &full[s], c * sm90::KCHUNK_S8 + sm90::KCHUNK, q0);
+                    sm90::tma_load_2d(st + 2 * QB_BOX, &gmap, &full[s], c * sm90::KCHUNK_S8, seg0 + sub * RB);
+                    if (++s == STAGES_B) { s = 0; ph ^= 1; }
+                }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int lane = tid & 31, warp = tid >> 5;
+        const int quad = lane & 3;
+        // bytes 2 (quad % 2), + 1 of the word at 4 (quad / 2) and of the word
+        // 8 bytes on: features 2 quad, 2 quad + 1, 8 + 2 quad, 9 + 2 quad of
+        // a 16-feature chunk
+        const uint32_t sel = (quad & 1) ? 0x7632u : 0x5410u;
+        const int word = 4 * (quad >> 1);
+        qs2_s[tid] = q0 + tid < B ? 2.0f * qs[q0 + tid] : 0.0f;  // tid < 256 = QTB
+        sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+        float acc[QTB / 2];
+        float bv = inf();  // consumer thread tid keeps query q0 + tid's (min, row) of the tile
+        int bi = seg0;
+        int s = 0;
+        uint32_t ph = 0;
+        for (int sub = 0; sub < n_sub; ++sub) {
+            const int r0 = seg0 + sub * RB;
+            // the thread's two gallery rows (M) of this sub-tile and their
+            // |g|^2 and s_g, loaded while the products run
+            const int lr = wg * 64 + sm90::acc_row(t, 0);  // row in the sub-tile; the other is lr + 8
+            float g2[2], sg[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                g2[h] = gsq[r0 + lr + 8 * h];
+                sg[h] = gsc[r0 + lr + 8 * h];
+            }
+#pragma unroll
+            for (int i = 0; i < QTB / 2; ++i) acc[i] = 0.0f;
+            for (int c = 0; c < n_chunks; ++c) {
+                sm90::mbar_wait(&full[s], ph);
+                const unsigned char* st = smem + s * STAGE_B;
+                const unsigned char* line = st + 2 * QB_BOX + lr * sm90::LINE_BYTES;  // row lr; row lr + 8 at +1024
+                const int steps = D - c * sm90::KCHUNK_S8 > sm90::KCHUNK ? 8 : 4;
+                // A fragments of the 8 k16 steps: int8 from the swizzled
+                // line (16-byte chunk ks at ks ^ (row % 8)), bf16 in registers
+                uint32_t a[8][4];
+#pragma unroll
+                for (int ks = 0; ks < 8; ++ks) {
+                    if (ks < steps) {
+                        const int off = ((ks ^ (lr & 7)) << 4) + word;
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const uint32_t lo = *reinterpret_cast<const uint32_t*>(line + 1024 * h + off);
+                            const uint32_t hi = *reinterpret_cast<const uint32_t*>(line + 1024 * h + off + 8);
+                            const uint32_t x = __byte_perm(lo, hi, sel);  // features 2q, 2q+1, 8+2q, 9+2q
+                            a[ks][h] = s8x2_to_bf16x2(x, 0);
+                            a[ks][2 + h] = s8x2_to_bf16x2(x, 1);
+                        }
+                    }
+                }
+                sm90::acc_fence(acc);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int ks = 0; ks < 8; ++ks)
+                    if (ks < steps)
+                        sm90::wgmma_m64n256k16_rs(acc, a[ks], sm90::sw128_desc(st + (ks >> 2) * QB_BOX + 32 * (ks & 3)));
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();  // the fragments are rewritten next stage
+                sm90::acc_fence(acc);
+                if (t == 0) sm90::mbar_arrive(&empty[s]);
+                if (++s == STAGES_B) { s = 0; ph ^= 1; }
+            }
+
+            // per query column m = 2 j + c (query 8 j + 2 quad + c): the
+            // (score, row) least of the thread's two rows (rows rise with h)
+            float v[QTB / 4];
+            int r[QTB / 4];
+#pragma unroll
+            for (int j = 0; j < QTB / 8; ++j) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const float qs2 = qs2_s[sm90::acc_col(t, j, c)];
+                    float sc[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        sc[h] = __fsub_rn(g2[h], __fmul_rn(qs2, __fmul_rn(acc[4 * j + 2 * h + c], sg[h])));
+                    const bool second = sc[1] < sc[0];  // a tie keeps the lower row
+                    v[2 * j + c] = second ? sc[1] : sc[0];
+                    r[2 * j + c] = r0 + lr + (second ? 8 : 0);
+                }
+            }
+            // the 8 lanes of a quad residue halve their columns three times
+            // (xor 16, 8, 4): lane l ends with columns 8 (l / 4) .. + 7, the
+            // least over the warp's 16 rows
+#pragma unroll
+            for (int step = 0; step < 3; ++step) {
+                const int off = 16 >> step;
+                const int n = 64 >> step;  // columns held before this step
+                const bool upper = lane & off;
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    if (i < n / 2) {
+                        const float send_v = upper ? v[i] : v[i + n / 2];
+                        const int send_r = upper ? r[i] : r[i + n / 2];
+                        const float ov = __shfl_xor_sync(0xffffffffu, send_v, off);
+                        const int oi = __shfl_xor_sync(0xffffffffu, send_r, off);
+                        float kv = upper ? v[i + n / 2] : v[i];
+                        int kr = upper ? r[i + n / 2] : r[i];
+                        keep_least(kv, kr, ov, oi);
+                        v[i] = kv;
+                        r[i] = kr;
+                    }
+                }
+            }
+            float* rv = red_v + (sub & 1) * 8 * QTB + warp * QTB;  // two buffers: one barrier per sub-tile
+            int* rr = red_r + (sub & 1) * 8 * QTB + warp * QTB;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int m = 8 * (lane >> 2) + i;
+                const int q = 8 * (m >> 1) + 2 * quad + (m & 1);
+                rv[q] = v[i];
+                rr[q] = r[i];
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            // consumer thread tid: query tid, over the 8 warps' rows
+            const float* sv = red_v + (sub & 1) * 8 * QTB;
+            const int* sr = red_r + (sub & 1) * 8 * QTB;
+            float mv = sv[tid];
+            int mr = sr[tid];
+#pragma unroll
+            for (int w = 1; w < 8; ++w) keep_least(mv, mr, sv[w * QTB + tid], sr[w * QTB + tid]);
+            if (mv < bv) { bv = mv; bi = mr; }  // earlier sub-tiles hold the lower rows
+            const int end = r0 + RB;
+            if ((end & (tile_g - 1)) == 0) {  // a tile ends with this sub-tile
+                const int tile = end / tile_g - 1;
+                if (q0 + tid < B) {
+                    out_d[(size_t)(q0 + tid) * n_tiles + tile] = bv;
+                    out_i[(size_t)(q0 + tid) * n_tiles + tile] = bi;
+                }
+                bv = inf();
+                bi = end;
+            }
+        }
+    }
+}
+
+int launch_quant_bf16_sm90(const void* q, const void* qs, const void* g, const void* gsq, const void* gsc,
+                           void* out_d, void* out_i, int B, int n_tiles, int D, int tile_g, void* stream) {
+    if (B <= 0 || n_tiles <= 0 || D <= 0 || D % 16 != 0 || tile_g < RB || tile_g > 1024 ||
+        (tile_g & (tile_g - 1)) != 0 || (long)n_tiles * tile_g > INT32_MAX - SEG_ROWS)
+        return (int)cudaErrorInvalidValue;
+    const long n_rows = (long)n_tiles * tile_g;
+    const long blocks = (long)((B + QTB - 1) / QTB) * ((n_rows + SEG_ROWS - 1) / SEG_ROWS);
+    if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+    CUtensorMap qmap, gmap;
+    int err = sm90::encode_bf16_map(&qmap, q, D, B, (long)D * 2, QTB);
+    if (err == 0) err = sm90::encode_s8_map(&gmap, g, D, n_rows, D, RB);
+    if (err != 0) return err;
+    const int n_chunks = (D + sm90::KCHUNK_S8 - 1) / sm90::KCHUNK_S8;
+    cudaError_t e = cudaFuncSetAttribute(tilemin_quant_bf16_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_B);
+    if (e != cudaSuccess) return (int)e;
+    tilemin_quant_bf16_sm90<<<(unsigned)blocks, sm90::THREADS, SMEM_B, (cudaStream_t)stream>>>(
+        qmap, gmap, (const float*)qs, (const float*)gsq, (const float*)gsc, (float*)out_d, (int32_t*)out_i, B, D,
         n_tiles, tile_g, n_chunks);
     return (int)cudaGetLastError();
 }
@@ -425,21 +758,20 @@ int launch_quant_sm90(const void* q, const void* qs, const void* g, const void* 
 extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, void* out_d,
                               void* out_i, int B, int n_tiles, int D, int tile_g,
                               int bf16_scores, void* stream) {
-    if (bf16_scores)
-        return launch<__nv_bfloat16, 1>(q, nullptr, g, gsq, nullptr, out_d, out_i, B, n_tiles, D, tile_g,
-                                        stream);
-    return launch<__nv_bfloat16, 0>(q, nullptr, g, gsq, nullptr, out_d, out_i, B, n_tiles, D, tile_g, stream);
+    if (bf16_scores) return launch_tilemin<true>(q, g, gsq, out_d, out_i, B, n_tiles, D, tile_g, stream);
+    return launch_tilemin<false>(q, g, gsq, out_d, out_i, B, n_tiles, D, tile_g, stream);
 }
 
-// q: [B, D] int8, qs: [B] fp32 query scales, g: [n_tiles * tile_g, D] int8
-// (D % 16 == 0), gsq/gsc: [>= n_tiles * tile_g] fp32 true |g|^2 and row
-// scales in row order, out_d/out_i as for tilemin_launch. compute_int8: 1
-// for the int32 dot, 0 for bf16 products summed in fp32.
+// q: [B, D] int8 (compute_int8 = 1) or the same values as bf16 (0), qs: [B]
+// fp32 query scales, g: [n_tiles * tile_g, D] int8 (D % 16 == 0), gsq/gsc:
+// [>= n_tiles * tile_g] fp32 true |g|^2 and row scales in row order,
+// out_d/out_i as for tilemin_launch. compute_int8: 1 for the int32 dot, 0
+// for bf16 products summed in fp32.
 extern "C" int tilemin_quant_launch(const void* q, const void* qs, const void* g,
                                     const void* gsq, const void* gsc, void* out_d, void* out_i,
                                     int B, int n_tiles, int D, int tile_g, int compute_int8,
                                     void* stream) {
     if (compute_int8)
         return launch_quant_sm90(q, qs, g, gsq, gsc, out_d, out_i, B, n_tiles, D, tile_g, stream);
-    return launch<signed char, 2>(q, qs, g, gsq, gsc, out_d, out_i, B, n_tiles, D, tile_g, stream);
+    return launch_quant_bf16_sm90(q, qs, g, gsq, gsc, out_d, out_i, B, n_tiles, D, tile_g, stream);
 }

@@ -1,4 +1,4 @@
-// Exact L2 top-k (k <= 16) for Hopper (sm_90a).
+// Exact L2 top-k (1 <= k <= 256) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_topk_kernel` with its `_merge_topk`
 // carry (fast_image_recognition_tpu/ops/distance_kernel.py:92 and :57,
@@ -58,8 +58,28 @@
 // in shared memory. No cp.async/TMA pipelining there.
 //
 // Pass 2 (both): one warp per query merges its n_seg segment lists into
-// the final top-k. K is a compile-time power of two >= k so the lists stay
-// in registers.
+// the final top-k. K is a compile-time power of two >= k; for k <= 16 the
+// lists stay in registers.
+//
+// k > 16 (K = 32 to 256): a register list per thread no longer fits. Each
+// (query, segment) list of K lives in the pass-1 scratch row it ends in;
+// one warp owns it, and per sub-tile the candidates go 32 at a time against
+// the list's last entry (kept in shared memory); only those that beat it
+// are inserted, in (d, row) order, into the list spread over the warp's
+// lanes (`WarpList`). After the first K rows of a segment few candidates
+// pass. bf16: `topk_pass1_sm90_lists`, the bf16 pass's main loop (128
+// queries x an 8192-row segment, 128-row sub-tiles) with this epilogue, a
+// separate kernel so that the k <= 16 kernels keep their text; each
+// consumer warp writes the distances of its 16 accumulator rows to shared
+// memory and merges them into those queries' lists. precise:
+// `topk_pass1_lists`, the precise pass's FFMA structure with the same
+// lists. Pass 2 merges the n_seg lists of a query the same way in one
+// warp.
+//
+// The grid is (query tiles, segments); a gallery of more than 65,535
+// segments is scanned by several launches of at most 65,535 segment rows
+// each (`seg_base`), so rows are limited only by int32, as in the JAX
+// package.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +110,108 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
     }
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+
+// An ascending (d, row) list of K = 32 E entries spread over one warp (lane
+// l holds entries [l E, l E + E)), with its last entry warp-uniform.
+template <int E>
+struct WarpList {
+    float d[E];
+    int i[E];
+    float last_d;
+    int last_i;
+
+    __device__ __forceinline__ void fill_empty() {
+#pragma unroll
+        for (int e = 0; e < E; ++e) { d[e] = BIG_DIST; i[e] = NO_ROW; }
+        last_d = BIG_DIST;
+        last_i = NO_ROW;
+    }
+    __device__ __forceinline__ void load(const float* ld, const int* li) {
+        const int lane = threadIdx.x & 31;
+#pragma unroll
+        for (int e = 0; e < E; ++e) { d[e] = ld[lane * E + e]; i[e] = li[lane * E + e]; }
+        last_d = __shfl_sync(FULL, d[E - 1], 31);
+        last_i = __shfl_sync(FULL, i[E - 1], 31);
+    }
+    __device__ __forceinline__ void store(float* ld, int* li) const {
+        const int lane = threadIdx.x & 31;
+#pragma unroll
+        for (int e = 0; e < E; ++e) { ld[lane * E + e] = d[e]; li[lane * E + e] = i[e]; }
+    }
+    // Inserts the lanes' candidates (cd, ci) where `take`, lowest lane
+    // first; a candidate that no longer beats the last entry is dropped.
+    __device__ __forceinline__ void insert(float cd, int ci, bool take) {
+        const int lane = threadIdx.x & 31;
+        unsigned m = __ballot_sync(FULL, take && before(cd, ci, last_d, last_i));
+        while (m) {
+            const int src = __ffs(m) - 1;
+            m &= m - 1;
+            const float xd = __shfl_sync(FULL, cd, src);
+            const int xi = __shfl_sync(FULL, ci, src);
+            if (!before(xd, xi, last_d, last_i)) continue;  // warp-uniform
+            unsigned lt = 0;
+#pragma unroll
+            for (int e = 0; e < E; ++e) lt += before(d[e], i[e], xd, xi);
+            const int pos = (int)__reduce_add_sync(FULL, lt);  // entries before (xd, xi)
+            const float pd = __shfl_up_sync(FULL, d[E - 1], 1);
+            const int pi = __shfl_up_sync(FULL, i[E - 1], 1);
+#pragma unroll
+            for (int e = E - 1; e >= 0; --e) {  // shift the entries at >= pos one up
+                const int p = lane * E + e;
+                if (p > pos) {
+                    if (e > 0) { d[e] = d[e - 1]; i[e] = i[e - 1]; }
+                    else { d[e] = pd; i[e] = pi; }
+                } else if (p == pos) {
+                    d[e] = xd; i[e] = xi;
+                }
+            }
+            last_d = __shfl_sync(FULL, d[E - 1], 31);
+            last_i = __shfl_sync(FULL, i[E - 1], 31);
+        }
+    }
+};
+
+// One warp merges the candidates j < n, cand(j) -> (d, row) with rows
+// rising in j, into the list of K in global memory at (ld, li) that it
+// owns; (*last_d, *last_i), in shared memory, is the list's last entry.
+// The list is read (and written back) only if a candidate beats it.
+template <int K, typename Cand>
+__device__ __forceinline__ void warp_merge(float* ld, int* li, float* last_d, int* last_i, int n, Cand cand) {
+    const int lane = threadIdx.x & 31;
+    WarpList<K / 32> list;
+    list.last_d = *last_d;
+    list.last_i = *last_i;
+    bool loaded = false;
+    for (int base = 0; base < n; base += 32) {
+        const int j = base + lane;
+        float cd = BIG_DIST;
+        int ci = NO_ROW;
+        if (j < n) cand(j, cd, ci);
+        const bool take = j < n && before(cd, ci, list.last_d, list.last_i);
+        if (!__any_sync(FULL, take)) continue;
+        if (!loaded) {
+            list.load(ld, li);
+            loaded = true;
+        }
+        list.insert(cd, ci, take);
+    }
+    if (loaded) {
+        list.store(ld, li);
+        if (lane == 0) { *last_d = list.last_d; *last_i = list.last_i; }
+    }
+    __syncwarp();
+}
+
+// One warp fills the list of K at (ld, li) and its last entry with empty
+// slots.
+template <int K>
+__device__ __forceinline__ void warp_fill_empty(float* ld, int* li, float* last_d, int* last_i) {
+    for (int e = threadIdx.x & 31; e < K; e += 32) { ld[e] = BIG_DIST; li[e] = NO_ROW; }
+    if ((threadIdx.x & 31) == 0) { *last_d = BIG_DIST; *last_i = NO_ROW; }
+    __syncwarp();
+}
+
 // ---- bf16: topk_pass1_sm90 ----
 
 constexpr int QT = 128;         // queries per block: two consumer warpgroups of 64
@@ -114,15 +236,16 @@ __device__ __forceinline__ float dist(float qsq, float gsq, float cross) {
     return fmaxf(__fsub_rn(__fadd_rn(qsq, gsq), __fmul_rn(2.0f, cross)), 0.0f);
 }
 
-// grid (query tiles, segments); 384 threads: warpgroups 0-1 consume, 2
-// produces. qmap: queries [B, end - base] (from lane base = start & ~7),
-// boxes [128 x 64]; gmap: rows [n_valid, end - base], boxes [BN x 64].
-// lead = start - base lanes of the first chunk are outside the window.
+// grid (query tiles, segments from seg_base); 384 threads: warpgroups 0-1
+// consume, 2 produces. qmap: queries [B, end - base] (from lane base =
+// start & ~7), boxes [128 x 64]; gmap: rows [n_valid, end - base], boxes
+// [BN x 64]. lead = start - base lanes of the first chunk are outside the
+// window.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                 const uint8_t* __restrict__ row_mask, float* __restrict__ part_d, int* __restrict__ part_i,
-                int B, int n_valid, int n_seg, int n_chunks, int lead) {
+                int B, int n_valid, int n_seg, int n_chunks, int lead, int seg_base) {
     using T = Bf16Tile<K>;
     constexpr int BN = T::BN;
     extern __shared__ unsigned char smem_raw[];
@@ -134,7 +257,7 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * QT;
-    const int seg = blockIdx.y;
+    const int seg = seg_base + blockIdx.y;
     const int seg0 = seg * SEG_ROWS;
     const int seg1 = min(n_valid, seg0 + SEG_ROWS);
     if (row_mask != nullptr) {
@@ -319,6 +442,186 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     }
 }
 
+// ---- bf16, k > 16: topk_pass1_sm90_lists ----
+
+constexpr int SEG_LISTS = 8192;  // gallery rows per block for k > 16
+
+// A separate kernel, so that topk_pass1_sm90 keeps its text: the same
+// producer and main loop at BN = 128, one block per (128 queries, 8192-row
+// segment); each consumer warp owns the 16 query rows of its accumulator
+// fragment. Per sub-tile a warp writes its rows' distances to its own
+// [16 x DLD] slice of shared memory and merges them into its queries'
+// lists of K in the pass-1 scratch (warp_merge), so no warp waits for
+// another beyond the |g|^2 barrier.
+struct ListTile {
+    static constexpr int BN = 128;
+    static constexpr int DLD = BN + 8;  // a warp's 8-byte stores are conflict-free per half-warp
+    static constexpr int Q_BYTES = QT * sm90::LINE_BYTES;
+    static constexpr int STAGE_BYTES = Q_BYTES + BN * sm90::LINE_BYTES;
+    static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+    // ring, |g|^2 of two sub-tiles, |q|^2, the distance tile, the lists'
+    // last entries, full[] and empty[] barriers
+    static constexpr size_t SMEM =
+        sm90::SMEM_ALIGN + RING_BYTES + (2 * BN + QT + QT * DLD + 2 * QT) * 4 + 2 * STAGES * 8;
+};
+
+template <int K>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                      const uint8_t* __restrict__ row_mask, float* __restrict__ part_d, int* __restrict__ part_i,
+                      int B, int n_valid, int n_seg, int n_chunks, int lead, int seg_base) {
+    using T = ListTile;
+    constexpr int BN = T::BN;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    float* gsq_s = reinterpret_cast<float*>(smem + T::RING_BYTES);  // [2][BN]
+    float* qsq_s = gsq_s + 2 * BN;                                   // [QT]
+    float* d_s = qsq_s + QT;                                         // [QT][DLD]
+    float* last_d_s = d_s + QT * T::DLD;                             // [QT]
+    int* last_i_s = reinterpret_cast<int*>(last_d_s + QT);           // [QT]
+    uint64_t* full = reinterpret_cast<uint64_t*>(last_i_s + QT);     // [STAGES]
+    uint64_t* empty = full + STAGES;                                 // [STAGES]
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QT;
+    const int seg = seg_base + blockIdx.y;
+    const int seg0 = seg * SEG_LISTS;
+    const int seg1 = min(n_valid, seg0 + SEG_LISTS);
+    if (row_mask != nullptr) {
+        const int qi = q0 + tid;
+        // a block whose queries are all masked out has nothing to do
+        if (!__syncthreads_or(tid < QT && qi < B && row_mask[qi])) return;
+    }
+    const int n_sub = (seg1 - seg0 + BN - 1) / BN;
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            int s = 0;
+            uint32_t ph = 0;
+            for (int sub = 0; sub < n_sub; ++sub) {
+                for (int c = 0; c < n_chunks; ++c) {
+                    sm90::mbar_wait(&empty[s], ph ^ 1);
+                    unsigned char* st = smem + s * T::STAGE_BYTES;
+                    sm90::mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
+                    sm90::tma_load_2d(st, &qmap, &full[s], c * sm90::KCHUNK, q0);
+                    sm90::tma_load_2d(st + T::Q_BYTES, &gmap, &full[s], c * sm90::KCHUNK, seg0 + sub * BN);
+                    if (++s == STAGES) { s = 0; ph ^= 1; }
+                }
+            }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int lane = tid & 31;
+        // |g|^2: half a line of row tid / 2; |q|^2: half a line of query row tid / 2
+        constexpr int G_CHUNKS = 8 * BN / sm90::CONSUMERS;
+        const int g_row = tid * BN / sm90::CONSUMERS;
+        const int g_c0 = (tid * G_CHUNKS) % 8;
+        const int q_row = tid >> 1, q_c0 = (tid & 1) * 4;
+        // this warp's 16 query rows (its accumulator rows) and their lists
+        const int ql0 = (tid >> 5) * 16, ql1 = min(ql0 + 16, B - q0);
+        float* dw = d_s + ql0 * T::DLD;
+        for (int ql = ql0; ql < ql1; ++ql) {
+            const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+            warp_fill_empty<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql);
+        }
+
+        float acc[BN / 2];
+        float qsq[2] = {0.0f, 0.0f};
+        int s = 0, prev = 0;
+        uint32_t ph = 0;
+        for (int sub = 0; sub < n_sub; ++sub) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+            float gpart = 0.0f, qpart = 0.0f;
+            for (int c = 0; c < n_chunks; ++c) {
+                sm90::mbar_wait(&full[s], ph);
+                unsigned char* st = smem + s * T::STAGE_BYTES;
+                const unsigned char* qa = st + wg * 64 * sm90::LINE_BYTES;
+                if (c == 0 && lead > 0) {
+                    // zero this warpgroup's query lanes below the window
+                    if (t < 64) {
+                        const int r = wg * 64 + t;
+                        uint4* v = reinterpret_cast<uint4*>(st + r * sm90::LINE_BYTES + ((r & 7) << 4));
+                        uint4 x = *v;
+                        uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+                        for (int e = 0; e < 8; ++e)
+                            if (e < lead) w[e >> 1] &= (e & 1) ? 0x0000FFFFu : 0xFFFF0000u;
+                        *v = make_uint4(w[0], w[1], w[2], w[3]);
+                    }
+                    sm90::fence_proxy_async();
+                    sm90::named_bar_sync(2 + wg, sm90::WG_THREADS);
+                }
+                sm90::acc_fence(acc);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < sm90::KCHUNK / 16; ++kk)
+                    sm90::wgmma_m64n128k16(acc, sm90::sw128_desc(qa + 32 * kk),
+                                           sm90::sw128_desc(st + T::Q_BYTES + 32 * kk));
+                sm90::wgmma_commit();
+                // the norms, while the products run
+                gpart += sm90::line_sq<G_CHUNKS>(st + T::Q_BYTES, g_row, g_c0, c == 0 ? lead : 0);
+                if (sub == 0) qpart += sm90::line_sq<4>(st, q_row, q_c0, 0);
+                sm90::wgmma_wait<1>();
+                sm90::acc_fence(acc);
+                if (c > 0 && t == 0) sm90::mbar_arrive(&empty[prev]);
+                prev = s;
+                if (++s == STAGES) { s = 0; ph ^= 1; }
+            }
+            sm90::wgmma_wait<0>();
+            sm90::acc_fence(acc);
+            if (t == 0) sm90::mbar_arrive(&empty[prev]);
+
+            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            gpart += __shfl_xor_sync(FULL, gpart, 1);
+            if ((tid & 1) == 0) gbuf[g_row] = gpart;
+            if (sub == 0) {
+                qpart += __shfl_xor_sync(FULL, qpart, 1);
+                if ((tid & 1) == 0) qsq_s[q_row] = qpart;
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            if (sub == 0) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) qsq[h] = qsq_s[wg * 64 + sm90::acc_row(t, h)];
+            }
+            const int r0 = seg0 + sub * BN;
+            const int lim = min(seg1 - r0, BN);  // columns >= lim are past the segment or n_valid
+            // this warp's 16 rows of distances, then its lists
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+                const int col = sm90::acc_col(t, j, 0);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float2 d = make_float2(dist(qsq[h], gbuf[col], acc[4 * j + 2 * h]),
+                                                 dist(qsq[h], gbuf[col + 1], acc[4 * j + 2 * h + 1]));
+                    *reinterpret_cast<float2*>(dw + (((lane >> 2) + 8 * h) * T::DLD + col)) = d;
+                }
+            }
+            __syncwarp();
+            for (int ql = ql0; ql < ql1; ++ql) {
+                const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+                const float* dq = d_s + ql * T::DLD;
+                warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
+                              [&](int r, float& cd, int& ci) { cd = dq[r]; ci = r0 + r; });
+            }
+        }
+    }
+}
+
 // ---- precise: topk_pass1_precise (fp32, CUDA cores) ----
 
 constexpr int QB = 64;              // queries per block
@@ -446,7 +749,7 @@ template <int K, typename GT>
 __global__ void __launch_bounds__(THREADS)
 topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
                    float* __restrict__ part_d, int* __restrict__ part_i, int B, int N,
-                   int n_valid, int D, int n_seg, int start, int end) {
+                   int n_valid, int D, int n_seg, int start, int end, int seg_base) {
     extern __shared__ __align__(128) unsigned char smem[];
     float* q_s = reinterpret_cast<float*>(smem);          // [KP][QLD]
     float* g_s = q_s + KP * QLD;                          // [KP][GLD]
@@ -456,7 +759,7 @@ topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
 
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * QB;
-    const int seg = blockIdx.y;
+    const int seg = seg_base + blockIdx.y;
     const long seg0 = (long)seg * SEG_PRECISE;
     const long seg1 = min((long)n_valid, seg0 + SEG_PRECISE);
     // product: rows tr*8 .. +8 against queries tq*4 .. +4
@@ -513,6 +816,97 @@ topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
     emit_segment<K>(smem, bd, bi, eq, ep, q0, B, seg, n_seg, part_d, part_i);
 }
 
+
+// ---- precise, k > 16: topk_pass1_lists (fp32 queries, CUDA cores) ----
+
+// The precise pass's product (64-query block, 8192-row segment, 128-row
+// sub-tiles, 8 x 4 register blocks of FFMA) over fp32 queries and GT rows;
+// each (query, segment) top-K is a list of K in part_d/part_i that the
+// warp owning the query merges each sub-tile into (warp_merge). Its own
+// copy of the product loop: the precise pass calling a shared helper ran
+// ~5 % slower on the card.
+template <int K, typename GT>
+__global__ void __launch_bounds__(THREADS)
+topk_pass1_lists(const float* __restrict__ q, const GT* __restrict__ g, float* __restrict__ part_d,
+                 int* __restrict__ part_i, int B, int N, int n_valid, int D, int n_seg, int start, int end,
+                 int seg_base) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* q_s = reinterpret_cast<float*>(smem);           // [KP][QLD]
+    float* g_s = q_s + KP * QLD;                           // [KP][GLD]
+    float* acc_s = g_s + KP * GLD;                         // [RB][ACC_LD]
+    float* qsq_s = acc_s + RB * ACC_LD;                    // [QB]
+    float* gsq_s = qsq_s + QB;                             // [RB]
+    float* last_d_s = gsq_s + RB;                          // [QB] the lists' last entries
+    int* last_i_s = reinterpret_cast<int*>(last_d_s + QB);  // [QB]
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QB;
+    const int seg = seg_base + blockIdx.y;
+    const long seg0 = (long)seg * SEG_PRECISE;
+    const long seg1 = min((long)n_valid, seg0 + SEG_PRECISE);
+    // product: rows tr*8 .. +8 against queries tq*4 .. +4
+    const int tr = tid / 16, tq = tid % 16;
+    constexpr int QPER = QB * KP / 4 / THREADS;                  // q is always fp32
+    constexpr int GPER = RB * (KP / (16 / sizeof(GT))) / THREADS;
+    constexpr int QPW = QB / (THREADS / 32);  // queries whose lists a warp owns
+    const int warp = tid >> 5;
+    const int ql0 = warp * QPW, ql1 = min(ql0 + QPW, B - q0);
+
+    for (int ql = ql0; ql < ql1; ++ql) {
+        const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+        warp_fill_empty<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql);
+    }
+    for (long r0 = seg0; r0 < seg1; r0 += RB) {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        float qpart[QPER], gpart[GPER];
+#pragma unroll
+        for (int j = 0; j < QPER; ++j) qpart[j] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < GPER; ++j) gpart[j] = 0.0f;
+
+        for (int k0 = start / KP * KP; k0 < end; k0 += KP) {
+            stage_kmajor<float, QB>(q, q0, B, D, k0, start, end, q_s, QLD, qpart);
+            stage_kmajor<GT, RB>(g, r0, N, D, k0, start, end, g_s, GLD, gpart);
+            __syncthreads();
+#pragma unroll 8
+            for (int kk = 0; kk < KP; ++kk) {
+                const float4 a0 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8);
+                const float4 a1 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8 + 4);
+                const float4 b = *reinterpret_cast<const float4*>(q_s + kk * QLD + tq * 4);
+                const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+                const float bb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+            }
+            __syncthreads();  // staging buffers are rewritten next chunk
+        }
+        reduce_norms<float, QB>(qpart, qsq_s);
+        reduce_norms<GT, RB>(gpart, gsq_s);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc_s[(tr * 8 + i) * ACC_LD + tq * 4 + j] = acc[i][j];
+        __syncthreads();
+        // each warp merges the sub-tile's rows into its QPW lists
+        const int n = (int)min((long)RB, seg1 - r0);
+        for (int ql = ql0; ql < ql1; ++ql) {
+            const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+            const float qsq = qsq_s[ql];
+            warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, n, [&](int r, float& cd, int& ci) {
+                cd = dist(qsq, gsq_s[r], acc_s[r * ACC_LD + ql]);
+                ci = (int)(r0 + r);
+            });
+        }
+        __syncthreads();  // acc_s / norms are rewritten by the next sub-tile
+    }
+}
+
 // One warp per query merges its n_seg lists: each lane inserts every
 // 32nd list, then the 32 lane lists merge over a shuffle butterfly.
 template <int K>
@@ -556,6 +950,41 @@ __global__ void topk_pass2(const float* __restrict__ part_d, const int* __restri
     }
 }
 
+// k > 16: one warp per query merges its n_seg lists of K (each ascending)
+// into one list spread over its lanes.
+template <int K>
+__global__ void topk_pass2_lists(const float* __restrict__ part_d, const int* __restrict__ part_i,
+                                 const uint8_t* __restrict__ row_mask, float* __restrict__ out_d,
+                                 int32_t* __restrict__ out_i, int B, int n_seg, int k) {
+    constexpr int E = K / 32;
+    const int lane = threadIdx.x & 31;
+    const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (qi >= B) return;  // the whole warp
+    WarpList<E> list;
+    list.fill_empty();
+    if (row_mask == nullptr || row_mask[qi]) {
+        for (int s = 0; s < n_seg; ++s) {
+            const size_t o = ((size_t)qi * n_seg + s) * K;
+            for (int base = 0; base < K; base += 32) {
+                const float cd = part_d[o + base + lane];
+                const int ci = part_i[o + base + lane];
+                const bool take = before(cd, ci, list.last_d, list.last_i);
+                // the segment's list rises: once no lane beats the last entry, none after will
+                if (!__any_sync(FULL, take)) break;
+                list.insert(cd, ci, take);
+            }
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int p = lane * E + e;
+        if (p < k) {
+            out_d[(size_t)qi * k + p] = list.d[e];
+            out_i[(size_t)qi * k + p] = list.i[e] == NO_ROW ? -1 : list.i[e];
+        }
+    }
+}
+
 struct Args {
     const void* q;
     const void* g;
@@ -566,11 +995,19 @@ struct Args {
 
 constexpr int PASS2_WARPS = 8;
 
+constexpr int MAX_GRID_Y = 65535;  // segments per pass-1 launch
+
 template <int K>
 int launch_pass2(const Args& a, cudaStream_t stream) {
-    topk_pass2<K><<<(a.B + PASS2_WARPS - 1) / PASS2_WARPS, 32 * PASS2_WARPS, 0, stream>>>(
-        (const float*)a.part_d, (const int*)a.part_i, a.row_mask, (float*)a.out_d, (int32_t*)a.out_i, a.B,
-        a.n_seg, a.k);
+    const int blocks = (a.B + PASS2_WARPS - 1) / PASS2_WARPS;
+    if constexpr (K > 16)
+        topk_pass2_lists<K><<<blocks, 32 * PASS2_WARPS, 0, stream>>>(
+            (const float*)a.part_d, (const int*)a.part_i, a.row_mask, (float*)a.out_d, (int32_t*)a.out_i, a.B,
+            a.n_seg, a.k);
+    else
+        topk_pass2<K><<<blocks, 32 * PASS2_WARPS, 0, stream>>>(
+            (const float*)a.part_d, (const int*)a.part_i, a.row_mask, (float*)a.out_d, (int32_t*)a.out_i, a.B,
+            a.n_seg, a.k);
     return (int)cudaGetLastError();
 }
 
@@ -590,47 +1027,107 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((a.B + QT - 1) / QT, a.n_seg);
-    topk_pass1_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-        qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
-        a.start - base);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+            qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
+            a.start - base, sb);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
     return launch_pass2<K>(a, stream);
 }
 
 template <int K, typename GT>
 int launch_precise(const Args& a, cudaStream_t stream) {
     static_assert((size_t)PHASES * QB * K * 8 <= SMEM_P, "merge lists must fit the staging buffers");
-    const dim3 grid1((a.B + QB - 1) / QB, a.n_seg);
     cudaError_t err = cudaFuncSetAttribute(topk_pass1_precise<K, GT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_P);
     if (err != cudaSuccess) return (int)err;
-    topk_pass1_precise<K, GT><<<grid1, THREADS, SMEM_P, stream>>>(
-        (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
-        a.n_seg, a.start, a.end);
-    err = cudaGetLastError();
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid1((a.B + QB - 1) / QB, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_precise<K, GT><<<grid1, THREADS, SMEM_P, stream>>>(
+            (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
+            a.n_seg, a.start, a.end, sb);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return launch_pass2<K>(a, stream);
+}
+
+// precise, k > 16: fp32 queries against GT rows.
+template <int K, typename GT>
+int launch_lists(const Args& a, cudaStream_t stream) {
+    constexpr size_t smem = SMEM_P + QB * 8;  // + the lists' last entries
+    cudaError_t err = cudaFuncSetAttribute(topk_pass1_lists<K, GT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid1((a.B + QB - 1) / QB, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_lists<K, GT><<<grid1, THREADS, smem, stream>>>(
+            (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
+            a.n_seg, a.start, a.end, sb);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return launch_pass2<K>(a, stream);
+}
+
+// bf16, k > 16: topk_pass1_sm90_lists, then the list merge.
+template <int K>
+int launch_bf16_lists(const Args& a, cudaStream_t stream) {
+    using T = ListTile;
+    // both maps start at the 8-lane (16-byte) boundary below the window
+    const int base = a.start & ~7;
+    const long cols = a.end - base;
+    CUtensorMap qmap, gmap;
+    int err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.q + base, cols, a.B, (long)a.D * 2, QT);
+    if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid, (long)a.D * 2,
+                                              T::BN);
+    if (err != 0) return err;
+    const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
+    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90_lists<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_sm90_lists<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+            qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
+            a.start - base, sb);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
     return launch_pass2<K>(a, stream);
 }
 
 // PRECISE: fp32 queries against GT rows on the CUDA cores; otherwise bf16
-// on the tensor cores (GT unused).
+// on the tensor cores (GT unused). k > 16 on the list kernels.
 template <int K, bool PRECISE, typename GT>
 int launch(const Args& a, cudaStream_t stream) {
-    if constexpr (PRECISE) return launch_precise<K, GT>(a, stream);
-    else return launch_bf16<K>(a, stream);
+    if constexpr (K > 16) {
+        if constexpr (PRECISE) return launch_lists<K, GT>(a, stream);
+        else return launch_bf16_lists<K>(a, stream);
+    } else if constexpr (PRECISE) {
+        return launch_precise<K, GT>(a, stream);
+    } else {
+        return launch_bf16<K>(a, stream);
+    }
 }
 
-int list_len(int k) { return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
-int segment_rows(bool precise) { return precise ? SEG_PRECISE : SEG_ROWS; }
+constexpr int MAX_K = 256;
+int list_len(int k) {
+    int n = 1;
+    while (n < k) n *= 2;
+    return n;
+}
+int segment_rows(bool precise, int k) { return precise ? SEG_PRECISE : k > 16 ? SEG_LISTS : SEG_ROWS; }
 
 template <bool PRECISE, typename GT>
 int dispatch(const Args& a, void* stream) {
-    const int seg = segment_rows(PRECISE);
-    if (a.B <= 0 || a.N <= 0 || a.n_valid <= 0 || a.n_valid > a.N || a.D <= 0 || a.D % 8 != 0 ||
-        a.k < 1 || a.k > 16 || a.n_seg != (a.n_valid + seg - 1) / seg || a.n_seg > 65535 ||
-        a.start < 0 || a.start >= a.end || a.end > a.D)
+    const int seg = segment_rows(PRECISE, a.k);
+    if (a.B <= 0 || a.N <= 0 || a.n_valid <= 0 || a.n_valid > a.N || a.n_valid > INT32_MAX - seg || a.D <= 0 ||
+        a.D % 8 != 0 || a.k < 1 || a.k > MAX_K || a.n_seg != (a.n_valid + seg - 1) / seg || a.start < 0 ||
+        a.start >= a.end || a.end > a.D)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (list_len(a.k)) {
@@ -638,14 +1135,19 @@ int dispatch(const Args& a, void* stream) {
         case 2: return launch<2, PRECISE, GT>(a, s);
         case 4: return launch<4, PRECISE, GT>(a, s);
         case 8: return launch<8, PRECISE, GT>(a, s);
-        default: return launch<16, PRECISE, GT>(a, s);
+        case 16: return launch<16, PRECISE, GT>(a, s);
+        case 32: return launch<32, PRECISE, GT>(a, s);
+        case 64: return launch<64, PRECISE, GT>(a, s);
+        case 128: return launch<128, PRECISE, GT>(a, s);
+        default: return launch<256, PRECISE, GT>(a, s);
     }
 }
 
 }  // namespace
 
-// Gallery rows per pass-1 block (one [B, n_seg, K] scratch entry each).
-extern "C" int topk_l2_segment_rows(int precise) { return segment_rows(precise != 0); }
+// Gallery rows per pass-1 block (one [B, n_seg, K] scratch entry each) for
+// this mode and k.
+extern "C" int topk_l2_segment_rows(int precise, int k) { return segment_rows(precise != 0, k); }
 
 // Queries per bf16 pass-1 block: a row mask skips the blocks without a
 // masked one (the precise pass takes no row mask).
@@ -654,6 +1156,9 @@ extern "C" int topk_l2_query_rows() { return QT; }
 // Scratch size of K (the power of two >= k) the caller allocates per
 // (query, segment) for pass 1.
 extern "C" int topk_l2_list_len(int k) { return list_len(k); }
+
+// The largest k the kernels take.
+extern "C" int topk_l2_max_k() { return MAX_K; }
 
 // q: [B, D] bf16, g: [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0;
 // both 16-byte aligned), row_mask: [B] uint8 or null (queries with 0 come

@@ -443,9 +443,10 @@ def topk_l2(
     ``precise``): query rows where it is False come back empty
     ``(BIG_DIST / width, -1)``, and on the card the kernel skips query
     blocks without a True, so a mask that is all False costs one launch
-    and no scan (and no host sync)."""
-    if not 1 <= k <= 16:
-        raise NotImplementedError(f"topk_l2 supports 1 <= k <= 16, got k={k}")
+    and no scan (and no host sync). Any k >= 1 on the CPU; on the card up
+    to ``build.TOPK_MAX_K`` (256)."""
+    if k < 1:
+        raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     d = queries.shape[1]
     start, end = (0, d) if window is None else (int(window[0]), int(window[1]))

@@ -129,9 +129,10 @@ def test_ctypes_bindings_match_the_c_launchers():
         "mbconv_expand_dw_launch": 19,
         "mbconv_se_project_launch": 17,
         "chi2_launch": 8,
-        "topk_l2_segment_rows": 1,
+        "topk_l2_segment_rows": 2,
         "topk_l2_query_rows": 0,
         "topk_l2_list_len": 1,
+        "topk_l2_max_k": 0,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()

@@ -1,0 +1,127 @@
+"""The port's exact top-k for k > 16 (``topk_l2``, bf16, ``precise=True``
+and a feature window; on the CPU its plain version) against the JAX
+package's ``topk_l2`` (its Pallas kernel in interpret mode) on the same
+numpy-seeded inputs, and the card kernels' argument rules, which need no
+card: any augmented width for the packed scans, tile and segment counts
+past 65,535, k up to 256.
+
+The gallery (4,096 x 64) holds 512 exact duplicates, so that equal
+distances occur and ties must go to the lowest row on both sides.
+Tolerances:
+- bf16: both sides take bf16 x bf16 products summed in fp32, in another
+  order: distances within 2^-12 relative;
+- ``precise=True``: a true fp32 dot on both sides, in another order: raw
+  squared distances within 2^-16 absolute;
+- indices equal except where the two rows' distances, recomputed in
+  float64 from the values both sides scan, tie within that tolerance (a
+  duplicate of a row ties with it exactly).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fast_image_recognition_tpu.ops.distance_kernel as J
+import fast_image_recognition_tpu_torch.ops.distance_kernel as P
+from fast_image_recognition_tpu_torch.kernels import build
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
+N, DIM, B = 4096, 64, 6
+WINDOW = (5, 61)
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(17)
+    g = _unit(rng.standard_normal((N, DIM)))
+    g[2048:2560] = g[:512]  # exact duplicates: rows r and r + 2048 tie
+    q = _unit(g[rng.integers(0, 512, B)] + 0.5 * rng.standard_normal((B, DIM)) / np.sqrt(DIM))
+    return q, g
+
+
+def _rescored(q, g, rows, lo, hi):
+    """float64 squared distances of ``rows`` [B, k] over lanes [lo, hi)."""
+    d = g[rows][:, :, lo:hi] - q[:, None, lo:hi]
+    return (d * d).sum(axis=2)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "precise", "window"])
+@pytest.mark.parametrize("k", [17, 24, 40])
+def test_topk_l2_large_k_matches_jax(data, k, mode):
+    q, g = data
+    kw = dict(precise=True) if mode == "precise" else dict(window=WINDOW) if mode == "window" else {}
+    lo, hi = WINDOW if mode == "window" else (0, DIM)
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, **kw))
+    pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k, **kw))
+    assert pd.shape == pi.shape == (B, k) and pi.dtype == np.int32
+    assert ((pi >= 0) & (pi < N)).all() and all(len(set(r)) == k for r in pi)
+    assert (np.diff(pd, axis=1) >= 0).all()
+    width = hi - lo
+    # both sides scan bf16 rows; the bf16 mode's queries are bf16 too
+    gb = torch.from_numpy(g).to(torch.bfloat16).double().numpy()
+    qs = q.astype(np.float64) if mode == "precise" else torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    if mode == "precise":
+        tol = np.full_like(jd, 2.0**-16, dtype=np.float64)  # on the raw squared distance
+        np.testing.assert_array_less(np.abs(pd - jd) * width, tol)
+    else:
+        tol = 2.0**-12 * np.abs(jd) * width
+        np.testing.assert_allclose(pd, jd, rtol=2.0**-12, atol=0)
+    dp, dj = _rescored(qs, gb, pi, lo, hi), _rescored(qs, gb, ji, lo, hi)
+    differ = pi != ji
+    assert (np.abs(dp - dj)[differ] <= tol[differ]).all()
+    # every returned row sits at the distance returned for it
+    assert (np.abs(dp - pd * width) <= np.maximum(tol, 1e-6)).all()
+    # a duplicate ties with its original exactly: where one of them is
+    # returned, the lower row is too, and comes first
+    for row in pi:
+        pos = {r: j for j, r in enumerate(row)}
+        assert all(r - 2048 in pos and pos[r - 2048] < pos[r] for r in row if 2048 <= r < 2560)
+
+
+def test_packed_scan_checks_take_any_width():
+    """The packed scans take any Da % 16 == 0 (the queries stream through
+    the ring above 640) and any tile count."""
+    for da in (640, 768, 832, 1536):
+        assert build.packed_scan_tiles((1024, da), (1024 * 1024, da), 1024) == 1024
+    assert build.packed_scan_tiles((192, 768), (70_000 * 128, 768), 128) == 70_000
+    for bad in [((8, 760), (1024, 760), 1024), ((8, 768), (1000, 768), 1024), ((8, 768), (1024, 640), 1024),
+                ((8, 768), (1024, 768), 64)]:
+        with pytest.raises(ValueError):
+            build.packed_scan_tiles(*bad)
+
+
+def test_tile_scan_checks_take_more_than_65535_tiles():
+    assert build.tile_scan_tiles((1024, 128), (70_000 * 128, 128), 8, 128) == 70_000
+    assert build.tile_scan_tiles((1, 16), (70_000 * 2048, 16), 16, 1024) == 140_000  # > 65,535 segments of 2,048
+    assert build.tile_scan_tiles((64, 1536), (1024 * 1024, 1536), 16, 1024) == 1024
+    with pytest.raises(ValueError):
+        build.tile_scan_tiles((1, 16), (2**31, 16), 16, 1024)  # past int32 rows
+    with pytest.raises(ValueError):
+        build.tile_scan_tiles((1, 24), (1024, 24), 16, 1024)  # int8 rows of 16-byte vectors
+
+
+def test_topk_checks_take_k_256_and_more_than_65535_segments():
+    n = 65_536 * 2048 + 5  # 65,537 segments of 2,048 rows
+    assert build.topk_l2_args((1024, 64), (n, 64), 256, n, None) == (0, 64)
+    assert build.topk_l2_args((3, 64), (70_000, 64), 17, 70_000, (5, 61)) == (5, 61)
+    for k in (0, build.TOPK_MAX_K + 1):
+        with pytest.raises(ValueError):
+            build.topk_l2_args((3, 64), (4096, 64), k, 4096, None)
+
+
+@pytest.mark.parametrize("precise,k", [(False, 1), (False, 16), (False, 17), (True, 1), (True, build.TOPK_MAX_K)])
+def test_topk_checks_stop_at_int32_rows_less_one_segment(precise, k):
+    """The card-free rules refuse exactly what the launcher refuses: rows
+    past int32 less one pass-1 segment of the mode (2,048 rows for the
+    bf16 register lists, 8,192 for ``precise`` and for k > 16)."""
+    seg = build.topk_l2_segment_rows_for(precise, k)
+    assert seg == (8192 if precise or k > 16 else 2048)
+    n = 2**31 - 1 - seg
+    assert build.topk_l2_args((4, 8), (n, 8), k, n, None, precise) == (0, 8)
+    with pytest.raises(ValueError):
+        build.topk_l2_args((4, 8), (n + 1, 8), k, n + 1, None, precise)
