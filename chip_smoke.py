@@ -13,9 +13,12 @@ bf16, the min-2 and single-min packed scans, and the bf16 and int8 tile
 scans, batches around their 128- and 256-query tiles, n_valid below and
 across their gallery sub-tiles, 64-lane and 128-byte chunks, tile_g 128
 to 1024, windows and row masks; ``topk_l2`` at k = 17, 64 and 256, bf16
-and precise; the packed scans at augmented widths 768, 832 and 1,536,
-where their queries stream; galleries past the old caps of 65,535
-blocks), and drives, each with its own launch counts:
+and precise (over bf16 rows the split precise pass, three bf16 ``wgmma``
+products); ``topk_l2`` at k = 257 and 600, past one launch, in slabs; the
+packed scans at augmented widths 768, 832 and 1,536, where their queries
+stream; galleries past the old caps of 65,535 blocks), checks that the
+host's mirrors of the kernels' sizes agree with the libraries, and
+drives, each with its own launch counts:
 
 - the main serving path at full width (bench.py's plain e2e line:
   EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
@@ -44,9 +47,10 @@ blocks), and drives, each with its own launch counts:
   scan, a feature-window scan of it, and ``--quant``: the int8 scan with
   exact rescore, ``compute`` int8 and bf16;
 - the opt-in fused MBConv forward (``make_infer_fn(fused=True,
-  space_to_depth=True)``): the fused block kernel against its plain
-  version at each of B0's twelve stride-1 blocks, fed the per-op forward's
-  activations, and at edge shapes (batches of 1 and 130, an odd plane,
+  space_to_depth=True)``): the fused block kernel (one launch a block)
+  against its plain version at each of B0's twelve stride-1 blocks, fed
+  the per-op forward's activations, timed beside the per-op block, and at
+  edge shapes (batches of 1 and 130, an odd plane,
   relu6, no SE, no expand, k=7, an inflated expand bias); the
   space-to-depth stem against the plain stem at fp32; and the plain
   line's service on the fused module, its embedding held against the
@@ -79,7 +83,7 @@ import sys
 import time
 
 T0 = time.time()
-BUDGET_S = 300.0  # a run takes one to two minutes of command time
+BUDGET_S = 300.0  # a run takes about three and a half minutes of command time
 CKPT = os.path.join("benchmarks", "trained_b0_224_synthetic1024_s0.npz")
 GALLERY = 1_000_000
 IDENTITIES = 4096
@@ -102,7 +106,7 @@ PEAK_HBM_BYTES = 3.35e12
 # table records them (an NVIDIA H100 80GB HBM3 at 700 W). They are read,
 # not measured here: the smoke run prints them in its phase text beside its
 # own times, and never in a JSON line.
-PREVIOUS_DESIGN_NOTE = "replaced WMMA design (read from PERF.md's kernel table, H100 80GB HBM3, 700 W)"
+PREVIOUS_DESIGN_NOTE = "replaced WMMA or FFMA design (read from PERF.md's kernel table, H100 80GB HBM3, 700 W)"
 PREVIOUS_DESIGN_MS = {
     "B=1024 N=1000000 D=1280 k=1": 23.200,
     "B=256 N=1000000 D=1280 k=16": 9.759,
@@ -121,6 +125,8 @@ PREVIOUS_DESIGN_MS = {
     "tilemin pca128-f32-scores": 2.488,
     "tilemin pca128-bf16-scores": 2.523,
     "tilemin_quant bf-quant-bf16": 35.371,
+    "precise B=1024 N=1000000 D=1280 k=1": 73.372,  # the FFMA pass the split pass replaced
+    "precise B=1024 N=1000000 D=1536 k=1": 87.861,
 }
 
 
@@ -196,26 +202,32 @@ def kernel_names(mangled: list) -> dict:
 
 
 def sass_mma_counts(libs: dict) -> dict:
-    """Per kernel of the built libraries, its tensor-core instructions in
-    the SASS (``cuobjdump -sass``): HGMMA and IGMMA are ``wgmma`` (float
-    and integer), HMMA and IMMA the ``mma.sync`` that WMMA compiles to."""
+    """Per library and kernel of the built libraries, its tensor-core
+    instructions in the SASS (``cuobjdump -sass``, one process a library,
+    all started together): HGMMA and IGMMA are ``wgmma`` (float and
+    integer), HMMA and IMMA the ``mma.sync`` that WMMA compiles to."""
     from fast_image_recognition_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    counts = {}
-    for path in libs.values():
-        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True, timeout=300)
-        fn = None
-        for line in sass.stdout.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
+    procs = {n: subprocess.Popen([cuobjdump, "-sass", path], stdout=subprocess.PIPE, text=True)
+             for n, path in libs.items()}
+    by_lib = {}
+    for n, proc in procs.items():
+        text, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {libs[n]}")
+        counts, fn = {}, None
+        for line in text.splitlines():
+            if "Function : " in line:
+                fn = re.search(r"Function : (\S+)", line).group(1)
                 counts[fn] = dict(HGMMA=0, IGMMA=0, HMMA=0, IMMA=0)
-            elif fn is not None:
-                for op in counts[fn]:
-                    counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
-    names = kernel_names(list(counts))
-    return {names[k]: v for k, v in counts.items()}
+            elif fn is not None and "MMA" in line:
+                m = re.search(r"\b(HGMMA|IGMMA|HMMA|IMMA)\.", line)
+                if m:
+                    counts[fn][m.group(1)] += 1
+        by_lib[n] = counts
+    names = kernel_names([k for c in by_lib.values() for k in c])
+    return {n: {names[k]: v for k, v in c.items()} for n, c in by_lib.items()}
 
 
 def check_launches(path: str, launches: dict, **counts) -> None:
@@ -406,10 +418,17 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
 
     q = queries.to(torch.float32 if precise else torch.bfloat16).contiguous()
-    launch = lambda: build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise,  # noqa: E731
-                                          row_mask=row_mask)
+    lo, hi = window if window is not None else (0, q.shape[1])
+    if k > build.TOPK_MAX_K:  # slabs of at most TOPK_MAX_K, each a launch above the last one's floor
+        def launch():
+            d_, i_ = dk.topk_l2(q, gallery, k, n_valid=n_valid, window=window, precise=precise, row_mask=row_mask)
+            return d_ * (hi - lo), i_
+    else:
+        def launch():
+            return build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask)
     kd, ki = launch()
     pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask)
     torch.cuda.synchronize()
@@ -419,7 +438,6 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     kd, ki, pd, pi = kd[on], ki[on], pd[on], pi[on]
     err = (kd - pd).abs().max().item() if kd.numel() else 0.0
     idx_eq = (ki == pi).float().mean().item() if ki.numel() else 1.0
-    lo, hi = window if window is not None else (0, dim)
     in_range = bool(((ki >= 0) & (ki < n_valid)).all())
     rows = gallery[ki.clamp(0, n_valid - 1).long()][:, :, lo:hi].to(torch.float32)  # [B, k, W]
     qf = q[on][:, lo:hi].to(torch.float32)
@@ -454,15 +472,20 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     else:
         yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
     g = None
-    b_ms, b_by = bound(2.0 * b * n_valid * width, n_valid * width * gallery.element_size() + b * width * q.element_size()
-                       + b * k * 8, PEAK_FP32_FLOPS if precise else PEAK_BF16_FLOPS)
+    nbytes = n_valid * width * gallery.element_size() + b * width * q.element_size() + b * k * 8
+    split = precise and gallery.dtype == torch.bfloat16  # three bf16 products per row on the tensor cores
+    b_ms, b_by = bound((3.0 if split else 1.0) * 2.0 * b * n_valid * width, nbytes,
+                       PEAK_BF16_FLOPS if split or not precise else PEAK_FP32_FLOPS)
+    # the fp32 CUDA-core bound of the FFMA design it replaced: phase text only, not in the JSON line
+    ffma_ms = bound(2.0 * b * n_valid * width, nbytes, PEAK_FP32_FLOPS)[0] if split else None
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
-    prev = None if precise else PREVIOUS_DESIGN_MS.get(shape)
+    prev = PREVIOUS_DESIGN_MS.get(("precise " if precise else "") + shape)
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"matmul+{'min' if window else 'topk'} yardstick {yard_ms:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by})" + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
+        f"bound {b_ms:.3f} ms ({b_by})" + (f", FFMA bound {ffma_ms:.3f} ms" if split else "")
+        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
         raise AssertionError(f"topk_l2 kernel ({variant}, k={k}) disagrees with its plain version")
@@ -654,6 +677,7 @@ ROW_MASKS = ("empty", "first", "last", 64, 65, 128, 129)  # a prefix of that man
 TOPK_LARGE_K = (17, 64, 256)  # k > 16: lists in the pass-1 scratch
 TOPK_LARGE_K_EDGES = [(5000, 4321, 40), (3000, 2900, 1280), (20000, 17000, 40)]  # (rows, n_valid, D); 3 segments
 TOPK_LARGE_K_B = (1, 129, 257)
+TOPK_SLAB_K = (257, 600)  # past one launch's 256 columns: slabs above a floor
 # Da above 640: the packed scans stream their queries through the ring
 WIDE_PACKED = [(2100, 2000, 700, 768), (3600, 1800, 800, 832), (2100, 1000, 1500, 1536)]  # (rows, n_valid, d, Da)
 MIN2_EDGES = [(3600, 1800, 40, 48), (2100, 2100, 124, 128)] + WIDE_PACKED
@@ -771,8 +795,8 @@ def check_sm90_edges(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    cases = dict(topk_l2=0, topk_l2_large_k=0, tilemin2_packed=0, tilemin_packed=0, tilemin_quant=0, tilemin=0,
-                 tilemin_quant_bf16=0)
+    cases = dict(topk_l2=0, topk_l2_precise_split=0, topk_l2_large_k=0, tilemin2_packed=0, tilemin_packed=0,
+                 tilemin_quant=0, tilemin=0, tilemin_quant_bf16=0)
     for n, nv, d in TOPK_EDGES:
         g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
         q32 = _unit(g32[: max(SCAN_EDGE_B)] + 0.1 * torch.randn((max(SCAN_EDGE_B), d), generator=gen, device=dev))
@@ -784,6 +808,9 @@ def check_sm90_edges(dev):
                 for w in windows:
                     check_topk(g16, nv, q32[:b], k, window=w)
                     cases["topk_l2"] += 1
+                for w in windows[:2]:  # the split precise pass over the same bf16 rows
+                    check_topk(g16, nv, q32[:b], k, window=w, precise=True)
+                    cases["topk_l2_precise_split"] += 1
         b = max(SCAN_EDGE_B)
         for m in ROW_MASKS:
             mask = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -808,7 +835,8 @@ def check_sm90_edges(dev):
                 check_topk(g32, nv, q32[:b], k, precise=True)
                 check_topk(g16, nv, q32[:b], k, window=(5, d - 3))
                 check_topk(g16, nv, q32[:b], k, window=(1, d - 1), precise=True)
-                cases["topk_l2_large_k"] += 4
+                check_topk(g16, nv, q32[:b], k, precise=True)
+                cases["topk_l2_large_k"] += 5
         mask = torch.zeros(bmax, dtype=torch.bool, device=dev)
         mask[:129] = True
         check_topk(g16, nv, q32, 64, row_mask=mask)
@@ -892,6 +920,104 @@ def check_sm90_edges(dev):
     return cases
 
 
+def check_topk_slabs(dev):
+    """``topk_l2`` at k of :data:`TOPK_SLAB_K`, past the 256 columns one
+    launch takes, through ``ops.distance_kernel.topk_l2``'s slab loop (each
+    slab a launch of the list kernels above the previous slab's last
+    entry) against the plain version in one pass, untimed: 300 queries over
+    100,000 rows (99,000 valid, the rest copies of the queries that would
+    win), D = 128; bf16, ``precise`` over bf16 and fp32 rows, a window and
+    a row mask. Returns the number of cases."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    n, nv, d, b = 100_000, 99_000, 128, 300
+    g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
+    q32 = _unit(g32[:b] + 0.1 * torch.randn((b, d), generator=gen, device=dev))
+    g32[nv : nv + b] = q32[: n - nv]
+    g16 = g32.to(torch.bfloat16)
+    mask = torch.zeros(b, dtype=torch.bool, device=dev)
+    mask[:129] = True
+    cases = 0
+    for k in TOPK_SLAB_K:
+        check_topk(g16, nv, q32, k)
+        check_topk(g16, nv, q32, k, precise=True)
+        check_topk(g16, nv, q32, k, window=(5, d - 3))
+        check_topk(g16, nv, q32, k, row_mask=mask)
+        cases += 4
+    check_topk(g32, nv, q32, TOPK_SLAB_K[0], precise=True)
+    return cases + 1
+
+
+# |kernel - fp64| distance at the split probe's matches: the fp32 sums
+# there are ~1e-6 off (the plain pass's 1,280-term matmul 1.3e-6 on the
+# CPU); a pass without the lo term is ~7.3e-6 off, so the probe also asks
+# that the two-term product miss by more than 1.5x this
+SPLIT_PROBE_TOL = 2.0**-18
+
+
+def check_split_precise(dev):
+    """What the split precise pass computes (``topk_l2(precise=True)``
+    over bf16 rows), beyond the 2^-16 gate, which cannot tell the three-term
+    product from a two-term one (~1e-7 apart on random data): (1) the query
+    planes and |q|^2 its launch fills, read back, equal
+    ``plain.split_bf16x3`` of the window's lanes bit for bit (zeros outside
+    the window and past B), |q|^2 within 2^-20 of the fp64 sum; control:
+    the same check with the lo plane zeroed must fail. (2) a probe where
+    the lo term matters: each query is its gallery row times 1 + 2^-9 +
+    2^-18, so that every lane's lo term has the row's sign and sum(lo g) ~
+    2^-19 |g|^2; the kernel's k = 1 distance (its own row) must lie within
+    :data:`SPLIT_PROBE_TOL` of the fp64 distance, while the hi + mid
+    product (what a pass that dropped lo computes) must miss it by more
+    than 1.5x that. B = 130 and 257 (not multiples of the 128-query
+    tile), D = 1280, without and with the window (5, D-3). Returns the
+    cases' worst (kernel error, two-term error)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    n, d = 4096, 1280
+    g = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
+    worst = [0.0, float("inf")]
+    for b, window in ((130, None), (257, (5, d - 3))):
+        lo, hi = window if window is not None else (0, d)
+        q = (g[:b].float() * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
+        out = {}
+        kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
+        torch.cuda.synchronize()
+        qw = torch.zeros_like(q)
+        qw[:, lo:hi] = q[:, lo:hi]
+        want = torch.zeros_like(out["planes"])
+        for p_, t in enumerate(plain.split_bf16x3(qw)):
+            want[p_, :b] = t
+        planes_eq = torch.equal(out["planes"].view(torch.int16), want.view(torch.int16))
+        ctrl = out["planes"].clone()
+        ctrl[2] = 0
+        ctrl_eq = torch.equal(ctrl.view(torch.int16), want.view(torch.int16))
+        qsq64 = (qw.double() ** 2).sum(1)
+        qsq_err = ((out["qsq"].double() - qsq64).abs() / qsq64).max().item()
+        gd = g[:b, lo:hi].double()
+        exact = ((q[:, lo:hi].double() - gd) ** 2).sum(1)
+        two = (want[0, :b, lo:hi].double() + want[1, :b, lo:hi].double())
+        d_two = qsq64 + (gd * gd).sum(1) - 2.0 * (two * gd).sum(1)
+        rows_ok = bool((ki[:, 0] == torch.arange(b, device=dev)).all())
+        err_k = (kd[:, 0].double() - exact).abs().max().item()
+        err_two = (d_two - exact).abs().min().item()
+        print(f"  split precise B={b} window {window}: planes bit-equal {planes_eq} (lo zeroed: {ctrl_eq}), "
+              f"|q|^2 rel err {qsq_err:.2e}, own rows {rows_ok}, max |kernel - fp64| {err_k:.3e}, "
+              f"min |hi+mid - fp64| {err_two:.3e} (tolerance {SPLIT_PROBE_TOL:.3e})", flush=True)
+        if not (planes_eq and not ctrl_eq and qsq_err <= 2.0**-20 and rows_ok):
+            raise AssertionError(f"split_queries' planes or |q|^2 disagree with plain.split_bf16x3 (B={b})")
+        if err_k > SPLIT_PROBE_TOL or err_two <= 1.5 * SPLIT_PROBE_TOL:
+            raise AssertionError(f"the split precise pass does not compute the three-term product (B={b}): "
+                                 f"{err_k:.3e} from fp64, the two-term product {err_two:.3e}")
+        worst = [max(worst[0], err_k), min(worst[1], err_two)]
+    return worst
+
+
 def check_big_grids(dev):
     """Galleries past the old 65,535-block grid caps, each kernel against
     its plain version, untimed: the bf16 tile scan at tile_g 128 over more
@@ -937,8 +1063,8 @@ def check_big_grids(dev):
     check_topk(g, n, q, 1)
     check_topk(g, n, q, 1, precise=True)
     check_topk(g, n, q, 17)
-    done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 and bf16 k=17: "
-                f"{n // 8192} segments)")
+    done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 (the split pass over "
+                f"bf16 rows) and bf16 k=17: {n // 8192} segments)")
     del g
     torch.cuda.empty_cache()
     return done
@@ -1191,6 +1317,20 @@ def cascade_breakdown(casc, images, caps, report):
 # of the largest output, and a flipped hidden value moves the project's
 # sum by far less. 2^-6 of max |plain| leaves a factor of 4.
 MB_TOL = 2.0**-6
+# (name, B0 block index, plane, plan (th, tw, group, bufs, ipb)): plans
+# that B0@224's blocks never pick but other planes do (B1-B7 tile 15-38
+# planes single-buffered; no supported plane splits its output channels,
+# which the kernel takes all the same). Block 12 is block6b (192 -> 1152
+# -> 192, k = 5, SE; three 64-channel output tiles), 2 block2b, 0 block1a
+# (no expand).
+FORCED_MB_PLANS = [
+    ("block6b, 3 output groups, 2 images a block", 12, 7, (7, 7, 1, 3, 2)),
+    ("block6b, output groups of 2 + 1, weights single-buffered", 12, 15, (15, 15, 2, 1, 1)),
+    ("block6b, 3 output groups, tiled, input single-buffered", 12, 15, (8, 15, 1, 2, 1)),
+    ("block6b, tiled, no double buffer", 12, 15, (8, 15, 3, 0, 1)),
+    ("block2b, tiled, weights single-buffered", 2, 15, (8, 8, 1, 1, 1)),
+    ("block1a no expand, tiled, no double buffer", 0, 15, (8, 8, 1, 0, 1)),
+]
 
 
 def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
@@ -1205,18 +1345,24 @@ def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
     return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
 
-def run_mbconv_pair(x, q, cfg):
+def run_mbconv_pair(x, q, cfg, plan=None):
     """The fused block's kernel and plain version on the same input:
     (kernel out, plain out, relative max |difference| over max |plain|,
-    share of bit-equal outputs, the two launchers)."""
+    share of bit-equal outputs, the two launchers). The kernel runs the
+    ``plan`` (th, tw, group, bufs, ipb) given, else the one
+    ``ops.mbconv_kernel.plane_plan`` picks."""
     import torch
 
-    from fast_image_recognition_tpu_torch.kernels import plain
+    from fast_image_recognition_tpu_torch.kernels import build, plain
     from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
 
     k = cfg["kernel"]
     pads = tuple(mb._same_pads(n, k, 1)[1:] for n in x.shape[2:])
-    run_k = lambda: mb.mbconv(x, q, cfg)  # noqa: E731
+    if plan is None:
+        run_k = lambda: mb.mbconv(x, q, cfg)  # noqa: E731
+    else:
+        run_k = lambda: build.launch_mbconv(x, q, k, (pads[0][0], pads[1][0]), plan,  # noqa: E731
+                                            cfg["activation"] == "relu6", cfg["residual"])
     run_p = lambda: plain.mbconv_plain(x, q, k, pads, cfg["activation"], cfg["residual"])  # noqa: E731
     yk, yp = run_k(), run_p()
     torch.cuda.synchronize()
@@ -1232,8 +1378,13 @@ def check_mbconv_blocks(net, net_f, images, report):
     block of the folded forward, fed the activation the per-op forward
     produces at that block's input, with the fused module's folded
     weights; timed beside its bound and the per-op block (cuDNN and
-    elementwise ops; not one library call, so no ``library_ms``)."""
+    elementwise ops; not one library call, so no ``library_ms``). The
+    kernel's shared memory for each block's plan must equal the host's
+    mirror (``ops.mbconv_kernel.plane_smem``)."""
     import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
 
     rows = []
     with torch.no_grad():
@@ -1251,25 +1402,31 @@ def check_mbconv_blocks(net, net_f, images, report):
                 plain_ms = cuda_ms(run_p, reps=1)
                 per_op_ms = cuda_ms(lambda blk=blk, h=h: blk(h), reps=5)
                 b, cin, hw, _ = h.shape
-                ce, cout = q["w_dw"].shape[1], q["w_proj"].shape[1]
-                pbytes = sum(t.numel() * t.element_size() for t in q.values())
-                b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp" in q, pbytes)
+                cout, ce = q["w_proj_t"].shape
+                s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
+                plan = mb.plane_plan(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q)
+                smem = mb.plane_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q, *plan)
+                if build._lib("mbconv").mbconv_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, int("w_exp_t" in q),
+                                                    *plan) != smem:
+                    raise AssertionError(f"kernels/mbconv.cu and ops.mbconv_kernel.plane_smem disagree at {name}")
+                pbytes = sum(t.numel() * t.element_size() for t in q.values())  # the weights the kernel reads
+                b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp_t" in q, pbytes)
                 row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"],
+                           plan=dict(zip(("th", "tw", "group", "bufs", "ipb"), plan)), smem=smem,
                            max_abs_err=err, rel_err=rel, bit_equal=eq, ms=ms, plain_ms=plain_ms,
-                           per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by,
-                           dw_round_trip_ms=4.0 * b * hw * hw * ce / PEAK_HBM_BYTES * 1e3)
+                           per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
-                print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']}: rel err {rel:.2e} "
-                      f"(bit-equal {100 * eq:.2f}%), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, per-op "
-                      f"{per_op_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+                print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']} plan {plan} ({smem} B): "
+                      f"rel err {rel:.2e} (bit-equal {100 * eq:.2f}%), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                      f"per-op {per_op_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
                 if rel > MB_TOL:
                     raise AssertionError(f"mbconv kernel disagrees with its plain version at {name}: {rel:.3e}")
             h = blk(h)
-    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "per_op_ms", "bound_ms", "dw_round_trip_ms")}
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "per_op_ms", "bound_ms")}
+    slower = [r["block"] for r in rows if r["ms"] > r["per_op_ms"]]
     phase(f"mbconv blocks ({len(rows)} stride-1 blocks, B={images.shape[0]}): every kernel output within "
           f"{MB_TOL:.2e} of max |plain|; summed kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"per-op {tot['per_op_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms (+ {tot['dw_round_trip_ms']:.3f} ms "
-          f"of depthwise round trip at the memory rate)")
+          f"per-op {tot['per_op_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; blocks slower than per-op: {slower}")
     report["blocks"] = rows
     report["total"] = tot
     return rows
@@ -1278,10 +1435,16 @@ def check_mbconv_blocks(net, net_f, images, report):
 def check_mbconv_edges(net_f, dev):
     """The fused MBConv kernel against its plain version off the main
     path's shapes, untimed: batches of 1 and 130, an odd plane (15),
-    relu6, no SE, no expand, k=7 (random weights), and an expand bias
-    inflated 50x, where any act(b_exp) leaking into the SAME border taps
-    would dominate the edge rows and columns. Returns the cases."""
+    relu6, no SE, no expand, k=7 (random weights), an expand bias inflated
+    50x, where any act(b_exp) leaking into the SAME border taps would
+    dominate the edge rows and columns, and plans that B0's blocks never
+    pick but other planes do (``FORCED_MB_PLANS``: output channels split
+    over the grid, single-buffered input boxes and weights), each also
+    held against the host's shared-memory mirror. Returns the cases."""
     import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(29)
@@ -1304,25 +1467,37 @@ def check_mbconv_edges(net_f, dev):
         ("block2b b_exp x50", 2, 130, 15, {"b_exp": 50.0}),
     ]:
         q, cfg = params(i)
-        if "b_exp" in change:
-            q["b_exp"] = q["b_exp"] * change.pop("b_exp")
+        if "b_exp" in change:  # the last row of each slab of dw_aux
+            q["dw_aux"] = q["dw_aux"].clone()
+            q["dw_aux"][:, -1] *= change.pop("b_exp")
         cfg.update(change)
         if not cfg["has_se"]:
             q = {n: t for n, t in q.items() if not n.startswith(("w_se", "b_se"))}
-        cases.append((f"{name} B={b} {hw}x{hw}", q, cfg, b, hw))
+        cases.append((f"{name} B={b} {hw}x{hw}", q, cfg, b, hw, None))
     cin, ce, cout = 32, 64, 32
-    q7 = dict(w_exp=rnd(cin, ce, scale=0.2, dtype=torch.bfloat16), b_exp=rnd(ce, scale=0.1),
-              w_dw=rnd(49, ce, scale=0.2), b_dw=rnd(ce, scale=0.1), w_se1=rnd(ce, 8, scale=0.2),
-              b_se1=rnd(8, scale=0.1), w_se2=rnd(8, ce, scale=0.2), b_se2=rnd(ce, scale=0.1),
-              w_proj=rnd(ce, cout, scale=0.2, dtype=torch.bfloat16), b_proj=rnd(cout, scale=0.1))
+    p7 = dict(w_exp=rnd(1, 1, cin, ce, scale=0.2), b_exp=rnd(ce, scale=0.1), w_dw=rnd(7, 7, 1, ce, scale=0.2),
+              b_dw=rnd(ce, scale=0.1), w_se1=rnd(ce, 8, scale=0.2), b_se1=rnd(8, scale=0.1),
+              w_se2=rnd(8, ce, scale=0.2), b_se2=rnd(ce, scale=0.1), w_proj=rnd(1, 1, ce, cout, scale=0.2),
+              b_proj=rnd(cout, scale=0.1))
     cfg7 = dict(kernel=7, stride=1, has_expand=True, has_se=True, residual=True, activation="swish")
-    cases.append(("k7 random weights B=130 15x15", q7, cfg7, 130, 15))
+    cases.append(("k7 random weights B=130 15x15", mb.prepare_params(p7, cfg7), cfg7, 130, 15, None))
+    for name, i, hw, plan in FORCED_MB_PLANS:
+        q, cfg = params(i)
+        cases.append((f"{name} B=130 {hw}x{hw} plan {plan}", q, cfg, 130, hw, plan))
     out = []
     with torch.no_grad():
-        for name, q, cfg, b, hw in cases:
-            c_in = q["w_exp"].shape[0] if "w_exp" in q else q["w_dw"].shape[1]
+        for name, q, cfg, b, hw, plan in cases:
+            cout_, ce_ = q["w_proj_t"].shape
+            c_in = q["w_exp_t"].shape[1] if "w_exp_t" in q else ce_
+            if plan is not None:
+                s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
+                geo = (hw, hw, cfg["kernel"], c_in, ce_, cout_, s_)
+                smem = mb.plane_smem(*geo, "w_exp_t" in q, *plan)
+                if smem < 0 or build._lib("mbconv").mbconv_smem(*geo, int("w_exp_t" in q), *plan) != smem:
+                    raise AssertionError(f"mbconv plan {plan} ({name}): the kernel refuses it or its shared "
+                                         f"memory differs from ops.mbconv_kernel.plane_smem ({smem})")
             x = rnd(b, hw, hw, c_in, dtype=torch.bfloat16).permute(0, 3, 1, 2)
-            yk, yp, rel, eq, _, _ = run_mbconv_pair(x, q, cfg)
+            yk, yp, rel, eq, _, _ = run_mbconv_pair(x, q, cfg, plan)
             border = max(
                 ((yk.float() - yp.float())[sl].abs().max() / torch.clamp_min(yp.float()[sl].abs().max(), 1e-30)).item()
                 for sl in ((slice(None), slice(None), slice(None), [0, 1, -2, -1]),
@@ -1403,7 +1578,7 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     embedding, within 2^-7 of the distance (the scans round query and rows
     to bf16). Last, one call of
     each line (``svc_u`` is the per-op plain line) under the profiler:
-    device idle share and the fused kernel's two launches' device time."""
+    device idle share and the fused kernel's device time."""
     import numpy as np
     import torch
 
@@ -1432,7 +1607,7 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     calls = TIMED_CALLS + 2
-    check_launches("fused", launches, mbconv=2 * n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
+    check_launches("fused", launches, mbconv=n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
     if not bool((out2 == out).all()):
         raise AssertionError("the fused path's answers changed under sync debug mode")
     with torch.no_grad():
@@ -1487,14 +1662,12 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
             row[f"trace_{line}"] = None
             continue
         by = tr.pop("by_name")
-        tr["mbconv_expand_dw_ms"] = sum(v for k, v in by.items() if "expand_dw_kernel" in k)
-        tr["mbconv_se_project_ms"] = sum(v for k, v in by.items() if "se_project_kernel" in k)
+        tr["mbconv_ms"] = sum(v for k, v in by.items() if "mbconv_sm90" in k)
         tr["top"] = sorted(by.items(), key=lambda kv: -kv[1])[:6]
         row[f"trace_{line}"] = tr
         print(f"  {line} line, one call traced: device busy {tr['busy_ms']:.2f} ms of a {tr['window_ms']:.2f} ms "
               f"window (idle share {100 * tr['idle_share']:.1f}%, {tr['events']} device activities); mbconv "
-              f"expand+depthwise {tr['mbconv_expand_dw_ms']:.2f} ms, SE+project {tr['mbconv_se_project_ms']:.2f} ms; "
-              f"top {[(k[:60], round(v, 3)) for k, v in tr['top']]}", flush=True)
+              f"{tr['mbconv_ms']:.2f} ms; top {[(k[:60], round(v, 3)) for k, v in tr['top']]}", flush=True)
     return row
 
 
@@ -1805,12 +1978,14 @@ def main() -> int:
                 spill = line.strip()
             elif "registers" in line:
                 print(f"  ptxas {name} {kernel}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
-    phase(f"built {sorted(build.SOURCES)} with nvcc in {time.time() - t:.1f} s")
+    phase(f"built {sorted(build.SOURCES)} with nvcc in {time.time() - t:.1f} s (each source: "
+          + ", ".join(f"{n} {sec:.1f} s" for n, sec in sorted(build.BUILD_SECONDS.items())) + ")")
     # the kernels on the Hopper main loop issue wgmma and no WMMA
-    mma = sass_mma_counts(libs)
+    mma_by_lib = sass_mma_counts(libs)
+    mma = {k: v for counts in mma_by_lib.values() for k, v in counts.items()}
     sm90 = {k: v for k, v in mma.items() if "_sm90" in k}
-    families = ("topk_pass1_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90", "tilemin_sm90",
-                "tilemin_quant_bf16_sm90")
+    families = ("topk_pass1_sm90", "topk_pass1_split_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90",
+                "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
     if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
             v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
         raise AssertionError(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
@@ -1820,10 +1995,13 @@ def main() -> int:
     if any(topk_lib.topk_l2_segment_rows(p, k) != build.topk_l2_segment_rows_for(bool(p), k)
            for p in (0, 1) for k in (1, 16, 17, build.TOPK_MAX_K)):
         raise AssertionError("kernels/topk_l2.cu and build.topk_l2_segment_rows_for disagree on segment rows")
-    # no scan of the tile-scan library is left on WMMA
-    tile_lib = sass_mma_counts({"tile_scan": libs["tile_scan"]})
-    if any(v["HMMA"] + v["IMMA"] for v in tile_lib.values()):
-        raise AssertionError(f"kernels/tile_scan.cu still issues HMMA/IMMA: {tile_lib}")
+    if topk_lib.topk_l2_query_rows() != build.TOPK_QUERY_ROWS or any(
+            topk_lib.topk_l2_split_smem(k) != build.topk_l2_split_smem_for(k) for k in (1, 2, 16, 17, 256)):
+        raise AssertionError("kernels/topk_l2.cu and build's split-pass mirrors disagree (query rows, ring size)")
+    # no scan of the tile-scan library and no MBConv kernel is left on WMMA
+    for lib in ("tile_scan", "mbconv"):
+        if any(v["HMMA"] + v["IMMA"] for v in mma_by_lib[lib].values()):
+            raise AssertionError(f"kernels/{build.SOURCES[lib]} still issues HMMA/IMMA: {mma_by_lib[lib]}")
     phase("SASS tensor-core instructions per kernel, HGMMA/IGMMA (wgmma) and HMMA/IMMA (WMMA's mma.sync): "
           + "; ".join(f"{k} {v['HGMMA']}/{v['IGMMA']}/{v['HMMA']}/{v['IMMA']}" for k, v in sorted(mma.items())
                       if any(v.values())))
@@ -1833,7 +2011,8 @@ def main() -> int:
     n_cases = check_sm90_edges(dev)
     phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases}: topk_l2 (bf16; B {list(SCAN_EDGE_B)}, "
           f"(rows, n_valid, D) {TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row "
-          f"masks {list(ROW_MASKS)}), topk_l2 at k {list(TOPK_LARGE_K)} (bf16, precise, windows, a row mask; "
+          f"masks {list(ROW_MASKS)}; precise over the same bf16 rows, the split pass, without and with the "
+          f"window (1, D-1)), topk_l2 at k {list(TOPK_LARGE_K)} (bf16, precise, windows, a row mask; "
           f"{TOPK_LARGE_K_EDGES}, B {list(TOPK_LARGE_K_B)}), the min-2 packed scan ((rows, n_valid, d, Da) "
           f"{MIN2_EDGES}), the single-min packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; "
           f"keys equal but near-ties), the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; "
@@ -1841,6 +2020,13 @@ def main() -> int:
           f"both score modes) and the int8 scan with bf16 compute ({QUANT_BF16_EDGES}, B {list(QUANT_BF16_EDGE_B)}, "
           f"tile_g 128 and 1024) agree with their plain versions; no row past n_valid returned, no whole-pad tile "
           f"won, whole-pad tile minima bit-equal to the plain ones")
+    n_slab = check_topk_slabs(dev)
+    phase(f"topk_l2 in slabs: {n_slab} cases at k {list(TOPK_SLAB_K)} (bf16, precise over bf16 and fp32 rows, a "
+          f"window, a row mask; 300 x 100,000 x 128) agree with the plain version in one pass")
+    err_k, err_two = check_split_precise(dev)
+    phase(f"split precise pass: query planes and |q|^2 read back equal plain.split_bf16x3 (the lo-zeroed control "
+          f"differs); on queries whose lo terms add up, the kernel's distance is {err_k:.3e} from fp64 (tolerance "
+          f"{SPLIT_PROBE_TOL:.3e}), the hi + mid product's {err_two:.3e} or more")
     big_grids = check_big_grids(dev)
     phase("grids past 65,535 blocks agree with the plain versions: " + "; ".join(big_grids))
 
@@ -2308,6 +2494,7 @@ def main() -> int:
              **first(tile_report["tilemin_quant"]), shapes=tile_report["tilemin_quant"]),
         dict(name="topk_l2_precise", route="cuda", source=src + "topk_l2.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (precise=True)",
+             kernel="split_queries + topk_pass1_split_sm90 (bf16 rows; three bf16 wgmma products)",
              launches=launches["oracle"]["topk_l2_precise"], launches_by_path=by_path("topk_l2_precise"),
              **first(report["topk_l2_precise"]), shapes=report["topk_l2_precise"]),
         dict(name="topk_l2_windowed", route="cuda", source=src + "topk_l2.cu",
@@ -2317,7 +2504,8 @@ def main() -> int:
         dict(name="mbconv", route="cuda", source=src + "mbconv.cu",
              replaces="fast_image_recognition_tpu/ops/mbconv_kernel.py:82",
              launches=launches["fused"]["mbconv"], launches_by_path=by_path("mbconv"),
-             shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed (two launches per block)",
+             kernel="mbconv_sm90 (one launch per block)",
+             shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed",
              max_abs_err=max(r["max_abs_err"] for r in mb_report["blocks"]),
              ms=mb_report["total"]["ms"], plain_ms=mb_report["total"]["plain_ms"],
              bound_ms=mb_report["total"]["bound_ms"],

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -54,12 +55,13 @@ LAUNCHES: Dict[str, int] = {
     "topk_l2_precise": 0,
     "tilemin": 0,
     "tilemin_quant": 0,
-    "mbconv": 0,  # two launches per block: expand + depthwise, then SE + project
+    "mbconv": 0,  # one launch per block
     "chi2": 0,
 }
 # ptxas resource lines of the last build of each library (registers,
-# shared memory, spills), for the smoke run to print
+# shared memory, spills) and its seconds, for the smoke run to print
 BUILD_LOG: Dict[str, str] = {}
+BUILD_SECONDS: Dict[str, float] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -96,6 +98,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
+    t0 = time.time()
     for n in todo:
         tmp = f"{out[n]}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(KERNEL_DIR, SOURCES[n])]
@@ -104,6 +107,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for n, (tmp, p) in procs.items():
         log, _ = p.communicate()
         BUILD_LOG[n] = log
+        BUILD_SECONDS[n] = time.time() - t0
         if p.returncode != 0:
             failed.append(f"{SOURCES[n]}:\n{log}")
         else:
@@ -123,10 +127,10 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.tilemin_packed_launch.argtypes = [P, P, P, I, I, I, I, P]
             lib.tilemin_packed_launch.restype = I
         elif name == "mbconv":
-            lib.mbconv_expand_dw_launch.argtypes = [P] * 7 + [I] * 11 + [P]
-            lib.mbconv_expand_dw_launch.restype = I
-            lib.mbconv_se_project_launch.argtypes = [P] * 10 + [I] * 6 + [P]
-            lib.mbconv_se_project_launch.restype = I
+            lib.mbconv_launch.argtypes = [P] * 11 + [I] * 17 + [P]
+            lib.mbconv_launch.restype = I
+            lib.mbconv_smem.argtypes = [I] * 13
+            lib.mbconv_smem.restype = I
         elif name == "chi2":
             lib.chi2_launch.argtypes = [P, P, I, P, I, I, I, P]
             lib.chi2_launch.restype = I
@@ -136,10 +140,12 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.tilemin_quant_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
             lib.tilemin_quant_launch.restype = I
         else:
-            lib.topk_l2_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            lib.topk_l2_launch.argtypes = [P] * 9 + [I] * 8 + [P]
             lib.topk_l2_launch.restype = I
-            lib.topk_l2_precise_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            lib.topk_l2_precise_launch.argtypes = [P, P, I] + [P] * 8 + [I] * 8 + [P]
             lib.topk_l2_precise_launch.restype = I
+            lib.topk_l2_split_smem.argtypes = [I]
+            lib.topk_l2_split_smem.restype = I
             lib.topk_l2_segment_rows.argtypes = [I, I]
             lib.topk_l2_segment_rows.restype = I
             lib.topk_l2_query_rows.argtypes = []
@@ -177,6 +183,26 @@ def topk_l2_query_rows() -> int:
 # package's int32 row indices.
 MAX_ROWS = 2**31 - 1 - 2048
 TOPK_MAX_K = 256  # kernels/topk_l2.cu MAX_K: lists of up to 256 (query, segment) entries
+TOPK_QUERY_ROWS = 128  # kernels/topk_l2.cu QT: queries per pass-1 block and per split-plane box
+
+
+def topk_l2_split_plane_rows(b: int) -> int:
+    """Rows of each of the three bf16 query planes of the split precise
+    pass: B rounded up to whole 128-query boxes, so that no box straddles
+    two planes."""
+    return -(-b // TOPK_QUERY_ROWS) * TOPK_QUERY_ROWS
+
+
+def topk_l2_split_smem_for(k: int) -> int:
+    """Dynamic shared memory of ``kernels/topk_l2.cu``'s split precise pass
+    (``SplitTile``): a ring of stages holding three query planes and one
+    gallery box (3 stages, 2 for k > 16, whose distance tile and lists'
+    last entries need room), two |g|^2 buffers and the barriers."""
+    line, qt, bn = 128, TOPK_QUERY_ROWS, 128
+    lists = k > 16
+    stages = 2 if lists else 3
+    ring = stages * (3 * qt * line + bn * line)
+    return 1024 + ring + 2 * bn * 4 + ((qt * (bn + 8) + 2 * qt) * 4 if lists else 0) + 2 * stages * 8
 
 
 def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
@@ -279,14 +305,21 @@ def launch_topk_l2(
     window: Optional[Tuple[int, int]] = None,
     precise: bool = False,
     row_mask: Optional[torch.Tensor] = None,
+    floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    split_out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kernels/topk_l2.cu``: exact top-k raw squared L2 distances
     ``[B, k]`` fp32 and row indices ``[B, k]`` int32 (-1 past n_valid).
-    bf16 queries and rows on the tensor cores, or with ``precise`` fp32
-    queries against fp32 or bf16 rows on the CUDA cores. ``window=(start,
-    end)`` scans the feature lanes [start, end) only. Query rows where the
-    bool ``row_mask`` is False come back empty ``(BIG_DIST, -1)`` (not with
-    ``precise``)."""
+    bf16 queries and rows on the tensor cores; with ``precise`` fp32
+    queries against bf16 rows as three bf16 products on the tensor cores,
+    or against fp32 rows on the CUDA cores. ``window=(start, end)`` scans
+    the feature lanes [start, end) only. Query rows where the bool
+    ``row_mask`` is False come back empty ``(BIG_DIST, -1)`` (not with
+    ``precise``). ``floor=(d [B] fp32, row [B] int32)``, for k > 16 only:
+    the last entry of the previous slab of a larger top-k (row -1: empty);
+    only (distance, row) strictly after it enter. ``split_out``, a dict,
+    receives the split pass's ``planes`` [3, round_up(B, 128), D] bf16 and
+    ``qsq`` [B] fp32 (precise over bf16 rows), for a check to read back."""
     _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
     if precise:
         if g.dtype not in (torch.float32, torch.bfloat16):
@@ -307,6 +340,15 @@ def launch_topk_l2(
             raise ValueError("row_mask must be a [B] bool tensor on the queries' device")
         row_mask = row_mask.contiguous()  # bool is one byte: read as uint8
         mask_ptr = row_mask.data_ptr()
+    floor_d = floor_i = None
+    if floor is not None:
+        if k <= 16:
+            raise ValueError(f"a slab floor is taken with k > 16 only, got k={k}")
+        floor_d, floor_i = floor
+        if floor_d.shape != (b,) or floor_i.shape != (b,) or floor_d.device != q.device or floor_i.device != q.device:
+            raise ValueError("floor must be two [B] tensors on the queries' device")
+        floor_d = floor_d.to(torch.float32).contiguous()
+        floor_i = torch.where(floor_i < 0, 2**31 - 1, floor_i).to(torch.int32).contiguous()  # empty: nothing after
     lib = _lib("topk_l2")
     seg = lib.topk_l2_segment_rows(int(precise), k)
     n_seg = -(-n_valid // seg)
@@ -316,16 +358,24 @@ def launch_topk_l2(
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     sizes = (b, n, n_valid, d, k, n_seg, start, end)
+    floor_ptrs = (None, None) if floor is None else (floor_d.data_ptr(), floor_i.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if precise:
+            planes = qsq = None
+            if g.dtype == torch.bfloat16:  # three bf16 query planes for the split tensor-core pass
+                planes = torch.empty((3, topk_l2_split_plane_rows(b), d), dtype=torch.bfloat16, device=q.device)
+                qsq = torch.empty((b,), dtype=torch.float32, device=q.device)
             status = lib.topk_l2_precise_launch(
-                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), part_d.data_ptr(),
-                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
+                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32),
+                None if planes is None else planes.data_ptr(), None if qsq is None else qsq.data_ptr(),
+                *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
             )
+            if split_out is not None and planes is not None:
+                split_out.update(planes=planes, qsq=qsq)
         else:
             status = lib.topk_l2_launch(
-                q.data_ptr(), g.data_ptr(), mask_ptr, part_d.data_ptr(), part_i.data_ptr(),
+                q.data_ptr(), g.data_ptr(), mask_ptr, *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(),
                 out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
             )
     name = "topk_l2_precise" if precise else "topk_l2" if window is None else "topk_l2_windowed"
@@ -436,15 +486,18 @@ def launch_mbconv(
     q: Dict[str, torch.Tensor],
     kernel: int,
     pad_low: Tuple[int, int],
-    tile: Tuple[int, int],
+    plan: Tuple[int, int, int, int, int],
     relu6: bool,
     residual: bool,
 ) -> torch.Tensor:
     """``kernels/mbconv.cu``: one stride-1 MBConv block on ``x`` [B, Cin,
     H, W] bf16 in channels_last memory, params ``q`` in the
     ``ops.mbconv_kernel.prepare_params`` layout, SAME ``pad_low`` (H, W)
-    and the first launch's output ``tile`` (th, tw). Two launches, each
-    counted under ``mbconv``. Returns [B, Cout, H, W] bf16 channels_last."""
+    and the ``plan`` (th, tw, group, bufs, ipb) of
+    ``ops.mbconv_kernel.plane_plan``: the output tile each block walks its
+    images in, the output-channel tiles a block owns, the double buffers,
+    the images a block takes. One launch, counted under ``mbconv``.
+    Returns [B, Cout, H, W] bf16 channels_last."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
@@ -452,14 +505,14 @@ def launch_mbconv(
     if not x.is_contiguous(memory_format=torch.channels_last) or x.data_ptr() % 16:
         raise ValueError("x must be channels_last contiguous and 16-byte aligned")
     b, cin, h, w = x.shape
-    has_expand, has_se = "w_exp" in q, "w_se1" in q
-    ce = q["w_dw"].shape[1]
-    cout = q["w_proj"].shape[1]
+    has_expand, has_se = "w_exp_t" in q, "w_se1" in q
+    ce = q["w_proj_t"].shape[1]
+    cout = q["w_proj_t"].shape[0]
     s = q["w_se1"].shape[1] if has_se else 0
-    want = {"w_dw": ((kernel * kernel, ce), torch.float32), "b_dw": ((ce,), torch.float32),
-            "w_proj": ((ce, cout), torch.bfloat16), "b_proj": ((cout,), torch.float32)}
+    want = {"dw_aux": ((-(-ce // 64), kernel * kernel + 2, 64), torch.float32),
+            "w_proj_t": ((cout, ce), torch.bfloat16), "b_proj": ((cout,), torch.float32)}
     if has_expand:
-        want.update(w_exp=((cin, ce), torch.bfloat16), b_exp=((ce,), torch.float32))
+        want.update(w_exp_t=((ce, cin), torch.bfloat16))
     if has_se:
         want.update(w_se1=((ce, s), torch.float32), b_se1=((s,), torch.float32),
                     w_se2=((s, ce), torch.float32), b_se2=((ce,), torch.float32))
@@ -467,17 +520,19 @@ def launch_mbconv(
         _check(q[n], n, dtype, len(shape))
         if tuple(q[n].shape) != shape or q[n].device != x.device:
             raise ValueError(f"{n} must be {shape} on {x.device}, got {tuple(q[n].shape)} on {q[n].device}")
+    th, tw, group, bufs, ipb = plan
     if (cin % 8 or ce % 8 or cout % 8 or kernel not in (3, 5, 7) or (not has_expand and cin != ce)
-            or (residual and cin != cout) or not 1 <= b <= 65535):
+            or (residual and cin != cout) or not (1 <= th <= h and 1 <= tw <= w) or group < 1
+            or not 0 <= bufs <= 3 or ipb not in (1, 2) or (ipb == 2 and (th, tw) != (h, w))
+            or -(-cout // (64 * group)) > 65535):
         raise ValueError(
             f"mbconv kernel takes Cin, Ce, Cout % 8 == 0, k in (3, 5, 7), Cin == Ce without expand, "
-            f"Cin == Cout with residual, 1 <= B <= 65535; got x {tuple(x.shape)}, Ce={ce}, Cout={cout}, k={kernel}"
+            f"Cin == Cout with residual and a tile inside the plane; got x {tuple(x.shape)}, Ce={ce}, "
+            f"Cout={cout}, k={kernel}, plan {plan}"
         )
-    th, tw = tile
-    n_tiles = -(-h // th) * -(-w // tw)
-    dw = torch.empty((b, h, w, ce), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((b, n_tiles, ce), dtype=torch.float32, device=x.device)
     out = torch.empty((b, cout, h, w), dtype=torch.bfloat16, device=x.device, memory_format=torch.channels_last)
+    # with SE the depthwise output waits here for the gate (NHWC)
+    dw = torch.empty((b, h, w, ce), dtype=torch.bfloat16, device=x.device) if has_se else None
 
     def ptr(n: str) -> Optional[int]:
         return q[n].data_ptr() if n in q else None
@@ -486,23 +541,15 @@ def launch_mbconv(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(
-            lib.mbconv_expand_dw_launch(
-                x.data_ptr(), ptr("w_exp"), ptr("b_exp"), q["w_dw"].data_ptr(), q["b_dw"].data_ptr(),
-                dw.data_ptr(), part.data_ptr(), b, h, w, cin, ce, kernel, pad_low[0], pad_low[1], th, tw,
-                int(relu6), stream,
+            lib.mbconv_launch(
+                x.data_ptr(), ptr("w_exp_t"), q["dw_aux"].data_ptr(), None if dw is None else dw.data_ptr(),
+                ptr("w_se1"), ptr("b_se1"), ptr("w_se2"),
+                ptr("b_se2"), q["w_proj_t"].data_ptr(), q["b_proj"].data_ptr(), out.data_ptr(), b, h, w, cin, ce,
+                cout, s, kernel, pad_low[0], pad_low[1], th, tw, group, bufs, ipb, int(relu6), int(residual), stream,
             ),
-            "mbconv_expand_dw",
+            "mbconv",
         )
-        LAUNCHES["mbconv"] += 1
-        _raise_on(
-            lib.mbconv_se_project_launch(
-                dw.data_ptr(), part.data_ptr(), ptr("w_se1"), ptr("b_se1"), ptr("w_se2"), ptr("b_se2"),
-                q["w_proj"].data_ptr(), q["b_proj"].data_ptr(), x.data_ptr() if residual else None,
-                out.data_ptr(), b, h * w, ce, cout, s, n_tiles, stream,
-            ),
-            "mbconv_se_project",
-        )
-        LAUNCHES["mbconv"] += 1
+    LAUNCHES["mbconv"] += 1
     return out
 
 

@@ -11,394 +11,780 @@
 //
 // on activations in NHWC memory (PyTorch's channels_last), bf16 in and out.
 //
-// Design. The TPU kernel keeps one image's whole plane in VMEM; a Hopper
-// block has at most 227 KB of shared memory and B0's bf16 hidden planes
-// reach 882 KB (56x56x144), and the SE gate needs the whole plane before
-// the project. So the block runs as two launches:
-//   1. `expand_dw_kernel`: one block per (32 hidden channels, spatial tile
-//      of th x tw output pixels, image). It loads the tile's input halo
-//      ((th+k-1) x (tw+k-1) pixels, all Cin channels) into shared memory,
-//      recomputes the expand for those 32 channels on the halo with WMMA
-//      bf16 x bf16 -> fp32 (the halo overlap is recomputed, not exchanged),
-//      adds bias, applies the activation, rounds to bf16 and writes true
-//      zeros at halo pixels outside the image (SAME padding pads AFTER the
-//      expand, so the border taps must read 0, not act(b_exp)). The
-//      depthwise conv then runs on the CUDA cores in fp32 (weights in
-//      registers, one channel per thread), adds bias and activation, writes
-//      the output bf16 to `dw` [B, H, W, Ce] and the tile's fp32 channel
-//      sums over its real pixels to `part` [B, n_tiles, Ce].
-//   2. `se_project_kernel`: one block per (64 pixels, 64 output channels,
-//      image). It sums the image's `part` rows in tile order (a fixed
-//      order, no atomics: the result is the same run after run), divides by
-//      H*W, runs the SE MLP on the CUDA cores (widths 8..48 are no multiple
-//      of 16), then streams `dw` in 64-channel steps, scales it by the gate
-//      in fp32, rounds to bf16 and runs the project with WMMA; the epilogue
-//      adds bias and the bf16 residual in fp32 and writes bf16.
+// Bound. Per image the products are small (B0's largest, 14x14 at
+// 112->672->112, is 59 MFLOP) and the depthwise taps fewer still, so a
+// block's least time is one read of x and the weights and one write of y at
+// the memory rate, or its products at 989 TFLOP/s and its taps at 67
+// TFLOP/s of fp32 FMA, whichever is larger. This design adds one bf16 round
+// trip of the depthwise output through device memory where the block has SE
+// (2 * B*H*W*Ce bytes; 2.2 ms at the memory rate over B0's twelve blocks at
+// B = 1024, much of it served by L2).
+//
+// Design: one launch, one block of 512 threads per image (or per two at
+// 7x7), the TPU kernel's own shape (one image's plane in VMEM there). A
+// Hopper block has at most 227 KB of shared memory and B0's hidden planes
+// reach 882 KB (56x56x144), so a block walks its plane in spatial tiles (the
+// whole plane at 7x7 and 14x14) and the hidden channels in slabs of 64:
+//  - pass 0: per (tile, slab) the expand on the tile's input box and the
+//    depthwise; with SE the depthwise output, rounded to bf16, goes to a
+//    scratch tensor in device memory and its fp32 channel sums to the pool;
+//    then the SE MLP, once per image (the gate needs every channel's pool
+//    before the first project product);
+//  - pass 1: per (tile, slab) that output comes back by TMA as the `wgmma`
+//    A tile of the project, is scaled by the gate in fp32 and rounded in
+//    place, and the project's fp32 accumulators stay in registers across
+//    the slabs; the tile's epilogue adds bias and residual and writes bf16.
+//    Without SE the one pass writes the depthwise output straight into the
+//    A tile.
+// Products: `wgmma` bf16 -> fp32, A and B from shared memory (128-byte
+// swizzle, K-major): expand m64n32k16, A = the input box (pixels x Cin),
+// B = a slab of w_exp^T (32 hidden channels x Cin); project m64n64k16, A =
+// the depthwise tile (pixels x 64 channels), B = w_proj^T's slab (Cout x
+// 64). Copies: TMA. The input box is one 4-D box of the NHWC input per 64
+// input channels: the tile's halo, out-of-image pixels landing as zeros
+// (SAME padding; the expand forces its border pixels back to zero, since
+// SAME pads the hidden tensor, not x), or, with expand and one tile, the
+// bare plane, whose hidden halo has a zero border written once. A slab's
+// depthwise weights and biases (the host's `dw_aux` layout, [slab][k*k +
+// 2][64] fp32) come by one bulk copy beside its weight boxes. Weight slabs
+// and input boxes are double-buffered where they fit; warp 0 issues step
+// n+1's copies when step n starts. With SE the two passes share one weight
+// region (pass 0 reads only w_exp^T, pass 1 only w_proj^T).
+// Threads: four warpgroups (at most 128 registers a thread), so that 16
+// warps hide the phases' latencies (two warpgroups ran ~1.5x slower); the
+// expand is split into (64-row, 32-channel) units over them, the project
+// into (64-pixel, 64-channel) tiles. The depthwise runs on the CUDA cores in
+// fp32: an item is 4 consecutive output pixels of a row, a lane a channel
+// pair, the k + 3 halo values of each kernel row loaded once for the item's
+// 4 pixels, the swish through the fast exponential and division.
 // Rounding points are the TPU kernel's (hidden bf16; depthwise, SE pool,
 // SE MLP and scale fp32; scaled hidden bf16 before the project; fp32
-// project accumulator, bias and residual; bf16 out) plus one: the
-// depthwise output is stored in bf16 between the launches.
-// `kernels/plain.py::mbconv_plain` rounds at the same places.
-//
-// Bound and cost: a block's least work is one read of x and one write of y
-// (bytes bound for the 112x112 and 56x56 blocks) or its expand and project
-// products at 989 TFLOP/s and its depthwise taps at the 67 TFLOP/s fp32
-// CUDA-core rate. This design pays one bf16 round trip of the depthwise
-// output through device memory (2 * B*H*W*Ce bytes, about 2.2 ms over B0's
-// twelve stride-1 blocks at B=1024), the halo's share of recomputed expand
-// products, and one recomputation of the SE MLP per project block. WMMA
-// rather than wgmma, no cp.async/TMA pipelining: a simple, correct first
-// kernel.
+// project accumulator, bias and residual; bf16 out) plus one that
+// `kernels/plain.py::mbconv_plain` shares: the depthwise output is rounded
+// to bf16 before the gate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90_scan.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
+constexpr int THREADS = 512;  // four warpgroups, all consume; warp 0 issues the copies
+constexpr int WGS = THREADS / 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int CC = 32;        // hidden channels per expand_dw block (= warp size)
-constexpr int PAD = 8;        // bf16 row padding in shared memory
-constexpr int PT = 64;        // pixels per se_project block
-constexpr int NC = 64;        // output channels per se_project block
-constexpr int KC = 64;        // hidden channels per project K step
-constexpr int ACC_LD = NC + 4;
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory a Hopper block may opt in to
+constexpr int CS = 64;        // hidden channels per slab: one 128-byte line of bf16
+constexpr int LINE = 128;
+constexpr int NT_MAX = 3;     // project tiles (64 pixels x 64 channels) per warpgroup
+constexpr int PX = 4;         // output pixels of a row per depthwise item
+constexpr int MAX_SMEM = 232448;
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// Shared memory of one block; the host's `ops/mbconv_kernel.py::plane_smem`
+// computes the same numbers.
+struct Layout {
+    int hh, hw, halo, xrows, rx, ro, cin_ch, nslab, npt, n_tiles, tiles_w, xbufs, wbufs, aux, cep, s32;
+    bool xplane;
+    int off_x, off_wexp, off_wproj, off_aux, off_hid, off_dws, off_pool, off_s1, off_bproj, off_bar, total;
+};
+
+// (th, tw): the output tile; group: project tiles of 64 output channels a
+// block owns (the grid's y covers the rest, each block recomputing the
+// hidden tensor); bufs: bit 0 double-buffers the halo, bit 1 the weights;
+// ipb: images a block takes (2 only with a tile of the whole plane). With
+// expand and the whole plane in one tile the input box is the bare plane
+// (`xplane`): the expand runs on the image's pixels only and the hidden
+// halo's zero border is written once.
+__host__ __device__ inline Layout layout(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand,
+                                         int th, int tw, int group, int bufs, int ipb) {
+    Layout L;
+    L.hh = th + k - 1;
+    L.hw = tw + k - 1;
+    L.halo = L.hh * L.hw;
+    L.tiles_w = (W + tw - 1) / tw;
+    L.n_tiles = (H + th - 1) / th * L.tiles_w;
+    L.xplane = has_expand && L.n_tiles == 1;
+    L.xrows = ipb * (L.xplane ? H * W : L.halo);
+    L.rx = round_up(L.xrows, 64);  // whole 64-row expand tiles
+    L.ro = round_up(ipb * th * tw, 64);  // output rows: whole 64-row project tiles
+    L.cin_ch = (cin + CS - 1) / CS;
+    L.nslab = (ce + CS - 1) / CS;
+    L.npt = (cout + CS - 1) / CS;
+    if (group < L.npt) L.npt = group;
+    L.xbufs = L.n_tiles > 1 && (bufs & 1) ? 2 : 1;  // a whole plane stays resident across the passes
+    L.wbufs = bufs & 2 ? 2 : 1;
+    L.aux = round_up((k * k + 2) * CS * 4, 1024);  // a slab's w_dw rows, b_dw and b_exp (fp32)
+    L.cep = round_up(ce, CS);
+    L.s32 = round_up(S, 32);
+    int o = 0;
+    L.off_x = o;  o += L.xbufs * L.cin_ch * L.rx * LINE;
+    const int wexp = has_expand ? L.wbufs * L.cin_ch * 64 * LINE : 0, wproj = L.wbufs * L.npt * 64 * LINE;
+    L.off_wexp = o;
+    if (S > 0) {  // with SE pass 0 reads only w_exp^T, pass 1 only w_proj^T: one region
+        L.off_wproj = o;  o += wexp > wproj ? wexp : wproj;
+    } else {
+        o += wexp;
+        L.off_wproj = o;  o += wproj;
+    }
+    L.off_aux = o;  o += L.wbufs * L.aux;
+    L.off_hid = o;  o += has_expand ? round_up(ipb * L.halo * LINE, 1024) : 0;
+    // the project's A tile; before the project (pass 0 and the SE) the depthwise sums
+    L.off_dws = o;  o += L.ro * LINE > WARPS * ipb * CS * 4 ? L.ro * LINE : WARPS * ipb * CS * 4;
+    L.off_pool = o;  o += ipb * L.cep * 4;  // the pool, then the gate, of each image
+    L.off_s1 = o;  o += ipb * L.s32 * 4;
+    L.off_bproj = o;  o += round_up(cout, CS) * 4;
+    L.off_bar = o;  o += 4 * 8;
+    L.total = o + sm90::SMEM_ALIGN;
+    return L;
+}
+
+__host__ __device__ inline bool refused(const Layout& L) {
+    return L.total > MAX_SMEM || (L.ro / 64 * L.npt + WGS - 1) / WGS > NT_MAX;
+}
+
 __device__ __forceinline__ float swish(float v) { return v / (1.0f + expf(-v)); }
 
+// The activation of the expand and the depthwise: swish through the fast
+// exponential and division (a few ulp of fp32, far inside the bf16
+// rounding that follows both), or relu6.
 __device__ __forceinline__ float act(float v, int relu6) {
-    return relu6 ? fminf(fmaxf(v, 0.0f), 6.0f) : swish(v);
+    return relu6 ? fminf(fmaxf(v, 0.0f), 6.0f) : __fdividef(v, 1.0f + __expf(-v));
 }
 
-// Shared memory of one expand_dw block; ops/mbconv_kernel.py::expand_dw_smem
-// computes the same number to choose the tile.
-__host__ __device__ inline int expand_dw_smem(int th, int tw, int k, int cin, int has_expand) {
-    const int npp = round_up((th + k - 1) * (tw + k - 1), 16);
-    int total = npp * (CC + PAD) * 2 + THREADS * 4;
-    if (has_expand) {
-        const int cinp = round_up(cin, 16);
-        total += npp * (cinp + PAD) * 2 + cinp * (CC + PAD) * 2 + WARPS * 256 * 4;
-    }
-    return total;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-expand_dw_kernel(const __nv_bfloat16* __restrict__ x,      // [B, H, W, cin]
-                 const __nv_bfloat16* __restrict__ w_exp,  // [cin, ce] or null
-                 const float* __restrict__ b_exp,          // [ce]
-                 const float* __restrict__ w_dw,           // [K*K, ce]
-                 const float* __restrict__ b_dw,           // [ce]
-                 __nv_bfloat16* __restrict__ dw,           // [B, H, W, ce]
-                 float* __restrict__ part,                 // [B, n_tiles, ce]
-                 int H, int W, int cin, int ce, int pad_h, int pad_w,
-                 int th, int tw, int tiles_w, int n_tiles, int relu6) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int hh = th + K - 1, hw = tw + K - 1;
-    const int np = hh * hw;
-    const int npp = round_up(np, 16);
-    const int has_expand = w_exp != nullptr;
-    const int cinp = round_up(cin, 16);
-    __nv_bfloat16* hid_s = reinterpret_cast<__nv_bfloat16*>(smem);          // [npp][CC+PAD]
-    float* red_s = reinterpret_cast<float*>(hid_s + npp * (CC + PAD));       // [WARPS][CC]
-    __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(red_s + THREADS);  // [npp][cinp+PAD]
-    __nv_bfloat16* w_s = x_s + npp * (cinp + PAD);                           // [cinp][CC+PAD]
-    float* scr_s = reinterpret_cast<float*>(w_s + cinp * (CC + PAD));        // [WARPS][16*16]
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// One 4-D TMA box of an NHWC tensor at (channel c0, column c1, row c2, image c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(sm90::smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16) from global to shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                     sm90::smem_u32(dst)),
+                 "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+                 : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+struct Params {
+    const __nv_bfloat16* x;  // [B, H, W, cin]
+    __nv_bfloat16* dwg;      // [B, H, W, ce]: the depthwise output between the passes (with SE)
+    const float* aux;        // [nslab][k*k + 2][64]: per slab the w_dw rows, b_dw, b_exp
+    const float* w_se1;      // [ce, S] or null (no SE)
+    const float* b_se1;      // [S]
+    const float* w_se2;      // [S, ce]
+    const float* b_se2;      // [ce]
+    const float* b_proj;     // [cout]
+    __nv_bfloat16* out;      // [B, H, W, cout]
+    int B, H, W, cin, ce, cout, S, pad_h, pad_w, th, tw, group, bufs, ipb, has_expand, residual, relu6;
+};
+
+// grid (ceil(B / IPB), output-channel groups); 512 threads. xmap: x as
+// [B, H, W, cin], boxes [IPB, hh, hw, 64], or [IPB, H, W, 64] (the bare
+// plane, with expand and one tile), with the 128-byte swizzle with expand
+// (where they are the expand's A), none without (the depthwise input);
+// emap: w_exp^T [ce, cin], boxes [64 x 64]; pmap: w_proj^T [cout, ce],
+// boxes [64 x 64]; amap (with SE): the depthwise output [B, H, W, ce],
+// boxes [IPB, th, tw, 64], 128-byte swizzle (the project's A).
+//
+// With SE, pass 0 runs the expand and the depthwise and stores the bf16
+// depthwise output and the pool; after the SE gate, pass 1 loads each
+// (tile, slab) of that output as the project's A tile, scales it by the
+// gate and runs the project. Without SE one pass runs all three, the A
+// tile written by the depthwise.
+template <int K, int IPB>
+__global__ void __launch_bounds__(THREADS, 1)
+mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap emap,
+            const __grid_constant__ CUtensorMap pmap, const __grid_constant__ CUtensorMap amap, const Params p) {
+    const Layout L = layout(p.H, p.W, K, p.cin, p.ce, p.cout, p.S, p.has_expand, p.th, p.tw, p.group, p.bufs, IPB);
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    unsigned char* xs = smem + L.off_x;
+    unsigned char* wexp = smem + L.off_wexp;
+    unsigned char* wproj = smem + L.off_wproj;
+    unsigned char* dws = smem + L.off_dws;
+    float* pool_s = reinterpret_cast<float*>(smem + L.off_pool);  // [IPB][cep]: the pool, then the gate
+    float* s1_s = reinterpret_cast<float*>(smem + L.off_s1);      // [IPB][s32]
+    float* bproj_s = reinterpret_cast<float*>(smem + L.off_bproj);
+    float* red_s = reinterpret_cast<float*>(dws);  // [WARPS][IPB][64], while dws holds no A tile
+    uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + L.off_bar);  // [2]
+    uint64_t* xbar = wbar + 2;                                       // [2]
 
     const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    const int t = tid & 127;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    const int c0 = blockIdx.x * CC;
-    const int tile = blockIdx.y;
-    const int b = blockIdx.z;
-    const int ty0 = (tile / tiles_w) * th;
-    const int tx0 = (tile % tiles_w) * tw;
-    const int gy0 = ty0 - pad_h, gx0 = tx0 - pad_w;  // image coordinates of halo pixel 0
-    const size_t img = (size_t)b * H * W;
+    const int b0 = blockIdx.x * IPB;                      // this block's first image
+    const int o0 = blockIdx.y * p.group * 64;             // its first output channel
+    const int npt = min(L.npt, (p.cout - o0 + 63) / 64);  // its project tiles
+    const bool has_se = p.w_se1 != nullptr;
+    const int P0 = has_se ? L.n_tiles * L.nslab : 0;  // steps of pass 0
+    const int n_steps = P0 + L.n_tiles * L.nslab;
+    const int xb_rows = L.xplane ? p.H * p.W : L.halo;  // rows of one image's input box
+    const int x_buf = L.cin_ch * L.rx * LINE;
+    const int wexp_buf = L.cin_ch * 64 * LINE;
+    const int wproj_buf = L.npt * 64 * LINE;
+    const int aux_bytes = (K * K + 2) * CS * 4;
+    const bool x_per_tile = L.n_tiles > 1;  // the input box is loaded per tile, else once
+    const int th = p.th, tw = p.tw;
+    const int tpix = th * tw;  // output pixels of an image's tile
+    const int n_proj = (L.ro / 64) * npt;
 
-    if (has_expand) {
-        const int vpr = cinp / 8;
-        for (int v = tid; v < npp * vpr; v += THREADS) {
-            const int r = v / vpr, cv = v % vpr;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (r < np && cv * 8 < cin) {
-                const int gy = gy0 + r / hw, gx = gx0 + r % hw;
-                if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                    val = *reinterpret_cast<const uint4*>(x + (img + (size_t)gy * W + gx) * cin + cv * 8);
+    // step n: pass n < P0 ? 0 : 1, tile tile_of(n), slab n % nslab; the input box serves the steps
+    // that run the expand and depthwise (pass 0 with SE, the one pass without)
+    auto tile_of = [&](int n) { return (n < P0 ? n : n - P0) / L.nslab; };
+    auto runs_dw = [&](int n) { return !has_se || n < P0; };
+    auto abuf = [&](int n) { return (n - P0) & 1 ? xs : dws; };  // pass 1 with SE: the A tiles
+    // a step's copies: with SE pass 1 the A tile and the w_proj^T boxes; else the w_exp^T boxes
+    // (with expand), the w_proj^T boxes (without SE) and aux
+    auto w_bytes = [&](int n) {
+        if (!runs_dw(n)) return npt * 64 * LINE + IPB * tpix * LINE;
+        return (p.has_expand ? wexp_buf : 0) + (has_se ? 0 : npt * 64 * LINE) + aux_bytes;
+    };
+    // issued by warp 0, a copy a lane; lane 0 sets the expected bytes first
+    auto issue_weights = [&](int n) {
+        const int s = n % L.nslab, buf = n % L.wbufs, tile = tile_of(n);
+        if (lane == 0) sm90::mbar_arrive_expect_tx(&wbar[buf], w_bytes(n));
+        __syncwarp();
+        if (!runs_dw(n)) {
+            for (int e = lane; e <= npt; e += 32) {
+                if (e < npt)
+                    sm90::tma_load_2d(wproj + buf * wproj_buf + e * 64 * LINE, &pmap, &wbar[buf], s * CS, o0 + e * 64);
+                else
+                    tma_load_4d(abuf(n), &amap, &wbar[buf], s * CS, tile % L.tiles_w * tw, tile / L.tiles_w * th, b0);
             }
-            *reinterpret_cast<uint4*>(x_s + r * (cinp + PAD) + cv * 8) = val;
+            return;
         }
-        for (int v = tid; v < cinp * (CC / 8); v += THREADS) {
-            const int r = v / (CC / 8), cv = v % (CC / 8);
-            const int c = c0 + cv * 8;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (r < cin && c < ce) val = *reinterpret_cast<const uint4*>(w_exp + (size_t)r * ce + c);
-            *reinterpret_cast<uint4*>(w_s + r * (CC + PAD) + cv * 8) = val;
+        const int n_exp = p.has_expand ? L.cin_ch : 0, n_pb = has_se ? 0 : npt;
+        for (int e = lane; e <= n_exp + n_pb; e += 32) {
+            if (e < n_exp)
+                sm90::tma_load_2d(wexp + buf * wexp_buf + e * 64 * LINE, &emap, &wbar[buf], e * CS, s * CS);
+            else if (e < n_exp + n_pb)
+                sm90::tma_load_2d(wproj + buf * wproj_buf + (e - n_exp) * 64 * LINE, &pmap, &wbar[buf], s * CS,
+                                  o0 + (e - n_exp) * 64);
+            else
+                bulk_load(smem + L.off_aux + buf * L.aux, p.aux + (size_t)s * (K * K + 2) * CS, aux_bytes, &wbar[buf]);
         }
-        __syncthreads();
-        float* scr = scr_s + warp * 256;
-        for (int mf = warp; mf < npp / 16; mf += WARPS) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-            wmma::fill_fragment(acc0, 0.0f);
-            wmma::fill_fragment(acc1, 0.0f);
-            for (int k0 = 0; k0 < cinp; k0 += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1;
-                wmma::load_matrix_sync(a, x_s + mf * 16 * (cinp + PAD) + k0, cinp + PAD);
-                wmma::load_matrix_sync(b0, w_s + k0 * (CC + PAD), CC + PAD);
-                wmma::load_matrix_sync(b1, w_s + k0 * (CC + PAD) + 16, CC + PAD);
-                wmma::mma_sync(acc0, a, b0, acc0);
-                wmma::mma_sync(acc1, a, b1, acc1);
+    };
+    auto issue_x = [&](int tile) {
+        const int buf = tile % L.xbufs;
+        const int c1 = L.xplane ? 0 : tile % L.tiles_w * tw - p.pad_w;
+        const int c2 = L.xplane ? 0 : tile / L.tiles_w * th - p.pad_h;
+        if (lane == 0) sm90::mbar_arrive_expect_tx(&xbar[buf], L.cin_ch * IPB * xb_rows * LINE);
+        __syncwarp();
+        for (int c = lane; c < L.cin_ch; c += 32)
+            tma_load_4d(xs + buf * x_buf + c * L.rx * LINE, &xmap, &xbar[buf], c * CS, c1, c2, b0);
+    };
+
+    for (int c = tid; c < IPB * L.cep; c += THREADS) pool_s[c] = 0.0f;
+    for (int c = tid; c < p.cout; c += THREADS) bproj_s[c] = p.b_proj[c];
+    if (L.xplane) {  // the hidden halo's border stays zero: the expand writes only the plane
+        uint4* h = reinterpret_cast<uint4*>(smem + L.off_hid);
+        for (int i = tid; i < IPB * L.halo * LINE / 16; i += THREADS) h[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (!has_se) {  // the A tile's columns past a slab's channels are never written: zeros
+        uint4* a = reinterpret_cast<uint4*>(dws);
+        for (int i = tid; i < L.ro * LINE / 16; i += THREADS) a[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (tid == 0) {
+        for (int i = 0; i < 4; ++i) sm90::mbar_init(&wbar[i], 1);
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+    if (warp == 0) {
+        if (lane == 0) {
+            sm90::prefetch_map(&xmap);
+            if (p.has_expand) sm90::prefetch_map(&emap);
+            sm90::prefetch_map(&pmap);
+            if (has_se) sm90::prefetch_map(&amap);
+        }
+        issue_x(0);
+        issue_weights(0);
+    }
+    uint32_t wph = 0, xph = 0;  // phase bit of each buffer's barrier
+
+    // the start of step n: its copies (and with double buffers the next step's, but for the first
+    // step of pass 1, whose A tile lands where the depthwise sums live until the SE), then the waits
+    auto begin_step = [&](int n) {
+        const int s = n % L.nslab, tile = tile_of(n);
+        if (warp == 0) {
+            if (L.wbufs == 2) {
+                if (n + 1 < n_steps && !(has_se && n + 1 == P0)) issue_weights(n + 1);
+                if (has_se && n == P0 && n > 0) issue_weights(n);
+            } else if (n > 0) {
+                issue_weights(n);
             }
-            for (int nf = 0; nf < 2; ++nf) {
-                wmma::store_matrix_sync(scr, nf ? acc1 : acc0, 16, wmma::mem_row_major);
-                __syncwarp();
-                for (int e = lane; e < 256; e += 32) {
-                    const int r = mf * 16 + (e >> 4);
-                    const int c = nf * 16 + (e & 15);
-                    float v = 0.0f;
-                    if (r < np && c0 + c < ce) {
-                        const int gy = gy0 + r / hw, gx = gx0 + r % hw;
-                        if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = act(scr[e] + b_exp[c0 + c], relu6);
+            if (s == 0 && runs_dw(n)) {
+                if (L.xbufs == 2 && tile + 1 < L.n_tiles) issue_x(tile + 1);
+                if (L.xbufs == 1 && x_per_tile && tile > 0) issue_x(tile);
+            }
+        }
+        if (s == 0 && runs_dw(n) && (x_per_tile || tile == 0)) {
+            const int xb = tile % L.xbufs;
+            sm90::mbar_wait(&xbar[xb], (xph >> xb) & 1);
+            xph ^= 1u << xb;
+        }
+        const int wb = n % L.wbufs;
+        sm90::mbar_wait(&wbar[wb], (wph >> wb) & 1);
+        wph ^= 1u << wb;
+    };
+
+    // 1. the hidden slab of step n: act(x @ w_exp + b_exp) in (64-row, 32-channel) units, into
+    // the hidden halo [IPB][hh][hw][64]; zero outside the image (a bare-plane box covers only the
+    // image; a halo box's outer pixels are written as zeros). Without expand, the input box.
+    auto hidden = [&](int n, const unsigned char* xcur, const float* aux) -> const unsigned char* {
+        const int s = n % L.nslab, tile = tile_of(n);
+        if (!p.has_expand) return xcur + s * L.rx * LINE;
+        const int gy0 = tile / L.tiles_w * th - p.pad_h, gx0 = tile % L.tiles_w * tw - p.pad_w;
+        unsigned char* hid_w = smem + L.off_hid;
+        const unsigned char* we = wexp + (n % L.wbufs) * wexp_buf;
+        const int ksteps = (p.cin + 15) / 16;
+        for (int v = wg; v < L.rx / 64 * 2; v += WGS) {
+            const int m = v >> 1, half = v & 1;
+            float e[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) e[i] = 0.0f;
+            sm90::acc_fence(e);
+            sm90::wgmma_fence();
+            for (int ks = 0; ks < ksteps; ++ks) {
+                const int c = ks >> 2, kk = ks & 3;
+                wgmma_m64n32k16(e, sm90::sw128_desc(xcur + c * L.rx * LINE + m * 64 * LINE + 32 * kk),
+                                sm90::sw128_desc(we + c * 64 * LINE + half * 32 * LINE + 32 * kk));
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::acc_fence(e);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = m * 64 + sm90::acc_row(t, h);
+                if (r >= L.xrows) continue;
+                int hr;  // its row of the hidden halo
+                bool inside = true;
+                if (L.xplane) {
+                    const int i = r / (p.H * p.W), pr = r % (p.H * p.W);
+                    hr = i * L.halo + (pr / p.W + p.pad_h) * L.hw + pr % p.W + p.pad_w;
+                } else {
+                    const int gy = gy0 + r / L.hw, gx = gx0 + r % L.hw;
+                    inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+                    hr = r;
+                }
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int col = half * 32 + sm90::acc_col(t, j, 0);
+                    uint32_t w = 0;
+                    if (inside && s * CS + col < p.ce) {
+                        const float2 be = *reinterpret_cast<const float2*>(aux + (K * K + 1) * CS + col);
+                        w = pack_bf16(act(e[4 * j + 2 * h] + be.x, p.relu6), act(e[4 * j + 2 * h + 1] + be.y, p.relu6));
                     }
-                    hid_s[r * (CC + PAD) + c] = __float2bfloat16_rn(v);
+                    *reinterpret_cast<uint32_t*>(hid_w + hr * LINE + col * 2) = w;
                 }
-                __syncwarp();
             }
         }
-    } else {  // no expand (cin == ce): the hidden tensor is x itself
-        for (int v = tid; v < npp * (CC / 8); v += THREADS) {
-            const int r = v / (CC / 8), cv = v % (CC / 8);
-            const int c = c0 + cv * 8;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (r < np && c < ce) {
-                const int gy = gy0 + r / hw, gx = gx0 + r % hw;
-                if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                    val = *reinterpret_cast<const uint4*>(x + (img + (size_t)gy * W + gx) * cin + c);
+        __syncthreads();
+        return hid_w;
+    };
+
+    // 2. the depthwise of step n: an item is PX consecutive output pixels of a row of one image;
+    // a lane takes a channel pair of the slab (32 lanes an item, or 16 where the slab has at
+    // most 32 channels and a warp then takes two items at once); the PX + K - 1 halo values of
+    // each kernel row are loaded once for the item's PX pixels; the weights come from shared
+    // memory per tap. The output, rounded to bf16, goes to global memory with SE (and its fp32
+    // sums to red_s), else to the project's A tile.
+    auto depthwise = [&](int n, const unsigned char* hid, const float* aux) {
+        const int s = n % L.nslab, tile = tile_of(n);
+        const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
+        const int slab_ch = min(CS, p.ce - s * CS);
+        const int lpi = slab_ch > 32 ? 32 : 16;  // lanes per item
+        const int cp = lane % lpi;
+        const bool cok = 2 * cp < slab_ch;
+        const float2* wk = reinterpret_cast<const float2*>(aux) + cp;  // tap i at wk[i * CS / 2]
+        const float2 bdw = reinterpret_cast<const float2*>(aux + K * K * CS)[cp];
+        const int segs = (tw + PX - 1) / PX;  // items per output row
+        const int ipw = 32 / lpi;             // items per warp at once
+        float ps[IPB][2];                     // pool sums of each image
+#pragma unroll
+        for (int i = 0; i < IPB; ++i) ps[i][0] = ps[i][1] = 0.0f;
+        for (int it = warp * ipw + lane / lpi; it < IPB * th * segs; it += WARPS * ipw) {
+            const int im = it / (th * segs), ir = it % (th * segs);
+            const int py = ir / segs, px0 = ir % segs * PX;
+            const bool row_real = ty0 + py < p.H && cok && b0 + im < p.B;
+            float a[PX][2];
+#pragma unroll
+            for (int i = 0; i < PX; ++i) a[i][0] = a[i][1] = 0.0f;
+            if (row_real) {
+#pragma unroll
+                for (int di = 0; di < K; ++di) {
+                    const unsigned char* row = hid + (im * L.halo + (py + di) * L.hw) * LINE + 4 * cp;
+                    uint32_t v[PX + K - 1];
+#pragma unroll
+                    for (int j = 0; j < PX + K - 1; ++j)  // past the halo row only for pixels past the tile
+                        v[j] = *reinterpret_cast<const uint32_t*>(row + min(px0 + j, L.hw - 1) * LINE);
+#pragma unroll
+                    for (int dj = 0; dj < K; ++dj) {
+                        const float2 w = wk[(di * K + dj) * (CS / 2)];
+#pragma unroll
+                        for (int i = 0; i < PX; ++i) {
+                            a[i][0] = fmaf(bf16_lo(v[i + dj]), w.x, a[i][0]);
+                            a[i][1] = fmaf(bf16_hi(v[i + dj]), w.y, a[i][1]);
+                        }
+                    }
+                }
             }
-            *reinterpret_cast<uint4*>(hid_s + r * (CC + PAD) + cv * 8) = val;
-        }
-    }
-    __syncthreads();
-
-    // depthwise: thread (group, channel) walks the tile's pixels
-    const int c = tid % CC;
-    const int grp = tid / CC;
-    const int gc = c0 + c;
-    const bool cok = gc < ce;
-    float wk[K * K];
 #pragma unroll
-    for (int t = 0; t < K * K; ++t) wk[t] = cok ? w_dw[(size_t)t * ce + gc] : 0.0f;
-    const float bias = cok ? b_dw[gc] : 0.0f;
-    float psum = 0.0f;
-    for (int p = grp; p < th * tw; p += THREADS / CC) {
-        const int py = p / tw, px = p % tw;
-        const int oy = ty0 + py, ox = tx0 + px;
-        if (oy >= H || ox >= W) continue;
-        float a = 0.0f;
-#pragma unroll
-        for (int di = 0; di < K; ++di) {
-#pragma unroll
-            for (int dj = 0; dj < K; ++dj)
-                a = fmaf(__bfloat162float(hid_s[((py + di) * hw + px + dj) * (CC + PAD) + c]), wk[di * K + dj], a);
-        }
-        a = act(a + bias, relu6);
-        psum += a;
-        if (cok) dw[(img + (size_t)oy * W + ox) * ce + gc] = __float2bfloat16_rn(a);
-    }
-    red_s[grp * CC + c] = psum;
-    __syncthreads();
-    if (tid < CC && c0 + tid < ce) {
-        float s = 0.0f;
-        for (int g = 0; g < THREADS / CC; ++g) s += red_s[g * CC + tid];
-        part[((size_t)b * n_tiles + tile) * ce + c0 + tid] = s;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-se_project_kernel(const __nv_bfloat16* __restrict__ dw,      // [B, HW, ce]
-                  const float* __restrict__ part,            // [B, n_tiles, ce]
-                  const float* __restrict__ w_se1,           // [ce, S] or null
-                  const float* __restrict__ b_se1,           // [S]
-                  const float* __restrict__ w_se2,           // [S, ce]
-                  const float* __restrict__ b_se2,           // [ce]
-                  const __nv_bfloat16* __restrict__ w_proj,  // [ce, cout]
-                  const float* __restrict__ b_proj,          // [cout]
-                  const __nv_bfloat16* __restrict__ x_res,   // [B, HW, cout] or null
-                  __nv_bfloat16* __restrict__ out,           // [B, HW, cout]
-                  int HW, int ce, int cout, int S, int n_tiles) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int cep = round_up(ce, 32);
-    float* gate_s = reinterpret_cast<float*>(smem);                              // [cep]
-    float* s1_s = gate_s + cep;                                                  // [round_up(S, 32)]
-    __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(s1_s + round_up(S, 32));  // [PT][KC+PAD]
-    __nv_bfloat16* w_s = h_s + PT * (KC + PAD);                                  // [KC][NC+PAD]
-    float* acc_s = reinterpret_cast<float*>(h_s);  // [PT][ACC_LD], after the K loop
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int p0 = blockIdx.x * PT;
-    const int n0 = blockIdx.y * NC;
-    const int b = blockIdx.z;
-    const bool has_se = w_se1 != nullptr;
-
-    if (has_se) {
-        // pool: the image's tile sums in tile order, then the mean
-        for (int c = tid; c < ce; c += THREADS) {
-            const float* pp = part + (size_t)b * n_tiles * ce + c;
-            float s = 0.0f;
-            for (int t = 0; t < n_tiles; ++t) s += pp[(size_t)t * ce];
-            gate_s[c] = s / (float)HW;
-        }
-        __syncthreads();
-        for (int j = warp; j < S; j += WARPS) {
-            float a = 0.0f;
-            for (int c = lane; c < ce; c += 32) a = fmaf(gate_s[c], w_se1[(size_t)c * S + j], a);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-            if (lane == 0) s1_s[j] = swish(a + b_se1[j]);
-        }
-        __syncthreads();
-        for (int c = tid; c < ce; c += THREADS) {
-            float a = 0.0f;
-            for (int j = 0; j < S; ++j) a = fmaf(s1_s[j], w_se2[(size_t)j * ce + c], a);
-            gate_s[c] = 1.0f / (1.0f + expf(-(a + b_se2[c])));
-        }
-        __syncthreads();
-    }
-
-    const int mf = warp >> 1;       // 16-pixel slice
-    const int nf = (warp & 1) * 2;  // first of two 16-channel slices
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-    wmma::fill_fragment(acc0, 0.0f);
-    wmma::fill_fragment(acc1, 0.0f);
-    const size_t img = (size_t)b * HW;
-    for (int kc = 0; kc < ce; kc += KC) {
-        for (int v = tid; v < PT * (KC / 8); v += THREADS) {
-            const int r = v / (KC / 8), cv = v % (KC / 8);
-            const int c = kc + cv * 8, p = p0 + r;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (p < HW && c < ce) {
-                val = *reinterpret_cast<const uint4*>(dw + (img + p) * ce + c);
+            for (int i = 0; i < PX; ++i) {
+                const int px = px0 + i;
+                if (px >= tw) break;
+                const bool real = row_real && tx0 + px < p.W;
+                const float a0 = real ? act(a[i][0] + bdw.x, p.relu6) : 0.0f;
+                const float a1 = real ? act(a[i][1] + bdw.y, p.relu6) : 0.0f;
                 if (has_se) {
-                    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+                    if (real) {
+                        const size_t pix = ((size_t)(b0 + im) * p.H + ty0 + py) * p.W + tx0 + px;
+                        *reinterpret_cast<uint32_t*>(p.dwg + pix * p.ce + s * CS + 2 * cp) = pack_bf16(a0, a1);
+                    }
 #pragma unroll
-                    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * gate_s[c + i]);
+                    for (int j = 0; j < IPB; ++j)
+                        if (im == j) {
+                            ps[j][0] += a0;
+                            ps[j][1] += a1;
+                        }
+                } else {
+                    const int q = im * tpix + py * tw + px;  // a row of the project's A tile
+                    *reinterpret_cast<uint32_t*>(dws + q * LINE + (((cp >> 2) ^ (q & 7)) << 4) + 4 * (cp & 3)) =
+                        real ? pack_bf16(a0, a1) : 0u;
                 }
             }
-            *reinterpret_cast<uint4*>(h_s + r * (KC + PAD) + cv * 8) = val;
         }
-        for (int v = tid; v < KC * (NC / 8); v += THREADS) {
-            const int r = v / (NC / 8), cv = v % (NC / 8);
-            const int c = kc + r, n = n0 + cv * 8;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (c < ce && n < cout) val = *reinterpret_cast<const uint4*>(w_proj + (size_t)c * cout + n);
-            *reinterpret_cast<uint4*>(w_s + r * (NC + PAD) + cv * 8) = val;
-        }
-        __syncthreads();
+        if (has_se) {
 #pragma unroll
-        for (int k0 = 0; k0 < KC; k0 += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1;
-            wmma::load_matrix_sync(a, h_s + mf * 16 * (KC + PAD) + k0, KC + PAD);
-            wmma::load_matrix_sync(b0, w_s + k0 * (NC + PAD) + nf * 16, NC + PAD);
-            wmma::load_matrix_sync(b1, w_s + k0 * (NC + PAD) + (nf + 1) * 16, NC + PAD);
-            wmma::mma_sync(acc0, a, b0, acc0);
-            wmma::mma_sync(acc1, a, b1, acc1);
+            for (int im = 0; im < IPB; ++im) {
+                float p0 = ps[im][0], p1 = ps[im][1];
+                if (lpi == 16) {  // the warp's two items share their channels
+                    p0 += __shfl_xor_sync(0xffffffffu, p0, 16);
+                    p1 += __shfl_xor_sync(0xffffffffu, p1, 16);
+                }
+                if (lane < lpi) {
+                    red_s[(warp * IPB + im) * CS + 2 * cp] = p0;
+                    red_s[(warp * IPB + im) * CS + 2 * cp + 1] = p1;
+                }
+            }
+        } else {
+            sm90::fence_proxy_async();  // the A tile, written here, is read by wgmma
         }
+    };
+
+    // 3. the project of step n: this warpgroup's (64-pixel, 64-channel) tiles += A tile x w_proj^T
+    // slab; after the last slab the tile's epilogue: bias, residual (x from the input box without
+    // SE, from global memory with it), bf16 out
+    auto project = [&](int n, const unsigned char* a_tile, const unsigned char* xcur, float (&acc)[NT_MAX][32]) {
+        const int s = n % L.nslab, tile = tile_of(n);
+        const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
+        const unsigned char* wp = wproj + (n % L.wbufs) * wproj_buf;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < NT_MAX; ++i) {
+            const int tile_i = wg + WGS * i;
+            if (tile_i < n_proj) {
+                const int m = tile_i / npt, j = tile_i % npt;
+                sm90::acc_fence(acc[i]);
+#pragma unroll
+                for (int kk = 0; kk < CS / 16; ++kk)
+                    wgmma_m64n64k16(acc[i], sm90::sw128_desc(a_tile + m * 64 * LINE + 32 * kk),
+                                    sm90::sw128_desc(wp + j * 64 * LINE + 32 * kk));
+            }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < NT_MAX; ++i) sm90::acc_fence(acc[i]);
+        if (s != L.nslab - 1) return;
+#pragma unroll
+        for (int i = 0; i < NT_MAX; ++i) {
+            const int tile_i = wg + WGS * i;
+            if (tile_i >= n_proj) continue;
+            const int m = tile_i / npt, jt = tile_i % npt;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int q = m * 64 + sm90::acc_row(t, h);
+                const int im = q / tpix, py = q % tpix / tw, px = q % tw;
+                const int oy = ty0 + py, ox = tx0 + px;
+                if (q >= IPB * tpix || b0 + im >= p.B || oy >= p.H || ox >= p.W) continue;
+                const size_t pix = ((size_t)(b0 + im) * p.H + oy) * p.W + ox;
+                // its row of the input box
+                const int xr = L.xplane ? im * p.H * p.W + oy * p.W + ox
+                                        : im * L.halo + (py + p.pad_h) * L.hw + px + p.pad_w;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int o = o0 + jt * 64 + sm90::acc_col(t, j, 0);
+                    if (o >= p.cout) continue;
+                    float y0 = acc[i][4 * j + 2 * h] + bproj_s[o];
+                    float y1 = acc[i][4 * j + 2 * h + 1] + bproj_s[o + 1];
+                    if (p.residual) {
+                        uint32_t r;
+                        if (has_se) {
+                            r = *reinterpret_cast<const uint32_t*>(p.x + pix * p.cin + o);
+                        } else {
+                            const int c = o & 63;  // swizzled with expand
+                            const int u = p.has_expand ? (c >> 3) ^ (xr & 7) : c >> 3;
+                            r = *reinterpret_cast<const uint32_t*>(xcur + (o >> 6) * L.rx * LINE + xr * LINE + u * 16 +
+                                                                   (c & 7) * 2);
+                        }
+                        y0 += bf16_lo(r);
+                        y1 += bf16_hi(r);
+                    }
+                    *reinterpret_cast<uint32_t*>(p.out + pix * p.cout + o) = pack_bf16(y0, y1);
+                }
+            }
+        }
+    };
+
+    // pass 0 (with SE): expand, depthwise to global memory, the pool
+    for (int n = 0; n < P0; ++n) {
+        const int s = n % L.nslab;
+        begin_step(n);
+        const float* aux = reinterpret_cast<const float*>(smem + L.off_aux + (n % L.wbufs) * L.aux);
+        const unsigned char* xcur = xs + (tile_of(n) % L.xbufs) * x_buf;
+        const unsigned char* hid = hidden(n, xcur, aux);
+        depthwise(n, hid, aux);
+        __syncthreads();
+        // the pool: the slab's channel sums in warp order, tiles in order
+        if (tid < IPB * CS && s * CS + tid % CS < p.ce) {
+            const int im = tid / CS, c = tid % CS;
+            float sum = 0.0f;
+            for (int w = 0; w < WARPS; ++w) sum += red_s[(w * IPB + im) * CS + c];
+            pool_s[im * L.cep + s * CS + c] += sum;
+        }
+        __syncthreads();  // the step's buffers are free for the next copies into them
+    }
+    if (has_se) {
+        // the SE gate of each image, once: the mean; the MLP, warp w summing the channels c = w
+        // mod WARPS for 32 hidden units at a time (lane j), the warps meeting in red_s; the
+        // sigmoid, written over the pool
+        for (int c = tid; c < IPB * L.cep; c += THREADS) pool_s[c] = pool_s[c] / (float)(p.H * p.W);
+        __syncthreads();
+        for (int im = 0; im < IPB; ++im) {
+            const float* mean = pool_s + im * L.cep;
+            for (int j0 = 0; j0 < p.S; j0 += 32) {
+                const int j = j0 + lane;
+                float a = 0.0f;
+                if (j < p.S) {
+#pragma unroll 8
+                    for (int c = warp; c < p.ce; c += WARPS) a = fmaf(mean[c], p.w_se1[(size_t)c * p.S + j], a);
+                }
+                red_s[warp * CS + lane] = a;
+                __syncthreads();
+                if (tid < 32 && j < p.S) {
+                    float sum = 0.0f;
+                    for (int w = 0; w < WARPS; ++w) sum += red_s[w * CS + tid];
+                    s1_s[im * L.s32 + j] = swish(sum + p.b_se1[j]);
+                }
+                __syncthreads();
+            }
+        }
+        for (int c0 = tid; c0 < IPB * p.ce; c0 += 2 * THREADS) {  // two (image, channel)s a thread at once
+            float a[2] = {0.0f, 0.0f};
+            int im[2], c[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+                im[u] = (c0 + u * THREADS) / p.ce;
+                c[u] = (c0 + u * THREADS) % p.ce;
+            }
+#pragma unroll 4
+            for (int j = 0; j < p.S; ++j) {
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                    if (c0 + u * THREADS < IPB * p.ce)
+                        a[u] = fmaf(s1_s[im[u] * L.s32 + j], p.w_se2[(size_t)j * p.ce + c[u]], a[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+                if (c0 + u * THREADS < IPB * p.ce)
+                    pool_s[im[u] * L.cep + c[u]] = 1.0f / (1.0f + expf(-(a[u] + p.b_se2[c[u]])));
+        }
+        // this block's depthwise output, written by its threads, is read back by TMA in pass 1
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
         __syncthreads();
     }
-    wmma::store_matrix_sync(acc_s + mf * 16 * ACC_LD + nf * 16, acc0, ACC_LD, wmma::mem_row_major);
-    wmma::store_matrix_sync(acc_s + mf * 16 * ACC_LD + (nf + 1) * 16, acc1, ACC_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int v = tid; v < PT * NC; v += THREADS) {
-        const int r = v / NC, n = v % NC;
-        const int p = p0 + r, gn = n0 + n;
-        if (p < HW && gn < cout) {
-            float y = acc_s[r * ACC_LD + n] + b_proj[gn];
-            if (x_res != nullptr) y += __bfloat162float(x_res[(img + p) * cout + gn]);
-            out[(img + p) * cout + gn] = __float2bfloat16_rn(y);
+
+    // pass 1: with SE the stored depthwise output, scaled by the gate, into the project; without,
+    // expand, depthwise and project (two loops: the first keeps the depthwise's registers free of
+    // the project's accumulators)
+    float acc[NT_MAX][32];  // the project's accumulators, this warpgroup's tiles
+    auto zero_acc = [&]() {
+#pragma unroll
+        for (int i = 0; i < NT_MAX; ++i)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[i][e] = 0.0f;
+    };
+    if (has_se) {
+        for (int n = P0; n < n_steps; ++n) {
+            const int s = n % L.nslab;
+            begin_step(n);
+            if (s == 0) zero_acc();
+            // round(round(a) * gate): the A tile, in place (16 bytes, 8 channels, a thread at a time)
+            unsigned char* at = abuf(n);
+            for (int u = tid; u < IPB * tpix * 8; u += THREADS) {
+                const int row = u >> 3, im = row / tpix;
+                const int c = s * CS + (((u & 7) ^ (row & 7)) << 3);  // its first channel
+                uint4* v = reinterpret_cast<uint4*>(at + row * LINE + (u & 7) * 16);
+                uint4 x = *v;
+                uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+                const float* g = pool_s + im * L.cep + c;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) w[e] = pack_bf16(bf16_lo(w[e]) * g[2 * e], bf16_hi(w[e]) * g[2 * e + 1]);
+                *v = x;
+            }
+            sm90::fence_proxy_async();
+            __syncthreads();
+            project(n, at, xs, acc);
+            __syncthreads();  // the step's buffers are free for the next copies into them
+        }
+    } else {
+        for (int n = 0; n < n_steps; ++n) {
+            const int s = n % L.nslab;
+            begin_step(n);
+            if (s == 0) zero_acc();
+            const float* aux = reinterpret_cast<const float*>(smem + L.off_aux + (n % L.wbufs) * L.aux);
+            const unsigned char* xcur = xs + (tile_of(n) % L.xbufs) * x_buf;
+            depthwise(n, hidden(n, xcur, aux), aux);
+            __syncthreads();
+            project(n, dws, xcur, acc);
+            __syncthreads();  // the step's buffers are free for the next copies into them
         }
     }
 }
 
-int se_project_smem(int ce, int S) {
-    const int stage = PT * (KC + PAD) * 2 + KC * (NC + PAD) * 2;
-    const int acc = PT * ACC_LD * 4;
-    return (round_up(ce, 32) + round_up(S, 32)) * 4 + (stage > acc ? stage : acc);
+// The 4-D map of an NHWC tensor [B, H, W, C] read in boxes [ipb, hh, hw, 64].
+int encode_nhwc_map(CUtensorMap* map, const void* base, int B, int H, int W, int C, int ipb, int hh, int hw,
+                    bool swizzle) {
+    const sm90::EncodeTiledFn fn = sm90::encode_tiled();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)CS, (cuuint32_t)hw, (cuuint32_t)hh, (cuuint32_t)ipb};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int K>
-cudaError_t launch_expand_dw(const void* x, const void* w_exp, const void* b_exp, const void* w_dw,
-                             const void* b_dw, void* dw, void* part, int B, int H, int W, int cin, int ce,
-                             int pad_h, int pad_w, int th, int tw, int relu6, cudaStream_t stream) {
-    const int smem = expand_dw_smem(th, tw, K, cin, w_exp != nullptr);
-    if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-    static bool opted_in = false;  // once per kernel: the limit, not the size, is set
+template <int K, int IPB>
+int launch(const Params& p, int B, const void* w_exp_t, const void* w_proj_t, cudaStream_t stream) {
+    const Layout L =
+        layout(p.H, p.W, K, p.cin, p.ce, p.cout, p.S, p.has_expand, p.th, p.tw, p.group, p.bufs, p.ipb);
+    if (refused(L) || L.hh > 256 || L.hw > 256) return (int)cudaErrorInvalidValue;
+    CUtensorMap xmap, emap, pmap;
+    int err = L.xplane ? encode_nhwc_map(&xmap, p.x, B, p.H, p.W, p.cin, p.ipb, p.H, p.W, true)
+                       : encode_nhwc_map(&xmap, p.x, B, p.H, p.W, p.cin, p.ipb, L.hh, L.hw, p.has_expand != 0);
+    // without expand the map is unused: any valid map will do
+    if (err == 0)
+        err = p.has_expand ? sm90::encode_bf16_map(&emap, w_exp_t, p.cin, p.ce, (long)p.cin * 2, 64)
+                           : sm90::encode_bf16_map(&emap, w_proj_t, p.ce, p.cout, (long)p.ce * 2, 64);
+    if (err == 0) err = sm90::encode_bf16_map(&pmap, w_proj_t, p.ce, p.cout, (long)p.ce * 2, 64);
+    // the stored depthwise output, with SE (without, any valid map will do)
+    CUtensorMap amap;
+    if (err == 0)
+        err = p.dwg != nullptr ? encode_nhwc_map(&amap, p.dwg, B, p.H, p.W, p.ce, IPB, p.th, p.tw, true)
+                               : encode_nhwc_map(&amap, p.x, B, p.H, p.W, p.cin, IPB, p.th, p.tw, true);
+    if (err != 0) return err;
+    static int opted_in = 0;  // once per kernel: the limit, not the size, is set
     if (!opted_in) {
-        cudaError_t err = cudaFuncSetAttribute(expand_dw_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-        if (err != cudaSuccess) return err;
-        opted_in = true;
+        const cudaError_t e =
+            cudaFuncSetAttribute(mbconv_sm90<K, IPB>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+        if (e != cudaSuccess) return (int)e;
+        opted_in = 1;
     }
-    const int tiles_h = (H + th - 1) / th, tiles_w = (W + tw - 1) / tw;
-    dim3 grid((ce + CC - 1) / CC, tiles_h * tiles_w, B);
-    expand_dw_kernel<K><<<grid, THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w_exp),
-        static_cast<const float*>(b_exp), static_cast<const float*>(w_dw), static_cast<const float*>(b_dw),
-        static_cast<__nv_bfloat16*>(dw), static_cast<float*>(part), H, W, cin, ce, pad_h, pad_w, th, tw,
-        tiles_w, tiles_h * tiles_w, relu6);
-    return cudaGetLastError();
+    const int groups = ((p.cout + 63) / 64 + p.group - 1) / p.group;
+    mbconv_sm90<K, IPB><<<dim3((B + IPB - 1) / IPB, groups), THREADS, L.total, stream>>>(xmap, emap, pmap, amap, p);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// First launch: expand (when w_exp is not null) + depthwise + activation of
-// one stride-1 block; writes dw [B, H, W, ce] bf16 and part [B, n_tiles, ce]
-// fp32 (n_tiles = ceil(H/th) * ceil(W/tw)). k is 3, 5 or 7; cin, ce % 8 == 0.
-extern "C" int mbconv_expand_dw_launch(const void* x, const void* w_exp, const void* b_exp, const void* w_dw,
-                                       const void* b_dw, void* dw, void* part, int B, int H, int W, int cin,
-                                       int ce, int k, int pad_h, int pad_w, int th, int tw, int relu6,
-                                       cudaStream_t stream) {
-    if (B < 1 || B > 65535 || cin % 8 || ce % 8 || th < 1 || tw < 1 || (w_exp == nullptr && cin != ce))
-        return (int)cudaErrorInvalidValue;
-    switch (k) {
-        case 3: return (int)launch_expand_dw<3>(x, w_exp, b_exp, w_dw, b_dw, dw, part, B, H, W, cin, ce, pad_h, pad_w, th, tw, relu6, stream);
-        case 5: return (int)launch_expand_dw<5>(x, w_exp, b_exp, w_dw, b_dw, dw, part, B, H, W, cin, ce, pad_h, pad_w, th, tw, relu6, stream);
-        case 7: return (int)launch_expand_dw<7>(x, w_exp, b_exp, w_dw, b_dw, dw, part, B, H, W, cin, ce, pad_h, pad_w, th, tw, relu6, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+// Shared memory of one block for the plan (th, tw, group, bufs, ipb) (see
+// `layout`), or -1 if the kernel refuses it (more than 227 KB, more than
+// NT_MAX project tiles per warpgroup, two images without the whole plane
+// in one tile or at k = 7, which no instance takes).
+extern "C" int mbconv_smem(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand, int th, int tw,
+                           int group, int bufs, int ipb) {
+    const Layout L = layout(H, W, k, cin, ce, cout, S, has_expand, th, tw, group, bufs, ipb);
+    return refused(L) || ipb < 1 || ipb > 2 || (ipb > 1 && (L.n_tiles > 1 || k == 7)) ? -1 : L.total;
 }
 
-// Second launch: SE gate (when w_se1 is not null; S its width) from the
-// first launch's tile sums, scale, project, bias and residual (when x_res
-// is not null, cout == cin); writes out [B, hw, cout] bf16.
-extern "C" int mbconv_se_project_launch(const void* dw, const void* part, const void* w_se1, const void* b_se1,
-                                        const void* w_se2, const void* b_se2, const void* w_proj,
-                                        const void* b_proj, const void* x_res, void* out, int B, int hw, int ce,
-                                        int cout, int S, int n_tiles, cudaStream_t stream) {
-    if (B < 1 || B > 65535 || ce % 8 || cout % 8 || (w_se1 != nullptr && S < 1)) return (int)cudaErrorInvalidValue;
-    const int smem = se_project_smem(ce, S);
-    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    static bool opted_in = false;
-    if (!opted_in) {
-        cudaError_t err = cudaFuncSetAttribute(se_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-        if (err != cudaSuccess) return (int)err;
-        opted_in = true;
+// One stride-1 block: x [B, H, W, cin] bf16; w_exp_t [ce, cin] bf16 (null:
+// no expand, cin == ce); aux [ceil(ce / 64)][k*k + 2][64] fp32: per slab of
+// 64 hidden channels the w_dw rows, b_dw and b_exp (zero past ce); w_se1
+// [ce, S], b_se1 [S], w_se2 [S, ce], b_se2 [ce] (w_se1 null: no SE);
+// w_proj_t [cout, ce] bf16, b_proj [cout]; residual adds x (cout == cin);
+// dw [B, H, W, ce] bf16 scratch (with SE: the depthwise output between
+// the passes; null without);
+// out [B, H, W, cout] bf16. The plan (th, tw, group, bufs, ipb) as for
+// mbconv_smem; k is 3, 5 or 7; cin, ce, cout % 8 == 0; all pointers
+// 16-byte aligned. Returns a cudaError_t.
+extern "C" int mbconv_launch(const void* x, const void* w_exp_t, const void* aux, void* dw, const void* w_se1,
+                             const void* b_se1, const void* w_se2, const void* b_se2, const void* w_proj_t,
+                             const void* b_proj, void* out, int B, int H, int W, int cin, int ce, int cout, int S,
+                             int k, int pad_h, int pad_w, int th, int tw, int group, int bufs, int ipb, int relu6,
+                             int residual, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || cin % 8 || ce % 8 || cout % 8 || th < 1 || tw < 1 || th > H || tw > W ||
+        group < 1 || bufs < 0 || bufs > 3 || ipb < 1 || ipb > 2 || (ipb > 1 && (th != H || tw != W)) ||
+        (w_exp_t == nullptr && cin != ce) || (residual && cin != cout) ||
+        (w_se1 != nullptr && (S < 1 || dw == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const Params p{(const __nv_bfloat16*)x, w_se1 != nullptr ? (__nv_bfloat16*)dw : nullptr, (const float*)aux,
+                   (const float*)w_se1, (const float*)b_se1,
+                   (const float*)w_se2, (const float*)b_se2, (const float*)b_proj, (__nv_bfloat16*)out,
+                   B, H, W, cin, ce, cout, w_se1 != nullptr ? S : 0, pad_h, pad_w, th, tw, group, bufs, ipb,
+                   w_exp_t != nullptr, residual != 0, relu6};
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (k * 2 + ipb - 1) {
+        case 6: return launch<3, 1>(p, B, w_exp_t, w_proj_t, s);
+        case 7: return launch<3, 2>(p, B, w_exp_t, w_proj_t, s);
+        case 10: return launch<5, 1>(p, B, w_exp_t, w_proj_t, s);
+        case 11: return launch<5, 2>(p, B, w_exp_t, w_proj_t, s);
+        case 14: return launch<7, 1>(p, B, w_exp_t, w_proj_t, s);
+        default: return (int)cudaErrorInvalidValue;  // two images a block only at k = 3 and 5
     }
-    dim3 grid((hw + PT - 1) / PT, (cout + NC - 1) / NC, B);
-    se_project_kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(dw), static_cast<const float*>(part), static_cast<const float*>(w_se1),
-        static_cast<const float*>(b_se1), static_cast<const float*>(w_se2), static_cast<const float*>(b_se2),
-        static_cast<const __nv_bfloat16*>(w_proj), static_cast<const float*>(b_proj),
-        static_cast<const __nv_bfloat16*>(x_res), static_cast<__nv_bfloat16*>(out), hw, ce, cout,
-        w_se1 != nullptr ? S : 0, n_tiles);
-    return (int)cudaGetLastError();
 }

@@ -168,15 +168,19 @@ def topk_l2_plain(
     precise: bool = False,
     row_mask: Optional[torch.Tensor] = None,
     chunk_rows: int = 65536,
+    floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact L2 top-k for any k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32
     from the stored values, rows >= n_valid excluded, ties to the lowest row
     index, empty slots ``(BIG_DIST, -1)``. ``window=(start, end)`` zeroes
     the feature lanes outside ``[start, end)`` in q, g and |q|^2.
     ``precise`` takes fp32 queries and contracts in fp32 (never TF32).
-    Query rows where ``row_mask`` is False come back empty. Returns raw
-    squared distances ``[B, k]`` fp32 and indices ``[B, k]`` int32
-    (counterpart of ``_topk_kernel``, ops/distance_kernel.py:92).
+    Query rows where ``row_mask`` is False come back empty.
+    ``floor=(d [B], row [B])``, a slab of a larger top-k: only (d, row)
+    strictly after the query's floor enter (row -1: an empty floor, so
+    nothing does). Returns raw squared distances ``[B, k]`` fp32 and
+    indices ``[B, k]`` int32 (counterpart of ``_topk_kernel``,
+    ops/distance_kernel.py:92).
 
     Works through ``chunk_rows`` rows at a time: each chunk's distances
     join the carried top-k, and ``torch.topk`` of the int64 keys ``(fp32
@@ -194,6 +198,11 @@ def topk_l2_plain(
     qsq = (qf * qf).sum(dim=1, keepdim=True)
     empty = (torch.tensor(BIG_DIST, dtype=torch.float32).view(torch.int32).to(torch.int64) << 32).item()
     best = torch.full((b, k), empty, dtype=torch.int64, device=q.device)  # (BIG_DIST, row -1)
+    floor_key = None
+    if floor is not None:
+        fd, fi = floor[0].to(torch.float32).contiguous(), floor[1].to(torch.int64)
+        floor_key = torch.where(fi < 0, torch.iinfo(torch.int64).max,
+                                ((fd.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32) | (fi + 1))[:, None]
     for r0 in range(0, n, chunk_rows):
         r1 = min(r0 + chunk_rows, n)
         gf = g[r0:r1].to(torch.float32)
@@ -203,6 +212,8 @@ def topk_l2_plain(
         d = torch.clamp_min((qsq + gsq[None, :]) - 2.0 * (qf @ gf.T), 0.0)
         bits = d.view(torch.int32).to(torch.int64) & 0x7FFFFFFF  # -0.0 as 0.0
         keys = (bits << 32) | torch.arange(r0 + 1, r1 + 1, device=q.device)
+        if floor_key is not None:
+            keys = torch.where(keys > floor_key, keys, empty)
         best = torch.topk(torch.cat([best, keys], dim=1), k, dim=1, largest=False, sorted=True).values
     best_d = (best >> 32).to(torch.int32).view(torch.float32)
     best_i = ((best & 0xFFFFFFFF) - 1).to(torch.int32)
@@ -210,6 +221,20 @@ def topk_l2_plain(
         best_d = torch.where(row_mask[:, None], best_d, BIG_DIST)
         best_i = torch.where(row_mask[:, None], best_i, -1)
     return best_d, best_i
+
+
+def split_bf16x3(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 terms ``kernels/topk_l2.cu``'s ``split_queries`` makes
+    of fp32 queries for the precise pass over bf16 rows: ``hi = bf16(q)``,
+    ``mid = bf16(q - hi)``, ``lo = bf16(q - hi - mid)``, each difference
+    exact in fp32 and each rounding to nearest even, so that ``hi + mid +
+    lo`` is ``q`` to ~2^-27 relative (2^-134 absolute among subnormals)."""
+    qf = q.to(torch.float32)
+    hi = qf.to(torch.bfloat16)
+    r = qf - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def chi2_nn_plain(
@@ -252,6 +277,15 @@ def act_plain(x: torch.Tensor, activation: str) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0) if activation == "relu6" else F.silu(x)
 
 
+def dw_rows(q: Dict[str, torch.Tensor], kernel: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(w_dw [k*k, Ce], b_dw [Ce], b_exp [Ce]) fp32 read back from the
+    ``dw_aux`` [ceil(Ce / 64), k*k + 2, 64] of block params ``q`` (b_exp is
+    zeros without expand)."""
+    ce = q["w_proj_t"].shape[1]
+    aux = q["dw_aux"].permute(1, 0, 2).reshape(kernel * kernel + 2, -1)[:, :ce]
+    return aux[: kernel * kernel], aux[kernel * kernel], aux[kernel * kernel + 1]
+
+
 def mbconv_plain(
     x: torch.Tensor,  # [B, Cin, H, W] in the working dtype (bf16 on the card)
     q: Dict[str, torch.Tensor],  # ops.mbconv_kernel.prepare_params layout
@@ -266,31 +300,31 @@ def mbconv_plain(
     ops/mbconv_kernel.py:82). It rounds to ``x.dtype`` where
     ``kernels/mbconv.cu`` rounds to bf16: the hidden tensor after expand,
     bias and activation; the depthwise output after its bias and
-    activation (the kernel stores it between its two launches; the TPU
-    kernel keeps it in fp32); the SE-scaled hidden before the project; the
-    output. The depthwise sums, the SE pool (of the unrounded depthwise
-    output) and the SE MLP stay fp32, and the project adds bias and
-    residual in fp32. In fp32 every rounding is a no-op."""
+    activation (the kernel rounds it before the gate; the TPU kernel keeps
+    it in fp32); the SE-scaled hidden before the project; the output. The
+    depthwise sums, the SE pool (of the unrounded depthwise output) and the
+    SE MLP stay fp32, and the project adds bias and residual in fp32. In
+    fp32 every rounding is a no-op."""
     dt = x.dtype
     b, _, h, w = x.shape
-    ce = q["w_dw"].shape[1]
-    cout = q["w_proj"].shape[1]
+    cout, ce = q["w_proj_t"].shape
     (pl_h, ph_h), (pl_w, ph_w) = pads
-    w_dw = q["w_dw"].t().reshape(ce, 1, kernel, kernel)
+    w_dw, b_dw, b_exp = dw_rows(q, kernel)
+    w_dw = w_dw.t().reshape(ce, 1, kernel, kernel)
     out = torch.empty((b, cout, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
     for s in range(0, b, chunk):
         xs = x[s : s + chunk].permute(0, 2, 3, 1).to(torch.float32)  # NHWC
         hid = xs
-        if "w_exp" in q:
-            hid = act_plain(xs @ q["w_exp"].to(torch.float32) + q["b_exp"], activation).to(dt)
+        if "w_exp_t" in q:
+            hid = act_plain(xs @ q["w_exp_t"].t().to(torch.float32) + b_exp, activation).to(dt)
         hid = F.pad(hid.permute(0, 3, 1, 2).to(torch.float32), (pl_w, ph_w, pl_h, ph_h))
-        a = act_plain(F.conv2d(hid, w_dw, groups=ce) + q["b_dw"][None, :, None, None], activation)
+        a = act_plain(F.conv2d(hid, w_dw, groups=ce) + b_dw[None, :, None, None], activation)
         d = a.to(dt).to(torch.float32)
         if "w_se1" in q:
             se = F.silu(a.mean(dim=(2, 3)) @ q["w_se1"] + q["b_se1"])
             gate = torch.sigmoid(se @ q["w_se2"] + q["b_se2"])
             d = (d * gate[:, :, None, None]).to(dt).to(torch.float32)
-        y = d.permute(0, 2, 3, 1) @ q["w_proj"].to(torch.float32) + q["b_proj"]
+        y = d.permute(0, 2, 3, 1) @ q["w_proj_t"].t().to(torch.float32) + q["b_proj"]
         if residual:
             y = y + xs
         out[s : s + chunk] = y.permute(0, 3, 1, 2).to(dt)

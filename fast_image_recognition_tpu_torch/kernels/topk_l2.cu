@@ -1,4 +1,4 @@
-// Exact L2 top-k (1 <= k <= 256) for Hopper (sm_90a).
+// Exact L2 top-k (1 <= k <= 256 a launch) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_topk_kernel` with its `_merge_topk`
 // carry (fast_image_recognition_tpu/ops/distance_kernel.py:92 and :57,
@@ -45,17 +45,25 @@
 // read from L2 once per query tile.
 //
 // `topk_l2_precise_launch` (`precise=True`, the fp32 oracle): fp32 queries
-// against rows stored in fp32 or in bf16 (upcast per tile, exact), an fp32
-// contraction with fp32 accumulation on the CUDA cores (FFMA; no TF32 and
-// no tensor cores, so every product and sum is an IEEE fp32 operation, as
-// in the JAX package's HIGHEST-precision dot). Bound: 2.6-3.1 TFLOP at 67
-// TFLOP/s of fp32 FMA, 39-47 ms, operations bound. Its pass 1 keeps the
-// first port's design: grid (64-query block, 8192-row segment), 128-row
-// sub-tiles in 32-wide chunks staged k-major through shared memory, a
-// register-blocked product of 8 rows x 4 queries per thread, the squared
-// norms summed from the registers that load them, the fp32 tile through
-// shared memory into a per-thread top-K, the four lists of a query merged
-// in shared memory. No cp.async/TMA pipelining there.
+// against rows stored in bf16 or in fp32.
+//  - bf16 rows (every line that runs the oracle): the arithmetic of the
+//    TPU kernel's HIGHEST-precision dot. `split_queries` splits each fp32
+//    query into three bf16 terms (hi + mid + lo = q to ~2^-27 relative);
+//    a bf16 row is one term, so the product is the sum of three exact
+//    bf16 x bf16 products, g.q_lo + g.q_mid + g.q_hi, on the tensor cores
+//    (`topk_pass1_split_sm90`, the bf16 main loop with the three query
+//    planes in each ring stage). Hopper adds into its fp32 accumulator
+//    with truncation, so each 64-feature chunk's three products go to a
+//    fresh accumulator that is then added into fp32 registers (IEEE).
+//    Bound: 3 x 2.6 TFLOP at 989 TFLOP/s, 7.95 ms at 1024 x 1M x 1280
+//    (against 39 ms for the fp32 CUDA-core rate).
+//  - fp32 rows (edge cases only): an fp32 contraction on the CUDA cores
+//    (FFMA; no TF32, every product and sum an IEEE fp32 operation), the
+//    first port's design: grid (64-query block, 8192-row segment), 128-row
+//    sub-tiles in 32-wide chunks staged k-major through shared memory, a
+//    register-blocked product of 8 rows x 4 queries per thread, the fp32
+//    tile through shared memory into a per-thread top-K, the four lists of
+//    a query merged in shared memory. Bound: 2.6-3.1 TFLOP at 67 TFLOP/s.
 //
 // Pass 2 (both): one warp per query merges its n_seg segment lists into
 // the final top-k. K is a compile-time power of two >= k; for k <= 16 the
@@ -71,10 +79,16 @@
 // queries x an 8192-row segment, 128-row sub-tiles) with this epilogue, a
 // separate kernel so that the k <= 16 kernels keep their text; each
 // consumer warp writes the distances of its 16 accumulator rows to shared
-// memory and merges them into those queries' lists. precise:
-// `topk_pass1_lists`, the precise pass's FFMA structure with the same
-// lists. Pass 2 merges the n_seg lists of a query the same way in one
-// warp.
+// memory and merges them into those queries' lists. precise over bf16
+// rows: `topk_pass1_split_sm90` with the same epilogue; over fp32 rows:
+// `topk_pass1_lists`, the FFMA structure with the same lists. Pass 2
+// merges the n_seg lists of a query the same way in one warp.
+//
+// A larger k is scanned in slabs of at most 256 (the caller's loop,
+// ops/distance_kernel.py `topk_l2`): each slab passes the list kernels a
+// per-query floor, the previous slab's last (d, row), and they admit only
+// candidates strictly after it. Every launch computes the same d for a
+// row, so the slabs neither overlap nor leave gaps.
 //
 // The grid is (query tiles, segments); a gallery of more than 65,535
 // segments is scanned by several launches of at most 65,535 segment rows
@@ -211,6 +225,22 @@ __device__ __forceinline__ void warp_fill_empty(float* ld, int* li, float* last_
     if ((threadIdx.x & 31) == 0) { *last_d = BIG_DIST; *last_i = NO_ROW; }
     __syncwarp();
 }
+
+// The floor of a slab of a top-k scanned in slabs (k > 256): only
+// candidates strictly after the previous slab's last entry (d, row) are
+// admitted; the others become empty slots. Without a floor (null) every
+// candidate is admitted.
+struct Floor {
+    float d;
+    int i;
+    __device__ __forceinline__ Floor(const float* floor_d, const int* floor_i, int q)
+        : d(floor_d != nullptr ? floor_d[q] : -1.0f), i(floor_d != nullptr ? floor_i[q] : 0) {}
+    __device__ __forceinline__ void admit(float cd, int ci, float& od, int& oi) const {
+        const bool after = before(d, i, cd, ci);
+        od = after ? cd : BIG_DIST;
+        oi = after ? ci : NO_ROW;
+    }
+};
 
 // ---- bf16: topk_pass1_sm90 ----
 
@@ -465,10 +495,11 @@ struct ListTile {
         sm90::SMEM_ALIGN + RING_BYTES + (2 * BN + QT + QT * DLD + 2 * QT) * 4 + 2 * STAGES * 8;
 };
 
-template <int K>
+template <int K, bool FLOOR>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
-                      const uint8_t* __restrict__ row_mask, float* __restrict__ part_d, int* __restrict__ part_i,
+                      const uint8_t* __restrict__ row_mask, const float* __restrict__ floor_d,
+                      const int* __restrict__ floor_i, float* __restrict__ part_d, int* __restrict__ part_i,
                       int B, int n_valid, int n_seg, int n_chunks, int lead, int seg_base) {
     using T = ListTile;
     constexpr int BN = T::BN;
@@ -615,8 +646,14 @@ topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_con
             for (int ql = ql0; ql < ql1; ++ql) {
                 const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
                 const float* dq = d_s + ql * T::DLD;
-                warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
-                              [&](int r, float& cd, int& ci) { cd = dq[r]; ci = r0 + r; });
+                if constexpr (FLOOR) {
+                    const Floor f(floor_d, floor_i, q0 + ql);
+                    warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
+                                  [&](int r, float& cd, int& ci) { f.admit(dq[r], r0 + r, cd, ci); });
+                } else {
+                    warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
+                                  [&](int r, float& cd, int& ci) { cd = dq[r]; ci = r0 + r; });
+                }
             }
         }
     }
@@ -827,9 +864,9 @@ topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
 // ~5 % slower on the card.
 template <int K, typename GT>
 __global__ void __launch_bounds__(THREADS)
-topk_pass1_lists(const float* __restrict__ q, const GT* __restrict__ g, float* __restrict__ part_d,
-                 int* __restrict__ part_i, int B, int N, int n_valid, int D, int n_seg, int start, int end,
-                 int seg_base) {
+topk_pass1_lists(const float* __restrict__ q, const GT* __restrict__ g, const float* __restrict__ floor_d,
+                 const int* __restrict__ floor_i, float* __restrict__ part_d, int* __restrict__ part_i, int B, int N,
+                 int n_valid, int D, int n_seg, int start, int end, int seg_base) {
     extern __shared__ __align__(128) unsigned char smem[];
     float* q_s = reinterpret_cast<float*>(smem);           // [KP][QLD]
     float* g_s = q_s + KP * QLD;                           // [KP][GLD]
@@ -898,12 +935,285 @@ topk_pass1_lists(const float* __restrict__ q, const GT* __restrict__ g, float* _
         for (int ql = ql0; ql < ql1; ++ql) {
             const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
             const float qsq = qsq_s[ql];
+            const Floor f(floor_d, floor_i, q0 + ql);
             warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, n, [&](int r, float& cd, int& ci) {
-                cd = dist(qsq, gsq_s[r], acc_s[r * ACC_LD + ql]);
-                ci = (int)(r0 + r);
+                f.admit(dist(qsq, gsq_s[r], acc_s[r * ACC_LD + ql]), (int)(r0 + r), cd, ci);
             });
         }
         __syncthreads();  // acc_s / norms are rewritten by the next sub-tile
+    }
+}
+
+// ---- precise over bf16 rows: split_queries + topk_pass1_split_sm90 ----
+
+// Splits fp32 queries into three bf16 planes, hi = bf16(q), mid =
+// bf16(q - hi), lo = bf16(q - hi - mid), each difference exact in fp32, so
+// that hi + mid + lo is q to ~2^-27 relative; lanes outside [start, end)
+// and rows B..Bp are zero. |q|^2 of the fp32 queries over the window goes
+// to qsq. One warp per row of planes [3][Bp][D].
+__global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __restrict__ planes,
+                              float* __restrict__ qsq, int B, int Bp, int D, int start, int end) {
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (row >= Bp) return;  // the whole warp
+    float s = 0.0f;
+    for (int col = lane; col < D; col += 32) {
+        const float x = row < B && col >= start && col < end ? q[(size_t)row * D + col] : 0.0f;
+        const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+        const float r = x - __bfloat162float(hi);
+        const __nv_bfloat16 mid = __float2bfloat16_rn(r);
+        const __nv_bfloat16 lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+        planes[(size_t)row * D + col] = hi;
+        planes[((size_t)Bp + row) * D + col] = mid;
+        planes[((size_t)2 * Bp + row) * D + col] = lo;
+        s = fmaf(x, x, s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    if (lane == 0 && row < B) qsq[row] = s;
+}
+
+// The precise pass over bf16-stored rows as the TPU computes a HIGHEST
+// dot: three bf16 products per feature chunk, g.q_lo + g.q_mid + g.q_hi,
+// each exact, summed in fp32. The bf16 main loop at BN = 128 (producer,
+// two consumer warpgroups of 64 queries, 128 queries x an 8192-row
+// segment per block); a ring stage holds the chunk's three query planes
+// and the gallery box (64 KB), 3 stages (2 for k > 16, whose distance
+// tile also needs room). The tensor cores add into their fp32 accumulator
+// with truncation, so each chunk's three products go to a fresh
+// accumulator (smallest term first) that is then added into fp32
+// registers with IEEE adds. |q|^2 comes from split_queries; |g|^2 is
+// summed from the landed lines. k <= 16: the register epilogue of
+// topk_pass1_sm90; k > 16: the lists of topk_pass1_sm90_lists (with the
+// slab floor).
+template <int K>
+struct SplitTile {
+    static constexpr int BN = 128;
+    static constexpr int NSTAGE = K > 16 ? 2 : 3;
+    static constexpr int Q_BYTES = QT * sm90::LINE_BYTES;  // one plane
+    static constexpr int STAGE_BYTES = 3 * Q_BYTES + BN * sm90::LINE_BYTES;
+    static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+    static constexpr int DLD = ListTile::DLD;
+    // ring, |g|^2 of two sub-tiles, (k > 16) the distance tile and the
+    // lists' last entries, full[] and empty[] barriers
+    static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + 2 * BN * 4 +
+                                   (K > 16 ? (QT * DLD + 2 * QT) * 4 : 0) + 2 * NSTAGE * 8;
+    static_assert(K > 16 || (size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
+};
+
+// grid (query tiles, segments from seg_base); 384 threads. qmap: planes
+// [3 Bp, end - base] (plane p's rows at p Bp), boxes [128 x 64]; gmap: rows
+// [n_valid, end - base], boxes [128 x 64]; lead = start - base lanes of the
+// first chunk are outside the window (zero in the planes).
+template <int K>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                      const float* __restrict__ qsq_g, const float* __restrict__ floor_d,
+                      const int* __restrict__ floor_i, float* __restrict__ part_d, int* __restrict__ part_i,
+                      int B, int Bp, int n_valid, int n_seg, int n_chunks, int lead, int seg_base) {
+    using T = SplitTile<K>;
+    constexpr int BN = T::BN;
+    constexpr int NST = T::NSTAGE;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    float* gsq_s = reinterpret_cast<float*>(smem + T::RING_BYTES);  // [2][BN]
+    float* d_s = gsq_s + 2 * BN;                                     // k > 16: [QT][DLD]
+    float* last_d_s = d_s + (K > 16 ? QT * T::DLD : 0);              // k > 16: [QT]
+    int* last_i_s = reinterpret_cast<int*>(last_d_s + (K > 16 ? QT : 0));
+    uint64_t* full = reinterpret_cast<uint64_t*>(last_i_s + (K > 16 ? QT : 0));  // [NST]
+    uint64_t* empty = full + NST;                                                  // [NST]
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QT;
+    const int seg = seg_base + blockIdx.y;
+    const int seg0 = seg * SEG_PRECISE;
+    const int seg1 = min(n_valid, seg0 + SEG_PRECISE);
+    const int n_sub = (seg1 - seg0 + BN - 1) / BN;
+    if (tid == 0) {
+        for (int s = 0; s < NST; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 2);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full
+        sm90::setmaxnreg_dec<40>();
+        if (tid == 2 * sm90::WG_THREADS) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            int s = 0;
+            uint32_t ph = 0;
+            for (int sub = 0; sub < n_sub; ++sub) {
+                for (int c = 0; c < n_chunks; ++c) {
+                    sm90::mbar_wait(&empty[s], ph ^ 1);
+                    unsigned char* st = smem + s * T::STAGE_BYTES;
+                    sm90::mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
+#pragma unroll
+                    for (int p = 0; p < 3; ++p)
+                        sm90::tma_load_2d(st + p * T::Q_BYTES, &qmap, &full[s], c * sm90::KCHUNK, p * Bp + q0);
+                    sm90::tma_load_2d(st + 3 * T::Q_BYTES, &gmap, &full[s], c * sm90::KCHUNK, seg0 + sub * BN);
+                    if (++s == NST) { s = 0; ph ^= 1; }
+                }
+            }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int lane = tid & 31;
+        // |g|^2: half a line of row tid / 2
+        const int g_row = tid >> 1, g_c0 = (tid & 1) * 4;
+        float qsq[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qi = q0 + wg * 64 + sm90::acc_row(t, h);
+            qsq[h] = qi < B ? qsq_g[qi] : 0.0f;
+        }
+        // k > 16: this warp's 16 query rows (its accumulator rows) and their lists
+        const int ql0 = (tid >> 5) * 16, ql1 = min(ql0 + 16, B - q0);
+        float* dw = d_s + ql0 * T::DLD;
+        if constexpr (K > 16) {
+            for (int ql = ql0; ql < ql1; ++ql) {
+                const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+                warp_fill_empty<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql);
+            }
+        }
+        constexpr int KR = K > 16 ? 1 : K;  // register lists (k <= 16)
+        float bd[2][KR];
+        int bi[2][KR];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < KR; ++j) { bd[h][j] = BIG_DIST; bi[h][j] = NO_ROW; }
+
+        float acc[BN / 2], sum[BN / 2];
+        int s = 0;
+        uint32_t ph = 0;
+        for (int sub = 0; sub < n_sub; ++sub) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) sum[i] = 0.0f;
+            float gpart = 0.0f;
+            for (int c = 0; c < n_chunks; ++c) {
+                sm90::mbar_wait(&full[s], ph);
+                unsigned char* st = smem + s * T::STAGE_BYTES;
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+                sm90::acc_fence(acc);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int p = 2; p >= 0; --p)  // lo, mid, hi: the smallest term first
+#pragma unroll
+                    for (int kk = 0; kk < sm90::KCHUNK / 16; ++kk)
+                        sm90::wgmma_m64n128k16(
+                            acc, sm90::sw128_desc(st + p * T::Q_BYTES + wg * 64 * sm90::LINE_BYTES + 32 * kk),
+                            sm90::sw128_desc(st + 3 * T::Q_BYTES + 32 * kk));
+                sm90::wgmma_commit();
+                // the norms, while the products run
+                gpart += sm90::line_sq<4>(st + 3 * T::Q_BYTES, g_row, g_c0, c == 0 ? lead : 0);
+                sm90::wgmma_wait<0>();
+                sm90::acc_fence(acc);
+                if (t == 0) sm90::mbar_arrive(&empty[s]);
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+                if (++s == NST) { s = 0; ph ^= 1; }
+            }
+
+            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            gpart += __shfl_xor_sync(FULL, gpart, 1);
+            if ((tid & 1) == 0) gbuf[g_row] = gpart;
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            const int r0 = seg0 + sub * BN;
+            const int lim = min(seg1 - r0, BN);  // columns >= lim are past the segment or n_valid
+            if constexpr (K > 16) {
+                // this warp's 16 rows of distances, then its lists
+#pragma unroll
+                for (int j = 0; j < BN / 8; ++j) {
+                    const int col = sm90::acc_col(t, j, 0);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float2 d = make_float2(dist(qsq[h], gbuf[col], sum[4 * j + 2 * h]),
+                                                     dist(qsq[h], gbuf[col + 1], sum[4 * j + 2 * h + 1]));
+                        *reinterpret_cast<float2*>(dw + (((lane >> 2) + 8 * h) * T::DLD + col)) = d;
+                    }
+                }
+                __syncwarp();
+                for (int ql = ql0; ql < ql1; ++ql) {
+                    const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
+                    const float* dq = d_s + ql * T::DLD;
+                    const Floor f(floor_d, floor_i, q0 + ql);
+                    warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
+                                  [&](int r, float& cd, int& ci) { f.admit(dq[r], r0 + r, cd, ci); });
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int col = sm90::acc_col(t, j, c);
+                        const float g2 = gbuf[col];
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const float d = dist(qsq[h], g2, sum[4 * j + 2 * h + c]);
+                            if (K == 1) {
+                                // columns rise within a thread: strict < keeps the lowest row
+                                if (col < lim && d < bd[h][0]) { bd[h][0] = d; bi[h][0] = r0 + col; }
+                            } else if (col < lim) {
+                                insert<KR>(bd[h], bi[h], d, r0 + col);
+                            }
+                        }
+                    }
+                }
+            }
+        }
+
+        // k <= 16: the segment's top-K of each query, the 4 lanes of a row merged
+        if constexpr (K == 1) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {
+                    const float od = __shfl_xor_sync(FULL, bd[h][0], off);
+                    const int oi = __shfl_xor_sync(FULL, bi[h][0], off);
+                    if (before(od, oi, bd[h][0], bi[h][0])) { bd[h][0] = od; bi[h][0] = oi; }
+                }
+                const int qi = q0 + wg * 64 + sm90::acc_row(t, h);
+                if ((lane & 3) == 0 && qi < B) {
+                    part_d[(size_t)qi * n_seg + seg] = bd[h][0];
+                    part_i[(size_t)qi * n_seg + seg] = bi[h][0];
+                }
+            }
+        } else if constexpr (K <= 16) {
+            // the ring is idle: every stage has landed and been consumed
+            float* ld_s = reinterpret_cast<float*>(smem);  // [QT][4][K]
+            int* li_s = reinterpret_cast<int*>(ld_s + QT * 4 * K);
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int o = ((wg * 64 + sm90::acc_row(t, h)) * 4 + (lane & 3)) * K;
+#pragma unroll
+                for (int j = 0; j < K; ++j) { ld_s[o + j] = bd[h][j]; li_s[o + j] = bi[h][j]; }
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            if (tid < QT) {
+                float md[K];
+                int mi[K];
+#pragma unroll
+                for (int j = 0; j < K; ++j) { md[j] = ld_s[tid * 4 * K + j]; mi[j] = li_s[tid * 4 * K + j]; }
+                for (int p = 1; p < 4; ++p)
+#pragma unroll
+                    for (int j = 0; j < K; ++j)
+                        insert<K>(md, mi, ld_s[(tid * 4 + p) * K + j], li_s[(tid * 4 + p) * K + j]);
+                const int qi = q0 + tid;
+                if (qi < B) {
+                    const size_t o = ((size_t)qi * n_seg + seg) * K;
+#pragma unroll
+                    for (int j = 0; j < K; ++j) { part_d[o + j] = md[j]; part_i[o + j] = mi[j]; }
+                }
+            }
+        }
     }
 }
 
@@ -989,6 +1299,10 @@ struct Args {
     const void* q;
     const void* g;
     const uint8_t* row_mask;
+    const float* floor_d;  // the slab floor (k > 16 only) or null
+    const int* floor_i;
+    void* planes;  // precise over bf16 rows: [3][Bp][D] bf16 query planes
+    float* qsq;    // and [B] fp32 |q|^2
     void *part_d, *part_i, *out_d, *out_i;
     int B, N, n_valid, D, k, n_seg, start, end;
 };
@@ -1065,17 +1379,19 @@ int launch_lists(const Args& a, cudaStream_t stream) {
     for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
         const dim3 grid1((a.B + QB - 1) / QB, min(MAX_GRID_Y, a.n_seg - sb));
         topk_pass1_lists<K, GT><<<grid1, THREADS, smem, stream>>>(
-            (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
-            a.n_seg, a.start, a.end, sb);
+            (const float*)a.q, (const GT*)a.g, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, a.N,
+            a.n_valid, a.D, a.n_seg, a.start, a.end, sb);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     return launch_pass2<K>(a, stream);
 }
 
-// bf16, k > 16: topk_pass1_sm90_lists, then the list merge.
-template <int K>
-int launch_bf16_lists(const Args& a, cudaStream_t stream) {
+// bf16, k > 16: topk_pass1_sm90_lists, then the list merge. The
+// first slab (and any k <= 256) runs the instance without the floor's
+// compare, whose epilogue is the kernel's hot loop.
+template <int K, bool FLOOR>
+int launch_bf16_lists_as(const Args& a, cudaStream_t stream) {
     using T = ListTile;
     // both maps start at the 8-lane (16-byte) boundary below the window
     const int base = a.start & ~7;
@@ -1086,25 +1402,65 @@ int launch_bf16_lists(const Args& a, cudaStream_t stream) {
                                               T::BN);
     if (err != 0) return err;
     const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
-    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90_lists<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90_lists<K, FLOOR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
     for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
         const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_sm90_lists<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-            qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
-            a.start - base, sb);
+        topk_pass1_sm90_lists<K, FLOOR><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+            qmap, gmap, a.row_mask, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg,
+            n_chunks, a.start - base, sb);
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
     return launch_pass2<K>(a, stream);
 }
 
-// PRECISE: fp32 queries against GT rows on the CUDA cores; otherwise bf16
-// on the tensor cores (GT unused). k > 16 on the list kernels.
+template <int K>
+int launch_bf16_lists(const Args& a, cudaStream_t stream) {
+    return a.floor_d != nullptr ? launch_bf16_lists_as<K, true>(a, stream) : launch_bf16_lists_as<K, false>(a, stream);
+}
+
+// precise over bf16 rows: split the queries, then topk_pass1_split_sm90
+// and the merge of its lists.
+template <int K>
+int launch_split(const Args& a, cudaStream_t stream) {
+    using T = SplitTile<K>;
+    const int Bp = (a.B + QT - 1) / QT * QT;  // a query box never straddles two planes
+    split_queries<<<(Bp + 7) / 8, 256, 0, stream>>>((const float*)a.q, (__nv_bfloat16*)a.planes, a.qsq, a.B, Bp,
+                                                    a.D, a.start, a.end);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    // both maps start at the 8-lane (16-byte) boundary below the window
+    const int base = a.start & ~7;
+    const long cols = a.end - base;
+    CUtensorMap qmap, gmap;
+    int err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
+    if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid, (long)a.D * 2,
+                                              T::BN);
+    if (err != 0) return err;
+    const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
+    e = cudaFuncSetAttribute(topk_pass1_split_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_split_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+            qmap, gmap, a.qsq, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, Bp, a.n_valid, a.n_seg,
+            n_chunks, a.start - base, sb);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return launch_pass2<K>(a, stream);
+}
+
+// PRECISE: fp32 queries against GT rows: bf16 rows on the split tensor-core
+// pass, fp32 rows on the CUDA cores; otherwise bf16 on the tensor cores (GT
+// unused). k > 16 on the list kernels.
 template <int K, bool PRECISE, typename GT>
 int launch(const Args& a, cudaStream_t stream) {
-    if constexpr (K > 16) {
+    if constexpr (PRECISE && sizeof(GT) == 2) {
+        return launch_split<K>(a, stream);
+    } else if constexpr (K > 16) {
         if constexpr (PRECISE) return launch_lists<K, GT>(a, stream);
         else return launch_bf16_lists<K>(a, stream);
     } else if constexpr (PRECISE) {
@@ -1127,7 +1483,8 @@ int dispatch(const Args& a, void* stream) {
     const int seg = segment_rows(PRECISE, a.k);
     if (a.B <= 0 || a.N <= 0 || a.n_valid <= 0 || a.n_valid > a.N || a.n_valid > INT32_MAX - seg || a.D <= 0 ||
         a.D % 8 != 0 || a.k < 1 || a.k > MAX_K || a.n_seg != (a.n_valid + seg - 1) / seg || a.start < 0 ||
-        a.start >= a.end || a.end > a.D)
+        a.start >= a.end || a.end > a.D || (a.floor_d != nullptr && (a.k <= 16 || a.floor_i == nullptr)) ||
+        (PRECISE && sizeof(GT) == 2 && (a.planes == nullptr || a.qsq == nullptr)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (list_len(a.k)) {
@@ -1157,29 +1514,47 @@ extern "C" int topk_l2_query_rows() { return QT; }
 // (query, segment) for pass 1.
 extern "C" int topk_l2_list_len(int k) { return list_len(k); }
 
-// The largest k the kernels take.
+// The largest k the kernels take (one launch; a larger k is scanned in
+// slabs, each above the last one's floor).
 extern "C" int topk_l2_max_k() { return MAX_K; }
+
+// Dynamic shared memory of the split precise pass (bf16 rows) at this k.
+extern "C" int topk_l2_split_smem(int k) {
+    switch (list_len(k)) {
+        case 1: return (int)SplitTile<1>::SMEM;
+        case 2: return (int)SplitTile<2>::SMEM;
+        case 4: return (int)SplitTile<4>::SMEM;
+        case 8: return (int)SplitTile<8>::SMEM;
+        case 16: return (int)SplitTile<16>::SMEM;
+        default: return (int)SplitTile<32>::SMEM;
+    }
+}
 
 // q: [B, D] bf16, g: [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0;
 // both 16-byte aligned), row_mask: [B] uint8 or null (queries with 0 come
-// back empty and query tiles without a 1 skip the scan), part_d/part_i:
-// [B, n_seg, topk_l2_list_len(k)] scratch, out_d: [B, k] fp32 raw squared
-// distances over the window [start, end), out_i: [B, k] int32. Returns a
-// cudaError_t.
-extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask, void* part_d,
-                              void* part_i, void* out_d, void* out_i, int B, int N, int n_valid,
-                              int D, int k, int n_seg, int start, int end, void* stream) {
-    const Args a{q, g, (const uint8_t*)row_mask, part_d, part_i, out_d, out_i,
-                 B, N, n_valid, D, k, n_seg, start, end};
+// back empty and query tiles without a 1 skip the scan), floor_d/floor_i:
+// [B] fp32/int32 or null, k > 16 only (only (d, row) strictly after the
+// query's floor enter; an empty floor is (BIG_DIST, INT32_MAX)),
+// part_d/part_i: [B, n_seg, topk_l2_list_len(k)] scratch, out_d: [B, k]
+// fp32 raw squared distances over the window [start, end), out_i: [B, k]
+// int32. Returns a cudaError_t.
+extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask, const void* floor_d,
+                              const void* floor_i, void* part_d, void* part_i, void* out_d, void* out_i, int B,
+                              int N, int n_valid, int D, int k, int n_seg, int start, int end, void* stream) {
+    const Args a{q, g, (const uint8_t*)row_mask, (const float*)floor_d, (const int*)floor_i, nullptr, nullptr,
+                 part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
     return dispatch<false, float>(a, stream);
 }
 
-// precise: q: [B, D] fp32, g: [N, D] fp32 (g_f32 = 1) or bf16 (0); the
-// rest as for topk_l2_launch, without a mask.
-extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, void* part_d,
-                                      void* part_i, void* out_d, void* out_i, int B, int N,
-                                      int n_valid, int D, int k, int n_seg, int start, int end,
-                                      void* stream) {
-    const Args a{q, g, nullptr, part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
+// precise: q: [B, D] fp32, g: [N, D] fp32 (g_f32 = 1) or bf16 (0); for
+// bf16 rows planes: [3, round_up(B, topk_l2_query_rows()), D] bf16 and
+// qsq: [B] fp32 scratch (null for fp32 rows); the rest as for
+// topk_l2_launch, without a mask.
+extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, void* planes, void* qsq,
+                                      const void* floor_d, const void* floor_i, void* part_d, void* part_i,
+                                      void* out_d, void* out_i, int B, int N, int n_valid, int D, int k, int n_seg,
+                                      int start, int end, void* stream) {
+    const Args a{q, g, nullptr, (const float*)floor_d, (const int*)floor_i, planes, (float*)qsq,
+                 part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
     return g_f32 ? dispatch<true, float>(a, stream) : dispatch<true, __nv_bfloat16>(a, stream);
 }

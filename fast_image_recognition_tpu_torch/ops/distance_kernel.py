@@ -24,6 +24,7 @@ from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 BIG_DIST = plain.BIG_DIST
 TILE_G = plain.TILE_G
 _PAD_SQ_NORM = 1e38  # finite in bf16: BIG_DIST rounds to inf, and inf - inf = NaN
+TOPK_SLAB = build.TOPK_MAX_K  # topk_l2 columns per scan; a larger k runs in slabs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -443,8 +444,11 @@ def topk_l2(
     ``precise``): query rows where it is False come back empty
     ``(BIG_DIST / width, -1)``, and on the card the kernel skips query
     blocks without a True, so a mask that is all False costs one launch
-    and no scan (and no host sync). Any k >= 1 on the CPU; on the card up
-    to ``build.TOPK_MAX_K`` (256)."""
+    and no scan (and no host sync). Any k >= 1: above :data:`TOPK_SLAB`
+    (``build.TOPK_MAX_K``, 256, the most one launch takes) the top-k is
+    scanned in slabs, each admitting only the (distance, row) after the
+    previous slab's last entry, so the slabs join into the exact top-k with
+    the same ties."""
     if k < 1:
         raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)
@@ -464,8 +468,24 @@ def topk_l2(
         q = queries.to(torch.bfloat16).contiguous()
     gallery = gallery.contiguous()
     q = _match_cols(q, gallery, 8)
-    if _on_card(q):
-        dist, idx = build.launch_topk_l2(q, gallery, k, n, window, precise, row_mask)
+    card = _on_card(q)
+
+    def scan(kk: int, floor):
+        if card:
+            return build.launch_topk_l2(q, gallery, kk, n, window, precise, row_mask, floor)
+        return plain.topk_l2_plain(q, gallery, kk, n, window, precise, row_mask, floor=floor)
+
+    if k <= TOPK_SLAB:
+        dist, idx = scan(k, None)
     else:
-        dist, idx = plain.topk_l2_plain(q, gallery, k, n, window, precise, row_mask)
+        # slabs of at most TOPK_SLAB, as even as they come (each one > 16, a
+        # list kernel's k on the card); each above the last one's final entry
+        n_slabs = -(-k // TOPK_SLAB)
+        widths = [k // n_slabs + (j < k % n_slabs) for j in range(n_slabs)]
+        parts, floor = [], None
+        for kk in widths:
+            d_s, i_s = scan(kk, floor)
+            parts.append((d_s, i_s))
+            floor = (d_s[:, -1], i_s[:, -1])
+        dist, idx = torch.cat([d for d, _ in parts], dim=1), torch.cat([i for _, i in parts], dim=1)
     return dist / (end - start), idx

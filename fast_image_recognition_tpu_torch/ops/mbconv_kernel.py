@@ -4,16 +4,17 @@
 
 One folded inverted-residual block per call: expand 1x1 (if any),
 depthwise k x k SAME, squeeze-excite (if any), project 1x1, residual (if
-any). On a CUDA tensor it runs ``kernels/mbconv.cu`` (two launches: expand
-+ depthwise per spatial tile, then SE gate + project); on a CPU tensor the
-plain version ``kernels/plain.py::mbconv_plain``. It is opt-in, as in the
-JAX package: ``make_infer_fn(fused=True)`` sends the stride-1 blocks here
-and keeps the stride-2 ones on the per-op path.
+any). On a CUDA tensor it runs ``kernels/mbconv.cu`` (one launch, a block
+per image walking its plane in spatial tiles and its hidden channels in
+slabs); on a CPU tensor the plain version
+``kernels/plain.py::mbconv_plain``. It is opt-in, as in the JAX package:
+``make_infer_fn(fused=True)`` sends the stride-1 blocks here and keeps the
+stride-2 ones on the per-op path.
 
 Activations are NCHW tensors in ``channels_last`` memory (physically
 NHWC); the kernel reads that memory in place. The geometry the kernel
-takes (SAME pads, the spatial tile of its first launch) is computed here,
-where the CPU tests reach it.
+takes (SAME pads, its spatial tile and the shared memory that tile needs)
+is computed here, where the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ import torch
 from fast_image_recognition_tpu_torch.kernels import build, plain
 
 # must match kernels/mbconv.cu
-CC = 32  # hidden channels per block of the expand + depthwise launch
-PAD = 8  # bf16 row padding in shared memory
-THREADS = 256
-SMEM_BUDGET = 112 * 1024  # per block of the first launch: two blocks per SM
-MAX_TILE = 32
+CS = 64  # hidden channels per slab: one 128-byte line of bf16
+LINE = 128
+NT_MAX = 3  # project tiles (64 pixels x 64 channels) per warpgroup
+WGS = 4  # warpgroups per block
+MAX_SMEM = 232448  # dynamic shared memory a Hopper block may opt in to
+SMEM_ALIGN = 1024
+MAX_TILE = 64
 
 
 def _same_pads(h: int, k: int, stride: int) -> Tuple[int, int, int]:
@@ -45,56 +48,109 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def expand_dw_smem(th: int, tw: int, k: int, cin: int, has_expand: bool) -> int:
-    """Dynamic shared memory of one block of the first launch, as
-    ``expand_dw_smem`` in kernels/mbconv.cu computes it: the bf16 hidden
-    halo tile, with expand the bf16 input halo and weight chunk and one
-    fp32 16x16 scratch per warp, and the fp32 partial-sum table."""
-    npp = _round_up((th + k - 1) * (tw + k - 1), 16)
-    total = npp * (CC + PAD) * 2 + THREADS * 4
-    if has_expand:
-        cinp = _round_up(cin, 16)
-        total += npp * (cinp + PAD) * 2 + cinp * (CC + PAD) * 2 + (THREADS // 32) * 256 * 4
+def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has_expand: bool, th: int, tw: int,
+               group: int, bufs: int, ipb: int) -> int:
+    """Dynamic shared memory of one block of ``kernels/mbconv.cu`` for the
+    plan (th, tw, group, bufs, ipb), as its ``layout`` computes it
+    (``mbconv_smem`` returns the same), or -1 where the kernel refuses the
+    plan: more than :data:`MAX_SMEM` bytes, more than :data:`NT_MAX`
+    project tiles per warpgroup, or two images without the whole plane in
+    one tile or at k = 7 (the kernel instantiates two images a block for
+    k = 3 and 5, B0's 7x7 blocks, only). (th, tw) is the output tile;
+    ``group`` the project tiles of 64 output channels a block owns;
+    ``bufs`` bit 0 double-buffers the input box (with more than one tile),
+    bit 1 the weights; ``ipb`` the images a block takes (1 or 2). With
+    expand and one tile the input box is the bare plane, else the tile's
+    halo. The regions: the input box, the w_exp^T and w_proj^T slabs (one
+    region with SE, whose two passes read one each) with each slab's
+    depthwise weights and biases, the bf16 hidden halo (with expand), the
+    project's A tile (the depthwise sums before it), the pool (then the
+    gate), the SE hidden and the project bias of each image, the
+    barriers."""
+    hh, hw = th + k - 1, tw + k - 1
+    halo = hh * hw
+    n_tiles = -(-h // th) * -(-w // tw)
+    if ipb not in (1, 2) or (ipb > 1 and (n_tiles > 1 or k == 7)):
+        return -1
+    xplane = has_expand and n_tiles == 1
+    rx, ro = _round_up(ipb * (h * w if xplane else halo), 64), _round_up(ipb * th * tw, 64)
+    cin_ch, npt = -(-cin // CS), min(group, -(-cout // CS))
+    xbufs = 2 if n_tiles > 1 and bufs & 1 else 1
+    wbufs = 2 if bufs & 2 else 1
+    aux = _round_up((k * k + 2) * CS * 4, 1024)  # a slab's w_dw rows, b_dw and b_exp
+    wexp, wproj = wbufs * cin_ch * 64 * LINE if has_expand else 0, wbufs * npt * 64 * LINE
+    total = (xbufs * cin_ch * rx * LINE + (max(wexp, wproj) if s > 0 else wexp + wproj) + wbufs * aux
+             + (_round_up(ipb * halo * LINE, 1024) if has_expand else 0) + max(ro * LINE, WGS * 4 * ipb * CS * 4)
+             + ipb * _round_up(ce, CS) * 4 + ipb * _round_up(s, 32) * 4 + _round_up(cout, CS) * 4 + 4 * 8
+             + SMEM_ALIGN)
+    if total > MAX_SMEM or -(-(ro // 64 * npt) // WGS) > NT_MAX:
+        return -1
     return total
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(h: int, w: int, k: int, cin: int, has_expand: bool) -> Tuple[int, int]:
-    """Output tile (th, tw) of the first launch: the least halo-padded
-    work, ``n_tiles * ((th + k - 1) * (tw + k - 1) + 32)`` (the expand is
-    recomputed on each tile's halo; 32 stands for a block's fixed cost),
-    within :data:`SMEM_BUDGET`; ties go to the larger tile."""
+def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
+               has_expand: bool) -> Tuple[int, int, int, int, int]:
+    """The plan (th, tw, group, bufs, ipb) of ``kernels/mbconv.cu`` with
+    the least estimated work per image, ``groups * n_tiles *
+    (round_up(input box rows, 64) + 64) / ipb`` (each group of output
+    channels recomputes the hidden tensor, each tile its input box's rows;
+    64 stands for a step's fixed cost, which two images share), a quarter
+    more for each single buffer that exposes a copy (both constants are
+    estimates, not fitted by an A/B); ties go to the larger tile. B0's
+    planes take one group and, at 7x7 and 14x14, the whole plane (two
+    images a block at 7x7)."""
+    npt_all = -(-cout // CS)
     best = None
-    for th in range(1, min(h, MAX_TILE) + 1):
-        for tw in range(1, min(w, MAX_TILE) + 1):
-            if expand_dw_smem(th, tw, k, cin, has_expand) > SMEM_BUDGET:
-                continue
-            cost = -(-h // th) * -(-w // tw) * ((th + k - 1) * (tw + k - 1) + 32)
-            key = (cost, -th * tw)
-            if best is None or key < best[0]:
-                best = (key, (th, tw))
+    for group in range(npt_all, 0, -1):
+        groups = -(-npt_all // group)
+        for ipb in (2, 1):
+            for bufs in (3, 2, 1, 0):
+                for th in range(1, min(h, MAX_TILE) + 1):
+                    for tw in range(1, min(w, MAX_TILE) + 1):
+                        if plane_smem(h, w, k, cin, ce, cout, s, has_expand, th, tw, group, bufs, ipb) < 0:
+                            continue
+                        n_tiles = -(-h // th) * -(-w // tw)
+                        rows = ipb * (h * w if has_expand and n_tiles == 1 else (th + k - 1) * (tw + k - 1))
+                        exposed = (n_tiles > 1 and not bufs & 1) + (not bufs & 2)
+                        cost = groups * n_tiles * (_round_up(rows, 64) + 64) / ipb * (1 + exposed / 4)
+                        key = (cost, -th * tw)
+                        if best is None or key < best[0]:
+                            best = (key, (th, tw, group, bufs, ipb))
+        if best is not None and group == npt_all:
+            break  # one group fits: never split the output channels
     if best is None:
-        raise ValueError(f"no tile of a {h}x{w} plane with k={k}, Cin={cin} fits {SMEM_BUDGET} bytes")
+        raise ValueError(f"no plan of a {h}x{w} plane with k={k}, Cin={cin}, Ce={ce}, Cout={cout} fits "
+                         f"{MAX_SMEM} bytes")
     return best[1]
 
 
 def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Folded block params (JAX layout: HWIO kernels, [C, S] SE denses) ->
-    the kernel's layout: ``w_exp`` [Cin, Ce] and ``w_proj`` [Ce, Cout] in
-    ``dtype`` (bf16 for the kernel's tensor cores), ``w_dw`` [k*k, Ce] and
-    every bias and SE weight in fp32."""
+    the one layout both ``kernels/mbconv.cu`` and its plain version read:
+    ``w_exp_t`` [Ce, Cin] and ``w_proj_t`` [Cout, Ce] in ``dtype`` (bf16
+    for the tensor cores; K-major ``wgmma`` operands), ``dw_aux``
+    [ceil(Ce / 64), k*k + 2, 64] fp32 (per slab of 64 hidden channels its
+    depthwise weights, b_dw and b_exp, zeros past Ce: one bulk copy a
+    slab; :func:`plain.dw_rows` reads it back), and ``b_proj`` and the SE
+    weights in fp32."""
     k = cfg["kernel"]
     f32 = torch.float32
+    ce = p["w_dw"].shape[-1]
     q: Dict[str, torch.Tensor] = {}
+    rows = [p["w_dw"].reshape(k * k, ce).to(f32), p["b_dw"].to(f32)[None]]
     if cfg["has_expand"]:
-        q["w_exp"] = p["w_exp"].reshape(p["w_exp"].shape[2:]).to(dtype).contiguous()
-        q["b_exp"] = p["b_exp"].to(f32).contiguous()
-    q["w_dw"] = p["w_dw"].reshape(k * k, -1).to(f32).contiguous()
-    q["b_dw"] = p["b_dw"].to(f32).contiguous()
+        q["w_exp_t"] = p["w_exp"].reshape(p["w_exp"].shape[2:]).t().to(dtype).contiguous()
+        rows.append(p["b_exp"].to(f32)[None])
+    else:
+        rows.append(torch.zeros_like(rows[1]))
+    nslab = -(-ce // CS)
+    aux = torch.nn.functional.pad(torch.cat(rows), (0, nslab * CS - ce))  # [k*k + 2, nslab * 64]
+    q["dw_aux"] = aux.reshape(k * k + 2, nslab, CS).permute(1, 0, 2).contiguous()
     if cfg["has_se"]:
         for n in ("w_se1", "b_se1", "w_se2", "b_se2"):
             q[n] = p[n].to(f32).contiguous()
-    q["w_proj"] = p["w_proj"].reshape(p["w_proj"].shape[2:]).to(dtype).contiguous()
+    q["w_proj_t"] = p["w_proj"].reshape(p["w_proj"].shape[2:]).t().to(dtype).contiguous()
     q["b_proj"] = p["b_proj"].to(f32).contiguous()
     return q
 
@@ -120,8 +176,10 @@ def mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], cfg: Dict[str, Any]) -> 
         return plain.mbconv_plain(x, q, k, ((pl_h, ph_h), (pl_w, ph_w)), activation, residual)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    tile = tile_plan(h, w, k, x.shape[1], "w_exp" in q)
-    return build.launch_mbconv(x, q, k, (pl_h, pl_w), tile, activation == "relu6", residual)
+    s = q["w_se1"].shape[1] if "w_se1" in q else 0
+    cout, ce = q["w_proj_t"].shape
+    plan = plane_plan(h, w, k, x.shape[1], ce, cout, s, "w_exp_t" in q)
+    return build.launch_mbconv(x, q, k, (pl_h, pl_w), plan, activation == "relu6", residual)
 
 
 def fused_mbconv(x: torch.Tensor, p: Dict[str, Any], cfg: Dict[str, Any]) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Time the port's scan kernels on the card at the shapes its paths give them.
+"""Time the port's kernels on the card at the shapes its paths give them.
 
 Each kernel runs on inputs made from ``--seed`` (unit rows of a normal
 gallery; queries are rows of it plus noise) and is timed with CUDA events:
-the mean over ``--reps`` calls after one warm-up call (a third as many for
-the fp32 ``precise`` scan). Shapes:
+the mean over ``--reps`` calls after one second idle and one warm-up call
+(a third as many for the precise ``topk_l2`` shapes). The pause is there
+so that a shape does not inherit the power state of the one before (the
+clock control of a power-capped kernel may lag). Shapes:
 
 - ``tilemin``: 1024 queries x 1,000,448 rows, D = 128, tile_g = 1024, fp32
   and bf16 scores (the JAX-default service's PCA scan and
@@ -12,17 +14,32 @@ the fp32 ``precise`` scan). Shapes:
   cascade's block3a level) and over 131,072 rows at tile_g 128;
 - ``tilemin2_packed``: Da = 128 over 1,000,448 rows (the plain line) and
   Da = 768 over 131,072 rows (``pca_dim=700``, streamed queries);
-- ``topk_l2``: fp32 ``precise`` at 1024 x 1,000,000 x 1280, k = 1 (the
-  oracle), and bf16 at 256 x 1,000,000 x 1280, k = 32 (lists past 16).
+- ``tilemin_quant``: int8 rows, 1024 x 1,000,448 x 1536, ``compute``
+  int8 and bf16 (bench.py's ``--quant``);
+- ``topk_l2``: bf16 at 1024 x 1,000,000 x 1280, k = 1 (the exact step),
+  and at 256 x 1,000,000 x 1280, k = 32 (lists past 16), each timed both
+  before and after (``... after precise``) ``precise`` (the oracle) over
+  bf16 rows at 1024 x 1,000,000 x 1280; ``precise`` also at x 1536, k = 1.
+
+After timing a shape the script runs it back to back for about half a
+second while ``nvidia-smi`` samples the card every 20 ms, and keeps the
+median SM clock (MHz), power draw (W) and temperature (C) of those
+samples under ``clocks``, so a shift between two runs can be read
+against the clock.
+
+With ``--mbconv`` it times instead the fused MBConv kernel at each of
+B0@224's twelve stride-1 blocks, B = 1024 (random bf16 activations of the
+block's input shape, the trained checkpoint's folded weights), beside the
+per-op block (cuDNN and elementwise ops).
 
 A shape the checkout's kernels refuse reads null. ``--root`` imports the
 port from another checkout, so one command can compare two trees on one
 card: run the script once per tree, in the order A, B, B, A. Prints the
 card's name and power limit, then one JSON object ``{"root", "card",
-"ms": {shape: ms}}``.
+"ms": {shape: ms}, "clocks": {shape: {"sm_mhz", "power_w", "temp_c", "samples"}}}``.
 
 Usage: python fast_image_recognition_tpu_torch/scripts/scan_times.py
-       [--root CHECKOUT] [--reps 10] [--seed 0] [--out FILE]
+       [--root CHECKOUT] [--mbconv] [--reps 10] [--seed 0] [--out FILE]
 """
 
 from __future__ import annotations
@@ -33,11 +50,16 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+SETTLE_S = 1.0  # idle before each shape: each starts from the same power state
+
+
 def _ms(torch, fn, reps: int) -> float:
+    time.sleep(SETTLE_S)
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -49,12 +71,43 @@ def _ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _clocks(torch, fn, seconds: float = 0.5):
+    """Median SM clock (MHz), power draw (W) and temperature (C) of the
+    ``nvidia-smi`` samples (every 20 ms) taken while ``fn`` runs back to
+    back for about ``seconds``; None where nvidia-smi gives no reading."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                             "--format=csv,noheader,nounits",
+                             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        proc.stdout.readline()  # the first sample: nvidia-smi is up, the card still idle
+        t0 = time.time()
+        while time.time() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate()[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            sm, power, temp = (float(v) for v in line.split(","))
+        except ValueError:  # "[N/A]" or a line cut by terminate()
+            continue
+        samples.append((sm, power, temp))
+    if not samples:
+        return None
+    mid = len(samples) // 2
+    sm, power, temp = (sorted(col)[mid] for col in zip(*samples))
+    return {"sm_mhz": sm, "power_w": power, "temp_c": temp, "samples": len(samples)}
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)), help="checkout to import the port from")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="", help="also write the JSON object to this file")
+    p.add_argument("--mbconv", action="store_true", help="time the fused MBConv blocks instead of the scans")
     args = p.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -67,7 +120,7 @@ def main() -> int:
     from fast_image_recognition_tpu_torch.kernels import build
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
 
-    build.build(["tile_scan", "packed_scan", "topk_l2"])  # one nvcc each, in parallel
+    build.build(["mbconv"] if args.mbconv else ["tile_scan", "packed_scan", "topk_l2"])  # one nvcc each, in parallel
     for name, log in build.BUILD_LOG.items():  # registers per kernel, when this call compiled it
         kernel = ""
         for line in log.splitlines():
@@ -90,14 +143,34 @@ def main() -> int:
     def probes(g, b):
         return unit(g[:b].float() + 0.05 * torch.randn((b, g.shape[1]), generator=gen, device=dev))
 
-    ms = {}
+    ms, clocks = {}, {}
 
     def timed(name, fn, reps=args.reps):
         try:
             ms[name] = _ms(torch, fn, reps)
+            clocks[name] = _clocks(torch, fn)
         except (ValueError, RuntimeError) as e:  # a shape this checkout refuses
             print(f"{name}: {type(e).__name__}: {str(e).splitlines()[0]}", file=sys.stderr)
-            ms[name] = None
+            ms[name] = clocks[name] = None
+
+    if args.mbconv:
+        _mbconv_times(torch, dev, gen, timed, HERE)
+    else:
+        _scan_times(torch, build, dk, rows, probes, timed, args.reps)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    out = {"root": root, "card": card, "ms": ms, "clocks": clocks}
+    print(json.dumps(out), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def _scan_times(torch, build, dk, rows, probes, timed, reps):
+    from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
     np_ = 977 * 1024  # 1,000,448 rows: 1,000,000 padded to whole tiles
     for d in (128, 768):
@@ -118,24 +191,58 @@ def main() -> int:
                   lambda: build.launch_tilemin_packed(qa, ga128, 128))
         timed(f"tilemin2_packed B=1024 Np={ga.shape[0]} Da={ga.shape[1]}", lambda: build.launch_tilemin2_packed(qa, ga))
         del g, gsq, ga, qa
-    n, d = 1_000_000, 1280
-    g = rows(n, d).to(torch.bfloat16)
-    q = probes(g, 1024)
-    timed(f"topk_l2 precise B=1024 N={n} D={d} k=1",
-          lambda: build.launch_topk_l2(q, g, 1, n, precise=True), reps=max(1, args.reps // 3))
-    q16 = q[:256].to(torch.bfloat16)
-    timed(f"topk_l2 bf16 B=256 N={n} D={d} k=32", lambda: build.launch_topk_l2(q16, g, 32, n),
-          reps=max(1, args.reps // 3))
+    n = 1_000_000
+    for d in (1280, 1536):
+        g = rows(n, d).to(torch.bfloat16)
+        q = probes(g, 1024)
+        q16 = q.to(torch.bfloat16)
+        # the bf16 shapes both before and after the precise pass, which may leave the card at another clock
+        for after in ((False, None, True) if d == 1280 else (None,)):
+            if after is None:
+                timed(f"topk_l2 precise B=1024 N={n} D={d} k=1",
+                      lambda: build.launch_topk_l2(q, g, 1, n, precise=True), reps=max(1, reps // 3))
+                continue
+            tag = " after precise" if after else ""
+            timed(f"topk_l2 bf16 B=1024 N={n} D={d} k=1{tag}", lambda: build.launch_topk_l2(q16, g, 1, n))
+            timed(f"topk_l2 bf16 B=256 N={n} D={d} k=32{tag}", lambda: build.launch_topk_l2(q16[:256], g, 32, n))
+        if d == 1536:
+            gq, gs = quantize_rows(dk.pad_gallery(g, 1024))
+            gsq = dk.gallery_sq_norms(g, n).reshape(-1)
+            gsc = dk.quant_gallery_scales(gs, n).reshape(-1)
+            qq, qs = quantize_rows(q)
+            for compute in ("int8", "bf16"):
+                timed(f"tilemin_quant {compute} B=1024 Np={gq.shape[0]} D={d} tile_g=1024",
+                      lambda compute=compute: build.launch_tilemin_quant(qq, qs, gq, gsq, gsc, 1024, compute))
+            del gq, gs, gsq, gsc
+        del g, q
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    out = {"root": root, "card": card, "ms": ms}
-    print(json.dumps(out), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f)
-    return 0
+
+def _mbconv_times(torch, dev, gen, timed, here):
+    """The fused MBConv kernel and the per-op block at each stride-1 block
+    of B0@224, B = 1024."""
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+    from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
+    from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(here)), "benchmarks", "trained_b0_224_synthetic1024_s0.npz")
+    v = load_variables(ckpt)
+    np_vars = {"params": v["params"], "batch_stats": v["batch_stats"]}
+    net = make_infer_fn(np_vars, "b0", resolution=224, device=dev)
+    net_f = make_infer_fn(np_vars, "b0", resolution=224, fused=True, device=dev)
+    with torch.no_grad():
+        h = net.stem(torch.zeros((1, 224, 224, 3), dtype=torch.uint8, device=dev))
+        for i, (name, blk) in enumerate(zip(net.names, net.blocks)):
+            if str(i) in net_f.fused_blocks:
+                fb = net_f.fused_blocks[str(i)]
+                q = {n: getattr(fb, n) for n in fb.param_names}
+                x = torch.randn((1024, *h.shape[1:]), generator=gen, device=dev).to(torch.bfloat16)
+                x = x.contiguous(memory_format=torch.channels_last)
+                tag = (f"{name} B=1024 {h.shape[2]}x{h.shape[3]} "
+                       f"{h.shape[1]}->{q['w_proj_t'].shape[1]}->{q['w_proj_t'].shape[0]}")
+                timed(f"mbconv {tag}", lambda x=x, q=q, cfg=fb.cfg: mb.mbconv(x, q, cfg))
+                timed(f"per-op {tag}", lambda x=x, blk=blk: blk(x))
+                del x
+            h = blk(h)
 
 
 if __name__ == "__main__":

@@ -122,17 +122,18 @@ def test_ctypes_bindings_match_the_c_launchers():
     expected = {
         "tilemin2_packed_launch": 8,
         "tilemin_packed_launch": 8,
-        "topk_l2_launch": 16,
-        "topk_l2_precise_launch": 16,
+        "topk_l2_launch": 18,
+        "topk_l2_precise_launch": 20,
         "tilemin_launch": 11,
         "tilemin_quant_launch": 13,
-        "mbconv_expand_dw_launch": 19,
-        "mbconv_se_project_launch": 17,
+        "mbconv_launch": 29,
+        "mbconv_smem": 13,
         "chi2_launch": 8,
         "topk_l2_segment_rows": 2,
         "topk_l2_query_rows": 0,
         "topk_l2_list_len": 1,
         "topk_l2_max_k": 0,
+        "topk_l2_split_smem": 1,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()

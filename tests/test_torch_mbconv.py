@@ -135,24 +135,32 @@ def test_plain_matches_per_op_block_fp32(b0, block_index):
 
 
 def test_same_pads_and_tile_plan_cover_b0_224():
-    """The host geometry: XLA SAME pads, and a first-launch tile within the
-    shared-memory budget for every stride-1 block of B0@224 and odd
-    planes; the tiles cover the plane."""
+    """The host geometry: XLA SAME pads, and a tile of the kernel's plane
+    walk within its shared memory for every stride-1 block of B0@224, of
+    B1-B7 at their resolutions and of odd planes (none raises); 7x7 planes
+    and B0's 14x14 planes take the whole plane in one tile, and B0's blocks
+    one group of output channels."""
     for h, k in [(7, 5), (14, 3), (15, 5), (112, 3)]:
         assert pmb._same_pads(h, k, 1) == jmb._same_pads(h, k, 1) == (h, (k - 1) // 2, k // 2)
-    hw = VARIANTS["b0"].resolution // 2
-    n_s1 = 0
-    for c in block_plan("b0"):
-        hw = -(-hw // c["stride"])
-        if c["stride"] != 1:
-            continue
-        n_s1 += 1
-        cin, has_expand = c["in_filters"], c["expand"] != 1
-        for h in (hw, 15):
-            th, tw = pmb.tile_plan(h, h, c["kernel"], cin, has_expand)
-            assert 1 <= th <= h and 1 <= tw <= h
-            assert pmb.expand_dw_smem(th, tw, c["kernel"], cin, has_expand) <= pmb.SMEM_BUDGET
-    assert n_s1 == 12
+    n_s1 = {}
+    for variant in VARIANTS:
+        hw = VARIANTS[variant].resolution // 2
+        for c in block_plan(variant):
+            hw = -(-hw // c["stride"])
+            if c["stride"] != 1:
+                continue
+            n_s1[variant] = n_s1.get(variant, 0) + 1
+            cin, has_expand = c["in_filters"], c["expand"] != 1
+            ce, cout, s = cin * c["expand"], c["out_filters"], max(1, int(cin * c["se_ratio"]))
+            for h in (hw, 15):
+                th, tw, group, bufs, ipb = plan = pmb.plane_plan(h, h, c["kernel"], cin, ce, cout, s, has_expand)
+                assert 1 <= th <= h and 1 <= tw <= h and group >= 1 and 0 <= bufs <= 3 and ipb in (1, 2)
+                assert 0 < pmb.plane_smem(h, h, c["kernel"], cin, ce, cout, s, has_expand, *plan) <= pmb.MAX_SMEM
+                if h == 7 or (variant == "b0" and h == 14):
+                    assert (th, tw) == (h, h), (variant, c["name"], h)
+                if variant == "b0" and h == hw:
+                    assert group == -(-cout // 64), c["name"]  # B0 never splits its output channels
+    assert n_s1["b0"] == 12
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,106 @@
+"""The port's ``topk_l2`` past the 256 columns one card launch takes: the top-k
+is scanned in slabs, each admitting only the (distance, row) strictly after
+the previous slab's last entry (the slab floor). On the CPU the slabs run
+the plain pass with the same floor, here at a small slab width, and the
+result must be the JAX package's ``topk_l2`` (its Pallas kernel in
+interpret mode) on the same numpy-seeded inputs, and bit for bit the port's
+own single pass.
+
+The gallery (320 x 16) holds 64 exact duplicates, so that equal distances
+occur and ties must go to the lowest row on both sides, also where a tie
+straddles two slabs. Tolerances, as in tests/test_torch_topk_large_k.py:
+- bf16: both sides take bf16 x bf16 products summed in fp32, in another
+  order: distances within 2^-12 relative;
+- ``precise=True``: a true fp32 dot on both sides, in another order: raw
+  squared distances within 2^-16 absolute;
+- indices equal except where the two rows' distances, recomputed in
+  float64 from the values both sides scan, tie within that tolerance.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fast_image_recognition_tpu.ops.distance_kernel as J
+import fast_image_recognition_tpu_torch.ops.distance_kernel as P
+from fast_image_recognition_tpu_torch.kernels import plain
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
+N, DIM, B = 320, 16, 3
+SLAB = 64  # slab width of the CPU runs (the card's is build.TOPK_MAX_K, 256)
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(23)
+    g = _unit(rng.standard_normal((N, DIM)))
+    g[256:320] = g[:64]  # exact duplicates: rows r and r + 256 tie
+    q = _unit(g[rng.integers(0, 64, B)] + 0.5 * rng.standard_normal((B, DIM)) / np.sqrt(DIM))
+    return q, g
+
+
+def _port(q, g, k, monkeypatch, slab=SLAB, **kw):
+    monkeypatch.setattr(P, "TOPK_SLAB", slab)
+    d, i = P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k, **kw)
+    return d.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("k,mode", [(300, "bf16"), (N, "precise")])
+def test_topk_l2_slabs_match_jax(data, k, mode, monkeypatch):
+    q, g = data
+    kw = dict(precise=True) if mode == "precise" else {}
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, **kw))
+    pd, pi = _port(q, g, k, monkeypatch, **kw)
+    assert pd.shape == pi.shape == (B, k) and pi.dtype == np.int32
+    assert ((pi >= 0) & (pi < N)).all() and all(len(set(r)) == k for r in pi)
+    assert (np.diff(pd, axis=1) >= 0).all()
+    gb = torch.from_numpy(g).to(torch.bfloat16).double().numpy()
+    qs = q.astype(np.float64) if mode == "precise" else torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    if mode == "precise":
+        tol = np.full_like(jd, 2.0**-16, dtype=np.float64)  # on the raw squared distance
+        np.testing.assert_array_less(np.abs(pd - jd) * DIM, tol)
+    else:
+        tol = 2.0**-12 * np.abs(jd) * DIM
+        np.testing.assert_allclose(pd, jd, rtol=2.0**-12, atol=0)
+    dp = ((gb[pi] - qs[:, None]) ** 2).sum(axis=2)
+    dj = ((gb[ji] - qs[:, None]) ** 2).sum(axis=2)
+    differ = pi != ji
+    assert (np.abs(dp - dj)[differ] <= tol[differ]).all()
+    # a duplicate ties with its original exactly: the lower row comes first
+    for row in pi:
+        pos = {r: j for j, r in enumerate(row)}
+        assert all(r - 256 in pos and pos[r - 256] < pos[r] for r in row if r >= 256)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(precise=True), dict(window=(3, 13))])
+@pytest.mark.parametrize("k", [70, 300, N + 5])
+def test_slabs_equal_the_single_pass(data, k, kw, monkeypatch):
+    """Slabs of 64 give the single pass's top-k bit for bit, ties included;
+    past the valid rows both pad with (BIG_DIST, -1)."""
+    q, g = data
+    one = _port(q, g, k, monkeypatch, slab=k, **kw)
+    slabs = _port(q, g, k, monkeypatch, **kw)
+    np.testing.assert_array_equal(slabs[0], one[0])
+    np.testing.assert_array_equal(slabs[1], one[1])
+    if k > N:
+        assert (one[1][:, N:] == -1).all()
+
+
+def test_plain_floor_admits_only_entries_after_it(data):
+    """The plain pass with a floor returns the entries strictly after the
+    floor's (distance, row) in (distance, row) order; an empty floor (row
+    -1) admits nothing."""
+    q, g = data
+    qt, gt = torch.from_numpy(q).to(torch.bfloat16), torch.from_numpy(g).to(torch.bfloat16)
+    d, i = plain.topk_l2_plain(qt, gt, N)
+    floor = (d[:, 99], i[:, 99])
+    fd, fi = plain.topk_l2_plain(qt, gt, 50, floor=floor)
+    assert torch.equal(fd, d[:, 100:150]) and torch.equal(fi, i[:, 100:150])
+    empty = (torch.full((B,), plain.BIG_DIST), torch.full((B,), -1, dtype=torch.int32))
+    ed, ei = plain.topk_l2_plain(qt, gt, 5, floor=empty)
+    assert (ei == -1).all() and (ed == torch.tensor(plain.BIG_DIST, dtype=torch.float32)).all()
