@@ -64,7 +64,20 @@ drives, each with its own launch counts:
   ``BruteForceMatcher`` (L2, a 256-feature prefix, int8, chi2 and KL on
   sum-normalized rows) over ``make_gallery_and_probes``' 102,400 rows, the
   L2 rows held against an fp64 argmin and the chi2 rows against
-  ``chi2_nn``'s.
+  ``chi2_nn``'s;
+- ``select='approx'`` on the plain line's service (one single-min packed
+  scan a call, rows equal to ``select='exact', escalate=None``), and the
+  oracle ``topk_l2(precise=True)`` over fp32-stored rows timed too;
+- bench.py's ``--config dem`` (``DirectedEnumerationMatcher``, gather
+  probes, budget 1 %, over 100k x 1536 rows, held against its NumPy
+  oracle, its exact probe mode and its device build, without a host
+  sync), the TWD classifiers over the same gallery (Proposed TWD held
+  against its oracle), ``--config video`` (the log-posterior fusion held
+  against fp64 NumPy) and ``--config cascade`` (``SequentialInferencePipeline``
+  over the trainable B0@224 from its own seeded init, folded engine, SVC
+  exits: the fused cascade without a host sync, its decisions at full
+  capacities and the pooled ones held against ``predict()`` up to near-ties,
+  the bind engine against the folded one, the kNN exits once).
 
 One flushed line per phase, with the seconds since start. The line before
 the card's name and power limit holds the kernels' JSON; the last line is
@@ -448,7 +461,8 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     tol = torch.full_like(pd, 2.0**-16) if precise else 2.0**-12 * pd.abs() + 1e-6
     ok = off_ok and in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
     ok = ok and bool(((kd - d_rows).abs() <= tol).all())
-    variant = "precise" if precise else f"window {window}" if window else "bf16"
+    variant = ("precise" + (", fp32 rows" if gallery.dtype == torch.float32 else "") if precise
+               else f"window {window}" if window else "bf16")
     masked = "" if row_mask is None else f" mask {int(on.sum())}/{b}"
     if report is None:
         if not ok:
@@ -479,6 +493,8 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     # the fp32 CUDA-core bound of the FFMA design it replaced: phase text only, not in the JSON line
     ffma_ms = bound(2.0 * b * n_valid * width, nbytes, PEAK_FP32_FLOPS)[0] if split else None
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
+    if gallery.dtype == torch.float32:
+        shape += " rows=fp32"  # the FFMA pass (topk_pass1_precise)
     prev = PREVIOUS_DESIGN_MS.get(("precise " if precise else "") + shape)
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
@@ -1919,6 +1935,473 @@ def run_chi2_slice(dev, launches, smi):
     return kernel_row, {"chi2_cost": cost, "brute_force": bf_rows}
 
 
+# bench.py --config dem / video / cascade at their defaults, and the TWD
+# classifiers over the dem gallery
+DEM_CLASSES, DEM_PER, DEM_DIM, DEM_BATCH = 1000, 100, 1536, 128  # bench_dem: 100k x 1536, batch 128
+DEM_BUDGET = 0.01
+DEM_ORACLE_PROBES = 32
+VIDEO_CLASSES, VIDEO_FRAMES = 100, 20  # bench_video: 20 gallery and 20 probe frames per class
+VIDEO_TIE = 2.0**-10  # summed log-posteriors of a video's two best classes this close: a near-tie
+CASCADE_CLASSES, CASCADE_CALIB = 100, 256  # bench_cascade: 100-class SVC heads, calibrated on 256 images
+CASCADE_TIE = 2.0**-8  # a score margin (top-2, or to the threshold) this close to 0: a near-tie (scores ~0.1)
+BIND_BATCH = 64
+KNN_IDS, KNN_PER = 100, 4
+TWD_PROBES, TWD_ORACLE_PROBES = 1024, 16
+FEATURE_REPS, TWD_REPS = 50, 10  # device-timed calls of the ms-scale dem/video lines and of each TWD classifier
+FULL_DEM_BUDGET, FULL_DEM_PROBES = 60, 32  # FullMatrixDEM on the video gallery at JAX's test budget
+SVC_CHECK_STEPS = 20  # svc_descent steps run on the card and the CPU from the same weights
+VIDEO_IO_VIDEOS = 10  # videos written and read back through the text format
+
+
+def fusion_fp64(probes, gallery, gl, fv, num_classes, num_videos, w=100.0):
+    """The video fusion in fp64 NumPy: [num_videos, num_classes] summed
+    log-posteriors."""
+    import numpy as np
+    p64, g64 = probes.astype(np.float64), gallery.astype(np.float64)
+    d = ((p64 * p64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :] - 2.0 * p64 @ g64.T) / p64.shape[1]
+    cmin = np.full((len(p64), num_classes), 1e30)
+    for c in range(num_classes):
+        if (gl == c).any():
+            cmin[:, c] = d[:, gl == c].min(1)
+    logits = -w * cmin
+    logp = logits - logits.max(1, keepdims=True)
+    logp -= np.log(np.exp(logp).sum(1, keepdims=True))
+    out = np.zeros((num_videos, num_classes))
+    np.add.at(out, fv, logp)
+    return out
+
+
+def cascade_margins(pipe, x):
+    """Per level and image, from one pass of the whole batch through every
+    level: the gap between the exit head's two best scores ([L, B]) and the
+    distance of the best score to the level's threshold ([L, B], inf at the
+    last level)."""
+    import torch
+
+    gaps, dists = [], []
+    for level, scores in enumerate(pipe.level_scores(x)):
+        top2 = torch.topk(scores, 2, dim=1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        last = level == pipe.num_levels - 1
+        dists.append(torch.full_like(top2[:, 0], math.inf) if last else (top2[:, 0] - pipe.thresholds[level]).abs())
+    return torch.stack(gaps).cpu().numpy(), torch.stack(dists).cpu().numpy()
+
+
+def check_cascade_decisions(what, got, want, margins):
+    """``got`` equals ``want`` (predictions and exit levels) except at most
+    1 % of the images, each at a near-tie: at a level either run reached,
+    its best score within CASCADE_TIE of the threshold, or at a level
+    either run exited, its two best scores within CASCADE_TIE."""
+    import numpy as np
+
+    gaps, dists = margins
+    levels = np.arange(gaps.shape[0])[:, None]
+    reached = levels <= np.maximum(got.exit_level, want.exit_level)[None, :]
+    exited = (levels == got.exit_level[None, :]) | (levels == want.exit_level[None, :])
+    tie = ((reached & (dists <= CASCADE_TIE)) | (exited & (gaps <= CASCADE_TIE))).any(axis=0)
+    differ = (got.predictions != want.predictions) | (got.exit_level != want.exit_level)
+    if differ.mean() > 0.01 or not (tie | ~differ).all():
+        raise AssertionError(f"{what}: {int(differ.sum())} images differ from predict(), "
+                             f"{int((differ & ~tie).sum())} of them off near-ties")
+    return 100.0 * float(np.mean(~differ)), int(differ.sum()), int(tie.sum())
+
+
+def check_feature_entry_points(dev, smi, g, gl, p, pl):
+    """The feature-level entry points no bench.py line times, on the card at
+    the video line's data (100 classes, 2,000 x 1536 gallery and probe
+    rows): the SVC descent against its CPU run, the exit cascades of
+    cascade/exits.py, FullMatrixDEM against its oracle, the video text
+    format and evaluate_video_recognition through a DEM matcher. Returns
+    the line's JSON."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.cascade import exits
+    from fast_image_recognition_tpu_torch.data.feature_io import normalize_features
+    from fast_image_recognition_tpu_torch.data.video_io import VideoDB, load_videos, write_videos
+    from fast_image_recognition_tpu_torch.evaluation.video import evaluate_video_recognition, sample_probe_frames
+    from fast_image_recognition_tpu_torch.search.dem import (DirectedEnumerationMatcher, FullMatrixDEM,
+                                                             dem_full_oracle_search)
+
+    t = time.time()
+    cpu = torch.device("cpu")
+    row = dict(line="feature entry points", sklearn=importlib.util.find_spec("sklearn") is not None)
+
+    # exit levels: unit-row prefixes of 256, 768 and 1536 features
+    def levels(x):
+        return [(x[:, :w] / np.linalg.norm(x[:, :w], axis=1, keepdims=True)).astype(np.float32)
+                for w in (256, 768, x.shape[1])]
+
+    x_tr, x_va = levels(g), levels(p)
+
+    # svc_descent from one set of weights on the card and on the CPU
+    w0 = (torch.randn((VIDEO_CLASSES, g.shape[1]), generator=torch.Generator().manual_seed(0)) * 0.01).numpy()
+    b0 = np.zeros(VIDEO_CLASSES, np.float32)
+    w_d, b_d = exits.svc_descent(x_tr[-1], gl, VIDEO_CLASSES, w0, b0, steps=SVC_CHECK_STEPS, device=dev)
+    w_c, b_c = exits.svc_descent(x_tr[-1], gl, VIDEO_CLASSES, w0, b0, steps=SVC_CHECK_STEPS, device=cpu)
+    row["svc_descent_max_rel_err"] = svc_err = float(max(np.abs(w_d - w_c).max() / np.abs(w_c).max(),
+                                                        np.abs(b_d - b_c).max() / max(np.abs(b_c).max(), 1e-30)))
+
+    # LinearExitCascade: trained on the card (train_linear_svc takes the
+    # descent where scikit-learn is missing), evaluated there, and its
+    # decisions held against fp64 NumPy scores of the same weights
+    casc = exits.LinearExitCascade.train(x_tr, gl, VIDEO_CLASSES, device=dev)
+    res = casc.evaluate(x_va, device=dev)
+    ties = np.zeros(len(p), bool)
+    want_pred = np.zeros(len(p), np.int64)
+    want_level = np.full(len(p), len(x_va) - 1, np.int64)
+    decided = np.zeros(len(p), bool)
+    probs = []
+    for level, x in enumerate(x_va):
+        sc = x.astype(np.float64) @ casc.coefs[level].astype(np.float64).T + casc.intercepts[level]
+        top2 = np.sort(sc, axis=1)[:, -2:]
+        last = level == len(x_va) - 1
+        fire = np.ones(len(p), bool) if last else top2[:, 1] > casc.thresholds[level]
+        ties |= ~decided & (top2[:, 1] - top2[:, 0] <= 2.0**-16 * np.abs(top2[:, 1]).clip(1.0))
+        if not last:
+            ties |= ~decided & (np.abs(top2[:, 1] - casc.thresholds[level]) <= 2.0**-16 * max(1.0, abs(casc.thresholds[level])))
+        new = fire & ~decided
+        want_pred[new], want_level[new] = sc.argmax(1)[new], level
+        decided |= fire
+        e = np.exp(sc - sc.max(1, keepdims=True))
+        probs.append(e / e.sum(1, keepdims=True))
+    differ = (res.predictions != want_pred) | (res.exit_level != want_level)
+    row["linear_exits_equal_fp64_pct"] = 100.0 * float(np.mean(~differ))
+    row["linear_exits_breaks"] = [float(v) for v in res.break_counts]
+    row["linear_exits_error_pct"] = 100.0 * float(np.mean(res.predictions != pl))
+    entropy = exits.entropy_exit_cascade(probs, threshold=0.5)
+    row["entropy_exits_breaks"] = [float(v) for v in entropy.break_counts]
+
+    # the kNN exits, alone and with a final SVC, on the card and on the CPU
+    knn_d = exits.sequential_knn_cascade(x_tr, gl, x_va, device=dev)
+    knn_c = exits.sequential_knn_cascade(x_tr, gl, x_va, device=cpu)
+    hyb_d = exits.knn_exits_with_final_classifier(x_tr, gl, x_va, VIDEO_CLASSES, device=dev)
+    hyb_c = exits.knn_exits_with_final_classifier(x_tr, gl, x_va, VIDEO_CLASSES, device=cpu)
+
+    def same(a, b):
+        return 100.0 * float(np.mean((a.predictions == b.predictions) & (a.exit_level == b.exit_level)))
+
+    row["knn_exits_card_vs_cpu_equal_pct"], row["knn_svc_exits_card_vs_cpu_equal_pct"] = same(knn_d, knn_c), same(hyb_d, hyb_c)
+
+    # FullMatrixDEM at JAX's test budget against the sequential oracle
+    full = FullMatrixDEM(g, gl, seed=3, device=dev)
+    full.set_budget(FULL_DEM_BUDGET)
+    fr = full.search(p[:FULL_DEM_PROBES])
+    p_full, starts = full._p_full.cpu().numpy(), full._start_idx.cpu().numpy()
+    full_rows = full_close = 0
+    for i in range(FULL_DEM_PROBES):
+        oi, _, oc = dem_full_oracle_search(p[i], g, p_full, starts, full.threshold, FULL_DEM_BUDGET)
+        full_rows += int(fr.indices[i] == oi)
+        full_close += int(abs(int(round(fr.checked_fraction[i] * g.shape[0])) - oc) <= 2)
+    row["full_dem_oracle_rows_equal_pct"] = 100.0 * full_rows / FULL_DEM_PROBES
+    row["full_dem_oracle_checked_within_2_pct"] = 100.0 * full_close / FULL_DEM_PROBES
+    del full, p_full
+
+    # the video text format: write the first videos, read them back (the
+    # loader zeroes tiny entries and normalizes, as the reference does)
+    sub = pl < VIDEO_IO_VIDEOS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "videos.txt")
+        write_videos(path, p[sub], pl[sub], np.arange(VIDEO_IO_VIDEOS), [f"person{i}" for i in range(VIDEO_IO_VIDEOS)])
+        back = load_videos(path, p.shape[1])
+    io_ok = (np.array_equal(back.frame_video, pl[sub]) and np.array_equal(back.video_person, np.arange(VIDEO_IO_VIDEOS))
+             and back.person_names == [f"person{i}" for i in range(VIDEO_IO_VIDEOS)]
+             and np.abs(back.frames - normalize_features(p[sub])).max() <= 1e-6)
+    row["video_io_round_trip"] = bool(io_ok)
+
+    # evaluate_video_recognition through a gather DEM matcher (budget 10 %),
+    # on the card and on the CPU
+    videos = VideoDB(frames=p, frame_video=pl.astype(np.int64), video_person=np.arange(VIDEO_CLASSES),
+                     person_names=[str(i) for i in range(VIDEO_CLASSES)])
+    idx = sample_probe_frames(videos, step=2)
+    ev = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        m = DirectedEnumerationMatcher(g, gl, probe_mode="gather", image_count_to_check=g.shape[0] // 10, seed=0,
+                                       device=d)
+        ev[name] = evaluate_video_recognition(m, gl, videos, np.arange(VIDEO_CLASSES), idx, VIDEO_CLASSES)
+        del m
+    row["video_eval"] = {k: dict(frame_error_pct=v.frame_error, video_error_pct=v.video_error) for k, v in ev.items()}
+    frame_gap = abs(ev["card"].frame_error - ev["cpu"].frame_error) * len(idx) / 100.0
+    video_gap = abs(ev["card"].video_error - ev["cpu"].video_error) * VIDEO_CLASSES / 100.0
+    row["seconds"] = time.time() - t
+    phase(
+        f"feature entry points ({len(p)} x {p.shape[1]} video-line rows, {VIDEO_CLASSES} classes, {smi}; "
+        f"scikit-learn {'present' if row['sklearn'] else 'absent: the SVC descent'}): svc_descent card vs CPU over "
+        f"{SVC_CHECK_STEPS} steps max rel err {svc_err:.3e}; LinearExitCascade (levels 256/768/1536) equal to fp64 "
+        f"on {row['linear_exits_equal_fp64_pct']:.2f}% ({int((differ & ties).sum())} near-ties differ), breaks "
+        f"{[round(v, 3) for v in row['linear_exits_breaks']]}, error {row['linear_exits_error_pct']:.2f}%; entropy "
+        f"exits breaks {[round(v, 3) for v in row['entropy_exits_breaks']]}; kNN exits card = CPU "
+        f"{row['knn_exits_card_vs_cpu_equal_pct']:.2f}%, kNN + SVC {row['knn_svc_exits_card_vs_cpu_equal_pct']:.2f}%; "
+        f"FullMatrixDEM (budget {FULL_DEM_BUDGET}) vs dem_full_oracle_search on {FULL_DEM_PROBES} probes: rows "
+        f"{row['full_dem_oracle_rows_equal_pct']:.1f}%, checked within 2 {row['full_dem_oracle_checked_within_2_pct']:.1f}%; "
+        f"video text round trip {io_ok}; evaluate_video_recognition via DEM gather ({len(idx)} frames) card "
+        f"{ev['card'].frame_error:.3f}% / {ev['card'].video_error:.1f}% vs CPU {ev['cpu'].frame_error:.3f}% / "
+        f"{ev['cpu'].video_error:.1f}% (frame / video error); {row['seconds']:.1f} s"
+    )
+    if svc_err > 1e-4:
+        raise AssertionError("svc_descent on the card drifts from its CPU run")
+    if (differ & ~ties).any():
+        raise AssertionError("LinearExitCascade's decisions differ from fp64 beyond near-ties")
+    if row["knn_exits_card_vs_cpu_equal_pct"] < 99.0 or row["knn_svc_exits_card_vs_cpu_equal_pct"] < 99.0:
+        raise AssertionError("the kNN exit cascades differ between the card and the CPU")
+    if full_rows < int(0.9 * FULL_DEM_PROBES) or full_close < int(0.85 * FULL_DEM_PROBES):
+        raise AssertionError("FullMatrixDEM disagrees with dem_full_oracle_search (tests/test_dem.py:232-251 bounds)")
+    if not io_ok:
+        raise AssertionError("the video text format does not round-trip")
+    if frame_gap > 0.01 * len(idx) or video_gap > 1:
+        raise AssertionError("evaluate_video_recognition differs between the card and the CPU")
+    return row
+
+
+def run_feature_configs(dev, launches, smi):
+    """bench.py's dem, video and cascade configs and the TWD classifiers.
+    Returns their lines' JSON."""
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
+    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
+    from fast_image_recognition_tpu_torch.cascade.twd import proposed_twd_oracle
+    from fast_image_recognition_tpu_torch.data import make_gallery_and_probes
+    from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.models import backbone_info, create_efficientnet, default_taps
+    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+    from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, dem_oracle_search
+
+    lines = {}
+
+    # 18. bench.py --config dem: the gather probe mode at budget 1 %, host build
+    t = time.time()
+    g, gl, p, pl = make_gallery_and_probes(DEM_CLASSES, DEM_PER, 1, DEM_DIM, seed=0)
+    data_s = time.time() - t
+    t = time.time()
+    dem = DirectedEnumerationMatcher(g, gl, probe_mode="gather", seed=0, device=dev)
+    budget = int(DEM_BUDGET * g.shape[0])
+    dem.set_budget(budget)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    probes = torch.from_numpy(p[:DEM_BATCH]).to(dev)
+    b = probes.shape[0]
+    build.reset_launch_counts()
+    idx, _, checked = (x.cpu().numpy() for x in dem.search_device(probes))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dem.search_device(probes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.array_equal(out[0].cpu().numpy(), idx):
+        raise AssertionError("dem search_device answers changed under sync debug mode")
+    dem_ms = cuda_ms(lambda: dem.search_device(probes), FEATURE_REPS)
+    qps = b / dem_ms * 1e3
+    check_launches("dem", launches)
+    n = g.shape[0]
+    oracle_rows = oracle_close = 0
+    for i in range(DEM_ORACLE_PROBES):
+        oi, _, oc = dem_oracle_search(p[i], g, dem.index, budget)
+        oracle_rows += int(idx[i] == oi)
+        oracle_close += int(abs(int(checked[i]) - oc) <= 2)
+    dem_dev = DirectedEnumerationMatcher.from_device(torch.from_numpy(g).to(dev), gl, probe_mode="exact", seed=0,
+                                                     device=dev)
+    dem_dev16 = DirectedEnumerationMatcher.from_device(torch.from_numpy(g).to(dev), gl, seed=0, device=dev)
+    same_pivots = np.array_equal(dem_dev.index.pivot_indices, dem.index.pivot_indices)
+    pivots16 = 100.0 * float(np.mean(dem_dev16.index.pivot_indices == dem.index.pivot_indices))
+    # the default device build (bf16 rows, gather) answers as the host build
+    # does: labels on >= 97 % of the probes (tests/test_dem.py:57-79)
+    dem_dev16.set_budget(budget)
+    idx_d16 = dem_dev16.search_device(probes)[0].cpu().numpy()
+    dev16_labels = 100.0 * float(np.mean(gl[idx_d16] == gl[idx]))
+    del dem_dev, dem_dev16
+    exact = DirectedEnumerationMatcher(g, gl, probe_mode="exact", seed=0, device=dev)
+    exact.set_budget(budget)
+    idx_e = exact.search_device(probes)[0].cpu().numpy()
+    del exact
+    row = dict(line="dem gather", queries_s=qps, error_pct=100.0 * float(np.mean(gl[idx] != pl[:b])),
+               checked_pct=100.0 * float(checked.mean()) / n, budget=budget, pivots=len(dem.index.pivot_indices),
+               oracle_rows_equal_pct=100.0 * oracle_rows / DEM_ORACLE_PROBES,
+               oracle_checked_within_2_pct=100.0 * oracle_close / DEM_ORACLE_PROBES,
+               exact_mode_label_agreement_pct=100.0 * float(np.mean(gl[idx] == gl[idx_e])),
+               exact_mode_row_agreement_pct=100.0 * float(np.mean(idx == idx_e)),
+               from_device_fp32_same_pivots=same_pivots, from_device_bf16_pivots_equal_pct=pivots16,
+               from_device_bf16_label_agreement_pct=dev16_labels, ms=dem_ms, timed_calls=FEATURE_REPS)
+    lines["dem"] = row
+    phase(
+        f"dem gather ({n} x {DEM_DIM} gallery, budget {budget} of {n} (1 %), {row['pivots']} pivots, batch {b}; data "
+        f"{data_s:.1f} s, host build {build_s:.1f} s): {qps} queries/s ({dem_ms} ms a call, CUDA events over "
+        f"{FEATURE_REPS} calls, {smi}), error {row['error_pct']:.3f}%, "
+        f"checked {row['checked_pct']:.4f}%; against dem_oracle_search on {DEM_ORACLE_PROBES} probes rows equal "
+        f"{row['oracle_rows_equal_pct']:.1f}%, checked within 2 {row['oracle_checked_within_2_pct']:.1f}%; labels "
+        f"equal probe_mode='exact' {row['exact_mode_label_agreement_pct']:.3f}% (rows "
+        f"{row['exact_mode_row_agreement_pct']:.3f}%); from_device picks the host build's pivots: fp32 rows "
+        f"{same_pivots}, bf16 rows {pivots16:.1f}%; the bf16 device build's labels equal the host build's on "
+        f"{dev16_labels:.3f}%; no host sync in search_device; launches {launches['dem']}"
+    )
+    if (oracle_rows < 0.92 * DEM_ORACLE_PROBES or oracle_close < 0.9 * DEM_ORACLE_PROBES
+            or row["exact_mode_label_agreement_pct"] < 97.0 or not same_pivots or dev16_labels < 97.0):
+        raise AssertionError("dem gather disagrees with its oracle, its exact mode or its device build")
+    del dem
+
+    # 19. the TWD classifiers over the same gallery: 1024 probes, the dem
+    # line's 1000 and its first 24 again
+    tq = np.resize(p, (TWD_PROBES, p.shape[1]))
+    twd_rows = []
+    classifiers = [ProposedTWD(g, gl, DEM_CLASSES, chunk_features=32, theta=0.7, device=dev)] + [
+        ConventionalTWD(g, gl, DEM_CLASSES, kind, thr, device=dev)
+        for kind, thr in ((TWDType.POSTERIORS, 0.24), (TWDType.DIST_DIFF, 0.003), (TWDType.DIST_RATIO, 0.7))
+    ]
+    build.reset_launch_counts()
+    for clf in classifiers:
+        clf.reset_counters()
+        preds = clf.predict(tq)
+        unreliable = clf.unreliable_count
+        ms = cuda_ms(lambda: clf.predict(tq), TWD_REPS)
+        twd_rows.append(dict(line=clf.name, ms_per_probe=ms / len(tq), ms=ms, timed_calls=TWD_REPS,
+                             unreliable_pct=100.0 * unreliable / len(tq),
+                             error_pct=100.0 * float(np.mean(preds[: len(p)] != pl))))
+    check_launches("twd", launches)
+    proposed = classifiers[0].predict(tq[:TWD_ORACLE_PROBES])
+    want = np.asarray([proposed_twd_oracle(tq[i], g, gl, 32, 0.7)[0] for i in range(TWD_ORACLE_PROBES)])
+    twd_equal = int((proposed == want).sum())
+    lines["twd"] = dict(rows=twd_rows, oracle_equal=twd_equal, oracle_probes=TWD_ORACLE_PROBES)
+    phase(f"twd over the dem gallery ({len(tq)} probes, CUDA events over {TWD_REPS} calls each, {smi}): " + "; ".join(
+        f"{r['line']}: {r['ms_per_probe']} ms/probe, unreliable {r['unreliable_pct']:.2f}%, error "
+        f"{r['error_pct']:.2f}%" for r in twd_rows)
+        + f"; Proposed TWD equals proposed_twd_oracle on {twd_equal} of {TWD_ORACLE_PROBES} probes; launches "
+          f"{launches['twd']}")
+    if twd_equal != TWD_ORACLE_PROBES:
+        raise AssertionError("Proposed TWD disagrees with proposed_twd_oracle")
+    del classifiers, g, gl, p, pl, tq
+
+    # 20. bench.py --config video: 100 classes x 20 gallery frames, 20 probe
+    # frames per class, one video each, log-posterior fusion
+    g, gl, p, pl = make_gallery_and_probes(VIDEO_CLASSES, VIDEO_FRAMES, VIDEO_FRAMES, 1536, seed=0)
+    fuse = make_video_fusion_fn(g, gl, VIDEO_CLASSES, VIDEO_CLASSES, device=dev)
+    pv, fv = torch.from_numpy(p).to(dev), torch.from_numpy(pl.astype(np.int64)).to(dev)
+    build.reset_launch_counts()
+    preds = fuse(pv, fv).cpu().numpy()
+    video_ms = cuda_ms(lambda: fuse(pv, fv), FEATURE_REPS)
+    fps = len(p) / video_ms * 1e3
+    check_launches("video", launches)
+    ref = fusion_fp64(p, g, gl, pl, VIDEO_CLASSES, VIDEO_CLASSES)
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    tie = top2[:, 1] - top2[:, 0] <= VIDEO_TIE * np.maximum(1.0, np.abs(top2[:, 1]))
+    equal = preds == ref.argmax(1)
+    lines["video"] = dict(line="video fusion", frames_s=fps, ms=video_ms, timed_calls=FEATURE_REPS,
+                          error_pct=100.0 * float(np.mean(preds != np.arange(VIDEO_CLASSES))),
+                          fp64_equal_pct=100.0 * float(equal.mean()), near_ties=int(tie.sum()))
+    phase(f"video fusion ({g.shape[0]} gallery rows, {len(p)} frames, {VIDEO_CLASSES} videos): {fps} frames/s "
+          f"({video_ms} ms a call, CUDA events over {FEATURE_REPS} calls, {smi}), error {lines['video']['error_pct']:.3f}%, per-video predictions equal to fp64 NumPy "
+          f"{lines['video']['fp64_equal_pct']:.1f}% ({int(tie.sum())} near-ties); launches {launches['video']}")
+    if not (equal | tie).all():
+        raise AssertionError("the video fusion disagrees with fp64 beyond near-ties")
+    del pv, fv, fuse
+    lines["entry_points"] = check_feature_entry_points(dev, smi, g, gl, p, pl)
+    del g, gl, p, pl
+
+    # 21. bench.py --config cascade: B0@224, the port's own init (seed 0),
+    # deep taps, 100-class random SVC heads, the folded engine, batch 1024
+    t = time.time()
+    model, variables = create_efficientnet("b0", 0, seed=0, resolution=RES, device=dev)
+    taps = default_taps("b0", preset="deep")
+    with torch.no_grad():
+        probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
+    dims = [int(probe["taps"][tap].shape[-1]) for tap in taps] + [int(probe["embedding"].shape[-1])]
+    rng = np.random.default_rng(0)
+    coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
+    intercepts = [np.zeros(CASCADE_CLASSES, np.float32) for _ in dims]
+    pipe = SequentialInferencePipeline(model, variables, taps, coefs, intercepts, thresholds=[0.0] * (len(dims) - 1),
+                                       engine="folded", device=dev)
+    x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
+    pipe.calibrate(x[:CASCADE_CALIB])
+    caps = pipe.capacities_for(BATCH, slack=SLACK)
+    torch.cuda.synchronize()
+    phase(f"cascade engine built: B0@{RES} own init, taps {taps}, dims {dims}, thresholds "
+          f"{[round(v, 4) for v in pipe.thresholds]}, survivor fractions "
+          f"{[round(v, 4) for v in pipe.survivor_fractions]} -> capacities {caps} in {time.time() - t:.1f} s")
+    build.reset_launch_counts()
+    fused = pipe.fused_fn(BATCH, slack=SLACK)
+    res = pipe.predict_fused(x, slack=SLACK)  # warm-up and the answers
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = fused(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.array_equal(packed.cpu().numpy()[:BATCH], res.predictions):
+        raise AssertionError("predict_fused's answers changed under sync debug mode")
+    ms_fused = host_ms(lambda: fused(x), TIMED_CALLS)
+    check_launches("cascade engine", launches)
+    want = pipe.predict(x)
+    margins = cascade_margins(pipe, x)
+    full = pipe.predict_fused(x, capacities=[BATCH] * pipe.num_levels)
+    full_eq, full_diff, full_ties = check_cascade_decisions("predict_fused at full capacities", full, want, margins)
+    pooled = pipe.predict_pooled(x, bucket=BATCH, warmup=True)
+    ms_pooled = host_ms(lambda: pipe.predict_pooled(x, bucket=BATCH), TIMED_CALLS)
+    pooled_eq, pooled_diff, _ = check_cascade_decisions("predict_pooled", pooled, want, margins)
+    info = backbone_info("b0")
+    serve = make_serving_fn(variables, info, resolution=RES, device=dev)
+    with torch.no_grad():
+        ms_plain = host_ms(lambda: serve(x)["embedding"][0, :8], TIMED_CALLS)
+    pipe_b = SequentialInferencePipeline(model, None, taps, coefs, intercepts, thresholds=pipe.thresholds,
+                                         engine="bind", device=dev)
+    bind_agree = 100.0 * float(np.mean(pipe_b.predict(x[:BIND_BATCH]).predictions
+                                       == pipe.predict(x[:BIND_BATCH]).predictions))
+    per_level, cumulative = pipe.measure_segment_latency(x, iters=3)
+    if not (np.isfinite(per_level).all() and (per_level > 0).all() and len(per_level) == pipe.num_levels):
+        raise AssertionError(f"measure_segment_latency gave {per_level}")
+    seg0_ms = float(per_level[0]) * BATCH
+    with torch.no_grad():
+        # the same images in batches of 1024 and 256 (cuDNN may pick other algorithms)
+        noise = (pipe.level_scores(x, levels=1)[0][:CASCADE_CALIB]
+                 - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
+    row = dict(line="cascade engine", img_s=BATCH / ms_fused * 1e3, ms=ms_fused, plain_img_s=BATCH / ms_plain * 1e3,
+               plain_ms=ms_plain, speedup_vs_plain=ms_plain / ms_fused,
+               break_counts=[float(v) for v in res.break_counts], forced_pct=100.0 * res.forced_fraction,
+               agreement_pct=100.0 * float(np.mean(res.predictions == want.predictions)), capacities=list(caps),
+               full_capacity_equal_pct=full_eq, pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled,
+               pooled_equal_pct=pooled_eq, bind_vs_folded_label_agreement_pct=bind_agree,
+               near_tie_images=full_ties, level0_segment_ms=seg0_ms, level0_score_batch_noise=noise,
+               segment_ms_per_image=[float(v) for v in per_level],
+               cumulative_ms_per_image=[float(v) for v in cumulative])
+    phase(
+        f"cascade engine (folded, SVC exits, {len(dims)} levels, batch {BATCH}, {smi}): fused {row['img_s']:.1f} img/s "
+        f"({ms_fused:.1f} ms), plain folded forward {row['plain_img_s']:.1f} img/s ({ms_plain:.1f} ms), "
+        f"speedup_vs_plain {row['speedup_vs_plain']:.3f}, breaks {[round(v, 3) for v in row['break_counts']]}, forced "
+        f"{row['forced_pct']:.2f}%, agreement with predict() {row['agreement_pct']:.2f}%; measure_segment_latency "
+        f"per level {[round(float(v), 5) for v in per_level]} ms/image (level 0 {seg0_ms:.1f} ms a batch); at full capacities equal {full_eq:.2f}% ({full_diff} images differ, each at a near-tie); "
+        f"pooled (bucket {BATCH}) {row['pooled_img_s']:.1f} img/s ({ms_pooled:.1f} ms), equal {pooled_eq:.2f}% "
+        f"({pooled_diff} differ); bind engine vs folded at batch {BIND_BATCH}: labels {bind_agree:.1f}%; "
+        f"{full_ties} images at near-ties (margin <= {CASCADE_TIE:.2e}), level-0 scores of the same images in "
+        f"batches of {BATCH} and {CASCADE_CALIB} differ by {noise:.2e} at most; no host sync in the fused cascade; "
+        f"launches {launches['cascade engine']}"
+    )
+    if bind_agree < 90.0:
+        raise AssertionError("the bind engine agrees with the folded one on < 90 % of labels")
+    del pipe_b, serve
+
+    # the kNN head, one call: 100 identities x 4 images enrolled through the
+    # same segments
+    gal_images = rng.normal(size=(KNN_IDS * KNN_PER, RES, RES, 3)).astype(np.float32)
+    gal_labels = np.repeat(np.arange(KNN_IDS, dtype=np.int32), KNN_PER)
+    gal_images += gal_labels[:, None, None, None].astype(np.float32) * 0.05
+    galleries = pipe.level_embeddings(gal_images)
+    knn = SequentialInferencePipeline(model, variables, taps, head_mode="knn", galleries=galleries,
+                                      gallery_labels=gal_labels, ratio=0.8, engine="folded", device=dev)
+    knn.calibrate(x[:CASCADE_CALIB], tune=True)
+    knn.predict_fused(x, slack=SLACK)  # warm-up
+    r = knn.predict_fused(x, slack=SLACK)
+    row["knn"] = dict(img_s=1e3 / r.ms_per_image, break_counts=[float(v) for v in r.break_counts],
+                      forced_pct=100.0 * r.forced_fraction)
+    lines["cascade_engine"] = row
+    phase(f"cascade engine, kNN exits (ratio 0.8, {KNN_IDS} x {KNN_PER} enrolled, tuned): one call "
+          f"{row['knn']['img_s']:.1f} img/s, breaks {[round(v, 3) for v in row['knn']['break_counts']]}, forced "
+          f"{row['knn']['forced_pct']:.2f}%")
+    del knn, pipe, model, x
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -2074,6 +2557,8 @@ def main() -> int:
     check_topk(gallery, GALLERY, probe_batch[:256], 16, report)
     check_topk(gallery, GALLERY, probe_batch[:256], 32, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
+    # the oracle over fp32-stored rows keeps the FFMA pass: timed at the same shape
+    check_topk(gallery.to(torch.float32), GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
     torch.cuda.synchronize()
     t = time.time()
     masked_empty_ms = cuda_ms(lambda: dk.topk_l2(probe_batch, gallery, 1, n_valid=GALLERY,
@@ -2347,7 +2832,39 @@ def main() -> int:
         f"row agreement with match='exact' {100 * float(np.mean(idx_none == idx_exact)):.3f}%; "
         f"launches {launches['pca_escalate_none']}"
     )
-    del svc_none
+
+    # 11a. select='approx' (JAX lax.approx_min_k): the exact selection on the
+    # card, which turns the certificate off, so the single-min packed scan
+    # and the rescore, equal row for row to escalate=None with select='exact'
+    t = time.time()
+    svc_apx = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
+                                 pca_dim=124, pca_scan="packed", select="approx", device=dev)
+    torch.cuda.synchronize()
+    apx_build_s = time.time() - t
+    build.reset_launch_counts()
+    idx_apx = svc_apx.identify_device(images)
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(TIMED_CALLS):
+        idx_apx = svc_apx.identify_device(images)
+    torch.cuda.synchronize()
+    apx_sec = (time.time() - t) / TIMED_CALLS
+    check_launches("pca_approx", launches, tilemin_packed=TIMED_CALLS + 1)
+    idx_apx = idx_apx.cpu().numpy()
+    apx_row = dict(line="service approx-select", img_s=BATCH / apx_sec, ms=1e3 * apx_sec,
+                   error_pct=100.0 * float(np.mean(labels[idx_apx] != truth)),
+                   agreement_pct=100.0 * float(np.mean(idx_apx == idx_oracle)),
+                   rows_equal_exact_select_pct=100.0 * float(np.mean(idx_apx == idx_none)))
+    phase(
+        f"service approx-select (PCA-{svc_apx.pca_dim} packed, rescore {svc_apx.rescore}, select='approx', "
+        f"built in {apx_build_s:.1f} s): {apx_row['img_s']:.1f} img/s ({apx_row['ms']:.1f} ms/batch, {smi}), "
+        f"identity error {apx_row['error_pct']:.3f}%, agreement with the fp32 oracle {apx_row['agreement_pct']:.3f}%, "
+        f"rows equal to select='exact' escalate=None {apx_row['rows_equal_exact_select_pct']:.3f}%; launches "
+        f"{launches['pca_approx']}"
+    )
+    if svc_apx.escalate is not None or not np.array_equal(idx_apx, idx_none):
+        raise AssertionError("select='approx' differs from the exact selection's uncertified service")
+    del svc_none, svc_apx
     del gallery
 
     # 12. the match on a layout where the certificate clears, counted on its own
@@ -2462,6 +2979,9 @@ def main() -> int:
     # brute-force harness over feature files
     chi2_row, chi2_lines = run_chi2_slice(dev, launches, smi)
 
+    # 18-21. bench.py's dem, video and cascade configs, and TWD
+    feature_lines = run_feature_configs(dev, launches, smi)
+
     src = "fast_image_recognition_tpu_torch/kernels/"
 
     def first(entries):
@@ -2515,8 +3035,9 @@ def main() -> int:
              blocks=mb_report["blocks"], edges=mb_report["edges"]),
         chi2_row,
     ]
-    print(json.dumps({"lines": {"service_modes": mode_rows, "bf": bf_rows, "partial_escalation": esc_rows,
-                                "fused_path": fused_row, "s2d_stem": s2d_row, **chi2_lines}}), flush=True)
+    print(json.dumps({"lines": {"service_modes": mode_rows, "approx_select": apx_row, "bf": bf_rows,
+                                "partial_escalation": esc_rows, "fused_path": fused_row, "s2d_stem": s2d_row,
+                                **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     phase(f"done: total command time {time.time() - T0:.1f} s")

@@ -1,8 +1,22 @@
-"""EfficientNet static configuration (counterpart of the static half of
-``fast_image_recognition_tpu/models/efficientnet.py``: ``VARIANTS``,
-``round_filters``, ``round_repeats``, ``block_plan``, ``default_taps``, the preprocessing
-constants and ``preprocess_images``). The trainable flax module is not
-ported: the port serves folded weights only (``models/inference.py``)."""
+"""EfficientNet B0-B7 (counterpart of
+``fast_image_recognition_tpu/models/efficientnet.py``): the static
+configuration (``VARIANTS``, ``round_filters``, ``round_repeats``,
+``block_plan``, ``default_taps``, the preprocessing constants and
+``preprocess_images``) and the module itself (``SqueezeExcite``,
+``MBConv``, ``EfficientNet``, ``create_efficientnet``).
+
+The module is the flax one at inference: bf16 convolutions with TF
+``'SAME'`` padding (asymmetric at stride 2), BatchNorm over running
+statistics in fp32 (eps 1e-3) rounded back to the module's dtype, swish,
+and segments (``stem``, ``run_blocks``, ``head_pool``) that the early-exit
+engine chains. It holds fp32 weights and casts them at each call, as flax
+does. ``load_variables`` takes the flax ``{'params', 'batch_stats'}``
+numpy trees (HWIO kernels) and ``export_variables`` gives them back, so
+``models/inference.py::fold_backbone`` folds the port's own init.
+Training (``train=True``: batch statistics, dropout, stochastic depth) is
+not ported and raises. Activations are NCHW in ``channels_last`` memory;
+``forward`` and ``stem`` take NHWC images, as the JAX module does.
+"""
 
 from __future__ import annotations
 
@@ -10,8 +24,12 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 
 # torchvision-style ImageNet normalization on 0..255 inputs
 # (dnn_feature_extractor.py:116-119 in the reference)
@@ -146,3 +164,318 @@ def preprocess_images(
     m = torch.tensor(mean, dtype=torch.float32, device=x.device)
     s = torch.tensor(std, dtype=torch.float32, device=x.device)
     return (x - m) / s
+
+
+# ---------------------------------------------------------------------------
+# the module (inference)
+# ---------------------------------------------------------------------------
+
+_BN_EPS = 1e-3
+# flax lecun_normal: a standard normal truncated to [-2, 2], scaled by
+# sqrt(1 / fan_in) / 0.8796 (the truncated law's standard deviation)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """TF 'SAME': total = max((ceil(n/s)-1)*s + k - n, 0), low = total//2."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):  # F.pad order: W then H
+        total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    if any(pads):
+        x = F.pad(x, pads)
+    return x
+
+
+def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal()``: ``truncated_normal(-2, 2) * sqrt(1/fan_in) /
+    0.8796``, drawn by the inverse CDF from ``gen``."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
+    x = torch.erfinv(u) * math.sqrt(2.0)
+    return (x * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).to(torch.float32)
+
+
+def _act(name: str):
+    if name == "relu6":
+        return lambda x: torch.clamp(x, 0.0, 6.0)
+    return F.silu
+
+
+class _Conv(nn.Module):
+    """flax ``nn.Conv`` with ``'SAME'`` padding; the weight is OIHW fp32
+    (flax keeps HWIO), cast to the input's dtype at each call."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1, bias: bool = False):
+        super().__init__()
+        self.k, self.stride, self.groups = k, stride, groups
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def init_(self, gen: torch.Generator) -> None:
+        fan_in = self.weight.shape[1] * self.k * self.k
+        self.weight.data = _lecun_normal(self.weight.shape, fan_in, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(_same_pad(x, self.k, self.stride), self.weight.to(x.dtype), b, self.stride,
+                        groups=self.groups)
+
+    def export(self) -> Dict[str, np.ndarray]:
+        out = {"kernel": self.weight.detach().permute(2, 3, 1, 0).cpu().numpy()}
+        if self.bias is not None:
+            out["bias"] = self.bias.detach().cpu().numpy()
+        return out
+
+    def load(self, p: Dict[str, Any]) -> None:
+        self.weight.data = torch.tensor(np.asarray(p["kernel"], np.float32)).permute(3, 2, 0, 1).contiguous()
+        if self.bias is not None:
+            self.bias.data = torch.tensor(np.asarray(p["bias"], np.float32))
+
+
+class _BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over running statistics: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in fp32, rounded to ``x``'s dtype."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
+        y = (x.to(torch.float32) - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+    def export(self):
+        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
+        return {"scale": t(self.scale), "bias": t(self.bias)}, {"mean": t(self.mean), "var": t(self.var)}
+
+    def load(self, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+        for name, tree in (("scale", p), ("bias", p), ("mean", s), ("var", s)):
+            getattr(self, name).data = torch.tensor(np.asarray(tree[name], np.float32))
+
+
+def _pool(h: torch.Tensor) -> torch.Tensor:
+    """Global average pool as ``jnp.mean`` takes it: summed in fp32, the
+    mean rounded to the activation's dtype, returned as fp32."""
+    return h.to(torch.float32).mean(dim=(2, 3)).to(h.dtype).to(torch.float32)
+
+
+class SqueezeExcite(nn.Module):
+    def __init__(self, filters: int, se_filters: int):
+        super().__init__()
+        self.reduce = _Conv(filters, se_filters, 1, bias=True)
+        self.expand = _Conv(se_filters, filters, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = x.to(torch.float32).mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        se = self.expand(F.silu(self.reduce(se)))
+        return x * torch.sigmoid(se)
+
+
+class MBConv(nn.Module):
+    """Inverted-residual block: expand 1x1 -> depthwise -> (SE) -> project
+    1x1 with a linear bottleneck, and the residual where the shape keeps."""
+
+    def __init__(self, cfg: Dict[str, Any], hidden_filters: Optional[int] = None):
+        super().__init__()
+        fi, fo, k, stride = cfg["in_filters"], cfg["out_filters"], cfg["kernel"], cfg["stride"]
+        self.act = _act(cfg.get("activation", "swish"))
+        filters = hidden_filters or fi * cfg["expand"]
+        self.has_expand = cfg["expand"] != 1
+        if self.has_expand:
+            self.expand_conv = _Conv(fi, filters, 1)
+            self.expand_bn = _BatchNorm(filters)
+        self.dw_conv = _Conv(filters, filters, k, stride, groups=filters)
+        self.dw_bn = _BatchNorm(filters)
+        self.se = SqueezeExcite(filters, max(1, int(fi * cfg["se_ratio"]))) if cfg["se_ratio"] > 0 else None
+        self.project_conv = _Conv(filters, fo, 1)
+        self.project_bn = _BatchNorm(fo)
+        self.residual = stride == 1 and fi == fo
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        if self.has_expand:
+            h = self.act(self.expand_bn(self.expand_conv(h)))
+        h = self.act(self.dw_bn(self.dw_conv(h)))
+        if self.se is not None:
+            h = self.se(h)
+        h = self.project_bn(self.project_conv(h))
+        return h + x if self.residual else h
+
+
+class EfficientNet(nn.Module):
+    """EfficientNet backbone with segment execution and exit taps
+    (``num_classes=0``: the pooled-embedding extractor)."""
+
+    def __init__(
+        self,
+        variant: str = "b0",
+        num_classes: int = 0,
+        dtype: torch.dtype = torch.bfloat16,
+        hidden_overrides: Optional[Dict[str, int]] = None,
+    ):
+        super().__init__()
+        v = VARIANTS[variant]
+        self.variant = variant
+        self.num_classes = int(num_classes)
+        self.dtype = dtype
+        self.hidden_overrides = dict(hidden_overrides or {})
+        self.plan = block_plan(variant)
+        stem_filters = round_filters(32, v.width)
+        head_filters = round_filters(1280, v.width)
+        self.stem_conv = _Conv(3, stem_filters, 3, stride=2)
+        self.stem_bn = _BatchNorm(stem_filters)
+        self.blocks = nn.ModuleList(MBConv(c, self.hidden_overrides.get(c["name"])) for c in self.plan)
+        self.head_conv = _Conv(self.plan[-1]["out_filters"], head_filters, 1)
+        self.head_bn = _BatchNorm(head_filters)
+        self.fc = nn.Linear(head_filters, self.num_classes) if self.num_classes > 0 else None
+
+    def block_names(self) -> List[str]:
+        return [c["name"] for c in self.plan]
+
+    def plan_configs(self) -> List[Dict[str, Any]]:
+        """Static block configs (the folding and cascade engines read them)."""
+        return block_plan(self.variant)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> the stem's activation (NCHW, channels_last)."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return F.silu(self.stem_bn(self.stem_conv(x)))
+
+    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
+        """Blocks ``[start, end)``: the cascade's segment primitive."""
+        for blk in self.blocks[start:end]:
+            x = blk(x)
+        return x
+
+    def head_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """Head conv + BN + swish + global average pool -> [B, F] fp32."""
+        return _pool(F.silu(self.head_bn(self.head_conv(x))))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        taps: Optional[Sequence[str]] = None,
+        include_logits: Optional[bool] = None,
+    ) -> Dict[str, Any]:
+        """``{'embedding': [B, F] fp32, 'taps': {name: [B, C] fp32 pooled
+        block output}, 'logits': [B, num_classes] when asked}``."""
+        if train:
+            raise NotImplementedError("training (batch statistics, dropout, stochastic depth) is not ported")
+        if include_logits is None:
+            include_logits = self.num_classes > 0
+        tapset = set(taps or ())
+        h = self.stem(x)
+        tap_out: Dict[str, torch.Tensor] = {}
+        for cfg, blk in zip(self.plan, self.blocks):
+            h = blk(h)
+            if cfg["name"] in tapset:
+                tap_out[cfg["name"]] = _pool(h)
+        emb = self.head_pool(h)
+        out: Dict[str, Any] = {"embedding": emb, "taps": tap_out}
+        if include_logits and self.fc is not None:
+            out["logits"] = self.fc(emb)  # dropout is the identity at inference
+        return out
+
+    def _layers(self):
+        """(flax scope, module) of every conv and BatchNorm, and the SE and
+        dense layers, in the flax tree's naming."""
+        yield ("stem_conv",), self.stem_conv
+        yield ("stem_bn",), self.stem_bn
+        for cfg, blk in zip(self.plan, self.blocks):
+            for name in ("expand_conv", "expand_bn", "dw_conv", "dw_bn", "project_conv", "project_bn"):
+                if hasattr(blk, name):
+                    yield (cfg["name"], name), getattr(blk, name)
+            if blk.se is not None:
+                yield (cfg["name"], "se", "reduce"), blk.se.reduce
+                yield (cfg["name"], "se", "expand"), blk.se.expand
+        yield ("head_conv",), self.head_conv
+        yield ("head_bn",), self.head_bn
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> None:
+        """flax's default init from ``torch.Generator().manual_seed(seed)``:
+        truncated lecun-normal kernels, zero biases, BatchNorm scale 1,
+        bias 0, mean 0, var 1."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for _, layer in self._layers():
+            if isinstance(layer, _Conv):
+                layer.init_(gen)
+                if layer.bias is not None:
+                    layer.bias.zero_()
+            else:
+                for name, value in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
+                    getattr(layer, name).fill_(value)
+        if self.fc is not None:
+            self.fc.weight.data = _lecun_normal(self.fc.weight.shape[::-1], self.fc.in_features, gen).T.contiguous()
+            self.fc.bias.zero_()
+
+    def export_variables(self) -> Dict[str, Any]:
+        """The flax ``{'params', 'batch_stats'}`` trees as numpy fp32 arrays
+        (HWIO kernels; the dense kernel [F, C])."""
+        params: Dict[str, Any] = {}
+        stats: Dict[str, Any] = {}
+
+        def at(tree, scope):
+            for key in scope:
+                tree = tree.setdefault(key, {})
+            return tree
+
+        for scope, layer in self._layers():
+            if isinstance(layer, _Conv):
+                at(params, scope).update(layer.export())
+            else:
+                p, s = layer.export()
+                at(params, scope).update(p)
+                at(stats, scope).update(s)
+        if self.fc is not None:
+            params["fc"] = {"kernel": self.fc.weight.detach().T.cpu().numpy(),
+                            "bias": self.fc.bias.detach().cpu().numpy()}
+        return {"params": params, "batch_stats": stats}
+
+    @torch.no_grad()
+    def load_variables(self, variables: Dict[str, Any]) -> "EfficientNet":
+        """Copy flax ``{'params', 'batch_stats'}`` trees (numpy or any array
+        type ``np.asarray`` takes) into the module, on its device."""
+        dev = self.stem_conv.weight.device
+
+        def at(tree, scope):
+            for key in scope:
+                tree = tree[key]
+            return tree
+
+        for scope, layer in self._layers():
+            if isinstance(layer, _Conv):
+                layer.load(at(variables["params"], scope))
+            else:
+                layer.load(at(variables["params"], scope), at(variables["batch_stats"], scope))
+        if self.fc is not None:
+            fc = variables["params"]["fc"]
+            self.fc.weight.data = torch.tensor(np.asarray(fc["kernel"], np.float32)).T.contiguous()
+            self.fc.bias.data = torch.tensor(np.asarray(fc["bias"], np.float32))
+        return self.to(dev)
+
+
+def create_efficientnet(
+    variant: str = "b0",
+    num_classes: int = 0,
+    seed: int = 0,
+    resolution: Optional[int] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    device: DeviceLike = None,
+):
+    """Build the module with flax's default init drawn from ``seed`` and
+    return ``(model on device, its flax-layout numpy variables)``. The
+    module takes any resolution; ``resolution`` (default the variant's) is
+    kept on it as ``model.resolution``."""
+    dev = resolve_device(device)
+    model = EfficientNet(variant=variant, num_classes=num_classes, dtype=dtype)
+    model.init_weights(seed)
+    model.resolution = int(resolution or VARIANTS[variant].resolution)
+    variables = model.export_variables()
+    return model.to(dev).eval(), variables

@@ -28,7 +28,6 @@ layers, so every conv pads explicitly with ``F.pad`` instead of
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +40,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
     MEAN_RGB,
     STDDEV_RGB,
     VARIANTS,
+    _same_pad,
     block_plan,
     preprocess_images,
 )
@@ -112,17 +112,6 @@ def fold_backbone(
         )
     folded["blocks"] = blocks
     return folded, configs
-
-
-def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """TF 'SAME': total = max((ceil(n/s)-1)*s + k - n, 0), low = total//2."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):  # F.pad order: W then H
-        total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    if any(pads):
-        x = F.pad(x, pads)
-    return x
 
 
 def _conv(x, w_oihw, b, stride: int = 1, groups: int = 1):
@@ -310,6 +299,13 @@ class FoldedEfficientNet(nn.Module):
                 h = _conv(x, self.stem_pp_w, self.stem_b, stride=2)
             return F.silu(h - self.stem_corr)
         x = preprocess_images(images, r, self.mean, self.std).to(self.dtype).permute(0, 3, 1, 2)
+        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2))
+
+    def raw_stem(self, images: torch.Tensor) -> torch.Tensor:
+        """NHWC images as given, neither resized nor normalized -> the
+        stem's activation (``folded_stem``; the early-exit engine's
+        level 0, whose inputs are the trainable module's)."""
+        x = images.to(self.dtype).permute(0, 3, 1, 2)
         return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2))
 
     def run_blocks(self, h: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:

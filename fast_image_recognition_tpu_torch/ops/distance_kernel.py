@@ -190,9 +190,12 @@ def tile_min_l2_packed(
 def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
     """[B, n_tiles] tile minima -> [B, R] columns of the R nearest tiles.
     A stable ascending sort is ``lax.top_k(-d)``'s rule: ties go to the
-    lower tile."""
-    if select != "exact":
-        raise NotImplementedError(f"select={select!r} is not ported yet")
+    lower tile. ``select='approx'`` (JAX ``lax.approx_min_k`` at recall
+    0.99) takes the same exact selection: XLA lowers ``approx_min_k`` to
+    an exact top-k off the TPU too, same rows in the same order, and an
+    exact selection meets any recall target."""
+    if select not in ("exact", "approx"):
+        raise ValueError(f"unknown select {select!r}")
     return torch.sort(d, dim=1, stable=True).indices[:, :r]
 
 

@@ -34,7 +34,10 @@ are matched (single-min packed scan, ``rescore`` rows rescored in full D)
 and a probe exits when ``d1 < ratio^2 * d2``. Survivors are compacted into
 the next segment's static capacity. No host sync per batch.
 
-``match='sharded'`` and ``select='approx'`` raise ``NotImplementedError``.
+``select='approx'`` (JAX ``lax.approx_min_k``) takes the exact tile
+selection, which XLA also runs for it off the TPU; as in JAX it turns the
+certificate off, so the packed scan is the single-min one. ``match='sharded'``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -162,17 +165,22 @@ class RecognitionService:
             raise ValueError(f"unknown match mode {match!r}")
         if match == "pca" and pca_scan not in ("packed", "f32", "bf16", "int8"):
             raise ValueError(f"unknown pca_scan {pca_scan!r}")
-        if select != "exact":
-            raise NotImplementedError(f"select={select!r} is not ported yet")
+        if select not in ("exact", "approx"):
+            raise ValueError(f"unknown select {select!r}")
+        self.select = select
         self.serve = serving_fn if serving_fn is not None else make_serving_fn(
             variables, info, resolution=self.resolution, device=self.device
         )
 
         self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
         self.labels = None if labels is None else np.asarray(labels)
-        # the certificate exists only for the packed min-2 scan (JAX
-        # serving.py:151-158)
-        self.escalate = float(escalate) if escalate is not None and match == "pca" and pca_scan == "packed" else None
+        # the certificate exists only for the packed min-2 scan with the
+        # exact selection (JAX serving.py:151-158)
+        self.escalate = (
+            float(escalate)
+            if escalate is not None and match == "pca" and pca_scan == "packed" and select == "exact"
+            else None
+        )
         self.pca_scan = pca_scan
 
         if match == "pca":
@@ -218,13 +226,15 @@ class RecognitionService:
         """Uncertified PCA candidates [B, R] int64 of the configured scan."""
         qp = (emb - self._mu) @ self._w
         if self.pca_scan == "packed":
-            cand = topk_candidates_l2_packed(qp, self.gal_aug, self.pca_dim, self.rescore)
+            cand = topk_candidates_l2_packed(qp, self.gal_aug, self.pca_dim, self.rescore, select=self.select)
         elif self.pca_scan == "int8":
-            cand = topk_candidates_l2_quant(qp, self._gal_pca, self._gal_sq, self._gal_sc, self.rescore)
+            cand = topk_candidates_l2_quant(
+                qp, self._gal_pca, self._gal_sq, self._gal_sc, self.rescore, select=self.select
+            )
         else:
             cand = topk_candidates_l2(
                 qp, self._gal_pca, self.rescore, n_valid=self.n_valid, gsq=self._gal_sq,
-                precise_scores=self.pca_scan != "bf16",
+                precise_scores=self.pca_scan != "bf16", select=self.select,
             )
         return cand.to(torch.int64)
 

@@ -110,8 +110,13 @@ def test_tile_min_packed_and_candidates_match_jax(tile_g, d):
         if set(pc[row]) != set(jc[row]):
             kth = np.sort(jd[row])[r - 1 : r + 1]  # the tiles swapped at a near-tie
             assert kth[1] - kth[0] <= REL * kth[1] + 1e-7
-    with pytest.raises(NotImplementedError):
-        P.topk_candidates_l2_packed(torch.from_numpy(q), paug, d, r, tile_g, select="approx")
+    # select='approx' is the exact selection in both packages off the TPU
+    ja = np.asarray(J.topk_candidates_l2_packed(jnp.asarray(q), jaug, d, r, tile_g=tile_g, select="approx"))
+    pa = P.topk_candidates_l2_packed(torch.from_numpy(q), paug, d, r, tile_g, select="approx").numpy()
+    np.testing.assert_array_equal(ja, jc)
+    np.testing.assert_array_equal(pa, pc)
+    with pytest.raises(ValueError):
+        P.topk_candidates_l2_packed(torch.from_numpy(q), paug, d, r, tile_g, select="nope")
     with pytest.raises(ValueError):
         P.pack_gallery_aug(torch.from_numpy(g), n_valid, tile_g=64)
 

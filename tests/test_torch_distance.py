@@ -141,14 +141,18 @@ def test_gallery_sq_norms_layout(gallery):
 
 
 def test_unported_options_raise_and_card_wrappers_check_device():
-    """``select='approx'`` is not ported and k < 1 is refused (any k >= 1
+    """``select='approx'`` is the exact selection, an unknown ``select`` and
+    k < 1 are refused (any k >= 1
     answers: k > 16 is held against JAX in test_torch_topk_large_k.py);
     other devices than CPU and CUDA raise; every launcher refuses CPU
     tensors before any build is attempted (the plain versions serve the
     CPU, the kernels only the card)."""
     q = torch.zeros((2, 16), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        P.topk_candidates_l2(q, P.pad_gallery(q, 128), 1, tile_g=128, select="approx")
+    g = P.pad_gallery(q, 128)
+    torch.testing.assert_close(P.topk_candidates_l2(q, g, 1, tile_g=128, select="approx"),
+                               P.topk_candidates_l2(q, g, 1, tile_g=128), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        P.topk_candidates_l2(q, g, 1, tile_g=128, select="nope")
     with pytest.raises(ValueError):
         P.topk_l2(q, q, 0)
     assert P.topk_l2(q, q, 17, precise=True)[1].shape == (2, 17)

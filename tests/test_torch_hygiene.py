@@ -75,7 +75,29 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_tap_embed_fn,
     )
 
+    from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
+    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
+    from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
+    from fast_image_recognition_tpu_torch.models import EfficientNet, create_efficientnet
+    from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feats = torch.rand((40, 16)).numpy()
+    labels = torch.arange(40).numpy() % 4
+    for make in (
+        lambda **kw: DirectedEnumerationMatcher(feats, labels, **kw),
+        lambda **kw: DirectedEnumerationMatcher.from_device(torch.from_numpy(feats), labels, **kw),
+        lambda **kw: FullMatrixDEM(feats, labels, **kw),
+        lambda **kw: make_video_fusion_fn(feats, labels, 4, 2, **kw),
+        lambda **kw: create_efficientnet("b0", resolution=32, **kw),
+        lambda **kw: SequentialInferencePipeline(EfficientNet("b0"), None, ["block5a"], [feats[:4, :1]] * 2,
+                                                 [labels[:4]] * 2, **kw),
+        lambda **kw: ProposedTWD(feats, labels, 4, chunk_features=8, max_features=16, **kw),
+        lambda **kw: ConventionalTWD(feats, labels, 4, TWDType.DIST_RATIO, 0.7, 8, 16, **kw),
+    ):
+        with pytest.raises(RuntimeError):
+            make()
+        make(device="cpu")  # the CPU only when asked for
     with pytest.raises(RuntimeError):
         RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
     with pytest.raises(RuntimeError):

@@ -1,0 +1,108 @@
+"""``select='approx'`` in the port (``ops/distance_kernel.py::_select_tiles``
+and ``RecognitionService``) against the JAX package's, on the same
+random-init B0 weights (32 px), probe images and gallery.
+
+JAX's ``approx_min_k`` lowers to an exact top-k off the TPU, so the port's
+approx selection is its exact one. Tolerances:
+- tile selection: the same columns in the same order as JAX's
+  ``approx_min_k`` on the CPU; where tile minima are equal, the same
+  minima in the same ascending order (``approx_min_k`` orders equal
+  minima its own way; the port, as ``lax.top_k``, by the lower tile);
+- services: the same labels as the JAX service except where the two
+  picks' squared distances to the probe lie within 2^-8 relative (bf16
+  backbones that round at other places); within the port, approx and
+  ``select='exact', escalate=None`` give identical rows.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fast_image_recognition_tpu.ops.distance_kernel as J
+import fast_image_recognition_tpu_torch.ops.distance_kernel as P
+from fast_image_recognition_tpu.models import backbone_info as jax_info
+from fast_image_recognition_tpu.models import create_efficientnet as jax_create
+from fast_image_recognition_tpu.models.fold import make_serving_fn as jax_serving_fn
+from fast_image_recognition_tpu.serving import RecognitionService as JaxService
+from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
+from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+from fast_image_recognition_tpu_torch.serving import RecognitionService
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+
+RES, PROBES, N = 32, 24, 3000
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    model, variables = jax_create("b0", 0, resolution=RES)
+    variables = jax.device_get(variables)
+    np_vars = jax.tree_util.tree_map(np.asarray, {"params": variables["params"],
+                                                  "batch_stats": variables["batch_stats"]})
+    jax_serve = jax_serving_fn(model, variables, jax_info("b0"), resolution=RES)
+    serve = make_serving_fn(np_vars, backbone_info("b0"), resolution=RES, device="cpu")
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (PROBES, RES, RES, 3)).astype(np.uint8)
+    with torch.no_grad():
+        emb = _unit(serve(torch.from_numpy(images))["embedding"].numpy())
+    # each probe has 30 rows around it (noise 0.3) among random filler rows
+    gal = _unit(rng.standard_normal((N, emb.shape[1])))
+    for i in range(PROBES):
+        gal[i * 30 : (i + 1) * 30] = _unit(emb[i] + 0.3 * rng.standard_normal((30, emb.shape[1])) / 36.0)
+    labels = np.arange(N) // 30
+    return model, variables, jax_serve, serve, images, emb, gal, labels
+
+
+def test_select_tiles_equals_jax_approx_min_k():
+    rng = np.random.default_rng(0)
+    for b, n_tiles, r in ((5, 300, 48), (3, 64, 64), (7, 1000, 17)):
+        d = rng.random((b, n_tiles)).astype(np.float32)
+        want = np.asarray(J._select_tiles(jnp.asarray(d), r, "approx"))
+        np.testing.assert_array_equal(want, np.asarray(J._select_tiles(jnp.asarray(d), r, "exact")))
+        np.testing.assert_array_equal(P._select_tiles(torch.from_numpy(d), r, "approx").numpy(), want)
+        # among equal minima approx_min_k leaves the order open: the same
+        # tile minima are selected, ascending
+        d = np.round(d * 20)
+        want = np.asarray(J._select_tiles(jnp.asarray(d), r, "approx"))
+        got = P._select_tiles(torch.from_numpy(d), r, "approx").numpy()
+        rows = np.arange(b)[:, None]
+        np.testing.assert_array_equal(d[rows, got], d[rows, want])
+        np.testing.assert_array_equal(got, np.asarray(J._select_tiles(jnp.asarray(d), r, "exact")))
+    with pytest.raises(ValueError):
+        P._select_tiles(torch.from_numpy(d), r, "nope")
+
+
+def test_approx_service_labels_match_jax(setup):
+    """bench.py's service (PCA-124 packed, the single-min scan under
+    ``select='approx'``) against JAX's."""
+    model, variables, jax_serve, serve, images, emb, gal, labels = setup
+    kw = dict(pca_dim=124, pca_scan="packed", rescore=8, select="approx")
+    js = JaxService(model, variables, jax_info("b0"), gal, labels=labels, resolution=RES, serving_fn=jax_serve, **kw)
+    ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
+                            device="cpu", **kw)
+    assert js.escalate is None and ps.escalate is None  # the certificate needs the exact selection
+    ji, jl = js.identify(images)
+    pi, pl = ps.identify(images)
+    dj, dp = ((emb - gal[ji]) ** 2).sum(1), ((emb - gal[pi]) ** 2).sum(1)
+    assert ((jl == pl) | (np.abs(dj - dp) <= 2.0**-8 * dj)).all()
+    assert (pl == np.arange(PROBES)).mean() >= 0.9
+
+
+@pytest.mark.parametrize("pca_scan", ["packed", "f32", "bf16", "int8"])
+def test_approx_service_equals_exact_selection(setup, pca_scan):
+    """Every scan's approx service gives the rows of its exact selection
+    without escalation (the JAX side of the f32, bf16 and int8 scans'
+    selection is held in test_select_tiles_equals_jax_approx_min_k)."""
+    _, _, _, serve, images, _, gal, labels = setup
+    svc = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
+                             pca_dim=124 if pca_scan == "packed" else 128, pca_scan=pca_scan, rescore=8,
+                             select="approx", device="cpu")
+    assert svc.escalate is None and svc.select == "approx"
+    rows = svc.identify(images)[0]
+    svc.select = "exact"  # the same service and gallery, the exact selection, no escalation
+    np.testing.assert_array_equal(rows, svc.identify(images)[0])

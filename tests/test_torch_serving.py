@@ -149,8 +149,9 @@ def test_exact_match_top1_matches_jax(setup):
 
 
 def test_identify_labels_and_unported_modes(setup):
-    """``identify`` returns int64 rows and their labels; ``sharded`` and
-    ``select='approx'`` are not ported and raise; unknown modes raise."""
+    """``identify`` returns int64 rows and their labels; ``sharded`` is not
+    ported and raises; unknown modes raise (``select='approx'`` is held
+    against JAX in test_torch_select_approx.py)."""
     _, _, np_vars, serve, images, gal, planted = setup
     labels = np.arange(N) % 7
     ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES,
@@ -159,10 +160,9 @@ def test_identify_labels_and_unported_modes(setup):
     np.testing.assert_array_equal(idx, planted[:4])
     np.testing.assert_array_equal(lab, labels[planted[:4]])
     assert idx.dtype == np.int64
-    for kw in (dict(match="sharded"), dict(select="approx")):
-        with pytest.raises(NotImplementedError):
-            RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
-    for kw in (dict(match="nope"), dict(pca_scan="nope")):
+    with pytest.raises(NotImplementedError):
+        RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", match="sharded")
+    for kw in (dict(match="nope"), dict(pca_scan="nope"), dict(select="nope")):
         with pytest.raises(ValueError):
             RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
 
