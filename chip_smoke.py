@@ -14,7 +14,9 @@ scans, batches around their 128- and 256-query tiles, n_valid below and
 across their gallery sub-tiles, 64-lane and 128-byte chunks, tile_g 128
 to 1024, windows and row masks; ``topk_l2`` at k = 17, 64 and 256, bf16
 and precise (over bf16 rows the split precise pass, three bf16 ``wgmma``
-products); ``topk_l2`` at k = 257 and 600, past one launch, in slabs; the
+products; over fp32 rows the six-product pass, which splits the rows on
+the chip, held with a probe where the rows' mid and lo terms matter);
+``topk_l2`` at k = 257 and 600, past one launch, in slabs; the
 packed scans at augmented widths 768, 832 and 1,536, where their queries
 stream; galleries past the old caps of 65,535 blocks), checks that the
 host's mirrors of the kernels' sizes agree with the libraries, and
@@ -33,7 +35,9 @@ drives, each with its own launch counts:
   its pick before escalation against a plain rescore; ``match='exact'``;
   the fp32 oracle
   (``topk_l2(precise=True)``, bench.py's ``_exact_fp32_nn``) that every
-  agreement below is taken against;
+  agreement below is taken against, and the same oracle over fp32-stored
+  rows (full 24-bit significands; the six-product pass), as
+  ``ShardedGalleryMatcher(precise=True)`` stores them;
 - the JAX package's default service (PCA-128, fp32-score tile scan) and
   its ``pca_scan='bf16'``, ``pca_scan='int8'`` and ``match='int8'`` modes
   on the same gallery;
@@ -66,8 +70,7 @@ drives, each with its own launch counts:
   L2 rows held against an fp64 argmin and the chi2 rows against
   ``chi2_nn``'s;
 - ``select='approx'`` on the plain line's service (one single-min packed
-  scan a call, rows equal to ``select='exact', escalate=None``), and the
-  oracle ``topk_l2(precise=True)`` over fp32-stored rows timed too;
+  scan a call, rows equal to ``select='exact', escalate=None``);
 - bench.py's ``--config dem`` (``DirectedEnumerationMatcher``, gather
   probes, budget 1 %, over 100k x 1536 rows, held against its NumPy
   oracle, its exact probe mode and its device build, without a host
@@ -140,6 +143,8 @@ PREVIOUS_DESIGN_MS = {
     "tilemin_quant bf-quant-bf16": 35.371,
     "precise B=1024 N=1000000 D=1280 k=1": 73.372,  # the FFMA pass the split pass replaced
     "precise B=1024 N=1000000 D=1536 k=1": 87.861,
+    "precise B=1024 N=1000000 D=1280 k=1 rows=fp32": 78.924,  # the FFMA pass the six-product pass replaced
+    "precise B=1024 N=1000000 D=1536 k=1 rows=fp32": 94.924,
 }
 
 
@@ -487,20 +492,21 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
         yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
     g = None
     nbytes = n_valid * width * gallery.element_size() + b * width * q.element_size() + b * k * 8
-    split = precise and gallery.dtype == torch.bfloat16  # three bf16 products per row on the tensor cores
-    b_ms, b_by = bound((3.0 if split else 1.0) * 2.0 * b * n_valid * width, nbytes,
-                       PEAK_BF16_FLOPS if split or not precise else PEAK_FP32_FLOPS)
+    # precise: bf16 products of split terms on the tensor cores, three per
+    # row element over bf16 rows, six over fp32 rows
+    passes = (6.0 if gallery.dtype == torch.float32 else 3.0) if precise else 1.0
+    b_ms, b_by = bound(passes * 2.0 * b * n_valid * width, nbytes)
     # the fp32 CUDA-core bound of the FFMA design it replaced: phase text only, not in the JSON line
-    ffma_ms = bound(2.0 * b * n_valid * width, nbytes, PEAK_FP32_FLOPS)[0] if split else None
+    ffma_ms = bound(2.0 * b * n_valid * width, nbytes, PEAK_FP32_FLOPS)[0] if precise else None
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
     if gallery.dtype == torch.float32:
-        shape += " rows=fp32"  # the FFMA pass (topk_pass1_precise)
+        shape += " rows=fp32"  # the six-product pass (topk_pass1_split6_sm90)
     prev = PREVIOUS_DESIGN_MS.get(("precise " if precise else "") + shape)
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"matmul+{'min' if window else 'topk'} yardstick {yard_ms:.3f} ms, "
-        f"bound {b_ms:.3f} ms ({b_by})" + (f", FFMA bound {ffma_ms:.3f} ms" if split else "")
+        f"bound {b_ms:.3f} ms ({b_by})" + (f", FFMA bound {ffma_ms:.3f} ms" if precise else "")
         + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
@@ -670,7 +676,7 @@ def check_edge_shapes(dev):
                         raise AssertionError(f"whole-pad tiles disagree ({name}, tile_g={tg})")
                     pad_pairs += int(whole_pad.sum()) * b
         q8 = dk.pad_cols(q32, 8)
-        check_topk(dk.pad_cols(g32, 8), nv, q8, 16, precise=True)  # fp32 rows
+        check_topk(dk.pad_cols(g32, 8), nv, q8, 16, precise=True)  # fp32 rows: the six-product pass
         g8 = dk.pad_cols(g32.to(torch.bfloat16), 8)
         check_topk(g8, nv, q8, 3, window=(5, d - 3), precise=True)
         check_topk(g8, nv, q8, 5, window=(1, d - 1))
@@ -811,8 +817,8 @@ def check_sm90_edges(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    cases = dict(topk_l2=0, topk_l2_precise_split=0, topk_l2_large_k=0, tilemin2_packed=0, tilemin_packed=0,
-                 tilemin_quant=0, tilemin=0, tilemin_quant_bf16=0)
+    cases = dict(topk_l2=0, topk_l2_precise_split=0, topk_l2_precise_split6=0, topk_l2_large_k=0, tilemin2_packed=0,
+                 tilemin_packed=0, tilemin_quant=0, tilemin=0, tilemin_quant_bf16=0)
     for n, nv, d in TOPK_EDGES:
         g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
         q32 = _unit(g32[: max(SCAN_EDGE_B)] + 0.1 * torch.randn((max(SCAN_EDGE_B), d), generator=gen, device=dev))
@@ -824,9 +830,11 @@ def check_sm90_edges(dev):
                 for w in windows:
                     check_topk(g16, nv, q32[:b], k, window=w)
                     cases["topk_l2"] += 1
-                for w in windows[:2]:  # the split precise pass over the same bf16 rows
+                for w in windows[:2]:  # the split precise passes over the same rows in bf16 and in fp32
                     check_topk(g16, nv, q32[:b], k, window=w, precise=True)
+                    check_topk(g32, nv, q32[:b], k, window=w, precise=True)
                     cases["topk_l2_precise_split"] += 1
+                    cases["topk_l2_precise_split6"] += 1
         b = max(SCAN_EDGE_B)
         for m in ROW_MASKS:
             mask = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -849,10 +857,11 @@ def check_sm90_edges(dev):
             for k in TOPK_LARGE_K:
                 check_topk(g16, nv, q32[:b], k)
                 check_topk(g32, nv, q32[:b], k, precise=True)
+                check_topk(g32, nv, q32[:b], k, window=(5, d - 3), precise=True)
                 check_topk(g16, nv, q32[:b], k, window=(5, d - 3))
                 check_topk(g16, nv, q32[:b], k, window=(1, d - 1), precise=True)
                 check_topk(g16, nv, q32[:b], k, precise=True)
-                cases["topk_l2_large_k"] += 5
+                cases["topk_l2_large_k"] += 6
         mask = torch.zeros(bmax, dtype=torch.bool, device=dev)
         mask[:129] = True
         check_topk(g16, nv, q32, 64, row_mask=mask)
@@ -961,9 +970,9 @@ def check_topk_slabs(dev):
         check_topk(g16, nv, q32, k, precise=True)
         check_topk(g16, nv, q32, k, window=(5, d - 3))
         check_topk(g16, nv, q32, k, row_mask=mask)
-        cases += 4
-    check_topk(g32, nv, q32, TOPK_SLAB_K[0], precise=True)
-    return cases + 1
+        check_topk(g32, nv, q32, k, precise=True)
+        cases += 5
+    return cases
 
 
 # |kernel - fp64| distance at the split probe's matches: the fp32 sums
@@ -1034,14 +1043,88 @@ def check_split_precise(dev):
     return worst
 
 
+def check_split6_precise(dev):
+    """What the six-product pass computes (``topk_l2(precise=True)`` over
+    fp32 rows), beyond the 2^-16 gate: its row planes are split on the chip
+    and never leave it, so a probe where the rows' mid and lo terms matter.
+    Rows are a unit bf16 row h times 1 + 2^-9 + 2^-18 in fp32 (every
+    lane's mid and lo terms carry the row's sign), queries half a row
+    (their terms exactly half of the row's): the dropped products hi.lo,
+    lo.hi and mid.mid then add up to ~1.1e-5 of the distance. The kernel's
+    k = 1 distance (its own row) must lie within :data:`SPLIT_PROBE_TOL`
+    of the fp64 distance, while the three products of the bf16-row pass
+    (hi.hi, hi.mid, mid.hi of the split queries and rows, fp64) must miss
+    it by more than 1.5x that; the query planes the launch fills, read
+    back, equal ``plain.split_bf16x3`` bit for bit. B = 130 and 257 (not
+    multiples of the 128-query tile), D = 1280, without and with the window
+    (5, D-3). Returns the cases' worst (kernel error, three-product
+    error)."""
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    n, d = 4096, 1280
+    h = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16).float()
+    g = (h * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
+    worst = [0.0, float("inf")]
+    for b in (130, 257):
+        for window in (None, (5, d - 3)):
+            lo, hi = window if window is not None else (0, d)
+            q = (0.5 * g[:b]).contiguous()
+            out = {}
+            kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
+            torch.cuda.synchronize()
+            qw = torch.zeros_like(q)
+            qw[:, lo:hi] = q[:, lo:hi]
+            planes_eq = all(torch.equal(out["planes"][p_, :b].view(torch.int16), t.view(torch.int16))
+                            for p_, t in enumerate(plain.split_bf16x3(qw)))
+            qt = [t[:, lo:hi].double() for t in plain.split_bf16x3(q)]
+            gt = [t[:b, lo:hi].double() for t in plain.split_bf16x3(g)]
+            qd, gd = q[:, lo:hi].double(), g[:b, lo:hi].double()
+            exact = ((qd - gd) ** 2).sum(1)
+            cross3 = sum((qt[a] * gt[c]).sum(1) for a, c in ((0, 1), (1, 0), (0, 0)))
+            d_three = (qd * qd).sum(1) + (gd * gd).sum(1) - 2.0 * cross3
+            rows_ok = bool((ki[:, 0] == torch.arange(b, device=dev)).all())
+            err_k = (kd[:, 0].double() - exact).abs().max().item()
+            err_three = (d_three - exact).abs().min().item()
+            print(f"  six-product pass B={b} window {window}: query planes bit-equal {planes_eq}, own rows {rows_ok}, "
+                  f"max |kernel - fp64| {err_k:.3e}, min |three products - fp64| {err_three:.3e} (tolerance "
+                  f"{SPLIT_PROBE_TOL:.3e})", flush=True)
+            if not (planes_eq and rows_ok):
+                raise AssertionError(f"the six-product pass's query planes or rows disagree (B={b}, window {window})")
+            if err_k > SPLIT_PROBE_TOL or err_three <= 1.5 * SPLIT_PROBE_TOL:
+                raise AssertionError(f"the six-product pass does not compute the six products (B={b}, window "
+                                     f"{window}): {err_k:.3e} from fp64, the three products {err_three:.3e}")
+            worst = [max(worst[0], err_k), min(worst[1], err_three)]
+    return worst
+
+
+def full_significand_rows(g, seed: int):
+    """fp32 unit rows near the bf16 rows ``g``: normalize(g + 2^-8 noise),
+    drawn on the card a chunk at a time. Their values carry full 24-bit
+    significands, so the six-product pass's mid and lo row terms are not
+    zero (on ``g`` cast to fp32 they would be)."""
+    import torch
+
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(seed)
+    out = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    for s in range(0, g.shape[0], 65536):
+        rows = g[s : s + 65536].float()
+        out[s : s + rows.shape[0]] = _unit(rows + 2.0**-8 * torch.randn(rows.shape, generator=gen, device=g.device))
+    return out
+
+
 def check_big_grids(dev):
     """Galleries past the old 65,535-block grid caps, each kernel against
     its plain version, untimed: the bf16 tile scan at tile_g 128 over more
     than 65,535 tiles (8.4M rows, D = 16), the int8 scan (both computes)
     over more than 65,535 segments of 2,048 rows (134M rows, D = 16) and
     ``topk_l2`` over more than 65,535 segments of 8,192 rows (537M rows, D
-    = 8): bf16 at k = 1, ``precise`` at k = 1 and bf16 at k = 17. Returns a
-    description of each."""
+    = 8): bf16 at k = 1, ``precise`` at k = 1 over bf16 and over fp32 rows,
+    and bf16 at k = 17. Returns a description of each."""
     import torch
 
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
@@ -1079,9 +1162,15 @@ def check_big_grids(dev):
     check_topk(g, n, q, 1)
     check_topk(g, n, q, 1, precise=True)
     check_topk(g, n, q, 17)
-    done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 (the split pass over "
-                f"bf16 rows) and bf16 k=17: {n // 8192} segments)")
     del g
+    g32 = torch.empty((n, 8), dtype=torch.float32, device=dev)  # 17.2 GB, full significands
+    for r0 in range(0, n, 1 << 26):
+        r1 = min(n, r0 + (1 << 26))
+        g32[r0:r1] = _unit(torch.randn((r1 - r0, 8), generator=gen, device=dev))
+    check_topk(g32, n, q, 1, precise=True)
+    done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 over bf16 rows (the split "
+                f"pass) and over fp32 rows (the six-product pass), bf16 k=17: {n // 8192} segments)")
+    del g32
     torch.cuda.empty_cache()
     return done
 
@@ -2467,8 +2556,8 @@ def main() -> int:
     mma_by_lib = sass_mma_counts(libs)
     mma = {k: v for counts in mma_by_lib.values() for k, v in counts.items()}
     sm90 = {k: v for k, v in mma.items() if "_sm90" in k}
-    families = ("topk_pass1_sm90", "topk_pass1_split_sm90", "tilemin_packed_sm90", "tilemin_quant_sm90",
-                "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
+    families = ("topk_pass1_sm90", "topk_pass1_split_sm90", "topk_pass1_split6_sm90", "tilemin_packed_sm90",
+                "tilemin_quant_sm90", "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
     if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
             v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
         raise AssertionError(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
@@ -2479,8 +2568,9 @@ def main() -> int:
            for p in (0, 1) for k in (1, 16, 17, build.TOPK_MAX_K)):
         raise AssertionError("kernels/topk_l2.cu and build.topk_l2_segment_rows_for disagree on segment rows")
     if topk_lib.topk_l2_query_rows() != build.TOPK_QUERY_ROWS or any(
-            topk_lib.topk_l2_split_smem(k) != build.topk_l2_split_smem_for(k) for k in (1, 2, 16, 17, 256)):
-        raise AssertionError("kernels/topk_l2.cu and build's split-pass mirrors disagree (query rows, ring size)")
+            topk_lib.topk_l2_split_smem(k) != build.topk_l2_split_smem_for(k)
+            or topk_lib.topk_l2_split6_smem(k) != build.topk_l2_split6_smem_for(k) for k in (1, 2, 16, 17, 256)):
+        raise AssertionError("kernels/topk_l2.cu and build's split-pass mirrors disagree (query rows, ring sizes)")
     # no scan of the tile-scan library and no MBConv kernel is left on WMMA
     for lib in ("tile_scan", "mbconv"):
         if any(v["HMMA"] + v["IMMA"] for v in mma_by_lib[lib].values()):
@@ -2495,7 +2585,8 @@ def main() -> int:
     phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases}: topk_l2 (bf16; B {list(SCAN_EDGE_B)}, "
           f"(rows, n_valid, D) {TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row "
           f"masks {list(ROW_MASKS)}; precise over the same bf16 rows, the split pass, without and with the "
-          f"window (1, D-1)), topk_l2 at k {list(TOPK_LARGE_K)} (bf16, precise, windows, a row mask; "
+          f"window (1, D-1), and over the same rows in fp32, the six-product pass), topk_l2 at k "
+          f"{list(TOPK_LARGE_K)} (bf16, precise over bf16 and fp32 rows, windows, a row mask; "
           f"{TOPK_LARGE_K_EDGES}, B {list(TOPK_LARGE_K_B)}), the min-2 packed scan ((rows, n_valid, d, Da) "
           f"{MIN2_EDGES}), the single-min packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; "
           f"keys equal but near-ties), the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; "
@@ -2510,6 +2601,10 @@ def main() -> int:
     phase(f"split precise pass: query planes and |q|^2 read back equal plain.split_bf16x3 (the lo-zeroed control "
           f"differs); on queries whose lo terms add up, the kernel's distance is {err_k:.3e} from fp64 (tolerance "
           f"{SPLIT_PROBE_TOL:.3e}), the hi + mid product's {err_two:.3e} or more")
+    err6, err_three = check_split6_precise(dev)
+    phase(f"six-product pass over fp32 rows: on rows whose mid and lo terms add up, the kernel's distance is "
+          f"{err6:.3e} from fp64 (tolerance {SPLIT_PROBE_TOL:.3e}), the three products of the bf16-row pass "
+          f"{err_three:.3e} or more; query planes equal plain.split_bf16x3")
     big_grids = check_big_grids(dev)
     phase("grids past 65,535 blocks agree with the plain versions: " + "; ".join(big_grids))
 
@@ -2557,8 +2652,6 @@ def main() -> int:
     check_topk(gallery, GALLERY, probe_batch[:256], 16, report)
     check_topk(gallery, GALLERY, probe_batch[:256], 32, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
-    # the oracle over fp32-stored rows keeps the FFMA pass: timed at the same shape
-    check_topk(gallery.to(torch.float32), GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
     torch.cuda.synchronize()
     t = time.time()
     masked_empty_ms = cuda_ms(lambda: dk.topk_l2(probe_batch, gallery, 1, n_valid=GALLERY,
@@ -2611,6 +2704,20 @@ def main() -> int:
         idx_oracle = dk.topk_l2(emb, gallery, 1, n_valid=GALLERY, precise=True)[1][:, 0]
     torch.cuda.synchronize()
     check_launches("oracle", launches, topk_l2_precise=1)
+    # the same oracle over fp32-stored rows (ShardedGalleryMatcher(precise=True)
+    # stores them so), full 24-bit significands: the six-product pass,
+    # checked and timed at the main path's shape, then one launch per call,
+    # counted on its own
+    gal32 = full_significand_rows(gallery, seed=5)
+    check_topk(gal32, GALLERY, emb, 1, report, key="topk_l2_precise_f32", precise=True)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        idx_oracle32 = dk.topk_l2(emb, gal32, 1, n_valid=GALLERY, precise=True)[1][:, 0]
+    torch.cuda.synchronize()
+    check_launches("oracle_f32", launches, topk_l2_precise_f32=1)
+    if not bool(((idx_oracle32 >= 0) & (idx_oracle32 < GALLERY)).all()):
+        raise AssertionError("the oracle over fp32 rows returned rows outside the gallery")
+    del gal32, idx_oracle32
     idx, idx_exact, idx_oracle = idx.cpu().numpy(), idx_exact.cpu().numpy(), idx_oracle.cpu().numpy()
     if idx.shape != (BATCH,) or not ((idx >= 0) & (idx < GALLERY)).all():
         raise AssertionError("main path returned rows outside the gallery")
@@ -2918,6 +3025,9 @@ def main() -> int:
     phase(f"bf gallery {tuple(gal_bf.shape)} bf16 built in {time.time() - t:.1f} s")
     check_topk(gal_bf, GALLERY, q_bf, 1, report)
     check_topk(gal_bf, GALLERY, q_bf, 1, report, key="topk_l2_precise", precise=True)
+    gal_bf32 = full_significand_rows(gal_bf, seed=6)  # the oracle over fp32 rows at x 1536
+    check_topk(gal_bf32, GALLERY, q_bf, 1, report, key="topk_l2_precise_f32", precise=True)
+    del gal_bf32
     check_topk(gal_bf, GALLERY, q_bf, 1, report, key="topk_l2_windowed", window=BF_WINDOW)
     build.reset_launch_counts()
     idx_oracle_bf = dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY, precise=True)[1][:, 0].cpu().numpy()
@@ -3017,6 +3127,11 @@ def main() -> int:
              kernel="split_queries + topk_pass1_split_sm90 (bf16 rows; three bf16 wgmma products)",
              launches=launches["oracle"]["topk_l2_precise"], launches_by_path=by_path("topk_l2_precise"),
              **first(report["topk_l2_precise"]), shapes=report["topk_l2_precise"]),
+        dict(name="topk_l2_precise_f32", route="cuda", source=src + "topk_l2.cu",
+             replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (precise=True, fp32 rows)",
+             kernel="split_queries + topk_pass1_split6_sm90 (fp32 rows split on the chip; six bf16 wgmma products)",
+             launches=launches["oracle_f32"]["topk_l2_precise_f32"], launches_by_path=by_path("topk_l2_precise_f32"),
+             **first(report["topk_l2_precise_f32"]), shapes=report["topk_l2_precise_f32"]),
         dict(name="topk_l2_windowed", route="cuda", source=src + "topk_l2.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:92 (window)",
              launches=launches["bf_windowed"]["topk_l2_windowed"], launches_by_path=by_path("topk_l2_windowed"),

@@ -52,7 +52,8 @@ LAUNCHES: Dict[str, int] = {
     "tilemin_packed": 0,
     "topk_l2": 0,
     "topk_l2_windowed": 0,
-    "topk_l2_precise": 0,
+    "topk_l2_precise": 0,  # over bf16 rows
+    "topk_l2_precise_f32": 0,  # over fp32 rows
     "tilemin": 0,
     "tilemin_quant": 0,
     "mbconv": 0,  # one launch per block
@@ -146,6 +147,8 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.topk_l2_precise_launch.restype = I
             lib.topk_l2_split_smem.argtypes = [I]
             lib.topk_l2_split_smem.restype = I
+            lib.topk_l2_split6_smem.argtypes = [I]
+            lib.topk_l2_split6_smem.restype = I
             lib.topk_l2_segment_rows.argtypes = [I, I]
             lib.topk_l2_segment_rows.restype = I
             lib.topk_l2_query_rows.argtypes = []
@@ -195,14 +198,30 @@ def topk_l2_split_plane_rows(b: int) -> int:
 
 def topk_l2_split_smem_for(k: int) -> int:
     """Dynamic shared memory of ``kernels/topk_l2.cu``'s split precise pass
-    (``SplitTile``): a ring of stages holding three query planes and one
-    gallery box (3 stages, 2 for k > 16, whose distance tile and lists'
-    last entries need room), two |g|^2 buffers and the barriers."""
+    over bf16 rows (``SplitTile``): a ring of stages holding three query
+    planes and one gallery box (3 stages, 2 for k > 16, whose distance tile
+    and lists' last entries need room), two |g|^2 buffers and the
+    barriers."""
     line, qt, bn = 128, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages = 2 if lists else 3
     ring = stages * (3 * qt * line + bn * line)
     return 1024 + ring + 2 * bn * 4 + ((qt * (bn + 8) + 2 * qt) * 4 if lists else 0) + 2 * stages * 8
+
+
+def topk_l2_split6_smem_for(k: int) -> int:
+    """Dynamic shared memory of ``kernels/topk_l2.cu``'s six-product precise
+    pass over fp32 rows (``Split6Tile``), 32-feature chunks: a ring of
+    stages of three query and three row planes (64-byte lines; 3 stages, 2
+    for k > 16), a ring of fp32 row boxes ([128 x 32]; 4 boxes, 3 for k >
+    16), |g|^2 buffers for one sub-tile more than the stages, for k > 16
+    the distance tile and the lists' last entries, and the barriers."""
+    line, qt, bn = 64, TOPK_QUERY_ROWS, 128
+    lists = k > 16
+    stages, boxes = (2, 3) if lists else (3, 4)
+    ring = stages * (3 * qt * line + 3 * bn * line)
+    return (1024 + ring + boxes * bn * 128 + (stages + 1) * bn * 4
+            + ((qt * (bn + 8) + 2 * qt) * 4 if lists else 0) + (2 * stages + boxes) * 8)
 
 
 def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
@@ -311,15 +330,17 @@ def launch_topk_l2(
     """``kernels/topk_l2.cu``: exact top-k raw squared L2 distances
     ``[B, k]`` fp32 and row indices ``[B, k]`` int32 (-1 past n_valid).
     bf16 queries and rows on the tensor cores; with ``precise`` fp32
-    queries against bf16 rows as three bf16 products on the tensor cores,
-    or against fp32 rows on the CUDA cores. ``window=(start, end)`` scans
+    queries split into three bf16 terms, against bf16 rows as three bf16
+    products on the tensor cores, against fp32 rows (split the same way on
+    the chip) as six, counted as ``topk_l2_precise`` and
+    ``topk_l2_precise_f32``. ``window=(start, end)`` scans
     the feature lanes [start, end) only. Query rows where the bool
     ``row_mask`` is False come back empty ``(BIG_DIST, -1)`` (not with
     ``precise``). ``floor=(d [B] fp32, row [B] int32)``, for k > 16 only:
     the last entry of the previous slab of a larger top-k (row -1: empty);
     only (distance, row) strictly after it enter. ``split_out``, a dict,
     receives the split pass's ``planes`` [3, round_up(B, 128), D] bf16 and
-    ``qsq`` [B] fp32 (precise over bf16 rows), for a check to read back."""
+    ``qsq`` [B] fp32 (precise), for a check to read back."""
     _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
     if precise:
         if g.dtype not in (torch.float32, torch.bfloat16):
@@ -361,24 +382,24 @@ def launch_topk_l2(
     floor_ptrs = (None, None) if floor is None else (floor_d.data_ptr(), floor_i.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if precise:
-            planes = qsq = None
-            if g.dtype == torch.bfloat16:  # three bf16 query planes for the split tensor-core pass
-                planes = torch.empty((3, topk_l2_split_plane_rows(b), d), dtype=torch.bfloat16, device=q.device)
-                qsq = torch.empty((b,), dtype=torch.float32, device=q.device)
+        if precise:  # the three bf16 query planes and |q|^2 of the split passes
+            planes = torch.empty((3, topk_l2_split_plane_rows(b), d), dtype=torch.bfloat16, device=q.device)
+            qsq = torch.empty((b,), dtype=torch.float32, device=q.device)
             status = lib.topk_l2_precise_launch(
-                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32),
-                None if planes is None else planes.data_ptr(), None if qsq is None else qsq.data_ptr(),
+                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), planes.data_ptr(), qsq.data_ptr(),
                 *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
             )
-            if split_out is not None and planes is not None:
+            if split_out is not None:
                 split_out.update(planes=planes, qsq=qsq)
         else:
             status = lib.topk_l2_launch(
                 q.data_ptr(), g.data_ptr(), mask_ptr, *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(),
                 out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
             )
-    name = "topk_l2_precise" if precise else "topk_l2" if window is None else "topk_l2_windowed"
+    if precise:
+        name = "topk_l2_precise_f32" if g.dtype == torch.float32 else "topk_l2_precise"
+    else:
+        name = "topk_l2" if window is None else "topk_l2_windowed"
     _raise_on(status, name)
     LAUNCHES[name] += 1
     return out_d, out_i

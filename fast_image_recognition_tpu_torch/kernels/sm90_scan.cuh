@@ -19,7 +19,11 @@
 // one) at +32 bytes. Each line holds one row's features whatever the
 // swizzle, so a row's partial |g|^2 is the sum of squares over its line.
 // TMA fills the part of a box past the tensor's extent with zeros, which
-// covers a ragged D, B and N with no masking in the main loop.
+// covers a ragged D, B and N with no masking in the main loop. The precise
+// pass over fp32 rows (kernels/topk_l2.cu `topk_pass1_split6_sm90`) also
+// takes fp32 boxes [rows x 32] with the 128-byte swizzle and bf16 operands
+// in 64-byte lines (32 features, the 64-byte swizzle: chunk c of row r at
+// chunk c ^ ((r / 2) % 4), 8-row groups 512 bytes apart).
 //
 // Pipeline. full[s] completes when stage s has landed (one arrive with
 // the expected byte count, then the TMA transactions); empty[s] completes
@@ -117,6 +121,14 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for a 64-byte-swizzled operand (lines of 32 bf16 features; the
+// 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4) of its line): a
+// 512-byte aligned tile, 8-row groups 512 bytes apart, layout type 2.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+    const uint64_t addr = smem_u32(p);
+    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -223,7 +235,8 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// scale_d = 0 ignores d's values: the product starts a fresh accumulator.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -240,7 +253,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // The same product with A (64 rows x 16 bf16 features) taken from
@@ -357,24 +370,41 @@ inline EncodeTiledFn encode_tiled() {
 
 // Map of a row-major matrix [rows, cols] of `elem_bytes`-byte elements
 // with `stride` bytes between rows (a multiple of 16; `base` 16-byte
-// aligned), read in boxes of [box_rows x 128 bytes] with the 128-byte
-// swizzle; zeros past the extent. Returns a cudaError_t value.
-inline int encode_sw128_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
-                            long cols, long rows, long stride, int box_rows) {
+// aligned), read in boxes of [box_rows x line_bytes] with the swizzle of
+// that line (128 or 64 bytes); zeros past the extent. Returns a
+// cudaError_t value.
+inline int encode_swizzled_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
+                               long cols, long rows, long stride, int box_rows, int line_bytes) {
     const EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)stride};
-    const cuuint32_t box[2] = {(cuuint32_t)(LINE_BYTES / elem_bytes), (cuuint32_t)box_rows};
+    const cuuint32_t box[2] = {(cuuint32_t)(line_bytes / elem_bytes), (cuuint32_t)box_rows};
     const cuuint32_t estr[2] = {1, 1};
     const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          line_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+inline int encode_sw128_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
+                            long cols, long rows, long stride, int box_rows) {
+    return encode_swizzled_map(map, type, elem_bytes, base, cols, rows, stride, box_rows, LINE_BYTES);
+}
+
 inline int encode_bf16_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
     return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, stride, box_rows);
+}
+
+// bf16 in boxes of [box_rows x 32] with the 64-byte swizzle.
+inline int encode_bf16_sw64_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+    return encode_swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, stride, box_rows, 64);
+}
+
+// fp32 in boxes of [box_rows x 32] with the 128-byte swizzle.
+inline int encode_f32_map(CUtensorMap* map, const void* base, long cols, long rows, long stride, int box_rows) {
+    return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, cols, rows, stride, box_rows);
 }
 
 // int8: TMA has no signed 8-bit type; UINT8 copies the bits unchanged.

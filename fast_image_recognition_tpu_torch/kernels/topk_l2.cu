@@ -45,25 +45,30 @@
 // read from L2 once per query tile.
 //
 // `topk_l2_precise_launch` (`precise=True`, the fp32 oracle): fp32 queries
-// against rows stored in bf16 or in fp32.
-//  - bf16 rows (every line that runs the oracle): the arithmetic of the
-//    TPU kernel's HIGHEST-precision dot. `split_queries` splits each fp32
-//    query into three bf16 terms (hi + mid + lo = q to ~2^-27 relative);
-//    a bf16 row is one term, so the product is the sum of three exact
-//    bf16 x bf16 products, g.q_lo + g.q_mid + g.q_hi, on the tensor cores
+// against rows stored in bf16 or in fp32, with the arithmetic of the TPU
+// kernel's HIGHEST-precision dot, exact bf16 products on the tensor cores.
+// `split_queries` splits each fp32 query into three bf16 terms, hi =
+// bf16(q), mid = bf16(q - hi), lo = bf16(q - hi - mid), so that hi + mid +
+// lo is q to ~2^-27 relative. Hopper adds into its fp32 accumulator with
+// truncation, so each feature chunk's products go to a fresh accumulator,
+// smallest first, that is then added into fp32 registers (IEEE).
+//  - bf16 rows (every line that runs the oracle): a row is one term, so a
+//    64-feature chunk takes three products, g.q_lo + g.q_mid + g.q_hi
 //    (`topk_pass1_split_sm90`, the bf16 main loop with the three query
-//    planes in each ring stage). Hopper adds into its fp32 accumulator
-//    with truncation, so each 64-feature chunk's three products go to a
-//    fresh accumulator that is then added into fp32 registers (IEEE).
-//    Bound: 3 x 2.6 TFLOP at 989 TFLOP/s, 7.95 ms at 1024 x 1M x 1280
-//    (against 39 ms for the fp32 CUDA-core rate).
-//  - fp32 rows (edge cases only): an fp32 contraction on the CUDA cores
-//    (FFMA; no TF32, every product and sum an IEEE fp32 operation), the
-//    first port's design: grid (64-query block, 8192-row segment), 128-row
-//    sub-tiles in 32-wide chunks staged k-major through shared memory, a
-//    register-blocked product of 8 rows x 4 queries per thread, the fp32
-//    tile through shared memory into a per-thread top-K, the four lists of
-//    a query merged in shared memory. Bound: 2.6-3.1 TFLOP at 67 TFLOP/s.
+//    planes in each ring stage). Bound: 3 x 2.6 TFLOP at 989 TFLOP/s,
+//    7.95 ms at 1024 x 1M x 1280.
+//  - fp32 rows: each row is split into three terms the same way, on the
+//    chip, and a 32-feature chunk takes the six products of terms whose
+//    weight reaches fp32: hi.lo, lo.hi, mid.mid (~2^-16 of hi.hi), hi.mid,
+//    mid.hi (~2^-8), hi.hi; the three dropped (mid.lo, lo.mid, lo.lo) sum
+//    to under 2^-25 of sum |q g| (`topk_pass1_split6_sm90`). The producer
+//    warpgroup loads the fp32 row boxes by TMA into a ring of their own and
+//    splits them, one thread a row, into three bf16 planes in the
+//    64-byte-swizzled layout `wgmma` reads, summing |g|^2 from the fp32
+//    values on the way: the rows are read from device memory once per
+//    query tile and nothing else is written there. Bound: 6 x 2.6 TFLOP at
+//    989 TFLOP/s, 15.90 ms at 1024 x 1M x 1280 (the rows' 5.12 GB take
+//    1.53 ms at 3.35 TB/s).
 //
 // Pass 2 (both): one warp per query merges its n_seg segment lists into
 // the final top-k. K is a compile-time power of two >= k; for k <= 16 the
@@ -79,10 +84,9 @@
 // queries x an 8192-row segment, 128-row sub-tiles) with this epilogue, a
 // separate kernel so that the k <= 16 kernels keep their text; each
 // consumer warp writes the distances of its 16 accumulator rows to shared
-// memory and merges them into those queries' lists. precise over bf16
-// rows: `topk_pass1_split_sm90` with the same epilogue; over fp32 rows:
-// `topk_pass1_lists`, the FFMA structure with the same lists. Pass 2
-// merges the n_seg lists of a query the same way in one warp.
+// memory and merges them into those queries' lists. precise: both split
+// passes with the same epilogue. Pass 2 merges the n_seg lists of a query
+// the same way in one warp.
 //
 // A larger k is scanned in slabs of at most 256 (the caller's loop,
 // ops/distance_kernel.py `topk_l2`): each slab passes the list kernels a
@@ -659,290 +663,7 @@ topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_con
     }
 }
 
-// ---- precise: topk_pass1_precise (fp32, CUDA cores) ----
-
-constexpr int QB = 64;              // queries per block
-constexpr int RB = 128;             // gallery rows per sub-tile
-constexpr int THREADS = 256;        // 8 warps
-constexpr int ACC_LD = QB + 4;      // fp32 tile, [row][query]
-constexpr int SEG_PRECISE = 8192;   // gallery rows per pass-1 block
-constexpr int PHASES = THREADS / QB;  // threads sharing one query
-constexpr size_t SMEM_ACC = (size_t)RB * ACC_LD * 4;
-
-// Merges the PHASES lists of each query of the block through shared memory
-// (which the caller no longer needs) and writes the segment's top-K.
-template <int K>
-__device__ __forceinline__ void emit_segment(unsigned char* smem, float (&bd)[K], int (&bi)[K],
-                                             int eq, int ep, int q0, int B, int seg, int n_seg,
-                                             float* __restrict__ part_d, int* __restrict__ part_i) {
-    float* ld_s = reinterpret_cast<float*>(smem);  // [PHASES][QB][K]
-    int* li_s = reinterpret_cast<int*>(ld_s + PHASES * QB * K);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-        ld_s[(ep * QB + eq) * K + j] = bd[j];
-        li_s[(ep * QB + eq) * K + j] = bi[j];
-    }
-    __syncthreads();
-    if (ep == 0) {
-        for (int p = 1; p < PHASES; ++p)
-#pragma unroll
-            for (int j = 0; j < K; ++j)
-                insert<K>(bd, bi, ld_s[(p * QB + eq) * K + j], li_s[(p * QB + eq) * K + j]);
-        const int qi = q0 + eq;
-        if (qi < B) {
-            const size_t o = ((size_t)qi * n_seg + seg) * K;
-#pragma unroll
-            for (int j = 0; j < K; ++j) { part_d[o + j] = bd[j]; part_i[o + j] = bi[j]; }
-        }
-    }
-}
-
-// The epilogue of one sub-tile: distances of (every PHASES-th row, query
-// eq) from the cross products in acc_s and the norms, into the top-K.
-template <int K>
-__device__ __forceinline__ void scan_subtile(const float* acc_s, const float* qsq_s,
-                                             const float* gsq_s, long r0, long seg1, int eq,
-                                             int ep, float (&bd)[K], int (&bi)[K]) {
-    const float qsq = qsq_s[eq];
-    for (int r = ep; r < RB; r += PHASES) {
-        const long row = r0 + r;
-        if (row >= seg1) break;
-        const float d = dist(qsq, gsq_s[r], acc_s[r * ACC_LD + eq]);
-        insert<K>(bd, bi, d, (int)row);
-    }
-}
-
-// Loads the values [col, col + EPV) of row `row` of a [rows, D] matrix of
-// fp32 or bf16 as fp32, zero past the last row and outside [start, end).
-template <typename T>
-__device__ __forceinline__ void load_f32(const T* m, long row, long rows, int D, int col,
-                                         int start, int end, float* out) {
-    constexpr int EPV = 16 / sizeof(T);
-    if (row >= rows || col >= end || col + EPV <= start) {
-#pragma unroll
-        for (int j = 0; j < EPV; ++j) out[j] = 0.0f;
-        return;
-    }
-    const uint4 v = *reinterpret_cast<const uint4*>(m + row * (long)D + col);
-    if constexpr (sizeof(T) == 4) {
-        const float* f = reinterpret_cast<const float*>(&v);
-#pragma unroll
-        for (int j = 0; j < EPV; ++j) out[j] = f[j];
-    } else {
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-        for (int j = 0; j < EPV; ++j) out[j] = __bfloat162float(h[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < EPV; ++j)
-        if (col + j < start || col + j >= end) out[j] = 0.0f;
-}
-
-constexpr int KP = 32;           // feature chunk of the precise pass
-constexpr int QLD = QB + 4;      // k-major staged queries, [KP][QLD]
-constexpr int GLD = RB + 4;      // k-major staged rows, [KP][GLD]
-constexpr size_t SMEM_P = (size_t)KP * (QLD + GLD) * 4 + SMEM_ACC + (QB + RB) * 4;
-
-// Stages a [nrows x KP] chunk of fp32 or bf16 rows k-major into dst
-// ([KP][ld] fp32) and adds each row's squared values to part[] (one
-// entry per row this thread loads; the VPR threads of a row are
-// consecutive lanes).
-template <typename T, int NROWS>
-__device__ __forceinline__ void stage_kmajor(const T* m, long row0, long rows, int D, int k0,
-                                             int start, int end, float* dst, int ld,
-                                             float* part) {
-    constexpr int EPV = 16 / sizeof(T);
-    constexpr int VPR = KP / EPV;
-    constexpr int PER = NROWS * VPR / THREADS;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-        const int v = threadIdx.x + THREADS * j;
-        const int r = v / VPR, c = v % VPR;
-        float x[EPV];
-        load_f32<T>(m, row0 + r, rows, D, k0 + c * EPV, start, end, x);
-#pragma unroll
-        for (int e = 0; e < EPV; ++e) {
-            part[j] = fmaf(x[e], x[e], part[j]);
-            dst[(c * EPV + e) * ld + r] = x[e];
-        }
-    }
-}
-
-// Sums the VPR partial norms of each row (consecutive lanes) into out[row].
-template <typename T, int NROWS>
-__device__ __forceinline__ void reduce_norms(float* part, float* out) {
-    constexpr int VPR = KP / (16 / sizeof(T));
-    constexpr int PER = NROWS * VPR / THREADS;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-#pragma unroll
-        for (int off = 1; off < VPR; off <<= 1) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
-        const int v = threadIdx.x + THREADS * j;
-        if (v % VPR == 0) out[v / VPR] = part[j];
-    }
-}
-
-template <int K, typename GT>
-__global__ void __launch_bounds__(THREADS)
-topk_pass1_precise(const float* __restrict__ q, const GT* __restrict__ g,
-                   float* __restrict__ part_d, int* __restrict__ part_i, int B, int N,
-                   int n_valid, int D, int n_seg, int start, int end, int seg_base) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);          // [KP][QLD]
-    float* g_s = q_s + KP * QLD;                          // [KP][GLD]
-    float* acc_s = g_s + KP * GLD;                        // [RB][ACC_LD]
-    float* qsq_s = acc_s + RB * ACC_LD;                   // [QB]
-    float* gsq_s = qsq_s + QB;                            // [RB]
-
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * QB;
-    const int seg = seg_base + blockIdx.y;
-    const long seg0 = (long)seg * SEG_PRECISE;
-    const long seg1 = min((long)n_valid, seg0 + SEG_PRECISE);
-    // product: rows tr*8 .. +8 against queries tq*4 .. +4
-    const int tr = tid / 16, tq = tid % 16;
-    const int eq = tid % QB, ep = tid / QB;
-    constexpr int QPER = QB * KP / 4 / THREADS;                  // q is always fp32
-    constexpr int GPER = RB * (KP / (16 / sizeof(GT))) / THREADS;
-
-    float bd[K];
-    int bi[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) { bd[j] = BIG_DIST; bi[j] = NO_ROW; }
-
-    for (long r0 = seg0; r0 < seg1; r0 += RB) {
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        float qpart[QPER], gpart[GPER];
-#pragma unroll
-        for (int j = 0; j < QPER; ++j) qpart[j] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < GPER; ++j) gpart[j] = 0.0f;
-
-        for (int k0 = start / KP * KP; k0 < end; k0 += KP) {
-            stage_kmajor<float, QB>(q, q0, B, D, k0, start, end, q_s, QLD, qpart);
-            stage_kmajor<GT, RB>(g, r0, N, D, k0, start, end, g_s, GLD, gpart);
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < KP; ++kk) {
-                const float4 a0 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8);
-                const float4 a1 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8 + 4);
-                const float4 b = *reinterpret_cast<const float4*>(q_s + kk * QLD + tq * 4);
-                const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-                const float bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-            }
-            __syncthreads();  // staging buffers are rewritten next chunk
-        }
-        reduce_norms<float, QB>(qpart, qsq_s);
-        reduce_norms<GT, RB>(gpart, gsq_s);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc_s[(tr * 8 + i) * ACC_LD + tq * 4 + j] = acc[i][j];
-        __syncthreads();
-        scan_subtile<K>(acc_s, qsq_s, gsq_s, r0, seg1, eq, ep, bd, bi);
-        __syncthreads();  // acc_s / norms are rewritten by the next sub-tile
-    }
-    emit_segment<K>(smem, bd, bi, eq, ep, q0, B, seg, n_seg, part_d, part_i);
-}
-
-
-// ---- precise, k > 16: topk_pass1_lists (fp32 queries, CUDA cores) ----
-
-// The precise pass's product (64-query block, 8192-row segment, 128-row
-// sub-tiles, 8 x 4 register blocks of FFMA) over fp32 queries and GT rows;
-// each (query, segment) top-K is a list of K in part_d/part_i that the
-// warp owning the query merges each sub-tile into (warp_merge). Its own
-// copy of the product loop: the precise pass calling a shared helper ran
-// ~5 % slower on the card.
-template <int K, typename GT>
-__global__ void __launch_bounds__(THREADS)
-topk_pass1_lists(const float* __restrict__ q, const GT* __restrict__ g, const float* __restrict__ floor_d,
-                 const int* __restrict__ floor_i, float* __restrict__ part_d, int* __restrict__ part_i, int B, int N,
-                 int n_valid, int D, int n_seg, int start, int end, int seg_base) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);           // [KP][QLD]
-    float* g_s = q_s + KP * QLD;                           // [KP][GLD]
-    float* acc_s = g_s + KP * GLD;                         // [RB][ACC_LD]
-    float* qsq_s = acc_s + RB * ACC_LD;                    // [QB]
-    float* gsq_s = qsq_s + QB;                             // [RB]
-    float* last_d_s = gsq_s + RB;                          // [QB] the lists' last entries
-    int* last_i_s = reinterpret_cast<int*>(last_d_s + QB);  // [QB]
-
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * QB;
-    const int seg = seg_base + blockIdx.y;
-    const long seg0 = (long)seg * SEG_PRECISE;
-    const long seg1 = min((long)n_valid, seg0 + SEG_PRECISE);
-    // product: rows tr*8 .. +8 against queries tq*4 .. +4
-    const int tr = tid / 16, tq = tid % 16;
-    constexpr int QPER = QB * KP / 4 / THREADS;                  // q is always fp32
-    constexpr int GPER = RB * (KP / (16 / sizeof(GT))) / THREADS;
-    constexpr int QPW = QB / (THREADS / 32);  // queries whose lists a warp owns
-    const int warp = tid >> 5;
-    const int ql0 = warp * QPW, ql1 = min(ql0 + QPW, B - q0);
-
-    for (int ql = ql0; ql < ql1; ++ql) {
-        const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
-        warp_fill_empty<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql);
-    }
-    for (long r0 = seg0; r0 < seg1; r0 += RB) {
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        float qpart[QPER], gpart[GPER];
-#pragma unroll
-        for (int j = 0; j < QPER; ++j) qpart[j] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < GPER; ++j) gpart[j] = 0.0f;
-
-        for (int k0 = start / KP * KP; k0 < end; k0 += KP) {
-            stage_kmajor<float, QB>(q, q0, B, D, k0, start, end, q_s, QLD, qpart);
-            stage_kmajor<GT, RB>(g, r0, N, D, k0, start, end, g_s, GLD, gpart);
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < KP; ++kk) {
-                const float4 a0 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8);
-                const float4 a1 = *reinterpret_cast<const float4*>(g_s + kk * GLD + tr * 8 + 4);
-                const float4 b = *reinterpret_cast<const float4*>(q_s + kk * QLD + tq * 4);
-                const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-                const float bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-            }
-            __syncthreads();  // staging buffers are rewritten next chunk
-        }
-        reduce_norms<float, QB>(qpart, qsq_s);
-        reduce_norms<GT, RB>(gpart, gsq_s);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc_s[(tr * 8 + i) * ACC_LD + tq * 4 + j] = acc[i][j];
-        __syncthreads();
-        // each warp merges the sub-tile's rows into its QPW lists
-        const int n = (int)min((long)RB, seg1 - r0);
-        for (int ql = ql0; ql < ql1; ++ql) {
-            const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
-            const float qsq = qsq_s[ql];
-            const Floor f(floor_d, floor_i, q0 + ql);
-            warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, n, [&](int r, float& cd, int& ci) {
-                f.admit(dist(qsq, gsq_s[r], acc_s[r * ACC_LD + ql]), (int)(r0 + r), cd, ci);
-            });
-        }
-        __syncthreads();  // acc_s / norms are rewritten by the next sub-tile
-    }
-}
+constexpr int SEG_PRECISE = 8192;  // gallery rows per block of the split passes
 
 // ---- precise over bf16 rows: split_queries + topk_pass1_split_sm90 ----
 
@@ -973,6 +694,155 @@ __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __rest
     if (lane == 0 && row < B) qsq[row] = s;
 }
 
+// Where a split pass keeps its top-K: the pass-1 scratch, the slab floor
+// (k > 16) and, for k > 16, the distance tile [QT][DLD] and the lists'
+// last entries [QT] in shared memory.
+struct SplitOut {
+    float* part_d;
+    int* part_i;
+    const float* floor_d;
+    const int* floor_i;
+    float* d_s;
+    float* last_d_s;
+    int* last_i_s;
+    int B, q0, seg, n_seg;
+};
+
+// A consumer thread's share of a split pass's top-K (128 queries, 128-row
+// sub-tiles): its two accumulator rows' |q|^2 (from split_queries) and,
+// for k <= 16, their register lists (the epilogue of topk_pass1_sm90); for
+// k > 16 its warp owns the lists of its 16 accumulator rows in the pass-1
+// scratch (the epilogue of topk_pass1_sm90_lists, with the slab floor).
+template <int K>
+struct SplitTopK {
+    static constexpr int BN = 128;
+    static constexpr int DLD = ListTile::DLD;
+    static constexpr int KR = K > 16 ? 1 : K;  // register lists (k <= 16)
+    float bd[2][KR];
+    int bi[2][KR];
+    float qsq[2];
+    int ql0, ql1;  // k > 16: the queries [ql0, ql1) of the block whose lists this warp owns
+
+    __device__ __forceinline__ SplitTopK(const SplitOut& o, const float* __restrict__ qsq_g, int tid) {
+        const int t = tid % sm90::WG_THREADS, wg = tid / sm90::WG_THREADS;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qi = o.q0 + wg * 64 + sm90::acc_row(t, h);
+            qsq[h] = qi < o.B ? qsq_g[qi] : 0.0f;
+        }
+        ql0 = (tid >> 5) * 16;
+        ql1 = min(ql0 + 16, o.B - o.q0);
+        if constexpr (K > 16) {
+            for (int ql = ql0; ql < ql1; ++ql) {
+                const size_t off = ((size_t)(o.q0 + ql) * o.n_seg + o.seg) * K;
+                warp_fill_empty<K>(o.part_d + off, o.part_i + off, o.last_d_s + ql, o.last_i_s + ql);
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < KR; ++j) { bd[h][j] = BIG_DIST; bi[h][j] = NO_ROW; }
+    }
+
+    // One sub-tile: the cross products `sum` against rows r0 + column, of
+    // which the first `lim` columns count, and their |g|^2 in gbuf.
+    __device__ __forceinline__ void take(const SplitOut& o, const float (&sum)[BN / 2], const float* gbuf, int r0,
+                                         int lim, int tid) {
+        const int t = tid % sm90::WG_THREADS, lane = tid & 31;
+        if constexpr (K > 16) {
+            // this warp's 16 rows of distances, then its lists
+            float* dw = o.d_s + ql0 * DLD;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+                const int col = sm90::acc_col(t, j, 0);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float2 d = make_float2(dist(qsq[h], gbuf[col], sum[4 * j + 2 * h]),
+                                                 dist(qsq[h], gbuf[col + 1], sum[4 * j + 2 * h + 1]));
+                    *reinterpret_cast<float2*>(dw + (((lane >> 2) + 8 * h) * DLD + col)) = d;
+                }
+            }
+            __syncwarp();
+            for (int ql = ql0; ql < ql1; ++ql) {
+                const size_t off = ((size_t)(o.q0 + ql) * o.n_seg + o.seg) * K;
+                const float* dq = o.d_s + ql * DLD;
+                const Floor f(o.floor_d, o.floor_i, o.q0 + ql);
+                warp_merge<K>(o.part_d + off, o.part_i + off, o.last_d_s + ql, o.last_i_s + ql, lim,
+                              [&](int r, float& cd, int& ci) { f.admit(dq[r], r0 + r, cd, ci); });
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int col = sm90::acc_col(t, j, c);
+                    const float g2 = gbuf[col];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float d = dist(qsq[h], g2, sum[4 * j + 2 * h + c]);
+                        if (K == 1) {
+                            // columns rise within a thread: strict < keeps the lowest row
+                            if (col < lim && d < bd[h][0]) { bd[h][0] = d; bi[h][0] = r0 + col; }
+                        } else if (col < lim) {
+                            insert<KR>(bd[h], bi[h], d, r0 + col);
+                        }
+                    }
+                }
+            }
+        }
+    }
+
+    // k <= 16, after the segment's last sub-tile: the segment's top-K of each
+    // query, the 4 lanes of a row merged (K > 1 through `smem`, the idle ring).
+    __device__ __forceinline__ void emit(const SplitOut& o, unsigned char* smem, int tid) {
+        const int t = tid % sm90::WG_THREADS, wg = tid / sm90::WG_THREADS, lane = tid & 31;
+        if constexpr (K == 1) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {
+                    const float od = __shfl_xor_sync(FULL, bd[h][0], off);
+                    const int oi = __shfl_xor_sync(FULL, bi[h][0], off);
+                    if (before(od, oi, bd[h][0], bi[h][0])) { bd[h][0] = od; bi[h][0] = oi; }
+                }
+                const int qi = o.q0 + wg * 64 + sm90::acc_row(t, h);
+                if ((lane & 3) == 0 && qi < o.B) {
+                    o.part_d[(size_t)qi * o.n_seg + o.seg] = bd[h][0];
+                    o.part_i[(size_t)qi * o.n_seg + o.seg] = bi[h][0];
+                }
+            }
+        } else if constexpr (K <= 16) {
+            // the ring is idle: every stage has landed and been consumed
+            float* ld_s = reinterpret_cast<float*>(smem);  // [QT][4][K]
+            int* li_s = reinterpret_cast<int*>(ld_s + QT * 4 * K);
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int off = ((wg * 64 + sm90::acc_row(t, h)) * 4 + (lane & 3)) * K;
+#pragma unroll
+                for (int j = 0; j < K; ++j) { ld_s[off + j] = bd[h][j]; li_s[off + j] = bi[h][j]; }
+            }
+            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+            if (tid < QT) {
+                float md[K];
+                int mi[K];
+#pragma unroll
+                for (int j = 0; j < K; ++j) { md[j] = ld_s[tid * 4 * K + j]; mi[j] = li_s[tid * 4 * K + j]; }
+                for (int p = 1; p < 4; ++p)
+#pragma unroll
+                    for (int j = 0; j < K; ++j)
+                        insert<K>(md, mi, ld_s[(tid * 4 + p) * K + j], li_s[(tid * 4 + p) * K + j]);
+                const int qi = o.q0 + tid;
+                if (qi < o.B) {
+                    const size_t off = ((size_t)qi * o.n_seg + o.seg) * K;
+#pragma unroll
+                    for (int j = 0; j < K; ++j) { o.part_d[off + j] = md[j]; o.part_i[off + j] = mi[j]; }
+                }
+            }
+        }
+    }
+};
+
 // The precise pass over bf16-stored rows as the TPU computes a HIGHEST
 // dot: three bf16 products per feature chunk, g.q_lo + g.q_mid + g.q_hi,
 // each exact, summed in fp32. The bf16 main loop at BN = 128 (producer,
@@ -983,9 +853,7 @@ __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __rest
 // with truncation, so each chunk's three products go to a fresh
 // accumulator (smallest term first) that is then added into fp32
 // registers with IEEE adds. |q|^2 comes from split_queries; |g|^2 is
-// summed from the landed lines. k <= 16: the register epilogue of
-// topk_pass1_sm90; k > 16: the lists of topk_pass1_sm90_lists (with the
-// slab floor).
+// summed from the landed lines. The top-K: SplitTopK.
 template <int K>
 struct SplitTile {
     static constexpr int BN = 128;
@@ -1063,31 +931,10 @@ topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_con
     } else {
         sm90::setmaxnreg_inc<232>();
         const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
-        const int lane = tid & 31;
         // |g|^2: half a line of row tid / 2
         const int g_row = tid >> 1, g_c0 = (tid & 1) * 4;
-        float qsq[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int qi = q0 + wg * 64 + sm90::acc_row(t, h);
-            qsq[h] = qi < B ? qsq_g[qi] : 0.0f;
-        }
-        // k > 16: this warp's 16 query rows (its accumulator rows) and their lists
-        const int ql0 = (tid >> 5) * 16, ql1 = min(ql0 + 16, B - q0);
-        float* dw = d_s + ql0 * T::DLD;
-        if constexpr (K > 16) {
-            for (int ql = ql0; ql < ql1; ++ql) {
-                const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
-                warp_fill_empty<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql);
-            }
-        }
-        constexpr int KR = K > 16 ? 1 : K;  // register lists (k <= 16)
-        float bd[2][KR];
-        int bi[2][KR];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int j = 0; j < KR; ++j) { bd[h][j] = BIG_DIST; bi[h][j] = NO_ROW; }
+        const SplitOut o{part_d, part_i, floor_d, floor_i, d_s, last_d_s, last_i_s, B, q0, seg, n_seg};
+        SplitTopK<K> top(o, qsq_g, tid);
 
         float acc[BN / 2], sum[BN / 2];
         int s = 0;
@@ -1126,94 +973,242 @@ topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_con
             if ((tid & 1) == 0) gbuf[g_row] = gpart;
             sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
             const int r0 = seg0 + sub * BN;
-            const int lim = min(seg1 - r0, BN);  // columns >= lim are past the segment or n_valid
-            if constexpr (K > 16) {
-                // this warp's 16 rows of distances, then its lists
-#pragma unroll
-                for (int j = 0; j < BN / 8; ++j) {
-                    const int col = sm90::acc_col(t, j, 0);
-#pragma unroll
-                    for (int h = 0; h < 2; ++h) {
-                        const float2 d = make_float2(dist(qsq[h], gbuf[col], sum[4 * j + 2 * h]),
-                                                     dist(qsq[h], gbuf[col + 1], sum[4 * j + 2 * h + 1]));
-                        *reinterpret_cast<float2*>(dw + (((lane >> 2) + 8 * h) * T::DLD + col)) = d;
-                    }
-                }
-                __syncwarp();
-                for (int ql = ql0; ql < ql1; ++ql) {
-                    const size_t o = ((size_t)(q0 + ql) * n_seg + seg) * K;
-                    const float* dq = d_s + ql * T::DLD;
-                    const Floor f(floor_d, floor_i, q0 + ql);
-                    warp_merge<K>(part_d + o, part_i + o, last_d_s + ql, last_i_s + ql, lim,
-                                  [&](int r, float& cd, int& ci) { f.admit(dq[r], r0 + r, cd, ci); });
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-                    for (int c = 0; c < 2; ++c) {
-                        const int col = sm90::acc_col(t, j, c);
-                        const float g2 = gbuf[col];
-#pragma unroll
-                        for (int h = 0; h < 2; ++h) {
-                            const float d = dist(qsq[h], g2, sum[4 * j + 2 * h + c]);
-                            if (K == 1) {
-                                // columns rise within a thread: strict < keeps the lowest row
-                                if (col < lim && d < bd[h][0]) { bd[h][0] = d; bi[h][0] = r0 + col; }
-                            } else if (col < lim) {
-                                insert<KR>(bd[h], bi[h], d, r0 + col);
-                            }
-                        }
-                    }
-                }
-            }
+            top.take(o, sum, gbuf, r0, min(seg1 - r0, BN), tid);
         }
+        top.emit(o, smem, tid);
+    }
+}
 
-        // k <= 16: the segment's top-K of each query, the 4 lanes of a row merged
-        if constexpr (K == 1) {
+// ---- precise over fp32 rows: split_queries + topk_pass1_split6_sm90 ----
+
+constexpr int KC6 = 32;          // features per chunk: a 64-byte bf16 plane line, a 128-byte fp32 line
+constexpr int LINE6 = 64;        // bytes of a plane line (64-byte swizzle)
+constexpr int BAR_PRODUCERS = 4;  // named barrier of the producer warpgroup
+
+// acc (+)= query term qt times row term gt (0 hi, 1 mid, 2 lo) over one
+// 32-feature chunk: qa, this warpgroup's 64 rows of the hi query plane;
+// gb, the hi row plane; the other planes follow each at 128 lines.
+__device__ __forceinline__ void product6(float (&acc)[64], const unsigned char* qa, const unsigned char* gb, int qt,
+                                         int gt, bool fresh) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
+    for (int kk = 0; kk < KC6 / 16; ++kk)
+        sm90::wgmma_m64n128k16(acc, sm90::sw64_desc(qa + qt * 128 * LINE6 + 32 * kk),
+                               sm90::sw64_desc(gb + gt * 128 * LINE6 + 32 * kk), fresh && kk == 0 ? 0 : 1);
+}
+
+// The precise pass over fp32-stored rows: each row split into three bf16
+// terms by the rule of split_queries, six exact bf16 products of a query
+// term and a row term per 32-feature chunk, all into one fresh
+// accumulator, smallest first, then added into fp32 registers with IEEE
+// adds. 384 threads: two consumer warpgroups of 64 queries (128
+// queries x an 8192-row segment per block, 128-row sub-tiles, the `wgmma`
+// N side) and a producer warpgroup. A plane stage holds the chunk's three
+// query planes (TMA) and three row planes (48 KB); the producer's thread
+// p splits row p of the chunk's fp32 box, which TMA brings into a ring of
+// its own (16 KB a box), into the row planes and adds its squares to the
+// row's |g|^2, then arrives on the stage's `full` barrier. Plane stages
+// 3, boxes 4 (k > 16, whose distance tile needs room: 2 and 3); the
+// producer runs up to that far ahead of the consumers, so |g|^2 of a
+// sub-tile has NSTAGE + 1 buffers. The top-K: SplitTopK.
+template <int K>
+struct Split6Tile {
+    static constexpr int BN = 128;
+    static constexpr int NSTAGE = K > 16 ? 2 : 3;  // plane stages
+    static constexpr int NBOX = K > 16 ? 3 : 4;    // fp32 boxes
+    static constexpr int NGSQ = NSTAGE + 1;        // |g|^2 buffers
+    static constexpr int Q_BYTES = QT * LINE6;     // one query plane
+    static constexpr int R_BYTES = BN * LINE6;     // one row plane
+    static constexpr int STAGE_BYTES = 3 * Q_BYTES + 3 * R_BYTES;
+    static constexpr int BOX_BYTES = BN * sm90::LINE_BYTES;  // [BN x 32] fp32
+    static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+    static constexpr int DLD = ListTile::DLD;
+    // plane ring, box ring, |g|^2 buffers, (k > 16) the distance tile and
+    // the lists' last entries, full[], empty[] and landed[] barriers
+    static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + NBOX * BOX_BYTES + NGSQ * BN * 4 +
+                                   (K > 16 ? (QT * DLD + 2 * QT) * 4 : 0) + (2 * NSTAGE + NBOX) * 8;
+    static_assert(K > 16 || (size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
+    static_assert(Q_BYTES == 128 * LINE6 && R_BYTES == 128 * LINE6, "product6 and split_row take 128-line planes");
+};
+
+// Two fp32 values into their three bf16 terms (split_queries' rule), each
+// pair packed as wgmma reads it (the lower lane in the low half).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float ra = a - __low2float(h), rb = b - __high2float(h);
+    const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(ra - __low2float(m), rb - __high2float(m));
+    hi = reinterpret_cast<const uint32_t&>(h);
+    mid = reinterpret_cast<const uint32_t&>(m);
+    lo = reinterpret_cast<const uint32_t&>(l);
+}
+
+// Splits row p of a landed fp32 box [BN x 32] (128-byte swizzle: the
+// 16-byte chunk j of row p at chunk j ^ (p % 8)) into the three planes at
+// `planes`, R_BYTES apart ([BN x 32] bf16, 64-byte swizzle: chunk c of row
+// p at chunk c ^ ((p / 2) % 4)); the first `lead` lanes count as zero.
+// Returns the row's fp32 sum of squares over the chunk. A warp's rows hit
+// distinct bank groups in both layouts.
+__device__ __forceinline__ float split_row(const unsigned char* box, unsigned char* planes, int p, int lead) {
+    constexpr int R_BYTES = 128 * LINE6;
+    const unsigned char* line = box + p * sm90::LINE_BYTES;
+    float s = 0.0f;
 #pragma unroll
-                for (int off = 1; off < 4; off <<= 1) {
-                    const float od = __shfl_xor_sync(FULL, bd[h][0], off);
-                    const int oi = __shfl_xor_sync(FULL, bi[h][0], off);
-                    if (before(od, oi, bd[h][0], bi[h][0])) { bd[h][0] = od; bi[h][0] = oi; }
-                }
-                const int qi = q0 + wg * 64 + sm90::acc_row(t, h);
-                if ((lane & 3) == 0 && qi < B) {
-                    part_d[(size_t)qi * n_seg + seg] = bd[h][0];
-                    part_i[(size_t)qi * n_seg + seg] = bi[h][0];
-                }
-            }
-        } else if constexpr (K <= 16) {
-            // the ring is idle: every stage has landed and been consumed
-            float* ld_s = reinterpret_cast<float*>(smem);  // [QT][4][K]
-            int* li_s = reinterpret_cast<int*>(ld_s + QT * 4 * K);
-            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
+    for (int c = 0; c < 4; ++c) {  // 8 lanes: one 16-byte chunk of each plane's line
+        float x[8];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = ((wg * 64 + sm90::acc_row(t, h)) * 4 + (lane & 3)) * K;
+        for (int h = 0; h < 2; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(line + (((2 * c + h) ^ (p & 7)) << 4));
+            x[4 * h] = v.x;
+            x[4 * h + 1] = v.y;
+            x[4 * h + 2] = v.z;
+            x[4 * h + 3] = v.w;
+        }
+        if (c == 0) {
 #pragma unroll
-                for (int j = 0; j < K; ++j) { ld_s[o + j] = bd[h][j]; li_s[o + j] = bi[h][j]; }
-            }
-            sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
-            if (tid < QT) {
-                float md[K];
-                int mi[K];
+            for (int e = 0; e < 8; ++e)
+                if (e < lead) x[e] = 0.0f;
+        }
+        uint32_t hi[4], mid[4], lo[4];
 #pragma unroll
-                for (int j = 0; j < K; ++j) { md[j] = ld_s[tid * 4 * K + j]; mi[j] = li_s[tid * 4 * K + j]; }
-                for (int p = 1; p < 4; ++p)
-#pragma unroll
-                    for (int j = 0; j < K; ++j)
-                        insert<K>(md, mi, ld_s[(tid * 4 + p) * K + j], li_s[(tid * 4 + p) * K + j]);
-                const int qi = q0 + tid;
-                if (qi < B) {
-                    const size_t o = ((size_t)qi * n_seg + seg) * K;
-#pragma unroll
-                    for (int j = 0; j < K; ++j) { part_d[o + j] = md[j]; part_i[o + j] = mi[j]; }
-                }
+        for (int e = 0; e < 4; ++e) {
+            split2(x[2 * e], x[2 * e + 1], hi[e], mid[e], lo[e]);
+            s = fmaf(x[2 * e], x[2 * e], s);
+            s = fmaf(x[2 * e + 1], x[2 * e + 1], s);
+        }
+        unsigned char* dst = planes + p * LINE6 + ((c ^ ((p >> 1) & 3)) << 4);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(dst + R_BYTES) = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+        *reinterpret_cast<uint4*>(dst + 2 * R_BYTES) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    return s;
+}
+
+// grid (query tiles, segments from seg_base); 384 threads. qmap: planes
+// [3 Bp, end - base] (plane p's rows at p Bp), boxes [128 x 32] with the
+// 64-byte swizzle; gmap: fp32 rows [n_valid, end - base], boxes [128 x 32]
+// with the 128-byte swizzle; lead = start - base lanes of the first chunk
+// are outside the window (zero in the query planes, zeroed in the rows).
+template <int K>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                       const float* __restrict__ qsq_g, const float* __restrict__ floor_d,
+                       const int* __restrict__ floor_i, float* __restrict__ part_d, int* __restrict__ part_i,
+                       int B, int Bp, int n_valid, int n_seg, int n_chunks, int lead, int seg_base) {
+    using T = Split6Tile<K>;
+    constexpr int BN = T::BN;
+    constexpr int NST = T::NSTAGE, NBOX = T::NBOX;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = sm90::aligned_smem(smem_raw);
+    unsigned char* boxes = smem + T::RING_BYTES;                               // [NBOX][BN][32] fp32
+    float* gsq_s = reinterpret_cast<float*>(boxes + NBOX * T::BOX_BYTES);    // [NGSQ][BN]
+    float* d_s = gsq_s + T::NGSQ * BN;                                         // k > 16: [QT][DLD]
+    float* last_d_s = d_s + (K > 16 ? QT * T::DLD : 0);                        // k > 16: [QT]
+    int* last_i_s = reinterpret_cast<int*>(last_d_s + (K > 16 ? QT : 0));
+    uint64_t* full = reinterpret_cast<uint64_t*>(last_i_s + (K > 16 ? QT : 0));  // [NST]
+    uint64_t* empty = full + NST;                                                  // [NST]
+    uint64_t* landed = empty + NST;                                                // [NBOX]
+
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * QT;
+    const int seg = seg_base + blockIdx.y;
+    const int seg0 = seg * SEG_PRECISE;
+    const int seg1 = min(n_valid, seg0 + SEG_PRECISE);
+    const int n_sub = (seg1 - seg0 + BN - 1) / BN;
+    const int total = n_sub * n_chunks;  // chunks of the segment, sub-tile by sub-tile
+    if (tid == 0) {
+        for (int s = 0; s < NST; ++s) {
+            sm90::mbar_init(&full[s], 1 + sm90::WG_THREADS);  // the query planes' TMA + every splitting thread
+            sm90::mbar_init(&empty[s], 2);
+        }
+        for (int b = 0; b < NBOX; ++b) sm90::mbar_init(&landed[b], 1);
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = tid / sm90::WG_THREADS;
+    if (wg == 2) {
+        // producer: thread p == 0 issues the loads; thread p splits row p
+        sm90::setmaxnreg_dec<40>();
+        const int p = tid - 2 * sm90::WG_THREADS;
+        if (p == 0) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&gmap);
+            for (int i = 0; i < min(NBOX, total); ++i) {
+                const int sub = i / n_chunks;
+                sm90::mbar_arrive_expect_tx(&landed[i], T::BOX_BYTES);
+                sm90::tma_load_2d(boxes + i * T::BOX_BYTES, &gmap, &landed[i], (i - sub * n_chunks) * KC6,
+                                  seg0 + sub * BN);
             }
         }
+        float gpart = 0.0f;
+        int sub = 0, c = 0;
+        for (int i = 0; i < total; ++i) {
+            const int s = i % NST, b = i % NBOX;
+            unsigned char* st = smem + s * T::STAGE_BYTES;
+            sm90::mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);  // the consumers are done with the stage
+            if (p == 0) {
+                sm90::mbar_arrive_expect_tx(&full[s], 3 * T::Q_BYTES);
+#pragma unroll
+                for (int pl = 0; pl < 3; ++pl)
+                    sm90::tma_load_2d(st + pl * T::Q_BYTES, &qmap, &full[s], c * KC6, pl * Bp + q0);
+            }
+            sm90::mbar_wait(&landed[b], (i / NBOX) & 1);
+            gpart += split_row(boxes + b * T::BOX_BYTES, st + 3 * T::Q_BYTES, p, c == 0 ? lead : 0);
+            if (c == n_chunks - 1) {
+                gsq_s[(sub % T::NGSQ) * BN + p] = gpart;
+                gpart = 0.0f;
+            }
+            sm90::fence_proxy_async();  // the row planes are read by wgmma
+            sm90::mbar_arrive(&full[s]);
+            sm90::named_bar_sync(BAR_PRODUCERS, sm90::WG_THREADS);  // every row of box b has been read
+            if (p == 0 && i + NBOX < total) {
+                const int j = i + NBOX, sj = j / n_chunks;
+                sm90::mbar_arrive_expect_tx(&landed[b], T::BOX_BYTES);
+                sm90::tma_load_2d(boxes + b * T::BOX_BYTES, &gmap, &landed[b], (j - sj * n_chunks) * KC6,
+                                  seg0 + sj * BN);
+            }
+            if (++c == n_chunks) { c = 0; ++sub; }
+        }
+    } else {
+        sm90::setmaxnreg_inc<232>();
+        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const SplitOut o{part_d, part_i, floor_d, floor_i, d_s, last_d_s, last_i_s, B, q0, seg, n_seg};
+        SplitTopK<K> top(o, qsq_g, tid);
+
+        float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+        int s = 0;
+        uint32_t ph = 0;
+        for (int sub = 0; sub < n_sub; ++sub) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) sum[i] = 0.0f;
+            for (int c = 0; c < n_chunks; ++c) {
+                sm90::mbar_wait(&full[s], ph);
+                const unsigned char* qa = smem + s * T::STAGE_BYTES + wg * 64 * LINE6;
+                const unsigned char* gb = smem + s * T::STAGE_BYTES + 3 * T::Q_BYTES;
+                sm90::acc_fence(acc);
+                sm90::wgmma_fence();
+                // smallest first: ~2^-16 of hi.hi, then ~2^-8, then hi.hi
+                product6(acc, qa, gb, 0, 2, true);  // hi.lo, into a fresh accumulator
+                product6(acc, qa, gb, 2, 0, false);  // lo.hi
+                product6(acc, qa, gb, 1, 1, false);  // mid.mid
+                product6(acc, qa, gb, 0, 1, false);  // hi.mid
+                product6(acc, qa, gb, 1, 0, false);  // mid.hi
+                product6(acc, qa, gb, 0, 0, false);  // hi.hi
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
+                sm90::acc_fence(acc);
+                if (t == 0) sm90::mbar_arrive(&empty[s]);
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+                if (++s == NST) { s = 0; ph ^= 1; }
+            }
+            // the producer wrote |g|^2 of this sub-tile before its last full[] arrive
+            const int r0 = seg0 + sub * BN;
+            top.take(o, sum, gsq_s + (sub % T::NGSQ) * BN, r0, min(seg1 - r0, BN), tid);
+        }
+        top.emit(o, smem, tid);
     }
 }
 
@@ -1301,7 +1296,7 @@ struct Args {
     const uint8_t* row_mask;
     const float* floor_d;  // the slab floor (k > 16 only) or null
     const int* floor_i;
-    void* planes;  // precise over bf16 rows: [3][Bp][D] bf16 query planes
+    void* planes;  // precise: [3][Bp][D] bf16 query planes
     float* qsq;    // and [B] fp32 |q|^2
     void *part_d, *part_i, *out_d, *out_i;
     int B, N, n_valid, D, k, n_seg, start, end;
@@ -1352,41 +1347,6 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-template <int K, typename GT>
-int launch_precise(const Args& a, cudaStream_t stream) {
-    static_assert((size_t)PHASES * QB * K * 8 <= SMEM_P, "merge lists must fit the staging buffers");
-    cudaError_t err = cudaFuncSetAttribute(topk_pass1_precise<K, GT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_P);
-    if (err != cudaSuccess) return (int)err;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid1((a.B + QB - 1) / QB, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_precise<K, GT><<<grid1, THREADS, SMEM_P, stream>>>(
-            (const float*)a.q, (const GT*)a.g, (float*)a.part_d, (int*)a.part_i, a.B, a.N, a.n_valid, a.D,
-            a.n_seg, a.start, a.end, sb);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return launch_pass2<K>(a, stream);
-}
-
-// precise, k > 16: fp32 queries against GT rows.
-template <int K, typename GT>
-int launch_lists(const Args& a, cudaStream_t stream) {
-    constexpr size_t smem = SMEM_P + QB * 8;  // + the lists' last entries
-    cudaError_t err = cudaFuncSetAttribute(topk_pass1_lists<K, GT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid1((a.B + QB - 1) / QB, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_lists<K, GT><<<grid1, THREADS, smem, stream>>>(
-            (const float*)a.q, (const GT*)a.g, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, a.N,
-            a.n_valid, a.D, a.n_seg, a.start, a.end, sb);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    return launch_pass2<K>(a, stream);
-}
-
 // bf16, k > 16: topk_pass1_sm90_lists, then the list merge. The
 // first slab (and any k <= 256) runs the instance without the floor's
 // compare, whose epilogue is the kernel's hot loop.
@@ -1421,26 +1381,33 @@ int launch_bf16_lists(const Args& a, cudaStream_t stream) {
     return a.floor_d != nullptr ? launch_bf16_lists_as<K, true>(a, stream) : launch_bf16_lists_as<K, false>(a, stream);
 }
 
+// precise: splits the queries into the planes (a.planes, rows Bp a
+// plane) and |q|^2 (a.qsq).
+int launch_split_queries(const Args& a, int Bp, cudaStream_t stream) {
+    split_queries<<<(Bp + 7) / 8, 256, 0, stream>>>((const float*)a.q, (__nv_bfloat16*)a.planes, a.qsq, a.B, Bp,
+                                                    a.D, a.start, a.end);
+    return (int)cudaGetLastError();
+}
+
 // precise over bf16 rows: split the queries, then topk_pass1_split_sm90
 // and the merge of its lists.
 template <int K>
 int launch_split(const Args& a, cudaStream_t stream) {
     using T = SplitTile<K>;
     const int Bp = (a.B + QT - 1) / QT * QT;  // a query box never straddles two planes
-    split_queries<<<(Bp + 7) / 8, 256, 0, stream>>>((const float*)a.q, (__nv_bfloat16*)a.planes, a.qsq, a.B, Bp,
-                                                    a.D, a.start, a.end);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    int err = launch_split_queries(a, Bp, stream);
+    if (err != 0) return err;
     // both maps start at the 8-lane (16-byte) boundary below the window
     const int base = a.start & ~7;
     const long cols = a.end - base;
     CUtensorMap qmap, gmap;
-    int err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
+    err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
     if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid, (long)a.D * 2,
                                               T::BN);
     if (err != 0) return err;
     const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
-    e = cudaFuncSetAttribute(topk_pass1_split_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(topk_pass1_split_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
     for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
         const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
@@ -1453,18 +1420,49 @@ int launch_split(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-// PRECISE: fp32 queries against GT rows: bf16 rows on the split tensor-core
-// pass, fp32 rows on the CUDA cores; otherwise bf16 on the tensor cores (GT
-// unused). k > 16 on the list kernels.
-template <int K, bool PRECISE, typename GT>
+// precise over fp32 rows: split the queries, then topk_pass1_split6_sm90
+// and the merge of its lists.
+template <int K>
+int launch_split6(const Args& a, cudaStream_t stream) {
+    using T = Split6Tile<K>;
+    const int Bp = (a.B + QT - 1) / QT * QT;  // a query box never straddles two planes
+    int err = launch_split_queries(a, Bp, stream);
+    if (err != 0) return err;
+    // both maps start at the 8-lane boundary below the window (16 bytes of
+    // bf16, 32 of fp32)
+    const int base = a.start & ~7;
+    const long cols = a.end - base;
+    CUtensorMap qmap, gmap;
+    err = sm90::encode_bf16_sw64_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
+    if (err == 0) err = sm90::encode_f32_map(&gmap, (const float*)a.g + base, cols, a.n_valid, (long)a.D * 4, T::BN);
+    if (err != 0) return err;
+    const int n_chunks = (int)((cols + KC6 - 1) / KC6);
+    cudaError_t e = cudaFuncSetAttribute(topk_pass1_split6_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
+        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
+        topk_pass1_split6_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
+            qmap, gmap, a.qsq, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, Bp, a.n_valid, a.n_seg,
+            n_chunks, a.start - base, sb);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return launch_pass2<K>(a, stream);
+}
+
+// The pass-1 kernels of a launch: bf16 queries and rows; precise over bf16
+// rows (three products); precise over fp32 rows (six products).
+enum class Pass { BF16, SPLIT3, SPLIT6 };
+
+template <int K, Pass P>
 int launch(const Args& a, cudaStream_t stream) {
-    if constexpr (PRECISE && sizeof(GT) == 2) {
+    if constexpr (P == Pass::SPLIT3) {
         return launch_split<K>(a, stream);
+    } else if constexpr (P == Pass::SPLIT6) {
+        return launch_split6<K>(a, stream);
     } else if constexpr (K > 16) {
-        if constexpr (PRECISE) return launch_lists<K, GT>(a, stream);
-        else return launch_bf16_lists<K>(a, stream);
-    } else if constexpr (PRECISE) {
-        return launch_precise<K, GT>(a, stream);
+        return launch_bf16_lists<K>(a, stream);
     } else {
         return launch_bf16<K>(a, stream);
     }
@@ -1478,25 +1476,26 @@ int list_len(int k) {
 }
 int segment_rows(bool precise, int k) { return precise ? SEG_PRECISE : k > 16 ? SEG_LISTS : SEG_ROWS; }
 
-template <bool PRECISE, typename GT>
+template <Pass P>
 int dispatch(const Args& a, void* stream) {
+    constexpr bool PRECISE = P != Pass::BF16;
     const int seg = segment_rows(PRECISE, a.k);
     if (a.B <= 0 || a.N <= 0 || a.n_valid <= 0 || a.n_valid > a.N || a.n_valid > INT32_MAX - seg || a.D <= 0 ||
         a.D % 8 != 0 || a.k < 1 || a.k > MAX_K || a.n_seg != (a.n_valid + seg - 1) / seg || a.start < 0 ||
         a.start >= a.end || a.end > a.D || (a.floor_d != nullptr && (a.k <= 16 || a.floor_i == nullptr)) ||
-        (PRECISE && sizeof(GT) == 2 && (a.planes == nullptr || a.qsq == nullptr)))
+        (PRECISE && (a.planes == nullptr || a.qsq == nullptr)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (list_len(a.k)) {
-        case 1: return launch<1, PRECISE, GT>(a, s);
-        case 2: return launch<2, PRECISE, GT>(a, s);
-        case 4: return launch<4, PRECISE, GT>(a, s);
-        case 8: return launch<8, PRECISE, GT>(a, s);
-        case 16: return launch<16, PRECISE, GT>(a, s);
-        case 32: return launch<32, PRECISE, GT>(a, s);
-        case 64: return launch<64, PRECISE, GT>(a, s);
-        case 128: return launch<128, PRECISE, GT>(a, s);
-        default: return launch<256, PRECISE, GT>(a, s);
+        case 1: return launch<1, P>(a, s);
+        case 2: return launch<2, P>(a, s);
+        case 4: return launch<4, P>(a, s);
+        case 8: return launch<8, P>(a, s);
+        case 16: return launch<16, P>(a, s);
+        case 32: return launch<32, P>(a, s);
+        case 64: return launch<64, P>(a, s);
+        case 128: return launch<128, P>(a, s);
+        default: return launch<256, P>(a, s);
     }
 }
 
@@ -1518,7 +1517,7 @@ extern "C" int topk_l2_list_len(int k) { return list_len(k); }
 // slabs, each above the last one's floor).
 extern "C" int topk_l2_max_k() { return MAX_K; }
 
-// Dynamic shared memory of the split precise pass (bf16 rows) at this k.
+// Dynamic shared memory of the split precise pass over bf16 rows at this k.
 extern "C" int topk_l2_split_smem(int k) {
     switch (list_len(k)) {
         case 1: return (int)SplitTile<1>::SMEM;
@@ -1527,6 +1526,19 @@ extern "C" int topk_l2_split_smem(int k) {
         case 8: return (int)SplitTile<8>::SMEM;
         case 16: return (int)SplitTile<16>::SMEM;
         default: return (int)SplitTile<32>::SMEM;
+    }
+}
+
+// Dynamic shared memory of the six-product precise pass over fp32 rows at
+// this k.
+extern "C" int topk_l2_split6_smem(int k) {
+    switch (list_len(k)) {
+        case 1: return (int)Split6Tile<1>::SMEM;
+        case 2: return (int)Split6Tile<2>::SMEM;
+        case 4: return (int)Split6Tile<4>::SMEM;
+        case 8: return (int)Split6Tile<8>::SMEM;
+        case 16: return (int)Split6Tile<16>::SMEM;
+        default: return (int)Split6Tile<32>::SMEM;
     }
 }
 
@@ -1543,18 +1555,17 @@ extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask
                               int N, int n_valid, int D, int k, int n_seg, int start, int end, void* stream) {
     const Args a{q, g, (const uint8_t*)row_mask, (const float*)floor_d, (const int*)floor_i, nullptr, nullptr,
                  part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
-    return dispatch<false, float>(a, stream);
+    return dispatch<Pass::BF16>(a, stream);
 }
 
-// precise: q: [B, D] fp32, g: [N, D] fp32 (g_f32 = 1) or bf16 (0); for
-// bf16 rows planes: [3, round_up(B, topk_l2_query_rows()), D] bf16 and
-// qsq: [B] fp32 scratch (null for fp32 rows); the rest as for
-// topk_l2_launch, without a mask.
+// precise: q: [B, D] fp32, g: [N, D] fp32 (g_f32 = 1) or bf16 (0), planes:
+// [3, round_up(B, topk_l2_query_rows()), D] bf16 and qsq: [B] fp32
+// scratch; the rest as for topk_l2_launch, without a mask.
 extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, void* planes, void* qsq,
                                       const void* floor_d, const void* floor_i, void* part_d, void* part_i,
                                       void* out_d, void* out_i, int B, int N, int n_valid, int D, int k, int n_seg,
                                       int start, int end, void* stream) {
     const Args a{q, g, nullptr, (const float*)floor_d, (const int*)floor_i, planes, (float*)qsq,
                  part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
-    return g_f32 ? dispatch<true, float>(a, stream) : dispatch<true, __nv_bfloat16>(a, stream);
+    return g_f32 ? dispatch<Pass::SPLIT6>(a, stream) : dispatch<Pass::SPLIT3>(a, stream);
 }

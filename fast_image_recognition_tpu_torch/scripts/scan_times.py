@@ -19,7 +19,9 @@ clock control of a power-capped kernel may lag). Shapes:
 - ``topk_l2``: bf16 at 1024 x 1,000,000 x 1280, k = 1 (the exact step),
   and at 256 x 1,000,000 x 1280, k = 32 (lists past 16), each timed both
   before and after (``... after precise``) ``precise`` (the oracle) over
-  bf16 rows at 1024 x 1,000,000 x 1280; ``precise`` also at x 1536, k = 1.
+  bf16 rows at 1024 x 1,000,000 x 1280; ``precise`` also at x 1536, k = 1,
+  and over fp32 rows (``rows=fp32``: the gallery's unit rows before their
+  bf16 rounding, full 24-bit significands) at x 1280 and x 1536, k = 1.
 
 After timing a shape the script runs it back to back for about half a
 second while ``nvidia-smi`` samples the card every 20 ms, and keeps the
@@ -193,7 +195,8 @@ def _scan_times(torch, build, dk, rows, probes, timed, reps):
         del g, gsq, ga, qa
     n = 1_000_000
     for d in (1280, 1536):
-        g = rows(n, d).to(torch.bfloat16)
+        g32 = rows(n, d)
+        g = g32.to(torch.bfloat16)
         q = probes(g, 1024)
         q16 = q.to(torch.bfloat16)
         # the bf16 shapes both before and after the precise pass, which may leave the card at another clock
@@ -201,6 +204,8 @@ def _scan_times(torch, build, dk, rows, probes, timed, reps):
             if after is None:
                 timed(f"topk_l2 precise B=1024 N={n} D={d} k=1",
                       lambda: build.launch_topk_l2(q, g, 1, n, precise=True), reps=max(1, reps // 3))
+                timed(f"topk_l2 precise rows=fp32 B=1024 N={n} D={d} k=1",
+                      lambda: build.launch_topk_l2(q, g32, 1, n, precise=True), reps=max(1, reps // 3))
                 continue
             tag = " after precise" if after else ""
             timed(f"topk_l2 bf16 B=1024 N={n} D={d} k=1{tag}", lambda: build.launch_topk_l2(q16, g, 1, n))
@@ -214,7 +219,7 @@ def _scan_times(torch, build, dk, rows, probes, timed, reps):
                 timed(f"tilemin_quant {compute} B=1024 Np={gq.shape[0]} D={d} tile_g=1024",
                       lambda compute=compute: build.launch_tilemin_quant(qq, qs, gq, gsq, gsc, 1024, compute))
             del gq, gs, gsq, gsc
-        del g, q
+        del g, g32, q
 
 
 def _mbconv_times(torch, dev, gen, timed, here):
