@@ -1047,40 +1047,39 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
 // `planes`, R_BYTES apart ([BN x 32] bf16, 64-byte swizzle: chunk c of row
 // p at chunk c ^ ((p / 2) % 4)); the first `lead` lanes count as zero.
 // Returns the row's fp32 sum of squares over the chunk. A warp's rows hit
-// distinct bank groups in both layouts.
+// distinct bank groups in both layouts; the whole line is loaded first and
+// the squares go to four partial sums, so the chains overlap.
 __device__ __forceinline__ float split_row(const unsigned char* box, unsigned char* planes, int p, int lead) {
     constexpr int R_BYTES = 128 * LINE6;
     const unsigned char* line = box + p * sm90::LINE_BYTES;
-    float s = 0.0f;
+    float x[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(line + ((j ^ (p & 7)) << 4));
+        x[4 * j] = v.x;
+        x[4 * j + 1] = v.y;
+        x[4 * j + 2] = v.z;
+        x[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+        if (e < lead) x[e] = 0.0f;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {  // 8 lanes: one 16-byte chunk of each plane's line
-        float x[8];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const float4 v = *reinterpret_cast<const float4*>(line + (((2 * c + h) ^ (p & 7)) << 4));
-            x[4 * h] = v.x;
-            x[4 * h + 1] = v.y;
-            x[4 * h + 2] = v.z;
-            x[4 * h + 3] = v.w;
-        }
-        if (c == 0) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-                if (e < lead) x[e] = 0.0f;
-        }
         uint32_t hi[4], mid[4], lo[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            split2(x[2 * e], x[2 * e + 1], hi[e], mid[e], lo[e]);
-            s = fmaf(x[2 * e], x[2 * e], s);
-            s = fmaf(x[2 * e + 1], x[2 * e + 1], s);
+            split2(x[8 * c + 2 * e], x[8 * c + 2 * e + 1], hi[e], mid[e], lo[e]);
+            s[e] = fmaf(x[8 * c + 2 * e], x[8 * c + 2 * e], s[e]);
+            s[e] = fmaf(x[8 * c + 2 * e + 1], x[8 * c + 2 * e + 1], s[e]);
         }
         unsigned char* dst = planes + p * LINE6 + ((c ^ ((p >> 1) & 3)) << 4);
         *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
         *reinterpret_cast<uint4*>(dst + R_BYTES) = make_uint4(mid[0], mid[1], mid[2], mid[3]);
         *reinterpret_cast<uint4*>(dst + 2 * R_BYTES) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
-    return s;
+    return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
 // grid (query tiles, segments from seg_base); 384 threads. qmap: planes
@@ -1127,8 +1126,10 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
 
     const int wg = tid / sm90::WG_THREADS;
     if (wg == 2) {
-        // producer: thread p == 0 issues the loads; thread p splits row p
-        sm90::setmaxnreg_dec<40>();
+        // producer: thread p == 0 issues the loads; thread p splits row p.
+        // No setmaxnreg here: ptxas fits every warp of the kernel in the
+        // launch's 168 registers, so handing the producer's to the
+        // consumers gains them nothing, and at 40 the split spilled.
         const int p = tid - 2 * sm90::WG_THREADS;
         if (p == 0) {
             sm90::prefetch_map(&qmap);
@@ -1170,7 +1171,6 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
             if (++c == n_chunks) { c = 0; ++sub; }
         }
     } else {
-        sm90::setmaxnreg_inc<232>();
         const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
         const SplitOut o{part_d, part_i, floor_d, floor_i, d_s, last_d_s, last_i_s, B, q0, seg, n_seg};
         SplitTopK<K> top(o, qsq_g, tid);
