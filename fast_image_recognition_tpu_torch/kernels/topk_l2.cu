@@ -68,7 +68,10 @@
 //    values on the way: the rows are read from device memory once per
 //    query tile and nothing else is written there. Bound: 6 x 2.6 TFLOP at
 //    989 TFLOP/s, 15.90 ms at 1024 x 1M x 1280 (the rows' 5.12 GB take
-//    1.53 ms at 3.35 TB/s).
+//    1.53 ms at 3.35 TB/s). Past the tensor cores the split holds it
+//    back: one producer warp a sub-partition loads, splits and stores
+//    every row beside the consumers' operand reads (~1.75x the bound on an
+//    H100 SXM at 700 W; without the split it ran near the tensor rate).
 //
 // Pass 2 (both): one warp per query merges its n_seg segment lists into
 // the final top-k. K is a compile-time power of two >= k; for k <= 16 the
