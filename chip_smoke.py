@@ -4,83 +4,14 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
-sources in the checkout with ``nvcc``, checks in their SASS that the scans
-run on ``wgmma`` and that no scan is left on WMMA, holds every kernel
-against its plain PyTorch version at the shapes of the paths below and at
-odd ones (widths that are no multiple of 8, batches of 1 and 130, tiles of
-nothing but padding; for the scans on the Hopper main loop, ``topk_l2``
-bf16, the min-2 and single-min packed scans, and the bf16 and int8 tile
-scans, batches around their 128- and 256-query tiles, n_valid below and
-across their gallery sub-tiles, 64-lane and 128-byte chunks, tile_g 128
-to 1024, windows and row masks; ``topk_l2`` at k = 17, 64 and 256, bf16
-and precise (over bf16 rows the split precise pass, three bf16 ``wgmma``
-products; over fp32 rows the six-product pass, which splits the rows on
-the chip, held with a probe where the rows' mid and lo terms matter);
-``topk_l2`` at k = 257 and 600, past one launch, in slabs; the
-packed scans at augmented widths 768, 832 and 1,536, where their queries
-stream; galleries past the old caps of 65,535 blocks), checks that the
-host's mirrors of the kernels' sizes agree with the libraries, and
-drives, each with its own launch counts:
-
-- the main serving path at full width (bench.py's plain e2e line:
-  EfficientNet-B0 at 224 from the trained checkpoint, a 1M-row
-  class-structured gallery, PCA-124 certified packed scan, 48-row rescore,
-  exact escalation at slack 0.05 in one masked launch per call, batch
-  1024), once under ``torch.cuda.set_sync_debug_mode("error")``, with its
-  answers checked against ``match='exact'`` and the pick before escalation
-  against a plain rescore, and its exact step timed at 5 % escalation; the
-  same service at PCA-700 (augmented width 768) over a 131,072-row slice,
-  held against ``match='exact'`` on that slice, with its streamed min-2
-  scan held against the plain version on the service's own tensors and
-  its pick before escalation against a plain rescore; ``match='exact'``;
-  the fp32 oracle
-  (``topk_l2(precise=True)``, bench.py's ``_exact_fp32_nn``) that every
-  agreement below is taken against, and the same oracle over fp32-stored
-  rows (full 24-bit significands; the six-product pass), as
-  ``ShardedGalleryMatcher(precise=True)`` stores them;
-- the JAX package's default service (PCA-128, fp32-score tile scan) and
-  its ``pca_scan='bf16'``, ``pca_scan='int8'`` and ``match='int8'`` modes
-  on the same gallery;
-- the early-exit twin (bench.py's cascade line): the level-gallery cascade
-  with exit taps block3a/block4a/block5c, four row-aligned 1M-row
-  galleries, ratio 0.85, ``d2_rule='class'`` and capacities calibrated at
-  slack 1.3 on held-out probes, rerun with its scan bound to the plain
-  version to hold its decisions; ``escalate=None``; a planted 1M-row layout
-  where the certificate clears (also without a host sync);
-- bench.py's ``--config bf``: a 1M x 1536 bf16 gallery, the fused bf16
-  scan, a feature-window scan of it, and ``--quant``: the int8 scan with
-  exact rescore, ``compute`` int8 and bf16;
-- the opt-in fused MBConv forward (``make_infer_fn(fused=True,
-  space_to_depth=True)``): the fused block kernel (one launch a block)
-  against its plain version at each of B0's twelve stride-1 blocks, fed
-  the per-op forward's activations, timed beside the per-op block, and at
-  edge shapes (batches of 1 and 130, an odd plane,
-  relu6, no SE, no expand, k=7, an inflated expand bias); the
-  space-to-depth stem against the plain stem at fp32; and the plain
-  line's service on the fused module, its embedding held against the
-  per-op forward's and its labels against the per-op line's;
-- chi2 1-NN: the chi2 kernel against its plain version (exact division)
-  at ``scripts/chi2_cost.py``'s shape (1024 x 102,400 x 1536, fp32 and
-  bf16 rows) and at edge shapes (B = 1 and 130, D = 100, rows past
-  n_valid, equal rows); the port's ``chi2_cost`` with every kind, its
-  probe agreement with the fp64 oracle gated; and the exact brute-force
-  harness: a feature-file round trip, then ``evaluate_matcher`` on
-  ``BruteForceMatcher`` (L2, a 256-feature prefix, int8, chi2 and KL on
-  sum-normalized rows) over ``make_gallery_and_probes``' 102,400 rows, the
-  L2 rows held against an fp64 argmin and the chi2 rows against
-  ``chi2_nn``'s;
-- ``select='approx'`` on the plain line's service (one single-min packed
-  scan a call, rows equal to ``select='exact', escalate=None``);
-- bench.py's ``--config dem`` (``DirectedEnumerationMatcher``, gather
-  probes, budget 1 %, over 100k x 1536 rows, held against its NumPy
-  oracle, its exact probe mode and its device build, without a host
-  sync), the TWD classifiers over the same gallery (Proposed TWD held
-  against its oracle), ``--config video`` (the log-posterior fusion held
-  against fp64 NumPy) and ``--config cascade`` (``SequentialInferencePipeline``
-  over the trainable B0@224 from its own seeded init, folded engine, SVC
-  exits: the fused cascade without a host sync, its decisions at full
-  capacities and the pooled ones held against ``predict()`` up to near-ties,
-  the bind engine against the folded one, the kNN exits once).
+checkout with ``nvcc`` (in parallel), checks in their SASS that the scans
+run on ``wgmma`` and none on WMMA, holds every kernel against its plain
+PyTorch version at the paths' shapes and at edge shapes, checks the host's
+mirrors of the kernels' sizes against the libraries, and drives every path
+of the port at full width (bench.py's e2e, bf, dem, video and cascade
+configs, the services' modes, sharded serving, the matchers, classifiers
+and verification), each counting its own launches; README.md lists the
+phases and what each gates.
 
 One flushed line per phase, with the seconds since start. The line before
 the card's name and power limit holds the kernels' JSON; the last line is
@@ -117,35 +48,6 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # CUDA-core FMA, no tensor cores
 PEAK_HBM_BYTES = 3.35e12
-# the times of the first port's WMMA designs that the sm90 main loop
-# (kernels/sm90_scan.cuh) replaced, at the same shapes, as PERF.md's kernel
-# table records them (an NVIDIA H100 80GB HBM3 at 700 W). They are read,
-# not measured here: the smoke run prints them in its phase text beside its
-# own times, and never in a JSON line.
-PREVIOUS_DESIGN_NOTE = "replaced WMMA or FFMA design (read from PERF.md's kernel table, H100 80GB HBM3, 700 W)"
-PREVIOUS_DESIGN_MS = {
-    "B=1024 N=1000000 D=1280 k=1": 23.200,
-    "B=256 N=1000000 D=1280 k=16": 9.759,
-    "B=1024 N=1000000 D=1536 k=1": 27.557,
-    "B=1024 N=1000000 D=1536 k=1 window=[256, 1024]": 14.369,
-    "tilemin2_packed B=1024 Np=1000448 Da=128": 2.566,
-    "partial escalation, escalated probes in front": 5.167,
-    "tilemin_quant bf-quant-int8": 23.550,
-    "tilemin_packed block3a": 2.339,
-    "tilemin_packed final-pca": 2.337,
-    "tilemin_packed block3a-131072-rows": 0.371,
-    "tilemin_packed L0": 2.336,
-    "tilemin_packed L1": 1.189,
-    "tilemin_packed L2": 0.753,
-    "tilemin_packed L3": 0.463,
-    "tilemin pca128-f32-scores": 2.488,
-    "tilemin pca128-bf16-scores": 2.523,
-    "tilemin_quant bf-quant-bf16": 35.371,
-    "precise B=1024 N=1000000 D=1280 k=1": 73.372,  # the FFMA pass the split pass replaced
-    "precise B=1024 N=1000000 D=1536 k=1": 87.861,
-    "precise B=1024 N=1000000 D=1280 k=1 rows=fp32": 78.924,  # the FFMA pass the six-product pass replaced
-    "precise B=1024 N=1000000 D=1536 k=1 rows=fp32": 94.924,
-}
 
 
 def phase(msg: str) -> None:
@@ -220,10 +122,8 @@ def kernel_names(mangled: list) -> dict:
 
 
 def sass_mma_counts(libs: dict) -> dict:
-    """Per library and kernel of the built libraries, its tensor-core
-    instructions in the SASS (``cuobjdump -sass``, one process a library,
-    all started together): HGMMA and IGMMA are ``wgmma`` (float and
-    integer), HMMA and IMMA the ``mma.sync`` that WMMA compiles to."""
+    """Per library and kernel, its HGMMA/IGMMA (``wgmma``) and HMMA/IMMA
+    (WMMA) instructions in ``cuobjdump -sass``, one process a library."""
     from fast_image_recognition_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -266,12 +166,10 @@ def _unit(x):
 
 
 def class_structured_gallery(n: int, class_embs, sigma: float, seed: int = 1):
-    """``n`` rows (padded to 1024) clustered around ``K`` enrolled identity
-    embeddings, ~n/K contiguous rows each: normalize(e_c + sigma/sqrt(D) *
-    noise), sigma the measured intra-class spread. Port of bench.py's
-    ``_class_structured_gallery_device``; rows are drawn on the card from a
-    ``torch.Generator``. Returns (bf16 [n_pad, D] on the card, labels
-    [n_pad] int, pad rows -1)."""
+    """``n`` rows (padded to 1024), ~n/K contiguous rows around each of ``K``
+    identity embeddings: normalize(e_c + sigma/sqrt(D) noise), drawn on
+    the card (bench.py's ``_class_structured_gallery_device``). Returns
+    (bf16 [n_pad, D], labels [n_pad], pad rows -1)."""
     import numpy as np
     import torch
 
@@ -295,12 +193,10 @@ def class_structured_gallery(n: int, class_embs, sigma: float, seed: int = 1):
 
 
 def planted_gallery(n: int, b: int, dim: int, dev, seed: int = 2):
-    """A layout where the certificate clears: ``b`` unit probes and ``n``
-    rows (padded to 1024) in one random 96-dimensional span, which PCA-124
-    keeps whole. Each probe has one planted row (noise 0.02) and 40
-    distractors (noise 0.5) at random places; the other rows are random
-    unit vectors of the span. Returns (probes [b, dim] fp32, gallery bf16
-    [n_pad, dim], planted rows [b] int64), all on the card."""
+    """A layout where the certificate clears: ``b`` probes and ``n`` rows in
+    one 96-d span (PCA-124 keeps it), a planted row (noise 0.02) and 40
+    distractors (noise 0.5) per probe. Returns (probes, bf16 rows, planted
+    rows), on the card."""
     import torch
 
     rank, distract = 96, 40
@@ -329,10 +225,8 @@ def planted_gallery(n: int, b: int, dim: int, dev, seed: int = 2):
 
 
 def check_certified_pick(svc, emb, idx_exact):
-    """The PCA path's pick before escalation, held against a plain fp32
-    rescore of the same candidates: it must sit at their least distance
-    (within 2^-12 relative + 1e-5, the fp32 rounding of 1280-term sums).
-    Returns its row agreement with the exact answer, %."""
+    """The pick before escalation at the least plain fp32 rescore of its
+    candidates (2^-12 relative + 1e-5). Returns its agreement with exact, %."""
     import torch
 
     cand, idx_fast, _ = svc._certified(emb)
@@ -405,14 +299,12 @@ def check_cert_scan(svc, emb, report):
         lambda: (qa @ ga.T).view(b, n_tiles, 1024).min(dim=2), reps=3
     )
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4)
-    prev = PREVIOUS_DESIGN_MS.get(f"tilemin2_packed B={b} Np={np_} Da={da}")
     phase(
         f"packed scan B={b} Np={np_} Da={da}: keys equal {100 * key_eq:.3f}%, "
         f"max |d| gap {err:.3e} ({rel:.2e} rel), candidate sets equal "
         f"{100 * same_set.float().mean().item():.3f}%, bound gap {bound_rel:.2e} rel; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+min yardstick "
         f"{yard_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
-        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
         raise AssertionError("packed scan kernel disagrees with its plain version")
@@ -424,15 +316,11 @@ def check_cert_scan(svc, emb, report):
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
                row_mask=None):
-    """topk_l2 kernel (bf16, windowed or precise) vs its plain version on
-    the path's gallery. The kernel's rows are rescored here: each must sit
-    at the distance the kernel reports, and may differ from the plain pick
-    only where the two tie within the sum-order tolerance: 2^-12 relative
-    + 1e-6 for bf16 products; 2^-16 absolute for the fp32 oracle (sums of
-    1536 products of unit vectors in another order: ~sqrt(D) 2^-24 typical,
-    D 2^-24 at worst). Query rows outside ``row_mask`` must come back
-    empty, (BIG_DIST, -1), from both. Timed beside its bound, plain
-    version and yardstick only with a ``report``."""
+    """topk_l2 kernel (bf16, windowed or precise) vs its plain version: the
+    kernel's rows, rescored here, sit at its distances and differ from the
+    plain picks only at ties within 2^-12 relative + 1e-6 (bf16) or 2^-16
+    absolute (fp32 oracle); rows outside ``row_mask`` come back empty.
+    Timed beside its bound, plain version and yardstick with a ``report``."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -501,13 +389,11 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
     if gallery.dtype == torch.float32:
         shape += " rows=fp32"  # the six-product pass (topk_pass1_split6_sm90)
-    prev = PREVIOUS_DESIGN_MS.get(("precise " if precise else "") + shape)
     phase(
         f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}: indices equal {100 * idx_eq:.3f}%, "
         f"max |d| gap {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"matmul+{'min' if window else 'topk'} yardstick {yard_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms ({b_by})" + (f", FFMA bound {ffma_ms:.3f} ms" if precise else "")
-        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
         raise AssertionError(f"topk_l2 kernel ({variant}, k={k}) disagrees with its plain version")
@@ -518,19 +404,13 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
 
 
 def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None, verbose=True):
-    """bf16 tile scan (``quant=None``) or int8 tile scan (``quant=(qs, gsc,
-    compute)``) kernel vs its plain version on the path's tensors. Scores
-    lie within [-3, 3] here (|g|^2 <= 1 and unit queries): the fp32 sum
-    order of the dot moves them by < 2^-16, a bf16 score, rounded three
-    times by at most half a bf16 ulp below magnitude 4, by < 2^-6, and the
-    int8 scan with bf16 products summed in fp32
-    past 2^24 by < 2^-12 of its cross term. The kernel's minima must agree
-    with the plain ones within that; its rows, rescored here from the same
-    operands, must sit at its minima within that, and may differ from the
-    plain rows only at such ties. A minimum at a row past n_valid (its
-    |g|^2 is BIG_DIST) is not rescored from the row's data. ``report=None``
-    checks without timing (and without a phase line if not ``verbose``).
-    Returns (kernel minima, kernel rows, plain minima)."""
+    """bf16 (``quant=None``) or int8 (``quant=(qs, gsc, compute)``) tile scan
+    kernel vs its plain version: minima within 2^-16 (fp32 scores), 2^-6
+    (bf16 scores) or 2^-12 of the cross term (int8 data, bf16 products);
+    its rows, rescored here, at its minima and different from the plain
+    rows only at such ties (a row past n_valid is not rescored).
+    ``report=None`` checks untimed. Returns (kernel minima, kernel rows,
+    plain minima)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -608,13 +488,11 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         yard = gb = qb = None
         peak = PEAK_INT8_OPS if quant[2] == "int8" else PEAK_BF16_FLOPS
         b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8, peak)
-    prev = PREVIOUS_DESIGN_MS.get(f"{'tilemin' if quant is None else 'tilemin_quant'} {name}")
     phase(
         f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows equal {100 * idx_eq:.3f}%, minima "
         f"equal {100 * val_eq:.3f}%, max |min| gap {err:.3e} (tolerance {atol:.3e}), rescored rows "
         f"{'ok' if rows_ok else 'WRONG'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+min yardstick "
         f"{'not measured' if yard_ms is None else f'{yard_ms:.3f} ms'}, bound {b_ms:.3f} ms ({b_by})"
-        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if not ok:
         raise AssertionError(f"tile scan kernel disagrees with its plain version ({name})")
@@ -631,14 +509,10 @@ EDGE_SHAPES = [(5000, 4321, 124, 130), (9000, 9000, 40, 64), (3000, 2900, 120, 1
 
 
 def check_edge_shapes(dev):
-    """The tile scans and the top-k variants against their plain versions
-    at :data:`EDGE_SHAPES`, untimed: galleries padded with ``pad_cols`` as
-    the services pad them, tile_g 128 to 1024, so that some tiles hold
-    nothing but rows past n_valid (real rows up to the gallery's size,
-    zeros after). There each minimum must equal the plain one bit for
-    bit: BIG_DIST with fp32 scores, inf with bf16 scores, at the tile's
-    first row. Returns the number of such whole-pad (query, tile) pairs
-    checked."""
+    """The tile scans and the top-k variants vs their plain versions at
+    :data:`EDGE_SHAPES`, untimed, tile_g 128-1024: whole-pad tiles' minima
+    bit-equal to the plain ones (BIG_DIST, or inf with bf16 scores).
+    Returns the number of such (query, tile) pairs."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import plain
@@ -684,14 +558,10 @@ def check_edge_shapes(dev):
     return pad_pairs
 
 
-# the four scans on the sm90 main loop at the edges of their tiles: query
-# tiles of 128 (B), gallery sub-tiles of 256 (k = 1) and 128 rows (k > 1)
-# with n_valid below one and not a multiple of one, the rows past n_valid
-# holding copies of the queries (they would win if they leaked in),
-# 64-lane chunks (D = 8, 40, 1280; Da = 48, 128), 128-byte int8 chunks
-# (D = 16, 144, 1536), windows on and off the 8-lane boundary, tile_g 128
-# (two tiles a sub-tile; an odd tile count leaves a last half past the
-# gallery) to 1024, and whole-pad tiles after n_valid
+# the sm90 main loop's scans at the edges of their tiles: 128-query tiles,
+# 256/128-row sub-tiles with n_valid inside one (rows past it hold copies
+# of the queries), 64-lane and 128-byte chunks, windows on and off the
+# 8-lane boundary, tile_g 128-1024, whole-pad tiles
 SCAN_EDGE_B = (1, 127, 128, 129, 257)
 TOPK_EDGES = [(600, 100, 8), (5000, 4321, 40), (3000, 2900, 1280)]  # (rows, n_valid, D)
 TOPK_EDGE_K = (1, 2, 3, 16)
@@ -715,12 +585,9 @@ QUANT_BF16_EDGE_B = (1, 64, 130, 257)
 
 
 def check_min2(qa, ga, n_valid):
-    """Min-2 packed scan kernel vs its plain version, untimed: decoded
-    distances within 2^-12 relative + 1e-6 (key quantization and fp32 sum
-    order), the rows the keys carry rescored here in fp32 at their keys'
-    distances and equal to the plain rows but at near-ties, and whole-pad
-    tiles (every row >= n_valid) never holding a winner: tiles with a
-    valid row return one, whole-pad tiles only pad distances (~1e38)."""
+    """Min-2 packed scan kernel vs plain, untimed: distances within 2^-12
+    relative + 1e-6, rows rescored at their keys' distances and equal to
+    the plain rows but at near-ties, whole-pad tiles never winning."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -748,12 +615,9 @@ def check_min2(qa, ga, n_valid):
 
 
 def check_single(qa, ga, n_valid, tile_g):
-    """Single-min packed scan kernel vs its plain version, untimed: keys
-    equal, or at a near-tie (fp32 sum order) decoded distances within
-    2^-12 relative + 1e-6 with the rows the keys carry rescored here in
-    fp32 at their keys' distances and at the plain rows' within that;
-    tiles with a valid row return one, whole-pad tiles only pad distances
-    (~1e38)."""
+    """Single-min packed scan kernel vs plain, untimed: keys equal, or at a
+    near-tie within 2^-12 relative + 1e-6 with rows rescored at their
+    keys' distances; whole-pad tiles only pad distances."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -800,14 +664,9 @@ def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
 
 
 def check_sm90_edges(dev):
-    """The topk_l2 bf16 kernel, the min-2 and single-min packed scans and
-    the int8 tile scan against their plain versions at
-    :data:`SCAN_EDGE_B`, :data:`TOPK_EDGES` (every k of
-    :data:`TOPK_EDGE_K`, windows (1, D-1), (5, D-3) and, where D allows,
-    the chunk-aligned (64, 192); :data:`ROW_MASKS` at B = 257),
-    :data:`MIN2_EDGES`, :data:`SINGLE_EDGES` (B in :data:`SINGLE_EDGE_B`,
-    tile_g 128-1024) and :data:`QUANT_EDGES` (tile_g 128 and 1024),
-    untimed. Returns the number of cases of each kernel."""
+    """The four ``sm90_scan.cuh`` kernels vs their plain versions at the
+    ``*_EDGES`` shapes and batches, windows and row masks, untimed.
+    Returns the number of cases of each kernel."""
     import torch
 
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
@@ -946,13 +805,11 @@ def check_sm90_edges(dev):
 
 
 def check_topk_slabs(dev):
-    """``topk_l2`` at k of :data:`TOPK_SLAB_K`, past the 256 columns one
-    launch takes, through ``ops.distance_kernel.topk_l2``'s slab loop (each
-    slab a launch of the list kernels above the previous slab's last
-    entry) against the plain version in one pass, untimed: 300 queries over
-    100,000 rows (99,000 valid, the rest copies of the queries that would
-    win), D = 128; bf16, ``precise`` over bf16 and fp32 rows, a window and
-    a row mask. Returns the number of cases."""
+    """``topk_l2`` at k of :data:`TOPK_SLAB_K` (slabs of list-kernel launches
+    above the previous slab's last entry) vs the plain version in one
+    pass, untimed: 300 x 100,000 rows (99,000 valid), D = 128; bf16,
+    precise over bf16 and fp32 rows, a window, a row mask. Returns the
+    number of cases."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -983,21 +840,11 @@ SPLIT_PROBE_TOL = 2.0**-18
 
 
 def check_split_precise(dev):
-    """What the split precise pass computes (``topk_l2(precise=True)``
-    over bf16 rows), beyond the 2^-16 gate, which cannot tell the three-term
-    product from a two-term one (~1e-7 apart on random data): (1) the query
-    planes and |q|^2 its launch fills, read back, equal
-    ``plain.split_bf16x3`` of the window's lanes bit for bit (zeros outside
-    the window and past B), |q|^2 within 2^-20 of the fp64 sum; control:
-    the same check with the lo plane zeroed must fail. (2) a probe where
-    the lo term matters: each query is its gallery row times 1 + 2^-9 +
-    2^-18, so that every lane's lo term has the row's sign and sum(lo g) ~
-    2^-19 |g|^2; the kernel's k = 1 distance (its own row) must lie within
-    :data:`SPLIT_PROBE_TOL` of the fp64 distance, while the hi + mid
-    product (what a pass that dropped lo computes) must miss it by more
-    than 1.5x that. B = 130 and 257 (not multiples of the 128-query
-    tile), D = 1280, without and with the window (5, D-3). Returns the
-    cases' worst (kernel error, two-term error)."""
+    """The split precise pass over bf16 rows beyond the 2^-16 gate: its
+    query planes equal ``plain.split_bf16x3`` (a lo-zeroed control must
+    differ); on queries = rows x (1 + 2^-9 + 2^-18) its distance lies within
+    :data:`SPLIT_PROBE_TOL` of fp64, the hi + mid product's not within
+    1.5x that. Returns the worst (kernel error, two-term error)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -1044,21 +891,11 @@ def check_split_precise(dev):
 
 
 def check_split6_precise(dev):
-    """What the six-product pass computes (``topk_l2(precise=True)`` over
-    fp32 rows), beyond the 2^-16 gate: its row planes are split on the chip
-    and never leave it, so a probe where the rows' mid and lo terms matter.
-    Rows are a unit bf16 row h times 1 + 2^-9 + 2^-18 in fp32 (every
-    lane's mid and lo terms carry the row's sign), queries half a row
-    (their terms exactly half of the row's): the dropped products hi.lo,
-    lo.hi and mid.mid then add up to ~1.1e-5 of the distance. The kernel's
-    k = 1 distance (its own row) must lie within :data:`SPLIT_PROBE_TOL`
-    of the fp64 distance, while the three products of the bf16-row pass
-    (hi.hi, hi.mid, mid.hi of the split queries and rows, fp64) must miss
-    it by more than 1.5x that; the query planes the launch fills, read
-    back, equal ``plain.split_bf16x3`` bit for bit. B = 130 and 257 (not
-    multiples of the 128-query tile), D = 1280, without and with the window
-    (5, D-3). Returns the cases' worst (kernel error, three-product
-    error)."""
+    """The six-product pass over fp32 rows beyond the 2^-16 gate: on rows =
+    a bf16 row x (1 + 2^-9 + 2^-18), queries half a row, its distance lies
+    within :data:`SPLIT_PROBE_TOL` of fp64, the bf16-row pass's three
+    products' not within 1.5x that; query planes equal ``split_bf16x3``.
+    Returns the worst (kernel error, three-product error)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -1102,10 +939,9 @@ def check_split6_precise(dev):
 
 
 def full_significand_rows(g, seed: int):
-    """fp32 unit rows near the bf16 rows ``g``: normalize(g + 2^-8 noise),
-    drawn on the card a chunk at a time. Their values carry full 24-bit
-    significands, so the six-product pass's mid and lo row terms are not
-    zero (on ``g`` cast to fp32 they would be)."""
+    """fp32 unit rows normalize(g + 2^-8 noise) near the bf16 rows ``g``,
+    full 24-bit significands (the six-product pass's mid and lo row terms
+    are not zero)."""
     import torch
 
     gen = torch.Generator(device=g.device)
@@ -1118,13 +954,10 @@ def full_significand_rows(g, seed: int):
 
 
 def check_big_grids(dev):
-    """Galleries past the old 65,535-block grid caps, each kernel against
-    its plain version, untimed: the bf16 tile scan at tile_g 128 over more
-    than 65,535 tiles (8.4M rows, D = 16), the int8 scan (both computes)
-    over more than 65,535 segments of 2,048 rows (134M rows, D = 16) and
-    ``topk_l2`` over more than 65,535 segments of 8,192 rows (537M rows, D
-    = 8): bf16 at k = 1, ``precise`` at k = 1 over bf16 and over fp32 rows,
-    and bf16 at k = 17. Returns a description of each."""
+    """Galleries past the 65,535-block caps vs the plain versions, untimed:
+    the bf16 tile scan (8.4M rows, tile_g 128), the int8 scan (134M rows),
+    ``topk_l2`` (537M rows; bf16 k = 1 and 17, precise over bf16 and fp32
+    rows). Returns a description of each."""
     import torch
 
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
@@ -1176,18 +1009,11 @@ def check_big_grids(dev):
 
 
 def check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report):
-    """``RecognitionService(pca_scan='packed', pca_dim=700)`` over a
-    131,072-row slice of the main gallery: Da = 768, so both packed scans
-    stream their queries. The min-2 scan (``tilemin_packed_stream_sm90``)
-    is held against its plain version on the service's own augmented
-    gallery and projected probes (:func:`check_cert_scan`, timed into
-    ``report``), and the pick made before escalation against a plain
-    rescore of its candidates (:func:`check_certified_pick`): on this
-    class-structured gallery the certificate rarely clears, so the final
-    picks mostly come from ``topk_l2``. Those (identify_device, counted
-    alone) must equal ``match='exact'``'s on the same slice, but where the
-    two rows' distances (fp32, from the bf16 rows and bf16 queries both
-    paths rescore) tie within 2^-12 relative + 1e-6."""
+    """The PCA-700 packed service (Da = 768: both packed scans stream their
+    queries) over 131,072 rows of the main gallery: its min-2 scan vs the
+    plain version (:func:`check_cert_scan`), its pick before escalation
+    (:func:`check_certified_pick`), its answers equal to ``match='exact'``
+    on the slice but at ties within 2^-12 relative + 1e-6."""
     import numpy as np
     import torch
 
@@ -1227,11 +1053,9 @@ def check_packed_service(info, gallery, labels, emb, images, serve, dev, launche
 
 
 def check_single_scan(name, qa, ga, tile_g, report):
-    """Single-min packed scan kernel vs its plain version on the cascade's
-    tensors: equal keys, decoded distances within 2^-12 relative, and the
-    rows the keys carry rescored here in fp32: each must sit at its key's
-    distance, and the kernel's row may differ from the plain one's only at
-    a near-tie."""
+    """Single-min packed scan kernel vs plain on a path's tensors: keys equal
+    or decoded within 2^-12 relative, rows rescored at their keys'
+    distances, differing from the plain rows only at near-ties."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -1259,13 +1083,11 @@ def check_single_scan(name, qa, ga, tile_g, report):
     plain_ms = cuda_ms(lambda: plain.tilemin_packed_plain(qa, ga, tile_g), reps=2)
     yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4)
-    prev = PREVIOUS_DESIGN_MS.get(f"tilemin_packed {name}")
     phase(
         f"single-min scan {name} B={b} Np={np_} Da={da} tile_g={tile_g}: keys equal "
         f"{100 * key_eq:.3f}%, rows equal {100 * row_eq:.3f}%, max |d| gap {err:.3e} "
         f"({rel:.2e} rel), rescored rows {'ok' if rows_ok else 'WRONG'}; kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, matmul+min yardstick {yard_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
-        + (f"; {PREVIOUS_DESIGN_NOTE}: {prev} ms" if prev is not None else "")
     )
     if rel > 2.0**-12 or not rows_ok:
         raise AssertionError(f"single-min scan kernel disagrees with its plain version ({name})")
@@ -1276,15 +1098,10 @@ def check_single_scan(name, qa, ga, tile_g, report):
 
 
 def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
-    """The exact scan of the escalated probes when about ``share`` of the
-    batch escalates (the certificate's working case; the class-structured
-    layout escalates every probe, the planted one none), three ways on
-    the same embeddings and mask: the service's ``_escalate`` (escalated
-    probes moved to the front, one masked launch), the same mask with
-    the probes left in place (every query tile of the kernel with an
-    escalated probe scans), and the gather of the escalated rows behind a
-    host sync (``nonzero``), as the previous serving code did. All three must give
-    the same rows. Returns the timings (host clock between syncs)."""
+    """The exact scan at ~``share`` escalation, three ways on one mask: the
+    escalated probes moved to the front (the service), left in place, and
+    gathered behind a host sync; the same rows from all three. Returns
+    the timings (host clock between syncs)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build
@@ -1324,23 +1141,19 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
     qt = build.topk_l2_query_rows()
     front_blocks = -(-n_esc // qt)
     in_place_blocks = int(torch.nn.functional.pad(esc, (0, -esc.shape[0] % qt)).view(-1, qt).any(dim=1).sum())
-    prev = PREVIOUS_DESIGN_MS["partial escalation, escalated probes in front"]
     row = dict(escalated=n_esc, batch=emb.shape[0], query_tile=qt, scanned_blocks_front=front_blocks,
                scanned_blocks_in_place=in_place_blocks, **{f"{k}_ms": v for k, v in ms.items()})
     phase(
         f"partial escalation ({n_esc} of {emb.shape[0]} probes): exact step {ms['front']} ms with the escalated "
         f"probes in front ({front_blocks} query tiles of {qt} scan), {ms['in_place']} ms in place ({in_place_blocks} "
-        f"tiles), {ms['gather_sync']} ms by gather behind a host sync; same rows all three; "
-        f"{PREVIOUS_DESIGN_NOTE}: {prev} ms in front"
+        f"tiles), {ms['gather_sync']} ms by gather behind a host sync; same rows all three"
     )
     return row
 
 
 def random_unit_gallery(n: int, dim: int, dev, seed: int = 1):
-    """bench.py's ``_planted_gallery_device`` with nothing to plant (its bf
-    config): every row, padding included (n rounded up to 1024), is
-    normalize(N(0, I)) in bf16, drawn on the card from a ``torch.Generator``
-    a chunk at a time (no fp32 copy of the gallery)."""
+    """``n`` (rounded up to 1024) bf16 rows normalize(N(0, I)), drawn on the
+    card a chunk at a time (bench.py's bf gallery)."""
     import torch
 
     n_pad = -(-n // 1024) * 1024
@@ -1451,11 +1264,9 @@ def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
 
 
 def run_mbconv_pair(x, q, cfg, plan=None):
-    """The fused block's kernel and plain version on the same input:
-    (kernel out, plain out, relative max |difference| over max |plain|,
-    share of bit-equal outputs, the two launchers). The kernel runs the
-    ``plan`` (th, tw, group, bufs, ipb) given, else the one
-    ``ops.mbconv_kernel.plane_plan`` picks."""
+    """The fused block's kernel and plain version on one input: (kernel out,
+    plain out, max |difference| / max |plain|, bit-equal share, the two
+    launchers), with ``plan`` or ``plane_plan``'s pick."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -1479,13 +1290,9 @@ def run_mbconv_pair(x, q, cfg, plan=None):
 
 
 def check_mbconv_blocks(net, net_f, images, report):
-    """The fused MBConv kernel against its plain version at each stride-1
-    block of the folded forward, fed the activation the per-op forward
-    produces at that block's input, with the fused module's folded
-    weights; timed beside its bound and the per-op block (cuDNN and
-    elementwise ops; not one library call, so no ``library_ms``). The
-    kernel's shared memory for each block's plan must equal the host's
-    mirror (``ops.mbconv_kernel.plane_smem``)."""
+    """The fused MBConv kernel vs its plain version at each stride-1 block on
+    the per-op forward's activations, timed beside its bound and the
+    per-op block; its shared memory equal to ``plane_smem``'s."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build
@@ -1538,14 +1345,10 @@ def check_mbconv_blocks(net, net_f, images, report):
 
 
 def check_mbconv_edges(net_f, dev):
-    """The fused MBConv kernel against its plain version off the main
-    path's shapes, untimed: batches of 1 and 130, an odd plane (15),
-    relu6, no SE, no expand, k=7 (random weights), an expand bias inflated
-    50x, where any act(b_exp) leaking into the SAME border taps would
-    dominate the edge rows and columns, and plans that B0's blocks never
-    pick but other planes do (``FORCED_MB_PLANS``: output channels split
-    over the grid, single-buffered input boxes and weights), each also
-    held against the host's shared-memory mirror. Returns the cases."""
+    """The fused MBConv kernel vs its plain version off the path's shapes,
+    untimed: B 1 and 130, a 15 plane, relu6, no SE, no expand, k=7, an
+    inflated expand bias (border taps) and :data:`FORCED_MB_PLANS`, each
+    against the shared-memory mirror. Returns the cases."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build
@@ -1617,12 +1420,9 @@ def check_mbconv_edges(net_f, dev):
 
 
 def device_trace(fn):
-    """One call of ``fn`` (after a warm-up) under ``torch.profiler``
-    (CUPTI): the device's busy time (kernels and copies on the one
-    stream, which do not overlap), the window from the first device
-    activity's start to the last one's end, the idle share of that window,
-    and device time summed by kernel name. None where the trace holds no
-    device activity."""
+    """One call of ``fn`` (after a warm-up) under ``torch.profiler``: device
+    busy time, the window from first to last activity, its idle share,
+    time by kernel name; None without device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1672,18 +1472,11 @@ def check_s2d_stem(np_vars, net, net_f, images, dev):
 
 
 def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev):
-    """bench.py's plain line (PCA-124 packed, rescore 48, escalate 0.05)
-    on the fused module: ``RecognitionService(serving_fn=net_f)``, timed
-    over TIMED_CALLS calls ending in a sync, one call under sync debug
-    "error", launches counted; its embedding against the per-op module's
-    (JAX's 0.05), its rows and labels against the per-op line's ``idx``
-    and the fp32 oracle. A label that differs from the per-op line's must
-    come from a near-tie that the embedding difference swapped: each
-    line's pick is the nearer of the two picks to that line's own
-    embedding, within 2^-7 of the distance (the scans round query and rows
-    to bf16). Last, one call of
-    each line (``svc_u`` is the per-op plain line) under the profiler:
-    device idle share and the fused kernel's device time."""
+    """The plain line on the fused module: timed, one call under sync debug
+    "error", launches counted; its embedding vs the per-op one (JAX's
+    0.05), labels vs the per-op line's but at swapped near-ties (each
+    line's pick the nearer to its own embedding within 2^-7); one traced
+    call of each line (idle share, the fused kernel's device time)."""
     import numpy as np
     import torch
 
@@ -1805,11 +1598,9 @@ def chi2_bound(b, n, d, g_bytes):
 
 
 def check_chi2(q, g, n_valid, tag, timed=False):
-    """chi2 kernel vs its plain version (exact division) on the same
-    tensors. Its minima must lie within CHI2_TOL relative of the plain
-    ones; its rows may differ from the plain rows only at near-ties: each
-    row, rescored exactly here, must lie within CHI2_TOL of the plain
-    minimum. Returns (report dict, kernel min, kernel rows)."""
+    """chi2 kernel vs its plain version: minima within CHI2_TOL relative, rows
+    rescored exactly within CHI2_TOL of the plain minimum. Returns (report
+    dict, kernel min, kernel rows)."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import build, plain
@@ -1845,11 +1636,8 @@ def check_chi2(q, g, n_valid, tag, timed=False):
 
 
 def check_chi2_edges(dev):
-    """The chi2 kernel at edge shapes, untimed: B = 1 and 130, D = 100 (no
-    multiple of 32), N = 1000 with zero rows past n_valid = 900 (their
-    score sum(q) undercuts every real row for the down-scaled queries, so
-    the mask must hold), n_valid = 896 (a whole 64-row kernel tile and a
-    ragged one past it), a bf16 gallery, and equal rows (lowest row)."""
+    """The chi2 kernel at edge shapes, untimed: B 1 and 130, D = 100, zero
+    rows past n_valid 900, n_valid 896, bf16 rows, equal rows."""
     import torch
 
     from fast_image_recognition_tpu_torch.kernels import plain
@@ -1984,7 +1772,8 @@ def run_chi2_slice(dev, launches, smi):
     for name, g_np, p_np, kw in cases:
         m = Recording(BruteForceMatcher(g_np, device=dev, **kw))
         build.reset_launch_counts()
-        res = evaluate_matcher(m, glab, p_np, plab, verbose=False)  # a warm-up batch, then one of 1024
+        # a warm-up batch, then one of 1024; the eager chi2/KL scans compile nothing: no warm-up
+        res = evaluate_matcher(m, glab, p_np, plab, verbose=False, warmup=name not in ("chi2", "kl"))
         check_launches(f"matcher {name}", launches, **({"tilemin_quant": 2} if name == "int8" else {}))
         idx = m.last.indices
         row = dict(matcher=name, summary=res.summary(), ms_per_image=res.ms_per_image, error_pct=res.error_rate)
@@ -2010,6 +1799,8 @@ def run_chi2_slice(dev, launches, smi):
         phase(f"brute-force {name}: {res.summary()} ({smi}){agree}; launches {launches[f'matcher {name}']}")
         del m
     del d64, qt, gt
+    # 17'. the classifiers and verification over the brute-force line's rows
+    cls_rows = run_classifiers(gal, glab, probes, plab, dev, smi)
 
     s_by = {k: by_kind[k]["sec_per_batch"] * 1e3 for k in by_kind}
     kernel_row = dict(
@@ -2021,7 +1812,7 @@ def run_chi2_slice(dev, launches, smi):
         yardstick_streamed_topk_chi2_ms=s_by["chi2"], yardstick_streamed_topk_l2_ms=s_by["l2"],
         shapes=shapes, edges=edges,
     )
-    return kernel_row, {"chi2_cost": cost, "brute_force": bf_rows}
+    return kernel_row, {"chi2_cost": cost, "brute_force": bf_rows, "classifiers": cls_rows}
 
 
 # bench.py --config dem / video / cascade at their defaults, and the TWD
@@ -2036,7 +1827,7 @@ CASCADE_TIE = 2.0**-8  # a score margin (top-2, or to the threshold) this close 
 BIND_BATCH = 64
 KNN_IDS, KNN_PER = 100, 4
 TWD_PROBES, TWD_ORACLE_PROBES = 1024, 16
-FEATURE_REPS, TWD_REPS = 50, 10  # device-timed calls of the ms-scale dem/video lines and of each TWD classifier
+FEATURE_REPS, TWD_REPS = 50, 4  # device-timed calls of the ms-scale dem/video lines and of each TWD classifier
 FULL_DEM_BUDGET, FULL_DEM_PROBES = 60, 32  # FullMatrixDEM on the video gallery at JAX's test budget
 SVC_CHECK_STEPS = 20  # svc_descent steps run on the card and the CPU from the same weights
 VIDEO_IO_VIDEOS = 10  # videos written and read back through the text format
@@ -2077,10 +1868,8 @@ def cascade_margins(pipe, x):
 
 
 def check_cascade_decisions(what, got, want, margins):
-    """``got`` equals ``want`` (predictions and exit levels) except at most
-    1 % of the images, each at a near-tie: at a level either run reached,
-    its best score within CASCADE_TIE of the threshold, or at a level
-    either run exited, its two best scores within CASCADE_TIE."""
+    """``got`` equals ``want`` but on <= 1 % of images, each at a near-tie
+    (a best score within CASCADE_TIE of the threshold or of the runner-up)."""
     import numpy as np
 
     gaps, dists = margins
@@ -2096,12 +1885,8 @@ def check_cascade_decisions(what, got, want, margins):
 
 
 def check_feature_entry_points(dev, smi, g, gl, p, pl):
-    """The feature-level entry points no bench.py line times, on the card at
-    the video line's data (100 classes, 2,000 x 1536 gallery and probe
-    rows): the SVC descent against its CPU run, the exit cascades of
-    cascade/exits.py, FullMatrixDEM against its oracle, the video text
-    format and evaluate_video_recognition through a DEM matcher. Returns
-    the line's JSON."""
+    """The feature-level entry points no bench line times, at the video
+    line's data. Returns the line's JSON."""
     import importlib.util
     import tempfile
 
@@ -2362,7 +2147,10 @@ def run_feature_configs(dev, launches, smi):
           f"{launches['twd']}")
     if twd_equal != TWD_ORACLE_PROBES:
         raise AssertionError("Proposed TWD disagrees with proposed_twd_oracle")
-    del classifiers, g, gl, p, pl, tq
+    del classifiers, tq
+    # 19'. the small-world, projection and kd-forest matchers over the same gallery
+    lines["ann"] = run_ann_matchers(g, gl, p, pl, dev, launches, smi)
+    del g, gl, p, pl
 
     # 20. bench.py --config video: 100 classes x 20 gallery frames, 20 probe
     # frames per class, one video each, log-posterior fusion
@@ -2491,6 +2279,208 @@ def run_feature_configs(dev, launches, smi):
     return lines
 
 
+# the sharded slice: sharded serving and matcher, the small-world,
+# projection and kd-forest matchers, the classifiers and verification
+SHARDS = 4  # gallery shards, all on the one card
+ANN_PROBES, ANN_TIE = 128, 2.0**-12
+CLS_CPU_PROBES = 64  # probes the classifiers' CPU runs take
+VERIF_DIM, VERIF_CLASSES = 256, 64  # verification_test's window (ImageTesting.cpp:715); classes in its [N, N]
+
+
+def rows_tie_ok(q, gallery, got, want, rel=2.0**-12, abs_=0.0, precise=False):
+    """Rows ``got`` equal ``want`` or tie with it within ``rel`` + ``abs_``
+    (fp64, the query as the scan sees it)."""
+    import torch
+
+    got, want = torch.as_tensor(got, device=q.device).long(), torch.as_tensor(want, device=q.device).long()
+    qf = (q if precise else q.to(torch.bfloat16)).to(torch.float64)
+    d_got, d_want = (((gallery[r].to(torch.float64) - qf) ** 2).sum(1) for r in (got, want))
+    return bool(((got == want) | ((d_got - d_want).abs() <= rel * d_want + abs_)).all())
+
+
+def run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, dev, launches, smi):
+    """``match='sharded'``, both scans, over ``SHARDS`` shards and one; the
+    packed scan at a shard's shape. Returns (rows, the scan's report)."""
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
+    from fast_image_recognition_tpu_torch.parallel import gallery_mesh
+    from fast_image_recognition_tpu_torch.serving import RecognitionService
+
+    rows, scan_report, exact_rows = [], {}, None
+    for scan, s in (("exact", SHARDS), ("exact", 1), ("packed", SHARDS), ("packed", 1)):
+        t = time.time()
+        svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve, match="sharded",
+                                 sharded_scan=scan, pca_dim=124, mesh=gallery_mesh(devices=[dev] * s), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        if scan == "packed" and s > 1:  # the single-min scan at a shard's shape, tile_g 512
+            with torch.no_grad():
+                qa = dk._augment_queries((emb - svc._mu) @ svc._w, svc.pca_dim, svc._gal_aug[0].shape[1])
+            check_single_scan("shard", qa, svc._gal_aug[0], 512, scan_report)
+        build.reset_launch_counts()
+        out = svc.identify_device(images).cpu().numpy()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out_sync = svc.identify_device(images)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ms = host_ms(lambda: svc.identify_device(images), TIMED_CALLS)
+        path = f"sharded {scan} x{s}"
+        check_launches(path, launches, **{"topk_l2" if scan == "exact" else "tilemin_packed": s * (TIMED_CALLS + 2)})
+        if not np.array_equal(out, out_sync.cpu().numpy()) or not ((out >= 0) & (out < GALLERY)).all():
+            raise AssertionError(f"{path}: rows outside the gallery or changed under sync debug mode")
+        if scan == "exact" and not rows_tie_ok(emb, gallery, out, idx_exact):
+            raise AssertionError(f"{path} differs from match='exact' beyond near-ties")
+        exact_rows = out if exact_rows is None else exact_rows
+        row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, build_s=build_s, shard_rows=int(svc.gallery[0].shape[0]),
+                   error_pct=100.0 * float(np.mean(labels[out] != np.arange(BATCH))),
+                   exact_rows_equal_pct=100.0 * float(np.mean(out == idx_exact)),
+                   sharded_exact_rows_equal_pct=100.0 * float(np.mean(out == exact_rows)))
+        rows.append(row)
+        phase(f"{path} (shards of {row['shard_rows']} rows, built in {build_s:.1f} s): {row['img_s']:.1f} img/s "
+              f"({ms:.2f} ms a batch of {BATCH}, {smi}), error {row['error_pct']:.3f}%, rows equal to match='exact' "
+              f"{row['exact_rows_equal_pct']:.3f}% (sharded exact {row['sharded_exact_rows_equal_pct']:.3f}%); no host "
+              f"sync in identify_device; launches {launches[path]}")
+        del svc
+    return rows, scan_report
+
+
+def run_sharded_matcher(gal_bf, q_bf, idx_bf, idx_oracle_bf, launches, smi):
+    """``ShardedGalleryMatcher``, bf16 and precise, vs the unsharded scans."""
+    import numpy as np
+
+    from fast_image_recognition_tpu_torch.kernels import build
+    from fast_image_recognition_tpu_torch.parallel import ShardedGalleryMatcher, gallery_mesh
+
+    rows = []
+    for precise, want, kernel in ((False, idx_bf, "topk_l2"), (True, idx_oracle_bf, "topk_l2_precise_f32")):
+        m = ShardedGalleryMatcher(gal_bf[:GALLERY], gallery_mesh(devices=[q_bf.device] * SHARDS), precise=precise)
+        build.reset_launch_counts()
+        idx = m.search_device(q_bf)[1][:, 0]
+        ms = cuda_ms(lambda: m.search_device(q_bf), 3)
+        path = "sharded matcher" + (" precise" if precise else "")
+        check_launches(path, launches, **{kernel: SHARDS * 5})
+        ok = rows_tie_ok(q_bf, gal_bf, idx, want, rel=0.0 if precise else 2.0**-12, abs_=2.0**-16 * precise,
+                         precise=precise)
+        idx = idx.cpu().numpy()
+        row = dict(line=path, queries_s=BATCH / ms * 1e3, ms=ms, shard_gib=sum(g.nbytes for g in m.gallery) / 2**30,
+                   rows_equal_pct=100.0 * float(np.mean(idx == np.asarray(want))),
+                   error_pct=100.0 * float(np.mean(idx != np.arange(BATCH))))
+        rows.append(row)
+        phase(f"{path} ({SHARDS} shards, {row['shard_gib']:.2f} GiB, {BATCH} x {GALLERY} x {q_bf.shape[1]}): "
+              f"{row['queries_s']:.1f} queries/s ({ms:.3f} ms, CUDA events, {smi}), rows equal to the unsharded scan "
+              f"{row['rows_equal_pct']:.3f}%, error {row['error_pct']:.3f}%; launches {launches[path]}")
+        if not ok:
+            raise AssertionError(f"{path} differs from the unsharded scan beyond near-ties")
+        del m
+    return rows
+
+
+def run_ann_matchers(g, gl, p, pl, dev, launches, smi):
+    """sw, proj and the kd-forest at budget 1 % vs CPU runs of their
+    searches; sw's graph vs a build on the plain ``topk_l2``."""
+    import numpy as np
+    import torch
+
+    from fast_image_recognition_tpu_torch.config import MatcherConfig
+    from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
+    from fast_image_recognition_tpu_torch.factory import build_matcher
+    from fast_image_recognition_tpu_torch.kernels import build, plain
+    from fast_image_recognition_tpu_torch.search import small_world as sw
+
+    cfg = MatcherConfig(image_count_to_check=int(DEM_BUDGET * g.shape[0]))
+    q, rows = p[:ANN_PROBES], []
+    for method in ("sw", "proj", "kdtree"):
+        t = time.time()
+        build.reset_launch_counts()
+        m = Recording(build_matcher(method, g, gl, cfg, seed=0, device=dev))
+        m.set_budget(cfg.image_count_to_check)  # the factory leaves the kd-forest unbudgeted, as JAX's
+        torch.cuda.synchronize()
+        build_s, n_build = time.time() - t, build.LAUNCHES["topk_l2"]
+        res = evaluate_matcher(m, gl, q, pl[:ANN_PROBES], verbose=False)
+        cpu_m, extra = m.matcher, ""  # the kd-forest is host code: its run is the CPU run
+        if method == "sw":
+            if n_build != -(-g.shape[0] // 1024):
+                raise AssertionError(f"the neighbour table took {n_build} topk_l2 launches")
+            real = sw.topk_l2
+            sw.topk_l2 = lambda qq, gg, k, n_valid: plain.topk_l2_plain(qq.to(torch.bfloat16), gg, k, n_valid)
+            try:
+                table = sw.build_neighbor_table(m.matcher.gallery, k_nn=11, k_rand=4, seed=0).long()
+            finally:
+                sw.topk_l2 = real
+            got = m.matcher.neighbors.long()
+            r, c = (got != table).nonzero(as_tuple=True)
+            g64 = m.matcher.gallery.to(torch.bfloat16).to(torch.float64)
+            d_got, d_want = (((g64[x[r, c]] - g64[r]) ** 2).sum(1) for x in (got, table))
+            if not bool(((d_got - d_want).abs() <= ANN_TIE * d_want + 1e-6).all()):
+                raise AssertionError("the neighbour table differs from the plain build beyond near-ties")
+            cpu_m = object.__new__(type(m.matcher))  # the same graph and walk, on the CPU
+            cpu_m.__dict__.update({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                   for k, v in m.matcher.__dict__.items()}, device=torch.device("cpu"))
+            extra = (f"; neighbour table from {n_build} topk_l2 launches (k=12), entries equal to the plain build "
+                     f"{100.0 * (1 - len(r) / got.numel()):.4f}% (the rest near-ties)")
+        elif method == "proj":
+            cpu_m = build_matcher(method, g, gl, cfg, seed=0, device="cpu")
+        equal = 100.0 * float(np.mean(m.last.indices == cpu_m.search(q).indices))
+        rows.append(dict(line=method, name=m.name, error_pct=res.error_rate, ms_per_probe=res.ms_per_image,
+                         checked_pct=res.checked_percent, build_s=build_s, cpu_rows_equal_pct=equal))
+        phase(f"build_matcher('{method}') ({g.shape[0]} x {g.shape[1]}, budget {cfg.image_count_to_check}, built in "
+              f"{build_s:.1f} s): {res.summary()} ({smi}); rows equal to its CPU run {equal:.2f}%{extra}")
+        if equal < 97.0:
+            raise AssertionError(f"{method}: card rows equal the CPU run's on {equal:.2f}% < 97% of probes")
+        del m, cpu_m
+    return rows
+
+
+def run_classifiers(gal, glab, probes, plab, dev, smi):
+    """k-NN, PNN, FPNN and ``verification_test`` vs CPU runs."""
+    import copy
+
+    import numpy as np
+
+    from fast_image_recognition_tpu_torch.classifiers import FPNNClassifier, KNNClassifier, PNNClassifier
+    from fast_image_recognition_tpu_torch.evaluation.verification import verification_test
+
+    c, sel = int(glab.max()) + 1, glab < VERIF_CLASSES
+
+    def fitted(d):  # brute force and sequential on one fit
+        out = []
+        for clf in (KNNClassifier(1, c, device=d), KNNClassifier(3, c, device=d), PNNClassifier(c, device=d),
+                    FPNNClassifier(c, device=d)):
+            out.append(clf.fit(gal, glab))
+            if hasattr(clf, "bruteforce"):
+                seq = copy.copy(clf)
+                seq.bruteforce, seq.name = False, clf.name + " (seq)"
+                out.append(seq)
+        return out
+
+    rows = []
+    for clf, cpu in zip(fitted(dev), fitted("cpu")):
+        pred = clf.predict(probes)
+        ms = host_ms(lambda: clf.predict(probes), 2)
+        equal = pred[:CLS_CPU_PROBES] == cpu.predict(probes[:CLS_CPU_PROBES])
+        rows.append(dict(line=clf.name, error_pct=100.0 * float(np.mean(pred != plab)), ms_per_probe=ms / len(probes),
+                         cpu_equal_pct=100.0 * float(equal.mean())))
+        phase(f"{clf.name} ({gal.shape[0]} x {gal.shape[1]}, {c} classes, {len(probes)} probes): error "
+              f"{rows[-1]['error_pct']:.3f}%, {rows[-1]['ms_per_probe']:.5f} ms/probe (host clock, 2 calls, {smi}); "
+              f"predictions equal to the CPU run's on {int(equal.sum())} of {CLS_CPU_PROBES}")
+        if not equal.all():
+            raise AssertionError(f"{clf.name}: card predictions differ from the CPU run's")
+    t = time.time()
+    r = verification_test(gal[sel], glab[sel], tests=10, end=VERIF_DIM, verbose=False, device=dev)
+    sec = time.time() - t
+    rc = verification_test(gal[sel], glab[sel], tests=10, end=VERIF_DIM, verbose=False, device="cpu")
+    rows.append(dict(line=r.name, rows=int(sel.sum()), error_pct=r.error_rate, sigma=r.extras["sigma"], seconds=sec,
+                     cpu_error_pct=rc.error_rate))
+    phase(f"{r.name} over {int(sel.sum())} rows of {VERIF_CLASSES} classes (10 splits): error {r.error_rate:.4f}%, "
+          f"sigma {r.extras['sigma']:.4f}, {sec:.1f} s ({smi}); the CPU run {rc.error_rate:.4f}%")
+    if abs(r.error_rate - rc.error_rate) > 100.0 / int(sel.sum()):
+        raise AssertionError("verification_test on the card differs from its CPU run beyond one probe")
+    return rows
+
 def main() -> int:
     import torch
 
@@ -2582,18 +2572,10 @@ def main() -> int:
     phase(f"edge shapes {EDGE_SHAPES}: every kernel agrees with its plain version; {pad_pairs} (query, "
           f"whole-pad tile) minima bit-equal to the plain ones (BIG_DIST with fp32 scores, inf with bf16)")
     n_cases = check_sm90_edges(dev)
-    phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases}: topk_l2 (bf16; B {list(SCAN_EDGE_B)}, "
-          f"(rows, n_valid, D) {TOPK_EDGES}, k {list(TOPK_EDGE_K)}, windows (1, D-1), (5, D-3), (64, 192), row "
-          f"masks {list(ROW_MASKS)}; precise over the same bf16 rows, the split pass, without and with the "
-          f"window (1, D-1), and over the same rows in fp32, the six-product pass), topk_l2 at k "
-          f"{list(TOPK_LARGE_K)} (bf16, precise over bf16 and fp32 rows, windows, a row mask; "
-          f"{TOPK_LARGE_K_EDGES}, B {list(TOPK_LARGE_K_B)}), the min-2 packed scan ((rows, n_valid, d, Da) "
-          f"{MIN2_EDGES}), the single-min packed scan ({SINGLE_EDGES}, B {list(SINGLE_EDGE_B)}, tile_g 128-1024; "
-          f"keys equal but near-ties), the int8 tile scan ((rows, n_valid, D) {QUANT_EDGES}, tile_g 128 and 1024; "
-          f"minima and rows equal), the bf16 tile scan ({TILE_EDGES}, B {list(TILE_EDGE_B)}, tile_g 128-1024, "
-          f"both score modes) and the int8 scan with bf16 compute ({QUANT_BF16_EDGES}, B {list(QUANT_BF16_EDGE_B)}, "
-          f"tile_g 128 and 1024) agree with their plain versions; no row past n_valid returned, no whole-pad tile "
-          f"won, whole-pad tile minima bit-equal to the plain ones")
+    phase(f"sm90 scan edges: {sum(n_cases.values())} cases {n_cases} at the *_EDGES shapes (topk_l2 bf16, split "
+          f"and six-product precise passes, k {list(TOPK_LARGE_K)}, both packed scans, the int8 and bf16 tile "
+          f"scans) agree with their plain versions; no row past n_valid returned, no whole-pad tile won, "
+          f"whole-pad tile minima bit-equal to the plain ones")
     n_slab = check_topk_slabs(dev)
     phase(f"topk_l2 in slabs: {n_slab} cases at k {list(TOPK_SLAB_K)} (bf16, precise over bf16 and fp32 rows, a "
           f"window, a row mask; 300 x 100,000 x 128) agree with the plain version in one pass")
@@ -2746,6 +2728,9 @@ def main() -> int:
         raise AssertionError(f"top-1 agreement with match='exact' is {agree_pct:.3f}% < 99%")
     esc_rows = check_partial_escalation(svc, emb, gallery, dev)
     check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report)
+    # 6'. match='sharded', both scans, over four shards on the card and one
+    sharded_rows, shard_scan = run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, dev,
+                                                   launches, smi)
 
     # 6a. the fused MBConv path (make_infer_fn(fused=True, space_to_depth=True)):
     # its kernel at each stride-1 block and at edge shapes, the
@@ -2891,12 +2876,9 @@ def main() -> int:
         f"({plain_ips:.1f} img/s); no host sync in identify_device; launches {launches['cascade']}"
     )
     per_level = cascade_breakdown(casc, images, caps, scan_report)
-    prev = [PREVIOUS_DESIGN_MS.get(f"tilemin_packed L{r['level']}") for r in per_level]
     phase("cascade breakdown per level: " + "; ".join(
         f"L{r['level']} B={r['batch']}: segment {r['segment_ms']:.2f} ms, match {r['match_ms']:.2f} ms, "
-        f"scan kernel {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']}; before {p} ms)"
-        for r, p in zip(per_level, prev)
-    ) + f"; 'before' is the {PREVIOUS_DESIGN_NOTE}")
+        f"scan kernel {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']})" for r in per_level))
 
     # 10. the same call with the single-min scan bound to its plain version
     # here (the package has no such switch): decisions must agree except
@@ -3064,6 +3046,9 @@ def main() -> int:
                            lambda: dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY, window=BF_WINDOW),
                            "bf_windowed", topk_l2_windowed=1))
 
+    # 13'. ShardedGalleryMatcher over the same rows, bf16 and precise
+    sharded_matcher_rows = run_sharded_matcher(gal_bf, q_bf, bf_found["bf"], idx_oracle_bf, launches, smi)
+
     # 14. bench.py --config bf --quant: quantize once, then the int8 scan
     # with an exact rescore of the best row of each of the 16 nearest tiles
     t = time.time()
@@ -3113,7 +3098,7 @@ def main() -> int:
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:350",
              launches=launches["cascade"]["tilemin_packed"], launches_by_path=by_path("tilemin_packed"),
              **{k: scan_report["shapes"][0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=None, shapes=scan_report["shapes"], per_level=scan_report["per_level"]),
+             library_ms=None, shapes=scan_report["shapes"] + shard_scan["shapes"], per_level=scan_report["per_level"]),
         dict(name="tilemin", route="cuda", source=src + "tile_scan.cu",
              replaces="fast_image_recognition_tpu/ops/distance_kernel.py:174",
              launches=launches["service default"]["tilemin"], launches_by_path=by_path("tilemin"),
@@ -3152,6 +3137,7 @@ def main() -> int:
     ]
     print(json.dumps({"lines": {"service_modes": mode_rows, "approx_select": apx_row, "bf": bf_rows,
                                 "partial_escalation": esc_rows, "fused_path": fused_row, "s2d_stem": s2d_row,
+                                "sharded_service": sharded_rows, "sharded_matcher": sharded_matcher_rows,
                                 **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

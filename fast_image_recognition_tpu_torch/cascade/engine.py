@@ -1,36 +1,23 @@
 """Sequential (early-exit) inference over backbone segments (counterpart
-of ``fast_image_recognition_tpu/cascade/engine.py``).
+of ``fast_image_recognition_tpu/cascade/engine.py``; reference:
+tf_keras/sequential_inference.py:1278-1396: LinearSVC weights as dense
+layers after L2 normalization at each exit tap, each image stopping at the
+first exit whose max score clears its threshold).
 
-Reference: the "proposed pipeline" of tf_keras/sequential_inference.py
-:1278-1396: LinearSVC weights baked into dense layers after L2
-normalization at each exit tap (:1350-1366), and the backbone run segment
-by segment, each image stopping at the first exit whose max score clears
-its threshold (:1368-1394).
-
-Three ways to run a batch, as in the JAX package:
-
-- ``predict``: the host decides who exits after each segment (one fetch of
-  [n] predictions and confidences per level) and the survivors are
-  gathered on the device into the next bucket (32/128/512 rows);
-- ``predict_fused``: the whole cascade with no host sync until its one
-  fetch. Each level runs at a fixed capacity (from the calibrated survivor
-  fractions); survivors are compacted on the device, least confident first
-  (a stable ``argsort``, as ``jnp.argsort``), and the overflow, the most
-  confident survivors, force-exits at the current level
-  (``forced_fraction``); bookkeeping is written with ``index_copy_``;
-- ``predict_pooled``: level-major over a pool, every level in full
-  ``bucket``-row slices with the survivors compacted across the pool:
+- ``predict``: the host decides who exits after each segment (one fetch
+  per level); survivors are gathered into the next bucket (32/128/512);
+- ``predict_fused``: no host sync until one fetch; each level at a fixed
+  capacity (calibrated survivor fractions), survivors compacted on the
+  device least confident first (stable ``argsort``), the overflow
+  force-exiting (``forced_fraction``);
+- ``predict_pooled``: level-major over a pool in ``bucket``-row slices,
   ``predict``'s decisions, one fetch per level.
 
-Segment engines: ``engine='bind'`` runs the trainable module
-(``models/efficientnet.py::EfficientNet``, bf16) with the given variables;
-``engine='folded'`` runs the BN-folded per-op segments of
-``models/inference.py::FoldedEfficientNet`` with the raw stem (no
-preprocess: the segment inputs are the bind path's). Exit heads:
-``head_mode='linear'`` (the baked SVC) or ``'knn'`` (1-NN cosine against a
-per-level gallery, confidence ``ratio * d_other_min - d_min``, the
-sequential kNN rule of :483-508). Everything runs on ``device``, the card
-unless given.
+``engine='bind'`` runs the trainable ``EfficientNet`` (bf16) with the given
+variables, ``'folded'`` the BN-folded per-op segments of
+``FoldedEfficientNet`` with the raw stem. ``head_mode='linear'`` (the SVC)
+or ``'knn'`` (1-NN cosine per level, confidence ``ratio * d_other_min -
+d_min``, :483-508). Everything runs on ``device``, the card unless given.
 """
 
 from __future__ import annotations

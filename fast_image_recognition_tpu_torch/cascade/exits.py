@@ -1,25 +1,13 @@
 """Multi-exit cascade policies over per-level embeddings (counterpart of
-``fast_image_recognition_tpu/cascade/exits.py``).
-
-Reference: tf_keras/sequential_inference.py:
-- sequential kNN exits (:483-508): at level l, 1-NN with cosine distance
-  ``2 - 2 x.q``; exit when every gallery row within ``d_min / 0.8`` shares
-  the best label;
-- LinearSVC exits, the paper's method (:587-686): one linear classifier a
-  level, exit when the max decision value clears a threshold (fixed 0.06
-  or tuned on a held-out half to FAR <= 1 %);
-- BranchyNet entropy exits (:1079-1146) and the max-softmax variant
-  (:1148-1165);
-- kNN exits with a final SVC (:725-773).
-
-Each policy evaluates the whole batch per level in one device pass and
-freezes each probe at the first level whose exit fires; ``break_counts``
-is the per-level exit distribution the reference prints (:503, :661).
-
-``train_linear_svc`` fits with scikit-learn's ``LinearSVC`` where it is
-installed; otherwise it runs the squared-hinge gradient descent of the JAX
-package's fallback on ``device`` (``svc_descent``, one step at a time in
-``svc_step``), from weights drawn by a ``torch.Generator``.
+``fast_image_recognition_tpu/cascade/exits.py``; tf_keras/sequential_inference.py):
+kNN exits (:483-508: 1-NN cosine, exit when every row within ``d_min /
+0.8`` shares the label), LinearSVC exits (:587-686: fixed 0.06 or tuned to
+FAR <= 1 %), BranchyNet entropy and max-softmax exits (:1079-1165), kNN
+with a final SVC (:725-773). Each level runs the whole batch in one device
+pass; a probe freezes at its first firing exit; ``break_counts`` is the
+reference's per-level printout. ``train_linear_svc`` takes scikit-learn's
+``LinearSVC`` where installed, else the JAX fallback's squared-hinge
+descent on ``device`` (``svc_descent``) from ``torch.Generator`` weights.
 """
 
 from __future__ import annotations

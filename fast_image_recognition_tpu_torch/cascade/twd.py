@@ -1,24 +1,19 @@
 """Three-way-decision (TWD) sequential classifiers (counterpart of
-``fast_image_recognition_tpu/cascade/twd.py``; reference:
-qt_cpp/ImageTesting.cpp:74-288).
+``fast_image_recognition_tpu/cascade/twd.py``; qt_cpp/ImageTesting.cpp:74-288).
 
-- ``ConventionalTWD`` (ImageTesting.cpp:74-186): stage 1 takes distances
-  over the first ``reduced_features`` dims; a reliability test (posterior
-  ratio, distance difference or distance ratio) decides whether to refine
-  by extending the distances to ``refine_to`` dims, reusing the stage-1
-  sums (165-180). Only the unreliable probes, gathered after one host
-  fetch of the decisions, pay the refinement.
-- ``ProposedTWD`` (ImageTesting.cpp:188-288, the paper's method): grow the
-  feature prefix chunk by chunk, accumulate per-row distances, drop the
-  rows whose running distance exceeds ``best / theta`` each round, and
-  stop when one class remains. The JAX package's ``lax.scan`` over the
-  static chunks is a Python loop over the same chunks here, every probe in
-  one batch, with active and done masks.
+- ``ConventionalTWD`` (:74-186): distances over the first
+  ``reduced_features`` dims; a reliability test (posterior ratio, distance
+  difference or ratio) decides whether to extend them to ``refine_to``
+  dims, reusing the stage-1 sums (165-180). Only the unreliable probes,
+  gathered after one host fetch, pay the refinement.
+- ``ProposedTWD`` (:188-288, the paper's method): grow the prefix chunk by
+  chunk, drop rows whose running distance exceeds ``best / theta``, stop
+  at one class; JAX's ``lax.scan`` over the chunks is a Python loop here,
+  every probe in one batch with active and done masks.
 
-Kept from the JAX package, which documents it: the reference's
-``secondBestDist`` only updates when a new best appears during its scan
-(ImageTesting.cpp:123-127), so it depends on the gallery's order; here the
-second best is the true nearest row of any other class than the best's.
+As in the JAX package, the second best is the nearest row of any other
+class (the reference's ``secondBestDist`` depends on gallery order,
+:123-127).
 """
 
 from __future__ import annotations

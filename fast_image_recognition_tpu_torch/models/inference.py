@@ -1,29 +1,18 @@
-"""Folded EfficientNet serving forward in PyTorch (counterpart of
-``fast_image_recognition_tpu/models/inference.py``: ``_fold_conv_bn``,
-``fold_backbone``, ``fold_preprocess_into_stem``,
-``fold_stem_space_to_depth``, ``_block``, ``folded_stem``,
-``folded_stem_pp``, ``folded_blocks``, ``folded_head``, ``folded_forward``
-and ``make_infer_fn``).
+"""Folded EfficientNet serving forward (counterpart of
+``fast_image_recognition_tpu/models/inference.py``: ``fold_backbone``,
+``fold_preprocess_into_stem``, ``fold_stem_space_to_depth``, the folded
+stem, blocks and head, ``folded_forward`` and ``make_infer_fn``).
 
-Every inference BatchNorm is folded into the conv before it
-(``W' = W * gamma/sqrt(var+eps)``, ``b = beta - mean * gamma/sqrt(var+eps)``)
-in float64 on the host, and the ``(x - mean) / std`` preprocess is folded
-into the stem: the stem reads raw uint8 images, and a constant correction
-map (the conv of the constant mean image) makes the fold exact at the
-SAME-padding borders too. Images of another size than the module's
-resolution take the explicit path instead: resize, normalize, raw stem.
-
-``fused=True`` sends every stride-1 MBConv block through
-``ops.mbconv_kernel`` (the hand-written CUDA kernel on the card); the
-stride-2 blocks and the cascade's segment primitive :meth:`run_blocks`
-stay per-op, as in the JAX package.
-
-Layout: the public surface keeps the JAX package's NHWC images and HWIO
-folded weights, so tests compare like with like; the module itself runs
-NCHW tensors in ``channels_last`` memory (what cuDNN and the fused kernel
-want) with OIHW weights. TF "SAME" padding is asymmetric on stride-2
-layers, so every conv pads explicitly with ``F.pad`` instead of
-``padding='same'``.
+Every inference BatchNorm is folded into its conv in float64 on the host,
+and the ``(x - mean) / std`` preprocess into the stem (raw uint8 images; a
+constant correction map keeps the fold exact at the SAME-padding borders).
+Images of another size take the explicit path: resize, normalize, raw
+stem. ``fused=True`` sends every stride-1 MBConv block to
+``ops.mbconv_kernel`` (the CUDA kernel on the card); stride-2 blocks and
+:meth:`run_blocks` stay per-op, as in JAX. The public surface keeps JAX's
+NHWC images and HWIO weights; the module runs NCHW in ``channels_last``
+with OIHW weights and pads every conv explicitly (TF "SAME" is asymmetric
+at stride 2).
 """
 
 from __future__ import annotations

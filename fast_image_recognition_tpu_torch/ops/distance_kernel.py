@@ -214,6 +214,17 @@ def topk_candidates_l2_packed(
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
+def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """``|g|^2 - 2 q.g`` [B, R] of the candidate rows ``cand`` [B, R], in
+    fp32 from the bf16 rows and the bf16-rounded query (a bf16 einsum would
+    round the products' sum to bf16 and flip near-tie winners)."""
+    rows = gallery[cand].to(torch.float32)  # [B, R, D]
+    e16 = emb.to(torch.bfloat16).to(torch.float32)
+    cross = torch.einsum("bd,brd->br", e16, rows)
+    rsq = torch.einsum("brd,brd->br", rows, rows)
+    return rsq - 2.0 * cross
+
+
 def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
     """Per (query, tile) min and second-min packed keys, ``[B, n_tiles]``
     int32 each: ``kernels/packed_scan.cu`` on the card, the plain version

@@ -1,44 +1,21 @@
 """Time the port's kernels on the card at the shapes its paths give them.
 
-Each kernel runs on inputs made from ``--seed`` (unit rows of a normal
-gallery; queries are rows of it plus noise) and is timed with CUDA events:
-the mean over ``--reps`` calls after one second idle and one warm-up call
-(a third as many for the precise ``topk_l2`` shapes). The pause is there
-so that a shape does not inherit the power state of the one before (the
-clock control of a power-capped kernel may lag). Shapes:
-
-- ``tilemin``: 1024 queries x 1,000,448 rows, D = 128, tile_g = 1024, fp32
-  and bf16 scores (the JAX-default service's PCA scan and
-  ``pca_scan='bf16'``); D = 768 (queries streamed through the ring);
-- ``tilemin_packed``: Da = 128 over 1,000,448 rows at tile_g 1024 (the
-  cascade's block3a level) and over 131,072 rows at tile_g 128;
-- ``tilemin2_packed``: Da = 128 over 1,000,448 rows (the plain line) and
-  Da = 768 over 131,072 rows (``pca_dim=700``, streamed queries);
-- ``tilemin_quant``: int8 rows, 1024 x 1,000,448 x 1536, ``compute``
-  int8 and bf16 (bench.py's ``--quant``);
-- ``topk_l2``: bf16 at 1024 x 1,000,000 x 1280, k = 1 (the exact step),
-  and at 256 x 1,000,000 x 1280, k = 32 (lists past 16), each timed both
-  before and after (``... after precise``) ``precise`` (the oracle) over
-  bf16 rows at 1024 x 1,000,000 x 1280; ``precise`` also at x 1536, k = 1,
-  and over fp32 rows (``rows=fp32``: the gallery's unit rows before their
-  bf16 rounding, full 24-bit significands) at x 1280 and x 1536, k = 1.
-
-After timing a shape the script runs it back to back for about half a
-second while ``nvidia-smi`` samples the card every 20 ms, and keeps the
-median SM clock (MHz), power draw (W) and temperature (C) of those
-samples under ``clocks``, so a shift between two runs can be read
-against the clock.
-
-With ``--mbconv`` it times instead the fused MBConv kernel at each of
-B0@224's twelve stride-1 blocks, B = 1024 (random bf16 activations of the
-block's input shape, the trained checkpoint's folded weights), beside the
-per-op block (cuDNN and elementwise ops).
-
-A shape the checkout's kernels refuse reads null. ``--root`` imports the
-port from another checkout, so one command can compare two trees on one
-card: run the script once per tree, in the order A, B, B, A. Prints the
-card's name and power limit, then one JSON object ``{"root", "card",
-"ms": {shape: ms}, "clocks": {shape: {"sm_mhz", "power_w", "temp_c", "samples"}}}``.
+Inputs come from ``--seed`` (unit gallery rows; queries rows plus noise);
+each shape is timed with CUDA events, the mean over ``--reps`` calls after
+one second idle (so it does not inherit the power state of the shape
+before) and a warm-up (a third as many for the precise ``topk_l2``).
+Shapes: ``tilemin`` (1024 x 1,000,448, D 128, both score modes; D 768),
+``tilemin_packed`` (Da 128, tile_g 1024 and 128), ``tilemin2_packed`` (Da
+128 and 768), ``tilemin_quant`` (1024 x 1,000,448 x 1536, both computes),
+``topk_l2`` bf16 (k = 1 and 32, before and after ``precise``) and
+``precise`` over bf16 and fp32 rows (x 1280, x 1536). After each shape it
+runs it for half a second under ``nvidia-smi`` sampling every 20 ms and
+keeps the median SM clock, power and temperature under ``clocks``.
+``--mbconv`` times instead the fused MBConv kernel at B0@224's twelve
+stride-1 blocks, B = 1024, beside the per-op block. A shape the kernels
+refuse reads null. ``--root`` imports another checkout's port: run it per
+tree in the order A, B, B, A in one call. Prints the card's name and power
+limit, then ``{"root", "card", "ms": {shape: ms}, "clocks": {...}}``.
 
 Usage: python fast_image_recognition_tpu_torch/scripts/scan_times.py
        [--root CHECKOUT] [--mbconv] [--reps 10] [--seed 0] [--out FILE]

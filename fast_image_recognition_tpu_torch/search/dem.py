@@ -1,33 +1,24 @@
 """Directed Enumeration Method (DEM), maximum-likelihood approximate 1-NN
 (counterpart of ``fast_image_recognition_tpu/search/dem.py``; reference:
-qt_cpp/ann.h:61-100, qt_cpp/ann.cpp:269-507).
+qt_cpp/ann.h:61-100, ann.cpp:269-507).
 
-``DirectedEnumerationMatcher`` is the PIVOT mode (the reference's default,
-ann.cpp:270): up to 32 greedy most-far pivots, ``P[p, n] = d(pivot_p,
-row_n)`` and an early-exit threshold at the FAR quantile of each pivot's
-distance to its nearest other-class row. A query probes the pivots in
-order, ranks the other rows by the likelihood ``L[n] = sum_p (d(q, p) -
-P[p, n])^2`` and probes them in that order until a distance falls below
-the threshold or the budget runs out. ``FullMatrixDEM`` is the non-PIVOT
-variant (ann.cpp:283-300, 474-499), which refines the likelihood after
-every probe from the full N x N distance matrix.
+``DirectedEnumerationMatcher`` (PIVOT mode, ann.cpp:270): up to 32 greedy
+most-far pivots, ``P[p, n] = d(pivot_p, row_n)`` and an early-exit
+threshold at the FAR quantile of each pivot's distance to its nearest
+other-class row; a query probes the pivots, ranks the rows by ``L[n] =
+sum_p (d(q, p) - P[p, n])^2`` and probes them in that order until a
+distance clears the threshold or the budget runs out. ``FullMatrixDEM``
+(non-PIVOT, ann.cpp:283-300, 474-499) refines the likelihood after every
+probe from the full N x N matrix.
 
-Batched as in the JAX package: the likelihood is one fp32 matmul (TF32 off:
-``|d_qp|^2 + |P|^2 - 2 d_qp.P`` cancels about 2500:1, so its cross term
-needs true fp32 products), the probe order is an ascending selection, and
-the sequential early exit is a first-below-threshold scan over the probe
-distances. ``probe_mode='exact'`` computes every query-row distance and
-selects; ``'gather'`` gathers only the ``budget`` candidate rows (bf16) and
-computes their distances, exact bf16 products summed in fp32. Where the
-JAX package takes ``lax.approx_min_k`` (gather mode, ``budget * 4 <= N``)
-the port selects exactly, which XLA also does off the TPU, and orders the
-selection by ascending likelihood, ties to the lower row, as JAX's sort
-does. ``search_device`` makes no host sync.
-
-The index builds on the host (``select_pivots``: float64 distances, the
-NumPy oracle's arithmetic, computed with torch on the matcher's device) or
-from a gallery already on the device (``from_device``:
-``select_pivots_device``, fp32 distances from the stored rows).
+Batched as in JAX: the likelihood is one fp32 matmul (TF32 off: it
+cancels about 2500:1), the probe order an ascending selection (exact where
+JAX takes ``lax.approx_min_k``, as XLA off the TPU; ties to the lower
+row), the early exit a first-below-threshold scan. ``probe_mode='exact'``
+computes every distance; ``'gather'`` only the ``budget`` candidates' from
+bf16 rows. ``search_device`` makes no host sync. The index builds on the
+host (``select_pivots``: float64, the NumPy oracle's arithmetic, on the
+matcher's device) or from device rows (``from_device``, fp32).
 """
 
 from __future__ import annotations

@@ -3,41 +3,34 @@
 ``CascadeRecognitionService``, ``make_tap_embed_fn``, ``build_service`` and
 ``build_cascade_service``).
 
-``RecognitionService``: one call per batch: the BN- and preprocess-folded
-backbone forward on raw uint8 images, L2 normalization, and a 1-NN match
-against a device-resident bf16 gallery.
+``RecognitionService``: per batch the BN- and preprocess-folded backbone
+on raw uint8 images, L2 normalization and a 1-NN match:
 
-- ``match='pca'``: candidates come from a PCA-``pca_dim`` projection of
-  the gallery, one row per tile of the ``rescore`` nearest tiles, and are
-  rescored in full D. The scan is ``pca_scan``:
+- ``match='pca'``: the best row of each of the ``rescore`` nearest tiles
+  of a PCA-``pca_dim`` projection, rescored in full D. ``pca_scan``:
+  ``'f32'`` (default) and ``'bf16'``, the tile-min scan
+  (``kernels/tile_scan.cu``) with fp32 or bf16 scores; ``'int8'``, its
+  int8 version; ``'packed'`` (bench.py's main path at PCA-124), the packed
+  scans of ``kernels/packed_scan.cu``: with ``select='exact'`` and an
+  ``escalate`` slack the min-2 scan certifies each probe and the rest take
+  the exact scan (``kernels/topk_l2.cu``) in one masked launch, with no
+  host sync; with ``escalate=None`` the single-min scan, uncertified.
+- ``match='exact'``: the exact full-D scan.
+- ``match='int8'``: the int8 full-D scan, the best rows of the
+  ``min(rescore, 16)`` nearest tiles rescored.
+- ``match='sharded'``: the gallery split over ``mesh``'s devices
+  (``parallel/sharded_gallery.py``), each shard scanned on its device
+  (``sharded_scan`` ``'exact'``, or ``'packed'``: PCA fit on the first
+  ``pca_sample`` rows, tile_g 512, shard-local rescore), merged on the first.
 
-  - ``'f32'`` (the default) and ``'bf16'``: the tile-min scan
-    (``kernels/tile_scan.cu`` ``tilemin_launch``) with fp32 or bf16 scores;
-  - ``'int8'``: the tile-min scan over the int8-quantized projection
-    (``tilemin_quant_launch``);
-  - ``'packed'`` (bench.py's ``--pca-dim 124 --pca-scan packed``): the
-    packed scans of ``kernels/packed_scan.cu``. With ``select='exact'`` and
-    an ``escalate`` slack, the min-2 scan certifies each probe and the
-    probes whose rescored distance does not clear the certificate's lower
-    bound take the exact full-D scan (``kernels/topk_l2.cu``): one launch
-    per call with the escalation mask on the card, so a certified batch
-    pays only the launch and nothing waits for the host. With
-    ``escalate=None`` the single-min packed scan's rescored best row is
-    the answer, uncertified.
-- ``match='exact'``: the exact full-D scan for every probe.
-- ``match='int8'``: the int8 scan of the full-D gallery, then an exact
-  rescore of the best row of each of the ``min(rescore, 16)`` nearest tiles.
+``select='approx'`` (JAX ``lax.approx_min_k``) takes the exact selection,
+as XLA does off the TPU, and turns the certificate off.
 
-``CascadeRecognitionService``: the early-exit twin. The backbone runs in
-segments that end at exit taps; after each segment the probes still live
-are matched (single-min packed scan, ``rescore`` rows rescored in full D)
-and a probe exits when ``d1 < ratio^2 * d2``. Survivors are compacted into
-the next segment's static capacity. No host sync per batch.
-
-``select='approx'`` (JAX ``lax.approx_min_k``) takes the exact tile
-selection, which XLA also runs for it off the TPU; as in JAX it turns the
-certificate off, so the packed scan is the single-min one. ``match='sharded'``
-raises ``NotImplementedError``.
+``CascadeRecognitionService``: the early-exit twin; the backbone runs in
+segments ending at exit taps, the live probes are matched after each
+(single-min packed scan, rescore) and exit when ``d1 < ratio^2 * d2``;
+survivors are compacted into the next segment's static capacity. No host
+sync per batch.
 """
 
 from __future__ import annotations
@@ -62,6 +55,7 @@ from fast_image_recognition_tpu_torch.ops.distance_kernel import (
     pad_cols,
     pad_gallery,
     quant_gallery_scales,
+    rescore_rows,
     topk_candidates_l2,
     topk_candidates_l2_packed,
     topk_candidates_l2_packed_cert,
@@ -74,6 +68,7 @@ from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
 # gallery rows projected per step: bounds the bf16 temporaries of the fit
 _PROJECTION_ROWS = 65536
+_SHARD_TILE_G = 512  # the sharded scans' row tile (JAX serving.py:130, :279)
 
 
 def _normalize(emb: torch.Tensor) -> torch.Tensor:
@@ -109,17 +104,6 @@ def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: 
     return int(w.shape[1]), mu, w, gal_pca
 
 
-def _rescore(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """``|g|^2 - 2 q.g`` [B, R] of the candidate rows, in fp32 from the bf16
-    rows and the bf16-rounded query (a bf16 einsum would round the
-    products' sum to bf16 and flip near-tie winners)."""
-    rows = gallery[cand].to(torch.float32)  # [B, R, D]
-    e16 = emb.to(torch.bfloat16).to(torch.float32)
-    cross = torch.einsum("bd,brd->br", e16, rows)
-    rsq = torch.einsum("brd,brd->br", rows, rows)
-    return rsq - 2.0 * cross
-
-
 class RecognitionService:
     """Folded-backbone extract + device-resident gallery 1-NN.
 
@@ -152,6 +136,8 @@ class RecognitionService:
         n_valid: Optional[int] = None,
         pca_sample: int = 8192,
         serving_fn: Optional[torch.nn.Module] = None,
+        sharded_scan: str = "exact",
+        mesh=None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -159,10 +145,10 @@ class RecognitionService:
         self.dim = int(info["embedding_dim"])
         self.match = match
         self.rescore = int(rescore)
-        if match == "sharded":
-            raise NotImplementedError("match='sharded' is not ported yet")
-        if match not in ("pca", "exact", "int8"):
+        if match not in ("pca", "exact", "int8", "sharded"):
             raise ValueError(f"unknown match mode {match!r}")
+        if match == "sharded" and sharded_scan not in ("exact", "packed"):
+            raise ValueError(f"unknown sharded_scan {sharded_scan!r}")
         if match == "pca" and pca_scan not in ("packed", "f32", "bf16", "int8"):
             raise ValueError(f"unknown pca_scan {pca_scan!r}")
         if select not in ("exact", "approx"):
@@ -172,8 +158,12 @@ class RecognitionService:
             variables, info, resolution=self.resolution, device=self.device
         )
 
-        self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
         self.labels = None if labels is None else np.asarray(labels)
+        if match == "sharded":
+            self._build_sharded(gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample)
+            self.escalate = None
+            return
+        self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
         # the certificate exists only for the packed min-2 scan with the
         # exact selection (JAX serving.py:151-158)
         self.escalate = (
@@ -201,7 +191,52 @@ class RecognitionService:
             self._gal_sq = gallery_sq_norms(self.gallery, self.n_valid)
             self._gal_sc = quant_gallery_scales(scales, self.n_valid)
 
+    def _build_sharded(self, gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample):
+        """``match='sharded'`` (JAX serving.py:104-131): the first ``n_valid``
+        rows split over ``mesh``'s gallery axis in bf16 (the JAX package
+        shards every row it is given); for ``'packed'`` a PCA fit on the
+        first ``pca_sample`` rows as fp32 and per-shard packed projections
+        at tile_g 512."""
+        from fast_image_recognition_tpu_torch.parallel.mesh import gallery_mesh
+        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (
+            shard_gallery,
+            shard_gallery_pca_aug,
+        )
+
+        self.mesh = mesh if mesh is not None else gallery_mesh()
+        g = gallery if isinstance(gallery, torch.Tensor) else torch.as_tensor(np.asarray(gallery, np.float32))
+        self.n_valid = int(n_valid if n_valid is not None else g.shape[0])
+        g = g[: self.n_valid]
+        self.gallery, self._shard_valid = shard_gallery(g, self.mesh)
+        self.sharded_scan = sharded_scan
+        if sharded_scan == "packed":
+            sample = g[: min(self.n_valid, pca_sample)].to(torch.float32).cpu().numpy()
+            pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
+            self.pca_dim = int(pca.components.shape[0])
+            self._mu = torch.tensor(pca.mean, dtype=torch.float32, device=self.device)
+            self._w = torch.tensor(pca.components.T, dtype=torch.float32, device=self.device)
+            self._gal_aug = shard_gallery_pca_aug(
+                self.gallery, self._shard_valid, self.mesh, self._mu, self._w, tile_g=_SHARD_TILE_G
+            )
+
     # ------------------------------------------------------------------ #
+
+    def _match_sharded(self, emb: torch.Tensor) -> torch.Tensor:
+        """[B] int32 global rows from the sharded scans, with no host sync
+        (the per-shard valid counts are host ints fixed at build)."""
+        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (
+            sharded_topk_l2,
+            sharded_topk_pca_packed,
+        )
+
+        if self.sharded_scan == "packed":
+            _, idx = sharded_topk_pca_packed(
+                emb, self._gal_aug, self.gallery, self.mesh, self._mu, self._w, k=1, rescore=self.rescore,
+                n_valid_per_shard=self._shard_valid, tile_g=_SHARD_TILE_G,
+            )
+        else:
+            _, idx = sharded_topk_l2(emb, self.gallery, self.mesh, k=1, n_valid_per_shard=self._shard_valid)
+        return idx[:, 0].to(self.device)
 
     def _certified(self, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The packed PCA path before escalation: [B, D] fp32 normalized
@@ -210,7 +245,7 @@ class RecognitionService:
         qp = (emb - self._mu) @ self._w
         cand, bound = topk_candidates_l2_packed_cert(qp, self.gal_aug, self.pca_dim, self.rescore)
         cand = cand.to(torch.int64)
-        d = _rescore(self.gallery, emb, cand)  # + |q|^2, constant per probe
+        d = rescore_rows(self.gallery, emb, cand)  # + |q|^2, constant per probe
         best = torch.argmin(d, dim=1, keepdim=True)
         idx_fast = cand.gather(1, best)[:, 0]
         # certificate: the rescored best (true squared L2) must clear the
@@ -244,6 +279,8 @@ class RecognitionService:
         if self.match == "exact":
             _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
             return idx[:, 0]
+        if self.match == "sharded":
+            return self._match_sharded(emb)
         if self.match == "int8":
             _, idx = topk_l2_quant(
                 emb, self._gal_q, self._gal_sq, self._gal_sc, self.gallery, k=1, r=min(self.rescore, 16)
@@ -251,7 +288,7 @@ class RecognitionService:
             return idx[:, 0]
         if self.escalate is None:
             cand = self._candidates(emb)
-            best = torch.argmin(_rescore(self.gallery, emb, cand), dim=1, keepdim=True)
+            best = torch.argmin(rescore_rows(self.gallery, emb, cand), dim=1, keepdim=True)
             return cand.gather(1, best)[:, 0].to(torch.int32)
         _, idx, esc = self._certified(emb)
         self.last_escalated = esc
@@ -297,8 +334,16 @@ class RecognitionService:
     def match_flops(self, batch: int) -> float:
         """Match FLOPs per batch (the backbone's are apart): the full-D scan
         for ``exact`` and ``int8`` (int8 changes the rate, not the count);
-        projection, PCA scan and rescore for ``pca``."""
-        if self.match in ("exact", "int8"):
+        projection, PCA scan and rescore for ``pca``; for the sharded packed
+        scan the projection and rescore run on every shard."""
+        if self.match == "sharded" and self.sharded_scan == "packed":
+            s = self.mesh.shape["gallery"]
+            return (
+                2.0 * batch * self.dim * self.pca_dim * s
+                + 2.0 * batch * self.n_valid * self.pca_dim
+                + 2.0 * batch * self.rescore * self.dim * 2 * s
+            )
+        if self.match in ("exact", "int8", "sharded"):
             return 2.0 * batch * self.n_valid * self.dim
         return (
             2.0 * batch * self.dim * self.pca_dim
@@ -547,7 +592,7 @@ class CascadeRecognitionService:
         cand = topk_candidates_l2_packed(
             qp, gal_aug, dim if dim is not None else self.pca_dim, self.rescore, self._tile_g
         ).to(torch.int64)
-        d = torch.clamp_min(1.0 + _rescore(gallery, emb, cand), 0.0)
+        d = torch.clamp_min(1.0 + rescore_rows(gallery, emb, cand), 0.0)
         # whole pad tiles (the gallery pads to 1024 rows, the tile may be
         # smaller) give zero rows at d = 1 that could beat every real row
         d = torch.where(cand < self.n_valid, d, math.inf)

@@ -1,28 +1,21 @@
-"""The port's chi2 1-NN (``ops/chi2_kernel.py::chi2_nn``; on the CPU its
-plain version ``kernels/plain.py::chi2_nn_plain``, exact division) against
-the JAX package's ``chi2_nn`` (its Pallas kernel in interpret mode on the
-CPU) on the same numpy-seeded inputs, and the port's ``chi2_cost`` script
-at a tiny size.
+"""The port's chi2 1-NN (``ops/chi2_kernel.py::chi2_nn``; on the CPU
+``kernels/plain.py::chi2_nn_plain``, exact division) against the JAX
+package's ``chi2_nn`` (its Pallas kernel in interpret mode) on the same
+seeded inputs, and ``chi2_cost`` at a tiny size.
 
 Tolerances:
-- the port's rows equal the fp64 oracle's argmin (exact division in fp32
-  cannot reorder these seeded rows; bf16 gallery: >= 90 %, the JAX
-  test's bound), and its distances lie within rtol 2e-5, atol 1e-7 of the
-  oracle's minimum, refined or not;
-- against JAX: indices equal, except where the oracle's two smallest
-  distances lie within 2^-7 relative of each other. In interpret mode
-  JAX's ``pl.reciprocal(approx=True)`` is off by up to 2^-8 relative per
-  term (measured 3.82e-3 over 8192 values in [1e-3, 1]), so each of two
-  sums of non-negative terms may be off by 2^-8 and such a pair may be
-  ordered either way;
-- refined distances within rtol 2e-5, atol 1e-7 of JAX's (the JAX test's
-  own, tests/test_chi2_kernel.py:34): both rescore the winner with the
-  exact fp32 formula, summed in another order;
-- unrefined distances within rtol 4e-3 of JAX's: its reciprocal's 2^-8
-  (3.9e-3) per term bounds the error of a sum of non-negative terms,
-  plus < 1e-5 of fp32 rounding at these widths;
-- the kernel itself runs only on the card (``chip_smoke.py``); here its
-  launcher must refuse CPU tensors.
+- rows equal the fp64 oracle's argmin (bf16 gallery: >= 90 %, the JAX
+  test's bound), distances within rtol 2e-5, atol 1e-7 of its minimum;
+- against JAX: indices equal but where the oracle's two least distances
+  lie within 2^-7 relative (JAX's interpret-mode ``pl.reciprocal(approx=
+  True)`` is off by up to 2^-8 per term, measured 3.82e-3 over 8192
+  values in [1e-3, 1], so either of two such sums may be off by 2^-8);
+- refined distances within rtol 2e-5, atol 1e-7 of JAX's
+  (tests/test_chi2_kernel.py:34: both rescore the winner exactly);
+- unrefined distances within rtol 4e-3 of JAX's (its 2^-8 per term bounds
+  a sum of non-negative terms, plus < 1e-5 of fp32 rounding);
+- the kernel runs only on the card (``chip_smoke.py``); its launcher must
+  refuse CPU tensors here.
 """
 
 import jax.numpy as jnp

@@ -80,6 +80,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
     from fast_image_recognition_tpu_torch.models import EfficientNet, create_efficientnet
     from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
+    from fast_image_recognition_tpu_torch.classifiers import FPNNClassifier, KNNClassifier, PNNClassifier
+    from fast_image_recognition_tpu_torch.parallel import ShardedGalleryMatcher, gallery_mesh
+    from fast_image_recognition_tpu_torch.search.projection import ProjectionIndexMatcher
+    from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     feats = torch.rand((40, 16)).numpy()
@@ -94,12 +98,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                                  [labels[:4]] * 2, **kw),
         lambda **kw: ProposedTWD(feats, labels, 4, chunk_features=8, max_features=16, **kw),
         lambda **kw: ConventionalTWD(feats, labels, 4, TWDType.DIST_RATIO, 0.7, 8, 16, **kw),
+        lambda **kw: SmallWorldMatcher(feats, **kw),
+        lambda **kw: ProjectionIndexMatcher(feats, **kw),
+        lambda **kw: KNNClassifier(1, 4, **kw),
+        lambda **kw: PNNClassifier(4, **kw),
+        lambda **kw: FPNNClassifier(4, **kw),
+        lambda **kw: gallery_mesh(2, devices=None if not kw else [kw["device"]] * 2),
+        lambda **kw: ShardedGalleryMatcher(feats, gallery_mesh(devices=None if not kw else [kw["device"]] * 2)),
     ):
         with pytest.raises(RuntimeError):
             make()
         make(device="cpu")  # the CPU only when asked for
     with pytest.raises(RuntimeError):
         RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
+    with pytest.raises(RuntimeError):
+        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)), match="sharded")
+    with pytest.raises(RuntimeError):  # the service on the CPU, its mesh left to the default
+        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)), match="sharded",
+                           serving_fn=torch.nn.Identity(), device="cpu")
     with pytest.raises(RuntimeError):
         CascadeRecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
     with pytest.raises(RuntimeError):

@@ -1,43 +1,30 @@
 """The arithmetic of the port's precise ``topk_l2`` on the card
-(``kernels/topk_l2.cu``: ``split_queries``, then ``topk_pass1_split_sm90``
-over bf16 rows or ``topk_pass1_split6_sm90`` over fp32 rows), held on the
-CPU through its mirror ``kernels/plain.py::split_bf16x3`` and the
-host-side sizes in ``kernels/build.py``, and the port's precise
-``topk_l2`` over fp32 rows against the JAX package's.
+(``split_queries``, then ``topk_pass1_split_sm90`` over bf16 rows or
+``topk_pass1_split6_sm90`` over fp32 rows), held on the CPU through its
+mirror ``kernels/plain.py::split_bf16x3`` and the host-side sizes in
+``kernels/build.py``, and the port's precise ``topk_l2`` over fp32 rows
+against the JAX package's.
 
-- The three-term split reconstructs an fp32 query, or a block of fp32
-  rows as the card splits them, within 2^-26 relative (the terms carry 8
-  bits each: ~2^-27), or 2^-133 absolute where the terms fall among the
-  bf16 subnormals (half their spacing, 2^-134).
-- Against a bf16 gallery the three bf16 products are exact, so their sum is
-  the fp32 query's dot product to the split's 2^-26 of sum |g q|; summed in
-  fp32 the way the kernel sums them (per 64-feature chunk lo, mid, hi in a
-  fresh accumulator, then added into a running fp32 sum) they stay within
-  2^-20 of the fp32 matmul for unit vectors, 16x inside the 2^-16 gate the
-  smoke run holds the card's kernel to. Against fp32 rows, split too, the
-  six products of terms whose weight reaches fp32 (hi.lo, lo.hi, mid.mid,
-  hi.mid, mid.hi, hi.hi) drop under 2^-25 of sum |g q|; summed as the
-  six-product kernel sums them (per 32-feature chunk in that order in a
-  fresh accumulator, then into the running sum) they stay within 2^-20 of
-  the fp64 dot.
-- The lo term is not lost in the gate's slack: on queries made as a bf16
-  row times 1 + 2^-9 + 2^-18 every lane's lo term has the row's sign, and
-  the hi + mid product misses the fp64 distance to the row by more than
-  1.5 x 2^-18, while the plain fp32 pass and the three terms stay within
-  2^-18 of it (the smoke run's probe of the card kernel, checked here on
-  its data). Over fp32 rows made the same way (a unit bf16 row times 1 +
-  2^-9 + 2^-18: every lane's mid and lo terms carry the row's sign) and
-  queries half a row (their terms exactly half of the row's), the six
-  products summed in the kernel's order stay within 2^-18 of the fp64
-  distance, and the three of the bf16-row pass (hi.hi, hi.mid, mid.hi)
-  miss it by more than 1.5 x 2^-18.
-- The query planes hold B rounded up to whole 128-query boxes, and every
-  ring fits a Hopper block's 227 KB.
-- The port's ``topk_l2(precise=True)`` over full-significand fp32 rows
-  (on the CPU its plain version, an fp32 matmul) equals the JAX package's
-  (its Pallas kernel in interpret mode, a HIGHEST-precision fp32 dot):
-  raw squared distances within 2^-16 absolute, rows equal except where the
-  two rows' fp64 distances tie within that.
+- The three-term split reconstructs fp32 queries, or row blocks split as
+  the card splits them, within 2^-26 relative (8 bits a term: ~2^-27), or
+  2^-133 absolute among the bf16 subnormals.
+- Over bf16 rows the three products, summed per 64-feature chunk lo, mid,
+  hi in a fresh accumulator and then into fp32 as the kernel sums them,
+  stay within 2^-20 of the fp32 matmul for unit vectors (16x inside the
+  smoke run's 2^-16 gate); over fp32 rows the six products (hi.lo, lo.hi,
+  mid.mid, hi.mid, mid.hi, hi.hi; the dropped ones under 2^-25 of sum
+  |g q|), summed per 32-feature chunk in that order, within 2^-20 of fp64.
+- The lo terms matter: on queries = a bf16 row x (1 + 2^-9 + 2^-18) the hi
+  + mid product misses the fp64 distance by > 1.5 x 2^-18 while the plain
+  pass and the three terms stay within 2^-18; over fp32 rows made the same
+  way with queries half a row, the six products stay within 2^-18 and the
+  bf16-row pass's three miss by > 1.5 x 2^-18 (the smoke run's probes).
+- The query planes hold B rounded up to whole 128-query boxes; every ring
+  fits a Hopper block's 227 KB.
+- ``topk_l2(precise=True)`` over full-significand fp32 rows (plain: an fp32
+  matmul) equals JAX's (interpret mode, a HIGHEST fp32 dot): distances
+  within 2^-16 absolute, rows equal but where their fp64 distances tie
+  within that.
 """
 
 import jax.numpy as jnp

@@ -1,35 +1,25 @@
-"""The scans that the card runs on its Hopper main loop, ``topk_l2``
-(bf16, with a feature window and a row mask), the certified min-2 packed
-scan (``tile_min2_l2_packed``, ``topk_candidates_l2_packed_cert``), the
-single-min packed scan (``tile_min_l2_packed``) and the int8 tile scan
-(``tile_min_l2_quant(compute='int8')``), at the edges of the card
-kernels' tiles, against the JAX package's Pallas kernels in interpret mode
-on the same numpy-seeded inputs. The port runs its plain versions here
-(CPU tensors); ``chip_smoke.py`` holds the kernels against those plain
-versions at the same kinds of edges on the card.
+"""The scans the card runs on its Hopper main loop (``topk_l2`` bf16 with
+a window and a row mask, the certified min-2 and the single-min packed
+scans, the int8 tile scan with ``compute='int8'``) at the edges of the
+card kernels' tiles, against JAX's interpret-mode Pallas kernels on the
+same seeded inputs (the port's plain versions here; ``chip_smoke.py``
+holds the kernels against them on the card).
 
-Edges: batches around the kernels' 128-query tile (1, 127, 128, 129, and
-the cascade's 192); n_valid below one gallery sub-tile (100 rows) and not
-a multiple of one (555, 700, 900), the rows past n_valid holding copies of
-the queries (they would win if they leaked in); widths 8 and 40 (inside
-one 64-lane chunk), int8 widths 16 and 144 (ragged against the 128-byte
-line); windows on and off the 8-lane boundary; augmented widths 48 and
-128; tile_g 128 to 1024 against the kernels' 256-row sub-tiles; tiles of
-nothing but padding.
+Edges: batches 1, 127, 128, 129 and 192; n_valid 100 (inside a sub-tile),
+555, 700, 900, with copies of the queries past it; widths 8 and 40, int8
+widths 16 and 144; windows on and off the 8-lane boundary; augmented
+widths 48 and 128; tile_g 128 to 1024; whole-pad tiles.
 
 Tolerances, as in test_torch_distance.py:
-- exact top-k: distances to rtol 1e-3; indices equal except where the two
-  rows' distances over the window, from the bf16 values both sides scan,
-  tie within 2^-12 relative (fp32 sum order);
-- packed keys: decoded distances within 2^-12 relative + 1e-6, the rows
-  they carry equal except at such near-ties;
-- certified candidates: equal sets except tiles swapped at such a
-  near-tie; the bound within 2^-12 relative;
-- int8 tile scan, as in test_torch_quant.py: tile minima within 2^-20
-  relative + 1e-8 at D = 128, i.e. 1.28e-6 on the raw squared distance
-  (D times the returned mean; the JAX package's CPU compile may contract
-  the epilogue into an FMA, a few ulp at magnitude 1), rows equal except
-  where the two rows' float64 scores tie within 2^-20 relative + 1e-6.
+- exact top-k: distances rtol 1e-3; indices equal but where the two rows'
+  window distances from the bf16 values tie within 2^-12 relative;
+- packed keys: decoded distances within 2^-12 relative + 1e-6, rows equal
+  but at such near-ties; certified candidates: equal sets but tiles
+  swapped at such a near-tie, the bound within 2^-12 relative;
+- int8 tile scan, as test_torch_quant.py: minima within 2^-20 relative +
+  1e-8 at D = 128 (1.28e-6 raw; JAX's CPU compile may contract the
+  epilogue into an FMA), rows equal but where float64 scores tie within
+  2^-20 relative + 1e-6.
 """
 
 import jax.numpy as jnp

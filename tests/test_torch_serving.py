@@ -26,6 +26,7 @@ from fast_image_recognition_tpu.ops.distance_kernel import topk_candidates_l2_pa
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+from fast_image_recognition_tpu_torch.parallel import gallery_mesh
 from fast_image_recognition_tpu_torch.serving import RecognitionService
 from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
 
@@ -149,8 +150,9 @@ def test_exact_match_top1_matches_jax(setup):
 
 
 def test_identify_labels_and_unported_modes(setup):
-    """``identify`` returns int64 rows and their labels; ``sharded`` is not
-    ported and raises; unknown modes raise (``select='approx'`` is held
+    """``identify`` returns int64 rows and their labels, also through
+    ``match='sharded'`` over two CPU shards (held against JAX in
+    test_torch_sharded.py); unknown modes raise (``select='approx'`` is held
     against JAX in test_torch_select_approx.py)."""
     _, _, np_vars, serve, images, gal, planted = setup
     labels = np.arange(N) % 7
@@ -160,9 +162,13 @@ def test_identify_labels_and_unported_modes(setup):
     np.testing.assert_array_equal(idx, planted[:4])
     np.testing.assert_array_equal(lab, labels[planted[:4]])
     assert idx.dtype == np.int64
-    with pytest.raises(NotImplementedError):
-        RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", match="sharded")
-    for kw in (dict(match="nope"), dict(pca_scan="nope"), dict(select="nope")):
+    sh = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
+                            device="cpu", match="sharded", mesh=gallery_mesh(devices=["cpu"] * 2))
+    idx_s, lab_s = sh.identify(images[:4])
+    np.testing.assert_array_equal(idx_s, idx)
+    np.testing.assert_array_equal(lab_s, lab)
+    for kw in (dict(match="nope"), dict(pca_scan="nope"), dict(select="nope"),
+               dict(match="sharded", sharded_scan="nope")):
         with pytest.raises(ValueError):
             RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
 

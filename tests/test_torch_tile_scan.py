@@ -1,25 +1,19 @@
-"""The port's bf16 tile-min scan and exact top-k variants (plain PyTorch
-versions, as they run on the CPU) against the JAX package's Pallas kernels
-in interpret mode, on the same numpy-seeded inputs.
-
-Tolerances, each from the arithmetic the two sides share:
-- ``tile_min_l2`` with fp32 scores: both take bf16 x bf16 products summed
-  in fp32, in another order, so tile minima agree within 2^-20 relative
-  (+1e-6 absolute after the |q|^2 add) and a tile's row may differ only
-  where the two rows' scores tie within that;
-- with bf16 scores both round |g|^2, 2 q.g and their difference to bf16:
-  the minima are equal (the outputs, after the fp32 |q|^2 add, within
-  2^-20 relative + 1e-8), ties go to the lowest row. The JAX package's
-  interpret mode on the CPU keeps excess fp32 precision in some of these
-  bf16 operations (XLA's default), so its min and the compare against it
-  can round differently and ``_masked_argmin`` then finds no row: it
-  returns ``tile * tile_g + INT_MAX`` wrapped. There the port must still
-  return a row of that tile at the reported minimum;
-- ``topk_l2(precise=True)``: a true fp32 dot on both sides, in another
-  order: distances within 2^-20 relative + 1e-7, rows equal except ties
-  within that;
-- ``window``: the lanes outside [start, end) are zeroed on both sides, so
-  the same tolerances hold as without it.
+"""The port's bf16 tile-min scan and exact top-k variants (their plain
+versions, on the CPU) against the JAX package's interpret-mode Pallas
+kernels on the same seeded inputs. Tolerances:
+- ``tile_min_l2``, fp32 scores: bf16 products summed in fp32 in another
+  order: minima within 2^-20 relative (+1e-6 after the |q|^2 add), rows
+  equal but at ties within that;
+- bf16 scores: |g|^2, 2 q.g and their difference rounded to bf16 on both
+  sides: minima equal (after the fp32 |q|^2 add within 2^-20 relative +
+  1e-8), ties to the lowest row. JAX's interpret mode keeps excess fp32
+  precision in some of these bf16 operations, so its ``_masked_argmin``
+  can find no row and return ``tile * tile_g + INT_MAX`` wrapped; there
+  the port must still return a row of that tile at the reported minimum;
+- ``topk_l2(precise=True)``: true fp32 dots in another order: distances
+  within 2^-20 relative + 1e-7, rows equal but at such ties;
+- ``window``: lanes outside [start, end) zeroed on both sides, the same
+  tolerances.
 """
 
 import jax.numpy as jnp
