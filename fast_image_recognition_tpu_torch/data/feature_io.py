@@ -85,16 +85,20 @@ def normalize_features(
     plain sum (the chi-square/KL path in the reference accumulates ``sum``
     without squaring, db_features.cpp:90-94).
     """
-    feats = np.asarray(raw, dtype=np.float32).copy()
+    feats = np.array(raw, dtype=np.float32)  # a copy, divided in place below
     feats[np.abs(feats) < zero_eps] = 0.0
+    wide = feats.astype(np.float64)
     if l2:
-        denom = np.sqrt(np.sum(feats.astype(np.float64) ** 2, axis=1))
+        np.square(wide, out=wide)
+        denom = np.sqrt(np.sum(wide, axis=1))
     else:
-        denom = np.sum(feats.astype(np.float64), axis=1)
+        denom = np.sum(wide, axis=1)
+    del wide
     # The reference divides unconditionally; guard only against exact zero
     # rows to avoid NaN poisoning whole arrays.
     denom = np.where(denom == 0.0, 1.0, denom)
-    return (feats / denom[:, None].astype(np.float32)).astype(np.float32)
+    feats /= denom[:, None].astype(np.float32)
+    return feats
 
 
 def load_feature_file(

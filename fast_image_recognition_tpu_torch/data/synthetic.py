@@ -30,13 +30,16 @@ def make_synthetic_gallery(
     """Returns (features [N, D] float32 row-normalized, labels [N] int32)."""
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((num_classes, num_features)).astype(np.float32)
-    reps = np.repeat(centers, images_per_class, axis=0)
-    noise = rng.standard_normal(reps.shape).astype(np.float32) * within_class_noise
-    raw = reps + noise
+    # each row's center + noise * within_class_noise, worked in place in one
+    # float32 array (the same roundings as the JAX package's temporaries)
+    raw = rng.standard_normal((num_classes * images_per_class, num_features)).astype(np.float32)
+    raw *= within_class_noise
+    raw.reshape(num_classes, images_per_class, num_features)[...] += centers[:, None, :]
     if nonneg:
         # Pooled post-ReLU CNN embeddings are non-negative and sparse-ish,
         # which matters for the chi2/KL distances.
-        raw = np.maximum(raw, 0.0) + 1e-3
+        np.maximum(raw, 0.0, out=raw)
+        raw += 1e-3
     feats = normalize_features(raw, l2=l2)
     labels = np.repeat(
         np.arange(num_classes, dtype=np.int32), images_per_class

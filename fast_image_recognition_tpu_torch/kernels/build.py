@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -40,6 +41,7 @@ NVCC_FLAGS = [
     "-O3",
     "-std=c++17",
     "-gencode=arch=compute_90a,code=sm_90a",
+    "--split-compile=0",  # optimize a source's kernels on every core
     "-shared",
     "-Xcompiler",
     "-fPIC",
@@ -104,13 +106,19 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         tmp = f"{out[n]}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(KERNEL_DIR, SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def wait(n, p):  # each source's own seconds
+        BUILD_LOG[n], BUILD_SECONDS[n] = p.communicate()[0], time.time() - t0
+
+    waits = [threading.Thread(target=wait, args=(n, p)) for n, (_, p) in procs.items()]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     failed = []
     for n, (tmp, p) in procs.items():
-        log, _ = p.communicate()
-        BUILD_LOG[n] = log
-        BUILD_SECONDS[n] = time.time() - t0
         if p.returncode != 0:
-            failed.append(f"{SOURCES[n]}:\n{log}")
+            failed.append(f"{SOURCES[n]}:\n{BUILD_LOG[n]}")
         else:
             os.replace(tmp, out[n])
     if failed:

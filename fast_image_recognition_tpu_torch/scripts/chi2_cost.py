@@ -14,11 +14,11 @@ the same against both packages.
 Data is made on the device from a seeded ``torch.Generator``: uniform
 rows, L1-normalized; queries are the first B rows plus 0.05 U / D,
 renormalized. Each kind is timed on the host clock between device syncs
-over ``--iters`` calls after one warm-up call, and its top-1 is checked
+over ``--iters`` calls after ``--warmup`` untimed ones, and its top-1 is checked
 against the fp64 oracle on 8 probes x 4096 rows (``probe_agreement``).
 
 Usage: python -m fast_image_recognition_tpu_torch.scripts.chi2_cost
-       [--gallery 102400] [--batch 1024] [--dim 1536] [--iters 5]
+       [--gallery 102400] [--batch 1024] [--dim 1536] [--iters 5] [--warmup 1]
        [--kinds chi2,l2] [--out -] [--device cuda]
 """
 
@@ -60,6 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     p.add_argument("--batch", type=int, default=1024)
     p.add_argument("--dim", type=int, default=1536)
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--kinds", default="chi2,l2")
     p.add_argument("--out", default="-", help="'-' = stdout, else append path")
     p.add_argument("--device", default=None, help="default: the card")
@@ -100,7 +101,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                 return dist[:, 0], idx[:, 0]
 
         with torch.no_grad():
-            fn(queries, gal)
+            for _ in range(args.warmup):
+                fn(queries, gal)
             _sync(dev)
             t0 = time.perf_counter()
             for _ in range(args.iters):

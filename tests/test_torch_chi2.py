@@ -138,3 +138,16 @@ def test_chi2_cost_lines_on_cpu():
     assert ((q - g[:16]).abs() <= 0.05 / 24 + 0.05 * g[:16] + 1e-7).all()
     with pytest.raises(ValueError, match="unknown kinds"):
         chi2_cost.main(["--kinds", "chi3", "--device", "cpu"])
+
+
+def test_chi2_cost_without_warmup(monkeypatch):
+    """``--warmup 0`` calls a kind ``--iters`` times, then once on its probes."""
+    from fast_image_recognition_tpu_torch.ops import distances
+
+    calls, real = [], distances.streamed_topk
+    monkeypatch.setattr(distances, "streamed_topk", lambda *a, **k: calls.append(1) or real(*a, **k))
+    for warmup in (0, 1):
+        calls.clear()
+        ln, = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "2",
+                              "--warmup", str(warmup), "--kinds", "kl", "--device", "cpu"])
+        assert len(calls) == 2 + 1 + warmup and ln["probe_agreement"] == 1.0
