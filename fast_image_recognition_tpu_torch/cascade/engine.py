@@ -1,24 +1,9 @@
-"""Sequential (early-exit) inference over backbone segments (counterpart
-of ``fast_image_recognition_tpu/cascade/engine.py``; reference:
-tf_keras/sequential_inference.py:1278-1396: LinearSVC weights as dense
-layers after L2 normalization at each exit tap, each image stopping at the
-first exit whose max score clears its threshold).
-
-- ``predict``: the host decides who exits after each segment (one fetch
-  per level); survivors are gathered into the next bucket (32/128/512);
-- ``predict_fused``: no host sync until one fetch; each level at a fixed
-  capacity (calibrated survivor fractions), survivors compacted on the
-  device least confident first (stable ``argsort``), the overflow
-  force-exiting (``forced_fraction``);
-- ``predict_pooled``: level-major over a pool in ``bucket``-row slices,
-  ``predict``'s decisions, one fetch per level.
-
-``engine='bind'`` runs the trainable ``EfficientNet`` (bf16) with the given
-variables, ``'folded'`` the BN-folded per-op segments of
-``FoldedEfficientNet`` with the raw stem. ``head_mode='linear'`` (the SVC)
-or ``'knn'`` (1-NN cosine per level, confidence ``ratio * d_other_min -
-d_min``, :483-508). Everything runs on ``device``, the card unless given.
-"""
+"""Sequential early-exit inference over backbone segments (JAX
+``cascade/engine.py``): ``predict`` (host exit decisions per level),
+``predict_fused`` (static capacities, one fetch), ``predict_pooled``
+(level-major over a pool, one pool). ``engine`` 'bind' (the trainable
+``EfficientNet``) or 'folded' (``FoldedEfficientNet`` segments);
+``head_mode`` 'linear' or 'knn'. Exit heads sum in fp64."""
 
 from __future__ import annotations
 

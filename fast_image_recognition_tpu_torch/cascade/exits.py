@@ -1,14 +1,7 @@
-"""Multi-exit cascade policies over per-level embeddings (counterpart of
-``fast_image_recognition_tpu/cascade/exits.py``; tf_keras/sequential_inference.py):
-kNN exits (:483-508: 1-NN cosine, exit when every row within ``d_min /
-0.8`` shares the label), LinearSVC exits (:587-686: fixed 0.06 or tuned to
-FAR <= 1 %), BranchyNet entropy and max-softmax exits (:1079-1165), kNN
-with a final SVC (:725-773). Each level runs the whole batch in one device
-pass; a probe freezes at its first firing exit; ``break_counts`` is the
-reference's per-level printout. ``train_linear_svc`` takes scikit-learn's
-``LinearSVC`` where installed, else the JAX fallback's squared-hinge
-descent on ``device`` (``svc_descent``) from ``torch.Generator`` weights.
-"""
+"""Multi-exit cascade policies over per-level embeddings (JAX
+``cascade/exits.py``): kNN, LinearSVC, entropy and max-softmax exits.
+``train_linear_svc`` takes scikit-learn where installed, else
+``svc_descent`` on ``device`` from ``torch.Generator`` weights."""
 
 from __future__ import annotations
 

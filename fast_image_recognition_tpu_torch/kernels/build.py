@@ -1,17 +1,9 @@
-"""Build, load and launch the port's CUDA kernels.
-
-Each ``*.cu`` file in this directory exposes ``extern "C"`` launchers that
-take raw device pointers, sizes and a ``cudaStream_t`` and return a
-``cudaError_t`` value. They are compiled at first use by ``nvcc`` alone
-(no ninja, no PyTorch headers) into a shared library under
-``fast_image_recognition_tpu_torch/_build/``, named by a hash of the source,
-the headers beside it (``*.cuh``, e.g. the Hopper main loop
-``sm90_scan.cuh``) and the flags, and loaded with ``ctypes``. A failed build or a non-zero
-launch status raises; nothing falls back to the plain versions.
-
-Every launcher wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, so a run can show which kernels its main path went through.
-"""
+"""Build, load and launch the port's CUDA kernels. Each ``*.cu`` exposes
+``extern "C"`` launchers (raw pointers, sizes, a stream; a ``cudaError_t``
+back), compiled at first use by ``nvcc`` alone into ``_build/`` under a
+hash of the source, the ``*.cuh`` beside it and the flags, bound with
+``ctypes``. A failed build or launch raises. Each wrapper adds one to
+``LAUNCHES[name]`` where it launches its kernel."""
 
 from __future__ import annotations
 

@@ -1,42 +1,19 @@
-// Chi-square 1-NN scan for Hopper (sm_90a).
-//
-// `chi2_launch` replaces the Pallas TPU kernel `_chi2_kernel`
-// (fast_image_recognition_tpu/ops/chi2_kernel.py:55, launched by
-// `_chi2_block` :120), the scan of `chi2_nn`. For every query it finds the
-// gallery row, among rows [0, n_valid), with the least
+// Chi-square 1-NN scan for Hopper (sm_90a). `chi2_launch` replaces the
+// Pallas kernel `_chi2_kernel` (fast_image_recognition_tpu/ops/chi2_kernel.py:55,
+// launched by `_chi2_block` :120). Per query the row of [0, n_valid) with
+// the least
 //
 //     d = sum_k (g_k - q_k)^2 * rcp(max(g_k + q_k, 1e-30))
 //
-// and returns it as one 64-bit key `(float bits of d) << 32 | row` per
-// query. d is the unnormalized sum; the caller divides by D and may
-// rescore the winner exactly. Queries are fp32, the gallery fp32 or bf16
-// (upcast exactly on load), any D and any N.
-//
-// Reciprocal: `rcp.approx.ftz.f32` (MUFU.RCP, at most 1 ulp off the
-// rounded reciprocal; max(s, 1e-30) is a normal fp32 value, so `ftz`
-// changes nothing). A term of 0 (q_k = g_k, zero padding) stays 0.
-//
-// Ties and order: chi2 terms are >= 0 (the reciprocal of a value >=
-// 1e-30 is > 0), so the fp32 bits of d order like d, and the least key is
-// the least d at the lowest row. Every block reduces its (query, row)
-// keys to one per query in shared memory and merges it into the output
-// with one 64-bit `atomicMin`: the result does not depend on the order in
-// which blocks run, and one launch covers every query block (JAX loops
-// over query blocks of 256 on the host and rereads the gallery for each).
-//
-// Bound: one reciprocal per (query, row, feature) triple. At chi2_cost's
-// shape (1024 x 102,400 x 1536 = 1.611e11 triples) the SFU's 16
-// reciprocals per clock per SM (132 SMs at 1.98 GHz: 4.18e12/s) need
-// 38.5 ms; the ~6 fp32 operations per triple at 67 TFLOP/s 14.4 ms; one
-// read of the gallery 0.19 ms (fp32). So the reciprocals bound it, not
-// the FMAs or HBM. Design: one block owns (64 queries, 64 rows) and walks
-// D in 32-wide chunks staged in shared memory (fp32, transposed, padded
-// against bank conflicts); each thread keeps a 4 x 4 register block of
-// (query, row) sums, each summed per chunk first (two-level summation
-// keeps the fp32 error near that of a pairwise sum). Query blocks vary
-// fastest in the grid, so the blocks that read one gallery tile run
-// together and share it through L2. No cp.async pipelining yet, and one
-// reciprocal per term (a later version can share one between two terms).
+// as one 64-bit key (float bits of d) << 32 | row; the caller divides by D
+// and may rescore the winner. Queries fp32, rows fp32 or bf16 (upcast
+// exactly), any D and N. `rcp.approx.ftz.f32` is at most 1 ulp off; a term
+// of 0 stays 0. Terms are >= 0, so the bits of d order like d and the least
+// key is the least d at the lowest row; each block merges its keys with one
+// 64-bit `atomicMin` a query, so the result does not depend on block order.
+// A block owns (64 queries, 64 rows), D in 32-wide fp32 chunks in shared
+// memory, a 4 x 4 register block of sums, each summed per chunk first.
+// The SFU's reciprocals bound it (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

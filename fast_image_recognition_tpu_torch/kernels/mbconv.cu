@@ -1,67 +1,33 @@
-// Fused stride-1 MBConv block for Hopper (sm_90a).
-//
-// Replaces the Pallas TPU kernel `_mbconv_kernel`
-// (fast_image_recognition_tpu/ops/mbconv_kernel.py:82, launched by
-// `_fused_mbconv_jit` :192): one BN-folded inverted-residual block,
+// Fused stride-1 MBConv block for Hopper (sm_90a), replacing the Pallas
+// kernel `_mbconv_kernel` (fast_image_recognition_tpu/ops/mbconv_kernel.py:82,
+// launched by `_fused_mbconv_jit` :192): one BN-folded block,
 //
 //     hid = act(x @ w_exp + b_exp)            (1x1 expand, if any; else x)
 //     a   = act(depthwise_kxk_SAME(hid) + b_dw)
 //     g   = sigmoid(swish(mean_hw(a) @ w_se1 + b_se1) @ w_se2 + b_se2)  (SE, if any)
 //     y   = (a * g) @ w_proj + b_proj (+ x)   (1x1 project, residual if any)
 //
-// on activations in NHWC memory (PyTorch's channels_last), bf16 in and out.
-//
-// Bound. Per image the products are small (B0's largest, 14x14 at
-// 112->672->112, is 59 MFLOP) and the depthwise taps fewer still, so a
-// block's least time is one read of x and the weights and one write of y at
-// the memory rate, or its products at 989 TFLOP/s and its taps at 67
-// TFLOP/s of fp32 FMA, whichever is larger. This design adds one bf16 round
-// trip of the depthwise output through device memory where the block has SE
-// (2 * B*H*W*Ce bytes; 2.2 ms at the memory rate over B0's twelve blocks at
-// B = 1024, much of it served by L2).
-//
-// Design: one launch, one block of 512 threads per image (or per two at
-// 7x7), the TPU kernel's own shape (one image's plane in VMEM there). A
-// Hopper block has at most 227 KB of shared memory and B0's hidden planes
-// reach 882 KB (56x56x144), so a block walks its plane in spatial tiles (the
-// whole plane at 7x7 and 14x14) and the hidden channels in slabs of 64:
+// on NHWC (channels_last) bf16 activations. One launch, 512 threads a block
+// per image (two at 7x7); the block walks its plane in spatial tiles and the
+// hidden channels in slabs of 64:
 //  - pass 0: per (tile, slab) the expand on the tile's input box and the
 //    depthwise; with SE the depthwise output, rounded to bf16, goes to a
-//    scratch tensor in device memory and its fp32 channel sums to the pool;
-//    then the SE MLP, once per image (the gate needs every channel's pool
-//    before the first project product);
-//  - pass 1: per (tile, slab) that output comes back by TMA as the `wgmma`
-//    A tile of the project, is scaled by the gate in fp32 and rounded in
-//    place, and the project's fp32 accumulators stay in registers across
-//    the slabs; the tile's epilogue adds bias and residual and writes bf16.
-//    Without SE the one pass writes the depthwise output straight into the
-//    A tile.
-// Products: `wgmma` bf16 -> fp32, A and B from shared memory (128-byte
-// swizzle, K-major): expand m64n32k16, A = the input box (pixels x Cin),
-// B = a slab of w_exp^T (32 hidden channels x Cin); project m64n64k16, A =
-// the depthwise tile (pixels x 64 channels), B = w_proj^T's slab (Cout x
-// 64). Copies: TMA. The input box is one 4-D box of the NHWC input per 64
-// input channels: the tile's halo, out-of-image pixels landing as zeros
-// (SAME padding; the expand forces its border pixels back to zero, since
-// SAME pads the hidden tensor, not x), or, with expand and one tile, the
-// bare plane, whose hidden halo has a zero border written once. A slab's
-// depthwise weights and biases (the host's `dw_aux` layout, [slab][k*k +
-// 2][64] fp32) come by one bulk copy beside its weight boxes. Weight slabs
-// and input boxes are double-buffered where they fit; warp 0 issues step
-// n+1's copies when step n starts. With SE the two passes share one weight
-// region (pass 0 reads only w_exp^T, pass 1 only w_proj^T).
-// Threads: four warpgroups (at most 128 registers a thread), so that 16
-// warps hide the phases' latencies (two warpgroups ran ~1.5x slower); the
-// expand is split into (64-row, 32-channel) units over them, the project
-// into (64-pixel, 64-channel) tiles. The depthwise runs on the CUDA cores in
-// fp32: an item is 4 consecutive output pixels of a row, a lane a channel
-// pair, the k + 3 halo values of each kernel row loaded once for the item's
-// 4 pixels, the swish through the fast exponential and division.
-// Rounding points are the TPU kernel's (hidden bf16; depthwise, SE pool,
-// SE MLP and scale fp32; scaled hidden bf16 before the project; fp32
-// project accumulator, bias and residual; bf16 out) plus one that
+//    device scratch and its fp32 channel sums to the pool; then the SE MLP
+//    once per image (the gate needs every channel's pool);
+//  - pass 1: that output comes back by TMA as the project's `wgmma` A tile,
+//    scaled by the gate in fp32 and rounded in place; the project's fp32
+//    accumulators stay in registers across the slabs; the epilogue adds
+//    bias and residual and writes bf16. Without SE one pass writes the
+//    depthwise output straight into the A tile.
+// Products: `wgmma` bf16 -> fp32 from shared memory (128-byte swizzle,
+// K-major). The input box is one 4-D TMA box per 64 input channels with the
+// tile's halo; out-of-image pixels land as zeros and the expand forces its
+// border pixels back to zero (SAME pads the hidden tensor, not x). A slab's
+// depthwise weights and biases (`dw_aux`, [slab][k*k + 2][64] fp32) come by
+// one bulk copy. The depthwise runs on the CUDA cores in fp32.
+// Rounding points are the TPU kernel's plus one that
 // `kernels/plain.py::mbconv_plain` shares: the depthwise output is rounded
-// to bf16 before the gate.
+// to bf16 before the gate. Bounds and times: PERF.md §6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

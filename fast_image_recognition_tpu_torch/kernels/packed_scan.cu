@@ -1,61 +1,29 @@
-// Packed tile-min scans for Hopper (sm_90a): the certified min-2 scan and
-// the single-min scan.
-//
-// `tilemin2_packed_launch` replaces the Pallas TPU kernel
-// `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/distance_kernel.py:393,
-// launched by `_tilemin2_packed_block` :430); `tilemin_packed_launch`
-// replaces `_tilemin_packed_kernel` (:350, launched by `_tilemin_packed_block`
-// :607), which the early-exit cascade runs once per level. For every gallery
-// tile of `tile_g` rows (1024 for the min-2 scan; 128, 256, 512 or 1024 for
-// the single-min scan) and every query they emit the smallest (and, for the
-// min-2 scan, the second-smallest) packed int32 key
+// Packed tile-min scans for Hopper (sm_90a). `tilemin2_packed_launch`
+// replaces `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/distance_kernel.py:393,
+// launched by `_tilemin2_packed_block` :430), `tilemin_packed_launch`
+// replaces `_tilemin_packed_kernel` (:350, launched by
+// `_tilemin_packed_block` :607). Per gallery tile of `tile_g` rows and
+// query, the least (min-2: and second-least) packed int32 key
 //
 //     key = (f32 bits of q_aug . g_aug) & ~(tile_g - 1) | row_in_tile
 //
-// where the augmented columns ([-2q, 1, 1, |q|^2_hi, |q|^2_lo] against
-// [g, |g|^2_hi, |g|^2_lo, 1, 1], see ops/distance_kernel.py) make the dot
-// the full squared L2 distance. Distances are >= 0 up to rounding, so their
-// bit patterns order as int32 and one integer min carries value and argmin;
-// a slightly negative distance has the sign bit set and sorts below every
-// positive key, as on the TPU. Pad rows carry |g|^2 = 1e38 and never win.
-// Equal keys cannot occur within a tile (the row bits differ), so the order
-// is (quantized distance, row) whatever the order of the reduction.
+// where the augmented columns make the dot the squared L2 distance
+// (ops/distance_kernel.py). Distances are >= 0 up to rounding, so their
+// bits order as int32 and one integer min carries value and argmin; a
+// slightly negative one sorts below every positive key, as on the TPU. Pad
+// rows carry |g|^2 = 1e38 and never win. Keys within a tile differ in
+// their row bits, so the order is (quantized distance, row).
 //
-// Bound: at B = 1024, Np = 1,000,448, Da = 128 the work is 2*B*Np*Da = 262 GFLOP of
-// bf16 tensor-core products against 256 MB of gallery: operations bound
-// (0.265 ms at 989 TFLOP/s vs 0.076 ms at 3.35 TB/s); at the cascade's
-// survivor batches of a few hundred queries it is bytes bound.
-//
-// Both scans are one kernel, `tilemin_packed_sm90<TWO, TILE_G>`, on the
-// main loop of sm90_scan.cuh. A block keeps 128 queries resident in shared
-// memory (TMA, once) as the `wgmma` A operand of two consumer warpgroups,
-// and streams its run of 256-row sub-tiles through a 4-stage TMA ring in
-// [256 rows x 64 features] boxes, the N side of m64n256k16 products.
-// Resident queries take 16 KB per 64 lanes and fit beside two ring stages
-// up to Da = 640; above it `tilemin_packed_stream_sm90<TWO, TILE_G>` takes
-// over, the same scan with each ring stage carrying the 64-lane chunk of
-// the queries beside the gallery box (as `topk_pass1_sm90` and
-// `tilemin_quant_sm90` do), so Da has no limit. The
-// epilogue stays in registers: each thread turns its accumulators into
-// keys and keeps, for its two query rows, the least key (TWO: the two
-// least, three integer min/max a key) of the current tile; at the tile's
-// end the 4 lanes of a row combine with shuffles and one key (pair) per
-// (query, tile) is written. A block's run is of units of whole tiles: a
-// tile of 256 to 1024 rows (1 to 4 sub-tiles), or at tile_g 128 one
-// sub-tile whose thread columns 8 j + 2 (t % 4) + c split at j = 16 into
-// its two tiles. The grid is (query tiles, runs) sized to one block per SM,
-// the query tiles of a run side by side, so one wave reads the gallery
-// from HBM about once and from L2 once per query tile, and a batch of one
-// or two query tiles (the cascade's survivors) still spreads the gallery
-// over every SM. TMA zero-fills the queries past B and the rows past the
-// gallery (the second tile of a last unit past it is never written). The
-// min-2 scan's 10^9 keys cost integer work comparable to the products, so
-// the epilogue's instruction slots, not HBM, are what it spends beside the
-// tensor cores; the single-min scan does a third of that work. The
-// epilogue is issue-bound and sensitive to how it compiles: the loop keeps
-// the shape of the first sm90 min-2 kernel (tile, then sub-tile, row =
-// sub * 256 + column), which ran faster on the card than a flat loop over
-// sub-tiles with the same instruction mix.
+// One kernel, `tilemin_packed_sm90<TWO, TILE_G>`, on sm90_scan.cuh: 128
+// queries resident in shared memory as the `wgmma` A operand (up to Da =
+// 640; above it `tilemin_packed_stream_sm90` streams them through the ring
+// beside the gallery), 256-row sub-tiles through a 4-stage TMA ring. The
+// epilogue stays in registers and writes one key (pair) per (query, tile).
+// At tile_g 128 one sub-tile splits at column group 16 into its two tiles.
+// The grid is (query tiles, runs) sized to one block per SM. The epilogue
+// is issue-bound and sensitive to how it compiles: keep the loop's shape
+// (tile, then sub-tile, row = sub * 256 + column) unless an A/B on the card
+// says otherwise (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,37 +1,24 @@
-// The Hopper main loop shared by the gallery scans (kernels/topk_l2.cu
-// `topk_l2_launch`, kernels/packed_scan.cu `tilemin2_packed_launch` and
-// `tilemin_packed_launch`, kernels/tile_scan.cu `tilemin_launch` and
-// `tilemin_quant_launch`): a ring of TMA boxes in shared
-// memory filled by one producer thread, `wgmma` products read by two
-// consumer warpgroups straight from that ring, and `mbarrier`s between
-// them. sm_90a only.
+// The Hopper main loop of the gallery scans (topk_l2.cu, packed_scan.cu,
+// tile_scan.cu): a ring of TMA boxes in shared memory filled by one
+// producer thread, `wgmma` products of two consumer warpgroups read from
+// that ring, and `mbarrier`s between them. sm_90a only.
 //
-// Layout. Every operand is a row-major [rows, cols] bf16 or int8 matrix
-// whose rows are contiguous along the contraction (queries [B, D], gallery
-// rows [N, D]): both `wgmma` operands are K-major (for int8 the only
-// layout `wgmma` takes), A = 64 queries per consumer warpgroup, B = up to
-// 256 gallery rows. A TMA box is [box_rows x 128 bytes] (64 bf16 or 128
-// int8 features a row), stored with the 128-byte swizzle (the 16-byte
-// chunk c of row r lands at chunk c ^ (r % 8) of its 128-byte line),
-// which is the layout a `wgmma` shared-memory descriptor of mode
-// SWIZZLE_128B reads: 8-row groups 1024 bytes apart, the k-th 32-byte
-// slice (16 bf16 features of a k16 product, 32 int8 features of a k32
-// one) at +32 bytes. Each line holds one row's features whatever the
-// swizzle, so a row's partial |g|^2 is the sum of squares over its line.
-// TMA fills the part of a box past the tensor's extent with zeros, which
-// covers a ragged D, B and N with no masking in the main loop. The precise
-// pass over fp32 rows (kernels/topk_l2.cu `topk_pass1_split6_sm90`) also
-// takes fp32 boxes [rows x 32] with the 128-byte swizzle and bf16 operands
-// in 64-byte lines (32 features, the 64-byte swizzle: chunk c of row r at
-// chunk c ^ ((r / 2) % 4), 8-row groups 512 bytes apart).
+// Layout: operands are row-major [rows, cols] bf16 or int8 with rows
+// contiguous along the contraction; both `wgmma` operands are K-major. A
+// box is [box_rows x 128 bytes] with the 128-byte swizzle (chunk c of row r
+// at chunk c ^ (r % 8)), the SWIZZLE_128B descriptor layout: 8-row groups
+// 1024 bytes apart, the k-th 32-byte slice at +32 bytes. A line holds one
+// row's features, so a row's partial |g|^2 is its line's sum of squares.
+// TMA zero-fills past a tensor's extent: a ragged D, B or N needs no
+// masking. The split pass over fp32 rows also takes [rows x 32] fp32 boxes
+// and 64-byte-swizzled bf16 lines (chunk c of row r at c ^ ((r / 2) % 4)).
 //
-// Pipeline. full[s] completes when stage s has landed (one arrive with
-// the expected byte count, then the TMA transactions); empty[s] completes
-// when both consumer warpgroups have released it (one arrive each, after
-// `wgmma.wait_group` shows their products of that stage are done). The
-// producer warpgroup gives its registers to the consumers (`setmaxnreg`).
-// A wait that has not completed after ~2^35 clocks traps, so a pipeline
-// fault is a launch error, not a hung card.
+// Pipeline: full[s] completes when stage s has landed (an arrive with the
+// byte count, then the TMA transactions); empty[s] when both consumer
+// warpgroups released it (after `wgmma.wait_group`). The producer gives its
+// registers to the consumers (`setmaxnreg`). A wait that has not completed
+// after ~2^35 clocks traps: a pipeline fault is a launch error, not a hung
+// card.
 
 #pragma once
 

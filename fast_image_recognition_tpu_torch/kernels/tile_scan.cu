@@ -1,91 +1,33 @@
-// Per-tile min and argmin scans for Hopper (sm_90a): the bf16 tile scan
-// and the int8 tile scan, all three on the main loop of sm90_scan.cuh
-// (TMA ring, `wgmma`, `mbarrier`s).
+// Per-tile min and argmin scans for Hopper (sm_90a) on sm90_scan.cuh.
 //
-// `tilemin_launch` replaces the Pallas TPU kernel `_tilemin_kernel`
+// `tilemin_launch` replaces `_tilemin_kernel`
 // (fast_image_recognition_tpu/ops/distance_kernel.py:174, launched by
-// `_tilemin_l2_block` :222), the PCA candidate scan of RecognitionService's
-// default `pca_scan='f32'` and of `'bf16'`. For every query and every
-// gallery tile of `tile_g` rows it emits the min and the lowest row at the
-// min of
+// `_tilemin_l2_block` :222). Per query and tile of `tile_g` rows the min
+// and the lowest row at the min of score = |g|^2 - 2 q.g (bf16 products
+// summed in fp32, |g|^2 precomputed, BIG_DIST on pad rows). `bf16_scores`
+// rounds |g|^2, 2 q.g and their difference to bf16, as the TPU kernel's
+// `score_t=bfloat16` does (a pad row's 3.4e38 becomes inf). |q|^2, the
+// clamp and the division by D are the caller's.
 //
-//     score = |g|^2 - 2 q.g
+// `tilemin_quant_launch` replaces `_tilemin_quant_kernel` (:671, launched
+// by `_tilemin_quant_block` :717): score = gsq - (2 s_q) * (cross * s_g)
+// with `cross` the exact int32 dot (`compute` int8) or the fp32 sum of the
+// same values as bf16 products (`compute` bf16). Every epilogue operation
+// rounds on its own (`__fmul_rn`, `__fsub_rn`), so scores equal the plain
+// version's bit for bit when the dots do.
 //
-// with bf16 x bf16 products summed in fp32 and |g|^2 precomputed (BIG_DIST
-// on pad rows). `bf16_scores` rounds |g|^2, 2 q.g and their difference to
-// bf16 (nearest even), as the TPU kernel's `score_t=bfloat16` does; a pad
-// row's 3.4e38 then becomes inf. |q|^2, the clamp and the division by D
-// are applied by the caller.
-//
-// `tilemin_quant_launch` replaces `_tilemin_quant_kernel` (:671, launched by
-// `_tilemin_quant_block` :717), the scan of bench.py's `--config bf --quant`,
-// `match='int8'` and `pca_scan='int8'`:
-//
-//     score = gsq - (2 s_q) * (cross * s_g)
-//
-// with int8 queries and rows, `cross` their exact int32 dot (`compute`
-// int8) or the fp32 sum of the same values as bf16 products (`compute`
-// bf16), the true |g|^2 and per-row scales (0 on pad rows). Every
-// operation of the epilogue is rounded on its own (`__fmul_rn`,
-// `__fsub_rn`: no contraction into an FMA), so the scores equal the plain
-// PyTorch version's bit for bit when the dots do.
-//
-// Bounds: at B = 1024 against 1,000,448 x 128 bf16 rows the bf16 scan is
-// 2*B*Np*D = 262 GFLOP against 256 MB: operations bound (0.265 ms at 989
-// TFLOP/s); the int8 scan at D = 1536 is 3.15e12 int8 operations against
-// 1.54 GB: 1.59 ms at 1,979 TOPS (int8 compute), 3.18 ms at 989 TFLOP/s
-// (bf16 compute); operations bound.
-//
-// `tilemin_sm90` (the bf16 scan) has the packed scans' shape
-// (kernels/packed_scan.cu): a block keeps 128 queries resident in shared
-// memory as the `wgmma` A operand of two consumer warpgroups (streamed
-// through the ring beside the gallery above D = 640, so D has no limit)
-// and runs through whole tiles of 256-row sub-tiles in [256 x 64] boxes,
-// the N side of m64n256k16 products; the grid is (query tiles, runs) sized
-// to one block per SM. Each sub-tile's |g|^2 is loaded before its
-// products and reaches shared memory after them, a copy for each
-// warpgroup, so that the two warpgroups do not wait for each other and one
-// warpgroup's epilogue overlaps the other's products. The
-// epilogue stays in registers: each thread forms the scores of its two
-// query rows at its 64 accumulator columns (fp32: one FMA, since -2 q.g is
-// exact; bf16: rounded at the TPU kernel's three places) and keeps one
-// (score, row) a row with a strict < over rising columns, starting from
-// (inf, the tile's first row), so a tile of nothing but inf scores returns
-// its first row, as the plain version does; a tile ends at the end of one
-// of the sub-tile's two 128-row halves, where the 4 lanes of a row merge
-// in (score, row) order and one (min, row) per (query, tile) is written.
-//
-// `tilemin_quant_sm90` (int8 compute) takes the same epilogue over s8
-// `wgmma` m64n256k32 products: a block owns (128 queries, a 2048-row
-// segment of whole tiles); 128 int8 queries take 192 KB at D = 1536, so
-// each stage of the 4-stage ring holds one 128-feature chunk of the
-// queries and of the sub-tile ([128 x 128] + [256 x 128] bytes).
-//
-// `tilemin_quant_bf16_sm90` (bf16 compute) computes bf16 products of the
-// int8 values summed in fp32, as the TPU kernel does after upcasting both
-// operands (not the exact int32 dot: the fp32 sums round past 2^24). The
-// gallery stays int8 from HBM to shared memory (TMA has no signed 8-bit
-// type; UINT8 maps copy the bits), which halves its bytes, and the
-// warpgroups convert it: here the gallery is the `wgmma` A operand, taken
-// from registers. Each consumer warpgroup turns its 64 rows x 16 features
-// of the landed int8 box into bf16 fragments (two 32-bit shared loads, a
-// byte permute, four int-to-float conversions and two bf16x2 packs per
-// row and k16 step) and multiplies them against 256 queries, the N side,
-// which the wrapper converted to bf16 once per call (int8 values are exact
-// in bf16) and which stream through the ring beside the gallery. A block
-// owns (256 queries, a 2048-row segment); each stage of the 2-stage ring
-// holds one 128-feature chunk: [256 x 128] bf16 queries in two 64-lane
-// boxes and [128 x 128] int8 rows. Rows now run along M, so the min over a
-// tile's rows crosses lanes: each thread takes the (score, row) min of its
-// two rows per query column, the 8 lanes that share a query column halve
-// their 64 columns three times with shuffles (each lane ends with 8
-// columns), the 8 warps' results meet in shared memory, and one consumer
-// thread per query keeps the running (min, row) of the tile.
-//
-// In every scan the blocks run query tile fastest, so the blocks that read
-// one stretch of the gallery run together and share it through L2; the
-// segments fold into the grid's x dimension, so a gallery may have any
-// number of tiles up to int32 rows.
+// `tilemin_sm90` has the packed scans' shape: 128 resident queries (streamed
+// above D = 640), 256-row sub-tiles, a (score, row) a row kept with a strict
+// < over rising columns from (inf, the tile's first row), so a tile of inf
+// scores returns its first row, as the plain version does.
+// `tilemin_quant_sm90`: s8 `wgmma` m64n256k32, a block per (128 queries, a
+// 2048-row segment), each ring stage a 128-feature chunk of queries and
+// rows. `tilemin_quant_bf16_sm90`: the int8 gallery is the `wgmma` A
+// operand, converted to bf16 fragments in registers (UINT8 tensor maps copy
+// the bits), 256 bf16 queries the N side; rows run along M, so a tile's min
+// crosses lanes (shuffles, then shared memory). Query tiles run fastest, so
+// blocks reading one stretch of the gallery share it through L2; segments
+// fold into grid x, so any number of tiles up to int32 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,106 +1,35 @@
-// Exact L2 top-k (1 <= k <= 256 a launch) for Hopper (sm_90a).
-//
-// Replaces the Pallas TPU kernel `_topk_kernel` with its `_merge_topk`
-// carry (fast_image_recognition_tpu/ops/distance_kernel.py:92 and :57,
-// launched by `_topk_l2_block` :988), in all its variants. Per query and
-// gallery row
-//
-//     d = max(|q|^2 + |g|^2 - 2 q.g, 0)
-//
+// Exact L2 top-k (1 <= k <= 256 a launch) for Hopper (sm_90a), replacing
+// the Pallas kernel `_topk_kernel` and its `_merge_topk` carry
+// (fast_image_recognition_tpu/ops/distance_kernel.py:92, :57; launched by
+// `_topk_l2_block` :988). Per query and row d = max(|q|^2 + |g|^2 - 2 q.g, 0)
 // in fp32; rows >= n_valid never enter the result; ties go to the lowest
-// global row index (the TPU kernel's masked argmin plus its carry-first
-// merge); slots beyond the valid rows stay (BIG_DIST, -1). A feature window
-// [start, end) zeroes the lanes outside it in q, in g and in |q|^2 (the
-// wrapper divides by end - start instead of D).
+// row; slots past the valid rows stay (BIG_DIST, -1). A window [start, end)
+// zeroes the lanes outside it in q, g and |q|^2 (its tensor maps start at
+// the 8-lane boundary below start: TMA zero-fills past end, the lanes below
+// start are zeroed in the staged queries).
 //
-// `topk_l2_launch`: bf16 queries and rows, bf16 x bf16 -> fp32 tensor-core
-// products; an optional per-query mask skips the query tiles that hold no
-// masked query (one launch serves an escalation that may be empty without
-// a host sync). Bound: at B = 1024 against 1M x 1280 bf16 the work is
-// 2*B*N*D = 2.6 TFLOP against 2.6 GB: operations bound (2.65 ms at 989
-// TFLOP/s vs 0.78 ms at 3.35 TB/s). Pass 1, `topk_pass1_sm90`, is built
-// on the main loop of sm90_scan.cuh:
-//  - a block owns (128 queries, a 2048-row gallery segment): two consumer
-//    warpgroups of 64 queries are the `wgmma` M side, 256 gallery rows
-//    (128 for k > 1) the N side; each stage of the 4-stage TMA ring holds
-//    one 64-feature chunk of both. The segment is short so that one
-//    active query tile (a partial escalation) still runs ~4 waves of
-//    blocks on 132 SMs;
-//  - the window: both tensor maps start at the 8-lane boundary below
-//    `start` and end at `end`, so TMA zero-fills every lane past the
-//    window and the loop visits only the chunks that meet it; the few
-//    lanes below `start` are zeroed in the staged queries (then the cross
-//    term needs no gallery masking) and skipped in the norms;
-//  - |g|^2 is summed from the landed tiles by the consumers while their
-//    products run (one row a thread, conflict-free through the swizzle),
-//    |q|^2 the same way during the first sub-tile;
-//  - the epilogue stays in registers: each thread forms d for its two
-//    query rows at its accumulator columns, keeps its best (d, row) (k = 1)
-//    or a register top-K (k > 1), and merges over the 4 lanes of a row
-//    with shuffles (k = 1) or through shared memory (k > 1) once per
-//    segment. No fp32 product tile goes through shared memory.
-// Past the tensor cores, what holds it back is by estimate shared memory:
-// per stage the TMA writes, the `wgmma` operand reads and the norm reads
-// come to ~1.2x the product time at 128 bytes per clock. The gallery is
-// read from L2 once per query tile.
+// `topk_l2_launch` (bf16): pass 1 `topk_pass1_sm90` on sm90_scan.cuh, a
+// block per (128 queries, 2048-row segment), |g|^2 and |q|^2 summed from the
+// landed tiles, the epilogue in registers; a per-query mask skips the query
+// tiles with no masked query (an escalation that may be empty, no host
+// sync). `topk_l2_precise_launch` (the fp32 oracle): `split_queries` makes
+// three bf16 planes of each query (hi + mid + lo = q to ~2^-27); Hopper
+// truncates as it accumulates, so each chunk's products go to a fresh
+// accumulator, smallest first, added into fp32 registers. bf16 rows take
+// three products a chunk (`topk_pass1_split_sm90`); fp32 rows are split
+// the same way by the producer warpgroup (64-byte-swizzled bf16 planes,
+// |g|^2 from the fp32 values) and take the six products whose weight
+// reaches fp32: hi.lo, lo.hi, mid.mid, hi.mid, mid.hi, hi.hi
+// (`topk_pass1_split6_sm90`).
 //
-// `topk_l2_precise_launch` (`precise=True`, the fp32 oracle): fp32 queries
-// against rows stored in bf16 or in fp32, with the arithmetic of the TPU
-// kernel's HIGHEST-precision dot, exact bf16 products on the tensor cores.
-// `split_queries` splits each fp32 query into three bf16 terms, hi =
-// bf16(q), mid = bf16(q - hi), lo = bf16(q - hi - mid), so that hi + mid +
-// lo is q to ~2^-27 relative. Hopper adds into its fp32 accumulator with
-// truncation, so each feature chunk's products go to a fresh accumulator,
-// smallest first, that is then added into fp32 registers (IEEE).
-//  - bf16 rows (every line that runs the oracle): a row is one term, so a
-//    64-feature chunk takes three products, g.q_lo + g.q_mid + g.q_hi
-//    (`topk_pass1_split_sm90`, the bf16 main loop with the three query
-//    planes in each ring stage). Bound: 3 x 2.6 TFLOP at 989 TFLOP/s,
-//    7.95 ms at 1024 x 1M x 1280.
-//  - fp32 rows: each row is split into three terms the same way, on the
-//    chip, and a 32-feature chunk takes the six products of terms whose
-//    weight reaches fp32: hi.lo, lo.hi, mid.mid (~2^-16 of hi.hi), hi.mid,
-//    mid.hi (~2^-8), hi.hi; the three dropped (mid.lo, lo.mid, lo.lo) sum
-//    to under 2^-25 of sum |q g| (`topk_pass1_split6_sm90`). The producer
-//    warpgroup loads the fp32 row boxes by TMA into a ring of their own and
-//    splits them, one thread a row, into three bf16 planes in the
-//    64-byte-swizzled layout `wgmma` reads, summing |g|^2 from the fp32
-//    values on the way: the rows are read from device memory once per
-//    query tile and nothing else is written there. Bound: 6 x 2.6 TFLOP at
-//    989 TFLOP/s, 15.90 ms at 1024 x 1M x 1280 (the rows' 5.12 GB take
-//    1.53 ms at 3.35 TB/s). Past the tensor cores the split holds it
-//    back: one producer warp a sub-partition loads, splits and stores
-//    every row beside the consumers' operand reads (~1.75x the bound on an
-//    H100 SXM at 700 W; without the split it ran near the tensor rate).
-//
-// Pass 2 (both): one warp per query merges its n_seg segment lists into
-// the final top-k. K is a compile-time power of two >= k; for k <= 16 the
-// lists stay in registers.
-//
-// k > 16 (K = 32 to 256): a register list per thread no longer fits. Each
-// (query, segment) list of K lives in the pass-1 scratch row it ends in;
-// one warp owns it, and per sub-tile the candidates go 32 at a time against
-// the list's last entry (kept in shared memory); only those that beat it
-// are inserted, in (d, row) order, into the list spread over the warp's
-// lanes (`WarpList`). After the first K rows of a segment few candidates
-// pass. bf16: `topk_pass1_sm90_lists`, the bf16 pass's main loop (128
-// queries x an 8192-row segment, 128-row sub-tiles) with this epilogue, a
-// separate kernel so that the k <= 16 kernels keep their text; each
-// consumer warp writes the distances of its 16 accumulator rows to shared
-// memory and merges them into those queries' lists. precise: both split
-// passes with the same epilogue. Pass 2 merges the n_seg lists of a query
-// the same way in one warp.
-//
-// A larger k is scanned in slabs of at most 256 (the caller's loop,
-// ops/distance_kernel.py `topk_l2`): each slab passes the list kernels a
-// per-query floor, the previous slab's last (d, row), and they admit only
-// candidates strictly after it. Every launch computes the same d for a
-// row, so the slabs neither overlap nor leave gaps.
-//
-// The grid is (query tiles, segments); a gallery of more than 65,535
-// segments is scanned by several launches of at most 65,535 segment rows
-// each (`seg_base`), so rows are limited only by int32, as in the JAX
-// package.
+// Pass 2: one warp per query merges its segment lists. K is a power of two
+// >= k; k <= 16 keeps lists in registers; k > 16 keeps each (query,
+// segment) list in the pass-1 scratch row it ends in, one warp merging
+// candidates 32 at a time against its last entry (`WarpList`). k > 256 is
+// scanned in slabs (ops/distance_kernel.py `topk_l2`), each admitting only
+// candidates strictly after the previous slab's last (d, row). More than
+// 65,535 segments run as several launches (`seg_base`). Bounds and times:
+// PERF.md §6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

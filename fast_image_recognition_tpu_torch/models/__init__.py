@@ -1,8 +1,67 @@
-"""Backbones of the port (EfficientNet B0-B7 so far)."""
+"""The port's backbone zoo (JAX ``models/__init__.py``): EfficientNet
+B0-B7 and InceptionResNetV2; the other zoo names raise."""
 
+from typing import Any, Dict, Optional
+
+import torch
+
+from fast_image_recognition_tpu_torch.device import DeviceLike
+from fast_image_recognition_tpu_torch.models import efficientnet as _eff
 from fast_image_recognition_tpu_torch.models.efficientnet import (  # noqa: F401
+    VARIANTS,
     EfficientNet,
-    backbone_info,
     create_efficientnet,
     default_taps,
 )
+from fast_image_recognition_tpu_torch.models.inception_resnet import (  # noqa: F401
+    INCEPTION_RESNET_EMBED_DIM,
+    InceptionResNetV2,
+    create_inception_resnet_v2,
+    default_taps_inception_resnet,
+)
+
+_IRV2 = "inception_resnet_v2"
+
+
+def _not_ported(name: str) -> None:
+    """JAX's other zoo members raise ``NotImplementedError``, unknown names
+    ``ValueError`` (JAX :123)."""
+    if name.startswith(("mobilenetv1", "mobilenetv2")) or name in (
+            "inception_v3", "resnet50", "resnet50v2", "resnet101v2", "resnet152v2", "vgg19"):
+        raise NotImplementedError(f"backbone {name!r} is not ported yet: ROADMAP.md §1 queue 2")
+    raise ValueError(f"unknown backbone {name!r}")
+
+
+def backbone_info(name: str) -> Dict[str, Any]:
+    """Static facts about a zoo member (JAX :37-123): resolution,
+    embedding dim, default taps, family and preprocess."""
+    if name in VARIANTS:
+        return _eff.backbone_info(name)
+    if name == _IRV2:
+        return dict(family=_IRV2, variant=_IRV2, resolution=299, embedding_dim=INCEPTION_RESNET_EMBED_DIM,
+                    taps=default_taps_inception_resnet(), preprocess="tf")
+    _not_ported(name)
+
+
+def build_backbone(name: str, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16):
+    """Module for a zoo name, weights not drawn (JAX :126-159)."""
+    if name in VARIANTS:
+        return EfficientNet(variant=name, num_classes=num_classes, dtype=dtype)
+    if name == _IRV2:
+        return InceptionResNetV2(num_classes=num_classes, dtype=dtype)
+    _not_ported(name)
+
+
+def create_backbone(name: str, num_classes: int = 0, seed: int = 0, resolution: Optional[int] = None,
+                    device: DeviceLike = None, dtype: torch.dtype = torch.bfloat16):
+    """``(module on device, flax-layout numpy variables)`` with flax's
+    default init drawn from ``seed`` (JAX :162-216)."""
+    if name in VARIANTS:
+        return create_efficientnet(name, num_classes, seed, resolution, dtype, device)
+    if name == _IRV2:
+        return create_inception_resnet_v2(num_classes, seed, resolution or 299, dtype, device)
+    _not_ported(name)
+
+
+def default_taps_for(name: str):
+    return backbone_info(name)["taps"]

@@ -1,22 +1,8 @@
-"""EfficientNet B0-B7 (counterpart of
-``fast_image_recognition_tpu/models/efficientnet.py``): the static
-configuration (``VARIANTS``, ``round_filters``, ``round_repeats``,
-``block_plan``, ``default_taps``, the preprocessing constants and
-``preprocess_images``) and the module itself (``SqueezeExcite``,
-``MBConv``, ``EfficientNet``, ``create_efficientnet``).
-
-The module is the flax one at inference: bf16 convolutions with TF
-``'SAME'`` padding (asymmetric at stride 2), BatchNorm over running
-statistics in fp32 (eps 1e-3) rounded back to the module's dtype, swish,
-and segments (``stem``, ``run_blocks``, ``head_pool``) that the early-exit
-engine chains. It holds fp32 weights and casts them at each call, as flax
-does. ``load_variables`` takes the flax ``{'params', 'batch_stats'}``
-numpy trees (HWIO kernels) and ``export_variables`` gives them back, so
-``models/inference.py::fold_backbone`` folds the port's own init.
-Training (``train=True``: batch statistics, dropout, stochastic depth) is
-not ported and raises. Activations are NCHW in ``channels_last`` memory;
-``forward`` and ``stem`` take NHWC images, as the JAX module does.
-"""
+"""EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the static plan
+and the module at inference (bf16 convs with TF 'SAME' pads, BN over
+running statistics in fp32 rounded to the module's dtype, fp32 weights
+cast at each call). ``load_variables``/``export_variables`` take the flax
+numpy trees; ``train=True`` raises."""
 
 from __future__ import annotations
 

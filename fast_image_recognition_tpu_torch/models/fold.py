@@ -1,14 +1,114 @@
-"""Serving-function dispatch (counterpart of
-``fast_image_recognition_tpu/models/fold.py`` ``make_serving_fn``,
-MBConv/EfficientNet branch only)."""
+"""Variables-level BN fold and the serving entry (JAX ``models/fold.py``).
+
+``fold_variables`` folds each BN into the conv that feeds it (paired by
+name, ``bn`` -> ``conv``) in fp64 on the host and leaves the BN neutral
+(``mean 0, var 1 - eps, scale 1, bias c``); a BN with no conv keeps its
+affine map. ``fold_tf_preprocess_into_valid_stem`` folds ``x/127.5 - 1``
+into a VALID stem: ``conv(x, W/127.5) - sum(W)``, exact because every VALID
+output pixel sees the whole kernel."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, TF_MODE_STD
-from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, make_infer_fn
+import numpy as np
+import torch
+from torch import nn
+
+from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from fast_image_recognition_tpu_torch.models.efficientnet import (
+    MEAN_RGB,
+    STDDEV_RGB,
+    TF_MODE_MEAN,
+    TF_MODE_STD,
+    EfficientNet,
+    preprocess_images,
+)
+from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
+from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+
+
+def bn_fold_eps(model) -> float:
+    """The family's BN epsilon; ``model`` is a module or its class name."""
+    return 1.001e-5 if (model if isinstance(model, str) else type(model).__name__) == "ResNet" else 1e-3
+
+
+def _to_plain(node):
+    try:
+        items = node.items()
+    except AttributeError:
+        return np.asarray(node)
+    return {k: _to_plain(v) for k, v in items}
+
+
+def fold_variables(model, variables, eps: Optional[float] = None):
+    """New ``{'params', 'batch_stats'}`` numpy trees of the same structure
+    with every BN folded (JAX ``fold_variables``, :79-148)."""
+    if eps is None:
+        eps = bn_fold_eps(model)
+    if "batch_stats" not in variables:
+        return variables
+    params, stats = _to_plain(variables["params"]), _to_plain(variables["batch_stats"])
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+
+    def walk(p_node, s_node):
+        for key, s_child in list(s_node.items()):
+            if not (isinstance(s_child, dict) and {"mean", "var"} <= set(s_child)
+                    and not isinstance(s_child["mean"], dict)):
+                if isinstance(s_child, dict):
+                    walk(p_node[key], s_child)
+                continue
+            bn_p = p_node[key]
+            s = f64(bn_p["scale"]) / np.sqrt(f64(s_child["var"]) + eps)
+            c = f64(bn_p["bias"]) - f64(s_child["mean"]) * s
+            conv = p_node.get(key.replace("bn", "conv")) if "bn" in key else None
+            s_mul, c_add = s, c  # affine-only where no conv feeds the BN
+            if isinstance(conv, dict) and "kernel" in conv and conv["kernel"].shape[-1] == s.shape[0]:
+                conv["kernel"] = (f64(conv["kernel"]) * s).astype(np.float32)
+                s_mul = 1.0
+                if "bias" in conv:
+                    conv["bias"] = (s * f64(conv["bias"]) + c).astype(np.float32)
+                    c_add = np.zeros_like(c)
+            bn_p["scale"] = np.broadcast_to(np.asarray(s_mul, np.float32), c.shape).copy()
+            bn_p["bias"] = np.asarray(c_add, np.float32)
+            s_child["mean"] = np.zeros(c.shape, np.float32)
+            s_child["var"] = np.full(c.shape, 1.0 - eps, np.float32)
+
+    walk(params, stats)
+    return {**variables, "params": params, "batch_stats": stats}
+
+
+def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("stem", "conv1"),
+                                       scale: float = 127.5):
+    """Fold ``x/scale - 1`` into the VALID stem conv of a tree that
+    ``fold_variables`` already folded (JAX :151-182)."""
+    params = _to_plain(variables["params"])
+    node = params
+    for p in stem_path:
+        node = node[p]
+    k = np.asarray(node["conv"]["kernel"], np.float64)
+    node["conv"]["kernel"] = (k / scale).astype(np.float32)
+    bn = node["bn"]
+    bn["bias"] = (np.asarray(bn["bias"], np.float64) - k.sum(axis=(0, 1, 2))).astype(np.float32)
+    return {**variables, "params": params}
+
+
+class ServingModule(nn.Module):
+    """Raw uint8 NHWC images -> ``{'embedding', 'taps'}`` through ``net``:
+    resized to ``resolution`` where the size differs, normalized with
+    ``mean``/``std`` unless the preprocess is folded into the stem
+    (``mean=None``)."""
+
+    def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None):
+        super().__init__()
+        self.net, self.resolution, self.taps, self.mean, self.std = net, int(resolution), tuple(taps), mean, std
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        r, x = self.resolution, images
+        if self.mean is not None or x.shape[1] != r or x.shape[2] != r:
+            x = preprocess_images(x, r, self.mean or (0.0,) * 3, self.std or (1.0,) * 3)
+        out = self.net(x, taps=self.taps, include_logits=False)
+        return {"embedding": out["embedding"], "taps": out["taps"]}
 
 
 def make_serving_fn(
@@ -17,21 +117,31 @@ def make_serving_fn(
     resolution: Optional[int] = None,
     taps: Sequence[str] = (),
     device: DeviceLike = None,
-) -> FoldedEfficientNet:
-    """Folded bf16 serving module on ``device``: raw uint8 NHWC images ->
-    ``{'embedding', 'taps'}``, through :func:`make_infer_fn` with the
-    family's preprocess constants (TF_MODE_* for ``preprocess == 'tf'``).
-    ``variables`` holds the numpy ``params``/``batch_stats`` trees of a
-    checkpoint."""
-    if info.get("family") != "efficientnet":
-        raise NotImplementedError(
-            f"family {info.get('family')!r} is not ported; only EfficientNet serves"
-        )
+    folded: bool = True,
+) -> nn.Module:
+    """The serving module on ``device`` for a zoo member and its numpy
+    ``params``/``batch_stats`` (JAX :185-255): MBConv families through
+    :func:`make_infer_fn`, InceptionResNetV2 BN-folded with the 'tf'
+    preprocess in its stem, on raw images. ``folded=False`` keeps BN and
+    the explicit preprocess (EfficientNet's trainable module)."""
+    family, dev = info.get("family"), resolve_device(device)
+    res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")
-    if pp not in ("torch", "tf"):
-        raise NotImplementedError(f"preprocess {pp!r} is not ported")
-    mean, std = (TF_MODE_MEAN, TF_MODE_STD) if pp == "tf" else (None, None)
-    return make_infer_fn(
-        variables, info["variant"], taps=taps, resolution=int(resolution or info["resolution"]),
-        mean=mean, std=std, device=device,
-    )
+    tf = pp == "tf"
+    if family not in ("efficientnet", "inception_resnet_v2") or pp not in ("torch", "tf"):
+        raise NotImplementedError(f"family {family!r} ({pp!r} preprocess) is not ported yet: ROADMAP.md §1 queue 2")
+    variables = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    if family == "efficientnet" and folded:
+        mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (None, None)
+        return make_infer_fn(variables, info["variant"], taps=taps, resolution=res, mean=mean, std=std, device=dev)
+    mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (MEAN_RGB, STDDEV_RGB)
+    if family == "efficientnet":
+        net = EfficientNet(info["variant"]).load_variables(variables).to(dev)
+    elif not folded:
+        net = InceptionResNetV2().load_variables(variables).to(dev)
+    else:
+        variables = fold_tf_preprocess_into_valid_stem(fold_variables("InceptionResNetV2", variables))
+        net = InceptionResNetV2(folded=True).load_variables(variables)
+        net = net.to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+        mean = std = None
+    return ServingModule(net, res, taps, mean, std).eval()

@@ -1,19 +1,8 @@
-"""Folded EfficientNet serving forward (counterpart of
-``fast_image_recognition_tpu/models/inference.py``: ``fold_backbone``,
-``fold_preprocess_into_stem``, ``fold_stem_space_to_depth``, the folded
-stem, blocks and head, ``folded_forward`` and ``make_infer_fn``).
-
-Every inference BatchNorm is folded into its conv in float64 on the host,
-and the ``(x - mean) / std`` preprocess into the stem (raw uint8 images; a
-constant correction map keeps the fold exact at the SAME-padding borders).
-Images of another size take the explicit path: resize, normalize, raw
-stem. ``fused=True`` sends every stride-1 MBConv block to
-``ops.mbconv_kernel`` (the CUDA kernel on the card); stride-2 blocks and
-:meth:`run_blocks` stay per-op, as in JAX. The public surface keeps JAX's
-NHWC images and HWIO weights; the module runs NCHW in ``channels_last``
-with OIHW weights and pads every conv explicitly (TF "SAME" is asymmetric
-at stride 2).
-"""
+"""Folded EfficientNet serving forward (JAX ``models/inference.py``): BN
+folded into the convs in fp64 on the host, the ``(x - mean) / std``
+preprocess into the stem (a correction map keeps it exact at the SAME
+borders), ``fused=True`` sends the stride-1 blocks to the fused MBConv
+kernel. NCHW in ``channels_last`` with explicit TF "SAME" pads."""
 
 from __future__ import annotations
 
@@ -217,22 +206,10 @@ class _FusedBlock(nn.Module):
 
 
 class FoldedEfficientNet(nn.Module):
-    """BN- and preprocess-folded EfficientNet forward on raw images.
-
-    ``forward(images)``: uint8 (or 0..255 float) NHWC ``[B, R', R', 3]`` ->
-    ``{'embedding': [B, F] fp32 pooled features, 'taps': {name: [B, C] fp32}}``.
-    At the module's resolution with the preprocess folded (``stem_pp_w``)
-    the stem reads the raw images (``folded_stem_pp``; with ``stem_s2d_w``
-    as a space-to-depth conv); otherwise the images are resized to the
-    resolution and normalized with ``mean``/``std`` first
-    (``preprocess_images`` + ``folded_stem``). ``fused=True`` runs the
-    stride-1 blocks of :meth:`forward` through the fused MBConv kernel.
-    The segment primitives :meth:`stem`, :meth:`run_blocks` and
-    :meth:`head` run the same forward in pieces, per-op (the early-exit
-    cascade runs stem -> blocks ``[0, e0)`` -> ``[e0, e1)`` -> ... -> head
-    on a shrinking batch); their activations are NCHW in ``channels_last``
-    memory.
-    """
+    """BN- and preprocess-folded EfficientNet on raw uint8 NHWC images ->
+    ``{'embedding', 'taps'}``; images of another size are resized and
+    normalized first. :meth:`stem`, :meth:`run_blocks` and :meth:`head` are
+    the per-op segments the early-exit cascade chains."""
 
     def __init__(
         self,

@@ -1,16 +1,8 @@
-"""Gallery scans of the serving paths (counterpart of
-``fast_image_recognition_tpu/ops/distance_kernel.py``: the packed, bf16 and
-int8 tile scans, the candidate selections built on them, and the exact
-top-k with its feature window and fp32 ``precise`` mode).
-
-Each wrapper runs the hand-written CUDA kernel (``kernels/*.cu``) on a CUDA
-tensor and its plain PyTorch version (``kernels/plain.py``) on a CPU
-tensor; any other device raises. Shapes, padding and the augmented layouts
-live here, in Python the CPU tests reach. A gallery may carry
-:func:`pad_cols` zero columns past its queries' width; on the card its
-width must be a multiple of 8 lanes (16 for the int8 scans), so a caller
-pads it once where it is built.
-"""
+"""Gallery scans of the serving paths (JAX ``ops/distance_kernel.py``).
+Each wrapper runs its CUDA kernel (``kernels/*.cu``) on a CUDA tensor and
+its plain version (``kernels/plain.py``) on a CPU tensor; any other device
+raises. On the card a gallery's width is a multiple of 8 lanes (16 for
+int8): :func:`pad_cols` pads it once."""
 
 from __future__ import annotations
 

@@ -1,21 +1,7 @@
-"""Fused stride-1 MBConv block (counterpart of
-``fast_image_recognition_tpu/ops/mbconv_kernel.py``: ``_same_pads``,
-``_act``, ``fused_mbconv``).
-
-One folded inverted-residual block per call: expand 1x1 (if any),
-depthwise k x k SAME, squeeze-excite (if any), project 1x1, residual (if
-any). On a CUDA tensor it runs ``kernels/mbconv.cu`` (one launch, a block
-per image walking its plane in spatial tiles and its hidden channels in
-slabs); on a CPU tensor the plain version
-``kernels/plain.py::mbconv_plain``. It is opt-in, as in the JAX package:
-``make_infer_fn(fused=True)`` sends the stride-1 blocks here and keeps the
-stride-2 ones on the per-op path.
-
-Activations are NCHW tensors in ``channels_last`` memory (physically
-NHWC); the kernel reads that memory in place. The geometry the kernel
-takes (SAME pads, its spatial tile and the shared memory that tile needs)
-is computed here, where the CPU tests reach it.
-"""
+"""Fused stride-1 MBConv block (JAX ``ops/mbconv_kernel.py``): on a CUDA
+tensor ``kernels/mbconv.cu``, on a CPU tensor ``plain.mbconv_plain``; the
+kernel's geometry (pads, tile plan, shared memory) is computed here.
+Activations are NCHW in ``channels_last`` memory."""
 
 from __future__ import annotations
 

@@ -1,23 +1,9 @@
-"""Mesh-sharded gallery search with a top-k merge (counterpart of
-``fast_image_recognition_tpu/parallel/sharded_gallery.py``).
-
-The gallery is split on N into one shard per device of the mesh's gallery
-axes; each shard runs the exact scan (``topk_l2``, ``kernels/topk_l2.cu``)
-or the packed PCA scan (``kernels/packed_scan.cu``) with a shard-local
-exact rescore, and only each shard's k (distance, global row) pairs per
-query are copied to the first shard's device and merged. One process
-holds every shard and launches the shards one after another, as
-``jax.shard_map`` does from one controller; launches are asynchronous, so
-shards on different cards overlap. Several axes flatten first-axis-major,
-as ``jax.lax.all_gather`` over them does.
-
-Merge: the shard-major ``[B, S*k]`` pairs, a stable sort by distance
-(``lax.top_k(-d)``: ties to the lower position, which is the lower global
-row, since each shard's list is in (distance, row) order). As in JAX, a
-slot past a shard's valid rows (-1) passes ``i < n_valid`` and becomes
-``shard * rows - 1`` at ``BIG_DIST / width``; shard 0's own -1 slots sort
-first among those, so the output shows -1 there.
-"""
+"""Mesh-sharded gallery search (JAX ``parallel/sharded_gallery.py``): one
+shard per device, each scanned there (``topk_l2`` or the packed PCA scan
+with a shard-local rescore), launched one after another by one process;
+the shard-major ``[B, S*k]`` pairs meet on the first device in a stable
+sort (ties to the lower row). As in JAX, a shard's -1 slot passes ``i <
+n_valid`` (ROADMAP.md §3)."""
 
 from __future__ import annotations
 

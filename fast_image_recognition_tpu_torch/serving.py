@@ -1,37 +1,10 @@
-"""End-to-end recognition serving on the card (counterpart of
-``fast_image_recognition_tpu/serving.py``: ``RecognitionService``,
-``CascadeRecognitionService``, ``make_tap_embed_fn``, ``build_service`` and
-``build_cascade_service``).
-
-``RecognitionService``: per batch the BN- and preprocess-folded backbone
-on raw uint8 images, L2 normalization and a 1-NN match:
-
-- ``match='pca'``: the best row of each of the ``rescore`` nearest tiles
-  of a PCA-``pca_dim`` projection, rescored in full D. ``pca_scan``:
-  ``'f32'`` (default) and ``'bf16'``, the tile-min scan
-  (``kernels/tile_scan.cu``) with fp32 or bf16 scores; ``'int8'``, its
-  int8 version; ``'packed'`` (bench.py's main path at PCA-124), the packed
-  scans of ``kernels/packed_scan.cu``: with ``select='exact'`` and an
-  ``escalate`` slack the min-2 scan certifies each probe and the rest take
-  the exact scan (``kernels/topk_l2.cu``) in one masked launch, with no
-  host sync; with ``escalate=None`` the single-min scan, uncertified.
-- ``match='exact'``: the exact full-D scan.
-- ``match='int8'``: the int8 full-D scan, the best rows of the
-  ``min(rescore, 16)`` nearest tiles rescored.
-- ``match='sharded'``: the gallery split over ``mesh``'s devices
-  (``parallel/sharded_gallery.py``), each shard scanned on its device
-  (``sharded_scan`` ``'exact'``, or ``'packed'``: PCA fit on the first
-  ``pca_sample`` rows, tile_g 512, shard-local rescore), merged on the first.
-
-``select='approx'`` (JAX ``lax.approx_min_k``) takes the exact selection,
-as XLA does off the TPU, and turns the certificate off.
-
-``CascadeRecognitionService``: the early-exit twin; the backbone runs in
-segments ending at exit taps, the live probes are matched after each
-(single-min packed scan, rescore) and exit when ``d1 < ratio^2 * d2``;
-survivors are compacted into the next segment's static capacity. No host
-sync per batch.
-"""
+"""End-to-end recognition serving on the card (JAX ``serving.py``):
+``RecognitionService`` (the folded backbone on raw uint8 images, L2
+normalization, a 1-NN match: ``match`` 'pca' with ``pca_scan`` 'f32',
+'bf16', 'int8' or 'packed' (certified when ``escalate`` is set), 'exact',
+'int8' or 'sharded'), ``CascadeRecognitionService`` (the early-exit twin,
+EfficientNet only), ``make_tap_embed_fn`` and the builders. No host sync
+per batch."""
 
 from __future__ import annotations
 
@@ -42,11 +15,8 @@ import numpy as np
 import torch
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import (
-    backbone_info,
-    block_plan,
-    default_taps,
-)
+from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
+from fast_image_recognition_tpu_torch.models.efficientnet import block_plan, default_taps
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet
 from fast_image_recognition_tpu_torch.ops.distance_kernel import (
@@ -69,6 +39,12 @@ from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 # gallery rows projected per step: bounds the bf16 temporaries of the fit
 _PROJECTION_ROWS = 65536
 _SHARD_TILE_G = 512  # the sharded scans' row tile (JAX serving.py:130, :279)
+
+
+def _efficientnet_only(info: Dict[str, Any]) -> None:
+    if info.get("family") != "efficientnet":
+        raise NotImplementedError(f"the cascade over {info.get('family')!r} taps is not ported yet: ROADMAP.md "
+                                  "§1 queue 2")
 
 
 def _normalize(emb: torch.Tensor) -> torch.Tensor:
@@ -105,19 +81,11 @@ def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: 
 
 
 class RecognitionService:
-    """Folded-backbone extract + device-resident gallery 1-NN.
-
-    ``variables`` holds the numpy ``params``/``batch_stats`` of a checkpoint
-    (or pass a built module as ``serving_fn``). ``gallery`` is ``[N, D]``
-    host float rows (L2-normalized) or an already padded bf16 tensor on
-    ``device`` (pass ``n_valid`` for the true row count). ``labels``
-    (optional ``[N]``) makes :meth:`identify` return labels too. The
-    defaults are the JAX package's: PCA-128, the fp32-score tile scan,
-    rescore 48. ``escalate`` applies only to ``pca_scan='packed'`` with
-    ``select='exact'`` (bench.py's main path passes ``pca_dim=124,
-    pca_scan='packed'``); after each such call ``last_escalated`` holds
-    the ``[B]`` bool mask of the probes that took the exact scan.
-    """
+    """Folded-backbone extract + device-resident gallery 1-NN (JAX
+    serving.py:50). ``gallery``: ``[N, D]`` host rows or a padded bf16 tensor
+    on ``device`` (``n_valid`` rows). The defaults are JAX's (PCA-128, f32
+    tile scan, rescore 48); after a certified call ``last_escalated`` holds the
+    ``[B]`` mask of the probes that took the exact scan."""
 
     def __init__(
         self,
@@ -135,6 +103,7 @@ class RecognitionService:
         escalate: Optional[float] = 0.05,
         n_valid: Optional[int] = None,
         pca_sample: int = 8192,
+        folded: bool = True,
         serving_fn: Optional[torch.nn.Module] = None,
         sharded_scan: str = "exact",
         mesh=None,
@@ -155,7 +124,7 @@ class RecognitionService:
             raise ValueError(f"unknown select {select!r}")
         self.select = select
         self.serve = serving_fn if serving_fn is not None else make_serving_fn(
-            variables, info, resolution=self.resolution, device=self.device
+            variables, info, resolution=self.resolution, device=self.device, folded=folded
         )
 
         self.labels = None if labels is None else np.asarray(labels)
@@ -395,6 +364,7 @@ def make_tap_embed_fn(
     normalized final embedding)`` over the folded forward: the extractor
     that builds per-level galleries. grid=1 is plain GAP, the tap embedding
     the level-gallery cascade matches on."""
+    _efficientnet_only(info)
     dev = resolve_device(device)
     net = serving_fn if serving_fn is not None else make_serving_fn(
         variables, info, resolution=resolution, device=dev
@@ -419,34 +389,15 @@ def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> L
 
 
 class CascadeRecognitionService:
-    """Early-exit recognition serving (``CascadeRecognitionService`` of the
-    JAX package, serving.py:483).
-
-    The backbone runs in segments that end at the exit ``taps``. After each
-    segment the live probes get an embedding and are matched: the packed
-    single-min scan (``kernels/packed_scan.cu``) picks the best row of each
-    of the ``rescore`` nearest tiles, those rows are rescored in full D,
-    and a probe exits when ``d1 < ratio^2 * d2``. ``d2`` is the runner-up
-    candidate (``d2_rule='row'``) or the nearest candidate of another label
-    (``'class'``, which needs ``labels``). Survivors, least confident
-    first, are compacted into the next segment's static capacity; the
-    overflow exits with this level's answer and is counted as forced.
-
-    Two modes:
-
-    - ``galleries=None`` (readout): an affine readout per tap, ridge-fit on
-      calibration images, predicts the final embedding from grid-pooled
-      tap features; every level matches against the final gallery in its
-      PCA space.
-    - ``galleries=[...]`` (level): one gallery per tap, row-aligned with
-      the final gallery; each level matches its own GAP tap embedding
-      against its own gallery, unprojected.
-
-    ``variables`` holds the numpy ``params``/``batch_stats`` of a checkpoint
-    (or pass a built module as ``serving_fn``). ``ratio`` is read at every
-    call. :meth:`identify_device` makes no host sync: capacities are
-    Python ints, from :meth:`calibrate` or a fixed default.
-    """
+    """Early-exit recognition serving (JAX serving.py:483): the backbone
+    in segments ending at the exit ``taps``; after each the live probes are
+    matched (single-min packed scan, ``rescore`` rows rescored in full D) and
+    exit when ``d1 < ratio^2 * d2`` (``d2_rule`` 'row': the runner-up;
+    'class': the nearest other label). Survivors, least confident first, fill
+    the next segment's static capacity; the overflow exits, counted as forced.
+    ``galleries=None``: ridge readouts predict the final embedding from each
+    tap; ``galleries=[...]``: one row-aligned gallery per tap. ``ratio`` is
+    read at every call; :meth:`identify_device` makes no host sync."""
 
     def __init__(
         self,
@@ -473,6 +424,7 @@ class CascadeRecognitionService:
         serving_fn: Optional[FoldedEfficientNet] = None,
         device: DeviceLike = None,
     ):
+        _efficientnet_only(info)
         self.device = resolve_device(device)
         self.info = info
         self.resolution = int(resolution or info["resolution"])
@@ -724,35 +676,22 @@ class CascadeRecognitionService:
         return idx, (None if self.labels is None else self.labels[idx]), stats
 
 
-def build_service(
-    variant: str,
-    gallery,
-    labels: Optional[np.ndarray] = None,
-    *,
-    seed: int = 0,
-    variables: Dict[str, Any],
-    **kwargs,
-) -> RecognitionService:
-    """Recognition service from a zoo variant name and a checkpoint's numpy
-    ``params``/``batch_stats``. ``seed`` seeds the JAX package's random
-    backbone init; the port does not initialize weights, so it is taken
-    for the same signature and not used."""
-    del seed
-    return RecognitionService(variables, backbone_info(variant), gallery, labels=labels, **kwargs)
+def _builder(cls, variant, gallery, labels, seed, variables, kwargs):
+    """JAX serving.py:1076-1128: ``variables=None`` draws a fresh backbone
+    from ``seed`` (on ``device``: without a card it raises)."""
+    info = backbone_info(variant)
+    if variables is None:
+        _, variables = create_backbone(variant, 0, seed=seed, device=kwargs.get("device"))
+    return cls(variables, info, gallery, labels=labels, **kwargs)
 
 
-def build_cascade_service(
-    variant: str,
-    gallery,
-    labels: Optional[np.ndarray] = None,
-    *,
-    seed: int = 0,
-    variables: Dict[str, Any],
-    **kwargs,
-) -> CascadeRecognitionService:
-    """Cascade service from a zoo variant name and a checkpoint's numpy
-    ``params``/``batch_stats``. ``seed`` is taken as in
-    :func:`build_service` and not passed on: the service's own ``seed``
-    (17) seeds its calibration noise, as in the JAX package."""
-    del seed
-    return CascadeRecognitionService(variables, backbone_info(variant), gallery, labels=labels, **kwargs)
+def build_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *, seed: int = 0,
+                  variables: Optional[Dict[str, Any]] = None, **kwargs) -> RecognitionService:
+    return _builder(RecognitionService, variant, gallery, labels, seed, variables, kwargs)
+
+
+def build_cascade_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *, seed: int = 0,
+                          variables: Optional[Dict[str, Any]] = None, **kwargs) -> CascadeRecognitionService:
+    """As :func:`build_service`; the service's own ``seed`` (17) seeds its
+    calibration noise, as in JAX."""
+    return _builder(CascadeRecognitionService, variant, gallery, labels, seed, variables, kwargs)

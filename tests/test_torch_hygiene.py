@@ -78,13 +78,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
     from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
     from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
-    from fast_image_recognition_tpu_torch.models import EfficientNet, create_efficientnet
+    from fast_image_recognition_tpu_torch.models import EfficientNet, create_backbone, create_efficientnet
+    from fast_image_recognition_tpu_torch.models import backbone_info as zoo_info
+    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
     from fast_image_recognition_tpu_torch.classifiers import FPNNClassifier, KNNClassifier, PNNClassifier
     from fast_image_recognition_tpu_torch.parallel import ShardedGalleryMatcher, gallery_mesh
     from fast_image_recognition_tpu_torch.search.projection import ProjectionIndexMatcher
     from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
 
+    _, irv2 = create_backbone("inception_resnet_v2", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     feats = torch.rand((40, 16)).numpy()
     labels = torch.arange(40).numpy() % 4
@@ -94,6 +97,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda **kw: FullMatrixDEM(feats, labels, **kw),
         lambda **kw: make_video_fusion_fn(feats, labels, 4, 2, **kw),
         lambda **kw: create_efficientnet("b0", resolution=32, **kw),
+        lambda **kw: create_backbone("inception_resnet_v2", **kw),
+        lambda **kw: build_service("inception_resnet_v2", feats[:4, :1].repeat(1536, 1), variables=None,
+                                   match="exact", **kw),
+        lambda **kw: make_serving_fn(irv2, zoo_info("inception_resnet_v2"), **kw),
         lambda **kw: SequentialInferencePipeline(EfficientNet("b0"), None, ["block5a"], [feats[:4, :1]] * 2,
                                                  [labels[:4]] * 2, **kw),
         lambda **kw: ProposedTWD(feats, labels, 4, chunk_features=8, max_features=16, **kw),
