@@ -1,14 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA H100:
-``python3 chip_smoke.py`` from the root of a checkout.
-
-It builds the CUDA kernels with ``nvcc``, holds each against its plain
-version at the paths' shapes and at edge shapes, and drives every path of
-the port at full width, each counting its own launches (README.md lists
-the phases and their gates). One line per phase; the kernels' JSON comes
-before the card's name and power limit, the last line is ``{"ok": true,
-"device": ...}``; any failure raises. One card; nothing of JAX.
-"""
+``python3 chip_smoke.py`` from the root of a checkout. It builds the
+kernels with ``nvcc``, holds each against its plain version at the paths'
+and at edge shapes, and drives every path at full width, each counting
+its own launches (README.md lists the phases and gates). The kernels' JSON
+comes before the card line; the last line is ``{"ok": true, "device":
+...}``; any failure raises. One card; nothing of JAX."""
 
 from __future__ import annotations
 
@@ -240,10 +237,10 @@ def enroll_sigma(embs, pair_imgs):
 
 
 def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
-    """A certified PCA line (bench.py's ``_bench_e2e_plain``), each step
-    counted on its own: warm-up and timed calls (1 min-2 scan and 1 masked
-    ``topk_l2`` a call), one call without a host sync, ``match='exact'``
-    and the fp32 oracle; rows >= 99 % equal to exact's, gated."""
+    """A certified PCA line (bench.py's ``_bench_e2e_plain``): timed calls
+    (1 min-2 scan and 1 masked ``topk_l2`` each), one without a host sync,
+    ``match='exact'`` and the fp32 oracle, each counted; rows >= 99 % equal
+    to exact's, gated."""
     names = (tag, "exact", "oracle") if tag == "pca" else (tag, f"{tag} exact", f"{tag} oracle")
     masks = []
 
@@ -293,12 +290,10 @@ def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
 
 def run_flagship(dev, report, launches, smi):
     """bench.py ``--config e2e --variant inception_resnet_v2 --resolution 224
-    --extract exact``, the 224 rung of scripts/flagship_ladder.py: the
-    trained IRv2@224 (``IRV2_CKPT``), 4096 unseen identities x 2 rendered
-    on the card, 1M class-structured rows of 1536 at the measured spread,
-    PCA-124 packed, rescore 48, escalate 0.05, batch 1024. Its folded and
-    ``folded=False`` embeddings agree within 0.02 of max |emb| (JAX's bound,
-    tests/test_fold_generic.py:102-115)."""
+    --extract exact``: the trained IRv2@224 (``IRV2_CKPT``), 4096 unseen
+    identities x 2, 1M class-structured rows of 1536, PCA-124 packed,
+    rescore 48, escalate 0.05, B = 1024; folded vs ``folded=False`` within
+    0.02 of max |emb| (JAX's bound, tests/test_fold_generic.py:102-115)."""
     from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.models import backbone_info
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
@@ -345,6 +340,128 @@ def run_flagship(dev, report, launches, smi):
     return dict(row, fold_rel=fold_rel, sigma=sigma, checkpoint=IRV2_CKPT)
 
 
+def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
+    """bench.py's ``_planted_gallery_device`` on the card: rows around the
+    probes' mean at their RMS spread, and a random row per probe its
+    embedding moved by ``noise_frac`` of its nearest-other-probe distance.
+    (bf16 rows [n_pad, D], labels: probe i at its row, -1 elsewhere)."""
+    b, dim = emb.shape
+    dev = emb.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = emb.double()
+    d2 = ((e * e).sum(1)[:, None] + (e * e).sum(1)[None] - 2.0 * e @ e.T).fill_diagonal_(math.inf)
+    r = d2.min(1).values.clamp_min(1e-40).sqrt().float()
+    planted = _unit(emb + noise_frac * r[:, None] * _unit(torch.randn(emb.shape, generator=gen, device=dev)))
+    c = emb.mean(0)
+    spread = max(float(((emb - c) ** 2).sum(1).mean().sqrt()), 1e-20)
+    n_pad = -(-n // 1024) * 1024
+    gal = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    for s_ in range(0, n_pad, 65536):
+        m = min(65536, n_pad - s_)
+        gal[s_ : s_ + m] = _unit(c + spread * torch.randn((m, dim), generator=gen, device=dev)).to(torch.bfloat16)
+    rows = torch.randperm(n, generator=gen, device=dev)[:b]
+    gal[rows] = planted.to(torch.bfloat16)
+    labels = np.full(n_pad, -1, np.int64)
+    labels[rows.cpu().numpy()] = np.arange(b)
+    return gal, labels
+
+
+def untrained_line(name, dev, launches, smi):
+    """bench.py ``--config e2e --variant NAME --extract exact`` untrained
+    (bench.py:378-387): the seed-0 init, BATCH random uint8 probes,
+    :func:`embedding_gallery`, PCA-124 packed, rescore 48, escalate 0.05;
+    folded vs ``folded=False`` within 0.02 of max |emb| (JAX's bound).
+    Returns the row and what the twins reuse."""
+    from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
+    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+
+    t = time.time()
+    info = backbone_info(name)
+    _, np_vars = create_backbone(name, seed=0, resolution=RES, device=dev)
+    serve = make_serving_fn(np_vars, info, resolution=RES, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=dev, dtype=torch.uint8)
+    with torch.no_grad():
+        unfolded = make_serving_fn(np_vars, info, resolution=RES, device=dev, folded=False)
+        ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
+        fold_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
+        del unfolded, ef, eu
+        emb = _unit(serve(images)["embedding"])
+    if emb.shape != (BATCH, info["embedding_dim"]) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"{name}: embeddings of shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
+    gallery, labels = embedding_gallery(GALLERY, emb)
+    kw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
+    svc = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", rescore=48, escalate=0.05, **kw)
+    exact = RecognitionService(None, info, gallery, match="exact", **kw)
+    torch.cuda.synchronize()
+    phase(f"{name}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} ({time.time() - t:.1f} s); "
+          f"fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
+    if not fold_rel <= 0.02:
+        raise AssertionError(f"{name}: folded and unfolded embeddings differ by {fold_rel:.4f} > 0.02")
+    row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi)
+    ctx = {k: row.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec")}
+    row["fold_rel"] = fold_rel
+    return row, dict(ctx, info=info, np_vars=np_vars, serve=serve, svc=svc, gallery=gallery, labels=labels,
+                     images=images)
+
+
+def run_mobilenets(dev, launches, smi, mb_report):
+    """The MobileNet lines: MobileNetV2's plain line, its fused twin (13
+    ``mbconv`` launches a call in the relu6, SE-free form), its cascade
+    (readout mode) and early-exit engine, then MobileNetV1's line."""
+    from fast_image_recognition_tpu_torch.models import create_backbone, default_taps_mobilenet
+    from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, TF_MODE_STD
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+    from fast_image_recognition_tpu_torch.serving import build_cascade_service
+
+    lines = {}
+    lines["mobilenetv2"], c = untrained_line("mobilenetv2", dev, launches, smi)
+    tf = dict(resolution=RES, fused=True, mean=TF_MODE_MEAN, std=TF_MODE_STD, device=dev)
+    serve_f = make_infer_fn(c["np_vars"], "mobilenetv2", **tf)
+    check_mbconv_blocks(c["serve"], serve_f, c["images"], mb_report)
+    net14 = make_infer_fn(create_backbone("mobilenetv2_1.4", seed=0, device=dev)[1], "mobilenetv2_1.4", **tf)
+    extra = []
+    for tag, net, cases in (("mobilenetv2", serve_f, [("block1a", 1, 15), ("block2b", 130, 15), ("block5a", 130, 15),
+                                                      ("block6b", 130, 15), ("block7a", 130, 7)]),
+                            ("mobilenetv2_1.4", net14, [("block1a", 130, 56), ("block4b", 130, 14),
+                                                        ("block5a", 130, 14), ("block5b", 1, 15),
+                                                        ("block7a", 130, 7)])):
+        for block, b, hw in cases:
+            fb = net.fused_blocks[str(net.names.index(block))]
+            extra.append((f"{tag} {block} (relu6, no SE) B={b} {hw}x{hw}", {n: getattr(fb, n) for n in fb.param_names},
+                          dict(fb.cfg), b, hw, None))
+    mb_report["edges"] = run_mbconv_cases(extra, torch.Generator(device=dev).manual_seed(29))
+    phase(f"mobilenetv2 mbconv edge shapes: {len(extra)} cases within {MB_TOL:.2e} of max |plain|, borders too")
+    del net14
+    lines["mobilenetv2_fused"] = check_fused_path(
+        c["serve"], serve_f, c["svc"], c["info"], c["gallery"], c["labels"], c["images"], c["idx"], c["idx_oracle"],
+        c["sec"], launches, dev, smi, path="mobilenetv2 fused", n_fused=13)
+    del serve_f, c["svc"]
+    t = time.time()
+    casc = build_cascade_service("mobilenetv2", c["gallery"], variables=c["np_vars"], n_valid=GALLERY, taps=TAPS,
+                                 resolution=RES, calib_total=CASCADE_CALIB, calib_batch=CASCADE_CALIB, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fracs = casc.calibrate(torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=dev,
+                                         dtype=torch.uint8), slack=SLACK)
+    phase(f"mobilenetv2 cascade built (readout, taps {TAPS}, calibrated on {CASCADE_CALIB} images): survivors="
+          f"{[round(f, 4) for f in fracs]} capacities={casc.capacities_for(BATCH)} ({time.time() - t:.1f} s)")
+    lines["mobilenetv2_cascade"], _ = run_cascade(casc, c["images"], "mobilenetv2 cascade", launches, smi,
+                                                  c["labels"], dict(exact=c["idx_exact"]), plain_sec=c["sec"],
+                                                  early=False)
+    del casc, c
+    torch.cuda.empty_cache()
+    model, variables = create_backbone("mobilenetv2", seed=0, resolution=RES, device=dev)
+    row, _ = engine_line("mobilenetv2 cascade engine", model, variables, default_taps_mobilenet(), dev, launches)
+    phase(f"mobilenetv2 cascade engine (folded, SVC exits, batch {BATCH}, {smi}): " + kv(row, *list(row)[1:])
+          + f"; no host sync; launches={launches['mobilenetv2 cascade engine']}")
+    lines["mobilenetv2_cascade_engine"] = row
+    del model, variables
+    lines["mobilenetv1"], c = untrained_line("mobilenetv1", dev, launches, smi)
+    del c
+    torch.cuda.empty_cache()
+    return lines
+
+
 def check_certified_pick(svc, emb, idx_exact):
     """The pick before escalation at the least plain fp32 rescore of its
     candidates (2^-12 relative + 1e-5). Returns its agreement with exact, %."""
@@ -360,10 +477,9 @@ def check_certified_pick(svc, emb, idx_exact):
 
 
 def check_cert_scan(svc, emb, report):
-    """Min-2 packed scan kernel vs plain on the service's augmented gallery
-    and projected probes: decoded distances and bounds within 2^-12
-    relative, each key's row rescored at its distance, rows and candidate
-    sets equal but at near-ties. Timed into ``report["tilemin2_packed"]``."""
+    """Min-2 packed scan vs plain on the service's gallery and projected
+    probes: distances and bounds within 2^-12 relative, rows rescored at
+    their keys, rows and candidate sets equal but at near-ties; timed."""
     qp = (emb - svc._mu) @ svc._w
     qa = dk._augment_queries(qp, svc.pca_dim, svc.gal_aug.shape[1])
     ga = svc.gal_aug
@@ -418,11 +534,10 @@ def check_cert_scan(svc, emb, report):
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
                row_mask=None, chunk_rows=65536):
-    """topk_l2 kernel (bf16, windowed or precise) vs plain: its rows,
-    rescored here, sit at its distances and differ from the plain picks
-    only at ties within 2^-12 relative + 1e-6 (bf16) or 2^-16 absolute
-    (precise); rows outside ``row_mask`` come back empty. Timed with a
-    ``report``."""
+    """topk_l2 (bf16, windowed or precise) vs plain: its rows, rescored,
+    sit at its distances and differ from the plain picks only at ties
+    within 2^-12 relative + 1e-6 (bf16) or 2^-16 (precise); rows outside
+    ``row_mask`` come back empty. Timed with a ``report``."""
     q = queries.to(torch.float32 if precise else torch.bfloat16).contiguous()
     lo, hi = window if window is not None else (0, q.shape[1])
     if k > build.TOPK_MAX_K:  # slabs, each a launch above the last one's floor
@@ -463,8 +578,7 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     width = hi - lo
     ms = cuda_ms(launch, reps=3)
     plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise), reps=1)
-    # yardsticks: the library's matmul of the same operands (fp32 for the
-    # oracle; the window's columns) plus topk or min
+    # yardsticks: the library's matmul of the same operands plus topk or min
     g = gallery[:n_valid]
     if precise:
         g = g.to(torch.float32)
@@ -491,11 +605,11 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
 
 
 def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None, verbose=True):
-    """bf16 (``quant=None``) or int8 (``quant=(qs, gsc, compute)``) tile scan
-    kernel vs plain: minima within 2^-16 (fp32 scores), 2^-6 (bf16 scores)
-    or 2^-12 of the cross term (int8 data, bf16 products), its rows
-    rescored at its minima and equal to the plain rows but at such ties.
-    ``report=None``: untimed. Returns (kernel minima, rows, plain minima)."""
+    """bf16 or int8 (``quant=(qs, gsc, compute)``) tile scan vs plain:
+    minima within 2^-16 (fp32 scores), 2^-6 (bf16 scores) or 2^-12 of the
+    cross term (bf16 products), its rows rescored at its minima and equal
+    to the plain ones but at such ties; timed with a ``report``. Returns
+    (kernel minima, rows, plain minima)."""
     gsq = gsq.reshape(-1)
     if quant is None:
         launch = lambda: build.launch_tilemin(q, g, gsq, tile_g, bf16_scores)  # noqa: E731
@@ -546,8 +660,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         yard_ms = cuda_ms(lambda: (q @ g.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
         b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d * 2 + np_ * 4 + b * d * 2 + b * n_tiles * 8)
     else:
-        # the library's matmul of the same operands (torch._int_mm for
-        # compute int8, bf16 for compute bf16), then the per-tile min
+        # the library's matmul of the same operands, then the per-tile min
         if quant[2] == "int8":
             yard = lambda: torch._int_mm(q, g.t()).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
         else:
@@ -626,8 +739,7 @@ def edge_data(gen, n, nv, d, b):
     g32[nv : nv + b] = q32[: n - nv]
     return g32, q32, g32.to(torch.bfloat16)
 
-# the sm90 scans at their tiles' edges: 128-query tiles, sub-tiles with
-# n_valid inside one, 64-lane chunks, windows off the 8-lane boundary
+# the sm90 scans at their tiles' edges (query tiles, sub-tiles, chunks, windows)
 SCAN_EDGE_B = (1, 127, 128, 129, 257)
 TOPK_EDGES = [(600, 100, 8), (5000, 4321, 40), (3000, 2900, 1280)]  # (rows, n_valid, D)
 TOPK_EDGE_K = (1, 2, 3, 16)
@@ -795,10 +907,9 @@ def check_sm90_edges(dev):
 
 
 def check_topk_slabs(dev):
-    """``topk_l2`` at k of :data:`TOPK_SLAB_K` (slabs above the previous
-    slab's last entry) vs the plain version in one pass, untimed: 300 x
-    100,000 rows, D 128; bf16, precise over bf16 and fp32 rows, a window, a
-    row mask. Returns the number of cases."""
+    """``topk_l2`` at k in :data:`TOPK_SLAB_K` vs plain in one pass, untimed:
+    300 x 100,000 rows, D 128; bf16, precise over bf16 and fp32 rows, a
+    window, a mask. Returns the cases."""
     gen = torch.Generator(device=dev).manual_seed(37)
     nv, b = 99_000, 300
     g32, q32, g16 = edge_data(gen, 100_000, nv, 128, b)
@@ -812,17 +923,14 @@ def check_topk_slabs(dev):
         check_topk(g32, nv, q32, k, precise=True)
     return 5 * len(TOPK_SLAB_K)
 
-# |kernel - fp64| at the split probes' matches (fp32 sums ~1e-6 off; a pass
-# without the lo term ~7.3e-6 off, which must miss by more than 1.5x this)
+# |kernel - fp64| at the split probes (fp32 sums ~1e-6; without the lo term ~7.3e-6)
 SPLIT_PROBE_TOL = 2.0**-18
 
 
 def check_split_precise(dev):
-    """The split precise pass over bf16 rows: its query planes equal
-    ``plain.split_bf16x3`` (a lo-zeroed control differs); on queries = rows
-    x (1 + 2^-9 + 2^-18) its distance is within :data:`SPLIT_PROBE_TOL` of
-    fp64, the hi + mid product's not within 1.5x that. Returns the worst
-    (kernel error, two-term error)."""
+    """The split pass over bf16 rows: planes equal ``plain.split_bf16x3``;
+    on queries = rows x (1 + 2^-9 + 2^-18) within :data:`SPLIT_PROBE_TOL` of
+    fp64, the hi + mid product not within 1.5x that. Returns both errors."""
     gen = torch.Generator(device=dev).manual_seed(41)
     n, d = 4096, 1280
     g = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
@@ -862,11 +970,9 @@ def check_split_precise(dev):
 
 
 def check_split6_precise(dev):
-    """The six-product pass over fp32 rows: on rows = a bf16 row x (1 + 2^-9
-    + 2^-18), queries half a row, its distance is within
-    :data:`SPLIT_PROBE_TOL` of fp64, the bf16-row pass's three products'
-    not within 1.5x that; query planes equal ``split_bf16x3``. Returns the
-    worst (kernel error, three-product error)."""
+    """The six-product pass over fp32 rows: on rows = a bf16 row x (1 +
+    2^-9 + 2^-18), queries half a row, within :data:`SPLIT_PROBE_TOL` of
+    fp64, three products not within 1.5x that. Returns both errors."""
     gen = torch.Generator(device=dev).manual_seed(43)
     n, d = 4096, 1280
     h = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16).float()
@@ -955,9 +1061,8 @@ def check_big_grids(dev):
 
 
 def check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report):
-    """The PCA-700 packed service (Da 768: both packed scans stream their
-    queries) over 131,072 rows of the main gallery: its min-2 scan vs plain,
-    its pick before escalation, its rows equal to ``match='exact'``'s but at
+    """The PCA-700 packed service (Da 768: streamed queries) over 131,072
+    rows: its min-2 scan vs plain, its pick, its rows equal to exact's but
     ties within 2^-12 relative + 1e-6."""
     n = 131_072
     t = time.time()
@@ -1121,11 +1226,59 @@ def cascade_breakdown(casc, images, caps, report):
     report["per_level"] = rows
     return rows
 
-# fused MBConv vs plain: same bf16 rounding points, fp32 sums in another
-# order; a flipped output rounding is 2^-8 of the largest output at most
+def run_cascade(casc, images, path, launches, smi, labels, refs, plain_sec=None, breakdown=None, early=True):
+    """A cascade line: timed calls (one ``tilemin_packed`` a level a call),
+    one without a host sync, the breakdown where asked; then a rerun with
+    the single-min scan bound to its plain version: decisions equal but at
+    near-ties, <= 1 % (>= 1 early exit with ``early``). (row, rows)."""
+    counted(lambda: casc.identify_device(images))
+    no_sync(lambda: casc.identify_device(images))
+    out, ms = timed(lambda: casc.identify_device(images))
+    check_launches(path, launches, tilemin_packed=(TIMED_CALLS + 2) * casc.num_levels)
+    packed = out.cpu().numpy()
+    b = images.shape[0]
+    idx, exit_level, forced = packed[:b].astype(np.int64), packed[b : 2 * b], int(packed[-1])
+    if packed.shape != (2 * b + 1,) or not ((idx >= 0) & (idx < casc.n_valid)).all():
+        raise AssertionError(f"{path} returned rows outside the gallery")
+    row = dict(img_s=b / ms * 1e3, ms=ms, error_pct=100.0 * float(np.mean(labels[idx] != np.arange(b))),
+               exits=[round(float(f), 4) for f in np.bincount(exit_level, minlength=casc.num_levels) / b],
+               forced=forced / b, **{f"{k}_label_agreement_pct": 100.0 * float(np.mean(labels[idx] == labels[r]))
+                                     for k, r in refs.items()})
+    if plain_sec:
+        row["speedup_over_plain"] = plain_sec / (ms / 1e3)
+    phase(f"{path} path ({smi}): " + kv(row, *row) + f"; no host sync; launches={launches[path]}")
+    if breakdown:
+        per_level = cascade_breakdown(casc, images, *breakdown)
+        phase(f"{path} breakdown per level: " + "; ".join(
+            f"L{r['level']} B={r['batch']}: segment {r['segment_ms']:.2f} ms, match {r['match_ms']:.2f} ms, "
+            f"scan {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}, {r['bound_by']})" for r in per_level))
+    caps = casc.capacities_for(b)
+    with torch.no_grad():
+        trace_k, trace_p = [], []
+        out_k = casc._run(images, caps, trace_k)
+        kernel_keys = dk.tilemin_keys
+        dk.tilemin_keys = lambda q_aug, g_aug, tile_g: plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
+        try:
+            out_p = casc._run(images, caps, trace_p)
+        finally:
+            dk.tilemin_keys = kernel_keys
+    tie = (near_ties(trace_k, caps, b) | near_ties(trace_p, caps, b)).cpu().numpy()
+    ok_k, ok_p = out_k.cpu().numpy(), out_p.cpu().numpy()
+    differ = (ok_k[:b] != ok_p[:b]) | (ok_k[b:-1] != ok_p[b:-1])
+    row["early_exits_pct"] = 100.0 * float(np.mean(ok_k[b:-1] < casc.num_levels - 1))
+    phase(f"{path} decisions, kernel vs plain scan: differ={int(differ.sum())}/{b} all_near_ties="
+          f"{bool((tie | ~differ).all())} forced={int(ok_k[-1])}/{int(ok_p[-1])} near_tie={100 * tie.mean():.3f}% "
+          f"early_exits={row['early_exits_pct']:.3f}%")
+    if not (tie | ~differ).all() or differ.mean() > 0.01 or abs(int(ok_k[-1]) - int(ok_p[-1])) > differ.sum():
+        raise AssertionError(f"{path} decisions differ from the plain scan's beyond near-ties")
+    if early and row["early_exits_pct"] == 0.0:
+        raise AssertionError(f"{path}: no probe exited before the final level")
+    return row, idx
+
+
+# fused MBConv vs plain: same bf16 roundings, fp32 sums in another order
 MB_TOL = 2.0**-6
-# (name, B0 block index, plane, plan (th, tw, group, bufs, ipb)): plans B0@224
-# never picks (12: block6b, three 64-channel output tiles; 2: block2b; 0: block1a)
+# (name, B0 block index, plane, plan (th, tw, group, bufs, ipb)): plans B0@224 never picks
 FORCED_MB_PLANS = [
     ("block6b, 3 output groups, 2 images a block", 12, 7, (7, 7, 1, 3, 2)),
     ("block6b, output groups of 2 + 1, weights single-buffered", 12, 15, (15, 15, 2, 1, 1)),
@@ -1149,8 +1302,8 @@ def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
 
 def run_mbconv_pair(x, q, cfg, plan=None):
     """Kernel (``plan`` or ``plane_plan``'s) and plain version on one input:
-    (kernel out, plain out, max |diff| / max |plain|, bit-equal share,
-    the two launchers)."""
+    (outputs, (max |diff| / max |plain|, the same over two border rows and
+    columns a side), bit-equal share, the two launchers)."""
     k = cfg["kernel"]
     pads = tuple(mb._same_pads(n, k, 1)[1:] for n in x.shape[2:])
     if plan is None:
@@ -1163,9 +1316,12 @@ def run_mbconv_pair(x, q, cfg, plan=None):
     torch.cuda.synchronize()
     if not yk.is_contiguous(memory_format=torch.channels_last) or yk.shape != yp.shape:
         raise AssertionError("the mbconv kernel's output has the wrong shape or layout")
-    rel = ((yk.float() - yp.float()).abs().max() / torch.clamp_min(yp.float().abs().max(), 1e-30)).item()
-    eq = (yk == yp).float().mean().item()
-    return yk, yp, rel, eq, run_k, run_p
+    def rel(sl):
+        return ((yk.float() - yp.float())[sl].abs().max() / torch.clamp_min(yp.float()[sl].abs().max(), 1e-30)).item()
+
+    edge = [0, 1, -2, -1]
+    border = max(rel((slice(None), slice(None), slice(None), edge)), rel((slice(None), slice(None), edge)))
+    return yk, yp, (rel(slice(None)), border), (yk == yp).float().mean().item(), run_k, run_p
 
 
 def check_mbconv_blocks(net, net_f, images, report):
@@ -1180,7 +1336,7 @@ def check_mbconv_blocks(net, net_f, images, report):
                     raise AssertionError(f"the per-op input of {name} is not channels_last")
                 fb = net_f.fused_blocks[str(i)]
                 q = {n: getattr(fb, n) for n in fb.param_names}
-                yk, yp, rel, eq, run_k, run_p = run_mbconv_pair(h, q, fb.cfg)
+                yk, yp, (rel, border), eq, run_k, run_p = run_mbconv_pair(h, q, fb.cfg)
                 err = (yk.float() - yp.float()).abs().max().item()
                 del yk, yp
                 ms = cuda_ms(run_k, reps=5)
@@ -1198,18 +1354,18 @@ def check_mbconv_blocks(net, net_f, images, report):
                 b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp_t" in q, pbytes)
                 row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"],
                            plan=dict(zip(("th", "tw", "group", "bufs", "ipb"), plan)), smem=smem,
-                           max_abs_err=err, rel_err=rel, bit_equal=eq, ms=ms, plain_ms=plain_ms,
+                           max_abs_err=err, rel_err=rel, border_rel_err=border, bit_equal=eq, ms=ms, plain_ms=plain_ms,
                            per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
                 print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']} plan {plan} ({smem} B): "
-                      f"rel={rel:.2e} bit_equal={100 * eq:.2f}% ms={ms:.3f} plain={plain_ms:.3f} "
+                      f"rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}% ms={ms:.3f} plain={plain_ms:.3f} "
                       f"per_op={per_op_ms:.3f} bound={b_ms:.3f} ({b_by})", flush=True)
-                if rel > MB_TOL:
+                if max(rel, border) > MB_TOL:
                     raise AssertionError(f"mbconv kernel disagrees with its plain version at {name}: {rel:.3e}")
             h = blk(h)
     tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "per_op_ms", "bound_ms")}
     slower = [r["block"] for r in rows if r["ms"] > r["per_op_ms"]]
-    phase(f"mbconv blocks ({len(rows)}, B={images.shape[0]}) within {MB_TOL:.2e} of max |plain|; summed "
+    phase(f"mbconv blocks ({len(rows)}, B={images.shape[0]}) within {MB_TOL:.2e} of max |plain|, borders too; summed "
           f"ms={tot['ms']:.3f} plain={tot['plain_ms']:.3f} per_op={tot['per_op_ms']:.3f} bound={tot['bound_ms']:.3f}; "
           f"slower than per-op: {slower}")
     report["blocks"] = rows
@@ -1220,7 +1376,7 @@ def check_mbconv_blocks(net, net_f, images, report):
 def check_mbconv_edges(net_f, dev):
     """The fused MBConv kernel vs plain off the path's shapes, untimed: B 1
     and 130, a 15 plane, relu6, no SE, no expand, k 7, an inflated expand
-    bias and :data:`FORCED_MB_PLANS`. Returns the cases."""
+    bias and :data:`FORCED_MB_PLANS` (:func:`run_mbconv_cases`)."""
     gen = torch.Generator(device=dev).manual_seed(29)
 
     def params(i):
@@ -1258,25 +1414,27 @@ def check_mbconv_edges(net_f, dev):
     for name, i, hw, plan in FORCED_MB_PLANS:
         q, cfg = params(i)
         cases.append((f"{name} B=130 {hw}x{hw} plan {plan}", q, cfg, 130, hw, plan))
+    return run_mbconv_cases(cases, gen)
+
+
+def run_mbconv_cases(cases, gen):
+    """Each case (name, params, cfg, B, plane, plan or None) on N(0, 1)
+    input: kernel vs plain within MB_TOL of max |plain|, borders too; the
+    plan's shared memory equal to ``plane_smem``. Returns the cases."""
     out = []
     with torch.no_grad():
         for name, q, cfg, b, hw, plan in cases:
             cout_, ce_ = q["w_proj_t"].shape
             c_in = q["w_exp_t"].shape[1] if "w_exp_t" in q else ce_
-            if plan is not None:
-                s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
-                geo = (hw, hw, cfg["kernel"], c_in, ce_, cout_, s_)
-                smem = mb.plane_smem(*geo, "w_exp_t" in q, *plan)
-                if smem < 0 or build._lib("mbconv").mbconv_smem(*geo, int("w_exp_t" in q), *plan) != smem:
-                    raise AssertionError(f"mbconv plan {plan} ({name}): the kernel refuses it or its shared "
-                                         f"memory differs from ops.mbconv_kernel.plane_smem ({smem})")
-            x = rnd(b, hw, hw, c_in, dtype=torch.bfloat16).permute(0, 3, 1, 2)
-            yk, yp, rel, eq, _, _ = run_mbconv_pair(x, q, cfg, plan)
-            border = max(
-                ((yk.float() - yp.float())[sl].abs().max() / torch.clamp_min(yp.float()[sl].abs().max(), 1e-30)).item()
-                for sl in ((slice(None), slice(None), slice(None), [0, 1, -2, -1]),
-                           (slice(None), slice(None), [0, 1, -2, -1], slice(None)))
-            )
+            s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
+            geo = (hw, hw, cfg["kernel"], c_in, ce_, cout_, s_)
+            pl = plan or mb.plane_plan(*geo, "w_exp_t" in q)
+            smem = mb.plane_smem(*geo, "w_exp_t" in q, *pl)
+            if smem < 0 or build._lib("mbconv").mbconv_smem(*geo, int("w_exp_t" in q), *pl) != smem:
+                raise AssertionError(f"mbconv plan {pl} ({name}): the kernel refuses it or its shared "
+                                     f"memory differs from ops.mbconv_kernel.plane_smem ({smem})")
+            x = torch.randn((b, hw, hw, c_in), generator=gen, device=gen.device).to(torch.bfloat16).permute(0, 3, 1, 2)
+            _, _, (rel, border), eq, _, _ = run_mbconv_pair(x, q, cfg, plan)
             print(f"  mbconv edge {name}: rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}%", flush=True)
             if rel > MB_TOL or border > MB_TOL:
                 raise AssertionError(f"mbconv kernel disagrees with its plain version ({name})")
@@ -1332,15 +1490,13 @@ def check_s2d_stem(np_vars, net, net_f, images, dev):
     return dict(max_abs_err=err, max_abs=scale, plain_stem_ms=ms_plain, s2d_stem_ms=ms_s2d)
 
 
-def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev):
-    """The plain line on the fused module: timed, one call without a host
-    sync, launches; its embedding within 0.05 of the per-op one (JAX's
-    bound), labels equal the per-op line's but at swapped near-ties (each
-    line's pick the nearer to its own embedding within 2^-7); one traced
-    call of each line."""
-    n_fused = len(net_f.fused_blocks)
-    if n_fused != 12:
-        raise AssertionError(f"the fused module fuses {n_fused} blocks, B0 has 12 stride-1 blocks")
+def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev,
+                     smi, path="fused", n_fused=12):
+    """The plain line on the fused module (``n_fused`` blocks): timed, no
+    host sync, launches; its embedding within 0.05 of the per-op one (JAX's
+    bound); labels equal but at swapped near-ties (2^-7); a trace a line."""
+    if len(net_f.fused_blocks) != n_fused:
+        raise AssertionError(f"{path}: the module fuses {len(net_f.fused_blocks)} blocks, not {n_fused}")
     svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=net_f,
                              pca_dim=124, pca_scan="packed", device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1351,9 +1507,9 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     out2 = no_sync(lambda: svc.identify_device(images))
     torch.cuda.synchronize()
     calls = TIMED_CALLS + 2
-    check_launches("fused", launches, mbconv=n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
+    check_launches(path, launches, mbconv=n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
     if not bool((out2 == out).all()):
-        raise AssertionError("the fused path's answers changed under sync debug mode")
+        raise AssertionError(f"{path}: the answers changed under sync debug mode")
     with torch.no_grad():
         embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
         eu, ef = net(images)["embedding"], net_f(images)["embedding"]
@@ -1375,16 +1531,13 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
                label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)),
                embedding_rel_diff=emb_rel,
                escalated_pct=100.0 * svc.last_escalated.float().mean().item(), peak_gib=peak_gib,
-               launches=launches["fused"])
-    phase("fused path: " + kv(row, "img_s", "ms", "embed_ms", "speedup_over_plain_line", "error_pct",
-                              "row_agreement_plain_line_pct", "label_agreement_plain_line_pct",
-                              "label_differs_not_near_tie", "row_agreement_oracle_pct", "label_agreement_oracle_pct",
-                              "embedding_rel_diff", "escalated_pct", "peak_gib", "launches") + "; no host sync")
+               launches=launches[path])
+    phase(f"{path} path ({smi}): " + kv(row, *row) + "; no host sync")
     if emb_rel > 0.05:
-        raise AssertionError(f"the fused embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
+        raise AssertionError(f"{path}: the embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
     if row["label_differs_not_near_tie"]:
-        raise AssertionError("the fused path's labels differ from the per-op line's beyond near-ties")
-    for line, s_ in (("plain", svc_u), ("fused", svc)):
+        raise AssertionError(f"{path}: labels differ from the per-op line's beyond near-ties")
+    for line, s_ in (("plain", svc_u), (path, svc)):
         row[f"trace_{line}"] = trace_line(line, lambda s_=s_: s_.identify_device(images), "mbconv_sm90")
     return row
 
@@ -1814,6 +1967,47 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     return row
 
 
+def engine_line(path, model, variables, taps, dev, launches):
+    """bench.py ``--config cascade`` over ``model``: SVC exits N(0, 0.1),
+    the folded engine, batch BATCH, calibrated on CASCADE_CALIB images;
+    ``predict_fused`` timed, no host sync, its full-capacity decisions equal
+    ``predict()``'s but near-ties."""
+    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
+
+    t = time.time()
+    with torch.no_grad():
+        probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
+    dims = [int(probe["taps"][tap].shape[-1]) for tap in taps] + [int(probe["embedding"].shape[-1])]
+    rng = np.random.default_rng(0)
+    coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
+    intercepts = [np.zeros(CASCADE_CLASSES, np.float32) for _ in dims]
+    pipe = SequentialInferencePipeline(model, variables, taps, coefs, intercepts, thresholds=[0.0] * (len(dims) - 1),
+                                       engine="folded", device=dev)
+    x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
+    pipe.calibrate(x[:CASCADE_CALIB])
+    caps = pipe.capacities_for(BATCH, slack=SLACK)
+    torch.cuda.synchronize()
+    phase(f"{path} built: taps={list(taps)} dims={dims} thresholds={[round(v, 4) for v in pipe.thresholds]} "
+          f"survivors={[round(v, 4) for v in pipe.survivor_fractions]} capacities={caps} ({time.time() - t:.1f} s)")
+    build.reset_launch_counts()
+    fused = pipe.fused_fn(BATCH, slack=SLACK)
+    res = pipe.predict_fused(x, slack=SLACK)  # warm-up and the answers
+    if not np.array_equal(no_sync(lambda: fused(x)).cpu().numpy()[:BATCH], res.predictions):
+        raise AssertionError(f"{path}: predict_fused's answers changed under sync debug mode")
+    ms = host_ms(lambda: fused(x), TIMED_CALLS)
+    check_launches(path, launches)
+    want = pipe.predict(x)
+    margins = cascade_margins(pipe, x)
+    full = pipe.predict_fused(x, capacities=[BATCH] * pipe.num_levels)
+    full_eq, full_diff, full_ties = check_cascade_decisions(f"{path}: predict_fused at full capacities", full, want,
+                                                            margins)
+    row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, break_counts=[float(v) for v in res.break_counts],
+               forced_pct=100.0 * res.forced_fraction,
+               agreement_pct=100.0 * float(np.mean(res.predictions == want.predictions)), capacities=list(caps),
+               full_capacity_equal_pct=full_eq, full_capacity_differ=full_diff, near_tie_images=full_ties)
+    return row, dict(pipe=pipe, x=x, rng=rng, want=want, margins=margins, coefs=coefs, intercepts=intercepts)
+
+
 def run_feature_configs(dev, launches, smi):
     """bench.py's dem, video and cascade configs and the TWD classifiers."""
     from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
@@ -1938,35 +2132,11 @@ def run_feature_configs(dev, launches, smi):
     del g, gl, p, pl
 
     # 21. bench.py --config cascade: B0@224 own init, deep taps, random SVC heads, folded, batch 1024
-    t = time.time()
     model, variables = create_efficientnet("b0", 0, seed=0, resolution=RES, device=dev)
-    taps = default_taps("b0", preset="deep")
-    with torch.no_grad():
-        probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
-    dims = [int(probe["taps"][tap].shape[-1]) for tap in taps] + [int(probe["embedding"].shape[-1])]
-    rng = np.random.default_rng(0)
-    coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
-    intercepts = [np.zeros(CASCADE_CLASSES, np.float32) for _ in dims]
-    pipe = SequentialInferencePipeline(model, variables, taps, coefs, intercepts, thresholds=[0.0] * (len(dims) - 1),
-                                       engine="folded", device=dev)
-    x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
-    pipe.calibrate(x[:CASCADE_CALIB])
-    caps = pipe.capacities_for(BATCH, slack=SLACK)
-    torch.cuda.synchronize()
-    phase(f"cascade engine built: taps {taps} dims {dims} thresholds {[round(v, 4) for v in pipe.thresholds]} "
-          f"survivors {[round(v, 4) for v in pipe.survivor_fractions]} capacities {caps} ({time.time() - t:.1f} s)")
-    build.reset_launch_counts()
-    fused = pipe.fused_fn(BATCH, slack=SLACK)
-    res = pipe.predict_fused(x, slack=SLACK)  # warm-up and the answers
-    packed = no_sync(lambda: fused(x))
-    if not np.array_equal(packed.cpu().numpy()[:BATCH], res.predictions):
-        raise AssertionError("predict_fused's answers changed under sync debug mode")
-    ms_fused = host_ms(lambda: fused(x), TIMED_CALLS)
-    check_launches("cascade engine", launches)
-    want = pipe.predict(x)
-    margins = cascade_margins(pipe, x)
-    full = pipe.predict_fused(x, capacities=[BATCH] * pipe.num_levels)
-    full_eq, full_diff, full_ties = check_cascade_decisions("predict_fused at full capacities", full, want, margins)
+    taps = default_taps("b0", "deep")
+    row, ctx = engine_line("cascade engine", model, variables, taps, dev, launches)
+    pipe, x, rng, want, margins, coefs, intercepts = (ctx[k] for k in ("pipe", "x", "rng", "want", "margins",
+                                                                         "coefs", "intercepts"))
     pooled = pipe.predict_pooled(x, bucket=BATCH, warmup=True)
     ms_pooled = host_ms(lambda: pipe.predict_pooled(x, bucket=BATCH), TIMED_CALLS)
     pooled_eq, pooled_diff, _ = check_cascade_decisions("predict_pooled", pooled, want, margins)
@@ -1985,19 +2155,14 @@ def run_feature_configs(dev, launches, smi):
     with torch.no_grad():
         noise = (pipe.level_scores(x, levels=1)[0][:CASCADE_CALIB]
                  - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
-    row = dict(line="cascade engine", img_s=BATCH / ms_fused * 1e3, ms=ms_fused, plain_img_s=BATCH / ms_plain * 1e3,
-               plain_ms=ms_plain, speedup_vs_plain=ms_plain / ms_fused,
-               break_counts=[float(v) for v in res.break_counts], forced_pct=100.0 * res.forced_fraction,
-               agreement_pct=100.0 * float(np.mean(res.predictions == want.predictions)), capacities=list(caps),
-               full_capacity_equal_pct=full_eq, pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled,
-               pooled_equal_pct=pooled_eq, bind_vs_folded_label_agreement_pct=bind_agree,
-               near_tie_images=full_ties, level0_segment_ms=seg0_ms, level0_score_batch_noise=noise,
-               segment_ms_per_image=[float(v) for v in per_level],
+    row.update(plain_img_s=BATCH / ms_plain * 1e3, plain_ms=ms_plain, speedup_vs_plain=ms_plain / row["ms"],
+               pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled, pooled_equal_pct=pooled_eq,
+               pooled_differ=pooled_diff, bind_vs_folded_label_agreement_pct=bind_agree, level0_segment_ms=seg0_ms,
+               level0_score_batch_noise=noise, segment_ms_per_image=[float(v) for v in per_level],
                cumulative_ms_per_image=[float(v) for v in cumulative])
     phase(f"cascade engine (folded, SVC exits, batch {BATCH}, {smi}): " + kv(
         row, *[k for k in row if k not in ("line", "cumulative_ms_per_image")])
-        + f" full_capacity_differ={full_diff} pooled_differ={pooled_diff}; no host sync; "
-          f"launches={launches['cascade engine']}")
+        + f"; no host sync; launches={launches['cascade engine']}")
     if bind_agree < 90.0:
         raise AssertionError("the bind engine agrees with the folded one on < 90 % of labels")
     del pipe_b, serve
@@ -2332,8 +2497,7 @@ def main() -> int:
     sharded_rows, shard_scan = run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, dev,
                                                    launches, smi)
 
-    # 6a. the fused MBConv path: its kernel at each stride-1 block and at
-    # edge shapes, the space-to-depth stem, the plain line's service on it
+    # 6a. the fused MBConv path: blocks, edge shapes, the s2d stem, the service on it
     t = time.time()
     serve_f = make_infer_fn(np_vars, "b0", resolution=RES, fused=True, space_to_depth=True, device=dev)
     torch.cuda.synchronize()
@@ -2344,7 +2508,7 @@ def main() -> int:
     phase(f"mbconv edge shapes: {len(mb_report['edges'])} cases within {MB_TOL:.2e} of max |plain|, borders too")
     s2d_row = check_s2d_stem(np_vars, serve, serve_f, images, dev)
     fused_row = check_fused_path(serve, serve_f, svc, info, gallery, labels, images, idx, idx_oracle, sec, launches,
-                                 dev)
+                                 dev, smi)
     del serve_f, svc, exact
 
     # 6b. the JAX package's default service (PCA-128, f32 tile scan) and its other scans
@@ -2379,8 +2543,7 @@ def main() -> int:
               + f" launches={launches[f'service {name}']}")
         del ms_
 
-    # 7. the early-exit cascade (bench.py's second e2e line): per-tap
-    # galleries at each tap's own spread, row-aligned with the final gallery
+    # 7. the early-exit cascade (bench.py's second e2e line): row-aligned per-tap galleries
     t = time.time()
     tap_gals, tap_sigmas = [], []
     for te in tap_embs:
@@ -2415,53 +2578,13 @@ def main() -> int:
         check_single_scan("block3a-131072-rows", dk._augment_queries(q3, a0["dim"], 128), g128, 128, scan_report)
         del g128, feats0
 
-    # 9. the cascade path: warm-up, one call without a host sync, the timed calls
-    counted(lambda: casc.identify_device(images))
-    no_sync(lambda: casc.identify_device(images))
-    out, casc_ms = timed(lambda: casc.identify_device(images))
-    check_launches("cascade", launches, tilemin_packed=(TIMED_CALLS + 2) * casc.num_levels)
-    packed = out.cpu().numpy()
-    idx_c, exit_level, forced = packed[:BATCH].astype(np.int64), packed[BATCH : 2 * BATCH], int(packed[-1])
-    if packed.shape != (2 * BATCH + 1,) or not ((idx_c >= 0) & (idx_c < GALLERY)).all():
-        raise AssertionError("the cascade returned rows outside the gallery")
-    casc_row = dict(img_s=BATCH / casc_ms * 1e3, ms=casc_ms, error_pct=100.0 * float(np.mean(labels[idx_c] != truth)),
-                    oracle_label_agreement_pct=100.0 * float(np.mean(labels[idx_c] == labels[idx_oracle])),
-                    exact_label_agreement_pct=100.0 * float(np.mean(labels[idx_c] == labels[idx_exact])),
-                    exits=[round(float(f), 4) for f in np.bincount(exit_level, minlength=casc.num_levels) / BATCH],
-                    survivors=[round(f, 4) for f in fracs], capacities=caps, forced=forced / BATCH,
-                    speedup_over_plain=sec / (casc_ms / 1e3))
-    phase(f"cascade path ({smi}): " + kv(casc_row, *casc_row) + f"; no host sync; launches={launches['cascade']}")
-    per_level = cascade_breakdown(casc, images, caps, scan_report)
-    phase("cascade breakdown per level: " + "; ".join(
-        f"L{r['level']} B={r['batch']}: segment {r['segment_ms']:.2f} ms, match {r['match_ms']:.2f} ms, "
-        f"scan {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}, {r['bound_by']})" for r in per_level))
-
-    # 10. the same call with the single-min scan bound to its plain version:
-    # decisions equal except at near-ties of the exit rule
-    with torch.no_grad():
-        trace_k, trace_p = [], []
-        out_k = casc._run(images, caps, trace_k)
-        kernel_keys = dk.tilemin_keys
-        dk.tilemin_keys = lambda q_aug, g_aug, tile_g: plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
-        try:
-            out_p = casc._run(images, caps, trace_p)
-        finally:
-            dk.tilemin_keys = kernel_keys
-    tie = (near_ties(trace_k, caps, BATCH) | near_ties(trace_p, caps, BATCH)).cpu().numpy()
-    ok_k, ok_p = out_k.cpu().numpy(), out_p.cpu().numpy()
-    differ = (ok_k[:BATCH] != ok_p[:BATCH]) | (ok_k[BATCH:-1] != ok_p[BATCH:-1])
-    early = float(np.mean(ok_k[BATCH:-1] < casc.num_levels - 1))
-    phase(f"cascade decisions, kernel vs plain scan: differ={int(differ.sum())}/{BATCH} all_near_ties="
-          f"{bool((tie | ~differ).all())} forced={int(ok_k[-1])}/{int(ok_p[-1])} near_tie={100 * tie.mean():.3f}% "
-          f"early_exits={100 * early:.3f}%")
-    if not (tie | ~differ).all() or differ.mean() > 0.01 or abs(int(ok_k[-1]) - int(ok_p[-1])) > differ.sum():
-        raise AssertionError("cascade decisions differ from the plain scan's beyond near-ties")
-    if early == 0.0:
-        raise AssertionError("no probe exited before the final level")
+    # 9-10. the cascade path; its decisions with the single-min scan bound to its plain version
+    casc_row, idx_c = run_cascade(casc, images, "cascade", launches, smi, labels, dict(oracle=idx_oracle,
+                                  exact=idx_exact), plain_sec=sec, breakdown=(caps, scan_report))
+    casc_row.update(survivors=[round(f, 4) for f in fracs], capacities=caps)
     del casc, tap_gals
 
-    # 11. escalate=None (the uncertified single-min path) and select='approx'
-    # (JAX's approx_min_k: the exact selection on the card, no certificate)
+    # 11. escalate=None (uncertified single-min path) and select='approx' (exact selection)
     svc_none = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
                                   pca_dim=124, pca_scan="packed", escalate=None, device=dev)
     idx_none = counted(lambda: svc_none.identify_device(images))
@@ -2520,6 +2643,8 @@ def main() -> int:
 
     # 12'. the flagship line: InceptionResNetV2@224, trained, over 1M x 1536 rows
     flagship_row = run_flagship(dev, report, launches, smi)
+    # 12''. the MobileNet family: V2's line, fused twin, cascade and engine; V1's line
+    mobilenet_lines = run_mobilenets(dev, launches, smi, mb_v2 := {})
 
     # 13. bench.py --config bf: 1M x 1536 random unit bf16 rows, queries row i + 1e-2 noise
     t = time.time()
@@ -2608,7 +2733,8 @@ def main() -> int:
         dict(kernel_row("mbconv", "mbconv.cu", "fast_image_recognition_tpu/ops/mbconv_kernel.py:82", "fused",
                         mb_report["blocks"], kernel="mbconv_sm90 (one launch per block)",
                         shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed",
-                        yardstick_per_op_ms=mb_tot["per_op_ms"], edges=mb_report["edges"]),
+                        yardstick_per_op_ms=mb_tot["per_op_ms"], edges=mb_report["edges"] + mb_v2["edges"],
+                        mobilenetv2=dict(blocks=mb_v2["blocks"], total=mb_v2["total"])),
              max_abs_err=max(r["max_abs_err"] for r in mb_report["blocks"]), ms=mb_tot["ms"],
              plain_ms=mb_tot["plain_ms"], bound_ms=mb_tot["bound_ms"], library_ms=None,
              bound_by=max(("operations", "bytes"), key=lambda by: sum(
@@ -2619,6 +2745,7 @@ def main() -> int:
                                 "approx_select": apx_row, "bf": bf_rows, "partial_escalation": esc_rows,
                                 "fused_path": fused_row, "s2d_stem": s2d_row, "flagship": flagship_row,
                                 "sharded_service": sharded_rows, "sharded_matcher": sharded_matcher_rows,
+                                **mobilenet_lines,
                                 **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

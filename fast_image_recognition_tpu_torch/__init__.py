@@ -1,11 +1,7 @@
-"""PyTorch + CUDA port of ``fast_image_recognition_tpu`` for one NVIDIA H100.
-
-The JAX package beside this one is the reference; this package imports
-neither it nor JAX. Entry points run on the card unless the caller passes
-``device="cpu"``; on a CPU tensor every kernel wrapper runs its plain
-PyTorch version (``kernels/plain.py``), on a CUDA tensor it launches the
-hand-written kernel (``kernels/*.cu``) or raises.
-"""
+"""PyTorch + CUDA port of ``fast_image_recognition_tpu`` for one NVIDIA H100;
+it imports neither the JAX package nor JAX. Entry points run on the card
+unless given ``device="cpu"``; a kernel wrapper runs its plain version
+(``kernels/plain.py``) on a CPU tensor, its CUDA kernel on a CUDA one."""
 
 from fast_image_recognition_tpu_torch.device import default_device, resolve_device
 

@@ -1,9 +1,8 @@
 """Sequential early-exit inference over backbone segments (JAX
-``cascade/engine.py``): ``predict`` (host exit decisions per level),
-``predict_fused`` (static capacities, one fetch), ``predict_pooled``
-(level-major over a pool, one pool). ``engine`` 'bind' (the trainable
-``EfficientNet``) or 'folded' (``FoldedEfficientNet`` segments);
-``head_mode`` 'linear' or 'knn'. Exit heads sum in fp64."""
+``cascade/engine.py``): ``predict``, ``predict_fused`` (static capacities,
+one fetch) and ``predict_pooled`` (one pool); ``engine`` 'bind' (a
+trainable ``EfficientNet``/``MobileNetV2``) or 'folded'; ``head_mode``
+'linear' or 'knn'. Exit heads sum in fp64."""
 
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import numpy as np
 import torch
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import VARIANTS, _pool
+from fast_image_recognition_tpu_torch.models.efficientnet import _pool
 from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, fold_backbone
 
 
@@ -46,12 +45,10 @@ class PipelineResult:
 
 
 class SequentialInferencePipeline:
-    """Backbone segments, exit heads and batch compaction.
-
-    ``model`` is the port's ``EfficientNet``; ``variables`` its flax-layout
-    numpy trees (``create_efficientnet`` returns both): the bind engine
-    loads them into ``model`` (None: the model's own weights), the folded
-    engine folds them."""
+    """Backbone segments, exit heads and batch compaction. ``model``: the
+    port's ``EfficientNet`` or ``MobileNetV2``; ``variables``: its flax-layout
+    numpy trees, loaded by the bind engine (None: the model's own), folded
+    by the folded one."""
 
     def __init__(
         self,
@@ -106,9 +103,9 @@ class SequentialInferencePipeline:
         if engine == "folded":
             if variables is None:
                 variables = model.export_variables()
-            folded, configs = fold_backbone(variables, model.variant)
+            folded, configs = fold_backbone(variables, model.plan_configs())
             # the raw stem reads images of any size: the resolution is unused
-            self._net = FoldedEfficientNet(folded, configs, VARIANTS[model.variant].resolution).to(dev).eval()
+            self._net = FoldedEfficientNet(folded, configs, model.resolution).to(dev).eval()
         else:
             if variables is not None:
                 model.load_variables(variables)
@@ -116,16 +113,12 @@ class SequentialInferencePipeline:
         self.survivor_fractions: Optional[List[float]] = None
         self._fused_fns: Dict[Any, Any] = {}
 
-    # ------------------------------------------------------------------ #
-    # segments                                                           #
-    # ------------------------------------------------------------------ #
+    # segments
 
     def _linear_scores(self, emb: torch.Tensor, level: int) -> torch.Tensor:
-        """[B, C] fp32 decision values of a linear exit head. The products
-        are summed in fp64 and rounded once: the matmul's summation order
-        changes with the batch, and an image whose confidence ties a
-        calibrated threshold (a quantile is one of the confidences) must
-        exit alike in every batch of every mode."""
+        """[B, C] fp32 decision values of a linear head, summed in fp64 and
+        rounded once: an image tying a calibrated threshold must exit alike
+        in every batch of every mode."""
         emb = (_unit_rows(emb) if self.l2_normalize else emb).to(torch.float64)
         return (emb @ self.coefs[level].T + self.intercepts[level]).to(torch.float32)
 
@@ -196,18 +189,14 @@ class SequentialInferencePipeline:
             out.append(emb.cpu().numpy())
         return out
 
-    # ------------------------------------------------------------------ #
-    # calibration                                                        #
-    # ------------------------------------------------------------------ #
+    # calibration
 
     @torch.no_grad()
     def calibrate(self, images, quantile: float = 0.5, tune: Optional[bool] = None) -> List[float]:
         """Record the survivor fractions that size ``predict_fused``'s
         capacities and (linear heads, or ``tune=True``) set each level's
-        threshold to the ``quantile`` of the confidence over the images
-        still alive there (the reference FAR-tunes per level on held-out
-        data, sequential_inference.py:609-631). kNN heads keep their fixed
-        margin 0 unless tuned (:496-497)."""
+        threshold to the ``quantile`` of the confidence of the images alive
+        there (sequential_inference.py:609-631); kNN keeps margin 0."""
         if tune is None:
             tune = self.head_mode == "linear"
         carry = self._images(images)
@@ -239,9 +228,7 @@ class SequentialInferencePipeline:
             caps.append(min(batch, c))
         return tuple(caps)
 
-    # ------------------------------------------------------------------ #
-    # fused cascade: no host sync until the one fetch                    #
-    # ------------------------------------------------------------------ #
+    # fused cascade: no host sync until the one fetch
 
     def _build_fused(self, batch: int, caps: Tuple[int, ...]):
         thresholds = [float(t) for t in self.thresholds]
@@ -310,18 +297,13 @@ class SequentialInferencePipeline:
             forced_fraction=int(packed[2 * b]) / b,
         )
 
-    # ------------------------------------------------------------------ #
-    # level-major pooled cascade                                         #
-    # ------------------------------------------------------------------ #
+    # level-major pooled cascade
 
     @torch.no_grad()
     def predict_pooled(self, images, bucket: int = 1024, warmup: bool = False) -> PipelineResult:
-        """Level-major sequential inference over an image pool: at each
-        level all alive images run in full ``bucket``-row slices, the
-        survivors compacted across the pool; no forced exits, ``predict``'s
-        decisions, one [2, n_alive] fetch per level. The JAX method's
-        ``streams`` (sub-pools taking turns, no win there) is left out: one
-        pool, one stream."""
+        """Level-major inference over a pool: all alive images in ``bucket``
+        slices a level, survivors compacted; ``predict``'s decisions, one
+        fetch a level. JAX's ``streams`` (no win there) is left out."""
         x = self._images(images)
         n = int(x.shape[0])
         preds = np.zeros(n, dtype=np.int64)
@@ -362,9 +344,7 @@ class SequentialInferencePipeline:
             ms_per_image=1000.0 * elapsed / n,
         )
 
-    # ------------------------------------------------------------------ #
-    # host-compaction cascade                                            #
-    # ------------------------------------------------------------------ #
+    # host-compaction cascade
 
     @torch.no_grad()
     def predict(self, images, warmup: bool = False) -> PipelineResult:

@@ -1,7 +1,5 @@
 """Multi-exit cascade policies over per-level embeddings (JAX
-``cascade/exits.py``): kNN, LinearSVC, entropy and max-softmax exits.
-``train_linear_svc`` takes scikit-learn where installed, else
-``svc_descent`` on ``device`` from ``torch.Generator`` weights."""
+``cascade/exits.py``): kNN, LinearSVC, entropy and max-softmax exits."""
 
 from __future__ import annotations
 
@@ -14,9 +12,7 @@ import torch
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 
 
-# ---------------------------------------------------------------------------
 # Per-level linear classifier (SVC-style decision values)
-# ---------------------------------------------------------------------------
 
 
 def svc_step(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, lr: float, reg: float):
@@ -63,11 +59,9 @@ def train_linear_svc(
     seed: int = 0,
     device: DeviceLike = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(coef [C, D], intercept [C]) of one-vs-rest LinearSVC-like decision
-    values: scikit-learn's ``LinearSVC`` (sequential_inference.py:602)
-    where it is installed and asked for, else :func:`svc_descent` from
-    ``N(0, 0.01^2)`` weights drawn with ``torch.Generator().manual_seed(seed)``
-    and zero intercepts."""
+    """(coef [C, D], intercept [C]) of one-vs-rest linear SVC decision
+    values: scikit-learn's ``LinearSVC`` where installed and asked for, else
+    :func:`svc_descent` from seeded ``N(0, 0.01^2)`` weights."""
     if use_sklearn:
         try:
             from sklearn.svm import LinearSVC
@@ -105,9 +99,7 @@ def tune_far_threshold(decision_values: np.ndarray, y: np.ndarray, far: float = 
     return float(best_threshold)
 
 
-# ---------------------------------------------------------------------------
 # Batched cascade evaluation
-# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

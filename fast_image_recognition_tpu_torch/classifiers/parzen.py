@@ -1,14 +1,8 @@
-"""PNN, Parzen windows with a Gaussian kernel (counterpart of
-``fast_image_recognition_tpu/classifiers/parzen.py``; qt_cpp/classification.cpp
-:173-307 brute force and sequential, :311-428 k-medoid prototypes).
-
-Mean-centered features (:103-105); class score = sum_t exp(-d_t / (2 D
-var)), var = 2e-5 (/10 above 2000 features, :188-216); the sequential
-variant adds 32 features a round, re-scales by the current prefix and
-prunes classes below max / 1e9 (:182-291). Scores are logsumexps per class
-(a monotone transform, finite in fp32), the class sums one fp32 matmul with
-the one-hot class matrix (TF32 off), as in the JAX package.
-"""
+"""PNN, Parzen windows with a Gaussian kernel (JAX ``classifiers/parzen.py``;
+qt_cpp/classification.cpp:173-307, :311-428): mean-centered features,
+class score sum_t exp(-d_t / (2 D var)); the sequential variant adds 32
+features a round and prunes classes below max / 1e9; per-class
+logsumexps, the class sums one fp32 matmul with a one-hot matrix."""
 
 from __future__ import annotations
 

@@ -1,13 +1,6 @@
-"""Synthetic gallery generators (the port's own copy of
-``fast_image_recognition_tpu/data/synthetic.py``: NumPy, so a seed gives
-bit-equal arrays).
-
-The reference's experiments run over shipped precomputed feature files that
-are stripped from this mirror (.MISSING_LARGE_BLOBS). These generators
-produce class-clustered unit-norm embeddings with the same statistical shape
-(C classes, n/class, D dims, L2-normalized, mostly-positive activations like
-pooled CNN embeddings) for tests and benchmarks.
-"""
+"""Synthetic class-clustered unit-norm galleries (JAX ``data/synthetic.py``,
+NumPy: a seed gives bit-equal arrays), standing in for the reference's
+precomputed feature files."""
 
 from __future__ import annotations
 

@@ -1,16 +1,9 @@
-"""Procedural texture images rendered on the device (counterpart of
-``fast_image_recognition_tpu/data/synthetic_device.py``).
-
-Class prototypes are band-limited sums of 2-D sinusoids; an affine warp of
-a prototype composes with the sinusoid argument, so every instance is
-evaluated analytically at its warped coordinates (no gathers, no
-interpolation). Per-class parameters come from the same numpy stream as
-the JAX package (``make_class_params`` is a verbatim copy), so a class seed
-names the same textures in both packages. Per-instance draws (warp,
-brightness, contrast, noise) come from a ``torch.Generator``; they differ
-from JAX's threefry draws, so the two packages agree on the distribution
-of instances, not on each instance.
-"""
+"""Procedural texture images rendered on the device (JAX
+``data/synthetic_device.py``): band-limited sinusoid prototypes evaluated
+at affinely warped coordinates. Class parameters come from JAX's numpy
+stream (``make_class_params`` copied), so a class seed names the same
+textures; per-instance draws come from a ``torch.Generator``, so instances
+match JAX's in distribution only."""
 
 from __future__ import annotations
 

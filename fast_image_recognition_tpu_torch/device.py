@@ -1,9 +1,5 @@
-"""Device resolution and numeric settings for the port.
-
-The port runs on the card by default and never falls back to the CPU on
-its own: ``default_device()`` raises when no GPU is visible. Tests and
-CPU parity runs pass ``device="cpu"`` explicitly.
-"""
+"""Device resolution for the port: the card by default, never the CPU on its
+own (``default_device()`` raises without a GPU); tests pass ``device="cpu"``."""
 
 from __future__ import annotations
 

@@ -1,9 +1,6 @@
-"""Config-driven construction (counterpart of
-``fast_image_recognition_tpu/factory.py``): a ``FrameworkConfig`` determines
-the dataset load, the matcher and the cascade, in place of the reference's
-compile-time wiring (qt_cpp/db.h defines, main.cpp ``#if``). Everything
-built here runs on ``device`` (default: the card) but the host kd-forest.
-"""
+"""Config-driven construction (JAX ``factory.py``): a ``FrameworkConfig``
+picks the dataset, matcher and cascade (qt_cpp/db.h defines); all on
+``device`` (default the card) but the host kd-forest."""
 
 from __future__ import annotations
 

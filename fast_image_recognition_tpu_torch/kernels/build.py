@@ -1,8 +1,7 @@
-"""Build, load and launch the port's CUDA kernels. Each ``*.cu`` exposes
-``extern "C"`` launchers (raw pointers, sizes, a stream; a ``cudaError_t``
-back), compiled at first use by ``nvcc`` alone into ``_build/`` under a
-hash of the source, the ``*.cuh`` beside it and the flags, bound with
-``ctypes``. A failed build or launch raises. Each wrapper adds one to
+"""Build, load and launch the port's CUDA kernels: ``extern "C"``
+launchers of each ``*.cu`` compiled at first use by ``nvcc`` into
+``_build/`` under a hash of the sources and flags, bound with ``ctypes``;
+a failed build or launch raises. Each wrapper adds one to
 ``LAUNCHES[name]`` where it launches its kernel."""
 
 from __future__ import annotations
@@ -197,11 +196,9 @@ def topk_l2_split_plane_rows(b: int) -> int:
 
 
 def topk_l2_split_smem_for(k: int) -> int:
-    """Dynamic shared memory of ``kernels/topk_l2.cu``'s split precise pass
-    over bf16 rows (``SplitTile``): a ring of stages holding three query
-    planes and one gallery box (3 stages, 2 for k > 16, whose distance tile
-    and lists' last entries need room), two |g|^2 buffers and the
-    barriers."""
+    """Dynamic shared memory of the split pass over bf16 rows
+    (``SplitTile``): query planes and gallery box stages (3; 2 for k > 16),
+    two |g|^2 buffers, barriers."""
     line, qt, bn = 128, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages = 2 if lists else 3
@@ -210,12 +207,9 @@ def topk_l2_split_smem_for(k: int) -> int:
 
 
 def topk_l2_split6_smem_for(k: int) -> int:
-    """Dynamic shared memory of ``kernels/topk_l2.cu``'s six-product precise
-    pass over fp32 rows (``Split6Tile``), 32-feature chunks: a ring of
-    stages of three query and three row planes (64-byte lines; 3 stages, 2
-    for k > 16), a ring of fp32 row boxes ([128 x 32]; 4 boxes, 3 for k >
-    16), |g|^2 buffers for one sub-tile more than the stages, for k > 16
-    the distance tile and the lists' last entries, and the barriers."""
+    """Dynamic shared memory of the six-product pass (``Split6Tile``):
+    plane stages (3; 2 for k > 16), fp32 row boxes (4; 3), |g|^2 buffers,
+    (k > 16) the distance tile and last entries, barriers."""
     line, qt, bn = 64, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages, boxes = (2, 3) if lists else (3, 4)
@@ -232,9 +226,8 @@ def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
 
 
 def packed_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], tile_g: int) -> int:
-    """The packed scans' shape rules (``kernels/packed_scan.cu``), without a
-    card: returns the number of tiles or raises. Any augmented width Da (a
-    multiple of 16) and any number of whole tiles up to :data:`MAX_ROWS`."""
+    """The packed scans' shape rules without a card: the number of tiles,
+    or raises (Da a multiple of 16, whole tiles up to :data:`MAX_ROWS`)."""
     (b, da), (np_, g_da) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
@@ -299,10 +292,8 @@ def topk_l2_args(
     q_shape: Tuple[int, int], g_shape: Tuple[int, int], k: int, n_valid: int, window: Optional[Tuple[int, int]],
     precise: bool = False,
 ) -> Tuple[int, int]:
-    """``kernels/topk_l2.cu``'s argument rules, without a card: returns the
-    window ``(start, end)`` or raises. Any k up to :data:`TOPK_MAX_K`; rows
-    up to int32 less one segment of the mode
-    (:func:`topk_l2_segment_rows_for`), the launcher's own limit."""
+    """``topk_l2.cu``'s argument rules without a card: the window, or
+    raises (k up to :data:`TOPK_MAX_K`, rows up to int32 less a segment)."""
     (b, d), (n, g_d) = q_shape, g_shape
     start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
     max_rows = 2**31 - 1 - topk_l2_segment_rows_for(precise, k)
@@ -327,20 +318,12 @@ def launch_topk_l2(
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     split_out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/topk_l2.cu``: exact top-k raw squared L2 distances
-    ``[B, k]`` fp32 and row indices ``[B, k]`` int32 (-1 past n_valid).
-    bf16 queries and rows on the tensor cores; with ``precise`` fp32
-    queries split into three bf16 terms, against bf16 rows as three bf16
-    products on the tensor cores, against fp32 rows (split the same way on
-    the chip) as six, counted as ``topk_l2_precise`` and
-    ``topk_l2_precise_f32``. ``window=(start, end)`` scans
-    the feature lanes [start, end) only. Query rows where the bool
-    ``row_mask`` is False come back empty ``(BIG_DIST, -1)`` (not with
-    ``precise``). ``floor=(d [B] fp32, row [B] int32)``, for k > 16 only:
-    the last entry of the previous slab of a larger top-k (row -1: empty);
-    only (distance, row) strictly after it enter. ``split_out``, a dict,
-    receives the split pass's ``planes`` [3, round_up(B, 128), D] bf16 and
-    ``qsq`` [B] fp32 (precise), for a check to read back."""
+    """``kernels/topk_l2.cu``: exact top-k raw squared L2 ``[B, k]`` fp32 and
+    rows int32 (-1 past n_valid); bf16 on the tensor cores, or ``precise``
+    (three or six split-bf16 products over bf16 or fp32 rows, counted as
+    ``topk_l2_precise[_f32]``). ``window``, ``row_mask`` and ``floor`` as
+    ``plain.topk_l2_plain``'s; ``split_out`` receives the split pass's
+    ``planes`` and ``qsq`` for a check to read back."""
     _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
     if precise:
         if g.dtype not in (torch.float32, torch.bfloat16):
@@ -406,10 +389,8 @@ def launch_topk_l2(
 
 
 def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int) -> int:
-    """The tile scans' shape rules (``kernels/tile_scan.cu``), without a
-    card: returns the number of tiles or raises. D a multiple of ``vec``
-    (8 bf16 or 16 int8 lanes) and any number of whole tiles up to
-    :data:`MAX_ROWS`."""
+    """The tile scans' shape rules without a card: the number of tiles, or
+    raises (D a multiple of ``vec``, whole tiles up to :data:`MAX_ROWS`)."""
     (b, d), (np_, g_d) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
@@ -440,9 +421,7 @@ def launch_tilemin(
     q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kernels/tile_scan.cu``: per (query, tile) min of ``|g|^2 - 2 q.g``
-    and the lowest row at it, ``[B, n_tiles]`` fp32 and int32 (global
-    rows). ``gsq`` holds |g|^2 in row order (the ``gallery_sq_norms``
-    layout), BIG_DIST on pad rows."""
+    and its lowest row, [B, n_tiles] fp32 and int32; ``gsq`` in row order."""
     n_tiles = _check_scan(q, g, torch.bfloat16, 8, tile_g)
     _check_rows(gsq, "gsq", g.shape[0], q.device)
     b, d = q.shape
@@ -472,10 +451,8 @@ def launch_tilemin_quant(
     compute: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``kernels/tile_scan.cu``: per (query, tile) min of ``gsq - (2 s_q)
-    (q.g s_g)`` over int8 queries and rows and the lowest row at it,
-    ``[B, n_tiles]`` fp32 and int32. ``compute`` is ``'int8'`` (int32 dot)
-    or ``'bf16'`` (bf16 products summed in fp32; the queries go to the
-    kernel as bf16, converted here, exactly, once per call)."""
+    (q.g s_g)`` over int8 data and its lowest row; ``compute`` 'int8' or
+    'bf16' (the queries converted to bf16 here)."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     n_tiles = _check_scan(q, g, torch.int8, 16, tile_g)
@@ -511,14 +488,9 @@ def launch_mbconv(
     relu6: bool,
     residual: bool,
 ) -> torch.Tensor:
-    """``kernels/mbconv.cu``: one stride-1 MBConv block on ``x`` [B, Cin,
-    H, W] bf16 in channels_last memory, params ``q`` in the
-    ``ops.mbconv_kernel.prepare_params`` layout, SAME ``pad_low`` (H, W)
-    and the ``plan`` (th, tw, group, bufs, ipb) of
-    ``ops.mbconv_kernel.plane_plan``: the output tile each block walks its
-    images in, the output-channel tiles a block owns, the double buffers,
-    the images a block takes. One launch, counted under ``mbconv``.
-    Returns [B, Cout, H, W] bf16 channels_last."""
+    """``kernels/mbconv.cu``: one stride-1 block on ``x`` [B, Cin, H, W] bf16
+    channels_last, params of ``prepare_params``, SAME ``pad_low`` (H, W),
+    the ``plan`` of ``plane_plan``; one launch, counted under ``mbconv``."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
@@ -575,10 +547,8 @@ def launch_mbconv(
 
 
 def launch_chi2(q: torch.Tensor, g: torch.Tensor, n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/chi2.cu``: per query the least ``sum (g - q)^2 *
-    rcp(max(g + q, 1e-30))`` over rows [0, n_valid) and the lowest row at
-    it: (min [B] fp32, unnormalized; row [B] int32). ``q`` [B, D] fp32,
-    ``g`` [N, D] fp32 or bf16. One launch whatever B is."""
+    """``kernels/chi2.cu``: (least ``sum (g - q)^2 * rcp(max(g + q, 1e-30))``
+    over rows [0, n_valid) [B] fp32, its lowest row int32); one launch."""
     for t, what in ((q, "queries"), (g, "gallery")):
         if t.device.type != "cuda":
             raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")

@@ -1,19 +1,14 @@
-// Chi-square 1-NN scan for Hopper (sm_90a). `chi2_launch` replaces the
-// Pallas kernel `_chi2_kernel` (fast_image_recognition_tpu/ops/chi2_kernel.py:55,
+// Chi-square 1-NN scan for Hopper (sm_90a): `chi2_launch` replaces the
+// Pallas `_chi2_kernel` (fast_image_recognition_tpu/ops/chi2_kernel.py:55,
 // launched by `_chi2_block` :120). Per query the row of [0, n_valid) with
 // the least
 //
 //     d = sum_k (g_k - q_k)^2 * rcp(max(g_k + q_k, 1e-30))
 //
-// as one 64-bit key (float bits of d) << 32 | row; the caller divides by D
-// and may rescore the winner. Queries fp32, rows fp32 or bf16 (upcast
-// exactly), any D and N. `rcp.approx.ftz.f32` is at most 1 ulp off; a term
-// of 0 stays 0. Terms are >= 0, so the bits of d order like d and the least
-// key is the least d at the lowest row; each block merges its keys with one
-// 64-bit `atomicMin` a query, so the result does not depend on block order.
-// A block owns (64 queries, 64 rows), D in 32-wide fp32 chunks in shared
-// memory, a 4 x 4 register block of sums, each summed per chunk first.
-// The SFU's reciprocals bound it (PERF.md §6).
+// as one 64-bit key (bits of d) << 32 | row, merged with one `atomicMin` a
+// query and block (any block order gives the same answer); the caller
+// divides by D. `rcp.approx.ftz.f32` is 1 ulp off at most. A block owns (64
+// queries, 64 rows) in 32-wide fp32 chunks, a 4 x 4 register block each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,5 +1,5 @@
 // Fused stride-1 MBConv block for Hopper (sm_90a), replacing the Pallas
-// kernel `_mbconv_kernel` (fast_image_recognition_tpu/ops/mbconv_kernel.py:82,
+// `_mbconv_kernel` (fast_image_recognition_tpu/ops/mbconv_kernel.py:82,
 // launched by `_fused_mbconv_jit` :192): one BN-folded block,
 //
 //     hid = act(x @ w_exp + b_exp)            (1x1 expand, if any; else x)
@@ -7,26 +7,18 @@
 //     g   = sigmoid(swish(mean_hw(a) @ w_se1 + b_se1) @ w_se2 + b_se2)  (SE, if any)
 //     y   = (a * g) @ w_proj + b_proj (+ x)   (1x1 project, residual if any)
 //
-// on NHWC (channels_last) bf16 activations. One launch, 512 threads a block
-// per image (two at 7x7); the block walks its plane in spatial tiles and the
-// hidden channels in slabs of 64:
-//  - pass 0: per (tile, slab) the expand on the tile's input box and the
-//    depthwise; with SE the depthwise output, rounded to bf16, goes to a
-//    device scratch and its fp32 channel sums to the pool; then the SE MLP
-//    once per image (the gate needs every channel's pool);
-//  - pass 1: that output comes back by TMA as the project's `wgmma` A tile,
-//    scaled by the gate in fp32 and rounded in place; the project's fp32
-//    accumulators stay in registers across the slabs; the epilogue adds
-//    bias and residual and writes bf16. Without SE one pass writes the
-//    depthwise output straight into the A tile.
-// Products: `wgmma` bf16 -> fp32 from shared memory (128-byte swizzle,
-// K-major). The input box is one 4-D TMA box per 64 input channels with the
-// tile's halo; out-of-image pixels land as zeros and the expand forces its
-// border pixels back to zero (SAME pads the hidden tensor, not x). A slab's
-// depthwise weights and biases (`dw_aux`, [slab][k*k + 2][64] fp32) come by
-// one bulk copy. The depthwise runs on the CUDA cores in fp32.
-// Rounding points are the TPU kernel's plus one that
-// `kernels/plain.py::mbconv_plain` shares: the depthwise output is rounded
+// act is swish or relu6, on NHWC bf16 activations. One launch, 512 threads
+// a block per image (two at 7x7), walking the plane in spatial tiles and
+// the hidden channels in slabs of 64. With SE, pass 0 runs expand and
+// depthwise per (tile, slab) into a bf16 device scratch and the pool, then
+// the SE MLP; pass 1 loads that output by TMA as the project's `wgmma` A
+// tile and scales it by the gate. Without SE one pass writes the depthwise
+// output straight into the A tile. Products: `wgmma` bf16 -> fp32 (128-byte
+// swizzle, K-major); the depthwise on the CUDA cores in fp32. The input box
+// is a 4-D TMA box per 64 channels with the tile's halo (out-of-image
+// pixels zero, as SAME pads the hidden tensor). Rounding points: the TPU
+// kernel's, plus the depthwise output rounded to bf16 before the gate, as
+// `kernels/plain.py::mbconv_plain` does. PERF.md §6.
 // to bf16 before the gate. Bounds and times: PERF.md §6.
 
 #include <cuda_bf16.h>
@@ -57,12 +49,11 @@ struct Layout {
 };
 
 // (th, tw): the output tile; group: project tiles of 64 output channels a
-// block owns (the grid's y covers the rest, each block recomputing the
-// hidden tensor); bufs: bit 0 double-buffers the halo, bit 1 the weights;
-// ipb: images a block takes (2 only with a tile of the whole plane). With
-// expand and the whole plane in one tile the input box is the bare plane
-// (`xplane`): the expand runs on the image's pixels only and the hidden
-// halo's zero border is written once.
+// block owns (grid y covers the rest, each block recomputing the hidden
+// tensor); bufs: bit 0 double-buffers the halo, bit 1 the weights; ipb:
+// images a block (2 only with the whole plane a tile). With expand and one
+// tile the input box is the bare plane (`xplane`): the hidden halo's zero
+// border is written once.
 __host__ __device__ inline Layout layout(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand,
                                          int th, int tw, int group, int bufs, int ipb) {
     Layout L;
@@ -112,9 +103,8 @@ __host__ __device__ inline bool refused(const Layout& L) {
 
 __device__ __forceinline__ float swish(float v) { return v / (1.0f + expf(-v)); }
 
-// The activation of the expand and the depthwise: swish through the fast
-// exponential and division (a few ulp of fp32, far inside the bf16
-// rounding that follows both), or relu6.
+// The expand's and the depthwise's activation: swish by the fast exp and
+// division (a few ulp, inside the bf16 rounding after it), or relu6.
 __device__ __forceinline__ float act(float v, int relu6) {
     return relu6 ? fminf(fmaxf(v, 0.0f), 6.0f) : __fdividef(v, 1.0f + __expf(-v));
 }
@@ -184,19 +174,12 @@ struct Params {
     int B, H, W, cin, ce, cout, S, pad_h, pad_w, th, tw, group, bufs, ipb, has_expand, residual, relu6;
 };
 
-// grid (ceil(B / IPB), output-channel groups); 512 threads. xmap: x as
-// [B, H, W, cin], boxes [IPB, hh, hw, 64], or [IPB, H, W, 64] (the bare
-// plane, with expand and one tile), with the 128-byte swizzle with expand
-// (where they are the expand's A), none without (the depthwise input);
-// emap: w_exp^T [ce, cin], boxes [64 x 64]; pmap: w_proj^T [cout, ce],
-// boxes [64 x 64]; amap (with SE): the depthwise output [B, H, W, ce],
-// boxes [IPB, th, tw, 64], 128-byte swizzle (the project's A).
-//
-// With SE, pass 0 runs the expand and the depthwise and stores the bf16
-// depthwise output and the pool; after the SE gate, pass 1 loads each
-// (tile, slab) of that output as the project's A tile, scales it by the
-// gate and runs the project. Without SE one pass runs all three, the A
-// tile written by the depthwise.
+// grid (ceil(B / IPB), output-channel groups); 512 threads. xmap: x [B, H,
+// W, cin], boxes [IPB, hh, hw, 64] or the bare plane [IPB, H, W, 64],
+// 128-byte swizzle with expand (the expand's A), none without; emap:
+// w_exp^T [ce, cin], pmap: w_proj^T [cout, ce], boxes [64 x 64]; amap (with
+// SE): the depthwise output [B, H, W, ce], boxes [IPB, th, tw, 64], 128-byte
+// swizzle (the project's A).
 template <int K, int IPB>
 __global__ void __launch_bounds__(THREADS, 1)
 mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap emap,
@@ -335,9 +318,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         wph ^= 1u << wb;
     };
 
-    // 1. the hidden slab of step n: act(x @ w_exp + b_exp) in (64-row, 32-channel) units, into
-    // the hidden halo [IPB][hh][hw][64]; zero outside the image (a bare-plane box covers only the
-    // image; a halo box's outer pixels are written as zeros). Without expand, the input box.
+    // 1. the hidden slab of step n, act(x @ w_exp + b_exp) in (64-row, 32-channel) units, into the
+    // hidden halo [IPB][hh][hw][64], zero outside the image; without expand, the input box.
     auto hidden = [&](int n, const unsigned char* xcur, const float* aux) -> const unsigned char* {
         const int s = n % L.nslab, tile = tile_of(n);
         if (!p.has_expand) return xcur + s * L.rx * LINE;
@@ -390,12 +372,10 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         return hid_w;
     };
 
-    // 2. the depthwise of step n: an item is PX consecutive output pixels of a row of one image;
-    // a lane takes a channel pair of the slab (32 lanes an item, or 16 where the slab has at
-    // most 32 channels and a warp then takes two items at once); the PX + K - 1 halo values of
-    // each kernel row are loaded once for the item's PX pixels; the weights come from shared
-    // memory per tap. The output, rounded to bf16, goes to global memory with SE (and its fp32
-    // sums to red_s), else to the project's A tile.
+    // 2. the depthwise of step n: an item is PX output pixels of a row; a lane takes a channel
+    // pair of the slab (16 lanes an item where the slab has <= 32 channels); each kernel row's
+    // PX + K - 1 halo values are loaded once. The bf16 output goes to global memory with SE (its
+    // fp32 sums to red_s), else to the project's A tile.
     auto depthwise = [&](int n, const unsigned char* hid, const float* aux) {
         const int s = n % L.nslab, tile = tile_of(n);
         const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
@@ -479,9 +459,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         }
     };
 
-    // 3. the project of step n: this warpgroup's (64-pixel, 64-channel) tiles += A tile x w_proj^T
-    // slab; after the last slab the tile's epilogue: bias, residual (x from the input box without
-    // SE, from global memory with it), bf16 out
+    // 3. the project of step n: this warpgroup's (64-pixel, 64-channel) tiles += A x w_proj^T; after
+    // the last slab the epilogue: bias, residual (the input box without SE, global with), bf16 out
     auto project = [&](int n, const unsigned char* a_tile, const unsigned char* xcur, float (&acc)[NT_MAX][32]) {
         const int s = n % L.nslab, tile = tile_of(n);
         const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
@@ -563,9 +542,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         __syncthreads();  // the step's buffers are free for the next copies into them
     }
     if (has_se) {
-        // the SE gate of each image, once: the mean; the MLP, warp w summing the channels c = w
-        // mod WARPS for 32 hidden units at a time (lane j), the warps meeting in red_s; the
-        // sigmoid, written over the pool
+        // the SE gate of each image: the mean; the MLP (warp w sums channels w mod WARPS for
+        // 32 hidden units, lane j, meeting in red_s); the sigmoid, over the pool
         for (int c = tid; c < IPB * L.cep; c += THREADS) pool_s[c] = pool_s[c] / (float)(p.H * p.W);
         __syncthreads();
         for (int im = 0; im < IPB; ++im) {
@@ -612,9 +590,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         __syncthreads();
     }
 
-    // pass 1: with SE the stored depthwise output, scaled by the gate, into the project; without,
-    // expand, depthwise and project (two loops: the first keeps the depthwise's registers free of
-    // the project's accumulators)
+    // pass 1: with SE the stored depthwise output, gated, into the project; without, expand,
+    // depthwise and project (two loops keep the depthwise's registers free of the accumulators)
     float acc[NT_MAX][32];  // the project's accumulators, this warpgroup's tiles
     auto zero_acc = [&]() {
 #pragma unroll
@@ -709,10 +686,9 @@ int launch(const Params& p, int B, const void* w_exp_t, const void* w_proj_t, cu
 
 }  // namespace
 
-// Shared memory of one block for the plan (th, tw, group, bufs, ipb) (see
-// `layout`), or -1 if the kernel refuses it (more than 227 KB, more than
-// NT_MAX project tiles per warpgroup, two images without the whole plane
-// in one tile or at k = 7, which no instance takes).
+// Shared memory of one block for the plan (th, tw, group, bufs, ipb), or
+// -1 if the kernel refuses it (see `refused`; two images only with the
+// whole plane in one tile and k < 7).
 extern "C" int mbconv_smem(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand, int th, int tw,
                            int group, int bufs, int ipb) {
     const Layout L = layout(H, W, k, cin, ce, cout, S, has_expand, th, tw, group, bufs, ipb);
@@ -720,15 +696,11 @@ extern "C" int mbconv_smem(int H, int W, int k, int cin, int ce, int cout, int S
 }
 
 // One stride-1 block: x [B, H, W, cin] bf16; w_exp_t [ce, cin] bf16 (null:
-// no expand, cin == ce); aux [ceil(ce / 64)][k*k + 2][64] fp32: per slab of
-// 64 hidden channels the w_dw rows, b_dw and b_exp (zero past ce); w_se1
-// [ce, S], b_se1 [S], w_se2 [S, ce], b_se2 [ce] (w_se1 null: no SE);
-// w_proj_t [cout, ce] bf16, b_proj [cout]; residual adds x (cout == cin);
-// dw [B, H, W, ce] bf16 scratch (with SE: the depthwise output between
-// the passes; null without);
-// out [B, H, W, cout] bf16. The plan (th, tw, group, bufs, ipb) as for
-// mbconv_smem; k is 3, 5 or 7; cin, ce, cout % 8 == 0; all pointers
-// 16-byte aligned. Returns a cudaError_t.
+// no expand, cin == ce); aux [ceil(ce / 64)][k*k + 2][64] fp32 (w_dw rows,
+// b_dw, b_exp a slab); w_se1 [ce, S], b_se1 [S], w_se2 [S, ce], b_se2 [ce]
+// (w_se1 null: no SE); w_proj_t [cout, ce] bf16, b_proj [cout]; dw [B, H,
+// W, ce] bf16 scratch with SE; out [B, H, W, cout] bf16. k 3, 5 or 7; cin,
+// ce, cout % 8 == 0; pointers 16-byte aligned. Returns a cudaError_t.
 extern "C" int mbconv_launch(const void* x, const void* w_exp_t, const void* aux, void* dw, const void* w_se1,
                              const void* b_se1, const void* w_se2, const void* b_se2, const void* w_proj_t,
                              const void* b_proj, void* out, int B, int H, int W, int cin, int ce, int cout, int S,

@@ -1,29 +1,19 @@
-// Packed tile-min scans for Hopper (sm_90a). `tilemin2_packed_launch`
-// replaces `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/distance_kernel.py:393,
-// launched by `_tilemin2_packed_block` :430), `tilemin_packed_launch`
-// replaces `_tilemin_packed_kernel` (:350, launched by
-// `_tilemin_packed_block` :607). Per gallery tile of `tile_g` rows and
-// query, the least (min-2: and second-least) packed int32 key
+// Packed tile-min scans for Hopper (sm_90a): `tilemin2_packed_launch`
+// replaces `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/
+// distance_kernel.py:393, launched by `_tilemin2_packed_block` :430),
+// `tilemin_packed_launch` `_tilemin_packed_kernel` (:350, launched by
+// `_tilemin_packed_block` :607). Per query and tile of `tile_g` rows the
+// least (min-2: and second-least) key
 //
 //     key = (f32 bits of q_aug . g_aug) & ~(tile_g - 1) | row_in_tile
 //
-// where the augmented columns make the dot the squared L2 distance
-// (ops/distance_kernel.py). Distances are >= 0 up to rounding, so their
-// bits order as int32 and one integer min carries value and argmin; a
-// slightly negative one sorts below every positive key, as on the TPU. Pad
-// rows carry |g|^2 = 1e38 and never win. Keys within a tile differ in
-// their row bits, so the order is (quantized distance, row).
-//
-// One kernel, `tilemin_packed_sm90<TWO, TILE_G>`, on sm90_scan.cuh: 128
-// queries resident in shared memory as the `wgmma` A operand (up to Da =
-// 640; above it `tilemin_packed_stream_sm90` streams them through the ring
-// beside the gallery), 256-row sub-tiles through a 4-stage TMA ring. The
-// epilogue stays in registers and writes one key (pair) per (query, tile).
-// At tile_g 128 one sub-tile splits at column group 16 into its two tiles.
-// The grid is (query tiles, runs) sized to one block per SM. The epilogue
-// is issue-bound and sensitive to how it compiles: keep the loop's shape
-// (tile, then sub-tile, row = sub * 256 + column) unless an A/B on the card
-// says otherwise (PERF.md §6).
+// (the augmented dot is the squared distance, >= 0 up to rounding, so its
+// bits order as int32: one integer min carries value and row). Pad rows
+// carry |g|^2 = 1e38. `tilemin_packed_sm90<TWO, TILE_G>` on sm90_scan.cuh:
+// 128 queries resident as the `wgmma` A operand up to Da = 640
+// (`tilemin_packed_stream_sm90` streams them above), 256-row sub-tiles
+// through a 4-stage TMA ring, the epilogue in registers. The epilogue is
+// issue-bound: keep its loop shape unless an A/B on the card says so.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,14 +63,10 @@ __device__ __forceinline__ void store_keys(int (&m1)[2], int (&m2)[2], int32_t* 
     }
 }
 
-// grid (query tiles, runs of `run` units); 384 threads: warpgroups 0-1
-// consume, 2 produces. A unit is one tile of TILE_G >= 256 rows (TILE_G /
-// 256 sub-tiles), or one sub-tile that holds two tiles of 128. qmap: [B,
-// da] boxes [128 x 64]; gmap: [n_tiles * TILE_G, da] boxes [256 x 64];
-// n_chunks = ceil(da / 64) boxes per row block. out2 is written only with
-// TWO. TILE_G is a template argument: the epilogue's mask and row offsets
-// are then constants (the min-2 scan's epilogue takes as many instruction
-// slots as its products).
+// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1
+// consume, 2 produces. A unit: a tile of TILE_G >= 256 rows, or a sub-tile
+// of two tiles of 128. qmap [B, da] boxes [128 x 64]; gmap [n_tiles *
+// TILE_G, da] boxes [256 x 64]; out2 only with TWO.
 template <bool TWO, int TILE_G>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -188,13 +174,9 @@ tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_const
     }
 }
 
-// The same scan for da > 640, whose queries do not fit beside the ring:
-// each of its 4 ring stages is [QT x 64] query lanes, then [BN x 64]
-// gallery lanes, loaded together. A separate kernel, so that the resident
-// one above compiles as it did (its issue-bound epilogue is sensitive to
-// how it compiles: one template with a streaming switch ran the single-min
-// scan ~8 % slower on the card; `tilemin_sm90`, kernels/tile_scan.cu,
-// measured the other way and keeps its switch).
+// The same scan for da > 640: each of the 4 ring stages holds [QT x 64]
+// query lanes, then [BN x 64] gallery lanes. A separate kernel: a
+// streaming switch in the one above ran it ~8 % slower (PERF.md §6).
 template <bool TWO, int TILE_G>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_packed_stream_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -302,9 +284,8 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
     if (B <= 0 || n_tiles <= 0 || da <= 0 || da % 16 != 0 || (long)n_tiles * TILE_G > INT32_MAX - BN)
         return (int)cudaErrorInvalidValue;
     const int n_chunks = (da + sm90::KCHUNK - 1) / sm90::KCHUNK;
-    // alignment slack, resident queries, the ring and (2 stages + 1)
-    // barriers; queries that leave room for fewer than two gallery stages
-    // (da > 640) stream through the ring instead
+    // slack, resident queries, the ring and (2 stages + 1) barriers (the
+    // queries stream through the ring above da = 640)
     const int bars = (2 * MAX_STAGES + 1) * 8;
     const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - sm90::SMEM_ALIGN - n_chunks * Q_BOX - bars) / G_BOX);
     const bool stream_q = resident_stages < 2;
@@ -334,19 +315,16 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
 
 }  // namespace
 
-// q: [B, da] bf16, g: [n_tiles * 1024, da] bf16 (both 16-byte aligned;
-// da % 16 == 0, any width: resident queries up to da = 640, streamed above
-// it), out1/out2: [B, n_tiles] int32. Returns a cudaError_t value (0 on
-// success); launches on `stream`.
+// q [B, da] bf16, g [n_tiles * 1024, da] bf16 (16-byte aligned, da % 16 ==
+// 0), out1/out2 [B, n_tiles] int32. Returns a cudaError_t.
 extern "C" int tilemin2_packed_launch(const void* q, const void* g, void* out1,
                                       void* out2, int B, int n_tiles, int da,
                                       void* stream) {
     return launch<true, 1024>(q, g, out1, out2, B, n_tiles, da, stream);
 }
 
-// q: [B, da] bf16, g: [n_tiles * tile_g, da] bf16, out: [B, n_tiles] int32;
-// tile_g is 128, 256, 512 or 1024; da as for tilemin2_packed_launch.
-// Returns a cudaError_t value.
+// q [B, da], g [n_tiles * tile_g, da] bf16, out [B, n_tiles] int32; tile_g
+// 128-1024. Returns a cudaError_t.
 extern "C" int tilemin_packed_launch(const void* q, const void* g, void* out,
                                      int B, int n_tiles, int da, int tile_g,
                                      void* stream) {

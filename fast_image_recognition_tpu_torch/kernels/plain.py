@@ -1,10 +1,6 @@
-"""Plain PyTorch versions of the port's CUDA kernels.
-
-Each computes the same function as its kernel, in straightforward chunked
-PyTorch: the CPU tests run them, and ``chip_smoke.py`` holds each kernel
-against its plain version on the card. The card's main path never calls
-them.
-"""
+"""Plain PyTorch versions of the port's CUDA kernels: the same function in
+chunked PyTorch, run by the CPU tests and held against each kernel by
+``chip_smoke.py``; the card's main path never calls them."""
 
 from __future__ import annotations
 
@@ -24,10 +20,8 @@ def tilemin_packed_plain(
     tile_g: int = TILE_G,
     chunk_rows: int = 65536,
 ) -> torch.Tensor:
-    """Per (query, gallery tile) min packed int32 key
-    ``(f32 bits of the augmented dot) & ~(tile_g-1) | row_in_tile``,
-    ``[B, n_tiles]`` (counterpart of ``_tilemin_packed_kernel``,
-    ops/distance_kernel.py:350)."""
+    """Per (query, tile) min packed int32 key ``(f32 bits of the augmented
+    dot) & ~(tile_g-1) | row_in_tile`` (``_tilemin_packed_kernel`` :350)."""
     b = q_aug.shape[0]
     n_tiles = g_aug.shape[0] // tile_g
     qf = q_aug.to(torch.float32)
@@ -48,10 +42,8 @@ def tilemin2_packed_plain(
     g_aug: torch.Tensor,  # [Np, Da] bf16 augmented gallery, Np % TILE_G == 0
     chunk_tiles: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, gallery tile) min and second-min packed int32 key:
-    ``(f32 bits of the augmented dot) & ~(TILE_G-1) | row_in_tile``.
-    Returns ``(k1, k2)``, each ``[B, n_tiles]`` int32 (counterpart of
-    ``_tilemin2_packed_kernel``, ops/distance_kernel.py:393)."""
+    """Per (query, tile) min and second-min packed int32 keys ``(k1, k2)``
+    ``[B, n_tiles]`` (``_tilemin2_packed_kernel``, ops/distance_kernel.py:393)."""
     b = q_aug.shape[0]
     n_tiles = g_aug.shape[0] // TILE_G
     qf = q_aug.to(torch.float32)
@@ -91,12 +83,10 @@ def tilemin_plain(
     bf16_scores: bool = False,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and argmin of ``|g|^2 - 2 q.g`` (counterpart of
-    ``_tilemin_kernel``, ops/distance_kernel.py:174): bf16 x bf16 products
-    summed in fp32; the score in fp32, or with ``bf16_scores`` rounded to
-    bf16 at each step (``|g|^2``, ``2 q.g`` and their difference, nearest
-    even). Returns (min [B, n_tiles] fp32, global row [B, n_tiles] int32);
-    ties go to the lowest row."""
+    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g``
+    (``_tilemin_kernel``, ops/distance_kernel.py:174): bf16 products summed
+    in fp32, the score in fp32 or, ``bf16_scores``, rounded to bf16 at each
+    step. Returns (min [B, n_tiles] fp32, row int32)."""
     b = q.shape[0]
     n_tiles = g.shape[0] // tile_g
     qf = q.to(torch.float32)
@@ -132,12 +122,9 @@ def tilemin_quant_plain(
     compute: str = "int8",
     chunk_rows: int = 32768,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)`` in
-    fp32, one rounding per operation in that order (counterpart of
-    ``_tilemin_quant_kernel``, ops/distance_kernel.py:671). ``'int8'``:
-    the exact integer dot (float64 sums of int8 products are exact here),
-    rounded to fp32; ``'bf16'``: the int8 values as bf16 (exact), products
-    summed in fp32. Returns (min [B, n_tiles] fp32, global row int32)."""
+    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)``,
+    one fp32 rounding per operation (``_tilemin_quant_kernel`` :671): the
+    exact integer dot (``'int8'``) or bf16 products in fp32 (``'bf16'``)."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     b = q.shape[0]
@@ -170,23 +157,15 @@ def topk_l2_plain(
     chunk_rows: int = 65536,
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k for any k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32
-    from the stored values, rows >= n_valid excluded, ties to the lowest row
-    index, empty slots ``(BIG_DIST, -1)``. ``window=(start, end)`` zeroes
-    the feature lanes outside ``[start, end)`` in q, g and |q|^2.
-    ``precise`` takes fp32 queries and contracts in fp32 (never TF32).
-    Query rows where ``row_mask`` is False come back empty.
-    ``floor=(d [B], row [B])``, a slab of a larger top-k: only (d, row)
-    strictly after the query's floor enter (row -1: an empty floor, so
-    nothing does). Returns raw squared distances ``[B, k]`` fp32 and
-    indices ``[B, k]`` int32 (counterpart of ``_topk_kernel``,
-    ops/distance_kernel.py:92).
-
-    Works through ``chunk_rows`` rows at a time: each chunk's distances
-    join the carried top-k, and ``torch.topk`` of the int64 keys ``(fp32
-    bits of d) << 32 | (row + 1)`` keeps the k least. The distances are >=
-    0, so their bits order as integers and the keys order by (d, row): ties
-    go to the lowest row whatever order ``topk`` breaks them in."""
+    """Exact L2 top-k for any k (``_topk_kernel``, ops/distance_kernel.py:92):
+    ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, rows >= n_valid excluded,
+    ties to the lowest row, empty slots ``(BIG_DIST, -1)``; ``window``
+    zeroes lanes outside ``[start, end)``; ``precise`` contracts fp32
+    queries in fp32; False ``row_mask`` rows come back empty; ``floor=(d,
+    row)`` admits only (d, row) after it. Carries the top-k through
+    ``chunk_rows`` rows at a time by ``torch.topk`` of int64 keys ``(fp32
+    bits of d) << 32 | (row + 1)``: ties go to the lowest row. Returns raw
+    squared distances [B, k] fp32 and rows [B, k] int32."""
     n = g.shape[0] if n_valid is None else int(n_valid)
     b, dim = q.shape
     qf = q.to(torch.float32)
@@ -224,11 +203,9 @@ def topk_l2_plain(
 
 
 def split_bf16x3(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The three bf16 terms ``kernels/topk_l2.cu``'s ``split_queries`` makes
-    of fp32 queries for the precise pass over bf16 rows: ``hi = bf16(q)``,
-    ``mid = bf16(q - hi)``, ``lo = bf16(q - hi - mid)``, each difference
-    exact in fp32 and each rounding to nearest even, so that ``hi + mid +
-    lo`` is ``q`` to ~2^-27 relative (2^-134 absolute among subnormals)."""
+    """``split_queries``' three bf16 terms of fp32 queries: ``hi = bf16(q)``,
+    ``mid = bf16(q - hi)``, ``lo = bf16(q - hi - mid)`` (exact differences,
+    nearest even), ``hi + mid + lo = q`` to ~2^-27 relative."""
     qf = q.to(torch.float32)
     hi = qf.to(torch.bfloat16)
     r = qf - hi.to(torch.float32)
@@ -243,13 +220,10 @@ def chi2_nn_plain(
     n_valid: Optional[int] = None,
     tile_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """chi2 1-NN: per query the least ``sum (g - q)^2 / max(g + q, 1e-30)``
-    in fp32 with exact division over rows [0, n_valid), and the lowest row
-    at it (counterpart of ``_chi2_kernel``, ops/chi2_kernel.py:55). Works
-    through ``tile_rows`` gallery rows at a time (default: the [B, tile, D]
-    broadcast under 2^26 elements, a multiple of 128 rows, as
-    ``_elementwise_tile`` is driven). Returns (min [B] fp32, unnormalized;
-    row [B] int32)."""
+    """chi2 1-NN (``_chi2_kernel``, ops/chi2_kernel.py:55): per query the least
+    ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 over rows [0, n_valid)
+    and its lowest row, ``tile_rows`` rows at a time (default: under 2^26
+    broadcast elements, a 128 multiple). Returns (min [B] fp32, row int32)."""
     b, d = q.shape
     n = g.shape[0] if n_valid is None else int(n_valid)
     if tile_rows is None:
@@ -295,16 +269,12 @@ def mbconv_plain(
     residual: bool,
     chunk: int = 64,
 ) -> torch.Tensor:
-    """One folded stride-1 MBConv block, ``[B, Cout, H, W]`` channels_last
-    in ``x.dtype`` (counterpart of ``_mbconv_kernel``,
-    ops/mbconv_kernel.py:82). It rounds to ``x.dtype`` where
-    ``kernels/mbconv.cu`` rounds to bf16: the hidden tensor after expand,
-    bias and activation; the depthwise output after its bias and
-    activation (the kernel rounds it before the gate; the TPU kernel keeps
-    it in fp32); the SE-scaled hidden before the project; the output. The
-    depthwise sums, the SE pool (of the unrounded depthwise output) and the
-    SE MLP stay fp32, and the project adds bias and residual in fp32. In
-    fp32 every rounding is a no-op."""
+    """One folded stride-1 MBConv block (``_mbconv_kernel``,
+    ops/mbconv_kernel.py:82) -> [B, Cout, H, W] channels_last in
+    ``x.dtype``, rounding to it where ``kernels/mbconv.cu`` rounds to bf16:
+    the hidden tensor, the depthwise output (before the gate), the gated
+    hidden, the output; depthwise sums, SE pool and MLP, bias and residual
+    stay fp32."""
     dt = x.dtype
     b, _, h, w = x.shape
     cout, ce = q["w_proj_t"].shape

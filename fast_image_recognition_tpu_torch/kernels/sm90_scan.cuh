@@ -1,24 +1,13 @@
 // The Hopper main loop of the gallery scans (topk_l2.cu, packed_scan.cu,
-// tile_scan.cu): a ring of TMA boxes in shared memory filled by one
-// producer thread, `wgmma` products of two consumer warpgroups read from
-// that ring, and `mbarrier`s between them. sm_90a only.
-//
-// Layout: operands are row-major [rows, cols] bf16 or int8 with rows
-// contiguous along the contraction; both `wgmma` operands are K-major. A
-// box is [box_rows x 128 bytes] with the 128-byte swizzle (chunk c of row r
-// at chunk c ^ (r % 8)), the SWIZZLE_128B descriptor layout: 8-row groups
-// 1024 bytes apart, the k-th 32-byte slice at +32 bytes. A line holds one
-// row's features, so a row's partial |g|^2 is its line's sum of squares.
-// TMA zero-fills past a tensor's extent: a ragged D, B or N needs no
-// masking. The split pass over fp32 rows also takes [rows x 32] fp32 boxes
-// and 64-byte-swizzled bf16 lines (chunk c of row r at c ^ ((r / 2) % 4)).
-//
-// Pipeline: full[s] completes when stage s has landed (an arrive with the
-// byte count, then the TMA transactions); empty[s] when both consumer
-// warpgroups released it (after `wgmma.wait_group`). The producer gives its
-// registers to the consumers (`setmaxnreg`). A wait that has not completed
-// after ~2^35 clocks traps: a pipeline fault is a launch error, not a hung
-// card.
+// tile_scan.cu), sm_90a only: a ring of TMA boxes filled by one producer
+// thread, `wgmma` products of two consumer warpgroups, `mbarrier`s between.
+// Operands are row-major, contiguous along the contraction (K-major for
+// both `wgmma` operands); a box is [rows x 128 bytes], 128-byte swizzle
+// (chunk c of row r at c ^ (r % 8)): 8-row groups 1024 bytes apart, the
+// k-th 32-byte slice at +32 bytes. TMA zero-fills past a tensor's extent.
+// full[s] completes when stage s has landed, empty[s] when both consumer
+// warpgroups released it; the producer gives its registers away
+// (`setmaxnreg`). A wait still open after ~2^35 clocks traps.
 
 #pragma once
 
@@ -102,17 +91,15 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand
-// starting at `p` (1024-byte aligned tile, plus 32 bytes per 16-feature
-// slice): leading offset unused (1), 8-row groups 1024 bytes apart.
+// wgmma descriptor of a K-major 128-byte-swizzled operand at `p` (a
+// 1024-byte aligned tile + 32 bytes a 16-feature slice).
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The same for a 64-byte-swizzled operand (lines of 32 bf16 features; the
-// 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4) of its line): a
-// 512-byte aligned tile, 8-row groups 512 bytes apart, layout type 2.
+// The same, 64-byte swizzle (32-feature lines, chunk c of row r at c ^ ((r
+// / 2) % 4)): 512-byte aligned tile, 8-row groups 512 bytes apart.
 __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
@@ -173,10 +160,8 @@ __device__ __forceinline__ float sq8(uint4 v, int lead = 0) {
     return s;
 }
 
-// Sum of squares of the logical 16-byte chunks [c0, c0 + n) of the
-// swizzled line of row `r` (logical chunk c sits at physical chunk
-// c ^ (r % 8)); the first `lead` features of logical chunk 0 count as
-// zero. Rows of one warp read distinct chunk positions: no bank conflicts.
+// Sum of squares of logical 16-byte chunks [c0, c0 + n) of row `r`'s
+// swizzled line; the first `lead` features of chunk 0 count as zero.
 template <int N>
 __device__ __forceinline__ float line_sq(const unsigned char* tile, int r, int c0, int lead) {
     const unsigned char* line = tile + r * LINE_BYTES;
@@ -243,11 +228,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The same product with A (64 rows x 16 bf16 features) taken from
-// registers instead of shared memory: a[0..3] hold the warp's 16 rows in
-// the m16n8k16 fragment layout (a[0]: row (t % 32) / 4, features 2 (t % 4)
-// and + 1; a[1]: row + 8; a[2], a[3]: the same rows, features + 8; lower
-// feature in the lower half). B as above.
+// The same product with A (64 rows x 16 bf16 features) from registers,
+// a[0..3] in the m16n8k16 fragment layout (a[0]: row (t % 32) / 4,
+// features 2 (t % 4), + 1; a[1]: row + 8; a[2], a[3]: features + 8).
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -325,9 +308,8 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, 
         : "l"(da), "l"(db), "r"(1));
 }
 
-// The accumulator of an m64nNk16 (bf16) or m64nNk32 (int8) product: thread t of the warpgroup holds,
-// for j < N / 8, h, c in {0, 1}, d[4 j + 2 h + c] at query row
-// 16 (t / 32) + (t % 32) / 4 + 8 h and gallery column 8 j + 2 (t % 4) + c.
+// m64nNk16/k32 accumulator: thread t holds d[4 j + 2 h + c] (j < N / 8, h, c in {0, 1}) at query
+// row 16 (t / 32) + (t % 32) / 4 + 8 h, gallery column 8 j + 2 (t % 4) + c.
 __device__ __forceinline__ int acc_row(int t, int h) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * h; }
 __device__ __forceinline__ int acc_col(int t, int j, int c) { return 8 * j + 2 * (t & 3) + c; }
 
@@ -355,11 +337,9 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// Map of a row-major matrix [rows, cols] of `elem_bytes`-byte elements
-// with `stride` bytes between rows (a multiple of 16; `base` 16-byte
-// aligned), read in boxes of [box_rows x line_bytes] with the swizzle of
-// that line (128 or 64 bytes); zeros past the extent. Returns a
-// cudaError_t value.
+// Map of a row-major [rows, cols] matrix (`stride` bytes a row, a multiple
+// of 16; `base` 16-byte aligned) in boxes of [box_rows x line_bytes] with
+// that line's swizzle (128 or 64 bytes). Returns a cudaError_t.
 inline int encode_swizzled_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
                                long cols, long rows, long stride, int box_rows, int line_bytes) {
     const EncodeTiledFn fn = encode_tiled();

@@ -1,33 +1,18 @@
 // Per-tile min and argmin scans for Hopper (sm_90a) on sm90_scan.cuh.
-//
-// `tilemin_launch` replaces `_tilemin_kernel`
-// (fast_image_recognition_tpu/ops/distance_kernel.py:174, launched by
-// `_tilemin_l2_block` :222). Per query and tile of `tile_g` rows the min
-// and the lowest row at the min of score = |g|^2 - 2 q.g (bf16 products
-// summed in fp32, |g|^2 precomputed, BIG_DIST on pad rows). `bf16_scores`
-// rounds |g|^2, 2 q.g and their difference to bf16, as the TPU kernel's
-// `score_t=bfloat16` does (a pad row's 3.4e38 becomes inf). |q|^2, the
-// clamp and the division by D are the caller's.
-//
-// `tilemin_quant_launch` replaces `_tilemin_quant_kernel` (:671, launched
-// by `_tilemin_quant_block` :717): score = gsq - (2 s_q) * (cross * s_g)
-// with `cross` the exact int32 dot (`compute` int8) or the fp32 sum of the
-// same values as bf16 products (`compute` bf16). Every epilogue operation
-// rounds on its own (`__fmul_rn`, `__fsub_rn`), so scores equal the plain
-// version's bit for bit when the dots do.
-//
-// `tilemin_sm90` has the packed scans' shape: 128 resident queries (streamed
-// above D = 640), 256-row sub-tiles, a (score, row) a row kept with a strict
-// < over rising columns from (inf, the tile's first row), so a tile of inf
-// scores returns its first row, as the plain version does.
-// `tilemin_quant_sm90`: s8 `wgmma` m64n256k32, a block per (128 queries, a
-// 2048-row segment), each ring stage a 128-feature chunk of queries and
-// rows. `tilemin_quant_bf16_sm90`: the int8 gallery is the `wgmma` A
-// operand, converted to bf16 fragments in registers (UINT8 tensor maps copy
-// the bits), 256 bf16 queries the N side; rows run along M, so a tile's min
-// crosses lanes (shuffles, then shared memory). Query tiles run fastest, so
-// blocks reading one stretch of the gallery share it through L2; segments
-// fold into grid x, so any number of tiles up to int32 rows.
+// `tilemin_launch` replaces `_tilemin_kernel` (fast_image_recognition_tpu/
+// ops/distance_kernel.py:174, launched by `_tilemin_l2_block` :222): per
+// query and tile of `tile_g` rows the min of |g|^2 - 2 q.g (bf16 products
+// summed in fp32; BIG_DIST on pad rows) and the lowest row at it;
+// `bf16_scores` rounds as the TPU's `score_t=bfloat16` (a pad row's 3.4e38
+// becomes inf). `tilemin_quant_launch` replaces `_tilemin_quant_kernel`
+// (:671, launched by `_tilemin_quant_block` :717): gsq - (2 s_q) * (cross *
+// s_g), cross the exact int32 dot (int8) or the fp32 sum of bf16 products
+// (bf16), each step rounded on its own, as the plain version. Kernels:
+// `tilemin_sm90` (the packed scans' shape, queries streamed above D = 640),
+// `tilemin_quant_sm90` (s8 `wgmma` m64n256k32, 128 queries x 2048 rows a
+// block) and `tilemin_quant_bf16_sm90` (the int8 gallery converted to bf16
+// A fragments in registers, 256 queries the N side). Query tiles run
+// fastest, so blocks share a stretch of the gallery through L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,9 +40,8 @@ __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The (score, row) of each of the thread's two query rows, merged over the
-// 4 lanes of a row, written as (query, tile) if both exist; then reset to
-// (inf, next_row).
+// Each of the thread's two query rows' (score, row), merged over the row's
+// 4 lanes and written; then reset to (inf, next_row).
 __device__ __forceinline__ void store_tile(float (&bv)[2], int (&bi)[2], float* __restrict__ out_d,
                                            int32_t* __restrict__ out_i, int q, int t, int B, int n_tiles,
                                            int tile, int next_row) {
@@ -84,17 +68,11 @@ __device__ __forceinline__ void store_tile(float (&bv)[2], int (&bi)[2], float* 
 constexpr int Q_BOX = QT * sm90::LINE_BYTES;  // one 64-lane chunk of the queries
 constexpr int G_BOX = BN * sm90::LINE_BYTES;  // one 64-lane chunk of a sub-tile
 
-// grid (query tiles, runs of `run` units); 384 threads: warpgroups 0-1
-// consume, 2 produces. A unit is one tile of tile_g >= 256 rows (tile_g /
-// 256 sub-tiles) or one sub-tile that holds two tiles of 128. qmap: [B, D]
-// boxes [128 x 64]; gmap: [n_tiles * tile_g, D] boxes [256 x 64]; n_chunks
-// = ceil(D / 64). STREAM: the queries are not resident; each ring stage is
-// [QT x 64] query lanes, then [BN x 64] gallery lanes. Both instances share
-// this text because it measured faster: a resident-only copy without the
-// switch ran the scan ~7 % slower on the card. The packed scans measured
-// the other way and keep two kernels (kernels/packed_scan.cu); these
-// issue-bound epilogues move with how their text compiles, so each scan
-// keeps the form that won an A/B of both in one run.
+// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1
+// consume, 2 produces. A unit: a tile of tile_g >= 256 rows, or a sub-tile
+// of two tiles of 128. qmap [B, D] boxes [128 x 64]; gmap [n_tiles * tile_g,
+// D] boxes [256 x 64]. STREAM: each stage holds [QT x 64] query lanes, then
+// [BN x 64] gallery lanes. One text for both (it won the A/B, PERF.md §6).
 template <bool BF16S, bool STREAM>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -197,9 +175,8 @@ tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
                 sm90::acc_fence(acc);
                 if (t == 0) sm90::mbar_arrive(&empty[prev]);
 
-                // each warpgroup its own copy, two buffers: one barrier of
-                // the warpgroup per sub-tile, so the two warpgroups' epilogues
-                // need not run at the same time
+                // a copy and two buffers a warpgroup: one barrier of the
+                // warpgroup per sub-tile
                 float* g2b = g2_s + (2 * wg + (it & 1)) * BN;
 #pragma unroll
                 for (int i = 0; i < 2; ++i) g2b[t + i * HALF] = BF16S ? bf16_round(g2_own[i]) : g2_own[i];
@@ -240,9 +217,8 @@ int launch_tilemin(const void* q, const void* g, const void* gsq, void* out_d, v
         return (int)cudaErrorInvalidValue;
     const int n_rows = n_tiles * tile_g;
     const int n_chunks = (D + sm90::KCHUNK - 1) / sm90::KCHUNK;
-    // alignment slack, |g|^2 of two sub-tiles for each warpgroup, (2 stages + 1) barriers, and
-    // the resident queries with the ring; queries that leave room for fewer
-    // than two gallery stages (D > 640) stream through the ring instead
+    // slack, |g|^2 of two sub-tiles a warpgroup, (2 stages + 1) barriers and
+    // the resident queries (streamed through the ring above D = 640)
     const int fixed = sm90::SMEM_ALIGN + 4 * BN * 4 + (2 * MAX_STAGES + 1) * 8;
     const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - fixed - n_chunks * Q_BOX) / G_BOX);
     const bool stream_q = resident_stages < 2;
@@ -285,10 +261,8 @@ constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 // ring, |g|^2 and s_g of two sub-tiles, full[] and empty[] barriers
 constexpr size_t SMEM8 = sm90::SMEM_ALIGN + RING_BYTES + 4 * BN8 * 4 + 2 * STAGES * 8;
 
-// grid (query tiles, segments from seg_base); 384 threads: warpgroups 0-1
-// consume, 2 produces. qmap: [B, D] int8 boxes [128 x 128]; gmap: [n_rows,
-// D] int8 boxes [256 x 128]; n_rows = n_tiles * tile_g; n_chunks = ceil(D /
-// 128).
+// grid (query tiles, segments from seg_base); 384 threads. qmap [B, D] int8
+// boxes [128 x 128]; gmap [n_tiles * tile_g, D] int8 boxes [256 x 128].
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                    const float* __restrict__ qs, const float* __restrict__ gsq, const float* __restrict__ gsc,
@@ -477,10 +451,8 @@ __device__ __forceinline__ void keep_least(float& v, int& r, float ov, int oi) {
     if (before(ov, oi, v, r)) { v = ov; r = oi; }
 }
 
-// grid (query tiles of 256 x segments, query tile fastest); 384 threads:
-// warpgroups 0-1 consume, 2 produces. qmap: [B, D] bf16 (the int8 queries
-// converted) boxes [256 x 64]; gmap: [n_rows, D] int8 boxes [128 x 128];
-// n_chunks = ceil(D / 128).
+// grid (256-query tiles fastest, segments); 384 threads. qmap [B, D] bf16
+// boxes [256 x 64]; gmap [n_rows, D] int8 boxes [128 x 128].
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                         const float* __restrict__ qs, const float* __restrict__ gsq,
@@ -693,10 +665,9 @@ int launch_quant_bf16_sm90(const void* q, const void* qs, const void* g, const v
 
 }  // namespace
 
-// q: [B, D] bf16, g: [n_tiles * tile_g, D] bf16 (D % 8 == 0), gsq: [>= n_tiles
-// * tile_g] fp32 in row order, out_d: [B, n_tiles] fp32 min scores, out_i:
-// [B, n_tiles] int32 global rows; tile_g is 128, 256, 512 or 1024.
-// Returns a cudaError_t value (0 on success); launches on `stream`.
+// q [B, D] bf16, g [n_tiles * tile_g, D] bf16 (D % 8 == 0), gsq [>=
+// n_tiles * tile_g] fp32, out_d/out_i [B, n_tiles] fp32 minima and int32
+// rows; tile_g 128-1024. Returns a cudaError_t.
 extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, void* out_d,
                               void* out_i, int B, int n_tiles, int D, int tile_g,
                               int bf16_scores, void* stream) {
@@ -704,11 +675,9 @@ extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, voi
     return launch_tilemin<false>(q, g, gsq, out_d, out_i, B, n_tiles, D, tile_g, stream);
 }
 
-// q: [B, D] int8 (compute_int8 = 1) or the same values as bf16 (0), qs: [B]
-// fp32 query scales, g: [n_tiles * tile_g, D] int8 (D % 16 == 0), gsq/gsc:
-// [>= n_tiles * tile_g] fp32 true |g|^2 and row scales in row order,
-// out_d/out_i as for tilemin_launch. compute_int8: 1 for the int32 dot, 0
-// for bf16 products summed in fp32.
+// q [B, D] int8 (compute_int8 = 1: the int32 dot) or bf16 (0: bf16
+// products in fp32), qs [B] fp32, g [n_tiles * tile_g, D] int8 (D % 16 ==
+// 0), gsq/gsc [>= n_tiles * tile_g] fp32; out as for tilemin_launch.
 extern "C" int tilemin_quant_launch(const void* q, const void* qs, const void* g,
                                     const void* gsq, const void* gsc, void* out_d, void* out_i,
                                     int B, int n_tiles, int D, int tile_g, int compute_int8,

@@ -1,35 +1,17 @@
-// Exact L2 top-k (1 <= k <= 256 a launch) for Hopper (sm_90a), replacing
-// the Pallas kernel `_topk_kernel` and its `_merge_topk` carry
-// (fast_image_recognition_tpu/ops/distance_kernel.py:92, :57; launched by
-// `_topk_l2_block` :988). Per query and row d = max(|q|^2 + |g|^2 - 2 q.g, 0)
-// in fp32; rows >= n_valid never enter the result; ties go to the lowest
-// row; slots past the valid rows stay (BIG_DIST, -1). A window [start, end)
-// zeroes the lanes outside it in q, g and |q|^2 (its tensor maps start at
-// the 8-lane boundary below start: TMA zero-fills past end, the lanes below
-// start are zeroed in the staged queries).
-//
-// `topk_l2_launch` (bf16): pass 1 `topk_pass1_sm90` on sm90_scan.cuh, a
-// block per (128 queries, 2048-row segment), |g|^2 and |q|^2 summed from the
-// landed tiles, the epilogue in registers; a per-query mask skips the query
-// tiles with no masked query (an escalation that may be empty, no host
-// sync). `topk_l2_precise_launch` (the fp32 oracle): `split_queries` makes
-// three bf16 planes of each query (hi + mid + lo = q to ~2^-27); Hopper
-// truncates as it accumulates, so each chunk's products go to a fresh
-// accumulator, smallest first, added into fp32 registers. bf16 rows take
-// three products a chunk (`topk_pass1_split_sm90`); fp32 rows are split
-// the same way by the producer warpgroup (64-byte-swizzled bf16 planes,
-// |g|^2 from the fp32 values) and take the six products whose weight
-// reaches fp32: hi.lo, lo.hi, mid.mid, hi.mid, mid.hi, hi.hi
-// (`topk_pass1_split6_sm90`).
-//
-// Pass 2: one warp per query merges its segment lists. K is a power of two
-// >= k; k <= 16 keeps lists in registers; k > 16 keeps each (query,
-// segment) list in the pass-1 scratch row it ends in, one warp merging
-// candidates 32 at a time against its last entry (`WarpList`). k > 256 is
-// scanned in slabs (ops/distance_kernel.py `topk_l2`), each admitting only
-// candidates strictly after the previous slab's last (d, row). More than
-// 65,535 segments run as several launches (`seg_base`). Bounds and times:
-// PERF.md §6.
+// Exact L2 top-k (k <= 256 a launch) for Hopper (sm_90a), replacing the Pallas
+// `_topk_kernel` and `_merge_topk` (fast_image_recognition_tpu/ops/distance_kernel.py
+// :92, :57; launched by `_topk_l2_block` :988): d = max(|q|^2 + |g|^2 - 2 q.g, 0)
+// in fp32, rows >= n_valid never returned, ties to the lowest row, empty
+// slots (BIG_DIST, -1); a window [start, end) zeroes the lanes outside it.
+// Pass 1, a block per (128 queries, row segment): `topk_pass1_sm90` (bf16;
+// a query mask skips query tiles, no host sync) or the fp32 oracle, three
+// bf16 query planes (`split_queries`) against bf16 rows
+// (`topk_pass1_split_sm90`, three products a chunk) or fp32 rows split on
+// the chip (`topk_pass1_split6_sm90`, six), each chunk into a fresh
+// accumulator (Hopper truncates as it accumulates). Pass 2: a warp per
+// query merges the segment lists (registers for k <= 16, the pass-1
+// scratch above, `WarpList`). k > 256 runs in slabs above a floor; past
+// 65,535 segments, several launches (`seg_base`). PERF.md §6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,10 +104,9 @@ struct WarpList {
     }
 };
 
-// One warp merges the candidates j < n, cand(j) -> (d, row) with rows
-// rising in j, into the list of K in global memory at (ld, li) that it
-// owns; (*last_d, *last_i), in shared memory, is the list's last entry.
-// The list is read (and written back) only if a candidate beats it.
+// A warp merges candidates j < n (cand(j) -> (d, row), rows rising) into
+// its list of K at (ld, li); (*last_d, *last_i) in shared memory is the
+// list's last entry; the list is read only if a candidate beats it.
 template <int K, typename Cand>
 __device__ __forceinline__ void warp_merge(float* ld, int* li, float* last_d, int* last_i, int n, Cand cand) {
     const int lane = threadIdx.x & 31;
@@ -162,10 +143,8 @@ __device__ __forceinline__ void warp_fill_empty(float* ld, int* li, float* last_
     __syncwarp();
 }
 
-// The floor of a slab of a top-k scanned in slabs (k > 256): only
-// candidates strictly after the previous slab's last entry (d, row) are
-// admitted; the others become empty slots. Without a floor (null) every
-// candidate is admitted.
+// A slab's floor (k > 256): only candidates after the previous slab's last
+// (d, row) enter; null admits all.
 struct Floor {
     float d;
     int i;
@@ -202,11 +181,10 @@ __device__ __forceinline__ float dist(float qsq, float gsq, float cross) {
     return fmaxf(__fsub_rn(__fadd_rn(qsq, gsq), __fmul_rn(2.0f, cross)), 0.0f);
 }
 
-// grid (query tiles, segments from seg_base); 384 threads: warpgroups 0-1
-// consume, 2 produces. qmap: queries [B, end - base] (from lane base =
-// start & ~7), boxes [128 x 64]; gmap: rows [n_valid, end - base], boxes
-// [BN x 64]. lead = start - base lanes of the first chunk are outside the
-// window.
+// grid (query tiles, segments from seg_base); 384 threads, warpgroups 0-1
+// consume, 2 produces. qmap [B, end - base] (base = start & ~7), boxes
+// [128 x 64]; gmap [n_valid, end - base], boxes [BN x 64]; the first
+// lead = start - base lanes are outside the window.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -412,13 +390,10 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 
 constexpr int SEG_LISTS = 8192;  // gallery rows per block for k > 16
 
-// A separate kernel, so that topk_pass1_sm90 keeps its text: the same
-// producer and main loop at BN = 128, one block per (128 queries, 8192-row
-// segment); each consumer warp owns the 16 query rows of its accumulator
-// fragment. Per sub-tile a warp writes its rows' distances to its own
-// [16 x DLD] slice of shared memory and merges them into its queries'
-// lists of K in the pass-1 scratch (warp_merge), so no warp waits for
-// another beyond the |g|^2 barrier.
+// A separate kernel, so that topk_pass1_sm90 keeps its text: its main loop
+// at BN = 128, a block per (128 queries, 8192 rows); each consumer warp
+// merges its 16 accumulator rows' distances (its own [16 x DLD] slice)
+// into their lists of K in the pass-1 scratch.
 struct ListTile {
     static constexpr int BN = 128;
     static constexpr int DLD = BN + 8;  // a warp's 8-byte stores are conflict-free per half-warp
@@ -599,11 +574,9 @@ constexpr int SEG_PRECISE = 8192;  // gallery rows per block of the split passes
 
 // ---- precise over bf16 rows: split_queries + topk_pass1_split_sm90 ----
 
-// Splits fp32 queries into three bf16 planes, hi = bf16(q), mid =
-// bf16(q - hi), lo = bf16(q - hi - mid), each difference exact in fp32, so
-// that hi + mid + lo is q to ~2^-27 relative; lanes outside [start, end)
-// and rows B..Bp are zero. |q|^2 of the fp32 queries over the window goes
-// to qsq. One warp per row of planes [3][Bp][D].
+// fp32 queries -> three bf16 planes hi = bf16(q), mid = bf16(q - hi), lo =
+// bf16(q - hi - mid) (hi + mid + lo = q to ~2^-27), zero outside [start,
+// end) and past B; |q|^2 over the window to qsq. A warp per row.
 __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __restrict__ planes,
                               float* __restrict__ qsq, int B, int Bp, int D, int start, int end) {
     const int lane = threadIdx.x & 31;
@@ -626,9 +599,8 @@ __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __rest
     if (lane == 0 && row < B) qsq[row] = s;
 }
 
-// Where a split pass keeps its top-K: the pass-1 scratch, the slab floor
-// (k > 16) and, for k > 16, the distance tile [QT][DLD] and the lists'
-// last entries [QT] in shared memory.
+// A split pass's top-K storage: the pass-1 scratch, the slab floor and (k
+// > 16) the distance tile [QT][DLD] and the lists' last entries [QT].
 struct SplitOut {
     float* part_d;
     int* part_i;
@@ -641,10 +613,8 @@ struct SplitOut {
 };
 
 // A consumer thread's share of a split pass's top-K (128 queries, 128-row
-// sub-tiles): its two accumulator rows' |q|^2 (from split_queries) and,
-// for k <= 16, their register lists (the epilogue of topk_pass1_sm90); for
-// k > 16 its warp owns the lists of its 16 accumulator rows in the pass-1
-// scratch (the epilogue of topk_pass1_sm90_lists, with the slab floor).
+// sub-tiles): its two rows' |q|^2 and, k <= 16, their register lists; k >
+// 16, its warp's 16 rows' lists in the pass-1 scratch (with the floor).
 template <int K>
 struct SplitTopK {
     static constexpr int BN = 128;
@@ -775,17 +745,11 @@ struct SplitTopK {
     }
 };
 
-// The precise pass over bf16-stored rows as the TPU computes a HIGHEST
-// dot: three bf16 products per feature chunk, g.q_lo + g.q_mid + g.q_hi,
-// each exact, summed in fp32. The bf16 main loop at BN = 128 (producer,
-// two consumer warpgroups of 64 queries, 128 queries x an 8192-row
-// segment per block); a ring stage holds the chunk's three query planes
-// and the gallery box (64 KB), 3 stages (2 for k > 16, whose distance
-// tile also needs room). The tensor cores add into their fp32 accumulator
-// with truncation, so each chunk's three products go to a fresh
-// accumulator (smallest term first) that is then added into fp32
-// registers with IEEE adds. |q|^2 comes from split_queries; |g|^2 is
-// summed from the landed lines. The top-K: SplitTopK.
+// The precise pass over bf16 rows as the TPU's HIGHEST dot: three exact
+// bf16 products a 64-feature chunk (g.q_lo + g.q_mid + g.q_hi) into a
+// fresh accumulator, then IEEE adds into fp32 registers. The bf16 main
+// loop at BN = 128 (128 queries x 8192 rows a block); a stage holds the
+// three query planes and the gallery box (64 KB), 3 stages (2 for k > 16).
 template <int K>
 struct SplitTile {
     static constexpr int BN = 128;
@@ -801,10 +765,8 @@ struct SplitTile {
     static_assert(K > 16 || (size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
 };
 
-// grid (query tiles, segments from seg_base); 384 threads. qmap: planes
-// [3 Bp, end - base] (plane p's rows at p Bp), boxes [128 x 64]; gmap: rows
-// [n_valid, end - base], boxes [128 x 64]; lead = start - base lanes of the
-// first chunk are outside the window (zero in the planes).
+// grid as topk_pass1_sm90; qmap: planes [3 Bp, end - base] (plane p at row
+// p Bp), boxes [128 x 64]; gmap: rows, boxes [128 x 64]; lead as there.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -928,20 +890,13 @@ __device__ __forceinline__ void product6(float (&acc)[64], const unsigned char* 
                                sm90::sw64_desc(gb + gt * 128 * LINE6 + 32 * kk), fresh && kk == 0 ? 0 : 1);
 }
 
-// The precise pass over fp32-stored rows: each row split into three bf16
-// terms by the rule of split_queries, six exact bf16 products of a query
-// term and a row term per 32-feature chunk, all into one fresh
-// accumulator, smallest first, then added into fp32 registers with IEEE
-// adds. 384 threads: two consumer warpgroups of 64 queries (128
-// queries x an 8192-row segment per block, 128-row sub-tiles, the `wgmma`
-// N side) and a producer warpgroup. A plane stage holds the chunk's three
-// query planes (TMA) and three row planes (48 KB); the producer's thread
-// p splits row p of the chunk's fp32 box, which TMA brings into a ring of
-// its own (16 KB a box), into the row planes and adds its squares to the
-// row's |g|^2, then arrives on the stage's `full` barrier. Plane stages
-// 3, boxes 4 (k > 16, whose distance tile needs room: 2 and 3); the
-// producer runs up to that far ahead of the consumers, so |g|^2 of a
-// sub-tile has NSTAGE + 1 buffers. The top-K: SplitTopK.
+// The precise pass over fp32 rows: each row split by split_queries' rule,
+// six exact products of a query and a row term per 32-feature chunk into
+// one fresh accumulator, smallest first, then IEEE adds into fp32. Two
+// consumer warpgroups of 64 queries, 128-row sub-tiles; the producer's
+// thread p splits row p of the chunk's TMA'd fp32 box (a ring of its own)
+// into the stage's row planes, sums |g|^2, and arrives on `full`. Plane
+// stages 3, boxes 4 (k > 16: 2 and 3); |g|^2 has NSTAGE + 1 buffers.
 template <int K>
 struct Split6Tile {
     static constexpr int BN = 128;
@@ -974,13 +929,10 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
     lo = reinterpret_cast<const uint32_t&>(l);
 }
 
-// Splits row p of a landed fp32 box [BN x 32] (128-byte swizzle: the
-// 16-byte chunk j of row p at chunk j ^ (p % 8)) into the three planes at
-// `planes`, R_BYTES apart ([BN x 32] bf16, 64-byte swizzle: chunk c of row
-// p at chunk c ^ ((p / 2) % 4)); the first `lead` lanes count as zero.
-// Returns the row's fp32 sum of squares over the chunk. A warp's rows hit
-// distinct bank groups in both layouts; the whole line is loaded first and
-// the squares go to four partial sums, so the chains overlap.
+// Splits row p of a landed fp32 box [BN x 32] (128-byte swizzle: chunk j
+// of row p at j ^ (p % 8)) into the three planes at `planes`, R_BYTES
+// apart ([BN x 32] bf16, 64-byte swizzle: chunk c at c ^ ((p / 2) % 4));
+// the first `lead` lanes count as zero. Returns the row's sum of squares.
 __device__ __forceinline__ float split_row(const unsigned char* box, unsigned char* planes, int p, int lead) {
     constexpr int R_BYTES = 128 * LINE6;
     const unsigned char* line = box + p * sm90::LINE_BYTES;
@@ -1014,11 +966,9 @@ __device__ __forceinline__ float split_row(const unsigned char* box, unsigned ch
     return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
-// grid (query tiles, segments from seg_base); 384 threads. qmap: planes
-// [3 Bp, end - base] (plane p's rows at p Bp), boxes [128 x 32] with the
-// 64-byte swizzle; gmap: fp32 rows [n_valid, end - base], boxes [128 x 32]
-// with the 128-byte swizzle; lead = start - base lanes of the first chunk
-// are outside the window (zero in the query planes, zeroed in the rows).
+// grid as topk_pass1_sm90; qmap: planes [3 Bp, end - base], boxes [128 x
+// 32], 64-byte swizzle; gmap: fp32 rows, boxes [128 x 32], 128-byte
+// swizzle; the first lead lanes are zero in the planes, zeroed in rows.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -1058,10 +1008,8 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
 
     const int wg = tid / sm90::WG_THREADS;
     if (wg == 2) {
-        // producer: thread p == 0 issues the loads; thread p splits row p.
-        // No setmaxnreg here: ptxas fits every warp of the kernel in the
-        // launch's 168 registers, so handing the producer's to the
-        // consumers gains them nothing, and at 40 the split spilled.
+        // producer: thread 0 issues the loads, thread p splits row p (no
+        // setmaxnreg: every warp fits the launch's 168 registers).
         const int p = tid - 2 * sm90::WG_THREADS;
         if (p == 0) {
             sm90::prefetch_map(&qmap);
@@ -1279,9 +1227,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-// bf16, k > 16: topk_pass1_sm90_lists, then the list merge. The
-// first slab (and any k <= 256) runs the instance without the floor's
-// compare, whose epilogue is the kernel's hot loop.
+// bf16, k > 16: topk_pass1_sm90_lists (without the floor's compare for
+// the first slab), then the list merge.
 template <int K, bool FLOOR>
 int launch_bf16_lists_as(const Args& a, cudaStream_t stream) {
     using T = ListTile;

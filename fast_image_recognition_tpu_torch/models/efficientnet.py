@@ -1,8 +1,6 @@
-"""EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the static plan
-and the module at inference (bf16 convs with TF 'SAME' pads, BN over
-running statistics in fp32 rounded to the module's dtype, fp32 weights
-cast at each call). ``load_variables``/``export_variables`` take the flax
-numpy trees; ``train=True`` raises."""
+"""EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the plan and the
+module at inference (bf16 convs, TF 'SAME' pads, BN in fp32, fp32 weights
+cast at each call); flax numpy trees in and out; ``train=True`` raises."""
 
 from __future__ import annotations
 
@@ -137,24 +135,21 @@ def preprocess_images(
     mean: Sequence[float] = MEAN_RGB,
     std: Sequence[float] = STDDEV_RGB,
 ) -> torch.Tensor:
-    """uint8/float RGB NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC,
-    bilinearly resized to ``resolution`` first where the size differs.
-    ``jax.image.resize(method='bilinear')`` antialiases when it shrinks,
-    which is ``F.interpolate(antialias=True)`` with half-pixel centres."""
+    """uint8/float NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC, resized
+    first where the size differs (``F.interpolate(antialias=True)``, as
+    ``jax.image.resize(method='bilinear')`` shrinks)."""
     x = images.to(torch.float32)
     if resolution is not None and (x.shape[1] != resolution or x.shape[2] != resolution):
         x = F.interpolate(
             x.permute(0, 3, 1, 2), size=(resolution, resolution), mode="bilinear",
             align_corners=False, antialias=True,
         ).permute(0, 2, 3, 1)
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    m = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    s = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return (x - m) / s
 
 
-# ---------------------------------------------------------------------------
 # the module (inference)
-# ---------------------------------------------------------------------------
 
 _BN_EPS = 1e-3
 # flax lecun_normal: a standard normal truncated to [-2, 2], scaled by
@@ -202,10 +197,12 @@ class _Conv(nn.Module):
         fan_in = self.weight.shape[1] * self.k * self.k
         self.weight.data = _lecun_normal(self.weight.shape, fan_in, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fp32_out: bool = False) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(_same_pad(x, self.k, self.stride), self.weight.to(x.dtype), b, self.stride,
-                        groups=self.groups)
+        x, w = _same_pad(x, self.k, self.stride), self.weight.to(x.dtype)
+        if fp32_out:  # operands rounded to x's dtype, the result unrounded
+            x, w, b = x.float(), w.float(), None if b is None else b.float()
+        return F.conv2d(x, w, b, self.stride, groups=self.groups)
 
     def export(self) -> Dict[str, np.ndarray]:
         out = {"kernel": self.weight.detach().permute(2, 3, 1, 0).cpu().numpy()}
@@ -230,10 +227,10 @@ class _BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
         y = (x.to(torch.float32) - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return y.to(dtype or x.dtype)
 
     def export(self):
         t = lambda v: v.detach().cpu().numpy()  # noqa: E731
@@ -242,6 +239,14 @@ class _BatchNorm(nn.Module):
     def load(self, p: Dict[str, Any], s: Dict[str, Any]) -> None:
         for name, tree in (("scale", p), ("bias", p), ("mean", s), ("var", s)):
             getattr(self, name).data = torch.tensor(np.asarray(tree[name], np.float32))
+
+
+def _conv_bn(conv: _Conv, bn: _BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))`` as XLA runs it: the conv's fp32 result enters the BN
+    unrounded, rounded once after it to ``x``'s dtype (a rounding between
+    them doubled the folded-vs-unfolded gap of the bf16 module). No BN: a
+    folded conv, its bias added before the one rounding."""
+    return conv(x) if bn is None else bn(conv(x, fp32_out=True), x.dtype)
 
 
 def _pool(h: torch.Tensor) -> torch.Tensor:
@@ -285,11 +290,11 @@ class MBConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         if self.has_expand:
-            h = self.act(self.expand_bn(self.expand_conv(h)))
-        h = self.act(self.dw_bn(self.dw_conv(h)))
+            h = self.act(_conv_bn(self.expand_conv, self.expand_bn, h))
+        h = self.act(_conv_bn(self.dw_conv, self.dw_bn, h))
         if self.se is not None:
             h = self.se(h)
-        h = self.project_bn(self.project_conv(h))
+        h = _conv_bn(self.project_conv, self.project_bn, h)
         return h + x if self.residual else h
 
 
@@ -306,31 +311,44 @@ class EfficientNet(nn.Module):
     ):
         super().__init__()
         v = VARIANTS[variant]
-        self.variant = variant
+        self.variant, self.resolution = variant, v.resolution
+        self._build(block_plan(variant), round_filters(32, v.width), round_filters(1280, v.width), num_classes, dtype,
+                    hidden_overrides)
+
+    def _build(self, plan, stem_filters: int, head_filters: Optional[int], num_classes: int, dtype: torch.dtype,
+               hidden_overrides=None, block=None, activation: Optional[str] = None, folded: bool = False) -> None:
+        """The layers of a plan: stem conv + BN, ``block(cfg, hidden)``
+        (default ``MBConv``) per config, the head conv + BN (none where
+        ``head_filters`` is None) and the dense layer; ``activation`` (default
+        the plan's) at the stem and the head; ``folded``: a stem conv with
+        its BN as a bias."""
         self.num_classes = int(num_classes)
         self.dtype = dtype
         self.hidden_overrides = dict(hidden_overrides or {})
-        self.plan = block_plan(variant)
-        stem_filters = round_filters(32, v.width)
-        head_filters = round_filters(1280, v.width)
-        self.stem_conv = _Conv(3, stem_filters, 3, stride=2)
-        self.stem_bn = _BatchNorm(stem_filters)
-        self.blocks = nn.ModuleList(MBConv(c, self.hidden_overrides.get(c["name"])) for c in self.plan)
-        self.head_conv = _Conv(self.plan[-1]["out_filters"], head_filters, 1)
-        self.head_bn = _BatchNorm(head_filters)
-        self.fc = nn.Linear(head_filters, self.num_classes) if self.num_classes > 0 else None
+        self.plan = plan
+        self.act = _act(activation or plan[0].get("activation", "swish"))
+        self.stem_conv = _Conv(3, stem_filters, 3, stride=2, bias=folded)
+        self.stem_bn = None if folded else _BatchNorm(stem_filters)
+        self.blocks = nn.ModuleList((block or MBConv)(c, self.hidden_overrides.get(c["name"])) for c in plan)
+        feat = self.plan[-1]["out_filters"]
+        self.head_conv = self.head_bn = None
+        if head_filters is not None:
+            self.head_conv = _Conv(feat, head_filters, 1)
+            self.head_bn = _BatchNorm(head_filters)
+            feat = head_filters
+        self.fc = nn.Linear(feat, self.num_classes) if self.num_classes > 0 else None
 
     def block_names(self) -> List[str]:
         return [c["name"] for c in self.plan]
 
     def plan_configs(self) -> List[Dict[str, Any]]:
         """Static block configs (the folding and cascade engines read them)."""
-        return block_plan(self.variant)
+        return [dict(c) for c in self.plan]
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the stem's activation (NCHW, channels_last)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return F.silu(self.stem_bn(self.stem_conv(x)))
+        return self.act(_conv_bn(self.stem_conv, self.stem_bn, x))
 
     def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
         """Blocks ``[start, end)``: the cascade's segment primitive."""
@@ -339,8 +357,8 @@ class EfficientNet(nn.Module):
         return x
 
     def head_pool(self, x: torch.Tensor) -> torch.Tensor:
-        """Head conv + BN + swish + global average pool -> [B, F] fp32."""
-        return _pool(F.silu(self.head_bn(self.head_conv(x))))
+        """Head conv + BN + activation + global average pool -> [B, F] fp32."""
+        return _pool(self.act(_conv_bn(self.head_conv, self.head_bn, x)))
 
     def forward(
         self,
@@ -372,16 +390,19 @@ class EfficientNet(nn.Module):
         """(flax scope, module) of every conv and BatchNorm, and the SE and
         dense layers, in the flax tree's naming."""
         yield ("stem_conv",), self.stem_conv
-        yield ("stem_bn",), self.stem_bn
+        if self.stem_bn is not None:
+            yield ("stem_bn",), self.stem_bn
         for cfg, blk in zip(self.plan, self.blocks):
-            for name in ("expand_conv", "expand_bn", "dw_conv", "dw_bn", "project_conv", "project_bn"):
-                if hasattr(blk, name):
+            for name in ("expand_conv", "expand_bn", "dw_conv", "dw_bn", "project_conv", "project_bn", "pw_conv",
+                         "pw_bn"):
+                if getattr(blk, name, None) is not None:
                     yield (cfg["name"], name), getattr(blk, name)
-            if blk.se is not None:
+            if getattr(blk, "se", None) is not None:
                 yield (cfg["name"], "se", "reduce"), blk.se.reduce
                 yield (cfg["name"], "se", "expand"), blk.se.expand
-        yield ("head_conv",), self.head_conv
-        yield ("head_bn",), self.head_bn
+        if self.head_conv is not None:
+            yield ("head_conv",), self.head_conv
+            yield ("head_bn",), self.head_bn
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:

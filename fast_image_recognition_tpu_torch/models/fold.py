@@ -1,11 +1,8 @@
-"""Variables-level BN fold and the serving entry (JAX ``models/fold.py``).
-
-``fold_variables`` folds each BN into the conv that feeds it (paired by
-name, ``bn`` -> ``conv``) in fp64 on the host and leaves the BN neutral
-(``mean 0, var 1 - eps, scale 1, bias c``); a BN with no conv keeps its
-affine map. ``fold_tf_preprocess_into_valid_stem`` folds ``x/127.5 - 1``
-into a VALID stem: ``conv(x, W/127.5) - sum(W)``, exact because every VALID
-output pixel sees the whole kernel."""
+"""Variables-level BN fold and the serving entry (JAX ``models/fold.py``):
+``fold_variables`` folds each BN into the conv that feeds it (``bn`` ->
+``conv``) in fp64, leaving the BN neutral (a BN with no conv keeps its
+affine map); ``fold_tf_preprocess_into_valid_stem`` folds ``x/127.5 - 1``
+into a VALID stem, exactly: ``conv(x, W/127.5) - sum(W)``."""
 
 from __future__ import annotations
 
@@ -26,6 +23,9 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
 )
 from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+from fast_image_recognition_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV2, parse_mobilenet_width
+
+MBCONV_FAMILIES = ("efficientnet", "mobilenetv2")  # served by make_infer_fn (JAX :179)
 
 
 def bn_fold_eps(model) -> float:
@@ -78,6 +78,16 @@ def fold_variables(model, variables, eps: Optional[float] = None):
     return {**variables, "params": params, "batch_stats": stats}
 
 
+def _bn_bias_to_conv(params):
+    """Each ``*bn*`` node's bias onto its ``*conv*`` sibling (a folded tree)."""
+    for k, v in params.items():
+        if "bn" in k and k.replace("bn", "conv") in params:
+            params[k.replace("bn", "conv")]["bias"] = v["bias"]
+        elif isinstance(v, dict):
+            _bn_bias_to_conv(v)
+    return params
+
+
 def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("stem", "conv1"),
                                        scale: float = 127.5):
     """Fold ``x/scale - 1`` into the VALID stem conv of a tree that
@@ -101,12 +111,15 @@ class ServingModule(nn.Module):
 
     def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None):
         super().__init__()
-        self.net, self.resolution, self.taps, self.mean, self.std = net, int(resolution), tuple(taps), mean, std
+        self.net, self.resolution, self.taps, self.normalize = net, int(resolution), tuple(taps), mean is not None
+        # on the module's device: a constant made per call would be a host-to-device copy, a host sync
+        self.register_buffer("mean", torch.tensor(mean or (0.0,) * 3, dtype=torch.float32))
+        self.register_buffer("std", torch.tensor(std or (1.0,) * 3, dtype=torch.float32))
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         r, x = self.resolution, images
-        if self.mean is not None or x.shape[1] != r or x.shape[2] != r:
-            x = preprocess_images(x, r, self.mean or (0.0,) * 3, self.std or (1.0,) * 3)
+        if self.normalize or x.shape[1] != r or x.shape[2] != r:
+            x = preprocess_images(x, r, self.mean, self.std)
         out = self.net(x, taps=self.taps, include_logits=False)
         return {"embedding": out["embedding"], "taps": out["taps"]}
 
@@ -119,24 +132,28 @@ def make_serving_fn(
     device: DeviceLike = None,
     folded: bool = True,
 ) -> nn.Module:
-    """The serving module on ``device`` for a zoo member and its numpy
-    ``params``/``batch_stats`` (JAX :185-255): MBConv families through
-    :func:`make_infer_fn`, InceptionResNetV2 BN-folded with the 'tf'
-    preprocess in its stem, on raw images. ``folded=False`` keeps BN and
-    the explicit preprocess (EfficientNet's trainable module)."""
+    """The serving module on ``device`` for a zoo member's numpy variables
+    (JAX :185-255): MBConv families by :func:`make_infer_fn`,
+    InceptionResNetV2 folded with the 'tf' preprocess in its VALID stem,
+    MobileNetV1 folded with it explicit; ``folded=False`` keeps BN."""
     family, dev = info.get("family"), resolve_device(device)
     res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")
     tf = pp == "tf"
-    if family not in ("efficientnet", "inception_resnet_v2") or pp not in ("torch", "tf"):
+    if family not in MBCONV_FAMILIES + ("inception_resnet_v2", "mobilenetv1") or pp not in ("torch", "tf"):
         raise NotImplementedError(f"family {family!r} ({pp!r} preprocess) is not ported yet: ROADMAP.md §1 queue 2")
     variables = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    if family == "efficientnet" and folded:
+    if family in MBCONV_FAMILIES and folded:
         mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (None, None)
         return make_infer_fn(variables, info["variant"], taps=taps, resolution=res, mean=mean, std=std, device=dev)
     mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (MEAN_RGB, STDDEV_RGB)
     if family == "efficientnet":
         net = EfficientNet(info["variant"]).load_variables(variables).to(dev)
+    elif family == "mobilenetv2":
+        net = MobileNetV2(parse_mobilenet_width(info["variant"])).load_variables(variables).to(dev)
+    elif family == "mobilenetv1":  # folded: each neutral BN's bias on its conv, added before the rounding
+        v = {"params": _bn_bias_to_conv(fold_variables("MobileNetV1", variables)["params"])} if folded else variables
+        net = MobileNetV1(folded=folded).load_variables(v).to(dev)
     elif not folded:
         net = InceptionResNetV2().load_variables(variables).to(dev)
     else:
@@ -144,4 +161,4 @@ def make_serving_fn(
         net = InceptionResNetV2(folded=True).load_variables(variables)
         net = net.to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
         mean = std = None
-    return ServingModule(net, res, taps, mean, std).eval()
+    return ServingModule(net, res, taps, mean, std).to(dev).eval()

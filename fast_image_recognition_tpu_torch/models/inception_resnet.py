@@ -1,9 +1,7 @@
 """InceptionResNetV2, the 1536-d gallery producer (JAX
-``models/inception_resnet.py:32-311``): the same blocks, plan, taps and
-segments (``stem``/``run_blocks``/``head_pool``), NCHW activations in
-``channels_last`` memory, bf16 compute and fp32 pools. ``folded=True``
-builds the serving form, each conv carrying its folded BN as a bias
-(``models/fold.py``). Weights load from the flax numpy tree (HWIO)."""
+``models/inception_resnet.py:32-311``): its blocks, plan, taps and segments
+in NCHW ``channels_last``, bf16 compute, fp32 pools; ``folded=True``, each
+conv carrying its folded BN as a bias (``models/fold.py``)."""
 
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Folded EfficientNet serving forward (JAX ``models/inference.py``): BN
-folded into the convs in fp64 on the host, the ``(x - mean) / std``
-preprocess into the stem (a correction map keeps it exact at the SAME
-borders), ``fused=True`` sends the stride-1 blocks to the fused MBConv
-kernel. NCHW in ``channels_last`` with explicit TF "SAME" pads."""
+"""Folded serving forward of the MBConv families (JAX
+``models/inference.py``): BN folded into the convs in fp64, the ``(x -
+mean) / std`` preprocess into the stem (exact at the SAME borders by a
+correction map), ``fused=True``: stride-1 blocks on the fused MBConv
+kernel. NCHW in ``channels_last``, explicit TF "SAME" pads."""
 
 from __future__ import annotations
 
@@ -18,10 +18,12 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
     MEAN_RGB,
     STDDEV_RGB,
     VARIANTS,
+    _act,
     _same_pad,
     block_plan,
     preprocess_images,
 )
+from fast_image_recognition_tpu_torch.models.mobilenet import mobilenet_plan, parse_mobilenet_width
 from fast_image_recognition_tpu_torch.ops.mbconv_kernel import mbconv, prepare_params
 
 _BN_EPS = 1e-3
@@ -40,12 +42,22 @@ def _fold_conv_bn(kernel, bn_scale, bn_bias, bn_mean, bn_var, dtype):
     )
 
 
+def mbconv_plan(variant: str) -> Tuple[List[Dict[str, Any]], int]:
+    """(block plan, default resolution) of an MBConv zoo name: 'b0'-'b7' or
+    'mobilenetv2[_W]'."""
+    if variant.startswith("mobilenetv2"):
+        return mobilenet_plan(parse_mobilenet_width(variant)), 224
+    return block_plan(variant), VARIANTS[variant].resolution
+
+
 def fold_backbone(
-    variables: Dict[str, Any], variant: str, dtype: torch.dtype = torch.bfloat16
+    variables: Dict[str, Any], variant, dtype: torch.dtype = torch.bfloat16
 ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
-    """``{'params', 'batch_stats'}`` numpy trees (``utils.checkpoint``) ->
+    """``{'params', 'batch_stats'}`` numpy trees (``utils.checkpoint``) and
+    an MBConv zoo name or a block plan (``model.plan_configs()``) ->
     (folded tensors in the JAX layout: HWIO kernels, [C, S] SE denses;
     static block configs)."""
+    plan = mbconv_plan(variant)[0] if isinstance(variant, str) else variant
     params = variables["params"]
     stats = variables["batch_stats"]
 
@@ -59,7 +71,7 @@ def fold_backbone(
     folded["stem_w"], folded["stem_b"] = conv_bn(params, stats, "stem_conv", "stem_bn")
     folded["head_w"], folded["head_b"] = conv_bn(params, stats, "head_conv", "head_bn")
     blocks, configs = [], []
-    for cfg in block_plan(variant):
+    for cfg in plan:
         name = cfg["name"]
         bp, bs = params[name], stats[name]
         entry: Dict[str, Any] = {}
@@ -126,13 +138,10 @@ def fold_preprocess_into_stem(
 
 
 def fold_stem_space_to_depth(folded: Dict[str, Any], resolution: int) -> Dict[str, Any]:
-    """Rewrite the preprocess-folded stride-2 3x3 stem as a stride-1 2x2
-    conv over 12-channel half-resolution blocks (adds ``stem_s2d_w``
-    [2, 2, 12, C] HWIO): ``K2[p, q, (r, s, c), o] = Wpad[2p + r, 2q + s, c,
-    o]`` with W zero-padded to 4x4 taps; the input packs ``x[2i+r, 2j+s,
-    c]`` into channel ``(r*2+s)*3+c``. Exact for even resolutions (SAME
-    pad_low is 0 there); odd ones and other kernel sizes keep the plain
-    stem. Opt-in, as in the JAX package."""
+    """The preprocess-folded stride-2 3x3 stem as a stride-1 2x2 conv over
+    12-channel half-resolution blocks (``stem_s2d_w`` [2, 2, 12, C]):
+    ``K2[p, q, (r, s, c), o] = Wpad[2p + r, 2q + s, c, o]``, input channel
+    ``(r*2+s)*3+c``. Exact at even resolutions; opt-in, as in JAX."""
     if resolution % 2:
         return folded
     w = folded["stem_pp_w"]  # [3, 3, 3, C]
@@ -151,8 +160,7 @@ class _FoldedBlock(nn.Module):
 
     def __init__(self, p: Dict[str, torch.Tensor], cfg: Dict[str, Any]):
         super().__init__()
-        if cfg.get("activation", "swish") != "swish":
-            raise NotImplementedError("only swish MBConv blocks are ported")
+        self.act = _act(cfg.get("activation", "swish"))
         self.stride = int(cfg["stride"])
         self.has_expand = bool(cfg["has_expand"])
         self.has_se = bool(cfg["has_se"])
@@ -171,8 +179,8 @@ class _FoldedBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         if self.has_expand:
-            h = F.silu(_conv(h, self.w_exp, self.b_exp))
-        h = F.silu(_conv(h, self.w_dw, self.b_dw, self.stride, groups=h.shape[1]))
+            h = self.act(_conv(h, self.w_exp, self.b_exp))
+        h = self.act(_conv(h, self.w_dw, self.b_dw, self.stride, groups=h.shape[1]))
         if self.has_se:
             s = h.to(torch.float32).mean(dim=(2, 3))
             s = F.silu(s @ self.w_se1 + self.b_se1)
@@ -206,10 +214,10 @@ class _FusedBlock(nn.Module):
 
 
 class FoldedEfficientNet(nn.Module):
-    """BN- and preprocess-folded EfficientNet on raw uint8 NHWC images ->
-    ``{'embedding', 'taps'}``; images of another size are resized and
-    normalized first. :meth:`stem`, :meth:`run_blocks` and :meth:`head` are
-    the per-op segments the early-exit cascade chains."""
+    """BN- and preprocess-folded MBConv backbone: raw uint8 NHWC images ->
+    ``{'embedding', 'taps'}`` (another size is resized and normalized
+    first); :meth:`stem`, :meth:`run_blocks` and :meth:`head` are the
+    cascade's segments. ``activation`` (stem, head) defaults to the plan's."""
 
     def __init__(
         self,
@@ -220,8 +228,10 @@ class FoldedEfficientNet(nn.Module):
         fused: bool = False,
         mean: Optional[Sequence[float]] = None,
         std: Optional[Sequence[float]] = None,
+        activation: Optional[str] = None,
     ):
         super().__init__()
+        self.act = _act(activation or configs[0].get("activation", "swish"))
         self.resolution = int(resolution)
         self.dtype = folded["stem_w"].dtype
         self.names = [c["name"] for c in configs]
@@ -263,16 +273,16 @@ class FoldedEfficientNet(nn.Module):
                 # NHWC -> NCHW view: already channels_last in memory
                 x = images.permute(0, 3, 1, 2).to(self.dtype)
                 h = _conv(x, self.stem_pp_w, self.stem_b, stride=2)
-            return F.silu(h - self.stem_corr)
+            return self.act(h - self.stem_corr)
         x = preprocess_images(images, r, self.mean, self.std).to(self.dtype).permute(0, 3, 1, 2)
-        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2))
+        return self.act(_conv(x, self.stem_w, self.stem_b, stride=2))
 
     def raw_stem(self, images: torch.Tensor) -> torch.Tensor:
         """NHWC images as given, neither resized nor normalized -> the
         stem's activation (``folded_stem``; the early-exit engine's
         level 0, whose inputs are the trainable module's)."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        return F.silu(_conv(x, self.stem_w, self.stem_b, stride=2))
+        return self.act(_conv(x, self.stem_w, self.stem_b, stride=2))
 
     def run_blocks(self, h: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
         """Blocks ``[start, end)``, per-op (``folded_blocks``)."""
@@ -281,9 +291,9 @@ class FoldedEfficientNet(nn.Module):
         return h
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Head conv + swish + fp32 global mean pool -> ``[B, F]``
+        """Head conv + activation + fp32 global mean pool -> ``[B, F]``
         (``folded_head``)."""
-        h = F.silu(_conv(h, self.head_w, self.head_b))
+        h = self.act(_conv(h, self.head_w, self.head_b))
         return h.to(torch.float32).mean(dim=(2, 3))
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
@@ -308,20 +318,21 @@ def make_infer_fn(
     fused: bool = False,
     space_to_depth: bool = False,
     device: DeviceLike = None,
+    activation: Optional[str] = None,
 ) -> FoldedEfficientNet:
-    """Fold a checkpoint's numpy ``params``/``batch_stats`` and return the
-    serving module on ``device`` (JAX ``make_infer_fn``, which returns
-    ``(fn, folded)``; here the module holds both). ``mean``/``std`` select
-    the preprocessing constants (default MEAN_RGB/STDDEV_RGB).
-    ``fused=True`` runs the stride-1 MBConv blocks through the fused
-    kernel; ``space_to_depth=True`` (with ``fold_preprocess``) rewrites the
-    stem as a space-to-depth conv."""
+    """Fold numpy ``params``/``batch_stats`` into the serving module on
+    ``device`` (JAX ``make_infer_fn``'s ``(fn, folded)`` in one module).
+    ``variant``: 'b0'-'b7' or 'mobilenetv2[_W]'; ``mean``/``std`` default
+    MEAN_RGB/STDDEV_RGB; ``fused``: stride-1 blocks on the fused kernel;
+    ``space_to_depth``: the s2d stem."""
     dev = resolve_device(device)
-    folded, configs = fold_backbone(variables, variant, dtype=dtype)
-    res = int(resolution or VARIANTS[variant].resolution)
+    plan, default_res = mbconv_plan(variant)
+    folded, configs = fold_backbone(variables, plan, dtype=dtype)
+    res = int(resolution or default_res)
     if fold_preprocess:
         folded = fold_preprocess_into_stem(folded, res, dtype=dtype, mean=mean, std=std)
         if space_to_depth:
             folded = fold_stem_space_to_depth(folded, res)
-    module = FoldedEfficientNet(folded, configs, res, taps=taps, fused=fused, mean=mean, std=std)
+    module = FoldedEfficientNet(folded, configs, res, taps=taps, fused=fused, mean=mean, std=std,
+                                activation=activation)
     return module.to(dev).eval()

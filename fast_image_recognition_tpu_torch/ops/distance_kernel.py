@@ -1,7 +1,6 @@
-"""Gallery scans of the serving paths (JAX ``ops/distance_kernel.py``).
-Each wrapper runs its CUDA kernel (``kernels/*.cu``) on a CUDA tensor and
-its plain version (``kernels/plain.py``) on a CPU tensor; any other device
-raises. On the card a gallery's width is a multiple of 8 lanes (16 for
+"""Gallery scans of the serving paths (JAX ``ops/distance_kernel.py``): each
+wrapper runs its CUDA kernel on a CUDA tensor, its plain version on a CPU
+one. On the card a gallery's width is a multiple of 8 lanes (16 for
 int8): :func:`pad_cols` pads it once."""
 
 from __future__ import annotations
@@ -53,10 +52,8 @@ def pad_cols(x: torch.Tensor, m: int = COL_ALIGN) -> torch.Tensor:
 
 
 def _match_cols(q: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
-    """Queries zero-padded (cheap, per call) to the gallery's width, which
-    may exceed theirs by :func:`pad_cols`'s padding. On the card the
-    gallery's width must be a multiple of ``m``: the scans never copy a
-    gallery per call."""
+    """Queries zero-padded to the gallery's width (a multiple of ``m`` on
+    the card: the scans never copy a gallery per call)."""
     dq, dg = q.shape[1], g.shape[1]
     if dg not in (dq, _round_up(dq, COL_ALIGN)):
         raise ValueError(f"queries [{q.shape[0]}, {dq}] do not fit a gallery of width {dg}")
@@ -114,10 +111,9 @@ def quant_gallery_scales(scales: torch.Tensor, n_valid: int, tile_g: int = TILE_
 def pack_gallery_aug(
     gallery: torch.Tensor, n_valid: Optional[int] = None, tile_g: int = TILE_G
 ) -> torch.Tensor:
-    """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]``, columns
-    padded to a 128 multiple, rows to ``tile_g`` with |g|^2 = 1e38. With the
-    query-side ``[-2q, 1, 1, |q|^2_hi, |q|^2_lo]`` one bf16 dot gives the
-    whole squared distance; the hi/lo split carries the norm to ~2^-17."""
+    """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]`` (columns
+    to a 128 multiple, rows to ``tile_g`` with |g|^2 = 1e38): with the query's
+    ``[-2q, 1, 1, |q|^2_hi, |q|^2_lo]`` one dot is the squared distance."""
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     g = pad_gallery(gallery, tile_g).to(torch.bfloat16)
     np_, d = g.shape
@@ -171,21 +167,17 @@ def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch
 def tile_min_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, tile_g: int = TILE_G
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dist [B, n_tiles] squared L2 of each tile's best row divided by
-    ``d``, its global row [B, n_tiles] int32). Distances are quantized to
-    ~2^-13 relative: they select tiles, and the caller rescores."""
+    """(dist [B, n_tiles] of each tile's best row divided by ``d``, its row
+    int32), quantized to ~2^-13 relative: callers rescore."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     keys = tilemin_keys(qa, gallery_aug, _check_tile_g(tile_g))
     return _key_to_dist(keys, tile_g) / d, _key_to_row(keys, tile_g)
 
 
 def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
-    """[B, n_tiles] tile minima -> [B, R] columns of the R nearest tiles.
-    A stable ascending sort is ``lax.top_k(-d)``'s rule: ties go to the
-    lower tile. ``select='approx'`` (JAX ``lax.approx_min_k`` at recall
-    0.99) takes the same exact selection: XLA lowers ``approx_min_k`` to
-    an exact top-k off the TPU too, same rows in the same order, and an
-    exact selection meets any recall target."""
+    """[B, n_tiles] minima -> [B, R] columns of the R nearest tiles, ties to
+    the lower tile (``lax.top_k(-d)``); ``select='approx'`` is the same exact
+    selection (XLA's ``approx_min_k`` is exact off the TPU)."""
     if select not in ("exact", "approx"):
         raise ValueError(f"unknown select {select!r}")
     return torch.sort(d, dim=1, stable=True).indices[:, :r]
@@ -199,17 +191,15 @@ def topk_candidates_l2_packed(
     tile_g: int = TILE_G,
     select: str = "exact",
 ) -> torch.Tensor:
-    """Candidate rows [B, R] int32: the best row of each of the R nearest
-    tiles by the single-min packed scan. They hold the exact 1-NN up to
-    bf16 operand rounding and the key quantization; callers rescore."""
+    """[B, R] int32 rows: the best row of each of the R nearest tiles
+    (single-min packed scan); callers rescore."""
     dt, it = tile_min_l2_packed(queries, gallery_aug, d, tile_g)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
 def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """``|g|^2 - 2 q.g`` [B, R] of the candidate rows ``cand`` [B, R], in
-    fp32 from the bf16 rows and the bf16-rounded query (a bf16 einsum would
-    round the products' sum to bf16 and flip near-tie winners)."""
+    """``|g|^2 - 2 q.g`` [B, R] of rows ``cand`` in fp32 from the bf16 rows
+    and the bf16-rounded query (a bf16 einsum would flip near-ties)."""
     rows = gallery[cand].to(torch.float32)  # [B, R, D]
     e16 = emb.to(torch.bfloat16).to(torch.float32)
     cross = torch.einsum("bd,brd->br", e16, rows)
@@ -234,10 +224,8 @@ def decode_tile_keys(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, 
 def tile_min2_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(d1 [B, n_tiles] raw squared L2 of each tile's best row, its global
-    index [B, n_tiles], d2 [B, n_tiles] the tile's second-best distance).
-    Distances are not divided by ``d`` and are quantized toward zero by
-    ~2^-13 relative (conservative for a lower bound)."""
+    """(d1 [B, n_tiles] raw squared L2 of each tile's best row, its row, d2
+    the tile's second best), quantized toward zero by ~2^-13 relative."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     k1, k2 = tilemin2_keys(qa, gallery_aug)
     return decode_tile_keys(k1, k2)
@@ -265,13 +253,10 @@ def certify_tiles(
 def topk_candidates_l2_packed_cert(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Certified candidates: (cand [B, R] rows, bound [B]).
-
-    ``bound`` lower-bounds (up to bf16 operand rounding and the 2^-13 key
-    quantization) the true full-D squared distance of every row outside
-    ``cand``: unselected tiles have a PCA-space min >= the (R+1)-th tile
-    min, and unscored rows of selected tiles are >= their tile's second
-    min; projection only shrinks distances."""
+    """(cand [B, R] rows, bound [B]): ``bound`` lower-bounds (up to bf16
+    rounding and the 2^-13 keys) the full-D distance of every row outside
+    ``cand`` (unselected tiles: the (R+1)-th tile min; selected tiles'
+    other rows: their second min; projection only shrinks distances)."""
     return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d), r)
 
 
@@ -297,15 +282,10 @@ def tile_min_l2(
     gsq: Optional[torch.Tensor] = None,
     precise_scores: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-gallery-tile L2 min: (dist [B, n_tiles] squared L2 of each
-    tile's best row divided by D, its global row [B, n_tiles] int32).
-
-    The products always run on bf16 operands (fp32 inputs are rounded), so
-    the 1-NN stays in its tile's min up to bf16 operand rounding; callers
-    rescore. ``precise_scores=False`` rounds the scores to bf16 as well,
-    which makes near-equal rows tie (the lowest row wins). ``gsq``: a
-    precomputed :func:`gallery_sq_norms` of the same gallery. |q|^2 is
-    taken from the queries as given, before the bf16 cast."""
+    """Per-tile L2 min: (dist [B, n_tiles] divided by D, row int32). bf16
+    operands (callers rescore); ``precise_scores=False`` also rounds the
+    scores to bf16 (near-equal rows tie, the lowest wins). ``gsq``:
+    :func:`gallery_sq_norms` of the gallery."""
     d = queries.shape[1]
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     gallery = pad_gallery(gallery, _check_tile_g(tile_g))
@@ -367,12 +347,10 @@ def tile_min_l2_quant(
     tile_g: int = TILE_G,
     compute: str = "int8",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-gallery-tile approximate L2 min over an int8 gallery (padded to
-    ``tile_g`` rows): (dist [B, n_tiles] divided by D, global row [B,
-    n_tiles] int32). Queries are quantized per row here; ``gsq_rows`` is
-    :func:`gallery_sq_norms` of the gallery before quantization and
-    ``gsc_rows`` :func:`quant_gallery_scales`. ``compute='int8'`` takes
-    the exact int32 dot, ``'bf16'`` sums bf16 products in fp32."""
+    """Per-tile approximate L2 min over an int8 gallery: (dist divided by
+    D, row int32). ``gsq_rows``: :func:`gallery_sq_norms` before quantization,
+    ``gsc_rows``: :func:`quant_gallery_scales`; ``compute`` 'int8' (the exact
+    int32 dot) or 'bf16' (bf16 products summed in fp32)."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     d = queries.shape[1]
@@ -412,11 +390,9 @@ def topk_l2_quant(
     tile_g: int = TILE_G,
     compute: str = "int8",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact-rescored top-k over an int8-scanned gallery: the best row of
-    each of the ``r`` nearest tiles by the int8 scan, rescored in fp32 from
-    ``rescore_gallery``'s rows and the queries in its dtype. Returns
-    (distances [B, k'] divided by D, rows [B, k'] int32) with
-    ``k' = min(k, r, n_tiles)``; ties go to the earlier candidate."""
+    """Top-k of the best rows of the ``r`` nearest int8-scanned tiles,
+    rescored in fp32 from ``rescore_gallery``: (distances [B, k'] divided by
+    D, rows int32), k' = min(k, r, n_tiles); ties to the earlier candidate."""
     cand = topk_candidates_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, r, tile_g=tile_g, compute=compute)
     rows = rescore_gallery[cand.long()].to(torch.float32)  # [B, R, D]
     qf = queries.to(rescore_gallery.dtype).to(torch.float32)
@@ -439,22 +415,14 @@ def topk_l2(
     precise: bool = False,
     row_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k over the gallery: (distances [B, k] divided by the
-    window width, indices [B, k] int32, -1 past ``n_valid``).
-
-    By default queries are rounded to bf16 (an fp32 gallery is cast to
-    bf16 first), as the JAX package's fast path does. ``precise=True`` is
-    the fp32 oracle: fp32 queries against the rows as stored (fp32, or bf16
-    upcast exactly), contracted in fp32. ``window=(start, end)`` scans the
-    feature lanes [start, end) only. ``row_mask`` ([B] bool, not with
-    ``precise``): query rows where it is False come back empty
-    ``(BIG_DIST / width, -1)``, and on the card the kernel skips query
-    blocks without a True, so a mask that is all False costs one launch
-    and no scan (and no host sync). Any k >= 1: above :data:`TOPK_SLAB`
-    (``build.TOPK_MAX_K``, 256, the most one launch takes) the top-k is
-    scanned in slabs, each admitting only the (distance, row) after the
-    previous slab's last entry, so the slabs join into the exact top-k with
-    the same ties."""
+    """Exact L2 top-k: (distances [B, k] divided by the window width,
+    indices [B, k] int32, -1 past ``n_valid``). Queries in bf16 by default;
+    ``precise=True`` is the fp32 oracle against the rows as stored.
+    ``window=(start, end)`` scans lanes [start, end). ``row_mask`` ([B] bool,
+    not with ``precise``): False rows come back ``(BIG_DIST / width, -1)``
+    and on the card their query blocks skip the scan (no host sync). Above
+    :data:`TOPK_SLAB` (256 a launch) k runs in slabs, each above the last
+    one's final (distance, row), so they join into the exact top-k."""
     if k < 1:
         raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)

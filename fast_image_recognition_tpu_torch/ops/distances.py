@@ -14,9 +14,7 @@ from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.kernels.plain import BIG_DIST
 
 
-# ---------------------------------------------------------------------------
 # NumPy oracles
-# ---------------------------------------------------------------------------
 
 def oracle_distance(
     lhs: np.ndarray,
@@ -78,9 +76,7 @@ def oracle_pairwise(
     return d / (end - start)
 
 
-# ---------------------------------------------------------------------------
 # PyTorch implementations
-# ---------------------------------------------------------------------------
 
 def _l2_block(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Unnormalized ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` [B, T] in fp32 from
@@ -100,13 +96,9 @@ def pairwise_distances(
     kind: DistanceKind = DistanceKind.L2,
     precise: bool = True,
 ) -> torch.Tensor:
-    """Pairwise window distances [B, N] fp32 on the tensors' device.
-
-    L2 uses the expansion ``|q|^2 + |g|^2 - 2 q.g`` over the window;
-    ``precise=True`` contracts fp32 operands in fp32 (TF32 stays off,
-    ``device.py``), ``precise=False`` rounds both operands to bf16 and sums
-    their products in fp32, as the JAX package's MXU path does. chi2/KL
-    are elementwise over gallery tiles."""
+    """Pairwise window distances [B, N] fp32: L2 by ``|q|^2 + |g|^2 - 2 q.g``
+    (``precise``: fp32 operands; else bf16 operands summed in fp32, as
+    JAX's MXU path); chi2/KL elementwise over gallery tiles."""
     if end is None:
         end = queries.shape[-1]
     q = queries[:, start:end].to(torch.float32)
@@ -156,15 +148,9 @@ def streamed_topk(
     kind: DistanceKind = DistanceKind.CHI2,
     tile_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k smallest window distances over an arbitrarily large gallery
-    without materializing [B, N] (or [B, N, D] for chi2/KL): a loop over
-    gallery tiles that carries a running [B, k] candidate set.
-
-    Returns (distances [B, k] fp32 with window-mean semantics, indices
-    [B, k] int32). Each step keeps the k least of ``concat(best, tile)``
-    by a stable sort, so among equal distances the earlier entry, and so
-    the lower row, wins (``lax.top_k``'s rule); slots with no row hold
-    (3.4e38 / width, -1)."""
+    """Top-k smallest window distances over any gallery, a loop over tiles
+    carrying [B, k] (a stable sort keeps the lower row among ties):
+    (distances [B, k] fp32, rows int32; empty slots (3.4e38 / width, -1))."""
     if end is None:
         end = queries.shape[-1]
     width = end - start

@@ -36,23 +36,14 @@ def _round_up(x: int, m: int) -> int:
 
 def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has_expand: bool, th: int, tw: int,
                group: int, bufs: int, ipb: int) -> int:
-    """Dynamic shared memory of one block of ``kernels/mbconv.cu`` for the
-    plan (th, tw, group, bufs, ipb), as its ``layout`` computes it
-    (``mbconv_smem`` returns the same), or -1 where the kernel refuses the
-    plan: more than :data:`MAX_SMEM` bytes, more than :data:`NT_MAX`
-    project tiles per warpgroup, or two images without the whole plane in
-    one tile or at k = 7 (the kernel instantiates two images a block for
-    k = 3 and 5, B0's 7x7 blocks, only). (th, tw) is the output tile;
-    ``group`` the project tiles of 64 output channels a block owns;
-    ``bufs`` bit 0 double-buffers the input box (with more than one tile),
-    bit 1 the weights; ``ipb`` the images a block takes (1 or 2). With
-    expand and one tile the input box is the bare plane, else the tile's
-    halo. The regions: the input box, the w_exp^T and w_proj^T slabs (one
-    region with SE, whose two passes read one each) with each slab's
-    depthwise weights and biases, the bf16 hidden halo (with expand), the
-    project's A tile (the depthwise sums before it), the pool (then the
-    gate), the SE hidden and the project bias of each image, the
-    barriers."""
+    """Dynamic shared memory of a ``kernels/mbconv.cu`` block for the plan
+    (th, tw, group, bufs, ipb), as its ``layout`` (and ``mbconv_smem``)
+    computes it, or -1 where the kernel refuses the plan (over
+    :data:`MAX_SMEM`, over :data:`NT_MAX` project tiles a warpgroup, two
+    images without the whole plane in one tile or at k = 7). (th, tw): the
+    output tile; ``group``: the 64-channel project tiles a block owns;
+    ``bufs`` bit 0 double-buffers the input box, bit 1 the weights;
+    ``ipb``: images a block."""
     hh, hw = th + k - 1, tw + k - 1
     halo = hh * hw
     n_tiles = -(-h // th) * -(-w // tw)
@@ -77,15 +68,10 @@ def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has
 @functools.lru_cache(maxsize=None)
 def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
                has_expand: bool) -> Tuple[int, int, int, int, int]:
-    """The plan (th, tw, group, bufs, ipb) of ``kernels/mbconv.cu`` with
-    the least estimated work per image, ``groups * n_tiles *
-    (round_up(input box rows, 64) + 64) / ipb`` (each group of output
-    channels recomputes the hidden tensor, each tile its input box's rows;
-    64 stands for a step's fixed cost, which two images share), a quarter
-    more for each single buffer that exposes a copy (both constants are
-    estimates, not fitted by an A/B); ties go to the larger tile. B0's
-    planes take one group and, at 7x7 and 14x14, the whole plane (two
-    images a block at 7x7)."""
+    """The plan (th, tw, group, bufs, ipb) of least estimated work per
+    image, ``groups * n_tiles * (round_up(input box rows, 64) + 64) / ipb``,
+    a quarter more per single buffer that exposes a copy (guessed
+    constants, no A/B); ties to the larger tile."""
     npt_all = -(-cout // CS)
     best = None
     for group in range(npt_all, 0, -1):
@@ -112,14 +98,11 @@ def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
 
 
 def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Folded block params (JAX layout: HWIO kernels, [C, S] SE denses) ->
-    the one layout both ``kernels/mbconv.cu`` and its plain version read:
-    ``w_exp_t`` [Ce, Cin] and ``w_proj_t`` [Cout, Ce] in ``dtype`` (bf16
-    for the tensor cores; K-major ``wgmma`` operands), ``dw_aux``
-    [ceil(Ce / 64), k*k + 2, 64] fp32 (per slab of 64 hidden channels its
-    depthwise weights, b_dw and b_exp, zeros past Ce: one bulk copy a
-    slab; :func:`plain.dw_rows` reads it back), and ``b_proj`` and the SE
-    weights in fp32."""
+    """Folded block params (HWIO kernels, [C, S] SE denses) -> the layout the
+    kernel and its plain version read: ``w_exp_t`` [Ce, Cin] and
+    ``w_proj_t`` [Cout, Ce] in ``dtype``, ``dw_aux`` [ceil(Ce / 64), k*k +
+    2, 64] fp32 (a slab's depthwise taps, b_dw and b_exp; one bulk copy a
+    slab), ``b_proj`` and the SE weights in fp32."""
     k = cfg["kernel"]
     f32 = torch.float32
     ce = p["w_dw"].shape[-1]
@@ -169,9 +152,6 @@ def mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], cfg: Dict[str, Any]) -> 
 
 
 def fused_mbconv(x: torch.Tensor, p: Dict[str, Any], cfg: Dict[str, Any]) -> torch.Tensor:
-    """Run one folded stride-1 MBConv block (``p``, ``cfg`` as
-    ``models.inference.fold_backbone`` gives them) on ``x`` [B, Cin, H, W]
-    (bf16, or fp32 cast to bf16 here, as in the JAX package) -> bf16
-    [B, Cout, H, W] channels_last. Raises ``NotImplementedError`` on
-    stride 2."""
+    """One folded stride-1 block (``fold_backbone``'s ``p``, ``cfg``) on ``x``
+    [B, Cin, H, W] cast to bf16 -> bf16 channels_last; stride 2 raises."""
     return mbconv(x.to(torch.bfloat16), prepare_params(p, cfg), cfg)

@@ -1,7 +1,5 @@
-"""PCA fit on the host (numpy copy of ``fast_image_recognition_tpu/ops/pca.py``
-``fit_pca`` and ``PCAModel``): thin SVD of the mean-centred rows in float64.
-Serving fits it on a small sample only (8192 rows by default); the
-projection runs on the device."""
+"""PCA fit on the host (JAX ``ops/pca.py`` ``fit_pca``, ``PCAModel``): thin
+SVD of the centred rows in float64, on a sample; projection on the device."""
 
 from __future__ import annotations
 

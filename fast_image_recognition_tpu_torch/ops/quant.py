@@ -1,13 +1,6 @@
-"""Symmetric int8 row quantization for the gallery match path (the port's
-own copy of ``fast_image_recognition_tpu/ops/quant.py``).
-
-Per-row symmetric absmax: ``values[i] = round(x[i] / s[i])`` clipped to
-[-127, 127], with ``s[i] = max|x[i]| / 127`` (1 for an all-zero row).
-Rounding is half-to-even, as ``jnp.round`` does, so values and scales are
-bit-equal to the JAX package's on the same rows. The int8 scans keep the
-true ``|g|^2`` (computed before quantization), so only the cross term is
-approximate.
-"""
+"""Symmetric per-row int8 quantization (JAX ``ops/quant.py``): ``round(x /
+s)`` half-to-even, clipped to [-127, 127], ``s = max|x| / 127`` (1 for a
+zero row): bit-equal to JAX's. The scans keep the true ``|g|^2``."""
 
 from __future__ import annotations
 

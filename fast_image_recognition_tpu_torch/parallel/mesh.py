@@ -1,11 +1,6 @@
-"""Device meshes (counterpart of ``fast_image_recognition_tpu/parallel/mesh.py``).
-
-Axes: ``data`` (batch data-parallelism), ``gallery`` (gallery-row
-sharding for search), ``model`` (wide heads). A :class:`Mesh` is a grid of
-``torch.device``s one process drives; a device may repeat:
-``["cuda:0"] * 4`` puts four shards on one card, ``["cpu"] * 8`` stands in
-for JAX's eight simulated CPU devices in the tests.
-"""
+"""Device meshes (JAX ``parallel/mesh.py``): axes ``data``, ``gallery``,
+``model``; a :class:`Mesh` is a grid of ``torch.device``s one process
+drives, a device may repeat (``["cuda:0"] * 4``: four shards on one card)."""
 
 from __future__ import annotations
 

@@ -1,9 +1,8 @@
-"""Mesh-sharded gallery search (JAX ``parallel/sharded_gallery.py``): one
-shard per device, each scanned there (``topk_l2`` or the packed PCA scan
-with a shard-local rescore), launched one after another by one process;
-the shard-major ``[B, S*k]`` pairs meet on the first device in a stable
-sort (ties to the lower row). As in JAX, a shard's -1 slot passes ``i <
-n_valid`` (ROADMAP.md §3)."""
+"""Mesh-sharded gallery search (JAX ``parallel/sharded_gallery.py``): a
+shard a device, each scanned there (``topk_l2`` or the packed PCA scan and
+a rescore) by one process; the ``[B, S*k]`` pairs meet on the first
+device in a stable sort. A shard's -1 slot passes ``i < n_valid``, as in
+JAX (ROADMAP.md §3)."""
 
 from __future__ import annotations
 

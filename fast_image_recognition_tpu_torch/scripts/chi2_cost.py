@@ -1,26 +1,15 @@
-"""Measure the chi2/KL streamed-scan cost at production scale, beside the
-chi2 kernel and the L2 scan (the port's counterpart of
-``scripts/chi2_cost.py``, with the same flags, defaults, kinds and JSON
-fields).
-
-Kinds: ``chi2``, ``l2``, ``kl`` run ``ops/distances.py::streamed_topk``
-(a loop over gallery tiles with the [B, tile, D] elementwise distance,
-or an fp32 matmul for L2, fused into a running top-1); ``chi2_pallas``
-and ``chi2_pallas_bf16`` run ``ops/chi2_kernel.py::chi2_nn``, which on the
-card is the hand-written CUDA kernel ``kernels/chi2.cu`` over an fp32 or
-bf16 gallery. The names are the JAX script's, so one command line reads
-the same against both packages.
-
-Data is made on the device from a seeded ``torch.Generator``: uniform
-rows, L1-normalized; queries are the first B rows plus 0.05 U / D,
-renormalized. Each kind is timed on the host clock between device syncs
-over ``--iters`` calls after ``--warmup`` untimed ones, and its top-1 is checked
-against the fp64 oracle on 8 probes x 4096 rows (``probe_agreement``).
+"""The chi2/KL streamed-scan cost at production scale beside the chi2
+kernel and the L2 scan (the port's ``scripts/chi2_cost.py``: the same
+flags, defaults, kinds and JSON fields). ``chi2``, ``l2``, ``kl`` run
+``ops/distances.py::streamed_topk``; ``chi2_pallas[_bf16]`` run
+``chi2_nn`` (``kernels/chi2.cu`` on the card) over fp32 or bf16 rows.
+Seeded L1-normalized rows made on the device; host clock between syncs
+over ``--iters`` calls after ``--warmup``; top-1 checked against fp64 on 8
+probes x 4096 rows (``probe_agreement``).
 
 Usage: python -m fast_image_recognition_tpu_torch.scripts.chi2_cost
        [--gallery 102400] [--batch 1024] [--dim 1536] [--iters 5] [--warmup 1]
-       [--kinds chi2,l2] [--out -] [--device cuda]
-"""
+       [--kinds chi2,l2] [--out -] [--device cuda]"""
 
 from __future__ import annotations
 

@@ -1,25 +1,17 @@
 """Time the port's kernels on the card at the shapes its paths give them.
 
-Inputs come from ``--seed`` (unit gallery rows; queries rows plus noise);
-each shape is timed with CUDA events, the mean over ``--reps`` calls after
-one second idle (so it does not inherit the power state of the shape
-before) and a warm-up (a third as many for the precise ``topk_l2``).
-Shapes: ``tilemin`` (1024 x 1,000,448, D 128, both score modes; D 768),
-``tilemin_packed`` (Da 128, tile_g 1024 and 128), ``tilemin2_packed`` (Da
-128 and 768), ``tilemin_quant`` (1024 x 1,000,448 x 1536, both computes),
-``topk_l2`` bf16 (k = 1 and 32, before and after ``precise``) and
-``precise`` over bf16 and fp32 rows (x 1280, x 1536). After each shape it
-runs it for half a second under ``nvidia-smi`` sampling every 20 ms and
-keeps the median SM clock, power and temperature under ``clocks``.
-``--mbconv`` times instead the fused MBConv kernel at B0@224's twelve
-stride-1 blocks, B = 1024, beside the per-op block. A shape the kernels
-refuse reads null. ``--root`` imports another checkout's port: run it per
-tree in the order A, B, B, A in one call. Prints the card's name and power
-limit, then ``{"root", "card", "ms": {shape: ms}, "clocks": {...}}``.
+Seeded inputs; CUDA-event means over ``--reps`` calls after a warm-up and
+one second idle; after each shape half a second under ``nvidia-smi`` (20 ms
+samples: median SM clock, power, temperature under ``clocks``). Shapes:
+``tilemin``, both packed scans, ``tilemin_quant`` (both computes),
+``topk_l2`` bf16 (k 1 and 32) and ``precise`` over bf16 and fp32 rows;
+``--mbconv``: the fused MBConv kernel beside the per-op block at B0@224's
+stride-1 blocks, B = 1024. ``--root`` times another checkout's port (run
+trees A, B, B, A in one call). Prints the card line, then ``{"root",
+"card", "ms": {shape: ms}, "clocks": {...}}``.
 
 Usage: python fast_image_recognition_tpu_torch/scripts/scan_times.py
-       [--root CHECKOUT] [--mbconv] [--reps 10] [--seed 0] [--out FILE]
-"""
+       [--root CHECKOUT] [--mbconv] [--reps 10] [--seed 0] [--out FILE]"""
 
 from __future__ import annotations
 

@@ -1,10 +1,9 @@
 """End-to-end recognition serving on the card (JAX ``serving.py``):
-``RecognitionService`` (the folded backbone on raw uint8 images, L2
-normalization, a 1-NN match: ``match`` 'pca' with ``pca_scan`` 'f32',
-'bf16', 'int8' or 'packed' (certified when ``escalate`` is set), 'exact',
-'int8' or 'sharded'), ``CascadeRecognitionService`` (the early-exit twin,
-EfficientNet only), ``make_tap_embed_fn`` and the builders. No host sync
-per batch."""
+``RecognitionService`` (folded backbone on raw uint8 images, a 1-NN match:
+``match`` 'pca' with ``pca_scan`` 'f32', 'bf16', 'int8' or 'packed'
+(certified with ``escalate``), 'exact', 'int8' or 'sharded'),
+``CascadeRecognitionService`` (the early-exit twin over an MBConv family),
+``make_tap_embed_fn`` and the builders. No host sync per batch."""
 
 from __future__ import annotations
 
@@ -16,9 +15,9 @@ import torch
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
-from fast_image_recognition_tpu_torch.models.efficientnet import block_plan, default_taps
-from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
-from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet
+from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
+from fast_image_recognition_tpu_torch.models.fold import MBCONV_FAMILIES, make_serving_fn
+from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, make_infer_fn, mbconv_plan
 from fast_image_recognition_tpu_torch.ops.distance_kernel import (
     gallery_sq_norms,
     pack_gallery_aug,
@@ -41,10 +40,19 @@ _PROJECTION_ROWS = 65536
 _SHARD_TILE_G = 512  # the sharded scans' row tile (JAX serving.py:130, :279)
 
 
-def _efficientnet_only(info: Dict[str, Any]) -> None:
-    if info.get("family") != "efficientnet":
+def _mbconv_only(info: Dict[str, Any]) -> None:
+    """JAX's cascade taps the functional fold's block ladder (its
+    serving.py:570-574)."""
+    if info.get("family") not in MBCONV_FAMILIES:
         raise NotImplementedError(f"the cascade over {info.get('family')!r} taps is not ported yet: ROADMAP.md "
                                   "§1 queue 2")
+
+
+def _tap_net(variables, info: Dict[str, Any], resolution: int, device: torch.device) -> FoldedEfficientNet:
+    """The folded forward the cascade taps. JAX's folds the torch-mode mean
+    into the stem and runs swish at stem and head whatever the family (its
+    serving.py:463-473, :590, :905-910): for MobileNetV2 not the served net."""
+    return make_infer_fn(variables, info["variant"], resolution=resolution, activation="swish", device=device)
 
 
 def _normalize(emb: torch.Tensor) -> torch.Tensor:
@@ -82,10 +90,9 @@ def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: 
 
 class RecognitionService:
     """Folded-backbone extract + device-resident gallery 1-NN (JAX
-    serving.py:50). ``gallery``: ``[N, D]`` host rows or a padded bf16 tensor
-    on ``device`` (``n_valid`` rows). The defaults are JAX's (PCA-128, f32
-    tile scan, rescore 48); after a certified call ``last_escalated`` holds the
-    ``[B]`` mask of the probes that took the exact scan."""
+    serving.py:50). ``gallery``: ``[N, D]`` host rows or a padded bf16
+    tensor (``n_valid`` rows). JAX's defaults (PCA-128, f32 tile scan,
+    rescore 48); ``last_escalated``: the probes a certified call escalated."""
 
     def __init__(
         self,
@@ -162,10 +169,8 @@ class RecognitionService:
 
     def _build_sharded(self, gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample):
         """``match='sharded'`` (JAX serving.py:104-131): the first ``n_valid``
-        rows split over ``mesh``'s gallery axis in bf16 (the JAX package
-        shards every row it is given); for ``'packed'`` a PCA fit on the
-        first ``pca_sample`` rows as fp32 and per-shard packed projections
-        at tile_g 512."""
+        rows over ``mesh``'s gallery axis in bf16; ``'packed'``: a PCA fit
+        on ``pca_sample`` rows and per-shard projections at tile_g 512."""
         from fast_image_recognition_tpu_torch.parallel.mesh import gallery_mesh
         from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (
             shard_gallery,
@@ -264,11 +269,9 @@ class RecognitionService:
         return self._escalate(emb, idx, esc)
 
     def _escalate(self, emb: torch.Tensor, idx_fast: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
-        """[B] int32 rows: the exact scan's answer where ``esc`` holds, the
-        certified pick elsewhere. One ``topk_l2`` launch whatever ``esc``
-        holds, with no host sync: the escalated probes move to the front
-        (their order kept), so only the ceil(n_esc / 64) query blocks that
-        hold them scan and the rest return at once."""
+        """[B] int32 rows: the exact scan's answer where ``esc``, else the
+        certified pick; one ``topk_l2`` launch, no host sync (escalated
+        probes first, so only their query blocks scan)."""
         e = esc.to(torch.int32)
         # destination of each probe: escalated ones first, each group in order
         pos = torch.where(esc, e.cumsum(0) - 1, e.sum() + (1 - e).cumsum(0) - 1)
@@ -321,9 +324,7 @@ class RecognitionService:
         )
 
 
-# ---------------------------------------------------------------------- #
-# early-exit cascade                                                      #
-# ---------------------------------------------------------------------- #
+# early-exit cascade
 
 
 def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
@@ -364,11 +365,9 @@ def make_tap_embed_fn(
     normalized final embedding)`` over the folded forward: the extractor
     that builds per-level galleries. grid=1 is plain GAP, the tap embedding
     the level-gallery cascade matches on."""
-    _efficientnet_only(info)
+    _mbconv_only(info)
     dev = resolve_device(device)
-    net = serving_fn if serving_fn is not None else make_serving_fn(
-        variables, info, resolution=resolution, device=dev
-    )
+    net = serving_fn if serving_fn is not None else _tap_net(variables, info, resolution, dev)
 
     @torch.no_grad()
     def fn(images):
@@ -389,15 +388,13 @@ def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> L
 
 
 class CascadeRecognitionService:
-    """Early-exit recognition serving (JAX serving.py:483): the backbone
-    in segments ending at the exit ``taps``; after each the live probes are
-    matched (single-min packed scan, ``rescore`` rows rescored in full D) and
-    exit when ``d1 < ratio^2 * d2`` (``d2_rule`` 'row': the runner-up;
-    'class': the nearest other label). Survivors, least confident first, fill
-    the next segment's static capacity; the overflow exits, counted as forced.
-    ``galleries=None``: ridge readouts predict the final embedding from each
-    tap; ``galleries=[...]``: one row-aligned gallery per tap. ``ratio`` is
-    read at every call; :meth:`identify_device` makes no host sync."""
+    """Early-exit serving (JAX serving.py:483): backbone segments ending at
+    ``taps``; after each the live probes are matched (single-min packed
+    scan, ``rescore`` rows rescored) and exit when ``d1 < ratio^2 * d2``
+    (``d2_rule`` 'row' or 'class'). Survivors, least confident first, fill
+    the next segment's static capacity, the overflow exits as forced.
+    ``galleries=None``: ridge readouts predict the final embedding from
+    each tap; else one row-aligned gallery per tap. No host sync."""
 
     def __init__(
         self,
@@ -424,7 +421,7 @@ class CascadeRecognitionService:
         serving_fn: Optional[FoldedEfficientNet] = None,
         device: DeviceLike = None,
     ):
-        _efficientnet_only(info)
+        _mbconv_only(info)
         self.device = resolve_device(device)
         self.info = info
         self.resolution = int(resolution or info["resolution"])
@@ -438,13 +435,11 @@ class CascadeRecognitionService:
             raise ValueError("d2_rule='class' needs gallery labels")
         self.d2_rule = d2_rule
         self.labels = None if labels is None else np.asarray(labels)
-        self.net = serving_fn if serving_fn is not None else make_serving_fn(
-            variables, info, resolution=self.resolution, device=self.device
-        )
+        self.net = serving_fn if serving_fn is not None else _tap_net(variables, info, self.resolution, self.device)
 
-        plan = block_plan(info["variant"])
-        if taps is None:
-            taps = default_taps(info["variant"], "early")[:2]
+        plan = mbconv_plan(info["variant"])[0]
+        if taps is None:  # JAX's: default_taps(getattr(model, "variant", "b0"), "early")[:2]
+            taps = default_taps(info["variant"] if info["family"] == "efficientnet" else "b0", "early")[:2]
         self.taps = list(taps)
         name_to_idx = {b["name"]: i for i, b in enumerate(plan)}
         tap_idx = [name_to_idx[t] for t in self.taps]
@@ -535,11 +530,9 @@ class CascadeRecognitionService:
         self._readouts = [torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in readouts]
 
     def _match_top2(self, emb, gal_aug, gallery, project: bool = True, dim: Optional[int] = None):
-        """Normalized [b, D] queries -> (best row [b] int64, d1 [b], d2 [b])
-        via the single-min packed candidate scan and an fp32 rescore of the
-        bf16 rows. d1/d2 are true squared L2 distances (|q|^2 = 1).
-        ``project=True`` scans in the final gallery's PCA space; ``False``
-        scans the query as it is against a same-space (tap) gallery."""
+        """Normalized [b, D] queries -> (best row, d1, d2) by the single-min
+        packed scan and an fp32 rescore; ``project``: in the final gallery's
+        PCA space, else against a same-space (tap) gallery."""
         qp = (emb - self._mu) @ self._w if project else emb
         cand = topk_candidates_l2_packed(
             qp, gal_aug, dim if dim is not None else self.pca_dim, self.rescore, self._tile_g

@@ -1,14 +1,7 @@
-"""A small msgpack decoder for the subset flax's ``msgpack_serialize`` writes.
-
-Flax checkpoints (``fast_image_recognition_tpu/utils/checkpoint.py``
-``save_variables``) are msgpack maps whose array leaves are ExtType 1
-holding a nested msgpack triple ``(shape, dtype name, C-order bytes)``.
-The port decodes them without the ``msgpack`` package: maps, arrays, str,
-bin, ints, floats, nil, bool and the three flax ext types (1 = ndarray,
-2 = complex, 3 = numpy scalar). Arrays above flax's chunk limit arrive as
-``{'__msgpack_chunked_array__': ..., 'shape': ..., 'chunks': ...}`` maps
-and are joined back, as ``flax.serialization.msgpack_restore`` does.
-"""
+"""A small msgpack decoder for what flax's ``msgpack_serialize`` writes: maps,
+arrays, str, bin, ints, floats, nil, bool and flax's ext types (1 ndarray
+as ``(shape, dtype name, C bytes)``, 2 complex, 3 numpy scalar); chunked
+arrays (``__msgpack_chunked_array__``) are joined, as flax restores them."""
 
 from __future__ import annotations
 

@@ -1,21 +1,15 @@
-"""The port's early-exit cascade (``CascadeRecognitionService`` and the
-single-min packed scan under it) against the JAX package's, on the same
-random-init B0 weights, seed-made images and galleries. The JAX side runs
-its Pallas kernels in interpret mode; the port runs its plain versions.
+"""The port's early-exit cascade (``CascadeRecognitionService`` and its
+single-min packed scan) against JAX's on the same random-init B0 weights,
+images and galleries (JAX in interpret mode, the port's plain versions).
 
-Tolerances, each from what the two sides share:
-- single-min packed scan: bf16 x bf16 products summed in fp32 in another
-  order, so decoded distances agree within 2^-12 relative and the rows
-  they carry agree except where the two rows' fp32 distances tie within
-  2^-12 relative;
-- readouts: the port's ridge fit on the JAX package's calibration features
-  within 1e-3 relative; on its own features within 5e-2 (the two bf16
-  backbones round at other places, cosine >= 0.999 per embedding);
+Tolerances:
+- single-min packed scan: distances within 2^-12 relative, rows equal but
+  where their fp32 distances tie within 2^-12 relative;
+- readouts: the port's ridge fit on JAX's calibration features within
+  1e-3 relative; on its own features within 5e-2 (bf16 backbones);
 - answers: the same rows, exit levels and forced exits, except probes
-  whose deciding margin ``ratio^2 * d2 - d1`` lies within 2^-8 * d1 of
-  zero (a near-tie of the exit rule) and rows whose distances to the
-  probe tie within 2^-8 relative.
-"""
+  whose margin ``ratio^2 * d2 - d1`` lies within 2^-8 * d1 of zero and
+  rows whose distances to the probe tie within 2^-8 relative."""
 
 import jax
 import jax.numpy as jnp
@@ -61,9 +55,7 @@ def weights():
     return model, variables, np_vars
 
 
-# ---------------------------------------------------------------------- #
-# the single-min packed scan                                              #
-# ---------------------------------------------------------------------- #
+# the single-min packed scan
 
 
 @pytest.mark.parametrize("tile_g", [128, 1024])
@@ -144,9 +136,7 @@ def test_grid_pool_matches_jax():
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
-# ---------------------------------------------------------------------- #
-# readout mode (the recipe of tests/test_cascade_serving.py)              #
-# ---------------------------------------------------------------------- #
+# readout mode (the recipe of tests/test_cascade_serving.py)
 
 R_BATCH, R_GAL = 16, 512
 R_KW = dict(resolution=RES, pca_dim=32, rescore=8, pca_sample=256, calib_total=64, calib_batch=32)
@@ -246,9 +236,7 @@ def test_readout_calibrate_matches_jax(readout):
     assert ps.capacities_for(1024) == js.capacities_for(1024) == (1024, 256, 256)
 
 
-# ---------------------------------------------------------------------- #
-# level mode: a planted layout with exits at every level                  #
-# ---------------------------------------------------------------------- #
+# level mode: a planted layout with exits at every level
 
 L_TAPS = ["block3a", "block4a", "block5c"]
 L_PROBES, L_VALID = 16, 1500  # 4 levels, 4 probes per exit level; tile_g 128

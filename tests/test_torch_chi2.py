@@ -1,22 +1,16 @@
 """The port's chi2 1-NN (``ops/chi2_kernel.py::chi2_nn``; on the CPU
-``kernels/plain.py::chi2_nn_plain``, exact division) against the JAX
-package's ``chi2_nn`` (its Pallas kernel in interpret mode) on the same
-seeded inputs, and ``chi2_cost`` at a tiny size.
+``plain.chi2_nn_plain``, exact division) against JAX's ``chi2_nn`` (its
+Pallas kernel in interpret mode) on seeded inputs, and ``chi2_cost`` tiny.
 
 Tolerances:
-- rows equal the fp64 oracle's argmin (bf16 gallery: >= 90 %, the JAX
-  test's bound), distances within rtol 2e-5, atol 1e-7 of its minimum;
+- rows equal the fp64 oracle's argmin (bf16 gallery: >= 90 %, JAX's
+  bound), distances within rtol 2e-5, atol 1e-7 of its minimum;
 - against JAX: indices equal but where the oracle's two least distances
-  lie within 2^-7 relative (JAX's interpret-mode ``pl.reciprocal(approx=
-  True)`` is off by up to 2^-8 per term, measured 3.82e-3 over 8192
-  values in [1e-3, 1], so either of two such sums may be off by 2^-8);
+  lie within 2^-7 relative (JAX's ``pl.reciprocal(approx=True)`` is up to
+  2^-8 off per term in interpret mode, measured 3.82e-3);
 - refined distances within rtol 2e-5, atol 1e-7 of JAX's
-  (tests/test_chi2_kernel.py:34: both rescore the winner exactly);
-- unrefined distances within rtol 4e-3 of JAX's (its 2^-8 per term bounds
-  a sum of non-negative terms, plus < 1e-5 of fp32 rounding);
-- the kernel runs only on the card (``chip_smoke.py``); its launcher must
-  refuse CPU tensors here.
-"""
+  (tests/test_chi2_kernel.py:34); unrefined within rtol 4e-3;
+- the kernel runs only on the card; its launcher refuses CPU tensors."""
 
 import jax.numpy as jnp
 import numpy as np

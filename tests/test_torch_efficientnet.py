@@ -145,7 +145,7 @@ def test_wrong_resolution_and_family_raise(random_b0_64):
     assert pemb.shape == jemb.shape == (3, 1280)
     assert (_cos(pemb, jemb) >= 0.999).all(), _cos(pemb, jemb)
     with pytest.raises(NotImplementedError):
-        make_serving_fn(variables, {"family": "mobilenetv2", "resolution": 224}, device="cpu")
+        make_serving_fn(variables, {"family": "resnet", "resolution": 224}, device="cpu")
 
 
 def test_preprocess_constants_and_resize_match_jax():

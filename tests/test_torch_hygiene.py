@@ -79,6 +79,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
     from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
     from fast_image_recognition_tpu_torch.models import EfficientNet, create_backbone, create_efficientnet
+    from fast_image_recognition_tpu_torch.models import create_mobilenet_v1, create_mobilenetv2
     from fast_image_recognition_tpu_torch.models import backbone_info as zoo_info
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
@@ -88,6 +89,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
 
     _, irv2 = create_backbone("inception_resnet_v2", device="cpu")
+    mb = {n: create_backbone(n, resolution=32, device="cpu")[1] for n in ("mobilenetv2", "mobilenetv1")}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     feats = torch.rand((40, 16)).numpy()
     labels = torch.arange(40).numpy() % 4
@@ -101,6 +103,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda **kw: build_service("inception_resnet_v2", feats[:4, :1].repeat(1536, 1), variables=None,
                                    match="exact", **kw),
         lambda **kw: make_serving_fn(irv2, zoo_info("inception_resnet_v2"), **kw),
+        lambda **kw: create_mobilenetv2(resolution=32, **kw),
+        lambda **kw: create_mobilenet_v1(resolution=32, **kw),
+        *(lambda n=n, v=v, **kw: make_serving_fn(v, zoo_info(n), **kw) for n, v in mb.items()),
+        lambda **kw: make_infer_fn(mb["mobilenetv2"], "mobilenetv2", fused=True, **kw),
         lambda **kw: SequentialInferencePipeline(EfficientNet("b0"), None, ["block5a"], [feats[:4, :1]] * 2,
                                                  [labels[:4]] * 2, **kw),
         lambda **kw: ProposedTWD(feats, labels, 4, chunk_features=8, max_features=16, **kw),

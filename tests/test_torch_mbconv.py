@@ -1,16 +1,10 @@
 """The port's fused stride-1 MBConv block (``ops/mbconv_kernel.py``; on the
-CPU its plain version ``kernels/plain.py::mbconv_plain``) against the JAX
-package's ``fused_mbconv`` (Pallas, interpret mode on the CPU), and the
-fused serving path against the JAX package's, on random-init B0@64 weights.
-
-Tolerances are the JAX package's own (tests/test_mbconv_kernel.py):
-a block's output within 0.03 of its largest magnitude (both sides round
-the hidden tensor, the scaled hidden and the output to bf16, at slightly
-different places: the port also rounds the depthwise output), the full
-fused forward's embedding within 0.05. Against the per-op block in fp32
-every rounding is a no-op and the two differ only by summation order:
-1e-4 of the largest magnitude. The service test asks for the same top-1.
-"""
+CPU ``plain.mbconv_plain``) against JAX's ``fused_mbconv`` (Pallas,
+interpret mode), and the fused serving path against JAX's, on random-init
+B0@64 weights. Tolerances are JAX's (tests/test_mbconv_kernel.py): a
+block within 0.03 of its largest magnitude (both round to bf16 at
+slightly different places), the fused embedding within 0.05; against the
+per-op block in fp32 (rounding a no-op) 1e-4. The service: same top-1."""
 
 import jax
 import jax.numpy as jnp

@@ -1,31 +1,22 @@
 """The arithmetic of the port's precise ``topk_l2`` on the card
-(``split_queries``, then ``topk_pass1_split_sm90`` over bf16 rows or
+(``split_queries``, ``topk_pass1_split_sm90`` over bf16 rows,
 ``topk_pass1_split6_sm90`` over fp32 rows), held on the CPU through its
-mirror ``kernels/plain.py::split_bf16x3`` and the host-side sizes in
-``kernels/build.py``, and the port's precise ``topk_l2`` over fp32 rows
-against the JAX package's.
+mirror ``kernels/plain.py::split_bf16x3`` and the sizes in
+``kernels/build.py``, and its ``topk_l2`` over fp32 rows against JAX's.
 
-- The three-term split reconstructs fp32 queries, or row blocks split as
-  the card splits them, within 2^-26 relative (8 bits a term: ~2^-27), or
-  2^-133 absolute among the bf16 subnormals.
-- Over bf16 rows the three products, summed per 64-feature chunk lo, mid,
-  hi in a fresh accumulator and then into fp32 as the kernel sums them,
-  stay within 2^-20 of the fp32 matmul for unit vectors (16x inside the
-  smoke run's 2^-16 gate); over fp32 rows the six products (hi.lo, lo.hi,
-  mid.mid, hi.mid, mid.hi, hi.hi; the dropped ones under 2^-25 of sum
-  |g q|), summed per 32-feature chunk in that order, within 2^-20 of fp64.
-- The lo terms matter: on queries = a bf16 row x (1 + 2^-9 + 2^-18) the hi
-  + mid product misses the fp64 distance by > 1.5 x 2^-18 while the plain
-  pass and the three terms stay within 2^-18; over fp32 rows made the same
-  way with queries half a row, the six products stay within 2^-18 and the
-  bf16-row pass's three miss by > 1.5 x 2^-18 (the smoke run's probes).
-- The query planes hold B rounded up to whole 128-query boxes; every ring
-  fits a Hopper block's 227 KB.
-- ``topk_l2(precise=True)`` over full-significand fp32 rows (plain: an fp32
-  matmul) equals JAX's (interpret mode, a HIGHEST fp32 dot): distances
-  within 2^-16 absolute, rows equal but where their fp64 distances tie
-  within that.
-"""
+- The three-term split reconstructs fp32 queries or row blocks within
+  2^-26 relative, or 2^-133 absolute among bf16 subnormals.
+- The three products over bf16 rows (per 64-feature chunk, lo, mid, hi,
+  in a fresh accumulator) stay within 2^-20 of the fp32 matmul for unit
+  vectors; the six over fp32 rows (per 32-feature chunk, in the kernel's
+  order) within 2^-20 of fp64.
+- On queries = a bf16 row x (1 + 2^-9 + 2^-18) the hi + mid product
+  misses fp64 by > 1.5 x 2^-18, the plain pass and three terms stay
+  within 2^-18; over fp32 rows made so, queries half a row, six products
+  stay within 2^-18, the bf16-row pass's three miss by > 1.5 x 2^-18.
+- The query planes hold whole 128-query boxes; every ring fits 227 KB.
+- ``topk_l2(precise=True)`` over fp32 rows equals JAX's (interpret mode):
+  distances within 2^-16 absolute, rows equal but at fp64 ties within that."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,17 +1,10 @@
-"""The port's RecognitionService against the JAX package's on the same
-random-init B0@64 weights, probe images and gallery, end to end
-(``pca`` with the packed scan, ``exact``); the other scans and the
-builders are held against JAX at the match level in
-test_torch_serving_modes.py.
-
-The gallery lies in a 96-dimensional span that holds the probes'
-embeddings, so PCA-124 keeps every distance and the packed scan's
-certificate can clear: each probe has one planted row (noise 0.02) and 40
-distractors (noise 0.5) of its own, and filler rows elsewhere in the span.
-Tolerance: top-1 rows identical, except where the port's and the JAX
-package's picks are at squared distances within 2^-8 relative of each
-other (bf16 backbones that round at other places).
-"""
+"""The port's RecognitionService against JAX's on the same random-init
+B0@64 weights, images and gallery, end to end (``pca`` packed,
+``exact``). The gallery lies in a 96-d span holding the probes'
+embeddings (PCA-124 keeps every distance): a planted row (noise 0.02) and
+40 distractors (noise 0.5) per probe, fillers elsewhere. Tolerance: top-1
+rows identical but where the two picks' squared distances are within
+2^-8 relative (bf16 backbones that round at other places)."""
 
 import jax
 import jax.numpy as jnp

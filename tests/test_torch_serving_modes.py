@@ -1,18 +1,12 @@
-"""The port's RecognitionService against the JAX package's at the match
-level, in the modes the backbone does not decide: the JAX defaults
-(PCA-128, fp32-score tile scan), ``pca_scan`` bf16 and int8,
-``match='int8'``, the one-launch escalation, and the builders.
-
-Both services take the same gallery and match the same unit embeddings
-(``_match_emb``); no backbone runs (``serving_fn`` is a stub on both
-sides). The gallery lies in a 96-dimensional span that holds the probes:
-each probe has one planted row (noise 0.02) and 40 distractors (noise 0.5),
-filler rows elsewhere in the span; ``clustered`` puts 32 rows per probe
-(noise 0.5) first, where the best row is a near-tie among them.
-Tolerance: top-1 rows identical, except where the two picks are at
-squared distances within 2^-8 relative of each other (bf16 operand
-rounding of the scans, fp32 sums in another order).
-"""
+"""The port's RecognitionService against JAX's at the match level, in the
+modes the backbone does not decide: JAX's defaults (PCA-128, fp32-score
+tile scan), ``pca_scan`` bf16 and int8, ``match='int8'``, the one-launch
+escalation and the builders. Both match the same unit embeddings (no
+backbone; ``serving_fn`` stubbed) over a gallery in a 96-d span: a
+planted row (noise 0.02) and 40 distractors (noise 0.5) per probe,
+fillers elsewhere; ``clustered`` puts 32 rows per probe first.
+Tolerance: top-1 rows identical but where the two picks' squared
+distances are within 2^-8 relative (bf16 rounding, fp32 sum order)."""
 
 import jax.numpy as jnp
 import numpy as np
