@@ -22,11 +22,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
+    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
+    from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
+    from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
     from fast_image_recognition_tpu_torch.kernels import build, plain
+    from fast_image_recognition_tpu_torch.models import (InceptionResNetV2, backbone_info, create_backbone,
+                                                         create_efficientnet, default_taps, default_taps_inception_resnet,
+                                                         default_taps_mobilenet, default_taps_resnet)
+    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
     from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
     from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
     from fast_image_recognition_tpu_torch.serving import RecognitionService
+    from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
 except ImportError:
     sys.exit("chip_smoke: run it from the root of a checkout of the repository")
 
@@ -288,17 +297,33 @@ def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
     return dict(row, idx=idx, idx_exact=idx_exact, idx_oracle=idx_oracle, emb=emb, sec=ms / 1e3)
 
 
+def fold_gap(name, np_vars, info, res, serve, images, dev):
+    """Folded vs ``folded=False`` embeddings at FOLD_BATCH over max |emb|,
+    gated at 0.02 (JAX's bound, tests/test_fold_generic.py:102-115)."""
+    with torch.no_grad():
+        unfolded = make_serving_fn(np_vars, info, resolution=res, device=dev, folded=False)
+        ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
+        rel = ((ef - eu).abs().max() / eu.abs().max()).item()
+    if not rel <= 0.02:
+        raise AssertionError(f"{name}: folded and unfolded embeddings differ by {rel:.4f} > 0.02")
+    return rel
+
+
+def line_services(name, info, emb, gallery, labels, serve, dev):
+    """A line's certified service (PCA-124 packed, rescore 48, escalate 0.05) and ``match='exact'``, once its
+    embeddings are finite and of the zoo's width."""
+    if emb.shape[1:] != (info["embedding_dim"],) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"{name}: embeddings of shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
+    kw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
+    return (RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", rescore=48, escalate=0.05, **kw),
+            RecognitionService(None, info, gallery, match="exact", **kw))
+
+
 def run_flagship(dev, report, launches, smi):
     """bench.py ``--config e2e --variant inception_resnet_v2 --resolution 224
     --extract exact``: the trained IRv2@224 (``IRV2_CKPT``), 4096 unseen
     identities x 2, 1M class-structured rows of 1536, PCA-124 packed,
-    rescore 48, escalate 0.05, B = 1024; folded vs ``folded=False`` within
-    0.02 of max |emb| (JAX's bound, tests/test_fold_generic.py:102-115)."""
-    from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
-    from fast_image_recognition_tpu_torch.models import backbone_info
-    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
-    from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
-
+    rescore 48, escalate 0.05, B = 1024; :func:`fold_gap`."""
     t = time.time()
     raw = load_variables(IRV2_CKPT)
     np_vars = {"params": raw["params"], "batch_stats": raw["batch_stats"]}
@@ -307,26 +332,17 @@ def run_flagship(dev, report, launches, smi):
     torch.cuda.synchronize()
     load_s, t = time.time() - t, time.time()
     pair_imgs, _ = device_dataset(IDENTITIES, 2, RES, seed=11000, class_seed=3000, device=dev)
+    fold_rel = fold_gap("flagship", np_vars, info, RES, serve, pair_imgs, dev)
     with torch.no_grad():
-        unfolded = make_serving_fn(np_vars, info, resolution=RES, device=dev, folded=False)
-        ef, eu = (m(pair_imgs[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
-        fold_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
-        del unfolded, ef, eu
         embs = _unit(torch.cat([serve(pair_imgs[s : s + BATCH])["embedding"] for s in range(0, 2 * IDENTITIES, BATCH)]))
-    if embs.shape != (2 * IDENTITIES, info["embedding_dim"]) or not bool(torch.isfinite(embs).all()):
-        raise AssertionError(f"flagship: embeddings of shape {tuple(embs.shape)}, finite {bool(torch.isfinite(embs).all())}")
     enroll, sigma, images = enroll_sigma(embs, pair_imgs)
-    del pair_imgs, embs
     gallery, labels = class_structured_gallery(GALLERY, enroll, sigma)
-    kw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
-    svc = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", rescore=48, escalate=0.05, **kw)
-    exact = RecognitionService(None, info, gallery, match="exact", **kw)
+    svc, exact = line_services("flagship", info, embs, gallery, labels, serve, dev)
+    del pair_imgs, embs
     torch.cuda.synchronize()
     phase(f"flagship: {IRV2_CKPT} loaded and folded ({load_s:.1f} s); {2 * IDENTITIES} images at {RES} embedded, "
           f"sigma={sigma:.4f}, gallery {tuple(gallery.shape)}, PCA-{svc.pca_dim} ({time.time() - t:.1f} s); folded "
           f"vs folded=False at B={FOLD_BATCH}: {fold_rel:.5f} of max |emb|")
-    if not fold_rel <= 0.02:
-        raise AssertionError(f"flagship: folded and unfolded embeddings differ by {fold_rel:.4f} > 0.02")
     with torch.no_grad():  # the path's kernels vs plain at its shapes
         emb = svc._embed(images)
     check_cert_scan(svc, emb, report)
@@ -336,6 +352,12 @@ def run_flagship(dev, report, launches, smi):
         row.pop(k)
     row["trace"] = trace_line("flagship", lambda: svc.identify_device(images), "fprop")
     del svc, exact, gallery, serve
+    torch.cuda.empty_cache()
+
+    model = InceptionResNetV2().load_variables(np_vars).to(dev).eval()
+    row["engine"] = engine_line("irv2 cascade engine", model, None, default_taps_inception_resnet(), dev,
+                                launches, engine="bind")[0]
+    del model
     torch.cuda.empty_cache()
     return dict(row, fold_rel=fold_rel, sigma=sigma, checkpoint=IRV2_CKPT)
 
@@ -366,38 +388,25 @@ def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
     return gal, labels
 
 
-def untrained_line(name, dev, launches, smi):
+def untrained_line(name, dev, launches, smi, res=RES):
     """bench.py ``--config e2e --variant NAME --extract exact`` untrained
     (bench.py:378-387): the seed-0 init, BATCH random uint8 probes,
     :func:`embedding_gallery`, PCA-124 packed, rescore 48, escalate 0.05;
-    folded vs ``folded=False`` within 0.02 of max |emb| (JAX's bound).
-    Returns the row and what the twins reuse."""
-    from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
-    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
-
+    :func:`fold_gap`. Returns the row and what the twins reuse."""
     t = time.time()
     info = backbone_info(name)
-    _, np_vars = create_backbone(name, seed=0, resolution=RES, device=dev)
-    serve = make_serving_fn(np_vars, info, resolution=RES, device=dev)
+    _, np_vars = create_backbone(name, seed=0, resolution=res, device=dev)
+    serve = make_serving_fn(np_vars, info, resolution=res, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    images = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=dev, dtype=torch.uint8)
+    images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen, device=dev, dtype=torch.uint8)
+    fold_rel = fold_gap(name, np_vars, info, res, serve, images, dev)
     with torch.no_grad():
-        unfolded = make_serving_fn(np_vars, info, resolution=RES, device=dev, folded=False)
-        ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
-        fold_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
-        del unfolded, ef, eu
         emb = _unit(serve(images)["embedding"])
-    if emb.shape != (BATCH, info["embedding_dim"]) or not bool(torch.isfinite(emb).all()):
-        raise AssertionError(f"{name}: embeddings of shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
     gallery, labels = embedding_gallery(GALLERY, emb)
-    kw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
-    svc = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", rescore=48, escalate=0.05, **kw)
-    exact = RecognitionService(None, info, gallery, match="exact", **kw)
+    svc, exact = line_services(name, info, emb, gallery, labels, serve, dev)
     torch.cuda.synchronize()
-    phase(f"{name}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} ({time.time() - t:.1f} s); "
-          f"fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
-    if not fold_rel <= 0.02:
-        raise AssertionError(f"{name}: folded and unfolded embeddings differ by {fold_rel:.4f} > 0.02")
+    phase(f"{name}@{res}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} "
+          f"({time.time() - t:.1f} s); fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
     row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi)
     ctx = {k: row.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec")}
     row["fold_rel"] = fold_rel
@@ -409,9 +418,7 @@ def run_mobilenets(dev, launches, smi, mb_report):
     """The MobileNet lines: MobileNetV2's plain line, its fused twin (13
     ``mbconv`` launches a call in the relu6, SE-free form), its cascade
     (readout mode) and early-exit engine, then MobileNetV1's line."""
-    from fast_image_recognition_tpu_torch.models import create_backbone, default_taps_mobilenet
     from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, TF_MODE_STD
-    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.serving import build_cascade_service
 
     lines = {}
@@ -460,6 +467,47 @@ def run_mobilenets(dev, launches, smi, mb_report):
     del c
     torch.cuda.empty_cache()
     return lines
+
+
+def run_zoo(dev, report, launches, smi):
+    """ResNet50 ('caffe'), ResNet152V2 ('tf'), InceptionV3 at 299 and VGG19
+    (no BN, 'caffe') lines; ``topk_l2`` vs plain at D 2048 and 512; the
+    bind engine over ResNet152V2 at the reference's taps."""
+    lines = {}
+    for name in ("resnet50", "resnet152v2", "inception_v3", "vgg19"):
+        lines[name], c = untrained_line(name, dev, launches, smi, 299 if name == "inception_v3" else RES)
+        dim, wide = c["info"]["embedding_dim"], name in ("resnet152v2", "vgg19")
+        if wide:  # topk_l2's picks on the line's near-collinear rows, then vs plain on bench.py's bf rows
+            check_collinear_picks(name, c["gallery"], c["emb"], report)
+        del c
+        torch.cuda.empty_cache()
+        if wide:
+            gal = random_unit_gallery(GALLERY, dim, dev)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            check_topk(gal, GALLERY, _unit(gal[:BATCH].float() + 1e-2 * torch.randn((BATCH, dim), generator=gen,
+                                                                                     device=dev)), 1, report)
+            del gal
+    model, _ = create_backbone("resnet152v2", seed=0, resolution=RES, device=dev)
+    lines["resnet152v2_engine"] = engine_line("resnet152v2 cascade engine", model, None,
+                                              default_taps_resnet("resnet152v2"), dev, launches, engine="bind")[0]
+    return lines
+
+
+def check_collinear_picks(name, gallery, emb, report):
+    """``topk_l2`` on an untrained line's own rows (its probes' cosines >= 0.998): picks equal the plain
+    version's but where their fp64 distances tie within 2^-12 relative + 1e-6; the distances' gaps to
+    fp64, which cancellation in the fp32 |q|^2 + |g|^2 - 2 q.g sets here, reported."""
+    q = emb.to(torch.bfloat16)
+    (kd, ki), (pd, pi) = build.launch_topk_l2(q, gallery, 1, GALLERY), plain.topk_l2_plain(q, gallery, 1, GALLERY)
+    qf = q.double()
+    dk, dp = (((qf - gallery[i[:, 0].long()].double()) ** 2).sum(1) for i in (ki, pi))
+    row = dict(shape=f"{name} rows B={q.shape[0]} N={GALLERY} D={q.shape[1]} k=1",
+               picks_equal_pct=100.0 * (ki == pi).float().mean().item(), d_median=dp.median().item(),
+               kernel_err=(kd[:, 0].double() - dk).abs().max().item(), plain_err=(pd[:, 0].double() - dp).abs().max().item())
+    phase(f"topk_l2 picks on the {name} line's rows: " + " ".join(f"{k}={v:.4g}" for k, v in list(row.items())[1:]))
+    if not bool(((ki == pi)[:, 0] | ((dk - dp).abs() <= 2.0**-12 * dp + 1e-6)).all()):
+        raise AssertionError(f"topk_l2 on the {name} line's rows picks other rows than its plain version")
+    report.setdefault("topk_l2_collinear", []).append(row)
 
 
 def check_certified_pick(svc, emb, idx_exact):
@@ -1469,8 +1517,6 @@ def device_trace(fn):
 def check_s2d_stem(np_vars, net, net_f, images, dev):
     """The space-to-depth stem vs the stride-2 stem at fp32 within JAX's
     2e-5; both stems' times in bf16."""
-    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
-
     kw = dict(resolution=RES, dtype=torch.float32, device=dev)
     plain32, s2d32 = make_infer_fn(np_vars, "b0", **kw), make_infer_fn(np_vars, "b0", space_to_depth=True, **kw)
     if not s2d32.space_to_depth or plain32.space_to_depth:
@@ -1681,7 +1727,6 @@ def run_chi2_slice(dev, launches, smi):
         normalize_features,
         write_feature_file,
     )
-    from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
     from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
     from fast_image_recognition_tpu_torch.scripts import chi2_cost
     from fast_image_recognition_tpu_torch.search import BruteForceMatcher
@@ -1967,13 +2012,11 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     return row
 
 
-def engine_line(path, model, variables, taps, dev, launches):
+def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
     """bench.py ``--config cascade`` over ``model``: SVC exits N(0, 0.1),
-    the folded engine, batch BATCH, calibrated on CASCADE_CALIB images;
-    ``predict_fused`` timed, no host sync, its full-capacity decisions equal
-    ``predict()``'s but near-ties."""
-    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
-
+    batch BATCH, calibrated on CASCADE_CALIB images; ``predict_fused``
+    timed, no host sync, its full-capacity decisions equal ``predict()``'s
+    but near-ties. A bind line also times the module's plain forward."""
     t = time.time()
     with torch.no_grad():
         probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
@@ -1982,7 +2025,7 @@ def engine_line(path, model, variables, taps, dev, launches):
     coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
     intercepts = [np.zeros(CASCADE_CLASSES, np.float32) for _ in dims]
     pipe = SequentialInferencePipeline(model, variables, taps, coefs, intercepts, thresholds=[0.0] * (len(dims) - 1),
-                                       engine="folded", device=dev)
+                                       engine=engine, device=dev)
     x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
     pipe.calibrate(x[:CASCADE_CALIB])
     caps = pipe.capacities_for(BATCH, slack=SLACK)
@@ -2005,18 +2048,21 @@ def engine_line(path, model, variables, taps, dev, launches):
                forced_pct=100.0 * res.forced_fraction,
                agreement_pct=100.0 * float(np.mean(res.predictions == want.predictions)), capacities=list(caps),
                full_capacity_equal_pct=full_eq, full_capacity_differ=full_diff, near_tie_images=full_ties)
+    if engine == "bind":
+        with torch.no_grad():
+            row["plain_ms"] = host_ms(lambda: model(x)["embedding"][0, :8], TIMED_CALLS)
+        row["speedup_vs_plain"] = row["plain_ms"] / ms
+        phase(f"{path} (bind, SVC exits, B={BATCH}): " + kv(row, *list(row)[1:]) + f"; no host sync; "
+              f"launches={launches[path]}")
     return row, dict(pipe=pipe, x=x, rng=rng, want=want, margins=margins, coefs=coefs, intercepts=intercepts)
 
 
 def run_feature_configs(dev, launches, smi):
     """bench.py's dem, video and cascade configs and the TWD classifiers."""
     from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
-    from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
     from fast_image_recognition_tpu_torch.cascade.twd import proposed_twd_oracle
     from fast_image_recognition_tpu_torch.data import make_gallery_and_probes
     from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
-    from fast_image_recognition_tpu_torch.models import backbone_info, create_efficientnet, default_taps
-    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, dem_oracle_search
 
     lines = {}
@@ -2264,7 +2310,6 @@ def run_ann_matchers(g, gl, p, pl, dev, launches, smi):
     """sw, proj and the kd-forest at budget 1 % vs CPU runs of their
     searches; sw's graph vs a build on the plain ``topk_l2``."""
     from fast_image_recognition_tpu_torch.config import MatcherConfig
-    from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
     from fast_image_recognition_tpu_torch.factory import build_matcher
     from fast_image_recognition_tpu_torch.search import small_world as sw
 
@@ -2360,13 +2405,8 @@ def main() -> int:
         return 2
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
 
-    from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.device import default_device
-    from fast_image_recognition_tpu_torch.models import backbone_info
-    from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
-    from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.serving import CascadeRecognitionService, make_tap_embed_fn
-    from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
 
     # 1. environment; default_device() turns TF32 off (the fp32 oracle and its plain check)
     dev = default_device()
@@ -2645,6 +2685,8 @@ def main() -> int:
     flagship_row = run_flagship(dev, report, launches, smi)
     # 12''. the MobileNet family: V2's line, fused twin, cascade and engine; V1's line
     mobilenet_lines = run_mobilenets(dev, launches, smi, mb_v2 := {})
+    # 12c. the rest of the zoo through the generic fold, and the bind engine over ResNet152V2
+    zoo_lines = run_zoo(dev, report, launches, smi)
 
     # 13. bench.py --config bf: 1M x 1536 random unit bf16 rows, queries row i + 1e-2 noise
     t = time.time()
@@ -2718,7 +2760,8 @@ def main() -> int:
     mb_tot = mb_report["total"]
     rows = [
         kernel_row("tilemin2_packed", "packed_scan.cu", jax_dk + "393", "pca", report["tilemin2_packed"]),
-        kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms),
+        kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms,
+                   collinear_rows=report["topk_l2_collinear"]),
         kernel_row("tilemin_packed", "packed_scan.cu", jax_dk + "350", "cascade",
                    scan_report["shapes"] + shard_scan["shapes"], per_level=scan_report["per_level"]),
         kernel_row("tilemin", "tile_scan.cu", jax_dk + "174", "service default", tile_report["tilemin"]),
@@ -2745,7 +2788,7 @@ def main() -> int:
                                 "approx_select": apx_row, "bf": bf_rows, "partial_escalation": esc_rows,
                                 "fused_path": fused_row, "s2d_stem": s2d_row, "flagship": flagship_row,
                                 "sharded_service": sharded_rows, "sharded_matcher": sharded_matcher_rows,
-                                **mobilenet_lines,
+                                **mobilenet_lines, **zoo_lines,
                                 **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

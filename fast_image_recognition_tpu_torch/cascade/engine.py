@@ -1,8 +1,8 @@
 """Sequential early-exit inference over backbone segments (JAX
 ``cascade/engine.py``): ``predict``, ``predict_fused`` (static capacities,
-one fetch) and ``predict_pooled`` (one pool); ``engine`` 'bind' (a
-trainable ``EfficientNet``/``MobileNetV2``) or 'folded'; ``head_mode``
-'linear' or 'knn'. Exit heads sum in fp64."""
+one fetch) and ``predict_pooled`` (one pool); ``engine`` 'bind' (any
+zoo module with the segment protocol) or 'folded' (MBConv only, as JAX's);
+``head_mode`` 'linear' or 'knn'. Exit heads sum in fp64."""
 
 from __future__ import annotations
 
@@ -45,10 +45,12 @@ class PipelineResult:
 
 
 class SequentialInferencePipeline:
-    """Backbone segments, exit heads and batch compaction. ``model``: the
-    port's ``EfficientNet`` or ``MobileNetV2``; ``variables``: its flax-layout
-    numpy trees, loaded by the bind engine (None: the model's own), folded
-    by the folded one."""
+    """Backbone segments, exit heads and batch compaction. ``model``: a zoo
+    module with ``stem``/``run_blocks``/``head_pool``/``plan_configs``
+    (EfficientNet, MobileNetV2/V1, InceptionResNetV2, InceptionV3, ResNet,
+    VGG19; the folded engine takes the MBConv families); ``variables``: its
+    flax-layout numpy trees, loaded by the bind engine (None: the model's
+    own), folded by the folded one."""
 
     def __init__(
         self,

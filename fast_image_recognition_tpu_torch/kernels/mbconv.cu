@@ -18,8 +18,7 @@
 // is a 4-D TMA box per 64 channels with the tile's halo (out-of-image
 // pixels zero, as SAME pads the hidden tensor). Rounding points: the TPU
 // kernel's, plus the depthwise output rounded to bf16 before the gate, as
-// `kernels/plain.py::mbconv_plain` does. PERF.md §6.
-// to bf16 before the gate. Bounds and times: PERF.md §6.
+// `kernels/plain.py::mbconv_plain` does. Bounds and times: PERF.md §6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,13 +139,9 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        SM90_R32
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : SM90_D32("+f", 0)
         : "l"(da), "l"(db), "r"(1));
 }
 
@@ -154,10 +149,9 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uin
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        SM90_R16
         "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : SM90_D8("+f", 0), SM90_D8("+f", 8)
         : "l"(da), "l"(db), "r"(1));
 }
 

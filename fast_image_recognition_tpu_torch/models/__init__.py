@@ -1,6 +1,7 @@
 """The port's backbone zoo (JAX ``models/__init__.py``): EfficientNet
-B0-B7, MobileNetV2 at any width, MobileNetV1 and InceptionResNetV2; the
-other zoo names raise."""
+B0-B7, MobileNetV2 at any width, MobileNetV1, InceptionResNetV2,
+InceptionV3, ResNet50, ResNet50/101/152V2 and VGG19; other names raise
+``ValueError``."""
 
 from typing import Any, Dict, Optional
 
@@ -20,6 +21,12 @@ from fast_image_recognition_tpu_torch.models.inception_resnet import (  # noqa: 
     create_inception_resnet_v2,
     default_taps_inception_resnet,
 )
+from fast_image_recognition_tpu_torch.models.inception_v3 import (  # noqa: F401
+    INCEPTION_V3_EMBED_DIM,
+    InceptionV3,
+    create_inception_v3,
+    default_taps_inception_v3,
+)
 from fast_image_recognition_tpu_torch.models.mobilenet import (  # noqa: F401
     MobileNetV1,
     MobileNetV2,
@@ -31,15 +38,20 @@ from fast_image_recognition_tpu_torch.models.mobilenet import (  # noqa: F401
     mobilenet_plan,
     parse_mobilenet_width,
 )
+from fast_image_recognition_tpu_torch.models.resnet import (  # noqa: F401
+    RESNET_EMBED_DIM,
+    ResNet,
+    create_resnet,
+    default_taps_resnet,
+    resnet_plan,
+)
+from fast_image_recognition_tpu_torch.models.vgg import VGG19, VGG19_EMBED_DIM, create_vgg19, default_taps_vgg  # noqa: F401
 
 _IRV2 = "inception_resnet_v2"
+RESNETS = ("resnet50", "resnet50v2", "resnet101v2", "resnet152v2")
 
 
-def _not_ported(name: str) -> None:
-    """JAX's other zoo members raise ``NotImplementedError``, unknown names
-    ``ValueError`` (JAX :123)."""
-    if name in ("inception_v3", "resnet50", "resnet50v2", "resnet101v2", "resnet152v2", "vgg19"):
-        raise NotImplementedError(f"backbone {name!r} is not ported yet: ROADMAP.md §1 queue 2")
+def _unknown(name: str):
     raise ValueError(f"unknown backbone {name!r}")
 
 
@@ -53,13 +65,17 @@ def backbone_info(name: str) -> Dict[str, Any]:
         return dict(family="mobilenetv2", variant=name, resolution=224,
                     embedding_dim=_make_divisible(1280 * max(width, 1.0)), taps=default_taps_mobilenet(width),
                     preprocess="tf")
-    if name == "mobilenetv1":
-        return dict(family="mobilenetv1", variant=name, resolution=224, embedding_dim=1024,
-                    taps=default_taps_mobilenet_v1(), preprocess="tf")
-    if name == _IRV2:
-        return dict(family=_IRV2, variant=_IRV2, resolution=299, embedding_dim=INCEPTION_RESNET_EMBED_DIM,
-                    taps=default_taps_inception_resnet(), preprocess="tf")
-    _not_ported(name)
+    facts = {"mobilenetv1": ("mobilenetv1", 224, 1024, default_taps_mobilenet_v1, "tf"),
+             _IRV2: (_IRV2, 299, INCEPTION_RESNET_EMBED_DIM, default_taps_inception_resnet, "tf"),
+             "inception_v3": ("inception_v3", 299, INCEPTION_V3_EMBED_DIM, default_taps_inception_v3, "tf"),
+             "vgg19": ("vgg", 224, VGG19_EMBED_DIM, default_taps_vgg, "caffe")}
+    # keras resnet_v2.preprocess_input is 'tf' mode, v1's 'caffe'
+    facts.update({r: ("resnet", 224, RESNET_EMBED_DIM, lambda r=r: default_taps_resnet(r),
+                      "tf" if r.endswith("v2") else "caffe") for r in RESNETS})
+    if name not in facts:
+        _unknown(name)
+    family, res, dim, taps, pp = facts[name]
+    return dict(family=family, variant=name, resolution=res, embedding_dim=dim, taps=taps(), preprocess=pp)
 
 
 def build_backbone(name: str, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16):
@@ -70,9 +86,10 @@ def build_backbone(name: str, num_classes: int = 0, dtype: torch.dtype = torch.b
         return MobileNetV2(parse_mobilenet_width(name), num_classes, dtype)
     if name.startswith("mobilenetv1"):  # any suffix, as JAX's (backbone_info takes 'mobilenetv1' only)
         return MobileNetV1(num_classes=num_classes, dtype=dtype)
-    if name == _IRV2:
-        return InceptionResNetV2(num_classes=num_classes, dtype=dtype)
-    _not_ported(name)
+    if name in RESNETS:
+        return ResNet(name, num_classes, dtype)
+    cls = {_IRV2: InceptionResNetV2, "inception_v3": InceptionV3, "vgg19": VGG19}.get(name) or _unknown(name)
+    return cls(num_classes=num_classes, dtype=dtype)
 
 
 def create_backbone(name: str, num_classes: int = 0, seed: int = 0, resolution: Optional[int] = None,
@@ -85,9 +102,11 @@ def create_backbone(name: str, num_classes: int = 0, seed: int = 0, resolution: 
         return create_mobilenetv2(parse_mobilenet_width(name), num_classes, seed, resolution or 224, dtype, device)
     if name.startswith("mobilenetv1"):
         return create_mobilenet_v1(1.0, num_classes, seed, resolution or 224, dtype, device)
-    if name == _IRV2:
-        return create_inception_resnet_v2(num_classes, seed, resolution or 299, dtype, device)
-    _not_ported(name)
+    if name in RESNETS:
+        return create_resnet(name, num_classes, seed, resolution or 224, dtype, device)
+    make = {_IRV2: (create_inception_resnet_v2, 299), "inception_v3": (create_inception_v3, 299),
+            "vgg19": (create_vgg19, 224)}.get(name) or _unknown(name)
+    return make[0](num_classes, seed, resolution or make[1], dtype, device)
 
 
 def default_taps_for(name: str):

@@ -129,24 +129,41 @@ def backbone_info(name: str) -> Dict[str, Any]:
     )
 
 
-def preprocess_images(
-    images: torch.Tensor,
-    resolution: Optional[int] = None,
-    mean: Sequence[float] = MEAN_RGB,
-    std: Sequence[float] = STDDEV_RGB,
-) -> torch.Tensor:
-    """uint8/float NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC, resized
-    first where the size differs (``F.interpolate(antialias=True)``, as
-    ``jax.image.resize(method='bilinear')`` shrinks)."""
+def _resize(images: torch.Tensor, resolution: Optional[int]) -> torch.Tensor:
+    """fp32 NHWC, resized where the size differs (``F.interpolate(antialias=True)``,
+    as ``jax.image.resize(method='bilinear')`` shrinks)."""
     x = images.to(torch.float32)
     if resolution is not None and (x.shape[1] != resolution or x.shape[2] != resolution):
         x = F.interpolate(
             x.permute(0, 3, 1, 2), size=(resolution, resolution), mode="bilinear",
             align_corners=False, antialias=True,
         ).permute(0, 2, 3, 1)
+    return x
+
+
+def preprocess_images(
+    images: torch.Tensor,
+    resolution: Optional[int] = None,
+    mean: Sequence[float] = MEAN_RGB,
+    std: Sequence[float] = STDDEV_RGB,
+) -> torch.Tensor:
+    """uint8/float NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC, resized first."""
+    x = _resize(images, resolution)
     m = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
     s = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return (x - m) / s
+
+
+# Keras 'caffe'-mode preprocess_input (RGB -> BGR, ImageNet means, no std):
+# VGG19 and ResNet50 v1
+CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
+
+
+def preprocess_images_caffe(images: torch.Tensor, resolution: Optional[int] = None,
+                            mean: Sequence[float] = CAFFE_MEAN_BGR) -> torch.Tensor:
+    """uint8/float RGB NHWC -> BGR less the mean (JAX ``models/efficientnet.py:407-424``), resized first."""
+    x = _resize(images, resolution).flip(-1)
+    return x - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
 
 
 # the module (inference)
@@ -193,10 +210,6 @@ class _Conv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def init_(self, gen: torch.Generator) -> None:
-        fan_in = self.weight.shape[1] * self.k * self.k
-        self.weight.data = _lecun_normal(self.weight.shape, fan_in, gen)
-
     def forward(self, x: torch.Tensor, fp32_out: bool = False) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         x, w = _same_pad(x, self.k, self.stride), self.weight.to(x.dtype)
@@ -204,31 +217,21 @@ class _Conv(nn.Module):
             x, w, b = x.float(), w.float(), None if b is None else b.float()
         return F.conv2d(x, w, b, self.stride, groups=self.groups)
 
-    def export(self) -> Dict[str, np.ndarray]:
-        out = {"kernel": self.weight.detach().permute(2, 3, 1, 0).cpu().numpy()}
-        if self.bias is not None:
-            out["bias"] = self.bias.detach().cpu().numpy()
-        return out
-
-    def load(self, p: Dict[str, Any]) -> None:
-        self.weight.data = torch.tensor(np.asarray(p["kernel"], np.float32)).permute(3, 2, 0, 1).contiguous()
-        if self.bias is not None:
-            self.bias.data = torch.tensor(np.asarray(p["bias"], np.float32))
-
 
 class _BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over running statistics: ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in fp32, rounded to ``x``'s dtype."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, eps: float = _BN_EPS):
         super().__init__()
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + _BN_EPS) * self.scale
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
         y = (x.to(torch.float32) - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(dtype or x.dtype)
 
@@ -298,7 +301,119 @@ class MBConv(nn.Module):
         return h + x if self.residual else h
 
 
-class EfficientNet(nn.Module):
+def _node(tree, path, make=False):
+    for key in path:
+        tree = tree.setdefault(key, {}) if make else tree[key]
+    return tree
+
+
+class ZooNet(nn.Module):
+    """The segment protocol over ``self.plan`` and ``self.blocks``:
+    ``forward(NHWC images)`` -> ``{'embedding': [B, D] fp32, 'taps': {name:
+    [B, C] fp32 pooled block output}}`` (+ ``logits``); ``_after(i, h)``
+    runs between block i and the next (VGG's pools: a tap reads before it).
+    Subclasses give ``stem``, ``head_pool``, ``fc`` (or None) and
+    ``_layers``: (flax path of the conv, of its BN or None, module), a BN
+    with no conv at path None."""
+
+    def block_names(self) -> List[str]:
+        return [b["name"] for b in self.plan]
+
+    def plan_configs(self) -> List[Dict[str, Any]]:
+        return [dict(b) for b in self.plan]
+
+    def _after(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        return h
+
+    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
+        for i in range(len(self.plan))[start:end]:
+            x = self._after(i, self.blocks[i](x))
+        return x
+
+    def forward(self, x, train: bool = False, taps: Optional[Sequence[str]] = None,
+                include_logits: Optional[bool] = None) -> Dict[str, Any]:
+        if train:
+            raise NotImplementedError("training is not ported (ROADMAP.md §1 queue 2)")
+        h, tap_out = self.stem(x), {}
+        for i, (cfg, blk) in enumerate(zip(self.plan, self.blocks)):
+            h = blk(h)
+            if cfg["name"] in (taps or ()):
+                tap_out[cfg["name"]] = _pool(h)
+            h = self._after(i, h)
+        out = {"embedding": self.head_pool(h), "taps": tap_out}
+        if self.fc is not None and include_logits is not False:
+            out["logits"] = self.fc(out["embedding"])  # dropout is the identity at inference
+        return out
+
+    def _to_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> None:
+        """flax's default init from ``torch.Generator().manual_seed(seed)``:
+        lecun-normal kernels, zero biases, unit BN."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for conv_path, _, m in self._layers():
+            if conv_path is not None:
+                m.weight.data = _lecun_normal(m.weight.shape, m.weight[0].numel(), gen)
+        if self.fc is not None:
+            self.fc.weight.data = _lecun_normal(self.fc.weight.shape[::-1], self.fc.in_features, gen).T.contiguous()
+            self.fc.bias.zero_()
+
+    def export_variables(self) -> Dict[str, Any]:
+        """The flax ``{'params'[, 'batch_stats']}`` trees as numpy fp32."""
+        params: Dict[str, Any] = {}
+        stats: Dict[str, Any] = {}
+        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
+        for conv_path, bn_path, m in self._layers():
+            bn = m if conv_path is None else getattr(m, "bn", None)
+            if conv_path is not None:
+                node = _node(params, conv_path, True)
+                node["kernel"] = t(m.weight.permute(2, 3, 1, 0))
+                if m.bias is not None:
+                    node["bias"] = t(m.bias)
+            if bn is not None:
+                p, s = bn.export()
+                _node(params, bn_path, True).update(p)
+                _node(stats, bn_path, True).update(s)
+        if self.fc is not None:
+            params["fc"] = {"kernel": t(self.fc.weight.T), "bias": t(self.fc.bias)}
+        return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+    @torch.no_grad()
+    def load_variables(self, variables: Dict[str, Any]) -> "ZooNet":
+        """Copy a flax numpy tree into the module. A folded module takes the
+        BN-folded tree (``fold_variables``): a conv's bias is its own (if
+        any) plus its neutral BN's. The module stays on its device."""
+        dev, params, stats = next(self.parameters()).device, variables["params"], variables.get("batch_stats", {})
+        f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+        for conv_path, bn_path, m in self._layers():
+            bn = m if conv_path is None else getattr(m, "bn", None)
+            if bn is not None:
+                bn.load(_node(params, bn_path), _node(stats, bn_path))
+            if conv_path is None:
+                continue
+            node = _node(params, conv_path)
+            m.weight.data = f32(node["kernel"]).permute(3, 2, 0, 1).contiguous()
+            if m.bias is not None:
+                b = np.asarray(node.get("bias", 0.0), np.float32)
+                m.bias.data = f32(b + _node(params, bn_path)["bias"] if bn is None and bn_path else b)
+        if self.fc is not None:
+            self.fc.weight.data = f32(params["fc"]["kernel"]).T.contiguous()
+            self.fc.bias.data = f32(params["fc"]["bias"])
+        return self.to(dev)
+
+
+def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
+    """``(model on device, its flax-layout numpy variables)`` with flax's
+    default init drawn from ``seed``."""
+    dev = resolve_device(device)
+    model.init_weights(seed)
+    model.resolution = int(resolution)
+    return model.to(dev).eval(), model.export_variables()
+
+
+class EfficientNet(ZooNet):
     """EfficientNet backbone with segment execution and exit taps
     (``num_classes=0``: the pooled-embedding extractor)."""
 
@@ -338,134 +453,27 @@ class EfficientNet(nn.Module):
             feat = head_filters
         self.fc = nn.Linear(feat, self.num_classes) if self.num_classes > 0 else None
 
-    def block_names(self) -> List[str]:
-        return [c["name"] for c in self.plan]
-
-    def plan_configs(self) -> List[Dict[str, Any]]:
-        """Static block configs (the folding and cascade engines read them)."""
-        return [dict(c) for c in self.plan]
-
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the stem's activation (NCHW, channels_last)."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.act(_conv_bn(self.stem_conv, self.stem_bn, x))
-
-    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
-        """Blocks ``[start, end)``: the cascade's segment primitive."""
-        for blk in self.blocks[start:end]:
-            x = blk(x)
-        return x
+        return self.act(_conv_bn(self.stem_conv, self.stem_bn, self._to_nchw(x)))
 
     def head_pool(self, x: torch.Tensor) -> torch.Tensor:
         """Head conv + BN + activation + global average pool -> [B, F] fp32."""
         return _pool(self.act(_conv_bn(self.head_conv, self.head_bn, x)))
 
-    def forward(
-        self,
-        x: torch.Tensor,
-        train: bool = False,
-        taps: Optional[Sequence[str]] = None,
-        include_logits: Optional[bool] = None,
-    ) -> Dict[str, Any]:
-        """``{'embedding': [B, F] fp32, 'taps': {name: [B, C] fp32 pooled
-        block output}, 'logits': [B, num_classes] when asked}``."""
-        if train:
-            raise NotImplementedError("training (batch statistics, dropout, stochastic depth) is not ported")
-        if include_logits is None:
-            include_logits = self.num_classes > 0
-        tapset = set(taps or ())
-        h = self.stem(x)
-        tap_out: Dict[str, torch.Tensor] = {}
-        for cfg, blk in zip(self.plan, self.blocks):
-            h = blk(h)
-            if cfg["name"] in tapset:
-                tap_out[cfg["name"]] = _pool(h)
-        emb = self.head_pool(h)
-        out: Dict[str, Any] = {"embedding": emb, "taps": tap_out}
-        if include_logits and self.fc is not None:
-            out["logits"] = self.fc(emb)  # dropout is the identity at inference
-        return out
-
     def _layers(self):
-        """(flax scope, module) of every conv and BatchNorm, and the SE and
-        dense layers, in the flax tree's naming."""
-        yield ("stem_conv",), self.stem_conv
-        if self.stem_bn is not None:
-            yield ("stem_bn",), self.stem_bn
+        """Each conv at (flax path, None, conv), each BN at (None, path, BN), the SE's convs too."""
+        named = [(("stem_conv",), self.stem_conv), (("stem_bn",), self.stem_bn)]
         for cfg, blk in zip(self.plan, self.blocks):
-            for name in ("expand_conv", "expand_bn", "dw_conv", "dw_bn", "project_conv", "project_bn", "pw_conv",
-                         "pw_bn"):
-                if getattr(blk, name, None) is not None:
-                    yield (cfg["name"], name), getattr(blk, name)
+            named += [((cfg["name"], n), getattr(blk, n, None)) for n in ("expand_conv", "expand_bn", "dw_conv",
+                                                                          "dw_bn", "project_conv", "project_bn",
+                                                                          "pw_conv", "pw_bn")]
             if getattr(blk, "se", None) is not None:
-                yield (cfg["name"], "se", "reduce"), blk.se.reduce
-                yield (cfg["name"], "se", "expand"), blk.se.expand
-        if self.head_conv is not None:
-            yield ("head_conv",), self.head_conv
-            yield ("head_bn",), self.head_bn
-
-    @torch.no_grad()
-    def init_weights(self, seed: int = 0) -> None:
-        """flax's default init from ``torch.Generator().manual_seed(seed)``:
-        truncated lecun-normal kernels, zero biases, BatchNorm scale 1,
-        bias 0, mean 0, var 1."""
-        gen = torch.Generator().manual_seed(int(seed))
-        for _, layer in self._layers():
-            if isinstance(layer, _Conv):
-                layer.init_(gen)
-                if layer.bias is not None:
-                    layer.bias.zero_()
-            else:
-                for name, value in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
-                    getattr(layer, name).fill_(value)
-        if self.fc is not None:
-            self.fc.weight.data = _lecun_normal(self.fc.weight.shape[::-1], self.fc.in_features, gen).T.contiguous()
-            self.fc.bias.zero_()
-
-    def export_variables(self) -> Dict[str, Any]:
-        """The flax ``{'params', 'batch_stats'}`` trees as numpy fp32 arrays
-        (HWIO kernels; the dense kernel [F, C])."""
-        params: Dict[str, Any] = {}
-        stats: Dict[str, Any] = {}
-
-        def at(tree, scope):
-            for key in scope:
-                tree = tree.setdefault(key, {})
-            return tree
-
-        for scope, layer in self._layers():
-            if isinstance(layer, _Conv):
-                at(params, scope).update(layer.export())
-            else:
-                p, s = layer.export()
-                at(params, scope).update(p)
-                at(stats, scope).update(s)
-        if self.fc is not None:
-            params["fc"] = {"kernel": self.fc.weight.detach().T.cpu().numpy(),
-                            "bias": self.fc.bias.detach().cpu().numpy()}
-        return {"params": params, "batch_stats": stats}
-
-    @torch.no_grad()
-    def load_variables(self, variables: Dict[str, Any]) -> "EfficientNet":
-        """Copy flax ``{'params', 'batch_stats'}`` trees (numpy or any array
-        type ``np.asarray`` takes) into the module, on its device."""
-        dev = self.stem_conv.weight.device
-
-        def at(tree, scope):
-            for key in scope:
-                tree = tree[key]
-            return tree
-
-        for scope, layer in self._layers():
-            if isinstance(layer, _Conv):
-                layer.load(at(variables["params"], scope))
-            else:
-                layer.load(at(variables["params"], scope), at(variables["batch_stats"], scope))
-        if self.fc is not None:
-            fc = variables["params"]["fc"]
-            self.fc.weight.data = torch.tensor(np.asarray(fc["kernel"], np.float32)).T.contiguous()
-            self.fc.bias.data = torch.tensor(np.asarray(fc["bias"], np.float32))
-        return self.to(dev)
+                named += [((cfg["name"], "se", "reduce"), blk.se.reduce), ((cfg["name"], "se", "expand"), blk.se.expand)]
+        named += [(("head_conv",), self.head_conv), (("head_bn",), self.head_bn)]
+        for path, m in named:
+            if m is not None:
+                yield (path, None, m) if isinstance(m, _Conv) else (None, path, m)
 
 
 def create_efficientnet(
@@ -480,9 +488,5 @@ def create_efficientnet(
     return ``(model on device, its flax-layout numpy variables)``. The
     module takes any resolution; ``resolution`` (default the variant's) is
     kept on it as ``model.resolution``."""
-    dev = resolve_device(device)
     model = EfficientNet(variant=variant, num_classes=num_classes, dtype=dtype)
-    model.init_weights(seed)
-    model.resolution = int(resolution or VARIANTS[variant].resolution)
-    variables = model.export_variables()
-    return model.to(dev).eval(), variables
+    return create(model, seed, resolution or VARIANTS[variant].resolution, device)

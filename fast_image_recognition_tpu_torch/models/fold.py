@@ -14,18 +14,25 @@ from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 from fast_image_recognition_tpu_torch.models.efficientnet import (
+    CAFFE_MEAN_BGR,
     MEAN_RGB,
     STDDEV_RGB,
     TF_MODE_MEAN,
     TF_MODE_STD,
     EfficientNet,
     preprocess_images,
+    preprocess_images_caffe,
 )
-from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
+from fast_image_recognition_tpu_torch.models.inception_resnet import ConvBN, InceptionResNetV2
+from fast_image_recognition_tpu_torch.models.inception_v3 import InceptionV3
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
 from fast_image_recognition_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV2, parse_mobilenet_width
+from fast_image_recognition_tpu_torch.models.resnet import ResNet
+from fast_image_recognition_tpu_torch.models.vgg import VGG19
 
 MBCONV_FAMILIES = ("efficientnet", "mobilenetv2")  # served by make_infer_fn (JAX :179)
+# the generic fold's families; the VALID-stem 'tf' ones take the stem fold (JAX :182)
+_BN_FAMILIES = {"inception_resnet_v2": InceptionResNetV2, "inception_v3": InceptionV3, "resnet": ResNet, "vgg": VGG19}
 
 
 def bn_fold_eps(model) -> float:
@@ -107,21 +114,34 @@ class ServingModule(nn.Module):
     """Raw uint8 NHWC images -> ``{'embedding', 'taps'}`` through ``net``:
     resized to ``resolution`` where the size differs, normalized with
     ``mean``/``std`` unless the preprocess is folded into the stem
-    (``mean=None``)."""
+    (``mean=None``); ``bgr``: the 'caffe' mode (BGR less ``mean``)."""
 
-    def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None):
+    def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None,
+                 bgr: bool = False):
         super().__init__()
         self.net, self.resolution, self.taps, self.normalize = net, int(resolution), tuple(taps), mean is not None
+        self.bgr = bgr
         # on the module's device: a constant made per call would be a host-to-device copy, a host sync
         self.register_buffer("mean", torch.tensor(mean or (0.0,) * 3, dtype=torch.float32))
         self.register_buffer("std", torch.tensor(std or (1.0,) * 3, dtype=torch.float32))
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         r, x = self.resolution, images
-        if self.normalize or x.shape[1] != r or x.shape[2] != r:
+        if self.bgr:
+            x = preprocess_images_caffe(x, r, self.mean)
+        elif self.normalize or x.shape[1] != r or x.shape[2] != r:
             x = preprocess_images(x, r, self.mean, self.std)
         out = self.net(x, taps=self.taps, include_logits=False)
         return {"embedding": out["embedding"], "taps": out["taps"]}
+
+
+def _bf16_convs(net: nn.Module, dev) -> nn.Module:
+    """The folded convs' weights in bf16 once; BNs (ResNetV2's affine ones) stay fp32."""
+    net = net.to(dev).to(memory_format=torch.channels_last)
+    for m in net.modules():
+        if isinstance(m, ConvBN) and m.bn is None:
+            m.to(torch.bfloat16)
+    return net
 
 
 def make_serving_fn(
@@ -133,20 +153,20 @@ def make_serving_fn(
     folded: bool = True,
 ) -> nn.Module:
     """The serving module on ``device`` for a zoo member's numpy variables
-    (JAX :185-255): MBConv families by :func:`make_infer_fn`,
-    InceptionResNetV2 folded with the 'tf' preprocess in its VALID stem,
-    MobileNetV1 folded with it explicit; ``folded=False`` keeps BN."""
+    (JAX :185-255): MBConv families by :func:`make_infer_fn`, the rest
+    through ``fold_variables`` (InceptionResNetV2 and InceptionV3 with the
+    'tf' preprocess in their VALID stem; ResNet and MobileNetV1 with it
+    explicit; VGG19, no BN, with 'caffe'); ``folded=False`` keeps BN."""
     family, dev = info.get("family"), resolve_device(device)
     res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")
-    tf = pp == "tf"
-    if family not in MBCONV_FAMILIES + ("inception_resnet_v2", "mobilenetv1") or pp not in ("torch", "tf"):
-        raise NotImplementedError(f"family {family!r} ({pp!r} preprocess) is not ported yet: ROADMAP.md §1 queue 2")
-    variables = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    if family not in MBCONV_FAMILIES + ("mobilenetv1",) + tuple(_BN_FAMILIES) or pp not in ("torch", "tf", "caffe"):
+        raise ValueError(f"unknown family {family!r} ({pp!r} preprocess)")
+    variables = {k: variables[k] for k in ("params", "batch_stats") if k in variables}
     if family in MBCONV_FAMILIES and folded:
-        mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (None, None)
+        mean, std = (TF_MODE_MEAN, TF_MODE_STD) if pp == "tf" else (None, None)
         return make_infer_fn(variables, info["variant"], taps=taps, resolution=res, mean=mean, std=std, device=dev)
-    mean, std = (TF_MODE_MEAN, TF_MODE_STD) if tf else (MEAN_RGB, STDDEV_RGB)
+    mean, std = {"tf": (TF_MODE_MEAN, TF_MODE_STD), "caffe": (CAFFE_MEAN_BGR, None)}.get(pp, (MEAN_RGB, STDDEV_RGB))
     if family == "efficientnet":
         net = EfficientNet(info["variant"]).load_variables(variables).to(dev)
     elif family == "mobilenetv2":
@@ -154,11 +174,15 @@ def make_serving_fn(
     elif family == "mobilenetv1":  # folded: each neutral BN's bias on its conv, added before the rounding
         v = {"params": _bn_bias_to_conv(fold_variables("MobileNetV1", variables)["params"])} if folded else variables
         net = MobileNetV1(folded=folded).load_variables(v).to(dev)
-    elif not folded:
-        net = InceptionResNetV2().load_variables(variables).to(dev)
     else:
-        variables = fold_tf_preprocess_into_valid_stem(fold_variables("InceptionResNetV2", variables))
-        net = InceptionResNetV2(folded=True).load_variables(variables)
-        net = net.to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
-        mean = std = None
-    return ServingModule(net, res, taps, mean, std).to(dev).eval()
+        cls, kw = _BN_FAMILIES[family], {"variant": info["variant"]} if family == "resnet" else {}
+        if folded:
+            variables = fold_variables(cls.__name__, variables)  # VGG19's tree, no BN, as it is
+            if family.startswith("inception"):  # VALID stems and 'tf': the preprocess folds exactly
+                variables = fold_tf_preprocess_into_valid_stem(variables)
+                mean = std = None
+            if family != "vgg":
+                kw["folded"] = True
+        net = cls(**kw).load_variables(variables)
+        net = _bf16_convs(net, dev) if folded else net.to(dev)
+    return ServingModule(net, res, taps, mean, std, bgr=pp == "caffe").to(dev).eval()

@@ -11,7 +11,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from fast_image_recognition_tpu_torch.device import DeviceLike
 from fast_image_recognition_tpu_torch.models.efficientnet import (
     EfficientNet,
     _act,
@@ -19,6 +19,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
     _Conv,
     _conv_bn,
     _pool,
+    create,
     round_filters,
 )
 
@@ -117,19 +118,13 @@ class MobileNetV1(EfficientNet):
         return _pool(x)
 
 
-def _create(model: EfficientNet, seed: int, device: DeviceLike):
-    dev = resolve_device(device)
-    model.init_weights(seed)
-    return model.to(dev).eval(), model.export_variables()
-
-
 def create_mobilenetv2(width: float = 1.0, num_classes: int = 0, seed: int = 0, resolution: int = 224,
                        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     """``(model on device, its flax-layout numpy variables)``, flax's
     default init drawn from ``seed``."""
-    return _create(MobileNetV2(width, num_classes, dtype, resolution=resolution), seed, device)
+    return create(MobileNetV2(width, num_classes, dtype), seed, resolution, device)
 
 
 def create_mobilenet_v1(width: float = 1.0, num_classes: int = 0, seed: int = 0, resolution: int = 224,
                         dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
-    return _create(MobileNetV1(width, num_classes, dtype, resolution), seed, device)
+    return create(MobileNetV1(width, num_classes, dtype), seed, resolution, device)

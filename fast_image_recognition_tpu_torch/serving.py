@@ -42,10 +42,10 @@ _SHARD_TILE_G = 512  # the sharded scans' row tile (JAX serving.py:130, :279)
 
 def _mbconv_only(info: Dict[str, Any]) -> None:
     """JAX's cascade taps the functional fold's block ladder (its
-    serving.py:570-574)."""
+    serving.py:570-574, :589): a limit of the reference, not of the port."""
     if info.get("family") not in MBCONV_FAMILIES:
-        raise NotImplementedError(f"the cascade over {info.get('family')!r} taps is not ported yet: ROADMAP.md "
-                                  "§1 queue 2")
+        raise NotImplementedError(f"the cascade service taps MBConv families only, as JAX's (its serving.py:570-574); "
+                                  f"{info.get('family')!r} cascades through cascade/engine.py")
 
 
 def _tap_net(variables, info: Dict[str, Any], resolution: int, device: torch.device) -> FoldedEfficientNet:

@@ -1,18 +1,12 @@
-"""The port's exact 1-NN matcher and evaluation harness against the JAX
-package's on the same numpy-seeded inputs (the sets of
-tests/test_brute_force.py), on the CPU.
+"""The port's exact 1-NN matcher and evaluation harness against JAX's on the
+same seeded inputs (the sets of tests/test_brute_force.py), on the CPU.
 
-Tolerances:
-- rows equal, except two rows whose fp64 oracle distances agree within
-  2^-16 relative (fp32 sums in another order); on these seeded sets none
-  differ;
-- distances within rtol 2e-4, atol 1e-7 (tests/test_distances.py's bound
-  for ``pairwise_distances``); the int8 path's rescored distances within
-  2^-20 relative + 1e-8, as tests/test_torch_quant.py holds
-  ``topk_l2_quant``;
-- the write -> load -> split -> match -> evaluate slice: the file text,
-  the loaded arrays, the split indices and every ``EvalResult`` field but
-  ``ms_per_image`` (a wall-clock time) equal.
+Tolerances: rows equal but at fp64 ties within 2^-16 relative (none on
+these sets); distances rtol 2e-4, atol 1e-7 (tests/test_distances.py's
+``pairwise_distances`` bound), the int8 path's rescored ones 2^-20 relative
++ 1e-8 (as tests/test_torch_quant.py); the write -> load -> split -> match
+-> evaluate slice: file text, arrays, split indices and every
+``EvalResult`` field but ``ms_per_image`` (wall clock) equal.
 """
 
 import dataclasses
@@ -30,7 +24,7 @@ from fast_image_recognition_tpu_torch import evaluation as PE
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher, SearchResult
 from fast_image_recognition_tpu_torch.search import brute_force
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 def _sets(name):

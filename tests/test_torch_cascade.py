@@ -2,14 +2,13 @@
 single-min packed scan) against JAX's on the same random-init B0 weights,
 images and galleries (JAX in interpret mode, the port's plain versions).
 
-Tolerances:
-- single-min packed scan: distances within 2^-12 relative, rows equal but
-  where their fp32 distances tie within 2^-12 relative;
-- readouts: the port's ridge fit on JAX's calibration features within
-  1e-3 relative; on its own features within 5e-2 (bf16 backbones);
-- answers: the same rows, exit levels and forced exits, except probes
-  whose margin ``ratio^2 * d2 - d1`` lies within 2^-8 * d1 of zero and
-  rows whose distances to the probe tie within 2^-8 relative."""
+Tolerances: the scan's distances 2^-12 relative, rows equal but at fp32
+ties within 2^-12; readouts, the port's ridge fit on JAX's calibration
+features 1e-3 relative, on its own 5e-2 (bf16 backbones); answers, the
+same rows, exit levels and forced exits but at probes whose margin
+``ratio^2 * d2 - d1`` lies within 2^-8 * d1 of zero and rows tying within
+2^-8 relative.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +31,7 @@ from fast_image_recognition_tpu_torch.serving import (
     build_cascade_service,
     make_tap_embed_fn,
 )
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 RES = 32

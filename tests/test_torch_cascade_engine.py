@@ -1,19 +1,14 @@
-"""The port's segment engine (``cascade/engine.py``,
-``SequentialInferencePipeline``) against the JAX package's, on the same
-random-init B0 weights (carried from the flax init into the port's
-module) and seed-made 32-px images, mirroring tests/test_cascade.py:120-325.
+"""The port's segment engine (``SequentialInferencePipeline``) against JAX's
+on the same random-init B0 weights and seeded 32-px images, mirroring
+tests/test_cascade.py:120-325.
 
-Tolerances:
-- within the port, as within JAX: ``predict_fused`` at full capacities and
-  ``predict_pooled`` give ``predict``'s predictions and exit levels
-  exactly; the kNN head gives the port's ``sequential_knn_cascade`` on the
-  port's own level embeddings exactly;
-- across the packages (bf16 backbones that round at other places): the
-  port's ``predict`` agrees with JAX's on >= 90 % of predictions and
-  >= 80 % of exit levels, and the folded engine with the bind engine at
-  the same bounds (JAX's own, tests/test_cascade.py:253-265); a level-0
-  prediction equals JAX's standalone tap head except where its two best
-  scores lie within 2^-5 of the row's largest |score|.
+Tolerances: within the port, as within JAX, ``predict_fused`` at full
+capacities and ``predict_pooled`` give ``predict``'s decisions exactly, and
+the kNN head the port's ``sequential_knn_cascade`` on its own level
+embeddings; across the packages (bf16 backbones that round elsewhere)
+>= 90 % of predictions and >= 80 % of exit levels, folded vs bind too
+(tests/test_cascade.py:253-265); a level-0 prediction equals JAX's tap
+head but where its two best scores lie within 2^-5 of max |score|.
 """
 
 import jax
@@ -28,7 +23,7 @@ from fast_image_recognition_tpu.models.pruning import prune_efficientnet
 from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
 from fast_image_recognition_tpu_torch.cascade.exits import sequential_knn_cascade
 from fast_image_recognition_tpu_torch.models import EfficientNet, default_taps
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 RES = 32
 TAPS = default_taps("b0")

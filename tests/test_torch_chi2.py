@@ -2,15 +2,14 @@
 ``plain.chi2_nn_plain``, exact division) against JAX's ``chi2_nn`` (its
 Pallas kernel in interpret mode) on seeded inputs, and ``chi2_cost`` tiny.
 
-Tolerances:
-- rows equal the fp64 oracle's argmin (bf16 gallery: >= 90 %, JAX's
-  bound), distances within rtol 2e-5, atol 1e-7 of its minimum;
-- against JAX: indices equal but where the oracle's two least distances
-  lie within 2^-7 relative (JAX's ``pl.reciprocal(approx=True)`` is up to
-  2^-8 off per term in interpret mode, measured 3.82e-3);
-- refined distances within rtol 2e-5, atol 1e-7 of JAX's
-  (tests/test_chi2_kernel.py:34); unrefined within rtol 4e-3;
-- the kernel runs only on the card; its launcher refuses CPU tensors."""
+Tolerances: rows equal the fp64 oracle's argmin (bf16 gallery >= 90 %,
+JAX's bound), distances rtol 2e-5, atol 1e-7 of its minimum; against JAX,
+indices equal but where the oracle's two least distances lie within 2^-7
+relative (JAX's ``pl.reciprocal(approx=True)`` is up to 2^-8 off per term
+in interpret mode, measured 3.82e-3); refined distances rtol 2e-5, atol
+1e-7 of JAX's (tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The
+kernel runs only on the card; its launcher refuses CPU tensors.
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +22,7 @@ from fast_image_recognition_tpu.ops.distances import oracle_pairwise as j_oracle
 from fast_image_recognition_tpu_torch.kernels import build
 from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
 from fast_image_recognition_tpu_torch.scripts import chi2_cost
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 NEAR_TIE = 2.0**-7
 

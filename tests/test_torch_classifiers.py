@@ -18,7 +18,7 @@ import fast_image_recognition_tpu_torch.classifiers.fpnn as PF
 import fast_image_recognition_tpu_torch.classifiers.parzen as PP
 from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu_torch.ops.fastmath import fasterlog2, fasterlog2_np
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 C = 10
 

@@ -14,7 +14,7 @@ import fast_image_recognition_tpu.data as JD
 from fast_image_recognition_tpu.data.splits import FeatureStats as JStats
 from fast_image_recognition_tpu_torch import data as PD
 from fast_image_recognition_tpu_torch.data.splits import FeatureStats
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("nonneg,l2", [(True, True), (True, False), (False, True)])

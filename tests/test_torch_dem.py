@@ -1,17 +1,15 @@
-"""The port's Directed Enumeration Method (``search/dem.py``) against the
-JAX package's on the same seed-made gallery (N = 384, D = 96, the JAX
-tests' data), mirroring tests/test_dem.py.
+"""The port's Directed Enumeration Method (``search/dem.py``) against JAX's on
+the same seeded gallery (N = 384, D = 96, the JAX tests' data), mirroring
+tests/test_dem.py.
 
-Tolerances:
-- host build: pivots equal (float64 distances on both sides), P matrix
-  and other-class minima within rtol 1e-5;
-- device build: pivots equal, P matrix within rtol 2e-4 + atol 1e-5 of the
-  host build (fp32 expansion against float64), as the JAX test holds;
-- searches: rows against the NumPy oracle >= 92 % and distances checked
-  within 2 on >= 90 % of probes (JAX's own bounds; fp32 likelihood
-  near-ties reorder rare probes), rows against the JAX matcher >= 92 %
-  and labels >= 97 %; where the budget leaves no candidate the answer is
-  the oracle's exactly; the full-matrix variant >= 90 % / 85 % (JAX's).
+Tolerances: host build, pivots equal (fp64 both sides), P matrix and
+other-class minima rtol 1e-5; device build, pivots equal, P within rtol
+2e-4 + atol 1e-5 of the host build (fp32 against fp64, as JAX holds it);
+searches, rows vs the NumPy oracle >= 92 % and distances checked within 2
+on >= 90 % of probes (JAX's bounds; fp32 likelihood near-ties reorder rare
+probes), rows vs JAX's matcher >= 92 %, labels >= 97 %, the oracle's
+answer exactly where the budget leaves no candidate; the full-matrix
+variant >= 90 % / 85 % (JAX's).
 """
 
 import jax.numpy as jnp
@@ -25,7 +23,7 @@ from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

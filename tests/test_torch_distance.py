@@ -1,15 +1,10 @@
-"""The port's gallery scans (plain PyTorch versions, as they run on the CPU)
-against the JAX package's Pallas kernels in interpret mode.
-
-Tolerances, each from the arithmetic the two sides share:
-- packed keys: both take bf16 x bf16 products summed in fp32, in another
-  order; the masked low 10 bits hide most of that, so decoded distances
-  agree within 2^-12 relative and the rows they carry agree except where
-  two rows tie within that;
-- certified candidates: identical sets except tiles swapped at such a
-  near-tie; the bound within 2^-12 relative;
-- exact top-k: identical indices except near-ties (distance gap under
-  2^-12 relative), distances to rtol 1e-3.
+"""The port's gallery scans (plain versions, as on the CPU) against JAX's
+Pallas kernels in interpret mode. Tolerances, from the shared arithmetic
+(bf16 products summed in fp32, in another order): packed keys' decoded
+distances 2^-12 relative (the masked low 10 bits hide most of it), rows
+equal but at ties within that; certified candidates, identical sets but a
+tile swapped at such a tie, bounds 2^-12 relative; exact top-k, indices
+equal but at gaps under 2^-12 relative, distances rtol 1e-3.
 """
 
 import jax.numpy as jnp
@@ -20,15 +15,11 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 
 N_VALID, N_PAD, DIM = 3000, 4096, 124
 REL = 2.0**-12
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

@@ -1,19 +1,12 @@
-"""The port's window distances (``ops/distances.py``) against the JAX
-package's on the same numpy-seeded inputs (the sets of
-tests/test_distances.py).
+"""The port's window distances (``ops/distances.py``) against JAX's on the
+same seeded inputs (the sets of tests/test_distances.py).
 
-Tolerances:
-- ``oracle_distance`` / ``oracle_pairwise``: the port's copies are the
-  same NumPy code, so bit-equal;
-- ``pairwise_distances``: rtol 2e-4, atol 1e-7 (tests/test_distances.py's
-  own bound against the oracle; fp32 sums in another order); L2 with
-  ``precise=False``: rtol 0.05, atol 1e-4, as tests/test_distances.py
-  holds the bf16 path;
-- ``streamed_topk``: distances within rtol 2e-4, atol 1e-7; rows equal,
-  except two rows whose fp64 oracle distances agree within 2^-16 relative
-  (fp32 sums in another order may order them either way);
-- ``window_distance_update``: rtol 1e-5, atol 1e-8, as
-  tests/test_distances.py holds the identity.
+Tolerances: ``oracle_distance`` / ``oracle_pairwise`` are the same NumPy
+code, bit-equal; ``pairwise_distances`` rtol 2e-4, atol 1e-7 (that file's
+bound against the oracle), L2 with ``precise=False`` rtol 0.05, atol 1e-4
+(its bf16 bound); ``streamed_topk`` distances rtol 2e-4, atol 1e-7, rows
+equal but at fp64 ties within 2^-16 relative; ``window_distance_update``
+rtol 1e-5, atol 1e-8 (that file's identity bound).
 """
 
 import jax.numpy as jnp
@@ -26,7 +19,7 @@ from fast_image_recognition_tpu.data import make_synthetic_gallery
 from fast_image_recognition_tpu.ops import distances as J
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.ops import distances as P
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 KINDS = ["l2", "chi2", "kl"]
 WINDOWS = [(0, None), (0, 32), (16, 48)]

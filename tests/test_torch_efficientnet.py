@@ -1,16 +1,12 @@
-"""The port's folded EfficientNet forward against the JAX package's
-``folded_forward`` (``fused=False``) on the same uint8 images and weights,
-with the preprocess folded into the stem, as a space-to-depth stem, and
-explicit (resize + normalize) for images of another size.
+"""The port's folded EfficientNet forward against JAX's ``folded_forward``
+(``fused=False``) on the same uint8 images and weights: the preprocess
+folded into the stem, a space-to-depth stem, and explicit (resize +
+normalize) for images of another size.
 
-Tolerances: in float32 both sides compute the same convolutions with
-another summation order, so embeddings and taps agree to rtol 1e-4 of the
-reference's largest magnitude; the resize differs by float32 rounding of
-the interpolation weights (within 1e-4 of 255), which the same tolerance
-covers. In bf16 the two frameworks round intermediates at different
-places; the embeddings must then point the same way (cosine >= 0.999).
-The space-to-depth stem is a re-layout of the same linear map: 2e-5, the
-JAX package's own tolerance.
+Tolerances: in fp32 the same convolutions in another summation order,
+rtol 1e-4 of max |reference| (the resize's fp32 weights differ within
+1e-4 of 255, covered); in bf16 the frameworks round elsewhere: cosine >=
+0.999; the space-to-depth stem, a re-layout of the same map: 2e-5, JAX's.
 """
 
 import os
@@ -33,7 +29,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 CKPT = os.path.join(
@@ -134,7 +130,7 @@ def _cos(a, b):
 
 def test_wrong_resolution_and_family_raise(random_b0_64):
     """A 64-px image into a 32-px serving module is resized as the JAX
-    package resizes it (it used to raise); other families still raise."""
+    package resizes it (it used to raise); a family no package knows raises."""
     variables, images = random_b0_64
     serve = make_serving_fn(variables, backbone_info("b0"), resolution=32, device="cpu")
     with torch.no_grad():
@@ -144,8 +140,8 @@ def test_wrong_resolution_and_family_raise(random_b0_64):
     jemb = np.asarray(jax.jit(jfn)(jparams, jnp.asarray(images))["embedding"], np.float32)
     assert pemb.shape == jemb.shape == (3, 1280)
     assert (_cos(pemb, jemb) >= 0.999).all(), _cos(pemb, jemb)
-    with pytest.raises(NotImplementedError):
-        make_serving_fn(variables, {"family": "resnet", "resolution": 224}, device="cpu")
+    with pytest.raises(ValueError):
+        make_serving_fn(variables, {"family": "alexnet", "resolution": 224}, device="cpu")
 
 
 def test_preprocess_constants_and_resize_match_jax():

@@ -1,17 +1,11 @@
-"""The port's trainable EfficientNet module (``models/efficientnet.py``:
-``EfficientNet``, ``MBConv``, ``SqueezeExcite``, ``create_efficientnet``)
-against the JAX package's flax module, B0 at 32 px.
+"""The port's trainable EfficientNet (``models/efficientnet.py``) against
+JAX's flax module, B0 at 32 px.
 
-Tolerances:
-- weights carried both ways (``load_variables`` / ``export_variables``)
-  are bit-equal; the port's own init has the flax tree's keys and shapes;
-- in float32 the two modules compute the same convolutions with another
-  summation order: taps and embedding within 1e-4 of the JAX side's
-  largest magnitude;
-- in bf16 they round at other places (flax rounds the conv output, then
-  BN in fp32, then swish in bf16; cuDNN/oneDNN and torch's fused silu
-  round once): taps and embedding within 2^-5 of the largest magnitude
-  and cosine >= 0.999 per image.
+Tolerances: weights carried both ways bit-equal, the port's own init with
+the flax tree's keys and shapes; fp32 taps and embedding 1e-4 of max
+|JAX| (another summation order); bf16 (flax rounds the conv output, BN in
+fp32, swish in bf16; torch rounds once) 2^-5 of the largest magnitude and
+cosine >= 0.999 per image.
 """
 
 import jax
@@ -24,7 +18,7 @@ from fast_image_recognition_tpu.models import create_efficientnet as jax_create
 from fast_image_recognition_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from fast_image_recognition_tpu_torch.models import EfficientNet, create_efficientnet, default_taps
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 RES = 32
 TAPS = default_taps("b0")

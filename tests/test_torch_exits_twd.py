@@ -1,15 +1,13 @@
 """The port's exit policies (``cascade/exits.py``) and three-way-decision
-classifiers (``cascade/twd.py``) against the JAX package's on the same
-seed-made levels and galleries, mirroring tests/test_cascade.py:1-119 and
-tests/test_twd.py.
+classifiers (``cascade/twd.py``) against JAX's on the same seeded levels
+and galleries, mirroring tests/test_cascade.py:1-119 and tests/test_twd.py.
 
-Tolerances: fp32 products in another order on both sides. kNN exits,
-linear exits (scikit-learn fits the same weights for both) and TWD give
-equal predictions, exit levels and unreliable counts on these data; the
-NumPy helpers (FAR tuning, entropy exits, the TWD oracle) are equal. The
-squared-hinge descent, started from the JAX package's own initial
-weights, lands within 1e-5 absolute of JAX's after 200 steps (fp32
-gradients summed in another order).
+Tolerances: fp32 products in another order. kNN exits, linear exits
+(scikit-learn fits the same weights for both) and TWD give equal
+predictions, exit levels and unreliable counts here; the NumPy helpers
+(FAR tuning, entropy exits, the TWD oracle) are equal; the squared-hinge
+descent from JAX's initial weights lands within 1e-5 absolute of JAX's
+after 200 steps.
 """
 
 import jax
@@ -22,7 +20,7 @@ import fast_image_recognition_tpu_torch.cascade.exits as PX
 import fast_image_recognition_tpu_torch.cascade.twd as PT
 from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu.ops import oracle_pairwise
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

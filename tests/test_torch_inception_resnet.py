@@ -1,18 +1,13 @@
-"""The port's InceptionResNetV2 against the JAX package's on the CPU at 75
-px (the smallest size its VALID stem takes). The fp32 segments and the
-fold trees take the trained 224-px checkpoint, decoded once by the port's
-loader, the same numpy tree for both packages. At 75 px that network dies
-in the Block17 stack (block17_20's output is 0 for every image), so the
-serving cases take the port's seeded init (``create_backbone``) with BN
-scales, biases and statistics drawn around flax's defaults, again one tree
-for both.
+"""The port's InceptionResNetV2 against JAX's on the CPU at 75 px (its VALID
+stem's least). The fp32 segments and fold trees take the trained 224-px
+checkpoint (the port's loader, one numpy tree for both); at 75 px that
+network dies in Block17 (block17_20 is 0 for every image), so the serving
+cases take the port's seeded init with BN drawn around flax's defaults.
 
-Tolerances: fp32 segments within 1e-4 of max |JAX|; the folded bf16
-serving embedding and taps within 0.02 of max |JAX| (JAX's own folded vs
-unfolded bound, tests/test_fold_generic.py:102-115), as is the port's
-folded vs ``folded=False``; fold trees within 1e-6 relative; service rows
-equal but where the two picks' squared distances are within 2^-8 relative
-(bf16 backbones that round at other places; ROADMAP's parity rule).
+Tolerances: fp32 segments 1e-4 of max |JAX|; folded bf16 serving
+embedding and taps 0.02 of max |JAX| (tests/test_fold_generic.py:102-115),
+as folded vs ``folded=False``; fold trees 1e-6 relative; service rows equal
+but where the picks' squared distances are within 2^-8 relative.
 """
 
 import jax
@@ -36,16 +31,12 @@ from fast_image_recognition_tpu_torch.models.fold import (
 from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
 from fast_image_recognition_tpu_torch.serving import RecognitionService
 from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 CKPT = "benchmarks/trained_inception_resnet_v2_224_synthetic1024_s0.npz"
 NAME, RES, B, N = "inception_resnet_v2", 75, 8, 2048
 SEGMENTS = ["stem", "mixed5b", "block35_1", "mixed6a", "block17_1", "mixed7a", "block8_1", "block8_10", "head"]
 TAPS = ("block17_10", "block17_20", "block8_5")
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
 def _leaves(tree, pre=()):
@@ -142,31 +133,35 @@ def test_fold_trees_match_jax(setup, tf_stem):
         assert b.dtype == np.float32 and np.abs(b - a).max() <= 1e-6 * max(np.abs(a).max(), 1e-30), path
 
 
-def test_service_rows_match_jax(setup):
+def check_planted_rows(emb, jax_emb, images, info, port_service, **kw):
     """PCA-124 packed service (rescore 48, escalate 0.05) over 2,048 rows
     in a 96-d span that holds the probes: a planted row per probe (noise
-    0.02) and 40 distractors (noise 0.5); the rest random in the span."""
-    _, _, jax_out = setup["jax"]
-    images, rng = setup["images"], np.random.default_rng(1)
-    emb = _unit(setup["out"]["embedding"].numpy())
-    basis = np.linalg.qr(np.concatenate([emb, rng.standard_normal((88, 1536))]).T)[0].T.astype(np.float32)
+    0.02) and 40 distractors (noise 0.5); the rest random in the span. JAX's
+    service (its backbone's output ``jax_emb``) and ``port_service(gallery,
+    **kw)`` pick the same rows but at near-ties, and the planted ones."""
+    rng, emb, b = np.random.default_rng(1), _unit(emb), len(emb)
+    basis = np.linalg.qr(np.concatenate([emb, rng.standard_normal((96 - b, emb.shape[1]))]).T)[0].T.astype(np.float32)
     span = lambda n, s: s * (rng.standard_normal((n, 96)) / np.sqrt(96)).astype(np.float32) @ basis  # noqa: E731
     gal = _unit(rng.standard_normal((N, 96)).astype(np.float32) @ basis)
-    planted = rng.choice(N, B, replace=False)
+    planted = rng.choice(N, b, replace=False)
     free = rng.permutation(np.setdiff1d(np.arange(N), planted))
-    for i in range(B):
+    for i in range(b):
         gal[planted[i]] = _unit(emb[i] + span(1, 0.02)[0])
         gal[free[i * 40 : (i + 1) * 40]] = _unit(emb[i] + span(40, 0.5))
-    kw = dict(resolution=RES, pca_dim=124, pca_scan="packed")
-    # JAX's backbone is its folded serving output on these images (compiled once, in the fixture)
-    js = JaxService(None, None, jax_info(NAME), gal, serving_fn=(lambda e, _: {"embedding": e}, jax_out["embedding"]),
-                    **kw)
+    kw.update(pca_dim=124, pca_scan="packed")
+    js = JaxService(None, None, info, gal, serving_fn=(lambda e, _: {"embedding": e}, jax_emb), **kw)
     ji = np.asarray(js.identify_device(images))
-    ps = RecognitionService(None, backbone_info(NAME), gal, serving_fn=setup["serve"], device="cpu", **kw)
-    pi = ps.identify_device(torch.from_numpy(images)).numpy()
+    pi = port_service(gal, **kw).identify_device(torch.from_numpy(images)).numpy()
     dj, dp = ((emb - gal[ji]) ** 2).sum(1), ((emb - gal[pi]) ** 2).sum(1)
     assert ((ji == pi) | (np.abs(dj - dp) <= 2.0**-8 * dj)).all()
     np.testing.assert_array_equal(pi, planted)
+
+
+def test_service_rows_match_jax(setup):
+    _, _, jax_out = setup["jax"]
+    check_planted_rows(setup["out"]["embedding"].numpy(), jax_out["embedding"], setup["images"], jax_info(NAME),
+                       lambda g, **kw: RecognitionService(None, backbone_info(NAME), g, serving_fn=setup["serve"],
+                                                          device="cpu", **kw), resolution=RES)
 
 
 def test_create_backbone_has_jax_tree():

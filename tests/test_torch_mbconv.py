@@ -22,7 +22,7 @@ from fast_image_recognition_tpu_torch.models import inference as pinf
 from fast_image_recognition_tpu_torch.models.efficientnet import VARIANTS, backbone_info, block_plan
 from fast_image_recognition_tpu_torch.ops import mbconv_kernel as pmb
 from fast_image_recognition_tpu_torch.serving import RecognitionService, build_service
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 RES = 64
 

@@ -1,15 +1,15 @@
-"""The port's MobileNetV2 and MobileNetV1 against the JAX package's on the
-CPU at 64 px: MobileNetV2 from JAX's seed-0 init, MobileNetV1 from the
-port's, each with BN drawn around flax's defaults, one numpy tree for both.
+"""The port's MobileNetV2 and MobileNetV1 against JAX's on the CPU at 64 px:
+MobileNetV2 from JAX's seed-0 init, MobileNetV1 from the port's, BN drawn
+around flax's defaults, one numpy tree for both.
 
-Tolerances: fp32 forward and segments within 1e-4 of max |JAX|; the fp32
-folded forward and its preprocess fold within JAX's rtol = atol = 2e-4
-(tests/test_mobilenet.py:80-121); bf16 serving embeddings, the cascade's
-tap features and the folded engine's level embeddings within 0.02 of max
-|JAX| (tests/test_fold_generic.py:102-116), the bind engine's within 1e-4;
-the fused plain path within 0.05 of max |per-op| (tests/test_mbconv_kernel.py:91);
-service rows and exit levels equal; engine decisions as JAX bounds its own
-(tests/test_cascade.py:253-265): >= 90 % of predictions, >= 80 % of levels.
+Tolerances: fp32 forward and segments 1e-4 of max |JAX|; fp32 folded
+forward and preprocess fold rtol = atol = 2e-4 (tests/test_mobilenet.py:
+80-121); bf16 serving, the cascade's tap features and the folded engine's
+level embeddings 0.02 of max |JAX| (tests/test_fold_generic.py:102-116),
+the bind engine's 1e-4; the fused plain path 0.05 of max |per-op|
+(tests/test_mbconv_kernel.py:91); service rows and exit levels equal;
+engines >= 90 % of predictions, >= 80 % of levels (tests/test_cascade.py:
+253-265).
 """
 
 import jax
@@ -32,7 +32,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, T
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
 from fast_image_recognition_tpu_torch.serving import build_cascade_service, make_tap_embed_fn
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 RES, B = 64, 4
 NAMES = ("mobilenetv2", "mobilenetv2_1.4", "mobilenetv2_140", "mobilenetv2_0.35", "mobilenetv1")
@@ -87,7 +87,7 @@ def test_zoo_facts_match_jax(name):
 
 def test_zoo_names_as_jax():
     """``build_backbone`` takes any 'mobilenetv1*', ``backbone_info`` only
-    'mobilenetv1'; the unported families raise ``NotImplementedError``."""
+    'mobilenetv1'; a name no package knows raises ``ValueError``."""
     from fast_image_recognition_tpu_torch.models import build_backbone
 
     assert isinstance(build_backbone("mobilenetv1_025"), MobileNetV1) and J.build_backbone("mobilenetv1_025")
@@ -95,8 +95,8 @@ def test_zoo_names_as_jax():
     for info in (backbone_info, J.backbone_info):
         with pytest.raises(ValueError):
             info("mobilenetv1_025")
-    with pytest.raises(NotImplementedError):
-        backbone_info("inception_v3")
+    with pytest.raises(ValueError):
+        backbone_info("inception_v4")
 
 
 @pytest.mark.parametrize("name,classes", [("mobilenetv2", 0), ("mobilenetv2_1.4", 5), ("mobilenetv1", 5)])

@@ -1,22 +1,21 @@
-"""The arithmetic of the port's precise ``topk_l2`` on the card
-(``split_queries``, ``topk_pass1_split_sm90`` over bf16 rows,
-``topk_pass1_split6_sm90`` over fp32 rows), held on the CPU through its
-mirror ``kernels/plain.py::split_bf16x3`` and the sizes in
-``kernels/build.py``, and its ``topk_l2`` over fp32 rows against JAX's.
+"""The arithmetic of the precise ``topk_l2`` on the card (``split_queries``,
+``topk_pass1_split_sm90`` over bf16 rows, ``topk_pass1_split6_sm90`` over
+fp32 rows) held on the CPU through its mirror
+``kernels/plain.py::split_bf16x3`` and ``kernels/build.py``'s sizes, and
+its ``topk_l2`` over fp32 rows against JAX's.
 
-- The three-term split reconstructs fp32 queries or row blocks within
-  2^-26 relative, or 2^-133 absolute among bf16 subnormals.
-- The three products over bf16 rows (per 64-feature chunk, lo, mid, hi,
-  in a fresh accumulator) stay within 2^-20 of the fp32 matmul for unit
-  vectors; the six over fp32 rows (per 32-feature chunk, in the kernel's
-  order) within 2^-20 of fp64.
-- On queries = a bf16 row x (1 + 2^-9 + 2^-18) the hi + mid product
-  misses fp64 by > 1.5 x 2^-18, the plain pass and three terms stay
-  within 2^-18; over fp32 rows made so, queries half a row, six products
-  stay within 2^-18, the bf16-row pass's three miss by > 1.5 x 2^-18.
-- The query planes hold whole 128-query boxes; every ring fits 227 KB.
-- ``topk_l2(precise=True)`` over fp32 rows equals JAX's (interpret mode):
-  distances within 2^-16 absolute, rows equal but at fp64 ties within that."""
+- Three terms rebuild fp32 values within 2^-26 relative (2^-133 absolute
+  among bf16 subnormals).
+- Three products over bf16 rows (per 64-feature chunk, lo, mid, hi, fresh
+  accumulator) within 2^-20 of the fp32 matmul for unit vectors; six over
+  fp32 rows (per 32-feature chunk, the kernel's order) within 2^-20 of fp64.
+- Queries = a bf16 row x (1 + 2^-9 + 2^-18): hi + mid misses fp64 by >
+  1.5 x 2^-18, three terms stay within 2^-18; fp32 rows made so (queries
+  half a row): six products within 2^-18, three miss by > 1.5 x 2^-18.
+- Query planes hold whole 128-query boxes; every ring fits 227 KB.
+- ``topk_l2(precise=True)`` over fp32 rows = JAX's (interpret mode):
+  distances within 2^-16 absolute, rows equal but at fp64 ties within it.
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +27,7 @@ from hypothesis import strategies as st
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build, plain
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 PROBE_TOL = 2.0**-18  # chip_smoke.py SPLIT_PROBE_TOL
 

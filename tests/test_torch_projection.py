@@ -10,7 +10,7 @@ import pytest
 import fast_image_recognition_tpu.search.projection as J
 import fast_image_recognition_tpu_torch.search.projection as P
 from fast_image_recognition_tpu.data import make_gallery_and_probes
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

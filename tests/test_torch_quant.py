@@ -1,24 +1,18 @@
-"""The port's int8 path against the JAX package's on the same numpy-seeded
-inputs: ``quantize_rows`` and the gallery layouts, the int8 tile scan
-(plain PyTorch version, as it runs on the CPU; the JAX side runs its
-Pallas kernel in interpret mode), and the rescored int8 top-k.
+"""The port's int8 path against the JAX package's on the same seeded inputs:
+``quantize_rows``, the gallery layouts, the int8 tile scan (the plain
+version; JAX's Pallas kernel in interpret mode) and the rescored top-k.
 
 Tolerances:
-- ``quantize_rows``: bit-equal values and scales (the same fp32 divisions
-  and half-to-even rounding);
-- ``gallery_sq_norms``: fp32 sums of exact bf16 squares in another order,
-  2^-20 relative; ``quant_gallery_scales``: equal;
-- ``tile_min_l2_quant`` with ``compute='int8'``: the integer dot is exact
-  on both sides and the epilogue is the same fp32 operations in the same
-  order, so tile minima agree to 2^-20 relative + 1e-8 (only |q|^2, fp32
-  sums in another order, differs) and rows are equal, except where the
-  JAX package's CPU compile contracts the epilogue into an FMA: there the
-  two rows' scores tie within 2^-20 relative;
-- with ``compute='bf16'``: bf16 products summed in fp32 in another order,
-  the same 2^-20 relative, rows equal except at such ties;
+- ``quantize_rows``: bit-equal (the same fp32 divisions, half-to-even);
+- ``gallery_sq_norms``: 2^-20 relative; ``quant_gallery_scales`` equal;
+- ``tile_min_l2_quant``, ``compute='int8'``: exact integer dots and the
+  same fp32 epilogue, so minima within 2^-20 relative + 1e-8 (|q|^2 sums
+  in another order) and rows equal but where JAX's CPU compile contracts
+  the epilogue into an FMA and the two rows tie within 2^-20 relative;
+  ``compute='bf16'``: the same bounds;
 - ``topk_l2_quant`` / ``topk_candidates_l2_quant``: candidate rows equal
-  except a tile swapped at a near-tie (2^-20 relative) of its minimum;
-  rescored distances within 2^-20 relative + 1e-8.
+  but a tile swapped at a near-tie (2^-20 relative); rescored distances
+  within 2^-20 relative + 1e-8.
 """
 
 import jax.numpy as jnp
@@ -31,15 +25,11 @@ import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.ops.quant import dequantize_rows as j_dequantize
 from fast_image_recognition_tpu.ops.quant import quantize_rows as j_quantize
 from fast_image_recognition_tpu_torch.ops.quant import dequantize_rows, quantize_rows
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 
 N_VALID, N_PAD, DIM, B = 2900, 3072, 128, 24
 REL = 2.0**-20
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

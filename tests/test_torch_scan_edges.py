@@ -1,25 +1,20 @@
-"""The scans the card runs on its Hopper main loop (``topk_l2`` bf16 with
-a window and a row mask, the certified min-2 and the single-min packed
-scans, the int8 tile scan with ``compute='int8'``) at the edges of the
-card kernels' tiles, against JAX's interpret-mode Pallas kernels on the
-same seeded inputs (the port's plain versions here; ``chip_smoke.py``
-holds the kernels against them on the card).
+"""The Hopper main loop's scans (``topk_l2`` bf16 with a window and a row
+mask, the min-2 and single-min packed scans, the int8 tile scan) at the
+card kernels' tile edges, their plain versions against JAX's
+interpret-mode kernels on the same seeded inputs (``chip_smoke.py`` holds
+the kernels against the plain versions).
 
-Edges: batches 1, 127, 128, 129 and 192; n_valid 100 (inside a sub-tile),
-555, 700, 900, with copies of the queries past it; widths 8 and 40, int8
-widths 16 and 144; windows on and off the 8-lane boundary; augmented
-widths 48 and 128; tile_g 128 to 1024; whole-pad tiles.
+Edges: B 1, 127, 128, 129, 192; n_valid 100, 555, 700, 900 with query
+copies past it; D 8 and 40, int8 16 and 144; windows on and off the 8-lane
+boundary; Da 48 and 128; tile_g 128-1024; whole-pad tiles.
 
-Tolerances, as in test_torch_distance.py:
-- exact top-k: distances rtol 1e-3; indices equal but where the two rows'
-  window distances from the bf16 values tie within 2^-12 relative;
-- packed keys: decoded distances within 2^-12 relative + 1e-6, rows equal
-  but at such near-ties; certified candidates: equal sets but tiles
-  swapped at such a near-tie, the bound within 2^-12 relative;
-- int8 tile scan, as test_torch_quant.py: minima within 2^-20 relative +
-  1e-8 at D = 128 (1.28e-6 raw; JAX's CPU compile may contract the
-  epilogue into an FMA), rows equal but where float64 scores tie within
-  2^-20 relative + 1e-6.
+Tolerances (test_torch_distance.py): top-k distances rtol 1e-3, indices
+equal but at window-distance ties within 2^-12 relative; packed keys
+within 2^-12 relative + 1e-6, rows equal but at such ties, certified sets
+equal but a tile swapped at one, bounds 2^-12 relative; int8 minima 2^-20
+relative + 1e-8 at D = 128 (1.28e-6 raw: JAX's CPU compile may contract
+the epilogue into an FMA), rows equal but at fp64 ties within 2^-20
+relative + 1e-6.
 """
 
 import jax.numpy as jnp
@@ -31,13 +26,9 @@ import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.ops.quant import quantize_rows as j_quantize
 from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 REL = 2.0**-12
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 def _bf16(x):

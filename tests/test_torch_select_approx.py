@@ -1,17 +1,14 @@
-"""``select='approx'`` in the port (``ops/distance_kernel.py::_select_tiles``
-and ``RecognitionService``) against the JAX package's, on the same
-random-init B0 weights (32 px), probe images and gallery.
+"""``select='approx'`` (``ops/distance_kernel.py::_select_tiles``,
+``RecognitionService``) against JAX's on the same random-init B0 weights
+(32 px), probe images and gallery. JAX's ``approx_min_k`` is an exact
+top-k off the TPU, so the port's approx selection is its exact one.
 
-JAX's ``approx_min_k`` lowers to an exact top-k off the TPU, so the port's
-approx selection is its exact one. Tolerances:
-- tile selection: the same columns in the same order as JAX's
-  ``approx_min_k`` on the CPU; where tile minima are equal, the same
-  minima in the same ascending order (``approx_min_k`` orders equal
-  minima its own way; the port, as ``lax.top_k``, by the lower tile);
-- services: the same labels as the JAX service except where the two
-  picks' squared distances to the probe lie within 2^-8 relative (bf16
-  backbones that round at other places); within the port, approx and
-  ``select='exact', escalate=None`` give identical rows.
+Tolerances: tile selection, the same columns in the same order as JAX's
+``approx_min_k`` on the CPU, equal minima in the same ascending order
+(JAX orders equal minima its own way; the port, as ``lax.top_k``, by the
+lower tile); services, the same labels as JAX's but where the picks'
+squared distances lie within 2^-8 relative; in the port, approx and
+``select='exact', escalate=None`` give identical rows.
 """
 
 import jax
@@ -29,13 +26,9 @@ from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 RES, PROBES, N = 32, 24, 3000
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,10 @@
-"""The port's RecognitionService against JAX's on the same random-init
-B0@64 weights, images and gallery, end to end (``pca`` packed,
-``exact``). The gallery lies in a 96-d span holding the probes'
-embeddings (PCA-124 keeps every distance): a planted row (noise 0.02) and
-40 distractors (noise 0.5) per probe, fillers elsewhere. Tolerance: top-1
-rows identical but where the two picks' squared distances are within
-2^-8 relative (bf16 backbones that round at other places)."""
+"""The port's RecognitionService against JAX's on the same random-init B0@64
+weights, images and gallery, end to end (``pca`` packed, ``exact``), over
+rows in a 96-d span holding the probes' embeddings (PCA-124 keeps every
+distance): per probe a planted row (noise 0.02) and 40 distractors (noise
+0.5), fillers elsewhere. Tolerance: top-1 rows equal but where the picks'
+squared distances are within 2^-8 relative (bf16 backbones).
+"""
 
 import jax
 import jax.numpy as jnp
@@ -21,14 +21,10 @@ from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.parallel import gallery_mesh
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 
 RES, PROBES, N = 64, 32, 4000
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,12 @@
 """The port's RecognitionService against JAX's at the match level, in the
 modes the backbone does not decide: JAX's defaults (PCA-128, fp32-score
 tile scan), ``pca_scan`` bf16 and int8, ``match='int8'``, the one-launch
-escalation and the builders. Both match the same unit embeddings (no
-backbone; ``serving_fn`` stubbed) over a gallery in a 96-d span: a
-planted row (noise 0.02) and 40 distractors (noise 0.5) per probe,
-fillers elsewhere; ``clustered`` puts 32 rows per probe first.
-Tolerance: top-1 rows identical but where the two picks' squared
-distances are within 2^-8 relative (bf16 rounding, fp32 sum order)."""
+escalation and the builders. Both match the same unit embeddings
+(``serving_fn`` stubbed) over rows in a 96-d span: per probe a planted row
+(noise 0.02) and 40 distractors (noise 0.5), fillers elsewhere;
+``clustered`` puts 32 rows per probe first. Tolerance: top-1 rows equal
+but where the picks' squared distances are within 2^-8 relative.
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,16 +17,12 @@ from fast_image_recognition_tpu.models import backbone_info as jax_info
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 
 PROBES, N, DIM = 32, 4000, 1280
 # no backbone runs here: the services are matched on embeddings directly
 JAX_STUB, PORT_STUB = (None, None), torch.nn.Identity()
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

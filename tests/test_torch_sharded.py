@@ -1,11 +1,10 @@
-"""The port's sharded search (``parallel/``) against the JAX package's:
-JAX on its 8 simulated CPU devices, the port on ``gallery_mesh(devices=
-["cpu"] * S)``, plain scans against JAX's interpret-mode Pallas.
-Tolerances: rows equal (no near-ties in this data), distances within 1e-6
-absolute (fp32 sums in another order); shards bit-equal; packed
-projections equal but for bf16 rounding flips (< 0.1 % of elements); the
+"""The port's sharded search (``parallel/``) against JAX's: JAX on its 8
+simulated CPU devices, the port on ``gallery_mesh(devices=["cpu"] * S)``,
+plain scans against JAX's interpret-mode Pallas. Tolerances: rows equal
+(no near-ties here), distances 1e-6 absolute; shards bit-equal; packed
+projections equal but bf16 rounding flips (< 0.1 % of elements); the
 service's rows equal JAX's service fed the port's embeddings (backbone
-parity is tests/test_torch_serving.py's) and the unsharded ``match='exact'``.
+parity: tests/test_torch_serving.py) and the unsharded ``match='exact'``.
 """
 
 import jax.numpy as jnp
@@ -33,7 +32,7 @@ from fast_image_recognition_tpu_torch.parallel import (
     sharded_topk_pca_packed,
 )
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 TILE = 128
 
@@ -122,10 +121,6 @@ def test_matcher_two_level_mesh_and_shapes(sets):
 
 
 RES, PROBES, N = 64, 16, 4000
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

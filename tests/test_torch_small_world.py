@@ -11,7 +11,7 @@ import torch
 import fast_image_recognition_tpu.search.small_world as J
 import fast_image_recognition_tpu_torch.search.small_world as P
 from fast_image_recognition_tpu.data import make_gallery_and_probes
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

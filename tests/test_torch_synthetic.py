@@ -16,6 +16,10 @@ import fast_image_recognition_tpu.data.synthetic_device as J
 import fast_image_recognition_tpu_torch.data.synthetic_device as P
 
 
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
     """One torch and BLAS thread for this module: the suite runs several

@@ -1,19 +1,16 @@
-"""The port's bf16 tile-min scan and exact top-k variants (their plain
-versions, on the CPU) against the JAX package's interpret-mode Pallas
-kernels on the same seeded inputs. Tolerances:
-- ``tile_min_l2``, fp32 scores: bf16 products summed in fp32 in another
-  order: minima within 2^-20 relative (+1e-6 after the |q|^2 add), rows
-  equal but at ties within that;
-- bf16 scores: |g|^2, 2 q.g and their difference rounded to bf16 on both
-  sides: minima equal (after the fp32 |q|^2 add within 2^-20 relative +
-  1e-8), ties to the lowest row. JAX's interpret mode keeps excess fp32
-  precision in some of these bf16 operations, so its ``_masked_argmin``
-  can find no row and return ``tile * tile_g + INT_MAX`` wrapped; there
-  the port must still return a row of that tile at the reported minimum;
-- ``topk_l2(precise=True)``: true fp32 dots in another order: distances
-  within 2^-20 relative + 1e-7, rows equal but at such ties;
-- ``window``: lanes outside [start, end) zeroed on both sides, the same
-  tolerances.
+"""The port's bf16 tile-min scan and exact top-k variants (plain versions, on
+the CPU) against JAX's interpret-mode kernels on the same seeded inputs.
+Tolerances:
+- ``tile_min_l2``, fp32 scores: minima within 2^-20 relative (+1e-6 after
+  the |q|^2 add), rows equal but at such ties;
+- bf16 scores (|g|^2, 2 q.g and their difference rounded to bf16): minima
+  equal (2^-20 relative + 1e-8 after the |q|^2 add), ties to the lowest
+  row. JAX's interpret mode keeps excess fp32 precision in some bf16 ops,
+  so its ``_masked_argmin`` may find no row and return ``tile * tile_g +
+  INT_MAX`` wrapped; there the port must return a row of that tile at the
+  reported minimum;
+- ``topk_l2(precise=True)``: 2^-20 relative + 1e-7, rows equal but at ties;
+- ``window``: lanes outside [start, end) zeroed, the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -23,15 +20,11 @@ import torch
 
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 
 N_VALID, N_PAD, DIM, B = 2900, 3072, 64, 24
 F32_REL = 2.0**-20
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

@@ -1,20 +1,12 @@
-"""The port's exact top-k for k > 16 (``topk_l2``, bf16, ``precise=True``
-and a feature window; on the CPU its plain version) against the JAX
-package's ``topk_l2`` (its Pallas kernel in interpret mode) on the same
-numpy-seeded inputs, and the card kernels' argument rules, which need no
-card: any augmented width for the packed scans, tile and segment counts
-past 65,535, k up to 256.
+"""``topk_l2`` for k > 16 (bf16, ``precise=True``, a window; on the CPU its
+plain version) against JAX's (interpret mode) on the same seeded inputs,
+and the card kernels' argument rules, which need no card: any Da for the
+packed scans, tile and segment counts past 65,535, k up to 256.
 
-The gallery (4,096 x 64) holds 512 exact duplicates, so that equal
-distances occur and ties must go to the lowest row on both sides.
-Tolerances:
-- bf16: both sides take bf16 x bf16 products summed in fp32, in another
-  order: distances within 2^-12 relative;
-- ``precise=True``: a true fp32 dot on both sides, in another order: raw
-  squared distances within 2^-16 absolute;
-- indices equal except where the two rows' distances, recomputed in
-  float64 from the values both sides scan, tie within that tolerance (a
-  duplicate of a row ties with it exactly).
+The gallery (4,096 x 64) holds 512 exact duplicates: ties go to the lowest
+row on both sides. Tolerances: bf16 distances 2^-12 relative (fp32 sums in
+another order); ``precise=True`` 2^-16 absolute; indices equal but where
+fp64 distances of the scanned values tie within that.
 """
 
 import jax.numpy as jnp
@@ -25,14 +17,10 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 N, DIM, B = 4096, 64, 6
 WINDOW = (5, 61)
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

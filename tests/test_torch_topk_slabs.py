@@ -1,20 +1,14 @@
-"""The port's ``topk_l2`` past the 256 columns one card launch takes: the top-k
-is scanned in slabs, each admitting only the (distance, row) strictly after
-the previous slab's last entry (the slab floor). On the CPU the slabs run
-the plain pass with the same floor, here at a small slab width, and the
-result must be the JAX package's ``topk_l2`` (its Pallas kernel in
-interpret mode) on the same numpy-seeded inputs, and bit for bit the port's
-own single pass.
+"""``topk_l2`` past one card launch's 256 columns: slabs, each admitting only
+(distance, row) strictly after the previous slab's last entry (the floor).
+On the CPU the plain pass takes the same floor at a small slab width; the
+result must equal JAX's ``topk_l2`` (interpret mode) on the same seeded
+inputs, and the port's single pass bit for bit.
 
-The gallery (320 x 16) holds 64 exact duplicates, so that equal distances
-occur and ties must go to the lowest row on both sides, also where a tie
-straddles two slabs. Tolerances, as in tests/test_torch_topk_large_k.py:
-- bf16: both sides take bf16 x bf16 products summed in fp32, in another
-  order: distances within 2^-12 relative;
-- ``precise=True``: a true fp32 dot on both sides, in another order: raw
-  squared distances within 2^-16 absolute;
-- indices equal except where the two rows' distances, recomputed in
-  float64 from the values both sides scan, tie within that tolerance.
+The gallery (320 x 16) holds 64 exact duplicates: ties go to the lowest
+row on both sides, also across two slabs. Tolerances
+(tests/test_torch_topk_large_k.py): bf16 distances 2^-12 relative;
+``precise=True`` 2^-16 absolute; indices equal but where fp64 distances of
+the scanned values tie within that.
 """
 
 import jax.numpy as jnp
@@ -25,14 +19,10 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import plain
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
 
 N, DIM, B = 320, 16, 3
 SLAB = 64  # slab width of the CPU runs (the card's is build.TOPK_MAX_K, 256)
-
-
-def _unit(x):
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")

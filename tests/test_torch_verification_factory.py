@@ -21,7 +21,7 @@ import fast_image_recognition_tpu_torch.factory as PFAC
 from fast_image_recognition_tpu.data import make_gallery_and_probes, write_feature_file
 from fast_image_recognition_tpu.parallel.mesh import gallery_mesh as jax_gallery_mesh
 from fast_image_recognition_tpu_torch.parallel import gallery_mesh
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -1,13 +1,10 @@
 """The port's video frame-set recognition (``data/video_io.py``,
-``evaluation/video.py``) against the JAX package's on the same seed-made
-features.
+``evaluation/video.py``) against JAX's on the same seeded features.
 
-Tolerances: the text format and the NumPy helpers are copies, so files,
-arrays, identity maps and per-video decisions are equal; the fused
-log-posterior fusion computes the same fp32 expressions in another
-framework (distances, a scatter-min, a log-softmax, a per-video sum), so
-its per-video predictions are equal except where the two best summed
-log-posteriors of a video lie within 2^-10 of each other (fp64 NumPy
+Tolerances: the text format and NumPy helpers are copies: files, arrays,
+identity maps and per-video decisions equal; the log-posterior fusion
+(distances, scatter-min, log-softmax, per-video sum in fp32) gives equal
+predictions but where a video's two best sums lie within 2^-10 (fp64 NumPy
 decides those).
 """
 
@@ -24,7 +21,7 @@ from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu.search import BruteForceMatcher as JaxBF
 from fast_image_recognition_tpu_torch.data import FeatureDB
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse: one torch/BLAS thread)
+from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
 
 TIE = 2.0**-10
 
