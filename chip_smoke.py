@@ -40,6 +40,7 @@ except ImportError:
     sys.exit("chip_smoke: run it from the root of a checkout of the repository")
 
 T0 = time.time()
+F32, BF16 = torch.float32, torch.bfloat16
 BUDGET_S = 600.0  # half the 1200 s a run may take
 CKPT = os.path.join("benchmarks", "trained_b0_224_synthetic1024_s0.npz")
 IRV2_CKPT = os.path.join("benchmarks", "trained_inception_resnet_v2_224_synthetic1024_s0.npz")  # the flagship line
@@ -62,6 +63,21 @@ PEAK_FP32_FLOPS = 67e12  # CUDA-core FMA, no tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
+def fail(msg: str):
+    raise AssertionError(msg)
+
+
+sync = torch.cuda.synchronize
+
+
+def gen_on(dev, seed: int) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def times(ms, plain_ms, yard_ms, b_ms, b_by, yard="matmul+min"):
+    return f"ms={ms:.3f} plain={plain_ms:.3f} {yard}={yard_ms:.3f} bound={b_ms:.3f} ({b_by})"
+
+
 def phase(msg: str) -> None:
     elapsed = time.time() - T0
     print(f"[{elapsed:7.1f}s] {msg}", flush=True)
@@ -81,23 +97,23 @@ def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls after one warm-up."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    sync()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(end) / reps
 
 
 def timed(fn, reps: int = TIMED_CALLS):
     """(last output, host-clock ms a call) of ``reps`` calls between two
     device syncs."""
-    torch.cuda.synchronize()
+    sync()
     t = time.time()
     for _ in range(reps):
         out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, (time.time() - t) / reps * 1e3
 
 
@@ -177,7 +193,24 @@ def check_launches(path: str, launches: dict, **counts) -> None:
     launches[path] = dict(build.LAUNCHES)
     want = {k: counts.get(k, 0) for k in build.LAUNCHES}
     if launches[path] != want:
-        raise AssertionError(f"{path} launches {launches[path]}, expected {want}")
+        fail(f"{path} launches {launches[path]}, expected {want}")
+
+
+def since(t: float) -> str:
+    return f"{time.time() - t:.1f} s"
+
+
+def host(x) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+def randn(gen, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def pct(x) -> float:
+    """100 x the mean of a bool array or tensor."""
+    return 100.0 * float(x.float().mean() if torch.is_tensor(x) else np.mean(x))
 
 
 def _unit(x):
@@ -197,13 +230,13 @@ def class_structured_gallery(n: int, class_embs, sigma: float, seed: int = 1):
     lab = torch.as_tensor(np.maximum(labels, 0), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    gal = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    gal = torch.empty((n_pad, dim), dtype=BF16, device=dev)
     chunk = 65536
     for s in range(0, n_pad, chunk):
         e = class_embs[lab[s : s + chunk]]
         rows = e + (sigma / math.sqrt(dim)) * torch.randn(e.shape, generator=gen, device=dev)
         inv = torch.rsqrt(torch.clamp_min((rows * rows).sum(dim=1), 1e-30))
-        gal[s : s + chunk] = (rows * inv[:, None]).to(torch.bfloat16)
+        gal[s : s + chunk] = (rows * inv[:, None]).to(BF16)
     return gal, labels
 
 
@@ -214,25 +247,25 @@ def planted_gallery(n: int, b: int, dim: int, dev, seed: int = 2):
     rank, distract = 96, 40
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    basis = torch.linalg.qr(torch.randn((dim, rank), generator=gen, device=dev))[0].T  # [96, dim]
+    basis = torch.linalg.qr(randn(gen, dim, rank))[0].T  # [96, dim]
 
     def unit(x):
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
     def in_span(m, scale):
-        return (scale / math.sqrt(rank)) * torch.randn((m, rank), generator=gen, device=dev) @ basis
+        return (scale / math.sqrt(rank)) * randn(gen, m, rank) @ basis
 
     n_pad = -(-n // 1024) * 1024
-    gal = torch.zeros((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    gal = torch.zeros((n_pad, dim), dtype=BF16, device=dev)
     for s in range(0, n, 65536):
         m = min(65536, n - s)
-        gal[s : s + m] = unit(in_span(m, 1.0)).to(torch.bfloat16)
+        gal[s : s + m] = unit(in_span(m, 1.0)).to(BF16)
     probes = unit(in_span(b, 1.0))
     perm = torch.randperm(n, generator=gen, device=dev)
     planted = perm[:b]
-    gal[planted] = unit(probes + in_span(b, 0.02)).to(torch.bfloat16)
+    gal[planted] = unit(probes + in_span(b, 0.02)).to(BF16)
     near = probes.repeat_interleave(distract, dim=0)
-    gal[perm[b : b * (distract + 1)]] = unit(near + in_span(b * distract, 0.5)).to(torch.bfloat16)
+    gal[perm[b : b * (distract + 1)]] = unit(near + in_span(b * distract, 0.5)).to(BF16)
     return probes, gal, planted
 
 
@@ -264,48 +297,46 @@ def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
     check_launches(names[0], launches, tilemin2_packed=len(masks) * -(-BATCH // 1024), topk_l2=len(masks))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not bool((no_sync(lambda: svc.identify_device(images)) == idx).all()):
-        raise AssertionError(f"{tag}: the answers changed under sync debug mode")
+        fail(f"{tag}: the answers changed under sync debug mode")
     idx_exact = counted(lambda: exact.identify_device(images))
-    torch.cuda.synchronize()
+    sync()
     check_launches(names[1], launches, topk_l2=1)
-    with torch.no_grad():
-        emb = svc._embed(images)
-        embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
-        match_ms = host_ms(lambda: svc._match_emb(emb), TIMED_CALLS)
-        exact_ms = host_ms(lambda: exact._match_emb(emb), TIMED_CALLS)
-        pick_pct = check_certified_pick(svc, emb, idx_exact)
-        idx_oracle = counted(lambda: dk.topk_l2(emb, gallery, 1, n_valid=svc.n_valid, precise=True)[1][:, 0])
-    torch.cuda.synchronize()
+    emb = svc._embed(images)
+    embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
+    match_ms = host_ms(lambda: svc._match_emb(emb), TIMED_CALLS)
+    exact_ms = host_ms(lambda: exact._match_emb(emb), TIMED_CALLS)
+    pick_pct = check_certified_pick(svc, emb, idx_exact)
+    idx_oracle = counted(lambda: dk.topk_l2(emb, gallery, 1, n_valid=svc.n_valid, precise=True)[1][:, 0])
+    sync()
     check_launches(names[2], launches, topk_l2_precise=1)
-    idx, idx_exact, idx_oracle = idx.cpu().numpy(), idx_exact.cpu().numpy(), idx_oracle.cpu().numpy()
+    idx, idx_exact, idx_oracle = host(idx), host(idx_exact), host(idx_oracle)
     if idx.shape != (BATCH,) or not ((idx >= 0) & (idx < svc.n_valid)).all():
-        raise AssertionError(f"{tag} returned rows outside the gallery")
+        fail(f"{tag} returned rows outside the gallery")
     truth = np.arange(BATCH)
     row = dict(img_s=BATCH / ms * 1e3, ms=ms, embed_ms=embed_ms, match_ms=match_ms, exact_match_ms=exact_ms,
-               error_pct=100.0 * float(np.mean(labels[idx] != truth)),
-               exact_error_pct=100.0 * float(np.mean(labels[idx_exact] != truth)),
-               exact_rows_pct=100.0 * float(np.mean(idx == idx_exact)),
-               exact_labels_pct=100.0 * float(np.mean(labels[idx] == labels[idx_exact])),
-               oracle_rows_pct=100.0 * float(np.mean(idx == idx_oracle)),
-               exact_oracle_rows_pct=100.0 * float(np.mean(idx_exact == idx_oracle)),
-               escalated_pct=100.0 * svc.last_escalated.float().mean().item(),
+               error_pct=pct(labels[idx] != truth),
+               exact_error_pct=pct(labels[idx_exact] != truth),
+               exact_rows_pct=pct(idx == idx_exact),
+               exact_labels_pct=pct(labels[idx] == labels[idx_exact]),
+               oracle_rows_pct=pct(idx == idx_oracle),
+               exact_oracle_rows_pct=pct(idx_exact == idx_oracle),
+               escalated_pct=pct(svc.last_escalated),
                escalated_calls=sum(bool(m.any()) for m in masks), calls=len(masks), pick_equal_exact_pct=pick_pct,
                peak_gib=peak_gib, launches=launches[names[0]])
     phase(f"{'main path' if tag == 'pca' else tag} (B={BATCH}, {smi}): " + kv(row, *row) + "; no host sync")
     if row["exact_rows_pct"] < 99.0:
-        raise AssertionError(f"{tag}: top-1 agreement with match='exact' is {row['exact_rows_pct']:.3f}% < 99%")
+        fail(f"{tag}: top-1 agreement with match='exact' is {row['exact_rows_pct']:.3f}% < 99%")
     return dict(row, idx=idx, idx_exact=idx_exact, idx_oracle=idx_oracle, emb=emb, sec=ms / 1e3)
 
 
 def fold_gap(name, np_vars, info, res, serve, images, dev):
     """Folded vs ``folded=False`` embeddings at FOLD_BATCH over max |emb|,
     gated at 0.02 (JAX's bound, tests/test_fold_generic.py:102-115)."""
-    with torch.no_grad():
-        unfolded = make_serving_fn(np_vars, info, resolution=res, device=dev, folded=False)
-        ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
-        rel = ((ef - eu).abs().max() / eu.abs().max()).item()
+    unfolded = make_serving_fn(np_vars, info, resolution=res, device=dev, folded=False)
+    ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
+    rel = ((ef - eu).abs().max() / eu.abs().max()).item()
     if not rel <= 0.02:
-        raise AssertionError(f"{name}: folded and unfolded embeddings differ by {rel:.4f} > 0.02")
+        fail(f"{name}: folded and unfolded embeddings differ by {rel:.4f} > 0.02")
     return rel
 
 
@@ -313,7 +344,7 @@ def line_services(name, info, emb, gallery, labels, serve, dev):
     """A line's certified service (PCA-124 packed, rescore 48, escalate 0.05) and ``match='exact'``, once its
     embeddings are finite and of the zoo's width."""
     if emb.shape[1:] != (info["embedding_dim"],) or not bool(torch.isfinite(emb).all()):
-        raise AssertionError(f"{name}: embeddings of shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
+        fail(f"{name}: embeddings of shape {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
     kw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
     return (RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", rescore=48, escalate=0.05, **kw),
             RecognitionService(None, info, gallery, match="exact", **kw))
@@ -329,22 +360,19 @@ def run_flagship(dev, report, launches, smi):
     np_vars = {"params": raw["params"], "batch_stats": raw["batch_stats"]}
     info = backbone_info("inception_resnet_v2")
     serve = make_serving_fn(np_vars, info, resolution=RES, device=dev)
-    torch.cuda.synchronize()
+    sync()
     load_s, t = time.time() - t, time.time()
     pair_imgs, _ = device_dataset(IDENTITIES, 2, RES, seed=11000, class_seed=3000, device=dev)
     fold_rel = fold_gap("flagship", np_vars, info, RES, serve, pair_imgs, dev)
-    with torch.no_grad():
-        embs = _unit(torch.cat([serve(pair_imgs[s : s + BATCH])["embedding"] for s in range(0, 2 * IDENTITIES, BATCH)]))
+    embs = _unit(torch.cat([serve(pair_imgs[s : s + BATCH])["embedding"] for s in range(0, 2 * IDENTITIES, BATCH)]))
     enroll, sigma, images = enroll_sigma(embs, pair_imgs)
     gallery, labels = class_structured_gallery(GALLERY, enroll, sigma)
     svc, exact = line_services("flagship", info, embs, gallery, labels, serve, dev)
     del pair_imgs, embs
-    torch.cuda.synchronize()
-    phase(f"flagship: {IRV2_CKPT} loaded and folded ({load_s:.1f} s); {2 * IDENTITIES} images at {RES} embedded, "
-          f"sigma={sigma:.4f}, gallery {tuple(gallery.shape)}, PCA-{svc.pca_dim} ({time.time() - t:.1f} s); folded "
-          f"vs folded=False at B={FOLD_BATCH}: {fold_rel:.5f} of max |emb|")
-    with torch.no_grad():  # the path's kernels vs plain at its shapes
-        emb = svc._embed(images)
+    sync()
+    phase(f"flagship: {IRV2_CKPT} folded ({load_s:.1f} s); images={2 * IDENTITIES}@{RES} sigma={sigma:.4f} "
+          f"gallery={tuple(gallery.shape)} PCA-{svc.pca_dim} ({since(t)}); fold_rel={fold_rel:.5f}")
+    emb = svc._embed(images)  # the path's kernels vs plain at its shapes
     check_cert_scan(svc, emb, report)
     check_topk(gallery, GALLERY, emb, 1, report)
     row = serve_line("flagship", svc, exact, gallery, labels, images, launches, smi)
@@ -369,7 +397,7 @@ def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
     (bf16 rows [n_pad, D], labels: probe i at its row, -1 elsewhere)."""
     b, dim = emb.shape
     dev = emb.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = gen_on(dev, seed)
     e = emb.double()
     d2 = ((e * e).sum(1)[:, None] + (e * e).sum(1)[None] - 2.0 * e @ e.T).fill_diagonal_(math.inf)
     r = d2.min(1).values.clamp_min(1e-40).sqrt().float()
@@ -377,14 +405,14 @@ def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
     c = emb.mean(0)
     spread = max(float(((emb - c) ** 2).sum(1).mean().sqrt()), 1e-20)
     n_pad = -(-n // 1024) * 1024
-    gal = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    gal = torch.empty((n_pad, dim), dtype=BF16, device=dev)
     for s_ in range(0, n_pad, 65536):
         m = min(65536, n_pad - s_)
-        gal[s_ : s_ + m] = _unit(c + spread * torch.randn((m, dim), generator=gen, device=dev)).to(torch.bfloat16)
+        gal[s_ : s_ + m] = _unit(c + spread * randn(gen, m, dim)).to(BF16)
     rows = torch.randperm(n, generator=gen, device=dev)[:b]
-    gal[rows] = planted.to(torch.bfloat16)
+    gal[rows] = planted.to(BF16)
     labels = np.full(n_pad, -1, np.int64)
-    labels[rows.cpu().numpy()] = np.arange(b)
+    labels[host(rows)] = np.arange(b)
     return gal, labels
 
 
@@ -397,16 +425,15 @@ def untrained_line(name, dev, launches, smi, res=RES):
     info = backbone_info(name)
     _, np_vars = create_backbone(name, seed=0, resolution=res, device=dev)
     serve = make_serving_fn(np_vars, info, resolution=res, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = gen_on(dev, 0)
     images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen, device=dev, dtype=torch.uint8)
     fold_rel = fold_gap(name, np_vars, info, res, serve, images, dev)
-    with torch.no_grad():
-        emb = _unit(serve(images)["embedding"])
+    emb = _unit(serve(images)["embedding"])
     gallery, labels = embedding_gallery(GALLERY, emb)
     svc, exact = line_services(name, info, emb, gallery, labels, serve, dev)
-    torch.cuda.synchronize()
+    sync()
     phase(f"{name}@{res}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} "
-          f"({time.time() - t:.1f} s); fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
+          f"({since(t)}); fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
     row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi)
     ctx = {k: row.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec")}
     row["fold_rel"] = fold_rel
@@ -437,7 +464,7 @@ def run_mobilenets(dev, launches, smi, mb_report):
             fb = net.fused_blocks[str(net.names.index(block))]
             extra.append((f"{tag} {block} (relu6, no SE) B={b} {hw}x{hw}", {n: getattr(fb, n) for n in fb.param_names},
                           dict(fb.cfg), b, hw, None))
-    mb_report["edges"] = run_mbconv_cases(extra, torch.Generator(device=dev).manual_seed(29))
+    mb_report["edges"] = run_mbconv_cases(extra, gen_on(dev, 29))
     phase(f"mobilenetv2 mbconv edge shapes: {len(extra)} cases within {MB_TOL:.2e} of max |plain|, borders too")
     del net14
     lines["mobilenetv2_fused"] = check_fused_path(
@@ -447,11 +474,11 @@ def run_mobilenets(dev, launches, smi, mb_report):
     t = time.time()
     casc = build_cascade_service("mobilenetv2", c["gallery"], variables=c["np_vars"], n_valid=GALLERY, taps=TAPS,
                                  resolution=RES, calib_total=CASCADE_CALIB, calib_batch=CASCADE_CALIB, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = gen_on(dev, 1)
     fracs = casc.calibrate(torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=dev,
                                          dtype=torch.uint8), slack=SLACK)
     phase(f"mobilenetv2 cascade built (readout, taps {TAPS}, calibrated on {CASCADE_CALIB} images): survivors="
-          f"{[round(f, 4) for f in fracs]} capacities={casc.capacities_for(BATCH)} ({time.time() - t:.1f} s)")
+          f"{[round(f, 4) for f in fracs]} capacities={casc.capacities_for(BATCH)} ({since(t)})")
     lines["mobilenetv2_cascade"], _ = run_cascade(casc, c["images"], "mobilenetv2 cascade", launches, smi,
                                                   c["labels"], dict(exact=c["idx_exact"]), plain_sec=c["sec"],
                                                   early=False)
@@ -459,7 +486,7 @@ def run_mobilenets(dev, launches, smi, mb_report):
     torch.cuda.empty_cache()
     model, variables = create_backbone("mobilenetv2", seed=0, resolution=RES, device=dev)
     row, _ = engine_line("mobilenetv2 cascade engine", model, variables, default_taps_mobilenet(), dev, launches)
-    phase(f"mobilenetv2 cascade engine (folded, SVC exits, batch {BATCH}, {smi}): " + kv(row, *list(row)[1:])
+    phase(f"mobilenetv2 cascade engine (folded, SVC exits, batch {BATCH}, {smi}): " + kv(row)
           + f"; no host sync; launches={launches['mobilenetv2 cascade engine']}")
     lines["mobilenetv2_cascade_engine"] = row
     del model, variables
@@ -471,57 +498,33 @@ def run_mobilenets(dev, launches, smi, mb_report):
 
 def run_zoo(dev, report, launches, smi):
     """ResNet50 ('caffe'), ResNet152V2 ('tf'), InceptionV3 at 299 and VGG19
-    (no BN, 'caffe') lines; ``topk_l2`` vs plain at D 2048 and 512; the
-    bind engine over ResNet152V2 at the reference's taps."""
+    (no BN, 'caffe') lines, each with ``topk_l2`` vs plain on its own rows
+    (timed at D 2048 and 512); the bind engine over ResNet152V2 at the
+    reference's taps."""
     lines = {}
     for name in ("resnet50", "resnet152v2", "inception_v3", "vgg19"):
         lines[name], c = untrained_line(name, dev, launches, smi, 299 if name == "inception_v3" else RES)
-        dim, wide = c["info"]["embedding_dim"], name in ("resnet152v2", "vgg19")
-        if wide:  # topk_l2's picks on the line's near-collinear rows, then vs plain on bench.py's bf rows
-            check_collinear_picks(name, c["gallery"], c["emb"], report)
+        check_topk(c["gallery"], GALLERY, c["emb"], 1, report if name in ("resnet152v2", "vgg19") else None)
         del c
         torch.cuda.empty_cache()
-        if wide:
-            gal = random_unit_gallery(GALLERY, dim, dev)
-            gen = torch.Generator(device=dev).manual_seed(7)
-            check_topk(gal, GALLERY, _unit(gal[:BATCH].float() + 1e-2 * torch.randn((BATCH, dim), generator=gen,
-                                                                                     device=dev)), 1, report)
-            del gal
     model, _ = create_backbone("resnet152v2", seed=0, resolution=RES, device=dev)
     lines["resnet152v2_engine"] = engine_line("resnet152v2 cascade engine", model, None,
                                               default_taps_resnet("resnet152v2"), dev, launches, engine="bind")[0]
     return lines
 
 
-def check_collinear_picks(name, gallery, emb, report):
-    """``topk_l2`` on an untrained line's own rows (its probes' cosines >= 0.998): picks equal the plain
-    version's but where their fp64 distances tie within 2^-12 relative + 1e-6; the distances' gaps to
-    fp64, which cancellation in the fp32 |q|^2 + |g|^2 - 2 q.g sets here, reported."""
-    q = emb.to(torch.bfloat16)
-    (kd, ki), (pd, pi) = build.launch_topk_l2(q, gallery, 1, GALLERY), plain.topk_l2_plain(q, gallery, 1, GALLERY)
-    qf = q.double()
-    dk, dp = (((qf - gallery[i[:, 0].long()].double()) ** 2).sum(1) for i in (ki, pi))
-    row = dict(shape=f"{name} rows B={q.shape[0]} N={GALLERY} D={q.shape[1]} k=1",
-               picks_equal_pct=100.0 * (ki == pi).float().mean().item(), d_median=dp.median().item(),
-               kernel_err=(kd[:, 0].double() - dk).abs().max().item(), plain_err=(pd[:, 0].double() - dp).abs().max().item())
-    phase(f"topk_l2 picks on the {name} line's rows: " + " ".join(f"{k}={v:.4g}" for k, v in list(row.items())[1:]))
-    if not bool(((ki == pi)[:, 0] | ((dk - dp).abs() <= 2.0**-12 * dp + 1e-6)).all()):
-        raise AssertionError(f"topk_l2 on the {name} line's rows picks other rows than its plain version")
-    report.setdefault("topk_l2_collinear", []).append(row)
-
-
 def check_certified_pick(svc, emb, idx_exact):
     """The pick before escalation at the least plain fp32 rescore of its
     candidates (2^-12 relative + 1e-5). Returns its agreement with exact, %."""
     cand, idx_fast, _ = svc._certified(emb)
-    e16 = emb.to(torch.bfloat16).to(torch.float32)
-    d_cand = ((e16[:, None, :] - svc.gallery[cand].to(torch.float32)) ** 2).sum(-1)
-    d_fast = ((e16 - svc.gallery[idx_fast].to(torch.float32)) ** 2).sum(-1)
+    e16 = emb.to(BF16).to(F32)
+    d_cand = ((e16[:, None, :] - svc.gallery[cand].to(F32)) ** 2).sum(-1)
+    d_fast = ((e16 - svc.gallery[idx_fast].to(F32)) ** 2).sum(-1)
     d_min = d_cand.min(dim=1).values
     in_cand = bool((cand == idx_fast[:, None]).any(dim=1).all())
     if not in_cand or not bool((d_fast <= d_min + 2.0**-12 * d_min + 1e-5).all()):
-        raise AssertionError("the rescored pick is not the nearest of its candidates")
-    return 100.0 * (idx_fast == idx_exact).float().mean().item()
+        fail("the rescored pick is not the nearest of its candidates")
+    return pct(idx_fast == idx_exact)
 
 
 def check_cert_scan(svc, emb, report):
@@ -533,7 +536,7 @@ def check_cert_scan(svc, emb, report):
     ga = svc.gal_aug
     k1, k2 = build.launch_tilemin2_packed(qa, ga)
     p1, p2 = plain.tilemin2_packed_plain(qa, ga)
-    torch.cuda.synchronize()
+    sync()
     kd1, ki, kd2 = dk.decode_tile_keys(k1, k2)
     pd1, pi, pd2 = dk.decode_tile_keys(p1, p2)
     scale = torch.clamp_min(pd1.abs().max(), 1e-30)
@@ -541,12 +544,12 @@ def check_cert_scan(svc, emb, report):
     key_eq = (k1 == p1).float().mean().item()
     rel = err / scale.item()
     rows_ok = True
-    qf = qa.to(torch.float32)
+    qf = qa.to(F32)
     for keys, kd, pd in ((k1, kd1, pd1), (k2, kd2, pd2)):
         d_rows = []
         for kk in (keys, p1 if keys is k1 else p2):
             rows = dk.decode_tile_keys(kk, kk)[1].long()
-            d_rows.append(torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[rows].to(torch.float32)), 0.0))
+            d_rows.append(torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[rows].to(F32)), 0.0))
         tol = 2.0**-12 * d_rows[1].abs() + 1e-6
         rows_ok = rows_ok and bool(((d_rows[0] - kd).abs() <= tol).all())
         rows_ok = rows_ok and bool(((d_rows[0] - d_rows[1]).abs() <= tol).all())
@@ -569,11 +572,10 @@ def check_cert_scan(svc, emb, report):
     plain_ms = cuda_ms(lambda: plain.tilemin2_packed_plain(qa, ga), reps=2)
     yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, 1024).min(dim=2), reps=3)
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4)
-    phase(f"packed scan B={b} Np={np_} Da={da}: keys_equal={100 * key_eq:.3f}% max_gap={err:.3e} ({rel:.2e} rel) "
-          f"sets_equal={100 * same_set.float().mean().item():.3f}% bound_gap={bound_rel:.2e}; ms={ms:.3f} "
-          f"plain={plain_ms:.3f} matmul+min={yard_ms:.3f} bound={b_ms:.3f} ({b_by})")
+    phase(f"packed scan B={b} Np={np_} Da={da}: keys_equal={100 * key_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} "
+          f"sets_equal={pct(same_set):.3f}% bound_gap={bound_rel:.2e} " + times(ms, plain_ms, yard_ms, b_ms, b_by))
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
-        raise AssertionError("packed scan kernel disagrees with its plain version")
+        fail("packed scan kernel disagrees with its plain version")
     report.setdefault("tilemin2_packed", []).append(dict(
         shape=f"B={b} Np={np_} Da={da}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, yardstick_matmul_min_ms=yard_ms,
@@ -582,11 +584,12 @@ def check_cert_scan(svc, emb, report):
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
                row_mask=None, chunk_rows=65536):
-    """topk_l2 (bf16, windowed or precise) vs plain: its rows, rescored,
-    sit at its distances and differ from the plain picks only at ties
-    within 2^-12 relative + 1e-6 (bf16) or 2^-16 (precise); rows outside
-    ``row_mask`` come back empty. Timed with a ``report``."""
-    q = queries.to(torch.float32 if precise else torch.bfloat16).contiguous()
+    """topk_l2 (bf16, windowed or precise; the scan, then pass 3) vs plain:
+    its rows, rescored as (q - g)^2 in fp32, sit at its distances and
+    differ from the plain picks only at ties within 2^-12 relative + 1e-6
+    (bf16) or 2^-16 (precise); rows outside ``row_mask`` come back empty.
+    Timed with a ``report``."""
+    q = queries.to(F32 if precise else BF16).contiguous()
     lo, hi = window if window is not None else (0, q.shape[1])
     if k > build.TOPK_MAX_K:  # slabs, each a launch above the last one's floor
         def launch():
@@ -594,11 +597,16 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
             return d_ * (hi - lo), i_
     else:
         def launch():
-            return build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask)
+            d_, i_ = build.launch_topk_l2(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask)
+            return build.launch_topk_rescore(q, gallery, d_, i_, window)
+
+    def run_plain(rows=chunk_rows):
+        d_, i_ = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask,
+                                     chunk_rows=rows)
+        return plain.topk_rescore_plain(q, gallery, d_, i_, window)
     kd, ki = launch()
-    pd, pi = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask,
-                                 chunk_rows=chunk_rows)
-    torch.cuda.synchronize()
+    pd, pi = run_plain()
+    sync()
     b, dim = q.shape
     on = torch.ones(b, dtype=torch.bool, device=q.device) if row_mask is None else row_mask
     off_ok = bool((kd[~on] == pd[~on]).all()) and bool((ki[~on] == -1).all()) and bool((pi[~on] == -1).all())
@@ -606,30 +614,27 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     err = (kd - pd).abs().max().item() if kd.numel() else 0.0
     idx_eq = (ki == pi).float().mean().item() if ki.numel() else 1.0
     in_range = bool(((ki >= 0) & (ki < n_valid)).all())
-    rows = gallery[ki.clamp(0, n_valid - 1).long()][:, :, lo:hi].to(torch.float32)  # [B, k, W]
-    qf = q[on][:, lo:hi].to(torch.float32)
-    d_rows = torch.clamp_min(
-        (qf * qf).sum(1)[:, None] + (rows * rows).sum(2) - 2.0 * torch.einsum("bd,bkd->bk", qf, rows), 0.0
-    )
+    rows = gallery[ki.clamp(0, n_valid - 1).long()][:, :, lo:hi].to(F32)  # [B, k, W]
+    d_rows = rows.sub_(q[on][:, None, lo:hi].to(F32)).square_().sum(2)
     del rows
     tol = torch.full_like(pd, 2.0**-16) if precise else 2.0**-12 * pd.abs() + 1e-6
     ok = off_ok and in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
     ok = ok and bool(((kd - d_rows).abs() <= tol).all())
-    variant = ("precise" + (", fp32 rows" if gallery.dtype == torch.float32 else "") if precise
+    variant = ("precise" + (", fp32 rows" if gallery.dtype == F32 else "") if precise
                else f"window {window}" if window else "bf16")
     what = f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}"
     if not ok:
-        raise AssertionError(f"{what}{'' if row_mask is None else f' mask {int(on.sum())}/{b}'} disagrees with "
-                             f"its plain version")
+        fail(f"{what}{'' if row_mask is None else f' mask {int(on.sum())}/{b}'} disagrees with "
+             f"its plain version")
     if report is None:
         return
     width = hi - lo
     ms = cuda_ms(launch, reps=3)
-    plain_ms = cuda_ms(lambda: plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise), reps=1)
+    plain_ms = cuda_ms(lambda: run_plain(65536), reps=1)
     # yardsticks: the library's matmul of the same operands plus topk or min
     g = gallery[:n_valid]
     if precise:
-        g = g.to(torch.float32)
+        g = g.to(F32)
     if window is not None:
         ql, gl = q[:, lo:hi], g[:, lo:hi]
         yard_ms = cuda_ms(lambda: (ql @ gl.T).min(dim=1), reps=1)
@@ -639,13 +644,13 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     g = None
     nbytes = n_valid * width * gallery.element_size() + b * width * q.element_size() + b * k * 8
     # precise: three bf16 products of split terms a row element over bf16 rows, six over fp32 rows
-    passes = (6.0 if gallery.dtype == torch.float32 else 3.0) if precise else 1.0
+    passes = (6.0 if gallery.dtype == F32 else 3.0) if precise else 1.0
     b_ms, b_by = bound(passes * 2.0 * b * n_valid * width, nbytes)
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
-    if gallery.dtype == torch.float32:
+    if gallery.dtype == F32:
         shape += " rows=fp32"
-    phase(f"{what}: indices_equal={100 * idx_eq:.3f}% max_gap={err:.3e}; ms={ms:.3f} plain={plain_ms:.3f} "
-          f"matmul+{'min' if window else 'topk'}={yard_ms:.3f} bound={b_ms:.3f} ({b_by})")
+    phase(f"{what}: indices_equal={100 * idx_eq:.3f}% max_gap={err:.3e} "
+          + times(ms, plain_ms, yard_ms, b_ms, b_by, f"matmul+{'min' if window else 'topk'}"))
     report.setdefault(key, []).append(dict(
         shape=shape, max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, **{f"yardstick_matmul_{'min' if window else 'topk'}_ms": yard_ms},
@@ -671,7 +676,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         tol = 0.0 if compute == "int8" else 2.0**-12
     kd, ki = launch()
     pd, pi = run_plain()
-    torch.cuda.synchronize()
+    sync()
     fin = torch.isfinite(pd)
     err = (kd - pd)[fin].abs().max().item()
     both_inf = bool((torch.isinf(kd) == torch.isinf(pd)).all())
@@ -679,8 +684,8 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
     val_eq = (kd == pd).float().mean().item()
 
     def rescore(rows):  # fp32 sums; float64 for the exact int8 dot
-        wide = torch.float64 if quant is not None and quant[2] == "int8" else torch.float32
-        cross = torch.einsum("bd,btd->bt", q.to(wide), g[rows.long()].to(wide)).to(torch.float32)
+        wide = torch.float64 if quant is not None and quant[2] == "int8" else F32
+        cross = torch.einsum("bd,btd->bt", q.to(wide), g[rows.long()].to(wide)).to(F32)
         if quant is None:
             return gsq[rows.long()] - 2.0 * cross
         return gsq[rows.long()] - (2.0 * qs)[:, None] * (cross * gsc[rows.long()])
@@ -697,7 +702,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
     what = (f"tile scan {name} B={b} Np={np_} D={d} tile_g={tile_g}: rows_equal={100 * idx_eq:.3f}% "
             f"minima_equal={100 * val_eq:.3f}% max_gap={err:.3e} (tol {atol:.3e}) rows_ok={rows_ok}")
     if not ok:
-        raise AssertionError(f"tile scan kernel disagrees with its plain version: {what}")
+        fail(f"tile scan kernel disagrees with its plain version: {what}")
     if report is None:
         if verbose:
             phase(what)
@@ -712,7 +717,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         if quant[2] == "int8":
             yard = lambda: torch._int_mm(q, g.t()).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
         else:
-            gb, qb = g.to(torch.bfloat16), q.to(torch.bfloat16)
+            gb, qb = g.to(BF16), q.to(BF16)
             yard = lambda: (qb @ gb.T).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
         try:
             yard_ms = cuda_ms(yard, reps=3)
@@ -737,16 +742,16 @@ def check_edge_shapes(dev):
     """The tile scans and top-k variants vs plain at :data:`EDGE_SHAPES`,
     untimed, tile_g 128-1024; whole-pad tiles' minima bit-equal to the
     plain ones. Returns the number of such (query, tile) pairs."""
-    gen = torch.Generator(device=dev).manual_seed(23)
-    big = torch.tensor(plain.BIG_DIST, dtype=torch.float32).item()
+    gen = gen_on(dev, 23)
+    big = torch.tensor(plain.BIG_DIST, dtype=F32).item()
     pad_pairs = 0
     for n, nv, d, b in EDGE_SHAPES:
-        g32 = _unit(torch.randn((n, d), generator=gen, device=dev))
-        q32 = _unit(g32[:b] + 0.1 * torch.randn((b, d), generator=gen, device=dev))
-        q16 = dk.pad_cols(q32.to(torch.bfloat16), 8)
+        g32 = _unit(randn(gen, n, d))
+        q32 = _unit(g32[:b] + 0.1 * randn(gen, b, d))
+        q16 = dk.pad_cols(q32.to(BF16), 8)
         tag = f"edge N={n} n_valid={nv} D={d} B={b}"
         for tg in (128, 256, 512, 1024):
-            g16 = dk.pad_cols(dk.pad_gallery(g32.to(torch.bfloat16), tg), 8)
+            g16 = dk.pad_cols(dk.pad_gallery(g32.to(BF16), tg), 8)
             gsq = dk.gallery_sq_norms(g16, nv, tg)
             scans = [(f"{tag} {'bf16' if bf else 'f32'}-scores",
                       dict(q=q16, g=g16, bf16_scores=bf), float("inf") if bf else big) for bf in (False, True)]
@@ -759,11 +764,11 @@ def check_edge_shapes(dev):
             for name, kw, pad_value in scans:
                 kd, ki, pd = check_tile_scan(name, kw.pop("q"), kw.pop("g"), gsq, tg, None, **kw)
                 if not whole_pad_ok(kd, ki, pd, nv, tg, pad_value):
-                    raise AssertionError(f"whole-pad tiles disagree ({name}, tile_g={tg})")
+                    fail(f"whole-pad tiles disagree ({name}, tile_g={tg})")
                 pad_pairs += int((torch.arange(kd.shape[1]) * tg >= nv).sum()) * b
         q8 = dk.pad_cols(q32, 8)
         check_topk(dk.pad_cols(g32, 8), nv, q8, 16, precise=True)  # fp32 rows: the six-product pass
-        g8 = dk.pad_cols(g32.to(torch.bfloat16), 8)
+        g8 = dk.pad_cols(g32.to(BF16), 8)
         check_topk(g8, nv, q8, 3, window=(5, d - 3), precise=True)
         check_topk(g8, nv, q8, 5, window=(1, d - 1))
         check_topk(g8, nv, q8, 16)
@@ -785,7 +790,7 @@ def edge_data(gen, n, nv, d, b):
     g32 = _unit(torch.randn((n, d), generator=gen, device=gen.device))
     q32 = _unit(g32[:b] + 0.1 * torch.randn((b, d), generator=gen, device=gen.device))
     g32[nv : nv + b] = q32[: n - nv]
-    return g32, q32, g32.to(torch.bfloat16)
+    return g32, q32, g32.to(BF16)
 
 # the sm90 scans at their tiles' edges (query tiles, sub-tiles, chunks, windows)
 SCAN_EDGE_B = (1, 127, 128, 129, 257)
@@ -813,7 +818,7 @@ def check_min2(qa, ga, n_valid):
     rows but at near-ties, whole-pad tiles never winning."""
     k1, k2 = build.launch_tilemin2_packed(qa, ga)
     p1, p2 = plain.tilemin2_packed_plain(qa, ga)
-    torch.cuda.synchronize()
+    sync()
     ok = True
     for keys, ref in ((k1, p1), (k2, p2)):
         ok = ok and keys_ok(qa, ga, keys, ref, 1024)
@@ -821,8 +826,8 @@ def check_min2(qa, ga, n_valid):
     ok = ok and bool((dk._key_to_row(k1)[:, ~whole_pad] < n_valid).all()) and bool((k1 != k2).all())
     ok = ok and bool((dk._key_to_dist(k1)[:, whole_pad] >= 1e37).all())
     if not ok:
-        raise AssertionError(f"min-2 packed scan disagrees with its plain version (B={qa.shape[0]}, "
-                             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]})")
+        fail(f"min-2 packed scan disagrees with its plain version (B={qa.shape[0]}, "
+             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]})")
 
 
 def keys_ok(qa, ga, keys, ref, tile_g, equal_ok=False):
@@ -830,8 +835,8 @@ def keys_ok(qa, ga, keys, ref, tile_g, equal_ok=False):
     each key's row rescored at its distance and at the plain row's (keys
     equal to the plain ones pass with ``equal_ok``)."""
     kd, pd = dk._key_to_dist(keys, tile_g), dk._key_to_dist(ref, tile_g)
-    qf = qa.to(torch.float32)
-    d_rows = [torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[dk._key_to_row(kk, tile_g).long()].to(torch.float32)),
+    qf = qa.to(F32)
+    d_rows = [torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[dk._key_to_row(kk, tile_g).long()].to(F32)),
                               0.0) for kk in (keys, ref)]
     tol = 2.0**-12 * pd.abs() + 1e-6
     near = ((kd - pd).abs() <= tol) & ((d_rows[0] - kd).abs() <= tol) & ((d_rows[0] - d_rows[1]).abs() <= tol)
@@ -843,14 +848,14 @@ def check_single(qa, ga, n_valid, tile_g):
     (:func:`keys_ok`); whole-pad tiles only pad distances."""
     keys = build.launch_tilemin_packed(qa, ga, tile_g)
     ref = plain.tilemin_packed_plain(qa, ga, tile_g)
-    torch.cuda.synchronize()
+    sync()
     whole_pad = torch.arange(keys.shape[1], device=keys.device) * tile_g >= n_valid
     ok = keys_ok(qa, ga, keys, ref, tile_g, equal_ok=True)
     ok = ok and bool((dk._key_to_row(keys, tile_g)[:, ~whole_pad] < n_valid).all())
     ok = ok and bool((dk._key_to_dist(keys, tile_g)[:, whole_pad] >= 1e37).all())
     if not ok:
-        raise AssertionError(f"single-min packed scan disagrees with its plain version (B={qa.shape[0]}, "
-                             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]}, tile_g={tile_g})")
+        fail(f"single-min packed scan disagrees with its plain version (B={qa.shape[0]}, "
+             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]}, tile_g={tile_g})")
 
 
 def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
@@ -858,17 +863,17 @@ def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
     equal minima and rows; a whole-pad tile returns 3.4e38 at its first row."""
     kd, ki = build.launch_tilemin_quant(q, qs, g, gsq, gsc, tile_g, "int8")
     pd, pi = plain.tilemin_quant_plain(q, qs, g, gsq, gsc, tile_g, "int8")
-    torch.cuda.synchronize()
-    big = torch.tensor(3.4e38, dtype=torch.float32).item()
+    sync()
+    big = torch.tensor(3.4e38, dtype=F32).item()
     if not (bool((kd == pd).all()) and bool((ki == pi).all()) and whole_pad_ok(kd, ki, pd, n_valid, tile_g, big)):
-        raise AssertionError(f"int8 tile scan disagrees with its plain version (B={q.shape[0]}, "
-                             f"Np={g.shape[0]}, n_valid={n_valid}, D={q.shape[1]}, tile_g={tile_g})")
+        fail(f"int8 tile scan disagrees with its plain version (B={q.shape[0]}, "
+             f"Np={g.shape[0]}, n_valid={n_valid}, D={q.shape[1]}, tile_g={tile_g})")
 
 
 def check_sm90_edges(dev):
     """The four ``sm90_scan.cuh`` kernels vs plain at the ``*_EDGES`` shapes,
     batches, windows and row masks, untimed. Returns the cases a kernel."""
-    gen = torch.Generator(device=dev).manual_seed(31)
+    gen = gen_on(dev, 31)
     cases = dict(topk_l2=0, topk_l2_precise_split=0, topk_l2_precise_split6=0, topk_l2_large_k=0, tilemin2_packed=0,
                  tilemin_packed=0, tilemin_quant=0, tilemin=0, tilemin_quant_bf16=0)
     bmax = max(SCAN_EDGE_B)
@@ -908,10 +913,10 @@ def check_sm90_edges(dev):
         check_topk(g16, nv, q32, 64, row_mask=mask)
         cases["topk_l2_large_k"] += 1
     for n, nv, d, da in MIN2_EDGES:
-        g16 = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
+        g16 = _unit(randn(gen, n, d)).to(BF16)
         ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pad rows keep their data, |g|^2 = 1e38
         for b in SCAN_EDGE_B:
-            q = _unit(g16[:b].to(torch.float32) + 0.1 * torch.randn((b, d), generator=gen, device=dev))
+            q = _unit(g16[:b].to(F32) + 0.1 * randn(gen, b, d))
             check_min2(dk._augment_queries(q, d, da), ga, nv)
             cases["tilemin2_packed"] += 1
     bmax = max(SINGLE_EDGE_B)
@@ -922,7 +927,7 @@ def check_sm90_edges(dev):
             for b in SINGLE_EDGE_B:
                 check_single(dk._augment_queries(q32[:b], d, da), ga, nv, tg)
                 cases["tilemin_packed"] += 1
-    big = torch.tensor(plain.BIG_DIST, dtype=torch.float32).item()
+    big = torch.tensor(plain.BIG_DIST, dtype=F32).item()
     for edges, bs in ((QUANT_EDGES, SCAN_EDGE_B), (TILE_EDGES, TILE_EDGE_B), (QUANT_BF16_EDGES, QUANT_BF16_EDGE_B)):
         for n, nv, d in edges:
             g32, q32, g16 = edge_data(gen, n, nv, d, max(bs))
@@ -937,7 +942,7 @@ def check_sm90_edges(dev):
                 for b in bs:
                     name = f"edge N={n} n_valid={nv} D={d} B={b}"
                     if edges is TILE_EDGES:
-                        runs = [(f"{name} {'bf16' if bf else 'f32'}-scores", q32[:b].to(torch.bfloat16).contiguous(),
+                        runs = [(f"{name} {'bf16' if bf else 'f32'}-scores", q32[:b].to(BF16).contiguous(),
                                  gp, dict(bf16_scores=bf), float("inf") if bf else big) for bf in (False, True)]
                     else:
                         qq, qs = quantize_rows(q32[:b])
@@ -949,7 +954,7 @@ def check_sm90_edges(dev):
                     for name_, q_, g_, kw, pad_value in runs:
                         kd, ki, pd = check_tile_scan(name_, q_, g_, gsq, tg, None, verbose=False, **kw)
                         if not whole_pad_ok(kd, ki, pd, nv, tg, pad_value):
-                            raise AssertionError(f"whole-pad tiles disagree ({name_}, tile_g={tg})")
+                            fail(f"whole-pad tiles disagree ({name_}, tile_g={tg})")
                         cases["tilemin" if edges is TILE_EDGES else "tilemin_quant_bf16"] += 1
     return cases
 
@@ -958,7 +963,7 @@ def check_topk_slabs(dev):
     """``topk_l2`` at k in :data:`TOPK_SLAB_K` vs plain in one pass, untimed:
     300 x 100,000 rows, D 128; bf16, precise over bf16 and fp32 rows, a
     window, a mask. Returns the cases."""
-    gen = torch.Generator(device=dev).manual_seed(37)
+    gen = gen_on(dev, 37)
     nv, b = 99_000, 300
     g32, q32, g16 = edge_data(gen, 100_000, nv, 128, b)
     mask = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -979,16 +984,16 @@ def check_split_precise(dev):
     """The split pass over bf16 rows: planes equal ``plain.split_bf16x3``;
     on queries = rows x (1 + 2^-9 + 2^-18) within :data:`SPLIT_PROBE_TOL` of
     fp64, the hi + mid product not within 1.5x that. Returns both errors."""
-    gen = torch.Generator(device=dev).manual_seed(41)
+    gen = gen_on(dev, 41)
     n, d = 4096, 1280
-    g = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16)
+    g = _unit(randn(gen, n, d)).to(BF16)
     worst = [0.0, float("inf")]
     for b, window in ((130, None), (257, (5, d - 3))):
         lo, hi = window if window is not None else (0, d)
         q = (g[:b].float() * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
         out = {}
         kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
-        torch.cuda.synchronize()
+        sync()
         qw = torch.zeros_like(q)
         qw[:, lo:hi] = q[:, lo:hi]
         want = torch.zeros_like(out["planes"])
@@ -1010,9 +1015,9 @@ def check_split_precise(dev):
         print(f"  split precise B={b} window={window}: planes_equal={planes_eq} lo_zeroed_equal={ctrl_eq} "
               f"qsq_rel={qsq_err:.2e} own_rows={rows_ok} kernel_err={err_k:.3e} hi+mid_err={err_two:.3e}", flush=True)
         if not (planes_eq and not ctrl_eq and qsq_err <= 2.0**-20 and rows_ok):
-            raise AssertionError(f"split_queries' planes or |q|^2 disagree with plain.split_bf16x3 (B={b})")
+            fail(f"split_queries' planes or |q|^2 disagree with plain.split_bf16x3 (B={b})")
         if err_k > SPLIT_PROBE_TOL or err_two <= 1.5 * SPLIT_PROBE_TOL:
-            raise AssertionError(f"the split precise pass does not compute the three-term product (B={b})")
+            fail(f"the split precise pass does not compute the three-term product (B={b})")
         worst = [max(worst[0], err_k), min(worst[1], err_two)]
     return worst
 
@@ -1021,9 +1026,9 @@ def check_split6_precise(dev):
     """The six-product pass over fp32 rows: on rows = a bf16 row x (1 +
     2^-9 + 2^-18), queries half a row, within :data:`SPLIT_PROBE_TOL` of
     fp64, three products not within 1.5x that. Returns both errors."""
-    gen = torch.Generator(device=dev).manual_seed(43)
+    gen = gen_on(dev, 43)
     n, d = 4096, 1280
-    h = _unit(torch.randn((n, d), generator=gen, device=dev)).to(torch.bfloat16).float()
+    h = _unit(randn(gen, n, d)).to(BF16).float()
     g = (h * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
     worst = [0.0, float("inf")]
     for b in (130, 257):
@@ -1032,7 +1037,7 @@ def check_split6_precise(dev):
             q = (0.5 * g[:b]).contiguous()
             out = {}
             kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
-            torch.cuda.synchronize()
+            sync()
             qw = torch.zeros_like(q)
             qw[:, lo:hi] = q[:, lo:hi]
             planes_eq = all(torch.equal(out["planes"][p_, :b].view(torch.int16), t.view(torch.int16))
@@ -1049,9 +1054,9 @@ def check_split6_precise(dev):
             print(f"  six-product pass B={b} window={window}: planes_equal={planes_eq} own_rows={rows_ok} "
                   f"kernel_err={err_k:.3e} three_products_err={err_three:.3e}", flush=True)
             if not (planes_eq and rows_ok):
-                raise AssertionError(f"the six-product pass's query planes or rows disagree (B={b}, window {window})")
+                fail(f"the six-product pass's query planes or rows disagree (B={b}, window {window})")
             if err_k > SPLIT_PROBE_TOL or err_three <= 1.5 * SPLIT_PROBE_TOL:
-                raise AssertionError(f"the six-product pass does not compute the six products (B={b}, {window})")
+                fail(f"the six-product pass does not compute the six products (B={b}, {window})")
             worst = [max(worst[0], err_k), min(worst[1], err_three)]
     return worst
 
@@ -1060,7 +1065,7 @@ def full_significand_rows(g, seed: int):
     """fp32 unit rows normalize(g + 2^-8 noise) near the bf16 rows ``g``,
     full 24-bit significands."""
     gen = torch.Generator(device=g.device).manual_seed(seed)
-    out = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    out = torch.empty(g.shape, dtype=F32, device=g.device)
     for s in range(0, g.shape[0], 65536):
         rows = g[s : s + 65536].float()
         out[s : s + rows.shape[0]] = _unit(rows + 2.0**-8 * torch.randn(rows.shape, generator=gen, device=g.device))
@@ -1071,11 +1076,11 @@ def check_big_grids(dev):
     """Galleries past the 65,535-block caps vs plain, untimed: the bf16 tile
     scan (8.4M rows, tile_g 128), the int8 scan (134M rows), ``topk_l2``
     (537M rows; bf16 k 1 and 17, precise over bf16 and fp32 rows)."""
-    gen = torch.Generator(device=dev).manual_seed(41)
+    gen = gen_on(dev, 41)
     b = 130  # two 128-query tiles
     n_tiles = 65_600
-    g = _unit(torch.randn((n_tiles * 128, 16), generator=gen, device=dev)).to(torch.bfloat16)
-    q = _unit(torch.randn((b, 16), generator=gen, device=dev)).to(torch.bfloat16)
+    g = _unit(randn(gen, n_tiles * 128, 16)).to(BF16)
+    q = _unit(randn(gen, b, 16)).to(BF16)
     nv = n_tiles * 128 - 200  # the last tile holds only rows past n_valid
     check_tile_scan(f"big-grid {n_tiles} tiles", q, g, dk.gallery_sq_norms(g, nv, 128), 128, None)
     done = [f"tilemin {n_tiles} tiles of 128 x 16"]
@@ -1092,14 +1097,14 @@ def check_big_grids(dev):
     done.append(f"tilemin_quant int8 and bf16 over {n} x 16 ({-(-n // 2048)} segments)")
     del g8, gsq, gsc
     n = 65_537 * 8192  # 65,537 segments of 8,192 rows (precise, k > 16); 262,148 of 2,048 (bf16)
-    for dtype in (torch.bfloat16, torch.float32):  # 8.6 GB, then 17.2 GB of rows
+    for dtype in (BF16, F32):  # 8.6 GB, then 17.2 GB of rows
         g = torch.empty((n, 8), dtype=dtype, device=dev)
         for r0 in range(0, n, 1 << 26):
             r1 = min(n, r0 + (1 << 26))
-            g[r0:r1] = _unit(torch.randn((r1 - r0, 8), generator=gen, device=dev)).to(dtype)
-        if dtype == torch.bfloat16:
-            q = _unit(torch.randn((65, 8), generator=gen, device=dev))  # two query blocks of 64
-        for k, precise in ((1, False), (1, True), (17, False)) if dtype == torch.bfloat16 else ((1, True),):
+            g[r0:r1] = _unit(randn(gen, r1 - r0, 8)).to(dtype)
+        if dtype == BF16:
+            q = _unit(randn(gen, 65, 8))  # two query blocks of 64
+        for k, precise in ((1, False), (1, True), (17, False)) if dtype == BF16 else ((1, True),):
             check_topk(g, n, q, k, precise=precise, chunk_rows=1 << 23)
         del g
     done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 over bf16 and fp32 rows, bf16 "
@@ -1119,26 +1124,25 @@ def check_packed_service(info, gallery, labels, emb, images, serve, dev, launche
     exact = RecognitionService(None, info, gallery[:n], match="exact", **kw)
     da = svc.gal_aug.shape[1]
     if da != 768:
-        raise AssertionError(f"the PCA-700 packed service has Da = {da}, not 768")
+        fail(f"the PCA-700 packed service has Da = {da}, not 768")
     idx = counted(lambda: svc.identify_device(images))
-    torch.cuda.synchronize()
+    sync()
     check_launches("pca700", launches, tilemin2_packed=1, topk_l2=1)
     esc = svc.last_escalated.float().mean().item()
-    with torch.no_grad():
-        idx_e = exact._match_emb(emb)
-        e16 = emb.to(torch.bfloat16).to(torch.float32)
-        d = [((e16 - gallery[i.long()].to(torch.float32)) ** 2).sum(-1) for i in (idx, idx_e)]
-        check_cert_scan(svc, emb, report)
-        fast_agree = check_certified_pick(svc, emb, idx_e)
+    idx_e = exact._match_emb(emb)
+    e16 = emb.to(BF16).to(F32)
+    d = [((e16 - gallery[i.long()].to(F32)) ** 2).sum(-1) for i in (idx, idx_e)]
+    check_cert_scan(svc, emb, report)
+    fast_agree = check_certified_pick(svc, emb, idx_e)
     differ = idx != idx_e
     tie = (d[0] - d[1]).abs() <= 2.0**-12 * d[1] + 1e-6
-    phase(f"service pca_dim=700 packed (Da={da}) over {n} rows ({time.time() - t:.1f} s): "
-          f"rows_equal_exact={100 * (1 - differ.float().mean().item()):.3f}% rest_near_ties="
+    phase(f"service pca_dim=700 packed Da={da} rows={n} ({since(t)}): "
+          f"rows_equal_exact={100 - pct(differ):.3f}% rest_near_ties="
           f"{bool((tie | ~differ).all())} escalated={100 * esc:.2f}% pick_equal_exact={fast_agree:.3f}% "
-          f"error={100 * float(np.mean(labels[idx.cpu().numpy()] != np.arange(len(idx)))):.3f}% "
+          f"error={100 * float(np.mean(labels[host(idx)] != np.arange(len(idx)))):.3f}% "
           f"launches={launches['pca700']}")
     if not bool((tie | ~differ).all()):
-        raise AssertionError("the PCA-700 packed service disagrees with match='exact' beyond near-ties")
+        fail("the PCA-700 packed service disagrees with match='exact' beyond near-ties")
 
 
 def check_single_scan(name, qa, ga, tile_g, report):
@@ -1146,7 +1150,7 @@ def check_single_scan(name, qa, ga, tile_g, report):
     within 2^-12 relative, rows as :func:`keys_ok` asks."""
     keys = build.launch_tilemin_packed(qa, ga, tile_g)
     ref = plain.tilemin_packed_plain(qa, ga, tile_g)
-    torch.cuda.synchronize()
+    sync()
     kd, pd = dk._key_to_dist(keys, tile_g), dk._key_to_dist(ref, tile_g)
     err = (kd - pd).abs().max().item()
     rel = err / max(pd.abs().max().item(), 1e-30)
@@ -1161,10 +1165,10 @@ def check_single_scan(name, qa, ga, tile_g, report):
     yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
     b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4)
     phase(f"single-min scan {name} B={b} Np={np_} Da={da} tile_g={tile_g}: keys_equal={100 * key_eq:.3f}% "
-          f"rows_equal={100 * row_eq:.3f}% max_gap={err:.3e} ({rel:.2e} rel) rows_ok={rows_ok}; ms={ms:.3f} "
-          f"plain={plain_ms:.3f} matmul+min={yard_ms:.3f} bound={b_ms:.3f} ({b_by})")
+          f"rows_equal={100 * row_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} rows_ok={rows_ok} "
+          + times(ms, plain_ms, yard_ms, b_ms, b_by))
     if rel > 2.0**-12 or not rows_ok:
-        raise AssertionError(f"single-min scan kernel disagrees with its plain version ({name})")
+        fail(f"single-min scan kernel disagrees with its plain version ({name})")
     report.setdefault("shapes", []).append(dict(
         shape=name, b=b, np=np_, da=da, tile_g=tile_g, max_abs_err=err, keys_equal=key_eq,
         ms=ms, plain_ms=plain_ms, yardstick_matmul_min_ms=yard_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1175,10 +1179,9 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
     """The exact step at ~``share`` escalation, three ways on one mask (the
     escalated probes in front, as the service does; in place; gathered
     behind a host sync), same rows all three. Returns the timings."""
-    gen = torch.Generator(device=dev).manual_seed(5)
+    gen = gen_on(dev, 5)
     esc = torch.rand(emb.shape[0], generator=gen, device=dev) < share
-    with torch.no_grad():
-        pick = svc._certified(emb)[1].to(torch.int32)
+    pick = svc._certified(emb)[1].to(torch.int32)
 
     def in_place():
         _, ei = dk.topk_l2(emb, gallery, 1, n_valid=svc.n_valid, row_mask=esc)
@@ -1192,13 +1195,12 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
         return out
 
     ways = {"front": lambda: svc._escalate(emb, pick, esc), "in_place": in_place, "gather_sync": gathered}
-    with torch.no_grad():
-        outs = {k: f() for k, f in ways.items()}
-        if not all(bool((o == outs["gather_sync"]).all()) for o in outs.values()):
-            raise AssertionError("the escalation ways disagree")
-        ms = {k: [] for k in ways}
-        for k in ("gather_sync", "front", "in_place", "in_place", "front", "gather_sync"):
-            ms[k].append(host_ms(ways[k], TIMED_CALLS))
+    outs = {k: f() for k, f in ways.items()}
+    if not all(bool((o == outs["gather_sync"]).all()) for o in outs.values()):
+        fail("the escalation ways disagree")
+    ms = {k: [] for k in ways}
+    for k in ("gather_sync", "front", "in_place", "in_place", "front", "gather_sync"):
+        ms[k].append(host_ms(ways[k], TIMED_CALLS))
     n_esc = int(esc.sum())
     qt = build.topk_l2_query_rows()  # the exact scan's query tiles that hold an escalated probe
     front_blocks = -(-n_esc // qt)
@@ -1212,12 +1214,12 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
 def random_unit_gallery(n: int, dim: int, dev, seed: int = 1):
     """bench.py's bf gallery: ``n`` (to 1024) bf16 rows normalize(N(0, I))."""
     n_pad = -(-n // 1024) * 1024
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    gal = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    gen = gen_on(dev, seed)
+    gal = torch.empty((n_pad, dim), dtype=BF16, device=dev)
     for s in range(0, n_pad, 65536):
         rows = torch.randn((min(65536, n_pad - s), dim), generator=gen, device=dev)
         gal[s : s + rows.shape[0]] = (rows * torch.rsqrt(torch.clamp_min((rows * rows).sum(1), 1e-30))[:, None]).to(
-            torch.bfloat16
+            BF16
         )
     return gal
 
@@ -1248,29 +1250,28 @@ def cascade_breakdown(casc, images, caps, report):
     net = casc.net
     carry = images
     rows = []
-    with torch.no_grad():
-        for level, (start, end) in enumerate(casc.segments):
-            final = level == casc.num_levels - 1
-            def seg(carry=carry, level=level, start=start, end=end):
-                return net.run_blocks(net.stem(carry) if level == 0 else carry, start, end)
-            seg_ms = host_ms(seg, 3)
-            h = seg()
-            emb = _normalize(net.head(h)) if final else casc._level_embedding(level, h)
-            match_ms = host_ms(lambda: casc._level_match(level, emb), 3)
-            if final:
-                q, aug, d = (emb - casc._mu) @ casc._w, casc._gal_aug, casc.pca_dim
-            else:
-                a = casc._tap_assets[level]
-                q, aug, d = emb, a["aug"], a["dim"]
-            qa = dk._augment_queries(q, d, aug.shape[1])
-            k_ms = cuda_ms(lambda: build.launch_tilemin_packed(qa, aug, casc._tile_g), reps=10)
-            b = qa.shape[0]
-            b_ms, b_by = bound(2.0 * b * aug.shape[0] * aug.shape[1],
-                               aug.numel() * 2 + qa.numel() * 2 + b * (aug.shape[0] // casc._tile_g) * 4)
-            rows.append(dict(level=level, batch=b, segment_ms=seg_ms, match_ms=match_ms,
-                             kernel_ms=k_ms, bound_ms=b_ms, bound_by=b_by))
-            if not final:
-                carry = h[: min(caps[level + 1], h.shape[0])]
+    for level, (start, end) in enumerate(casc.segments):
+        final = level == casc.num_levels - 1
+        def seg(carry=carry, level=level, start=start, end=end):
+            return net.run_blocks(net.stem(carry) if level == 0 else carry, start, end)
+        seg_ms = host_ms(seg, 3)
+        h = seg()
+        emb = _normalize(net.head(h)) if final else casc._level_embedding(level, h)
+        match_ms = host_ms(lambda: casc._level_match(level, emb), 3)
+        if final:
+            q, aug, d = (emb - casc._mu) @ casc._w, casc._gal_aug, casc.pca_dim
+        else:
+            a = casc._tap_assets[level]
+            q, aug, d = emb, a["aug"], a["dim"]
+        qa = dk._augment_queries(q, d, aug.shape[1])
+        k_ms = cuda_ms(lambda: build.launch_tilemin_packed(qa, aug, casc._tile_g), reps=10)
+        b = qa.shape[0]
+        b_ms, b_by = bound(2.0 * b * aug.shape[0] * aug.shape[1],
+                           aug.numel() * 2 + qa.numel() * 2 + b * (aug.shape[0] // casc._tile_g) * 4)
+        rows.append(dict(level=level, batch=b, segment_ms=seg_ms, match_ms=match_ms,
+                         kernel_ms=k_ms, bound_ms=b_ms, bound_by=b_by))
+        if not final:
+            carry = h[: min(caps[level + 1], h.shape[0])]
     report["per_level"] = rows
     return rows
 
@@ -1283,14 +1284,14 @@ def run_cascade(casc, images, path, launches, smi, labels, refs, plain_sec=None,
     no_sync(lambda: casc.identify_device(images))
     out, ms = timed(lambda: casc.identify_device(images))
     check_launches(path, launches, tilemin_packed=(TIMED_CALLS + 2) * casc.num_levels)
-    packed = out.cpu().numpy()
+    packed = host(out)
     b = images.shape[0]
     idx, exit_level, forced = packed[:b].astype(np.int64), packed[b : 2 * b], int(packed[-1])
     if packed.shape != (2 * b + 1,) or not ((idx >= 0) & (idx < casc.n_valid)).all():
-        raise AssertionError(f"{path} returned rows outside the gallery")
-    row = dict(img_s=b / ms * 1e3, ms=ms, error_pct=100.0 * float(np.mean(labels[idx] != np.arange(b))),
+        fail(f"{path} returned rows outside the gallery")
+    row = dict(img_s=b / ms * 1e3, ms=ms, error_pct=pct(labels[idx] != np.arange(b)),
                exits=[round(float(f), 4) for f in np.bincount(exit_level, minlength=casc.num_levels) / b],
-               forced=forced / b, **{f"{k}_label_agreement_pct": 100.0 * float(np.mean(labels[idx] == labels[r]))
+               forced=forced / b, **{f"{k}_label_agreement_pct": pct(labels[idx] == labels[r])
                                      for k, r in refs.items()})
     if plain_sec:
         row["speedup_over_plain"] = plain_sec / (ms / 1e3)
@@ -1298,29 +1299,28 @@ def run_cascade(casc, images, path, launches, smi, labels, refs, plain_sec=None,
     if breakdown:
         per_level = cascade_breakdown(casc, images, *breakdown)
         phase(f"{path} breakdown per level: " + "; ".join(
-            f"L{r['level']} B={r['batch']}: segment {r['segment_ms']:.2f} ms, match {r['match_ms']:.2f} ms, "
-            f"scan {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}, {r['bound_by']})" for r in per_level))
+            f"L{r['level']} " + kv(r, "batch", "segment_ms", "match_ms", "kernel_ms", "bound_ms", "bound_by")
+            for r in per_level))
     caps = casc.capacities_for(b)
-    with torch.no_grad():
-        trace_k, trace_p = [], []
-        out_k = casc._run(images, caps, trace_k)
-        kernel_keys = dk.tilemin_keys
-        dk.tilemin_keys = lambda q_aug, g_aug, tile_g: plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
-        try:
-            out_p = casc._run(images, caps, trace_p)
-        finally:
-            dk.tilemin_keys = kernel_keys
+    trace_k, trace_p = [], []
+    out_k = casc._run(images, caps, trace_k)
+    kernel_keys = dk.tilemin_keys
+    dk.tilemin_keys = lambda q_aug, g_aug, tile_g: plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
+    try:
+        out_p = casc._run(images, caps, trace_p)
+    finally:
+        dk.tilemin_keys = kernel_keys
     tie = (near_ties(trace_k, caps, b) | near_ties(trace_p, caps, b)).cpu().numpy()
-    ok_k, ok_p = out_k.cpu().numpy(), out_p.cpu().numpy()
+    ok_k, ok_p = host(out_k), host(out_p)
     differ = (ok_k[:b] != ok_p[:b]) | (ok_k[b:-1] != ok_p[b:-1])
-    row["early_exits_pct"] = 100.0 * float(np.mean(ok_k[b:-1] < casc.num_levels - 1))
+    row["early_exits_pct"] = pct(ok_k[b:-1] < casc.num_levels - 1)
     phase(f"{path} decisions, kernel vs plain scan: differ={int(differ.sum())}/{b} all_near_ties="
           f"{bool((tie | ~differ).all())} forced={int(ok_k[-1])}/{int(ok_p[-1])} near_tie={100 * tie.mean():.3f}% "
           f"early_exits={row['early_exits_pct']:.3f}%")
     if not (tie | ~differ).all() or differ.mean() > 0.01 or abs(int(ok_k[-1]) - int(ok_p[-1])) > differ.sum():
-        raise AssertionError(f"{path} decisions differ from the plain scan's beyond near-ties")
+        fail(f"{path} decisions differ from the plain scan's beyond near-ties")
     if early and row["early_exits_pct"] == 0.0:
-        raise AssertionError(f"{path}: no probe exited before the final level")
+        fail(f"{path}: no probe exited before the final level")
     return row, idx
 
 
@@ -1361,9 +1361,9 @@ def run_mbconv_pair(x, q, cfg, plan=None):
                                             cfg["activation"] == "relu6", cfg["residual"])
     run_p = lambda: plain.mbconv_plain(x, q, k, pads, cfg["activation"], cfg["residual"])  # noqa: E731
     yk, yp = run_k(), run_p()
-    torch.cuda.synchronize()
+    sync()
     if not yk.is_contiguous(memory_format=torch.channels_last) or yk.shape != yp.shape:
-        raise AssertionError("the mbconv kernel's output has the wrong shape or layout")
+        fail("the mbconv kernel's output has the wrong shape or layout")
     def rel(sl):
         return ((yk.float() - yp.float())[sl].abs().max() / torch.clamp_min(yp.float()[sl].abs().max(), 1e-30)).item()
 
@@ -1376,46 +1376,44 @@ def check_mbconv_blocks(net, net_f, images, report):
     """The fused MBConv kernel vs plain at each stride-1 block on the per-op
     forward's activations, timed; shared memory equal to ``plane_smem``."""
     rows = []
-    with torch.no_grad():
-        h = net.stem(images)
-        for i, (name, blk) in enumerate(zip(net.names, net.blocks)):
-            if str(i) in net_f.fused_blocks:
-                if not h.is_contiguous(memory_format=torch.channels_last):
-                    raise AssertionError(f"the per-op input of {name} is not channels_last")
-                fb = net_f.fused_blocks[str(i)]
-                q = {n: getattr(fb, n) for n in fb.param_names}
-                yk, yp, (rel, border), eq, run_k, run_p = run_mbconv_pair(h, q, fb.cfg)
-                err = (yk.float() - yp.float()).abs().max().item()
-                del yk, yp
-                ms = cuda_ms(run_k, reps=5)
-                plain_ms = cuda_ms(run_p, reps=1)
-                per_op_ms = cuda_ms(lambda blk=blk, h=h: blk(h), reps=5)
-                b, cin, hw, _ = h.shape
-                cout, ce = q["w_proj_t"].shape
-                s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
-                plan = mb.plane_plan(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q)
-                smem = mb.plane_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q, *plan)
-                if build._lib("mbconv").mbconv_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, int("w_exp_t" in q),
-                                                    *plan) != smem:
-                    raise AssertionError(f"kernels/mbconv.cu and ops.mbconv_kernel.plane_smem disagree at {name}")
-                pbytes = sum(t.numel() * t.element_size() for t in q.values())  # the weights the kernel reads
-                b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp_t" in q, pbytes)
-                row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"],
-                           plan=dict(zip(("th", "tw", "group", "bufs", "ipb"), plan)), smem=smem,
-                           max_abs_err=err, rel_err=rel, border_rel_err=border, bit_equal=eq, ms=ms, plain_ms=plain_ms,
-                           per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
-                rows.append(row)
-                print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']} plan {plan} ({smem} B): "
-                      f"rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}% ms={ms:.3f} plain={plain_ms:.3f} "
-                      f"per_op={per_op_ms:.3f} bound={b_ms:.3f} ({b_by})", flush=True)
-                if max(rel, border) > MB_TOL:
-                    raise AssertionError(f"mbconv kernel disagrees with its plain version at {name}: {rel:.3e}")
-            h = blk(h)
+    h = net.stem(images)
+    for i, (name, blk) in enumerate(zip(net.names, net.blocks)):
+        if str(i) in net_f.fused_blocks:
+            if not h.is_contiguous(memory_format=torch.channels_last):
+                fail(f"the per-op input of {name} is not channels_last")
+            fb = net_f.fused_blocks[str(i)]
+            q = {n: getattr(fb, n) for n in fb.param_names}
+            yk, yp, (rel, border), eq, run_k, run_p = run_mbconv_pair(h, q, fb.cfg)
+            err = (yk.float() - yp.float()).abs().max().item()
+            del yk, yp
+            ms = cuda_ms(run_k, reps=5)
+            plain_ms = cuda_ms(run_p, reps=1)
+            per_op_ms = cuda_ms(lambda blk=blk, h=h: blk(h), reps=5)
+            b, cin, hw, _ = h.shape
+            cout, ce = q["w_proj_t"].shape
+            s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
+            plan = mb.plane_plan(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q)
+            smem = mb.plane_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q, *plan)
+            if build._lib("mbconv").mbconv_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, int("w_exp_t" in q),
+                                                *plan) != smem:
+                fail(f"kernels/mbconv.cu and ops.mbconv_kernel.plane_smem disagree at {name}")
+            pbytes = sum(t.numel() * t.element_size() for t in q.values())  # the weights the kernel reads
+            b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp_t" in q, pbytes)
+            row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"],
+                       plan=dict(zip(("th", "tw", "group", "bufs", "ipb"), plan)), smem=smem,
+                       max_abs_err=err, rel_err=rel, border_rel_err=border, bit_equal=eq, ms=ms, plain_ms=plain_ms,
+                       per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']} plan {plan} ({smem} B): "
+                  f"rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}% ms={ms:.3f} plain={plain_ms:.3f} "
+                  f"per_op={per_op_ms:.3f} bound={b_ms:.3f} ({b_by})", flush=True)
+            if max(rel, border) > MB_TOL:
+                fail(f"mbconv kernel disagrees with its plain version at {name}: {rel:.3e}")
+        h = blk(h)
     tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "per_op_ms", "bound_ms")}
     slower = [r["block"] for r in rows if r["ms"] > r["per_op_ms"]]
-    phase(f"mbconv blocks ({len(rows)}, B={images.shape[0]}) within {MB_TOL:.2e} of max |plain|, borders too; summed "
-          f"ms={tot['ms']:.3f} plain={tot['plain_ms']:.3f} per_op={tot['per_op_ms']:.3f} bound={tot['bound_ms']:.3f}; "
-          f"slower than per-op: {slower}")
+    phase(f"mbconv blocks={len(rows)} B={images.shape[0]} tol={MB_TOL:.2e} (borders too) summed: " + kv(
+        tot, "ms", "plain_ms", "per_op_ms", "bound_ms") + f" slower_than_per_op={slower}")
     report["blocks"] = rows
     report["total"] = tot
     return rows
@@ -1425,13 +1423,13 @@ def check_mbconv_edges(net_f, dev):
     """The fused MBConv kernel vs plain off the path's shapes, untimed: B 1
     and 130, a 15 plane, relu6, no SE, no expand, k 7, an inflated expand
     bias and :data:`FORCED_MB_PLANS` (:func:`run_mbconv_cases`)."""
-    gen = torch.Generator(device=dev).manual_seed(29)
+    gen = gen_on(dev, 29)
 
     def params(i):
         fb = net_f.fused_blocks[str(i)]
         return {n: getattr(fb, n) for n in fb.param_names}, dict(fb.cfg)
 
-    def rnd(*shape, scale=1.0, dtype=torch.float32):
+    def rnd(*shape, scale=1.0, dtype=F32):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
     cases = []
@@ -1470,23 +1468,22 @@ def run_mbconv_cases(cases, gen):
     input: kernel vs plain within MB_TOL of max |plain|, borders too; the
     plan's shared memory equal to ``plane_smem``. Returns the cases."""
     out = []
-    with torch.no_grad():
-        for name, q, cfg, b, hw, plan in cases:
-            cout_, ce_ = q["w_proj_t"].shape
-            c_in = q["w_exp_t"].shape[1] if "w_exp_t" in q else ce_
-            s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
-            geo = (hw, hw, cfg["kernel"], c_in, ce_, cout_, s_)
-            pl = plan or mb.plane_plan(*geo, "w_exp_t" in q)
-            smem = mb.plane_smem(*geo, "w_exp_t" in q, *pl)
-            if smem < 0 or build._lib("mbconv").mbconv_smem(*geo, int("w_exp_t" in q), *pl) != smem:
-                raise AssertionError(f"mbconv plan {pl} ({name}): the kernel refuses it or its shared "
-                                     f"memory differs from ops.mbconv_kernel.plane_smem ({smem})")
-            x = torch.randn((b, hw, hw, c_in), generator=gen, device=gen.device).to(torch.bfloat16).permute(0, 3, 1, 2)
-            _, _, (rel, border), eq, _, _ = run_mbconv_pair(x, q, cfg, plan)
-            print(f"  mbconv edge {name}: rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}%", flush=True)
-            if rel > MB_TOL or border > MB_TOL:
-                raise AssertionError(f"mbconv kernel disagrees with its plain version ({name})")
-            out.append(dict(case=name, rel_err=rel, border_rel_err=border, bit_equal=eq))
+    for name, q, cfg, b, hw, plan in cases:
+        cout_, ce_ = q["w_proj_t"].shape
+        c_in = q["w_exp_t"].shape[1] if "w_exp_t" in q else ce_
+        s_ = q["w_se1"].shape[1] if "w_se1" in q else 0
+        geo = (hw, hw, cfg["kernel"], c_in, ce_, cout_, s_)
+        pl = plan or mb.plane_plan(*geo, "w_exp_t" in q)
+        smem = mb.plane_smem(*geo, "w_exp_t" in q, *pl)
+        if smem < 0 or build._lib("mbconv").mbconv_smem(*geo, int("w_exp_t" in q), *pl) != smem:
+            fail(f"mbconv plan {pl} ({name}): the kernel refuses it or its shared "
+                 f"memory differs from ops.mbconv_kernel.plane_smem ({smem})")
+        x = torch.randn((b, hw, hw, c_in), generator=gen, device=gen.device).to(BF16).permute(0, 3, 1, 2)
+        _, _, (rel, border), eq, _, _ = run_mbconv_pair(x, q, cfg, plan)
+        print(f"  mbconv edge {name}: rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}%", flush=True)
+        if rel > MB_TOL or border > MB_TOL:
+            fail(f"mbconv kernel disagrees with its plain version ({name})")
+        out.append(dict(case=name, rel_err=rel, border_rel_err=border, bit_equal=eq))
     return out
 
 
@@ -1497,10 +1494,10 @@ def device_trace(fn):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-        torch.cuda.synchronize()
+        sync()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None
@@ -1517,22 +1514,21 @@ def device_trace(fn):
 def check_s2d_stem(np_vars, net, net_f, images, dev):
     """The space-to-depth stem vs the stride-2 stem at fp32 within JAX's
     2e-5; both stems' times in bf16."""
-    kw = dict(resolution=RES, dtype=torch.float32, device=dev)
+    kw = dict(resolution=RES, dtype=F32, device=dev)
     plain32, s2d32 = make_infer_fn(np_vars, "b0", **kw), make_infer_fn(np_vars, "b0", space_to_depth=True, **kw)
     if not s2d32.space_to_depth or plain32.space_to_depth:
-        raise AssertionError("the space-to-depth fold is missing")
-    with torch.no_grad():
-        a, b = plain32.stem(images), s2d32.stem(images)
-        err = (a - b).abs().max().item()
-        ok = bool(torch.allclose(b, a, rtol=2e-5, atol=2e-5))
-        scale = a.abs().max().item()
-        del a, b
-        ms_plain = cuda_ms(lambda: net.stem(images), reps=5)
-        ms_s2d = cuda_ms(lambda: net_f.stem(images), reps=5)
+        fail("the space-to-depth fold is missing")
+    a, b = plain32.stem(images), s2d32.stem(images)
+    err = (a - b).abs().max().item()
+    ok = bool(torch.allclose(b, a, rtol=2e-5, atol=2e-5))
+    scale = a.abs().max().item()
+    del a, b
+    ms_plain = cuda_ms(lambda: net.stem(images), reps=5)
+    ms_s2d = cuda_ms(lambda: net_f.stem(images), reps=5)
     phase(f"s2d stem (fp32, B={images.shape[0]}): max_gap={err:.3e} of {scale:.3f} within_2e-5={ok}; bf16 "
           f"ms plain={ms_plain:.3f} s2d={ms_s2d:.3f}")
     if not ok:
-        raise AssertionError("the space-to-depth stem disagrees with the plain stem")
+        fail("the space-to-depth stem disagrees with the plain stem")
     return dict(max_abs_err=err, max_abs=scale, plain_stem_ms=ms_plain, s2d_stem_ms=ms_s2d)
 
 
@@ -1542,7 +1538,7 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     host sync, launches; its embedding within 0.05 of the per-op one (JAX's
     bound); labels equal but at swapped near-ties (2^-7); a trace a line."""
     if len(net_f.fused_blocks) != n_fused:
-        raise AssertionError(f"{path}: the module fuses {len(net_f.fused_blocks)} blocks, not {n_fused}")
+        fail(f"{path}: the module fuses {len(net_f.fused_blocks)} blocks, not {n_fused}")
     svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=net_f,
                              pca_dim=124, pca_scan="packed", device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1551,46 +1547,45 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     sec = ms / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     out2 = no_sync(lambda: svc.identify_device(images))
-    torch.cuda.synchronize()
+    sync()
     calls = TIMED_CALLS + 2
     check_launches(path, launches, mbconv=n_fused * calls, tilemin2_packed=calls, topk_l2=calls)
     if not bool((out2 == out).all()):
-        raise AssertionError(f"{path}: the answers changed under sync debug mode")
-    with torch.no_grad():
-        embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
-        eu, ef = net(images)["embedding"], net_f(images)["embedding"]
-        emb_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
-        nu, nf = _unit(eu), _unit(ef)
-        idx_f = out.to(torch.int64)
-        gf, gu = gallery[idx_f].to(torch.float32), gallery[torch.as_tensor(idx, device=dev)].to(torch.float32)
-        d_ff, d_fu, d_uf, d_uu = (((e - g) ** 2).sum(1) for e, g in ((nf, gf), (nf, gu), (nu, gf), (nu, gu)))
-        swapped = ((d_ff <= d_fu + 2.0**-7 * torch.maximum(d_ff, d_fu))
-                   & (d_uu <= d_uf + 2.0**-7 * torch.maximum(d_uf, d_uu))).cpu().numpy()
-    idx_f = idx_f.cpu().numpy()
+        fail(f"{path}: the answers changed under sync debug mode")
+    embed_ms = host_ms(lambda: svc._embed(images), TIMED_CALLS)
+    eu, ef = net(images)["embedding"], net_f(images)["embedding"]
+    emb_rel = ((ef - eu).abs().max() / eu.abs().max()).item()
+    nu, nf = _unit(eu), _unit(ef)
+    idx_f = out.to(torch.int64)
+    gf, gu = gallery[idx_f].to(F32), gallery[torch.as_tensor(idx, device=dev)].to(F32)
+    d_ff, d_fu, d_uf, d_uu = (((e - g) ** 2).sum(1) for e, g in ((nf, gf), (nf, gu), (nu, gf), (nu, gu)))
+    swapped = ((d_ff <= d_fu + 2.0**-7 * torch.maximum(d_ff, d_fu))
+               & (d_uu <= d_uf + 2.0**-7 * torch.maximum(d_uf, d_uu))).cpu().numpy()
+    idx_f = host(idx_f)
     label_differs = labels[idx_f] != labels[idx]
     row = dict(img_s=len(idx_f) / sec, ms=1e3 * sec, embed_ms=embed_ms, speedup_over_plain_line=plain_sec / sec,
-               error_pct=100.0 * float(np.mean(labels[idx_f] != np.arange(len(idx_f)))),
-               row_agreement_plain_line_pct=100.0 * float(np.mean(idx_f == idx)),
-               label_agreement_plain_line_pct=100.0 * float(np.mean(~label_differs)),
-               row_agreement_oracle_pct=100.0 * float(np.mean(idx_f == idx_oracle)),
-               label_agreement_oracle_pct=100.0 * float(np.mean(labels[idx_f] == labels[idx_oracle])),
+               error_pct=pct(labels[idx_f] != np.arange(len(idx_f))),
+               row_agreement_plain_line_pct=pct(idx_f == idx),
+               label_agreement_plain_line_pct=pct(~label_differs),
+               row_agreement_oracle_pct=pct(idx_f == idx_oracle),
+               label_agreement_oracle_pct=pct(labels[idx_f] == labels[idx_oracle]),
                label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)),
                embedding_rel_diff=emb_rel,
-               escalated_pct=100.0 * svc.last_escalated.float().mean().item(), peak_gib=peak_gib,
+               escalated_pct=pct(svc.last_escalated), peak_gib=peak_gib,
                launches=launches[path])
     phase(f"{path} path ({smi}): " + kv(row, *row) + "; no host sync")
     if emb_rel > 0.05:
-        raise AssertionError(f"{path}: the embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
+        fail(f"{path}: the embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
     if row["label_differs_not_near_tie"]:
-        raise AssertionError(f"{path}: labels differ from the per-op line's beyond near-ties")
+        fail(f"{path}: labels differ from the per-op line's beyond near-ties")
     for line, s_ in (("plain", svc_u), (path, svc)):
         row[f"trace_{line}"] = trace_line(line, lambda s_=s_: s_.identify_device(images), "mbconv_sm90")
     return row
 
 
 def kv(row, *keys):
-    """``key=value`` text of ``row``'s ``keys``, floats to 4 decimals."""
-    return " ".join(f"{k}={round(row[k], 4) if isinstance(row[k], float) else row[k]}" for k in keys)
+    """``key=value`` text of ``row``'s ``keys`` (default all but the first), floats to 4 places."""
+    return " ".join(f"{k}={round(row[k], 4) if isinstance(row[k], float) else row[k]}" for k in keys or list(row)[1:])
 
 
 def trace_line(line, fn, kernel):
@@ -1621,7 +1616,7 @@ PEAK_SFU_RCP = 16 * 132 * 1.98e9
 
 def chi2_rescore(q, g, rows):
     """fp32 ``sum (g - q)^2 / max(g + q, 1e-30)`` of each query and its row."""
-    r = g[rows.long()].to(torch.float32)
+    r = g[rows.long()].to(F32)
     return ((r - q).square() / (r + q).clamp_min(1e-30)).sum(dim=1)
 
 
@@ -1639,11 +1634,11 @@ def check_chi2(q, g, n_valid, tag, timed=False):
     within CHI2_TOL of the plain minimum. (report row, kernel min, rows)."""
     kd, ki = build.launch_chi2(q, g, n_valid)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    sync()
     start.record()
     pd, pi = plain.chi2_nn_plain(q, g, n_valid)
     end.record()
-    torch.cuda.synchronize()
+    sync()
     plain_ms = start.elapsed_time(end)  # one call: it takes seconds
     in_range = bool(((ki >= 0) & (ki < n_valid)).all())
     d_rows = chi2_rescore(q, g, ki)
@@ -1663,14 +1658,14 @@ def check_chi2(q, g, n_valid, tag, timed=False):
           + (f"; ms={row['ms']:.3f} plain={plain_ms:.1f} bound={row['bound_ms']:.3f} (reciprocals; fp32 "
              f"{terms['fp32']:.3f}, bytes {terms['bytes']:.3f})" if timed else ""))
     if not ok:
-        raise AssertionError(f"chi2 kernel disagrees with its plain version ({tag}, {row['shape']})")
+        fail(f"chi2 kernel disagrees with its plain version ({tag}, {row['shape']})")
     return row, kd, ki
 
 
 def check_chi2_edges(dev):
     """The chi2 kernel at edge shapes, untimed: B 1 and 130, D 100, zero
     rows past n_valid 900, n_valid 896, bf16 rows, equal rows."""
-    gen = torch.Generator(device=dev).manual_seed(29)
+    gen = gen_on(dev, 29)
 
     def rows(m, d):
         x = torch.rand((m, d), generator=gen, device=dev)
@@ -1685,8 +1680,8 @@ def check_chi2_edges(dev):
         q[::2] *= 0.01  # sum(q) = 0.01: a zero row would beat every real row
         unmasked = plain.chi2_nn_plain(q, g, n)[1]
         if not bool((unmasked >= nv).any()):
-            raise AssertionError("edge case does not exercise the row mask")
-        for gal, nv_ in ((g, nv), (g.to(torch.bfloat16), nv), (g, 896)):
+            fail("edge case does not exercise the row mask")
+        for gal, nv_ in ((g, nv), (g.to(BF16), nv), (g, 896)):
             out.append(check_chi2(q, gal, nv_, "edge")[0])
         dup = g.clone()
         dup[[300, 520, 777]] = dup[40].clone()  # four equal rows
@@ -1696,7 +1691,7 @@ def check_chi2_edges(dev):
             dup[[610, 611]] = q2[1]  # a query's exact match, twice
         row, kd, ki = check_chi2(q2, dup, nv, "ties")
         if ki[0].item() != 40 or kd[0].item() != 0.0 or (b > 1 and ki[1].item() != 610):
-            raise AssertionError(f"chi2 kernel broke the lowest-row tie rule: {ki[:2].tolist()}")
+            fail(f"chi2 kernel broke the lowest-row tie rule: {ki[:2].tolist()}")
         out.append(row)
     return out
 
@@ -1734,7 +1729,7 @@ def run_chi2_slice(dev, launches, smi):
     # 15. the kernel at chi2_cost's shape, fp32 and bf16 rows
     g, q = chi2_cost.make_data(CHI2_N, CHI2_B, CHI2_D, dev)
     shapes = [check_chi2(q, g, CHI2_N, "kernel vs plain", timed=True)[0],
-              check_chi2(q, g.to(torch.bfloat16), CHI2_N, "kernel vs plain", timed=True)[0]]
+              check_chi2(q, g.to(BF16), CHI2_N, "kernel vs plain", timed=True)[0]]
     edges = check_chi2_edges(dev)
     phase(f"chi2 edge shapes: {len(edges)} cases within {CHI2_TOL:.2e}, no row past n_valid, ties to the lowest")
     del g, q
@@ -1749,7 +1744,7 @@ def run_chi2_slice(dev, launches, smi):
     for kind, ln in by_kind.items():
         floor = 0.9 if kind == "chi2_pallas_bf16" else 1.0  # tests/test_chi2_kernel.py:49-57
         if ln["probe_agreement"] < floor:
-            raise AssertionError(f"chi2_cost {kind}: probe agreement {ln['probe_agreement']} < {floor}")
+            fail(f"chi2_cost {kind}: probe agreement {ln['probe_agreement']} < {floor}")
     phase("chi2_cost lines (" + smi + "): " + "; ".join(
         f"{k} {ln['value']} q/s ({1e3 * ln['sec_per_batch']:.1f} ms) agreement={ln['probe_agreement']}"
         for k, ln in by_kind.items()) + f"; launches={launches['chi2_cost']}")
@@ -1764,17 +1759,16 @@ def run_chi2_slice(dev, launches, smi):
         db = load_feature_file(path, CHI2_D)
     if not (np.array_equal(db.features, normalize_features(feats)) and np.array_equal(db.labels, labels)
             and db.class_names == names):
-        raise AssertionError("feature file round trip changed the rows")
+        fail("feature file round trip changed the rows")
     gal, glab, probes, plab = make_gallery_and_probes(BF_CLASSES, BF_PER_CLASS, 1, CHI2_D, seed=7)
     gal_s, probes_s = normalize_features(gal, l2=False), normalize_features(probes, l2=False)
     phase(f"feature file round trip ({db.num_images} x {CHI2_D}) exact; gallery {gal.shape}, {probes.shape[0]} "
-          f"probes ({time.time() - t:.1f} s)")
-    with torch.no_grad():
-        qt, gt = torch.from_numpy(probes).to(dev), torch.from_numpy(gal).to(dev)
-        q64, g64 = qt.double(), gt.double()
-        d64 = (q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :] - 2.0 * (q64 @ g64.T)
-        oracle = d64.argmin(dim=1)
-        del q64, g64
+          f"probes ({since(t)})")
+    qt, gt = torch.from_numpy(probes).to(dev), torch.from_numpy(gal).to(dev)
+    q64, g64 = qt.double(), gt.double()
+    d64 = (q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :] - 2.0 * (q64 @ g64.T)
+    oracle = d64.argmin(dim=1)
+    del q64, g64
 
     def near_tie_ok(rows):
         rows = torch.as_tensor(rows, device=dev).long()
@@ -1794,16 +1788,16 @@ def run_chi2_slice(dev, launches, smi):
         idx = m.last.indices
         row = dict(matcher=name, summary=res.summary(), ms_per_image=res.ms_per_image, error_pct=res.error_rate)
         if name in ("l2", "int8"):
-            row["l2_fp64_argmin_agreement_pct"] = 100.0 * float(np.mean(idx == oracle.cpu().numpy()))
+            row["l2_fp64_argmin_agreement_pct"] = pct(idx == host(oracle))
         if name == "l2" and not near_tie_ok(idx):
-            raise AssertionError("the L2 matcher's rows are not the fp64 argmin's beyond near-ties")
+            fail("the L2 matcher's rows are not the fp64 argmin's beyond near-ties")
         if name == "chi2":
             dn, inn = counted(lambda: chi2_nn(torch.from_numpy(probes_s).to(dev), torch.from_numpy(gal_s).to(dev)))
             check_launches("chi2_nn (brute-force data)", launches, chi2=1)
-            dn, inn = dn.cpu().numpy(), inn.cpu().numpy()
-            row["chi2_nn_rows_equal_pct"] = 100.0 * float(np.mean(idx == inn))
+            dn, inn = host(dn), host(inn)
+            row["chi2_nn_rows_equal_pct"] = pct(idx == inn)
             if not (np.abs(m.last.distances - dn) <= CHI2_TOL * dn).all():
-                raise AssertionError("the chi2 matcher's rows differ from chi2_nn's beyond near-ties")
+                fail("the chi2 matcher's rows differ from chi2_nn's beyond near-ties")
         bf_rows.append(row)
         extra = kv(row, *[k for k in ("l2_fp64_argmin_agreement_pct", "chi2_nn_rows_equal_pct") if k in row])
         phase(f"brute-force {name}: {res.summary()} ({smi}) {extra} launches={launches[f'matcher {name}']}")
@@ -1878,9 +1872,9 @@ def check_cascade_decisions(what, got, want, margins):
     tie = ((reached & (dists <= CASCADE_TIE)) | (exited & (gaps <= CASCADE_TIE))).any(axis=0)
     differ = (got.predictions != want.predictions) | (got.exit_level != want.exit_level)
     if differ.mean() > 0.01 or not (tie | ~differ).all():
-        raise AssertionError(f"{what}: {int(differ.sum())} images differ from predict(), "
-                             f"{int((differ & ~tie).sum())} of them off near-ties")
-    return 100.0 * float(np.mean(~differ)), int(differ.sum()), int(tie.sum())
+        fail(f"{what}: {int(differ.sum())} images differ from predict(), "
+             f"{int((differ & ~tie).sum())} of them off near-ties")
+    return pct(~differ), int(differ.sum()), int(tie.sum())
 
 
 def check_feature_entry_points(dev, smi, g, gl, p, pl):
@@ -1937,9 +1931,9 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
         e = np.exp(sc - sc.max(1, keepdims=True))
         probs.append(e / e.sum(1, keepdims=True))
     differ = (res.predictions != want_pred) | (res.exit_level != want_level)
-    row["linear_exits_equal_fp64_pct"] = 100.0 * float(np.mean(~differ))
+    row["linear_exits_equal_fp64_pct"] = pct(~differ)
     row["linear_exits_breaks"] = [float(v) for v in res.break_counts]
-    row["linear_exits_error_pct"] = 100.0 * float(np.mean(res.predictions != pl))
+    row["linear_exits_error_pct"] = pct(res.predictions != pl)
     entropy = exits.entropy_exit_cascade(probs, threshold=0.5)
     row["entropy_exits_breaks"] = [float(v) for v in entropy.break_counts]
 
@@ -1950,7 +1944,7 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     hyb_c = exits.knn_exits_with_final_classifier(x_tr, gl, x_va, VIDEO_CLASSES, device=cpu)
 
     def same(a, b):
-        return 100.0 * float(np.mean((a.predictions == b.predictions) & (a.exit_level == b.exit_level)))
+        return pct((a.predictions == b.predictions) & (a.exit_level == b.exit_level))
 
     row["knn_exits_card_vs_cpu_equal_pct"], row["knn_svc_exits_card_vs_cpu_equal_pct"] = same(knn_d, knn_c), same(hyb_d, hyb_c)
 
@@ -1958,7 +1952,7 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     full = FullMatrixDEM(g, gl, seed=3, device=dev)
     full.set_budget(FULL_DEM_BUDGET)
     fr = full.search(p[:FULL_DEM_PROBES])
-    p_full, starts = full._p_full.cpu().numpy(), full._start_idx.cpu().numpy()
+    p_full, starts = host(full._p_full), host(full._start_idx)
     full_rows = full_close = 0
     for i in range(FULL_DEM_PROBES):
         oi, _, oc = dem_full_oracle_search(p[i], g, p_full, starts, full.threshold, FULL_DEM_BUDGET)
@@ -1994,21 +1988,20 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     video_gap = abs(ev["card"].video_error - ev["cpu"].video_error) * VIDEO_CLASSES / 100.0
     row["seconds"] = time.time() - t
     phase(f"feature entry points ({len(p)} x {p.shape[1]}, {VIDEO_CLASSES} classes, {smi}): " + kv(
-        row, *[k for k in row if k != "video_eval"]) + f" near_ties_differ={int((differ & ties).sum())} "
-        f"video_eval(frame/video error %) card={ev['card'].frame_error:.3f}/{ev['card'].video_error:.1f} "
-        f"cpu={ev['cpu'].frame_error:.3f}/{ev['cpu'].video_error:.1f} ({len(idx)} frames)")
+        row, *[k for k in row if k != "video_eval"]) + f" near_ties_differ={int((differ & ties).sum())} frames="
+        f"{len(idx)} video_eval=" + json.dumps(row["video_eval"]))
     if svc_err > 1e-4:
-        raise AssertionError("svc_descent on the card drifts from its CPU run")
+        fail("svc_descent on the card drifts from its CPU run")
     if (differ & ~ties).any():
-        raise AssertionError("LinearExitCascade's decisions differ from fp64 beyond near-ties")
+        fail("LinearExitCascade's decisions differ from fp64 beyond near-ties")
     if row["knn_exits_card_vs_cpu_equal_pct"] < 99.0 or row["knn_svc_exits_card_vs_cpu_equal_pct"] < 99.0:
-        raise AssertionError("the kNN exit cascades differ between the card and the CPU")
+        fail("the kNN exit cascades differ between the card and the CPU")
     if full_rows < int(0.9 * FULL_DEM_PROBES) or full_close < int(0.85 * FULL_DEM_PROBES):
-        raise AssertionError("FullMatrixDEM disagrees with dem_full_oracle_search (tests/test_dem.py:232-251 bounds)")
+        fail("FullMatrixDEM disagrees with dem_full_oracle_search (tests/test_dem.py:232-251 bounds)")
     if not io_ok:
-        raise AssertionError("the video text format does not round-trip")
+        fail("the video text format does not round-trip")
     if frame_gap > 0.01 * len(idx) or video_gap > 1:
-        raise AssertionError("evaluate_video_recognition differs between the card and the CPU")
+        fail("evaluate_video_recognition differs between the card and the CPU")
     return row
 
 
@@ -2018,8 +2011,7 @@ def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
     timed, no host sync, its full-capacity decisions equal ``predict()``'s
     but near-ties. A bind line also times the module's plain forward."""
     t = time.time()
-    with torch.no_grad():
-        probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
+    probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
     dims = [int(probe["taps"][tap].shape[-1]) for tap in taps] + [int(probe["embedding"].shape[-1])]
     rng = np.random.default_rng(0)
     coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
@@ -2029,14 +2021,14 @@ def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
     x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
     pipe.calibrate(x[:CASCADE_CALIB])
     caps = pipe.capacities_for(BATCH, slack=SLACK)
-    torch.cuda.synchronize()
+    sync()
     phase(f"{path} built: taps={list(taps)} dims={dims} thresholds={[round(v, 4) for v in pipe.thresholds]} "
-          f"survivors={[round(v, 4) for v in pipe.survivor_fractions]} capacities={caps} ({time.time() - t:.1f} s)")
+          f"survivors={[round(v, 4) for v in pipe.survivor_fractions]} capacities={caps} ({since(t)})")
     build.reset_launch_counts()
     fused = pipe.fused_fn(BATCH, slack=SLACK)
     res = pipe.predict_fused(x, slack=SLACK)  # warm-up and the answers
     if not np.array_equal(no_sync(lambda: fused(x)).cpu().numpy()[:BATCH], res.predictions):
-        raise AssertionError(f"{path}: predict_fused's answers changed under sync debug mode")
+        fail(f"{path}: predict_fused's answers changed under sync debug mode")
     ms = host_ms(lambda: fused(x), TIMED_CALLS)
     check_launches(path, launches)
     want = pipe.predict(x)
@@ -2046,13 +2038,12 @@ def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
                                                             margins)
     row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, break_counts=[float(v) for v in res.break_counts],
                forced_pct=100.0 * res.forced_fraction,
-               agreement_pct=100.0 * float(np.mean(res.predictions == want.predictions)), capacities=list(caps),
+               agreement_pct=pct(res.predictions == want.predictions), capacities=list(caps),
                full_capacity_equal_pct=full_eq, full_capacity_differ=full_diff, near_tie_images=full_ties)
     if engine == "bind":
-        with torch.no_grad():
-            row["plain_ms"] = host_ms(lambda: model(x)["embedding"][0, :8], TIMED_CALLS)
+        row["plain_ms"] = host_ms(lambda: model(x)["embedding"][0, :8], TIMED_CALLS)
         row["speedup_vs_plain"] = row["plain_ms"] / ms
-        phase(f"{path} (bind, SVC exits, B={BATCH}): " + kv(row, *list(row)[1:]) + f"; no host sync; "
+        phase(f"{path} (bind, SVC exits, B={BATCH}): " + kv(row) + f"; no host sync; "
               f"launches={launches[path]}")
     return row, dict(pipe=pipe, x=x, rng=rng, want=want, margins=margins, coefs=coefs, intercepts=intercepts)
 
@@ -2075,14 +2066,14 @@ def run_feature_configs(dev, launches, smi):
     dem = DirectedEnumerationMatcher(g, gl, probe_mode="gather", seed=0, device=dev)
     budget = int(DEM_BUDGET * g.shape[0])
     dem.set_budget(budget)
-    torch.cuda.synchronize()
+    sync()
     build_s = time.time() - t
     probes = torch.from_numpy(p[:DEM_BATCH]).to(dev)
     b = probes.shape[0]
-    idx, _, checked = (x.cpu().numpy() for x in counted(lambda: dem.search_device(probes)))
+    idx, _, checked = (host(x) for x in counted(lambda: dem.search_device(probes)))
     out = no_sync(lambda: dem.search_device(probes))
     if not np.array_equal(out[0].cpu().numpy(), idx):
-        raise AssertionError("dem search_device answers changed under sync debug mode")
+        fail("dem search_device answers changed under sync debug mode")
     dem_ms = cuda_ms(lambda: dem.search_device(probes), FEATURE_REPS)
     qps = b / dem_ms * 1e3
     check_launches("dem", launches)
@@ -2096,30 +2087,30 @@ def run_feature_configs(dev, launches, smi):
                                                      device=dev)
     dem_dev16 = DirectedEnumerationMatcher.from_device(torch.from_numpy(g).to(dev), gl, seed=0, device=dev)
     same_pivots = np.array_equal(dem_dev.index.pivot_indices, dem.index.pivot_indices)
-    pivots16 = 100.0 * float(np.mean(dem_dev16.index.pivot_indices == dem.index.pivot_indices))
+    pivots16 = pct(dem_dev16.index.pivot_indices == dem.index.pivot_indices)
     # the default device build answers as the host build: labels >= 97 % (tests/test_dem.py:57-79)
     dem_dev16.set_budget(budget)
     idx_d16 = dem_dev16.search_device(probes)[0].cpu().numpy()
-    dev16_labels = 100.0 * float(np.mean(gl[idx_d16] == gl[idx]))
+    dev16_labels = pct(gl[idx_d16] == gl[idx])
     del dem_dev, dem_dev16
     exact = DirectedEnumerationMatcher(g, gl, probe_mode="exact", seed=0, device=dev)
     exact.set_budget(budget)
     idx_e = exact.search_device(probes)[0].cpu().numpy()
     del exact
-    row = dict(line="dem gather", queries_s=qps, error_pct=100.0 * float(np.mean(gl[idx] != pl[:b])),
+    row = dict(line="dem gather", queries_s=qps, error_pct=pct(gl[idx] != pl[:b]),
                checked_pct=100.0 * float(checked.mean()) / n, budget=budget, pivots=len(dem.index.pivot_indices),
                oracle_rows_equal_pct=100.0 * oracle_rows / DEM_ORACLE_PROBES,
                oracle_checked_within_2_pct=100.0 * oracle_close / DEM_ORACLE_PROBES,
-               exact_mode_label_agreement_pct=100.0 * float(np.mean(gl[idx] == gl[idx_e])),
-               exact_mode_row_agreement_pct=100.0 * float(np.mean(idx == idx_e)),
+               exact_mode_label_agreement_pct=pct(gl[idx] == gl[idx_e]),
+               exact_mode_row_agreement_pct=pct(idx == idx_e),
                from_device_fp32_same_pivots=same_pivots, from_device_bf16_pivots_equal_pct=pivots16,
                from_device_bf16_label_agreement_pct=dev16_labels, ms=dem_ms, timed_calls=FEATURE_REPS)
     lines["dem"] = row
     phase(f"dem gather ({n} x {DEM_DIM}, batch {b}, data {data_s:.1f} s, host build {build_s:.1f} s, {smi}, "
-          f"CUDA events): " + kv(row, *[k for k in row if k != "line"]) + f"; no host sync; launches={launches['dem']}")
+          f"CUDA events): " + kv(row) + f"; no host sync; launches={launches['dem']}")
     if (oracle_rows < 0.92 * DEM_ORACLE_PROBES or oracle_close < 0.9 * DEM_ORACLE_PROBES
             or row["exact_mode_label_agreement_pct"] < 97.0 or not same_pivots or dev16_labels < 97.0):
-        raise AssertionError("dem gather disagrees with its oracle, its exact mode or its device build")
+        fail("dem gather disagrees with its oracle, its exact mode or its device build")
     del dem
 
     # 19. the TWD classifiers over the same gallery: the dem line's 1000 probes and its first 24 again
@@ -2137,7 +2128,7 @@ def run_feature_configs(dev, launches, smi):
         ms = cuda_ms(lambda: clf.predict(tq), TWD_REPS)
         twd_rows.append(dict(line=clf.name, ms_per_probe=ms / len(tq), ms=ms, timed_calls=TWD_REPS,
                              unreliable_pct=100.0 * unreliable / len(tq),
-                             error_pct=100.0 * float(np.mean(preds[: len(p)] != pl))))
+                             error_pct=pct(preds[: len(p)] != pl)))
     check_launches("twd", launches)
     proposed = classifiers[0].predict(tq[:TWD_ORACLE_PROBES])
     want = np.asarray([proposed_twd_oracle(tq[i], g, gl, 32, 0.7)[0] for i in range(TWD_ORACLE_PROBES)])
@@ -2147,7 +2138,7 @@ def run_feature_configs(dev, launches, smi):
         f"{r['line']}: " + kv(r, "ms_per_probe", "unreliable_pct", "error_pct") for r in twd_rows)
         + f"; Proposed = oracle on {twd_equal}/{TWD_ORACLE_PROBES}; launches={launches['twd']}")
     if twd_equal != TWD_ORACLE_PROBES:
-        raise AssertionError("Proposed TWD disagrees with proposed_twd_oracle")
+        fail("Proposed TWD disagrees with proposed_twd_oracle")
     del classifiers, tq
     # 19'. the small-world, projection and kd-forest matchers over the same gallery
     lines["ann"] = run_ann_matchers(g, gl, p, pl, dev, launches, smi)
@@ -2166,13 +2157,13 @@ def run_feature_configs(dev, launches, smi):
     tie = top2[:, 1] - top2[:, 0] <= VIDEO_TIE * np.maximum(1.0, np.abs(top2[:, 1]))
     equal = preds == ref.argmax(1)
     lines["video"] = dict(line="video fusion", frames_s=fps, ms=video_ms, timed_calls=FEATURE_REPS,
-                          error_pct=100.0 * float(np.mean(preds != np.arange(VIDEO_CLASSES))),
+                          error_pct=pct(preds != np.arange(VIDEO_CLASSES)),
                           fp64_equal_pct=100.0 * float(equal.mean()), near_ties=int(tie.sum()))
     phase(f"video fusion ({g.shape[0]} rows, {len(p)} frames, {VIDEO_CLASSES} videos, CUDA events, {smi}): "
           + kv(lines["video"], "frames_s", "ms", "error_pct", "fp64_equal_pct", "near_ties")
           + f" launches={launches['video']}")
     if not (equal | tie).all():
-        raise AssertionError("the video fusion disagrees with fp64 beyond near-ties")
+        fail("the video fusion disagrees with fp64 beyond near-ties")
     del pv, fv, fuse
     lines["entry_points"] = check_feature_entry_points(dev, smi, g, gl, p, pl)
     del g, gl, p, pl
@@ -2188,19 +2179,16 @@ def run_feature_configs(dev, launches, smi):
     pooled_eq, pooled_diff, _ = check_cascade_decisions("predict_pooled", pooled, want, margins)
     info = backbone_info("b0")
     serve = make_serving_fn(variables, info, resolution=RES, device=dev)
-    with torch.no_grad():
-        ms_plain = host_ms(lambda: serve(x)["embedding"][0, :8], TIMED_CALLS)
+    ms_plain = host_ms(lambda: serve(x)["embedding"][0, :8], TIMED_CALLS)
     pipe_b = SequentialInferencePipeline(model, None, taps, coefs, intercepts, thresholds=pipe.thresholds,
                                          engine="bind", device=dev)
-    bind_agree = 100.0 * float(np.mean(pipe_b.predict(x[:BIND_BATCH]).predictions
-                                       == pipe.predict(x[:BIND_BATCH]).predictions))
+    bind_agree = pct(pipe_b.predict(x[:BIND_BATCH]).predictions == pipe.predict(x[:BIND_BATCH]).predictions)
     per_level, cumulative = pipe.measure_segment_latency(x, iters=3)
     if not (np.isfinite(per_level).all() and (per_level > 0).all() and len(per_level) == pipe.num_levels):
-        raise AssertionError(f"measure_segment_latency gave {per_level}")
+        fail(f"measure_segment_latency gave {per_level}")
     seg0_ms = float(per_level[0]) * BATCH
-    with torch.no_grad():
-        noise = (pipe.level_scores(x, levels=1)[0][:CASCADE_CALIB]
-                 - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
+    noise = (pipe.level_scores(x, levels=1)[0][:CASCADE_CALIB]
+             - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
     row.update(plain_img_s=BATCH / ms_plain * 1e3, plain_ms=ms_plain, speedup_vs_plain=ms_plain / row["ms"],
                pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled, pooled_equal_pct=pooled_eq,
                pooled_differ=pooled_diff, bind_vs_folded_label_agreement_pct=bind_agree, level0_segment_ms=seg0_ms,
@@ -2210,7 +2198,7 @@ def run_feature_configs(dev, launches, smi):
         row, *[k for k in row if k not in ("line", "cumulative_ms_per_image")])
         + f"; no host sync; launches={launches['cascade engine']}")
     if bind_agree < 90.0:
-        raise AssertionError("the bind engine agrees with the folded one on < 90 % of labels")
+        fail("the bind engine agrees with the folded one on < 90 % of labels")
     del pipe_b, serve
 
     # the kNN head, one call: 100 identities x 4 images enrolled through the same segments
@@ -2239,7 +2227,7 @@ VERIF_DIM, VERIF_CLASSES = 256, 64  # verification_test's window (ImageTesting.c
 def rows_tie_ok(q, gallery, got, want, rel=2.0**-12, abs_=0.0, precise=False):
     """Rows ``got`` equal ``want`` or tie within ``rel`` + ``abs_`` (fp64)."""
     got, want = torch.as_tensor(got, device=q.device).long(), torch.as_tensor(want, device=q.device).long()
-    qf = (q if precise else q.to(torch.bfloat16)).to(torch.float64)
+    qf = (q if precise else q.to(BF16)).to(torch.float64)
     d_got, d_want = (((gallery[r].to(torch.float64) - qf) ** 2).sum(1) for r in (got, want))
     return bool(((got == want) | ((d_got - d_want).abs() <= rel * d_want + abs_)).all())
 
@@ -2254,28 +2242,27 @@ def run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, de
         t = time.time()
         svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve, match="sharded",
                                  sharded_scan=scan, pca_dim=124, mesh=gallery_mesh(devices=[dev] * s), device=dev)
-        torch.cuda.synchronize()
+        sync()
         build_s = time.time() - t
         if scan == "packed" and s > 1:  # the single-min scan at a shard's shape, tile_g 512
-            with torch.no_grad():
-                qa = dk._augment_queries((emb - svc._mu) @ svc._w, svc.pca_dim, svc._gal_aug[0].shape[1])
+            qa = dk._augment_queries((emb - svc._mu) @ svc._w, svc.pca_dim, svc._gal_aug[0].shape[1])
             check_single_scan("shard", qa, svc._gal_aug[0], 512, scan_report)
         out = counted(lambda: svc.identify_device(images)).cpu().numpy()
         out_sync = no_sync(lambda: svc.identify_device(images))
         ms = host_ms(lambda: svc.identify_device(images), TIMED_CALLS)
         path = f"sharded {scan} x{s}"
         check_launches(path, launches, **{"topk_l2" if scan == "exact" else "tilemin_packed": s * (TIMED_CALLS + 2)})
-        if not np.array_equal(out, out_sync.cpu().numpy()) or not ((out >= 0) & (out < GALLERY)).all():
-            raise AssertionError(f"{path}: rows outside the gallery or changed under sync debug mode")
+        if not np.array_equal(out, host(out_sync)) or not ((out >= 0) & (out < GALLERY)).all():
+            fail(f"{path}: rows outside the gallery or changed under sync debug mode")
         if scan == "exact" and not rows_tie_ok(emb, gallery, out, idx_exact):
-            raise AssertionError(f"{path} differs from match='exact' beyond near-ties")
+            fail(f"{path} differs from match='exact' beyond near-ties")
         exact_rows = out if exact_rows is None else exact_rows
         row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, build_s=build_s, shard_rows=int(svc.gallery[0].shape[0]),
-                   error_pct=100.0 * float(np.mean(labels[out] != np.arange(BATCH))),
-                   exact_rows_equal_pct=100.0 * float(np.mean(out == idx_exact)),
-                   sharded_exact_rows_equal_pct=100.0 * float(np.mean(out == exact_rows)))
+                   error_pct=pct(labels[out] != np.arange(BATCH)),
+                   exact_rows_equal_pct=pct(out == idx_exact),
+                   sharded_exact_rows_equal_pct=pct(out == exact_rows))
         rows.append(row)
-        phase(f"{path} ({smi}): " + kv(row, *list(row)[1:]) + f"; no host sync; launches={launches[path]}")
+        phase(f"{path} ({smi}): " + kv(row) + f"; no host sync; launches={launches[path]}")
         del svc
     return rows, scan_report
 
@@ -2293,15 +2280,15 @@ def run_sharded_matcher(gal_bf, q_bf, idx_bf, idx_oracle_bf, launches, smi):
         check_launches(path, launches, **{kernel: SHARDS * 5})
         ok = rows_tie_ok(q_bf, gal_bf, idx, want, rel=0.0 if precise else 2.0**-12, abs_=2.0**-16 * precise,
                          precise=precise)
-        idx = idx.cpu().numpy()
+        idx = host(idx)
         row = dict(line=path, queries_s=BATCH / ms * 1e3, ms=ms, shard_gib=sum(g.nbytes for g in m.gallery) / 2**30,
-                   rows_equal_pct=100.0 * float(np.mean(idx == np.asarray(want))),
-                   error_pct=100.0 * float(np.mean(idx != np.arange(BATCH))))
+                   rows_equal_pct=pct(idx == np.asarray(want)),
+                   error_pct=pct(idx != np.arange(BATCH)))
         rows.append(row)
         phase(f"{path} ({SHARDS} shards, {BATCH} x {GALLERY} x {q_bf.shape[1]}, CUDA events, {smi}): "
-              + kv(row, *list(row)[1:]) + f" launches={launches[path]}")
+              + kv(row) + f" launches={launches[path]}")
         if not ok:
-            raise AssertionError(f"{path} differs from the unsharded scan beyond near-ties")
+            fail(f"{path} differs from the unsharded scan beyond near-ties")
         del m
     return rows
 
@@ -2320,38 +2307,38 @@ def run_ann_matchers(g, gl, p, pl, dev, launches, smi):
         build.reset_launch_counts()
         m = Recording(build_matcher(method, g, gl, cfg, seed=0, device=dev))
         m.set_budget(cfg.image_count_to_check)  # the factory leaves the kd-forest unbudgeted, as JAX's
-        torch.cuda.synchronize()
+        sync()
         build_s, n_build = time.time() - t, build.LAUNCHES["topk_l2"]
         res = evaluate_matcher(m, gl, q, pl[:ANN_PROBES], verbose=False)
         cpu_m, extra = m.matcher, ""  # the kd-forest is host code: its run is the CPU run
         if method == "sw":
             if n_build != -(-g.shape[0] // 1024):
-                raise AssertionError(f"the neighbour table took {n_build} topk_l2 launches")
+                fail(f"the neighbour table took {n_build} topk_l2 launches")
             real = sw.topk_l2
-            sw.topk_l2 = lambda qq, gg, k, n_valid: plain.topk_l2_plain(qq.to(torch.bfloat16), gg, k, n_valid)
+            sw.topk_l2 = lambda qq, gg, k, n_valid: plain.topk_l2_plain(qq.to(BF16), gg, k, n_valid)
             try:
                 table = sw.build_neighbor_table(m.matcher.gallery, k_nn=11, k_rand=4, seed=0).long()
             finally:
                 sw.topk_l2 = real
             got = m.matcher.neighbors.long()
             r, c = (got != table).nonzero(as_tuple=True)
-            g64 = m.matcher.gallery.to(torch.bfloat16).to(torch.float64)
+            g64 = m.matcher.gallery.to(BF16).to(torch.float64)
             d_got, d_want = (((g64[x[r, c]] - g64[r]) ** 2).sum(1) for x in (got, table))
             if not bool(((d_got - d_want).abs() <= ANN_TIE * d_want + 1e-6).all()):
-                raise AssertionError("the neighbour table differs from the plain build beyond near-ties")
+                fail("the neighbour table differs from the plain build beyond near-ties")
             cpu_m = object.__new__(type(m.matcher))  # the same graph and walk, on the CPU
             cpu_m.__dict__.update({k: v.cpu() if isinstance(v, torch.Tensor) else v
                                    for k, v in m.matcher.__dict__.items()}, device=torch.device("cpu"))
             extra = f" table_launches={n_build} table_equal_plain={100.0 * (1 - len(r) / got.numel()):.4f}%"
         elif method == "proj":
             cpu_m = build_matcher(method, g, gl, cfg, seed=0, device="cpu")
-        equal = 100.0 * float(np.mean(m.last.indices == cpu_m.search(q).indices))
+        equal = pct(m.last.indices == cpu_m.search(q).indices)
         rows.append(dict(line=method, name=m.name, error_pct=res.error_rate, ms_per_probe=res.ms_per_image,
                          checked_pct=res.checked_percent, build_s=build_s, cpu_rows_equal_pct=equal))
         phase(f"build_matcher('{method}') ({g.shape[0]} x {g.shape[1]}, budget {cfg.image_count_to_check}, "
               f"{build_s:.1f} s): {res.summary()} ({smi}) cpu_rows_equal={equal:.2f}%{extra}")
         if equal < 97.0:
-            raise AssertionError(f"{method}: card rows equal the CPU run's on {equal:.2f}% < 97% of probes")
+            fail(f"{method}: card rows equal the CPU run's on {equal:.2f}% < 97% of probes")
         del m, cpu_m
     return rows
 
@@ -2381,12 +2368,12 @@ def run_classifiers(gal, glab, probes, plab, dev, smi):
         pred = clf.predict(probes)
         ms = host_ms(lambda: clf.predict(probes), 2)
         equal = pred[:CLS_CPU_PROBES] == cpu.predict(probes[:CLS_CPU_PROBES])
-        rows.append(dict(line=clf.name, error_pct=100.0 * float(np.mean(pred != plab)), ms_per_probe=ms / len(probes),
+        rows.append(dict(line=clf.name, error_pct=pct(pred != plab), ms_per_probe=ms / len(probes),
                          cpu_equal_pct=100.0 * float(equal.mean())))
         phase(f"{clf.name} ({gal.shape[0]} x {gal.shape[1]}, {c} classes, {len(probes)} probes, {smi}): "
               + kv(rows[-1], "error_pct", "ms_per_probe", "cpu_equal_pct"))
         if not equal.all():
-            raise AssertionError(f"{clf.name}: card predictions differ from the CPU run's")
+            fail(f"{clf.name}: card predictions differ from the CPU run's")
     t = time.time()
     r = verification_test(gal[sel], glab[sel], tests=10, end=VERIF_DIM, verbose=False, device=dev)
     sec = time.time() - t
@@ -2395,10 +2382,11 @@ def run_classifiers(gal, glab, probes, plab, dev, smi):
                      cpu_error_pct=rc.error_rate))
     phase(f"{r.name} ({VERIF_CLASSES} classes, 10 splits, {smi}): " + kv(rows[-1], *list(rows[-1])[1:]))
     if abs(r.error_rate - rc.error_rate) > 100.0 / int(sel.sum()):
-        raise AssertionError("verification_test on the card differs from its CPU run beyond one probe")
+        fail("verification_test on the card differs from its CPU run beyond one probe")
     return rows
 
 
+@torch.no_grad()
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -2411,7 +2399,7 @@ def main() -> int:
     # 1. environment; default_device() turns TF32 off (the fp32 oracle and its plain check)
     dev = default_device()
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise AssertionError("TF32 is enabled")
+        fail("TF32 is enabled")
     smi = nvidia_smi_line()
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True, check=True)
     phase(f"environment: {smi} | torch {torch.__version__} (CUDA {torch.version.cuda}) | "
@@ -2432,7 +2420,7 @@ def main() -> int:
                 spill = line.strip()
             elif "registers" in line:
                 print(f"  ptxas {name} {kernel}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
-    phase(f"built {sorted(build.SOURCES)} in {time.time() - t:.1f} s ("
+    phase(f"built {sorted(build.SOURCES)} in {since(t)} ("
           + ", ".join(f"{n} {sec:.1f} s" for n, sec in sorted(build.BUILD_SECONDS.items())) + ")")
     # the kernels on the Hopper main loop issue wgmma and no WMMA
     mma_by_lib = sass_mma_counts(libs)
@@ -2442,20 +2430,20 @@ def main() -> int:
                 "tilemin_quant_sm90", "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
     if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
             v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
-        raise AssertionError(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
+        fail(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
     topk_lib = build._lib("topk_l2")
     if topk_lib.topk_l2_max_k() != build.TOPK_MAX_K:
-        raise AssertionError("kernels/topk_l2.cu and build.TOPK_MAX_K disagree on the largest k")
+        fail("kernels/topk_l2.cu and build.TOPK_MAX_K disagree on the largest k")
     if any(topk_lib.topk_l2_segment_rows(p, k) != build.topk_l2_segment_rows_for(bool(p), k)
            for p in (0, 1) for k in (1, 16, 17, build.TOPK_MAX_K)):
-        raise AssertionError("kernels/topk_l2.cu and build.topk_l2_segment_rows_for disagree on segment rows")
+        fail("kernels/topk_l2.cu and build.topk_l2_segment_rows_for disagree on segment rows")
     if topk_lib.topk_l2_query_rows() != build.TOPK_QUERY_ROWS or any(
             topk_lib.topk_l2_split_smem(k) != build.topk_l2_split_smem_for(k)
             or topk_lib.topk_l2_split6_smem(k) != build.topk_l2_split6_smem_for(k) for k in (1, 2, 16, 17, 256)):
-        raise AssertionError("kernels/topk_l2.cu and build's split-pass mirrors disagree (query rows, ring sizes)")
+        fail("kernels/topk_l2.cu and build's split-pass mirrors disagree (query rows, ring sizes)")
     for lib in ("tile_scan", "mbconv"):  # no scan of these libraries is left on WMMA
         if any(v["HMMA"] + v["IMMA"] for v in mma_by_lib[lib].values()):
-            raise AssertionError(f"kernels/{build.SOURCES[lib]} still issues HMMA/IMMA: {mma_by_lib[lib]}")
+            fail(f"kernels/{build.SOURCES[lib]} still issues HMMA/IMMA: {mma_by_lib[lib]}")
     phase("SASS HGMMA/IGMMA/HMMA/IMMA per kernel: "
           + "; ".join(f"{k} {v['HGMMA']}/{v['IGMMA']}/{v['HMMA']}/{v['IMMA']}" for k, v in sorted(mma.items())
                       if any(v.values())))
@@ -2480,7 +2468,7 @@ def main() -> int:
     np_vars = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
     info = backbone_info("b0")
     serve = make_serving_fn(np_vars, info, resolution=RES, device=dev)
-    phase(f"loaded and folded {CKPT} in {time.time() - t:.1f} s")
+    phase(f"loaded and folded {CKPT} in {since(t)}")
     t = time.time()
     pair_imgs, _ = device_dataset(IDENTITIES, 2, RES, seed=11000, class_seed=3000, device=dev)
     # one pass gives the final embeddings and the GAP taps of the cascade
@@ -2493,17 +2481,16 @@ def main() -> int:
     # held-out capacity calibration: instance 1 of identities BATCH..2*BATCH-1
     calib_imgs = pair_imgs[2 * BATCH + 1 : 4 * BATCH : 2].contiguous()
     del pair_imgs
-    torch.cuda.synchronize()
-    phase(f"rendered and embedded {2 * IDENTITIES} images at {RES} in {time.time() - t:.1f} s, sigma {sigma:.4f}")
+    sync()
+    phase(f"rendered and embedded {2 * IDENTITIES} images at {RES} in {since(t)}, sigma {sigma:.4f}")
     t = time.time()
     gallery, labels = class_structured_gallery(GALLERY, enroll, sigma)
     # bench.py's main path: PCA-124 packed (the service's defaults are JAX's PCA-128 f32 scan)
-    svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                             pca_dim=124, pca_scan="packed", device=dev)
-    exact = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                               match="exact", device=dev)
-    torch.cuda.synchronize()
-    phase(f"gallery {tuple(gallery.shape)} bf16, PCA-{svc.pca_dim} fit and packed in {time.time() - t:.1f} s")
+    skw = dict(labels=labels, n_valid=GALLERY, serving_fn=serve, device=dev)
+    svc = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", **skw)
+    exact = RecognitionService(None, info, gallery, match="exact", **skw)
+    sync()
+    phase(f"gallery {tuple(gallery.shape)} bf16, PCA-{svc.pca_dim} fit and packed in {since(t)}")
 
     # 4. each kernel against its plain version at the main path's shapes
     report = {}
@@ -2525,10 +2512,10 @@ def main() -> int:
     gal32 = full_significand_rows(gallery, seed=5)
     check_topk(gal32, GALLERY, emb, 1, report, key="topk_l2_precise_f32", precise=True)
     idx_oracle32 = counted(lambda: dk.topk_l2(emb, gal32, 1, n_valid=GALLERY, precise=True)[1][:, 0])
-    torch.cuda.synchronize()
+    sync()
     check_launches("oracle_f32", launches, topk_l2_precise_f32=1)
     if not bool(((idx_oracle32 >= 0) & (idx_oracle32 < GALLERY)).all()):
-        raise AssertionError("the oracle over fp32 rows returned rows outside the gallery")
+        fail("the oracle over fp32 rows returned rows outside the gallery")
     del gal32, idx_oracle32
     truth = np.arange(BATCH)
     esc_rows = check_partial_escalation(svc, emb, gallery, dev)
@@ -2540,8 +2527,8 @@ def main() -> int:
     # 6a. the fused MBConv path: blocks, edge shapes, the s2d stem, the service on it
     t = time.time()
     serve_f = make_infer_fn(np_vars, "b0", resolution=RES, fused=True, space_to_depth=True, device=dev)
-    torch.cuda.synchronize()
-    phase(f"folded the fused module (fused=True, space_to_depth=True) in {time.time() - t:.1f} s")
+    sync()
+    phase(f"folded the fused module (fused=True, space_to_depth=True) in {since(t)}")
     mb_report = {}
     check_mbconv_blocks(serve, serve_f, images, mb_report)
     mb_report["edges"] = check_mbconv_edges(serve_f, dev)
@@ -2558,28 +2545,26 @@ def main() -> int:
                              ("pca_scan='int8'", dict(pca_scan="int8"), "tilemin_quant"),
                              ("match='int8'", dict(match="int8"), "tilemin_quant")):
         t = time.time()
-        ms_ = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                                 device=dev, **kw)
-        torch.cuda.synchronize()
+        ms_ = RecognitionService(None, info, gallery, **skw, **kw)
+        sync()
         build_s = time.time() - t
         if name == "default":  # the tile scan at this path's shapes, both score modes
-            with torch.no_grad():
-                qp = ((emb - ms_._mu) @ ms_._w).to(torch.bfloat16).contiguous()
+            qp = ((emb - ms_._mu) @ ms_._w).to(BF16).contiguous()
             for bf in (False, True):
                 check_tile_scan(f"pca{ms_.pca_dim}-{'bf16' if bf else 'f32'}-scores", qp, ms_._gal_pca, ms_._gal_sq,
                                 1024, tile_report["tilemin"], bf16_scores=bf)
         counted(lambda: ms_.identify_device(images))
         out, m_ms = timed(lambda: ms_.identify_device(images))
         check_launches(f"service {name}", launches, **{kernel: TIMED_CALLS + 1})
-        out = out.cpu().numpy()
+        out = host(out)
         if out.dtype != np.int32 or not ((out >= 0) & (out < GALLERY)).all():
-            raise AssertionError(f"service {name} returned rows outside the gallery")
+            fail(f"service {name} returned rows outside the gallery")
         row = dict(mode=name, img_s=BATCH / m_ms * 1e3, ms=m_ms, build_s=build_s,
-                   error_pct=100.0 * float(np.mean(labels[out] != truth)),
-                   agreement_pct=100.0 * float(np.mean(out == idx_oracle)),
-                   exact_agreement_pct=100.0 * float(np.mean(out == idx_exact)))
+                   error_pct=pct(labels[out] != truth),
+                   agreement_pct=pct(out == idx_oracle),
+                   exact_agreement_pct=pct(out == idx_exact))
         mode_rows.append(row)
-        phase(f"service {name} (PCA-{getattr(ms_, 'pca_dim', '-')}, {smi}): " + kv(row, *list(row)[1:])
+        phase(f"service {name} (PCA-{getattr(ms_, 'pca_dim', '-')}, {smi}): " + kv(row)
               + f" launches={launches[f'service {name}']}")
         del ms_
 
@@ -2590,7 +2575,7 @@ def main() -> int:
         s_l = float(torch.linalg.vector_norm(te[0::2] - te[1::2], dim=1).median()) / math.sqrt(2.0)
         g_l, lab_l = class_structured_gallery(GALLERY, te[0::2].contiguous(), s_l)
         if not np.array_equal(lab_l, labels):
-            raise AssertionError("tap gallery labels are not row-aligned with the final gallery")
+            fail("tap gallery labels are not row-aligned with the final gallery")
         tap_gals.append(g_l)
         tap_sigmas.append(round(s_l, 4))
     del tap_embs
@@ -2600,23 +2585,22 @@ def main() -> int:
     )
     fracs = casc.calibrate(calib_imgs, slack=SLACK)
     caps = casc.capacities_for(BATCH)
-    torch.cuda.synchronize()
+    sync()
     phase(f"cascade built: taps {TAPS} dims {[a['dim'] for a in casc._tap_assets]} sigmas {tap_sigmas} tile_g "
-          f"{casc._tile_g} survivors {[round(f, 4) for f in fracs]} capacities {caps} ({time.time() - t:.1f} s)")
+          f"{casc._tile_g} survivors {[round(f, 4) for f in fracs]} capacities {caps} ({since(t)})")
 
     # 8. the single-min scan vs plain at the cascade's shapes (block3a, final PCA; tile_g 128)
     scan_report = {}
-    with torch.no_grad():
-        feats0, emb0 = tap_embed(images)
-        q3 = _unit(feats0[0])
-        a0 = casc._tap_assets[0]
-        check_single_scan("block3a", dk._augment_queries(q3, a0["dim"], 128), a0["aug"], casc._tile_g, scan_report)
-        qp = (emb0 - casc._mu) @ casc._w
-        check_single_scan("final-pca", dk._augment_queries(qp, casc.pca_dim, 128), casc._gal_aug,
-                          casc._tile_g, scan_report)
-        g128 = dk.pack_gallery_aug(a0["gal"][:131072], 131072, tile_g=128)
-        check_single_scan("block3a-131072-rows", dk._augment_queries(q3, a0["dim"], 128), g128, 128, scan_report)
-        del g128, feats0
+    feats0, emb0 = tap_embed(images)
+    q3 = _unit(feats0[0])
+    a0 = casc._tap_assets[0]
+    check_single_scan("block3a", dk._augment_queries(q3, a0["dim"], 128), a0["aug"], casc._tile_g, scan_report)
+    qp = (emb0 - casc._mu) @ casc._w
+    check_single_scan("final-pca", dk._augment_queries(qp, casc.pca_dim, 128), casc._gal_aug,
+                      casc._tile_g, scan_report)
+    g128 = dk.pack_gallery_aug(a0["gal"][:131072], 131072, tile_g=128)
+    check_single_scan("block3a-131072-rows", dk._augment_queries(q3, a0["dim"], 128), g128, 128, scan_report)
+    del g128, feats0
 
     # 9-10. the cascade path; its decisions with the single-min scan bound to its plain version
     casc_row, idx_c = run_cascade(casc, images, "cascade", launches, smi, labels, dict(oracle=idx_oracle,
@@ -2625,32 +2609,30 @@ def main() -> int:
     del casc, tap_gals
 
     # 11. escalate=None (uncertified single-min path) and select='approx' (exact selection)
-    svc_none = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                                  pca_dim=124, pca_scan="packed", escalate=None, device=dev)
+    svc_none = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", escalate=None, **skw)
     idx_none = counted(lambda: svc_none.identify_device(images))
-    torch.cuda.synchronize()
+    sync()
     check_launches("pca_escalate_none", launches, tilemin_packed=1)
-    idx_none = idx_none.cpu().numpy()
+    idx_none = host(idx_none)
     phase(f"match='pca' escalate=None: error={100 * float(np.mean(labels[idx_none] != truth)):.3f}% "
           f"rows_equal_exact={100 * float(np.mean(idx_none == idx_exact)):.3f}% "
           f"launches={launches['pca_escalate_none']}")
     t = time.time()
-    svc_apx = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve,
-                                 pca_dim=124, pca_scan="packed", select="approx", device=dev)
-    torch.cuda.synchronize()
+    svc_apx = RecognitionService(None, info, gallery, pca_dim=124, pca_scan="packed", select="approx", **skw)
+    sync()
     apx_build_s = time.time() - t
     counted(lambda: svc_apx.identify_device(images))
     idx_apx, apx_ms = timed(lambda: svc_apx.identify_device(images))
     check_launches("pca_approx", launches, tilemin_packed=TIMED_CALLS + 1)
-    idx_apx = idx_apx.cpu().numpy()
+    idx_apx = host(idx_apx)
     apx_row = dict(line="service approx-select", img_s=BATCH / apx_ms * 1e3, ms=apx_ms, build_s=apx_build_s,
-                   error_pct=100.0 * float(np.mean(labels[idx_apx] != truth)),
-                   agreement_pct=100.0 * float(np.mean(idx_apx == idx_oracle)),
-                   rows_equal_exact_select_pct=100.0 * float(np.mean(idx_apx == idx_none)))
+                   error_pct=pct(labels[idx_apx] != truth),
+                   agreement_pct=pct(idx_apx == idx_oracle),
+                   rows_equal_exact_select_pct=pct(idx_apx == idx_none))
     phase(f"service approx-select (PCA-{svc_apx.pca_dim} packed, rescore {svc_apx.rescore}, {smi}): "
-          + kv(apx_row, *list(apx_row)[1:]) + f" launches={launches['pca_approx']}")
+          + kv(apx_row) + f" launches={launches['pca_approx']}")
     if svc_apx.escalate is not None or not np.array_equal(idx_apx, idx_none):
-        raise AssertionError("select='approx' differs from the exact selection's uncertified service")
+        fail("select='approx' differs from the exact selection's uncertified service")
     del svc_none, svc_apx, gallery
 
     # 12. the match on a layout where the certificate clears
@@ -2658,27 +2640,25 @@ def main() -> int:
     probes, gal_p, planted = planted_gallery(GALLERY, BATCH, enroll.shape[1], dev)
     svc_p = RecognitionService(None, info, gal_p, n_valid=GALLERY, serving_fn=serve, pca_dim=124,
                                pca_scan="packed", device=dev)
-    with torch.no_grad():
-        idx_p = counted(lambda: svc_p._match_emb(probes))
-        torch.cuda.synchronize()
-        idx_p2 = no_sync(lambda: svc_p._match_emb(probes))  # the certified layout too runs without a host sync
-    torch.cuda.synchronize()
+    idx_p = counted(lambda: svc_p._match_emb(probes))
+    sync()
+    idx_p2 = no_sync(lambda: svc_p._match_emb(probes))  # the certified layout too runs without a host sync
+    sync()
     check_launches("pca_planted", launches, tilemin2_packed=2, topk_l2=2)
     esc_p = svc_p.last_escalated
     if not bool((idx_p2 == idx_p).all()):
-        raise AssertionError("the planted layout's answers changed under sync debug mode")
-    ei = build.launch_topk_l2(probes.to(torch.bfloat16), gal_p, 1, GALLERY)[1][:, 0].to(torch.int64)
-    with torch.no_grad():
-        fast_agree_p = check_certified_pick(svc_p, probes, ei)
+        fail("the planted layout's answers changed under sync debug mode")
+    ei = build.launch_topk_l2(probes.to(BF16), gal_p, 1, GALLERY)[1][:, 0].to(torch.int64)
+    fast_agree_p = check_certified_pick(svc_p, probes, ei)
     cert = ~esc_p
     cert_share = cert.float().mean().item()
     cert_agree = (idx_p[cert] == ei[cert]).float().mean().item()
-    planted_pct = 100.0 * (idx_p == planted).float().mean().item()
-    phase(f"planted layout ({GALLERY} rows in a 96-d span, PCA-{svc_p.pca_dim}): certified={100 * cert_share:.2f}% "
+    planted_pct = pct(idx_p == planted)
+    phase(f"planted layout ({GALLERY} rows, 96-d span, PCA-{svc_p.pca_dim}): certified={100 * cert_share:.2f}% "
           f"certified_equal_exact={100 * cert_agree:.3f}% planted_found={planted_pct:.3f}% "
-          f"pick_equal_exact={fast_agree_p:.3f}% launches={launches['pca_planted']} ({time.time() - t:.1f} s)")
+          f"pick_equal_exact={fast_agree_p:.3f}% launches={launches['pca_planted']} ({since(t)})")
     if cert_share < 0.99 or cert_agree < 1.0 or planted_pct < 100.0:
-        raise AssertionError("the certified answer on the planted layout is not the exact one")
+        fail("the certified answer on the planted layout is not the exact one")
     del svc_p, gal_p, probes
 
     # 12'. the flagship line: InceptionResNetV2@224, trained, over 1M x 1536 rows
@@ -2691,10 +2671,10 @@ def main() -> int:
     # 13. bench.py --config bf: 1M x 1536 random unit bf16 rows, queries row i + 1e-2 noise
     t = time.time()
     gal_bf = random_unit_gallery(GALLERY, BF_DIM, dev)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    q_bf = _unit(gal_bf[:BATCH].to(torch.float32) + 1e-2 * torch.randn((BATCH, BF_DIM), generator=gen, device=dev))
-    torch.cuda.synchronize()
-    phase(f"bf gallery {tuple(gal_bf.shape)} bf16 built in {time.time() - t:.1f} s")
+    gen = gen_on(dev, 7)
+    q_bf = _unit(gal_bf[:BATCH].to(F32) + 1e-2 * randn(gen, BATCH, BF_DIM))
+    sync()
+    phase(f"bf gallery {tuple(gal_bf.shape)} bf16 built in {since(t)}")
     check_topk(gal_bf, GALLERY, q_bf, 1, report)
     check_topk(gal_bf, GALLERY, q_bf, 1, report, key="topk_l2_precise", precise=True)
     gal_bf32 = full_significand_rows(gal_bf, seed=6)  # the oracle over fp32 rows at x 1536
@@ -2710,10 +2690,10 @@ def main() -> int:
         out, b_ms = timed(run)
         check_launches(path, launches, **{k: v * (TIMED_CALLS + 1) for k, v in counts.items()})
         found = bf_found[path] = out[1][:, 0].cpu().numpy()
-        row = dict(line=name, queries_s=BATCH / b_ms * 1e3, ms=b_ms, error_pct=100.0 * float(np.mean(found != truth)),
-                   agreement_pct=100.0 * float(np.mean(found == idx_oracle_bf)),
-                   bf16_scan_agreement_pct=100.0 * float(np.mean(found == bf_found.get("bf", found))))
-        phase(f"bf line, {name} ({smi}): " + kv(row, *list(row)[1:]) + f" launches={launches[path]}")
+        row = dict(line=name, queries_s=BATCH / b_ms * 1e3, ms=b_ms, error_pct=pct(found != truth),
+                   agreement_pct=pct(found == idx_oracle_bf),
+                   bf16_scan_agreement_pct=pct(found == bf_found.get("bf", found)))
+        phase(f"bf line, {name} ({smi}): " + kv(row) + f" launches={launches[path]}")
         return row
 
     bf_rows = [bf_line("fused brute-force (topk_l2, k=1)", lambda: dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY),
@@ -2730,8 +2710,8 @@ def main() -> int:
     gsq_bf = dk.gallery_sq_norms(gal_bf, GALLERY)
     gsc_bf = dk.quant_gallery_scales(scales, GALLERY)
     del scales
-    torch.cuda.synchronize()
-    phase(f"bf gallery quantized to int8 with norms and scales in {time.time() - t:.1f} s")
+    sync()
+    phase(f"bf gallery quantized to int8 with norms and scales in {since(t)}")
     q_i8, q_sc = quantize_rows(q_bf)
     for compute in ("int8", "bf16"):
         check_tile_scan(f"bf-quant-{compute}", q_i8, gal_q, gsq_bf, 1024, tile_report["tilemin_quant"],
@@ -2760,8 +2740,7 @@ def main() -> int:
     mb_tot = mb_report["total"]
     rows = [
         kernel_row("tilemin2_packed", "packed_scan.cu", jax_dk + "393", "pca", report["tilemin2_packed"]),
-        kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms,
-                   collinear_rows=report["topk_l2_collinear"]),
+        kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms),
         kernel_row("tilemin_packed", "packed_scan.cu", jax_dk + "350", "cascade",
                    scan_report["shapes"] + shard_scan["shapes"], per_level=scan_report["per_level"]),
         kernel_row("tilemin", "tile_scan.cu", jax_dk + "174", "service default", tile_report["tilemin"]),

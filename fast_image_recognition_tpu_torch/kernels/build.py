@@ -155,6 +155,8 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.topk_l2_list_len.argtypes = [I]
             lib.topk_l2_list_len.restype = I
             lib.topk_l2_max_k.argtypes = []
+            lib.topk_l2_rescore_launch.argtypes = [P, P, I, I, P, P, I, I, I, I, I, P]
+            lib.topk_l2_rescore_launch.restype = I
             lib.topk_l2_max_k.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -386,6 +388,26 @@ def launch_topk_l2(
     _raise_on(status, name)
     LAUNCHES[name] += 1
     return out_d, out_i
+
+
+def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor,
+                        window: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_l2``'s pass 3 in place on :func:`launch_topk_l2`'s output, as
+    ``plain.topk_rescore_plain``; counted with the scan it follows."""
+    b, dim = q.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    if (g.shape[1:] != (dim,) or d.shape != idx.shape or d.shape[0] != b or d.dtype != f32
+            or idx.dtype != torch.int32 or not d.is_contiguous() or not idx.is_contiguous()
+            or (q.dtype, g.dtype) not in ((bf16, bf16), (f32, bf16), (f32, f32))):
+        raise ValueError("rescore takes queries [B, D], rows [N, D] (bf16 with bf16 queries) and contiguous fp32 and "
+                         "int32 picks [B, k]")
+    lo, hi = window or (0, dim)
+    with torch.cuda.device(q.device):
+        _raise_on(_lib("topk_l2").topk_l2_rescore_launch(
+            q.contiguous().data_ptr(), g.contiguous().data_ptr(), int(q.dtype == torch.float32),
+            int(g.dtype == torch.float32), d.data_ptr(), idx.data_ptr(), b, d.shape[1], dim, int(lo), int(hi),
+            torch.cuda.current_stream().cuda_stream), "topk_rescore")
+    return d, idx
 
 
 def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int) -> int:

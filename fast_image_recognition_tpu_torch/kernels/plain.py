@@ -202,6 +202,27 @@ def topk_l2_plain(
     return best_d, best_i
 
 
+def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor,
+                       window: Optional[Tuple[int, int]] = None, chunk: int = 1 << 24
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_l2``'s pass 3 (``topk_rescore``): each pick's raw squared
+    distance again as the fp32 sum of ``(q - g)^2`` over the window, since
+    ``|q|^2 + |g|^2 - 2 q.g`` cancels where a query and its row nearly
+    coincide; each list sorted again by (d, row), empty slots (row -1) last.
+    ``chunk`` bounds the gathered rows' elements."""
+    lo, hi = window or (0, q.shape[1])
+    valid, out = idx >= 0, d.clone()
+    step = max(1, chunk // max(1, idx.shape[1] * (hi - lo)))
+    for s in range(0, idx.shape[0], step):
+        rows = g[idx[s : s + step].clamp_min(0).long(), lo:hi].to(torch.float32)  # [b, k, W]
+        out[s : s + step] = rows.sub_(q[s : s + step, None, lo:hi].to(torch.float32)).square_().sum(dim=2)
+    out = torch.where(valid, out, d)
+    keys = torch.where(valid, (out.view(torch.int32).to(torch.int64) << 32) | (idx.to(torch.int64) + 1),
+                       torch.iinfo(torch.int64).max)
+    order = torch.sort(keys, dim=1, stable=True).indices
+    return out.gather(1, order), idx.gather(1, order)
+
+
 def split_bf16x3(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``split_queries``' three bf16 terms of fp32 queries: ``hi = bf16(q)``,
     ``mid = bf16(q - hi)``, ``lo = bf16(q - hi - mid)`` (exact differences,

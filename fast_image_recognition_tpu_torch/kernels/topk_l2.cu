@@ -1,7 +1,7 @@
 // Exact L2 top-k (k <= 256 a launch) for Hopper (sm_90a), replacing the Pallas
 // `_topk_kernel` and `_merge_topk` (fast_image_recognition_tpu/ops/distance_kernel.py
-// :92, :57; launched by `_topk_l2_block` :988): d = max(|q|^2 + |g|^2 - 2 q.g, 0)
-// in fp32, rows >= n_valid never returned, ties to the lowest row, empty
+// :92, :57; launched by `_topk_l2_block` :988): picks by d = max(|q|^2 + |g|^2
+// - 2 q.g, 0) in fp32, rows >= n_valid never returned, ties to the lowest row, empty
 // slots (BIG_DIST, -1); a window [start, end) zeroes the lanes outside it.
 // Pass 1, a block per (128 queries, row segment): `topk_pass1_sm90` (bf16;
 // a query mask skips query tiles, no host sync) or the fp32 oracle, three
@@ -11,7 +11,8 @@
 // accumulator (Hopper truncates as it accumulates). Pass 2: a warp per
 // query merges the segment lists (registers for k <= 16, the pass-1
 // scratch above, `WarpList`). k > 256 runs in slabs above a floor; past
-// 65,535 segments, several launches (`seg_base`). PERF.md §6.
+// 65,535 segments, several launches (`seg_base`). Pass 3: `topk_rescore`.
+// PERF.md §6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1170,6 +1171,54 @@ __global__ void topk_pass2_lists(const float* __restrict__ part_d, const int* __
     }
 }
 
+// Pass 3 (after all slabs): each pick's d again as the fp32 sum of (q -
+// g)^2 over [start, end), as |q|^2 + |g|^2 - 2 q.g cancels where q and its
+// row nearly coincide; then each list sorted again by (d, row), empty
+// slots last. A block per query.
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename TQ, typename TG>
+__global__ void topk_rescore(const TQ* __restrict__ q, const TG* __restrict__ g, float* __restrict__ d,
+                             int32_t* __restrict__ idx, int k, int D, int start, int end) {
+    const int lane = threadIdx.x & 31;
+    const TQ* qr = q + (size_t)blockIdx.x * D;
+    float* dl = d + (size_t)blockIdx.x * k;
+    int32_t* il = idx + (size_t)blockIdx.x * k;
+    for (int j = threadIdx.x >> 5; j < k; j += blockDim.x >> 5) {
+        const int r = il[j];
+        if (r < 0) continue;  // the whole warp
+        float s = 0.0f;
+        for (int c = start + lane; c < end; c += 32) {
+            const float t = as_f32(qr[c]) - as_f32(g[(size_t)r * D + c]);
+            s = fmaf(t, t, s);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+        if (lane == 0) dl[j] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    for (int j = 1; j < k && il[j] >= 0; ++j) {  // insertion sort: the scan's order is off only at near-ties
+        const float dj = dl[j];
+        const int ij = il[j];
+        int p = j;
+        for (; p > 0 && before(dj, ij, dl[p - 1], il[p - 1]); --p) {
+            dl[p] = dl[p - 1];
+            il[p] = il[p - 1];
+        }
+        dl[p] = dj;
+        il[p] = ij;
+    }
+}
+
+template <typename TQ, typename TG>
+int launch_rescore(const void* q, const void* g, void* d, void* idx, int B, int k, int D, int start, int end,
+                   cudaStream_t s) {
+    topk_rescore<TQ, TG><<<B, 128, 0, s>>>((const TQ*)q, (const TG*)g, (float*)d, (int32_t*)idx, k, D, start, end);
+    return (int)cudaGetLastError();
+}
+
 struct Args {
     const void* q;
     const void* g;
@@ -1447,4 +1496,17 @@ extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, v
     const Args a{q, g, nullptr, (const float*)floor_d, (const int*)floor_i, planes, (float*)qsq,
                  part_d, part_i, out_d, out_i, B, N, n_valid, D, k, n_seg, start, end};
     return g_f32 ? dispatch<Pass::SPLIT6>(a, stream) : dispatch<Pass::SPLIT3>(a, stream);
+}
+
+// Pass 3 in place on a scan's out_d/out_i [B, k]: q [B, D] bf16 or fp32
+// (q_f32), g [N, D] bf16 or fp32 (g_f32, fp32 queries only). Returns a
+// cudaError_t.
+extern "C" int topk_l2_rescore_launch(const void* q, const void* g, int q_f32, int g_f32, void* d, void* idx, int B,
+                                      int k, int D, int start, int end, void* stream) {
+    if (B <= 0 || k < 1 || D <= 0 || start < 0 || start >= end || end > D || (!q_f32 && g_f32))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (!q_f32) return launch_rescore<__nv_bfloat16, __nv_bfloat16>(q, g, d, idx, B, k, D, start, end, s);
+    if (!g_f32) return launch_rescore<float, __nv_bfloat16>(q, g, d, idx, B, k, D, start, end, s);
+    return launch_rescore<float, float>(q, g, d, idx, B, k, D, start, end, s);
 }

@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from fast_image_recognition_tpu_torch.device import DeviceLike
+from fast_image_recognition_tpu_torch.models.zoo import ZooNet, _BatchNorm, _pool, create
 
 # torchvision-style ImageNet normalization on 0..255 inputs
 # (dnn_feature_extractor.py:116-119 in the reference)
@@ -168,11 +169,6 @@ def preprocess_images_caffe(images: torch.Tensor, resolution: Optional[int] = No
 
 # the module (inference)
 
-_BN_EPS = 1e-3
-# flax lecun_normal: a standard normal truncated to [-2, 2], scaled by
-# sqrt(1 / fan_in) / 0.8796 (the truncated law's standard deviation)
-_TRUNC_STD = 0.87962566103423978
-
 
 def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     """TF 'SAME': total = max((ceil(n/s)-1)*s + k - n, 0), low = total//2."""
@@ -183,15 +179,6 @@ def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     if any(pads):
         x = F.pad(x, pads)
     return x
-
-
-def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
-    """flax ``lecun_normal()``: ``truncated_normal(-2, 2) * sqrt(1/fan_in) /
-    0.8796``, drawn by the inverse CDF from ``gen``."""
-    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-    u = torch.rand(shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
-    x = torch.erfinv(u) * math.sqrt(2.0)
-    return (x * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).to(torch.float32)
 
 
 def _act(name: str):
@@ -218,44 +205,12 @@ class _Conv(nn.Module):
         return F.conv2d(x, w, b, self.stride, groups=self.groups)
 
 
-class _BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over running statistics: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in fp32, rounded to ``x``'s dtype."""
-
-    def __init__(self, c: int, eps: float = _BN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
-
-    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.to(torch.float32) - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(dtype or x.dtype)
-
-    def export(self):
-        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
-        return {"scale": t(self.scale), "bias": t(self.bias)}, {"mean": t(self.mean), "var": t(self.var)}
-
-    def load(self, p: Dict[str, Any], s: Dict[str, Any]) -> None:
-        for name, tree in (("scale", p), ("bias", p), ("mean", s), ("var", s)):
-            getattr(self, name).data = torch.tensor(np.asarray(tree[name], np.float32))
-
-
 def _conv_bn(conv: _Conv, bn: _BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """``bn(conv(x))`` as XLA runs it: the conv's fp32 result enters the BN
     unrounded, rounded once after it to ``x``'s dtype (a rounding between
     them doubled the folded-vs-unfolded gap of the bf16 module). No BN: a
     folded conv, its bias added before the one rounding."""
     return conv(x) if bn is None else bn(conv(x, fp32_out=True), x.dtype)
-
-
-def _pool(h: torch.Tensor) -> torch.Tensor:
-    """Global average pool as ``jnp.mean`` takes it: summed in fp32, the
-    mean rounded to the activation's dtype, returned as fp32."""
-    return h.to(torch.float32).mean(dim=(2, 3)).to(h.dtype).to(torch.float32)
 
 
 class SqueezeExcite(nn.Module):
@@ -299,118 +254,6 @@ class MBConv(nn.Module):
             h = self.se(h)
         h = _conv_bn(self.project_conv, self.project_bn, h)
         return h + x if self.residual else h
-
-
-def _node(tree, path, make=False):
-    for key in path:
-        tree = tree.setdefault(key, {}) if make else tree[key]
-    return tree
-
-
-class ZooNet(nn.Module):
-    """The segment protocol over ``self.plan`` and ``self.blocks``:
-    ``forward(NHWC images)`` -> ``{'embedding': [B, D] fp32, 'taps': {name:
-    [B, C] fp32 pooled block output}}`` (+ ``logits``); ``_after(i, h)``
-    runs between block i and the next (VGG's pools: a tap reads before it).
-    Subclasses give ``stem``, ``head_pool``, ``fc`` (or None) and
-    ``_layers``: (flax path of the conv, of its BN or None, module), a BN
-    with no conv at path None."""
-
-    def block_names(self) -> List[str]:
-        return [b["name"] for b in self.plan]
-
-    def plan_configs(self) -> List[Dict[str, Any]]:
-        return [dict(b) for b in self.plan]
-
-    def _after(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        return h
-
-    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
-        for i in range(len(self.plan))[start:end]:
-            x = self._after(i, self.blocks[i](x))
-        return x
-
-    def forward(self, x, train: bool = False, taps: Optional[Sequence[str]] = None,
-                include_logits: Optional[bool] = None) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError("training is not ported (ROADMAP.md §1 queue 2)")
-        h, tap_out = self.stem(x), {}
-        for i, (cfg, blk) in enumerate(zip(self.plan, self.blocks)):
-            h = blk(h)
-            if cfg["name"] in (taps or ()):
-                tap_out[cfg["name"]] = _pool(h)
-            h = self._after(i, h)
-        out = {"embedding": self.head_pool(h), "taps": tap_out}
-        if self.fc is not None and include_logits is not False:
-            out["logits"] = self.fc(out["embedding"])  # dropout is the identity at inference
-        return out
-
-    def _to_nchw(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-
-    @torch.no_grad()
-    def init_weights(self, seed: int = 0) -> None:
-        """flax's default init from ``torch.Generator().manual_seed(seed)``:
-        lecun-normal kernels, zero biases, unit BN."""
-        gen = torch.Generator().manual_seed(int(seed))
-        for conv_path, _, m in self._layers():
-            if conv_path is not None:
-                m.weight.data = _lecun_normal(m.weight.shape, m.weight[0].numel(), gen)
-        if self.fc is not None:
-            self.fc.weight.data = _lecun_normal(self.fc.weight.shape[::-1], self.fc.in_features, gen).T.contiguous()
-            self.fc.bias.zero_()
-
-    def export_variables(self) -> Dict[str, Any]:
-        """The flax ``{'params'[, 'batch_stats']}`` trees as numpy fp32."""
-        params: Dict[str, Any] = {}
-        stats: Dict[str, Any] = {}
-        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
-        for conv_path, bn_path, m in self._layers():
-            bn = m if conv_path is None else getattr(m, "bn", None)
-            if conv_path is not None:
-                node = _node(params, conv_path, True)
-                node["kernel"] = t(m.weight.permute(2, 3, 1, 0))
-                if m.bias is not None:
-                    node["bias"] = t(m.bias)
-            if bn is not None:
-                p, s = bn.export()
-                _node(params, bn_path, True).update(p)
-                _node(stats, bn_path, True).update(s)
-        if self.fc is not None:
-            params["fc"] = {"kernel": t(self.fc.weight.T), "bias": t(self.fc.bias)}
-        return {"params": params, "batch_stats": stats} if stats else {"params": params}
-
-    @torch.no_grad()
-    def load_variables(self, variables: Dict[str, Any]) -> "ZooNet":
-        """Copy a flax numpy tree into the module. A folded module takes the
-        BN-folded tree (``fold_variables``): a conv's bias is its own (if
-        any) plus its neutral BN's. The module stays on its device."""
-        dev, params, stats = next(self.parameters()).device, variables["params"], variables.get("batch_stats", {})
-        f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
-        for conv_path, bn_path, m in self._layers():
-            bn = m if conv_path is None else getattr(m, "bn", None)
-            if bn is not None:
-                bn.load(_node(params, bn_path), _node(stats, bn_path))
-            if conv_path is None:
-                continue
-            node = _node(params, conv_path)
-            m.weight.data = f32(node["kernel"]).permute(3, 2, 0, 1).contiguous()
-            if m.bias is not None:
-                b = np.asarray(node.get("bias", 0.0), np.float32)
-                m.bias.data = f32(b + _node(params, bn_path)["bias"] if bn is None and bn_path else b)
-        if self.fc is not None:
-            self.fc.weight.data = f32(params["fc"]["kernel"]).T.contiguous()
-            self.fc.bias.data = f32(params["fc"]["bias"])
-        return self.to(dev)
-
-
-def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
-    """``(model on device, its flax-layout numpy variables)`` with flax's
-    default init drawn from ``seed``."""
-    dev = resolve_device(device)
-    model.init_weights(seed)
-    model.resolution = int(resolution)
-    return model.to(dev).eval(), model.export_variables()
 
 
 class EfficientNet(ZooNet):

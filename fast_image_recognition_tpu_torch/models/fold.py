@@ -23,12 +23,13 @@ from fast_image_recognition_tpu_torch.models.efficientnet import (
     preprocess_images,
     preprocess_images_caffe,
 )
-from fast_image_recognition_tpu_torch.models.inception_resnet import ConvBN, InceptionResNetV2
+from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
 from fast_image_recognition_tpu_torch.models.inception_v3 import InceptionV3
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
 from fast_image_recognition_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV2, parse_mobilenet_width
 from fast_image_recognition_tpu_torch.models.resnet import ResNet
 from fast_image_recognition_tpu_torch.models.vgg import VGG19
+from fast_image_recognition_tpu_torch.models.zoo import ConvBN
 
 MBCONV_FAMILIES = ("efficientnet", "mobilenetv2")  # served by make_infer_fn (JAX :179)
 # the generic fold's families; the VALID-stem 'tf' ones take the stem fold (JAX :182)

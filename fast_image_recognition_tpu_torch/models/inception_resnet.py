@@ -1,30 +1,31 @@
 """InceptionResNetV2, the 1536-d gallery producer (JAX
-``models/inception_resnet.py:32-311``), and what the BN zoo shares: the
-``ConvBN`` unit and branch blocks. NCHW ``channels_last``, bf16 compute, fp32
-pools; ``folded=True``: each conv carries its folded BN as a bias
-(``models/fold.py``)."""
+``models/inception_resnet.py:32-311``): the VALID stem and branch blocks of
+``models/zoo.py``; ``folded=True``: each conv carries its folded BN as a
+bias (``models/fold.py``)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import _BN_EPS, ZooNet, _BatchNorm, _pool, create
+from fast_image_recognition_tpu_torch.models.zoo import (
+    _V,
+    ConvBN,
+    ZooNet,
+    _Block,
+    _pool,
+    branch_layers,
+    create,
+    run_stem,
+    stem_convs,
+)
 
 INCEPTION_RESNET_EMBED_DIM = 1536
 
-# kind -> (in channels, branches, residual scale or None). A branch is a
-# chain of convs (out, kernel[, stride, padding]), after a 3x3 pool where it
-# starts with "avg" (stride 1, SAME, pads not counted) or "max" (stride 2,
-# VALID); a list in a chain is a split: its convs read the same input and
-# concatenate. Conv j of branch i is named b{i}, or b{i}_{j} in a longer
-# chain (a split's convs add "a" and "b"); a pool branch's conv may have a
-# name of its own (``pool_name``).
-_V = "VALID"
+# kind -> (in channels, branches, residual scale or None), in _Block's notation
 _KINDS = {
     "mixed5b": (192, [[(96, 1)], [(48, 1), (64, 5)], [(64, 1), (96, 3), (96, 3)], ["avg", (64, 1)]], None),
     "block35": (320, [[(32, 1)], [(32, 1), (32, 3)], [(32, 1), (48, 3), (64, 3)]], 0.17),
@@ -34,8 +35,6 @@ _KINDS = {
                        [(256, 1), (288, 3), (320, 3, 2, _V)], ["max"]], None),
     "block8": (2080, [[(192, 1)], [(192, 1), (224, (1, 3)), (256, (3, 1))]], 0.20),
 }
-# the VALID stem InceptionV3 shares: 299 -> 35x35x192
-STEM = [(32, 3, 2, _V), (32, 3, 1, _V), (64, 3), "max", (80, 1, 1, _V), (192, 3, 1, _V), "max"]
 
 
 def inception_resnet_plan() -> List[Dict[str, Any]]:
@@ -52,127 +51,27 @@ def default_taps_inception_resnet() -> List[str]:
     return ["block17_10", "block17_20", "block8_5"]
 
 
-class ConvBN(nn.Module):
-    """Conv + inference BN + ReLU, with symmetric pads (SAME: ``k // 2``,
-    as every SAME conv of the BN zoo is stride 1 with odd kernels, or
-    explicit); a bias where ``bias`` (default: no BN). The conv feeding a
-    BN runs bf16 operands in fp32, rounded once after the BN, as XLA does
-    (``efficientnet._conv_bn``)."""
-
-    def __init__(self, cin, cout, k=1, stride=1, padding="SAME", relu=True, bn=True, bias=None, eps=_BN_EPS):
-        super().__init__()
-        kh, kw = (k, k) if isinstance(k, int) else k
-        self.stride, self.relu = stride, relu
-        self.pad = (kh // 2, kw // 2) if padding == "SAME" else (0, 0)
-        self.weight = nn.Parameter(torch.zeros(cout, cin, kh, kw))
-        self.bias = nn.Parameter(torch.zeros(cout)) if (not bn if bias is None else bias) else None
-        self.bn = _BatchNorm(cout, eps) if bn else None
-
-    def forward(self, x):
-        w, b = self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype)
-        if self.bn is None:
-            y = F.conv2d(x, w, b, self.stride, self.pad)
-        else:
-            y = self.bn(F.conv2d(x.float(), w.float(), None if b is None else b.float(), self.stride, self.pad),
-                        x.dtype)
-        return F.relu(y) if self.relu else y
-
-
-def _pool3(x, how):
-    if how == "avg":
-        return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
-    return F.max_pool2d(x, 3, 2)
-
-
-class _Block(nn.Module):
-    """Parallel branches concatenated over channels; a residual kind adds
-    ``scale * up(mix)`` to its input in the activation dtype, then ReLU
-    (none for the linear last Block8)."""
-
-    def __init__(self, spec, bn, dtype, last=False, pool_name=None):
-        super().__init__()
-        cin, branches, scale = spec
-        self.chains, out = [], 0
-        for i, chain in enumerate(branches):
-            pool = chain[0] if isinstance(chain[0], str) else None
-            convs = [c for c in chain if not isinstance(c, str)]
-            names, c = [], cin
-            for j, spec_j in enumerate(convs):
-                name = pool_name if pool and pool_name else f"b{i}" if len(convs) == 1 else f"b{i}_{j}"
-                split = spec_j if isinstance(spec_j, list) else [spec_j]
-                for s, part in enumerate(split):
-                    self.add_module(name + "ab"[s] * (len(split) > 1), ConvBN(c, *part, bn=bn))
-                names.append([name + "ab"[s] * (len(split) > 1) for s in range(len(split))])
-                c = sum(part[0] for part in split)
-            self.chains.append((pool, names))
-            out += c
-        self.scale, self.relu = (1.0, False) if last else (scale, True)
-        if scale is not None:
-            self.up = ConvBN(out, cin, relu=False, bn=False)
-            # JAX multiplies by the Python scale in the activation dtype
-            self.scale = float(torch.tensor(self.scale, dtype=dtype))
-
-    def forward(self, x):
-        outs = []
-        for pool, names in self.chains:
-            h = x if pool is None else _pool3(x, pool)
-            for split in names:
-                parts = [getattr(self, n)(h) for n in split]
-                h = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
-            outs.append(h)
-        mix = torch.cat(outs, 1)
-        if self.scale is None:
-            return mix
-        y = x + self.scale * self.up(mix)
-        return F.relu(y) if self.relu else y
-
-
 class InceptionResNetV2(ZooNet):
-    """``num_classes=0``: the pooled 1536-d extractor. The branch blocks
-    come from ``kinds`` (InceptionV3 brings its own); ``head_conv`` is
-    IRv2's ``conv_7b``."""
-
-    embed_dim, pool_name = INCEPTION_RESNET_EMBED_DIM, None
+    """``num_classes=0``: the pooled 1536-d extractor; ``head_conv`` is
+    ``conv_7b``."""
 
     def __init__(self, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16, folded: bool = False):
         super().__init__()
-        self.num_classes, self.dtype, self.plan = int(num_classes), dtype, self._plan()
-        self.stem_mod = nn.ModuleDict()
-        c = 3
-        for spec in STEM:
-            if spec != "max":
-                self.stem_mod[f"conv{len(self.stem_mod) + 1}"] = ConvBN(c, *spec, bn=not folded)
-                c = spec[0]
-        self.blocks = nn.ModuleList(_Block(self._spec(b), not folded, dtype, b["name"] == "block8_10", self.pool_name)
+        self.num_classes, self.dtype, self.plan = int(num_classes), dtype, inception_resnet_plan()
+        self.stem_mod = stem_convs(not folded)
+        self.blocks = nn.ModuleList(_Block(_KINDS[b["kind"]], not folded, dtype, b["name"] == "block8_10")
                                     for b in self.plan)
-        self.head_conv = self._head(not folded)
-        self.fc = nn.Linear(self.embed_dim, self.num_classes) if self.num_classes else None
-
-    def _plan(self):
-        return inception_resnet_plan()
-
-    def _spec(self, cfg):
-        return _KINDS[cfg["kind"]]
-
-    def _head(self, bn):
-        return ConvBN(2080, INCEPTION_RESNET_EMBED_DIM, bn=bn)
+        self.head_conv = ConvBN(2080, INCEPTION_RESNET_EMBED_DIM, bn=not folded)
+        self.fc = nn.Linear(INCEPTION_RESNET_EMBED_DIM, self.num_classes) if self.num_classes else None
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        x, convs = self._to_nchw(x), iter(self.stem_mod.values())
-        for spec in STEM:
-            x = _pool3(x, "max") if spec == "max" else next(convs)(x)
-        return x
+        return run_stem(self.stem_mod, self._to_nchw(x))
 
     def head_pool(self, x: torch.Tensor) -> torch.Tensor:
-        return _pool(x if self.head_conv is None else self.head_conv(x))
+        return _pool(self.head_conv(x))
 
     def _layers(self):
-        """ConvBN units at (scope + 'conv', scope + 'bn'); ``up`` at its scope."""
-        named = [(("stem", n), m) for n, m in self.stem_mod.items()]
-        named += [((cfg["name"], n), m) for cfg, blk in zip(self.plan, self.blocks) for n, m in blk.named_children()]
-        named += [(("conv_7b",), self.head_conv)] if self.head_conv is not None else []
-        for scope, m in named:
-            yield (scope, None, m) if scope[-1] == "up" else (scope + ("conv",), scope + ("bn",), m)
+        return branch_layers(self.stem_mod, self.plan, self.blocks, [(("conv_7b",), self.head_conv)])
 
 
 def create_inception_resnet_v2(num_classes: int = 0, seed: int = 0, resolution: int = 299,

@@ -1,16 +1,18 @@
 """InceptionV3, the 2048-d zoo member (JAX ``models/inception_v3.py``):
-IRv2's VALID stem, then the 35x35 (mixed0-2), 17x17 (mixed4-7) and 8x8
-(mixed9-10) blocks and the two grid reductions, as branch tables over
-IRv2's ``ConvBN`` and ``_Block`` (a pool branch's conv is ``bp``)."""
+the VALID Inception stem, then the 35x35 (mixed0-2), 17x17 (mixed4-7) and
+8x8 (mixed9-10) blocks and the two grid reductions, as branch tables over
+``models/zoo.py``'s ``_Block`` (a pool branch's conv is ``bp``)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.inception_resnet import _V, InceptionResNetV2, create
+from fast_image_recognition_tpu_torch.models.zoo import (_V, ZooNet, _Block, _pool, branch_layers, create, run_stem,
+                                                        stem_convs)
 
 INCEPTION_V3_EMBED_DIM = 2048
 
@@ -49,19 +51,24 @@ def _spec(cfg):
                                                 ["avg", (192, 1)]], None
 
 
-class InceptionV3(InceptionResNetV2):
+class InceptionV3(ZooNet):
     """``num_classes=0``: the pooled 2048-d extractor (no head conv)."""
 
-    embed_dim, pool_name = INCEPTION_V3_EMBED_DIM, "bp"
+    def __init__(self, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16, folded: bool = False):
+        super().__init__()
+        self.num_classes, self.dtype, self.plan = int(num_classes), dtype, inception_v3_plan()
+        self.stem_mod = stem_convs(not folded)
+        self.blocks = nn.ModuleList(_Block(_spec(b), not folded, dtype, pool_name="bp") for b in self.plan)
+        self.fc = nn.Linear(INCEPTION_V3_EMBED_DIM, self.num_classes) if self.num_classes else None
 
-    def _plan(self):
-        return inception_v3_plan()
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        return run_stem(self.stem_mod, self._to_nchw(x))
 
-    def _spec(self, cfg):
-        return _spec(cfg)
+    def head_pool(self, x: torch.Tensor) -> torch.Tensor:
+        return _pool(x)
 
-    def _head(self, bn):
-        return None
+    def _layers(self):
+        return branch_layers(self.stem_mod, self.plan, self.blocks)
 
 
 def create_inception_v3(num_classes: int = 0, seed: int = 0, resolution: int = 299,

@@ -13,8 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import _BatchNorm, _pool
-from fast_image_recognition_tpu_torch.models.inception_resnet import ConvBN, ZooNet, create
+from fast_image_recognition_tpu_torch.models.zoo import ConvBN, ZooNet, _BatchNorm, _pool, create
 
 RESNET_EMBED_DIM = 2048
 RESNET_EPS = 1.001e-5

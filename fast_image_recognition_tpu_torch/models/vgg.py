@@ -12,8 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import _pool
-from fast_image_recognition_tpu_torch.models.inception_resnet import ConvBN, ZooNet, create
+from fast_image_recognition_tpu_torch.models.zoo import ConvBN, ZooNet, _pool, create
 
 VGG19_EMBED_DIM = 512
 _STAGES = ((1, 2, 64), (2, 2, 128), (3, 4, 256), (4, 4, 512), (5, 4, 512))  # (stage, convs, filters)

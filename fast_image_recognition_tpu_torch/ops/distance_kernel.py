@@ -422,7 +422,9 @@ def topk_l2(
     not with ``precise``): False rows come back ``(BIG_DIST / width, -1)``
     and on the card their query blocks skip the scan (no host sync). Above
     :data:`TOPK_SLAB` (256 a launch) k runs in slabs, each above the last
-    one's final (distance, row), so they join into the exact top-k."""
+    one's final (distance, row), so they join into the exact top-k. The
+    picks' distances are then summed again from the rows as ``(q - g)^2``
+    (pass 3): JAX returns the cancelling ``|q|^2 + |g|^2 - 2 q.g``."""
     if k < 1:
         raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)
@@ -462,4 +464,6 @@ def topk_l2(
             parts.append((d_s, i_s))
             floor = (d_s[:, -1], i_s[:, -1])
         dist, idx = torch.cat([d for d, _ in parts], dim=1), torch.cat([i for _, i in parts], dim=1)
+    rescore = build.launch_topk_rescore if card else plain.topk_rescore_plain
+    dist, idx = rescore(q, gallery, dist, idx, window)
     return dist / (end - start), idx

@@ -166,3 +166,19 @@ def test_unported_options_raise_and_card_wrappers_check_device():
         build.launch_tilemin(q, q, rows, 128, False)
     with pytest.raises(ValueError, match="CUDA"):
         build.launch_tilemin_quant(i8, rows, i8, rows, rows, 128, "int8")
+
+
+def test_topk_l2_near_collinear_distances():
+    """Cosines ~0.99996 (the untrained nets' lines): JAX's |q|^2 + |g|^2 -
+    2 q.g cancels (its order of the near-tied distractors too); the port's
+    pass 3 gives (q - g)^2 within 2^-20 of fp64, ascending, JAX's top-1."""
+    rng = np.random.default_rng(7)
+    gt = torch.from_numpy(_unit(rng.standard_normal(2048) + 0.002 * rng.standard_normal((512, 2048)))).bfloat16()
+    q = torch.from_numpy(_unit(gt[:8].double().numpy() + 2e-4 * rng.standard_normal((8, 2048)))).bfloat16()
+    pd, pi = (x.numpy() for x in P.topk_l2(q, gt, 4))
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q.float().numpy()), jnp.asarray(gt.float().numpy()), 4))
+    qd, gd = q.double().numpy()[:, None], gt.double().numpy()
+    exact, dj = (((qd - gd[i]) ** 2).sum(-1) / 2048 for i in (pi, ji))
+    np.testing.assert_allclose(pd, exact, rtol=2.0**-20)
+    assert (np.diff(pd, axis=1) >= 0).all() and (pi[:, 0] == ji[:, 0]).all()
+    assert np.abs(jd - dj).max() > 100 * np.abs(pd - exact).max()

@@ -186,6 +186,7 @@ def test_ctypes_bindings_match_the_c_launchers():
         "topk_l2_max_k": 0,
         "topk_l2_split_smem": 1,
         "topk_l2_split6_smem": 1,
+        "topk_l2_rescore_launch": 12,
     }
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()

@@ -49,7 +49,8 @@ def _res(name):
 
 
 def _vars(name):
-    """The port's seed-0 tree with BN scales, biases and statistics drawn around flax's defaults."""
+    """The port's seed-0 tree with BN scales, biases and statistics, and every conv and dense bias, drawn
+    around flax's defaults."""
     if name not in _CACHE:
         _, v = create_backbone(name, seed=0, resolution=_res(name), device="cpu")
         rng = np.random.default_rng(1)
@@ -63,6 +64,14 @@ def _vars(name):
                 c["mean"], c["var"] = u(-0.05, 0.05, c["mean"]), u(0.5, 2, c["var"])
                 p[k]["scale"], p[k]["bias"] = u(0.5, 1.5, c["var"]), u(-0.05, 0.1, c["var"])
 
+        def biases(p):
+            for c in p.values():
+                if "kernel" in c and "bias" in c:
+                    c["bias"] = u(-0.05, 0.05, c["bias"])
+                elif "kernel" not in c and "scale" not in c:
+                    biases(c)
+
+        biases(v["params"])
         if "batch_stats" in v:
             perturb(v["params"], v["batch_stats"])
         _CACHE[name] = v
