@@ -1,10 +1,7 @@
-"""Sequential early-exit inference over backbone segments (JAX
-``cascade/engine.py``): ``predict``, ``predict_fused`` (static capacities,
-one fetch) and ``predict_pooled`` (one pool); ``engine`` 'bind' (any
-zoo module with the segment protocol) or 'folded' (MBConv only, as JAX's);
-``head_mode`` 'linear' or 'knn'. Exit heads sum in fp64."""
-
-from __future__ import annotations
+"""Early-exit inference over backbone segments (JAX ``cascade/engine.py``):
+``predict``, ``predict_fused`` (static capacities) and ``predict_pooled``;
+``engine`` 'bind' (any zoo module) or 'folded' (MBConv); heads 'linear' or
+'knn', summed in fp64."""
 
 import dataclasses
 import math
@@ -45,12 +42,8 @@ class PipelineResult:
 
 
 class SequentialInferencePipeline:
-    """Backbone segments, exit heads and batch compaction. ``model``: a zoo
-    module with ``stem``/``run_blocks``/``head_pool``/``plan_configs``
-    (EfficientNet, MobileNetV2/V1, InceptionResNetV2, InceptionV3, ResNet,
-    VGG19; the folded engine takes the MBConv families); ``variables``: its
-    flax-layout numpy trees, loaded by the bind engine (None: the model's
-    own), folded by the folded one."""
+    """Segments, exit heads and compaction over a zoo module; ``variables``:
+    numpy, loaded (bind; None: the model's) or folded."""
 
     def __init__(
         self,
@@ -118,16 +111,13 @@ class SequentialInferencePipeline:
     # segments
 
     def _linear_scores(self, emb: torch.Tensor, level: int) -> torch.Tensor:
-        """[B, C] fp32 decision values of a linear head, summed in fp64 and
-        rounded once: an image tying a calibrated threshold must exit alike
-        in every batch of every mode."""
+        """[B, C] fp32 decision values, summed in fp64 and rounded once: a
+        threshold tie exits alike in every batch and mode."""
         emb = (_unit_rows(emb) if self.l2_normalize else emb).to(torch.float64)
         return (emb @ self.coefs[level].T + self.intercepts[level]).to(torch.float32)
 
     def _head(self, emb: torch.Tensor, level: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(prediction [B] int64, confidence [B] fp32) of one exit level;
-        the exit fires when confidence > thresholds[level]. kNN distances
-        are summed in fp64 too."""
+        """(prediction [B], confidence [B] fp32) of a level; it fires when confidence > thresholds[level]."""
         if self.head_mode == "knn":
             emb = (_unit_rows(emb) if self.l2_normalize else emb).to(torch.float64)
             d = (2.0 - 2.0 * emb @ self.galleries[level].T).to(torch.float32)
@@ -142,9 +132,8 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def level_scores(self, images, levels: Optional[int] = None) -> List[torch.Tensor]:
-        """The linear exit heads' [B, C] fp32 decision values at the first
-        ``levels`` levels (all by default), the whole batch through every
-        segment with no exits: the scores that ``_head`` decides on."""
+        """The linear heads' [B, C] decision values at the first ``levels``
+        levels, no exits: what ``_head`` decides on."""
         if self.head_mode != "linear":
             raise ValueError("level_scores needs linear exit heads")
         carry, out = self._images(images), []
@@ -155,8 +144,7 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def _trunk(self, level: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One backbone segment and its exit embedding: (h, emb [B, F] fp32).
-        Level 0 takes NHWC images, the others the previous segment's h."""
+        """One segment and its exit embedding: (h, emb [B, F] fp32); level 0 takes NHWC images."""
         start, end = self.segments[level]
         final = level == self.num_levels - 1
         net = self._net
@@ -180,9 +168,7 @@ class SequentialInferencePipeline:
         return torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
 
     def level_embeddings(self, images) -> List[np.ndarray]:
-        """Per-level pooled embeddings (unit rows if the pipeline
-        normalizes) of the whole batch with no exits: the reference's
-        embedding-cache pass (sequential_inference.py:823-886)."""
+        """Per-level pooled embeddings of the whole batch, no exits (sequential_inference.py:823-886)."""
         carry = self._images(images)
         out: List[np.ndarray] = []
         for level in range(self.num_levels):
@@ -195,10 +181,8 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def calibrate(self, images, quantile: float = 0.5, tune: Optional[bool] = None) -> List[float]:
-        """Record the survivor fractions that size ``predict_fused``'s
-        capacities and (linear heads, or ``tune=True``) set each level's
-        threshold to the ``quantile`` of the confidence of the images alive
-        there (sequential_inference.py:609-631); kNN keeps margin 0."""
+        """Survivor fractions for the capacities and (linear, or ``tune``) thresholds at the ``quantile`` of live
+        confidences (sequential_inference.py:609-631)."""
         if tune is None:
             tune = self.head_mode == "linear"
         carry = self._images(images)
@@ -220,8 +204,7 @@ class SequentialInferencePipeline:
         return thresholds
 
     def capacities_for(self, batch: int, slack: float = 1.3, multiple: int = 64) -> Tuple[int, ...]:
-        """Per-level capacities ``roundup(batch * frac * slack)`` from the
-        calibrated survivor fractions; level 0 is the whole batch."""
+        """Per-level capacities ``roundup(batch * frac * slack)``; level 0 the whole batch."""
         if self.survivor_fractions is None:
             raise RuntimeError("call calibrate() first")
         caps = [batch]
@@ -271,9 +254,8 @@ class SequentialInferencePipeline:
         return fused
 
     def fused_fn(self, batch: int, capacities: Optional[Sequence[int]] = None, slack: float = 1.3):
-        """The cached fused cascade for ``batch`` images: ``fn(images on
-        the device) -> [2 * batch + 1] int64 [preds | exit levels |
-        forced]``. The thresholds are part of the key: they are baked in."""
+        """The cached fused cascade: ``fn(images) -> [2 * batch + 1] int64 [preds
+        | levels | forced]``, thresholds baked in (part of the key)."""
         caps = tuple(capacities) if capacities is not None else self.capacities_for(batch, slack=slack)
         key = (batch, caps, tuple(float(t) for t in self.thresholds))
         if key not in self._fused_fns:
@@ -281,9 +263,8 @@ class SequentialInferencePipeline:
         return self._fused_fns[key]
 
     def predict_fused(self, images, capacities: Optional[Sequence[int]] = None, slack: float = 1.3) -> PipelineResult:
-        """The whole cascade with no host sync before its one fetch. Needs
-        calibrated thresholds and survivor fractions, or ``capacities`` (one
-        per level; capacities[0] is ignored)."""
+        """The whole cascade, no host sync before its one fetch; calibrated, or
+        given ``capacities`` (capacities[0] ignored)."""
         x = self._images(images)
         b = int(x.shape[0])
         fn = self.fused_fn(b, capacities, slack)
@@ -291,21 +272,16 @@ class SequentialInferencePipeline:
         packed = fn(x).cpu().numpy()  # the one fetch
         elapsed = time.perf_counter() - t0
         preds, exit_level = packed[:b], packed[b : 2 * b]
-        return PipelineResult(
-            predictions=preds.astype(np.int64),
-            exit_level=exit_level.astype(np.int64),
-            break_counts=np.bincount(exit_level, minlength=self.num_levels) / b,
-            ms_per_image=1000.0 * elapsed / b,
-            forced_fraction=int(packed[2 * b]) / b,
-        )
+        return PipelineResult(predictions=preds.astype(np.int64), exit_level=exit_level.astype(np.int64),
+            break_counts=np.bincount(exit_level, minlength=self.num_levels) / b, ms_per_image=1000.0 * elapsed / b,
+            forced_fraction=int(packed[2 * b]) / b)
 
     # level-major pooled cascade
 
     @torch.no_grad()
     def predict_pooled(self, images, bucket: int = 1024, warmup: bool = False) -> PipelineResult:
-        """Level-major inference over a pool: all alive images in ``bucket``
-        slices a level, survivors compacted; ``predict``'s decisions, one
-        fetch a level. JAX's ``streams`` (no win there) is left out."""
+        """Level-major over a pool in ``bucket`` slices, survivors compacted: ``predict``'s decisions, one fetch a
+        level (JAX's ``streams`` left out)."""
         x = self._images(images)
         n = int(x.shape[0])
         preds = np.zeros(n, dtype=np.int64)
@@ -339,20 +315,15 @@ class SequentialInferencePipeline:
             h_all = hs[0] if len(hs) == 1 else torch.cat(hs)
             carry = h_all.index_select(0, torch.as_tensor(keep).to(h_all.device))
         elapsed = time.perf_counter() - t0
-        return PipelineResult(
-            predictions=preds,
-            exit_level=exit_level,
-            break_counts=np.bincount(exit_level, minlength=self.num_levels) / n,
-            ms_per_image=1000.0 * elapsed / n,
-        )
+        return PipelineResult(predictions=preds, exit_level=exit_level,
+            break_counts=np.bincount(exit_level, minlength=self.num_levels) / n, ms_per_image=1000.0 * elapsed / n)
 
     # host-compaction cascade
 
     @torch.no_grad()
     def predict(self, images, warmup: bool = False) -> PipelineResult:
-        """Sequential inference with the host deciding the exits: after each
-        segment only [n] predictions and confidences come back, and the
-        survivors are gathered on the device into the next bucket."""
+        """The host decides the exits: after each segment [n] predictions and
+        confidences come back, survivors gathered on the device."""
         x = self._images(images)
         if warmup:
             self.predict(x)
@@ -386,17 +357,12 @@ class SequentialInferencePipeline:
                 take[: len(keep_idx)] = keep_idx
                 carry = h.index_select(0, torch.from_numpy(take).to(h.device))
         elapsed = time.perf_counter() - t0
-        return PipelineResult(
-            predictions=preds,
-            exit_level=exit_level,
-            break_counts=np.bincount(exit_level, minlength=self.num_levels) / b,
-            ms_per_image=1000.0 * elapsed / b,
-        )
+        return PipelineResult(predictions=preds, exit_level=exit_level,
+            break_counts=np.bincount(exit_level, minlength=self.num_levels) / b, ms_per_image=1000.0 * elapsed / b)
 
     @torch.no_grad()
     def measure_segment_latency(self, images, iters: int = 5) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-level and cumulative ms per image of the chained segments at
-        the batch's bucket (sequential_inference.py:1252-1275, :888-896)."""
+        """Per-level and cumulative ms an image of the chained segments (sequential_inference.py:1252-1275)."""
         x = self._images(images)
         n = int(x.shape[0])
         bucket = _bucket(n, self.buckets)

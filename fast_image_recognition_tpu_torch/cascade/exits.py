@@ -1,8 +1,6 @@
 """Multi-exit cascade policies over per-level embeddings (JAX
 ``cascade/exits.py``): kNN, LinearSVC, entropy and max-softmax exits."""
 
-from __future__ import annotations
-
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
@@ -16,8 +14,7 @@ from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 
 
 def svc_step(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, lr: float, reg: float):
-    """One gradient step of ``mean_n sum_c max(0, 1 - t s)^2 + reg |w|^2``
-    with ``s = x w^T + b`` and ``t`` in {-1, +1}. Returns (w, b)."""
+    """A step of ``mean_n sum_c max(0, 1 - t s)^2 + reg |w|^2``, ``s = x w^T + b``: (w, b)."""
     scores = x @ w.T + b
     hinge = torch.clamp_min(1.0 - targets * scores, 0.0)
     g_scores = -2.0 * hinge * targets / x.shape[0]
@@ -25,17 +22,8 @@ def svc_step(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, targets: torch.T
     return w - lr * g_w, b - lr * g_scores.sum(dim=0)
 
 
-def svc_descent(
-    x: np.ndarray,
-    y: np.ndarray,
-    num_classes: int,
-    w0: np.ndarray,
-    b0: np.ndarray,
-    steps: int = 200,
-    lr: float = 0.05,
-    reg: float = 1e-4,
-    device: DeviceLike = None,
-) -> Tuple[np.ndarray, np.ndarray]:
+def svc_descent(x: np.ndarray, y: np.ndarray, num_classes: int, w0: np.ndarray, b0: np.ndarray, steps: int = 200,
+    lr: float = 0.05, reg: float = 1e-4, device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
     """``steps`` of :func:`svc_step` (one-vs-rest, fp32) from (w0, b0)."""
     dev = resolve_device(device)
     xt = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
@@ -48,20 +36,10 @@ def svc_descent(
     return w.cpu().numpy(), b.cpu().numpy()
 
 
-def train_linear_svc(
-    x: np.ndarray,
-    y: np.ndarray,
-    num_classes: int,
-    use_sklearn: bool = True,
-    steps: int = 200,
-    lr: float = 0.05,
-    reg: float = 1e-4,
-    seed: int = 0,
-    device: DeviceLike = None,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(coef [C, D], intercept [C]) of one-vs-rest linear SVC decision
-    values: scikit-learn's ``LinearSVC`` where installed and asked for, else
-    :func:`svc_descent` from seeded ``N(0, 0.01^2)`` weights."""
+def train_linear_svc(x: np.ndarray, y: np.ndarray, num_classes: int, use_sklearn: bool = True, steps: int = 200,
+    lr: float = 0.05, reg: float = 1e-4, seed: int = 0, device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+    """(coef [C, D], intercept [C]) one-vs-rest: scikit-learn's ``LinearSVC`` where installed and asked for, else
+    :func:`svc_descent` from seeded N(0, 0.01^2)."""
     if use_sklearn:
         try:
             from sklearn.svm import LinearSVC
@@ -82,9 +60,8 @@ def train_linear_svc(
 
 
 def tune_far_threshold(decision_values: np.ndarray, y: np.ndarray, far: float = 0.01) -> float:
-    """Per-level threshold (sequential_inference.py:609-631): walk the
-    correct predictions' max scores downward; stop when the false accept
-    rate among mistakes exceeds ``far``."""
+    """Per-level threshold (sequential_inference.py:609-631): the correct predictions' max scores downward until the
+    false accept rate exceeds ``far``."""
     predictions = decision_values.argmax(axis=1)
     max_vals = decision_values.max(axis=1)
     mistakes = max_vals[predictions != y]
@@ -129,9 +106,8 @@ def _finalize(preds_per_level, exit_masks, num_levels) -> CascadeResult:
 
 @torch.no_grad()
 def _knn_level(gallery: torch.Tensor, g_labels: torch.Tensor, queries: torch.Tensor, ratio: float):
-    """One kNN exit level: distances ``2 - 2 x.q`` (cosine on unit rows,
-    sequential_inference.py:469/493); reliable when every row within
-    ``d_min / ratio`` carries the best label (:496-497). fp32 products."""
+    """One kNN level: ``2 - 2 x.q`` (sequential_inference.py:469/493); reliable
+    when every row within ``d_min / ratio`` has the best label (:496-497)."""
     d = 2.0 - 2.0 * queries @ gallery.T
     best = torch.argmin(d, dim=1)
     d_min = d.gather(1, best[:, None])[:, 0]
@@ -145,13 +121,8 @@ def _levels_on(xs: Sequence[np.ndarray], dev: torch.device) -> List[torch.Tensor
     return [torch.as_tensor(np.asarray(x, np.float32)).to(dev) for x in xs]
 
 
-def sequential_knn_cascade(
-    x_train_levels: Sequence[np.ndarray],
-    y_train: np.ndarray,
-    x_val_levels: Sequence[np.ndarray],
-    ratio: float = 0.8,
-    device: DeviceLike = None,
-) -> CascadeResult:
+def sequential_knn_cascade(x_train_levels: Sequence[np.ndarray], y_train: np.ndarray,
+    x_val_levels: Sequence[np.ndarray], ratio: float = 0.8, device: DeviceLike = None) -> CascadeResult:
     """sequential_knn_tester (sequential_inference.py:483-508), batched."""
     dev = resolve_device(device)
     num_levels = len(x_train_levels)
@@ -167,27 +138,18 @@ def sequential_knn_cascade(
 
 @dataclasses.dataclass
 class LinearExitCascade:
-    """The paper's method (sequential_inference.py:587-686): a linear
-    classifier per level, exiting on the max decision value."""
+    """A linear classifier a level, exiting on the max decision value (sequential_inference.py:587-686)."""
 
     coefs: List[np.ndarray]
     intercepts: List[np.ndarray]
     thresholds: List[float]
 
     @staticmethod
-    def train(
-        x_train_levels: Sequence[np.ndarray],
-        y_train: np.ndarray,
-        num_classes: int,
-        far: float = 0.01,
-        fixed_threshold: Optional[float] = None,
-        use_sklearn: bool = True,
-        seed: int = 42,
-        device: DeviceLike = None,
+    def train(x_train_levels: Sequence[np.ndarray], y_train: np.ndarray, num_classes: int, far: float = 0.01,
+        fixed_threshold: Optional[float] = None, use_sklearn: bool = True, seed: int = 42, device: DeviceLike = None
     ) -> "LinearExitCascade":
-        """Per-level classifiers; each non-final level's threshold tuned on
-        a held-out half to FAR <= ``far`` (:609-631) unless a fixed one
-        (0.06 in the reference, :655) is given."""
+        """Per-level classifiers; non-final thresholds tuned on a held-out half to
+        FAR <= ``far`` unless fixed (0.06 in the reference)."""
         num_levels = len(x_train_levels)
         coefs, intercepts, thresholds = [], [], []
         rng = np.random.default_rng(seed)
@@ -222,15 +184,10 @@ class LinearExitCascade:
         return _finalize(preds, masks, num_levels)
 
 
-def entropy_exit_cascade(
-    probs_per_level: Sequence[np.ndarray],
-    threshold: float,
-    mode: str = "entropy",
+def entropy_exit_cascade(probs_per_level: Sequence[np.ndarray], threshold: float, mode: str = "entropy"
 ) -> CascadeResult:
-    """BranchyNet (sequential_inference.py:1079-1165) over precomputed
-    per-level softmax outputs, in NumPy: ``'entropy'`` exits when the
-    entropy is <= threshold, ``'max_prob'`` when the max probability is
-    > threshold."""
+    """BranchyNet (sequential_inference.py:1079-1165) over per-level softmax outputs in NumPy: ``'entropy'`` exits at
+    entropy <= threshold, ``'max_prob'`` at max > threshold."""
     num_levels = len(probs_per_level)
     preds, masks = [], []
     for level, p in enumerate(probs_per_level):
@@ -244,21 +201,13 @@ def entropy_exit_cascade(
     return _finalize(preds, masks, num_levels)
 
 
-def knn_exits_with_final_classifier(
-    x_train_levels: Sequence[np.ndarray],
-    y_train: np.ndarray,
-    x_val_levels: Sequence[np.ndarray],
-    num_classes: int,
-    ratio: float = 0.8,
-    use_sklearn: bool = True,
-    device: DeviceLike = None,
-) -> CascadeResult:
-    """kNN exits at levels 0..L-2, a final LinearSVC at level L-1
-    (sequential_knn_classifier_tester, sequential_inference.py:725-773)."""
+def knn_exits_with_final_classifier(x_train_levels: Sequence[np.ndarray], y_train: np.ndarray,
+    x_val_levels: Sequence[np.ndarray], num_classes: int, ratio: float = 0.8, use_sklearn: bool = True,
+    device: DeviceLike = None) -> CascadeResult:
+    """kNN exits at levels 0..L-2, a LinearSVC at L-1 (sequential_inference.py:725-773)."""
     dev = resolve_device(device)
     num_levels = len(x_train_levels)
-    w, b = train_linear_svc(np.asarray(x_train_levels[-1], np.float32), y_train, num_classes, use_sklearn,
-                            device=dev)
+    w, b = train_linear_svc(np.asarray(x_train_levels[-1], np.float32), y_train, num_classes, use_sklearn, device=dev)
     y_tr = torch.as_tensor(np.asarray(y_train), dtype=torch.int64).to(dev)
     preds, masks = [], []
     gals, vals = _levels_on(x_train_levels[:-1], dev), _levels_on(x_val_levels[:-1], dev)

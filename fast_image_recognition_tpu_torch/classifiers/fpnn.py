@@ -2,8 +2,6 @@
 qt_cpp/classification.cpp:618-791): fp32 matmuls (TF32 off), the fit in
 class blocks, the predict in feature blocks."""
 
-from __future__ import annotations
-
 import math
 
 import numpy as np
@@ -32,10 +30,8 @@ def _angles(v: torch.Tensor, j_terms: int) -> torch.Tensor:
 
 
 def _fit_coeffs(v: torch.Tensor, labels: torch.Tensor, j_terms: int, num_classes: int):
-    """(a_cos, a_sin) [D, C, J] from normalized training rows [N, D]: each
-    class's rows gathered (in row order, padded to the largest class with
-    masked slots) and summed, a block of classes at a time (JAX: a one-hot
-    [N, C] matmul, C times the work)."""
+    """(a_cos, a_sin) [D, C, J] from normalized rows: each class's rows gathered
+    (padded to the largest, masked) and summed, a block of classes at a time."""
     n, d = v.shape
     counts = torch.bincount(labels, minlength=num_classes)
     starts = torch.cumsum(counts, 0) - counts
@@ -67,14 +63,8 @@ def _density_logs(v: torch.Tensor, a_cos: torch.Tensor, a_sin: torch.Tensor) -> 
 class FPNNClassifier:
     """'FPNN, <scale>' / '(seq)' naming mirrors classification.cpp:620-621."""
 
-    def __init__(
-        self,
-        num_classes: int,
-        features_scale: float = 1.0,
-        bruteforce: bool = True,
-        output_ratio: float = 0.9,
-        device: DeviceLike = None,
-    ):
+    def __init__(self, num_classes: int, features_scale: float = 1.0, bruteforce: bool = True,
+        output_ratio: float = 0.9, device: DeviceLike = None):
         self.device = resolve_device(device)
         suffix = "" if bruteforce else " (seq)"
         self.name = f"FPNN, {features_scale}{suffix}"
@@ -144,13 +134,8 @@ class FPNNClassifier:
         return self._predict_sequential(queries)
 
 
-def fpnn_oracle_predict(
-    query: np.ndarray,
-    x_train: np.ndarray,
-    y_train: np.ndarray,
-    num_classes: int,
-    features_scale: float = 1.0,
-) -> int:
+def fpnn_oracle_predict(query: np.ndarray, x_train: np.ndarray, y_train: np.ndarray, num_classes: int,
+    features_scale: float = 1.0) -> int:
     """classification.cpp:661-735 in float64 with the cos/sin recurrence."""
     x64 = np.asarray(x_train, np.float64)
     n, d = x64.shape

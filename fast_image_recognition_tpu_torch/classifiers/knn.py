@@ -2,8 +2,6 @@
 qt_cpp/classification.cpp:108-170): mean-centered L2 distances, sorted;
 the first class to reach K votes wins."""
 
-from __future__ import annotations
-
 import numpy as np
 import torch
 
@@ -13,9 +11,7 @@ _QUERY_BLOCK = 256  # queries per [B, N] block (distances, sort and votes)
 
 
 def _knn_predict(queries, train, labels, mean, k: int, num_classes: int) -> torch.Tensor:
-    """[B] int32 classes: the first sorted position where a class reaches
-    K votes (each position's rank in its class, by a stable sort; JAX's
-    one-hot cumsum needs [B, N, C]); none reaching K gives 0, as JAX."""
+    """[B] int32: the first sorted position where a class reaches K votes (ranks by a stable sort); none: 0, as JAX."""
     q = queries - mean
     t = train - mean
     d = ((q * q).sum(dim=1, keepdim=True) + (t * t).sum(dim=1)[None, :] - 2.0 * q @ t.T) / q.shape[1]

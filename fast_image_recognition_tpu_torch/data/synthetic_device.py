@@ -1,11 +1,6 @@
-"""Procedural texture images rendered on the device (JAX
-``data/synthetic_device.py``): band-limited sinusoid prototypes evaluated
-at affinely warped coordinates. Class parameters come from JAX's numpy
-stream (``make_class_params`` copied), so a class seed names the same
-textures; per-instance draws come from a ``torch.Generator``, so instances
-match JAX's in distribution only."""
-
-from __future__ import annotations
+"""Procedural textures rendered on the device (JAX ``data/synthetic_device.py``):
+class parameters from JAX's numpy stream (a class seed names the same
+textures), instances from a ``torch.Generator``."""
 
 import math
 from typing import Dict, Optional, Tuple
@@ -19,8 +14,7 @@ _TWO_PI = 2.0 * math.pi
 
 
 def make_class_params(num_classes: int, seed: int = 0, waves: int = 6) -> Dict[str, np.ndarray]:
-    """Per-class texture parameters, host-side (tiny); the draw order is
-    the JAX package's, bit for bit."""
+    """Per-class texture parameters, host-side (tiny); the draw order is the JAX package's, bit for bit."""
     rng = np.random.default_rng(seed)
     C, W = num_classes, waves
     fx = np.empty((C, 3, W), np.float32)
@@ -39,8 +33,7 @@ def make_class_params(num_classes: int, seed: int = 0, waves: int = 6) -> Dict[s
 
 
 def _proto_norms(params: Dict[str, torch.Tensor], res: int, chunk: int = 32):
-    """[C] (lo, inv_scale): joint min and 1/(max - min) of each unwarped
-    prototype rendered at ``res``."""
+    """[C] (lo, inv_scale): joint min and 1/(max - min) of each unwarped prototype rendered at ``res``."""
     dev = params["fx"].device
     u = torch.linspace(0.0, 1.0, res, dtype=torch.float32, device=dev)
     vv, uu = torch.meshgrid(u, u, indexing="ij")  # v = rows, u = cols
@@ -56,8 +49,8 @@ def _proto_norms(params: Dict[str, torch.Tensor], res: int, chunk: int = 32):
 
 
 def _render_batch(per: Dict[str, torch.Tensor], noise: torch.Tensor, res: int, waves: int) -> torch.Tensor:
-    """Batched render. ``per``: [B]-leading instance + class parameters;
-    ``noise``: [B, 3, res, res]. Returns uint8 NHWC [B, res, res, 3]."""
+    """Batched render: ``per`` [B]-leading parameters, ``noise`` [B, 3, res, res]
+    -> uint8 NHWC."""
     dev = noise.device
     c = (res - 1) / 2.0
     ar = torch.arange(res, dtype=torch.float32, device=dev)
@@ -93,18 +86,10 @@ def _render_batch(per: Dict[str, torch.Tensor], noise: torch.Tensor, res: int, w
     return img.permute(0, 2, 3, 1).contiguous()
 
 
-def make_render_fn(
-    params: Dict[str, np.ndarray],
-    res: int,
-    device: DeviceLike = None,
-    max_rotate: float = 0.44,
-    scale_range: Tuple[float, float] = (0.8, 1.2),
-    max_shift: float = 0.1,
-    noise_lo: float = 0.0,
-    noise_hi: float = 0.25,
+def make_render_fn(params: Dict[str, np.ndarray], res: int, device: DeviceLike = None, max_rotate: float = 0.44,
+    scale_range: Tuple[float, float] = (0.8, 1.2), max_shift: float = 0.1, noise_lo: float = 0.0, noise_hi: float = 0.25
 ):
-    """Returns ``render(class_ids [B] int64 tensor, generator) -> uint8
-    [B, res, res, 3]`` on ``device``."""
+    """Returns ``render(class_ids [B] int64 tensor, generator) -> uint8 [B, res, res, 3]`` on ``device``."""
     dev = resolve_device(device)
     pd = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
     lo, inv_scale = _proto_norms(pd, res)
@@ -116,15 +101,10 @@ def make_render_fn(
     @torch.no_grad()
     def render(class_ids: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         b = class_ids.shape[0]
-        per = {
-            "angle": uniform(b, -max_rotate, max_rotate, gen),
-            "scale": uniform(b, scale_range[0], scale_range[1], gen),
-            "tx": uniform(b, -max_shift, max_shift, gen) * res,
-            "ty": uniform(b, -max_shift, max_shift, gen) * res,
-            "bright": uniform(b, -0.1, 0.1, gen),
-            "contrast": uniform(b, 0.85, 1.15, gen),
-            "namp": uniform(b, noise_lo, noise_hi, gen),
-        }
+        per = {"angle": uniform(b, -max_rotate, max_rotate, gen), "scale": uniform(b, scale_range[0], scale_range[1],
+               gen), "tx": uniform(b, -max_shift, max_shift, gen) * res, "ty": uniform(b, -max_shift, max_shift,
+               gen) * res, "bright": uniform(b, -0.1, 0.1, gen), "contrast": uniform(b, 0.85, 1.15, gen),
+               "namp": uniform(b, noise_lo, noise_hi, gen)}
         noise = torch.randn((b, 3, res, res), generator=gen, device=dev)
         for k in ("fx", "fy", "ph", "amp", "cast"):
             per[k] = pd[k][class_ids]
@@ -135,16 +115,8 @@ def make_render_fn(
     return render
 
 
-def device_dataset(
-    num_classes: int,
-    per_class: int,
-    res: int,
-    seed: int = 0,
-    chunk: int = 256,
-    class_seed: Optional[int] = None,
-    device: DeviceLike = None,
-    **aug,
-):
+def device_dataset(num_classes: int, per_class: int, res: int, seed: int = 0, chunk: int = 256,
+    class_seed: Optional[int] = None, device: DeviceLike = None, **aug):
     """(images uint8 [C*per, res, res, 3] on ``device``, labels np int64),
     class-major. ``class_seed`` names the textures, ``seed`` the instances."""
     dev = resolve_device(device)

@@ -1,8 +1,6 @@
 """Device resolution for the port: the card by default, never the CPU on its
 own (``default_device()`` raises without a GPU); tests pass ``device="cpu"``."""
 
-from __future__ import annotations
-
 from typing import Union
 
 import torch
@@ -11,9 +9,7 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def _set_numerics() -> None:
-    # The JAX CPU reference computes fp32 products in true fp32; TF32 would
-    # keep ~3 decimal digits and flip near-tie rescores. Convolutions follow
-    # the same rule so a float32 model means float32 on the card too.
+    # fp32 means fp32, as on JAX's CPU: TF32 would flip near-tie rescores
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -1,10 +1,6 @@
-"""Build, load and launch the port's CUDA kernels: ``extern "C"``
-launchers of each ``*.cu`` compiled at first use by ``nvcc`` into
-``_build/`` under a hash of the sources and flags, bound with ``ctypes``;
-a failed build or launch raises. Each wrapper adds one to
-``LAUNCHES[name]`` where it launches its kernel."""
-
-from __future__ import annotations
+"""Build, load and launch the CUDA kernels: each ``*.cu``'s launchers compiled by
+``nvcc`` at first use into ``_build/`` (keyed by a hash of sources and flags),
+bound with ``ctypes``; launches counted in ``LAUNCHES``."""
 
 import ctypes
 import hashlib
@@ -21,13 +17,8 @@ from fast_image_recognition_tpu_torch.kernels.plain import TILE_G
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(KERNEL_DIR), "_build")
-SOURCES = {
-    "packed_scan": "packed_scan.cu",
-    "topk_l2": "topk_l2.cu",
-    "tile_scan": "tile_scan.cu",
-    "mbconv": "mbconv.cu",
-    "chi2": "chi2.cu",
-}
+SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu", "tile_scan": "tile_scan.cu", "mbconv": "mbconv.cu",
+    "chi2": "chi2.cu"}
 NVCC_FLAGS = [
     "-O3",
     "-std=c++17",
@@ -52,8 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "mbconv": 0,  # one launch per block
     "chi2": 0,
 }
-# ptxas resource lines of the last build of each library (registers,
-# shared memory, spills) and its seconds, for the smoke run to print
+# each library's last build: ptxas resource lines and seconds
 BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -72,8 +62,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    """Library path keyed by the source, every header of the directory
-    (a header edit must not load a stale library) and the flags."""
+    """Library path keyed by the source, every header beside it and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(KERNEL_DIR) if f.endswith(".cuh"))
     for f in [SOURCES[name], *headers]:
@@ -83,8 +72,7 @@ def _target(name: str) -> str:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named sources (default: all) that are not built yet,
-    one ``nvcc`` each, all started together. Returns name -> library path."""
+    """Compile the named sources (default all) not built yet, one ``nvcc`` each, in parallel: name -> library path."""
     names = list(SOURCES if names is None else names)
     out = {n: _target(n) for n in names}
     todo = [n for n in names if not os.path.exists(out[n])]
@@ -176,31 +164,33 @@ def _raise_on(status: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with cudaError_t {status}")
 
 
+def _run(lib: str, fn: str, name: str, device: torch.device, *args) -> None:
+    """``lib.fn(*args, stream)`` on ``device``'s current stream, counted as ``name``."""
+    with torch.cuda.device(device):
+        _raise_on(getattr(_lib(lib), fn)(*args, torch.cuda.current_stream().cuda_stream), name)
+    LAUNCHES[name] += 1
+
+
 def topk_l2_query_rows() -> int:
     """Queries per bf16 pass-1 block of ``kernels/topk_l2.cu``: a row mask
     skips the blocks that hold no masked query."""
     return _lib("topk_l2").topk_l2_query_rows()
 
 
-# The kernels index gallery rows with int32 and keep some headroom past the
-# last row (a sub-tile or segment of rows): the same limit as the JAX
-# package's int32 row indices.
+# int32 row indices with a sub-tile or segment of headroom (JAX's int32 rows)
 MAX_ROWS = 2**31 - 1 - 2048
 TOPK_MAX_K = 256  # kernels/topk_l2.cu MAX_K: lists of up to 256 (query, segment) entries
 TOPK_QUERY_ROWS = 128  # kernels/topk_l2.cu QT: queries per pass-1 block and per split-plane box
 
 
 def topk_l2_split_plane_rows(b: int) -> int:
-    """Rows of each of the three bf16 query planes of the split precise
-    pass: B rounded up to whole 128-query boxes, so that no box straddles
-    two planes."""
+    """Rows of each bf16 query plane of the split pass: B up to whole 128-query boxes."""
     return -(-b // TOPK_QUERY_ROWS) * TOPK_QUERY_ROWS
 
 
 def topk_l2_split_smem_for(k: int) -> int:
-    """Dynamic shared memory of the split pass over bf16 rows
-    (``SplitTile``): query planes and gallery box stages (3; 2 for k > 16),
-    two |g|^2 buffers, barriers."""
+    """Shared memory of the split pass over bf16 rows (``SplitTile``): plane and
+    box stages (3; 2 for k > 16), two |g|^2 buffers, barriers."""
     line, qt, bn = 128, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages = 2 if lists else 3
@@ -209,8 +199,7 @@ def topk_l2_split_smem_for(k: int) -> int:
 
 
 def topk_l2_split6_smem_for(k: int) -> int:
-    """Dynamic shared memory of the six-product pass (``Split6Tile``):
-    plane stages (3; 2 for k > 16), fp32 row boxes (4; 3), |g|^2 buffers,
+    """Shared memory of the six-product pass (``Split6Tile``): plane stages (3; 2), fp32 boxes (4; 3), |g|^2 buffers,
     (k > 16) the distance tile and last entries, barriers."""
     line, qt, bn = 64, TOPK_QUERY_ROWS, 128
     lists = k > 16
@@ -221,15 +210,12 @@ def topk_l2_split6_smem_for(k: int) -> int:
 
 
 def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
-    """Gallery rows per ``topk_l2`` pass-1 block, as ``kernels/topk_l2.cu``
-    ``segment_rows`` gives them: 2,048 for the bf16 register-list pass,
-    8,192 for ``precise`` and for k > 16."""
+    """Rows per ``topk_l2`` pass-1 block (``segment_rows``): 2,048 bf16 k <= 16, else 8,192."""
     return 8192 if precise or k > 16 else 2048
 
 
 def packed_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], tile_g: int) -> int:
-    """The packed scans' shape rules without a card: the number of tiles,
-    or raises (Da a multiple of 16, whole tiles up to :data:`MAX_ROWS`)."""
+    """The packed scans' shape rules: the tile count, or raises."""
     (b, da), (np_, g_da) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
@@ -257,45 +243,25 @@ def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[to
     b, da = q_aug.shape
     k1 = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
     k2 = torch.empty_like(k1)
-    lib = _lib("packed_scan")
-    with torch.cuda.device(q_aug.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.tilemin2_packed_launch(
-                q_aug.data_ptr(), g_aug.data_ptr(), k1.data_ptr(), k2.data_ptr(),
-                b, n_tiles, da, stream,
-            ),
-            "tilemin2_packed",
-        )
-    LAUNCHES["tilemin2_packed"] += 1
+    _run("packed_scan", "tilemin2_packed_launch", "tilemin2_packed", q_aug.device, q_aug.data_ptr(), g_aug.data_ptr(),
+         k1.data_ptr(), k2.data_ptr(), b, n_tiles, da)
     return k1, k2
 
 
 def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
-    """``kernels/packed_scan.cu``: per (query, ``tile_g``-row tile) min
-    packed key, ``[B, n_tiles]`` int32; ``tile_g`` is 128, 256, 512 or 1024."""
+    """Per (query, ``tile_g``-row tile) min packed key ``[B, n_tiles]`` int32; ``tile_g`` 128-1024."""
     n_tiles = _check_packed(q_aug, g_aug, tile_g)
     b, da = q_aug.shape
     keys = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
-    lib = _lib("packed_scan")
-    with torch.cuda.device(q_aug.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.tilemin_packed_launch(
-                q_aug.data_ptr(), g_aug.data_ptr(), keys.data_ptr(), b, n_tiles, da, tile_g, stream,
-            ),
-            "tilemin_packed",
-        )
-    LAUNCHES["tilemin_packed"] += 1
+    _run("packed_scan", "tilemin_packed_launch", "tilemin_packed", q_aug.device, q_aug.data_ptr(), g_aug.data_ptr(),
+         keys.data_ptr(), b, n_tiles, da, tile_g)
     return keys
 
 
 def topk_l2_args(
     q_shape: Tuple[int, int], g_shape: Tuple[int, int], k: int, n_valid: int, window: Optional[Tuple[int, int]],
-    precise: bool = False,
-) -> Tuple[int, int]:
-    """``topk_l2.cu``'s argument rules without a card: the window, or
-    raises (k up to :data:`TOPK_MAX_K`, rows up to int32 less a segment)."""
+    precise: bool = False) -> Tuple[int, int]:
+    """``topk_l2.cu``'s argument rules: the window, or raises."""
     (b, d), (n, g_d) = q_shape, g_shape
     start, end = (0, d) if window is None else (int(window[0]), int(window[1]))
     max_rows = 2**31 - 1 - topk_l2_segment_rows_for(precise, k)
@@ -309,23 +275,13 @@ def topk_l2_args(
     return start, end
 
 
-def launch_topk_l2(
-    q: torch.Tensor,
-    g: torch.Tensor,
-    k: int,
-    n_valid: int,
-    window: Optional[Tuple[int, int]] = None,
-    precise: bool = False,
-    row_mask: Optional[torch.Tensor] = None,
-    floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    split_out: Optional[Dict[str, torch.Tensor]] = None,
+def launch_topk_l2(q: torch.Tensor, g: torch.Tensor, k: int, n_valid: int, window: Optional[Tuple[int, int]] = None,
+    precise: bool = False, row_mask: Optional[torch.Tensor] = None,
+    floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, split_out: Optional[Dict[str, torch.Tensor]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/topk_l2.cu``: exact top-k raw squared L2 ``[B, k]`` fp32 and
-    rows int32 (-1 past n_valid); bf16 on the tensor cores, or ``precise``
-    (three or six split-bf16 products over bf16 or fp32 rows, counted as
-    ``topk_l2_precise[_f32]``). ``window``, ``row_mask`` and ``floor`` as
-    ``plain.topk_l2_plain``'s; ``split_out`` receives the split pass's
-    ``planes`` and ``qsq`` for a check to read back."""
+    """``kernels/topk_l2.cu``: top-k raw squared L2 [B, k] and rows (-1 past n_valid); bf16, or ``precise`` (counted
+    ``topk_l2_precise[_f32]``); ``window``, ``row_mask``, ``floor`` as plain's; ``split_out`` gets ``planes``, ``qsq``.
+"""
     _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
     if precise:
         if g.dtype not in (torch.float32, torch.bfloat16):
@@ -372,15 +328,13 @@ def launch_topk_l2(
             qsq = torch.empty((b,), dtype=torch.float32, device=q.device)
             status = lib.topk_l2_precise_launch(
                 q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), planes.data_ptr(), qsq.data_ptr(),
-                *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
-            )
+                *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *sizes, stream)
             if split_out is not None:
                 split_out.update(planes=planes, qsq=qsq)
         else:
             status = lib.topk_l2_launch(
                 q.data_ptr(), g.data_ptr(), mask_ptr, *floor_ptrs, part_d.data_ptr(), part_i.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), *sizes, stream,
-            )
+                out_d.data_ptr(), out_i.data_ptr(), *sizes, stream)
     if precise:
         name = "topk_l2_precise_f32" if g.dtype == torch.float32 else "topk_l2_precise"
     else:
@@ -392,8 +346,7 @@ def launch_topk_l2(
 
 def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor,
                         window: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``topk_l2``'s pass 3 in place on :func:`launch_topk_l2`'s output, as
-    ``plain.topk_rescore_plain``; counted with the scan it follows."""
+    """Pass 3 in place on :func:`launch_topk_l2`'s output, as ``plain.topk_rescore_plain``."""
     b, dim = q.shape
     f32, bf16 = torch.float32, torch.bfloat16
     if (g.shape[1:] != (dim,) or d.shape != idx.shape or d.shape[0] != b or d.dtype != f32
@@ -403,16 +356,14 @@ def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: 
                          "int32 picks [B, k]")
     lo, hi = window or (0, dim)
     with torch.cuda.device(q.device):
-        _raise_on(_lib("topk_l2").topk_l2_rescore_launch(
-            q.contiguous().data_ptr(), g.contiguous().data_ptr(), int(q.dtype == torch.float32),
-            int(g.dtype == torch.float32), d.data_ptr(), idx.data_ptr(), b, d.shape[1], dim, int(lo), int(hi),
-            torch.cuda.current_stream().cuda_stream), "topk_rescore")
+        _raise_on(_lib("topk_l2").topk_l2_rescore_launch(q.contiguous().data_ptr(), g.contiguous().data_ptr(),
+                  int(q.dtype == torch.float32), int(g.dtype == torch.float32), d.data_ptr(), idx.data_ptr(), b,
+                  d.shape[1], dim, int(lo), int(hi), torch.cuda.current_stream().cuda_stream), "topk_rescore")
     return d, idx
 
 
 def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int) -> int:
-    """The tile scans' shape rules without a card: the number of tiles, or
-    raises (D a multiple of ``vec``, whole tiles up to :data:`MAX_ROWS`)."""
+    """The tile scans' shape rules: the tile count, or raises."""
     (b, d), (np_, g_d) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
@@ -442,39 +393,21 @@ def _check_rows(t: torch.Tensor, what: str, n_rows: int, device: torch.device) -
 def launch_tilemin(
     q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/tile_scan.cu``: per (query, tile) min of ``|g|^2 - 2 q.g``
-    and its lowest row, [B, n_tiles] fp32 and int32; ``gsq`` in row order."""
+    """Per (query, tile) min of ``|g|^2 - 2 q.g`` and its lowest row, fp32 and int32 [B, n_tiles]."""
     n_tiles = _check_scan(q, g, torch.bfloat16, 8, tile_g)
     _check_rows(gsq, "gsq", g.shape[0], q.device)
     b, d = q.shape
     out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
-    lib = _lib("tile_scan")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.tilemin_launch(
-                q.data_ptr(), g.data_ptr(), gsq.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                b, n_tiles, d, tile_g, int(bf16_scores), stream,
-            ),
-            "tilemin",
-        )
-    LAUNCHES["tilemin"] += 1
+    _run("tile_scan", "tilemin_launch", "tilemin", q.device, q.data_ptr(), g.data_ptr(), gsq.data_ptr(),
+         out_d.data_ptr(), out_i.data_ptr(), b, n_tiles, d, tile_g, int(bf16_scores))
     return out_d, out_i
 
 
-def launch_tilemin_quant(
-    q: torch.Tensor,
-    qs: torch.Tensor,
-    g: torch.Tensor,
-    gsq: torch.Tensor,
-    gsc: torch.Tensor,
-    tile_g: int,
-    compute: str,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/tile_scan.cu``: per (query, tile) min of ``gsq - (2 s_q)
-    (q.g s_g)`` over int8 data and its lowest row; ``compute`` 'int8' or
-    'bf16' (the queries converted to bf16 here)."""
+def launch_tilemin_quant(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, gsc: torch.Tensor,
+    tile_g: int, compute: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (query, tile) min of ``gsq - (2 s_q) (q.g s_g)`` over int8 data and its
+    lowest row; ``compute`` 'int8' or 'bf16'."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     n_tiles = _check_scan(q, g, torch.int8, 16, tile_g)
@@ -486,33 +419,16 @@ def launch_tilemin_quant(
     out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
     if compute == "bf16":
         q = q.to(torch.bfloat16)
-    lib = _lib("tile_scan")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.tilemin_quant_launch(
-                q.data_ptr(), qs.data_ptr(), g.data_ptr(), gsq.data_ptr(), gsc.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), b, n_tiles, d, tile_g, int(compute == "int8"),
-                stream,
-            ),
-            "tilemin_quant",
-        )
-    LAUNCHES["tilemin_quant"] += 1
+    _run("tile_scan", "tilemin_quant_launch", "tilemin_quant", q.device, q.data_ptr(), qs.data_ptr(), g.data_ptr(),
+         gsq.data_ptr(), gsc.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, n_tiles, d, tile_g,
+         int(compute == "int8"))
     return out_d, out_i
 
 
-def launch_mbconv(
-    x: torch.Tensor,
-    q: Dict[str, torch.Tensor],
-    kernel: int,
-    pad_low: Tuple[int, int],
-    plan: Tuple[int, int, int, int, int],
-    relu6: bool,
-    residual: bool,
-) -> torch.Tensor:
-    """``kernels/mbconv.cu``: one stride-1 block on ``x`` [B, Cin, H, W] bf16
-    channels_last, params of ``prepare_params``, SAME ``pad_low`` (H, W),
-    the ``plan`` of ``plane_plan``; one launch, counted under ``mbconv``."""
+def launch_mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], kernel: int, pad_low: Tuple[int, int],
+    plan: Tuple[int, int, int, int, int], relu6: bool, residual: bool) -> torch.Tensor:
+    """One stride-1 block on ``x`` [B, Cin, H, W] bf16 channels_last: ``prepare_params``' params, SAME ``pad_low``,
+    ``plane_plan``'s ``plan``; one launch."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:
@@ -552,25 +468,15 @@ def launch_mbconv(
     def ptr(n: str) -> Optional[int]:
         return q[n].data_ptr() if n in q else None
 
-    lib = _lib("mbconv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.mbconv_launch(
-                x.data_ptr(), ptr("w_exp_t"), q["dw_aux"].data_ptr(), None if dw is None else dw.data_ptr(),
-                ptr("w_se1"), ptr("b_se1"), ptr("w_se2"),
-                ptr("b_se2"), q["w_proj_t"].data_ptr(), q["b_proj"].data_ptr(), out.data_ptr(), b, h, w, cin, ce,
-                cout, s, kernel, pad_low[0], pad_low[1], th, tw, group, bufs, ipb, int(relu6), int(residual), stream,
-            ),
-            "mbconv",
-        )
-    LAUNCHES["mbconv"] += 1
+    _run("mbconv", "mbconv_launch", "mbconv", x.device, x.data_ptr(), ptr("w_exp_t"), q["dw_aux"].data_ptr(),
+         None if dw is None else dw.data_ptr(), ptr("w_se1"), ptr("b_se1"), ptr("w_se2"), ptr("b_se2"),
+         q["w_proj_t"].data_ptr(), q["b_proj"].data_ptr(), out.data_ptr(), b, h, w, cin, ce, cout, s, kernel,
+         pad_low[0], pad_low[1], th, tw, group, bufs, ipb, int(relu6), int(residual))
     return out
 
 
 def launch_chi2(q: torch.Tensor, g: torch.Tensor, n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/chi2.cu``: (least ``sum (g - q)^2 * rcp(max(g + q, 1e-30))``
-    over rows [0, n_valid) [B] fp32, its lowest row int32); one launch."""
+    """(least ``sum (g - q)^2 * rcp(max(g + q, 1e-30))`` over rows < n_valid [B] fp32, its lowest row); one launch."""
     for t, what in ((q, "queries"), (g, "gallery")):
         if t.device.type != "cuda":
             raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
@@ -589,17 +495,8 @@ def launch_chi2(q: torch.Tensor, g: torch.Tensor, n_valid: int) -> Tuple[torch.T
         raise ValueError("queries and gallery are on different devices")
     # all bits set: the kernel's atomicMin keeps the least (distance bits, row) key
     keys = torch.full((b,), -1, dtype=torch.int64, device=q.device)
-    lib = _lib("chi2")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(
-            lib.chi2_launch(
-                q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32), keys.data_ptr(), b, int(n_valid), d,
-                stream,
-            ),
-            "chi2",
-        )
-    LAUNCHES["chi2"] += 1
+    _run("chi2", "chi2_launch", "chi2", q.device, q.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32),
+         keys.data_ptr(), b, int(n_valid), d)
     # distances are >= 0, so the key's high word is the fp32 bits of the min
     dist = (keys >> 32).to(torch.int32).view(torch.float32)
     rows = (keys & 0xFFFFFFFF).to(torch.int32)

@@ -1,14 +1,9 @@
-// Chi-square 1-NN scan for Hopper (sm_90a): `chi2_launch` replaces the
-// Pallas `_chi2_kernel` (fast_image_recognition_tpu/ops/chi2_kernel.py:55,
-// launched by `_chi2_block` :120). Per query the row of [0, n_valid) with
-// the least
-//
-//     d = sum_k (g_k - q_k)^2 * rcp(max(g_k + q_k, 1e-30))
-//
-// as one 64-bit key (bits of d) << 32 | row, merged with one `atomicMin` a
-// query and block (any block order gives the same answer); the caller
-// divides by D. `rcp.approx.ftz.f32` is 1 ulp off at most. A block owns (64
-// queries, 64 rows) in 32-wide fp32 chunks, a 4 x 4 register block each.
+// Chi-square 1-NN scan for sm_90a: `chi2_launch` replaces the Pallas
+// `_chi2_kernel` (ops/chi2_kernel.py:55). Per query the row of [0, n_valid) of
+// least d = sum_k (g_k - q_k)^2 rcp(max(g_k + q_k, 1e-30)) as one 64-bit key
+// (bits of d) << 32 | row, merged by one `atomicMin` a query and block
+// (order-free); the caller divides by D. `rcp.approx.ftz.f32`: 1 ulp at most. A
+// block owns (64 queries, 64 rows) in 32-wide fp32 chunks, 4 x 4 a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,9 +109,8 @@ chi2_kernel(const float* __restrict__ q, const G* __restrict__ g,
 
 }  // namespace
 
-// q [B, D] fp32, g [N, D] fp32 (g_f32 = 1) or bf16 (g_f32 = 0), rows
-// [0, n_valid) scanned (1 <= n_valid <= N). `best` [B] must hold ~0 (all
-// bits set) before the launch; it receives the least key per query.
+// q [B, D] fp32, g [N, D] fp32 (g_f32) or bf16, rows [0, n_valid); `best` [B]
+// all ones before the launch, the least key after.
 extern "C" int chi2_launch(const float* q, const void* g, int g_f32, unsigned long long* best,
                            int B, int n_valid, int D, cudaStream_t stream) {
     if (B < 1 || n_valid < 1 || D < 1) return (int)cudaErrorInvalidValue;

@@ -1,24 +1,16 @@
-// Fused stride-1 MBConv block for Hopper (sm_90a), replacing the Pallas
-// `_mbconv_kernel` (fast_image_recognition_tpu/ops/mbconv_kernel.py:82,
-// launched by `_fused_mbconv_jit` :192): one BN-folded block,
-//
-//     hid = act(x @ w_exp + b_exp)            (1x1 expand, if any; else x)
-//     a   = act(depthwise_kxk_SAME(hid) + b_dw)
-//     g   = sigmoid(swish(mean_hw(a) @ w_se1 + b_se1) @ w_se2 + b_se2)  (SE, if any)
-//     y   = (a * g) @ w_proj + b_proj (+ x)   (1x1 project, residual if any)
-//
-// act is swish or relu6, on NHWC bf16 activations. One launch, 512 threads
-// a block per image (two at 7x7), walking the plane in spatial tiles and
-// the hidden channels in slabs of 64. With SE, pass 0 runs expand and
-// depthwise per (tile, slab) into a bf16 device scratch and the pool, then
-// the SE MLP; pass 1 loads that output by TMA as the project's `wgmma` A
-// tile and scales it by the gate. Without SE one pass writes the depthwise
-// output straight into the A tile. Products: `wgmma` bf16 -> fp32 (128-byte
-// swizzle, K-major); the depthwise on the CUDA cores in fp32. The input box
-// is a 4-D TMA box per 64 channels with the tile's halo (out-of-image
-// pixels zero, as SAME pads the hidden tensor). Rounding points: the TPU
-// kernel's, plus the depthwise output rounded to bf16 before the gate, as
-// `kernels/plain.py::mbconv_plain` does. Bounds and times: PERF.md §6.
+// Fused stride-1 MBConv block for sm_90a, replacing the Pallas `_mbconv_kernel`
+// (ops/mbconv_kernel.py:82): one BN-folded block, hid = act(x w_exp + b_exp)
+// (if expand), a = act(depthwise_kxk_SAME(hid) + b_dw), g =
+// sigmoid(swish(mean(a) w_se1 + b_se1) w_se2 + b_se2) (if SE), y = (a g) w_proj
+// + b_proj (+ x); act swish or relu6, NHWC bf16. One launch, 512 threads a
+// block an image (two at 7x7), spatial tiles x 64-channel slabs. With SE, pass
+// 0 runs expand and depthwise into a bf16 scratch and the pool, then the SE
+// MLP; pass 1 loads it by TMA as the project's `wgmma` A tile and gates it.
+// Without SE one pass writes the depthwise output into the A tile. `wgmma` bf16
+// -> fp32 (128-byte swizzle, K-major), the depthwise on the CUDA cores in fp32.
+// The input box: a 4-D TMA box per 64 channels with the halo (outside zero).
+// Rounding: the TPU kernel's, plus the depthwise output to bf16 before the gate
+// (`plain.mbconv_plain`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,31 +20,29 @@
 
 namespace {
 
-constexpr int THREADS = 512;  // four warpgroups, all consume; warp 0 issues the copies
+constexpr int THREADS = 512;  // four consumer warpgroups; warp 0 copies
 constexpr int WGS = THREADS / 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int CS = 64;        // hidden channels per slab: one 128-byte line of bf16
+constexpr int CS = 64;
 constexpr int LINE = 128;
-constexpr int NT_MAX = 3;     // project tiles (64 pixels x 64 channels) per warpgroup
+constexpr int NT_MAX = 3;
 constexpr int PX = 4;         // output pixels of a row per depthwise item
 constexpr int MAX_SMEM = 232448;
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared memory of one block; the host's `ops/mbconv_kernel.py::plane_smem`
-// computes the same numbers.
+// Shared memory of a block (`plane_smem` mirrors it).
 struct Layout {
     int hh, hw, halo, xrows, rx, ro, cin_ch, nslab, npt, n_tiles, tiles_w, xbufs, wbufs, aux, cep, s32;
     bool xplane;
     int off_x, off_wexp, off_wproj, off_aux, off_hid, off_dws, off_pool, off_s1, off_bproj, off_bar, total;
 };
 
-// (th, tw): the output tile; group: project tiles of 64 output channels a
-// block owns (grid y covers the rest, each block recomputing the hidden
-// tensor); bufs: bit 0 double-buffers the halo, bit 1 the weights; ipb:
-// images a block (2 only with the whole plane a tile). With expand and one
-// tile the input box is the bare plane (`xplane`): the hidden halo's zero
-// border is written once.
+// (th, tw): output tile; group: 64-channel project tiles a block owns (grid y
+// the rest, each recomputing hid); bufs: bit 0 double-buffers the halo, bit 1
+// the weights; ipb: images a block (2 only with the whole plane a tile). With
+// expand and one tile the box is the bare plane (`xplane`): the halo's zero
+// border written once.
 __host__ __device__ inline Layout layout(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand,
                                          int th, int tw, int group, int bufs, int ipb) {
     Layout L;
@@ -78,7 +68,7 @@ __host__ __device__ inline Layout layout(int H, int W, int k, int cin, int ce, i
     L.off_x = o;  o += L.xbufs * L.cin_ch * L.rx * LINE;
     const int wexp = has_expand ? L.wbufs * L.cin_ch * 64 * LINE : 0, wproj = L.wbufs * L.npt * 64 * LINE;
     L.off_wexp = o;
-    if (S > 0) {  // with SE pass 0 reads only w_exp^T, pass 1 only w_proj^T: one region
+    if (S > 0) {
         L.off_wproj = o;  o += wexp > wproj ? wexp : wproj;
     } else {
         o += wexp;
@@ -102,8 +92,7 @@ __host__ __device__ inline bool refused(const Layout& L) {
 
 __device__ __forceinline__ float swish(float v) { return v / (1.0f + expf(-v)); }
 
-// The expand's and the depthwise's activation: swish by the fast exp and
-// division (a few ulp, inside the bf16 rounding after it), or relu6.
+// swish by the fast exp and division (inside the bf16 rounding), or relu6.
 __device__ __forceinline__ float act(float v, int relu6) {
     return relu6 ? fminf(fmaxf(v, 0.0f), 6.0f) : __fdividef(v, 1.0f + __expf(-v));
 }
@@ -126,8 +115,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
-// A contiguous copy of `bytes` (a multiple of 16) from global to shared
-// memory, completing on `bar`.
+// A copy of `bytes` (% 16) global -> shared, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
     asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
                      sm90::smem_u32(dst)),
@@ -168,12 +156,10 @@ struct Params {
     int B, H, W, cin, ce, cout, S, pad_h, pad_w, th, tw, group, bufs, ipb, has_expand, residual, relu6;
 };
 
-// grid (ceil(B / IPB), output-channel groups); 512 threads. xmap: x [B, H,
-// W, cin], boxes [IPB, hh, hw, 64] or the bare plane [IPB, H, W, 64],
-// 128-byte swizzle with expand (the expand's A), none without; emap:
-// w_exp^T [ce, cin], pmap: w_proj^T [cout, ce], boxes [64 x 64]; amap (with
-// SE): the depthwise output [B, H, W, ce], boxes [IPB, th, tw, 64], 128-byte
-// swizzle (the project's A).
+// grid (ceil(B / IPB), groups); 512 threads. xmap: x [B, H, W, cin], boxes
+// [IPB, hh, hw, 64] or the bare plane, 128-byte swizzle with expand, none
+// without; emap: w_exp^T [ce, cin], pmap: w_proj^T [cout, ce], boxes [64 x 64];
+// amap (SE): the depthwise output, boxes [IPB, th, tw, 64], 128-byte swizzle.
 template <int K, int IPB>
 __global__ void __launch_bounds__(THREADS, 1)
 mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap emap,
@@ -197,29 +183,29 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     const int t = tid & 127;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    const int b0 = blockIdx.x * IPB;                      // this block's first image
-    const int o0 = blockIdx.y * p.group * 64;             // its first output channel
-    const int npt = min(L.npt, (p.cout - o0 + 63) / 64);  // its project tiles
+    const int b0 = blockIdx.x * IPB;
+    const int o0 = blockIdx.y * p.group * 64;
+    const int npt = min(L.npt, (p.cout - o0 + 63) / 64);
     const bool has_se = p.w_se1 != nullptr;
-    const int P0 = has_se ? L.n_tiles * L.nslab : 0;  // steps of pass 0
+    const int P0 = has_se ? L.n_tiles * L.nslab : 0;
     const int n_steps = P0 + L.n_tiles * L.nslab;
-    const int xb_rows = L.xplane ? p.H * p.W : L.halo;  // rows of one image's input box
+    const int xb_rows = L.xplane ? p.H * p.W : L.halo;
     const int x_buf = L.cin_ch * L.rx * LINE;
     const int wexp_buf = L.cin_ch * 64 * LINE;
     const int wproj_buf = L.npt * 64 * LINE;
     const int aux_bytes = (K * K + 2) * CS * 4;
     const bool x_per_tile = L.n_tiles > 1;  // the input box is loaded per tile, else once
     const int th = p.th, tw = p.tw;
-    const int tpix = th * tw;  // output pixels of an image's tile
+    const int tpix = th * tw;
     const int n_proj = (L.ro / 64) * npt;
 
-    // step n: pass n < P0 ? 0 : 1, tile tile_of(n), slab n % nslab; the input box serves the steps
-    // that run the expand and depthwise (pass 0 with SE, the one pass without)
+    // step n: pass n < P0 ? 0 : 1, tile tile_of(n), slab n % nslab; the input
+    // box serves the expand/depthwise steps
     auto tile_of = [&](int n) { return (n < P0 ? n : n - P0) / L.nslab; };
     auto runs_dw = [&](int n) { return !has_se || n < P0; };
     auto abuf = [&](int n) { return (n - P0) & 1 ? xs : dws; };  // pass 1 with SE: the A tiles
-    // a step's copies: with SE pass 1 the A tile and the w_proj^T boxes; else the w_exp^T boxes
-    // (with expand), the w_proj^T boxes (without SE) and aux
+    // a step's copies: SE pass 1 the A tile and w_proj^T; else w_exp^T
+    // (expand), w_proj^T (no SE) and aux
     auto w_bytes = [&](int n) {
         if (!runs_dw(n)) return npt * 64 * LINE + IPB * tpix * LINE;
         return (p.has_expand ? wexp_buf : 0) + (has_se ? 0 : npt * 64 * LINE) + aux_bytes;
@@ -261,11 +247,11 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
 
     for (int c = tid; c < IPB * L.cep; c += THREADS) pool_s[c] = 0.0f;
     for (int c = tid; c < p.cout; c += THREADS) bproj_s[c] = p.b_proj[c];
-    if (L.xplane) {  // the hidden halo's border stays zero: the expand writes only the plane
+    if (L.xplane) {
         uint4* h = reinterpret_cast<uint4*>(smem + L.off_hid);
         for (int i = tid; i < IPB * L.halo * LINE / 16; i += THREADS) h[i] = make_uint4(0u, 0u, 0u, 0u);
     }
-    if (!has_se) {  // the A tile's columns past a slab's channels are never written: zeros
+    if (!has_se) {
         uint4* a = reinterpret_cast<uint4*>(dws);
         for (int i = tid; i < L.ro * LINE / 16; i += THREADS) a[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -284,10 +270,10 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         issue_x(0);
         issue_weights(0);
     }
-    uint32_t wph = 0, xph = 0;  // phase bit of each buffer's barrier
+    uint32_t wph = 0, xph = 0;
 
-    // the start of step n: its copies (and with double buffers the next step's, but for the first
-    // step of pass 1, whose A tile lands where the depthwise sums live until the SE), then the waits
+    // step n's copies (double buffers: the next step's too, but pass 1's first
+    // A tile, which lands on the live depthwise sums), then the waits
     auto begin_step = [&](int n) {
         const int s = n % L.nslab, tile = tile_of(n);
         if (warp == 0) {
@@ -312,8 +298,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         wph ^= 1u << wb;
     };
 
-    // 1. the hidden slab of step n, act(x @ w_exp + b_exp) in (64-row, 32-channel) units, into the
-    // hidden halo [IPB][hh][hw][64], zero outside the image; without expand, the input box.
+    // 1. step n's hidden slab act(x w_exp + b_exp) into the halo
+    // [IPB][hh][hw][64], zero outside; no expand: the input box.
     auto hidden = [&](int n, const unsigned char* xcur, const float* aux) -> const unsigned char* {
         const int s = n % L.nslab, tile = tile_of(n);
         if (!p.has_expand) return xcur + s * L.rx * LINE;
@@ -366,22 +352,22 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         return hid_w;
     };
 
-    // 2. the depthwise of step n: an item is PX output pixels of a row; a lane takes a channel
-    // pair of the slab (16 lanes an item where the slab has <= 32 channels); each kernel row's
-    // PX + K - 1 halo values are loaded once. The bf16 output goes to global memory with SE (its
-    // fp32 sums to red_s), else to the project's A tile.
+    // 2. step n's depthwise: an item is PX pixels of a row, a lane a channel
+    // pair (16 lanes an item at <= 32 channels), a kernel row's PX + K - 1 halo
+    // values loaded once; bf16 out to global (SE, fp32 sums to red_s) or the A
+    // tile.
     auto depthwise = [&](int n, const unsigned char* hid, const float* aux) {
         const int s = n % L.nslab, tile = tile_of(n);
         const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
         const int slab_ch = min(CS, p.ce - s * CS);
-        const int lpi = slab_ch > 32 ? 32 : 16;  // lanes per item
+        const int lpi = slab_ch > 32 ? 32 : 16;
         const int cp = lane % lpi;
         const bool cok = 2 * cp < slab_ch;
         const float2* wk = reinterpret_cast<const float2*>(aux) + cp;  // tap i at wk[i * CS / 2]
         const float2 bdw = reinterpret_cast<const float2*>(aux + K * K * CS)[cp];
-        const int segs = (tw + PX - 1) / PX;  // items per output row
-        const int ipw = 32 / lpi;             // items per warp at once
-        float ps[IPB][2];                     // pool sums of each image
+        const int segs = (tw + PX - 1) / PX;
+        const int ipw = 32 / lpi;
+        float ps[IPB][2];
 #pragma unroll
         for (int i = 0; i < IPB; ++i) ps[i][0] = ps[i][1] = 0.0f;
         for (int it = warp * ipw + lane / lpi; it < IPB * th * segs; it += WARPS * ipw) {
@@ -453,8 +439,8 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         }
     };
 
-    // 3. the project of step n: this warpgroup's (64-pixel, 64-channel) tiles += A x w_proj^T; after
-    // the last slab the epilogue: bias, residual (the input box without SE, global with), bf16 out
+    // 3. step n's project: this warpgroup's tiles += A x w_proj^T; after the
+    // last slab bias, residual, bf16 out
     auto project = [&](int n, const unsigned char* a_tile, const unsigned char* xcur, float (&acc)[NT_MAX][32]) {
         const int s = n % L.nslab, tile = tile_of(n);
         const int ty0 = tile / L.tiles_w * th, tx0 = tile % L.tiles_w * tw;
@@ -533,11 +519,11 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
             for (int w = 0; w < WARPS; ++w) sum += red_s[(w * IPB + im) * CS + c];
             pool_s[im * L.cep + s * CS + c] += sum;
         }
-        __syncthreads();  // the step's buffers are free for the next copies into them
+        __syncthreads();
     }
     if (has_se) {
-        // the SE gate of each image: the mean; the MLP (warp w sums channels w mod WARPS for
-        // 32 hidden units, lane j, meeting in red_s); the sigmoid, over the pool
+        // the SE gate of each image: mean, MLP (warp w sums channels w mod
+        // WARPS, lane j a hidden unit, via red_s), sigmoid
         for (int c = tid; c < IPB * L.cep; c += THREADS) pool_s[c] = pool_s[c] / (float)(p.H * p.W);
         __syncthreads();
         for (int im = 0; im < IPB; ++im) {
@@ -584,9 +570,10 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         __syncthreads();
     }
 
-    // pass 1: with SE the stored depthwise output, gated, into the project; without, expand,
-    // depthwise and project (two loops keep the depthwise's registers free of the accumulators)
-    float acc[NT_MAX][32];  // the project's accumulators, this warpgroup's tiles
+    // pass 1: SE: the stored depthwise output, gated, into the project; else
+    // expand, depthwise, project (two loops keep the depthwise's registers
+    // free)
+    float acc[NT_MAX][32];
     auto zero_acc = [&]() {
 #pragma unroll
         for (int i = 0; i < NT_MAX; ++i)
@@ -614,7 +601,7 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
             sm90::fence_proxy_async();
             __syncthreads();
             project(n, at, xs, acc);
-            __syncthreads();  // the step's buffers are free for the next copies into them
+            __syncthreads();
         }
     } else {
         for (int n = 0; n < n_steps; ++n) {
@@ -626,7 +613,7 @@ mbconv_sm90(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
             depthwise(n, hidden(n, xcur, aux), aux);
             __syncthreads();
             project(n, dws, xcur, acc);
-            __syncthreads();  // the step's buffers are free for the next copies into them
+            __syncthreads();
         }
     }
 }
@@ -680,21 +667,18 @@ int launch(const Params& p, int B, const void* w_exp_t, const void* w_proj_t, cu
 
 }  // namespace
 
-// Shared memory of one block for the plan (th, tw, group, bufs, ipb), or
-// -1 if the kernel refuses it (see `refused`; two images only with the
-// whole plane in one tile and k < 7).
+// Shared memory of a block for the plan, or -1 if refused (`refused`).
 extern "C" int mbconv_smem(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand, int th, int tw,
                            int group, int bufs, int ipb) {
     const Layout L = layout(H, W, k, cin, ce, cout, S, has_expand, th, tw, group, bufs, ipb);
     return refused(L) || ipb < 1 || ipb > 2 || (ipb > 1 && (L.n_tiles > 1 || k == 7)) ? -1 : L.total;
 }
 
-// One stride-1 block: x [B, H, W, cin] bf16; w_exp_t [ce, cin] bf16 (null:
-// no expand, cin == ce); aux [ceil(ce / 64)][k*k + 2][64] fp32 (w_dw rows,
-// b_dw, b_exp a slab); w_se1 [ce, S], b_se1 [S], w_se2 [S, ce], b_se2 [ce]
-// (w_se1 null: no SE); w_proj_t [cout, ce] bf16, b_proj [cout]; dw [B, H,
-// W, ce] bf16 scratch with SE; out [B, H, W, cout] bf16. k 3, 5 or 7; cin,
-// ce, cout % 8 == 0; pointers 16-byte aligned. Returns a cudaError_t.
+// x [B, H, W, cin] bf16; w_exp_t [ce, cin] bf16 (null: no expand, cin == ce);
+// aux [ceil(ce / 64)][k*k + 2][64] fp32 (w_dw, b_dw, b_exp a slab); w_se1 [ce,
+// S], b_se1, w_se2 [S, ce], b_se2 (null: no SE); w_proj_t [cout, ce] bf16,
+// b_proj; dw [B, H, W, ce] bf16 scratch (SE); out [B, H, W, cout] bf16. k 3, 5,
+// 7; channels % 8 == 0; 16-byte aligned. Returns a cudaError_t.
 extern "C" int mbconv_launch(const void* x, const void* w_exp_t, const void* aux, void* dw, const void* w_se1,
                              const void* b_se1, const void* w_se2, const void* b_se2, const void* w_proj_t,
                              const void* b_proj, void* out, int B, int H, int W, int cin, int ce, int cout, int S,

@@ -1,19 +1,14 @@
-// Packed tile-min scans for Hopper (sm_90a): `tilemin2_packed_launch`
-// replaces `_tilemin2_packed_kernel` (fast_image_recognition_tpu/ops/
-// distance_kernel.py:393, launched by `_tilemin2_packed_block` :430),
-// `tilemin_packed_launch` `_tilemin_packed_kernel` (:350, launched by
-// `_tilemin_packed_block` :607). Per query and tile of `tile_g` rows the
-// least (min-2: and second-least) key
-//
-//     key = (f32 bits of q_aug . g_aug) & ~(tile_g - 1) | row_in_tile
-//
-// (the augmented dot is the squared distance, >= 0 up to rounding, so its
-// bits order as int32: one integer min carries value and row). Pad rows
-// carry |g|^2 = 1e38. `tilemin_packed_sm90<TWO, TILE_G>` on sm90_scan.cuh:
-// 128 queries resident as the `wgmma` A operand up to Da = 640
-// (`tilemin_packed_stream_sm90` streams them above), 256-row sub-tiles
-// through a 4-stage TMA ring, the epilogue in registers. The epilogue is
-// issue-bound: keep its loop shape unless an A/B on the card says so.
+// Packed tile-min scans for sm_90a: `tilemin2_packed_launch` replaces
+// `_tilemin2_packed_kernel` (ops/distance_kernel.py:393),
+// `tilemin_packed_launch` `_tilemin_packed_kernel` (:350). Per query and
+// `tile_g`-row tile the least (min-2: and second-least) key = (f32 bits of
+// q_aug . g_aug) & ~(tile_g - 1) | row_in_tile (the dot is the squared
+// distance, >= 0, so its bits order as int32: one integer min carries value and
+// row); pad rows carry |g|^2 = 1e38. `tilemin_packed_sm90<TWO, TILE_G>` on
+// sm90_scan.cuh: 128 queries resident as the A operand up to Da = 640
+// (`tilemin_packed_stream_sm90` streams them above), 256-row sub-tiles through
+// a 4-stage ring, the epilogue in registers: issue-bound, keep its loop shape
+// unless an A/B says so.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,12 +17,12 @@
 
 namespace {
 
-constexpr int QT = 128;        // queries per block: two consumer warpgroups of 64
-constexpr int BN = 256;        // gallery rows per sub-tile (wgmma N)
-constexpr int Q_BOX = QT * sm90::LINE_BYTES;  // one 64-feature chunk of the queries
-constexpr int G_BOX = BN * sm90::LINE_BYTES;  // one ring stage
+constexpr int QT = 128;
+constexpr int BN = 256;
+constexpr int Q_BOX = QT * sm90::LINE_BYTES;
+constexpr int G_BOX = BN * sm90::LINE_BYTES;
 constexpr int MAX_STAGES = 4;
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
+constexpr int SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ void pair_combine(int& m1, int& m2, int b1, int b2) {
     const int lo = min(m1, b1);
@@ -36,8 +31,8 @@ __device__ __forceinline__ void pair_combine(int& m1, int& m2, int b1, int b2) {
     m1 = lo;
 }
 
-// The thread's (m1, m2) of its two query rows -> one key (TWO: pair) per
-// query of the tile, combined over the 4 lanes of a row; then reset.
+// The thread's (m1, m2) of its two rows -> a key (TWO: pair) a query, over a
+// row's 4 lanes; then reset.
 template <bool TWO>
 __device__ __forceinline__ void store_keys(int (&m1)[2], int (&m2)[2], int32_t* __restrict__ out1,
                                            int32_t* __restrict__ out2, int q, int t, int B, int n_tiles,
@@ -63,17 +58,16 @@ __device__ __forceinline__ void store_keys(int (&m1)[2], int (&m2)[2], int32_t* 
     }
 }
 
-// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1
-// consume, 2 produces. A unit: a tile of TILE_G >= 256 rows, or a sub-tile
-// of two tiles of 128. qmap [B, da] boxes [128 x 64]; gmap [n_tiles *
-// TILE_G, da] boxes [256 x 64]; out2 only with TWO.
+// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1 consume,
+// 2 produces. A unit: a tile of >= 256 rows, or two of 128. qmap [B, da] boxes
+// [128 x 64]; gmap boxes [256 x 64]; out2 with TWO.
 template <bool TWO, int TILE_G>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                     int32_t* __restrict__ out1, int32_t* __restrict__ out2, int B, int n_tiles, int n_chunks,
                     int run, int stages) {
-    constexpr int SUBS = TILE_G > BN ? TILE_G / BN : 1;  // sub-tiles per unit
-    constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;  // tiles per unit
+    constexpr int SUBS = TILE_G > BN ? TILE_G / BN : 1;
+    constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = sm90::aligned_smem(smem_raw);
     unsigned char* q_s = smem;                      // [n_chunks][QT x 64], resident
@@ -120,7 +114,7 @@ tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_const
     } else {
         sm90::setmaxnreg_inc<232>();
         const int t = tid % sm90::WG_THREADS;
-        const unsigned char* qa = q_s + wg * 64 * sm90::LINE_BYTES;  // this warpgroup's 64 queries
+        const unsigned char* qa = q_s + wg * 64 * sm90::LINE_BYTES;
         float acc[BN / 2];
         int s = 0, prev = 0;
         uint32_t ph = 0;
@@ -149,9 +143,9 @@ tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_const
                 sm90::wgmma_wait<0>();
                 sm90::acc_fence(acc);
                 if (t == 0) sm90::mbar_arrive(&empty[prev]);
-                // keys of this sub-tile into (m1, m2) of the thread's two
-                // rows; its columns 8 j + 2 (t % 4) + c rise with j, and at
-                // TILE_G 128 the columns of j >= 16 are the second tile's
+                // this sub-tile's keys into (m1, m2) of the thread's two rows;
+                // columns 8 j + 2 (t % 4) + c rise with j (TILE_G 128: j >= 16
+                // the second tile)
 #pragma unroll
                 for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -174,17 +168,16 @@ tilemin_packed_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_const
     }
 }
 
-// The same scan for da > 640: each of the 4 ring stages holds [QT x 64]
-// query lanes, then [BN x 64] gallery lanes. A separate kernel: a
-// streaming switch in the one above ran it ~8 % slower (PERF.md §6).
+// The same for da > 640: each of 4 stages holds [QT x 64] query lanes, then [BN
+// x 64] gallery lanes; a separate kernel (a switch above ran ~8 % slower).
 template <bool TWO, int TILE_G>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_packed_stream_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                            int32_t* __restrict__ out1, int32_t* __restrict__ out2, int B, int n_tiles,
                            int n_chunks, int run, int stages) {
-    constexpr int SUBS = TILE_G > BN ? TILE_G / BN : 1;  // sub-tiles per unit
-    constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;  // tiles per unit
-    constexpr int STAGE = Q_BOX + G_BOX;  // bytes of one ring stage: queries, then rows
+    constexpr int SUBS = TILE_G > BN ? TILE_G / BN : 1;
+    constexpr int TILES = TILE_G > BN ? 1 : BN / TILE_G;
+    constexpr int STAGE = Q_BOX + G_BOX;  // queries, then rows
     extern __shared__ unsigned char smem_raw[];
     unsigned char* ring = sm90::aligned_smem(smem_raw);  // [stages][STAGE]
     uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
@@ -225,7 +218,7 @@ tilemin_packed_stream_sm90(const __grid_constant__ CUtensorMap qmap, const __gri
     } else {
         sm90::setmaxnreg_inc<232>();
         const int t = tid % sm90::WG_THREADS;
-        const unsigned char* qa = ring + wg * 64 * sm90::LINE_BYTES;  // this warpgroup's 64 queries in stage 0
+        const unsigned char* qa = ring + wg * 64 * sm90::LINE_BYTES;
         float acc[BN / 2];
         int s = 0, prev = 0;
         uint32_t ph = 0;
@@ -253,9 +246,7 @@ tilemin_packed_stream_sm90(const __grid_constant__ CUtensorMap qmap, const __gri
                 sm90::wgmma_wait<0>();
                 sm90::acc_fence(acc);
                 if (t == 0) sm90::mbar_arrive(&empty[prev]);
-                // keys of this sub-tile into (m1, m2) of the thread's two
-                // rows; its columns 8 j + 2 (t % 4) + c rise with j, and at
-                // TILE_G 128 the columns of j >= 16 are the second tile's
+                // this sub-tile's keys into (m1, m2), as above
 #pragma unroll
                 for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -284,8 +275,7 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
     if (B <= 0 || n_tiles <= 0 || da <= 0 || da % 16 != 0 || (long)n_tiles * TILE_G > INT32_MAX - BN)
         return (int)cudaErrorInvalidValue;
     const int n_chunks = (da + sm90::KCHUNK - 1) / sm90::KCHUNK;
-    // slack, resident queries, the ring and (2 stages + 1) barriers (the
-    // queries stream through the ring above da = 640)
+    // slack, resident queries, ring, (2 stages + 1) barriers
     const int bars = (2 * MAX_STAGES + 1) * 8;
     const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - sm90::SMEM_ALIGN - n_chunks * Q_BOX - bars) / G_BOX);
     const bool stream_q = resident_stages < 2;
@@ -315,16 +305,15 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
 
 }  // namespace
 
-// q [B, da] bf16, g [n_tiles * 1024, da] bf16 (16-byte aligned, da % 16 ==
-// 0), out1/out2 [B, n_tiles] int32. Returns a cudaError_t.
+// q [B, da], g [n_tiles * 1024, da] bf16 (da % 16 == 0), out1/out2 [B, n_tiles]
+// int32. Returns a cudaError_t.
 extern "C" int tilemin2_packed_launch(const void* q, const void* g, void* out1,
                                       void* out2, int B, int n_tiles, int da,
                                       void* stream) {
     return launch<true, 1024>(q, g, out1, out2, B, n_tiles, da, stream);
 }
 
-// q [B, da], g [n_tiles * tile_g, da] bf16, out [B, n_tiles] int32; tile_g
-// 128-1024. Returns a cudaError_t.
+// q [B, da], g [n_tiles * tile_g, da] bf16, out [B, n_tiles]; tile_g 128-1024.
 extern "C" int tilemin_packed_launch(const void* q, const void* g, void* out,
                                      int B, int n_tiles, int da, int tile_g,
                                      void* stream) {

@@ -1,8 +1,6 @@
-"""Plain PyTorch versions of the port's CUDA kernels: the same function in
-chunked PyTorch, run by the CPU tests and held against each kernel by
-``chip_smoke.py``; the card's main path never calls them."""
-
-from __future__ import annotations
+"""Plain PyTorch versions of the port's CUDA kernels, in chunks: the CPU tests run
+them and ``chip_smoke.py`` holds each kernel against them; the card's paths
+never call them."""
 
 from typing import Dict, Optional, Tuple
 
@@ -20,8 +18,8 @@ def tilemin_packed_plain(
     tile_g: int = TILE_G,
     chunk_rows: int = 65536,
 ) -> torch.Tensor:
-    """Per (query, tile) min packed int32 key ``(f32 bits of the augmented
-    dot) & ~(tile_g-1) | row_in_tile`` (``_tilemin_packed_kernel`` :350)."""
+    """Per (query, tile) min key ``(f32 bits of the augmented dot) & ~(tile_g-1) |
+    row_in_tile`` (``_tilemin_packed_kernel`` :350)."""
     b = q_aug.shape[0]
     n_tiles = g_aug.shape[0] // tile_g
     qf = q_aug.to(torch.float32)
@@ -42,8 +40,7 @@ def tilemin2_packed_plain(
     g_aug: torch.Tensor,  # [Np, Da] bf16 augmented gallery, Np % TILE_G == 0
     chunk_tiles: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and second-min packed int32 keys ``(k1, k2)``
-    ``[B, n_tiles]`` (``_tilemin2_packed_kernel``, ops/distance_kernel.py:393)."""
+    """Per (query, tile) min and second-min keys ``(k1, k2)`` (``_tilemin2_packed_kernel`` :393)."""
     b = q_aug.shape[0]
     n_tiles = g_aug.shape[0] // TILE_G
     qf = q_aug.to(torch.float32)
@@ -64,9 +61,7 @@ def tilemin2_packed_plain(
 
 
 def _tile_argmin(s: torch.Tensor, tile_g: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, rows] scores of whole tiles -> per tile (min, lowest row at the
-    min) ``[B, rows // tile_g]``: the ``_masked_argmin`` rule, equal values
-    go to the lowest row."""
+    """[B, rows] scores -> per tile (min, lowest row at it) (``_masked_argmin``)."""
     b = s.shape[0]
     s = s.view(b, -1, tile_g)
     mins = s.min(dim=2).values
@@ -83,10 +78,8 @@ def tilemin_plain(
     bf16_scores: bool = False,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g``
-    (``_tilemin_kernel``, ops/distance_kernel.py:174): bf16 products summed
-    in fp32, the score in fp32 or, ``bf16_scores``, rounded to bf16 at each
-    step. Returns (min [B, n_tiles] fp32, row int32)."""
+    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g`` (``_tilemin_kernel`` :174): bf16 products in fp32,
+    the score fp32 or (``bf16_scores``) rounded to bf16 each step. (min fp32, row int32)."""
     b = q.shape[0]
     n_tiles = g.shape[0] // tile_g
     qf = q.to(torch.float32)
@@ -122,9 +115,8 @@ def tilemin_quant_plain(
     compute: str = "int8",
     chunk_rows: int = 32768,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)``,
-    one fp32 rounding per operation (``_tilemin_quant_kernel`` :671): the
-    exact integer dot (``'int8'``) or bf16 products in fp32 (``'bf16'``)."""
+    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)``, one fp32 rounding an operation
+    (``_tilemin_quant_kernel`` :671): the exact integer dot (``'int8'``) or bf16 products in fp32."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     b = q.shape[0]
@@ -157,15 +149,10 @@ def topk_l2_plain(
     chunk_rows: int = 65536,
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k for any k (``_topk_kernel``, ops/distance_kernel.py:92):
-    ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, rows >= n_valid excluded,
-    ties to the lowest row, empty slots ``(BIG_DIST, -1)``; ``window``
-    zeroes lanes outside ``[start, end)``; ``precise`` contracts fp32
-    queries in fp32; False ``row_mask`` rows come back empty; ``floor=(d,
-    row)`` admits only (d, row) after it. Carries the top-k through
-    ``chunk_rows`` rows at a time by ``torch.topk`` of int64 keys ``(fp32
-    bits of d) << 32 | (row + 1)``: ties go to the lowest row. Returns raw
-    squared distances [B, k] fp32 and rows [B, k] int32."""
+    """Exact L2 top-k (``_topk_kernel`` :92): ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, rows >= n_valid out, ties low,
+    empty ``(BIG_DIST, -1)``; ``window``, ``precise`` (fp32 queries), ``row_mask``, ``floor=(d, row)`` (only what
+    follows). ``chunk_rows`` at a time by ``torch.topk`` of int64 keys ``bits(d) << 32 | (row + 1)``. (d, rows) [B, k].
+"""
     n = g.shape[0] if n_valid is None else int(n_valid)
     b, dim = q.shape
     qf = q.to(torch.float32)
@@ -202,14 +189,10 @@ def topk_l2_plain(
     return best_d, best_i
 
 
-def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor,
-                       window: Optional[Tuple[int, int]] = None, chunk: int = 1 << 24
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``topk_l2``'s pass 3 (``topk_rescore``): each pick's raw squared
-    distance again as the fp32 sum of ``(q - g)^2`` over the window, since
-    ``|q|^2 + |g|^2 - 2 q.g`` cancels where a query and its row nearly
-    coincide; each list sorted again by (d, row), empty slots (row -1) last.
-    ``chunk`` bounds the gathered rows' elements."""
+def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor, window: Optional[Tuple[int,
+                       int]] = None, chunk: int = 1 << 24) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 3 (``topk_rescore``): each pick's raw squared distance as the fp32 sum of ``(q - g)^2`` over the window,
+    each list sorted again by (d, row), empty slots last; ``chunk`` bounds the gathered elements."""
     lo, hi = window or (0, q.shape[1])
     valid, out = idx >= 0, d.clone()
     step = max(1, chunk // max(1, idx.shape[1] * (hi - lo)))
@@ -224,9 +207,8 @@ def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: t
 
 
 def split_bf16x3(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``split_queries``' three bf16 terms of fp32 queries: ``hi = bf16(q)``,
-    ``mid = bf16(q - hi)``, ``lo = bf16(q - hi - mid)`` (exact differences,
-    nearest even), ``hi + mid + lo = q`` to ~2^-27 relative."""
+    """``split_queries``' bf16 terms: ``hi = bf16(q)``, ``mid = bf16(q - hi)``,
+    ``lo = bf16(q - hi - mid)`` (``hi + mid + lo = q`` to ~2^-27)."""
     qf = q.to(torch.float32)
     hi = qf.to(torch.bfloat16)
     r = qf - hi.to(torch.float32)
@@ -241,10 +223,8 @@ def chi2_nn_plain(
     n_valid: Optional[int] = None,
     tile_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """chi2 1-NN (``_chi2_kernel``, ops/chi2_kernel.py:55): per query the least
-    ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 over rows [0, n_valid)
-    and its lowest row, ``tile_rows`` rows at a time (default: under 2^26
-    broadcast elements, a 128 multiple). Returns (min [B] fp32, row int32)."""
+    """chi2 1-NN (``_chi2_kernel`` :55): per query the least ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 over rows <
+    n_valid and its lowest row, ``tile_rows`` at a time. (min [B] fp32, row int32)."""
     b, d = q.shape
     n = g.shape[0] if n_valid is None else int(n_valid)
     if tile_rows is None:
@@ -267,15 +247,12 @@ def chi2_nn_plain(
 
 
 def act_plain(x: torch.Tensor, activation: str) -> torch.Tensor:
-    """The MBConv activations on fp32 values (``_act``,
-    ops/mbconv_kernel.py:76): ``relu6`` or swish."""
+    """The MBConv activations on fp32 values (``_act``, ops/mbconv_kernel.py:76): ``relu6`` or swish."""
     return torch.clamp(x, 0.0, 6.0) if activation == "relu6" else F.silu(x)
 
 
 def dw_rows(q: Dict[str, torch.Tensor], kernel: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(w_dw [k*k, Ce], b_dw [Ce], b_exp [Ce]) fp32 read back from the
-    ``dw_aux`` [ceil(Ce / 64), k*k + 2, 64] of block params ``q`` (b_exp is
-    zeros without expand)."""
+    """(w_dw [k*k, Ce], b_dw, b_exp) fp32 from the ``dw_aux`` of params ``q``."""
     ce = q["w_proj_t"].shape[1]
     aux = q["dw_aux"].permute(1, 0, 2).reshape(kernel * kernel + 2, -1)[:, :ce]
     return aux[: kernel * kernel], aux[kernel * kernel], aux[kernel * kernel + 1]
@@ -290,12 +267,8 @@ def mbconv_plain(
     residual: bool,
     chunk: int = 64,
 ) -> torch.Tensor:
-    """One folded stride-1 MBConv block (``_mbconv_kernel``,
-    ops/mbconv_kernel.py:82) -> [B, Cout, H, W] channels_last in
-    ``x.dtype``, rounding to it where ``kernels/mbconv.cu`` rounds to bf16:
-    the hidden tensor, the depthwise output (before the gate), the gated
-    hidden, the output; depthwise sums, SE pool and MLP, bias and residual
-    stay fp32."""
+    """A folded stride-1 MBConv block (``_mbconv_kernel`` :82) in ``x.dtype``, channels_last, rounded where
+    ``mbconv.cu`` rounds to bf16; sums, SE, bias and residual in fp32."""
     dt = x.dtype
     b, _, h, w = x.shape
     cout, ce = q["w_proj_t"].shape

@@ -1,37 +1,35 @@
-// The Hopper main loop of the gallery scans (topk_l2.cu, packed_scan.cu,
-// tile_scan.cu), sm_90a only: a ring of TMA boxes filled by one producer
-// thread, `wgmma` products of two consumer warpgroups, `mbarrier`s between.
-// Operands are row-major, contiguous along the contraction (K-major for
-// both `wgmma` operands); a box is [rows x 128 bytes], 128-byte swizzle
-// (chunk c of row r at c ^ (r % 8)): 8-row groups 1024 bytes apart, the
-// k-th 32-byte slice at +32 bytes. TMA zero-fills past a tensor's extent.
-// full[s] completes when stage s has landed, empty[s] when both consumer
-// warpgroups released it; the producer gives its registers away
-// (`setmaxnreg`). A wait still open after ~2^35 clocks traps.
+// The Hopper main loop of the gallery scans, sm_90a only: a ring of TMA boxes
+// filled by one producer thread, `wgmma` of two consumer warpgroups,
+// `mbarrier`s between. Operands row-major, K-major for both `wgmma` operands; a
+// box is [rows x 128 bytes], 128-byte swizzle (chunk c of row r at c ^ (r %
+// 8)): 8-row groups 1024 bytes apart, the k-th 32-byte slice at +32. TMA
+// zero-fills past a tensor. full[s]: stage s landed; empty[s]: both consumers
+// released it; the producer gives its registers away (`setmaxnreg`). A wait
+// open after ~2^35 clocks traps.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
 
-constexpr int KCHUNK = 64;        // bf16 features per box row: one 128-byte swizzle line
-constexpr int KCHUNK_S8 = 128;    // int8 features per box row
+constexpr int KCHUNK = 64;
+constexpr int KCHUNK_S8 = 128;
 constexpr int LINE_BYTES = 128;
 constexpr int WG_THREADS = 128;   // one warpgroup
 constexpr int CONSUMERS = 256;    // two consumer warpgroups
 constexpr int THREADS = 384;      // + one producer warpgroup
-constexpr int SMEM_ALIGN = 1024;  // a 128-byte swizzle repeats every 8 lines
-constexpr int BAR_CONSUMERS = 1;  // named barrier of the 256 consumer threads (0 is __syncthreads)
+constexpr int SMEM_ALIGN = 1024;
+constexpr int BAR_CONSUMERS = 1;  // the consumers' named barrier
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// First SMEM_ALIGN-aligned byte of the dynamic shared memory (the caller
-// requests SMEM_ALIGN extra bytes).
+// First SMEM_ALIGN-aligned byte of dynamic shared memory (SMEM_ALIGN extra
+// requested).
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
     const uint32_t a = smem_u32(raw);
     return raw + ((SMEM_ALIGN - (a % SMEM_ALIGN)) % SMEM_ALIGN);
@@ -41,8 +39,7 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// Makes the barrier initializations visible to the async proxy (TMA);
-// the caller then synchronizes the block.
+// Barrier inits visible to TMA; the caller then syncs the block.
 __device__ __forceinline__ void mbar_init_fence() {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -77,8 +74,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         if (clock64() - t0 > (1ll << 35)) __trap();
 }
 
-// One 2-D TMA box [box_rows x 64] at (column c0, row c1) into `dst`,
-// completing on `bar`.
+// A 2-D TMA box [box_rows x 64] at (c0, c1) into `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
     asm volatile(
         "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
@@ -91,15 +87,15 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// wgmma descriptor of a K-major 128-byte-swizzled operand at `p` (a
-// 1024-byte aligned tile + 32 bytes a 16-feature slice).
+// wgmma descriptor, K-major 128-byte swizzle (1024-byte aligned tile + 32 bytes
+// a 16-feature slice).
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The same, 64-byte swizzle (32-feature lines, chunk c of row r at c ^ ((r
-// / 2) % 4)): 512-byte aligned tile, 8-row groups 512 bytes apart.
+// The same, 64-byte swizzle (chunk c of row r at c ^ ((r / 2) % 4)): 512-byte
+// tiles and groups.
 __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
     const uint64_t addr = smem_u32(p);
     return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
@@ -112,8 +108,7 @@ __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving reads or writes of the accumulators
-// across a wgmma launch or wait.
+// Pins accumulator reads and writes against wgmma launches and waits.
 template <int R>
 __device__ __forceinline__ void acc_fence(float (&d)[R]) {
 #pragma unroll
@@ -125,8 +120,7 @@ __device__ __forceinline__ void acc_fence(int (&d)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// Orders generic-proxy writes to shared memory before later async-proxy
-// (wgmma, TMA) accesses.
+// Orders generic-proxy shared writes before async-proxy (wgmma, TMA) accesses.
 __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -144,8 +138,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// fp32 sum of squares of 8 bf16 values; with `lead` > 0 the first `lead`
-// of them count as zero.
+// fp32 sum of squares of 8 bf16, the first `lead` as zero.
 __device__ __forceinline__ float sq8(uint4 v, int lead = 0) {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
     float s = 0.0f;
@@ -160,8 +153,8 @@ __device__ __forceinline__ float sq8(uint4 v, int lead = 0) {
     return s;
 }
 
-// Sum of squares of logical 16-byte chunks [c0, c0 + n) of row `r`'s
-// swizzled line; the first `lead` features of chunk 0 count as zero.
+// Sum of squares of chunks [c0, c0 + n) of row `r`'s swizzled line, the first
+// `lead` features zero.
 template <int N>
 __device__ __forceinline__ float line_sq(const unsigned char* tile, int r, int c0, int lead) {
     const unsigned char* line = tile + r * LINE_BYTES;
@@ -175,8 +168,7 @@ __device__ __forceinline__ float line_sq(const unsigned char* tile, int r, int c
     return s;
 }
 
-// The accumulators' asm operands: the register list "%0, ..., %N-1" and
-// c(d[0]), ..., c(d[N-1]) for a constraint c.
+// The accumulators' asm operands: "%0, ..., %N-1" and c(d[0]), ..., c(d[N-1]).
 #define SM90_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define SM90_R32 SM90_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define SM90_R64 SM90_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
@@ -210,9 +202,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The same product with A (64 rows x 16 bf16 features) from registers,
-// a[0..3] in the m16n8k16 fragment layout (a[0]: row (t % 32) / 4,
-// features 2 (t % 4), + 1; a[1]: row + 8; a[2], a[3]: features + 8).
+// The same with A (64 rows x 16 bf16) from registers in the m16n8k16 fragment
+// layout.
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -234,8 +225,8 @@ struct Wgmma<128> {
     static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) { wgmma_m64n128k16(d, da, db); }
 };
 
-// int8 x int8 -> exact int32 sums, 32 features per instruction; the
-// accumulator fragment has the layout of the bf16 ones (acc_row, acc_col).
+// int8 x int8 -> exact int32, 32 features an instruction; fragments as the bf16
+// ones.
 __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -246,8 +237,8 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, 
         : "l"(da), "l"(db), "r"(1));
 }
 
-// m64nNk16/k32 accumulator: thread t holds d[4 j + 2 h + c] (j < N / 8, h, c in {0, 1}) at query
-// row 16 (t / 32) + (t % 32) / 4 + 8 h, gallery column 8 j + 2 (t % 4) + c.
+// m64nNk16/k32 accumulator: thread t holds d[4 j + 2 h + c] at query row 16 (t
+// / 32) + (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + c.
 __device__ __forceinline__ int acc_row(int t, int h) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * h; }
 __device__ __forceinline__ int acc_col(int t, int j, int c) { return 8 * j + 2 * (t & 3) + c; }
 
@@ -257,8 +248,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from libcuda, found through the runtime (the
-// library does not link libcuda itself).
+// cuTensorMapEncodeTiled from libcuda via the runtime.
 inline EncodeTiledFn encode_tiled() {
     static EncodeTiledFn fn = nullptr;
     if (fn == nullptr) {
@@ -275,9 +265,9 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// Map of a row-major [rows, cols] matrix (`stride` bytes a row, a multiple
-// of 16; `base` 16-byte aligned) in boxes of [box_rows x line_bytes] with
-// that line's swizzle (128 or 64 bytes). Returns a cudaError_t.
+// Map of a row-major [rows, cols] matrix (`stride` bytes a row, % 16; `base`
+// 16-byte aligned) in [box_rows x line_bytes] boxes with that line's swizzle
+// (128 or 64). Returns a cudaError_t.
 inline int encode_swizzled_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
                                long cols, long rows, long stride, int box_rows, int line_bytes) {
     const EncodeTiledFn fn = encode_tiled();

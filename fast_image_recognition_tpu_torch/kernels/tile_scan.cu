@@ -1,18 +1,14 @@
-// Per-tile min and argmin scans for Hopper (sm_90a) on sm90_scan.cuh.
-// `tilemin_launch` replaces `_tilemin_kernel` (fast_image_recognition_tpu/
-// ops/distance_kernel.py:174, launched by `_tilemin_l2_block` :222): per
-// query and tile of `tile_g` rows the min of |g|^2 - 2 q.g (bf16 products
-// summed in fp32; BIG_DIST on pad rows) and the lowest row at it;
-// `bf16_scores` rounds as the TPU's `score_t=bfloat16` (a pad row's 3.4e38
-// becomes inf). `tilemin_quant_launch` replaces `_tilemin_quant_kernel`
-// (:671, launched by `_tilemin_quant_block` :717): gsq - (2 s_q) * (cross *
-// s_g), cross the exact int32 dot (int8) or the fp32 sum of bf16 products
-// (bf16), each step rounded on its own, as the plain version. Kernels:
-// `tilemin_sm90` (the packed scans' shape, queries streamed above D = 640),
-// `tilemin_quant_sm90` (s8 `wgmma` m64n256k32, 128 queries x 2048 rows a
-// block) and `tilemin_quant_bf16_sm90` (the int8 gallery converted to bf16
-// A fragments in registers, 256 queries the N side). Query tiles run
-// fastest, so blocks share a stretch of the gallery through L2.
+// Per-tile min and argmin scans for sm_90a on sm90_scan.cuh. `tilemin_launch`
+// replaces `_tilemin_kernel` (ops/distance_kernel.py:174): per query and
+// `tile_g`-row tile the min of |g|^2 - 2 q.g (bf16 products in fp32; BIG_DIST
+// on pad rows) and its lowest row; `bf16_scores` rounds as the TPU's
+// `score_t=bfloat16`. `tilemin_quant_launch` replaces `_tilemin_quant_kernel`
+// (:671): gsq - (2 s_q) (cross s_g), cross the exact int32 dot (int8) or fp32
+// sum of bf16 products (bf16), each step rounded. Kernels: `tilemin_sm90` (the
+// packed scans' shape, queries streamed above D = 640), `tilemin_quant_sm90`
+// (s8 `wgmma` m64n256k32) and `tilemin_quant_bf16_sm90` (int8 gallery to bf16 A
+// fragments in registers, 256 queries the N side). Query tiles run fastest:
+// blocks share the gallery through L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,12 +19,12 @@
 namespace {
 
 constexpr float BIG_DIST = 3.4e38f;
-constexpr int QT = 128;         // queries per block: two consumer warpgroups of 64
-constexpr int BN = 256;         // gallery rows per sub-tile (wgmma N)
-constexpr int HALF = BN / 2;    // rows per half: the smallest tile_g
+constexpr int QT = 128;
+constexpr int BN = 256;
+constexpr int HALF = BN / 2;
 constexpr int MAX_STAGES = 4;   // TMA ring depth
 constexpr int MAX_GRID_Y = 65535;  // the grid's y limit
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
+constexpr int SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
@@ -40,8 +36,8 @@ __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Each of the thread's two query rows' (score, row), merged over the row's
-// 4 lanes and written; then reset to (inf, next_row).
+// Each of the thread's two rows' (score, row), merged over the row's 4 lanes
+// and written; then reset.
 __device__ __forceinline__ void store_tile(float (&bv)[2], int (&bi)[2], float* __restrict__ out_d,
                                            int32_t* __restrict__ out_i, int q, int t, int B, int n_tiles,
                                            int tile, int next_row) {
@@ -65,21 +61,20 @@ __device__ __forceinline__ void store_tile(float (&bv)[2], int (&bi)[2], float* 
 
 // ---- the bf16 scan: tilemin_sm90 ----
 
-constexpr int Q_BOX = QT * sm90::LINE_BYTES;  // one 64-lane chunk of the queries
-constexpr int G_BOX = BN * sm90::LINE_BYTES;  // one 64-lane chunk of a sub-tile
+constexpr int Q_BOX = QT * sm90::LINE_BYTES;
+constexpr int G_BOX = BN * sm90::LINE_BYTES;
 
-// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1
-// consume, 2 produces. A unit: a tile of tile_g >= 256 rows, or a sub-tile
-// of two tiles of 128. qmap [B, D] boxes [128 x 64]; gmap [n_tiles * tile_g,
-// D] boxes [256 x 64]. STREAM: each stage holds [QT x 64] query lanes, then
-// [BN x 64] gallery lanes. One text for both (it won the A/B, PERF.md §6).
+// grid (query tiles, runs of `run` units); 384 threads, warpgroups 0-1 consume,
+// 2 produces. A unit: a tile of >= 256 rows, or two of 128. qmap [B, D] boxes
+// [128 x 64]; gmap boxes [256 x 64]. STREAM: a stage holds [QT x 64] query
+// lanes, then [BN x 64] gallery lanes. One text for both (it won the A/B).
 template <bool BF16S, bool STREAM>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
              const float* __restrict__ gsq, float* __restrict__ out_d, int32_t* __restrict__ out_i, int B,
              int n_tiles, int tile_g, int n_chunks, int run, int stages) {
-    constexpr int STAGE = STREAM ? Q_BOX + G_BOX : G_BOX;  // bytes of one ring stage
-    constexpr int G_OFF = STREAM ? Q_BOX : 0;              // the gallery box within a stage
+    constexpr int STAGE = STREAM ? Q_BOX + G_BOX : G_BOX;
+    constexpr int G_OFF = STREAM ? Q_BOX : 0;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = sm90::aligned_smem(smem_raw);
     unsigned char* q_s = smem;                                      // [n_chunks][QT x 64], resident
@@ -93,7 +88,7 @@ tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const int q0 = blockIdx.x * QT;
     const int n_rows = n_tiles * tile_g;
     const int unit_rows = max(tile_g, BN);
-    const int subs = unit_rows / BN;  // sub-tiles per unit
+    const int subs = unit_rows / BN;
     const int unit0 = blockIdx.y * run;
     const int unit1 = min((n_rows + unit_rows - 1) / unit_rows, unit0 + run);
     if (tid == 0) {
@@ -133,20 +128,20 @@ tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         // this warpgroup's 64 queries: resident chunks, or the stage's
         const unsigned char* qa = (STREAM ? ring : q_s) + wg * 64 * sm90::LINE_BYTES;
         float acc[BN / 2];
         float bv[2] = {inf(), inf()};
-        int bi[2] = {unit0 * unit_rows, unit0 * unit_rows};  // an all-inf tile returns its first row
+        int bi[2] = {unit0 * unit_rows, unit0 * unit_rows};  // an all-inf tile: its first row
         int s = 0, prev = 0, it = 0;
         uint32_t ph = 0;
         if (!STREAM) sm90::mbar_wait(q_full, 0);
         for (int unit = unit0; unit < unit1; ++unit) {
             for (int sub = 0; sub < subs; ++sub, ++it) {
                 const int r0 = (unit * subs + sub) * BN;
-                // this sub-tile's |g|^2, two rows a thread of each warpgroup;
-                // the loads land while the products run
+                // this sub-tile's |g|^2, two rows a thread, landing while the
+                // products run
                 float g2_own[2];
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
@@ -175,8 +170,7 @@ tilemin_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
                 sm90::acc_fence(acc);
                 if (t == 0) sm90::mbar_arrive(&empty[prev]);
 
-                // a copy and two buffers a warpgroup: one barrier of the
-                // warpgroup per sub-tile
+                // a copy and two buffers a warpgroup, one barrier a sub-tile
                 float* g2b = g2_s + (2 * wg + (it & 1)) * BN;
 #pragma unroll
                 for (int i = 0; i < 2; ++i) g2b[t + i * HALF] = BF16S ? bf16_round(g2_own[i]) : g2_own[i];
@@ -217,8 +211,8 @@ int launch_tilemin(const void* q, const void* g, const void* gsq, void* out_d, v
         return (int)cudaErrorInvalidValue;
     const int n_rows = n_tiles * tile_g;
     const int n_chunks = (D + sm90::KCHUNK - 1) / sm90::KCHUNK;
-    // slack, |g|^2 of two sub-tiles a warpgroup, (2 stages + 1) barriers and
-    // the resident queries (streamed through the ring above D = 640)
+    // slack, |g|^2, (2 stages + 1) barriers, resident queries (streamed above D
+    // = 640)
     const int fixed = sm90::SMEM_ALIGN + 4 * BN * 4 + (2 * MAX_STAGES + 1) * 8;
     const int resident_stages = min(MAX_STAGES, (SMEM_LIMIT - fixed - n_chunks * Q_BOX) / G_BOX);
     const bool stream_q = resident_stages < 2;
@@ -249,20 +243,19 @@ int launch_tilemin(const void* q, const void* g, const void* gsq, void* out_d, v
 
 // ---- the int8 scan with int8 compute: tilemin_quant_sm90 ----
 
-constexpr int QT8 = 128;        // queries per block: two consumer warpgroups of 64
-constexpr int BN8 = 256;        // gallery rows per sub-tile (wgmma N)
-constexpr int HALF8 = BN8 / 2;  // rows per half: the smallest tile_g
-constexpr int SEG_ROWS = 2048;  // gallery rows per block: whole tiles of any tile_g
+constexpr int QT8 = 128;
+constexpr int BN8 = 256;
+constexpr int HALF8 = BN8 / 2;
+constexpr int SEG_ROWS = 2048;
 constexpr int STAGES = 4;       // TMA ring depth
-constexpr int Q_BYTES = QT8 * sm90::LINE_BYTES;  // one 128-feature chunk of the queries
-constexpr int G_BYTES = BN8 * sm90::LINE_BYTES;  // and of the sub-tile
+constexpr int Q_BYTES = QT8 * sm90::LINE_BYTES;
+constexpr int G_BYTES = BN8 * sm90::LINE_BYTES;
 constexpr int STAGE_BYTES = Q_BYTES + G_BYTES;
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;
-// ring, |g|^2 and s_g of two sub-tiles, full[] and empty[] barriers
 constexpr size_t SMEM8 = sm90::SMEM_ALIGN + RING_BYTES + 4 * BN8 * 4 + 2 * STAGES * 8;
 
-// grid (query tiles, segments from seg_base); 384 threads. qmap [B, D] int8
-// boxes [128 x 128]; gmap [n_tiles * tile_g, D] int8 boxes [256 x 128].
+// grid (query tiles, segments from seg_base); 384 threads. qmap int8 boxes [128
+// x 128]; gmap int8 boxes [256 x 128].
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                    const float* __restrict__ qs, const float* __restrict__ gsq, const float* __restrict__ gsc,
@@ -310,7 +303,7 @@ tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         float qs2[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -324,8 +317,8 @@ tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_consta
         uint32_t ph = 0;
         for (int sub = 0; sub < n_sub; ++sub) {
             const int r0 = seg0 + sub * BN8;
-            // this sub-tile's |g|^2 and s_g, one row a consumer thread; the
-            // loads land while the products run
+            // this sub-tile's |g|^2 and s_g, a row a thread, landing while the
+            // products run
             const int gr = r0 + tid;
             const float g2_own = gr < n_rows ? gsq[gr] : BIG_DIST;
             const float sg_own = gr < n_rows ? gsc[gr] : 0.0f;
@@ -352,7 +345,7 @@ tilemin_quant_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_consta
             sm90::acc_fence(acc);
             if (t == 0) sm90::mbar_arrive(&empty[prev]);
 
-            float* g2_s = gsq_s + (sub & 1) * BN8;  // two buffers: one barrier per sub-tile
+            float* g2_s = gsq_s + (sub & 1) * BN8;
             float* sg_s = gsc_s + (sub & 1) * BN8;
             g2_s[tid] = g2_own;
             sg_s[tid] = sg_own;
@@ -414,7 +407,6 @@ int launch_quant_sm90(const void* q, const void* qs, const void* g, const void* 
     cudaError_t e = cudaFuncSetAttribute(tilemin_quant_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM8);
     if (e != cudaSuccess) return (int)e;
-    // at most 65,535 segments a launch (the grid's y limit)
     for (int sb = 0; sb < n_seg; sb += MAX_GRID_Y) {
         const dim3 grid((B + QT8 - 1) / QT8, min(MAX_GRID_Y, n_seg - sb));
         tilemin_quant_sm90<<<grid, sm90::THREADS, SMEM8, (cudaStream_t)stream>>>(
@@ -428,17 +420,16 @@ int launch_quant_sm90(const void* q, const void* qs, const void* g, const void* 
 
 // ---- the int8 scan with bf16 compute: tilemin_quant_bf16_sm90 ----
 
-constexpr int QTB = 256;     // queries per block (wgmma N)
-constexpr int RB = 128;      // gallery rows per sub-tile: 64 (wgmma M) per consumer warpgroup
+constexpr int QTB = 256;
+constexpr int RB = 128;
 constexpr int STAGES_B = 2;  // TMA ring depth
-constexpr int QB_BOX = QTB * sm90::LINE_BYTES;  // [256 x 64] bf16 queries: half a 128-feature chunk
-constexpr int GB_BOX = RB * sm90::LINE_BYTES;   // [128 x 128] int8 rows
+constexpr int QB_BOX = QTB * sm90::LINE_BYTES;
+constexpr int GB_BOX = RB * sm90::LINE_BYTES;
 constexpr int STAGE_B = 2 * QB_BOX + GB_BOX;
-constexpr int RED_BYTES = 2 * 8 * QTB * 8;      // two buffers of (min, row) [8 warps][QTB]
+constexpr int RED_BYTES = 2 * 8 * QTB * 8;
 constexpr size_t SMEM_B = sm90::SMEM_ALIGN + (size_t)STAGES_B * STAGE_B + RED_BYTES + QTB * 4 + 2 * STAGES_B * 8;
 
-// int8 -> bf16 of bytes 2 i and 2 i + 1 of x, packed as bf16x2 (lower
-// byte in the lower half); exact.
+// int8 -> bf16 of bytes 2 i, 2 i + 1, packed as bf16x2 (lower byte low); exact.
 __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t x, int i) {
     const float lo = __int2float_rn((int)(int8_t)(x >> (16 * i)));
     const float hi = __int2float_rn((int)(int8_t)(x >> (16 * i + 8)));
@@ -451,8 +442,8 @@ __device__ __forceinline__ void keep_least(float& v, int& r, float ov, int oi) {
     if (before(ov, oi, v, r)) { v = ov; r = oi; }
 }
 
-// grid (256-query tiles fastest, segments); 384 threads. qmap [B, D] bf16
-// boxes [256 x 64]; gmap [n_rows, D] int8 boxes [128 x 128].
+// grid (256-query tiles fastest, segments); 384 threads. qmap bf16 boxes [256 x
+// 64]; gmap int8 boxes [128 x 128].
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
                         const float* __restrict__ qs, const float* __restrict__ gsq,
@@ -471,7 +462,7 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
     const int q0 = (int)(blockIdx.x % n_qt) * QTB;
     const int n_rows = n_tiles * tile_g;
     const int seg0 = (int)(blockIdx.x / n_qt) * SEG_ROWS;
-    const int n_sub = (min(n_rows, seg0 + SEG_ROWS) - seg0) / RB;  // whole tiles of >= 128 rows
+    const int n_sub = (min(n_rows, seg0 + SEG_ROWS) - seg0) / RB;
     if (tid == 0) {
         for (int s = 0; s < STAGES_B; ++s) {
             sm90::mbar_init(&full[s], 1);
@@ -483,8 +474,8 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
 
     const int wg = tid / sm90::WG_THREADS;
     if (wg == 2) {
-        // producer: one thread keeps the ring full; a 64-lane query box
-        // entirely past D is not loaded, and its products are skipped
+        // producer: one thread; a query box past D is not loaded, its products
+        // skipped
         sm90::setmaxnreg_dec<40>();
         if (tid == 2 * sm90::WG_THREADS) {
             sm90::prefetch_map(&qmap);
@@ -505,26 +496,25 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         const int lane = tid & 31, warp = tid >> 5;
         const int quad = lane & 3;
-        // bytes 2 (quad % 2), + 1 of the word at 4 (quad / 2) and of the word
-        // 8 bytes on: features 2 quad, 2 quad + 1, 8 + 2 quad, 9 + 2 quad of
-        // a 16-feature chunk
+        // bytes 2 (quad % 2), + 1 of the word at 4 (quad / 2) and 8 bytes on:
+        // features 2 quad, + 1, 8 + 2 quad, + 1 of a 16-feature chunk
         const uint32_t sel = (quad & 1) ? 0x7632u : 0x5410u;
         const int word = 4 * (quad >> 1);
-        qs2_s[tid] = q0 + tid < B ? 2.0f * qs[q0 + tid] : 0.0f;  // tid < 256 = QTB
+        qs2_s[tid] = q0 + tid < B ? 2.0f * qs[q0 + tid] : 0.0f;
         sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
         float acc[QTB / 2];
-        float bv = inf();  // consumer thread tid keeps query q0 + tid's (min, row) of the tile
+        float bv = inf();
         int bi = seg0;
         int s = 0;
         uint32_t ph = 0;
         for (int sub = 0; sub < n_sub; ++sub) {
             const int r0 = seg0 + sub * RB;
-            // the thread's two gallery rows (M) of this sub-tile and their
-            // |g|^2 and s_g, loaded while the products run
-            const int lr = wg * 64 + sm90::acc_row(t, 0);  // row in the sub-tile; the other is lr + 8
+            // the thread's two gallery rows, their |g|^2 and s_g, loaded while
+            // the products run
+            const int lr = wg * 64 + sm90::acc_row(t, 0);
             float g2[2], sg[2];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -536,10 +526,10 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
             for (int c = 0; c < n_chunks; ++c) {
                 sm90::mbar_wait(&full[s], ph);
                 const unsigned char* st = smem + s * STAGE_B;
-                const unsigned char* line = st + 2 * QB_BOX + lr * sm90::LINE_BYTES;  // row lr; row lr + 8 at +1024
+                const unsigned char* line = st + 2 * QB_BOX + lr * sm90::LINE_BYTES;
                 const int steps = D - c * sm90::KCHUNK_S8 > sm90::KCHUNK ? 8 : 4;
-                // A fragments of the 8 k16 steps: int8 from the swizzled
-                // line (16-byte chunk ks at ks ^ (row % 8)), bf16 in registers
+                // A fragments of the 8 k16 steps: int8 from the swizzled line
+                // (chunk ks at ks ^ (row % 8)), bf16 in registers
                 uint32_t a[8][4];
 #pragma unroll
                 for (int ks = 0; ks < 8; ++ks) {
@@ -562,14 +552,14 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
                     if (ks < steps)
                         sm90::wgmma_m64n256k16_rs(acc, a[ks], sm90::sw128_desc(st + (ks >> 2) * QB_BOX + 32 * (ks & 3)));
                 sm90::wgmma_commit();
-                sm90::wgmma_wait<0>();  // the fragments are rewritten next stage
+                sm90::wgmma_wait<0>();
                 sm90::acc_fence(acc);
                 if (t == 0) sm90::mbar_arrive(&empty[s]);
                 if (++s == STAGES_B) { s = 0; ph ^= 1; }
             }
 
-            // per query column m = 2 j + c (query 8 j + 2 quad + c): the
-            // (score, row) least of the thread's two rows (rows rise with h)
+            // per query column m = 2 j + c: the (score, row) least of the
+            // thread's two rows
             float v[QTB / 4];
             int r[QTB / 4];
 #pragma unroll
@@ -586,13 +576,12 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
                     r[2 * j + c] = r0 + lr + (second ? 8 : 0);
                 }
             }
-            // the 8 lanes of a quad residue halve their columns three times
-            // (xor 16, 8, 4): lane l ends with columns 8 (l / 4) .. + 7, the
-            // least over the warp's 16 rows
+            // a quad residue's 8 lanes halve their columns three times (xor 16,
+            // 8, 4): the least over the warp's 16 rows
 #pragma unroll
             for (int step = 0; step < 3; ++step) {
                 const int off = 16 >> step;
-                const int n = 64 >> step;  // columns held before this step
+                const int n = 64 >> step;
                 const bool upper = lane & off;
 #pragma unroll
                 for (int i = 0; i < 32; ++i) {
@@ -609,7 +598,7 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
                     }
                 }
             }
-            float* rv = red_v + (sub & 1) * 8 * QTB + warp * QTB;  // two buffers: one barrier per sub-tile
+            float* rv = red_v + (sub & 1) * 8 * QTB + warp * QTB;
             int* rr = red_r + (sub & 1) * 8 * QTB + warp * QTB;
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
@@ -626,7 +615,7 @@ tilemin_quant_bf16_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_c
             int mr = sr[tid];
 #pragma unroll
             for (int w = 1; w < 8; ++w) keep_least(mv, mr, sv[w * QTB + tid], sr[w * QTB + tid]);
-            if (mv < bv) { bv = mv; bi = mr; }  // earlier sub-tiles hold the lower rows
+            if (mv < bv) { bv = mv; bi = mr; }
             const int end = r0 + RB;
             if ((end & (tile_g - 1)) == 0) {  // a tile ends with this sub-tile
                 const int tile = end / tile_g - 1;
@@ -665,9 +654,8 @@ int launch_quant_bf16_sm90(const void* q, const void* qs, const void* g, const v
 
 }  // namespace
 
-// q [B, D] bf16, g [n_tiles * tile_g, D] bf16 (D % 8 == 0), gsq [>=
-// n_tiles * tile_g] fp32, out_d/out_i [B, n_tiles] fp32 minima and int32
-// rows; tile_g 128-1024. Returns a cudaError_t.
+// q [B, D] bf16, g [n_tiles * tile_g, D] bf16 (D % 8 == 0), gsq fp32,
+// out_d/out_i [B, n_tiles]; tile_g 128-1024. Returns a cudaError_t.
 extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, void* out_d,
                               void* out_i, int B, int n_tiles, int D, int tile_g,
                               int bf16_scores, void* stream) {
@@ -675,9 +663,8 @@ extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, voi
     return launch_tilemin<false>(q, g, gsq, out_d, out_i, B, n_tiles, D, tile_g, stream);
 }
 
-// q [B, D] int8 (compute_int8 = 1: the int32 dot) or bf16 (0: bf16
-// products in fp32), qs [B] fp32, g [n_tiles * tile_g, D] int8 (D % 16 ==
-// 0), gsq/gsc [>= n_tiles * tile_g] fp32; out as for tilemin_launch.
+// q [B, D] int8 (compute_int8: the int32 dot) or bf16 (bf16 products in fp32),
+// qs [B], g int8 (D % 16 == 0), gsq/gsc fp32; out as tilemin_launch.
 extern "C" int tilemin_quant_launch(const void* q, const void* qs, const void* g,
                                     const void* gsq, const void* gsc, void* out_d, void* out_i,
                                     int B, int n_tiles, int D, int tile_g, int compute_int8,

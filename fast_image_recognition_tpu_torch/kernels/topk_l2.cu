@@ -1,18 +1,15 @@
-// Exact L2 top-k (k <= 256 a launch) for Hopper (sm_90a), replacing the Pallas
-// `_topk_kernel` and `_merge_topk` (fast_image_recognition_tpu/ops/distance_kernel.py
-// :92, :57; launched by `_topk_l2_block` :988): picks by d = max(|q|^2 + |g|^2
-// - 2 q.g, 0) in fp32, rows >= n_valid never returned, ties to the lowest row, empty
-// slots (BIG_DIST, -1); a window [start, end) zeroes the lanes outside it.
-// Pass 1, a block per (128 queries, row segment): `topk_pass1_sm90` (bf16;
-// a query mask skips query tiles, no host sync) or the fp32 oracle, three
-// bf16 query planes (`split_queries`) against bf16 rows
-// (`topk_pass1_split_sm90`, three products a chunk) or fp32 rows split on
-// the chip (`topk_pass1_split6_sm90`, six), each chunk into a fresh
-// accumulator (Hopper truncates as it accumulates). Pass 2: a warp per
-// query merges the segment lists (registers for k <= 16, the pass-1
-// scratch above, `WarpList`). k > 256 runs in slabs above a floor; past
-// 65,535 segments, several launches (`seg_base`). Pass 3: `topk_rescore`.
-// PERF.md §6.
+// Exact L2 top-k (k <= 256 a launch) for sm_90a, replacing the Pallas
+// `_topk_kernel` and `_merge_topk` (ops/distance_kernel.py:92, :57): d =
+// max(|q|^2 + |g|^2 - 2 q.g, 0) in fp32, rows >= n_valid never returned, ties
+// to the lowest row, empty slots (BIG_DIST, -1), a window [start, end). Pass 1,
+// a block per (128 queries, row segment): `topk_pass1_sm90` (bf16; a query mask
+// skips tiles) or the fp32 oracle, three bf16 query planes (`split_queries`)
+// against bf16 rows (`topk_pass1_split_sm90`, three products a chunk) or fp32
+// rows split on the chip (`topk_pass1_split6_sm90`, six), each chunk into a
+// fresh accumulator (Hopper truncates as it accumulates). Pass 2: a warp a
+// query merges the segment lists (`WarpList` above k = 16). k > 256: slabs
+// above a floor; past 65,535 segments, several launches (`seg_base`). Pass 3:
+// `topk_rescore`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,7 +20,7 @@
 namespace {
 
 constexpr float BIG_DIST = 3.4e38f;
-constexpr int NO_ROW = INT32_MAX;  // empty slot; becomes -1 on output
+constexpr int NO_ROW = INT32_MAX;  // empty slot (-1 out)
 
 __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
     return d < bd || (d == bd && i < bi);
@@ -45,8 +42,8 @@ __device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, in
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// An ascending (d, row) list of K = 32 E entries spread over one warp (lane
-// l holds entries [l E, l E + E)), with its last entry warp-uniform.
+// An ascending (d, row) list of K = 32 E entries over a warp (lane l: [l E, l E
+// + E)), its last entry warp-uniform.
 template <int E>
 struct WarpList {
     float d[E];
@@ -72,8 +69,7 @@ struct WarpList {
 #pragma unroll
         for (int e = 0; e < E; ++e) { ld[lane * E + e] = d[e]; li[lane * E + e] = i[e]; }
     }
-    // Inserts the lanes' candidates (cd, ci) where `take`, lowest lane
-    // first; a candidate that no longer beats the last entry is dropped.
+    // Inserts the lanes' candidates where `take`, lowest lane first.
     __device__ __forceinline__ void insert(float cd, int ci, bool take) {
         const int lane = threadIdx.x & 31;
         unsigned m = __ballot_sync(FULL, take && before(cd, ci, last_d, last_i));
@@ -86,11 +82,11 @@ struct WarpList {
             unsigned lt = 0;
 #pragma unroll
             for (int e = 0; e < E; ++e) lt += before(d[e], i[e], xd, xi);
-            const int pos = (int)__reduce_add_sync(FULL, lt);  // entries before (xd, xi)
+            const int pos = (int)__reduce_add_sync(FULL, lt);
             const float pd = __shfl_up_sync(FULL, d[E - 1], 1);
             const int pi = __shfl_up_sync(FULL, i[E - 1], 1);
 #pragma unroll
-            for (int e = E - 1; e >= 0; --e) {  // shift the entries at >= pos one up
+            for (int e = E - 1; e >= 0; --e) {
                 const int p = lane * E + e;
                 if (p > pos) {
                     if (e > 0) { d[e] = d[e - 1]; i[e] = i[e - 1]; }
@@ -105,9 +101,8 @@ struct WarpList {
     }
 };
 
-// A warp merges candidates j < n (cand(j) -> (d, row), rows rising) into
-// its list of K at (ld, li); (*last_d, *last_i) in shared memory is the
-// list's last entry; the list is read only if a candidate beats it.
+// A warp merges candidates j < n (rows rising) into its list of K at (ld, li)
+// (last entry at last_d, last_i).
 template <int K, typename Cand>
 __device__ __forceinline__ void warp_merge(float* ld, int* li, float* last_d, int* last_i, int n, Cand cand) {
     const int lane = threadIdx.x & 31;
@@ -135,8 +130,7 @@ __device__ __forceinline__ void warp_merge(float* ld, int* li, float* last_d, in
     __syncwarp();
 }
 
-// One warp fills the list of K at (ld, li) and its last entry with empty
-// slots.
+// Fills a list of K and its last entry with empty slots.
 template <int K>
 __device__ __forceinline__ void warp_fill_empty(float* ld, int* li, float* last_d, int* last_i) {
     for (int e = threadIdx.x & 31; e < K; e += 32) { ld[e] = BIG_DIST; li[e] = NO_ROW; }
@@ -144,8 +138,7 @@ __device__ __forceinline__ void warp_fill_empty(float* ld, int* li, float* last_
     __syncwarp();
 }
 
-// A slab's floor (k > 256): only candidates after the previous slab's last
-// (d, row) enter; null admits all.
+// A slab's floor: only what follows the last slab's (d, row); null admits all.
 struct Floor {
     float d;
     int i;
@@ -160,32 +153,29 @@ struct Floor {
 
 // ---- bf16: topk_pass1_sm90 ----
 
-constexpr int QT = 128;         // queries per block: two consumer warpgroups of 64
+constexpr int QT = 128;
 constexpr int SEG_ROWS = 2048;  // gallery rows per block
 constexpr int STAGES = 4;       // TMA ring depth
 
 template <int K>
 struct Bf16Tile {
-    static constexpr int BN = K == 1 ? 256 : 128;  // gallery rows per sub-tile (wgmma N)
+    static constexpr int BN = K == 1 ? 256 : 128;
     static constexpr int Q_BYTES = QT * sm90::LINE_BYTES;
     static constexpr int G_BYTES = BN * sm90::LINE_BYTES;
     static constexpr int STAGE_BYTES = Q_BYTES + G_BYTES;
     static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
-    // ring, |g|^2 of two sub-tiles, |q|^2, full[] and empty[] barriers
     static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + (2 * BN + QT) * 4 + 2 * STAGES * 8;
     static_assert((size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
 };
 
-// d from one accumulator value, with the rounding of the plain version:
-// (|q|^2 + |g|^2) - 2 q.g, each step rounded once, no contraction.
+// d with the plain version's rounding: (|q|^2 + |g|^2) - 2 q.g, no contraction.
 __device__ __forceinline__ float dist(float qsq, float gsq, float cross) {
     return fmaxf(__fsub_rn(__fadd_rn(qsq, gsq), __fmul_rn(2.0f, cross)), 0.0f);
 }
 
-// grid (query tiles, segments from seg_base); 384 threads, warpgroups 0-1
-// consume, 2 produces. qmap [B, end - base] (base = start & ~7), boxes
-// [128 x 64]; gmap [n_valid, end - base], boxes [BN x 64]; the first
-// lead = start - base lanes are outside the window.
+// grid (query tiles, segments); 384 threads, warpgroups 0-1 consume, 2
+// produces. Maps start at base = start & ~7; lead = start - base lanes are
+// outside the window.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -242,7 +232,7 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         const int lane = tid & 31;
         // |g|^2: BN = 256, thread tid sums line tid; BN = 128, half a line
         constexpr int G_CHUNKS = 8 * BN / sm90::CONSUMERS;
@@ -305,7 +295,7 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
             sm90::acc_fence(acc);
             if (t == 0) sm90::mbar_arrive(&empty[prev]);
 
-            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            float* gbuf = gsq_s + (sub & 1) * BN;
             if (G_CHUNKS == 4) gpart += __shfl_xor_sync(0xffffffffu, gpart, 1);
             if (G_CHUNKS == 8 || (tid & 1) == 0) gbuf[g_row] = gpart;
             if (sub == 0) {
@@ -318,7 +308,7 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
                 for (int h = 0; h < 2; ++h) qsq[h] = qsq_s[wg * 64 + sm90::acc_row(t, h)];
             }
             const int r0 = seg0 + sub * BN;
-            const int lim = seg1 - r0;  // columns >= lim are past the segment or n_valid
+            const int lim = seg1 - r0;
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -391,18 +381,15 @@ topk_pass1_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 
 constexpr int SEG_LISTS = 8192;  // gallery rows per block for k > 16
 
-// A separate kernel, so that topk_pass1_sm90 keeps its text: its main loop
-// at BN = 128, a block per (128 queries, 8192 rows); each consumer warp
-// merges its 16 accumulator rows' distances (its own [16 x DLD] slice)
-// into their lists of K in the pass-1 scratch.
+// A separate kernel, so that topk_pass1_sm90 keeps its text: BN = 128, a block
+// per (128 queries, 8192 rows); each consumer warp merges its 16 rows'
+// distances into their lists of K in the scratch.
 struct ListTile {
     static constexpr int BN = 128;
-    static constexpr int DLD = BN + 8;  // a warp's 8-byte stores are conflict-free per half-warp
+    static constexpr int DLD = BN + 8;
     static constexpr int Q_BYTES = QT * sm90::LINE_BYTES;
     static constexpr int STAGE_BYTES = Q_BYTES + BN * sm90::LINE_BYTES;
     static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
-    // ring, |g|^2 of two sub-tiles, |q|^2, the distance tile, the lists'
-    // last entries, full[] and empty[] barriers
     static constexpr size_t SMEM =
         sm90::SMEM_ALIGN + RING_BYTES + (2 * BN + QT + QT * DLD + 2 * QT) * 4 + 2 * STAGES * 8;
 };
@@ -467,7 +454,7 @@ topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_con
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         const int lane = tid & 31;
         // |g|^2: half a line of row tid / 2; |q|^2: half a line of query row tid / 2
         constexpr int G_CHUNKS = 8 * BN / sm90::CONSUMERS;
@@ -529,7 +516,7 @@ topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_con
             sm90::acc_fence(acc);
             if (t == 0) sm90::mbar_arrive(&empty[prev]);
 
-            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            float* gbuf = gsq_s + (sub & 1) * BN;
             gpart += __shfl_xor_sync(FULL, gpart, 1);
             if ((tid & 1) == 0) gbuf[g_row] = gpart;
             if (sub == 0) {
@@ -542,7 +529,7 @@ topk_pass1_sm90_lists(const __grid_constant__ CUtensorMap qmap, const __grid_con
                 for (int h = 0; h < 2; ++h) qsq[h] = qsq_s[wg * 64 + sm90::acc_row(t, h)];
             }
             const int r0 = seg0 + sub * BN;
-            const int lim = min(seg1 - r0, BN);  // columns >= lim are past the segment or n_valid
+            const int lim = min(seg1 - r0, BN);
             // this warp's 16 rows of distances, then its lists
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j) {
@@ -575,9 +562,8 @@ constexpr int SEG_PRECISE = 8192;  // gallery rows per block of the split passes
 
 // ---- precise over bf16 rows: split_queries + topk_pass1_split_sm90 ----
 
-// fp32 queries -> three bf16 planes hi = bf16(q), mid = bf16(q - hi), lo =
-// bf16(q - hi - mid) (hi + mid + lo = q to ~2^-27), zero outside [start,
-// end) and past B; |q|^2 over the window to qsq. A warp per row.
+// fp32 queries -> bf16 planes hi = bf16(q), mid = bf16(q - hi), lo = bf16(q -
+// hi - mid), zero outside [start, end) and past B; |q|^2 to qsq. A warp a row.
 __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __restrict__ planes,
                               float* __restrict__ qsq, int B, int Bp, int D, int start, int end) {
     const int lane = threadIdx.x & 31;
@@ -600,8 +586,8 @@ __global__ void split_queries(const float* __restrict__ q, __nv_bfloat16* __rest
     if (lane == 0 && row < B) qsq[row] = s;
 }
 
-// A split pass's top-K storage: the pass-1 scratch, the slab floor and (k
-// > 16) the distance tile [QT][DLD] and the lists' last entries [QT].
+// A split pass's top-K storage: scratch, floor, (k > 16) the distance tile and
+// last entries.
 struct SplitOut {
     float* part_d;
     int* part_i;
@@ -613,9 +599,8 @@ struct SplitOut {
     int B, q0, seg, n_seg;
 };
 
-// A consumer thread's share of a split pass's top-K (128 queries, 128-row
-// sub-tiles): its two rows' |q|^2 and, k <= 16, their register lists; k >
-// 16, its warp's 16 rows' lists in the pass-1 scratch (with the floor).
+// A consumer thread's share of a split pass's top-K: its two rows' |q|^2 and
+// register lists (k <= 16), or its warp's 16 rows' lists in the scratch.
 template <int K>
 struct SplitTopK {
     static constexpr int BN = 128;
@@ -647,8 +632,8 @@ struct SplitTopK {
             for (int j = 0; j < KR; ++j) { bd[h][j] = BIG_DIST; bi[h][j] = NO_ROW; }
     }
 
-    // One sub-tile: the cross products `sum` against rows r0 + column, of
-    // which the first `lim` columns count, and their |g|^2 in gbuf.
+    // One sub-tile: products `sum` against rows r0 + column (the first `lim`
+    // count), |g|^2 in gbuf.
     __device__ __forceinline__ void take(const SplitOut& o, const float (&sum)[BN / 2], const float* gbuf, int r0,
                                          int lim, int tid) {
         const int t = tid % sm90::WG_THREADS, lane = tid & 31;
@@ -695,8 +680,8 @@ struct SplitTopK {
         }
     }
 
-    // k <= 16, after the segment's last sub-tile: the segment's top-K of each
-    // query, the 4 lanes of a row merged (K > 1 through `smem`, the idle ring).
+    // k <= 16, after the segment: each query's top-K, a row's 4 lanes merged
+    // (through `smem`, the idle ring).
     __device__ __forceinline__ void emit(const SplitOut& o, unsigned char* smem, int tid) {
         const int t = tid % sm90::WG_THREADS, wg = tid / sm90::WG_THREADS, lane = tid & 31;
         if constexpr (K == 1) {
@@ -746,11 +731,10 @@ struct SplitTopK {
     }
 };
 
-// The precise pass over bf16 rows as the TPU's HIGHEST dot: three exact
-// bf16 products a 64-feature chunk (g.q_lo + g.q_mid + g.q_hi) into a
-// fresh accumulator, then IEEE adds into fp32 registers. The bf16 main
-// loop at BN = 128 (128 queries x 8192 rows a block); a stage holds the
-// three query planes and the gallery box (64 KB), 3 stages (2 for k > 16).
+// The precise pass over bf16 rows as the TPU's HIGHEST dot: three exact bf16
+// products a 64-feature chunk (lo, mid, hi) into a fresh accumulator, IEEE adds
+// into fp32. BN = 128 (128 queries x 8192 rows a block); a stage: three query
+// planes and the gallery box (64 KB), 3 stages (2 for k > 16).
 template <int K>
 struct SplitTile {
     static constexpr int BN = 128;
@@ -759,15 +743,13 @@ struct SplitTile {
     static constexpr int STAGE_BYTES = 3 * Q_BYTES + BN * sm90::LINE_BYTES;
     static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
     static constexpr int DLD = ListTile::DLD;
-    // ring, |g|^2 of two sub-tiles, (k > 16) the distance tile and the
-    // lists' last entries, full[] and empty[] barriers
     static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + 2 * BN * 4 +
                                    (K > 16 ? (QT * DLD + 2 * QT) * 4 : 0) + 2 * NSTAGE * 8;
     static_assert(K > 16 || (size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
 };
 
-// grid as topk_pass1_sm90; qmap: planes [3 Bp, end - base] (plane p at row
-// p Bp), boxes [128 x 64]; gmap: rows, boxes [128 x 64]; lead as there.
+// grid as topk_pass1_sm90; qmap: planes [3 Bp, end - base] boxes [128 x 64];
+// gmap: rows, boxes [128 x 64].
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -825,7 +807,7 @@ topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_con
         }
     } else {
         sm90::setmaxnreg_inc<232>();
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         // |g|^2: half a line of row tid / 2
         const int g_row = tid >> 1, g_c0 = (tid & 1) * 4;
         const SplitOut o{part_d, part_i, floor_d, floor_i, d_s, last_d_s, last_i_s, B, q0, seg, n_seg};
@@ -863,7 +845,7 @@ topk_pass1_split_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_con
                 if (++s == NST) { s = 0; ph ^= 1; }
             }
 
-            float* gbuf = gsq_s + (sub & 1) * BN;  // two buffers: one barrier per sub-tile
+            float* gbuf = gsq_s + (sub & 1) * BN;
             gpart += __shfl_xor_sync(FULL, gpart, 1);
             if ((tid & 1) == 0) gbuf[g_row] = gpart;
             sm90::named_bar_sync(sm90::BAR_CONSUMERS, sm90::CONSUMERS);
@@ -880,9 +862,8 @@ constexpr int KC6 = 32;          // features per chunk: a 64-byte bf16 plane lin
 constexpr int LINE6 = 64;        // bytes of a plane line (64-byte swizzle)
 constexpr int BAR_PRODUCERS = 4;  // named barrier of the producer warpgroup
 
-// acc (+)= query term qt times row term gt (0 hi, 1 mid, 2 lo) over one
-// 32-feature chunk: qa, this warpgroup's 64 rows of the hi query plane;
-// gb, the hi row plane; the other planes follow each at 128 lines.
+// acc (+)= query term qt x row term gt (0 hi, 1 mid, 2 lo) over a 32-feature
+// chunk; planes 128 lines apart.
 __device__ __forceinline__ void product6(float (&acc)[64], const unsigned char* qa, const unsigned char* gb, int qt,
                                          int gt, bool fresh) {
 #pragma unroll
@@ -891,13 +872,12 @@ __device__ __forceinline__ void product6(float (&acc)[64], const unsigned char* 
                                sm90::sw64_desc(gb + gt * 128 * LINE6 + 32 * kk), fresh && kk == 0 ? 0 : 1);
 }
 
-// The precise pass over fp32 rows: each row split by split_queries' rule,
-// six exact products of a query and a row term per 32-feature chunk into
-// one fresh accumulator, smallest first, then IEEE adds into fp32. Two
-// consumer warpgroups of 64 queries, 128-row sub-tiles; the producer's
-// thread p splits row p of the chunk's TMA'd fp32 box (a ring of its own)
-// into the stage's row planes, sums |g|^2, and arrives on `full`. Plane
-// stages 3, boxes 4 (k > 16: 2 and 3); |g|^2 has NSTAGE + 1 buffers.
+// The precise pass over fp32 rows: rows split by split_queries' rule, six exact
+// products a 32-feature chunk into one fresh accumulator, smallest first, IEEE
+// adds into fp32. Two consumer warpgroups of 64 queries, 128-row sub-tiles;
+// producer thread p splits row p of the TMA'd fp32 box (its own ring) into the
+// stage's row planes and sums |g|^2. Plane stages 3, boxes 4 (k > 16: 2, 3);
+// |g|^2 NSTAGE + 1 buffers.
 template <int K>
 struct Split6Tile {
     static constexpr int BN = 128;
@@ -910,16 +890,13 @@ struct Split6Tile {
     static constexpr int BOX_BYTES = BN * sm90::LINE_BYTES;  // [BN x 32] fp32
     static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
     static constexpr int DLD = ListTile::DLD;
-    // plane ring, box ring, |g|^2 buffers, (k > 16) the distance tile and
-    // the lists' last entries, full[], empty[] and landed[] barriers
     static constexpr size_t SMEM = sm90::SMEM_ALIGN + RING_BYTES + NBOX * BOX_BYTES + NGSQ * BN * 4 +
                                    (K > 16 ? (QT * DLD + 2 * QT) * 4 : 0) + (2 * NSTAGE + NBOX) * 8;
     static_assert(K > 16 || (size_t)QT * 4 * K * 8 <= (size_t)RING_BYTES, "merge lists must fit the ring");
     static_assert(Q_BYTES == 128 * LINE6 && R_BYTES == 128 * LINE6, "product6 and split_row take 128-line planes");
 };
 
-// Two fp32 values into their three bf16 terms (split_queries' rule), each
-// pair packed as wgmma reads it (the lower lane in the low half).
+// Two fp32 values -> their three bf16 terms, paired as wgmma reads them.
 __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
     const float ra = a - __low2float(h), rb = b - __high2float(h);
@@ -930,10 +907,9 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
     lo = reinterpret_cast<const uint32_t&>(l);
 }
 
-// Splits row p of a landed fp32 box [BN x 32] (128-byte swizzle: chunk j
-// of row p at j ^ (p % 8)) into the three planes at `planes`, R_BYTES
-// apart ([BN x 32] bf16, 64-byte swizzle: chunk c at c ^ ((p / 2) % 4));
-// the first `lead` lanes count as zero. Returns the row's sum of squares.
+// Splits row p of a landed fp32 box (128-byte swizzle: chunk j at j ^ (p % 8))
+// into three bf16 planes R_BYTES apart (64-byte swizzle: chunk c at c ^ ((p /
+// 2) % 4)), the first `lead` lanes zero; returns the row's sum of squares.
 __device__ __forceinline__ float split_row(const unsigned char* box, unsigned char* planes, int p, int lead) {
     constexpr int R_BYTES = 128 * LINE6;
     const unsigned char* line = box + p * sm90::LINE_BYTES;
@@ -967,9 +943,8 @@ __device__ __forceinline__ float split_row(const unsigned char* box, unsigned ch
     return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
-// grid as topk_pass1_sm90; qmap: planes [3 Bp, end - base], boxes [128 x
-// 32], 64-byte swizzle; gmap: fp32 rows, boxes [128 x 32], 128-byte
-// swizzle; the first lead lanes are zero in the planes, zeroed in rows.
+// grid as topk_pass1_sm90; qmap: planes, boxes [128 x 32], 64-byte swizzle;
+// gmap: fp32 rows, boxes [128 x 32], 128-byte swizzle.
 template <int K>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
@@ -999,7 +974,7 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
     const int total = n_sub * n_chunks;  // chunks of the segment, sub-tile by sub-tile
     if (tid == 0) {
         for (int s = 0; s < NST; ++s) {
-            sm90::mbar_init(&full[s], 1 + sm90::WG_THREADS);  // the query planes' TMA + every splitting thread
+            sm90::mbar_init(&full[s], 1 + sm90::WG_THREADS);
             sm90::mbar_init(&empty[s], 2);
         }
         for (int b = 0; b < NBOX; ++b) sm90::mbar_init(&landed[b], 1);
@@ -1009,8 +984,8 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
 
     const int wg = tid / sm90::WG_THREADS;
     if (wg == 2) {
-        // producer: thread 0 issues the loads, thread p splits row p (no
-        // setmaxnreg: every warp fits the launch's 168 registers).
+        // producer: thread 0 loads, thread p splits row p (no setmaxnreg: every
+        // warp fits 168 registers).
         const int p = tid - 2 * sm90::WG_THREADS;
         if (p == 0) {
             sm90::prefetch_map(&qmap);
@@ -1027,7 +1002,7 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
         for (int i = 0; i < total; ++i) {
             const int s = i % NST, b = i % NBOX;
             unsigned char* st = smem + s * T::STAGE_BYTES;
-            sm90::mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);  // the consumers are done with the stage
+            sm90::mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);
             if (p == 0) {
                 sm90::mbar_arrive_expect_tx(&full[s], 3 * T::Q_BYTES);
 #pragma unroll
@@ -1040,9 +1015,9 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
                 gsq_s[(sub % T::NGSQ) * BN + p] = gpart;
                 gpart = 0.0f;
             }
-            sm90::fence_proxy_async();  // the row planes are read by wgmma
+            sm90::fence_proxy_async();
             sm90::mbar_arrive(&full[s]);
-            sm90::named_bar_sync(BAR_PRODUCERS, sm90::WG_THREADS);  // every row of box b has been read
+            sm90::named_bar_sync(BAR_PRODUCERS, sm90::WG_THREADS);
             if (p == 0 && i + NBOX < total) {
                 const int j = i + NBOX, sj = j / n_chunks;
                 sm90::mbar_arrive_expect_tx(&landed[b], T::BOX_BYTES);
@@ -1052,7 +1027,7 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
             if (++c == n_chunks) { c = 0; ++sub; }
         }
     } else {
-        const int t = tid % sm90::WG_THREADS;  // thread in its warpgroup
+        const int t = tid % sm90::WG_THREADS;
         const SplitOut o{part_d, part_i, floor_d, floor_i, d_s, last_d_s, last_i_s, B, q0, seg, n_seg};
         SplitTopK<K> top(o, qsq_g, tid);
 
@@ -1093,8 +1068,8 @@ topk_pass1_split6_sm90(const __grid_constant__ CUtensorMap qmap, const __grid_co
     }
 }
 
-// One warp per query merges its n_seg lists: each lane inserts every
-// 32nd list, then the 32 lane lists merge over a shuffle butterfly.
+// A warp a query merges its n_seg lists: each lane every 32nd list, then a
+// shuffle butterfly.
 template <int K>
 __global__ void topk_pass2(const float* __restrict__ part_d, const int* __restrict__ part_i,
                            const uint8_t* __restrict__ row_mask, float* __restrict__ out_d,
@@ -1136,8 +1111,7 @@ __global__ void topk_pass2(const float* __restrict__ part_d, const int* __restri
     }
 }
 
-// k > 16: one warp per query merges its n_seg lists of K (each ascending)
-// into one list spread over its lanes.
+// k > 16: a warp a query merges its n_seg lists of K into one over its lanes.
 template <int K>
 __global__ void topk_pass2_lists(const float* __restrict__ part_d, const int* __restrict__ part_i,
                                  const uint8_t* __restrict__ row_mask, float* __restrict__ out_d,
@@ -1171,10 +1145,9 @@ __global__ void topk_pass2_lists(const float* __restrict__ part_d, const int* __
     }
 }
 
-// Pass 3 (after all slabs): each pick's d again as the fp32 sum of (q -
-// g)^2 over [start, end), as |q|^2 + |g|^2 - 2 q.g cancels where q and its
-// row nearly coincide; then each list sorted again by (d, row), empty
-// slots last. A block per query.
+// Pass 3, after all slabs: each pick's d again as the fp32 sum of (q - g)^2
+// over the window (the expansion cancels where q and its row nearly coincide),
+// each list sorted again, empty slots last. A block a query.
 __device__ __forceinline__ float as_f32(float x) { return x; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -1199,7 +1172,7 @@ __global__ void topk_rescore(const TQ* __restrict__ q, const TG* __restrict__ g,
     }
     __syncthreads();
     if (threadIdx.x != 0) return;
-    for (int j = 1; j < k && il[j] >= 0; ++j) {  // insertion sort: the scan's order is off only at near-ties
+    for (int j = 1; j < k && il[j] >= 0; ++j) {  // insertion sort: off only at near-ties
         const float dj = dl[j];
         const int ij = il[j];
         int p = j;
@@ -1276,8 +1249,7 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-// bf16, k > 16: topk_pass1_sm90_lists (without the floor's compare for
-// the first slab), then the list merge.
+// bf16, k > 16: topk_pass1_sm90_lists, then the list merge.
 template <int K, bool FLOOR>
 int launch_bf16_lists_as(const Args& a, cudaStream_t stream) {
     using T = ListTile;
@@ -1309,20 +1281,18 @@ int launch_bf16_lists(const Args& a, cudaStream_t stream) {
     return a.floor_d != nullptr ? launch_bf16_lists_as<K, true>(a, stream) : launch_bf16_lists_as<K, false>(a, stream);
 }
 
-// precise: splits the queries into the planes (a.planes, rows Bp a
-// plane) and |q|^2 (a.qsq).
+// precise: the query planes (rows Bp a plane) and |q|^2.
 int launch_split_queries(const Args& a, int Bp, cudaStream_t stream) {
     split_queries<<<(Bp + 7) / 8, 256, 0, stream>>>((const float*)a.q, (__nv_bfloat16*)a.planes, a.qsq, a.B, Bp,
                                                     a.D, a.start, a.end);
     return (int)cudaGetLastError();
 }
 
-// precise over bf16 rows: split the queries, then topk_pass1_split_sm90
-// and the merge of its lists.
+// precise over bf16 rows: split, topk_pass1_split_sm90, merge.
 template <int K>
 int launch_split(const Args& a, cudaStream_t stream) {
     using T = SplitTile<K>;
-    const int Bp = (a.B + QT - 1) / QT * QT;  // a query box never straddles two planes
+    const int Bp = (a.B + QT - 1) / QT * QT;
     int err = launch_split_queries(a, Bp, stream);
     if (err != 0) return err;
     // both maps start at the 8-lane (16-byte) boundary below the window
@@ -1348,16 +1318,14 @@ int launch_split(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-// precise over fp32 rows: split the queries, then topk_pass1_split6_sm90
-// and the merge of its lists.
+// precise over fp32 rows: split, topk_pass1_split6_sm90, merge.
 template <int K>
 int launch_split6(const Args& a, cudaStream_t stream) {
     using T = Split6Tile<K>;
-    const int Bp = (a.B + QT - 1) / QT * QT;  // a query box never straddles two planes
+    const int Bp = (a.B + QT - 1) / QT * QT;
     int err = launch_split_queries(a, Bp, stream);
     if (err != 0) return err;
-    // both maps start at the 8-lane boundary below the window (16 bytes of
-    // bf16, 32 of fp32)
+    // both maps start at the 8-lane boundary below the window
     const int base = a.start & ~7;
     const long cols = a.end - base;
     CUtensorMap qmap, gmap;
@@ -1379,8 +1347,7 @@ int launch_split6(const Args& a, cudaStream_t stream) {
     return launch_pass2<K>(a, stream);
 }
 
-// The pass-1 kernels of a launch: bf16 queries and rows; precise over bf16
-// rows (three products); precise over fp32 rows (six products).
+// The pass-1 kernels: bf16; precise over bf16 rows; precise over fp32 rows.
 enum class Pass { BF16, SPLIT3, SPLIT6 };
 
 template <int K, Pass P>
@@ -1429,20 +1396,16 @@ int dispatch(const Args& a, void* stream) {
 
 }  // namespace
 
-// Gallery rows per pass-1 block (one [B, n_seg, K] scratch entry each) for
-// this mode and k.
+// Gallery rows a pass-1 block for this mode and k.
 extern "C" int topk_l2_segment_rows(int precise, int k) { return segment_rows(precise != 0, k); }
 
-// Queries per bf16 pass-1 block: a row mask skips the blocks without a
-// masked one (the precise pass takes no row mask).
+// Queries a bf16 pass-1 block (a row mask skips blocks).
 extern "C" int topk_l2_query_rows() { return QT; }
 
-// Scratch size of K (the power of two >= k) the caller allocates per
-// (query, segment) for pass 1.
+// Scratch K (the power of two >= k) a (query, segment).
 extern "C" int topk_l2_list_len(int k) { return list_len(k); }
 
-// The largest k the kernels take (one launch; a larger k is scanned in
-// slabs, each above the last one's floor).
+// The largest k a launch takes (more runs in slabs).
 extern "C" int topk_l2_max_k() { return MAX_K; }
 
 // Dynamic shared memory of the split precise pass over bf16 rows at this k.
@@ -1457,8 +1420,7 @@ extern "C" int topk_l2_split_smem(int k) {
     }
 }
 
-// Dynamic shared memory of the six-product precise pass over fp32 rows at
-// this k.
+// Shared memory of the six-product pass at this k.
 extern "C" int topk_l2_split6_smem(int k) {
     switch (list_len(k)) {
         case 1: return (int)Split6Tile<1>::SMEM;
@@ -1470,14 +1432,12 @@ extern "C" int topk_l2_split6_smem(int k) {
     }
 }
 
-// q: [B, D] bf16, g: [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0;
-// both 16-byte aligned), row_mask: [B] uint8 or null (queries with 0 come
-// back empty and query tiles without a 1 skip the scan), floor_d/floor_i:
-// [B] fp32/int32 or null, k > 16 only (only (d, row) strictly after the
-// query's floor enter; an empty floor is (BIG_DIST, INT32_MAX)),
-// part_d/part_i: [B, n_seg, topk_l2_list_len(k)] scratch, out_d: [B, k]
-// fp32 raw squared distances over the window [start, end), out_i: [B, k]
-// int32. Returns a cudaError_t.
+// q, g: [B, D], [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0; 16-byte
+// aligned); row_mask: [B] uint8 or null (0: empty, tiles without a 1 skip);
+// floor_d/floor_i: [B] or null, k > 16 only (only (d, row) after the floor;
+// empty (BIG_DIST, INT32_MAX)); part_d/part_i: [B, n_seg, topk_l2_list_len(k)]
+// scratch; out_d/out_i: [B, k] raw squared distances over [start, end), rows.
+// Returns a cudaError_t.
 extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask, const void* floor_d,
                               const void* floor_i, void* part_d, void* part_i, void* out_d, void* out_i, int B,
                               int N, int n_valid, int D, int k, int n_seg, int start, int end, void* stream) {
@@ -1486,9 +1446,9 @@ extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask
     return dispatch<Pass::BF16>(a, stream);
 }
 
-// precise: q: [B, D] fp32, g: [N, D] fp32 (g_f32 = 1) or bf16 (0), planes:
-// [3, round_up(B, topk_l2_query_rows()), D] bf16 and qsq: [B] fp32
-// scratch; the rest as for topk_l2_launch, without a mask.
+// precise: q [B, D] fp32, g fp32 (g_f32) or bf16, planes [3, round_up(B,
+// topk_l2_query_rows()), D] bf16 and qsq [B] scratch; the rest as
+// topk_l2_launch, no mask.
 extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, void* planes, void* qsq,
                                       const void* floor_d, const void* floor_i, void* part_d, void* part_i,
                                       void* out_d, void* out_i, int B, int N, int n_valid, int D, int k, int n_seg,
@@ -1498,9 +1458,8 @@ extern "C" int topk_l2_precise_launch(const void* q, const void* g, int g_f32, v
     return g_f32 ? dispatch<Pass::SPLIT6>(a, stream) : dispatch<Pass::SPLIT3>(a, stream);
 }
 
-// Pass 3 in place on a scan's out_d/out_i [B, k]: q [B, D] bf16 or fp32
-// (q_f32), g [N, D] bf16 or fp32 (g_f32, fp32 queries only). Returns a
-// cudaError_t.
+// Pass 3 in place on out_d/out_i [B, k]: q bf16 or fp32 (q_f32), g bf16 or fp32
+// (g_f32, fp32 queries only).
 extern "C" int topk_l2_rescore_launch(const void* q, const void* g, int q_f32, int g_f32, void* d, void* idx, int B,
                                       int k, int D, int start, int end, void* stream) {
     if (B <= 0 || k < 1 || D <= 0 || start < 0 || start >= end || end > D || (!q_f32 && g_f32))

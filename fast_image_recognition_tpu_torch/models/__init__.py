@@ -62,9 +62,8 @@ def backbone_info(name: str) -> Dict[str, Any]:
         return _eff.backbone_info(name)
     if name.startswith("mobilenetv2"):
         width = parse_mobilenet_width(name)
-        return dict(family="mobilenetv2", variant=name, resolution=224,
-                    embedding_dim=_make_divisible(1280 * max(width, 1.0)), taps=default_taps_mobilenet(width),
-                    preprocess="tf")
+        return dict(family="mobilenetv2", variant=name, resolution=224, embedding_dim=_make_divisible(1280 * max(width,
+                    1.0)), taps=default_taps_mobilenet(width), preprocess="tf")
     facts = {"mobilenetv1": ("mobilenetv1", 224, 1024, default_taps_mobilenet_v1, "tf"),
              _IRV2: (_IRV2, 299, INCEPTION_RESNET_EMBED_DIM, default_taps_inception_resnet, "tf"),
              "inception_v3": ("inception_v3", 299, INCEPTION_V3_EMBED_DIM, default_taps_inception_v3, "tf"),

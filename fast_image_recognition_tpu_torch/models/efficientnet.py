@@ -1,8 +1,6 @@
-"""EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the plan and the
-module at inference (bf16 convs, TF 'SAME' pads, BN in fp32, fp32 weights
-cast at each call); flax numpy trees in and out; ``train=True`` raises."""
-
-from __future__ import annotations
+"""EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the plan and the trainable
+module (bf16 convs, TF 'SAME' pads, BN in fp32; train mode with stochastic
+depth, dropout and ``remat``); flax numpy trees in and out."""
 
 import dataclasses
 import math
@@ -12,16 +10,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import ZooNet, _BatchNorm, _pool, create
+from fast_image_recognition_tpu_torch.models.zoo import ZooNet, _BatchNorm, _pool, batch_stats, create, keep_mask
 
-# torchvision-style ImageNet normalization on 0..255 inputs
-# (dnn_feature_extractor.py:116-119 in the reference)
+# torchvision's normalization on 0..255 (dnn_feature_extractor.py:116-119)
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
-# Keras "tf"-mode preprocess_input (x/127.5 - 1), the MobileNet(V2) /
-# Inception* / ResNetV2 members' preprocess
+# Keras 'tf' mode (x/127.5 - 1): MobileNets, Inceptions, ResNetV2
 TF_MODE_MEAN = (127.5, 127.5, 127.5)
 TF_MODE_STD = (127.5, 127.5, 127.5)
 
@@ -34,27 +31,13 @@ class Variant:
     dropout: float
 
 
-VARIANTS: Dict[str, Variant] = {
-    "b0": Variant(1.0, 1.0, 224, 0.2),
-    "b1": Variant(1.0, 1.1, 240, 0.2),
-    "b2": Variant(1.1, 1.2, 260, 0.3),
-    "b3": Variant(1.2, 1.4, 300, 0.3),
-    "b4": Variant(1.4, 1.8, 380, 0.4),
-    "b5": Variant(1.6, 2.2, 456, 0.4),
-    "b6": Variant(1.8, 2.6, 528, 0.5),
-    "b7": Variant(2.0, 3.1, 600, 0.5),
-}
+VARIANTS: Dict[str, Variant] = {"b0": Variant(1.0, 1.0, 224, 0.2), "b1": Variant(1.0, 1.1, 240, 0.2),
+    "b2": Variant(1.1, 1.2, 260, 0.3), "b3": Variant(1.2, 1.4, 300, 0.3), "b4": Variant(1.4, 1.8, 380, 0.4),
+    "b5": Variant(1.6, 2.2, 456, 0.4), "b6": Variant(1.8, 2.6, 528, 0.5), "b7": Variant(2.0, 3.1, 600, 0.5)}
 
 # (kernel, stride, expand, in_filters, out_filters, repeats, se_ratio)
-_BASE_BLOCKS = (
-    (3, 1, 1, 32, 16, 1, 0.25),
-    (3, 2, 6, 16, 24, 2, 0.25),
-    (5, 2, 6, 24, 40, 2, 0.25),
-    (3, 2, 6, 40, 80, 3, 0.25),
-    (5, 1, 6, 80, 112, 3, 0.25),
-    (5, 2, 6, 112, 192, 4, 0.25),
-    (3, 1, 6, 192, 320, 1, 0.25),
-)
+_BASE_BLOCKS = ((3, 1, 1, 32, 16, 1, 0.25), (3, 2, 6, 16, 24, 2, 0.25), (5, 2, 6, 24, 40, 2, 0.25),
+    (3, 2, 6, 40, 80, 3, 0.25), (5, 1, 6, 80, 112, 3, 0.25), (5, 2, 6, 112, 192, 4, 0.25), (3, 1, 6, 192, 320, 1, 0.25))
 
 
 def round_filters(filters: int, width: float, divisor: int = 8) -> int:
@@ -77,26 +60,13 @@ def block_plan(variant: str) -> List[Dict[str, Any]]:
         fi = round_filters(fi, v.width)
         fo = round_filters(fo, v.width)
         for i in range(round_repeats(r, v.depth)):
-            plan.append(
-                dict(
-                    name=f"block{stage}{chr(ord('a') + i)}",
-                    kernel=k,
-                    stride=s if i == 0 else 1,
-                    expand=e,
-                    in_filters=fi if i == 0 else fo,
-                    out_filters=fo,
-                    se_ratio=se,
-                    stage=stage,
-                    activation="swish",
-                )
-            )
+            plan.append(dict(name=f"block{stage}{chr(ord('a') + i)}", kernel=k, stride=s if i == 0 else 1, expand=e,
+                        in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=se, stage=stage, activation="swish"))
     return plan
 
 
-_TAP_PRESETS = {
-    "deep": ((5, (0.15, 0.6)), (6, (0.1, 0.45)), (7, (0.0,))),
-    "early": ((3, (0.0,)), (4, (0.0,)), (5, (0.0, 0.6)), (6, (0.45,)), (7, (0.0,))),
-}
+_TAP_PRESETS = {"deep": ((5, (0.15, 0.6)), (6, (0.1, 0.45)), (7, (0.0,))),
+    "early": ((3, (0.0,)), (4, (0.0,)), (5, (0.0, 0.6)), (6, (0.45,)), (7, (0.0,)))}
 
 
 def default_taps(variant: str, preset: str = "deep") -> List[str]:
@@ -115,39 +85,25 @@ def default_taps(variant: str, preset: str = "deep") -> List[str]:
 
 
 def backbone_info(name: str) -> Dict[str, Any]:
-    """Static facts the serving surface needs (``models/__init__.py``
-    ``backbone_info`` of the JAX package, EfficientNet family only)."""
+    """Static facts of an EfficientNet (JAX ``backbone_info``)."""
     if name not in VARIANTS:
         raise NotImplementedError(f"backbone {name!r} is not ported yet")
     v = VARIANTS[name]
-    return dict(
-        family="efficientnet",
-        variant=name,
-        resolution=v.resolution,
-        embedding_dim=round_filters(1280, v.width),
-        taps=default_taps(name),
-        preprocess="torch",
-    )
+    return dict(family="efficientnet", variant=name, resolution=v.resolution,
+        embedding_dim=round_filters(1280, v.width), taps=default_taps(name), preprocess="torch")
 
 
 def _resize(images: torch.Tensor, resolution: Optional[int]) -> torch.Tensor:
-    """fp32 NHWC, resized where the size differs (``F.interpolate(antialias=True)``,
-    as ``jax.image.resize(method='bilinear')`` shrinks)."""
+    """fp32 NHWC, resized where the size differs (antialiased, as ``jax.image.resize`` shrinks)."""
     x = images.to(torch.float32)
     if resolution is not None and (x.shape[1] != resolution or x.shape[2] != resolution):
-        x = F.interpolate(
-            x.permute(0, 3, 1, 2), size=(resolution, resolution), mode="bilinear",
-            align_corners=False, antialias=True,
-        ).permute(0, 2, 3, 1)
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(resolution, resolution), mode="bilinear",
+            align_corners=False, antialias=True).permute(0, 2, 3, 1)
     return x
 
 
-def preprocess_images(
-    images: torch.Tensor,
-    resolution: Optional[int] = None,
-    mean: Sequence[float] = MEAN_RGB,
-    std: Sequence[float] = STDDEV_RGB,
-) -> torch.Tensor:
+def preprocess_images(images: torch.Tensor, resolution: Optional[int] = None, mean: Sequence[float] = MEAN_RGB,
+    std: Sequence[float] = STDDEV_RGB) -> torch.Tensor:
     """uint8/float NHWC ``[B, H, W, 3]`` -> normalized fp32 NHWC, resized first."""
     x = _resize(images, resolution)
     m = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
@@ -155,8 +111,7 @@ def preprocess_images(
     return (x - m) / s
 
 
-# Keras 'caffe'-mode preprocess_input (RGB -> BGR, ImageNet means, no std):
-# VGG19 and ResNet50 v1
+# Keras 'caffe' mode (RGB -> BGR less the ImageNet means): VGG19, ResNet50
 CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
 
 
@@ -188,8 +143,7 @@ def _act(name: str):
 
 
 class _Conv(nn.Module):
-    """flax ``nn.Conv`` with ``'SAME'`` padding; the weight is OIHW fp32
-    (flax keeps HWIO), cast to the input's dtype at each call."""
+    """flax ``nn.Conv`` with ``'SAME'`` pads; the OIHW fp32 weight cast to the input's dtype at each call."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1, bias: bool = False):
         super().__init__()
@@ -206,10 +160,8 @@ class _Conv(nn.Module):
 
 
 def _conv_bn(conv: _Conv, bn: _BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """``bn(conv(x))`` as XLA runs it: the conv's fp32 result enters the BN
-    unrounded, rounded once after it to ``x``'s dtype (a rounding between
-    them doubled the folded-vs-unfolded gap of the bf16 module). No BN: a
-    folded conv, its bias added before the one rounding."""
+    """``bn(conv(x))`` as XLA runs it: the conv's fp32 result into the BN, rounded once after it (a rounding between
+    doubled the fold gap). No BN: a folded conv."""
     return conv(x) if bn is None else bn(conv(x, fp32_out=True), x.dtype)
 
 
@@ -226,8 +178,7 @@ class SqueezeExcite(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Inverted-residual block: expand 1x1 -> depthwise -> (SE) -> project
-    1x1 with a linear bottleneck, and the residual where the shape keeps."""
+    """Inverted residual: expand 1x1, depthwise, (SE), project 1x1, the residual where the shape keeps."""
 
     def __init__(self, cfg: Dict[str, Any], hidden_filters: Optional[int] = None):
         super().__init__()
@@ -245,7 +196,7 @@ class MBConv(nn.Module):
         self.project_bn = _BatchNorm(fo)
         self.residual = stride == 1 and fi == fo
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, keep: float = 1.0) -> torch.Tensor:
         h = x
         if self.has_expand:
             h = self.act(_conv_bn(self.expand_conv, self.expand_bn, h))
@@ -253,33 +204,41 @@ class MBConv(nn.Module):
         if self.se is not None:
             h = self.se(h)
         h = _conv_bn(self.project_conv, self.project_bn, h)
+        if mask is not None:
+            h = drop_path(h, mask, keep)
         return h + x if self.residual else h
 
 
-class EfficientNet(ZooNet):
-    """EfficientNet backbone with segment execution and exit taps
-    (``num_classes=0``: the pooled-embedding extractor)."""
+def drop_path(h: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """Stochastic depth (JAX :229-235): kept rows ``h / keep`` in ``h``'s dtype, the rest 0."""
+    return torch.where(mask[:, None, None, None], h / keep, 0.0).to(h.dtype)
 
-    def __init__(
-        self,
-        variant: str = "b0",
-        num_classes: int = 0,
-        dtype: torch.dtype = torch.bfloat16,
-        hidden_overrides: Optional[Dict[str, int]] = None,
-    ):
+
+def _remat_block(blk: nn.Module, h: torch.Tensor, mask, keep: float) -> torch.Tensor:
+    # recomputed in the backward pass, after ZooNet.forward's train mode has ended
+    with batch_stats(blk, commit=False):
+        return blk(h) if mask is None else blk(h, mask, keep)
+
+
+class EfficientNet(ZooNet):
+    """EfficientNet with segments and taps (``num_classes=0``: the extractor). Train mode keeps block i's residual with
+    probability ``1 - drop_connect * i / n`` (``drop_masks(i, batch)`` replays masks); ``remat`` recomputes blocks in
+    the backward pass."""
+
+    drop_connect, drop_masks, remat = 0.2, None, False
+
+    def __init__(self, variant: str = "b0", num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
+        hidden_overrides: Optional[Dict[str, int]] = None, remat: bool = False):
         super().__init__()
         v = VARIANTS[variant]
-        self.variant, self.resolution = variant, v.resolution
+        self.variant, self.resolution, self.remat, self.drop_rate = variant, v.resolution, remat, v.dropout
         self._build(block_plan(variant), round_filters(32, v.width), round_filters(1280, v.width), num_classes, dtype,
                     hidden_overrides)
 
     def _build(self, plan, stem_filters: int, head_filters: Optional[int], num_classes: int, dtype: torch.dtype,
                hidden_overrides=None, block=None, activation: Optional[str] = None, folded: bool = False) -> None:
-        """The layers of a plan: stem conv + BN, ``block(cfg, hidden)``
-        (default ``MBConv``) per config, the head conv + BN (none where
-        ``head_filters`` is None) and the dense layer; ``activation`` (default
-        the plan's) at the stem and the head; ``folded``: a stem conv with
-        its BN as a bias."""
+        """Stem conv + BN, ``block(cfg, hidden)`` a config, head conv + BN (unless
+        None), the dense layer; ``folded``: the stem's BN as a bias."""
         self.num_classes = int(num_classes)
         self.dtype = dtype
         self.hidden_overrides = dict(hidden_overrides or {})
@@ -295,6 +254,16 @@ class EfficientNet(ZooNet):
             self.head_bn = _BatchNorm(head_filters)
             feat = head_filters
         self.fc = nn.Linear(feat, self.num_classes) if self.num_classes > 0 else None
+        self.last_masks: Dict[int, torch.Tensor] = {}
+
+    def _block(self, i: int, h: torch.Tensor, train: bool, rng) -> torch.Tensor:
+        blk, keep, mask = self.blocks[i], 1.0 - self.drop_connect * i / len(self.plan), None
+        if train and getattr(blk, "residual", False) and keep < 1.0:
+            mask = self.drop_masks(i, h.shape[0]) if self.drop_masks else keep_mask(h.shape[0], keep, rng, h.device)
+            self.last_masks[i] = mask
+        if train and self.remat:
+            return checkpoint(_remat_block, blk, h, mask, keep, use_reentrant=False)
+        return blk(h) if mask is None else blk(h, mask, keep)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the stem's activation (NCHW, channels_last)."""
@@ -309,8 +278,7 @@ class EfficientNet(ZooNet):
         named = [(("stem_conv",), self.stem_conv), (("stem_bn",), self.stem_bn)]
         for cfg, blk in zip(self.plan, self.blocks):
             named += [((cfg["name"], n), getattr(blk, n, None)) for n in ("expand_conv", "expand_bn", "dw_conv",
-                                                                          "dw_bn", "project_conv", "project_bn",
-                                                                          "pw_conv", "pw_bn")]
+                      "dw_bn", "project_conv", "project_bn", "pw_conv", "pw_bn")]
             if getattr(blk, "se", None) is not None:
                 named += [((cfg["name"], "se", "reduce"), blk.se.reduce), ((cfg["name"], "se", "expand"), blk.se.expand)]
         named += [(("head_conv",), self.head_conv), (("head_bn",), self.head_bn)]
@@ -319,17 +287,9 @@ class EfficientNet(ZooNet):
                 yield (path, None, m) if isinstance(m, _Conv) else (None, path, m)
 
 
-def create_efficientnet(
-    variant: str = "b0",
-    num_classes: int = 0,
-    seed: int = 0,
-    resolution: Optional[int] = None,
-    dtype: torch.dtype = torch.bfloat16,
-    device: DeviceLike = None,
-):
-    """Build the module with flax's default init drawn from ``seed`` and
-    return ``(model on device, its flax-layout numpy variables)``. The
-    module takes any resolution; ``resolution`` (default the variant's) is
-    kept on it as ``model.resolution``."""
+def create_efficientnet(variant: str = "b0", num_classes: int = 0, seed: int = 0, resolution: Optional[int] = None,
+    dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+    """``(model on device, flax-layout numpy variables)``, flax's default init
+    from ``seed``; ``resolution`` (default the variant's) kept on the model."""
     model = EfficientNet(variant=variant, num_classes=num_classes, dtype=dtype)
     return create(model, seed, resolution or VARIANTS[variant].resolution, device)

@@ -1,10 +1,7 @@
-"""Variables-level BN fold and the serving entry (JAX ``models/fold.py``):
-``fold_variables`` folds each BN into the conv that feeds it (``bn`` ->
-``conv``) in fp64, leaving the BN neutral (a BN with no conv keeps its
-affine map); ``fold_tf_preprocess_into_valid_stem`` folds ``x/127.5 - 1``
-into a VALID stem, exactly: ``conv(x, W/127.5) - sum(W)``."""
-
-from __future__ import annotations
+"""BN fold of variables and the serving entry (JAX ``models/fold.py``):
+``fold_variables`` folds each BN into its conv in fp64 (a lone BN keeps its
+affine map); ``fold_tf_preprocess_into_valid_stem``: ``conv(x, W/127.5) -
+sum(W)``."""
 
 from typing import Any, Dict, Optional, Sequence
 
@@ -13,16 +10,8 @@ import torch
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import (
-    CAFFE_MEAN_BGR,
-    MEAN_RGB,
-    STDDEV_RGB,
-    TF_MODE_MEAN,
-    TF_MODE_STD,
-    EfficientNet,
-    preprocess_images,
-    preprocess_images_caffe,
-)
+from fast_image_recognition_tpu_torch.models.efficientnet import (CAFFE_MEAN_BGR, MEAN_RGB, STDDEV_RGB, TF_MODE_MEAN,
+    TF_MODE_STD, EfficientNet, preprocess_images, preprocess_images_caffe)
 from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
 from fast_image_recognition_tpu_torch.models.inception_v3 import InceptionV3
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
@@ -50,8 +39,7 @@ def _to_plain(node):
 
 
 def fold_variables(model, variables, eps: Optional[float] = None):
-    """New ``{'params', 'batch_stats'}`` numpy trees of the same structure
-    with every BN folded (JAX ``fold_variables``, :79-148)."""
+    """New numpy trees with every BN folded (JAX :79-148)."""
     if eps is None:
         eps = bn_fold_eps(model)
     if "batch_stats" not in variables:
@@ -96,8 +84,7 @@ def _bn_bias_to_conv(params):
     return params
 
 
-def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("stem", "conv1"),
-                                       scale: float = 127.5):
+def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("stem", "conv1"), scale: float = 127.5):
     """Fold ``x/scale - 1`` into the VALID stem conv of a tree that
     ``fold_variables`` already folded (JAX :151-182)."""
     params = _to_plain(variables["params"])
@@ -112,17 +99,15 @@ def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("s
 
 
 class ServingModule(nn.Module):
-    """Raw uint8 NHWC images -> ``{'embedding', 'taps'}`` through ``net``:
-    resized to ``resolution`` where the size differs, normalized with
-    ``mean``/``std`` unless the preprocess is folded into the stem
-    (``mean=None``); ``bgr``: the 'caffe' mode (BGR less ``mean``)."""
+    """uint8 NHWC -> ``{'embedding', 'taps'}`` through ``net``: resized, normalized with ``mean``/``std`` unless folded
+    (``mean=None``); ``bgr``: 'caffe'."""
 
     def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None,
                  bgr: bool = False):
         super().__init__()
         self.net, self.resolution, self.taps, self.normalize = net, int(resolution), tuple(taps), mean is not None
         self.bgr = bgr
-        # on the module's device: a constant made per call would be a host-to-device copy, a host sync
+        # on the device: one made per call would be a host sync
         self.register_buffer("mean", torch.tensor(mean or (0.0,) * 3, dtype=torch.float32))
         self.register_buffer("std", torch.tensor(std or (1.0,) * 3, dtype=torch.float32))
 
@@ -145,19 +130,11 @@ def _bf16_convs(net: nn.Module, dev) -> nn.Module:
     return net
 
 
-def make_serving_fn(
-    variables: Dict[str, Any],
-    info: Dict[str, Any],
-    resolution: Optional[int] = None,
-    taps: Sequence[str] = (),
-    device: DeviceLike = None,
-    folded: bool = True,
-) -> nn.Module:
-    """The serving module on ``device`` for a zoo member's numpy variables
-    (JAX :185-255): MBConv families by :func:`make_infer_fn`, the rest
-    through ``fold_variables`` (InceptionResNetV2 and InceptionV3 with the
-    'tf' preprocess in their VALID stem; ResNet and MobileNetV1 with it
-    explicit; VGG19, no BN, with 'caffe'); ``folded=False`` keeps BN."""
+def make_serving_fn(variables: Dict[str, Any], info: Dict[str, Any], resolution: Optional[int] = None,
+    taps: Sequence[str] = (), device: DeviceLike = None, folded: bool = True) -> nn.Module:
+    """The serving module for a zoo member's numpy variables (JAX :185-255): MBConv by :func:`make_infer_fn`, the rest
+    by ``fold_variables`` (Inceptions: 'tf' in the stem; ResNet, MobileNetV1 explicit; VGG19 'caffe'); ``folded=False``
+    keeps BN."""
     family, dev = info.get("family"), resolve_device(device)
     res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")

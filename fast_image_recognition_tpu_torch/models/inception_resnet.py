@@ -3,25 +3,14 @@
 ``models/zoo.py``; ``folded=True``: each conv carries its folded BN as a
 bias (``models/fold.py``)."""
 
-from __future__ import annotations
-
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import (
-    _V,
-    ConvBN,
-    ZooNet,
-    _Block,
-    _pool,
-    branch_layers,
-    create,
-    run_stem,
-    stem_convs,
-)
+from fast_image_recognition_tpu_torch.models.zoo import (_V, ConvBN, ZooNet, _Block, _pool, branch_layers, create,
+    run_stem, stem_convs)
 
 INCEPTION_RESNET_EMBED_DIM = 1536
 
@@ -52,8 +41,9 @@ def default_taps_inception_resnet() -> List[str]:
 
 
 class InceptionResNetV2(ZooNet):
-    """``num_classes=0``: the pooled 1536-d extractor; ``head_conv`` is
-    ``conv_7b``."""
+    """``num_classes=0``: the pooled 1536-d extractor; ``head_conv`` is ``conv_7b``."""
+
+    drop_rate = 0.2
 
     def __init__(self, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16, folded: bool = False):
         super().__init__()

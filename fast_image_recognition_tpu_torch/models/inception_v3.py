@@ -1,9 +1,6 @@
-"""InceptionV3, the 2048-d zoo member (JAX ``models/inception_v3.py``):
-the VALID Inception stem, then the 35x35 (mixed0-2), 17x17 (mixed4-7) and
-8x8 (mixed9-10) blocks and the two grid reductions, as branch tables over
+"""InceptionV3, 2048-d (JAX ``models/inception_v3.py``): the VALID stem, the
+35x35, 17x17 and 8x8 blocks and the two reductions as branch tables over
 ``models/zoo.py``'s ``_Block`` (a pool branch's conv is ``bp``)."""
-
-from __future__ import annotations
 
 from typing import Any, Dict, List
 
@@ -53,6 +50,8 @@ def _spec(cfg):
 
 class InceptionV3(ZooNet):
     """``num_classes=0``: the pooled 2048-d extractor (no head conv)."""
+
+    drop_rate = 0.2
 
     def __init__(self, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16, folded: bool = False):
         super().__init__()

@@ -1,10 +1,7 @@
-"""Folded serving forward of the MBConv families (JAX
-``models/inference.py``): BN folded into the convs in fp64, the ``(x -
-mean) / std`` preprocess into the stem (exact at the SAME borders by a
-correction map), ``fused=True``: stride-1 blocks on the fused MBConv
-kernel. NCHW in ``channels_last``, explicit TF "SAME" pads."""
-
-from __future__ import annotations
+"""Folded serving forward of the MBConv families (JAX ``models/inference.py``): BN
+folded in fp64, the preprocess into the stem (exact at SAME borders by a
+correction map), ``fused=True``: stride-1 blocks on the fused kernel. NCHW
+``channels_last``, TF "SAME" pads."""
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -14,15 +11,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import (
-    MEAN_RGB,
-    STDDEV_RGB,
-    VARIANTS,
-    _act,
-    _same_pad,
-    block_plan,
-    preprocess_images,
-)
+from fast_image_recognition_tpu_torch.models.efficientnet import (MEAN_RGB, STDDEV_RGB, VARIANTS, _act, _same_pad,
+    block_plan, preprocess_images)
 from fast_image_recognition_tpu_torch.models.mobilenet import mobilenet_plan, parse_mobilenet_width
 from fast_image_recognition_tpu_torch.ops.mbconv_kernel import mbconv, prepare_params
 
@@ -32,9 +22,7 @@ _BN_EPS = 1e-3
 def _fold_conv_bn(kernel, bn_scale, bn_bias, bn_mean, bn_var, dtype):
     """Fold an inference BatchNorm into the conv that feeds it (float64)."""
     k = np.asarray(kernel, np.float64)
-    s = np.asarray(bn_scale, np.float64) / np.sqrt(
-        np.asarray(bn_var, np.float64) + _BN_EPS
-    )
+    s = np.asarray(bn_scale, np.float64) / np.sqrt(np.asarray(bn_var, np.float64) + _BN_EPS)
     b = np.asarray(bn_bias, np.float64) - np.asarray(bn_mean, np.float64) * s
     return (
         torch.from_numpy(k * s).to(dtype),  # scales the output-channel axis
@@ -43,8 +31,7 @@ def _fold_conv_bn(kernel, bn_scale, bn_bias, bn_mean, bn_var, dtype):
 
 
 def mbconv_plan(variant: str) -> Tuple[List[Dict[str, Any]], int]:
-    """(block plan, default resolution) of an MBConv zoo name: 'b0'-'b7' or
-    'mobilenetv2[_W]'."""
+    """(block plan, default resolution) of an MBConv zoo name: 'b0'-'b7' or 'mobilenetv2[_W]'."""
     if variant.startswith("mobilenetv2"):
         return mobilenet_plan(parse_mobilenet_width(variant)), 224
     return block_plan(variant), VARIANTS[variant].resolution
@@ -53,19 +40,14 @@ def mbconv_plan(variant: str) -> Tuple[List[Dict[str, Any]], int]:
 def fold_backbone(
     variables: Dict[str, Any], variant, dtype: torch.dtype = torch.bfloat16
 ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
-    """``{'params', 'batch_stats'}`` numpy trees (``utils.checkpoint``) and
-    an MBConv zoo name or a block plan (``model.plan_configs()``) ->
-    (folded tensors in the JAX layout: HWIO kernels, [C, S] SE denses;
-    static block configs)."""
+    """numpy ``params``/``batch_stats`` and an MBConv zoo name or plan -> (folded
+    tensors in JAX's layout, static block configs)."""
     plan = mbconv_plan(variant)[0] if isinstance(variant, str) else variant
     params = variables["params"]
     stats = variables["batch_stats"]
 
     def conv_bn(bp, bs, conv, bn):
-        return _fold_conv_bn(
-            bp[conv]["kernel"], bp[bn]["scale"], bp[bn]["bias"],
-            bs[bn]["mean"], bs[bn]["var"], dtype,
-        )
+        return _fold_conv_bn(bp[conv]["kernel"], bp[bn]["scale"], bp[bn]["bias"], bs[bn]["mean"], bs[bn]["var"], dtype)
 
     folded: Dict[str, Any] = {}
     folded["stem_w"], folded["stem_b"] = conv_bn(params, stats, "stem_conv", "stem_bn")
@@ -89,17 +71,9 @@ def fold_backbone(
             entry["b_se2"] = torch.tensor(np.asarray(se["expand"]["bias"]), dtype=torch.float32)
         entry["w_proj"], entry["b_proj"] = conv_bn(bp, bs, "project_conv", "project_bn")
         blocks.append(entry)
-        configs.append(
-            dict(
-                name=name,
-                kernel=cfg["kernel"],
-                stride=cfg["stride"],
-                has_expand=has_expand,
-                has_se=has_se,
-                activation=cfg.get("activation", "swish"),
-                residual=cfg["stride"] == 1 and cfg["in_filters"] == cfg["out_filters"],
-            )
-        )
+        configs.append(dict(name=name, kernel=cfg["kernel"], stride=cfg["stride"], has_expand=has_expand, has_se=has_se,
+                       activation=cfg.get("activation", "swish"),
+                       residual=cfg["stride"] == 1 and cfg["in_filters"] == cfg["out_filters"]))
     folded["blocks"] = blocks
     return folded, configs
 
@@ -114,17 +88,9 @@ def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
     return w.contiguous(memory_format=torch.channels_last)
 
 
-def fold_preprocess_into_stem(
-    folded: Dict[str, Any],
-    resolution: int,
-    dtype: torch.dtype = torch.bfloat16,
-    mean: Optional[Sequence[float]] = None,
-    std: Optional[Sequence[float]] = None,
-) -> Dict[str, Any]:
-    """Adds ``stem_pp_w`` (HWIO, scaled by 1/std) and ``stem_pp_corr``
-    ([1, R/2, R/2, C] fp32): conv((x-m)/s, W) == conv(x, W/s) - conv(m, W/s).
-    ``mean``/``std`` default to MEAN_RGB/STDDEV_RGB (TF_MODE_* for the
-    Keras 'tf'-mode families)."""
+def fold_preprocess_into_stem(folded: Dict[str, Any], resolution: int, dtype: torch.dtype = torch.bfloat16,
+    mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None) -> Dict[str, Any]:
+    """``stem_pp_w`` (scaled by 1/std) and ``stem_pp_corr``: conv((x-m)/s, W) == conv(x, W/s) - conv(m, W/s)."""
     std = torch.tensor(STDDEV_RGB if std is None else std, dtype=torch.float32)
     mean = torch.tensor(MEAN_RGB if mean is None else mean, dtype=torch.float32)
     w = folded["stem_w"].to(torch.float32)  # [3, 3, 3, C], dtype-rounded
@@ -138,10 +104,8 @@ def fold_preprocess_into_stem(
 
 
 def fold_stem_space_to_depth(folded: Dict[str, Any], resolution: int) -> Dict[str, Any]:
-    """The preprocess-folded stride-2 3x3 stem as a stride-1 2x2 conv over
-    12-channel half-resolution blocks (``stem_s2d_w`` [2, 2, 12, C]):
-    ``K2[p, q, (r, s, c), o] = Wpad[2p + r, 2q + s, c, o]``, input channel
-    ``(r*2+s)*3+c``. Exact at even resolutions; opt-in, as in JAX."""
+    """The folded stride-2 3x3 stem as a stride-1 2x2 conv over 12-channel blocks (``stem_s2d_w``): ``K2[p, q, (r, s,
+    c), o] = Wpad[2p + r, 2q + s, c, o]``. Exact at even resolutions; opt-in."""
     if resolution % 2:
         return folded
     w = folded["stem_pp_w"]  # [3, 3, 3, C]
@@ -193,9 +157,7 @@ class _FoldedBlock(nn.Module):
 
 
 class _FusedBlock(nn.Module):
-    """One stride-1 MBConv block through ``ops.mbconv_kernel.mbconv``: the
-    fused CUDA kernel on the card, its plain version on the CPU. It runs
-    in bf16, the kernel's type, and returns the module's dtype."""
+    """A stride-1 block through ``ops.mbconv_kernel.mbconv`` (the kernel on the card, plain on the CPU), in bf16."""
 
     def __init__(self, p: Dict[str, torch.Tensor], cfg: Dict[str, Any]):
         super().__init__()
@@ -214,22 +176,12 @@ class _FusedBlock(nn.Module):
 
 
 class FoldedEfficientNet(nn.Module):
-    """BN- and preprocess-folded MBConv backbone: raw uint8 NHWC images ->
-    ``{'embedding', 'taps'}`` (another size is resized and normalized
-    first); :meth:`stem`, :meth:`run_blocks` and :meth:`head` are the
-    cascade's segments. ``activation`` (stem, head) defaults to the plan's."""
+    """BN- and preprocess-folded MBConv backbone: uint8 NHWC -> ``{'embedding', 'taps'}`` (another size resized first);
+    ``stem``, ``run_blocks``, ``head``: the cascade's segments."""
 
-    def __init__(
-        self,
-        folded: Dict[str, Any],
-        configs: List[Dict[str, Any]],
-        resolution: int,
-        taps: Sequence[str] = (),
-        fused: bool = False,
-        mean: Optional[Sequence[float]] = None,
-        std: Optional[Sequence[float]] = None,
-        activation: Optional[str] = None,
-    ):
+    def __init__(self, folded: Dict[str, Any], configs: List[Dict[str, Any]], resolution: int, taps: Sequence[str] = (),
+        fused: bool = False, mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None,
+        activation: Optional[str] = None):
         super().__init__()
         self.act = _act(activation or configs[0].get("activation", "swish"))
         self.resolution = int(resolution)
@@ -248,9 +200,7 @@ class FoldedEfficientNet(nn.Module):
             self.register_buffer("stem_corr", corr.contiguous(memory_format=torch.channels_last))
         if self.space_to_depth:
             self.register_buffer("stem_s2d_w", _oihw(folded["stem_s2d_w"]))
-        self.blocks = nn.ModuleList(
-            _FoldedBlock(p, c) for p, c in zip(folded["blocks"], configs)
-        )
+        self.blocks = nn.ModuleList(_FoldedBlock(p, c) for p, c in zip(folded["blocks"], configs))
         self.fused_blocks = nn.ModuleDict(
             {str(i): _FusedBlock(p, c) for i, (p, c) in enumerate(zip(folded["blocks"], configs))
              if fused and c["stride"] == 1}
@@ -278,9 +228,7 @@ class FoldedEfficientNet(nn.Module):
         return self.act(_conv(x, self.stem_w, self.stem_b, stride=2))
 
     def raw_stem(self, images: torch.Tensor) -> torch.Tensor:
-        """NHWC images as given, neither resized nor normalized -> the
-        stem's activation (``folded_stem``; the early-exit engine's
-        level 0, whose inputs are the trainable module's)."""
+        """Images as given -> the stem's activation (the engine's level 0)."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         return self.act(_conv(x, self.stem_w, self.stem_b, stride=2))
 
@@ -291,8 +239,7 @@ class FoldedEfficientNet(nn.Module):
         return h
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Head conv + activation + fp32 global mean pool -> ``[B, F]``
-        (``folded_head``)."""
+        """Head conv + activation + fp32 global mean pool -> ``[B, F]`` (``folded_head``)."""
         h = self.act(_conv(h, self.head_w, self.head_b))
         return h.to(torch.float32).mean(dim=(2, 3))
 
@@ -306,25 +253,12 @@ class FoldedEfficientNet(nn.Module):
         return {"embedding": self.head(h), "taps": taps}
 
 
-def make_infer_fn(
-    variables: Dict[str, Any],
-    variant: str = "b0",
-    taps: Sequence[str] = (),
-    resolution: Optional[int] = None,
-    dtype: torch.dtype = torch.bfloat16,
-    fold_preprocess: bool = True,
-    mean: Optional[Sequence[float]] = None,
-    std: Optional[Sequence[float]] = None,
-    fused: bool = False,
-    space_to_depth: bool = False,
-    device: DeviceLike = None,
-    activation: Optional[str] = None,
-) -> FoldedEfficientNet:
-    """Fold numpy ``params``/``batch_stats`` into the serving module on
-    ``device`` (JAX ``make_infer_fn``'s ``(fn, folded)`` in one module).
-    ``variant``: 'b0'-'b7' or 'mobilenetv2[_W]'; ``mean``/``std`` default
-    MEAN_RGB/STDDEV_RGB; ``fused``: stride-1 blocks on the fused kernel;
-    ``space_to_depth``: the s2d stem."""
+def make_infer_fn(variables: Dict[str, Any], variant: str = "b0", taps: Sequence[str] = (),
+    resolution: Optional[int] = None, dtype: torch.dtype = torch.bfloat16, fold_preprocess: bool = True,
+    mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None, fused: bool = False,
+    space_to_depth: bool = False, device: DeviceLike = None, activation: Optional[str] = None) -> FoldedEfficientNet:
+    """numpy ``params``/``batch_stats`` -> the serving module on ``device`` (JAX's ``(fn, folded)`` in one).
+    ``variant`` 'b0'-'b7' or 'mobilenetv2[_W]'; ``fused``: the fused kernel; ``space_to_depth``: the s2d stem."""
     dev = resolve_device(device)
     plan, default_res = mbconv_plan(variant)
     folded, configs = fold_backbone(variables, plan, dtype=dtype)
@@ -333,6 +267,5 @@ def make_infer_fn(
         folded = fold_preprocess_into_stem(folded, res, dtype=dtype, mean=mean, std=std)
         if space_to_depth:
             folded = fold_stem_space_to_depth(folded, res)
-    module = FoldedEfficientNet(folded, configs, res, taps=taps, fused=fused, mean=mean, std=std,
-                                activation=activation)
+    module = FoldedEfficientNet(folded, configs, res, taps=taps, fused=fused, mean=mean, std=std, activation=activation)
     return module.to(dev).eval()

@@ -1,9 +1,6 @@
-"""MobileNetV2 and MobileNetV1 (JAX ``models/mobilenet.py:46-369``): the
-plans, taps and modules at inference in the idiom of ``efficientnet.py``
-(MobileNetV2 is its ``MBConv`` with relu6 and no SE); flax-layout numpy
-trees in and out; ``train=True`` raises."""
-
-from __future__ import annotations
+"""MobileNetV2 and V1 (JAX ``models/mobilenet.py``): plans, taps and modules in
+``efficientnet.py``'s idiom (V2 is its ``MBConv``, relu6, no SE); flax numpy
+trees in and out."""
 
 import functools
 from typing import Any, Dict, List, Optional
@@ -12,16 +9,8 @@ import torch
 from torch import nn
 
 from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import (
-    EfficientNet,
-    _act,
-    _BatchNorm,
-    _Conv,
-    _conv_bn,
-    _pool,
-    create,
-    round_filters,
-)
+from fast_image_recognition_tpu_torch.models.efficientnet import (EfficientNet, _act, _BatchNorm, _Conv, _conv_bn,
+    _pool, create, round_filters)
 
 # (expand t, out channels c, repeats n, first stride s)
 _MBV2_BLOCKS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
@@ -37,8 +26,7 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
 
 
 def parse_mobilenet_width(name: str) -> float:
-    """'mobilenetv2' 1.0, 'mobilenetv2_1.4' and 'mobilenetv2_140' 1.4 (JAX
-    ``models/__init__.py:27-34``)."""
+    """'mobilenetv2' 1.0, 'mobilenetv2_1.4' and 'mobilenetv2_140' 1.4 (JAX ``models/__init__.py:27-34``)."""
     if "_" not in name:
         return 1.0
     width = float(name.split("_", 1)[1])
@@ -51,8 +39,7 @@ def mobilenet_plan(width: float = 1.0) -> List[Dict[str, Any]]:
         fo = _make_divisible(c * width)
         for i in range(n):
             plan.append(dict(name=f"block{stage}{chr(ord('a') + i)}", kernel=3, stride=s if i == 0 else 1, expand=t,
-                             in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=0.0, stage=stage,
-                             activation="relu6"))
+                        in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=0.0, stage=stage, activation="relu6"))
         fi = fo
     return plan
 
@@ -83,14 +70,13 @@ class MobileNetV2(EfficientNet):
     def __init__(self, width: float = 1.0, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
                  hidden_overrides: Optional[Dict[str, int]] = None, resolution: int = 224):
         nn.Module.__init__(self)
-        self.width, self.resolution = float(width), int(resolution)
+        self.width, self.resolution, self.drop_connect, self.drop_rate = float(width), int(resolution), 0.0, 0.2
         self._build(mobilenet_plan(width), _make_divisible(32 * width), _make_divisible(1280 * max(width, 1.0)),
                     num_classes, dtype, hidden_overrides)
 
 
 class DepthwiseSeparable(nn.Module):
-    """Depthwise 3x3 + BN + relu6, pointwise 1x1 + BN + relu6 (``folded``:
-    each BN a bias of its conv)."""
+    """Depthwise 3x3 + BN + relu6, pointwise 1x1 + BN + relu6 (``folded``: each BN a bias of its conv)."""
 
     def __init__(self, cfg: Dict[str, Any], hidden_filters: Optional[int] = None, folded: bool = False):
         super().__init__()
@@ -120,8 +106,7 @@ class MobileNetV1(EfficientNet):
 
 def create_mobilenetv2(width: float = 1.0, num_classes: int = 0, seed: int = 0, resolution: int = 224,
                        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
-    """``(model on device, its flax-layout numpy variables)``, flax's
-    default init drawn from ``seed``."""
+    """``(model on device, its flax-layout numpy variables)``, flax's default init drawn from ``seed``."""
     return create(MobileNetV2(width, num_classes, dtype), seed, resolution, device)
 
 

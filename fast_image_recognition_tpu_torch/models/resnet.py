@@ -1,10 +1,7 @@
-"""ResNet v1 (ResNet50) and v2 (ResNet50/101/152V2), the 2048-d zoo
-members (JAX ``models/resnet.py``), one plan for both: v1 conv-BN-ReLU
-bottlenecks with every conv biased, the stride on the first block of
-stages 3-5; v2 pre-activation bottlenecks, the stride on the last block of
-stages 2-4, no stem BN, ``relu(post_bn)`` before the pool. BN eps 1.001e-5."""
-
-from __future__ import annotations
+"""ResNet50 (v1) and ResNet50/101/152V2 (JAX ``models/resnet.py``): v1 biased
+conv-BN-ReLU bottlenecks, stride on stages 3-5's first block; v2
+pre-activation, stride on stages 2-4's last, ``relu(post_bn)`` before the pool.
+BN eps 1.001e-5."""
 
 from typing import Any, Dict, List
 
@@ -41,9 +38,8 @@ def default_taps_resnet(variant: str) -> List[str]:
 
 
 class Bottleneck(nn.Module):
-    """keras block1 (v1) or block2 (v2, pre-activation; a strided identity
-    shortcut is a 1x1 max pool, i.e. a subsample). ``folded``: no BN but
-    v2's affine ``preact_bn``, each conv's BN in its bias."""
+    """keras block1 (v1) or block2 (v2; a strided identity shortcut is a subsample). ``folded``: each BN in its conv's
+    bias, v2's ``preact_bn`` kept."""
 
     def __init__(self, cin: int, cfg: Dict[str, Any], v2: bool, folded: bool):
         super().__init__()
@@ -67,8 +63,7 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(ZooNet):
-    """``num_classes=0``: the pooled 2048-d extractor; ``folded=True`` takes
-    a folded tree (``models/fold.py``)."""
+    """``num_classes=0``: the pooled 2048-d extractor; ``folded=True`` takes a folded tree (``models/fold.py``)."""
 
     def __init__(self, variant: str = "resnet152v2", num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
                  folded: bool = False):

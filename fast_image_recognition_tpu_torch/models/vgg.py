@@ -1,9 +1,6 @@
-"""VGG19, the 512-d zoo member (JAX ``models/vgg.py``): each conv (bias,
-ReLU, no BN) is a block, a 2x2 max pool follows the last conv of each of
-the five stages (inside ``run_blocks``; a tap reads before it); the tree
-has ``params`` only."""
-
-from __future__ import annotations
+"""VGG19, 512-d (JAX ``models/vgg.py``): each conv (bias, ReLU) a block, a 2x2 max
+pool after each stage's last conv (in ``run_blocks``; a tap reads before it);
+``params`` only."""
 
 from typing import Any, Dict, List
 

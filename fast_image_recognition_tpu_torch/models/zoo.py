@@ -1,11 +1,8 @@
-"""What the backbone zoo shares: flax's default init, inference BN, the
-fp32 global pool, ``ZooNet`` (the segment protocol and the flax-tree
-round trip) and ``create``; the BN zoo's ``ConvBN`` unit, the branch
-``_Block`` and the VALID Inception stem. NCHW ``channels_last``, bf16
-compute, fp32 pools."""
+"""The zoo's shared parts: flax's init, BN (running or batch statistics), the fp32
+pool, ``ZooNet`` (segments, train mode, flax trees), ``create``, ``ConvBN``,
+``_Block`` and the VALID Inception stem. NCHW ``channels_last``, bf16."""
 
-from __future__ import annotations
-
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -17,14 +14,12 @@ from torch import nn
 from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 
 _BN_EPS = 1e-3
-# flax lecun_normal: a standard normal truncated to [-2, 2], scaled by
-# sqrt(1 / fan_in) / 0.8796 (the truncated law's standard deviation)
+# flax lecun_normal: truncated to [-2, 2], scaled by sqrt(1 / fan_in) / 0.8796
 _TRUNC_STD = 0.87962566103423978
 
 
 def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
-    """flax ``lecun_normal()``: ``truncated_normal(-2, 2) * sqrt(1/fan_in) /
-    0.8796``, drawn by the inverse CDF from ``gen``."""
+    """flax ``lecun_normal()`` by the inverse CDF from ``gen``."""
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     u = torch.rand(shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
     x = torch.erfinv(u) * math.sqrt(2.0)
@@ -32,24 +27,37 @@ def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
 
 
 class _BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over running statistics: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in fp32, rounded to ``x``'s dtype."""
+    """flax ``nn.BatchNorm`` in fp32, rounded to ``x``'s dtype; under :func:`batch_stats` (JAX's ``train``, never
+    ``nn.Module.training``) on batch statistics (``max(0, E[x^2] - E[x]^2)`` over N, H, W), committed as ``m * old + (1
+    - m) * batch``."""
 
-    def __init__(self, c: int, eps: float = _BN_EPS):
+    def __init__(self, c: int, eps: float = _BN_EPS, momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum, self.use_batch, self.pending = eps, momentum, False, None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.to(torch.float32) - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mean, var, xf = self.mean, self.var, x.to(torch.float32)
+        if self.use_batch:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            self.pending = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(dtype or x.dtype)
 
+    @torch.no_grad()
+    def commit(self) -> None:
+        if self.pending is not None:
+            m, (mean, var), self.pending = self.momentum, self.pending, None
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+
     def export(self):
-        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
+        t = lambda v: np.array(v.detach().cpu())  # noqa: E731  (a copy: training moves them in place)
         return {"scale": t(self.scale), "bias": t(self.bias)}, {"mean": t(self.mean), "var": t(self.var)}
 
     def load(self, p: Dict[str, Any], s: Dict[str, Any]) -> None:
@@ -57,9 +65,29 @@ class _BatchNorm(nn.Module):
             getattr(self, name).data = torch.tensor(np.asarray(tree[name], np.float32))
 
 
+@contextlib.contextmanager
+def batch_stats(module: nn.Module, train: bool = True, commit: bool = True):
+    """Train mode for every BN under ``module``: batch statistics inside,
+    the running ones updated on exit (``commit``)."""
+    bns = [m for m in module.modules() if isinstance(m, _BatchNorm)] if train else []
+    for bn in bns:
+        bn.use_batch, bn.pending = True, None
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.use_batch = False
+            if commit:
+                bn.commit()
+
+
+def keep_mask(shape, keep: float, rng: Optional[torch.Generator], device) -> torch.Tensor:
+    """``jax.random.bernoulli(keep)``: uniform draws from ``rng`` below ``keep``."""
+    return torch.rand(shape, generator=rng, device=device) < keep
+
+
 def _pool(h: torch.Tensor) -> torch.Tensor:
-    """Global average pool as ``jnp.mean`` takes it: summed in fp32, the
-    mean rounded to the activation's dtype, returned as fp32."""
+    """``jnp.mean``'s global pool: fp32 sums, rounded to the activation's dtype, fp32 out."""
     return h.to(torch.float32).mean(dim=(2, 3)).to(h.dtype).to(torch.float32)
 
 
@@ -70,13 +98,9 @@ def _node(tree, path, make=False):
 
 
 class ZooNet(nn.Module):
-    """The segment protocol over ``self.plan`` and ``self.blocks``:
-    ``forward(NHWC images)`` -> ``{'embedding': [B, D] fp32, 'taps': {name:
-    [B, C] fp32 pooled block output}}`` (+ ``logits``); ``_after(i, h)``
-    runs between block i and the next (VGG's pools: a tap reads before it).
-    Subclasses give ``stem``, ``head_pool``, ``fc`` (or None) and
-    ``_layers``: (flax path of the conv, of its BN or None, module), a BN
-    with no conv at path None."""
+    """The segment protocol over ``plan``, ``blocks``: ``forward`` -> ``{'embedding', 'taps'}`` (+ ``logits``);
+    ``_after(i, h)`` between blocks. Subclasses give ``stem``, ``head_pool``, ``fc``, ``_layers``: (conv path, BN path,
+    module)."""
 
     def block_names(self) -> List[str]:
         return [b["name"] for b in self.plan]
@@ -87,24 +111,34 @@ class ZooNet(nn.Module):
     def _after(self, i: int, h: torch.Tensor) -> torch.Tensor:
         return h
 
-    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None) -> torch.Tensor:
-        for i in range(len(self.plan))[start:end]:
-            x = self._after(i, self.blocks[i](x))
+    def _block(self, i: int, h: torch.Tensor, train: bool, rng) -> torch.Tensor:
+        return self.blocks[i](h)
+
+    def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None, train: bool = False,
+                   rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        with batch_stats(self, train):
+            for i in range(len(self.plan))[start:end]:
+                x = self._after(i, self._block(i, x, train, rng))
         return x
 
+    drop_rate = 0.0  # flax nn.Dropout on the embedding before ``fc``, train mode only
+
     def forward(self, x, train: bool = False, taps: Optional[Sequence[str]] = None,
-                include_logits: Optional[bool] = None) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError("training is not ported (ROADMAP.md §1 queue 2)")
-        h, tap_out = self.stem(x), {}
-        for i, (cfg, blk) in enumerate(zip(self.plan, self.blocks)):
-            h = blk(h)
-            if cfg["name"] in (taps or ()):
-                tap_out[cfg["name"]] = _pool(h)
-            h = self._after(i, h)
-        out = {"embedding": self.head_pool(h), "taps": tap_out}
+                include_logits: Optional[bool] = None, rng: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """``train``: batch statistics (the running ones updated), stochastic depth and dropout from ``rng``."""
+        with batch_stats(self, train):
+            h, tap_out = self.stem(x), {}
+            for i, cfg in enumerate(self.plan):
+                h = self._block(i, h, train, rng)
+                if cfg["name"] in (taps or ()):
+                    tap_out[cfg["name"]] = _pool(h)
+                h = self._after(i, h)
+            out = {"embedding": self.head_pool(h), "taps": tap_out}
         if self.fc is not None and include_logits is not False:
-            out["logits"] = self.fc(out["embedding"])  # dropout is the identity at inference
+            e, keep = out["embedding"], 1.0 - self.drop_rate
+            if train and keep < 1.0:
+                e = torch.where(keep_mask(e.shape, keep, rng, e.device), e / keep, 0.0)
+            out["logits"] = self.fc(e)
         return out
 
     def _to_nchw(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +160,7 @@ class ZooNet(nn.Module):
         """The flax ``{'params'[, 'batch_stats']}`` trees as numpy fp32."""
         params: Dict[str, Any] = {}
         stats: Dict[str, Any] = {}
-        t = lambda v: v.detach().cpu().numpy()  # noqa: E731
+        t = lambda v: np.array(v.detach().cpu())  # noqa: E731  (a copy: training moves them in place)
         for conv_path, bn_path, m in self._layers():
             bn = m if conv_path is None else getattr(m, "bn", None)
             if conv_path is not None:
@@ -144,9 +178,8 @@ class ZooNet(nn.Module):
 
     @torch.no_grad()
     def load_variables(self, variables: Dict[str, Any]) -> "ZooNet":
-        """Copy a flax numpy tree into the module. A folded module takes the
-        BN-folded tree (``fold_variables``): a conv's bias is its own (if
-        any) plus its neutral BN's. The module stays on its device."""
+        """A flax numpy tree into the module, which stays on its device; a folded module takes ``fold_variables``' tree
+        (a conv's bias plus its neutral BN's)."""
         dev, params, stats = next(self.parameters()).device, variables["params"], variables.get("batch_stats", {})
         f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
         for conv_path, bn_path, m in self._layers():
@@ -167,8 +200,7 @@ class ZooNet(nn.Module):
 
 
 def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
-    """``(model on device, its flax-layout numpy variables)`` with flax's
-    default init drawn from ``seed``."""
+    """``(model on device, its flax-layout numpy variables)`` with flax's default init drawn from ``seed``."""
     dev = resolve_device(device)
     model.init_weights(seed)
     model.resolution = int(resolution)
@@ -176,11 +208,9 @@ def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
 
 
 class ConvBN(nn.Module):
-    """Conv + inference BN + ReLU, with symmetric pads (SAME: ``k // 2``,
-    as every SAME conv of the BN zoo is stride 1 with odd kernels, or
-    explicit); a bias where ``bias`` (default: no BN). The conv feeding a
-    BN runs bf16 operands in fp32, rounded once after the BN, as XLA does
-    (``efficientnet._conv_bn``)."""
+    """Conv + BN + ReLU, symmetric pads (SAME: ``k // 2``; every SAME conv of the BN zoo is stride 1, odd k); a bias
+    where ``bias`` (default: no BN). A conv feeding a BN runs in fp32 from bf16 operands, rounded once after the BN
+    (XLA's)."""
 
     def __init__(self, cin, cout, k=1, stride=1, padding="SAME", relu=True, bn=True, bias=None, eps=_BN_EPS):
         super().__init__()
@@ -208,15 +238,10 @@ def _pool3(x, how):
 
 
 class _Block(nn.Module):
-    """Parallel branches concatenated over channels; a residual kind adds
-    ``scale * up(mix)`` to its input in the activation dtype, then ReLU
-    (none for ``last``, IRv2's linear last Block8). ``spec``: (in channels,
-    branches, residual scale or None). A branch is a chain of convs (out,
-    kernel[, stride, padding]), after a 3x3 pool where it starts with "avg"
-    (stride 1, SAME, pads not counted) or "max" (stride 2, VALID); a list in
-    a chain is a split: its convs read the same input and concatenate. Conv
-    j of branch i is named b{i}, or b{i}_{j} in a longer chain (a split's
-    convs add "a" and "b"); a pool branch's conv may be ``pool_name``."""
+    """Branches concatenated; a residual kind adds ``scale * up(mix)`` then ReLU (not ``last``). ``spec``: (in
+    channels, branches, scale). A branch: convs (out, k[, stride, padding]) after a 3x3 "avg" (SAME) or "max" (stride
+    2) pool; a list is a split. Conv j of branch i: b{i} or b{i}_{j} (+ "a", "b" in a split), a pool branch's
+    ``pool_name``."""
 
     def __init__(self, spec, bn, dtype, last=False, pool_name=None):
         super().__init__()

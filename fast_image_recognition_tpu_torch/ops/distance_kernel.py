@@ -1,9 +1,7 @@
 """Gallery scans of the serving paths (JAX ``ops/distance_kernel.py``): each
-wrapper runs its CUDA kernel on a CUDA tensor, its plain version on a CPU
-one. On the card a gallery's width is a multiple of 8 lanes (16 for
-int8): :func:`pad_cols` pads it once."""
-
-from __future__ import annotations
+wrapper runs its CUDA kernel on a CUDA tensor, its plain version on a CPU one.
+On the card a gallery's width is a multiple of 8 lanes (16 for int8):
+:func:`pad_cols`."""
 
 from typing import Optional, Tuple
 
@@ -31,8 +29,7 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def _row_sq_norms(g: torch.Tensor, chunk_rows: int = 65536) -> torch.Tensor:
-    """fp32 |row|^2 of a bf16 matrix (exact squares, fp32 sums), a chunk
-    of rows at a time (no fp32 copy of a large gallery)."""
+    """fp32 |row|^2 of a bf16 matrix, chunked (no fp32 copy)."""
     out = torch.empty((g.shape[0],), dtype=torch.float32, device=g.device)
     for s in range(0, g.shape[0], chunk_rows):
         gf = g[s : s + chunk_rows].to(torch.float32)
@@ -40,20 +37,18 @@ def _row_sq_norms(g: torch.Tensor, chunk_rows: int = 65536) -> torch.Tensor:
     return out
 
 
-COL_ALIGN = 16  # the card's scans load 16-byte vectors: 8 bf16 or 16 int8 lanes
+COL_ALIGN = 16  # 16-byte vectors: 8 bf16 or 16 int8 lanes
 
 
 def pad_cols(x: torch.Tensor, m: int = COL_ALIGN) -> torch.Tensor:
-    """Zero columns up to a multiple of ``m``: pad a gallery once, where it
-    is built (zeros change no dot product or norm). The scans take such a
-    gallery with queries of the unpadded width."""
+    """Zero columns up to a multiple of ``m``, once where a gallery is built; the
+    scans take it with queries of the unpadded width."""
     d = x.shape[1]
     return x if d % m == 0 else torch.nn.functional.pad(x, (0, _round_up(d, m) - d))
 
 
 def _match_cols(q: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
-    """Queries zero-padded to the gallery's width (a multiple of ``m`` on
-    the card: the scans never copy a gallery per call)."""
+    """Queries zero-padded to the gallery's width."""
     dq, dg = q.shape[1], g.shape[1]
     if dg not in (dq, _round_up(dq, COL_ALIGN)):
         raise ValueError(f"queries [{q.shape[0]}, {dq}] do not fit a gallery of width {dg}")
@@ -78,8 +73,7 @@ def pad_gallery(gallery: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
 
 
 def _tile_rows(v: torch.Tensor, tile_g: int, fill: float) -> torch.Tensor:
-    """Per-row values [Np] -> the kernel layout ``[roundup(n_tiles, 8),
-    tile_g]``, extra rows filled with ``fill``."""
+    """Per-row values [Np] -> the kernel layout ``[roundup(n_tiles, 8), tile_g]``, extra rows filled with ``fill``."""
     n_tiles = v.shape[0] // tile_g
     v = v.view(n_tiles, tile_g)
     n_rows = _round_up(n_tiles, 8)
@@ -89,9 +83,7 @@ def _tile_rows(v: torch.Tensor, tile_g: int, fill: float) -> torch.Tensor:
 
 
 def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
-    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), tile_g]`` fp32,
-    BIG_DIST on rows >= n_valid. Compute it once per gallery and pass it
-    to the scans."""
+    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), tile_g]`` fp32, BIG_DIST past n_valid; once a gallery."""
     gallery = pad_gallery(gallery, tile_g)
     gsq = _row_sq_norms(gallery)
     gsq = torch.where(torch.arange(gallery.shape[0], device=gsq.device) < n_valid, gsq, BIG_DIST)
@@ -99,8 +91,7 @@ def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) 
 
 
 def quant_gallery_scales(scales: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
-    """Per-row dequantization scales in the layout of
-    :func:`gallery_sq_norms`, 0 on rows >= n_valid and on pads."""
+    """Per-row dequantization scales in the layout of :func:`gallery_sq_norms`, 0 on rows >= n_valid and on pads."""
     n = scales.shape[0]
     np_ = _round_up(max(n, tile_g), _check_tile_g(tile_g))
     s = torch.nn.functional.pad(scales.to(torch.float32), (0, np_ - n))
@@ -108,12 +99,10 @@ def quant_gallery_scales(scales: torch.Tensor, n_valid: int, tile_g: int = TILE_
     return _tile_rows(s, tile_g, 0.0)
 
 
-def pack_gallery_aug(
-    gallery: torch.Tensor, n_valid: Optional[int] = None, tile_g: int = TILE_G
-) -> torch.Tensor:
-    """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]`` (columns
-    to a 128 multiple, rows to ``tile_g`` with |g|^2 = 1e38): with the query's
-    ``[-2q, 1, 1, |q|^2_hi, |q|^2_lo]`` one dot is the squared distance."""
+def pack_gallery_aug(gallery: torch.Tensor, n_valid: Optional[int] = None, tile_g: int = TILE_G) -> torch.Tensor:
+    """Augmented bf16 gallery ``[g, |g|^2_hi, |g|^2_lo, 1, 1]`` (columns to 128,
+    rows to ``tile_g`` with |g|^2 = 1e38): with the query's ``[-2q, 1, 1,
+    |q|^2_hi, |q|^2_lo]`` one dot is the squared distance."""
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     g = pad_gallery(gallery, tile_g).to(torch.bfloat16)
     np_, d = g.shape
@@ -156,9 +145,7 @@ def _key_to_row(keys: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
 
 
 def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
-    """Per (query, tile) min packed key, ``[B, n_tiles]`` int32: the
-    single-min kernel of ``kernels/packed_scan.cu`` on the card, the plain
-    version on the CPU."""
+    """Per (query, tile) min packed key ``[B, n_tiles]`` int32 (``kernels/packed_scan.cu``)."""
     if _on_card(q_aug):
         return build.launch_tilemin_packed(q_aug, g_aug, tile_g)
     return plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
@@ -167,39 +154,29 @@ def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch
 def tile_min_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, tile_g: int = TILE_G
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dist [B, n_tiles] of each tile's best row divided by ``d``, its row
-    int32), quantized to ~2^-13 relative: callers rescore."""
+    """(each tile's best distance / ``d`` [B, n_tiles], its row), ~2^-13 relative: callers rescore."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     keys = tilemin_keys(qa, gallery_aug, _check_tile_g(tile_g))
     return _key_to_dist(keys, tile_g) / d, _key_to_row(keys, tile_g)
 
 
 def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
-    """[B, n_tiles] minima -> [B, R] columns of the R nearest tiles, ties to
-    the lower tile (``lax.top_k(-d)``); ``select='approx'`` is the same exact
-    selection (XLA's ``approx_min_k`` is exact off the TPU)."""
+    """[B, n_tiles] minima -> [B, R] nearest tiles, ties to the lower (``lax.top_k(-d)``); ``'approx'`` is the same
+    (``approx_min_k`` is exact off the TPU)."""
     if select not in ("exact", "approx"):
         raise ValueError(f"unknown select {select!r}")
     return torch.sort(d, dim=1, stable=True).indices[:, :r]
 
 
-def topk_candidates_l2_packed(
-    queries: torch.Tensor,
-    gallery_aug: torch.Tensor,
-    d: int,
-    r: int,
-    tile_g: int = TILE_G,
-    select: str = "exact",
-) -> torch.Tensor:
-    """[B, R] int32 rows: the best row of each of the R nearest tiles
-    (single-min packed scan); callers rescore."""
+def topk_candidates_l2_packed(queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int, tile_g: int = TILE_G,
+    select: str = "exact") -> torch.Tensor:
+    """[B, R] int32 rows: the best row of each of the R nearest tiles (single-min packed scan); callers rescore."""
     dt, it = tile_min_l2_packed(queries, gallery_aug, d, tile_g)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
 def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """``|g|^2 - 2 q.g`` [B, R] of rows ``cand`` in fp32 from the bf16 rows
-    and the bf16-rounded query (a bf16 einsum would flip near-ties)."""
+    """``|g|^2 - 2 q.g`` [B, R] of rows ``cand`` in fp32 from bf16 rows and the bf16-rounded query."""
     rows = gallery[cand].to(torch.float32)  # [B, R, D]
     e16 = emb.to(torch.bfloat16).to(torch.float32)
     cross = torch.einsum("bd,brd->br", e16, rows)
@@ -208,9 +185,7 @@ def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -
 
 
 def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
-    """Per (query, tile) min and second-min packed keys, ``[B, n_tiles]``
-    int32 each: ``kernels/packed_scan.cu`` on the card, the plain version
-    on the CPU."""
+    """Per (query, tile) min and second-min packed keys, ``[B, n_tiles]`` int32 each (``kernels/packed_scan.cu``)."""
     if _on_card(q_aug):
         return build.launch_tilemin2_packed(q_aug, g_aug)
     return plain.tilemin2_packed_plain(q_aug, g_aug)
@@ -224,18 +199,14 @@ def decode_tile_keys(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, 
 def tile_min2_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(d1 [B, n_tiles] raw squared L2 of each tile's best row, its row, d2
-    the tile's second best), quantized toward zero by ~2^-13 relative."""
+    """(d1 raw squared L2 of each tile's best row, its row, d2 the second best), ~2^-13 relative toward zero."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     k1, k2 = tilemin2_keys(qa, gallery_aug)
     return decode_tile_keys(k1, k2)
 
 
-def certify_tiles(
-    d1t: torch.Tensor, it: torch.Tensor, d2t: torch.Tensor, r: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile (d1, row, d2) -> (cand [B, R] rows of the R nearest tiles,
-    bound [B]); see :func:`topk_candidates_l2_packed_cert`."""
+def certify_tiles(d1t: torch.Tensor, it: torch.Tensor, d2t: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile (d1, row, d2) -> (cand [B, R], bound [B]): :func:`topk_candidates_l2_packed_cert`."""
     n_tiles = d1t.shape[1]
     r = min(r, n_tiles)
     k = min(r + 1, n_tiles)
@@ -253,19 +224,15 @@ def certify_tiles(
 def topk_candidates_l2_packed_cert(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cand [B, R] rows, bound [B]): ``bound`` lower-bounds (up to bf16
-    rounding and the 2^-13 keys) the full-D distance of every row outside
-    ``cand`` (unselected tiles: the (R+1)-th tile min; selected tiles'
-    other rows: their second min; projection only shrinks distances)."""
+    """(cand [B, R] rows, bound [B]): ``bound`` lower-bounds (up to bf16 rounding and the keys) every row outside
+    ``cand``: the (R+1)-th tile min, selected tiles' second mins."""
     return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d), r)
 
 
 def tilemin_scores(
     q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min of ``|g|^2 - 2 q.g`` over bf16 operands and its
-    lowest row, ``[B, n_tiles]`` fp32 and int32: ``kernels/tile_scan.cu`` on
-    the card, the plain version on the CPU."""
+    """Per (query, tile) min of ``|g|^2 - 2 q.g`` over bf16 operands and its lowest row (``kernels/tile_scan.cu``)."""
     gsq = gsq.reshape(-1)
     q = _match_cols(q, g, 8)
     if _on_card(q):
@@ -273,19 +240,10 @@ def tilemin_scores(
     return plain.tilemin_plain(q, g, gsq, tile_g, bf16_scores)
 
 
-def tile_min_l2(
-    queries: torch.Tensor,
-    gallery: torch.Tensor,
-    *,
-    n_valid: Optional[int] = None,
-    tile_g: int = TILE_G,
-    gsq: Optional[torch.Tensor] = None,
-    precise_scores: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile L2 min: (dist [B, n_tiles] divided by D, row int32). bf16
-    operands (callers rescore); ``precise_scores=False`` also rounds the
-    scores to bf16 (near-equal rows tie, the lowest wins). ``gsq``:
-    :func:`gallery_sq_norms` of the gallery."""
+def tile_min_l2(queries: torch.Tensor, gallery: torch.Tensor, *, n_valid: Optional[int] = None, tile_g: int = TILE_G,
+    gsq: Optional[torch.Tensor] = None, precise_scores: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile L2 min: (dist / D [B, n_tiles], row), bf16 operands; ``precise_scores=False`` rounds the scores to
+    bf16. ``gsq``: :func:`gallery_sq_norms`."""
     d = queries.shape[1]
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     gallery = pad_gallery(gallery, _check_tile_g(tile_g))
@@ -299,38 +257,18 @@ def tile_min_l2(
     return torch.clamp_min(out_d + qsq[:, None], 0.0) / d, out_i
 
 
-def topk_candidates_l2(
-    queries: torch.Tensor,
-    gallery: torch.Tensor,
-    r: int,
-    *,
-    n_valid: Optional[int] = None,
-    tile_g: int = TILE_G,
-    gsq: Optional[torch.Tensor] = None,
-    precise_scores: bool = True,
-    select: str = "exact",
+def topk_candidates_l2(queries: torch.Tensor, gallery: torch.Tensor, r: int, *, n_valid: Optional[int] = None,
+    tile_g: int = TILE_G, gsq: Optional[torch.Tensor] = None, precise_scores: bool = True, select: str = "exact"
 ) -> torch.Tensor:
-    """Candidate rows [B, R] int32: the best row of each of the R nearest
-    tiles by :func:`tile_min_l2`. They hold the exact 1-NN up to bf16
-    operand rounding; callers rescore."""
-    dt, it = tile_min_l2(
-        queries, gallery, n_valid=n_valid, tile_g=tile_g, gsq=gsq, precise_scores=precise_scores
-    )
+    """[B, R] rows: the best of each of the R nearest tiles by :func:`tile_min_l2`; callers rescore."""
+    dt, it = tile_min_l2(queries, gallery, n_valid=n_valid, tile_g=tile_g, gsq=gsq, precise_scores=precise_scores)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
-def tilemin_quant_scores(
-    q: torch.Tensor,
-    qs: torch.Tensor,
-    g: torch.Tensor,
-    gsq: torch.Tensor,
-    gsc: torch.Tensor,
-    tile_g: int,
-    compute: str,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min of ``gsq - (2 s_q)(q.g s_g)`` over int8
-    operands and its lowest row: ``kernels/tile_scan.cu`` on the card, the
-    plain version on the CPU."""
+def tilemin_quant_scores(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, gsc: torch.Tensor,
+    tile_g: int, compute: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (query, tile) min of ``gsq - (2 s_q)(q.g s_g)`` over int8 operands and
+    its lowest row (``kernels/tile_scan.cu``)."""
     gsq, gsc = gsq.reshape(-1), gsc.reshape(-1)
     q = _match_cols(q, g, 16)
     if _on_card(q):
@@ -338,19 +276,10 @@ def tilemin_quant_scores(
     return plain.tilemin_quant_plain(q, qs, g, gsq, gsc, tile_g, compute)
 
 
-def tile_min_l2_quant(
-    queries: torch.Tensor,
-    gallery_q: torch.Tensor,
-    gsq_rows: torch.Tensor,
-    gsc_rows: torch.Tensor,
-    *,
-    tile_g: int = TILE_G,
-    compute: str = "int8",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile approximate L2 min over an int8 gallery: (dist divided by
-    D, row int32). ``gsq_rows``: :func:`gallery_sq_norms` before quantization,
-    ``gsc_rows``: :func:`quant_gallery_scales`; ``compute`` 'int8' (the exact
-    int32 dot) or 'bf16' (bf16 products summed in fp32)."""
+def tile_min_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor, *,
+    tile_g: int = TILE_G, compute: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile approximate L2 min over an int8 gallery: (dist / D, row). ``gsq_rows``: norms before quantization,
+    ``gsc_rows``: :func:`quant_gallery_scales`; ``compute`` 'int8' or 'bf16'."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     d = queries.shape[1]
@@ -361,38 +290,19 @@ def tile_min_l2_quant(
     return torch.clamp_min(out_d + qsq[:, None], 0.0) / d, out_i
 
 
-def topk_candidates_l2_quant(
-    queries: torch.Tensor,
-    gallery_q: torch.Tensor,
-    gsq_rows: torch.Tensor,
-    gsc_rows: torch.Tensor,
-    r: int,
-    *,
-    tile_g: int = TILE_G,
-    compute: str = "int8",
-    select: str = "exact",
+def topk_candidates_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor,
+    gsc_rows: torch.Tensor, r: int, *, tile_g: int = TILE_G, compute: str = "int8", select: str = "exact"
 ) -> torch.Tensor:
-    """:func:`topk_candidates_l2` over an int8 gallery: [B, R] int32 rows,
-    the 1-NN among them up to int8 rounding near-ties; callers rescore."""
+    """:func:`topk_candidates_l2` over an int8 gallery."""
     dt, it = tile_min_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, tile_g=tile_g, compute=compute)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
-def topk_l2_quant(
-    queries: torch.Tensor,
-    gallery_q: torch.Tensor,
-    gsq_rows: torch.Tensor,
-    gsc_rows: torch.Tensor,
-    rescore_gallery: torch.Tensor,
-    k: int = 1,
-    *,
-    r: int = 16,
-    tile_g: int = TILE_G,
-    compute: str = "int8",
+def topk_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor,
+    rescore_gallery: torch.Tensor, k: int = 1, *, r: int = 16, tile_g: int = TILE_G, compute: str = "int8"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of the best rows of the ``r`` nearest int8-scanned tiles,
-    rescored in fp32 from ``rescore_gallery``: (distances [B, k'] divided by
-    D, rows int32), k' = min(k, r, n_tiles); ties to the earlier candidate."""
+    """Top-k of the best rows of the ``r`` nearest int8 tiles, rescored in fp32
+    from ``rescore_gallery``: (distances / D, rows), k' = min(k, r, n_tiles)."""
     cand = topk_candidates_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, r, tile_g=tile_g, compute=compute)
     rows = rescore_gallery[cand.long()].to(torch.float32)  # [B, R, D]
     qf = queries.to(rescore_gallery.dtype).to(torch.float32)
@@ -405,26 +315,12 @@ def topk_l2_quant(
     return dist.gather(1, sel) / queries.shape[1], cand.gather(1, sel)
 
 
-def topk_l2(
-    queries: torch.Tensor,
-    gallery: torch.Tensor,
-    k: int = 1,
-    *,
-    n_valid: Optional[int] = None,
-    window: Optional[Tuple[int, int]] = None,
-    precise: bool = False,
-    row_mask: Optional[torch.Tensor] = None,
+def topk_l2(queries: torch.Tensor, gallery: torch.Tensor, k: int = 1, *, n_valid: Optional[int] = None,
+    window: Optional[Tuple[int, int]] = None, precise: bool = False, row_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k: (distances [B, k] divided by the window width,
-    indices [B, k] int32, -1 past ``n_valid``). Queries in bf16 by default;
-    ``precise=True`` is the fp32 oracle against the rows as stored.
-    ``window=(start, end)`` scans lanes [start, end). ``row_mask`` ([B] bool,
-    not with ``precise``): False rows come back ``(BIG_DIST / width, -1)``
-    and on the card their query blocks skip the scan (no host sync). Above
-    :data:`TOPK_SLAB` (256 a launch) k runs in slabs, each above the last
-    one's final (distance, row), so they join into the exact top-k. The
-    picks' distances are then summed again from the rows as ``(q - g)^2``
-    (pass 3): JAX returns the cancelling ``|q|^2 + |g|^2 - 2 q.g``."""
+    """Exact L2 top-k: (distances / window width, rows, -1 past ``n_valid``), bf16 or ``precise=True`` (fp32);
+    ``window``; ``row_mask``: False rows empty, unscanned on the card. Past :data:`TOPK_SLAB` in slabs above the last's
+    final entry. Distances summed again as ``(q - g)^2`` (pass 3)."""
     if k < 1:
         raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)

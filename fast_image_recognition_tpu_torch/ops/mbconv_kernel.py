@@ -1,9 +1,7 @@
-"""Fused stride-1 MBConv block (JAX ``ops/mbconv_kernel.py``): on a CUDA
-tensor ``kernels/mbconv.cu``, on a CPU tensor ``plain.mbconv_plain``; the
-kernel's geometry (pads, tile plan, shared memory) is computed here.
-Activations are NCHW in ``channels_last`` memory."""
-
-from __future__ import annotations
+"""Fused stride-1 MBConv block (JAX ``ops/mbconv_kernel.py``):
+``kernels/mbconv.cu`` on a CUDA tensor, ``plain.mbconv_plain`` on a CPU one;
+the kernel's geometry (pads, tile plan, shared memory) is computed here. NCHW
+in ``channels_last``."""
 
 import functools
 from typing import Any, Dict, Tuple
@@ -36,14 +34,9 @@ def _round_up(x: int, m: int) -> int:
 
 def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has_expand: bool, th: int, tw: int,
                group: int, bufs: int, ipb: int) -> int:
-    """Dynamic shared memory of a ``kernels/mbconv.cu`` block for the plan
-    (th, tw, group, bufs, ipb), as its ``layout`` (and ``mbconv_smem``)
-    computes it, or -1 where the kernel refuses the plan (over
-    :data:`MAX_SMEM`, over :data:`NT_MAX` project tiles a warpgroup, two
-    images without the whole plane in one tile or at k = 7). (th, tw): the
-    output tile; ``group``: the 64-channel project tiles a block owns;
-    ``bufs`` bit 0 double-buffers the input box, bit 1 the weights;
-    ``ipb``: images a block."""
+    """Shared memory of an ``mbconv.cu`` block for the plan (th, tw, group, bufs, ipb), or -1 where refused (over
+    :data:`MAX_SMEM` or :data:`NT_MAX`; two images without one whole-plane tile or at k = 7). ``group``: 64-channel
+    project tiles a block; ``bufs``: bit 0 double-buffers the box, bit 1 the weights; ``ipb``: images a block."""
     hh, hw = th + k - 1, tw + k - 1
     halo = hh * hw
     n_tiles = -(-h // th) * -(-w // tw)
@@ -68,10 +61,8 @@ def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has
 @functools.lru_cache(maxsize=None)
 def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
                has_expand: bool) -> Tuple[int, int, int, int, int]:
-    """The plan (th, tw, group, bufs, ipb) of least estimated work per
-    image, ``groups * n_tiles * (round_up(input box rows, 64) + 64) / ipb``,
-    a quarter more per single buffer that exposes a copy (guessed
-    constants, no A/B); ties to the larger tile."""
+    """The plan of least estimated work an image, ``groups * n_tiles * (round_up(box rows, 64) + 64) / ipb``, a quarter
+    more a single buffer (guessed constants); ties to the larger tile."""
     npt_all = -(-cout // CS)
     best = None
     for group in range(npt_all, 0, -1):
@@ -98,11 +89,9 @@ def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
 
 
 def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Folded block params (HWIO kernels, [C, S] SE denses) -> the layout the
-    kernel and its plain version read: ``w_exp_t`` [Ce, Cin] and
-    ``w_proj_t`` [Cout, Ce] in ``dtype``, ``dw_aux`` [ceil(Ce / 64), k*k +
-    2, 64] fp32 (a slab's depthwise taps, b_dw and b_exp; one bulk copy a
-    slab), ``b_proj`` and the SE weights in fp32."""
+    """Folded params -> the layout the kernel and its plain version read: ``w_exp_t`` [Ce, Cin], ``w_proj_t`` [Cout,
+    Ce] in ``dtype``, ``dw_aux`` [ceil(Ce / 64), k*k + 2, 64] fp32 (a slab's taps, b_dw, b_exp), ``b_proj`` and SE in
+    fp32."""
     k = cfg["kernel"]
     f32 = torch.float32
     ce = p["w_dw"].shape[-1]
@@ -125,10 +114,8 @@ def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = 
 
 
 def mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], cfg: Dict[str, Any]) -> torch.Tensor:
-    """One stride-1 block on ``x`` [B, Cin, H, W] with params ``q``
-    (:func:`prepare_params`) -> [B, Cout, H, W] channels_last in ``x.dtype``.
-    A CUDA ``x`` must be bf16 and channels_last; it launches the kernel or
-    raises."""
+    """One stride-1 block on ``x`` [B, Cin, H, W] with :func:`prepare_params`' ``q`` -> [B, Cout, H, W] channels_last
+    in ``x.dtype``; a CUDA ``x`` (bf16, channels_last) launches the kernel or raises."""
     if cfg["stride"] != 1:
         raise NotImplementedError("fused_mbconv covers stride-1 blocks only")
     if x.dim() != 4:
@@ -152,6 +139,5 @@ def mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], cfg: Dict[str, Any]) -> 
 
 
 def fused_mbconv(x: torch.Tensor, p: Dict[str, Any], cfg: Dict[str, Any]) -> torch.Tensor:
-    """One folded stride-1 block (``fold_backbone``'s ``p``, ``cfg``) on ``x``
-    [B, Cin, H, W] cast to bf16 -> bf16 channels_last; stride 2 raises."""
+    """One folded stride-1 block (``fold_backbone``'s ``p``, ``cfg``) on ``x`` in bf16; stride 2 raises."""
     return mbconv(x.to(torch.bfloat16), prepare_params(p, cfg), cfg)

@@ -1,8 +1,6 @@
 """PCA fit on the host (JAX ``ops/pca.py`` ``fit_pca``, ``PCAModel``): thin
 SVD of the centred rows in float64, on a sample; projection on the device."""
 
-from __future__ import annotations
-
 import dataclasses
 from typing import Optional
 

@@ -2,20 +2,16 @@
 s)`` half-to-even, clipped to [-127, 127], ``s = max|x| / 127`` (1 for a
 zero row): bit-equal to JAX's. The scans keep the true ``|g|^2``."""
 
-from __future__ import annotations
-
 from typing import Tuple
 
 import torch
 
-# rows quantized per step: bounds the fp32 temporaries on a 1M-row gallery
+# rows a step: bounds the fp32 temporaries
 _CHUNK_ROWS = 65536
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 quantization: (values int8 [N, D], scales
-    fp32 [N]) with ``values[i] * scales[i] ~= x[i]``. Works through the
-    rows in chunks, so a bf16 gallery never has a whole fp32 copy."""
+    """(int8 [N, D], scales [N]) with ``values[i] * scales[i] ~= x[i]``, in chunks (no fp32 copy)."""
     n = x.shape[0]
     values = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((n,), dtype=torch.float32, device=x.device)

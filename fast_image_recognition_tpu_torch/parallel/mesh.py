@@ -2,8 +2,6 @@
 ``model``; a :class:`Mesh` is a grid of ``torch.device``s one process
 drives, a device may repeat (``["cuda:0"] * 4``: four shards on one card)."""
 
-from __future__ import annotations
-
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,20 +36,14 @@ class Mesh:
 
 
 def _devices(devices: Optional[Sequence[DeviceLike]]) -> list:
-    """``None``: every visible CUDA device (raises when there is none);
-    else the given devices, repeats kept."""
+    """``None``: every visible CUDA device (raises when there is none); else the given devices, repeats kept."""
     if devices is None:
         resolve_device(None)  # raises without a card
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [resolve_device(d) for d in devices]
 
 
-def make_mesh(
-    data: int = 1,
-    gallery: int = 1,
-    model: int = 1,
-    devices: Optional[Sequence[DeviceLike]] = None,
-) -> Mesh:
+def make_mesh(data: int = 1, gallery: int = 1, model: int = 1, devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     devices = _devices(devices)
     need = data * gallery * model
     if need > len(devices):
@@ -62,8 +54,7 @@ def make_mesh(
 
 
 def gallery_mesh(num_shards: Optional[int] = None, devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
-    """A 1-axis mesh over all (or the first ``num_shards``) devices for
-    gallery sharding."""
+    """A 1-axis mesh over all (or the first ``num_shards``) devices for gallery sharding."""
     devices = _devices(devices)
     n = num_shards if num_shards is not None else len(devices)
     if n > len(devices):

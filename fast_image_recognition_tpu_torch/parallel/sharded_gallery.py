@@ -1,23 +1,14 @@
-"""Mesh-sharded gallery search (JAX ``parallel/sharded_gallery.py``): a
-shard a device, each scanned there (``topk_l2`` or the packed PCA scan and
-a rescore) by one process; the ``[B, S*k]`` pairs meet on the first
-device in a stable sort. A shard's -1 slot passes ``i < n_valid``, as in
-JAX (ROADMAP.md §3)."""
-
-from __future__ import annotations
+"""Mesh-sharded search (JAX ``parallel/sharded_gallery.py``): a shard a device,
+scanned there, the ``[B, S*k]`` pairs merged on the first device by a stable
+sort; a -1 slot passes ``i < n_valid`` as in JAX (ROADMAP.md §3)."""
 
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.ops.distance_kernel import (
-    BIG_DIST,
-    pack_gallery_aug,
-    rescore_rows,
-    topk_candidates_l2_packed,
-    topk_l2,
-)
+from fast_image_recognition_tpu_torch.ops.distance_kernel import (BIG_DIST, pack_gallery_aug, rescore_rows,
+    topk_candidates_l2_packed, topk_l2)
 from fast_image_recognition_tpu_torch.parallel.mesh import Mesh
 from fast_image_recognition_tpu_torch.search.base import SearchResult
 
@@ -65,8 +56,7 @@ def sharded_topk_l2(
     precise: bool = False,
     axes: Tuple[str, ...] = ("gallery",),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global top-k over ``shard_gallery``'s shards, on the first shard's
-    device: one ``topk_l2`` per shard with its valid count (a host int)."""
+    """Global top-k over the shards on the first shard's device: a ``topk_l2`` a shard."""
     devs = _check_shards(gallery_shards, mesh, axes)
     rows = int(gallery_shards[0].shape[0])
     nv = _valid_counts(n_valid_per_shard, len(devs), rows)
@@ -117,8 +107,7 @@ def sharded_topk_pca_packed(
     select: str = "exact",
     axes: Tuple[str, ...] = ("gallery",),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global top-k by the packed PCA scan, ``rescore`` candidates a shard
-    rescored from its bf16 rows; k capped at the candidates."""
+    """Global top-k by the packed PCA scan, ``rescore`` candidates a shard; k capped at the candidates."""
     devs = _check_shards(gallery_shards, mesh, axes)
     rows = int(gallery_shards[0].shape[0])
     nv = _valid_counts(n_valid_per_shard, len(devs), rows)
@@ -141,13 +130,8 @@ def sharded_topk_pca_packed(
     return _merge_gathered(*_gather(parts, devs[0]), kk)
 
 
-def shard_gallery(
-    gallery,
-    mesh: Mesh,
-    tile_g: int = 512,
-    dtype: torch.dtype = torch.bfloat16,
-    axes: Tuple[str, ...] = ("gallery",),
-) -> Tuple[List[torch.Tensor], np.ndarray]:
+def shard_gallery(gallery, mesh: Mesh, tile_g: int = 512, dtype: torch.dtype = torch.bfloat16,
+    axes: Tuple[str, ...] = ("gallery",)) -> Tuple[List[torch.Tensor], np.ndarray]:
     """Rows -> (one zero-padded shard per device, ``ceil(N / S)`` rows
     rounded up to ``tile_g``; per-shard valid counts)."""
     devs = mesh.shard_devices(axes)
@@ -165,8 +149,7 @@ def shard_gallery(
 
 
 class ShardedGalleryMatcher:
-    """Exact 1-NN over a mesh-sharded gallery; ``precise`` stores fp32
-    shards for the fp32 oracle pass."""
+    """Exact 1-NN over a mesh-sharded gallery; ``precise`` stores fp32 shards for the fp32 oracle pass."""
 
     def __init__(
         self,
@@ -196,8 +179,5 @@ class ShardedGalleryMatcher:
     def search(self, queries: np.ndarray) -> SearchResult:
         q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
         d, i = self.search_device(q)
-        return SearchResult(
-            indices=i[:, 0].cpu().numpy(),
-            distances=d[:, 0].cpu().numpy(),
-            checked_fraction=np.ones(q.shape[0], dtype=np.float32),
-        )
+        return SearchResult(indices=i[:, 0].cpu().numpy(), distances=d[:, 0].cpu().numpy(),
+            checked_fraction=np.ones(q.shape[0], dtype=np.float32))

@@ -1,17 +1,10 @@
-"""The chi2/KL streamed-scan cost at production scale beside the chi2
-kernel and the L2 scan (the port's ``scripts/chi2_cost.py``: the same
-flags, defaults, kinds and JSON fields). ``chi2``, ``l2``, ``kl`` run
-``ops/distances.py::streamed_topk``; ``chi2_pallas[_bf16]`` run
-``chi2_nn`` (``kernels/chi2.cu`` on the card) over fp32 or bf16 rows.
-Seeded L1-normalized rows made on the device; host clock between syncs
-over ``--iters`` calls after ``--warmup``; top-1 checked against fp64 on 8
-probes x 4096 rows (``probe_agreement``).
-
-Usage: python -m fast_image_recognition_tpu_torch.scripts.chi2_cost
-       [--gallery 102400] [--batch 1024] [--dim 1536] [--iters 5] [--warmup 1]
-       [--kinds chi2,l2] [--out -] [--device cuda]"""
-
-from __future__ import annotations
+"""chi2/KL streamed-scan cost beside the chi2 kernel and the L2 scan (JAX's
+``scripts/chi2_cost.py``: flags, kinds, fields): ``chi2``, ``l2``, ``kl`` by
+``streamed_topk``, ``chi2_pallas[_bf16]`` by ``chi2_nn``; host clock between
+syncs; top-1 vs fp64. Usage: python -m
+fast_image_recognition_tpu_torch.scripts.chi2_cost [--gallery 102400] [--batch
+1024] [--dim 1536] [--iters 5] [--warmup 1] [--kinds chi2,l2] [--out -]
+[--device cuda]"""
 
 import argparse
 import json
@@ -101,22 +94,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
             # top-1 on 8 probes vs the float64 oracle over a 4096-row
             # slice (the oracle materializes the [B, N, D] broadcast)
             nprobe = 8
-            oracle = oracle_pairwise(
-                queries[:nprobe].cpu().numpy(), gallery[:4096].cpu().numpy(), kind=kind
-            )
+            oracle = oracle_pairwise(queries[:nprobe].cpu().numpy(), gallery[:4096].cpu().numpy(), kind=kind)
             fast = fn(queries[:nprobe], gal[:4096])[1].cpu().numpy()
         agree = float(np.mean(fast == oracle.argmin(axis=1)))
         qps = b / sec
         triples = float(b) * n * d
-        line = {
-            "metric": f"{unit} ({kind_name} streamed scan, D={d}, {n} gallery, B={b})",
-            "value": round(qps, 1),
-            "unit": unit,
-            "sec_per_batch": round(sec, 4),
-            "elem_triples_per_sec": f"{triples / sec:.3e}",
-            "probe_agreement": agree,
-            "device": name,
-        }
+        line = {"metric": f"{unit} ({kind_name} streamed scan, D={d}, {n} gallery, B={b})", "value": round(qps, 1),
+            "unit": unit, "sec_per_batch": round(sec, 4), "elem_triples_per_sec": f"{triples / sec:.3e}",
+            "probe_agreement": agree, "device": name}
         lines.append(line)
         print(json.dumps(line))
         sys.stdout.flush()

@@ -1,19 +1,10 @@
-"""Time the port's kernels on the card at the shapes its paths give them.
-
-Seeded inputs; CUDA-event means over ``--reps`` calls after a warm-up and
-one second idle; after each shape half a second under ``nvidia-smi`` (20 ms
-samples: median SM clock, power, temperature under ``clocks``). Shapes:
-``tilemin``, both packed scans, ``tilemin_quant`` (both computes),
-``topk_l2`` bf16 (k 1 and 32) and ``precise`` over bf16 and fp32 rows;
-``--mbconv``: the fused MBConv kernel beside the per-op block at B0@224's
-stride-1 blocks, B = 1024. ``--root`` times another checkout's port (run
-trees A, B, B, A in one call). Prints the card line, then ``{"root",
-"card", "ms": {shape: ms}, "clocks": {...}}``.
-
-Usage: python fast_image_recognition_tpu_torch/scripts/scan_times.py
-       [--root CHECKOUT] [--mbconv] [--reps 10] [--seed 0] [--out FILE]"""
-
-from __future__ import annotations
+"""Kernel times on the card at the paths' shapes: CUDA-event means over ``--reps``
+after a warm-up and a second idle, then ``nvidia-smi`` samples (SM clock,
+power, temperature). ``tilemin``, both packed scans, ``tilemin_quant``,
+``topk_l2`` bf16 and precise; ``--mbconv``: the fused block vs per-op at
+B0@224. ``--root``: another checkout (run A, B, B, A). Usage: python
+fast_image_recognition_tpu_torch/scripts/scan_times.py [--root CHECKOUT]
+[--mbconv] [--reps 10] [--seed 0] [--out FILE]"""
 
 import argparse
 import json
@@ -43,12 +34,11 @@ def _ms(torch, fn, reps: int) -> float:
 
 
 def _clocks(torch, fn, seconds: float = 0.5):
-    """Median SM clock (MHz), power draw (W) and temperature (C) of the
-    ``nvidia-smi`` samples (every 20 ms) taken while ``fn`` runs back to
-    back for about ``seconds``; None where nvidia-smi gives no reading."""
+    """Median SM clock, power and temperature of 20-ms ``nvidia-smi`` samples
+    while ``fn`` runs for ``seconds``; None without a reading."""
     proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
-                             "--format=csv,noheader,nounits",
-                             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+                            "--format=csv,noheader,nounits", "-lms", "20"], stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
     try:
         proc.stdout.readline()  # the first sample: nvidia-smi is up, the card still idle
         t0 = time.time()
@@ -168,7 +158,7 @@ def _scan_times(torch, build, dk, rows, probes, timed, reps):
         g = g32.to(torch.bfloat16)
         q = probes(g, 1024)
         q16 = q.to(torch.bfloat16)
-        # the bf16 shapes both before and after the precise pass, which may leave the card at another clock
+        # bf16 before and after the precise pass (it may change the clock)
         for after in ((False, None, True) if d == 1280 else (None,)):
             if after is None:
                 timed(f"topk_l2 precise B=1024 N={n} D={d} k=1",
@@ -192,8 +182,7 @@ def _scan_times(torch, build, dk, rows, probes, timed, reps):
 
 
 def _mbconv_times(torch, dev, gen, timed, here):
-    """The fused MBConv kernel and the per-op block at each stride-1 block
-    of B0@224, B = 1024."""
+    """The fused MBConv kernel and the per-op block at each stride-1 block of B0@224, B = 1024."""
     from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
     from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables

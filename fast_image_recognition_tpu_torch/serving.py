@@ -1,11 +1,8 @@
-"""End-to-end recognition serving on the card (JAX ``serving.py``):
-``RecognitionService`` (folded backbone on raw uint8 images, a 1-NN match:
-``match`` 'pca' with ``pca_scan`` 'f32', 'bf16', 'int8' or 'packed'
-(certified with ``escalate``), 'exact', 'int8' or 'sharded'),
-``CascadeRecognitionService`` (the early-exit twin over an MBConv family),
-``make_tap_embed_fn`` and the builders. No host sync per batch."""
-
-from __future__ import annotations
+"""Recognition serving on the card (JAX ``serving.py``): ``RecognitionService``
+(folded backbone on raw uint8, 1-NN by ``match`` 'pca' (``pca_scan`` 'f32',
+'bf16', 'int8' or certified 'packed'), 'exact', 'int8' or 'sharded'),
+``CascadeRecognitionService`` (the early-exit twin), ``make_tap_embed_fn`` and
+``build_service``. No host sync a batch."""
 
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -18,20 +15,9 @@ from fast_image_recognition_tpu_torch.models import backbone_info, create_backbo
 from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
 from fast_image_recognition_tpu_torch.models.fold import MBCONV_FAMILIES, make_serving_fn
 from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, make_infer_fn, mbconv_plan
-from fast_image_recognition_tpu_torch.ops.distance_kernel import (
-    gallery_sq_norms,
-    pack_gallery_aug,
-    pad_cols,
-    pad_gallery,
-    quant_gallery_scales,
-    rescore_rows,
-    topk_candidates_l2,
-    topk_candidates_l2_packed,
-    topk_candidates_l2_packed_cert,
-    topk_candidates_l2_quant,
-    topk_l2,
-    topk_l2_quant,
-)
+from fast_image_recognition_tpu_torch.ops.distance_kernel import (gallery_sq_norms, pack_gallery_aug, pad_cols,
+    pad_gallery, quant_gallery_scales, rescore_rows, topk_candidates_l2, topk_candidates_l2_packed,
+    topk_candidates_l2_packed_cert, topk_candidates_l2_quant, topk_l2, topk_l2_quant)
 from fast_image_recognition_tpu_torch.ops.pca import fit_pca
 from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
 
@@ -41,17 +27,15 @@ _SHARD_TILE_G = 512  # the sharded scans' row tile (JAX serving.py:130, :279)
 
 
 def _mbconv_only(info: Dict[str, Any]) -> None:
-    """JAX's cascade taps the functional fold's block ladder (its
-    serving.py:570-574, :589): a limit of the reference, not of the port."""
+    """JAX's cascade taps the functional fold's ladder (its serving.py:570-574)."""
     if info.get("family") not in MBCONV_FAMILIES:
         raise NotImplementedError(f"the cascade service taps MBConv families only, as JAX's (its serving.py:570-574); "
                                   f"{info.get('family')!r} cascades through cascade/engine.py")
 
 
 def _tap_net(variables, info: Dict[str, Any], resolution: int, device: torch.device) -> FoldedEfficientNet:
-    """The folded forward the cascade taps. JAX's folds the torch-mode mean
-    into the stem and runs swish at stem and head whatever the family (its
-    serving.py:463-473, :590, :905-910): for MobileNetV2 not the served net."""
+    """The folded forward the cascade taps: JAX's folds the torch-mode mean and runs swish at stem and head whatever
+    the family (its serving.py:463-473, :905-910)."""
     return make_infer_fn(variables, info["variant"], resolution=resolution, activation="swish", device=device)
 
 
@@ -61,8 +45,7 @@ def _normalize(emb: torch.Tensor) -> torch.Tensor:
 
 
 def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tuple[torch.Tensor, int]:
-    """Host float rows -> padded bf16 rows on ``device``; a bf16 tensor is
-    taken as already padded. Returns (gallery, n_valid)."""
+    """Host rows -> padded bf16 rows on ``device`` (a bf16 tensor is taken as padded): (gallery, n_valid)."""
     if isinstance(gallery, torch.Tensor) and gallery.dtype == torch.bfloat16:
         return gallery.to(device), int(n_valid if n_valid is not None else gallery.shape[0])
     g = torch.as_tensor(np.asarray(gallery, np.float32))
@@ -71,10 +54,8 @@ def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tu
 
 
 def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int):
-    """PCA fit on a small host sample of the gallery (only these rows
-    leave the device) and the projection of every (padded) row in bf16:
-    (pca_dim, mean [D] fp32, components [D, P] fp32, projected rows [Np, P]
-    bf16)."""
+    """PCA fit on a host sample of the gallery, every row projected in bf16:
+    (pca_dim, mean [D], components [D, P], projected rows [Np, P] bf16)."""
     m = min(n_valid, pca_sample)
     sample = gallery[:m].to(torch.float32).cpu().numpy()
     pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
@@ -89,32 +70,14 @@ def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: 
 
 
 class RecognitionService:
-    """Folded-backbone extract + device-resident gallery 1-NN (JAX
-    serving.py:50). ``gallery``: ``[N, D]`` host rows or a padded bf16
-    tensor (``n_valid`` rows). JAX's defaults (PCA-128, f32 tile scan,
-    rescore 48); ``last_escalated``: the probes a certified call escalated."""
+    """Folded-backbone extract + device-resident 1-NN (JAX serving.py:50). ``gallery``: host rows or a padded bf16
+    tensor (``n_valid`` rows); JAX's defaults; ``last_escalated``: the probes a certified call escalated."""
 
-    def __init__(
-        self,
-        variables: Optional[Dict[str, Any]],
-        info: Dict[str, Any],
-        gallery,
-        *,
-        labels: Optional[np.ndarray] = None,
-        resolution: Optional[int] = None,
-        match: str = "pca",
-        pca_dim: int = 128,
-        rescore: int = 48,
-        pca_scan: str = "f32",
-        select: str = "exact",
-        escalate: Optional[float] = 0.05,
-        n_valid: Optional[int] = None,
-        pca_sample: int = 8192,
-        folded: bool = True,
-        serving_fn: Optional[torch.nn.Module] = None,
-        sharded_scan: str = "exact",
-        mesh=None,
-        device: DeviceLike = None,
+    def __init__(self, variables: Optional[Dict[str, Any]], info: Dict[str, Any], gallery, *,
+        labels: Optional[np.ndarray] = None, resolution: Optional[int] = None, match: str = "pca", pca_dim: int = 128,
+        rescore: int = 48, pca_scan: str = "f32", select: str = "exact", escalate: Optional[float] = 0.05,
+        n_valid: Optional[int] = None, pca_sample: int = 8192, folded: bool = True,
+        serving_fn: Optional[torch.nn.Module] = None, sharded_scan: str = "exact", mesh=None, device: DeviceLike = None
     ):
         self.device = resolve_device(device)
         self.resolution = int(resolution or info["resolution"])
@@ -150,9 +113,7 @@ class RecognitionService:
         self.pca_scan = pca_scan
 
         if match == "pca":
-            self.pca_dim, self._mu, self._w, gal_pca = _pca_project(
-                self.gallery, self.n_valid, pca_dim, pca_sample
-            )
+            self.pca_dim, self._mu, self._w, gal_pca = _pca_project(self.gallery, self.n_valid, pca_dim, pca_sample)
             if pca_scan == "packed":
                 self.gal_aug = pack_gallery_aug(gal_pca, self.n_valid)
             else:
@@ -168,14 +129,10 @@ class RecognitionService:
             self._gal_sc = quant_gallery_scales(scales, self.n_valid)
 
     def _build_sharded(self, gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample):
-        """``match='sharded'`` (JAX serving.py:104-131): the first ``n_valid``
-        rows over ``mesh``'s gallery axis in bf16; ``'packed'``: a PCA fit
-        on ``pca_sample`` rows and per-shard projections at tile_g 512."""
+        """``match='sharded'`` (JAX serving.py:104-131): the first ``n_valid`` rows over ``mesh``'s gallery axis in
+        bf16; ``'packed'``: per-shard PCA projections at tile_g 512."""
         from fast_image_recognition_tpu_torch.parallel.mesh import gallery_mesh
-        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (
-            shard_gallery,
-            shard_gallery_pca_aug,
-        )
+        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (shard_gallery, shard_gallery_pca_aug)
 
         self.mesh = mesh if mesh is not None else gallery_mesh()
         g = gallery if isinstance(gallery, torch.Tensor) else torch.as_tensor(np.asarray(gallery, np.float32))
@@ -196,34 +153,26 @@ class RecognitionService:
     # ------------------------------------------------------------------ #
 
     def _match_sharded(self, emb: torch.Tensor) -> torch.Tensor:
-        """[B] int32 global rows from the sharded scans, with no host sync
-        (the per-shard valid counts are host ints fixed at build)."""
-        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (
-            sharded_topk_l2,
-            sharded_topk_pca_packed,
-        )
+        """[B] int32 global rows from the sharded scans, no host sync."""
+        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (sharded_topk_l2, sharded_topk_pca_packed)
 
         if self.sharded_scan == "packed":
             _, idx = sharded_topk_pca_packed(
                 emb, self._gal_aug, self.gallery, self.mesh, self._mu, self._w, k=1, rescore=self.rescore,
-                n_valid_per_shard=self._shard_valid, tile_g=_SHARD_TILE_G,
-            )
+                n_valid_per_shard=self._shard_valid, tile_g=_SHARD_TILE_G)
         else:
             _, idx = sharded_topk_l2(emb, self.gallery, self.mesh, k=1, n_valid_per_shard=self._shard_valid)
         return idx[:, 0].to(self.device)
 
     def _certified(self, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The packed PCA path before escalation: [B, D] fp32 normalized
-        embeddings -> (cand [B, R] int64 rows, the rescored best row of
-        each probe [B] int64, escalate mask [B] bool)."""
+        """The packed PCA path before escalation: (cand [B, R] rows, the rescored best [B], escalate mask [B])."""
         qp = (emb - self._mu) @ self._w
         cand, bound = topk_candidates_l2_packed_cert(qp, self.gal_aug, self.pca_dim, self.rescore)
         cand = cand.to(torch.int64)
         d = rescore_rows(self.gallery, emb, cand)  # + |q|^2, constant per probe
         best = torch.argmin(d, dim=1, keepdim=True)
         idx_fast = cand.gather(1, best)[:, 0]
-        # certificate: the rescored best (true squared L2) must clear the
-        # lower bound on every unscored row, with slack for bf16 operand
+        # certificate: the rescored best must clear every unscored row's bound, with slack for bf16 operand
         # rounding and the 2^-13 key quantization
         qsq = (emb * emb).sum(dim=1)
         d1 = d.gather(1, best)[:, 0] + qsq
@@ -241,15 +190,12 @@ class RecognitionService:
                 qp, self._gal_pca, self._gal_sq, self._gal_sc, self.rescore, select=self.select
             )
         else:
-            cand = topk_candidates_l2(
-                qp, self._gal_pca, self.rescore, n_valid=self.n_valid, gsq=self._gal_sq,
-                precise_scores=self.pca_scan != "bf16", select=self.select,
-            )
+            cand = topk_candidates_l2(qp, self._gal_pca, self.rescore, n_valid=self.n_valid, gsq=self._gal_sq,
+                precise_scores=self.pca_scan != "bf16", select=self.select)
         return cand.to(torch.int64)
 
     def _match_emb(self, emb: torch.Tensor) -> torch.Tensor:
-        """[B, D] fp32 normalized embeddings -> [B] int32 gallery rows on
-        the device, with no host sync."""
+        """[B, D] fp32 normalized embeddings -> [B] int32 gallery rows on the device, with no host sync."""
         if self.match == "exact":
             _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
             return idx[:, 0]
@@ -269,9 +215,8 @@ class RecognitionService:
         return self._escalate(emb, idx, esc)
 
     def _escalate(self, emb: torch.Tensor, idx_fast: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
-        """[B] int32 rows: the exact scan's answer where ``esc``, else the
-        certified pick; one ``topk_l2`` launch, no host sync (escalated
-        probes first, so only their query blocks scan)."""
+        """[B] int32 rows: the exact scan's where ``esc`` (escalated probes first: only their query blocks scan), else
+        the certified pick; one ``topk_l2``, no host sync."""
         e = esc.to(torch.int32)
         # destination of each probe: escalated ones first, each group in order
         pos = torch.where(esc, e.cumsum(0) - 1, e.sum() + (1 - e).cumsum(0) - 1)
@@ -282,20 +227,17 @@ class RecognitionService:
 
     @torch.no_grad()
     def _embed(self, images) -> torch.Tensor:
-        """Raw image batch -> L2-normalized ``[B, D]`` fp32 embeddings on
-        the service device."""
+        """Raw image batch -> L2-normalized ``[B, D]`` fp32 embeddings on the service device."""
         images = torch.as_tensor(images, device=self.device)
         return _normalize(self.serve(images)["embedding"])
 
     def embed(self, images) -> np.ndarray:
-        """Raw image batch -> L2-normalized ``[B, D]`` fp32 embeddings as a
-        host numpy array (the extract-features product)."""
+        """Images -> L2-normalized ``[B, D]`` fp32 embeddings on the host."""
         return self._embed(images).cpu().numpy()
 
     @torch.no_grad()
     def identify_device(self, images) -> torch.Tensor:
-        """Raw uint8 NHWC image batch -> ``[B]`` int32 gallery rows on the
-        device (the timing-loop surface: nothing waits for the host)."""
+        """uint8 NHWC images -> ``[B]`` int32 rows on the device."""
         return self._match_emb(self._embed(images))
 
     def identify(self, images) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -304,10 +246,8 @@ class RecognitionService:
         return idx, (None if self.labels is None else self.labels[idx])
 
     def match_flops(self, batch: int) -> float:
-        """Match FLOPs per batch (the backbone's are apart): the full-D scan
-        for ``exact`` and ``int8`` (int8 changes the rate, not the count);
-        projection, PCA scan and rescore for ``pca``; for the sharded packed
-        scan the projection and rescore run on every shard."""
+        """Match FLOPs a batch, the backbone's apart: the full-D scan (``exact``, ``int8``); projection, PCA scan and
+        rescore (``pca``; on every shard when sharded)."""
         if self.match == "sharded" and self.sharded_scan == "packed":
             s = self.mesh.shape["gallery"]
             return (
@@ -328,9 +268,8 @@ class RecognitionService:
 
 
 def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
-    """NCHW activation ``[B, C, H, W]`` -> ``[B, g*g*C]`` fp32 adaptive mean
-    pooling, flattened in the JAX package's NHWC order ``(gh, gw, C)``. H
-    and W are cropped to a multiple of the grid first; g=1 is plain GAP."""
+    """NCHW ``[B, C, H, W]`` -> ``[B, g*g*C]`` fp32 adaptive mean pool in JAX's
+    NHWC order ``(gh, gw, C)``, H and W cropped to a multiple of g."""
     b, c, hh, ww = h.shape
     gh, gw = min(g, hh), min(g, ww)
     h = h[:, :, : (hh // gh) * gh, : (ww // gw) * gw].to(torch.float32)
@@ -339,8 +278,7 @@ def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
 
 
 def _tap_forward(net: FoldedEfficientNet, images: torch.Tensor, taps: Sequence[str], grid: int):
-    """Whole forward: (grid-pooled feats of the tapped blocks in network
-    order, normalized final embedding)."""
+    """Whole forward: (grid-pooled feats of the tapped blocks in network order, normalized final embedding)."""
     tapset = set(taps)
     h = net.stem(images)
     feats = []
@@ -351,20 +289,11 @@ def _tap_forward(net: FoldedEfficientNet, images: torch.Tensor, taps: Sequence[s
     return feats, _normalize(net.head(h))
 
 
-def make_tap_embed_fn(
-    variables: Optional[Dict[str, Any]],
-    info: Dict[str, Any],
-    resolution: Optional[int] = None,
-    taps: Sequence[str] = (),
-    grid: int = 1,
-    *,
-    serving_fn: Optional[FoldedEfficientNet] = None,
-    device: DeviceLike = None,
-) -> Callable:
-    """``fn(images) -> (list of [B, g*g*C_l] fp32 tap feats, [B, D]
-    normalized final embedding)`` over the folded forward: the extractor
-    that builds per-level galleries. grid=1 is plain GAP, the tap embedding
-    the level-gallery cascade matches on."""
+def make_tap_embed_fn(variables: Optional[Dict[str, Any]], info: Dict[str, Any], resolution: Optional[int] = None,
+    taps: Sequence[str] = (), grid: int = 1, *, serving_fn: Optional[FoldedEfficientNet] = None,
+    device: DeviceLike = None) -> Callable:
+    """``fn(images) -> (tap feats [B, g*g*C_l] fp32, [B, D] normalized
+    embedding)`` over the folded forward: the per-level gallery extractor."""
     _mbconv_only(info)
     dev = resolve_device(device)
     net = serving_fn if serving_fn is not None else _tap_net(variables, info, resolution, dev)
@@ -377,8 +306,7 @@ def make_tap_embed_fn(
 
 
 def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> List[np.ndarray]:
-    """Ridge fit per tap of ``[feats, 1] @ A ~ emb`` on the host in fp32:
-    ``A = (X^T X + ridge * n * I)^-1 X^T emb``, ``[F_l + 1, D]`` each."""
+    """Ridge fit per tap of ``[feats, 1] @ A ~ emb`` in fp32 on the host."""
     out = []
     for x in feats:
         x = np.concatenate([x, np.ones((len(x), 1), np.float32)], axis=1)
@@ -388,39 +316,16 @@ def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> L
 
 
 class CascadeRecognitionService:
-    """Early-exit serving (JAX serving.py:483): backbone segments ending at
-    ``taps``; after each the live probes are matched (single-min packed
-    scan, ``rescore`` rows rescored) and exit when ``d1 < ratio^2 * d2``
-    (``d2_rule`` 'row' or 'class'). Survivors, least confident first, fill
-    the next segment's static capacity, the overflow exits as forced.
-    ``galleries=None``: ridge readouts predict the final embedding from
-    each tap; else one row-aligned gallery per tap. No host sync."""
+    """Early-exit serving (JAX serving.py:483): segments ending at ``taps``, after each the live probes matched
+    (single-min scan + rescore), exiting when ``d1 < ratio^2 * d2`` (``d2_rule``); survivors, least confident first,
+    fill static capacities, the overflow forced out; ``galleries=None``: ridge readouts. No host sync."""
 
-    def __init__(
-        self,
-        variables: Optional[Dict[str, Any]],
-        info: Dict[str, Any],
-        gallery,
-        *,
-        labels: Optional[np.ndarray] = None,
-        resolution: Optional[int] = None,
-        taps: Optional[Sequence[str]] = None,
-        grid: int = 2,
-        pca_dim: int = 124,
-        rescore: int = 48,
-        ratio: float = 0.7,
-        d2_rule: str = "row",
-        n_valid: Optional[int] = None,
-        pca_sample: int = 8192,
-        calib_total: int = 4096,
-        calib_batch: int = 1024,
-        ridge: float = 1e-3,
-        calib_images=None,
-        galleries: Optional[Sequence] = None,
-        seed: int = 17,
-        serving_fn: Optional[FoldedEfficientNet] = None,
-        device: DeviceLike = None,
-    ):
+    def __init__(self, variables: Optional[Dict[str, Any]], info: Dict[str, Any], gallery, *,
+        labels: Optional[np.ndarray] = None, resolution: Optional[int] = None, taps: Optional[Sequence[str]] = None,
+        grid: int = 2, pca_dim: int = 124, rescore: int = 48, ratio: float = 0.7, d2_rule: str = "row",
+        n_valid: Optional[int] = None, pca_sample: int = 8192, calib_total: int = 4096, calib_batch: int = 1024,
+        ridge: float = 1e-3, calib_images=None, galleries: Optional[Sequence] = None, seed: int = 17,
+        serving_fn: Optional[FoldedEfficientNet] = None, device: DeviceLike = None):
         _mbconv_only(info)
         self.device = resolve_device(device)
         self.info = info
@@ -450,9 +355,8 @@ class CascadeRecognitionService:
         self.num_levels = len(self.segments)
 
         self.gallery, self.n_valid = _device_gallery(gallery, n_valid, self.device)
-        # the ratio rule needs a real runner-up, so small galleries shrink
-        # the scan tile until there are >= 8 tiles (1M rows stay at 1024);
-        # galleries stay padded to 1024 rows, so whole pad tiles can exist
+        # the ratio rule needs a runner-up: small galleries shrink the tile to >= 8 tiles (pads stay
+        # at 1024 rows, so whole pad tiles can exist)
         self._tile_g = 1024
         while self._tile_g > 128 and self.n_valid < 8 * self._tile_g:
             self._tile_g //= 2
@@ -488,11 +392,8 @@ class CascadeRecognitionService:
                         "tap galleries must pad to the final gallery's row count "
                         "(pass n_valid and same pre-pad row counts)"
                     )
-                self._tap_assets.append({
-                    "gal": gpad,
-                    "aug": pack_gallery_aug(gpad, self.n_valid, self._tile_g),
-                    "dim": int(gpad.shape[1]),
-                })
+                self._tap_assets.append({"gal": gpad, "aug": pack_gallery_aug(gpad, self.n_valid, self._tile_g),
+                    "dim": int(gpad.shape[1])})
         else:
             self._fit_readouts(calib_images, calib_total, calib_batch, ridge, seed)
         self.survivor_fractions: Optional[List[float]] = None
@@ -501,9 +402,8 @@ class CascadeRecognitionService:
     # ------------------------------------------------------------------ #
 
     def _fit_readouts(self, calib_images, calib_total, calib_batch, ridge, seed) -> None:
-        """Ridge-fit per-tap affine readouts tap feats -> final embedding on
-        calibration images (given, or uint8 noise drawn from
-        ``np.random.default_rng(seed)`` in the JAX package's order)."""
+        """Ridge-fit per-tap readouts to the final embedding on calibration images (given, or uint8 noise from
+        ``np.random.default_rng(seed)`` in JAX's order)."""
         rng = np.random.default_rng(seed)
         res = self.resolution
         if calib_images is not None:
@@ -530,16 +430,14 @@ class CascadeRecognitionService:
         self._readouts = [torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in readouts]
 
     def _match_top2(self, emb, gal_aug, gallery, project: bool = True, dim: Optional[int] = None):
-        """Normalized [b, D] queries -> (best row, d1, d2) by the single-min
-        packed scan and an fp32 rescore; ``project``: in the final gallery's
-        PCA space, else against a same-space (tap) gallery."""
+        """[b, D] queries -> (best row, d1, d2): single-min packed scan + fp32
+        rescore, in the final PCA space (``project``) or a tap gallery's."""
         qp = (emb - self._mu) @ self._w if project else emb
         cand = topk_candidates_l2_packed(
             qp, gal_aug, dim if dim is not None else self.pca_dim, self.rescore, self._tile_g
         ).to(torch.int64)
         d = torch.clamp_min(1.0 + rescore_rows(gallery, emb, cand), 0.0)
-        # whole pad tiles (the gallery pads to 1024 rows, the tile may be
-        # smaller) give zero rows at d = 1 that could beat every real row
+        # whole pad tiles give zero rows at d = 1, which could beat real rows
         d = torch.where(cand < self.n_valid, d, math.inf)
         if d.shape[1] < 2:
             # one candidate: no runner-up, so the rule must never fire
@@ -570,9 +468,8 @@ class CascadeRecognitionService:
         return _normalize(_grid_pool(h, self.grid) @ a[:-1] + a[-1])
 
     def _run(self, images: torch.Tensor, caps: Tuple[int, ...], trace: Optional[list] = None):
-        """One batch through the cascade -> ``[2B+1]`` int32
-        ``[preds | exit_level | forced]``. With ``trace`` a list, each
-        level appends its ``gidx``, ``live``, ``d1`` and ``margin``."""
+        """One batch -> ``[2B+1]`` int32 ``[preds | exit_level | forced]``; ``trace``: a list each level appends
+        ``gidx``, ``live``, ``d1``, ``margin`` to."""
         net = self.net
         b = int(images.shape[0])
         dev = images.device
@@ -602,8 +499,7 @@ class CascadeRecognitionService:
                 break
             surv = live & ~fire
             c_next = min(caps[level + 1], int(gidx.shape[0]))
-            # keep the least confident survivors (most negative margin);
-            # the overflow, closest to firing, exits here and is counted
+            # keep the least confident survivors; the overflow exits here, counted
             order = torch.sort(torch.where(surv, margin, math.inf), stable=True).indices[:c_next]
             forced = forced + torch.clamp_min(surv.sum(dtype=torch.int32) - c_next, 0)
             gidx = gidx[order]
@@ -614,9 +510,8 @@ class CascadeRecognitionService:
 
     @torch.no_grad()
     def calibrate(self, images, slack: float = 1.3, multiple: int = 64) -> List[float]:
-        """Measure per-level survivor fractions on a representative batch
-        and size the static capacities: ``cap_l = roundup(B * frac * slack,
-        multiple)``, at most B."""
+        """Survivor fractions per level on a batch; capacities ``roundup(B * frac
+        * slack, multiple)``, at most B."""
         x = torch.as_tensor(images, device=self.device)
         feats, _ = _tap_forward(self.net, x, self.taps, self.grid)
         b = int(x.shape[0])
@@ -649,29 +544,24 @@ class CascadeRecognitionService:
 
     @torch.no_grad()
     def identify_device(self, images, capacities: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """Raw uint8 NHWC image batch -> ``[2B+1]`` int32 on the device:
-        ``[preds | exit_level | forced]`` (the timing-loop surface)."""
+        """uint8 NHWC images -> ``[2B+1]`` int32 ``[preds | exit_level | forced]`` on the device."""
         x = torch.as_tensor(images, device=self.device)
         caps = tuple(capacities) if capacities else self.capacities_for(int(x.shape[0]))
         return self._run(x, caps)
 
     def identify(self, images, capacities: Optional[Sequence[int]] = None):
-        """Raw image batch -> (gallery rows [B] int64, labels [B] or None,
-        stats with ``break_counts`` and ``forced_fraction``)."""
+        """Images -> (rows [B] int64, labels or None, ``break_counts`` and ``forced_fraction``)."""
         packed = self.identify_device(images, capacities).cpu().numpy()
         b = (packed.shape[0] - 1) // 2
         idx = packed[:b].astype(np.int64)
         exit_level = packed[b : 2 * b]
-        stats = {
-            "break_counts": (np.bincount(exit_level, minlength=self.num_levels) / b).tolist(),
-            "forced_fraction": float(packed[2 * b]) / b,
-        }
+        stats = {"break_counts": (np.bincount(exit_level, minlength=self.num_levels) / b).tolist(),
+            "forced_fraction": float(packed[2 * b]) / b}
         return idx, (None if self.labels is None else self.labels[idx]), stats
 
 
 def _builder(cls, variant, gallery, labels, seed, variables, kwargs):
-    """JAX serving.py:1076-1128: ``variables=None`` draws a fresh backbone
-    from ``seed`` (on ``device``: without a card it raises)."""
+    """JAX serving.py:1076-1128; ``variables=None`` draws a backbone from ``seed``."""
     info = backbone_info(variant)
     if variables is None:
         _, variables = create_backbone(variant, 0, seed=seed, device=kwargs.get("device"))
@@ -685,6 +575,5 @@ def build_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *,
 
 def build_cascade_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *, seed: int = 0,
                           variables: Optional[Dict[str, Any]] = None, **kwargs) -> CascadeRecognitionService:
-    """As :func:`build_service`; the service's own ``seed`` (17) seeds its
-    calibration noise, as in JAX."""
+    """As :func:`build_service`; the service's own ``seed`` (17) seeds its calibration noise, as in JAX."""
     return _builder(CascadeRecognitionService, variant, gallery, labels, seed, variables, kwargs)

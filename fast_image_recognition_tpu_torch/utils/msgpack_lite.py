@@ -1,14 +1,13 @@
-"""A small msgpack decoder for what flax's ``msgpack_serialize`` writes: maps,
-arrays, str, bin, ints, floats, nil, bool and flax's ext types (1 ndarray
-as ``(shape, dtype name, C bytes)``, 2 complex, 3 numpy scalar); chunked
-arrays (``__msgpack_chunked_array__``) are joined, as flax restores them."""
-
-from __future__ import annotations
+"""A small msgpack codec for flax's ``msgpack_serialize``: maps, arrays, str, bin,
+ints, floats, nil, bool, ext 1 (ndarray), 2 (complex), 3 (numpy scalar);
+chunked arrays joined. ``to_bytes`` writes flax's bytes (a list as "0", "1",
+...; tensors, bf16 too)."""
 
 import struct
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
@@ -146,3 +145,88 @@ def msgpack_restore(data: bytes) -> Any:
     """The port's ``flax.serialization.msgpack_restore``: nested dicts of
     numpy arrays (read-only views of ``data``)."""
     return _unchunk(unpackb(data))
+
+
+MAX_CHUNK_SIZE = 2**30  # flax's: a larger array would be written in chunks
+
+
+def _head(small: int, codes, n: int) -> bytes:
+    """A length header: the fix form below ``small``, else 8/16/32-bit."""
+    if n < small:
+        return bytes([codes[0] | n])
+    for code, fmt, top in zip(codes[1:], (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _int(v: int) -> bytes:
+    if -32 <= v <= 0x7F:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    for code, fmt, lo, hi in ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16), (0xCE, ">I", 0, 1 << 32),
+                              (0xCF, ">Q", 0, 1 << 64), (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+                              (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0)):
+        if lo <= v < hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _ext_bytes(code: int, data: bytes) -> bytes:
+    n = len(data)
+    if n in (1, 2, 4, 8, 16):
+        return bytes([0xD4 + n.bit_length() - 1, code]) + data
+    return _head(0, (0, 0xC7, 0xC8, 0xC9), n) + bytes([code]) + data
+
+
+def _array_ext(arr) -> bytes:
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        name = "bfloat16" if t.dtype == torch.bfloat16 else None
+        arr = t.view(torch.int16).numpy() if name else t.numpy()
+        shape, name = tuple(t.shape), name or arr.dtype.name
+    else:
+        shape, name = arr.shape, arr.dtype.name
+    if arr.nbytes > MAX_CHUNK_SIZE:
+        raise ValueError(f"an array of {arr.nbytes} bytes exceeds flax's chunk size {MAX_CHUNK_SIZE}; "
+                         "flax would write it in chunks, which this encoder does not")
+    return packb([list(shape), name, np.ascontiguousarray(arr).tobytes()])
+
+
+def packb(obj: Any) -> bytes:
+    """One msgpack object; dicts keep their order, keys as given."""
+    if obj is None or obj is True or obj is False:
+        return bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        return _ext_bytes(_EXT_NDARRAY, _array_ext(obj))
+    if isinstance(obj, np.generic):
+        return _ext_bytes(_EXT_NPSCALAR, _array_ext(np.asarray(obj)))
+    if isinstance(obj, int):
+        return _int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, complex):
+        return _ext_bytes(_EXT_COMPLEX, packb([obj.real, obj.imag]))
+    if isinstance(obj, str):
+        b = obj.encode("utf-8")
+        return _head(32, (0xA0, 0xD9, 0xDA, 0xDB), len(b)) + b
+    if isinstance(obj, bytes):
+        return _head(0, (0, 0xC4, 0xC5, 0xC6), len(obj)) + obj
+    if isinstance(obj, (list, tuple)):
+        return _head(16, (0x90, None, 0xDC, 0xDD), len(obj)) + b"".join(packb(v) for v in obj)
+    if isinstance(obj, dict):
+        return _head(16, (0x80, None, 0xDE, 0xDF), len(obj)) + b"".join(packb(k) + packb(v) for k, v in obj.items())
+    raise TypeError(f"cannot write {type(obj).__name__} as msgpack")
+
+
+def to_state_dict(tree: Any) -> Any:
+    """flax's state dict: str keys, a list or tuple as a map of "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def to_bytes(tree: Any) -> bytes:
+    """What ``flax.serialization.to_bytes`` writes for a tree of numpy arrays, torch tensors and Python scalars."""
+    return packb(to_state_dict(tree))

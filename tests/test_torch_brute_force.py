@@ -1,13 +1,10 @@
-"""The port's exact 1-NN matcher and evaluation harness against JAX's on the
-same seeded inputs (the sets of tests/test_brute_force.py), on the CPU.
+"""The port's exact 1-NN matcher and evaluation harness against JAX's on
+tests/test_brute_force.py's seeded sets.
 
-Tolerances: rows equal but at fp64 ties within 2^-16 relative (none on
-these sets); distances rtol 2e-4, atol 1e-7 (tests/test_distances.py's
-``pairwise_distances`` bound), the int8 path's rescored ones 2^-20 relative
-+ 1e-8 (as tests/test_torch_quant.py); the write -> load -> split -> match
--> evaluate slice: file text, arrays, split indices and every
-``EvalResult`` field but ``ms_per_image`` (wall clock) equal.
-"""
+Tolerances: rows equal but at fp64 ties within 2^-16 relative; distances rtol
+2e-4, atol 1e-7 (tests/test_distances.py), int8 rescored 2^-20 relative + 1e-8;
+the write -> load -> split -> match -> evaluate slice: texts, arrays, splits
+and every ``EvalResult`` field but ``ms_per_image`` equal."""
 
 import dataclasses
 
@@ -24,7 +21,7 @@ from fast_image_recognition_tpu_torch import evaluation as PE
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher, SearchResult
 from fast_image_recognition_tpu_torch.search import brute_force
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 def _sets(name):
@@ -53,8 +50,7 @@ def _sets(name):
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", ["l2", "max_features_64", "l2_fast", "chi2", "kl", "chi2_streamed",
-                                  "kl_streamed"])
+@pytest.mark.parametrize("name", ["l2", "max_features_64", "l2_fast", "chi2", "kl", "chi2_streamed", "kl_streamed"])
 def test_matcher_matches_jax(name):
     g, p, kw, end = _sets(name)
     jkw = dict(kw, kind=JKind(kw["kind"])) if "kind" in kw else kw
@@ -77,8 +73,7 @@ def test_matcher_matches_jax(name):
 
 
 def test_int8_matcher_matches_jax():
-    """precision='int8': 3000 rows (three 1024-row tiles, the last one
-    ragged), rows equal to JAX's and distances within 2^-20 relative."""
+    """int8 over 3000 rows (a ragged last tile): rows = JAX's, distances 2^-20 relative."""
     g, _ = PD.make_synthetic_gallery(30, 100, 64, seed=51)
     p, _ = PD.make_synthetic_gallery(30, 1, 64, seed=52)
     jr = JMatcher(g, precision="int8").search(p)
@@ -94,8 +89,7 @@ def test_int8_matcher_matches_jax():
 
 
 def test_end_to_end_slice_matches_jax(tmp_path):
-    """write -> load -> split -> match -> evaluate_matcher, as
-    tests/test_brute_force.py:46-73 runs it, in both packages."""
+    """write -> load -> split -> match -> evaluate in both packages (tests/test_brute_force.py:46-73)."""
     feats, labels = PD.make_synthetic_gallery(10, 20, 64, seed=5)
     names = [f"class_{c:03d}" for c in range(10)]
     pp, jp = tmp_path / "port.txt", tmp_path / "jax.txt"
@@ -126,8 +120,7 @@ def test_end_to_end_slice_matches_jax(tmp_path):
 
 
 def test_harness_helpers_match_jax():
-    """get_threshold, macro recall, evaluate_classifier and
-    repeated_splits_eval (sigma over repeats), fields but the times equal."""
+    """The harness helpers' fields but the times equal."""
     rng = np.random.default_rng(3)
     d = rng.uniform(0, 1, 501)
     assert PE.get_threshold(d, 0.01) == JE.get_threshold(d, 0.01)

@@ -1,14 +1,10 @@
-"""The port's early-exit cascade (``CascadeRecognitionService`` and its
-single-min packed scan) against JAX's on the same random-init B0 weights,
-images and galleries (JAX in interpret mode, the port's plain versions).
+"""The port's early-exit cascade (``CascadeRecognitionService``, its single-min
+packed scan) against JAX's on the same random-init B0, images and galleries.
 
-Tolerances: the scan's distances 2^-12 relative, rows equal but at fp32
-ties within 2^-12; readouts, the port's ridge fit on JAX's calibration
-features 1e-3 relative, on its own 5e-2 (bf16 backbones); answers, the
-same rows, exit levels and forced exits but at probes whose margin
-``ratio^2 * d2 - d1`` lies within 2^-8 * d1 of zero and rows tying within
-2^-8 relative.
-"""
+Tolerances: scan distances 2^-12 relative, rows equal but at ties within it;
+readouts: the ridge fit on JAX's features 1e-3 relative, on the port's own 5e-2
+(bf16 backbones); answers: rows, levels and forced exits equal but where
+``ratio^2 * d2 - d1`` is within 2^-8 * d1 of zero or rows tie within 2^-8."""
 
 import jax
 import jax.numpy as jnp
@@ -19,19 +15,13 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.models import backbone_info as jax_info
-from fast_image_recognition_tpu.models import create_backbone
 from fast_image_recognition_tpu.serving import CascadeRecognitionService as JaxCascade
 from fast_image_recognition_tpu.serving import _grid_pool as jax_grid_pool
 from fast_image_recognition_tpu_torch.kernels import plain
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
-from fast_image_recognition_tpu_torch.serving import (
-    CascadeRecognitionService,
-    _grid_pool,
-    _solve_readouts,
-    build_cascade_service,
-    make_tap_embed_fn,
-)
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from fast_image_recognition_tpu_torch.serving import (CascadeRecognitionService, _grid_pool, _solve_readouts,
+    build_cascade_service, make_tap_embed_fn)
+from test_torch_synthetic import _one_thread, jax_b0  # noqa: F401
 
 
 RES = 32
@@ -46,12 +36,7 @@ def _unit(x):
 
 @pytest.fixture(scope="module")
 def weights():
-    model, variables = create_backbone("b0", 0, resolution=RES)
-    variables = jax.device_get(variables)
-    np_vars = jax.tree_util.tree_map(
-        np.asarray, {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    )
-    return model, variables, np_vars
+    return jax_b0(RES)
 
 
 # the single-min packed scan
@@ -73,10 +58,8 @@ def test_tile_min_packed_and_candidates_match_jax(tile_g, d):
     # raw keys: the plain version against the Pallas kernel's
     qa = P._augment_queries(torch.from_numpy(q), d, 128)
     pk = plain.tilemin_packed_plain(qa, paug, tile_g).numpy()
-    jk = np.asarray(J._tilemin_packed_block(
-        jnp.pad(J._augment_queries(jnp.asarray(q), d, 128), ((0, 128 - b), (0, 0))),
-        jaug, d, tile_g, True,
-    )).T[:b]
+    jk = np.asarray(J._tilemin_packed_block(jnp.pad(J._augment_queries(jnp.asarray(q), d, 128), ((0, 128 - b), (0, 0))),
+        jaug, d, tile_g, True)).T[:b]
     assert pk.shape == jk.shape == (b, n_tiles)
     assert (pk == jk).mean() > 0.9
 
@@ -84,8 +67,7 @@ def test_tile_min_packed_and_candidates_match_jax(tile_g, d):
     pd, pi = (x.numpy() for x in P.tile_min_l2_packed(torch.from_numpy(q), paug, d, tile_g))
     assert pi.dtype == np.int32
     np.testing.assert_allclose(pd, jd, rtol=REL, atol=1e-7)
-    # rows may differ only where their fp32 distances from the shared bf16
-    # values tie within 2^-12 relative
+    # rows differ only at 2^-12 ties of the shared bf16 values' distances
     qb = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
     gb = np.concatenate([torch.from_numpy(g).to(torch.bfloat16).double().numpy(), np.full((3072 - n_valid, d), 9.0)])
     dist = ((qb[:, None, :] - gb[None]) ** 2).sum(-1)
@@ -113,8 +95,7 @@ def test_tile_min_packed_and_candidates_match_jax(tile_g, d):
 
 
 def test_tilemin_packed_plain_ties_and_pads():
-    """Equal rows: the lower row wins (keys order by (distance, row)); pad
-    rows (|g|^2 = 1e38) never win."""
+    """Equal rows: the lower row wins (keys order by (distance, row)); pad rows (|g|^2 = 1e38) never win."""
     rng = np.random.default_rng(1)
     base = _unit(rng.standard_normal((4, 60)))
     g = np.concatenate([base, base])  # rows i and i+4 identical, one tile
@@ -167,8 +148,7 @@ def test_readout_fit_matches_jax(readout):
     js, ps, *_ = readout
     assert ps.mode == js.mode == "readout" and ps.num_levels == js.num_levels == 3
     assert ps.segments == js.segments and ps._tile_g == js._tile_g == 128
-    # the JAX package's calibration pass, recorded: the same noise images
-    # (np.random.default_rng(seed) in the same order) and its features
+    # JAX's calibration pass recorded: the same noise images and its features
     seen = []
     fwd = js._tap_forward_jit()
     js._tap_fwd = lambda folded, imgs: seen.append((np.asarray(imgs), fwd(folded, imgs))) or seen[-1][1]
@@ -188,8 +168,7 @@ def test_readout_fit_matches_jax(readout):
 
 
 def test_readout_identify_matches_jax(readout):
-    """Random weights: the readouts are uninformative, nothing fires, and
-    every probe gets its planted row at the final level."""
+    """Random weights: nothing fires, every probe gets its planted row at the last level."""
     js, ps, images, gal, true_idx, _ = readout
     ji, _, jst = js.identify(images)
     pi, plab, pst = ps.identify(images)
@@ -200,9 +179,7 @@ def test_readout_identify_matches_jax(readout):
 
 
 def test_readout_capacity_overflow_matches_jax(readout):
-    """Capacities (16, 4, 4): the same 12 probes are forced out at level 0
-    with the same rows, given the same readouts (the port holds the JAX
-    package's, so only the backbones' rounding differs)."""
+    """Capacities (16, 4, 4): the same 12 probes forced out at level 0 with the same rows, on JAX's readouts."""
     js, ps, images, gal, true_idx, _ = readout
     own = ps._readouts
     ps._readouts = [torch.from_numpy(np.array(a)) for a in js._readouts]
@@ -214,8 +191,7 @@ def test_readout_capacity_overflow_matches_jax(readout):
     assert pf == jf == R_BATCH - 4
     np.testing.assert_array_equal(pl, jl)
     np.testing.assert_array_equal(np.bincount(pl, minlength=3), [12, 0, 4])
-    # a forced row may differ only at a near-tie under the port's level-0
-    # prediction of the final embedding
+    # a forced row differs only at a near-tie of the level-0 prediction
     moved = pp != jp
     if moved.any():
         with torch.no_grad():
@@ -242,11 +218,8 @@ L_PROBES, L_VALID = 16, 1500  # 4 levels, 4 probes per exit level; tile_g 128
 
 
 def _level_layout(feats):
-    """Row-aligned galleries (3 taps + final) of L_VALID rows, labels,
-    planted rows. Probe p has row r_p (label p) and a twin t_p (label
-    100 + p) in another tile. Before its exit level p // 4 both hold the
-    probe's own embedding, so d1 = d2 and the rule cannot fire; from that
-    level on r_p holds it and t_p a random row. Other rows are random."""
+    """Row-aligned galleries (3 taps + final): probe p has row r_p (label p) and twin t_p (100 + p) in another tile,
+    both its embedding before level p // 4 (d1 = d2: no exit), after it r_p alone. Other rows random."""
     rng = np.random.default_rng(3)
     r = 90 * np.arange(L_PROBES) + 7
     t = (r + 700) % L_VALID  # never an r row, always another 128-row tile
@@ -275,8 +248,7 @@ def level(weights):
 
 def _level_kw(level, d2_rule):
     *_, gals, labels, _ = level
-    return dict(labels=labels, resolution=RES, taps=L_TAPS, galleries=gals[:-1], d2_rule=d2_rule,
-                rescore=8, ratio=0.85)
+    return dict(labels=labels, resolution=RES, taps=L_TAPS, galleries=gals[:-1], d2_rule=d2_rule, rescore=8, ratio=0.85)
 
 
 def _level_port(level, d2_rule):
@@ -285,9 +257,7 @@ def _level_port(level, d2_rule):
 
 
 def test_level_mode_matches_jax(level):
-    """Both ``d2_rule``s on one pair of services: the rule is read per
-    call on both sides once the JAX service's compiled programs are
-    dropped."""
+    """Both ``d2_rule``s on one pair of services (JAX's compiled programs dropped)."""
     model, variables, _, images, gals, labels, planted = level
     js = JaxCascade(model, variables, jax_info("b0"), gals[-1], **_level_kw(level, "class"))
     ps = _level_port(level, "class")
@@ -338,10 +308,8 @@ def test_errors_match_jax(weights, level):
     rows = gals[-1]
     for kw, exc in (
         (dict(galleries=[gals[0][:1000], gals[1], gals[2]], taps=L_TAPS, labels=labels, d2_rule="class"), "row-aligned"),
-        (dict(d2_rule="nearest"), "d2_rule"),
-        (dict(d2_rule="class"), "labels"),
-        (dict(galleries=gals[:2], taps=L_TAPS), "one tap gallery"),
-    ):
+        (dict(d2_rule="nearest"), "d2_rule"), (dict(d2_rule="class"), "labels"),
+        (dict(galleries=gals[:2], taps=L_TAPS), "one tap gallery")):
         with pytest.raises(ValueError, match=exc):
             JaxCascade(model, variables, jax_info("b0"), rows, resolution=RES, **kw)
         with pytest.raises(ValueError, match=exc):

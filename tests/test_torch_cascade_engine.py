@@ -1,15 +1,11 @@
-"""The port's segment engine (``SequentialInferencePipeline``) against JAX's
-on the same random-init B0 weights and seeded 32-px images, mirroring
-tests/test_cascade.py:120-325.
+"""The port's segment engine (``SequentialInferencePipeline``) against JAX's on
+the same random-init B0 and 32-px images (tests/test_cascade.py:120-325).
 
-Tolerances: within the port, as within JAX, ``predict_fused`` at full
-capacities and ``predict_pooled`` give ``predict``'s decisions exactly, and
-the kNN head the port's ``sequential_knn_cascade`` on its own level
-embeddings; across the packages (bf16 backbones that round elsewhere)
->= 90 % of predictions and >= 80 % of exit levels, folded vs bind too
-(tests/test_cascade.py:253-265); a level-0 prediction equals JAX's tap
-head but where its two best scores lie within 2^-5 of max |score|.
-"""
+Tolerances: within each package ``predict_fused`` and ``predict_pooled`` give
+``predict``'s decisions exactly, the kNN head ``sequential_knn_cascade``'s;
+across them (bf16 backbones) >= 90 % of predictions and >= 80 % of levels,
+folded vs bind too (tests/test_cascade.py:253-265); a level-0 prediction equals
+JAX's but where its two best scores lie within 2^-5 of max |score|."""
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +14,11 @@ import pytest
 import torch
 
 from fast_image_recognition_tpu.cascade.engine import SequentialInferencePipeline as JaxPipeline
-from fast_image_recognition_tpu.models import create_efficientnet as jax_create
 from fast_image_recognition_tpu.models.pruning import prune_efficientnet
 from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
 from fast_image_recognition_tpu_torch.cascade.exits import sequential_knn_cascade
 from fast_image_recognition_tpu_torch.models import EfficientNet, default_taps
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, jax_b0  # noqa: F401
 
 RES = 32
 TAPS = default_taps("b0")
@@ -33,11 +28,7 @@ TIE = 2.0**-5
 
 @pytest.fixture(scope="module")
 def b0():
-    model, variables = jax_create("b0", 0, resolution=RES)
-    variables = jax.device_get(variables)
-    np_vars = jax.tree_util.tree_map(np.asarray, {"params": variables["params"],
-                                                  "batch_stats": variables["batch_stats"]})
-    return model, variables, np_vars
+    return jax_b0(RES)
 
 
 def _jit_apply(model):
@@ -57,10 +48,8 @@ def _images(n, seed=0):
 def _make_pipe(b0, n=24, seed=0, thresholds=None, **kw):
     _, _, np_vars = b0
     coefs, intercepts = _heads()
-    pipe = SequentialInferencePipeline(
-        EfficientNet("b0"), np_vars, TAPS, coefs, intercepts,
-        thresholds=thresholds or [0.0] * (len(DIMS) - 1), buckets=(8, 16, 32), device="cpu", **kw,
-    )
+    pipe = SequentialInferencePipeline(EfficientNet("b0"), np_vars, TAPS, coefs, intercepts,
+        thresholds=thresholds or [0.0] * (len(DIMS) - 1), buckets=(8, 16, 32), device="cpu", **kw)
     return pipe, _images(n, seed)
 
 
@@ -90,8 +79,7 @@ def test_segment_pipeline_end_to_end(b0):
 
 @pytest.fixture(scope="module")
 def jax_predict(b0):
-    """JAX's bind-engine ``predict`` at thresholds calibrated by the port's
-    bind engine on the same 32 images."""
+    """JAX's bind-engine ``predict`` at thresholds calibrated by the port's bind engine on the same 32 images."""
     model, variables, _ = b0
     pipe, images = _make_pipe(b0, n=32)
     thresholds = pipe.calibrate(images)
@@ -226,13 +214,12 @@ def test_knn_fused_matches_host_compaction(b0):
 
 
 def test_segment_pipeline_on_pruned_backbone(b0):
-    """JAX's pruning surgery's widths and weights carried into the port's
-    module; level 0 against the pruned flax module, standalone."""
+    """JAX's pruned widths and weights in the port's module; level 0 against the pruned flax module."""
     model, variables, _ = b0
     pruned_model, pruned_vars = prune_efficientnet(model, variables, 0.25, "l1")
     pruned_vars = jax.device_get(pruned_vars)
     np_vars = jax.tree_util.tree_map(np.asarray, {"params": pruned_vars["params"],
-                                                  "batch_stats": pruned_vars["batch_stats"]})
+                                     "batch_stats": pruned_vars["batch_stats"]})
     images = _images(6, seed=1)
     rng = np.random.default_rng(0)
     coefs = [rng.normal(0, 0.1, (4, d)).astype(np.float32) for d in DIMS]

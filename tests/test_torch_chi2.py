@@ -1,15 +1,12 @@
-"""The port's chi2 1-NN (``ops/chi2_kernel.py::chi2_nn``; on the CPU
-``plain.chi2_nn_plain``, exact division) against JAX's ``chi2_nn`` (its
-Pallas kernel in interpret mode) on seeded inputs, and ``chi2_cost`` tiny.
+"""The port's chi2 1-NN (on the CPU ``plain.chi2_nn_plain``, exact division)
+against JAX's ``chi2_nn`` (interpret mode), and ``chi2_cost`` tiny.
 
-Tolerances: rows equal the fp64 oracle's argmin (bf16 gallery >= 90 %,
-JAX's bound), distances rtol 2e-5, atol 1e-7 of its minimum; against JAX,
-indices equal but where the oracle's two least distances lie within 2^-7
-relative (JAX's ``pl.reciprocal(approx=True)`` is up to 2^-8 off per term
-in interpret mode, measured 3.82e-3); refined distances rtol 2e-5, atol
-1e-7 of JAX's (tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The
-kernel runs only on the card; its launcher refuses CPU tensors.
-"""
+Tolerances: rows equal the fp64 argmin (bf16 gallery >= 90 %, JAX's bound),
+distances rtol 2e-5, atol 1e-7; against JAX, indices equal but where the
+oracle's two least lie within 2^-7 relative (JAX's approximate reciprocal is up
+to 2^-8 off a term here), refined distances rtol 2e-5, atol 1e-7
+(tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The launcher refuses CPU
+tensors."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +19,7 @@ from fast_image_recognition_tpu.ops.distances import oracle_pairwise as j_oracle
 from fast_image_recognition_tpu_torch.kernels import build
 from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
 from fast_image_recognition_tpu_torch.scripts import chi2_cost
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 NEAR_TIE = 2.0**-7
 
@@ -57,8 +54,7 @@ def _case(name):
     raise KeyError(name)
 
 
-CASES = ["300x64_b5", "1024x128_b17", "n_valid_40_zero_rows", "bf16_gallery", "b260_two_query_blocks",
-         "duplicate_rows"]
+CASES = ["300x64_b5", "1024x128_b17", "n_valid_40_zero_rows", "bf16_gallery", "b260_two_query_blocks", "duplicate_rows"]
 
 
 def _check(name, refine):
@@ -98,9 +94,8 @@ def test_chi2_nn_unrefined_matches_jax(name):
 
 
 def test_chi2_nn_host_data_and_card_launcher():
-    """Host data goes to ``device``; with tensors and no device the scan
-    stays where they lie. The CUDA launcher refuses CPU tensors, and the
-    plain step size changes no answer."""
+    """Host data goes to ``device``; tensors stay where they lie; the CUDA
+    launcher refuses CPU tensors; the plain step size changes nothing."""
     q, g = _features(9, 40, 11), _features(333, 40, 12)
     a = chi2_nn(q, g, device="cpu")
     b = chi2_nn(torch.from_numpy(q), torch.from_numpy(g), tile_g=7)
@@ -112,16 +107,14 @@ def test_chi2_nn_host_data_and_card_launcher():
 
 
 def test_chi2_cost_lines_on_cpu():
-    """The script's lines at a tiny size on the CPU: every kind, every
-    field, top-1 equal to the fp64 oracle on its probes, and its data rule
-    (rows and queries L1-normalized, queries near the first rows)."""
+    """The script's lines at a tiny size: every kind and field, top-1 = the fp64 oracle, L1-normalized data."""
     kinds = ",".join(chi2_cost.KINDS)
-    lines = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "1",
-                            "--kinds", kinds, "--device", "cpu"])
+    lines = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "1", "--kinds", kinds,
+                           "--device", "cpu"])
     assert [ln["metric"].split("(")[1].split()[0] for ln in lines] == list(chi2_cost.KINDS)
     for ln in lines:
-        assert set(ln) == {"metric", "value", "unit", "sec_per_batch", "elem_triples_per_sec",
-                           "probe_agreement", "device"}
+        assert set(ln) == {"metric", "value", "unit", "sec_per_batch", "elem_triples_per_sec", "probe_agreement",
+                   "device"}
         assert ln["unit"] == "queries/sec/cpu" and ln["device"] == "cpu"
         assert ln["probe_agreement"] == 1.0, ln
     g, q = chi2_cost.make_data(640, 16, 24, torch.device("cpu"))
@@ -141,6 +134,6 @@ def test_chi2_cost_without_warmup(monkeypatch):
     monkeypatch.setattr(distances, "streamed_topk", lambda *a, **k: calls.append(1) or real(*a, **k))
     for warmup in (0, 1):
         calls.clear()
-        ln, = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "2",
-                              "--warmup", str(warmup), "--kinds", "kl", "--device", "cpu"])
+        ln, = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "2", "--warmup",
+                             str(warmup), "--kinds", "kl", "--device", "cpu"])
         assert len(calls) == 2 + 1 + warmup and ln["probe_agreement"] == 1.0

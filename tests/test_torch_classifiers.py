@@ -1,8 +1,6 @@
-"""The port's classifiers and ``fasterlog2`` against the JAX package's
-(10 classes x 12 + 4 rows at D = 48, noise 1.0, so some probes err).
-Tolerances: ``fasterlog2`` bit-equal; predictions equal (no near-ties
-here); FPNN coefficients within 1e-6 absolute; k-medoids equal.
-"""
+"""The port's classifiers and ``fasterlog2`` against the JAX package's (10 classes x 12 + 4 rows at D = 48, noise 1.0,
+so some probes err). Tolerances: ``fasterlog2`` bit-equal; predictions equal (no near-ties here); FPNN coefficients
+within 1e-6 absolute; k-medoids equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +16,7 @@ import fast_image_recognition_tpu_torch.classifiers.fpnn as PF
 import fast_image_recognition_tpu_torch.classifiers.parzen as PP
 from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu_torch.ops.fastmath import fasterlog2, fasterlog2_np
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 C = 10
 

@@ -1,11 +1,6 @@
-"""The port's copies of the JAX package's NumPy data modules
-(``data/feature_io.py``, ``data/splits.py``, ``data/synthetic.py``)
-against the originals, on the same inputs and seeds.
-
-Tolerances: none. They are the same NumPy code, so arrays, labels, names
-and indices are equal, bit for bit; the JAX side's loader runs its NumPy
-engine (``engine='python'``), the one the port copies.
-"""
+"""The port's copies of JAX's NumPy data modules (``feature_io``, ``splits``,
+``synthetic``) against the originals: arrays, labels, names and indices
+bit-equal (JAX's loader on its NumPy engine)."""
 
 import numpy as np
 import pytest
@@ -14,7 +9,7 @@ import fast_image_recognition_tpu.data as JD
 from fast_image_recognition_tpu.data.splits import FeatureStats as JStats
 from fast_image_recognition_tpu_torch import data as PD
 from fast_image_recognition_tpu_torch.data.splits import FeatureStats
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("nonneg,l2", [(True, True), (True, False), (False, True)])
@@ -36,9 +31,7 @@ def test_gallery_and_probes_bit_equal():
 
 
 def _write_raw(path):
-    """A feature file with Caltech clutter classes, leading whitespace in
-    class names, a short vector (zero-padded on load), tiny entries (zeroed
-    on load) and an all-tiny row (a zero row after zeroing)."""
+    """Clutter classes, padded class names, a short vector, tiny entries and an all-tiny row."""
     rng = np.random.default_rng(0)
     classes = ["cat", "  dog", "BACKGROUND_Google", "257.clutter", "emu", "fox", "gnu"]
     with open(path, "w") as fh:
@@ -58,8 +51,7 @@ def _write_raw(path):
 def test_load_feature_file_matches_jax(tmp_path, l2, max_classes):
     path = str(tmp_path / "raw.txt")
     _write_raw(path)
-    kw = dict(skip_class_substrings=("BACKGROUND_Google", "257.clutter"), max_classes=max_classes,
-              l2_normalize=l2)
+    kw = dict(skip_class_substrings=("BACKGROUND_Google", "257.clutter"), max_classes=max_classes, l2_normalize=l2)
     a = PD.load_feature_file(path, 12, **kw)
     b = JD.load_feature_file(path, 12, engine="python", **kw)
     assert a.features.dtype == np.float32 and a.labels.dtype == np.int32

@@ -1,16 +1,11 @@
-"""The port's Directed Enumeration Method (``search/dem.py``) against JAX's on
-the same seeded gallery (N = 384, D = 96, the JAX tests' data), mirroring
-tests/test_dem.py.
+"""The port's DEM (``search/dem.py``) against JAX's on tests/test_dem.py's gallery
+(N = 384, D = 96).
 
-Tolerances: host build, pivots equal (fp64 both sides), P matrix and
-other-class minima rtol 1e-5; device build, pivots equal, P within rtol
-2e-4 + atol 1e-5 of the host build (fp32 against fp64, as JAX holds it);
-searches, rows vs the NumPy oracle >= 92 % and distances checked within 2
-on >= 90 % of probes (JAX's bounds; fp32 likelihood near-ties reorder rare
-probes), rows vs JAX's matcher >= 92 %, labels >= 97 %, the oracle's
-answer exactly where the budget leaves no candidate; the full-matrix
-variant >= 90 % / 85 % (JAX's).
-"""
+Tolerances: host build pivots equal, P and other-class minima rtol 1e-5; device
+build pivots equal, P within rtol 2e-4 + atol 1e-5 of the host's; searches:
+rows vs the oracle >= 92 %, checked within 2 on >= 90 % (JAX's bounds), rows vs
+JAX >= 92 %, labels >= 97 %, the oracle's answer where the budget leaves no
+candidate; full matrix >= 90 % / 85 %."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +18,7 @@ from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

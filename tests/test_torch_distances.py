@@ -1,13 +1,10 @@
-"""The port's window distances (``ops/distances.py``) against JAX's on the
-same seeded inputs (the sets of tests/test_distances.py).
+"""The port's window distances (``ops/distances.py``) against JAX's on
+tests/test_distances.py's sets.
 
-Tolerances: ``oracle_distance`` / ``oracle_pairwise`` are the same NumPy
-code, bit-equal; ``pairwise_distances`` rtol 2e-4, atol 1e-7 (that file's
-bound against the oracle), L2 with ``precise=False`` rtol 0.05, atol 1e-4
-(its bf16 bound); ``streamed_topk`` distances rtol 2e-4, atol 1e-7, rows
-equal but at fp64 ties within 2^-16 relative; ``window_distance_update``
-rtol 1e-5, atol 1e-8 (that file's identity bound).
-"""
+Tolerances: the NumPy oracles bit-equal; ``pairwise_distances`` rtol 2e-4, atol
+1e-7, L2 ``precise=False`` rtol 0.05, atol 1e-4; ``streamed_topk`` rtol 2e-4,
+atol 1e-7, rows equal but at fp64 ties within 2^-16; ``window_distance_update``
+rtol 1e-5, atol 1e-8 (that file's bounds)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +16,7 @@ from fast_image_recognition_tpu.data import make_synthetic_gallery
 from fast_image_recognition_tpu.ops import distances as J
 from fast_image_recognition_tpu_torch.config import DistanceKind
 from fast_image_recognition_tpu_torch.ops import distances as P
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 KINDS = ["l2", "chi2", "kl"]
 WINDOWS = [(0, None), (0, 32), (16, 48)]
@@ -73,8 +70,7 @@ def test_pairwise_l2_fast_path_matches_jax(small_sets, window):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("k", [1, 5])
 def test_streamed_topk_matches_jax(kind, k):
-    """300 rows in tiles of 128 (the last one ragged), and the default
-    tile (one tile here); a window for L2."""
+    """300 rows in tiles of 128 (the last one ragged), and the default tile (one tile here); a window for L2."""
     g, _ = make_synthetic_gallery(30, 10, 64, seed=5, l2=kind == "l2")
     q, _ = make_synthetic_gallery(30, 1, 64, seed=6, l2=kind == "l2")
     q = q[:7]
@@ -93,8 +89,7 @@ def test_streamed_topk_matches_jax(kind, k):
 
 
 def test_streamed_topk_pads_past_the_gallery():
-    """k > N: the slots past the gallery hold (3.4e38 / width, -1), as in
-    JAX; equal rows go to the lower index."""
+    """k > N: the slots past the gallery hold (3.4e38 / width, -1), as in JAX; equal rows go to the lower index."""
     g = np.abs(np.random.default_rng(0).standard_normal((3, 16))).astype(np.float32)
     g = np.concatenate([g, g[:1]])  # row 3 equals row 0
     q = g[:2] + 0.01

@@ -1,13 +1,9 @@
-"""The port's folded EfficientNet forward against JAX's ``folded_forward``
-(``fused=False``) on the same uint8 images and weights: the preprocess
-folded into the stem, a space-to-depth stem, and explicit (resize +
-normalize) for images of another size.
+"""The port's folded EfficientNet forward against JAX's ``folded_forward`` on the
+same uint8 images and weights: the folded preprocess, a space-to-depth stem,
+explicit resize + normalize.
 
-Tolerances: in fp32 the same convolutions in another summation order,
-rtol 1e-4 of max |reference| (the resize's fp32 weights differ within
-1e-4 of 255, covered); in bf16 the frameworks round elsewhere: cosine >=
-0.999; the space-to-depth stem, a re-layout of the same map: 2e-5, JAX's.
-"""
+Tolerances: fp32 rtol 1e-4 of max |reference| (covers the resize's weights);
+bf16 cosine >= 0.999; the s2d stem 2e-5 (JAX's)."""
 
 import os
 
@@ -29,12 +25,10 @@ from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
-CKPT = os.path.join(
-    os.path.dirname(__file__), "..", "benchmarks", "trained_b0_224_synthetic1024_s0.npz"
-)
+CKPT = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "trained_b0_224_synthetic1024_s0.npz")
 TAPS = ("block1a", "block2a", "block3a", *default_taps("b0"))
 
 
@@ -42,9 +36,7 @@ def _jax_forward(variables, res, images, dtype, taps=TAPS):
     model = EfficientNet(variant="b0", dtype=dtype)
     folded, configs = jinf.fold_backbone(model, variables, dtype=dtype)
     folded = jinf.fold_preprocess_into_stem(folded, res, dtype=dtype)
-    fn = jax.jit(
-        lambda f, x: jinf.folded_forward(f, configs, x, taps=taps, resolution=res, dtype=dtype)
-    )
+    fn = jax.jit(lambda f, x: jinf.folded_forward(f, configs, x, taps=taps, resolution=res, dtype=dtype))
     out = fn(folded, jnp.asarray(images))
     return np.asarray(out["embedding"]), {k: np.asarray(v) for k, v in out["taps"].items()}
 
@@ -114,12 +106,8 @@ def test_same_padding_matches_tf_rule():
         x = np.random.default_rng(n + k).standard_normal((1, n, n, 2)).astype(np.float32)
         w = np.random.default_rng(k).standard_normal((k, k, 2, 3)).astype(np.float32)
         ref = np.asarray(jinf._conv(jnp.asarray(x), jnp.asarray(w), jnp.zeros(3), stride=s))
-        out = pinf._conv(
-            torch.from_numpy(x).permute(0, 3, 1, 2),
-            torch.from_numpy(w).permute(3, 2, 0, 1),
-            None,
-            stride=s,
-        ).permute(0, 2, 3, 1).numpy()
+        out = pinf._conv(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(w).permute(3, 2, 0, 1), None,
+            stride=s).permute(0, 2, 3, 1).numpy()
         assert out.shape == ref.shape
         _close(out, ref, 1e-5)
 
@@ -129,8 +117,7 @@ def _cos(a, b):
 
 
 def test_wrong_resolution_and_family_raise(random_b0_64):
-    """A 64-px image into a 32-px serving module is resized as the JAX
-    package resizes it (it used to raise); a family no package knows raises."""
+    """A 64-px image into a 32-px module is resized as JAX resizes it; an unknown family raises."""
     variables, images = random_b0_64
     serve = make_serving_fn(variables, backbone_info("b0"), resolution=32, device="cpu")
     with torch.no_grad():
@@ -158,9 +145,8 @@ def test_preprocess_constants_and_resize_match_jax():
 
 @pytest.mark.parametrize("size,tf_mode", [(64, False), (20, False), (32, True), (48, True)])
 def test_explicit_preprocess_branch_matches_jax_fp32(random_b0_64, size, tf_mode):
-    """A 32-px make_infer_fn fed images of another size (downscale 64,
-    48; upscale 20) resizes, normalizes and runs the raw stem; at 32 px
-    the folded stem runs. ``tf_mode`` passes the TF_MODE constants."""
+    """Other sizes (64, 48, 20) resize, normalize and run the raw stem; at 32 px
+    the folded stem runs; ``tf_mode`` too."""
     variables, _ = random_b0_64
     images = np.random.default_rng(size).integers(0, 256, (2, size, size, 3)).astype(np.uint8)
     kw = dict(mean=peff.TF_MODE_MEAN, std=peff.TF_MODE_STD) if tf_mode else {}
@@ -174,13 +160,11 @@ def test_explicit_preprocess_branch_matches_jax_fp32(random_b0_64, size, tf_mode
 
 
 def test_space_to_depth_stem_is_exact_fp32(random_b0_64):
-    """fold_stem_space_to_depth re-lays the same linear map out (the JAX
-    package's weights, and the forward with and without it, agree)."""
+    """fold_stem_space_to_depth re-lays the same linear map out."""
     variables, images = random_b0_64
     model = EfficientNet(variant="b0", dtype=jnp.float32)
     _, jfolded = jinf.make_infer_fn(model, variables, resolution=64, dtype=jnp.float32, space_to_depth=True)
-    module = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, space_to_depth=True,
-                                device="cpu")
+    module = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, space_to_depth=True, device="cpu")
     plain_stem = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, device="cpu")
     assert module.space_to_depth and not plain_stem.space_to_depth
     np.testing.assert_allclose(module.stem_s2d_w.permute(2, 3, 1, 0).numpy(), np.asarray(jfolded["stem_s2d_w"]),

@@ -1,12 +1,9 @@
-"""The port's trainable EfficientNet (``models/efficientnet.py``) against
-JAX's flax module, B0 at 32 px.
+"""The port's trainable EfficientNet against JAX's flax module, B0 at 32 px.
 
-Tolerances: weights carried both ways bit-equal, the port's own init with
-the flax tree's keys and shapes; fp32 taps and embedding 1e-4 of max
-|JAX| (another summation order); bf16 (flax rounds the conv output, BN in
-fp32, swish in bf16; torch rounds once) 2^-5 of the largest magnitude and
-cosine >= 0.999 per image.
-"""
+Tolerances: weights carried both ways bit-equal, the own init with flax's keys
+and shapes; fp32 taps and embedding 1e-4 of max |JAX|; bf16 2^-5 of the largest
+magnitude and cosine >= 0.999 an image (flax rounds the conv output, torch
+once)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from fast_image_recognition_tpu.models import create_efficientnet as jax_create
 from fast_image_recognition_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from fast_image_recognition_tpu_torch.models import EfficientNet, create_efficientnet, default_taps
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, jax_b0  # noqa: F401
 
 RES = 32
 TAPS = default_taps("b0")
@@ -26,17 +22,13 @@ TAPS = default_taps("b0")
 
 @pytest.fixture(scope="module")
 def b0():
-    model, variables = jax_create("b0", 0, resolution=RES)
-    variables = jax.device_get(variables)
-    np_vars = jax.tree_util.tree_map(np.asarray, {"params": variables["params"],
-                                                  "batch_stats": variables["batch_stats"]})
+    model, variables, np_vars = jax_b0(RES)
     images = np.random.default_rng(0).normal(size=(6, RES, RES, 3)).astype(np.float32)
     return _jit_apply(model), variables, np_vars, images
 
 
 def _jit_apply(model):
-    """``model.apply(v, x, taps=TAPS)`` compiled once (eager flax runs each
-    op on its own, several times slower on the CPU)."""
+    """``model.apply(v, x, taps=TAPS)`` jitted (eager flax is slow)."""
     return jax.jit(lambda v, x: model.apply(v, x, taps=TAPS))
 
 
@@ -71,8 +63,10 @@ def test_carried_module_matches_apply_bf16(b0):
         h = m.run_blocks(h, 7)
         torch.testing.assert_close(m.head_pool(h), po["embedding"], rtol=0, atol=0)
     assert m.block_names() == [c["name"] for c in JaxEfficientNet(variant="b0").plan_configs()]
-    with pytest.raises(NotImplementedError):
-        m(torch.from_numpy(images), train=True)
+    # train mode normalizes by batch statistics and moves the running ones (test_torch_train.py: against flax)
+    before = m.stem_bn.mean.clone()
+    assert torch.isfinite(m(torch.from_numpy(images), train=True)["embedding"]).all()
+    assert not torch.equal(m.stem_bn.mean, before)
 
 
 def test_carried_module_matches_apply_fp32(b0):
@@ -120,8 +114,7 @@ def test_own_init_has_the_flax_tree_and_defaults(b0):
 
 
 def test_fold_backbone_folds_the_own_init(b0):
-    """``fold_backbone`` takes the exported tree: the folded per-op forward
-    on the raw stem equals the module's forward (bf16 fold rounding)."""
+    """``fold_backbone`` folds the exported tree: the folded forward equals the module's."""
     _, _, _, images = b0
     m, v = create_efficientnet("b0", 0, seed=2, resolution=RES, device="cpu")
     net = make_infer_fn(v, "b0", resolution=RES, fold_preprocess=False, device="cpu")
@@ -134,9 +127,7 @@ def test_fold_backbone_folds_the_own_init(b0):
 
 
 def test_logits_and_pruned_widths_match_flax(b0):
-    """A classifier head and per-block hidden widths (the pruning surgery's
-    ``hidden_overrides``): the flax module applies the port's exported
-    tree and gives the port's forward."""
+    """A classifier head and pruned hidden widths: flax applies the port's tree and gives its forward."""
     _, _, _, images = b0
     over = {"block2a": 40, "block6b": 600}
     m = EfficientNet("b0", num_classes=7, dtype=torch.float32, hidden_overrides=over)

@@ -1,14 +1,9 @@
-"""The port's exit policies (``cascade/exits.py``) and three-way-decision
-classifiers (``cascade/twd.py``) against JAX's on the same seeded levels
-and galleries, mirroring tests/test_cascade.py:1-119 and tests/test_twd.py.
+"""The port's exit policies (``cascade/exits.py``) and TWD classifiers against
+JAX's on the same seeded data (tests/test_cascade.py:1-119, tests/test_twd.py).
 
-Tolerances: fp32 products in another order. kNN exits, linear exits
-(scikit-learn fits the same weights for both) and TWD give equal
-predictions, exit levels and unreliable counts here; the NumPy helpers
-(FAR tuning, entropy exits, the TWD oracle) are equal; the squared-hinge
-descent from JAX's initial weights lands within 1e-5 absolute of JAX's
-after 200 steps.
-"""
+Tolerances: kNN and linear exits and TWD give equal predictions, levels and
+unreliable counts; the NumPy helpers are equal; the squared-hinge descent from
+JAX's weights lands within 1e-5 of JAX's after 200 steps."""
 
 import jax
 import numpy as np
@@ -20,7 +15,7 @@ import fast_image_recognition_tpu_torch.cascade.exits as PX
 import fast_image_recognition_tpu_torch.cascade.twd as PT
 from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu.ops import oracle_pairwise
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +94,7 @@ def test_hybrid_knn_svc_matches_jax(levels):
 @pytest.mark.parametrize("granularity,chunk", [("instance", 32), ("class", 64)])
 def test_proposed_twd_matches_jax_and_oracle(twd_data, granularity, chunk):
     gallery, glabels, probes, plabels = twd_data
-    pc = PT.ProposedTWD(gallery, glabels, 16, chunk_features=chunk, theta=0.7, granularity=granularity,
-                        device="cpu")
+    pc = PT.ProposedTWD(gallery, glabels, 16, chunk_features=chunk, theta=0.7, granularity=granularity, device="cpu")
     jc = JT.ProposedTWD(gallery, glabels, 16, chunk_features=chunk, theta=0.7, granularity=granularity)
     preds = pc.predict(probes)
     np.testing.assert_array_equal(preds, jc.predict(probes))
@@ -119,10 +113,8 @@ def test_proposed_twd_matches_jax_and_oracle(twd_data, granularity, chunk):
     assert pc.unreliable_count == 0
 
 
-@pytest.mark.parametrize(
-    "twd_type,threshold",
-    [(PT.TWDType.POSTERIORS, 0.24), (PT.TWDType.DIST_DIFF, 0.003), (PT.TWDType.DIST_RATIO, 0.7)],
-)
+@pytest.mark.parametrize("twd_type,threshold",
+    [(PT.TWDType.POSTERIORS, 0.24), (PT.TWDType.DIST_DIFF, 0.003), (PT.TWDType.DIST_RATIO, 0.7)])
 def test_conventional_twd_matches_jax(twd_data, twd_type, threshold):
     gallery, glabels, probes, plabels = twd_data
     pc = PT.ConventionalTWD(gallery, glabels, 16, twd_type, threshold, device="cpu")

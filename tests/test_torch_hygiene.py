@@ -10,9 +10,11 @@ import shutil
 
 import pytest
 import torch
+from PIL import Image
 
 from fast_image_recognition_tpu_torch import device as port_device
 from fast_image_recognition_tpu_torch.kernels import build
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fast_image_recognition_tpu_torch")
@@ -60,20 +62,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from fast_image_recognition_tpu_torch.data.synthetic_device import device_dataset
     from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
     from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
     from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
     from fast_image_recognition_tpu_torch.scripts import chi2_cost
     from fast_image_recognition_tpu_torch.search import BruteForceMatcher
-    from fast_image_recognition_tpu_torch.serving import (
-        CascadeRecognitionService,
-        RecognitionService,
-        build_cascade_service,
-        build_service,
-        make_tap_embed_fn,
-    )
+    from fast_image_recognition_tpu_torch.serving import (CascadeRecognitionService, RecognitionService,
+        build_cascade_service, build_service, make_tap_embed_fn)
 
     from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
     from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
@@ -87,9 +84,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from fast_image_recognition_tpu_torch.parallel import ShardedGalleryMatcher, gallery_mesh
     from fast_image_recognition_tpu_torch.search.projection import ProjectionIndexMatcher
     from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
+    from fast_image_recognition_tpu_torch.models.extractor import FeatureExtractor
+    from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig
+    from fast_image_recognition_tpu_torch.scripts import extract_features, train_serving_backbone
 
     _, irv2 = create_backbone("inception_resnet_v2", device="cpu")
     mb = {n: create_backbone(n, resolution=32, device="cpu")[1] for n in ("mobilenetv2", "mobilenetv1")}
+    (tmp_path / "ds" / "c0").mkdir(parents=True)
+    Image.new("RGB", (2, 2)).save(tmp_path / "ds" / "c0" / "x.bmp")
+    train_args = ["--resolution", "32", "--classes", "2", "--per-class", "3", "--train-per-class", "2",
+                  "--batch-size", "2", "--epochs", "1", "--out", str(tmp_path / "ck.msgpack")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     feats = torch.rand((40, 16)).numpy()
     labels = torch.arange(40).numpy() % 4
@@ -118,6 +122,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda **kw: FPNNClassifier(4, **kw),
         lambda **kw: gallery_mesh(2, devices=None if not kw else [kw["device"]] * 2),
         lambda **kw: ShardedGalleryMatcher(feats, gallery_mesh(devices=None if not kw else [kw["device"]] * 2)),
+        lambda **kw: MultiExitTrainer(create_backbone("mobilenetv1", resolution=32, device="cpu")[0], mb["mobilenetv1"],
+                                      TrainConfig(2, ("conv_dw_5",), 32), **kw),
+        lambda **kw: FeatureExtractor("mobilenetv1", mb["mobilenetv1"], resolution=32, **kw),
+        lambda **kw: train_serving_backbone.main(train_args, **kw),
+        lambda **kw: extract_features.main([str(tmp_path / "ds"), str(tmp_path / "f.txt"), "--variant",
+                                            "mobilenetv1"], **kw),
     ):
         with pytest.raises(RuntimeError):
             make()
@@ -151,11 +161,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_port_files_are_small_source_text():
-    paths = list(_port_files(("",))) + [
-        os.path.join(REPO, "chip_smoke.py"),
-        *(os.path.join(REPO, "tests", f) for f in os.listdir(os.path.join(REPO, "tests"))
-          if f.startswith("test_torch_")),
-    ]
+    paths = list(_port_files(("",))) + [os.path.join(REPO, "chip_smoke.py"), *(os.path.join(REPO, "tests",
+                 f) for f in os.listdir(os.path.join(REPO, "tests")) if f.startswith("test_torch_"))]
     total = 0
     for p in paths:
         if p.endswith((".pyc", ".so")):
@@ -168,26 +175,11 @@ def test_port_files_are_small_source_text():
 
 
 def test_ctypes_bindings_match_the_c_launchers():
-    """Each ``extern "C"`` launcher takes as many arguments as its ctypes
-    binding declares (the .cu files cannot be compiled here)."""
-    expected = {
-        "tilemin2_packed_launch": 8,
-        "tilemin_packed_launch": 8,
-        "topk_l2_launch": 18,
-        "topk_l2_precise_launch": 20,
-        "tilemin_launch": 11,
-        "tilemin_quant_launch": 13,
-        "mbconv_launch": 29,
-        "mbconv_smem": 13,
-        "chi2_launch": 8,
-        "topk_l2_segment_rows": 2,
-        "topk_l2_query_rows": 0,
-        "topk_l2_list_len": 1,
-        "topk_l2_max_k": 0,
-        "topk_l2_split_smem": 1,
-        "topk_l2_split6_smem": 1,
-        "topk_l2_rescore_launch": 12,
-    }
+    """Each ``extern "C"`` launcher takes as many arguments as its ctypes binding."""
+    expected = {"tilemin2_packed_launch": 8, "tilemin_packed_launch": 8, "topk_l2_launch": 18,
+        "topk_l2_precise_launch": 20, "tilemin_launch": 11, "tilemin_quant_launch": 13, "mbconv_launch": 29,
+        "mbconv_smem": 13, "chi2_launch": 8, "topk_l2_segment_rows": 2, "topk_l2_query_rows": 0, "topk_l2_list_len": 1,
+        "topk_l2_max_k": 0, "topk_l2_split_smem": 1, "topk_l2_split6_smem": 1, "topk_l2_rescore_launch": 12}
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
         for fn, n_args in expected.items():
@@ -200,9 +192,7 @@ def test_ctypes_bindings_match_the_c_launchers():
 
 
 def test_build_key_covers_the_headers(monkeypatch, tmp_path):
-    """A library is named by its source, every ``*.cuh`` beside it and the
-    flags: editing the shared main loop header must not load a stale
-    library."""
+    """A library is keyed by its source, every ``*.cuh`` and the flags."""
     for f in os.listdir(build.KERNEL_DIR):
         if f.endswith((".cu", ".cuh")):
             shutil.copy(os.path.join(build.KERNEL_DIR, f), tmp_path / f)

@@ -1,14 +1,11 @@
-"""The port's InceptionResNetV2 against JAX's on the CPU at 75 px (its VALID
-stem's least). The fp32 segments and fold trees take the trained 224-px
-checkpoint (the port's loader, one numpy tree for both); at 75 px that
-network dies in Block17 (block17_20 is 0 for every image), so the serving
-cases take the port's seeded init with BN drawn around flax's defaults.
+"""The port's InceptionResNetV2 against JAX's at 75 px. fp32 segments and fold
+trees from the trained checkpoint; the serving cases from the port's seeded
+init with BN drawn off flax's defaults (the checkpoint's network dies in
+Block17 at 75 px).
 
-Tolerances: fp32 segments 1e-4 of max |JAX|; folded bf16 serving
-embedding and taps 0.02 of max |JAX| (tests/test_fold_generic.py:102-115),
-as folded vs ``folded=False``; fold trees 1e-6 relative; service rows equal
-but where the picks' squared distances are within 2^-8 relative.
-"""
+Tolerances: fp32 segments 1e-4 of max |JAX|; folded bf16 embedding and taps
+0.02 (tests/test_fold_generic.py:102-115); fold trees 1e-6 relative; rows equal
+but at picks within 2^-8 relative."""
 
 import jax
 import jax.numpy as jnp
@@ -23,15 +20,12 @@ from fast_image_recognition_tpu.models.fold import make_serving_fn as jax_servin
 from fast_image_recognition_tpu.models.inception_resnet import InceptionResNetV2 as JaxIRv2
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
-from fast_image_recognition_tpu_torch.models.fold import (
-    fold_tf_preprocess_into_valid_stem,
-    fold_variables,
-    make_serving_fn,
-)
+from fast_image_recognition_tpu_torch.models.fold import (fold_tf_preprocess_into_valid_stem, fold_variables,
+    make_serving_fn)
 from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
 from fast_image_recognition_tpu_torch.serving import RecognitionService
 from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit, planted_gallery  # noqa: F401
 
 CKPT = "benchmarks/trained_inception_resnet_v2_224_synthetic1024_s0.npz"
 NAME, RES, B, N = "inception_resnet_v2", 75, 8, 2048
@@ -110,8 +104,7 @@ def test_folded_serving_matches_jax(setup, key):
 
 
 def test_folded_matches_unfolded(setup):
-    """``folded=False``: BN kept, the 'tf' preprocess explicit, fp32
-    weights cast to bf16 at each call."""
+    """``folded=False``: BN kept, the 'tf' preprocess explicit, fp32 weights cast to bf16 at each call."""
     unfolded = make_serving_fn(setup["v"], backbone_info(NAME), resolution=RES, device="cpu", folded=False)
     with torch.no_grad():
         eu = unfolded(torch.from_numpy(setup["images"]))["embedding"].numpy()
@@ -134,20 +127,11 @@ def test_fold_trees_match_jax(setup, tf_stem):
 
 
 def check_planted_rows(emb, jax_emb, images, info, port_service, **kw):
-    """PCA-124 packed service (rescore 48, escalate 0.05) over 2,048 rows
-    in a 96-d span that holds the probes: a planted row per probe (noise
-    0.02) and 40 distractors (noise 0.5); the rest random in the span. JAX's
-    service (its backbone's output ``jax_emb``) and ``port_service(gallery,
-    **kw)`` pick the same rows but at near-ties, and the planted ones."""
-    rng, emb, b = np.random.default_rng(1), _unit(emb), len(emb)
-    basis = np.linalg.qr(np.concatenate([emb, rng.standard_normal((96 - b, emb.shape[1]))]).T)[0].T.astype(np.float32)
-    span = lambda n, s: s * (rng.standard_normal((n, 96)) / np.sqrt(96)).astype(np.float32) @ basis  # noqa: E731
-    gal = _unit(rng.standard_normal((N, 96)).astype(np.float32) @ basis)
-    planted = rng.choice(N, b, replace=False)
-    free = rng.permutation(np.setdiff1d(np.arange(N), planted))
-    for i in range(b):
-        gal[planted[i]] = _unit(emb[i] + span(1, 0.02)[0])
-        gal[free[i * 40 : (i + 1) * 40]] = _unit(emb[i] + span(40, 0.5))
+    """PCA-124 packed service over 2,048 rows in a 96-d span of the probes (a planted row, noise 0.02, and 40
+    distractors, 0.5, a probe): JAX's (on ``jax_emb``) and ``port_service(gallery, **kw)`` pick the same rows but at
+    near-ties, and the planted ones."""
+    emb = _unit(emb)
+    gal, planted = planted_gallery(emb, N, np.random.default_rng(1))
     kw.update(pca_dim=124, pca_scan="packed")
     js = JaxService(None, None, info, gal, serving_fn=(lambda e, _: {"embedding": e}, jax_emb), **kw)
     ji = np.asarray(js.identify_device(images))
@@ -161,12 +145,11 @@ def test_service_rows_match_jax(setup):
     _, _, jax_out = setup["jax"]
     check_planted_rows(setup["out"]["embedding"].numpy(), jax_out["embedding"], setup["images"], jax_info(NAME),
                        lambda g, **kw: RecognitionService(None, backbone_info(NAME), g, serving_fn=setup["serve"],
-                                                          device="cpu", **kw), resolution=RES)
+                       device="cpu", **kw), resolution=RES)
 
 
 def test_create_backbone_has_jax_tree():
-    """Seeded init: JAX's names and shapes (``jax.eval_shape`` of its init),
-    flax's default law (unit BN, zero biases), and the seed decides it."""
+    """Seeded init: JAX's names and shapes, flax's default law, the seed decides."""
     model = JaxIRv2(num_classes=10)
     want = jax.eval_shape(lambda k: model.init({"params": k}, jnp.zeros((1, RES, RES, 3))), jax.random.PRNGKey(0))
     _, got = create_backbone(NAME, 10, seed=0, resolution=RES, device="cpu")

@@ -1,10 +1,8 @@
-"""The port's fused stride-1 MBConv block (``ops/mbconv_kernel.py``; on the
-CPU ``plain.mbconv_plain``) against JAX's ``fused_mbconv`` (Pallas,
-interpret mode), and the fused serving path against JAX's, on random-init
-B0@64 weights. Tolerances are JAX's (tests/test_mbconv_kernel.py): a
-block within 0.03 of its largest magnitude (both round to bf16 at
-slightly different places), the fused embedding within 0.05; against the
-per-op block in fp32 (rounding a no-op) 1e-4. The service: same top-1."""
+"""The port's fused stride-1 MBConv block (on the CPU ``plain.mbconv_plain``)
+against JAX's ``fused_mbconv`` (interpret mode), and the fused serving path, on
+random-init B0@64. JAX's tolerances (tests/test_mbconv_kernel.py): a block 0.03
+of its largest magnitude, the fused embedding 0.05; against the per-op block in
+fp32 1e-4; the service: same top-1."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +11,6 @@ import pytest
 import torch
 
 from fast_image_recognition_tpu.models import backbone_info as jax_info
-from fast_image_recognition_tpu.models import create_efficientnet
 from fast_image_recognition_tpu.models import inference as jinf
 from fast_image_recognition_tpu.ops import mbconv_kernel as jmb
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
@@ -22,18 +19,14 @@ from fast_image_recognition_tpu_torch.models import inference as pinf
 from fast_image_recognition_tpu_torch.models.efficientnet import VARIANTS, backbone_info, block_plan
 from fast_image_recognition_tpu_torch.ops import mbconv_kernel as pmb
 from fast_image_recognition_tpu_torch.serving import RecognitionService, build_service
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, jax_b0  # noqa: F401
 
 RES = 64
 
 
 @pytest.fixture(scope="module")
 def b0():
-    model, variables = create_efficientnet("b0", 0, resolution=RES, dtype=jnp.float32)
-    variables = jax.device_get(variables)
-    np_vars = jax.tree_util.tree_map(
-        np.asarray, {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    )
+    model, variables, np_vars = jax_b0(RES, dtype=jnp.float32)
     jfolded, configs = jinf.fold_backbone(model, variables, dtype=jnp.bfloat16)
     pfolded, pconfigs = pinf.fold_backbone(np_vars, "b0", dtype=torch.bfloat16)
     assert [c["name"] for c in configs] == [c["name"] for c in pconfigs]
@@ -50,8 +43,7 @@ def _rel_err(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def _both(jp, pp, cfg, x):
-    """JAX fused_mbconv (interpret) and the port's on the same bf16 input:
-    (port, jax) outputs as fp32 NHWC numpy."""
+    """JAX's and the port's block on one bf16 input: (port, jax) fp32 NHWC."""
     want = np.asarray(jmb.fused_mbconv(jnp.asarray(x, jnp.bfloat16), jp, cfg), np.float32)
     got = pmb.fused_mbconv(_nchw(x), pp, cfg)
     assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
@@ -78,10 +70,8 @@ def test_block_matches_jax_fused(b0, block_index, hw):
 
 
 def test_border_columns_read_true_zeros(b0):
-    """An expand bias inflated 50x makes act(b_exp) leaking into the SAME
-    border taps dominate the edge rows and columns. A random init folds
-    to b_exp = 0 (beta and the running mean are 0), so the bias is drawn
-    here: 50 * N(0, 1), the same values on both sides."""
+    """An expand bias of 50 N(0, 1) (a random init folds to 0) makes act(b_exp)
+    leaking into the SAME border taps dominate the edges."""
     *_, jfolded, pfolded, configs = b0
     cfg = configs[2]  # k3, expand, SE, residual
     jp, pp = dict(jfolded["blocks"][2]), dict(pfolded["blocks"][2])
@@ -129,11 +119,8 @@ def test_plain_matches_per_op_block_fp32(b0, block_index):
 
 
 def test_same_pads_and_tile_plan_cover_b0_224():
-    """The host geometry: XLA SAME pads, and a tile of the kernel's plane
-    walk within its shared memory for every stride-1 block of B0@224, of
-    B1-B7 at their resolutions and of odd planes (none raises); 7x7 planes
-    and B0's 14x14 planes take the whole plane in one tile, and B0's blocks
-    one group of output channels."""
+    """XLA SAME pads and a tile plan within shared memory for every stride-1 block of B0-B7 and odd planes; 7x7 and
+    B0's 14x14 planes one tile, B0's blocks one output group."""
     for h, k in [(7, 5), (14, 3), (15, 5), (112, 3)]:
         assert pmb._same_pads(h, k, 1) == jmb._same_pads(h, k, 1) == (h, (k - 1) // 2, k // 2)
     n_s1 = {}
@@ -159,8 +146,7 @@ def test_same_pads_and_tile_plan_cover_b0_224():
 
 @pytest.fixture(scope="module")
 def fused_pair(b0):
-    """JAX make_infer_fn(fused=True, space_to_depth=True) and the port's
-    module at 64 px, with a batch of probe images."""
+    """JAX's and the port's fused s2d module at 64 px, probe images."""
     model, variables, np_vars, *_ = b0
     jfn, jfolded = jinf.make_infer_fn(model, variables, resolution=RES, fused=True, space_to_depth=True)
     module = pinf.make_infer_fn(np_vars, "b0", resolution=RES, fused=True, space_to_depth=True, device="cpu")
@@ -179,10 +165,8 @@ def test_fused_forward_matches_jax(fused_pair):
 
 
 def test_service_with_fused_serving_fn_matches_jax(fused_pair):
-    """RecognitionService(serving_fn=<fused module>) and build_service(...)
-    against the JAX service on make_infer_fn(fused=True): the same top-1
-    over a gallery of one near row (noise 0.05) and 20 farther rows (noise
-    0.5) per probe."""
+    """The service on the fused module and ``build_service`` against JAX's: the
+    same top-1 over a near row (noise 0.05) and 20 farther (0.5) a probe."""
     (jfn, jfolded), module, images = fused_pair
     with torch.no_grad():
         emb = torch.nn.functional.normalize(module(torch.from_numpy(images))["embedding"], dim=1).numpy()

@@ -1,16 +1,11 @@
-"""The port's MobileNetV2 and MobileNetV1 against JAX's on the CPU at 64 px:
-MobileNetV2 from JAX's seed-0 init, MobileNetV1 from the port's, BN drawn
-around flax's defaults, one numpy tree for both.
+"""The port's MobileNetV2 (JAX's seed-0 init) and MobileNetV1 (the port's, BN
+drawn off flax's defaults) against JAX's at 64 px.
 
-Tolerances: fp32 forward and segments 1e-4 of max |JAX|; fp32 folded
-forward and preprocess fold rtol = atol = 2e-4 (tests/test_mobilenet.py:
-80-121); bf16 serving, the cascade's tap features and the folded engine's
-level embeddings 0.02 of max |JAX| (tests/test_fold_generic.py:102-116),
-the bind engine's 1e-4; the fused plain path 0.05 of max |per-op|
-(tests/test_mbconv_kernel.py:91); service rows and exit levels equal;
-engines >= 90 % of predictions, >= 80 % of levels (tests/test_cascade.py:
-253-265).
-"""
+Tolerances: fp32 forward and segments 1e-4 of max |JAX|; fp32 folded forward
+and preprocess fold 2e-4 (tests/test_mobilenet.py:80-121); bf16 serving,
+cascade taps and folded engine levels 0.02 (tests/test_fold_generic.py), the
+bind engine 1e-4; the fused path 0.05 of per-op; service rows and levels equal;
+engines >= 90 % of predictions, >= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +27,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, T
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
 from fast_image_recognition_tpu_torch.serving import build_cascade_service, make_tap_embed_fn
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 RES, B = 64, 4
 NAMES = ("mobilenetv2", "mobilenetv2_1.4", "mobilenetv2_140", "mobilenetv2_0.35", "mobilenetv1")
@@ -86,8 +81,7 @@ def test_zoo_facts_match_jax(name):
 
 
 def test_zoo_names_as_jax():
-    """``build_backbone`` takes any 'mobilenetv1*', ``backbone_info`` only
-    'mobilenetv1'; a name no package knows raises ``ValueError``."""
+    """``build_backbone`` takes any 'mobilenetv1*', ``backbone_info`` 'mobilenetv1'; unknown names raise."""
     from fast_image_recognition_tpu_torch.models import build_backbone
 
     assert isinstance(build_backbone("mobilenetv1_025"), MobileNetV1) and J.build_backbone("mobilenetv1_025")
@@ -150,14 +144,12 @@ def test_folded_forward_matches_jax(v2, fold_pp):
 
 
 def test_fused_plain_path_matches_per_op(v2):
-    """The 13 stride-1 blocks (1a, 2b, 3b-3c, 4b-4d, 5a-5c, 6b-6c, 7a) go to
-    ``mbconv`` in its relu6, SE-free form: on the CPU its plain version."""
+    """The 13 stride-1 blocks go to ``mbconv`` (relu6, no SE)."""
     kw = dict(resolution=RES, mean=TF_MODE_MEAN, std=TF_MODE_STD, device="cpu")
     per_op, fused = make_infer_fn(v2[1], "mobilenetv2", **kw), make_infer_fn(v2[1], "mobilenetv2", fused=True, **kw)
     plan = pmb.mobilenet_plan()
-    assert [plan[int(i)]["name"] for i in fused.fused_blocks] == [
-        "block1a", "block2b", "block3b", "block3c", "block4b", "block4c", "block4d", "block5a", "block5b", "block5c",
-        "block6b", "block6c", "block7a"]
+    assert [plan[int(i)]["name"] for i in fused.fused_blocks] == ["block1a", "block2b", "block3b", "block3c", "block4b",
+            "block4c", "block4d", "block5a", "block5b", "block5c", "block6b", "block6c", "block7a"]
     assert all(b.cfg["activation"] == "relu6" and not b.cfg["has_se"] for b in fused.fused_blocks.values())
     with torch.no_grad():
         x = torch.from_numpy(_images(8))
@@ -180,10 +172,8 @@ def test_serving_fn_matches_jax(request, fam, folded):
 
 
 def test_cascade_matches_jax_with_its_swish_stem(v2):
-    """JAX's cascade folds the torch-mode mean into the stem and runs swish
-    at the stem and the head whatever the family; the port copies it (a
-    reference behaviour, ROADMAP.md §3), so its taps differ from the
-    served relu6 network's."""
+    """JAX's cascade folds the torch-mode mean and runs swish at stem and head
+    whatever the family; the port copies it (ROADMAP.md §3)."""
     _, v = v2
     info, jinfo, jm, images = backbone_info("mobilenetv2"), J.backbone_info("mobilenetv2"), jmb.MobileNetV2(), _images(8)
     jf, je = jax_tap_embed_fn(jm, v, RES, ["block3a", "block4a"])(images)

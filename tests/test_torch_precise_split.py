@@ -1,21 +1,16 @@
-"""The arithmetic of the precise ``topk_l2`` on the card (``split_queries``,
-``topk_pass1_split_sm90`` over bf16 rows, ``topk_pass1_split6_sm90`` over
-fp32 rows) held on the CPU through its mirror
-``kernels/plain.py::split_bf16x3`` and ``kernels/build.py``'s sizes, and
-its ``topk_l2`` over fp32 rows against JAX's.
+"""The precise ``topk_l2``'s arithmetic on the card (``split_queries``, the split
+passes over bf16 and fp32 rows) held through its mirror ``plain.split_bf16x3``
+and ``build``'s sizes, and ``topk_l2`` over fp32 rows against JAX's.
 
-- Three terms rebuild fp32 values within 2^-26 relative (2^-133 absolute
-  among bf16 subnormals).
-- Three products over bf16 rows (per 64-feature chunk, lo, mid, hi, fresh
-  accumulator) within 2^-20 of the fp32 matmul for unit vectors; six over
-  fp32 rows (per 32-feature chunk, the kernel's order) within 2^-20 of fp64.
-- Queries = a bf16 row x (1 + 2^-9 + 2^-18): hi + mid misses fp64 by >
-  1.5 x 2^-18, three terms stay within 2^-18; fp32 rows made so (queries
-  half a row): six products within 2^-18, three miss by > 1.5 x 2^-18.
-- Query planes hold whole 128-query boxes; every ring fits 227 KB.
-- ``topk_l2(precise=True)`` over fp32 rows = JAX's (interpret mode):
-  distances within 2^-16 absolute, rows equal but at fp64 ties within it.
-"""
+- Three terms rebuild fp32 within 2^-26 relative (2^-133 among subnormals).
+- Three products (bf16 rows, 64-feature chunks) within 2^-20 of the fp32
+  matmul; six (fp32 rows, 32-feature chunks, the kernel's order) of fp64.
+- Queries = a bf16 row x (1 + 2^-9 + 2^-18): hi + mid misses fp64 by > 1.5 x
+  2^-18, three terms within 2^-18; rows made so (queries half a row): six
+  products within, three miss.
+- Planes hold whole 128-query boxes; rings fit 227 KB.
+- ``precise=True`` over fp32 rows = JAX's within 2^-16 absolute, rows equal
+  but at fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +22,7 @@ from hypothesis import strategies as st
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build, plain
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 PROBE_TOL = 2.0**-18  # chip_smoke.py SPLIT_PROBE_TOL
 
@@ -35,9 +30,8 @@ PROBE_TOL = 2.0**-18  # chip_smoke.py SPLIT_PROBE_TOL
 @settings(max_examples=60, deadline=None)
 @given(st.integers(-149, 126), st.integers(0, 2**31 - 1), st.sampled_from([(256,), (128, 32)]))
 def test_split_reconstructs_fp32_queries(exp2, seed, shape):
-    """Magnitudes from the smallest fp32 subnormal to below 2^127 (every term
-    stays finite), each value a random 24-bit significand: a query, or a
-    [128 x 32] box of rows as the six-product pass splits it on the card."""
+    """Magnitudes from the least fp32 subnormal to below 2^127, random 24-bit
+    significands: a query, or a [128 x 32] box of rows."""
     rng = np.random.default_rng(seed)
     m = rng.uniform(1.0, 2.0, shape) * rng.choice([-1.0, 1.0], shape)
     q = torch.from_numpy((m * 2.0**exp2).astype(np.float32))
@@ -57,10 +51,8 @@ THREE = [(0, 1), (1, 0), (0, 0)]  # what a pass without hi.lo, lo.hi and mid.mid
 
 
 def _six_products_fp32(q, g, chunk=32):
-    """q.g^T of fp32 queries and fp32 rows as ``topk_pass1_split6_sm90``
-    sums it: both split into three bf16 terms, per ``chunk`` features the
-    six products in SIX's order into a fresh fp32 accumulator, then into
-    the running fp32 sum."""
+    """q.g^T as ``topk_pass1_split6_sm90`` sums it: three bf16 terms each, per ``chunk`` the six products in SIX's
+    order into a fresh fp32 accumulator, then the running sum."""
     qt, gt = plain.split_bf16x3(q), plain.split_bf16x3(g)
     total = torch.zeros((q.shape[0], g.shape[0]), dtype=torch.float32)
     for c0 in range(0, q.shape[1], chunk):
@@ -74,11 +66,9 @@ def _six_products_fp32(q, g, chunk=32):
 @pytest.mark.parametrize("dim, rows", [
     pytest.param(40, "bf16", id="40"), pytest.param(1280, "bf16", id="1280"), pytest.param(1536, "bf16", id="1536"),
     pytest.param(40, "fp32", id="fp32-rows-40"), pytest.param(1280, "fp32", id="fp32-rows-1280"),
-    pytest.param(1536, "fp32", id="fp32-rows-1536"),
-])
+    pytest.param(1536, "fp32", id="fp32-rows-1536")])
 def test_three_bf16_products_give_the_fp32_dot(dim, rows):
-    """bf16 rows: the three products of the split queries; fp32 rows: the
-    six products of the split queries and rows."""
+    """bf16 rows: three products; fp32 rows: six."""
     rng = np.random.default_rng(dim)
     g = rng.standard_normal((64, dim))
     g = torch.from_numpy(g / np.linalg.norm(g, axis=1, keepdims=True)).to(torch.bfloat16)
@@ -157,8 +147,7 @@ def test_lo_term_probe_separates_three_terms_from_two(b, window):
 
 @pytest.mark.parametrize("b, window", [(130, None), (257, (5, 1277))])
 def test_row_split_probe_separates_six_products_from_three(b, window):
-    """The smoke run's probe of the six-product pass, on its data: rows a
-    unit bf16 row times 1 + 2^-9 + 2^-18, queries half a row."""
+    """The smoke run's six-product probe: rows a bf16 row x (1 + 2^-9 + 2^-18), queries half a row."""
     torch.manual_seed(43)
     n, d = 512, 1280
     h = torch.randn((n, d))

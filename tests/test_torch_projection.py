@@ -1,8 +1,6 @@
-"""The port's projection and kd-forest matchers against the JAX package's
-(100 classes x 10 rows, D = 64). Tolerances: rows and checked fractions
-equal, projection distances within 1e-6 absolute; the kd-forest (the same
-numpy code) bit-equal.
-"""
+"""The port's projection and kd-forest matchers against the JAX package's (100 classes x 10 rows, D = 64). Tolerances:
+rows and checked fractions equal, projection distances within 1e-6 absolute; the kd-forest (the same numpy code)
+bit-equal."""
 
 import numpy as np
 import pytest
@@ -10,7 +8,7 @@ import pytest
 import fast_image_recognition_tpu.search.projection as J
 import fast_image_recognition_tpu_torch.search.projection as P
 from fast_image_recognition_tpu.data import make_gallery_and_probes
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

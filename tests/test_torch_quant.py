@@ -1,19 +1,11 @@
-"""The port's int8 path against the JAX package's on the same seeded inputs:
-``quantize_rows``, the gallery layouts, the int8 tile scan (the plain
-version; JAX's Pallas kernel in interpret mode) and the rescored top-k.
+"""The port's int8 path against JAX's: ``quantize_rows``, the gallery layouts, the
+int8 tile scan (plain vs interpret mode), the rescored top-k.
 
-Tolerances:
-- ``quantize_rows``: bit-equal (the same fp32 divisions, half-to-even);
-- ``gallery_sq_norms``: 2^-20 relative; ``quant_gallery_scales`` equal;
-- ``tile_min_l2_quant``, ``compute='int8'``: exact integer dots and the
-  same fp32 epilogue, so minima within 2^-20 relative + 1e-8 (|q|^2 sums
-  in another order) and rows equal but where JAX's CPU compile contracts
-  the epilogue into an FMA and the two rows tie within 2^-20 relative;
-  ``compute='bf16'``: the same bounds;
-- ``topk_l2_quant`` / ``topk_candidates_l2_quant``: candidate rows equal
-  but a tile swapped at a near-tie (2^-20 relative); rescored distances
-  within 2^-20 relative + 1e-8.
-"""
+Tolerances: ``quantize_rows`` bit-equal; ``gallery_sq_norms`` 2^-20 relative,
+``quant_gallery_scales`` equal; ``tile_min_l2_quant`` (both computes) minima
+2^-20 relative + 1e-8, rows equal but where JAX's compile contracts the
+epilogue (an FMA) and rows tie within 2^-20; top-k candidates equal but a tile
+swapped at a 2^-20 near-tie, rescored distances 2^-20 + 1e-8."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +17,7 @@ import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.ops.quant import dequantize_rows as j_dequantize
 from fast_image_recognition_tpu.ops.quant import quantize_rows as j_quantize
 from fast_image_recognition_tpu_torch.ops.quant import dequantize_rows, quantize_rows
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 
 N_VALID, N_PAD, DIM, B = 2900, 3072, 128, 24
@@ -63,10 +55,8 @@ def test_quantize_rows_bit_equal():
     np.testing.assert_array_equal(ps.view(np.int32), js.view(np.int32))
     np.testing.assert_array_equal(pv[5, :4], [127, 0, 2, -2])  # half to even
     assert ps[3] == 1.0 and (pv[3] == 0).all()
-    np.testing.assert_array_equal(
-        dequantize_rows(torch.from_numpy(pv), torch.from_numpy(ps)).numpy(),
-        np.asarray(j_dequantize(jnp.asarray(jv), jnp.asarray(js))),
-    )
+    np.testing.assert_array_equal(dequantize_rows(torch.from_numpy(pv), torch.from_numpy(ps)).numpy(),
+        np.asarray(j_dequantize(jnp.asarray(jv), jnp.asarray(js))))
     # a bf16 gallery, chunked on the port's side, gives the same values
     gb = torch.from_numpy(x).to(torch.bfloat16)
     jv2, js2 = (np.asarray(a) for a in j_quantize(jnp.asarray(x, jnp.bfloat16)))

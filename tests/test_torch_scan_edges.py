@@ -1,21 +1,14 @@
-"""The Hopper main loop's scans (``topk_l2`` bf16 with a window and a row
-mask, the min-2 and single-min packed scans, the int8 tile scan) at the
-card kernels' tile edges, their plain versions against JAX's
-interpret-mode kernels on the same seeded inputs (``chip_smoke.py`` holds
-the kernels against the plain versions).
+"""The Hopper scans (``topk_l2`` with window and mask, the packed scans, the int8
+scan) at the card kernels' tile edges, plain vs JAX's interpret mode
+(``chip_smoke.py`` holds the kernels to plain). Edges: B 1-192; n_valid 100-3000
+with query copies past it; D 8 and 40, int8 16 and 144; windows on and off the
+8-lane boundary; Da 48 and 128; tile_g 128-1024; whole-pad tiles.
 
-Edges: B 1, 127, 128, 129, 192; n_valid 100, 555, 700, 900 with query
-copies past it; D 8 and 40, int8 16 and 144; windows on and off the 8-lane
-boundary; Da 48 and 128; tile_g 128-1024; whole-pad tiles.
-
-Tolerances (test_torch_distance.py): top-k distances rtol 1e-3, indices
-equal but at window-distance ties within 2^-12 relative; packed keys
-within 2^-12 relative + 1e-6, rows equal but at such ties, certified sets
-equal but a tile swapped at one, bounds 2^-12 relative; int8 minima 2^-20
-relative + 1e-8 at D = 128 (1.28e-6 raw: JAX's CPU compile may contract
-the epilogue into an FMA), rows equal but at fp64 ties within 2^-20
-relative + 1e-6.
-"""
+Tolerances (test_torch_distance.py): top-k rtol 1e-3, indices equal but at
+2^-12 ties; packed keys 2^-12 + 1e-6, rows equal but at such ties, certified
+sets but a tile swapped, bounds 2^-12 and sound (at most the unscored rows'
+least true distance x 1.03 + 1e-4); int8 minima 2^-20 + 1e-8 (1.28e-6 raw at
+D = 128: JAX may contract an FMA), rows equal but at 2^-20 + 1e-6 fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +19,7 @@ import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.ops.quant import quantize_rows as j_quantize
 from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 REL = 2.0**-12
 
@@ -36,8 +29,7 @@ def _bf16(x):
 
 
 def _data(n, n_valid, d, b, seed):
-    """Unit rows and queries near rows of the gallery; the rows past
-    n_valid are copies of the queries."""
+    """Unit rows and queries near rows of the gallery; the rows past n_valid are copies of the queries."""
     rng = np.random.default_rng(seed)
     g = _unit(rng.standard_normal((n, d)))
     q = _unit(g[rng.integers(0, n_valid, b)] + 0.3 * rng.standard_normal((b, d)) / np.sqrt(d))
@@ -58,34 +50,25 @@ def _check_topk(q, g, n_valid, window, jd, ji, pd, pi):
     assert ((pi == ji) | (np.abs(d_port - d_jax) <= REL * d_jax + 1e-7)).all()
 
 
-# (rows, n_valid, D, B, k, window): every B, n_valid, D, k and window kind
-# of the card's edge cases, without their full product (each JAX shape
-# compiles anew)
-TOPK_CASES = [
-    (300, 100, 8, 1, 1, None),
-    (300, 100, 8, 129, 16, (1, 7)),
-    (700, 555, 40, 127, 3, (5, 37)),
-    (700, 555, 40, 129, 1, (1, 39)),
-    (700, 555, 40, 1, 16, None),
-    (700, 555, 40, 128, 2, (8, 32)),
-]
+# (rows, n_valid, D, B, k, window): the card's edge kinds, not their product (JAX compiles each shape)
+TOPK_CASES = [(300, 100, 8, 1, 1, None), (300, 100, 8, 129, 16, (1, 7)), (700, 555, 40, 127, 3, (5, 37)),
+    (700, 555, 40, 129, 1, (1, 39)), (700, 555, 40, 1, 16, None), (700, 555, 40, 128, 2, (8, 32))] + [
+    (3072, 3000, 124, b, k, None) for b in (8, 130) for k in (1, 4, 16)]
 
 
 @pytest.mark.parametrize("n, n_valid, d, b, k, window", TOPK_CASES)
 def test_topk_l2_edges_match_jax(n, n_valid, d, b, k, window):
     g, q = _data(n, n_valid, d, b, seed=n + b + k)
-    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k,
-                                                n_valid=n_valid, window=window))
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, n_valid=n_valid,
+              window=window))
     pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
-                                           n_valid=n_valid, window=window))
+              n_valid=n_valid, window=window))
     _check_topk(q, g, n_valid, window, jd, ji, pd, pi)
 
 
 @pytest.mark.parametrize("mask", ["empty", "first", "last", 64, 65, 128, 129])
 def test_topk_l2_row_masks_match_jax(mask):
-    """The row masks the card checks, on 129 queries (two query tiles):
-    masked-in rows give JAX's unmasked answer, the others come back empty
-    (BIG_DIST, -1)."""
+    """Row masks on 129 queries: masked-in rows JAX's answer, the rest empty."""
     n, n_valid, d, b, k = 700, 555, 40, 129, 3
     g, q = _data(n, n_valid, d, b, seed=11)
     jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, n_valid=n_valid))
@@ -97,14 +80,14 @@ def test_topk_l2_row_masks_match_jax(mask):
     elif mask != "empty":
         on[:mask] = True
     pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
-                                           n_valid=n_valid, row_mask=torch.from_numpy(on)))
+              n_valid=n_valid, row_mask=torch.from_numpy(on)))
     assert (pi[~on] == -1).all() and (pd[~on] > 1e36).all()
     _check_topk(q[on], g, n_valid, None, jd[on], ji[on], pd[on], pi[on])
 
 
-# (rows, n_valid, d, Da, B): Da 48 is one ragged 64-lane chunk; 900 of
-# 2500 rows leaves two tiles of nothing but padding
-MIN2_CASES = [(2500, 900, 40, 48, 1), (2500, 900, 40, 48, 129), (700, 555, 124, 128, 127), (700, 555, 124, 128, 128)]
+# (rows, n_valid, d, Da, B): Da 48 a ragged chunk; 900 of 2500 rows leaves two whole-pad tiles
+MIN2_CASES = [(2500, 900, 40, 48, 1), (2500, 900, 40, 48, 129), (700, 555, 124, 128, 127), (700, 555, 124, 128, 128),
+    (3000, 3000, 124, 128, 8), (3000, 3000, 124, 128, 130)]
 
 
 @pytest.mark.parametrize("n, n_valid, d, da, b", MIN2_CASES)
@@ -133,19 +116,14 @@ def test_tile_min2_and_certificate_edges_match_jax(n, n_valid, d, da, b):
         if set(pc[row]) != set(jc[row]):
             kth = np.sort(jd1[row])[r - 1 : r + 1]
             assert kth[1] - kth[0] <= REL * kth[1] + 1e-6
+        # sound: the bound exceeds the true unscored minimum by no more than bf16 operand rounding
+        unscored = np.setdiff1d(np.arange(n_valid), pc[row])
+        assert pb[row] <= ((q[row] - g[unscored]) ** 2).sum(-1).min() * 1.03 + 1e-4
 
 
-# (rows, n_valid, d, Da, B, tile_g): the single-min scan at the tile_g
-# below and inside the card's 256-row sub-tile's reach that the other
-# tests leave out; 700 of 1100 rows leaves whole-pad tiles after n_valid
-SINGLE_CASES = [
-    (1100, 700, 40, 48, 1, 256),
-    (1100, 700, 124, 128, 129, 256),
-    (1100, 700, 40, 48, 192, 256),
-    (1100, 700, 124, 128, 1, 512),
-    (1100, 700, 40, 48, 129, 512),
-    (1100, 700, 124, 128, 192, 512),
-]
+# (rows, n_valid, d, Da, B, tile_g): tile_g 256 and 512, whole-pad tiles past n_valid
+SINGLE_CASES = [(1100, 700, 40, 48, 1, 256), (1100, 700, 124, 128, 129, 256), (1100, 700, 40, 48, 192, 256),
+    (1100, 700, 124, 128, 1, 512), (1100, 700, 40, 48, 129, 512), (1100, 700, 124, 128, 192, 512)]
 
 
 @pytest.mark.parametrize("n, n_valid, d, da, b, tile_g", SINGLE_CASES)
@@ -166,16 +144,9 @@ def test_tile_min_packed_edges_match_jax(n, n_valid, d, da, b, tile_g):
     assert ((pi == ji) | (np.abs(d_port - d_jax) <= REL * d_jax + 1e-6) | whole_pad[None, :]).all()
 
 
-# (rows, n_valid, D, B, tile_g): the int8 scan at D 16 and 144 (one and
-# two 128-byte lines, both ragged), batches of 1 and 129 around its
-# 128-query tile, tile_g 128 (two tiles a 256-row sub-tile) and 1024 (four
-# sub-tiles a tile); 700 of 1100 rows leaves whole-pad tiles after n_valid
-QUANT_CASES = [
-    (1100, 700, 16, 1, 128),
-    (1100, 700, 16, 129, 1024),
-    (1100, 700, 144, 129, 128),
-    (1100, 700, 144, 1, 1024),
-]
+# (rows, n_valid, D, B, tile_g): D 16 and 144 (ragged lines), B 1 and 129, tile_g 128 and 1024
+QUANT_CASES = [(1100, 700, 16, 1, 128), (1100, 700, 16, 129, 1024), (1100, 700, 144, 129, 128),
+    (1100, 700, 144, 1, 1024)]
 QUANT_REL = 2.0**-20
 
 

@@ -1,15 +1,10 @@
-"""``select='approx'`` (``ops/distance_kernel.py::_select_tiles``,
-``RecognitionService``) against JAX's on the same random-init B0 weights
-(32 px), probe images and gallery. JAX's ``approx_min_k`` is an exact
-top-k off the TPU, so the port's approx selection is its exact one.
+"""``select='approx'`` (``_select_tiles``, ``RecognitionService``) against JAX's
+on the same random-init B0 (32 px); JAX's ``approx_min_k`` is exact off the
+TPU.
 
-Tolerances: tile selection, the same columns in the same order as JAX's
-``approx_min_k`` on the CPU, equal minima in the same ascending order
-(JAX orders equal minima its own way; the port, as ``lax.top_k``, by the
-lower tile); services, the same labels as JAX's but where the picks'
-squared distances lie within 2^-8 relative; in the port, approx and
-``select='exact', escalate=None`` give identical rows.
-"""
+Tolerances: the same tiles in the same order as JAX's (equal minima ordered by
+the lower tile); services' labels equal but at picks within 2^-8 relative;
+approx = ``select='exact', escalate=None`` rows."""
 
 import jax
 import jax.numpy as jnp
@@ -20,23 +15,19 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu.models import backbone_info as jax_info
-from fast_image_recognition_tpu.models import create_efficientnet as jax_create
 from fast_image_recognition_tpu.models.fold import make_serving_fn as jax_serving_fn
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit, jax_b0  # noqa: F401
 
 RES, PROBES, N = 32, 24, 3000
 
 
 @pytest.fixture(scope="module")
 def setup():
-    model, variables = jax_create("b0", 0, resolution=RES)
-    variables = jax.device_get(variables)
-    np_vars = jax.tree_util.tree_map(np.asarray, {"params": variables["params"],
-                                                  "batch_stats": variables["batch_stats"]})
+    model, variables, np_vars = jax_b0(RES)
     jax_serve = jax_serving_fn(model, variables, jax_info("b0"), resolution=RES)
     serve = make_serving_fn(np_vars, backbone_info("b0"), resolution=RES, device="cpu")
     rng = np.random.default_rng(4)
@@ -71,8 +62,7 @@ def test_select_tiles_equals_jax_approx_min_k():
 
 
 def test_approx_service_labels_match_jax(setup):
-    """bench.py's service (PCA-124 packed, the single-min scan under
-    ``select='approx'``) against JAX's."""
+    """bench.py's service (PCA-124 packed, the single-min scan under ``select='approx'``) against JAX's."""
     model, variables, jax_serve, serve, images, emb, gal, labels = setup
     kw = dict(pca_dim=124, pca_scan="packed", rescore=8, select="approx")
     js = JaxService(model, variables, jax_info("b0"), gal, labels=labels, resolution=RES, serving_fn=jax_serve, **kw)
@@ -88,9 +78,7 @@ def test_approx_service_labels_match_jax(setup):
 
 @pytest.mark.parametrize("pca_scan", ["packed", "f32", "bf16", "int8"])
 def test_approx_service_equals_exact_selection(setup, pca_scan):
-    """Every scan's approx service gives the rows of its exact selection
-    without escalation (the JAX side of the f32, bf16 and int8 scans'
-    selection is held in test_select_tiles_equals_jax_approx_min_k)."""
+    """Every scan's approx service gives its exact selection's rows without escalation."""
     _, _, _, serve, images, _, gal, labels = setup
     svc = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
                              pca_dim=124 if pca_scan == "packed" else 128, pca_scan=pca_scan, rescore=8,

@@ -1,10 +1,7 @@
-"""The port's RecognitionService against JAX's on the same random-init B0@64
-weights, images and gallery, end to end (``pca`` packed, ``exact``), over
-rows in a 96-d span holding the probes' embeddings (PCA-124 keeps every
-distance): per probe a planted row (noise 0.02) and 40 distractors (noise
-0.5), fillers elsewhere. Tolerance: top-1 rows equal but where the picks'
-squared distances are within 2^-8 relative (bf16 backbones).
-"""
+"""The port's RecognitionService against JAX's on the same random-init B0@64,
+images and gallery (``pca`` packed, ``exact``), rows in a 96-d span holding the
+probes: a planted row (noise 0.02) and 40 distractors (0.5) a probe. Tolerance:
+top-1 equal but at picks within 2^-8 relative."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +10,6 @@ import pytest
 import torch
 
 from fast_image_recognition_tpu.models import backbone_info as jax_info
-from fast_image_recognition_tpu.models import create_backbone
 from fast_image_recognition_tpu.models.fold import make_serving_fn as jax_serving_fn
 from fast_image_recognition_tpu.ops.distance_kernel import topk_candidates_l2_packed_cert
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
@@ -21,7 +17,7 @@ from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
 from fast_image_recognition_tpu_torch.parallel import gallery_mesh
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit, jax_b0, planted_gallery  # noqa: F401
 
 
 RES, PROBES, N = 64, 32, 4000
@@ -30,42 +26,23 @@ RES, PROBES, N = 64, 32, 4000
 @pytest.fixture(scope="module")
 def setup():
     # parameters do not depend on the resolution; a small init compiles faster
-    model, variables = create_backbone("b0", 0, resolution=32)
-    variables = jax.device_get(variables)
+    model, variables, np_vars = jax_b0(32)
     jax_serve = jax_serving_fn(model, variables, jax_info("b0"), resolution=RES)
-    np_vars = jax.tree_util.tree_map(
-        np.asarray, {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    )
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (PROBES, RES, RES, 3)).astype(np.uint8)
     serve = make_serving_fn(np_vars, backbone_info("b0"), resolution=RES, device="cpu")
     with torch.no_grad():
         emb = _unit(serve(torch.from_numpy(images))["embedding"].numpy())
-    basis, _ = np.linalg.qr(np.concatenate([emb, rng.standard_normal((64, 1280))]).T)
-    basis = basis.T.astype(np.float32)  # [96, 1280] orthonormal rows
-
-    def in_span(n, scale):
-        return scale * (rng.standard_normal((n, 96)) / np.sqrt(96)).astype(np.float32) @ basis
-
-    rows = [_unit(rng.standard_normal((N, 96)).astype(np.float32) @ basis)]
-    planted = rng.choice(N, PROBES, replace=False)
-    gal = rows[0]
-    free = np.setdiff1d(np.arange(N), planted)
-    rng.shuffle(free)
-    for i in range(PROBES):
-        gal[planted[i]] = _unit(emb[i] + in_span(1, 0.02)[0])
-        gal[free[i * 40 : (i + 1) * 40]] = _unit(emb[i] + in_span(40, 0.5))
+    gal, planted = planted_gallery(emb, N, rng)
     return model, (variables, jax_serve), np_vars, serve, images, gal, planted
 
 
 def _pair(setup, **kw):
-    """Both services with the same arguments: bench.py's main-path PCA
-    (124, packed) unless ``kw`` says otherwise."""
+    """Both services, the main path's PCA (124, packed) unless ``kw`` says otherwise."""
     model, (variables, jax_serve), np_vars, serve, images, gal, _ = setup
     kw = {"pca_dim": 124, "pca_scan": "packed", **kw}
     js = JaxService(model, variables, jax_info("b0"), gal, resolution=RES, serving_fn=jax_serve, **kw)
-    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve,
-                            device="cpu", **kw)
+    ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu", **kw)
     return np.asarray(js.identify_device(images)), ps.identify_device(torch.from_numpy(images)).numpy(), ps
 
 
@@ -91,9 +68,7 @@ def test_pca_packed_certified_top1_matches_jax(setup, escalate, rescore):
 
 
 def test_pca_packed_uncertified_top1_matches_jax(setup):
-    """``escalate=None``: the rescored best of the single-min packed scan's
-    candidates, uncertified (JAX serving.py:298-305); rescore 2 of the
-    gallery's 4 tiles, so the tile selection decides."""
+    """``escalate=None``: the uncertified rescored best (JAX serving.py:298-305); rescore 2 of 4 tiles."""
     ji, pi, ps = _pair(setup, escalate=None, rescore=2)
     _assert_same_top1(setup, ji, pi)
     np.testing.assert_array_equal(pi, setup[-1])  # the planted rows win
@@ -102,20 +77,16 @@ def test_pca_packed_uncertified_top1_matches_jax(setup):
 
 @pytest.mark.parametrize("clustered", [False, True])
 def test_certified_pick_is_nearest_candidate(setup, clustered):
-    """The pick before escalation is the candidate nearest the probe by a
-    plain fp32 rescore, within 2^-12 relative + 1e-5 (fp32 rounding of
-    1280-term sums); on the planted gallery it is the planted row and
-    nothing escalates. ``clustered`` replaces the first rows with 32 per
-    probe (noise 0.5), where the pick is a near-tie among them."""
+    """The pick before escalation is the candidate nearest by an fp32 rescore (2^-12 relative + 1e-5); on the planted
+    gallery the planted row, no escalation; ``clustered`` (32 rows a probe first) a near-tie among them."""
     _, _, _, serve, images, gal, planted = setup
     with torch.no_grad():
         emb = torch.from_numpy(_unit(serve(torch.from_numpy(images))["embedding"].numpy()))
     if clustered:
         rng = np.random.default_rng(7)
         gal = gal.copy()
-        gal[: PROBES * 32] = _unit(
-            np.repeat(emb.numpy(), 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32, 1280)) / np.sqrt(1280)
-        )
+        gal[: PROBES * 32] = _unit(np.repeat(emb.numpy(), 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32,
+            1280)) / np.sqrt(1280))
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
                             pca_dim=124, pca_scan="packed")
     cand, pick, esc = ps._certified(emb)
@@ -139,10 +110,7 @@ def test_exact_match_top1_matches_jax(setup):
 
 
 def test_identify_labels_and_unported_modes(setup):
-    """``identify`` returns int64 rows and their labels, also through
-    ``match='sharded'`` over two CPU shards (held against JAX in
-    test_torch_sharded.py); unknown modes raise (``select='approx'`` is held
-    against JAX in test_torch_select_approx.py)."""
+    """``identify`` gives int64 rows and labels, also sharded over two CPU shards; unknown modes raise."""
     _, _, np_vars, serve, images, gal, planted = setup
     labels = np.arange(N) % 7
     ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES,
@@ -163,12 +131,9 @@ def test_identify_labels_and_unported_modes(setup):
 
 
 def _jax_escalation(js, emb):
-    """The JAX service's certificate test (serving.py:326-356) on ``emb``:
-    (escalate mask, margin of the test). The service does not expose it."""
+    """JAX's certificate test (serving.py:326-356) on ``emb``: (escalate mask, margin)."""
     e = jnp.asarray(emb)
-    cand, bound = topk_candidates_l2_packed_cert(
-        (e - js._mu) @ js._w, js.match_args[0], js.pca_dim, js.rescore
-    )
+    cand, bound = topk_candidates_l2_packed_cert((e - js._mu) @ js._w, js.match_args[0], js.pca_dim, js.rescore)
     rows = np.asarray(js.gallery.astype(jnp.float32))[np.asarray(cand)]
     e16 = np.asarray(e.astype(jnp.bfloat16).astype(jnp.float32))
     d1 = ((rows * rows).sum(-1) - 2.0 * np.einsum("bd,brd->br", e16, rows)).min(1)
@@ -180,11 +145,8 @@ def _jax_escalation(js, emb):
 
 @pytest.mark.parametrize("clustered", [False, True])
 def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
-    """The main path's service (PCA-124 packed, rescore 48, slack 0.05):
-    same embeddings in, same top-1 and same certificate decisions out. With 32 rows per
-    identity (the class-structured workload of chip_smoke.py) the within-
-    tile second minimum is as near as the best row, so both packages
-    escalate every probe; on the planted gallery neither does."""
+    """The main path's service: same top-1 and certificate decisions. With 32 rows
+    an identity both escalate every probe; on the planted gallery neither."""
     model, (variables, jax_serve), _, serve, images, gal, _ = setup
     with torch.no_grad():
         emb = _unit(serve(torch.from_numpy(images))["embedding"].numpy())
@@ -209,9 +171,7 @@ def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
 
 
 def test_return_types_match_jax(setup):
-    """As in the JAX package, ``identify_device`` gives int32 rows on the
-    device (the JAX side's are checked in the tests above) and ``embed`` a
-    host numpy [B, D] fp32 array of unit rows; ``identify`` int64 rows."""
+    """``identify_device`` int32 rows on the device, ``embed`` host [B, D] fp32 unit rows, ``identify`` int64."""
     _, _, _, serve, images, gal, planted = setup
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
                             match="exact")

@@ -1,12 +1,8 @@
-"""The port's RecognitionService against JAX's at the match level, in the
-modes the backbone does not decide: JAX's defaults (PCA-128, fp32-score
-tile scan), ``pca_scan`` bf16 and int8, ``match='int8'``, the one-launch
-escalation and the builders. Both match the same unit embeddings
-(``serving_fn`` stubbed) over rows in a 96-d span: per probe a planted row
-(noise 0.02) and 40 distractors (noise 0.5), fillers elsewhere;
-``clustered`` puts 32 rows per probe first. Tolerance: top-1 rows equal
-but where the picks' squared distances are within 2^-8 relative.
-"""
+"""RecognitionService against JAX's at the match level (``serving_fn`` stubbed,
+the same unit embeddings): JAX's defaults, ``pca_scan`` bf16 and int8,
+``match='int8'``, the one-launch escalation, the build functions; rows as in
+test_torch_serving.py (``clustered``: 32 rows a probe first). Tolerance: top-1
+equal but at picks within 2^-8 relative."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +13,7 @@ from fast_image_recognition_tpu.models import backbone_info as jax_info
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 
 PROBES, N, DIM = 32, 4000, 1280
@@ -59,8 +55,7 @@ def _services(data, clustered, **kw):
 
 
 def _same_emb_top1(js, ps, emb, gal):
-    """Both services matched on the same embeddings: int32 rows, the same
-    top-1 up to near-ties. Returns (JAX rows, port rows)."""
+    """Both matched on the same embeddings: int32 rows, top-1 equal up to near-ties. (JAX rows, port rows)."""
     ji = np.asarray(js._match_emb(jnp.asarray(emb), *js.match_args))
     pi = ps._match_emb(torch.from_numpy(emb)).numpy()
     assert pi.dtype == ji.dtype == np.int32
@@ -71,8 +66,7 @@ def _same_emb_top1(js, ps, emb, gal):
 
 @pytest.mark.parametrize("clustered", [False, True])
 def test_jax_defaults_top1_matches_jax(data, clustered):
-    """Both services with no ``pca_dim``/``pca_scan``: the JAX defaults,
-    PCA-128 and the uncertified fp32-score tile scan, in both packages."""
+    """JAX's defaults (PCA-128, fp32-score tile scan) in both packages."""
     js, ps, emb, gal = _services(data, clustered)
     assert ps.pca_dim == js.pca_dim == 128
     assert getattr(ps, "pca_scan", None) == js.pca_scan == "f32"
@@ -88,10 +82,8 @@ def test_jax_defaults_top1_matches_jax(data, clustered):
 )
 @pytest.mark.parametrize("clustered", [False, True])
 def test_scan_modes_top1_match_jax(data, kw, clustered):
-    """``pca_scan`` bf16 and int8 (rescore 2 of the gallery's 4 tiles, so
-    the tile selection decides) and ``match='int8'`` (rescore min(48, 16)):
-    the same top-1 up to near-ties; on the planted gallery, the planted
-    rows."""
+    """``pca_scan`` bf16 and int8 (rescore 2 of 4 tiles) and ``match='int8'``:
+    top-1 equal up to near-ties, planted rows found."""
     kw = {"rescore": 2, **kw} if "pca_scan" in kw else kw
     _, pi = _same_emb_top1(*_services(data, clustered, **kw))
     if not clustered:
@@ -99,11 +91,8 @@ def test_scan_modes_top1_match_jax(data, kw, clustered):
 
 
 def test_escalation_is_one_masked_scan(data, monkeypatch):
-    """The certified path launches the exact scan once per call with the
-    escalation mask on the device (no host sync), whatever the mask
-    holds, the escalated probes moved to the front of it, and answers as
-    before: the exact row where a probe escalates, the rescored pick
-    elsewhere."""
+    """The certified path launches the exact scan once a call, the mask on the device, escalated probes first: the
+    exact row where a probe escalates, the pick elsewhere."""
     import fast_image_recognition_tpu_torch.serving as port_serving
 
     emb, gal, gal_c, planted = data
@@ -135,10 +124,7 @@ def test_escalation_is_one_masked_scan(data, monkeypatch):
 
 @pytest.mark.parametrize("pattern", ["none", "all", "scattered"])
 def test_escalate_scans_the_escalated_probes_in_front(data, monkeypatch, pattern):
-    """``_escalate`` hands the exact scan the escalated probes first, in
-    their order, under a mask that is a prefix of the batch, and puts each
-    answer back at its probe: the exact row where ``esc`` holds, the given
-    pick elsewhere."""
+    """``_escalate`` scans the escalated probes first under a prefix mask and puts each answer back at its probe."""
     import fast_image_recognition_tpu_torch.serving as port_serving
 
     emb, gal, _, _ = data
@@ -168,10 +154,7 @@ def test_escalate_scans_the_escalated_probes_in_front(data, monkeypatch, pattern
 
 
 def test_build_service_matches_jax(data, monkeypatch):
-    """``build_service`` from a variant name and checkpoint variables, as
-    the JAX package's is called with converted variables (its random init,
-    discarded when ``variables`` are given, is stubbed here): the same
-    settings, the same rows for the same embeddings, the labels passed on."""
+    """``build_service`` from a name and variables as JAX's (its discarded init stubbed): settings, rows and labels."""
     import fast_image_recognition_tpu.models as jax_models
     from fast_image_recognition_tpu.serving import build_service as jax_build_service
     from fast_image_recognition_tpu_torch.serving import build_service
@@ -190,9 +173,7 @@ def test_build_service_matches_jax(data, monkeypatch):
 
 @pytest.mark.parametrize("builder", ["build_service", "build_cascade_service"])
 def test_builders_keep_the_service_seed(monkeypatch, builder):
-    """``seed`` seeds the JAX package's random backbone init and never
-    reaches the service, whose own ``seed`` (17 for the cascade's
-    calibration noise) stays; the port's builders take it the same way."""
+    """``seed`` seeds the backbone init and never the service's own ``seed``, in both packages."""
     import fast_image_recognition_tpu.models as jax_models
     import fast_image_recognition_tpu.serving as jax_serving
     import fast_image_recognition_tpu_torch.serving as port_serving

@@ -1,11 +1,7 @@
-"""The port's sharded search (``parallel/``) against JAX's: JAX on its 8
-simulated CPU devices, the port on ``gallery_mesh(devices=["cpu"] * S)``,
-plain scans against JAX's interpret-mode Pallas. Tolerances: rows equal
-(no near-ties here), distances 1e-6 absolute; shards bit-equal; packed
-projections equal but bf16 rounding flips (< 0.1 % of elements); the
-service's rows equal JAX's service fed the port's embeddings (backbone
-parity: tests/test_torch_serving.py) and the unsharded ``match='exact'``.
-"""
+"""The port's sharded search against JAX's (8 simulated CPU devices; the port on
+``gallery_mesh(devices=["cpu"] * S)``). Tolerances: rows equal, distances 1e-6;
+shards bit-equal; packed projections but bf16 flips (< 0.1 %); the service's
+rows = JAX's service fed the port's embeddings and the unsharded ``exact``'s."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,18 +17,10 @@ from fast_image_recognition_tpu.parallel.mesh import gallery_mesh as jax_gallery
 from fast_image_recognition_tpu.serving import RecognitionService as JaxService
 from fast_image_recognition_tpu_torch.models.efficientnet import backbone_info, create_efficientnet
 from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
-from fast_image_recognition_tpu_torch.parallel import (
-    Mesh,
-    ShardedGalleryMatcher,
-    gallery_mesh,
-    make_mesh,
-    shard_gallery,
-    shard_gallery_pca_aug,
-    sharded_topk_l2,
-    sharded_topk_pca_packed,
-)
+from fast_image_recognition_tpu_torch.parallel import (Mesh, ShardedGalleryMatcher, gallery_mesh, make_mesh,
+    shard_gallery, shard_gallery_pca_aug, sharded_topk_l2, sharded_topk_pca_packed)
 from fast_image_recognition_tpu_torch.serving import RecognitionService
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit, planted_gallery  # noqa: F401
 
 TILE = 128
 
@@ -48,11 +36,10 @@ def cpu_mesh(s):
     return gallery_mesh(devices=["cpu"] * s)
 
 
-@pytest.mark.parametrize("n_shards,precise,k,n", [(2, False, 3, 720), (4, True, 3, 720), (8, False, 5, 300),
-                                                  (2, False, 8, 5)])
+@pytest.mark.parametrize("n_shards,precise,k,n", [(2, False, 3, 720), (4, True, 3, 720), (8, False, 5, 300), (2, False,
+                         8, 5)])
 def test_sharded_topk_l2_matches_jax(sets, n_shards, precise, k, n):
-    """(8, 300 rows, k=5): shards 3-7 empty; (2, 5 rows, k=8): fewer valid
-    rows than k, the tail JAX's (BIG_DIST / D, -1)."""
+    """(8, 300 rows, k=5): shards 3-7 empty; (2, 5 rows, k=8): JAX's tail (BIG_DIST / D, -1)."""
     q, g = sets
     g = g[:n]
     jm = jax_gallery_mesh(n_shards)
@@ -77,7 +64,7 @@ def test_sharded_topk_pca_packed_matches_jax(sets):
     rng = np.random.default_rng(3)
     planted = np.linspace(0, len(g) - 1, 12).astype(int)
     q = np.concatenate([g[planted] + 0.01 * rng.standard_normal((12, 128)).astype(np.float32),
-                        0.1 * rng.standard_normal((4, 128)).astype(np.float32)])
+                       0.1 * rng.standard_normal((4, 128)).astype(np.float32)])
     pca = fit_pca(g, num_components=28)
     mu, w = pca.mean, pca.components.T
     jm = jax_gallery_mesh(4)
@@ -125,24 +112,14 @@ RES, PROBES, N = 64, 16, 4000
 
 @pytest.fixture(scope="module")
 def service_setup():
-    """The port's B0 (own init at 32 px), 64-px probes, 4,000 rows in a 96-d
-    span of their embeddings: per probe a planted row and 40 distractors."""
+    """The port's B0 at 32 px, 64-px probes, 4,000 rows in a 96-d span of their embeddings."""
     _, variables = create_efficientnet("b0", seed=0, resolution=32, device="cpu")
     serve = make_serving_fn(variables, backbone_info("b0"), resolution=RES, device="cpu")
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (PROBES, RES, RES, 3)).astype(np.uint8)
     with torch.no_grad():
         emb = _unit(serve(torch.from_numpy(images))["embedding"].to(torch.float32).numpy())
-    basis, _ = np.linalg.qr(np.concatenate([emb, rng.standard_normal((96 - PROBES, 1280))]).T)
-    basis = basis.T.astype(np.float32)
-    gal = _unit(rng.standard_normal((N, 96)).astype(np.float32) @ basis)
-    planted = rng.choice(N, PROBES, replace=False)
-    free = np.setdiff1d(np.arange(N), planted)
-    rng.shuffle(free)
-    for i in range(PROBES):
-        gal[planted[i]] = _unit(emb[i] + 0.02 * (rng.standard_normal(96) / np.sqrt(96)).astype(np.float32) @ basis)
-        noise = 0.5 * (rng.standard_normal((40, 96)) / np.sqrt(96)).astype(np.float32) @ basis
-        gal[free[i * 40 : (i + 1) * 40]] = _unit(emb[i] + noise)
+    gal, planted = planted_gallery(emb, N, rng)
     return serve, images, emb, gal, planted
 
 

@@ -1,7 +1,5 @@
-"""The port's small-world search against the JAX package's (200 classes x
-10 rows, D = 64). Tolerances: the neighbour table, rows and counts equal
-(stable sorts, the same numpy generators); distances within 1e-6 absolute.
-"""
+"""The port's small-world search against the JAX package's (200 classes x 10 rows, D = 64). Tolerances: the neighbour
+table, rows and counts equal (stable sorts, the same numpy generators); distances within 1e-6 absolute."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +9,7 @@ import torch
 import fast_image_recognition_tpu.search.small_world as J
 import fast_image_recognition_tpu_torch.search.small_world as P
 from fast_image_recognition_tpu.data import make_gallery_and_probes
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -30,8 +28,7 @@ def test_neighbor_table_matches_jax(dataset):
 
 @pytest.mark.parametrize("kw,budget", [({}, 50), ({}, 400), ({"pca_dim": 16}, 200)])
 def test_routed_search_matches_jax(dataset, kw, budget):
-    """The routed, restarting search at a tight and a loose budget, and the
-    PCA-space walk with its full-D rescore."""
+    """The routed, restarting search at a tight and a loose budget, and the PCA-space walk with its full-D rescore."""
     g, _, p, _ = dataset
     jm = J.SmallWorldMatcher(g, seed=0, **kw)
     jm.set_budget(budget)
@@ -46,9 +43,7 @@ def test_routed_search_matches_jax(dataset, kw, budget):
 
 
 def test_graph_walk_from_entries_matches_jax(dataset, monkeypatch):
-    """The pure walk from the seeded per-row-distinct entries; the host
-    reads "any active" every wave here and every SYNC_EVERY waves by
-    default, with the same answers."""
+    """The walk from seeded entries; "any active" read every wave or every SYNC_EVERY, the same answers."""
     g, _, p, _ = dataset
     jm = J.SmallWorldMatcher(g, seed=0)
     jm.set_budget(100)

@@ -1,11 +1,8 @@
-"""The port's device renderer against the JAX package's.
+"""The port's device renderer against JAX's: ``make_class_params`` bit-equal; on
+identical instance parameters and noise the uint8 images within 1 (a
+quantization edge)."""
 
-Tolerances: ``make_class_params`` is a verbatim numpy copy, so bit-equal.
-``_render_batch`` evaluates the same float32 expressions in another
-framework; on identical per-instance parameters and noise the uint8 images
-agree within 1 (a value that lands on a quantization edge).
-"""
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,13 +17,34 @@ def _unit(x):
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
+def jax_b0(res=32, **kw):
+    """JAX's B0 init: (module, host variables, their params and batch_stats as numpy)."""
+    from fast_image_recognition_tpu.models import create_efficientnet
+
+    model, v = create_efficientnet("b0", 0, resolution=res, **kw)
+    v = jax.device_get(v)
+    return model, v, jax.tree_util.tree_map(np.asarray, {k: v[k] for k in ("params", "batch_stats")})
+
+
+def planted_gallery(emb, n, rng):
+    """n rows in a 96-d span holding the unit rows ``emb``: per probe a planted row (noise 0.02) and 40
+    distractors (0.5), the rest random in the span. (gallery, planted rows)."""
+    b = len(emb)
+    basis = np.linalg.qr(np.concatenate([emb, rng.standard_normal((96 - b, emb.shape[1]))]).T)[0].T.astype(np.float32)
+    span = lambda k, s: s * (rng.standard_normal((k, 96)) / np.sqrt(96)).astype(np.float32) @ basis  # noqa: E731
+    gal = _unit(rng.standard_normal((n, 96)).astype(np.float32) @ basis)
+    planted = rng.choice(n, b, replace=False)
+    free = rng.permutation(np.setdiff1d(np.arange(n), planted))
+    for i in range(b):
+        gal[planted[i]] = _unit(emb[i] + span(1, 0.02)[0])
+        gal[free[i * 40 : (i + 1) * 40]] = _unit(emb[i] + span(40, 0.5))
+    return gal, planted
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    """One torch and BLAS thread for this module: the suite runs several
-    workers on a few cores, where spinning thread pools stall each other
-    (a module took 10x longer with the default pools under load). Every
-    port test file that computes imports this fixture, which makes it
-    autouse there too."""
+    """One torch and BLAS thread for the module (several workers on a few cores stall each other's pools: 10x slower).
+    Port test files import it, autouse there too."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     with threadpool_limits(1):
@@ -54,15 +72,9 @@ def test_render_batch_matches_jax_on_identical_instances(res):
     rng = np.random.default_rng(res)
     b = 6
     ids = rng.integers(0, 7, b)
-    per = {
-        "angle": rng.uniform(-0.44, 0.44, b),
-        "scale": rng.uniform(0.8, 1.2, b),
-        "tx": rng.uniform(-0.1, 0.1, b) * res,
-        "ty": rng.uniform(-0.1, 0.1, b) * res,
-        "bright": rng.uniform(-0.1, 0.1, b),
-        "contrast": rng.uniform(0.85, 1.15, b),
-        "namp": rng.uniform(0.0, 0.25, b),
-    }
+    per = {"angle": rng.uniform(-0.44, 0.44, b), "scale": rng.uniform(0.8, 1.2, b),
+        "tx": rng.uniform(-0.1, 0.1, b) * res, "ty": rng.uniform(-0.1, 0.1, b) * res,
+        "bright": rng.uniform(-0.1, 0.1, b), "contrast": rng.uniform(0.85, 1.15, b), "namp": rng.uniform(0.0, 0.25, b)}
     per = {k: v.astype(np.float32) for k, v in per.items()}
     for k in ("fx", "fy", "ph", "amp", "cast"):
         per[k] = params[k][ids]

@@ -1,17 +1,12 @@
-"""The port's bf16 tile-min scan and exact top-k variants (plain versions, on
-the CPU) against JAX's interpret-mode kernels on the same seeded inputs.
+"""The bf16 tile scan and top-k variants (plain) against JAX's interpret mode.
 Tolerances:
-- ``tile_min_l2``, fp32 scores: minima within 2^-20 relative (+1e-6 after
-  the |q|^2 add), rows equal but at such ties;
-- bf16 scores (|g|^2, 2 q.g and their difference rounded to bf16): minima
-  equal (2^-20 relative + 1e-8 after the |q|^2 add), ties to the lowest
-  row. JAX's interpret mode keeps excess fp32 precision in some bf16 ops,
-  so its ``_masked_argmin`` may find no row and return ``tile * tile_g +
-  INT_MAX`` wrapped; there the port must return a row of that tile at the
-  reported minimum;
-- ``topk_l2(precise=True)``: 2^-20 relative + 1e-7, rows equal but at ties;
-- ``window``: lanes outside [start, end) zeroed, the same tolerances.
-"""
+- ``tile_min_l2`` fp32 scores: minima 2^-20 relative (+1e-6 after |q|^2),
+  rows but at ties;
+- bf16 scores: minima equal (2^-20 + 1e-8 after |q|^2), ties low; where JAX's
+  interpret mode keeps fp32 excess and its ``_masked_argmin`` wraps, the
+  port's row is a row of that tile at the minimum;
+- ``topk_l2(precise=True)``: 2^-20 + 1e-7, rows but at ties; ``window``:
+  lanes outside zeroed, the same."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +15,7 @@ import torch
 
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 
 N_VALID, N_PAD, DIM, B = 2900, 3072, 64, 24
@@ -47,12 +42,10 @@ def _bf16(x):
 @pytest.mark.parametrize("tile_g", [128, 1024])
 def test_tile_min_l2_matches_jax(data, precise_scores, tile_g):
     q, _, gp = data
-    jd, ji = (np.asarray(x) for x in J.tile_min_l2(
-        jnp.asarray(q), jnp.asarray(gp, jnp.bfloat16), n_valid=N_VALID, tile_g=tile_g,
-        precise_scores=precise_scores))
-    pd, pi = (x.numpy() for x in P.tile_min_l2(
-        torch.from_numpy(q), torch.from_numpy(gp).to(torch.bfloat16), n_valid=N_VALID, tile_g=tile_g,
-        precise_scores=precise_scores))
+    jd, ji = (np.asarray(x) for x in J.tile_min_l2(jnp.asarray(q), jnp.asarray(gp, jnp.bfloat16), n_valid=N_VALID,
+              tile_g=tile_g, precise_scores=precise_scores))
+    pd, pi = (x.numpy() for x in P.tile_min_l2(torch.from_numpy(q), torch.from_numpy(gp).to(torch.bfloat16),
+              n_valid=N_VALID, tile_g=tile_g, precise_scores=precise_scores))
     n_tiles = N_PAD // tile_g
     assert pd.shape == pi.shape == (B, n_tiles) and pi.dtype == np.int32
     tiles = np.arange(n_tiles)[None, :] * tile_g
@@ -91,8 +84,7 @@ def test_tile_min_l2_matches_jax(data, precise_scores, tile_g):
 
 @pytest.mark.parametrize("precise_scores", [True, False])
 def test_topk_candidates_l2_matches_jax(data, precise_scores):
-    """R = 5 of 24 tiles (tile_g 128) with a precomputed ``gsq``: the same
-    candidate rows, except a tile swapped at a near-tie of its minimum."""
+    """R = 5 of 24 tiles with a given ``gsq``: the same rows but a tile swapped at a near-tie."""
     q, _, gp = data
     r, tile_g = 5, 128
     jg = jnp.asarray(gp, jnp.bfloat16)
@@ -100,12 +92,11 @@ def test_topk_candidates_l2_matches_jax(data, precise_scores):
     jgsq = J.gallery_sq_norms(jg, N_VALID, tile_g)
     pgsq = P.gallery_sq_norms(pg, N_VALID, tile_g)
     jc = np.asarray(J.topk_candidates_l2(jnp.asarray(q), jg, r, n_valid=N_VALID, tile_g=tile_g, gsq=jgsq,
-                                         precise_scores=precise_scores))
+                    precise_scores=precise_scores))
     pc = P.topk_candidates_l2(torch.from_numpy(q), pg, r, n_valid=N_VALID, tile_g=tile_g, gsq=pgsq,
                               precise_scores=precise_scores).numpy()
     assert pc.shape == (B, r) and pc.dtype == np.int32 and (pc < N_VALID).all()
-    jd = np.asarray(J.tile_min_l2(jnp.asarray(q), jg, n_valid=N_VALID, tile_g=tile_g,
-                                  precise_scores=precise_scores)[0])
+    jd = np.asarray(J.tile_min_l2(jnp.asarray(q), jg, n_valid=N_VALID, tile_g=tile_g, precise_scores=precise_scores)[0])
     for b in range(B):
         if (pc[b] // tile_g).tolist() != (jc[b] // tile_g).tolist():
             kth = np.sort(jd[b])[r - 1 : r + 1]  # the swapped tiles tie
@@ -124,10 +115,8 @@ def test_topk_l2_precise_and_window_match_jax(data, gal_dtype, window):
     jnp_dt, t_dt = (jnp.bfloat16, torch.bfloat16) if gal_dtype == "bf16" else (jnp.float32, torch.float32)
     jg = jnp.asarray(g, jnp_dt)
     pg = torch.from_numpy(g).to(t_dt)
-    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jg, k, n_valid=N_VALID, window=window,
-                                               precise=True))
-    pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), pg, k, n_valid=N_VALID, window=window,
-                                           precise=True))
+    jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jg, k, n_valid=N_VALID, window=window, precise=True))
+    pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), pg, k, n_valid=N_VALID, window=window, precise=True))
     assert pi.dtype == np.int32 and pi.shape == (B, k)
     lo, hi = window or (0, DIM)
     np.testing.assert_allclose(pd, jd, rtol=F32_REL, atol=1e-7)
@@ -141,9 +130,7 @@ def test_topk_l2_precise_and_window_match_jax(data, gal_dtype, window):
 
 
 def test_topk_l2_window_bf16_and_row_mask(data):
-    """The bf16 path with a window matches JAX's (rtol 1e-3 as in
-    test_torch_distance.py); ``row_mask`` empties the rows it leaves out
-    and keeps the others."""
+    """bf16 with a window = JAX's (rtol 1e-3); ``row_mask`` empties the rows it leaves out."""
     q, g, _ = data
     jg = jnp.asarray(g, jnp.bfloat16)
     pg = torch.from_numpy(g).to(torch.bfloat16)
@@ -167,10 +154,8 @@ def test_topk_l2_window_bf16_and_row_mask(data):
 
 @pytest.mark.parametrize("scan", ["tile_min_l2", "topk_l2", "topk_l2_precise", "tile_min_l2_quant"])
 def test_scans_take_a_column_padded_gallery(data, scan):
-    """A gallery padded once with ``pad_cols`` (60 -> 64 zero columns)
-    gives the unpadded gallery's answer for queries of the unpadded
-    width: rows equal, distances within 2^-20 relative + 1e-7 (the zero
-    lanes may change the fp32 sum order); other widths are refused."""
+    """A gallery padded once by ``pad_cols`` (60 -> 64) answers as the unpadded
+    one: rows equal, distances 2^-20 relative + 1e-7; other widths refused."""
     q, _, gp = data
     d = 60
     qt = torch.from_numpy(q[:, :d].copy())

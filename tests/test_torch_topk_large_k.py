@@ -1,13 +1,8 @@
-"""``topk_l2`` for k > 16 (bf16, ``precise=True``, a window; on the CPU its
-plain version) against JAX's (interpret mode) on the same seeded inputs,
-and the card kernels' argument rules, which need no card: any Da for the
-packed scans, tile and segment counts past 65,535, k up to 256.
-
-The gallery (4,096 x 64) holds 512 exact duplicates: ties go to the lowest
-row on both sides. Tolerances: bf16 distances 2^-12 relative (fp32 sums in
-another order); ``precise=True`` 2^-16 absolute; indices equal but where
-fp64 distances of the scanned values tie within that.
-"""
+"""``topk_l2`` for k > 16 (bf16, precise, window) against JAX's, and the card
+kernels' argument rules (any Da, past 65,535 tiles or segments, k to 256). The
+4,096 x 64 gallery holds 512 duplicates (ties to the lowest row). Tolerances:
+bf16 2^-12 relative, precise 2^-16 absolute, indices equal but at fp64 ties
+within that."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +12,7 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import build
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 N, DIM, B = 4096, 64, 6
 WINDOW = (5, 61)
@@ -72,8 +67,7 @@ def test_topk_l2_large_k_matches_jax(data, k, mode):
 
 
 def test_packed_scan_checks_take_any_width():
-    """The packed scans take any Da % 16 == 0 (the queries stream through
-    the ring above 640) and any tile count."""
+    """The packed scans take any Da % 16 == 0 (the queries stream through the ring above 640) and any tile count."""
     for da in (640, 768, 832, 1536):
         assert build.packed_scan_tiles((1024, da), (1024 * 1024, da), 1024) == 1024
     assert build.packed_scan_tiles((192, 768), (70_000 * 128, 768), 128) == 70_000
@@ -104,9 +98,8 @@ def test_topk_checks_take_k_256_and_more_than_65535_segments():
 
 @pytest.mark.parametrize("precise,k", [(False, 1), (False, 16), (False, 17), (True, 1), (True, build.TOPK_MAX_K)])
 def test_topk_checks_stop_at_int32_rows_less_one_segment(precise, k):
-    """The card-free rules refuse exactly what the launcher refuses: rows
-    past int32 less one pass-1 segment of the mode (2,048 rows for the
-    bf16 register lists, 8,192 for ``precise`` and for k > 16)."""
+    """The card-free rules refuse what the launcher refuses: rows past int32 less
+    one segment (2,048 bf16 k <= 16, else 8,192)."""
     seg = build.topk_l2_segment_rows_for(precise, k)
     assert seg == (8192 if precise or k > 16 else 2048)
     n = 2**31 - 1 - seg

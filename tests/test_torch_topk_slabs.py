@@ -1,15 +1,8 @@
-"""``topk_l2`` past one card launch's 256 columns: slabs, each admitting only
-(distance, row) strictly after the previous slab's last entry (the floor).
-On the CPU the plain pass takes the same floor at a small slab width; the
-result must equal JAX's ``topk_l2`` (interpret mode) on the same seeded
-inputs, and the port's single pass bit for bit.
-
-The gallery (320 x 16) holds 64 exact duplicates: ties go to the lowest
-row on both sides, also across two slabs. Tolerances
-(tests/test_torch_topk_large_k.py): bf16 distances 2^-12 relative;
-``precise=True`` 2^-16 absolute; indices equal but where fp64 distances of
-the scanned values tie within that.
-"""
+"""``topk_l2`` past one launch's 256 columns in slabs above the last slab's floor:
+the plain pass at a small slab width equals JAX's and the single pass bit for
+bit. The 320 x 16 gallery holds 64 duplicates (ties across slabs). Tolerances
+(test_torch_topk_large_k.py): bf16 2^-12 relative, precise 2^-16 absolute,
+indices equal but at fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +12,7 @@ import torch
 import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import plain
-from test_torch_synthetic import _one_thread, _unit  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread, _unit  # noqa: F401
 
 N, DIM, B = 320, 16, 3
 SLAB = 64  # slab width of the CPU runs (the card's is build.TOPK_MAX_K, 256)
@@ -70,8 +63,7 @@ def test_topk_l2_slabs_match_jax(data, k, mode, monkeypatch):
 @pytest.mark.parametrize("kw", [{}, dict(precise=True), dict(window=(3, 13))])
 @pytest.mark.parametrize("k", [70, 300, N + 5])
 def test_slabs_equal_the_single_pass(data, k, kw, monkeypatch):
-    """Slabs of 64 give the single pass's top-k bit for bit, ties included;
-    past the valid rows both pad with (BIG_DIST, -1)."""
+    """Slabs of 64 = the single pass bit for bit, ties and the (BIG_DIST, -1) tail included."""
     q, g = data
     one = _port(q, g, k, monkeypatch, slab=k, **kw)
     slabs = _port(q, g, k, monkeypatch, **kw)
@@ -82,9 +74,7 @@ def test_slabs_equal_the_single_pass(data, k, kw, monkeypatch):
 
 
 def test_plain_floor_admits_only_entries_after_it(data):
-    """The plain pass with a floor returns the entries strictly after the
-    floor's (distance, row) in (distance, row) order; an empty floor (row
-    -1) admits nothing."""
+    """With a floor, the entries strictly after it in (distance, row) order; an empty floor admits nothing."""
     q, g = data
     qt, gt = torch.from_numpy(q).to(torch.bfloat16), torch.from_numpy(g).to(torch.bfloat16)
     d, i = plain.topk_l2_plain(qt, gt, N)

@@ -1,10 +1,6 @@
-"""The port's verification (``evaluation/verification.py``), factory and
-config against the JAX package's. Tolerances: pairwise matrix within 1e-6
-absolute; verification errors and sigma equal (no near-ties here);
-joint-Bayesian scores within 1e-4 relative; feature-file rows within 1e-6
-relative (JAX's default loader is its C++ parser); every one of the eight
-matchers' rows equal JAX's.
-"""
+"""Verification, factory and config against JAX's: the pairwise matrix within
+1e-6, verification errors and sigma equal, joint-Bayesian scores 1e-4 relative,
+feature-file rows 1e-6 (JAX's C++ parser), the eight matchers' rows equal."""
 
 import dataclasses
 
@@ -21,7 +17,7 @@ import fast_image_recognition_tpu_torch.factory as PFAC
 from fast_image_recognition_tpu.data import make_gallery_and_probes, write_feature_file
 from fast_image_recognition_tpu.parallel.mesh import gallery_mesh as jax_gallery_mesh
 from fast_image_recognition_tpu_torch.parallel import gallery_mesh
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

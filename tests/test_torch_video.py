@@ -1,12 +1,7 @@
-"""The port's video frame-set recognition (``data/video_io.py``,
-``evaluation/video.py``) against JAX's on the same seeded features.
-
-Tolerances: the text format and NumPy helpers are copies: files, arrays,
-identity maps and per-video decisions equal; the log-posterior fusion
-(distances, scatter-min, log-softmax, per-video sum in fp32) gives equal
-predictions but where a video's two best sums lie within 2^-10 (fp64 NumPy
-decides those).
-"""
+"""Video recognition (``data/video_io.py``, ``evaluation/video.py``) against
+JAX's: the text format and NumPy helpers equal; the fp32 log-posterior fusion's
+predictions equal but where a video's two best sums lie within 2^-10 (fp64
+decides)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +16,7 @@ from fast_image_recognition_tpu.data import make_gallery_and_probes
 from fast_image_recognition_tpu.search import BruteForceMatcher as JaxBF
 from fast_image_recognition_tpu_torch.data import FeatureDB
 from fast_image_recognition_tpu_torch.search import BruteForceMatcher
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 TIE = 2.0**-10
 
@@ -126,7 +121,6 @@ def test_evaluate_video_recognition_matches_jax(frames, aggregation):
     idx = PE.sample_probe_frames(videos, 2)
     pr = PE.evaluate_video_recognition(BruteForceMatcher(gal, device="cpu"), gl, videos, vp, idx, 12,
                                        aggregation=aggregation, batch_size=16)
-    jr = JE.evaluate_video_recognition(JaxBF(gal), gl, jvideos, vp, idx, 12, aggregation=aggregation,
-                                       batch_size=16)
+    jr = JE.evaluate_video_recognition(JaxBF(gal), gl, jvideos, vp, idx, 12, aggregation=aggregation, batch_size=16)
     assert pr.frame_error == pytest.approx(jr.frame_error) and pr.video_error == pytest.approx(jr.video_error)
     assert pr.aggregation == aggregation and pr.ms_per_frame > 0

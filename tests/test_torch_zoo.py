@@ -1,16 +1,11 @@
-"""ResNet50, ResNet50/101/152V2, InceptionV3, VGG19 and the bind engine
-over ResNet50V2 and InceptionResNetV2 against the JAX package on the CPU at
-32 px (75 for the Inception stems), one numpy tree for both: the port's
-seeded ``create_backbone`` with BN drawn around flax's defaults.
+"""ResNet50, ResNet50/101/152V2, InceptionV3, VGG19 and the bind engine over
+ResNet50V2 and IRv2 against JAX at 32 px (75 for the Inceptions), from the
+port's seeded init with BN drawn off flax's defaults.
 
-Tolerances: fp32 forward, taps and segments 1e-4 of max |JAX|; folded bf16
-serving 0.02 of max |JAX| (tests/test_fold_generic.py:63), as folded vs
-``folded=False``; fold trees 1e-6 relative; 'caffe' equal, with a resize
-rtol 1e-5 and atol 1e-5 x 127.5 (tests/test_torch_efficientnet.py's resize
-tolerance holds values divided by a std, 127.5 in 'tf' mode); service rows
-equal but at picks within 2^-8 relative; bind engines >= 90 % of
-predictions, >= 80 % of exit levels (tests/test_cascade.py:253-265).
-"""
+Tolerances: fp32 forward, taps, segments 1e-4 of max |JAX|; folded bf16 0.02
+(tests/test_fold_generic.py:63); fold trees 1e-6; 'caffe' equal, its resize
+rtol 1e-5, atol 1e-5 x 127.5; rows equal but at picks within 2^-8; bind engines
+>= 90 % of predictions, >= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp
@@ -28,15 +23,12 @@ from fast_image_recognition_tpu.models.resnet import resnet_plan as jax_resnet_p
 from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
 from fast_image_recognition_tpu_torch.models import backbone_info, build_backbone, create_backbone, resnet_plan
 from fast_image_recognition_tpu_torch.models import efficientnet as peff
-from fast_image_recognition_tpu_torch.models.fold import (
-    fold_tf_preprocess_into_valid_stem,
-    fold_variables,
-    make_serving_fn,
-)
+from fast_image_recognition_tpu_torch.models.fold import (fold_tf_preprocess_into_valid_stem, fold_variables,
+    make_serving_fn)
 from fast_image_recognition_tpu_torch.serving import build_service
 from test_torch_inception_resnet import _leaves, check_planted_rows
 from test_torch_mobilenet import _close
-from test_torch_synthetic import _one_thread  # noqa: F401  (autouse)
+from test_torch_synthetic import _one_thread  # noqa: F401
 
 FAMILIES = ("resnet50", "resnet50v2", "inception_v3", "vgg19")
 NAMES = FAMILIES + ("resnet101v2", "resnet152v2")
@@ -49,8 +41,7 @@ def _res(name):
 
 
 def _vars(name):
-    """The port's seed-0 tree with BN scales, biases and statistics, and every conv and dense bias, drawn
-    around flax's defaults."""
+    """The seed-0 tree with BN and every bias drawn off flax's defaults."""
     if name not in _CACHE:
         _, v = create_backbone(name, seed=0, resolution=_res(name), device="cpu")
         rng = np.random.default_rng(1)
@@ -95,9 +86,7 @@ def _served(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_zoo_facts_and_trees_match_jax(name):
-    """``backbone_info`` and ``build_backbone`` as JAX's; ``create_backbone``
-    gives JAX's names and shapes (``jax.eval_shape`` of its init), flax's
-    default law, and the seed decides it."""
+    """``backbone_info``, ``build_backbone`` and ``create_backbone``'s tree as JAX's, flax's law, the seed decides."""
     got = backbone_info(name)
     assert got.pop("variant") == name and got == J.backbone_info(name)
     assert type(build_backbone(name)).__name__ == type(J.build_backbone(name)).__name__
@@ -163,10 +152,9 @@ def test_folded_matches_unfolded(name):
 
 
 @pytest.mark.parametrize("name,tf_stem", [("resnet50", False), ("resnet50v2", False), ("inception_v3", False),
-                                          ("inception_v3", True), ("vgg19", False)])
+                         ("inception_v3", True), ("vgg19", False)])
 def test_fold_trees_match_jax(name, tf_stem):
-    """ResNet at its eps (1.001e-5), v2's BNs with no conv affine-only, VGG19
-    (no BN) returned as it is."""
+    """ResNet at its eps (1.001e-5), v2's BNs with no conv affine-only, VGG19 (no BN) returned as it is."""
     v = _vars(name)
     want = jax_fold(J.build_backbone(name), v)
     got = fold_variables(type(build_backbone(name)).__name__, v)
@@ -217,15 +205,13 @@ def test_service_rows_match_jax():
     """ResNet50V2's packed service from ``build_service`` over the same tree."""
     name = "resnet50v2"
     images, want, _, got = _served(name)
-    check_planted_rows(got["embedding"].numpy(), want["embedding"], images, J.backbone_info(name),
-                       lambda g, **kw: build_service(name, g, variables=_vars(name), device="cpu", **kw),
-                       resolution=_res(name))
+    check_planted_rows(got["embedding"].numpy(), want["embedding"], images, J.backbone_info(name), lambda g,
+                       **kw: build_service(name, g, variables=_vars(name), device="cpu", **kw), resolution=_res(name))
 
 
 @pytest.mark.parametrize("name", ["resnet50v2", "inception_resnet_v2"])
 def test_bind_engine_matches_jax(name):
-    """The fp32 modules in ``bind`` mode at the default taps, thresholds
-    calibrated by the port on the same 16 images."""
+    """The fp32 modules in ``bind`` mode, thresholds calibrated by the port on 16 images."""
     v, res, taps = _vars(name), _res(name), J.default_taps_for(name)
     net = build_backbone(name, dtype=torch.float32)
     with torch.no_grad():
