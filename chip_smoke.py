@@ -38,6 +38,8 @@ try:
     from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
     from fast_image_recognition_tpu_torch.serving import RecognitionService
     from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
+    from fast_image_recognition_tpu_torch.utils.flops import fn_flops
+    from fast_image_recognition_tpu_torch.utils.profiling import cuda_ms, time_jitted, timed as _timed, trace_call
 except ImportError:
     sys.exit("chip_smoke: run it from the root of a checkout of the repository")
 
@@ -76,8 +78,16 @@ def gen_on(dev, seed: int) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-def times(ms, plain_ms, yard_ms, b_ms, b_by, yard="matmul+min"):
-    return f"ms={ms:.3f} plain={plain_ms:.3f} {yard}={yard_ms:.3f} bound={b_ms:.3f} ({b_by})"
+def kernel_times(launch, run_plain, flops, nbytes, reps, peak=None):
+    """CUDA-event ms of a kernel and its plain version beside the bound; no single library call computes the
+    scans' functions, so ``library_ms`` is None."""
+    b_ms, b_by = bound(flops, nbytes, peak or PEAK_BF16_FLOPS)
+    return dict(ms=cuda_ms(launch, reps[0]), plain_ms=cuda_ms(run_plain, reps[1]), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def times(t):
+    return f"ms={t['ms']:.3f} plain={t['plain_ms']:.3f} bound={t['bound_ms']:.3f} ({t['bound_by']})"
 
 
 def phase(msg: str) -> None:
@@ -93,31 +103,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    sync()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    sync()
-    return start.elapsed_time(end) / reps
-
-
 def timed(fn, reps: int = TIMED_CALLS):
-    """(last output, host ms a call) of ``reps`` calls between syncs."""
-    sync()
-    t = time.time()
-    for _ in range(reps):
-        out = fn()
-    sync()
-    return out, (time.time() - t) / reps * 1e3
+    return _timed(fn, reps)
 
 
 def host_ms(fn, reps: int) -> float:
-    return timed(fn, reps)[1]
+    return _timed(fn, reps)[1]
 
 
 def no_sync(fn):
@@ -271,9 +262,10 @@ def enroll_sigma(embs, pair_imgs):
     return enroll, sigma, pair_imgs[1 : 2 * BATCH : 2].contiguous()
 
 
-def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
+def serve_line(tag, svc, exact, gallery, labels, images, launches, smi, flops):
     """A certified PCA line (bench.py's plain e2e): timed calls, one with no host
-    sync, ``match='exact'`` and the oracle counted; rows >= 99 % exact's."""
+    sync, ``match='exact'`` and the oracle counted; rows >= 99 % exact's; MFU of
+    the embed's ``flops`` and the match's."""
     names = (tag, "exact", "oracle") if tag == "pca" else (tag, f"{tag} exact", f"{tag} oracle")
     masks = []
 
@@ -309,21 +301,32 @@ def serve_line(tag, svc, exact, gallery, labels, images, launches, smi):
                exact_rows_pct=pct(idx == idx_exact), exact_labels_pct=pct(labels[idx] == labels[idx_exact]),
                oracle_rows_pct=pct(idx == idx_oracle), exact_oracle_rows_pct=pct(idx_exact == idx_oracle),
                escalated_pct=pct(svc.last_escalated), escalated_calls=sum(bool(m.any()) for m in masks),
-               calls=len(masks), pick_equal_exact_pct=pick_pct, peak_gib=peak_gib, launches=launches[names[0]])
+               calls=len(masks), pick_equal_exact_pct=pick_pct, peak_gib=peak_gib, launches=launches[names[0]],
+               **mfu(flops + svc.match_flops(BATCH), ms))
     phase(f"{'main path' if tag == 'pca' else tag} (B={BATCH}, {smi}): " + kv(row, *row) + "; no host sync")
     if row["exact_rows_pct"] < 99.0:
         fail(f"{tag}: top-1 agreement with match='exact' is {row['exact_rows_pct']:.3f}% < 99%")
     return dict(row, idx=idx, idx_exact=idx_exact, idx_oracle=idx_oracle, emb=emb, sec=ms / 1e3)
 
 
-def fold_gap(name, np_vars, info, res, serve, images, dev):
-    """Folded vs ``folded=False`` embeddings over max |emb|, gated at 0.02."""
+def mfu(flops, ms):
+    return dict(flops_per_iter=flops, mfu=flops / (ms / 1e3) / PEAK_BF16_FLOPS)
+
+
+def embed_flops(name, np_vars, info, res, serve, images, dev, gap=True):
+    """``fn_flops`` of the embed on ``images``, within 5 % of ``folded=False``'s (tests/test_flops.py:65-79); with
+    ``gap``, the embeddings over max |emb| within 0.02. (flops, rel)."""
     unfolded = make_serving_fn(np_vars, info, resolution=res, device=dev, folded=False)
+    ff, fu = fn_flops(serve, images), fn_flops(unfolded, images)
+    if abs(ff - fu) > 0.05 * fu:
+        fail(f"{name}: folded FLOPs {ff:.4e} off the unfolded {fu:.4e} by > 5 %")
+    if not gap:
+        return ff, None
     ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
     rel = ((ef - eu).abs().max() / eu.abs().max()).item()
     if not rel <= 0.02:
         fail(f"{name}: folded and unfolded embeddings differ by {rel:.4f} > 0.02")
-    return rel
+    return ff, rel
 
 
 def line_services(name, info, emb, gallery, labels, serve, dev):
@@ -337,7 +340,7 @@ def line_services(name, info, emb, gallery, labels, serve, dev):
 
 def run_flagship(dev, report, launches, smi):
     """bench.py ``--variant inception_resnet_v2 --resolution 224``: the trained
-    IRv2, 1M class-structured rows, B = 1024; :func:`fold_gap`."""
+    IRv2, 1M class-structured rows, B = 1024; :func:`embed_flops`."""
     t = time.time()
     raw = load_variables(IRV2_CKPT)
     np_vars = {"params": raw["params"], "batch_stats": raw["batch_stats"]}
@@ -346,7 +349,7 @@ def run_flagship(dev, report, launches, smi):
     sync()
     load_s, t = time.time() - t, time.time()
     pair_imgs, _ = device_dataset(IDENTITIES, 2, RES, seed=11000, class_seed=3000, device=dev)
-    fold_rel = fold_gap("flagship", np_vars, info, RES, serve, pair_imgs, dev)
+    flops, fold_rel = embed_flops("flagship", np_vars, info, RES, serve, pair_imgs[:BATCH], dev)
     embs = _unit(torch.cat([serve(pair_imgs[s : s + BATCH])["embedding"] for s in range(0, 2 * IDENTITIES, BATCH)]))
     enroll, sigma, images = enroll_sigma(embs, pair_imgs)
     gallery, labels = class_structured_gallery(GALLERY, enroll, sigma)
@@ -358,7 +361,7 @@ def run_flagship(dev, report, launches, smi):
     emb = svc._embed(images)
     check_cert_scan(svc, emb, report)
     check_topk(gallery, GALLERY, emb, 1, report)
-    row = serve_line("flagship", svc, exact, gallery, labels, images, launches, smi)
+    row = serve_line("flagship", svc, exact, gallery, labels, images, launches, smi, flops)
     for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec"):
         row.pop(k)
     row["trace"] = trace_line("flagship", lambda: svc.identify_device(images), "fprop")
@@ -399,21 +402,21 @@ def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
 
 def untrained_line(name, dev, launches, smi, res=RES):
     """bench.py's untrained e2e line for NAME (:378-387): seed-0 init, random
-    probes, :func:`embedding_gallery`; :func:`fold_gap`."""
+    probes, :func:`embedding_gallery`; :func:`embed_flops`."""
     t = time.time()
     info = backbone_info(name)
     _, np_vars = create_backbone(name, seed=0, resolution=res, device=dev)
     serve = make_serving_fn(np_vars, info, resolution=res, device=dev)
     gen = gen_on(dev, 0)
     images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen, device=dev, dtype=torch.uint8)
-    fold_rel = fold_gap(name, np_vars, info, res, serve, images, dev)
+    flops, fold_rel = embed_flops(name, np_vars, info, res, serve, images, dev)
     emb = _unit(serve(images)["embedding"])
     gallery, labels = embedding_gallery(GALLERY, emb)
     svc, exact = line_services(name, info, emb, gallery, labels, serve, dev)
     sync()
     phase(f"{name}@{res}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} "
           f"({since(t)}); fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
-    row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi)
+    row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi, flops)
     ctx = {k: row.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec")}
     row["fold_rel"] = fold_rel
     return row, dict(ctx, info=info, np_vars=np_vars, serve=serve, svc=svc, gallery=gallery, labels=labels,
@@ -443,7 +446,8 @@ def run_mobilenets(dev, launches, smi, mb_report):
     phase(f"mobilenetv2 mbconv edge shapes: {len(extra)} cases within {MB_TOL:.2e} of max |plain|, borders too")
     del net14
     lines["mobilenetv2_fused"] = check_fused_path(c["serve"], serve_f, c["svc"], c["info"], c["gallery"], c["labels"],
-          c["images"], c["idx"], c["idx_oracle"], c["sec"], launches, dev, smi, path="mobilenetv2 fused", n_fused=13)
+          c["images"], c["idx"], c["idx_oracle"], c["sec"], launches, dev, smi, lines["mobilenetv2"]["flops_per_iter"],
+          path="mobilenetv2 fused", n_fused=13)
     del serve_f, c["svc"]
     t = time.time()
     casc = build_cascade_service("mobilenetv2", c["gallery"], variables=c["np_vars"], n_valid=GALLERY, taps=TAPS,
@@ -536,17 +540,13 @@ def check_cert_scan(svc, emb, report):
     b, da = qa.shape
     np_ = ga.shape[0]
     n_tiles = k1.shape[1]
-    ms = cuda_ms(lambda: build.launch_tilemin2_packed(qa, ga), reps=10)
-    plain_ms = cuda_ms(lambda: plain.tilemin2_packed_plain(qa, ga), reps=2)
-    yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, 1024).min(dim=2), reps=3)
-    b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4)
+    t_ = kernel_times(lambda: build.launch_tilemin2_packed(qa, ga), lambda: plain.tilemin2_packed_plain(qa, ga),
+                      2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4, (10, 2))
     phase(f"packed scan B={b} Np={np_} Da={da}: keys_equal={100 * key_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} "
-          f"sets_equal={pct(same_set):.3f}% bound_gap={bound_rel:.2e} " + times(ms, plain_ms, yard_ms, b_ms, b_by))
+          f"sets_equal={pct(same_set):.3f}% bound_gap={bound_rel:.2e} " + times(t_))
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
         fail("packed scan kernel disagrees with its plain version")
-    report.setdefault("tilemin2_packed", []).append(dict(
-        shape=f"B={b} Np={np_} Da={da}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, yardstick_matmul_min_ms=yard_ms))
+    report.setdefault("tilemin2_packed", []).append(dict(shape=f"B={b} Np={np_} Da={da}", max_abs_err=err, **t_))
 
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
@@ -592,31 +592,15 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     if report is None:
         return
     width = hi - lo
-    ms = cuda_ms(launch, reps=3)
-    plain_ms = cuda_ms(lambda: run_plain(65536), reps=1)
-    # yardsticks: the library's matmul plus topk or min
-    g = gallery[:n_valid]
-    if precise:
-        g = g.to(F32)
-    if window is not None:
-        ql, gl = q[:, lo:hi], g[:, lo:hi]
-        yard_ms = cuda_ms(lambda: (ql @ gl.T).min(dim=1), reps=1)
-        ql = gl = None
-    else:
-        yard_ms = cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1), reps=1)
-    g = None
     nbytes = n_valid * width * gallery.element_size() + b * width * q.element_size() + b * k * 8
     # precise: three bf16 products over bf16 rows, six over fp32 rows
     passes = (6.0 if gallery.dtype == F32 else 3.0) if precise else 1.0
-    b_ms, b_by = bound(passes * 2.0 * b * n_valid * width, nbytes)
+    t_ = kernel_times(launch, lambda: run_plain(65536), passes * 2.0 * b * n_valid * width, nbytes, (3, 1))
     shape = f"B={b} N={n_valid} D={dim} k={k}" + (f" window={list(window)}" if window else "")
     if gallery.dtype == F32:
         shape += " rows=fp32"
-    phase(f"{what}: indices_equal={100 * idx_eq:.3f}% max_gap={err:.3e} "
-          + times(ms, plain_ms, yard_ms, b_ms, b_by, f"matmul+{'min' if window else 'topk'}"))
-    report.setdefault(key, []).append(dict(
-        shape=shape, max_abs_err=err, indices_equal=idx_eq, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, **{f"yardstick_matmul_{'min' if window else 'topk'}_ms": yard_ms}))
+    phase(f"{what}: indices_equal={100 * idx_eq:.3f}% max_gap={err:.3e} " + times(t_))
+    report.setdefault(key, []).append(dict(shape=shape, max_abs_err=err, indices_equal=idx_eq, **t_))
 
 
 def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None, verbose=True):
@@ -666,29 +650,15 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
         if verbose:
             phase(what)
         return kd, ki, pd
-    ms = cuda_ms(launch, reps=10 if d <= 128 else 3)
-    plain_ms = cuda_ms(run_plain, reps=1)
     if quant is None:
-        yard_ms = cuda_ms(lambda: (q @ g.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
-        b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d * 2 + np_ * 4 + b * d * 2 + b * n_tiles * 8)
+        nbytes, peak = np_ * d * 2 + np_ * 4 + b * d * 2 + b * n_tiles * 8, None
     else:
-        if quant[2] == "int8":
-            yard = lambda: torch._int_mm(q, g.t()).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
-        else:
-            gb, qb = g.to(BF16), q.to(BF16)
-            yard = lambda: (qb @ gb.T).view(b, n_tiles, tile_g).min(dim=2)  # noqa: E731
-        try:
-            yard_ms = cuda_ms(yard, reps=3)
-        except RuntimeError as e:  # a yardstick, not a gate
-            print(f"  {name}: matmul+min yardstick not measured: {str(e).splitlines()[0]}", flush=True)
-            yard_ms = None
-        yard = gb = qb = None
-        peak = PEAK_INT8_OPS if quant[2] == "int8" else PEAK_BF16_FLOPS
-        b_ms, b_by = bound(2.0 * b * np_ * d, np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8, peak)
-    phase(f"{what}; ms={ms:.3f} plain={plain_ms:.3f} matmul+min={yard_ms} bound={b_ms:.3f} ({b_by})")
-    report.append(dict(
-        shape=name, b=b, np=np_, d=d, tile_g=tile_g, max_abs_err=err, rows_equal=idx_eq, minima_equal=val_eq,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, yardstick_matmul_min_ms=yard_ms))
+        nbytes = np_ * d + 2 * np_ * 4 + b * d + b * 4 + b * n_tiles * 8
+        peak = PEAK_INT8_OPS if quant[2] == "int8" else None
+    t_ = kernel_times(launch, run_plain, 2.0 * b * np_ * d, nbytes, (10 if d <= 128 else 3, 1), peak)
+    phase(f"{what}; " + times(t_))
+    report.append(dict(shape=name, b=b, np=np_, d=d, tile_g=tile_g, max_abs_err=err, rows_equal=idx_eq,
+                       minima_equal=val_eq, **t_))
     return kd, ki, pd
 
 # (rows, n_valid, D, B): widths no multiple of 8, n_valid inside a tile
@@ -820,54 +790,50 @@ def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
 def check_sm90_edges(dev):
     """The ``sm90_scan.cuh`` kernels vs plain at the ``*_EDGES`` shapes; cases a kernel."""
     gen = gen_on(dev, 31)
-    cases = dict(topk_l2=0, topk_l2_precise_split=0, topk_l2_precise_split6=0, topk_l2_large_k=0, tilemin2_packed=0,
-                 tilemin_packed=0, tilemin_quant=0, tilemin=0, tilemin_quant_bf16=0)
+    cases = dict.fromkeys(("topk_l2", "topk_l2_precise_split", "topk_l2_precise_split6", "topk_l2_large_k",
+                           "tilemin2_packed", "tilemin_packed", "tilemin_quant", "tilemin", "tilemin_quant_bf16"), 0)
+
+    def mask_of(m, b):
+        mask = torch.zeros(b, dtype=torch.bool, device=dev)
+        mask[{"first": slice(0, 1), "last": slice(-1, None), "empty": slice(0, 0)}.get(m, slice(0, m))] = True
+        return mask
+
     bmax = max(SCAN_EDGE_B)
     for n, nv, d in TOPK_EDGES:
         g32, q32, g16 = edge_data(gen, n, nv, d, bmax)
         windows = [None, (1, d - 1)] + ([(5, d - 3)] if d > 8 else []) + ([(64, 192)] if d >= 192 else [])
-        for b in SCAN_EDGE_B:
-            for k in TOPK_EDGE_K:
-                for w in windows:
-                    check_topk(g16, nv, q32[:b], k, window=w)
-                    cases["topk_l2"] += 1
-                for w in windows[:2]:  # split passes over bf16 and fp32 rows
-                    check_topk(g16, nv, q32[:b], k, window=w, precise=True)
-                    check_topk(g32, nv, q32[:b], k, window=w, precise=True)
-                    cases["topk_l2_precise_split"] += 1
-                    cases["topk_l2_precise_split6"] += 1
+        for b, k in ((b, k) for b in SCAN_EDGE_B for k in TOPK_EDGE_K):
+            for w in windows:
+                check_topk(g16, nv, q32[:b], k, window=w)
+            for w in windows[:2]:  # split passes over bf16 and fp32 rows
+                check_topk(g16, nv, q32[:b], k, window=w, precise=True)
+                check_topk(g32, nv, q32[:b], k, window=w, precise=True)
+            cases["topk_l2"] += len(windows)
+            cases["topk_l2_precise_split"] += 2
+            cases["topk_l2_precise_split6"] += 2
         for m in ROW_MASKS:
-            mask = torch.zeros(bmax, dtype=torch.bool, device=dev)
-            mask[{"first": slice(0, 1), "last": slice(-1, None), "empty": slice(0, 0)}.get(m, slice(0, m))] = True
             for k in (1, 3):
-                check_topk(g16, nv, q32, k, row_mask=mask)
+                check_topk(g16, nv, q32, k, row_mask=mask_of(m, bmax))
                 cases["topk_l2"] += 1
     bmax = max(TOPK_LARGE_K_B)
     for n, nv, d in TOPK_LARGE_K_EDGES:
         g32, q32, g16 = edge_data(gen, n, nv, d, bmax)
-        for b in TOPK_LARGE_K_B:
-            for k in TOPK_LARGE_K:
-                check_topk(g16, nv, q32[:b], k)
-                check_topk(g32, nv, q32[:b], k, precise=True)
-                check_topk(g32, nv, q32[:b], k, window=(5, d - 3), precise=True)
-                check_topk(g16, nv, q32[:b], k, window=(5, d - 3))
-                check_topk(g16, nv, q32[:b], k, window=(1, d - 1), precise=True)
-                check_topk(g16, nv, q32[:b], k, precise=True)
-                cases["topk_l2_large_k"] += 6
-        mask = torch.zeros(bmax, dtype=torch.bool, device=dev)
-        mask[:129] = True
-        check_topk(g16, nv, q32, 64, row_mask=mask)
+        for b, k in ((b, k) for b in TOPK_LARGE_K_B for k in TOPK_LARGE_K):
+            for g, kw in ((g16, {}), (g32, dict(precise=True)), (g32, dict(window=(5, d - 3), precise=True)),
+                          (g16, dict(window=(5, d - 3))), (g16, dict(window=(1, d - 1), precise=True)),
+                          (g16, dict(precise=True))):
+                check_topk(g, nv, q32[:b], k, **kw)
+            cases["topk_l2_large_k"] += 6
+        check_topk(g16, nv, q32, 64, row_mask=mask_of(129, bmax))
         cases["topk_l2_large_k"] += 1
     for n, nv, d, da in MIN2_EDGES:
         g16 = _unit(randn(gen, n, d)).to(BF16)
         ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pads: |g|^2 = 1e38
         for b in SCAN_EDGE_B:
-            q = _unit(g16[:b].to(F32) + 0.1 * randn(gen, b, d))
-            check_min2(dk._augment_queries(q, d, da), ga, nv)
+            check_min2(dk._augment_queries(_unit(g16[:b].to(F32) + 0.1 * randn(gen, b, d)), d, da), ga, nv)
             cases["tilemin2_packed"] += 1
-    bmax = max(SINGLE_EDGE_B)
     for n, nv, d, da in SINGLE_EDGES:
-        g32, q32, g16 = edge_data(gen, n, nv, d, bmax)
+        g32, q32, g16 = edge_data(gen, n, nv, d, max(SINGLE_EDGE_B))
         for tg in (128, 256, 512, 1024):
             ga = dk.pack_gallery_aug(g16, nv, tg)[:, :da].contiguous()
             for b in SINGLE_EDGE_B:
@@ -875,10 +841,11 @@ def check_sm90_edges(dev):
                 cases["tilemin_packed"] += 1
     big = torch.tensor(plain.BIG_DIST, dtype=F32).item()
     for edges, bs in ((QUANT_EDGES, SCAN_EDGE_B), (TILE_EDGES, TILE_EDGE_B), (QUANT_BF16_EDGES, QUANT_BF16_EDGE_B)):
+        tile = edges is TILE_EDGES
         for n, nv, d in edges:
             g32, q32, g16 = edge_data(gen, n, nv, d, max(bs))
-            for tg in ((128, 256, 512, 1024) if edges is TILE_EDGES else (128, 1024)):
-                if edges is TILE_EDGES:
+            for tg in (128, 256, 512, 1024) if tile else (128, 1024):
+                if tile:
                     gp = dk.pad_gallery(g16, tg)
                     gsq = dk.gallery_sq_norms(gp, nv, tg)
                 else:
@@ -887,7 +854,7 @@ def check_sm90_edges(dev):
                     gsc = dk.quant_gallery_scales(gs, nv, tg).reshape(-1)
                 for b in bs:
                     name = f"edge N={n} n_valid={nv} D={d} B={b}"
-                    if edges is TILE_EDGES:
+                    if tile:
                         runs = [(f"{name} {'bf16' if bf else 'f32'}-scores", q32[:b].to(BF16).contiguous(), gp,
                                 dict(bf16_scores=bf), float("inf") if bf else big) for bf in (False, True)]
                     else:
@@ -901,7 +868,7 @@ def check_sm90_edges(dev):
                         kd, ki, pd = check_tile_scan(name_, q_, g_, gsq, tg, None, verbose=False, **kw)
                         if not whole_pad_ok(kd, ki, pd, nv, tg, pad_value):
                             fail(f"whole-pad tiles disagree ({name_}, tile_g={tg})")
-                        cases["tilemin" if edges is TILE_EDGES else "tilemin_quant_bf16"] += 1
+                        cases["tilemin" if tile else "tilemin_quant_bf16"] += 1
     return cases
 
 
@@ -924,82 +891,49 @@ def check_topk_slabs(dev):
 SPLIT_PROBE_TOL = 2.0**-18
 
 
-def check_split_precise(dev):
-    """The split pass: planes = ``plain.split_bf16x3``; on queries = rows x (1 + 2^-9 + 2^-18) within
-    :data:`SPLIT_PROBE_TOL` of fp64, hi + mid not. (errors)."""
-    gen = gen_on(dev, 41)
-    n, d = 4096, 1280
-    g = _unit(randn(gen, n, d)).to(BF16)
+def check_split_probe(dev, six: bool):
+    """A split precise pass within :data:`SPLIT_PROBE_TOL` of fp64 on a probe where its last terms matter, the
+    product set without them not: bf16 rows and queries = rows x (1 + 2^-9 + 2^-18) (three products; |q|^2 within
+    2^-20, the lo plane non-zero), or ``six``: rows = a bf16 row x that, queries half a row (six products, fp32
+    rows); planes = ``plain.split_bf16x3``, zero past B. (errors)."""
+    gen = gen_on(dev, 43 if six else 41)
+    n, d, f = 4096, 1280, 1.0 + 2.0**-9 + 2.0**-18
+    h = _unit(randn(gen, n, d)).to(BF16)
+    g = (h.float() * f).contiguous() if six else h
     worst = [0.0, float("inf")]
-    for b, window in ((130, None), (257, (5, d - 3))):
+    cases = [(b, w) for b in (130, 257) for w in (None, (5, d - 3))] if six else [(130, None), (257, (5, d - 3))]
+    for b, window in cases:
         lo, hi = window if window is not None else (0, d)
-        q = (g[:b].float() * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
+        q = (0.5 * g[:b] if six else g[:b].float() * f).contiguous()
         out = {}
         kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
         sync()
         qw = torch.zeros_like(q)
         qw[:, lo:hi] = q[:, lo:hi]
-        want = torch.zeros_like(out["planes"])
-        for p_, t in enumerate(plain.split_bf16x3(qw)):
-            want[p_, :b] = t
-        planes_eq = torch.equal(out["planes"].view(torch.int16), want.view(torch.int16))
-        ctrl = out["planes"].clone()
-        ctrl[2] = 0
-        ctrl_eq = torch.equal(ctrl.view(torch.int16), want.view(torch.int16))
-        qsq64 = (qw.double() ** 2).sum(1)
-        qsq_err = ((out["qsq"].double() - qsq64).abs() / qsq64).max().item()
-        gd = g[:b, lo:hi].double()
-        exact = ((q[:, lo:hi].double() - gd) ** 2).sum(1)
-        two = (want[0, :b, lo:hi].double() + want[1, :b, lo:hi].double())
-        d_two = qsq64 + (gd * gd).sum(1) - 2.0 * (two * gd).sum(1)
+        want = plain.split_bf16x3(qw)
+        planes_eq = not bool(out["planes"][:, b:].any()) and all(
+            torch.equal(out["planes"][p_, :b].view(torch.int16), t.view(torch.int16)) for p_, t in enumerate(want))
+        qd, gd = q[:, lo:hi].double(), g[:b, lo:hi].double()
+        exact = ((qd - gd) ** 2).sum(1)
+        if six:
+            qt, gt = ([t[:b, lo:hi].double() for t in plain.split_bf16x3(x)] for x in (q, g))
+            cross = sum((qt[a] * gt[c]).sum(1) for a, c in ((0, 1), (1, 0), (0, 0)))
+            probe_ok = True
+        else:
+            cross = ((want[0][:, lo:hi].double() + want[1][:, lo:hi].double()) * gd).sum(1)
+            qsq_err = ((out["qsq"][:b].double() - (qd * qd).sum(1)).abs() / (qd * qd).sum(1)).max().item()
+            probe_ok = qsq_err <= 2.0**-20 and bool(want[2].any())
         rows_ok = bool((ki[:, 0] == torch.arange(b, device=dev)).all())
         err_k = (kd[:, 0].double() - exact).abs().max().item()
-        err_two = (d_two - exact).abs().min().item()
-        print(f"  split precise B={b} window={window}: planes_equal={planes_eq} lo_zeroed_equal={ctrl_eq} "
-              f"qsq_rel={qsq_err:.2e} own_rows={rows_ok} kernel_err={err_k:.3e} hi+mid_err={err_two:.3e}", flush=True)
-        if not (planes_eq and not ctrl_eq and qsq_err <= 2.0**-20 and rows_ok):
-            fail(f"split_queries' planes or |q|^2 disagree with plain.split_bf16x3 (B={b})")
-        if err_k > SPLIT_PROBE_TOL or err_two <= 1.5 * SPLIT_PROBE_TOL:
-            fail(f"the split precise pass does not compute the three-term product (B={b})")
-        worst = [max(worst[0], err_k), min(worst[1], err_two)]
-    return worst
-
-
-def check_split6_precise(dev):
-    """The six-product pass on rows = a bf16 row x (1 + 2^-9 + 2^-18), queries
-    half a row: within :data:`SPLIT_PROBE_TOL`, three products not. (errors)."""
-    gen = gen_on(dev, 43)
-    n, d = 4096, 1280
-    h = _unit(randn(gen, n, d)).to(BF16).float()
-    g = (h * (1.0 + 2.0**-9 + 2.0**-18)).contiguous()
-    worst = [0.0, float("inf")]
-    for b in (130, 257):
-        for window in (None, (5, d - 3)):
-            lo, hi = window if window is not None else (0, d)
-            q = (0.5 * g[:b]).contiguous()
-            out = {}
-            kd, ki = build.launch_topk_l2(q, g, 1, n, window=window, precise=True, split_out=out)
-            sync()
-            qw = torch.zeros_like(q)
-            qw[:, lo:hi] = q[:, lo:hi]
-            planes_eq = all(torch.equal(out["planes"][p_, :b].view(torch.int16), t.view(torch.int16))
-                            for p_, t in enumerate(plain.split_bf16x3(qw)))
-            qt = [t[:, lo:hi].double() for t in plain.split_bf16x3(q)]
-            gt = [t[:b, lo:hi].double() for t in plain.split_bf16x3(g)]
-            qd, gd = q[:, lo:hi].double(), g[:b, lo:hi].double()
-            exact = ((qd - gd) ** 2).sum(1)
-            cross3 = sum((qt[a] * gt[c]).sum(1) for a, c in ((0, 1), (1, 0), (0, 0)))
-            d_three = (qd * qd).sum(1) + (gd * gd).sum(1) - 2.0 * cross3
-            rows_ok = bool((ki[:, 0] == torch.arange(b, device=dev)).all())
-            err_k = (kd[:, 0].double() - exact).abs().max().item()
-            err_three = (d_three - exact).abs().min().item()
-            print(f"  six-product pass B={b} window={window}: planes_equal={planes_eq} own_rows={rows_ok} "
-                  f"kernel_err={err_k:.3e} three_products_err={err_three:.3e}", flush=True)
-            if not (planes_eq and rows_ok):
-                fail(f"the six-product pass's query planes or rows disagree (B={b}, window {window})")
-            if err_k > SPLIT_PROBE_TOL or err_three <= 1.5 * SPLIT_PROBE_TOL:
-                fail(f"the six-product pass does not compute the six products (B={b}, {window})")
-            worst = [max(worst[0], err_k), min(worst[1], err_three)]
+        err_less = ((qd * qd).sum(1) + (gd * gd).sum(1) - 2.0 * cross - exact).abs().min().item()
+        print(f"  {'six' if six else 'three'}-product pass B={b} window={window}: planes_equal={planes_eq} "
+              f"probe_ok={probe_ok} own_rows={rows_ok} kernel_err={err_k:.3e} fewer_terms_err={err_less:.3e}",
+              flush=True)
+        if not (planes_eq and probe_ok and rows_ok):
+            fail(f"split_queries' planes, |q|^2 or the rows disagree (B={b}, window {window}, six={six})")
+        if err_k > SPLIT_PROBE_TOL or err_less <= 1.5 * SPLIT_PROBE_TOL:
+            fail(f"the split pass does not compute its products (B={b}, window {window}, six={six})")
+        worst = [max(worst[0], err_k), min(worst[1], err_less)]
     return worst
 
 
@@ -1096,18 +1030,14 @@ def check_single_scan(name, qa, ga, tile_g, report):
     b, da = qa.shape
     np_ = ga.shape[0]
     n_tiles = keys.shape[1]
-    ms = cuda_ms(lambda: build.launch_tilemin_packed(qa, ga, tile_g), reps=10)
-    plain_ms = cuda_ms(lambda: plain.tilemin_packed_plain(qa, ga, tile_g), reps=2)
-    yard_ms = cuda_ms(lambda: (qa @ ga.T).view(b, n_tiles, tile_g).min(dim=2), reps=3)
-    b_ms, b_by = bound(2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4)
+    t_ = kernel_times(lambda: build.launch_tilemin_packed(qa, ga, tile_g), lambda: plain.tilemin_packed_plain(qa, ga,
+                      tile_g), 2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4, (10, 2))
     phase(f"single-min scan {name} B={b} Np={np_} Da={da} tile_g={tile_g}: keys_equal={100 * key_eq:.3f}% "
-          f"rows_equal={100 * row_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} rows_ok={rows_ok} "
-          + times(ms, plain_ms, yard_ms, b_ms, b_by))
+          f"rows_equal={100 * row_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} rows_ok={rows_ok} " + times(t_))
     if rel > 2.0**-12 or not rows_ok:
         fail(f"single-min scan kernel disagrees with its plain version ({name})")
-    report.setdefault("shapes", []).append(dict(
-        shape=name, b=b, np=np_, da=da, tile_g=tile_g, max_abs_err=err, keys_equal=key_eq,
-        ms=ms, plain_ms=plain_ms, yardstick_matmul_min_ms=yard_ms, bound_ms=b_ms, bound_by=b_by))
+    report.setdefault("shapes", []).append(dict(shape=name, b=b, np=np_, da=da, tile_g=tile_g, max_abs_err=err,
+                                                keys_equal=key_eq, **t_))
 
 
 def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
@@ -1398,29 +1328,6 @@ def run_mbconv_cases(cases, gen):
     return out
 
 
-def device_trace(fn):
-    """One call after a warm-up under ``torch.profiler``: busy ms, window, idle
-    share, ms by kernel; None without device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return None
-    start = min(e.time_range.start for e in dev)
-    end = max(e.time_range.end for e in dev)
-    busy = sum(e.time_range.elapsed_us() for e in dev)
-    by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return dict(window_ms=(end - start) / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / max(end - start, 1e-9),
-                events=len(dev), by_name=by_name)
-
-
 def check_s2d_stem(np_vars, net, net_f, images, dev):
     """The s2d stem vs the stride-2 one at fp32 (2e-5); both timed in bf16."""
     kw = dict(resolution=RES, dtype=F32, device=dev)
@@ -1442,9 +1349,10 @@ def check_s2d_stem(np_vars, net, net_f, images, dev):
 
 
 def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev,
-                     smi, path="fused", n_fused=12):
+                     smi, flops, path="fused", n_fused=12):
     """The plain line on the fused module: timed, no host sync; embedding within
-    0.05 of per-op; labels but at swapped near-ties (2^-7); traced."""
+    0.05 of per-op; labels but at swapped near-ties (2^-7); traced; MFU of the
+    per-op line's ``flops``."""
     if len(net_f.fused_blocks) != n_fused:
         fail(f"{path}: the module fuses {len(net_f.fused_blocks)} blocks, not {n_fused}")
     svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=net_f,
@@ -1476,7 +1384,8 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
                label_agreement_plain_line_pct=pct(~label_differs), row_agreement_oracle_pct=pct(idx_f == idx_oracle),
                label_agreement_oracle_pct=pct(labels[idx_f] == labels[idx_oracle]),
                label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)), embedding_rel_diff=emb_rel,
-               escalated_pct=pct(svc.last_escalated), peak_gib=peak_gib, launches=launches[path])
+               escalated_pct=pct(svc.last_escalated), peak_gib=peak_gib, launches=launches[path],
+               **mfu(flops, 1e3 * sec))
     phase(f"{path} path ({smi}): " + kv(row, *row) + "; no host sync")
     if emb_rel > 0.05:
         fail(f"{path}: the embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
@@ -1493,9 +1402,9 @@ def kv(row, *keys):
 
 
 def trace_line(line, fn, kernel):
-    """:func:`device_trace` of one call with ``kernel``'s ms; None where not measured."""
+    """``trace_call`` of one call with ``kernel``'s ms; None where not measured."""
     try:
-        tr = device_trace(fn)
+        tr = trace_call(fn)
     except Exception as e:  # noqa: BLE001  (a measurement, not a gate)
         print(f"  {line} line trace not measured: {type(e).__name__}: {str(e).splitlines()[0]}", flush=True)
         return None
@@ -1599,10 +1508,7 @@ def check_chi2_edges(dev):
 class Recording:
     """A matcher that keeps its last ``SearchResult``."""
     def __init__(self, matcher):
-        self.matcher, self.name = matcher, matcher.name
-
-    def set_budget(self, n):
-        self.matcher.set_budget(n)
+        self.matcher, self.name, self.set_budget = matcher, matcher.name, matcher.set_budget
 
     def search(self, queries):
         self.last = self.matcher.search(queries)
@@ -1799,10 +1705,8 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     # LinearExitCascade on the card vs fp64 decisions of its weights
     casc = exits.LinearExitCascade.train(x_tr, gl, VIDEO_CLASSES, device=dev)
     res = casc.evaluate(x_va, device=dev)
-    ties = np.zeros(len(p), bool)
-    want_pred = np.zeros(len(p), np.int64)
-    want_level = np.full(len(p), len(x_va) - 1, np.int64)
-    decided = np.zeros(len(p), bool)
+    ties, decided = np.zeros(len(p), bool), np.zeros(len(p), bool)
+    want_pred, want_level = np.zeros(len(p), np.int64), np.full(len(p), len(x_va) - 1, np.int64)
     probs = []
     for level, x in enumerate(x_va):
         sc = x.astype(np.float64) @ casc.coefs[level].astype(np.float64).T + casc.intercepts[level]
@@ -2197,8 +2101,8 @@ def run_training(dev, launches, smi, tmp):
     norms = torch.stack([g.norm() for g in gp])
     cos = torch.stack([(a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30) for a, b in zip(gc, gp)])
     big = norms >= 1e-3 * norms.max()
-    whole = float(torch.cat([g.flatten() for g in gc]) @ torch.cat([g.flatten() for g in gp])
-                  / (torch.cat([g.flatten() for g in gc]).norm() * torch.cat([g.flatten() for g in gp]).norm()))
+    fc, fp = (torch.cat([g.flatten() for g in x]) for x in (gc, gp))
+    whole = float(fc @ fp / (fc.norm() * fp.norm()))
     stat_err = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(_leaves(bc), _leaves(bp)))
     step_row = dict(line="train step card vs cpu", loss_card=lc, loss_cpu=lp, loss_rel=abs(lc - lp) / abs(lp),
                     grad_cos_whole=whole, grad_cos_min=float(cos[big].min()), leaves=len(gp),
@@ -2300,6 +2204,63 @@ def run_extraction(dev, launches, smi, tmp):
     if not err <= 2.0**-10:
         fail("the IRv2 extractor's rows differ from make_serving_fn's")
     return dict(extract_files=row, extract_irv2=irv2)
+
+def run_trained_cascade(dev, smi, tmp):
+    """``run_trained_cascade.main`` on synthetic128 at 112 px: pooled ``streams`` 2 = 1, pooled = ``predict()`` but
+    near-ties, no host sync in the fused cascade, finite losses."""
+    from fast_image_recognition_tpu_torch.scripts import run_trained_cascade as rtc
+
+    seen, pooled0 = {}, SequentialInferencePipeline.predict_pooled
+
+    def pooled(self, images, bucket=1024, warmup=False, streams=1):
+        seen[(streams, tuple(self.thresholds))] = r = pooled0(self, images, bucket, warmup, streams)
+        seen["last"] = (self, images)
+        return r
+
+    SequentialInferencePipeline.predict_pooled = pooled
+    t = time.time()
+    try:
+        recs = rtc.main(["--dataset", "synthetic", "--resolution", "112", "--streams", "1,2", "--out",
+                         os.path.join(tmp, "cascade.jsonl")], device=dev)
+    finally:
+        SequentialInferencePipeline.predict_pooled = pooled0
+    pipe, x = seen.pop("last")
+    base, fused = recs[0], recs[-1]
+    key = tuple(pipe.thresholds)  # the fused FAR's, which streams 2 ran at
+    r1, r2 = seen[(1, key)], seen[(2, key)]
+    same = np.array_equal(r1.predictions, r2.predictions) and np.array_equal(r1.exit_level, r2.exit_level)
+    eq, diff, ties = check_cascade_decisions("trained cascade: predict_pooled", r1, pipe.predict(x),
+                                             cascade_margins(pipe, x))
+    no_sync(lambda: pipe.fused_fn(x.shape[0])(x))
+    s12 = [r["img_per_s"] for r in recs if r["config"] == "cascade_trained_pooled" and r["far"] == fused["far"]]
+    phase(f"trained cascade b0@112 synthetic128 ({smi}): " + "; ".join(kv(r, *[k for k in r if k not in ("dataset",
+          "variant", "resolution")]) for r in recs) + f"; streams 2/1 at far {fused['far']}: {s12[-1] / s12[0]:.3f}; "
+          f"pooled = predict() on {eq:.2f}% ({diff} differ, near-ties {ties}); streams 2 = 1: {same}; no host sync "
+          f"in the fused cascade ({since(t)})")
+    if not same:
+        fail("trained cascade: predict_pooled(streams=2) decides otherwise than streams=1")
+    if not base["loss"] or not np.isfinite(base["loss"]).all():
+        fail(f"trained cascade: training losses {base['loss']}")
+    return dict(records=recs, pooled_equal_predict_pct=eq, streams_equal=same, seconds=time.time() - t)
+
+
+def check_tools(dev):
+    """``PCAModel.project_device`` within 1e-5 of max |``project``|; ``time_jitted``'s steady state within 10 % of
+    ``cuda_ms``'s on one call."""
+    from fast_image_recognition_tpu_torch.ops.pca import fit_pca
+
+    x = np.random.default_rng(3).standard_normal((4096, 1280)).astype(np.float32)
+    pca = fit_pca(x[:2048], 124)
+    want = pca.project(x)
+    err = float(np.abs(host(pca.project_device(torch.from_numpy(x).to(dev))) - want).max() / np.abs(want).max())
+    a = torch.ones(1 << 28, device=dev)  # bytes-bound: steadier than a power-capped matmul
+    ms_c, ms_t = cuda_ms(lambda: a + 1.0, 20), time_jitted(lambda: a + 1.0, iters=20)["steady_s"] * 1e3
+    phase(f"PCAModel.project_device vs project: rel={err:.2e}; 2^28 fp32 adds: cuda_ms={ms_c:.4f} time_jitted="
+          f"{ms_t:.4f} ms")
+    if not (err <= 1e-5 and abs(ms_t - ms_c) <= 0.1 * ms_c):
+        fail("project_device misses project by > 1e-5, or time_jitted misses cuda_ms by > 10 %")
+    return dict(pca_rel_err=err, cuda_ms=ms_c, time_jitted_ms=ms_t)
+
 
 SHARDS = 4
 ANN_PROBES, ANN_TIE = 128, 2.0**-12
@@ -2533,13 +2494,14 @@ def main() -> int:
           f"tile won, their minima bit-equal")
     n_slab = check_topk_slabs(dev)
     phase(f"topk_l2 in slabs: {n_slab} cases at k {list(TOPK_SLAB_K)} = plain in one pass")
-    err_k, err_two = check_split_precise(dev)
+    err_k, err_two = check_split_probe(dev, False)
     phase(f"split precise pass: planes = plain.split_bf16x3; kernel_err={err_k:.3e} hi+mid_err>={err_two:.3e} "
           f"(tol {SPLIT_PROBE_TOL:.3e})")
-    err6, err_three = check_split6_precise(dev)
+    err6, err_three = check_split_probe(dev, True)
     phase(f"six-product pass over fp32 rows: kernel_err={err6:.3e} three_products_err>={err_three:.3e} "
           f"(tol {SPLIT_PROBE_TOL:.3e}); planes = plain.split_bf16x3")
     phase("grids past 65,535 blocks = plain: " + "; ".join(check_big_grids(dev)))
+    tools_row = check_tools(dev)
 
     # 3. trained B0@224, unseen identities rendered on the card
     t = time.time()
@@ -2585,7 +2547,8 @@ def main() -> int:
 
     # 5-6. the main path, match='exact' and the oracle, each counted
     launches = {}
-    line = serve_line("pca", svc, exact, gallery, labels, images, launches, smi)
+    b0_flops = embed_flops("b0", np_vars, info, RES, serve, images, dev, gap=False)[0]
+    line = serve_line("pca", svc, exact, gallery, labels, images, launches, smi, b0_flops)
     idx, idx_exact, idx_oracle, emb, sec = (line.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec"))
     # the oracle over fp32 rows: the six-product pass
     gal32 = full_significand_rows(gallery, seed=5)
@@ -2614,7 +2577,7 @@ def main() -> int:
     phase(f"mbconv edge shapes: {len(mb_report['edges'])} cases within {MB_TOL:.2e} of max |plain|, borders too")
     s2d_row = check_s2d_stem(np_vars, serve, serve_f, images, dev)
     fused_row = check_fused_path(serve, serve_f, svc, info, gallery, labels, images, idx, idx_oracle, sec, launches,
-                                 dev, smi)
+                                 dev, smi, line["flops_per_iter"])
     del serve_f, svc, exact
 
     # 6b. JAX's default service (PCA-128, f32 tile scan) and its other scans
@@ -2803,6 +2766,7 @@ def main() -> int:
         with torch.enable_grad():  # main runs under no_grad
             feature_lines.update(run_training(dev, launches, smi, tmp))
         feature_lines.update(run_extraction(dev, launches, smi, tmp))
+        feature_lines["trained_cascade"] = run_trained_cascade(dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2839,7 +2803,8 @@ def main() -> int:
             ]
     print(json.dumps({"lines": {"main": line, "service_modes": mode_rows, "cascade": casc_row, "approx_select": apx_row,
           "bf": bf_rows, "partial_escalation": esc_rows, "fused_path": fused_row, "s2d_stem": s2d_row,
-          "flagship": flagship_row, "sharded_service": sharded_rows, "sharded_matcher": sharded_matcher_rows,
+          "flagship": flagship_row, "tools": tools_row, "sharded_service": sharded_rows,
+          "sharded_matcher": sharded_matcher_rows,
           **mobilenet_lines, **zoo_lines, **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,6 +1,5 @@
-"""PyTorch + CUDA port of ``fast_image_recognition_tpu`` for one H100, without
-JAX. Entry points run on the card unless given ``device="cpu"``; a kernel
-wrapper runs its plain version (``kernels/plain.py``) on a CPU tensor."""
+"""PyTorch + CUDA port of ``fast_image_recognition_tpu`` for one H100: entry
+points run on the card unless given ``device="cpu"``."""
 
 from fast_image_recognition_tpu_torch.device import default_device, resolve_device
 

@@ -1,8 +1,9 @@
 """Early-exit inference over backbone segments (JAX ``cascade/engine.py``):
-``predict``, ``predict_fused`` (static capacities) and ``predict_pooled``;
-``engine`` 'bind' (any zoo module) or 'folded' (MBConv); heads 'linear' or
-'knn', summed in fp64."""
+``predict``, ``predict_fused`` (static capacities) and ``predict_pooled``
+(``streams``); ``engine`` 'bind' (any zoo module) or 'folded' (MBConv); heads
+'linear' or 'knn', summed in fp64."""
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -42,8 +43,7 @@ class PipelineResult:
 
 
 class SequentialInferencePipeline:
-    """Segments, exit heads and compaction over a zoo module; ``variables``:
-    numpy, loaded (bind; None: the model's) or folded."""
+    """Segments, exit heads and compaction over a zoo module."""
 
     def __init__(
         self,
@@ -132,8 +132,7 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def level_scores(self, images, levels: Optional[int] = None) -> List[torch.Tensor]:
-        """The linear heads' [B, C] decision values at the first ``levels``
-        levels, no exits: what ``_head`` decides on."""
+        """The linear heads' decision values at the first ``levels`` levels, no exits."""
         if self.head_mode != "linear":
             raise ValueError("level_scores needs linear exit heads")
         carry, out = self._images(images), []
@@ -254,8 +253,7 @@ class SequentialInferencePipeline:
         return fused
 
     def fused_fn(self, batch: int, capacities: Optional[Sequence[int]] = None, slack: float = 1.3):
-        """The cached fused cascade: ``fn(images) -> [2 * batch + 1] int64 [preds
-        | levels | forced]``, thresholds baked in (part of the key)."""
+        """The cached fused cascade ``fn(images) -> [preds | levels | forced]``, thresholds baked in."""
         caps = tuple(capacities) if capacities is not None else self.capacities_for(batch, slack=slack)
         key = (batch, caps, tuple(float(t) for t in self.thresholds))
         if key not in self._fused_fns:
@@ -263,8 +261,7 @@ class SequentialInferencePipeline:
         return self._fused_fns[key]
 
     def predict_fused(self, images, capacities: Optional[Sequence[int]] = None, slack: float = 1.3) -> PipelineResult:
-        """The whole cascade, no host sync before its one fetch; calibrated, or
-        given ``capacities`` (capacities[0] ignored)."""
+        """The whole cascade, no host sync before its one fetch."""
         x = self._images(images)
         b = int(x.shape[0])
         fn = self.fused_fn(b, capacities, slack)
@@ -279,41 +276,71 @@ class SequentialInferencePipeline:
     # level-major pooled cascade
 
     @torch.no_grad()
-    def predict_pooled(self, images, bucket: int = 1024, warmup: bool = False) -> PipelineResult:
-        """Level-major over a pool in ``bucket`` slices, survivors compacted: ``predict``'s decisions, one fetch a
-        level (JAX's ``streams`` left out)."""
+    def predict_pooled(self, images, bucket: int = 1024, warmup: bool = False, streams: int = 1) -> PipelineResult:
+        """Level-major over a pool in ``bucket`` slices: ``predict``'s decisions, one fetch a level. ``streams``:
+        contiguous sub-pools as an event loop, each on its own CUDA stream, its fetch to pinned memory behind an
+        event: a stream waits on its fetch, compacts and queues its next level before the next is touched."""
         x = self._images(images)
         n = int(x.shape[0])
         preds = np.zeros(n, dtype=np.int64)
         exit_level = np.full(n, self.num_levels - 1, dtype=np.int64)
         if warmup:
-            self.predict_pooled(x, bucket=bucket)
+            self.predict_pooled(x, bucket=bucket, streams=streams)
+        streams = max(1, min(int(streams), max(1, n // bucket)))
+        bounds = [n * s // streams for s in range(streams + 1)]
+        side = x.device.type == "cuda" and streams > 1
+        states = [dict(alive=np.arange(bounds[s], bounds[s + 1]), carry=x[bounds[s] : bounds[s + 1]], level=0,
+                       stream=torch.cuda.Stream(x.device) if side else None) for s in range(streams)]
+        for st in states if side else []:  # x was made on the current stream
+            st["stream"].wait_stream(torch.cuda.current_stream(x.device))
+
+        def on(st):
+            return torch.cuda.stream(st["stream"]) if side else contextlib.nullcontext()
+
+        def dispatch(st):
+            with on(st):
+                carry = st["carry"]
+                n_pad = _round_up(max(len(st["alive"]), 1), bucket)
+                if carry.shape[0] != n_pad:
+                    carry = torch.cat([carry, carry.new_zeros((n_pad - carry.shape[0],) + tuple(carry.shape[1:]))])
+                hs, rows = [], []
+                for s in range(0, n_pad, bucket):
+                    h, lp, cf = self._segment(st["level"], carry[s : s + bucket])
+                    hs.append(h)
+                    rows.append(torch.stack([lp.to(torch.float32), cf]))
+                st["hs"], packed = hs, torch.cat(rows, dim=1)
+                if side:
+                    st["packed"] = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                    st["packed"].copy_(packed, non_blocking=True)
+                    st["fetched"] = torch.cuda.Event()
+                    st["fetched"].record(st["stream"])
+                else:
+                    st["packed"] = packed
+
         t0 = time.perf_counter()
-        alive, carry = np.arange(n), x
-        for level in range(self.num_levels):
-            n_pad = _round_up(max(len(alive), 1), bucket)
-            if carry.shape[0] != n_pad:
-                pad = torch.zeros((n_pad - carry.shape[0],) + tuple(carry.shape[1:]), dtype=carry.dtype,
-                                  device=carry.device)
-                carry = torch.cat([carry, pad])
-            hs, rows = [], []
-            for s in range(0, n_pad, bucket):
-                h, lp, cf = self._segment(level, carry[s : s + bucket])
-                hs.append(h)
-                rows.append(torch.stack([lp.to(torch.float32), cf]))
-            packed = torch.cat(rows, dim=1).cpu().numpy()
-            level_pred = packed[0, : len(alive)].astype(np.int64)
-            conf = packed[1, : len(alive)]
-            final = level == self.num_levels - 1
-            fire = np.ones(len(alive), dtype=bool) if final else conf > self.thresholds[level]
-            preds[alive[fire]] = level_pred[fire]
-            exit_level[alive[fire]] = level
-            keep = np.nonzero(~fire)[0]
-            alive = alive[keep]
-            if final or not len(keep):
-                break
-            h_all = hs[0] if len(hs) == 1 else torch.cat(hs)
-            carry = h_all.index_select(0, torch.as_tensor(keep).to(h_all.device))
+        active = [st for st in states if len(st["alive"])]
+        for st in active:
+            dispatch(st)
+        while active:
+            for st in list(active):
+                if side:
+                    st.pop("fetched").synchronize()
+                packed = st.pop("packed").cpu().numpy()
+                alive, level, hs = st["alive"], st["level"], st.pop("hs")
+                final = level == self.num_levels - 1
+                fire = np.ones(len(alive), dtype=bool) if final else packed[1, : len(alive)] > self.thresholds[level]
+                preds[alive[fire]] = packed[0, : len(alive)].astype(np.int64)[fire]
+                exit_level[alive[fire]] = level
+                keep = np.nonzero(~fire)[0]
+                st["alive"] = alive[keep]
+                if final or not len(keep):
+                    active.remove(st)
+                    continue
+                with on(st):
+                    h_all = hs[0] if len(hs) == 1 else torch.cat(hs)
+                    st["carry"] = h_all.index_select(0, torch.as_tensor(keep).to(h_all.device))
+                st["level"] = level + 1
+                dispatch(st)  # queued before the next stream's fetch
         elapsed = time.perf_counter() - t0
         return PipelineResult(predictions=preds, exit_level=exit_level,
             break_counts=np.bincount(exit_level, minlength=self.num_levels) / n, ms_per_image=1000.0 * elapsed / n)
@@ -322,8 +349,7 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def predict(self, images, warmup: bool = False) -> PipelineResult:
-        """The host decides the exits: after each segment [n] predictions and
-        confidences come back, survivors gathered on the device."""
+        """The host decides the exits after each segment; survivors gathered on the device."""
         x = self._images(images)
         if warmup:
             self.predict(x)

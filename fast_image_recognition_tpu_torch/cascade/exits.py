@@ -38,8 +38,7 @@ def svc_descent(x: np.ndarray, y: np.ndarray, num_classes: int, w0: np.ndarray, 
 
 def train_linear_svc(x: np.ndarray, y: np.ndarray, num_classes: int, use_sklearn: bool = True, steps: int = 200,
     lr: float = 0.05, reg: float = 1e-4, seed: int = 0, device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
-    """(coef [C, D], intercept [C]) one-vs-rest: scikit-learn's ``LinearSVC`` where installed and asked for, else
-    :func:`svc_descent` from seeded N(0, 0.01^2)."""
+    """(coef, intercept) one-vs-rest: scikit-learn's ``LinearSVC`` where installed, else :func:`svc_descent`."""
     if use_sklearn:
         try:
             from sklearn.svm import LinearSVC
@@ -106,8 +105,7 @@ def _finalize(preds_per_level, exit_masks, num_levels) -> CascadeResult:
 
 @torch.no_grad()
 def _knn_level(gallery: torch.Tensor, g_labels: torch.Tensor, queries: torch.Tensor, ratio: float):
-    """One kNN level: ``2 - 2 x.q`` (sequential_inference.py:469/493); reliable
-    when every row within ``d_min / ratio`` has the best label (:496-497)."""
+    """One kNN level: ``2 - 2 x.q``; reliable when every row within ``d_min / ratio`` has the best label."""
     d = 2.0 - 2.0 * queries @ gallery.T
     best = torch.argmin(d, dim=1)
     d_min = d.gather(1, best[:, None])[:, 0]
@@ -148,8 +146,7 @@ class LinearExitCascade:
     def train(x_train_levels: Sequence[np.ndarray], y_train: np.ndarray, num_classes: int, far: float = 0.01,
         fixed_threshold: Optional[float] = None, use_sklearn: bool = True, seed: int = 42, device: DeviceLike = None
     ) -> "LinearExitCascade":
-        """Per-level classifiers; non-final thresholds tuned on a held-out half to
-        FAR <= ``far`` unless fixed (0.06 in the reference)."""
+        """Per-level classifiers; non-final thresholds tuned on a held-out half to FAR <= ``far`` unless fixed."""
         num_levels = len(x_train_levels)
         coefs, intercepts, thresholds = [], [], []
         rng = np.random.default_rng(seed)

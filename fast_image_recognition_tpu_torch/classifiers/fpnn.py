@@ -30,8 +30,7 @@ def _angles(v: torch.Tensor, j_terms: int) -> torch.Tensor:
 
 
 def _fit_coeffs(v: torch.Tensor, labels: torch.Tensor, j_terms: int, num_classes: int):
-    """(a_cos, a_sin) [D, C, J] from normalized rows: each class's rows gathered
-    (padded to the largest, masked) and summed, a block of classes at a time."""
+    """(a_cos, a_sin) [D, C, J] from normalized rows, a block of classes at a time."""
     n, d = v.shape
     counts = torch.bincount(labels, minlength=num_classes)
     starts = torch.cumsum(counts, 0) - counts

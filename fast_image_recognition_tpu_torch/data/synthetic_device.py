@@ -49,8 +49,7 @@ def _proto_norms(params: Dict[str, torch.Tensor], res: int, chunk: int = 32):
 
 
 def _render_batch(per: Dict[str, torch.Tensor], noise: torch.Tensor, res: int, waves: int) -> torch.Tensor:
-    """Batched render: ``per`` [B]-leading parameters, ``noise`` [B, 3, res, res]
-    -> uint8 NHWC."""
+    """Batched render -> uint8 NHWC."""
     dev = noise.device
     c = (res - 1) / 2.0
     ar = torch.arange(res, dtype=torch.float32, device=dev)
@@ -117,8 +116,7 @@ def make_render_fn(params: Dict[str, np.ndarray], res: int, device: DeviceLike =
 
 def device_dataset(num_classes: int, per_class: int, res: int, seed: int = 0, chunk: int = 256,
     class_seed: Optional[int] = None, device: DeviceLike = None, **aug):
-    """(images uint8 [C*per, res, res, 3] on ``device``, labels np int64),
-    class-major. ``class_seed`` names the textures, ``seed`` the instances."""
+    """(uint8 images on ``device``, labels), class-major; ``class_seed`` names the textures, ``seed`` the instances."""
     dev = resolve_device(device)
     params = make_class_params(num_classes, seed if class_seed is None else class_seed)
     render = make_render_fn(params, res, device=dev, **aug)

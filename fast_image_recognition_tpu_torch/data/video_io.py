@@ -12,8 +12,7 @@ from fast_image_recognition_tpu_torch.data.feature_io import normalize_features
 
 @dataclasses.dataclass
 class VideoDB:
-    """Flat frame arrays with video and person indices (the reference keeps
-    map<string, vector<vector<FeaturesVector>>>)."""
+    """Flat frame arrays with video and person indices."""
 
     frames: np.ndarray  # [F, D] float32 normalized frame features
     frame_video: np.ndarray  # [F] video id per frame

@@ -78,8 +78,7 @@ def _aggregate(frame_dists: np.ndarray, frame_pred: np.ndarray, frame_video: np.
 
 def make_video_fusion_fn(gallery: np.ndarray, gallery_labels: np.ndarray, num_classes: int, num_videos: int,
     dist_weight: float = 100.0, device: DeviceLike = None) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """The fusion step with the gallery on ``device`` once: ``fn(probes [F, D],
-    frame_video [F]) -> [num_videos]`` int64 classes on the device."""
+    """The fusion step with the gallery on ``device`` once: ``fn(probes, frame_video) -> classes a video``."""
     dev = resolve_device(device)
     g = torch.as_tensor(np.asarray(gallery, np.float32)).to(dev)
     gl = torch.as_tensor(np.asarray(gallery_labels), dtype=torch.int64).to(dev)

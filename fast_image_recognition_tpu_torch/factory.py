@@ -26,8 +26,7 @@ def load_dataset_from_config(cfg: DatasetConfig, seed: int = 123):
 
 def build_matcher(method: str, gallery: np.ndarray, labels: np.ndarray, cfg: Optional[MatcherConfig] = None,
     seed: int = 0, mesh=None, device: DeviceLike = None):
-    """A matcher of :data:`METHODS` at cfg.image_count_to_check; ``bf-sharded``
-    takes ``mesh`` (default every visible card, or ``device``)."""
+    """A matcher of :data:`METHODS`; ``bf-sharded`` takes ``mesh``."""
     cfg = cfg or MatcherConfig()
     if method == "bf":
         from fast_image_recognition_tpu_torch.search import BruteForceMatcher

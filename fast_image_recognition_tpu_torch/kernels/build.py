@@ -1,6 +1,6 @@
-"""Build, load and launch the CUDA kernels: each ``*.cu``'s launchers compiled by
-``nvcc`` at first use into ``_build/`` (keyed by a hash of sources and flags),
-bound with ``ctypes``; launches counted in ``LAUNCHES``."""
+"""Build, load and launch the CUDA kernels: ``nvcc`` at first use into
+``_build/`` (keyed by a hash of sources and flags), ``ctypes`` bindings,
+launches counted in ``LAUNCHES``."""
 
 import ctypes
 import hashlib
@@ -72,7 +72,7 @@ def _target(name: str) -> str:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named sources (default all) not built yet, one ``nvcc`` each, in parallel: name -> library path."""
+    """Compile the named sources (default all), one ``nvcc`` each in parallel: name -> library path."""
     names = list(SOURCES if names is None else names)
     out = {n: _target(n) for n in names}
     todo = [n for n in names if not os.path.exists(out[n])]
@@ -172,8 +172,7 @@ def _run(lib: str, fn: str, name: str, device: torch.device, *args) -> None:
 
 
 def topk_l2_query_rows() -> int:
-    """Queries per bf16 pass-1 block of ``kernels/topk_l2.cu``: a row mask
-    skips the blocks that hold no masked query."""
+    """Queries a bf16 pass-1 block: a row mask skips the blocks with no masked query."""
     return _lib("topk_l2").topk_l2_query_rows()
 
 
@@ -189,8 +188,7 @@ def topk_l2_split_plane_rows(b: int) -> int:
 
 
 def topk_l2_split_smem_for(k: int) -> int:
-    """Shared memory of the split pass over bf16 rows (``SplitTile``): plane and
-    box stages (3; 2 for k > 16), two |g|^2 buffers, barriers."""
+    """Shared memory of the split pass over bf16 rows (``SplitTile``)."""
     line, qt, bn = 128, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages = 2 if lists else 3
@@ -199,8 +197,7 @@ def topk_l2_split_smem_for(k: int) -> int:
 
 
 def topk_l2_split6_smem_for(k: int) -> int:
-    """Shared memory of the six-product pass (``Split6Tile``): plane stages (3; 2), fp32 boxes (4; 3), |g|^2 buffers,
-    (k > 16) the distance tile and last entries, barriers."""
+    """Shared memory of the six-product pass (``Split6Tile``)."""
     line, qt, bn = 64, TOPK_QUERY_ROWS, 128
     lists = k > 16
     stages, boxes = (2, 3) if lists else (3, 4)
@@ -215,30 +212,16 @@ def topk_l2_segment_rows_for(precise: bool, k: int) -> int:
 
 
 def packed_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], tile_g: int) -> int:
-    """The packed scans' shape rules: the tile count, or raises."""
-    (b, da), (np_, g_da) = q_shape, g_shape
-    if tile_g not in (128, 256, 512, 1024):
-        raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
-    if b < 1 or np_ < tile_g or np_ % tile_g or g_da != da or da < 16 or da % 16 or np_ > MAX_ROWS:
-        raise ValueError(
-            f"packed scan takes whole {tile_g}-row tiles (at most {MAX_ROWS} rows) and Da % 16 == 0; got "
-            f"q_aug {tuple(q_shape)}, g_aug {tuple(g_shape)}"
-        )
-    return np_ // tile_g
+    """The packed scans' shape rules (Da % 16 == 0): the tile count, or raises."""
+    return tile_scan_tiles(q_shape, g_shape, 16, tile_g, "packed scan")
 
 
 def _check_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> int:
-    """Validate a packed scan's operands; returns the number of tiles."""
-    _check(q_aug, "q_aug", torch.bfloat16, 2)
-    _check(g_aug, "g_aug", torch.bfloat16, 2)
-    if q_aug.device != g_aug.device:
-        raise ValueError("q_aug and g_aug are on different devices")
-    return packed_scan_tiles(tuple(q_aug.shape), tuple(g_aug.shape), tile_g)
+    return _check_scan(q_aug, g_aug, torch.bfloat16, 16, tile_g, "packed scan")
 
 
 def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/packed_scan.cu``: per (query, 1024-row tile) min and
-    second-min packed keys, ``[B, n_tiles]`` int32 each."""
+    """Per (query, 1024-row tile) min and second-min packed keys, int32."""
     n_tiles = _check_packed(q_aug, g_aug, TILE_G)
     b, da = q_aug.shape
     k1 = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
@@ -249,7 +232,7 @@ def launch_tilemin2_packed(q_aug: torch.Tensor, g_aug: torch.Tensor) -> Tuple[to
 
 
 def launch_tilemin_packed(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
-    """Per (query, ``tile_g``-row tile) min packed key ``[B, n_tiles]`` int32; ``tile_g`` 128-1024."""
+    """Per (query, ``tile_g``-row tile) min packed key, int32."""
     n_tiles = _check_packed(q_aug, g_aug, tile_g)
     b, da = q_aug.shape
     keys = torch.empty((b, n_tiles), dtype=torch.int32, device=q_aug.device)
@@ -362,26 +345,28 @@ def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: 
     return d, idx
 
 
-def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int) -> int:
+def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int,
+                    what: str = "tile scan") -> int:
     """The tile scans' shape rules: the tile count, or raises."""
     (b, d), (np_, g_d) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
         raise ValueError(f"tile_g must be 128, 256, 512 or 1024, got {tile_g}")
     if b < 1 or np_ < tile_g or np_ % tile_g or g_d != d or d < vec or d % vec or np_ > MAX_ROWS:
         raise ValueError(
-            f"tile scan takes whole {tile_g}-row tiles (at most {MAX_ROWS} rows) and D % {vec} == 0; got "
+            f"{what} takes whole {tile_g}-row tiles (at most {MAX_ROWS} rows) and D % {vec} == 0; got "
             f"queries {tuple(q_shape)}, gallery {tuple(g_shape)}"
         )
     return np_ // tile_g
 
 
-def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int) -> int:
-    """Validate a tile scan's operands; returns the number of tiles."""
+def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int,
+                what: str = "tile scan") -> int:
+    """Validate a scan's operands; returns the number of tiles."""
     _check(q, "queries", dtype, 2)
     _check(g, "gallery", dtype, 2)
     if q.device != g.device:
         raise ValueError("queries and gallery are on different devices")
-    return tile_scan_tiles(tuple(q.shape), tuple(g.shape), vec, tile_g)
+    return tile_scan_tiles(tuple(q.shape), tuple(g.shape), vec, tile_g, what)
 
 
 def _check_rows(t: torch.Tensor, what: str, n_rows: int, device: torch.device) -> None:
@@ -406,8 +391,7 @@ def launch_tilemin(
 
 def launch_tilemin_quant(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, gsc: torch.Tensor,
     tile_g: int, compute: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min of ``gsq - (2 s_q) (q.g s_g)`` over int8 data and its
-    lowest row; ``compute`` 'int8' or 'bf16'."""
+    """Per (query, tile) min of ``gsq - (2 s_q) (q.g s_g)`` and its lowest row."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     n_tiles = _check_scan(q, g, torch.int8, 16, tile_g)
@@ -427,8 +411,7 @@ def launch_tilemin_quant(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq
 
 def launch_mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], kernel: int, pad_low: Tuple[int, int],
     plan: Tuple[int, int, int, int, int], relu6: bool, residual: bool) -> torch.Tensor:
-    """One stride-1 block on ``x`` [B, Cin, H, W] bf16 channels_last: ``prepare_params``' params, SAME ``pad_low``,
-    ``plane_plan``'s ``plan``; one launch."""
+    """One stride-1 block on ``x`` (bf16 channels_last), one launch."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4:

@@ -1,9 +1,7 @@
 // Chi-square 1-NN scan for sm_90a: `chi2_launch` replaces the Pallas
-// `_chi2_kernel` (ops/chi2_kernel.py:55). Per query the row of [0, n_valid) of
-// least d = sum_k (g_k - q_k)^2 rcp(max(g_k + q_k, 1e-30)) as one 64-bit key
-// (bits of d) << 32 | row, merged by one `atomicMin` a query and block
-// (order-free); the caller divides by D. `rcp.approx.ftz.f32`: 1 ulp at most. A
-// block owns (64 queries, 64 rows) in 32-wide fp32 chunks, 4 x 4 a thread.
+// `_chi2_kernel` (ops/chi2_kernel.py:55). Per query the least key (bits of d)
+// << 32 | row, merged by one `atomicMin` a query and block (order-free);
+// `rcp.approx.ftz.f32`: 1 ulp at most. A block owns (64 queries, 64 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,16 +1,9 @@
 // Fused stride-1 MBConv block for sm_90a, replacing the Pallas `_mbconv_kernel`
-// (ops/mbconv_kernel.py:82): one BN-folded block, hid = act(x w_exp + b_exp)
-// (if expand), a = act(depthwise_kxk_SAME(hid) + b_dw), g =
-// sigmoid(swish(mean(a) w_se1 + b_se1) w_se2 + b_se2) (if SE), y = (a g) w_proj
-// + b_proj (+ x); act swish or relu6, NHWC bf16. One launch, 512 threads a
-// block an image (two at 7x7), spatial tiles x 64-channel slabs. With SE, pass
-// 0 runs expand and depthwise into a bf16 scratch and the pool, then the SE
-// MLP; pass 1 loads it by TMA as the project's `wgmma` A tile and gates it.
-// Without SE one pass writes the depthwise output into the A tile. `wgmma` bf16
-// -> fp32 (128-byte swizzle, K-major), the depthwise on the CUDA cores in fp32.
-// The input box: a 4-D TMA box per 64 channels with the halo (outside zero).
-// Rounding: the TPU kernel's, plus the depthwise output to bf16 before the gate
-// (`plain.mbconv_plain`).
+// (ops/mbconv_kernel.py:82): expand, depthwise, SE, project (+ residual), NHWC
+// bf16, one launch of 512 threads a block an image (two at 7x7). With SE, pass
+// 0 writes the depthwise output to a bf16 scratch and pools it; pass 1 loads it
+// by TMA as the project's `wgmma` A tile and gates it. Rounding: the TPU
+// kernel's, plus the depthwise output to bf16 before the gate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,11 +31,8 @@ struct Layout {
     int off_x, off_wexp, off_wproj, off_aux, off_hid, off_dws, off_pool, off_s1, off_bproj, off_bar, total;
 };
 
-// (th, tw): output tile; group: 64-channel project tiles a block owns (grid y
-// the rest, each recomputing hid); bufs: bit 0 double-buffers the halo, bit 1
-// the weights; ipb: images a block (2 only with the whole plane a tile). With
-// expand and one tile the box is the bare plane (`xplane`): the halo's zero
-// border written once.
+// The plan as `ops/mbconv_kernel.py::plane_smem` names it; with expand and one
+// tile the box is the bare plane (`xplane`): the halo's zero border written once.
 __host__ __device__ inline Layout layout(int H, int W, int k, int cin, int ce, int cout, int S, int has_expand,
                                          int th, int tw, int group, int bufs, int ipb) {
     Layout L;
@@ -674,11 +664,9 @@ extern "C" int mbconv_smem(int H, int W, int k, int cin, int ce, int cout, int S
     return refused(L) || ipb < 1 || ipb > 2 || (ipb > 1 && (L.n_tiles > 1 || k == 7)) ? -1 : L.total;
 }
 
-// x [B, H, W, cin] bf16; w_exp_t [ce, cin] bf16 (null: no expand, cin == ce);
-// aux [ceil(ce / 64)][k*k + 2][64] fp32 (w_dw, b_dw, b_exp a slab); w_se1 [ce,
-// S], b_se1, w_se2 [S, ce], b_se2 (null: no SE); w_proj_t [cout, ce] bf16,
-// b_proj; dw [B, H, W, ce] bf16 scratch (SE); out [B, H, W, cout] bf16. k 3, 5,
-// 7; channels % 8 == 0; 16-byte aligned. Returns a cudaError_t.
+// NHWC bf16 in and out, the weights as `ops/mbconv_kernel.py::prepare_params`
+// lays them out (null w_exp_t: no expand; null SE: none); dw the SE's bf16
+// scratch. k 3, 5, 7; channels % 8 == 0. Returns a cudaError_t.
 extern "C" int mbconv_launch(const void* x, const void* w_exp_t, const void* aux, void* dw, const void* w_se1,
                              const void* b_se1, const void* w_se2, const void* b_se2, const void* w_proj_t,
                              const void* b_proj, void* out, int B, int H, int W, int cin, int ce, int cout, int S,

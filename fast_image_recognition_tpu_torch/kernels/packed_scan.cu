@@ -1,14 +1,9 @@
 // Packed tile-min scans for sm_90a: `tilemin2_packed_launch` replaces
-// `_tilemin2_packed_kernel` (ops/distance_kernel.py:393),
-// `tilemin_packed_launch` `_tilemin_packed_kernel` (:350). Per query and
-// `tile_g`-row tile the least (min-2: and second-least) key = (f32 bits of
-// q_aug . g_aug) & ~(tile_g - 1) | row_in_tile (the dot is the squared
-// distance, >= 0, so its bits order as int32: one integer min carries value and
-// row); pad rows carry |g|^2 = 1e38. `tilemin_packed_sm90<TWO, TILE_G>` on
-// sm90_scan.cuh: 128 queries resident as the A operand up to Da = 640
-// (`tilemin_packed_stream_sm90` streams them above), 256-row sub-tiles through
-// a 4-stage ring, the epilogue in registers: issue-bound, keep its loop shape
-// unless an A/B says so.
+// `_tilemin2_packed_kernel` (ops/distance_kernel.py:393), `tilemin_packed_launch`
+// `_tilemin_packed_kernel` (:350). Key = (f32 bits of q_aug . g_aug, a squared
+// distance >= 0, so its bits order as int32) & ~(tile_g - 1) | row_in_tile: one
+// integer min carries value and row. The epilogue is issue-bound: keep its loop
+// shape unless an A/B says so.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -305,15 +300,14 @@ int launch(const void* q, const void* g, void* out1, void* out2, int B, int n_ti
 
 }  // namespace
 
-// q [B, da], g [n_tiles * 1024, da] bf16 (da % 16 == 0), out1/out2 [B, n_tiles]
-// int32. Returns a cudaError_t.
+// bf16 q [B, da], g [n_tiles * 1024, da] (da % 16 == 0); out1/out2 [B, n_tiles].
 extern "C" int tilemin2_packed_launch(const void* q, const void* g, void* out1,
                                       void* out2, int B, int n_tiles, int da,
                                       void* stream) {
     return launch<true, 1024>(q, g, out1, out2, B, n_tiles, da, stream);
 }
 
-// q [B, da], g [n_tiles * tile_g, da] bf16, out [B, n_tiles]; tile_g 128-1024.
+// As above, one key a tile; tile_g 128-1024.
 extern "C" int tilemin_packed_launch(const void* q, const void* g, void* out,
                                      int B, int n_tiles, int da, int tile_g,
                                      void* stream) {

@@ -1,6 +1,5 @@
-"""Plain PyTorch versions of the port's CUDA kernels, in chunks: the CPU tests run
-them and ``chip_smoke.py`` holds each kernel against them; the card's paths
-never call them."""
+"""Plain PyTorch versions of the CUDA kernels, in chunks: what the CPU runs and
+``chip_smoke.py`` holds each kernel against."""
 
 from typing import Dict, Optional, Tuple
 
@@ -18,8 +17,7 @@ def tilemin_packed_plain(
     tile_g: int = TILE_G,
     chunk_rows: int = 65536,
 ) -> torch.Tensor:
-    """Per (query, tile) min key ``(f32 bits of the augmented dot) & ~(tile_g-1) |
-    row_in_tile`` (``_tilemin_packed_kernel`` :350)."""
+    """Per (query, tile) min key ``(f32 bits of the dot) & ~(tile_g-1) | row_in_tile`` (``_tilemin_packed_kernel``)."""
     b = q_aug.shape[0]
     n_tiles = g_aug.shape[0] // tile_g
     qf = q_aug.to(torch.float32)
@@ -78,26 +76,27 @@ def tilemin_plain(
     bf16_scores: bool = False,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g`` (``_tilemin_kernel`` :174): bf16 products in fp32,
-    the score fp32 or (``bf16_scores``) rounded to bf16 each step. (min fp32, row int32)."""
-    b = q.shape[0]
-    n_tiles = g.shape[0] // tile_g
+    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g`` (``_tilemin_kernel``), the score fp32 or
+    (``bf16_scores``) rounded to bf16 each step."""
     qf = q.to(torch.float32)
-    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
+
+    def score(r0, r1):
+        cross2, gs = 2.0 * (qf @ g[r0:r1].to(torch.float32).T), gsq[r0:r1]
+        return _bf16(_bf16(gs)[None, :] - _bf16(cross2)) if bf16_scores else gs[None, :] - cross2
+
+    return _tile_scan(score, q.shape[0], g.shape[0] // tile_g, tile_g, chunk_rows, q.device)
+
+
+def _tile_scan(score, b: int, n_tiles: int, tile_g: int, chunk_rows: int, device):
+    """Per-tile (min, lowest row) of ``score(r0, r1)`` [B, r1 - r0], ``chunk_rows`` at a time."""
+    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=device)
+    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=device)
     step = max(1, chunk_rows // tile_g)
     for t0 in range(0, n_tiles, step):
         t1 = min(t0 + step, n_tiles)
-        r0, r1 = t0 * tile_g, t1 * tile_g
-        cross2 = 2.0 * (qf @ g[r0:r1].to(torch.float32).T)
-        gs = gsq[r0:r1]
-        if bf16_scores:
-            s = (_bf16(gs)[None, :] - _bf16(cross2)).to(torch.bfloat16).to(torch.float32)
-        else:
-            s = gs[None, :] - cross2
-        mins, arg = _tile_argmin(s, tile_g)
+        mins, arg = _tile_argmin(score(t0 * tile_g, t1 * tile_g), tile_g)
         out_d[:, t0:t1] = mins
-        out_i[:, t0:t1] = arg + torch.arange(t0, t1, dtype=torch.int32, device=q.device)[None, :] * tile_g
+        out_i[:, t0:t1] = arg + torch.arange(t0, t1, dtype=torch.int32, device=device)[None, :] * tile_g
     return out_d, out_i
 
 
@@ -115,27 +114,18 @@ def tilemin_quant_plain(
     compute: str = "int8",
     chunk_rows: int = 32768,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)``, one fp32 rounding an operation
-    (``_tilemin_quant_kernel`` :671): the exact integer dot (``'int8'``) or bf16 products in fp32."""
+    """Per (query, tile) min and argmin of ``|g|^2 - (2 s_q)(q.g s_g)`` (``_tilemin_quant_kernel``), one fp32
+    rounding an operation."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
-    b = q.shape[0]
-    n_tiles = g.shape[0] // tile_g
     wide = torch.float64 if compute == "int8" else torch.float32
-    qw = q.to(wide)
-    qs2 = (2.0 * qs.to(torch.float32))[:, None]
-    out_d = torch.empty((b, n_tiles), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, n_tiles), dtype=torch.int32, device=q.device)
-    step = max(1, chunk_rows // tile_g)
-    for t0 in range(0, n_tiles, step):
-        t1 = min(t0 + step, n_tiles)
-        r0, r1 = t0 * tile_g, t1 * tile_g
+    qw, qs2 = q.to(wide), (2.0 * qs.to(torch.float32))[:, None]
+
+    def score(r0, r1):
         cross = (qw @ g[r0:r1].to(wide).T).to(torch.float32)
-        s = gsq[r0:r1][None, :] - qs2 * (cross * gsc[r0:r1][None, :])
-        mins, arg = _tile_argmin(s, tile_g)
-        out_d[:, t0:t1] = mins
-        out_i[:, t0:t1] = arg + torch.arange(t0, t1, dtype=torch.int32, device=q.device)[None, :] * tile_g
-    return out_d, out_i
+        return gsq[r0:r1][None, :] - qs2 * (cross * gsc[r0:r1][None, :])
+
+    return _tile_scan(score, q.shape[0], g.shape[0] // tile_g, tile_g, chunk_rows, q.device)
 
 
 def topk_l2_plain(
@@ -149,10 +139,8 @@ def topk_l2_plain(
     chunk_rows: int = 65536,
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k (``_topk_kernel`` :92): ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, rows >= n_valid out, ties low,
-    empty ``(BIG_DIST, -1)``; ``window``, ``precise`` (fp32 queries), ``row_mask``, ``floor=(d, row)`` (only what
-    follows). ``chunk_rows`` at a time by ``torch.topk`` of int64 keys ``bits(d) << 32 | (row + 1)``. (d, rows) [B, k].
-"""
+    """Exact L2 top-k (``_topk_kernel``): ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, ties low, empty ``(BIG_DIST,
+    -1)``; ``floor=(d, row)``: only what follows. ``torch.topk`` of keys ``bits(d) << 32 | (row + 1)``."""
     n = g.shape[0] if n_valid is None else int(n_valid)
     b, dim = q.shape
     qf = q.to(torch.float32)
@@ -191,8 +179,8 @@ def topk_l2_plain(
 
 def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor, window: Optional[Tuple[int,
                        int]] = None, chunk: int = 1 << 24) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass 3 (``topk_rescore``): each pick's raw squared distance as the fp32 sum of ``(q - g)^2`` over the window,
-    each list sorted again by (d, row), empty slots last; ``chunk`` bounds the gathered elements."""
+    """Pass 3 (``topk_rescore``): each pick's d as the fp32 sum of ``(q - g)^2`` over the window, each list sorted
+    again, empty slots last."""
     lo, hi = window or (0, q.shape[1])
     valid, out = idx >= 0, d.clone()
     step = max(1, chunk // max(1, idx.shape[1] * (hi - lo)))
@@ -223,8 +211,8 @@ def chi2_nn_plain(
     n_valid: Optional[int] = None,
     tile_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """chi2 1-NN (``_chi2_kernel`` :55): per query the least ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 over rows <
-    n_valid and its lowest row, ``tile_rows`` at a time. (min [B] fp32, row int32)."""
+    """chi2 1-NN (``_chi2_kernel``): per query the least ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 and its lowest
+    row."""
     b, d = q.shape
     n = g.shape[0] if n_valid is None else int(n_valid)
     if tile_rows is None:
@@ -267,8 +255,7 @@ def mbconv_plain(
     residual: bool,
     chunk: int = 64,
 ) -> torch.Tensor:
-    """A folded stride-1 MBConv block (``_mbconv_kernel`` :82) in ``x.dtype``, channels_last, rounded where
-    ``mbconv.cu`` rounds to bf16; sums, SE, bias and residual in fp32."""
+    """A folded stride-1 MBConv block (``_mbconv_kernel``), rounded where ``mbconv.cu`` rounds to bf16."""
     dt = x.dtype
     b, _, h, w = x.shape
     cout, ce = q["w_proj_t"].shape

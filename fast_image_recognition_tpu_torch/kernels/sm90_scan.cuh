@@ -1,11 +1,8 @@
 // The Hopper main loop of the gallery scans, sm_90a only: a ring of TMA boxes
 // filled by one producer thread, `wgmma` of two consumer warpgroups,
-// `mbarrier`s between. Operands row-major, K-major for both `wgmma` operands; a
-// box is [rows x 128 bytes], 128-byte swizzle (chunk c of row r at c ^ (r %
-// 8)): 8-row groups 1024 bytes apart, the k-th 32-byte slice at +32. TMA
-// zero-fills past a tensor. full[s]: stage s landed; empty[s]: both consumers
-// released it; the producer gives its registers away (`setmaxnreg`). A wait
-// open after ~2^35 clocks traps.
+// `mbarrier`s between (full[s]: stage s landed; empty[s]: released). A box is
+// [rows x 128 bytes], 128-byte swizzle (chunk c of row r at c ^ (r % 8)). A
+// wait open after ~2^35 clocks traps.
 
 #pragma once
 

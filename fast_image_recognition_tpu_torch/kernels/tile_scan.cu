@@ -1,14 +1,8 @@
-// Per-tile min and argmin scans for sm_90a on sm90_scan.cuh. `tilemin_launch`
-// replaces `_tilemin_kernel` (ops/distance_kernel.py:174): per query and
-// `tile_g`-row tile the min of |g|^2 - 2 q.g (bf16 products in fp32; BIG_DIST
-// on pad rows) and its lowest row; `bf16_scores` rounds as the TPU's
-// `score_t=bfloat16`. `tilemin_quant_launch` replaces `_tilemin_quant_kernel`
-// (:671): gsq - (2 s_q) (cross s_g), cross the exact int32 dot (int8) or fp32
-// sum of bf16 products (bf16), each step rounded. Kernels: `tilemin_sm90` (the
-// packed scans' shape, queries streamed above D = 640), `tilemin_quant_sm90`
-// (s8 `wgmma` m64n256k32) and `tilemin_quant_bf16_sm90` (int8 gallery to bf16 A
-// fragments in registers, 256 queries the N side). Query tiles run fastest:
-// blocks share the gallery through L2.
+// Per-tile min and argmin scans for sm_90a on sm90_scan.cuh: `tilemin_launch`
+// replaces `_tilemin_kernel` (ops/distance_kernel.py:174), min of |g|^2 - 2 q.g
+// per query and `tile_g`-row tile; `tilemin_quant_launch` `_tilemin_quant_kernel`
+// (:671), gsq - (2 s_q) (cross s_g), each step rounded. Query tiles run
+// fastest: blocks share the gallery through L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -654,8 +648,7 @@ int launch_quant_bf16_sm90(const void* q, const void* qs, const void* g, const v
 
 }  // namespace
 
-// q [B, D] bf16, g [n_tiles * tile_g, D] bf16 (D % 8 == 0), gsq fp32,
-// out_d/out_i [B, n_tiles]; tile_g 128-1024. Returns a cudaError_t.
+// bf16 q [B, D], g [n_tiles * tile_g, D] (D % 8 == 0); out [B, n_tiles].
 extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, void* out_d,
                               void* out_i, int B, int n_tiles, int D, int tile_g,
                               int bf16_scores, void* stream) {
@@ -663,8 +656,7 @@ extern "C" int tilemin_launch(const void* q, const void* g, const void* gsq, voi
     return launch_tilemin<false>(q, g, gsq, out_d, out_i, B, n_tiles, D, tile_g, stream);
 }
 
-// q [B, D] int8 (compute_int8: the int32 dot) or bf16 (bf16 products in fp32),
-// qs [B], g int8 (D % 16 == 0), gsq/gsc fp32; out as tilemin_launch.
+// q int8 (compute_int8) or bf16, g int8 (D % 16 == 0); out as tilemin_launch.
 extern "C" int tilemin_quant_launch(const void* q, const void* qs, const void* g,
                                     const void* gsq, const void* gsc, void* out_d, void* out_i,
                                     int B, int n_tiles, int D, int tile_g, int compute_int8,

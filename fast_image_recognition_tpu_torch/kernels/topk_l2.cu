@@ -1,15 +1,9 @@
 // Exact L2 top-k (k <= 256 a launch) for sm_90a, replacing the Pallas
 // `_topk_kernel` and `_merge_topk` (ops/distance_kernel.py:92, :57): d =
-// max(|q|^2 + |g|^2 - 2 q.g, 0) in fp32, rows >= n_valid never returned, ties
-// to the lowest row, empty slots (BIG_DIST, -1), a window [start, end). Pass 1,
-// a block per (128 queries, row segment): `topk_pass1_sm90` (bf16; a query mask
-// skips tiles) or the fp32 oracle, three bf16 query planes (`split_queries`)
-// against bf16 rows (`topk_pass1_split_sm90`, three products a chunk) or fp32
-// rows split on the chip (`topk_pass1_split6_sm90`, six), each chunk into a
-// fresh accumulator (Hopper truncates as it accumulates). Pass 2: a warp a
-// query merges the segment lists (`WarpList` above k = 16). k > 256: slabs
-// above a floor; past 65,535 segments, several launches (`seg_base`). Pass 3:
-// `topk_rescore`.
+// max(|q|^2 + |g|^2 - 2 q.g, 0) in fp32, ties to the lowest row. Pass 1 a block
+// per (128 queries, row segment), bf16 or the fp32 oracle's split passes (each
+// chunk into a fresh accumulator: Hopper truncates as it accumulates); pass 2
+// merges the segment lists; pass 3 `topk_rescore`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1222,63 +1216,42 @@ int launch_pass2(const Args& a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-template <int K>
-int launch_bf16(const Args& a, cudaStream_t stream) {
-    using T = Bf16Tile<K>;
-    // both maps start at the 8-lane (16-byte) boundary below the window
-    const int base = a.start & ~7;
-    const long cols = a.end - base;
-    const __nv_bfloat16* q = (const __nv_bfloat16*)a.q + base;
-    const __nv_bfloat16* g = (const __nv_bfloat16*)a.g + base;
-    CUtensorMap qmap, gmap;
-    int err = sm90::encode_bf16_map(&qmap, q, cols, a.B, (long)a.D * 2, QT);
-    if (err == 0) err = sm90::encode_bf16_map(&gmap, g, cols, a.n_valid, (long)a.D * 2, T::BN);
-    if (err != 0) return err;
-    const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
-    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-            qmap, gmap, a.row_mask, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks,
-            a.start - base, sb);
+// Pass 1 a grid row a (128 queries, segment), at most MAX_GRID_Y segments a launch from `seg_base`, then pass 2.
+template <int K, typename... P, typename... A>
+int launch_pass1(void (*kernel)(P...), size_t smem, const Args& a, cudaStream_t stream, A... args) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    for (int sb = 0; e == cudaSuccess && sb < a.n_seg; sb += MAX_GRID_Y) {
+        kernel<<<dim3((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb)), sm90::THREADS, smem, stream>>>(args..., sb);
         e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
     }
-    return launch_pass2<K>(a, stream);
+    return e != cudaSuccess ? (int)e : launch_pass2<K>(a, stream);
 }
 
-// bf16, k > 16: topk_pass1_sm90_lists, then the list merge.
+template <int K>
+constexpr int bf16_bn() {
+    if constexpr (K > 16) return ListTile::BN;
+    else return Bf16Tile<K>::BN;
+}
+
+// bf16 (k > 16: topk_pass1_sm90_lists). Both maps start at the 8-lane (16-byte) boundary below the window.
 template <int K, bool FLOOR>
-int launch_bf16_lists_as(const Args& a, cudaStream_t stream) {
-    using T = ListTile;
-    // both maps start at the 8-lane (16-byte) boundary below the window
+int launch_bf16(const Args& a, cudaStream_t stream) {
+    constexpr int BN = bf16_bn<K>();
     const int base = a.start & ~7;
     const long cols = a.end - base;
     CUtensorMap qmap, gmap;
     int err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.q + base, cols, a.B, (long)a.D * 2, QT);
     if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid, (long)a.D * 2,
-                                              T::BN);
+                                              BN);
     if (err != 0) return err;
     const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
-    cudaError_t e = cudaFuncSetAttribute(topk_pass1_sm90_lists<K, FLOOR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_sm90_lists<K, FLOOR><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-            qmap, gmap, a.row_mask, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg,
-            n_chunks, a.start - base, sb);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return launch_pass2<K>(a, stream);
-}
-
-template <int K>
-int launch_bf16_lists(const Args& a, cudaStream_t stream) {
-    return a.floor_d != nullptr ? launch_bf16_lists_as<K, true>(a, stream) : launch_bf16_lists_as<K, false>(a, stream);
+    if constexpr (K > 16)
+        return launch_pass1<K>(topk_pass1_sm90_lists<K, FLOOR>, ListTile::SMEM, a, stream, qmap, gmap, a.row_mask,
+                               a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg,
+                               n_chunks, a.start - base);
+    else
+        return launch_pass1<K>(topk_pass1_sm90<K>, Bf16Tile<K>::SMEM, a, stream, qmap, gmap, a.row_mask,
+                               (float*)a.part_d, (int*)a.part_i, a.B, a.n_valid, a.n_seg, n_chunks, a.start - base);
 }
 
 // precise: the query planes (rows Bp a plane) and |q|^2.
@@ -1288,63 +1261,31 @@ int launch_split_queries(const Args& a, int Bp, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// precise over bf16 rows: split, topk_pass1_split_sm90, merge.
-template <int K>
+// precise: split, topk_pass1_split_sm90 over bf16 rows or (SIX) topk_pass1_split6_sm90 over fp32 rows, merge.
+template <int K, bool SIX>
 int launch_split(const Args& a, cudaStream_t stream) {
-    using T = SplitTile<K>;
     const int Bp = (a.B + QT - 1) / QT * QT;
     int err = launch_split_queries(a, Bp, stream);
     if (err != 0) return err;
-    // both maps start at the 8-lane (16-byte) boundary below the window
-    const int base = a.start & ~7;
+    const int base = a.start & ~7;  // both maps at the 8-lane boundary below the window
     const long cols = a.end - base;
+    const __nv_bfloat16* planes = (const __nv_bfloat16*)a.planes + base;
     CUtensorMap qmap, gmap;
-    err = sm90::encode_bf16_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
-    if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid, (long)a.D * 2,
-                                              T::BN);
-    if (err != 0) return err;
-    const int n_chunks = (int)((cols + sm90::KCHUNK - 1) / sm90::KCHUNK);
-    cudaError_t e = cudaFuncSetAttribute(topk_pass1_split_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_split_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-            qmap, gmap, a.qsq, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, Bp, a.n_valid, a.n_seg,
-            n_chunks, a.start - base, sb);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
+    if constexpr (SIX) {
+        err = sm90::encode_bf16_sw64_map(&qmap, planes, cols, 3L * Bp, (long)a.D * 2, QT);
+        if (err == 0) err = sm90::encode_f32_map(&gmap, (const float*)a.g + base, cols, a.n_valid, (long)a.D * 4,
+                                                 Split6Tile<K>::BN);
+    } else {
+        err = sm90::encode_bf16_map(&qmap, planes, cols, 3L * Bp, (long)a.D * 2, QT);
+        if (err == 0) err = sm90::encode_bf16_map(&gmap, (const __nv_bfloat16*)a.g + base, cols, a.n_valid,
+                                                  (long)a.D * 2, SplitTile<K>::BN);
     }
-    return launch_pass2<K>(a, stream);
-}
-
-// precise over fp32 rows: split, topk_pass1_split6_sm90, merge.
-template <int K>
-int launch_split6(const Args& a, cudaStream_t stream) {
-    using T = Split6Tile<K>;
-    const int Bp = (a.B + QT - 1) / QT * QT;
-    int err = launch_split_queries(a, Bp, stream);
     if (err != 0) return err;
-    // both maps start at the 8-lane boundary below the window
-    const int base = a.start & ~7;
-    const long cols = a.end - base;
-    CUtensorMap qmap, gmap;
-    err = sm90::encode_bf16_sw64_map(&qmap, (const __nv_bfloat16*)a.planes + base, cols, 3L * Bp, (long)a.D * 2, QT);
-    if (err == 0) err = sm90::encode_f32_map(&gmap, (const float*)a.g + base, cols, a.n_valid, (long)a.D * 4, T::BN);
-    if (err != 0) return err;
-    const int n_chunks = (int)((cols + KC6 - 1) / KC6);
-    cudaError_t e = cudaFuncSetAttribute(topk_pass1_split6_sm90<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    for (int sb = 0; sb < a.n_seg; sb += MAX_GRID_Y) {
-        const dim3 grid((a.B + QT - 1) / QT, min(MAX_GRID_Y, a.n_seg - sb));
-        topk_pass1_split6_sm90<K><<<grid, sm90::THREADS, T::SMEM, stream>>>(
-            qmap, gmap, a.qsq, a.floor_d, a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, Bp, a.n_valid, a.n_seg,
-            n_chunks, a.start - base, sb);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return launch_pass2<K>(a, stream);
+    const int kc = SIX ? KC6 : sm90::KCHUNK;
+    return launch_pass1<K>(SIX ? topk_pass1_split6_sm90<K> : topk_pass1_split_sm90<K>,
+                           SIX ? Split6Tile<K>::SMEM : SplitTile<K>::SMEM, a, stream, qmap, gmap, a.qsq, a.floor_d,
+                           a.floor_i, (float*)a.part_d, (int*)a.part_i, a.B, Bp, a.n_valid, a.n_seg,
+                           (int)((cols + kc - 1) / kc), a.start - base);
 }
 
 // The pass-1 kernels: bf16; precise over bf16 rows; precise over fp32 rows.
@@ -1352,15 +1293,10 @@ enum class Pass { BF16, SPLIT3, SPLIT6 };
 
 template <int K, Pass P>
 int launch(const Args& a, cudaStream_t stream) {
-    if constexpr (P == Pass::SPLIT3) {
-        return launch_split<K>(a, stream);
-    } else if constexpr (P == Pass::SPLIT6) {
-        return launch_split6<K>(a, stream);
-    } else if constexpr (K > 16) {
-        return launch_bf16_lists<K>(a, stream);
-    } else {
-        return launch_bf16<K>(a, stream);
-    }
+    if constexpr (P != Pass::BF16)
+        return launch_split<K, P == Pass::SPLIT6>(a, stream);
+    else
+        return K > 16 && a.floor_d != nullptr ? launch_bf16<K, (K > 16)>(a, stream) : launch_bf16<K, false>(a, stream);
 }
 
 constexpr int MAX_K = 256;
@@ -1432,12 +1368,10 @@ extern "C" int topk_l2_split6_smem(int k) {
     }
 }
 
-// q, g: [B, D], [N, D] bf16 (rows >= n_valid ignored; D % 8 == 0; 16-byte
-// aligned); row_mask: [B] uint8 or null (0: empty, tiles without a 1 skip);
-// floor_d/floor_i: [B] or null, k > 16 only (only (d, row) after the floor;
-// empty (BIG_DIST, INT32_MAX)); part_d/part_i: [B, n_seg, topk_l2_list_len(k)]
-// scratch; out_d/out_i: [B, k] raw squared distances over [start, end), rows.
-// Returns a cudaError_t.
+// q, g: [B, D], [N, D] bf16 (D % 8 == 0); row_mask [B] uint8 or null (0:
+// empty); floor_d/floor_i [B] or null (k > 16: only (d, row) after them);
+// part_d/part_i [B, n_seg, topk_l2_list_len(k)] scratch; out [B, k]. Returns a
+// cudaError_t.
 extern "C" int topk_l2_launch(const void* q, const void* g, const void* row_mask, const void* floor_d,
                               const void* floor_i, void* part_d, void* part_i, void* out_d, void* out_i, int B,
                               int N, int n_valid, int D, int k, int n_seg, int start, int end, void* stream) {

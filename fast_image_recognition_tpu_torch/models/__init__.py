@@ -1,6 +1,4 @@
-"""The port's backbone zoo (JAX ``models/__init__.py``): EfficientNet
-B0-B7, MobileNetV2 at any width, MobileNetV1, InceptionResNetV2,
-InceptionV3, ResNet50, ResNet50/101/152V2 and VGG19; other names raise
+"""The port's backbone zoo (JAX ``models/__init__.py``); other names raise
 ``ValueError``."""
 
 from typing import Any, Dict, Optional
@@ -56,8 +54,7 @@ def _unknown(name: str):
 
 
 def backbone_info(name: str) -> Dict[str, Any]:
-    """Static facts about a zoo member (JAX :37-123): resolution,
-    embedding dim, default taps, family and preprocess."""
+    """Resolution, embedding dim, default taps, family and preprocess of a zoo member."""
     if name in VARIANTS:
         return _eff.backbone_info(name)
     if name.startswith("mobilenetv2"):

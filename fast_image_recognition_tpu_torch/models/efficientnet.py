@@ -1,6 +1,5 @@
 """EfficientNet B0-B7 (JAX ``models/efficientnet.py``): the plan and the trainable
-module (bf16 convs, TF 'SAME' pads, BN in fp32; train mode with stochastic
-depth, dropout and ``remat``); flax numpy trees in and out."""
+module (bf16 convs, TF 'SAME' pads, BN in fp32); flax numpy trees in and out."""
 
 import dataclasses
 import math
@@ -117,7 +116,7 @@ CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
 
 def preprocess_images_caffe(images: torch.Tensor, resolution: Optional[int] = None,
                             mean: Sequence[float] = CAFFE_MEAN_BGR) -> torch.Tensor:
-    """uint8/float RGB NHWC -> BGR less the mean (JAX ``models/efficientnet.py:407-424``), resized first."""
+    """RGB NHWC -> BGR less the mean, resized first."""
     x = _resize(images, resolution).flip(-1)
     return x - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
 
@@ -221,9 +220,8 @@ def _remat_block(blk: nn.Module, h: torch.Tensor, mask, keep: float) -> torch.Te
 
 
 class EfficientNet(ZooNet):
-    """EfficientNet with segments and taps (``num_classes=0``: the extractor). Train mode keeps block i's residual with
-    probability ``1 - drop_connect * i / n`` (``drop_masks(i, batch)`` replays masks); ``remat`` recomputes blocks in
-    the backward pass."""
+    """EfficientNet with segments and taps. Train mode keeps block i's residual with probability ``1 - drop_connect *
+    i / n`` (``drop_masks(i, batch)`` replays masks); ``remat`` recomputes blocks in the backward pass."""
 
     drop_connect, drop_masks, remat = 0.2, None, False
 
@@ -237,8 +235,7 @@ class EfficientNet(ZooNet):
 
     def _build(self, plan, stem_filters: int, head_filters: Optional[int], num_classes: int, dtype: torch.dtype,
                hidden_overrides=None, block=None, activation: Optional[str] = None, folded: bool = False) -> None:
-        """Stem conv + BN, ``block(cfg, hidden)`` a config, head conv + BN (unless
-        None), the dense layer; ``folded``: the stem's BN as a bias."""
+        """Stem, ``block(cfg, hidden)`` a config, head, dense layer; ``folded``: the stem's BN as a bias."""
         self.num_classes = int(num_classes)
         self.dtype = dtype
         self.hidden_overrides = dict(hidden_overrides or {})
@@ -289,7 +286,6 @@ class EfficientNet(ZooNet):
 
 def create_efficientnet(variant: str = "b0", num_classes: int = 0, seed: int = 0, resolution: Optional[int] = None,
     dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
-    """``(model on device, flax-layout numpy variables)``, flax's default init
-    from ``seed``; ``resolution`` (default the variant's) kept on the model."""
+    """``(model on device, flax-layout numpy variables)``, flax's default init from ``seed``."""
     model = EfficientNet(variant=variant, num_classes=num_classes, dtype=dtype)
     return create(model, seed, resolution or VARIANTS[variant].resolution, device)

@@ -1,7 +1,6 @@
 """Feature extraction (JAX ``models/extractor.py``): ``<root>/<class>/<image>``
-decoded, resized, through the folded serving forward (over a ``data`` mesh
-axis), L2-normalized rows in the 3-line format. PNG and BMP decoded here; other
-formats need PIL."""
+through the folded serving forward, L2-normalized rows in the 3-line format.
+PNG and BMP decoded here; other formats need PIL."""
 
 import os
 import struct
@@ -159,8 +158,8 @@ def list_image_dataset(root: str, extensions: Sequence[str] = IMAGE_EXTENSIONS) 
 
 
 class FeatureExtractor:
-    """Pooled embeddings of a zoo backbone by its folded serving forward on ``device`` (default the card); ``mesh``:
-    its ``data`` axis splits each batch, padded as JAX pads it (:86-101)."""
+    """Pooled embeddings by the folded serving forward on ``device``; ``mesh``: its ``data`` axis splits each batch,
+    padded as JAX pads it."""
 
     def __init__(self, variant: str = "b0", variables=None, resolution: Optional[int] = None, mesh=None,
                  seed: int = 0, folded: bool = True, device: DeviceLike = None):

@@ -1,7 +1,5 @@
-"""BN fold of variables and the serving entry (JAX ``models/fold.py``):
-``fold_variables`` folds each BN into its conv in fp64 (a lone BN keeps its
-affine map); ``fold_tf_preprocess_into_valid_stem``: ``conv(x, W/127.5) -
-sum(W)``."""
+"""BN fold of variables and the serving entry (JAX ``models/fold.py``): each BN
+into its conv in fp64 (a lone BN keeps its affine map)."""
 
 from typing import Any, Dict, Optional, Sequence
 
@@ -132,9 +130,8 @@ def _bf16_convs(net: nn.Module, dev) -> nn.Module:
 
 def make_serving_fn(variables: Dict[str, Any], info: Dict[str, Any], resolution: Optional[int] = None,
     taps: Sequence[str] = (), device: DeviceLike = None, folded: bool = True) -> nn.Module:
-    """The serving module for a zoo member's numpy variables (JAX :185-255): MBConv by :func:`make_infer_fn`, the rest
-    by ``fold_variables`` (Inceptions: 'tf' in the stem; ResNet, MobileNetV1 explicit; VGG19 'caffe'); ``folded=False``
-    keeps BN."""
+    """The serving module for a zoo member's numpy variables: MBConv by :func:`make_infer_fn`, the rest by
+    ``fold_variables``; ``folded=False`` keeps BN."""
     family, dev = info.get("family"), resolve_device(device)
     res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")

@@ -1,7 +1,6 @@
 """Folded serving forward of the MBConv families (JAX ``models/inference.py``): BN
 folded in fp64, the preprocess into the stem (exact at SAME borders by a
-correction map), ``fused=True``: stride-1 blocks on the fused kernel. NCHW
-``channels_last``, TF "SAME" pads."""
+correction map); ``fused=True``: stride-1 blocks on the fused kernel."""
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,8 +39,7 @@ def mbconv_plan(variant: str) -> Tuple[List[Dict[str, Any]], int]:
 def fold_backbone(
     variables: Dict[str, Any], variant, dtype: torch.dtype = torch.bfloat16
 ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
-    """numpy ``params``/``batch_stats`` and an MBConv zoo name or plan -> (folded
-    tensors in JAX's layout, static block configs)."""
+    """numpy variables and an MBConv zoo name or plan -> (folded tensors, block configs)."""
     plan = mbconv_plan(variant)[0] if isinstance(variant, str) else variant
     params = variables["params"]
     stats = variables["batch_stats"]
@@ -176,8 +174,8 @@ class _FusedBlock(nn.Module):
 
 
 class FoldedEfficientNet(nn.Module):
-    """BN- and preprocess-folded MBConv backbone: uint8 NHWC -> ``{'embedding', 'taps'}`` (another size resized first);
-    ``stem``, ``run_blocks``, ``head``: the cascade's segments."""
+    """BN- and preprocess-folded MBConv backbone: uint8 NHWC -> ``{'embedding', 'taps'}``; ``stem``, ``run_blocks``,
+    ``head``: the cascade's segments."""
 
     def __init__(self, folded: Dict[str, Any], configs: List[Dict[str, Any]], resolution: int, taps: Sequence[str] = (),
         fused: bool = False, mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None,
@@ -257,8 +255,8 @@ def make_infer_fn(variables: Dict[str, Any], variant: str = "b0", taps: Sequence
     resolution: Optional[int] = None, dtype: torch.dtype = torch.bfloat16, fold_preprocess: bool = True,
     mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None, fused: bool = False,
     space_to_depth: bool = False, device: DeviceLike = None, activation: Optional[str] = None) -> FoldedEfficientNet:
-    """numpy ``params``/``batch_stats`` -> the serving module on ``device`` (JAX's ``(fn, folded)`` in one).
-    ``variant`` 'b0'-'b7' or 'mobilenetv2[_W]'; ``fused``: the fused kernel; ``space_to_depth``: the s2d stem."""
+    """numpy variables -> the serving module on ``device``; ``fused``: the fused kernel; ``space_to_depth``: the s2d
+    stem."""
     dev = resolve_device(device)
     plan, default_res = mbconv_plan(variant)
     folded, configs = fold_backbone(variables, plan, dtype=dtype)

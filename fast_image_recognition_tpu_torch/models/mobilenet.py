@@ -64,8 +64,7 @@ def default_taps_mobilenet_v1(width: float = 1.0) -> List[str]:
 
 
 class MobileNetV2(EfficientNet):
-    """MobileNetV2 with segments and exit taps; ``num_classes=0`` gives the
-    pooled 1280-d extractor (wider past width 1.0)."""
+    """MobileNetV2 with segments and exit taps; ``num_classes=0``: the pooled extractor."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
                  hidden_overrides: Optional[Dict[str, int]] = None, resolution: int = 224):
@@ -90,8 +89,7 @@ class DepthwiseSeparable(nn.Module):
 
 
 class MobileNetV1(EfficientNet):
-    """MobileNetV1; ``num_classes=0`` gives the pooled 1024-d extractor;
-    ``folded=True`` takes a folded tree, each BN's bias on its conv."""
+    """MobileNetV1; ``folded=True`` takes a folded tree, each BN's bias on its conv."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
                  resolution: int = 224, folded: bool = False):

@@ -51,8 +51,7 @@ class TrainConfig:
 
 
 class MultiExitTrainer:
-    """Two-phase fine-tuning of a zoo module on ``device`` (default the
-    card), trained in place from ``variables``; flax-layout numpy out."""
+    """Two-phase fine-tuning of a zoo module on ``device`` (default the card), in place from ``variables``."""
 
     def __init__(self, model, variables, config: TrainConfig, checkpoint_path: Optional[str] = None,
                  preprocess=None, device: DeviceLike = None):
@@ -102,8 +101,7 @@ class MultiExitTrainer:
         return loss.detach()
 
     def calibrate_batch_stats(self, images) -> None:
-        """One train-mode pass's batch statistics as the running ones,
-        solved as JAX does: ``(new - m * old) / (1 - m)``."""
+        """One train-mode pass's batch statistics as the running ones: ``(new - m * old) / (1 - m)``."""
         bns = [m for m in self.model.modules() if isinstance(m, _BatchNorm)]
         old = [(bn.mean.clone(), bn.var.clone()) for bn in bns]
         with torch.no_grad():

@@ -67,8 +67,7 @@ class _BatchNorm(nn.Module):
 
 @contextlib.contextmanager
 def batch_stats(module: nn.Module, train: bool = True, commit: bool = True):
-    """Train mode for every BN under ``module``: batch statistics inside,
-    the running ones updated on exit (``commit``)."""
+    """Train mode for every BN under ``module``, the running statistics updated on exit."""
     bns = [m for m in module.modules() if isinstance(m, _BatchNorm)] if train else []
     for bn in bns:
         bn.use_batch, bn.pending = True, None
@@ -146,8 +145,7 @@ class ZooNet(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
-        """flax's default init from ``torch.Generator().manual_seed(seed)``:
-        lecun-normal kernels, zero biases, unit BN."""
+        """flax's default init from ``torch.Generator().manual_seed(seed)``."""
         gen = torch.Generator().manual_seed(int(seed))
         for conv_path, _, m in self._layers():
             if conv_path is not None:
@@ -178,8 +176,7 @@ class ZooNet(nn.Module):
 
     @torch.no_grad()
     def load_variables(self, variables: Dict[str, Any]) -> "ZooNet":
-        """A flax numpy tree into the module, which stays on its device; a folded module takes ``fold_variables``' tree
-        (a conv's bias plus its neutral BN's)."""
+        """A flax numpy tree into the module; a folded module takes ``fold_variables``' tree."""
         dev, params, stats = next(self.parameters()).device, variables["params"], variables.get("batch_stats", {})
         f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
         for conv_path, bn_path, m in self._layers():

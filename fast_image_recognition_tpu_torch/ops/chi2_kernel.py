@@ -23,8 +23,7 @@ def chi2_nn(
     refine: bool = True,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(distances [B] / D, rows [B] int32) over rows [0, n_valid); host data (or any, given ``device``) moves to
-    ``device``; ``tile_g``: the plain version's step."""
+    """(distances / D, rows) over rows [0, n_valid) on ``device``."""
     if device is not None or not (torch.is_tensor(queries) and torch.is_tensor(gallery)):
         dev = resolve_device(device)
         queries = torch.as_tensor(queries, device=dev)

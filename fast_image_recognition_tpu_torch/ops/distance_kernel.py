@@ -1,7 +1,6 @@
-"""Gallery scans of the serving paths (JAX ``ops/distance_kernel.py``): each
-wrapper runs its CUDA kernel on a CUDA tensor, its plain version on a CPU one.
-On the card a gallery's width is a multiple of 8 lanes (16 for int8):
-:func:`pad_cols`."""
+"""Gallery scans (JAX ``ops/distance_kernel.py``): a wrapper runs its CUDA kernel
+on a CUDA tensor, its plain version on a CPU one; on the card a gallery is 8
+lanes wide a multiple (16 for int8): :func:`pad_cols`."""
 
 from typing import Optional, Tuple
 
@@ -41,8 +40,7 @@ COL_ALIGN = 16  # 16-byte vectors: 8 bf16 or 16 int8 lanes
 
 
 def pad_cols(x: torch.Tensor, m: int = COL_ALIGN) -> torch.Tensor:
-    """Zero columns up to a multiple of ``m``, once where a gallery is built; the
-    scans take it with queries of the unpadded width."""
+    """Zero columns up to a multiple of ``m``; queries keep their width."""
     d = x.shape[1]
     return x if d % m == 0 else torch.nn.functional.pad(x, (0, _round_up(d, m) - d))
 
@@ -73,7 +71,7 @@ def pad_gallery(gallery: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
 
 
 def _tile_rows(v: torch.Tensor, tile_g: int, fill: float) -> torch.Tensor:
-    """Per-row values [Np] -> the kernel layout ``[roundup(n_tiles, 8), tile_g]``, extra rows filled with ``fill``."""
+    """Per-row values -> the kernel layout ``[roundup(n_tiles, 8), tile_g]``, the rest ``fill``."""
     n_tiles = v.shape[0] // tile_g
     v = v.view(n_tiles, tile_g)
     n_rows = _round_up(n_tiles, 8)
@@ -83,7 +81,7 @@ def _tile_rows(v: torch.Tensor, tile_g: int, fill: float) -> torch.Tensor:
 
 
 def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
-    """|g|^2 in the tile layout ``[roundup(n_tiles, 8), tile_g]`` fp32, BIG_DIST past n_valid; once a gallery."""
+    """|g|^2 in the tile layout, fp32, BIG_DIST past n_valid."""
     gallery = pad_gallery(gallery, tile_g)
     gsq = _row_sq_norms(gallery)
     gsq = torch.where(torch.arange(gallery.shape[0], device=gsq.device) < n_valid, gsq, BIG_DIST)
@@ -91,7 +89,7 @@ def gallery_sq_norms(gallery: torch.Tensor, n_valid: int, tile_g: int = TILE_G) 
 
 
 def quant_gallery_scales(scales: torch.Tensor, n_valid: int, tile_g: int = TILE_G) -> torch.Tensor:
-    """Per-row dequantization scales in the layout of :func:`gallery_sq_norms`, 0 on rows >= n_valid and on pads."""
+    """Dequantization scales in the tile layout, 0 past n_valid."""
     n = scales.shape[0]
     np_ = _round_up(max(n, tile_g), _check_tile_g(tile_g))
     s = torch.nn.functional.pad(scales.to(torch.float32), (0, np_ - n))
@@ -145,7 +143,7 @@ def _key_to_row(keys: torch.Tensor, tile_g: int = TILE_G) -> torch.Tensor:
 
 
 def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch.Tensor:
-    """Per (query, tile) min packed key ``[B, n_tiles]`` int32 (``kernels/packed_scan.cu``)."""
+    """Per (query, tile) min packed key, int32."""
     if _on_card(q_aug):
         return build.launch_tilemin_packed(q_aug, g_aug, tile_g)
     return plain.tilemin_packed_plain(q_aug, g_aug, tile_g)
@@ -154,15 +152,14 @@ def tilemin_keys(q_aug: torch.Tensor, g_aug: torch.Tensor, tile_g: int) -> torch
 def tile_min_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, tile_g: int = TILE_G
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(each tile's best distance / ``d`` [B, n_tiles], its row), ~2^-13 relative: callers rescore."""
+    """(each tile's best distance / ``d``, its row), ~2^-13 relative: callers rescore."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     keys = tilemin_keys(qa, gallery_aug, _check_tile_g(tile_g))
     return _key_to_dist(keys, tile_g) / d, _key_to_row(keys, tile_g)
 
 
 def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
-    """[B, n_tiles] minima -> [B, R] nearest tiles, ties to the lower (``lax.top_k(-d)``); ``'approx'`` is the same
-    (``approx_min_k`` is exact off the TPU)."""
+    """The R nearest tiles, ties to the lower; ``'approx'`` the same (``approx_min_k`` is exact off the TPU)."""
     if select not in ("exact", "approx"):
         raise ValueError(f"unknown select {select!r}")
     return torch.sort(d, dim=1, stable=True).indices[:, :r]
@@ -170,13 +167,13 @@ def _select_tiles(d: torch.Tensor, r: int, select: str) -> torch.Tensor:
 
 def topk_candidates_l2_packed(queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int, tile_g: int = TILE_G,
     select: str = "exact") -> torch.Tensor:
-    """[B, R] int32 rows: the best row of each of the R nearest tiles (single-min packed scan); callers rescore."""
+    """The best row of each of the R nearest tiles; callers rescore."""
     dt, it = tile_min_l2_packed(queries, gallery_aug, d, tile_g)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
 def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """``|g|^2 - 2 q.g`` [B, R] of rows ``cand`` in fp32 from bf16 rows and the bf16-rounded query."""
+    """``|g|^2 - 2 q.g`` of rows ``cand`` in fp32 from bf16 operands."""
     rows = gallery[cand].to(torch.float32)  # [B, R, D]
     e16 = emb.to(torch.bfloat16).to(torch.float32)
     cross = torch.einsum("bd,brd->br", e16, rows)
@@ -185,7 +182,7 @@ def rescore_rows(gallery: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor) -
 
 
 def tilemin2_keys(q_aug: torch.Tensor, g_aug: torch.Tensor):
-    """Per (query, tile) min and second-min packed keys, ``[B, n_tiles]`` int32 each (``kernels/packed_scan.cu``)."""
+    """Per (query, tile) min and second-min packed keys, int32."""
     if _on_card(q_aug):
         return build.launch_tilemin2_packed(q_aug, g_aug)
     return plain.tilemin2_packed_plain(q_aug, g_aug)
@@ -199,7 +196,7 @@ def decode_tile_keys(k1: torch.Tensor, k2: torch.Tensor) -> Tuple[torch.Tensor, 
 def tile_min2_l2_packed(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(d1 raw squared L2 of each tile's best row, its row, d2 the second best), ~2^-13 relative toward zero."""
+    """(d1 of each tile's best row, its row, d2 the second best), ~2^-13 relative toward zero."""
     qa = _augment_queries(queries, d, gallery_aug.shape[1])
     k1, k2 = tilemin2_keys(qa, gallery_aug)
     return decode_tile_keys(k1, k2)
@@ -232,7 +229,7 @@ def topk_candidates_l2_packed_cert(
 def tilemin_scores(
     q: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, tile_g: int, bf16_scores: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min of ``|g|^2 - 2 q.g`` over bf16 operands and its lowest row (``kernels/tile_scan.cu``)."""
+    """Per (query, tile) min of ``|g|^2 - 2 q.g`` (bf16 operands) and its lowest row."""
     gsq = gsq.reshape(-1)
     q = _match_cols(q, g, 8)
     if _on_card(q):
@@ -242,8 +239,7 @@ def tilemin_scores(
 
 def tile_min_l2(queries: torch.Tensor, gallery: torch.Tensor, *, n_valid: Optional[int] = None, tile_g: int = TILE_G,
     gsq: Optional[torch.Tensor] = None, precise_scores: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile L2 min: (dist / D [B, n_tiles], row), bf16 operands; ``precise_scores=False`` rounds the scores to
-    bf16. ``gsq``: :func:`gallery_sq_norms`."""
+    """Per-tile L2 min (dist / D, row); ``precise_scores=False`` rounds the scores to bf16."""
     d = queries.shape[1]
     n = gallery.shape[0] if n_valid is None else int(n_valid)
     gallery = pad_gallery(gallery, _check_tile_g(tile_g))
@@ -260,15 +256,14 @@ def tile_min_l2(queries: torch.Tensor, gallery: torch.Tensor, *, n_valid: Option
 def topk_candidates_l2(queries: torch.Tensor, gallery: torch.Tensor, r: int, *, n_valid: Optional[int] = None,
     tile_g: int = TILE_G, gsq: Optional[torch.Tensor] = None, precise_scores: bool = True, select: str = "exact"
 ) -> torch.Tensor:
-    """[B, R] rows: the best of each of the R nearest tiles by :func:`tile_min_l2`; callers rescore."""
+    """The best rows of the R nearest tiles by :func:`tile_min_l2`; callers rescore."""
     dt, it = tile_min_l2(queries, gallery, n_valid=n_valid, tile_g=tile_g, gsq=gsq, precise_scores=precise_scores)
     return it.gather(1, _select_tiles(dt, min(r, dt.shape[1]), select))
 
 
 def tilemin_quant_scores(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq: torch.Tensor, gsc: torch.Tensor,
     tile_g: int, compute: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min of ``gsq - (2 s_q)(q.g s_g)`` over int8 operands and
-    its lowest row (``kernels/tile_scan.cu``)."""
+    """Per (query, tile) min of ``gsq - (2 s_q)(q.g s_g)`` (int8 operands) and its lowest row."""
     gsq, gsc = gsq.reshape(-1), gsc.reshape(-1)
     q = _match_cols(q, g, 16)
     if _on_card(q):
@@ -278,8 +273,7 @@ def tilemin_quant_scores(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq
 
 def tile_min_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor, *,
     tile_g: int = TILE_G, compute: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile approximate L2 min over an int8 gallery: (dist / D, row). ``gsq_rows``: norms before quantization,
-    ``gsc_rows``: :func:`quant_gallery_scales`; ``compute`` 'int8' or 'bf16'."""
+    """Per-tile approximate L2 min over an int8 gallery (dist / D, row); ``gsq_rows``: norms before quantization."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     d = queries.shape[1]
@@ -301,8 +295,7 @@ def topk_candidates_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq
 def topk_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor,
     rescore_gallery: torch.Tensor, k: int = 1, *, r: int = 16, tile_g: int = TILE_G, compute: str = "int8"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of the best rows of the ``r`` nearest int8 tiles, rescored in fp32
-    from ``rescore_gallery``: (distances / D, rows), k' = min(k, r, n_tiles)."""
+    """Top-k of the best rows of the ``r`` nearest int8 tiles, rescored in fp32: (distances / D, rows)."""
     cand = topk_candidates_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, r, tile_g=tile_g, compute=compute)
     rows = rescore_gallery[cand.long()].to(torch.float32)  # [B, R, D]
     qf = queries.to(rescore_gallery.dtype).to(torch.float32)

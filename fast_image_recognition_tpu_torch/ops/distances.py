@@ -76,8 +76,7 @@ def _l2_block(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def pairwise_distances(queries: torch.Tensor, gallery: torch.Tensor, start: int = 0, end: int | None = None,
     kind: DistanceKind = DistanceKind.L2, precise: bool = True) -> torch.Tensor:
-    """[B, N] fp32 window distances: L2 by the expansion (``precise``: fp32
-    operands, else bf16 summed in fp32); chi2/KL over gallery tiles."""
+    """fp32 window distances: L2 by the expansion (``precise``: fp32 operands, else bf16); chi2/KL over tiles."""
     if end is None:
         end = queries.shape[-1]
     q = queries[:, start:end].to(torch.float32)
@@ -119,8 +118,7 @@ def _elementwise_blocked(q: torch.Tensor, g: torch.Tensor, kind: DistanceKind) -
 
 def streamed_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int = 1, start: int = 0, end: int | None = None,
     kind: DistanceKind = DistanceKind.CHI2, tile_n: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k least window distances over tiles, [B, k] carried (stable: the lower
-    row wins ties): (distances fp32, rows int32; empty (3.4e38 / width, -1))."""
+    """Top-k least window distances over tiles, the lower row winning ties; empty (3.4e38 / width, -1)."""
     if end is None:
         end = queries.shape[-1]
     width = end - start

@@ -89,9 +89,8 @@ def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
 
 
 def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Folded params -> the layout the kernel and its plain version read: ``w_exp_t`` [Ce, Cin], ``w_proj_t`` [Cout,
-    Ce] in ``dtype``, ``dw_aux`` [ceil(Ce / 64), k*k + 2, 64] fp32 (a slab's taps, b_dw, b_exp), ``b_proj`` and SE in
-    fp32."""
+    """Folded params -> the layout the kernel and its plain version read (``dw_aux``: a 64-channel slab's taps,
+    b_dw, b_exp)."""
     k = cfg["kernel"]
     f32 = torch.float32
     ce = p["w_dw"].shape[-1]
@@ -114,8 +113,7 @@ def prepare_params(p: Dict[str, Any], cfg: Dict[str, Any], dtype: torch.dtype = 
 
 
 def mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], cfg: Dict[str, Any]) -> torch.Tensor:
-    """One stride-1 block on ``x`` [B, Cin, H, W] with :func:`prepare_params`' ``q`` -> [B, Cout, H, W] channels_last
-    in ``x.dtype``; a CUDA ``x`` (bf16, channels_last) launches the kernel or raises."""
+    """One stride-1 block on ``x``; a CUDA ``x`` (bf16, channels_last) launches the kernel or raises."""
     if cfg["stride"] != 1:
         raise NotImplementedError("fused_mbconv covers stride-1 blocks only")
     if x.dim() != 4:

@@ -11,8 +11,7 @@ from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
 
 
 class Mesh:
-    """A numpy object array of ``torch.device``s and one name per axis;
-    ``shape`` maps each name to its size, as ``jax.sharding.Mesh`` does."""
+    """A numpy object array of ``torch.device``s and one name per axis."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
         devices = np.asarray(devices, dtype=object)
@@ -26,8 +25,7 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     def shard_devices(self, axes: Tuple[str, ...]) -> list:
-        """The shards' devices over ``axes``, first axis major; the other
-        axes hold replicas (their first device is taken)."""
+        """The shards' devices over ``axes``, first axis major; other axes hold replicas."""
         order = [self.axis_names.index(a) for a in axes]
         rest = [i for i in range(self.devices.ndim) if i not in order]
         grid = np.transpose(self.devices, order + rest)

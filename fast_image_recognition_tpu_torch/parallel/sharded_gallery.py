@@ -132,8 +132,7 @@ def sharded_topk_pca_packed(
 
 def shard_gallery(gallery, mesh: Mesh, tile_g: int = 512, dtype: torch.dtype = torch.bfloat16,
     axes: Tuple[str, ...] = ("gallery",)) -> Tuple[List[torch.Tensor], np.ndarray]:
-    """Rows -> (one zero-padded shard per device, ``ceil(N / S)`` rows
-    rounded up to ``tile_g``; per-shard valid counts)."""
+    """Rows -> (zero-padded shards of ``ceil(N / S)`` rows rounded up to ``tile_g``, valid counts)."""
     devs = mesh.shard_devices(axes)
     n_shards = len(devs)
     g = torch.as_tensor(np.asarray(gallery, np.float32)) if not isinstance(gallery, torch.Tensor) else gallery

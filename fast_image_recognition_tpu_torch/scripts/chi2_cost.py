@@ -1,15 +1,10 @@
 """chi2/KL streamed-scan cost beside the chi2 kernel and the L2 scan (JAX's
-``scripts/chi2_cost.py``: flags, kinds, fields): ``chi2``, ``l2``, ``kl`` by
-``streamed_topk``, ``chi2_pallas[_bf16]`` by ``chi2_nn``; host clock between
-syncs; top-1 vs fp64. Usage: python -m
-fast_image_recognition_tpu_torch.scripts.chi2_cost [--gallery 102400] [--batch
-1024] [--dim 1536] [--iters 5] [--warmup 1] [--kinds chi2,l2] [--out -]
-[--device cuda]"""
+``scripts/chi2_cost.py``, its flags and fields): host clock between syncs,
+top-1 vs fp64. ``python -m fast_image_recognition_tpu_torch.scripts.chi2_cost``."""
 
 import argparse
 import json
 import sys
-import time
 from typing import Dict, List, Optional, Sequence
 
 KINDS = ("chi2", "l2", "kl", "chi2_pallas", "chi2_pallas_bf16")
@@ -29,21 +24,11 @@ def make_data(n: int, b: int, d: int, device, seed: int = 0):
     return g, q
 
 
-def _sync(device) -> None:
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     p = argparse.ArgumentParser()
-    p.add_argument("--gallery", type=int, default=102_400)
-    p.add_argument("--batch", type=int, default=1024)
-    p.add_argument("--dim", type=int, default=1536)
-    p.add_argument("--iters", type=int, default=5)
-    p.add_argument("--warmup", type=int, default=1)
-    p.add_argument("--kinds", default="chi2,l2")
+    for name, default in (("gallery", 102_400), ("batch", 1024), ("dim", 1536), ("iters", 5), ("warmup", 1),
+                          ("kinds", "chi2,l2")):
+        p.add_argument("--" + name, type=type(default), default=default)
     p.add_argument("--out", default="-", help="'-' = stdout, else append path")
     p.add_argument("--device", default=None, help="default: the card")
     args = p.parse_args(argv)
@@ -55,6 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     from fast_image_recognition_tpu_torch.device import resolve_device
     from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
     from fast_image_recognition_tpu_torch.ops.distances import oracle_pairwise, streamed_topk
+    from fast_image_recognition_tpu_torch.utils.profiling import host_sync, timed
 
     kinds = args.kinds.split(",")
     unknown = [k for k in kinds if k not in KINDS]
@@ -84,13 +70,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
 
         with torch.no_grad():
             for _ in range(args.warmup):
-                fn(queries, gal)
-            _sync(dev)
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                fn(queries, gal)
-            _sync(dev)
-            sec = (time.perf_counter() - t0) / args.iters
+                host_sync(fn(queries, gal))
+            sec = timed(lambda: fn(queries, gal), args.iters)[1] / 1e3
             # top-1 on 8 probes vs the float64 oracle over a 4096-row
             # slice (the oracle materializes the [B, N, D] broadcast)
             nprobe = 8
@@ -108,8 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
 
     if args.out != "-":
         with open(args.out, "a") as f:
-            for line in lines:
-                f.write(json.dumps(line) + "\n")
+            f.writelines(json.dumps(line) + "\n" for line in lines)
     return lines
 
 

@@ -1,7 +1,6 @@
-"""Feature files from image folders (JAX ``cli/extract_features.py``):
-``python -m fast_image_recognition_tpu_torch.scripts.extract_features
-dataset_root output [--variant b0] [--batch-size 64] [--checkpoint PATH]
-[--data-parallel N] [--device cpu]``; ``main(argv)`` returns the count."""
+"""Feature files from image folders (JAX ``cli/extract_features.py``): ``python
+-m fast_image_recognition_tpu_torch.scripts.extract_features dataset_root
+output [--device cpu]``; ``main(argv)`` returns the count."""
 
 import argparse
 from typing import Optional, Sequence
@@ -11,10 +10,9 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("dataset_root", help="directory of <class>/<image> dirs")
     parser.add_argument("output", help="output feature file path")
-    parser.add_argument("--variant", default="b0")
-    parser.add_argument("--batch-size", type=int, default=64)
+    for name, default in (("variant", "b0"), ("batch-size", 64), ("data-parallel", 0)):  # data-parallel: devices
+        parser.add_argument("--" + name, type=type(default), default=default)
     parser.add_argument("--checkpoint", default=None, help="flax msgpack checkpoint")
-    parser.add_argument("--data-parallel", type=int, default=0, help="devices on the mesh's data axis (0 = off)")
     parser.add_argument("--device", default=device, help="default the card; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
 

@@ -1,7 +1,5 @@
-"""Train the serving backbone (JAX ``cli/train_serving_backbone.py``): a
-multi-exit zoo member on card-rendered synthetic classes from its seeded init,
-phase 1 skipped, the serving fold's preprocess applied on the card.
-``main(argv)`` returns the JSON line's dict."""
+"""Train the serving backbone (JAX ``cli/train_serving_backbone.py``) on
+card-rendered synthetic classes; ``main(argv)`` returns the JSON line's dict."""
 
 import argparse
 import json
@@ -11,18 +9,11 @@ from typing import Optional, Sequence
 
 def main(argv: Optional[Sequence[str]] = None, device=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--variant", default="b0")
-    p.add_argument("--resolution", type=int, default=224)
-    p.add_argument("--classes", type=int, default=128)
-    p.add_argument("--per-class", type=int, default=60)
-    p.add_argument("--train-per-class", type=int, default=48)
-    p.add_argument("--batch-size", type=int, default=128)
-    p.add_argument("--epochs", type=int, default=30)
-    p.add_argument("--lr", type=float, default=2e-3)
-    p.add_argument("--patience", type=int, default=6)
-    p.add_argument("--taps", default="early")
+    for name, default in (("variant", "b0"), ("resolution", 224), ("classes", 128), ("per-class", 60),
+                          ("train-per-class", 48), ("batch-size", 128), ("epochs", 30), ("lr", 2e-3), ("patience", 6),
+                          ("taps", "early"), ("seed", 0)):
+        p.add_argument("--" + name, type=type(default), default=default)
     p.add_argument("--head", default="linear", choices=["linear", "cosine"])
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="benchmarks/trained_{variant}_{res}_synthetic{classes}_s{seed}.npz")
     p.add_argument("--device", default=device, help="default the card; 'cpu' runs the plain path")
     args = p.parse_args(argv)

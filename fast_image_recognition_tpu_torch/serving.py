@@ -1,6 +1,4 @@
-"""Recognition serving on the card (JAX ``serving.py``): ``RecognitionService``
-(folded backbone on raw uint8, 1-NN by ``match`` 'pca' (``pca_scan`` 'f32',
-'bf16', 'int8' or certified 'packed'), 'exact', 'int8' or 'sharded'),
+"""Recognition serving on the card (JAX ``serving.py``): ``RecognitionService``,
 ``CascadeRecognitionService`` (the early-exit twin), ``make_tap_embed_fn`` and
 ``build_service``. No host sync a batch."""
 
@@ -35,7 +33,7 @@ def _mbconv_only(info: Dict[str, Any]) -> None:
 
 def _tap_net(variables, info: Dict[str, Any], resolution: int, device: torch.device) -> FoldedEfficientNet:
     """The folded forward the cascade taps: JAX's folds the torch-mode mean and runs swish at stem and head whatever
-    the family (its serving.py:463-473, :905-910)."""
+    the family."""
     return make_infer_fn(variables, info["variant"], resolution=resolution, activation="swish", device=device)
 
 
@@ -45,7 +43,7 @@ def _normalize(emb: torch.Tensor) -> torch.Tensor:
 
 
 def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tuple[torch.Tensor, int]:
-    """Host rows -> padded bf16 rows on ``device`` (a bf16 tensor is taken as padded): (gallery, n_valid)."""
+    """(padded bf16 rows on ``device``, n_valid); a bf16 tensor is taken as padded."""
     if isinstance(gallery, torch.Tensor) and gallery.dtype == torch.bfloat16:
         return gallery.to(device), int(n_valid if n_valid is not None else gallery.shape[0])
     g = torch.as_tensor(np.asarray(gallery, np.float32))
@@ -54,8 +52,7 @@ def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tu
 
 
 def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int):
-    """PCA fit on a host sample of the gallery, every row projected in bf16:
-    (pca_dim, mean [D], components [D, P], projected rows [Np, P] bf16)."""
+    """PCA fit on a host sample, every row projected in bf16: (pca_dim, mean, components [D, P], rows [Np, P])."""
     m = min(n_valid, pca_sample)
     sample = gallery[:m].to(torch.float32).cpu().numpy()
     pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
@@ -70,8 +67,8 @@ def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: 
 
 
 class RecognitionService:
-    """Folded-backbone extract + device-resident 1-NN (JAX serving.py:50). ``gallery``: host rows or a padded bf16
-    tensor (``n_valid`` rows); JAX's defaults; ``last_escalated``: the probes a certified call escalated."""
+    """Folded-backbone extract + device-resident 1-NN, JAX's defaults; ``last_escalated``: the probes a certified
+    call escalated."""
 
     def __init__(self, variables: Optional[Dict[str, Any]], info: Dict[str, Any], gallery, *,
         labels: Optional[np.ndarray] = None, resolution: Optional[int] = None, match: str = "pca", pca_dim: int = 128,
@@ -129,8 +126,7 @@ class RecognitionService:
             self._gal_sc = quant_gallery_scales(scales, self.n_valid)
 
     def _build_sharded(self, gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample):
-        """``match='sharded'`` (JAX serving.py:104-131): the first ``n_valid`` rows over ``mesh``'s gallery axis in
-        bf16; ``'packed'``: per-shard PCA projections at tile_g 512."""
+        """The first ``n_valid`` rows over ``mesh``'s gallery axis; ``'packed'``: per-shard PCA at tile_g 512."""
         from fast_image_recognition_tpu_torch.parallel.mesh import gallery_mesh
         from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (shard_gallery, shard_gallery_pca_aug)
 
@@ -165,7 +161,7 @@ class RecognitionService:
         return idx[:, 0].to(self.device)
 
     def _certified(self, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The packed PCA path before escalation: (cand [B, R] rows, the rescored best [B], escalate mask [B])."""
+        """Before escalation: (candidate rows [B, R], the rescored best [B], escalate mask [B])."""
         qp = (emb - self._mu) @ self._w
         cand, bound = topk_candidates_l2_packed_cert(qp, self.gal_aug, self.pca_dim, self.rescore)
         cand = cand.to(torch.int64)
@@ -195,7 +191,7 @@ class RecognitionService:
         return cand.to(torch.int64)
 
     def _match_emb(self, emb: torch.Tensor) -> torch.Tensor:
-        """[B, D] fp32 normalized embeddings -> [B] int32 gallery rows on the device, with no host sync."""
+        """Normalized embeddings -> [B] int32 rows on the device, no host sync."""
         if self.match == "exact":
             _, idx = topk_l2(emb, self.gallery, k=1, n_valid=self.n_valid)
             return idx[:, 0]
@@ -215,8 +211,8 @@ class RecognitionService:
         return self._escalate(emb, idx, esc)
 
     def _escalate(self, emb: torch.Tensor, idx_fast: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
-        """[B] int32 rows: the exact scan's where ``esc`` (escalated probes first: only their query blocks scan), else
-        the certified pick; one ``topk_l2``, no host sync."""
+        """The exact scan's rows where ``esc`` (escalated probes first: only their query blocks scan), else the
+        certified pick; one ``topk_l2``."""
         e = esc.to(torch.int32)
         # destination of each probe: escalated ones first, each group in order
         pos = torch.where(esc, e.cumsum(0) - 1, e.sum() + (1 - e).cumsum(0) - 1)
@@ -246,8 +242,7 @@ class RecognitionService:
         return idx, (None if self.labels is None else self.labels[idx])
 
     def match_flops(self, batch: int) -> float:
-        """Match FLOPs a batch, the backbone's apart: the full-D scan (``exact``, ``int8``); projection, PCA scan and
-        rescore (``pca``; on every shard when sharded)."""
+        """Match FLOPs a batch, the backbone's apart."""
         if self.match == "sharded" and self.sharded_scan == "packed":
             s = self.mesh.shape["gallery"]
             return (
@@ -268,8 +263,7 @@ class RecognitionService:
 
 
 def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
-    """NCHW ``[B, C, H, W]`` -> ``[B, g*g*C]`` fp32 adaptive mean pool in JAX's
-    NHWC order ``(gh, gw, C)``, H and W cropped to a multiple of g."""
+    """NCHW -> ``[B, g*g*C]`` fp32 adaptive mean pool in JAX's NHWC order, H and W cropped to a multiple of g."""
     b, c, hh, ww = h.shape
     gh, gw = min(g, hh), min(g, ww)
     h = h[:, :, : (hh // gh) * gh, : (ww // gw) * gw].to(torch.float32)
@@ -278,7 +272,7 @@ def _grid_pool(h: torch.Tensor, g: int) -> torch.Tensor:
 
 
 def _tap_forward(net: FoldedEfficientNet, images: torch.Tensor, taps: Sequence[str], grid: int):
-    """Whole forward: (grid-pooled feats of the tapped blocks in network order, normalized final embedding)."""
+    """(grid-pooled feats of the tapped blocks, normalized final embedding)."""
     tapset = set(taps)
     h = net.stem(images)
     feats = []
@@ -292,8 +286,7 @@ def _tap_forward(net: FoldedEfficientNet, images: torch.Tensor, taps: Sequence[s
 def make_tap_embed_fn(variables: Optional[Dict[str, Any]], info: Dict[str, Any], resolution: Optional[int] = None,
     taps: Sequence[str] = (), grid: int = 1, *, serving_fn: Optional[FoldedEfficientNet] = None,
     device: DeviceLike = None) -> Callable:
-    """``fn(images) -> (tap feats [B, g*g*C_l] fp32, [B, D] normalized
-    embedding)`` over the folded forward: the per-level gallery extractor."""
+    """The per-level gallery extractor ``fn(images) -> (tap feats, normalized embedding)``."""
     _mbconv_only(info)
     dev = resolve_device(device)
     net = serving_fn if serving_fn is not None else _tap_net(variables, info, resolution, dev)
@@ -316,9 +309,9 @@ def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> L
 
 
 class CascadeRecognitionService:
-    """Early-exit serving (JAX serving.py:483): segments ending at ``taps``, after each the live probes matched
-    (single-min scan + rescore), exiting when ``d1 < ratio^2 * d2`` (``d2_rule``); survivors, least confident first,
-    fill static capacities, the overflow forced out; ``galleries=None``: ridge readouts. No host sync."""
+    """Early-exit serving: after each segment the live probes matched, exiting when ``d1 < ratio^2 * d2``;
+    survivors, least confident first, fill static capacities, the overflow forced out; ``galleries=None``: ridge
+    readouts."""
 
     def __init__(self, variables: Optional[Dict[str, Any]], info: Dict[str, Any], gallery, *,
         labels: Optional[np.ndarray] = None, resolution: Optional[int] = None, taps: Optional[Sequence[str]] = None,
@@ -402,8 +395,7 @@ class CascadeRecognitionService:
     # ------------------------------------------------------------------ #
 
     def _fit_readouts(self, calib_images, calib_total, calib_batch, ridge, seed) -> None:
-        """Ridge-fit per-tap readouts to the final embedding on calibration images (given, or uint8 noise from
-        ``np.random.default_rng(seed)`` in JAX's order)."""
+        """Ridge-fit per-tap readouts to the final embedding (calibration noise in JAX's order)."""
         rng = np.random.default_rng(seed)
         res = self.resolution
         if calib_images is not None:
@@ -430,8 +422,7 @@ class CascadeRecognitionService:
         self._readouts = [torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in readouts]
 
     def _match_top2(self, emb, gal_aug, gallery, project: bool = True, dim: Optional[int] = None):
-        """[b, D] queries -> (best row, d1, d2): single-min packed scan + fp32
-        rescore, in the final PCA space (``project``) or a tap gallery's."""
+        """Queries -> (best row, d1, d2): single-min scan + fp32 rescore."""
         qp = (emb - self._mu) @ self._w if project else emb
         cand = topk_candidates_l2_packed(
             qp, gal_aug, dim if dim is not None else self.pca_dim, self.rescore, self._tile_g
@@ -460,16 +451,14 @@ class CascadeRecognitionService:
         return self._match_top2(emb, self._gal_aug, self.gallery)
 
     def _level_embedding(self, level: int, h: torch.Tensor) -> torch.Tensor:
-        """Normalized embedding of a tap's activation: GAP (level mode) or
-        the readout's prediction of the final embedding."""
+        """A tap's normalized GAP (level mode) or readout prediction."""
         if self.mode == "level":
             return _normalize(_grid_pool(h, 1))
         a = self._readouts[level]
         return _normalize(_grid_pool(h, self.grid) @ a[:-1] + a[-1])
 
     def _run(self, images: torch.Tensor, caps: Tuple[int, ...], trace: Optional[list] = None):
-        """One batch -> ``[2B+1]`` int32 ``[preds | exit_level | forced]``; ``trace``: a list each level appends
-        ``gidx``, ``live``, ``d1``, ``margin`` to."""
+        """``[preds | exit_level | forced]``; ``trace`` gets each level's ``gidx``, ``live``, ``d1``, ``margin``."""
         net = self.net
         b = int(images.shape[0])
         dev = images.device
@@ -510,8 +499,7 @@ class CascadeRecognitionService:
 
     @torch.no_grad()
     def calibrate(self, images, slack: float = 1.3, multiple: int = 64) -> List[float]:
-        """Survivor fractions per level on a batch; capacities ``roundup(B * frac
-        * slack, multiple)``, at most B."""
+        """Survivor fractions a level; capacities ``roundup(B * frac * slack)``, at most B."""
         x = torch.as_tensor(images, device=self.device)
         feats, _ = _tap_forward(self.net, x, self.taps, self.grid)
         b = int(x.shape[0])
@@ -544,13 +532,13 @@ class CascadeRecognitionService:
 
     @torch.no_grad()
     def identify_device(self, images, capacities: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """uint8 NHWC images -> ``[2B+1]`` int32 ``[preds | exit_level | forced]`` on the device."""
+        """``[preds | exit_level | forced]`` int32 on the device."""
         x = torch.as_tensor(images, device=self.device)
         caps = tuple(capacities) if capacities else self.capacities_for(int(x.shape[0]))
         return self._run(x, caps)
 
     def identify(self, images, capacities: Optional[Sequence[int]] = None):
-        """Images -> (rows [B] int64, labels or None, ``break_counts`` and ``forced_fraction``)."""
+        """(rows, labels or None, ``break_counts``, ``forced_fraction``)."""
         packed = self.identify_device(images, capacities).cpu().numpy()
         b = (packed.shape[0] - 1) // 2
         idx = packed[:b].astype(np.int64)

@@ -1,0 +1,14 @@
+"""Matmul and conv FLOPs of one call (JAX ``utils/flops.py``) by
+``FlopCounterMode``; elementwise ops are left out. A kernel launched through
+ctypes is opaque, as a Pallas call is to JAX's count: count its per-op twin."""
+
+import torch
+
+
+def fn_flops(fn, *args, **kwargs) -> float:
+    """The FLOPs of ``fn(*args, **kwargs)``, run once under ``torch.no_grad()``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as mode:
+        fn(*args, **kwargs)
+    return float(mode.get_total_flops())

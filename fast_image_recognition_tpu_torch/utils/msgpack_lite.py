@@ -1,7 +1,6 @@
-"""A small msgpack codec for flax's ``msgpack_serialize``: maps, arrays, str, bin,
-ints, floats, nil, bool, ext 1 (ndarray), 2 (complex), 3 (numpy scalar);
-chunked arrays joined. ``to_bytes`` writes flax's bytes (a list as "0", "1",
-...; tensors, bf16 too)."""
+"""A small msgpack codec for flax's ``msgpack_serialize`` (ext 1 ndarray, 2
+complex, 3 numpy scalar; chunked arrays joined); ``to_bytes`` writes flax's
+bytes."""
 
 import struct
 from typing import Any, Tuple

@@ -1,10 +1,8 @@
-"""The port's exact 1-NN matcher and evaluation harness against JAX's on
-tests/test_brute_force.py's seeded sets.
-
-Tolerances: rows equal but at fp64 ties within 2^-16 relative; distances rtol
-2e-4, atol 1e-7 (tests/test_distances.py), int8 rescored 2^-20 relative + 1e-8;
-the write -> load -> split -> match -> evaluate slice: texts, arrays, splits
-and every ``EvalResult`` field but ``ms_per_image`` equal."""
+"""The exact 1-NN matcher and evaluation harness against JAX's. Tolerances: rows
+equal but at fp64 ties within 2^-16 relative; distances rtol 2e-4, atol 1e-7
+(tests/test_distances.py), int8 rescored 2^-20 relative + 1e-8; the write ->
+load -> split -> match -> evaluate slice: texts, arrays, splits and every
+``EvalResult`` field but ``ms_per_image`` equal."""
 
 import dataclasses
 

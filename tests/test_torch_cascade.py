@@ -1,6 +1,4 @@
-"""The port's early-exit cascade (``CascadeRecognitionService``, its single-min
-packed scan) against JAX's on the same random-init B0, images and galleries.
-
+"""``CascadeRecognitionService`` and its single-min scan against JAX's.
 Tolerances: scan distances 2^-12 relative, rows equal but at ties within it;
 readouts: the ridge fit on JAX's features 1e-3 relative, on the port's own 5e-2
 (bf16 backbones); answers: rows, levels and forced exits equal but where

@@ -1,6 +1,4 @@
-"""The port's segment engine (``SequentialInferencePipeline``) against JAX's on
-the same random-init B0 and 32-px images (tests/test_cascade.py:120-325).
-
+"""``SequentialInferencePipeline`` against JAX's, random-init B0 at 32 px.
 Tolerances: within each package ``predict_fused`` and ``predict_pooled`` give
 ``predict``'s decisions exactly, the kNN head ``sequential_knn_cascade``'s;
 across them (bf16 backbones) >= 90 % of predictions and >= 80 % of levels,
@@ -85,13 +83,13 @@ def jax_predict(b0):
     thresholds = pipe.calibrate(images)
     coefs, intercepts = _heads()
     jpipe = JaxPipeline(model, variables, TAPS, coefs, intercepts, thresholds=thresholds, buckets=(32,))
-    return thresholds, images, jpipe.predict(images)
+    return thresholds, images, jpipe.predict(images), jpipe
 
 
 @pytest.mark.parametrize("engine", ["bind", "folded"])
 def test_predict_matches_jax(b0, jax_predict, engine):
     """JAX's bind engine is the reference for both port engines."""
-    thresholds, images, want = jax_predict
+    thresholds, images, want, _ = jax_predict
     pipe, _ = _make_pipe(b0, n=32, thresholds=thresholds, engine=engine)
     got = pipe.predict(images)
     assert (got.predictions == want.predictions).mean() >= 0.9
@@ -138,6 +136,20 @@ def test_pooled_cascade_matches_host_compaction(b0):
         np.testing.assert_array_equal(got.predictions, want.predictions)
         np.testing.assert_array_equal(got.exit_level, want.exit_level)
         np.testing.assert_allclose(got.break_counts, want.break_counts)
+
+
+def test_pooled_streams_match_one_stream_and_jax(b0, jax_predict):
+    """``streams`` 2 and 3 (sub-pools of 10, 11 and 11) decide as one stream; JAX's two streams as the port's."""
+    thresholds, images, _, jpipe = jax_predict
+    pipe, _ = _make_pipe(b0, n=32, thresholds=thresholds)
+    one = pipe.predict_pooled(images, bucket=8)
+    for streams in (2, 3):
+        got = pipe.predict_pooled(images, bucket=8, streams=streams)
+        np.testing.assert_array_equal(got.predictions, one.predictions)
+        np.testing.assert_array_equal(got.exit_level, one.exit_level)
+    want = jpipe.predict_pooled(images, bucket=8, streams=2)
+    assert (one.predictions == want.predictions).mean() >= 0.9
+    assert (one.exit_level == want.exit_level).mean() >= 0.8
 
 
 def test_level_scores_are_the_exit_heads_scores(b0):

@@ -1,7 +1,6 @@
-"""The port's flax-free checkpoint codec and utilities against flax's and the JAX package's.
-
-Tolerance: none. Every leaf must come back bit-identical (same dtype, same shape, same bytes); bfloat16 leaves, which
-numpy has no dtype for, come back widened exactly to float32. The port's writer gives flax's bytes."""
+"""The flax-free checkpoint codec against flax's and JAX's: every leaf
+bit-identical (bfloat16 widened exactly to float32); the writer gives flax's
+bytes."""
 
 import os
 

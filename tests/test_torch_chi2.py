@@ -1,12 +1,10 @@
-"""The port's chi2 1-NN (on the CPU ``plain.chi2_nn_plain``, exact division)
-against JAX's ``chi2_nn`` (interpret mode), and ``chi2_cost`` tiny.
-
-Tolerances: rows equal the fp64 argmin (bf16 gallery >= 90 %, JAX's bound),
-distances rtol 2e-5, atol 1e-7; against JAX, indices equal but where the
-oracle's two least lie within 2^-7 relative (JAX's approximate reciprocal is up
-to 2^-8 off a term here), refined distances rtol 2e-5, atol 1e-7
-(tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The launcher refuses CPU
-tensors."""
+"""chi2 1-NN (``plain.chi2_nn_plain``, exact division) against JAX's interpret
+mode; ``chi2_cost`` tiny. Tolerances: rows equal the fp64 argmin (bf16 gallery
+>= 90 %, JAX's bound), distances rtol 2e-5, atol 1e-7; against JAX, indices
+equal but where the oracle's two least lie within 2^-7 relative (JAX's
+approximate reciprocal is up to 2^-8 off a term here), refined distances rtol
+2e-5, atol 1e-7 (tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The
+launcher refuses CPU tensors."""
 
 import jax.numpy as jnp
 import numpy as np

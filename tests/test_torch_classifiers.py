@@ -1,6 +1,6 @@
-"""The port's classifiers and ``fasterlog2`` against the JAX package's (10 classes x 12 + 4 rows at D = 48, noise 1.0,
-so some probes err). Tolerances: ``fasterlog2`` bit-equal; predictions equal (no near-ties here); FPNN coefficients
-within 1e-6 absolute; k-medoids equal."""
+"""The classifiers and ``fasterlog2`` against JAX's (noisy data: some probes err).
+Tolerances: ``fasterlog2`` bit-equal; predictions equal (no near-ties here);
+FPNN coefficients within 1e-6 absolute; k-medoids equal."""
 
 import jax.numpy as jnp
 import numpy as np

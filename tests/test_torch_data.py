@@ -1,6 +1,5 @@
-"""The port's copies of JAX's NumPy data modules (``feature_io``, ``splits``,
-``synthetic``) against the originals: arrays, labels, names and indices
-bit-equal (JAX's loader on its NumPy engine)."""
+"""The port's copies of JAX's NumPy data modules: arrays, labels, names and
+indices bit-equal to the originals'."""
 
 import numpy as np
 import pytest

@@ -1,11 +1,8 @@
-"""The port's DEM (``search/dem.py``) against JAX's on tests/test_dem.py's gallery
-(N = 384, D = 96).
-
-Tolerances: host build pivots equal, P and other-class minima rtol 1e-5; device
-build pivots equal, P within rtol 2e-4 + atol 1e-5 of the host's; searches:
-rows vs the oracle >= 92 %, checked within 2 on >= 90 % (JAX's bounds), rows vs
-JAX >= 92 %, labels >= 97 %, the oracle's answer where the budget leaves no
-candidate; full matrix >= 90 % / 85 %."""
+"""DEM against JAX's (N = 384, D = 96). Tolerances: host build pivots equal, P and
+other-class minima rtol 1e-5; device build pivots equal, P within rtol 2e-4 +
+atol 1e-5 of the host's; searches: rows vs the oracle >= 92 %, checked within 2
+on >= 90 % (JAX's bounds), rows vs JAX >= 92 %, labels >= 97 %, the oracle's
+answer where the budget leaves no candidate; full matrix >= 90 % / 85 %."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,4 @@
-"""The port's gallery layouts and top-k rules (plain versions) against JAX's
-interpret-mode kernels (the scans' JAX comparisons: test_torch_scan_edges.py).
+"""Gallery layouts and top-k rules against JAX's interpret-mode kernels.
 Tolerances: packed layouts equal, |g|^2 to 2^-16; ties to the lowest row;
 near-collinear distances within 2^-20 of fp64."""
 

@@ -1,10 +1,8 @@
-"""The port's window distances (``ops/distances.py``) against JAX's on
-tests/test_distances.py's sets.
-
-Tolerances: the NumPy oracles bit-equal; ``pairwise_distances`` rtol 2e-4, atol
-1e-7, L2 ``precise=False`` rtol 0.05, atol 1e-4; ``streamed_topk`` rtol 2e-4,
-atol 1e-7, rows equal but at fp64 ties within 2^-16; ``window_distance_update``
-rtol 1e-5, atol 1e-8 (that file's bounds)."""
+"""``ops/distances.py`` against JAX's. Tolerances: the NumPy oracles bit-equal;
+``pairwise_distances`` rtol 2e-4, atol 1e-7, L2 ``precise=False`` rtol 0.05,
+atol 1e-4; ``streamed_topk`` rtol 2e-4, atol 1e-7, rows equal but at fp64 ties
+within 2^-16; ``window_distance_update`` rtol 1e-5, atol 1e-8 (that file's
+bounds)."""
 
 import jax.numpy as jnp
 import numpy as np

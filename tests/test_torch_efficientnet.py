@@ -1,9 +1,6 @@
-"""The port's folded EfficientNet forward against JAX's ``folded_forward`` on the
-same uint8 images and weights: the folded preprocess, a space-to-depth stem,
-explicit resize + normalize.
-
-Tolerances: fp32 rtol 1e-4 of max |reference| (covers the resize's weights);
-bf16 cosine >= 0.999; the s2d stem 2e-5 (JAX's)."""
+"""The folded EfficientNet forward (preprocess fold, s2d stem, explicit resize)
+against JAX's. Tolerances: fp32 rtol 1e-4 of max |reference| (covers the
+resize's weights); bf16 cosine >= 0.999; the s2d stem 2e-5 (JAX's)."""
 
 import os
 

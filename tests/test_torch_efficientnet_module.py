@@ -1,9 +1,7 @@
-"""The port's trainable EfficientNet against JAX's flax module, B0 at 32 px.
-
-Tolerances: weights carried both ways bit-equal, the own init with flax's keys
-and shapes; fp32 taps and embedding 1e-4 of max |JAX|; bf16 2^-5 of the largest
-magnitude and cosine >= 0.999 an image (flax rounds the conv output, torch
-once)."""
+"""The trainable EfficientNet against JAX's, B0 at 32 px. Tolerances: weights
+carried both ways bit-equal, the own init with flax's keys and shapes; fp32
+taps and embedding 1e-4 of max |JAX|; bf16 2^-5 of the largest magnitude and
+cosine >= 0.999 an image (flax rounds the conv output, torch once)."""
 
 import jax
 import jax.numpy as jnp

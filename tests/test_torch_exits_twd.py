@@ -1,9 +1,7 @@
-"""The port's exit policies (``cascade/exits.py``) and TWD classifiers against
-JAX's on the same seeded data (tests/test_cascade.py:1-119, tests/test_twd.py).
-
-Tolerances: kNN and linear exits and TWD give equal predictions, levels and
-unreliable counts; the NumPy helpers are equal; the squared-hinge descent from
-JAX's weights lands within 1e-5 of JAX's after 200 steps."""
+"""Exit policies and TWD classifiers against JAX's. Tolerances: kNN and linear
+exits and TWD give equal predictions, levels and unreliable counts; the NumPy
+helpers are equal; the squared-hinge descent from JAX's weights lands within
+1e-5 of JAX's after 200 steps."""
 
 import jax
 import numpy as np

@@ -1,16 +1,13 @@
-"""The port's feature extractor (``models/extractor.py``) against JAX's and
-PIL's, over a root of 3 classes written with PIL: RGB, RGBA, L and palette
-PNGs, 24- and 32-bit BMPs, one image at 40 px and a corrupt file.
-
-Tolerances: the port's PNG/BMP decode equal to PIL's ``convert("RGB")``;
-its resize within 1 level of PIL's default bicubic at the shapes below
-(each pass rounded to uint8 as PIL's; PIL's coefficients are fixed-point:
-over 60 random shapes, 8-400 px to 16-300, the worst case found is 2); the files written by both
-packages' ``extract_dataset_to_file`` from the same port-exported B0
-variables: names, labels and class lines equal, rows at cosine >= 0.999
-(the bf16 folded forward's bound in tests/test_torch_efficientnet.py); a
-``data`` mesh of two CPU entries equal to the unsharded rows.
-"""
+"""``models/extractor.py`` against JAX's and PIL's over PNG (RGB, RGBA, L,
+palette) and BMP (24, 32 bit) files and a corrupt one. Tolerances: the port's
+PNG/BMP decode equal to PIL's ``convert("RGB")``; its resize within 1 level of
+PIL's default bicubic at the shapes below (each pass rounded to uint8 as PIL's;
+PIL's coefficients are fixed-point: over 60 random shapes, 8-400 px to 16-300,
+the worst case found is 2); the files written by both packages'
+``extract_dataset_to_file`` from the same port-exported B0 variables: names,
+labels and class lines equal, rows at cosine >= 0.999 (the bf16 folded
+forward's bound in tests/test_torch_efficientnet.py); a ``data`` mesh of two
+CPU entries equal to the unsharded rows."""
 
 import sys
 

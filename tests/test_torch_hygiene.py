@@ -1,7 +1,5 @@
-"""Rules the port keeps: no JAX (or flax, msgpack, or the JAX package) in
-the port or its smoke script, the card by default with no silent CPU
-fallback, small source files only, and ctypes bindings that match the
-kernels' C launchers."""
+"""Rules the port keeps: no JAX in the port or its smoke script, the card by
+default, small source files, ctypes bindings that match the C launchers."""
 
 import ast
 import os
@@ -86,7 +84,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
     from fast_image_recognition_tpu_torch.models.extractor import FeatureExtractor
     from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig
-    from fast_image_recognition_tpu_torch.scripts import extract_features, train_serving_backbone
+    from fast_image_recognition_tpu_torch.ops.pca import fit_pca
+    from fast_image_recognition_tpu_torch.scripts import extract_features, run_trained_cascade, train_serving_backbone
 
     _, irv2 = create_backbone("inception_resnet_v2", device="cpu")
     mb = {n: create_backbone(n, resolution=32, device="cpu")[1] for n in ("mobilenetv2", "mobilenetv1")}
@@ -128,36 +127,27 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda **kw: train_serving_backbone.main(train_args, **kw),
         lambda **kw: extract_features.main([str(tmp_path / "ds"), str(tmp_path / "f.txt"), "--variant",
                                             "mobilenetv1"], **kw),
+        lambda **kw: run_trained_cascade.main(["--dataset", "synthetic", "--classes", "4", "--per-class", "6",
+            "--phase1-epochs", "0", "--phase2-epochs", "1", "--batch-size", "8", "--pool", "8", "--bucket", "8",
+            "--far-sweep", "0.1", "--fused-far", "0.1", "--iters", "1"], **kw),
+        lambda **kw: fit_pca(feats, 4).project_device(feats, **kw),
     ):
         with pytest.raises(RuntimeError):
             make()
         make(device="cpu")  # the CPU only when asked for
-    with pytest.raises(RuntimeError):
-        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
-    with pytest.raises(RuntimeError):
-        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)), match="sharded")
-    with pytest.raises(RuntimeError):  # the service on the CPU, its mesh left to the default
-        RecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)), match="sharded",
-                           serving_fn=torch.nn.Identity(), device="cpu")
-    with pytest.raises(RuntimeError):
-        CascadeRecognitionService(None, backbone_info("b0"), torch.zeros((4, 1280)))
-    with pytest.raises(RuntimeError):
-        build_cascade_service("b0", torch.zeros((4, 1280)), variables=None)
-    with pytest.raises(RuntimeError):
-        build_service("b0", torch.zeros((4, 1280)), variables=None)
-    with pytest.raises(RuntimeError):
-        make_tap_embed_fn(None, backbone_info("b0"))
-    with pytest.raises(RuntimeError):
-        device_dataset(2, 1, 8)
-    with pytest.raises(RuntimeError):
-        make_infer_fn(None, fused=True)
-    rows = torch.rand((8, 16)).numpy()
-    with pytest.raises(RuntimeError):
-        chi2_nn(rows, rows)
-    with pytest.raises(RuntimeError):
-        BruteForceMatcher(rows)
-    with pytest.raises(RuntimeError):
-        chi2_cost.main(["--gallery", "8", "--batch", "2", "--dim", "16", "--iters", "1"])
+    g, rows = torch.zeros((4, 1280)), torch.rand((8, 16)).numpy()
+    for make in (lambda: RecognitionService(None, backbone_info("b0"), g),
+                 lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded"),
+                 # the service on the CPU, its mesh left to the default
+                 lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded",
+                                            serving_fn=torch.nn.Identity(), device="cpu"),
+                 lambda: CascadeRecognitionService(None, backbone_info("b0"), g),
+                 lambda: build_cascade_service("b0", g, variables=None), lambda: build_service("b0", g, variables=None),
+                 lambda: make_tap_embed_fn(None, backbone_info("b0")), lambda: device_dataset(2, 1, 8),
+                 lambda: make_infer_fn(None, fused=True), lambda: chi2_nn(rows, rows), lambda: BruteForceMatcher(rows),
+                 lambda: chi2_cost.main(["--gallery", "8", "--batch", "2", "--dim", "16", "--iters", "1"])):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def test_port_files_are_small_source_text():

@@ -1,7 +1,5 @@
-"""The port's InceptionResNetV2 against JAX's at 75 px. fp32 segments and fold
-trees from the trained checkpoint; the serving cases from the port's seeded
-init with BN drawn off flax's defaults (the checkpoint's network dies in
-Block17 at 75 px).
+"""InceptionResNetV2 against JAX's at 75 px: the trained checkpoint, the serving
+cases from a seeded init (the checkpoint's network dies in Block17 at 75 px).
 
 Tolerances: fp32 segments 1e-4 of max |JAX|; folded bf16 embedding and taps
 0.02 (tests/test_fold_generic.py:102-115); fold trees 1e-6 relative; rows equal

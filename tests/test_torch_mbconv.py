@@ -1,8 +1,7 @@
-"""The port's fused stride-1 MBConv block (on the CPU ``plain.mbconv_plain``)
-against JAX's ``fused_mbconv`` (interpret mode), and the fused serving path, on
-random-init B0@64. JAX's tolerances (tests/test_mbconv_kernel.py): a block 0.03
-of its largest magnitude, the fused embedding 0.05; against the per-op block in
-fp32 1e-4; the service: same top-1."""
+"""The fused MBConv block (``plain.mbconv_plain``) and serving path against JAX's
+interpret mode, random-init B0@64. JAX's tolerances
+(tests/test_mbconv_kernel.py): a block 0.03 of its largest magnitude, the fused
+embedding 0.05; against the per-op block in fp32 1e-4; the service: same top-1."""
 
 import jax
 import jax.numpy as jnp

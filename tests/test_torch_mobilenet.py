@@ -1,11 +1,9 @@
-"""The port's MobileNetV2 (JAX's seed-0 init) and MobileNetV1 (the port's, BN
-drawn off flax's defaults) against JAX's at 64 px.
-
-Tolerances: fp32 forward and segments 1e-4 of max |JAX|; fp32 folded forward
-and preprocess fold 2e-4 (tests/test_mobilenet.py:80-121); bf16 serving,
-cascade taps and folded engine levels 0.02 (tests/test_fold_generic.py), the
-bind engine 1e-4; the fused path 0.05 of per-op; service rows and levels equal;
-engines >= 90 % of predictions, >= 80 % of levels."""
+"""MobileNetV2 and MobileNetV1 against JAX's at 64 px. Tolerances: fp32 forward
+and segments 1e-4 of max |JAX|; fp32 folded forward and preprocess fold 2e-4
+(tests/test_mobilenet.py:80-121); bf16 serving, cascade taps and folded engine
+levels 0.02 (tests/test_fold_generic.py), the bind engine 1e-4; the fused path
+0.05 of per-op; service rows and levels equal; engines >= 90 % of predictions,
+>= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
-"""The port's projection and kd-forest matchers against the JAX package's (100 classes x 10 rows, D = 64). Tolerances:
-rows and checked fractions equal, projection distances within 1e-6 absolute; the kd-forest (the same numpy code)
-bit-equal."""
+"""Projection and kd-forest matchers against JAX's. Tolerances: rows and checked
+fractions equal, projection distances within 1e-6 absolute; the kd-forest (the
+same numpy code) bit-equal."""
 
 import numpy as np
 import pytest

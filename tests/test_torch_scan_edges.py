@@ -1,14 +1,9 @@
-"""The Hopper scans (``topk_l2`` with window and mask, the packed scans, the int8
-scan) at the card kernels' tile edges, plain vs JAX's interpret mode
-(``chip_smoke.py`` holds the kernels to plain). Edges: B 1-192; n_valid 100-3000
-with query copies past it; D 8 and 40, int8 16 and 144; windows on and off the
-8-lane boundary; Da 48 and 128; tile_g 128-1024; whole-pad tiles.
-
-Tolerances (test_torch_distance.py): top-k rtol 1e-3, indices equal but at
-2^-12 ties; packed keys 2^-12 + 1e-6, rows equal but at such ties, certified
-sets but a tile swapped, bounds 2^-12 and sound (at most the unscored rows'
-least true distance x 1.03 + 1e-4); int8 minima 2^-20 + 1e-8 (1.28e-6 raw at
-D = 128: JAX may contract an FMA), rows equal but at 2^-20 + 1e-6 fp64 ties."""
+"""The Hopper scans' plain versions at the card kernels' tile edges against JAX's
+interpret mode. Tolerances (test_torch_distance.py): top-k rtol 1e-3, indices
+equal but at 2^-12 ties; packed keys 2^-12 + 1e-6, rows equal but at such ties,
+certified sets but a tile swapped, bounds 2^-12 and sound (at most the unscored
+rows' least true distance x 1.03 + 1e-4); int8 minima 2^-20 + 1e-8 (1.28e-6 raw
+at D = 128: JAX may contract an FMA), rows equal but at 2^-20 + 1e-6 fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,4 @@
-"""``select='approx'`` (``_select_tiles``, ``RecognitionService``) against JAX's
-on the same random-init B0 (32 px); JAX's ``approx_min_k`` is exact off the
-TPU.
-
+"""``select='approx'`` against JAX's (``approx_min_k`` is exact off the TPU).
 Tolerances: the same tiles in the same order as JAX's (equal minima ordered by
 the lower tile); services' labels equal but at picks within 2^-8 relative;
 approx = ``select='exact', escalate=None`` rows."""

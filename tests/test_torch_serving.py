@@ -1,6 +1,4 @@
-"""The port's RecognitionService against JAX's on the same random-init B0@64,
-images and gallery (``pca`` packed, ``exact``), rows in a 96-d span holding the
-probes: a planted row (noise 0.02) and 40 distractors (0.5) a probe. Tolerance:
+"""RecognitionService against JAX's, random-init B0@64, planted rows. Tolerance:
 top-1 equal but at picks within 2^-8 relative."""
 
 import jax

@@ -1,8 +1,5 @@
-"""RecognitionService against JAX's at the match level (``serving_fn`` stubbed,
-the same unit embeddings): JAX's defaults, ``pca_scan`` bf16 and int8,
-``match='int8'``, the one-launch escalation, the build functions; rows as in
-test_torch_serving.py (``clustered``: 32 rows a probe first). Tolerance: top-1
-equal but at picks within 2^-8 relative."""
+"""RecognitionService's match modes against JAX's on the same embeddings.
+Tolerance: top-1 equal but at picks within 2^-8 relative."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,7 @@
-"""The port's sharded search against JAX's (8 simulated CPU devices; the port on
-``gallery_mesh(devices=["cpu"] * S)``). Tolerances: rows equal, distances 1e-6;
-shards bit-equal; packed projections but bf16 flips (< 0.1 %); the service's
-rows = JAX's service fed the port's embeddings and the unsharded ``exact``'s."""
+"""Sharded search against JAX's (8 simulated CPU devices). Tolerances: rows equal,
+distances 1e-6; shards bit-equal; packed projections but bf16 flips (< 0.1 %);
+the service's rows = JAX's service fed the port's embeddings and the unsharded
+``exact``'s."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,6 @@
-"""The port's small-world search against the JAX package's (200 classes x 10 rows, D = 64). Tolerances: the neighbour
-table, rows and counts equal (stable sorts, the same numpy generators); distances within 1e-6 absolute."""
+"""Small-world search against JAX's. Tolerances: the neighbour table, rows and
+counts equal (stable sorts, the same numpy generators); distances within 1e-6
+absolute."""
 
 import jax.numpy as jnp
 import numpy as np

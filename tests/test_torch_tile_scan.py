@@ -1,12 +1,11 @@
-"""The bf16 tile scan and top-k variants (plain) against JAX's interpret mode.
-Tolerances:
-- ``tile_min_l2`` fp32 scores: minima 2^-20 relative (+1e-6 after |q|^2),
-  rows but at ties;
+"""The bf16 tile scan and top-k variants against JAX's interpret mode. Tolerances:
+- ``tile_min_l2`` fp32 scores: minima 2^-20 relative (+1e-6 after |q|^2), rows
+  but at ties;
 - bf16 scores: minima equal (2^-20 + 1e-8 after |q|^2), ties low; where JAX's
-  interpret mode keeps fp32 excess and its ``_masked_argmin`` wraps, the
-  port's row is a row of that tile at the minimum;
-- ``topk_l2(precise=True)``: 2^-20 + 1e-7, rows but at ties; ``window``:
-  lanes outside zeroed, the same."""
+  interpret mode keeps fp32 excess and its ``_masked_argmin`` wraps, the port's
+  row is a row of that tile at the minimum;
+- ``topk_l2(precise=True)``: 2^-20 + 1e-7, rows but at ties; ``window``: lanes
+  outside zeroed, the same."""
 
 import jax.numpy as jnp
 import numpy as np

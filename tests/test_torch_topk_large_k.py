@@ -1,8 +1,6 @@
-"""``topk_l2`` for k > 16 (bf16, precise, window) against JAX's, and the card
-kernels' argument rules (any Da, past 65,535 tiles or segments, k to 256). The
-4,096 x 64 gallery holds 512 duplicates (ties to the lowest row). Tolerances:
-bf16 2^-12 relative, precise 2^-16 absolute, indices equal but at fp64 ties
-within that."""
+"""``topk_l2`` for k > 16 against JAX's (512 duplicate rows: ties to the lowest),
+and the card kernels' argument rules. Tolerances: bf16 2^-12 relative, precise
+2^-16 absolute, indices equal but at fp64 ties within that."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,8 +1,7 @@
-"""``topk_l2`` past one launch's 256 columns in slabs above the last slab's floor:
-the plain pass at a small slab width equals JAX's and the single pass bit for
-bit. The 320 x 16 gallery holds 64 duplicates (ties across slabs). Tolerances
-(test_torch_topk_large_k.py): bf16 2^-12 relative, precise 2^-16 absolute,
-indices equal but at fp64 ties."""
+"""``topk_l2`` in slabs above the last slab's floor: the plain pass at a small
+slab width equals JAX's and one pass bit for bit (64 duplicate rows tie across
+slabs). Tolerances: bf16 2^-12 relative, precise 2^-16 absolute, indices equal
+but at fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,9 +1,6 @@
-"""The port's trainer and train mode against JAX's, B0 from the port's seeded
-init, stochastic depth all-keep on both sides (``jax.random.bernoulli``
-patched, ``drop_masks`` fixed). The reference: one jitted JAX
-``value_and_grad(trainer._loss)`` at fp32, batch 8 at 64 px, unbalanced labels
-(at 32 px the last BNs see 4 values a channel and bf16 turns the gradient:
-cosine 0.29 to fp32).
+"""The trainer and train mode against JAX's, stochastic depth all-keep on both
+sides: one jitted ``value_and_grad(trainer._loss)`` at fp32, batch 8 at 64 px
+(at 32 px the last BNs see 4 values a channel and bf16 turns the gradient).
 
 Tolerances: loss 1e-5 relative; each gradient leaf within 1e-3 of its L2 norm
 or 1e-6 of the whole gradient's (a BN bias feeding the next BN with no residual
@@ -16,6 +13,8 @@ rounding); ``calibrate_batch_stats`` 1e-3 (the solve ``(new - m old) / (1 -
 m)`` scales rounding by 100); bf16: loss 2e-2 relative, gradient cosine >=
 0.99. MobileNetV1 in train mode, fp32, batch 8 at 96 px (at 32 px its last BN
 sees 3 values: 4e-3): 1e-4 of max |JAX|, statistics as above."""
+
+import types
 
 import flax.linen as fnn
 import jax
@@ -30,7 +29,7 @@ from fast_image_recognition_tpu.models.efficientnet import EfficientNet as JaxEf
 from fast_image_recognition_tpu.models.mobilenet import MobileNetV1 as JaxMobileNetV1
 from fast_image_recognition_tpu.utils.checkpoint import load_variables as jax_load
 from fast_image_recognition_tpu_torch.models import create_backbone, create_efficientnet, default_taps
-from fast_image_recognition_tpu_torch.models.efficientnet import drop_path
+from fast_image_recognition_tpu_torch.models.efficientnet import MEAN_RGB, STDDEV_RGB, drop_path
 from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig, class_weights
 from fast_image_recognition_tpu_torch.models.zoo import _BatchNorm, batch_stats, keep_mask
 from test_torch_synthetic import _one_thread  # noqa: F401
@@ -154,6 +153,32 @@ def test_calibrate_batch_stats_solves_jax_step(ref):
     solved = jax.tree_util.tree_map(lambda new, old: (new - M * old) / (1.0 - M), ref["new_bs"],
                                     ref["variables"]["batch_stats"])
     _stats(t.variables["batch_stats"], solved, 1e-3)
+
+
+def _moved(stats, rng):
+    if "var" in stats:
+        return {"mean": (stats["mean"] + rng.normal(0, 0.2, stats["mean"].shape)).astype(np.float32),
+                "var": (stats["var"] * rng.uniform(0.5, 2.0, stats["var"].shape)).astype(np.float32)}
+    return {k: _moved(v, rng) for k, v in stats.items()}
+
+
+def test_evaluate_and_head_logits_match_jax(ref):
+    """Eval mode on moved running statistics behind the serving preprocess: accuracy equal to JAX's ``evaluate``,
+    every head's logits within 1e-4 of max |JAX ``head_logits``| (flax's ``apply`` jitted under JAX's methods)."""
+    rng = np.random.default_rng(4)
+    v = {"params": ref["variables"]["params"], "batch_stats": _moved(ref["variables"]["batch_stats"], rng)}
+    mean, std = np.asarray(MEAN_RGB, np.float32), np.asarray(STDDEV_RGB, np.float32)
+    t = _trainer(v, preprocess=lambda x: (x - torch.from_numpy(mean)) / torch.from_numpy(std))
+    x, y = rng.uniform(0, 255, (2 * B, RES, RES, 3)).astype(np.float32), rng.integers(0, 5, 2 * B)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jtrain, "init_heads", lambda *a: [{k: jnp.asarray(w) for k, w in h.items()} for h in t.head_arrays()])
+    jt = jtrain.MultiExitTrainer(JaxEfficientNet(variant="b0", dtype=jnp.float32), v, CFG,
+                                 preprocess=lambda x: (x - mean) / std)
+    mp.undo()
+    jt.model = types.SimpleNamespace(apply=jax.jit(jt.model.apply, static_argnames=("train", "taps")))
+    assert t.evaluate(x, y) == jt.evaluate(x, y)
+    for a, b in zip(t.head_logits(x), jt.head_logits(x)):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
 
 
 def test_stochastic_depth_keep_share_and_scale():

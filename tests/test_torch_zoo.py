@@ -1,11 +1,8 @@
-"""ResNet50, ResNet50/101/152V2, InceptionV3, VGG19 and the bind engine over
-ResNet50V2 and IRv2 against JAX at 32 px (75 for the Inceptions), from the
-port's seeded init with BN drawn off flax's defaults.
-
-Tolerances: fp32 forward, taps, segments 1e-4 of max |JAX|; folded bf16 0.02
-(tests/test_fold_generic.py:63); fold trees 1e-6; 'caffe' equal, its resize
-rtol 1e-5, atol 1e-5 x 127.5; rows equal but at picks within 2^-8; bind engines
->= 90 % of predictions, >= 80 % of levels."""
+"""The rest of the zoo and the bind engine against JAX at 32 px (75 for the
+Inceptions). Tolerances: fp32 forward, taps, segments 1e-4 of max |JAX|; folded
+bf16 0.02 (tests/test_fold_generic.py:63); fold trees 1e-6; 'caffe' equal, its
+resize rtol 1e-5, atol 1e-5 x 127.5; rows equal but at picks within 2^-8; bind
+engines >= 90 % of predictions, >= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp
