@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one H100: ``python3 chip_smoke.py``
-from a checkout's root. Builds the kernels, holds each to its plain version,
-drives every path at full width counting launches (README.md lists the phases);
-prints the kernels' JSON, the card line, then ``{"ok": true, ...}``."""
+"""Smoke run of the PyTorch + CUDA port on one H100, from a checkout's root:
+builds the kernels, holds each to its plain version, drives every path at full
+width counting launches; prints the kernels' JSON, the card, ``{"ok": true}``."""
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -28,15 +28,16 @@ try:
     from fast_image_recognition_tpu_torch.evaluation import evaluate_matcher
     from fast_image_recognition_tpu_torch.kernels import build, plain
     from fast_image_recognition_tpu_torch.models import (InceptionResNetV2, backbone_info, create_backbone,
-                                                         create_efficientnet, default_taps, default_taps_inception_resnet,
-                                                         default_taps_mobilenet, default_taps_resnet)
-    from fast_image_recognition_tpu_torch.models.efficientnet import MEAN_RGB, STDDEV_RGB
+        create_efficientnet, default_taps, default_taps_inception_resnet, default_taps_mobilenet, default_taps_resnet)
+    from fast_image_recognition_tpu_torch.models.efficientnet import MEAN_RGB, STDDEV_RGB, TF_MODE_MEAN, TF_MODE_STD
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
+    from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig, class_weights
+    from fast_image_recognition_tpu_torch.models import pruning as pr
     from fast_image_recognition_tpu_torch.ops import distance_kernel as dk
     from fast_image_recognition_tpu_torch.ops import mbconv_kernel as mb
     from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
-    from fast_image_recognition_tpu_torch.serving import RecognitionService
+    from fast_image_recognition_tpu_torch.serving import RecognitionService, _normalize, build_cascade_service
     from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
     from fast_image_recognition_tpu_torch.utils.flops import fn_flops
     from fast_image_recognition_tpu_torch.utils.profiling import cuda_ms, time_jitted, timed as _timed, trace_call
@@ -79,11 +80,10 @@ def gen_on(dev, seed: int) -> torch.Generator:
 
 
 def kernel_times(launch, run_plain, flops, nbytes, reps, peak=None):
-    """CUDA-event ms of a kernel and its plain version beside the bound; no single library call computes the
-    scans' functions, so ``library_ms`` is None."""
+    """CUDA-event ms of a kernel and its plain version beside the bound (no library call computes them)."""
     b_ms, b_by = bound(flops, nbytes, peak or PEAK_BF16_FLOPS)
     return dict(ms=cuda_ms(launch, reps[0]), plain_ms=cuda_ms(run_plain, reps[1]), bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+            library_ms=None)
 
 
 def times(t):
@@ -156,7 +156,7 @@ def sass_mma_counts(libs: dict) -> dict:
     -sass``."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     procs = {n: subprocess.Popen([cuobjdump, "-sass", path], stdout=subprocess.PIPE, text=True)
-             for n, path in libs.items()}
+            for n, path in libs.items()}
     by_lib = {}
     for n, proc in procs.items():
         text, _ = proc.communicate(timeout=300)
@@ -206,8 +206,8 @@ def _unit(x):
 
 
 def class_structured_gallery(n: int, class_embs, sigma: float, seed: int = 1):
-    """bench.py's class-structured gallery: ~n/K rows normalize(e_c +
-    sigma/sqrt(D) noise) an identity. (bf16 rows, labels, pads -1)."""
+    """bench.py's class-structured gallery: ~n/K rows normalize(e_c + sigma/sqrt(D) noise) an identity.
+    (bf16 rows, labels, pads -1)."""
     k, dim = class_embs.shape
     dev = class_embs.device
     n_pad = -(-n // 1024) * 1024
@@ -228,8 +228,7 @@ def class_structured_gallery(n: int, class_embs, sigma: float, seed: int = 1):
 
 
 def planted_gallery(n: int, b: int, dim: int, dev, seed: int = 2):
-    """Probes and rows in a 96-d span: a planted row (noise 0.02) and 40
-    distractors (0.5) a probe. (probes, rows, planted)."""
+    """Probes and rows in a 96-d span: a planted row (noise 0.02), 40 distractors (0.5) a probe."""
     rank, distract = 96, 40
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -263,9 +262,8 @@ def enroll_sigma(embs, pair_imgs):
 
 
 def serve_line(tag, svc, exact, gallery, labels, images, launches, smi, flops):
-    """A certified PCA line (bench.py's plain e2e): timed calls, one with no host
-    sync, ``match='exact'`` and the oracle counted; rows >= 99 % exact's; MFU of
-    the embed's ``flops`` and the match's."""
+    """A certified PCA line: timed calls, one with no host sync, ``match='exact'`` and the oracle counted;
+    rows >= 99 % exact's; MFU."""
     names = (tag, "exact", "oracle") if tag == "pca" else (tag, f"{tag} exact", f"{tag} oracle")
     masks = []
 
@@ -297,12 +295,12 @@ def serve_line(tag, svc, exact, gallery, labels, images, launches, smi, flops):
         fail(f"{tag} returned rows outside the gallery")
     truth = np.arange(BATCH)
     row = dict(img_s=BATCH / ms * 1e3, ms=ms, embed_ms=embed_ms, match_ms=match_ms, exact_match_ms=exact_ms,
-               error_pct=pct(labels[idx] != truth), exact_error_pct=pct(labels[idx_exact] != truth),
-               exact_rows_pct=pct(idx == idx_exact), exact_labels_pct=pct(labels[idx] == labels[idx_exact]),
-               oracle_rows_pct=pct(idx == idx_oracle), exact_oracle_rows_pct=pct(idx_exact == idx_oracle),
-               escalated_pct=pct(svc.last_escalated), escalated_calls=sum(bool(m.any()) for m in masks),
-               calls=len(masks), pick_equal_exact_pct=pick_pct, peak_gib=peak_gib, launches=launches[names[0]],
-               **mfu(flops + svc.match_flops(BATCH), ms))
+            error_pct=pct(labels[idx] != truth), exact_error_pct=pct(labels[idx_exact] != truth),
+            exact_rows_pct=pct(idx == idx_exact), exact_labels_pct=pct(labels[idx] == labels[idx_exact]),
+            oracle_rows_pct=pct(idx == idx_oracle), exact_oracle_rows_pct=pct(idx_exact == idx_oracle),
+            escalated_pct=pct(svc.last_escalated), escalated_calls=sum(bool(m.any()) for m in masks),
+            calls=len(masks), pick_equal_exact_pct=pick_pct, peak_gib=peak_gib, launches=launches[names[0]],
+            **mfu(flops + svc.match_flops(BATCH), ms))
     phase(f"{'main path' if tag == 'pca' else tag} (B={BATCH}, {smi}): " + kv(row, *row) + "; no host sync")
     if row["exact_rows_pct"] < 99.0:
         fail(f"{tag}: top-1 agreement with match='exact' is {row['exact_rows_pct']:.3f}% < 99%")
@@ -313,18 +311,40 @@ def mfu(flops, ms):
     return dict(flops_per_iter=flops, mfu=flops / (ms / 1e3) / PEAK_BF16_FLOPS)
 
 
-def embed_flops(name, np_vars, info, res, serve, images, dev, gap=True):
-    """``fn_flops`` of the embed on ``images``, within 5 % of ``folded=False``'s (tests/test_flops.py:65-79); with
-    ``gap``, the embeddings over max |emb| within 0.02. (flops, rel)."""
+DRIFT_X = 5.0  # the served / folded=False bf16 drift from fp32: 0.94-1.82 on the card, up to 3.2 at 64 px (PERF.md)
+
+
+def embed_flops(name, np_vars, info, res, serve, images, dev, gap=True, drift=None):
+    """``fn_flops`` of the embed within 5 % of ``folded=False``'s (tests/test_flops.py:65-79); ``gap``: the
+    embeddings within 0.02 of max |emb|, or, with a ``drift`` dict (a fine-tuned pruned B0's bf16 forwards drift
+    past it), the fold within 1e-4 in fp32 and the served bf16 embedding within :data:`DRIFT_X` of the
+    ``folded=False`` bf16 one's distance from the fp32 network (floor 0.02), which the fold's weights rounded
+    through fp8 must miss. (flops, rel)."""
     unfolded = make_serving_fn(np_vars, info, resolution=res, device=dev, folded=False)
     ff, fu = fn_flops(serve, images), fn_flops(unfolded, images)
     if abs(ff - fu) > 0.05 * fu:
         fail(f"{name}: folded FLOPs {ff:.4e} off the unfolded {fu:.4e} by > 5 %")
     if not gap:
         return ff, None
-    ef, eu = (m(images[:FOLD_BATCH])["embedding"] for m in (serve, unfolded))
+    x = images[:FOLD_BATCH]
+    ef, eu = serve(x)["embedding"], unfolded(x)["embedding"]
     rel = ((ef - eu).abs().max() / eu.abs().max()).item()
-    if not rel <= 0.02:
+    if drift is not None:
+        f32 = make_infer_fn(np_vars, info["variant"], resolution=res, dtype=F32, device=dev)(x)["embedding"]
+        unfolded.net.dtype = F32  # the same module in fp32
+        ref = unfolded(x)["embedding"]
+        fp8 = copy.deepcopy(serve)
+        for w in (*fp8.parameters(), *fp8.buffers()):
+            if w.dtype == BF16:
+                w.data = w.data.to(torch.float8_e4m3fn).to(BF16)
+        drift.update(zip(("fp32_fold_rel", "folded_vs_fp32", "unfolded_vs_fp32", "fp8_control_vs_fp32"),
+                (((a - ref).abs().max() / ref.abs().max()).item() for a in (f32, ef, eu, fp8(x)["embedding"]))))
+        drift["limit"] = lim = max(0.02, DRIFT_X * drift["unfolded_vs_fp32"])
+        if not drift["fp32_fold_rel"] <= 1e-4:
+            fail(f"{name}: the fold misses the fp32 network by {drift['fp32_fold_rel']:.3e} > 1e-4")
+        if not drift["folded_vs_fp32"] <= lim < drift["fp8_control_vs_fp32"]:
+            fail(f"{name}: bf16 drifts from fp32 {drift} (the served one within the limit, the fp8 control past)")
+    elif not rel <= 0.02:
         fail(f"{name}: folded and unfolded embeddings differ by {rel:.4f} > 0.02")
     return ff, rel
 
@@ -339,8 +359,7 @@ def line_services(name, info, emb, gallery, labels, serve, dev):
 
 
 def run_flagship(dev, report, launches, smi):
-    """bench.py ``--variant inception_resnet_v2 --resolution 224``: the trained
-    IRv2, 1M class-structured rows, B = 1024; :func:`embed_flops`."""
+    """bench.py ``--variant inception_resnet_v2 --resolution 224``: the trained IRv2 over 1M rows, B = 1024."""
     t = time.time()
     raw = load_variables(IRV2_CKPT)
     np_vars = {"params": raw["params"], "batch_stats": raw["batch_stats"]}
@@ -377,8 +396,8 @@ def run_flagship(dev, report, launches, smi):
 
 
 def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
-    """bench.py's planted gallery: rows around the probes' mean at their spread, a row a probe moved by ``noise_frac``
-    of its nearest-probe distance. (rows, labels)."""
+    """bench.py's planted gallery: rows around the probes' mean at their spread, a row a probe moved by
+    ``noise_frac`` of its nearest-probe distance. (rows, labels)."""
     b, dim = emb.shape
     dev = emb.device
     gen = gen_on(dev, seed)
@@ -401,60 +420,67 @@ def embedding_gallery(n: int, emb, seed: int = 1, noise_frac: float = 0.2):
 
 
 def untrained_line(name, dev, launches, smi, res=RES):
-    """bench.py's untrained e2e line for NAME (:378-387): seed-0 init, random
-    probes, :func:`embedding_gallery`; :func:`embed_flops`."""
-    t = time.time()
-    info = backbone_info(name)
-    _, np_vars = create_backbone(name, seed=0, resolution=res, device=dev)
+    """bench.py's untrained e2e line for NAME (:378-387): seed-0 init, random probes."""
+    images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen_on(dev, 0), device=dev, dtype=torch.uint8)
+    return own_line(name, create_backbone(name, seed=0, resolution=res, device=dev)[1], backbone_info(name), images,
+            dev, launches, smi, res)
+
+
+def own_line(name, np_vars, info, images, dev, launches, smi, res=None, drift=None):
+    """The certified line of ``np_vars`` over :func:`embedding_gallery` of its embeddings."""
+    t, res = time.time(), res or RES
     serve = make_serving_fn(np_vars, info, resolution=res, device=dev)
-    gen = gen_on(dev, 0)
-    images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen, device=dev, dtype=torch.uint8)
-    flops, fold_rel = embed_flops(name, np_vars, info, res, serve, images, dev)
+    flops, fold_rel = embed_flops(name, np_vars, info, res, serve, images, dev, drift=drift)
     emb = _unit(serve(images)["embedding"])
     gallery, labels = embedding_gallery(GALLERY, emb)
     svc, exact = line_services(name, info, emb, gallery, labels, serve, dev)
     sync()
-    phase(f"{name}@{res}: seed-0 init folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} "
-          f"({since(t)}); fold_rel={fold_rel:.5f} at B={FOLD_BATCH}")
+    phase(f"{name}@{res}: folded, gallery {tuple(gallery.shape)} PCA-{svc.pca_dim} ({since(t)}); fold_rel="
+          f"{fold_rel:.5f} at B={FOLD_BATCH}" + "".join(f" {k}={v:.3e}" for k, v in (drift or {}).items()))
     row = serve_line(f"{name} line", svc, exact, gallery, labels, images, launches, smi, flops)
     ctx = {k: row.pop(k) for k in ("idx", "idx_exact", "idx_oracle", "emb", "sec")}
-    row["fold_rel"] = fold_rel
+    row.update(fold_rel=fold_rel, **(drift or {}))
     return row, dict(ctx, info=info, np_vars=np_vars, serve=serve, svc=svc, gallery=gallery, labels=labels,
-                     images=images)
+            images=images)
 
 
 def run_mobilenets(dev, launches, smi, mb_report):
     """MobileNetV2's line, fused twin (13 ``mbconv`` a call), cascade and engine; MobileNetV1's line."""
-    from fast_image_recognition_tpu_torch.models.efficientnet import TF_MODE_MEAN, TF_MODE_STD
-    from fast_image_recognition_tpu_torch.serving import build_cascade_service
-
     lines = {}
     lines["mobilenetv2"], c = untrained_line("mobilenetv2", dev, launches, smi)
     tf = dict(resolution=RES, fused=True, mean=TF_MODE_MEAN, std=TF_MODE_STD, device=dev)
     serve_f = make_infer_fn(c["np_vars"], "mobilenetv2", **tf)
     check_mbconv_blocks(c["serve"], serve_f, c["images"], mb_report)
     net14 = make_infer_fn(create_backbone("mobilenetv2_1.4", seed=0, device=dev)[1], "mobilenetv2_1.4", **tf)
+    # one L1 round: the widths 96, 144, 288, 432, 720 at blocks 2b, 3b, 4b, 5b, 6b
+    pruned = make_infer_fn(pr.prune_backbone(create_backbone("mobilenetv2", device=dev)[0], c["np_vars"])[1],
+            "mobilenetv2", **tf)
     extra = []
     for tag, net, cases in (("mobilenetv2", serve_f, [("block1a", 1, 15), ("block2b", 130, 15), ("block5a", 130, 15),
-                            ("block6b", 130, 15), ("block7a", 130, 7)]), ("mobilenetv2_1.4", net14, [("block1a", 130,
-                            56), ("block4b", 130, 14), ("block5a", 130, 14), ("block5b", 1, 15), ("block7a", 130, 7)])):
+            ("block6b", 130, 15), ("block7a", 130, 7)]), ("mobilenetv2_1.4", net14, [("block1a", 130,
+            56), ("block4b", 130, 14), ("block5a", 130, 14), ("block5b", 1, 15), ("block7a", 130, 7)]),
+            ("mobilenetv2 pruned", pruned, [(f"block{n}b", 130, 7 if n == 6 else 15) for n in range(2, 7)])):
         for block, b, hw in cases:
             fb = net.fused_blocks[str(net.names.index(block))]
-            extra.append((f"{tag} {block} (relu6, no SE) B={b} {hw}x{hw}", {n: getattr(fb, n) for n in fb.param_names},
-                         dict(fb.cfg), b, hw, None))
+            ce = fb.w_proj_t.shape[1]
+            if tag.endswith("pruned") and ce != (96, 144, 288, 432, 720)[int(block[5]) - 2]:
+                fail(f"the pruned MobileNetV2's {block} is {ce} wide")
+            extra.append((f"{tag} {block} (relu6, no SE, ce={ce}) B={b} {hw}x{hw}", {n: getattr(fb, n) for n in
+                    fb.param_names}, dict(fb.cfg), b, hw, None))
     mb_report["edges"] = run_mbconv_cases(extra, gen_on(dev, 29))
-    phase(f"mobilenetv2 mbconv edge shapes: {len(extra)} cases within {MB_TOL:.2e} of max |plain|, borders too")
-    del net14
+    phase(f"mobilenetv2 mbconv edge shapes (and its pruned widths): {len(extra)} cases within {MB_TOL:.2e} of max "
+          f"|plain|, borders too")
+    del net14, pruned
     lines["mobilenetv2_fused"] = check_fused_path(c["serve"], serve_f, c["svc"], c["info"], c["gallery"], c["labels"],
           c["images"], c["idx"], c["idx_oracle"], c["sec"], launches, dev, smi, lines["mobilenetv2"]["flops_per_iter"],
           path="mobilenetv2 fused", n_fused=13)
     del serve_f, c["svc"]
     t = time.time()
     casc = build_cascade_service("mobilenetv2", c["gallery"], variables=c["np_vars"], n_valid=GALLERY, taps=TAPS,
-                                 resolution=RES, calib_total=CASCADE_CALIB, calib_batch=CASCADE_CALIB, device=dev)
+            resolution=RES, calib_total=CASCADE_CALIB, calib_batch=CASCADE_CALIB, device=dev)
     gen = gen_on(dev, 1)
     fracs = casc.calibrate(torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=dev, dtype=torch.uint8),
-                           slack=SLACK)
+            slack=SLACK)
     phase(f"mobilenetv2 cascade built (readout, taps {TAPS}, calibrated on {CASCADE_CALIB} images): survivors="
           f"{[round(f, 4) for f in fracs]} capacities={casc.capacities_for(BATCH)} ({since(t)})")
     lines["mobilenetv2_cascade"], _ = run_cascade(casc, c["images"], "mobilenetv2 cascade", launches, smi, c["labels"],
@@ -474,8 +500,7 @@ def run_mobilenets(dev, launches, smi, mb_report):
 
 
 def run_zoo(dev, report, launches, smi):
-    """The ResNet50, ResNet152V2, InceptionV3@299 and VGG19 lines, ``topk_l2`` on
-    their rows; the bind engine over ResNet152V2."""
+    """The ResNet50, ResNet152V2, InceptionV3@299 and VGG19 lines; the bind engine over ResNet152V2."""
     lines = {}
     for name in ("resnet50", "resnet152v2", "inception_v3", "vgg19"):
         lines[name], c = untrained_line(name, dev, launches, smi, 299 if name == "inception_v3" else RES)
@@ -486,6 +511,122 @@ def run_zoo(dev, report, launches, smi):
     lines["resnet152v2_engine"] = engine_line("resnet152v2 cascade engine", model, None,
           default_taps_resnet("resnet152v2"), dev, launches, engine="bind")[0]
     return lines
+
+
+# scripts/prune_serving_r5.py: two L1 rounds at 25 % to x16, each fine-tuned one epoch (cosine head)
+PRUNE_COUNTS = (4_007_548, 3_092_892, 2_394_940)  # B0's parameters before and after each round
+PRUNE_CLASSES, PRUNE_PER, PRUNE_VAL, PRUNE_BATCH, PRUNE_LR = 128, 48, 12, 128, 5e-4
+PRUNE_CALIB, PRUNE_CPU, PRUNE_BLOCK = 32, 16, 15  # calibration images (2 a class), of them card vs CPU; block7a
+
+
+def run_pruning(dev, np_vars, info, images, launches, smi, base):
+    """prune_serving_r5.py:117-205 on the trained B0@224: the data metrics on the card, fp32 card vs CPU; per
+    L1 round the fine-tune, the certified line and its fused twin (each pruned block vs plain)."""
+    t0 = time.time()
+    mean, std = (torch.tensor(v, device=dev) for v in (MEAN_RGB, STDDEV_RGB))
+    prep = lambda x: (x - mean) / std  # noqa: E731
+    tr_x, tr_y = device_dataset(PRUNE_CLASSES, PRUNE_PER, RES, seed=0, device=dev)  # train_serving_backbone's sets
+    va_x, va_y = device_dataset(PRUNE_CLASSES, PRUNE_VAL, RES, seed=7919, class_seed=0, device=dev)
+    pick = (np.arange(PRUNE_CALIB) // 2) * PRUNE_PER + np.arange(PRUNE_CALIB) % 2
+    cx, cy = prep(tr_x[torch.as_tensor(pick, device=dev)].float()), tr_y[pick]
+    net = create_efficientnet("b0", resolution=RES, device=dev)[0].load_variables(np_vars)
+    out, mb, metric_s, seen = {}, {}, {}, {}
+    n_blocks = sum(c["expand"] != 1 for c in net.plan_configs())
+    for metric, fn in (("apoz", "apoz_hidden_scores"), ("class_sep", "class_sep_hidden_scores"),
+            ("taylor", "taylor_importance")):
+        t, f0, got = time.time(), getattr(pr, fn), seen.setdefault(metric, [])
+
+        def recording(*a, f0=f0, got=got, **k):  # the scores it prunes by
+            got.append(f0(*a, **k))
+            return got[-1]
+
+        setattr(pr, fn, recording)
+        try:
+            n = pr.parameter_count(pr.prune_backbone(net, np_vars, 0.25, metric, images=cx, labels=cy,
+                    num_classes=PRUNE_CLASSES)[1])
+        finally:
+            setattr(pr, fn, f0)
+        metric_s[metric] = time.time() - t
+        if n != PRUNE_COUNTS[1] or len(got) != n_blocks:
+            fail(f"prune_backbone by {metric} leaves {n} parameters, scored {len(got)} blocks")
+    t = time.time()
+    seen["leave_one_out"] = [pr.leave_one_out_importance(net, None, cx, cy, PRUNE_CLASSES, PRUNE_BLOCK)]
+    metric_s["leave_one_out"] = time.time() - t
+    for metric, got in seen.items():  # finite, and not one value everywhere
+        if not all(np.isfinite(a).all() for a in got) or np.ptp(np.concatenate(got)) <= 0:
+            fail(f"prune metric {metric} on the card: scores finite {[bool(np.isfinite(a).all()) for a in got]}, "
+                 f"range {np.ptp(np.concatenate(got))}")
+    loo = seen["leave_one_out"][0]
+    gaps, ties = {}, {}
+    nets = [create_efficientnet("b0", resolution=RES, dtype=F32, device=d)[0].load_variables(np_vars) for d in
+            (dev, "cpu")]
+    x, y, n = cx[:PRUNE_CPU], cy[:PRUNE_CPU], pr.round_down_multiple(int(1152 * 0.75), 16)
+    for name, fn, args in (("apoz", pr.apoz_hidden_scores, ()), ("class_sep", pr.class_sep_hidden_scores, (y,)),
+            ("taylor", pr.taylor_importance, (y, PRUNE_CLASSES)),
+            ("leave_one_out", pr.leave_one_out_importance, (y, PRUNE_CLASSES))):
+        card, cpu = (fn(m, None, x.to(d), *args, PRUNE_BLOCK) for m, d in zip(nets, (dev, "cpu")))
+        gaps[name] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        ok = gaps[name] <= 1e-4
+        if name in ("apoz", "class_sep"):  # keep sets equal but where a CPU score is within 2x the gap of the cut
+            diff = np.setxor1d(pr.keep_top(card, n), pr.keep_top(cpu, n))
+            ties[name] = len(diff)
+            ok = bool((np.abs(cpu[diff] - np.sort(cpu)[::-1][n - 1]) <= 2 * np.abs(card - cpu).max()).all())
+        if not ok or not np.isfinite(card).all():
+            fail(f"prune metric {name} at block {PRUNE_BLOCK}: card vs CPU {gaps[name]:.3e}, keep sets {ties}")
+    del nets
+    phase(f"prune metrics (trained B0@{RES}, {PRUNE_CALIB} images, bf16): " + kv(metric_s, *metric_s)
+          + f" s; fp32 card vs CPU at block {PRUNE_BLOCK} ({PRUNE_CPU} images): rel gaps {gaps}, keep sets "
+          f"differing at near-ties {ties}; leave_one_out max={np.abs(loo).max():.3e}")
+    out["metrics"] = dict(seconds=metric_s, card_vs_cpu=gaps, keep_differ=ties)
+
+    m, v = net, np_vars
+    cfg = TrainConfig(num_classes=PRUNE_CLASSES, taps=tuple(default_taps("b0", "early")), resolution=RES,
+            batch_size=PRUNE_BATCH, phase1_epochs=0, phase2_epochs=1, phase2_lr=PRUNE_LR, patience=4,
+            head="cosine")
+    step0, events = MultiExitTrainer._step, []
+
+    def step(self, *a):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return step0(self, *a)
+
+    for r in (1, 2):
+        tag, t = f"pruned x{r}", time.time()
+        m, v = pr.prune_backbone(m, v, 0.25, "l1")
+        if pr.parameter_count(v) != PRUNE_COUNTS[r]:
+            fail(f"{tag}: {pr.parameter_count(v)} parameters")
+        events.clear()
+        trainer = MultiExitTrainer(m, v, cfg, preprocess=prep, device=dev)
+        MultiExitTrainer._step = step
+        try:
+            with torch.enable_grad():
+                hist = trainer.fit(tr_x, tr_y, va_x, va_y, verbose=False)
+        finally:
+            MultiExitTrainer._step = step0
+        sync()
+        step_ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+        if not np.isfinite(hist["loss"]).all():
+            fail(f"{tag}: fine-tune losses {hist['loss']}")
+        v = trainer.variables
+        ft = dict(params=pr.parameter_count(v), hidden=dict(m.hidden_overrides), steps=len(events), step_ms=step_ms,
+                loss=hist["loss"], val_acc=hist["val_acc"][-1], seconds=time.time() - t)
+        phase(f"{tag} fine-tune (batch {PRUNE_BATCH}, {smi}, CUDA events from step 1 to {len(events)}): "
+              + kv(ft, "params", "steps", "step_ms", "loss", "val_acc", "seconds"))
+        row, c = own_line(tag, v, info, images, dev, launches, smi, drift={})
+        serve_f = make_infer_fn(v, "b0", resolution=RES, fused=True, space_to_depth=True, device=dev)
+        mb_rep = {}
+        check_mbconv_blocks(c["serve"], serve_f, images, mb_rep)
+        fused = check_fused_path(c["serve"], serve_f, c["svc"], info, c["gallery"], c["labels"], images, c["idx"],
+                c["idx_oracle"], c["sec"], launches, dev, smi, row["flops_per_iter"],
+                path=f"{tag} fused")
+        phase(f"{tag} vs unpruned (img/s, embed ms, match ms): plain " + " / ".join(
+              f"{a['img_s']:.1f} {a.get('embed_ms', 0):.3f} {a.get('match_ms', 0):.3f}" for a in (row, base[0]))
+              + f"; fused {fused['img_s']:.1f} / {base[1]['img_s']:.1f}")
+        out[f"x{r}"], mb[f"x{r}"] = dict(finetune=ft, line=row, fused=fused), mb_rep
+        del c, serve_f, trainer
+        torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out, mb
 
 
 def check_certified_pick(svc, emb, idx_exact):
@@ -541,7 +682,7 @@ def check_cert_scan(svc, emb, report):
     np_ = ga.shape[0]
     n_tiles = k1.shape[1]
     t_ = kernel_times(lambda: build.launch_tilemin2_packed(qa, ga), lambda: plain.tilemin2_packed_plain(qa, ga),
-                      2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4, (10, 2))
+            2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + 2 * b * n_tiles * 4, (10, 2))
     phase(f"packed scan B={b} Np={np_} Da={da}: keys_equal={100 * key_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} "
           f"sets_equal={pct(same_set):.3f}% bound_gap={bound_rel:.2e} " + times(t_))
     if rel > 2.0**-12 or bound_rel > 2.0**-12 or not gap_ok or not rows_ok:
@@ -550,9 +691,9 @@ def check_cert_scan(svc, emb, report):
 
 
 def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=None, precise=False,
-               row_mask=None, chunk_rows=65536):
-    """topk_l2 (bf16, window or precise; pass 3) vs plain: rows rescored as (q - g)^2 at its distances, plain's but at
-    ties within 2^-12 + 1e-6 (bf16) or 2^-16 (precise); masked rows empty. Timed with a ``report``."""
+        row_mask=None, chunk_rows=65536):
+    """topk_l2 (bf16, window or precise; pass 3) vs plain: rows rescored at its distances, plain's but at ties
+    within 2^-12 + 1e-6 (bf16) or 2^-16 (precise); masked rows empty; timed with a ``report``."""
     q = queries.to(F32 if precise else BF16).contiguous()
     lo, hi = window if window is not None else (0, q.shape[1])
     if k > build.TOPK_MAX_K:  # slabs
@@ -566,7 +707,7 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
 
     def run_plain(rows=chunk_rows):
         d_, i_ = plain.topk_l2_plain(q, gallery, k, n_valid, window=window, precise=precise, row_mask=row_mask,
-                                     chunk_rows=rows)
+                chunk_rows=rows)
         return plain.topk_rescore_plain(q, gallery, d_, i_, window)
     kd, ki = launch()
     pd, pi = run_plain()
@@ -585,7 +726,7 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
     ok = off_ok and in_range and bool(((ki == pi) | ((d_rows - pd).abs() <= tol)).all())
     ok = ok and bool(((kd - d_rows).abs() <= tol).all())
     variant = ("precise" + (", fp32 rows" if gallery.dtype == F32 else "") if precise
-               else f"window {window}" if window else "bf16")
+            else f"window {window}" if window else "bf16")
     what = f"topk_l2 ({variant}) B={b} N={n_valid} D={dim} k={k}"
     if not ok:
         fail(f"{what}{'' if row_mask is None else f' mask {int(on.sum())}/{b}'} disagrees with " f"its plain version")
@@ -604,8 +745,8 @@ def check_topk(gallery, n_valid, queries, k, report=None, key="topk_l2", window=
 
 
 def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant=None, verbose=True):
-    """bf16 or int8 (``quant``) tile scan vs plain: minima within 2^-16 (fp32 scores), 2^-6 (bf16) or 2^-12 of the
-    cross term, rows rescored at them; timed with a ``report``. (minima, rows, plain minima)."""
+    """bf16 or int8 (``quant``) tile scan vs plain: minima within 2^-16 (fp32 scores), 2^-6 (bf16) or 2^-12
+    of the cross term, rows rescored; timed with a ``report``. (minima, rows, plain minima)."""
     gsq = gsq.reshape(-1)
     if quant is None:
         launch = lambda: build.launch_tilemin(q, g, gsq, tile_g, bf16_scores)  # noqa: E731
@@ -658,7 +799,7 @@ def check_tile_scan(name, q, g, gsq, tile_g, report, *, bf16_scores=False, quant
     t_ = kernel_times(launch, run_plain, 2.0 * b * np_ * d, nbytes, (10 if d <= 128 else 3, 1), peak)
     phase(f"{what}; " + times(t_))
     report.append(dict(shape=name, b=b, np=np_, d=d, tile_g=tile_g, max_abs_err=err, rows_equal=idx_eq,
-                       minima_equal=val_eq, **t_))
+            minima_equal=val_eq, **t_))
     return kd, ki, pd
 
 # (rows, n_valid, D, B): widths no multiple of 8, n_valid inside a tile
@@ -679,13 +820,13 @@ def check_edge_shapes(dev):
             g16 = dk.pad_cols(dk.pad_gallery(g32.to(BF16), tg), 8)
             gsq = dk.gallery_sq_norms(g16, nv, tg)
             scans = [(f"{tag} {'bf16' if bf else 'f32'}-scores", dict(q=q16, g=g16, bf16_scores=bf),
-                     float("inf") if bf else big) for bf in (False, True)]
+                    float("inf") if bf else big) for bf in (False, True)]
             if tg == 128:
                 gq, gs = quantize_rows(g16)
                 qq, qs = quantize_rows(q32)
                 gsc = dk.quant_gallery_scales(gs, nv, tg)
                 scans += [(f"{tag} int8-scan-{c}", dict(q=dk.pad_cols(qq), g=dk.pad_cols(gq), quant=(qs, gsc, c)), big)
-                          for c in ("int8", "bf16")]
+                        for c in ("int8", "bf16")]
             for name, kw, pad_value in scans:
                 kd, ki, pd = check_tile_scan(name, kw.pop("q"), kw.pop("g"), gsq, tg, None, **kw)
                 if not whole_pad_ok(kd, ki, pd, nv, tg, pad_value):
@@ -735,20 +876,20 @@ QUANT_BF16_EDGES = [(5000, 2100, 16), (2900, 1300, 144), (2600, 1300, 1536)]  # 
 QUANT_BF16_EDGE_B = (1, 64, 130, 257)
 
 
-def check_min2(qa, ga, n_valid):
-    """Min-2 packed scan vs plain, untimed: as :func:`keys_ok`, whole-pad tiles never winning."""
-    k1, k2 = build.launch_tilemin2_packed(qa, ga)
-    p1, p2 = plain.tilemin2_packed_plain(qa, ga)
+def check_packed(qa, ga, n_valid, tile_g=None):
+    """A packed scan vs plain, untimed: :func:`keys_ok` (single-min: equal keys pass), no row past
+    ``n_valid``, whole-pad tiles only pad; min-2 (no ``tile_g``): the two keys differ."""
+    two, tg = tile_g is None, tile_g or 1024
+    got = build.launch_tilemin2_packed(qa, ga) if two else (build.launch_tilemin_packed(qa, ga, tg),)
+    ref = plain.tilemin2_packed_plain(qa, ga) if two else (plain.tilemin_packed_plain(qa, ga, tg),)
     sync()
-    ok = True
-    for keys, ref in ((k1, p1), (k2, p2)):
-        ok = ok and keys_ok(qa, ga, keys, ref, 1024)
-    whole_pad = torch.arange(k1.shape[1], device=k1.device) * 1024 >= n_valid
-    ok = ok and bool((dk._key_to_row(k1)[:, ~whole_pad] < n_valid).all()) and bool((k1 != k2).all())
-    ok = ok and bool((dk._key_to_dist(k1)[:, whole_pad] >= 1e37).all())
-    if not ok:
-        fail(f"min-2 packed scan disagrees with its plain version (B={qa.shape[0]}, "
-             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]})")
+    whole_pad = torch.arange(got[0].shape[1], device=qa.device) * tg >= n_valid
+    ok = all(keys_ok(qa, ga, k, r, tg, equal_ok=not two) for k, r in zip(got, ref))
+    ok = ok and bool((dk._key_to_row(got[0], tg)[:, ~whole_pad] < n_valid).all())
+    ok = ok and bool((dk._key_to_dist(got[0], tg)[:, whole_pad] >= 1e37).all())
+    if not ok or (two and bool((got[0] == got[1]).any())):
+        fail(f"{'min-2' if two else 'single-min'} packed scan disagrees with its plain version (B={qa.shape[0]}, "
+             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]}, tile_g={tg})")
 
 
 def keys_ok(qa, ga, keys, ref, tile_g, equal_ok=False):
@@ -756,24 +897,10 @@ def keys_ok(qa, ga, keys, ref, tile_g, equal_ok=False):
     kd, pd = dk._key_to_dist(keys, tile_g), dk._key_to_dist(ref, tile_g)
     qf = qa.to(F32)
     d_rows = [torch.clamp_min(torch.einsum("bd,btd->bt", qf, ga[dk._key_to_row(kk, tile_g).long()].to(F32)),
-              0.0) for kk in (keys, ref)]
+            0.0) for kk in (keys, ref)]
     tol = 2.0**-12 * pd.abs() + 1e-6
     near = ((kd - pd).abs() <= tol) & ((d_rows[0] - kd).abs() <= tol) & ((d_rows[0] - d_rows[1]).abs() <= tol)
     return bool(((keys == ref) | near).all() if equal_ok else near.all())
-
-
-def check_single(qa, ga, n_valid, tile_g):
-    """Single-min packed scan vs plain, untimed: :func:`keys_ok`; whole-pad tiles only pad distances."""
-    keys = build.launch_tilemin_packed(qa, ga, tile_g)
-    ref = plain.tilemin_packed_plain(qa, ga, tile_g)
-    sync()
-    whole_pad = torch.arange(keys.shape[1], device=keys.device) * tile_g >= n_valid
-    ok = keys_ok(qa, ga, keys, ref, tile_g, equal_ok=True)
-    ok = ok and bool((dk._key_to_row(keys, tile_g)[:, ~whole_pad] < n_valid).all())
-    ok = ok and bool((dk._key_to_dist(keys, tile_g)[:, whole_pad] >= 1e37).all())
-    if not ok:
-        fail(f"single-min packed scan disagrees with its plain version (B={qa.shape[0]}, "
-             f"Np={ga.shape[0]}, n_valid={n_valid}, Da={qa.shape[1]}, tile_g={tile_g})")
 
 
 def check_quant_edge(q, qs, g, gsq, gsc, n_valid, tile_g):
@@ -791,7 +918,7 @@ def check_sm90_edges(dev):
     """The ``sm90_scan.cuh`` kernels vs plain at the ``*_EDGES`` shapes; cases a kernel."""
     gen = gen_on(dev, 31)
     cases = dict.fromkeys(("topk_l2", "topk_l2_precise_split", "topk_l2_precise_split6", "topk_l2_large_k",
-                           "tilemin2_packed", "tilemin_packed", "tilemin_quant", "tilemin", "tilemin_quant_bf16"), 0)
+            "tilemin2_packed", "tilemin_packed", "tilemin_quant", "tilemin", "tilemin_quant_bf16"), 0)
 
     def mask_of(m, b):
         mask = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -820,8 +947,8 @@ def check_sm90_edges(dev):
         g32, q32, g16 = edge_data(gen, n, nv, d, bmax)
         for b, k in ((b, k) for b in TOPK_LARGE_K_B for k in TOPK_LARGE_K):
             for g, kw in ((g16, {}), (g32, dict(precise=True)), (g32, dict(window=(5, d - 3), precise=True)),
-                          (g16, dict(window=(5, d - 3))), (g16, dict(window=(1, d - 1), precise=True)),
-                          (g16, dict(precise=True))):
+                    (g16, dict(window=(5, d - 3))), (g16, dict(window=(1, d - 1), precise=True)),
+                    (g16, dict(precise=True))):
                 check_topk(g, nv, q32[:b], k, **kw)
             cases["topk_l2_large_k"] += 6
         check_topk(g16, nv, q32, 64, row_mask=mask_of(129, bmax))
@@ -830,14 +957,14 @@ def check_sm90_edges(dev):
         g16 = _unit(randn(gen, n, d)).to(BF16)
         ga = dk.pack_gallery_aug(g16, nv)[:, :da].contiguous()  # pads: |g|^2 = 1e38
         for b in SCAN_EDGE_B:
-            check_min2(dk._augment_queries(_unit(g16[:b].to(F32) + 0.1 * randn(gen, b, d)), d, da), ga, nv)
+            check_packed(dk._augment_queries(_unit(g16[:b].to(F32) + 0.1 * randn(gen, b, d)), d, da), ga, nv)
             cases["tilemin2_packed"] += 1
     for n, nv, d, da in SINGLE_EDGES:
         g32, q32, g16 = edge_data(gen, n, nv, d, max(SINGLE_EDGE_B))
         for tg in (128, 256, 512, 1024):
             ga = dk.pack_gallery_aug(g16, nv, tg)[:, :da].contiguous()
             for b in SINGLE_EDGE_B:
-                check_single(dk._augment_queries(q32[:b], d, da), ga, nv, tg)
+                check_packed(dk._augment_queries(q32[:b], d, da), ga, nv, tg)
                 cases["tilemin_packed"] += 1
     big = torch.tensor(plain.BIG_DIST, dtype=F32).item()
     for edges, bs in ((QUANT_EDGES, SCAN_EDGE_B), (TILE_EDGES, TILE_EDGE_B), (QUANT_BF16_EDGES, QUANT_BF16_EDGE_B)):
@@ -892,10 +1019,10 @@ SPLIT_PROBE_TOL = 2.0**-18
 
 
 def check_split_probe(dev, six: bool):
-    """A split precise pass within :data:`SPLIT_PROBE_TOL` of fp64 on a probe where its last terms matter, the
-    product set without them not: bf16 rows and queries = rows x (1 + 2^-9 + 2^-18) (three products; |q|^2 within
-    2^-20, the lo plane non-zero), or ``six``: rows = a bf16 row x that, queries half a row (six products, fp32
-    rows); planes = ``plain.split_bf16x3``, zero past B. (errors)."""
+    """A split precise pass within :data:`SPLIT_PROBE_TOL` of fp64 where its last terms matter, fewer
+    products not: bf16 rows, queries = rows x (1 + 2^-9 + 2^-18) (three products; |q|^2 within 2^-20, a non-zero
+    lo plane), or ``six``: rows = a bf16 row x that, queries half a row; planes = ``plain.split_bf16x3``, zero
+    past B. (errors)."""
     gen = gen_on(dev, 43 if six else 41)
     n, d, f = 4096, 1280, 1.0 + 2.0**-9 + 2.0**-18
     h = _unit(randn(gen, n, d)).to(BF16)
@@ -981,7 +1108,7 @@ def check_big_grids(dev):
             check_topk(g, n, q, k, precise=precise, chunk_rows=1 << 23)
         del g
     done.append(f"topk_l2 over {n} x 8 (bf16 k=1: {n // 2048} segments; precise k=1 over bf16 and fp32 rows, bf16 "
-                f"k=17: {n // 8192} segments)")
+            f"k=17: {n // 8192} segments)")
     torch.cuda.empty_cache()
     return done
 
@@ -1031,13 +1158,13 @@ def check_single_scan(name, qa, ga, tile_g, report):
     np_ = ga.shape[0]
     n_tiles = keys.shape[1]
     t_ = kernel_times(lambda: build.launch_tilemin_packed(qa, ga, tile_g), lambda: plain.tilemin_packed_plain(qa, ga,
-                      tile_g), 2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4, (10, 2))
+            tile_g), 2.0 * b * np_ * da, np_ * da * 2 + b * da * 2 + b * n_tiles * 4, (10, 2))
     phase(f"single-min scan {name} B={b} Np={np_} Da={da} tile_g={tile_g}: keys_equal={100 * key_eq:.3f}% "
           f"rows_equal={100 * row_eq:.3f}% max_gap={err:.3e} rel={rel:.2e} rows_ok={rows_ok} " + times(t_))
     if rel > 2.0**-12 or not rows_ok:
         fail(f"single-min scan kernel disagrees with its plain version ({name})")
     report.setdefault("shapes", []).append(dict(shape=name, b=b, np=np_, da=da, tile_g=tile_g, max_abs_err=err,
-                                                keys_equal=key_eq, **t_))
+            keys_equal=key_eq, **t_))
 
 
 def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
@@ -1071,7 +1198,7 @@ def check_partial_escalation(svc, emb, gallery, dev, share: float = 0.05):
     phase(f"partial escalation ({n_esc} of {emb.shape[0]}): ms front={ms['front']} ({front_blocks} tiles of {qt}) "
           f"in_place={ms['in_place']} ({in_place_blocks} tiles) gather_sync={ms['gather_sync']}; same rows")
     return dict(escalated=n_esc, batch=emb.shape[0], query_tile=qt, scanned_blocks_front=front_blocks,
-                scanned_blocks_in_place=in_place_blocks, **{f"{k}_ms": v for k, v in ms.items()})
+            scanned_blocks_in_place=in_place_blocks, **{f"{k}_ms": v for k, v in ms.items()})
 
 
 def random_unit_gallery(n: int, dim: int, dev, seed: int = 1):
@@ -1104,9 +1231,7 @@ def near_ties(trace, caps, b):
 
 
 def cascade_breakdown(casc, images, caps, report):
-    """Per level: segment and match ms (host clock) and the scan's ms beside its bound."""
-    from fast_image_recognition_tpu_torch.serving import _normalize
-
+    """Per level: segment and match ms (host clock), the scan's ms beside its bound."""
     net = casc.net
     carry = images
     rows = []
@@ -1127,17 +1252,17 @@ def cascade_breakdown(casc, images, caps, report):
         k_ms = cuda_ms(lambda: build.launch_tilemin_packed(qa, aug, casc._tile_g), reps=10)
         b = qa.shape[0]
         b_ms, b_by = bound(2.0 * b * aug.shape[0] * aug.shape[1],
-                           aug.numel() * 2 + qa.numel() * 2 + b * (aug.shape[0] // casc._tile_g) * 4)
+                aug.numel() * 2 + qa.numel() * 2 + b * (aug.shape[0] // casc._tile_g) * 4)
         rows.append(dict(level=level, batch=b, segment_ms=seg_ms, match_ms=match_ms, kernel_ms=k_ms, bound_ms=b_ms,
-                    bound_by=b_by))
+                bound_by=b_by))
         if not final:
             carry = h[: min(caps[level + 1], h.shape[0])]
     report["per_level"] = rows
     return rows
 
 def run_cascade(casc, images, path, launches, smi, labels, refs, plain_sec=None, breakdown=None, early=True):
-    """A cascade line: timed calls, one with no host sync, the breakdown; a rerun on the plain scan decides the same
-    but near-ties, <= 1 % (``early``: >= 1 exit). (row, rows)."""
+    """A cascade line: timed, one call with no host sync, the breakdown; the plain scan decides the same but
+    near-ties, <= 1 % (``early``: >= 1 exit). (row, rows)."""
     counted(lambda: casc.identify_device(images))
     no_sync(lambda: casc.identify_device(images))
     out, ms = timed(lambda: casc.identify_device(images))
@@ -1148,8 +1273,8 @@ def run_cascade(casc, images, path, launches, smi, labels, refs, plain_sec=None,
     if packed.shape != (2 * b + 1,) or not ((idx >= 0) & (idx < casc.n_valid)).all():
         fail(f"{path} returned rows outside the gallery")
     row = dict(img_s=b / ms * 1e3, ms=ms, error_pct=pct(labels[idx] != np.arange(b)), exits=[round(float(f),
-               4) for f in np.bincount(exit_level, minlength=casc.num_levels) / b], forced=forced / b,
-               **{f"{k}_label_agreement_pct": pct(labels[idx] == labels[r]) for k, r in refs.items()})
+            4) for f in np.bincount(exit_level, minlength=casc.num_levels) / b], forced=forced / b,
+            **{f"{k}_label_agreement_pct": pct(labels[idx] == labels[r]) for k, r in refs.items()})
     if plain_sec:
         row["speedup_over_plain"] = plain_sec / (ms / 1e3)
     phase(f"{path} path ({smi}): " + kv(row, *row) + f"; no host sync; launches={launches[path]}")
@@ -1202,15 +1327,14 @@ def mbconv_bound(b, hw, cin, ce, cout, k, has_expand, param_bytes):
 
 
 def run_mbconv_pair(x, q, cfg, plan=None):
-    """Kernel and plain on one input: (outputs, (relative errors overall and on
-    the borders), bit-equal share, launchers)."""
+    """Kernel and plain on one input: (outputs, (relative errors, on the borders), bit-equal share, runs)."""
     k = cfg["kernel"]
     pads = tuple(mb._same_pads(n, k, 1)[1:] for n in x.shape[2:])
     if plan is None:
         run_k = lambda: mb.mbconv(x, q, cfg)  # noqa: E731
     else:
         run_k = lambda: build.launch_mbconv(x, q, k, (pads[0][0], pads[1][0]), plan,  # noqa: E731
-                                            cfg["activation"] == "relu6", cfg["residual"])
+                cfg["activation"] == "relu6", cfg["residual"])
     run_p = lambda: plain.mbconv_plain(x, q, k, pads, cfg["activation"], cfg["residual"])  # noqa: E731
     yk, yp = run_k(), run_p()
     sync()
@@ -1246,13 +1370,13 @@ def check_mbconv_blocks(net, net_f, images, report):
             plan = mb.plane_plan(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q)
             smem = mb.plane_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, "w_exp_t" in q, *plan)
             if build._lib("mbconv").mbconv_smem(hw, hw, fb.cfg["kernel"], cin, ce, cout, s_, int("w_exp_t" in q),
-                          *plan) != smem:
+                    *plan) != smem:
                 fail(f"kernels/mbconv.cu and ops.mbconv_kernel.plane_smem disagree at {name}")
             pbytes = sum(t.numel() * t.element_size() for t in q.values())  # the weights the kernel reads
             b_ms, b_by = mbconv_bound(b, hw, cin, ce, cout, fb.cfg["kernel"], "w_exp_t" in q, pbytes)
             row = dict(block=name, b=b, hw=hw, cin=cin, ce=ce, cout=cout, k=fb.cfg["kernel"], plan=dict(zip(("th", "tw",
-                       "group", "bufs", "ipb"), plan)), smem=smem, max_abs_err=err, rel_err=rel, border_rel_err=border,
-                       bit_equal=eq, ms=ms, plain_ms=plain_ms, per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
+                    "group", "bufs", "ipb"), plan)), smem=smem, max_abs_err=err, rel_err=rel, border_rel_err=border,
+                    bit_equal=eq, ms=ms, plain_ms=plain_ms, per_op_ms=per_op_ms, bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
             print(f"  mbconv {name} B={b} {hw}x{hw} {cin}->{ce}->{cout} k{row['k']} plan {plan} ({smem} B): "
                   f"rel={rel:.2e} border={border:.2e} bit_equal={100 * eq:.2f}% ms={ms:.3f} plain={plain_ms:.3f} "
@@ -1270,8 +1394,8 @@ def check_mbconv_blocks(net, net_f, images, report):
 
 
 def check_mbconv_edges(net_f, dev):
-    """The MBConv kernel off the path's shapes: B 1 and 130, a 15 plane, relu6, no
-    SE, no expand, k 7, a big expand bias, :data:`FORCED_MB_PLANS`."""
+    """The MBConv kernel off the path's shapes: B 1 and 130, a 15 plane, relu6, no SE, no expand, k 7, a
+    big expand bias, :data:`FORCED_MB_PLANS`."""
     gen = gen_on(dev, 29)
 
     def params(i):
@@ -1296,8 +1420,8 @@ def check_mbconv_edges(net_f, dev):
         cases.append((f"{name} B={b} {hw}x{hw}", q, cfg, b, hw, None))
     cin, ce, cout = 32, 64, 32
     p7 = dict(w_exp=rnd(1, 1, cin, ce, scale=0.2), b_exp=rnd(ce, scale=0.1), w_dw=rnd(7, 7, 1, ce, scale=0.2),
-              b_dw=rnd(ce, scale=0.1), w_se1=rnd(ce, 8, scale=0.2), b_se1=rnd(8, scale=0.1), w_se2=rnd(8, ce,
-              scale=0.2), b_se2=rnd(ce, scale=0.1), w_proj=rnd(1, 1, ce, cout, scale=0.2), b_proj=rnd(cout, scale=0.1))
+            b_dw=rnd(ce, scale=0.1), w_se1=rnd(ce, 8, scale=0.2), b_se1=rnd(8, scale=0.1), w_se2=rnd(8, ce,
+            scale=0.2), b_se2=rnd(ce, scale=0.1), w_proj=rnd(1, 1, ce, cout, scale=0.2), b_proj=rnd(cout, scale=0.1))
     cfg7 = dict(kernel=7, stride=1, has_expand=True, has_se=True, residual=True, activation="swish")
     cases.append(("k7 random weights B=130 15x15", mb.prepare_params(p7, cfg7), cfg7, 130, 15, None))
     for name, i, hw, plan in FORCED_MB_PLANS:
@@ -1349,14 +1473,13 @@ def check_s2d_stem(np_vars, net, net_f, images, dev):
 
 
 def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_oracle, plain_sec, launches, dev,
-                     smi, flops, path="fused", n_fused=12):
-    """The plain line on the fused module: timed, no host sync; embedding within
-    0.05 of per-op; labels but at swapped near-ties (2^-7); traced; MFU of the
-    per-op line's ``flops``."""
+        smi, flops, path="fused", n_fused=12):
+    """The plain line on the fused module: timed, no host sync; embedding within 0.05 of per-op; labels but
+    at swapped near-ties (2^-7); traced."""
     if len(net_f.fused_blocks) != n_fused:
         fail(f"{path}: the module fuses {len(net_f.fused_blocks)} blocks, not {n_fused}")
     svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=net_f,
-                             pca_dim=124, pca_scan="packed", device=dev)
+            pca_dim=124, pca_scan="packed", device=dev)
     torch.cuda.reset_peak_memory_stats()
     counted(lambda: svc.identify_device(images))
     out, ms = timed(lambda: svc.identify_device(images))
@@ -1376,16 +1499,16 @@ def check_fused_path(net, net_f, svc_u, info, gallery, labels, images, idx, idx_
     gf, gu = gallery[idx_f].to(F32), gallery[torch.as_tensor(idx, device=dev)].to(F32)
     d_ff, d_fu, d_uf, d_uu = (((e - g) ** 2).sum(1) for e, g in ((nf, gf), (nf, gu), (nu, gf), (nu, gu)))
     swapped = ((d_ff <= d_fu + 2.0**-7 * torch.maximum(d_ff, d_fu))
-               & (d_uu <= d_uf + 2.0**-7 * torch.maximum(d_uf, d_uu))).cpu().numpy()
+            & (d_uu <= d_uf + 2.0**-7 * torch.maximum(d_uf, d_uu))).cpu().numpy()
     idx_f = host(idx_f)
     label_differs = labels[idx_f] != labels[idx]
     row = dict(img_s=len(idx_f) / sec, ms=1e3 * sec, embed_ms=embed_ms, speedup_over_plain_line=plain_sec / sec,
-               error_pct=pct(labels[idx_f] != np.arange(len(idx_f))), row_agreement_plain_line_pct=pct(idx_f == idx),
-               label_agreement_plain_line_pct=pct(~label_differs), row_agreement_oracle_pct=pct(idx_f == idx_oracle),
-               label_agreement_oracle_pct=pct(labels[idx_f] == labels[idx_oracle]),
-               label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)), embedding_rel_diff=emb_rel,
-               escalated_pct=pct(svc.last_escalated), peak_gib=peak_gib, launches=launches[path],
-               **mfu(flops, 1e3 * sec))
+            error_pct=pct(labels[idx_f] != np.arange(len(idx_f))), row_agreement_plain_line_pct=pct(idx_f == idx),
+            label_agreement_plain_line_pct=pct(~label_differs), row_agreement_oracle_pct=pct(idx_f == idx_oracle),
+            label_agreement_oracle_pct=pct(labels[idx_f] == labels[idx_oracle]),
+            label_differs_not_near_tie=int(np.sum(label_differs & ~swapped)), embedding_rel_diff=emb_rel,
+            escalated_pct=pct(svc.last_escalated), peak_gib=peak_gib, launches=launches[path],
+            **mfu(flops, 1e3 * sec))
     phase(f"{path} path ({smi}): " + kv(row, *row) + "; no host sync")
     if emb_rel > 0.05:
         fail(f"{path}: the embedding differs from the per-op one by {emb_rel:.4f} > 0.05")
@@ -1436,7 +1559,7 @@ def chi2_bound(b, n, d, g_bytes):
     """(bound ms, terms): an SFU reciprocal (16/clock/SM) or 6 fp32 operations a triple, or the bytes."""
     triples = float(b) * n * d
     t = dict(reciprocals=triples / PEAK_SFU_RCP * 1e3, fp32=6.0 * triples / PEAK_FP32_FLOPS * 1e3,
-             bytes=(n * d * g_bytes + b * d * 4 + b * 8) / PEAK_HBM_BYTES * 1e3)
+            bytes=(n * d * g_bytes + b * d * 4 + b * 8) / PEAK_HBM_BYTES * 1e3)
     return max(t.values()), t
 
 
@@ -1458,15 +1581,15 @@ def check_chi2(q, g, n_valid, tag, timed=False):
     idx_eq = (ki == pi).float().mean().item()
     b, d = q.shape
     row = dict(shape=f"B={b} N={g.shape[0]} n_valid={n_valid} D={d} gallery {str(g.dtype).split('.')[-1]}",
-               max_abs_err=(kd - pd).abs().max().item(), max_rel_err=rel, indices_equal=idx_eq, plain_ms=plain_ms)
+            max_abs_err=(kd - pd).abs().max().item(), max_rel_err=rel, indices_equal=idx_eq, plain_ms=plain_ms)
     if timed:
         row["ms"] = cuda_ms(lambda: build.launch_chi2(q, g, n_valid), reps=5)
         row["bound_ms"], terms = chi2_bound(b, n_valid, d, g.element_size())
         row.update(bound_by="operations", bound_detail="SFU reciprocals, one per (query, row, feature)",
-                   bound_terms_ms=terms, library_ms=None)
+                bound_terms_ms=terms, library_ms=None)
     phase(f"chi2 {tag} {row['shape']}: max_rel_gap={rel:.2e} indices_equal={100 * idx_eq:.3f}%"
           + (f"; ms={row['ms']:.3f} plain={plain_ms:.1f} bound={row['bound_ms']:.3f} (reciprocals; fp32 "
-             f"{terms['fp32']:.3f}, bytes {terms['bytes']:.3f})" if timed else ""))
+            f"{terms['fp32']:.3f}, bytes {terms['bytes']:.3f})" if timed else ""))
     if not ok:
         fail(f"chi2 kernel disagrees with its plain version ({tag}, {row['shape']})")
     return row, kd, ki
@@ -1529,7 +1652,7 @@ def run_chi2_slice(dev, launches, smi):
     # 15. the kernel at chi2_cost's shape
     g, q = chi2_cost.make_data(CHI2_N, CHI2_B, CHI2_D, dev)
     shapes = [check_chi2(q, g, CHI2_N, "kernel vs plain", timed=True)[0],
-              check_chi2(q, g.to(BF16), CHI2_N, "kernel vs plain", timed=True)[0]]
+            check_chi2(q, g.to(BF16), CHI2_N, "kernel vs plain", timed=True)[0]]
     edges = check_chi2_edges(dev)
     phase(f"chi2 edge shapes: {len(edges)} cases within {CHI2_TOL:.2e}, no row past n_valid, ties to the lowest")
     del g, q
@@ -1577,8 +1700,8 @@ def run_chi2_slice(dev, launches, smi):
 
     bf_rows = []
     cases = [("l2", gal, probes, dict()), ("l2 max_features=256", gal, probes, dict(max_features=256)), ("int8", gal,
-             probes, dict(precision="int8")), ("chi2", gal_s, probes_s, dict(kind=DistanceKind.CHI2)), ("kl", gal_s,
-             probes_s, dict(kind=DistanceKind.KL))]
+            probes, dict(precision="int8")), ("chi2", gal_s, probes_s, dict(kind=DistanceKind.CHI2)), ("kl", gal_s,
+            probes_s, dict(kind=DistanceKind.KL))]
     for name, g_np, p_np, kw in cases:
         m = Recording(BruteForceMatcher(g_np, device=dev, **kw))
         res = counted(lambda: evaluate_matcher(m, glab, p_np, plab, verbose=False, warmup=name not in ("chi2", "kl")))
@@ -1682,7 +1805,7 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
     from fast_image_recognition_tpu_torch.data.video_io import VideoDB, load_videos, write_videos
     from fast_image_recognition_tpu_torch.evaluation.video import evaluate_video_recognition, sample_probe_frames
     from fast_image_recognition_tpu_torch.search.dem import (DirectedEnumerationMatcher, FullMatrixDEM,
-                                                             dem_full_oracle_search)
+        dem_full_oracle_search)
 
     t = time.time()
     cpu = torch.device("cpu")
@@ -1757,17 +1880,17 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
         write_videos(path, p[sub], pl[sub], np.arange(VIDEO_IO_VIDEOS), [f"person{i}" for i in range(VIDEO_IO_VIDEOS)])
         back = load_videos(path, p.shape[1])
     io_ok = (np.array_equal(back.frame_video, pl[sub]) and np.array_equal(back.video_person, np.arange(VIDEO_IO_VIDEOS))
-             and back.person_names == [f"person{i}" for i in range(VIDEO_IO_VIDEOS)]
-             and np.abs(back.frames - normalize_features(p[sub])).max() <= 1e-6)
+            and back.person_names == [f"person{i}" for i in range(VIDEO_IO_VIDEOS)]
+            and np.abs(back.frames - normalize_features(p[sub])).max() <= 1e-6)
     row["video_io_round_trip"] = bool(io_ok)
 
     videos = VideoDB(frames=p, frame_video=pl.astype(np.int64), video_person=np.arange(VIDEO_CLASSES),
-                     person_names=[str(i) for i in range(VIDEO_CLASSES)])
+            person_names=[str(i) for i in range(VIDEO_CLASSES)])
     idx = sample_probe_frames(videos, step=2)
     ev = {}
     for name, d in (("card", dev), ("cpu", cpu)):
         m = DirectedEnumerationMatcher(g, gl, probe_mode="gather", image_count_to_check=g.shape[0] // 10, seed=0,
-                                       device=d)
+                device=d)
         ev[name] = evaluate_video_recognition(m, gl, videos, np.arange(VIDEO_CLASSES), idx, VIDEO_CLASSES)
         del m
     row["video_eval"] = {k: dict(frame_error_pct=v.frame_error, video_error_pct=v.video_error) for k, v in ev.items()}
@@ -1793,7 +1916,7 @@ def check_feature_entry_points(dev, smi, g, gl, p, pl):
 
 
 def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
-    """bench.py ``--config cascade`` over ``model``: SVC exits, ``predict_fused`` timed, no host sync, ``predict()``'s
+    """bench.py ``--config cascade`` over ``model``: ``predict_fused`` timed, no host sync, ``predict()``'s
     decisions but near-ties; a bind line times the plain forward."""
     t = time.time()
     probe = model(torch.zeros((1, RES, RES, 3), device=dev), taps=taps)
@@ -1802,7 +1925,7 @@ def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
     coefs = [rng.normal(0, 0.1, (CASCADE_CLASSES, d)).astype(np.float32) for d in dims]
     intercepts = [np.zeros(CASCADE_CLASSES, np.float32) for _ in dims]
     pipe = SequentialInferencePipeline(model, variables, taps, coefs, intercepts, thresholds=[0.0] * (len(dims) - 1),
-                                       engine=engine, device=dev)
+            engine=engine, device=dev)
     x = torch.from_numpy(rng.normal(size=(BATCH, RES, RES, 3)).astype(np.float32)).to(dev)
     pipe.calibrate(x[:CASCADE_CALIB])
     caps = pipe.capacities_for(BATCH, slack=SLACK)
@@ -1820,11 +1943,11 @@ def engine_line(path, model, variables, taps, dev, launches, engine="folded"):
     margins = cascade_margins(pipe, x)
     full = pipe.predict_fused(x, capacities=[BATCH] * pipe.num_levels)
     full_eq, full_diff, full_ties = check_cascade_decisions(f"{path}: predict_fused at full capacities", full, want,
-                                                            margins)
+            margins)
     row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, break_counts=[float(v) for v in res.break_counts],
-               forced_pct=100.0 * res.forced_fraction,
-               agreement_pct=pct(res.predictions == want.predictions), capacities=list(caps),
-               full_capacity_equal_pct=full_eq, full_capacity_differ=full_diff, near_tie_images=full_ties)
+            forced_pct=100.0 * res.forced_fraction,
+            agreement_pct=pct(res.predictions == want.predictions), capacities=list(caps),
+            full_capacity_equal_pct=full_eq, full_capacity_differ=full_diff, near_tie_images=full_ties)
     if engine == "bind":
         row["plain_ms"] = host_ms(lambda: model(x)["embedding"][0, :8], TIMED_CALLS)
         row["speedup_vs_plain"] = row["plain_ms"] / ms
@@ -1868,7 +1991,7 @@ def run_feature_configs(dev, launches, smi):
         oracle_rows += int(idx[i] == oi)
         oracle_close += int(abs(int(checked[i]) - oc) <= 2)
     dem_dev = DirectedEnumerationMatcher.from_device(torch.from_numpy(g).to(dev), gl, probe_mode="exact", seed=0,
-                                                     device=dev)
+            device=dev)
     dem_dev16 = DirectedEnumerationMatcher.from_device(torch.from_numpy(g).to(dev), gl, seed=0, device=dev)
     same_pivots = np.array_equal(dem_dev.index.pivot_indices, dem.index.pivot_indices)
     pivots16 = pct(dem_dev16.index.pivot_indices == dem.index.pivot_indices)
@@ -1882,12 +2005,12 @@ def run_feature_configs(dev, launches, smi):
     idx_e = exact.search_device(probes)[0].cpu().numpy()
     del exact
     row = dict(line="dem gather", queries_s=qps, error_pct=pct(gl[idx] != pl[:b]),
-               checked_pct=100.0 * float(checked.mean()) / n, budget=budget, pivots=len(dem.index.pivot_indices),
-               oracle_rows_equal_pct=100.0 * oracle_rows / DEM_ORACLE_PROBES,
-               oracle_checked_within_2_pct=100.0 * oracle_close / DEM_ORACLE_PROBES,
-               exact_mode_label_agreement_pct=pct(gl[idx] == gl[idx_e]), exact_mode_row_agreement_pct=pct(idx == idx_e),
-               from_device_fp32_same_pivots=same_pivots, from_device_bf16_pivots_equal_pct=pivots16,
-               from_device_bf16_label_agreement_pct=dev16_labels, ms=dem_ms, timed_calls=FEATURE_REPS)
+            checked_pct=100.0 * float(checked.mean()) / n, budget=budget, pivots=len(dem.index.pivot_indices),
+            oracle_rows_equal_pct=100.0 * oracle_rows / DEM_ORACLE_PROBES,
+            oracle_checked_within_2_pct=100.0 * oracle_close / DEM_ORACLE_PROBES,
+            exact_mode_label_agreement_pct=pct(gl[idx] == gl[idx_e]), exact_mode_row_agreement_pct=pct(idx == idx_e),
+            from_device_fp32_same_pivots=same_pivots, from_device_bf16_pivots_equal_pct=pivots16,
+            from_device_bf16_label_agreement_pct=dev16_labels, ms=dem_ms, timed_calls=FEATURE_REPS)
     lines["dem"] = row
     phase(f"dem gather ({n} x {DEM_DIM}, batch {b}, data {data_s:.1f} s, host build {build_s:.1f} s, {smi}, "
           f"CUDA events): " + kv(row) + f"; no host sync; launches={launches['dem']}")
@@ -1910,7 +2033,7 @@ def run_feature_configs(dev, launches, smi):
         unreliable = clf.unreliable_count
         ms = cuda_ms(lambda: clf.predict(tq), TWD_REPS)
         twd_rows.append(dict(line=clf.name, ms_per_probe=ms / len(tq), ms=ms, timed_calls=TWD_REPS,
-                        unreliable_pct=100.0 * unreliable / len(tq), error_pct=pct(preds[: len(p)] != pl)))
+                unreliable_pct=100.0 * unreliable / len(tq), error_pct=pct(preds[: len(p)] != pl)))
     check_launches("twd", launches)
     proposed = classifiers[0].predict(tq[:TWD_ORACLE_PROBES])
     want = np.asarray([proposed_twd_oracle(tq[i], g, gl, 32, 0.7)[0] for i in range(TWD_ORACLE_PROBES)])
@@ -1955,7 +2078,7 @@ def run_feature_configs(dev, launches, smi):
     taps = default_taps("b0", "deep")
     row, ctx = engine_line("cascade engine", model, variables, taps, dev, launches)
     pipe, x, rng, want, margins, coefs, intercepts = (ctx[k] for k in ("pipe", "x", "rng", "want", "margins", "coefs",
-                                                      "intercepts"))
+            "intercepts"))
     pooled = pipe.predict_pooled(x, bucket=BATCH, warmup=True)
     ms_pooled = host_ms(lambda: pipe.predict_pooled(x, bucket=BATCH), TIMED_CALLS)
     pooled_eq, pooled_diff, _ = check_cascade_decisions("predict_pooled", pooled, want, margins)
@@ -1963,19 +2086,19 @@ def run_feature_configs(dev, launches, smi):
     serve = make_serving_fn(variables, info, resolution=RES, device=dev)
     ms_plain = host_ms(lambda: serve(x)["embedding"][0, :8], TIMED_CALLS)
     pipe_b = SequentialInferencePipeline(model, None, taps, coefs, intercepts, thresholds=pipe.thresholds,
-                                         engine="bind", device=dev)
+            engine="bind", device=dev)
     bind_agree = pct(pipe_b.predict(x[:BIND_BATCH]).predictions == pipe.predict(x[:BIND_BATCH]).predictions)
     per_level, cumulative = pipe.measure_segment_latency(x, iters=3)
     if not (np.isfinite(per_level).all() and (per_level > 0).all() and len(per_level) == pipe.num_levels):
         fail(f"measure_segment_latency gave {per_level}")
     seg0_ms = float(per_level[0]) * BATCH
     noise = (pipe.level_scores(x, levels=1)[0][:CASCADE_CALIB]
-             - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
+            - pipe.level_scores(x[:CASCADE_CALIB], levels=1)[0]).abs().max().item()
     row.update(plain_img_s=BATCH / ms_plain * 1e3, plain_ms=ms_plain, speedup_vs_plain=ms_plain / row["ms"],
-               pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled, pooled_equal_pct=pooled_eq,
-               pooled_differ=pooled_diff, bind_vs_folded_label_agreement_pct=bind_agree, level0_segment_ms=seg0_ms,
-               level0_score_batch_noise=noise, segment_ms_per_image=[float(v) for v in per_level],
-               cumulative_ms_per_image=[float(v) for v in cumulative])
+            pooled_img_s=BATCH / ms_pooled * 1e3, pooled_ms=ms_pooled, pooled_equal_pct=pooled_eq,
+            pooled_differ=pooled_diff, bind_vs_folded_label_agreement_pct=bind_agree, level0_segment_ms=seg0_ms,
+            level0_score_batch_noise=noise, segment_ms_per_image=[float(v) for v in per_level],
+            cumulative_ms_per_image=[float(v) for v in cumulative])
     phase(f"cascade engine (folded, SVC exits, batch {BATCH}, {smi}): " + kv(row, *[k for k in row if k not in ("line",
           "cumulative_ms_per_image")]) + f"; no host sync; launches={launches['cascade engine']}")
     if bind_agree < 90.0:
@@ -1988,7 +2111,7 @@ def run_feature_configs(dev, launches, smi):
     gal_images += gal_labels[:, None, None, None].astype(np.float32) * 0.05
     galleries = pipe.level_embeddings(gal_images)
     knn = SequentialInferencePipeline(model, variables, taps, head_mode="knn", galleries=galleries,
-                                      gallery_labels=gal_labels, ratio=0.8, engine="folded", device=dev)
+            gallery_labels=gal_labels, ratio=0.8, engine="folded", device=dev)
     knn.calibrate(x[:CASCADE_CALIB], tune=True)
     knn.predict_fused(x, slack=SLACK)  # warm-up
     r = knn.predict_fused(x, slack=SLACK)
@@ -2022,9 +2145,8 @@ EXTRACT_CLASSES, IRV2_IMAGES = 64, 1024
 
 
 def run_training(dev, launches, smi, tmp):
-    """``train_serving_backbone.main`` for one epoch, steps timed under sync debug "error"; a bf16 step card vs CPU,
-    masks replayed; phase 1 over the trained B0."""
-    from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig, class_weights
+    """``train_serving_backbone.main`` for one epoch under sync debug "error"; a bf16 step card vs CPU;
+    phase 1 over the trained B0."""
     from fast_image_recognition_tpu_torch.scripts import train_serving_backbone
     from fast_image_recognition_tpu_torch.utils import checkpoint as ckpt_mod
 
@@ -2064,13 +2186,13 @@ def run_training(dev, launches, smi, tmp):
         f32 = create_efficientnet("b0", 0, resolution=RES, dtype=F32, device=dev)[0].load_variables(saved[-1])
         ref = f32(trainer._prep(imgs))["embedding"]
     fold_rel, serve_rel, own_rel = (((a - b).abs().max() / b.abs().max()).item() for a, b in
-                                    ((emb, own), (emb, ref), (own, ref)))
+            ((emb, own), (emb, ref), (own, ref)))
     del f32
     row = dict(line="train b0@224", steps=n, step_ms=step_ms, img_s=128 / step_ms * 1e3, first_loss=float(loss[0]),
-               last8_loss=float(loss[-8:].mean()), val_acc=res["last_val_acc"],
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30, checkpoint_bytes=os.path.getsize(out),
-               readback_equal=same, serving_vs_trainer=fold_rel, serving_vs_fp32=serve_rel, trainer_vs_fp32=own_rel,
-               seconds=res["train_seconds"])
+            last8_loss=float(loss[-8:].mean()), val_acc=res["last_val_acc"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, checkpoint_bytes=os.path.getsize(out),
+            readback_equal=same, serving_vs_trainer=fold_rel, serving_vs_fp32=serve_rel, trainer_vs_fp32=own_rel,
+            seconds=res["train_seconds"])
     phase(f"train b0@224 (train_serving_backbone --epochs 1, {smi}, CUDA events over steps 2-{n}): " + kv(row)
           + "; no host sync in a step")
     if n != TRAIN_STEPS or not np.isfinite(loss).all() or not row["last8_loss"] < row["first_loss"] or not same \
@@ -2105,9 +2227,9 @@ def run_training(dev, launches, smi, tmp):
     whole = float(fc @ fp / (fc.norm() * fp.norm()))
     stat_err = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(_leaves(bc), _leaves(bp)))
     step_row = dict(line="train step card vs cpu", loss_card=lc, loss_cpu=lp, loss_rel=abs(lc - lp) / abs(lp),
-                    grad_cos_whole=whole, grad_cos_min=float(cos[big].min()), leaves=len(gp),
-                    leaves_at_1e3_of_max=int(big.sum()), leaves_below_099=int((cos < 0.99).sum()),
-                    stat_rel=float(stat_err), masks=len(masks), seconds=time.time() - t0)
+            grad_cos_whole=whole, grad_cos_min=float(cos[big].min()), leaves=len(gp),
+            leaves_at_1e3_of_max=int(big.sum()), leaves_below_099=int((cos < 0.99).sum()),
+            stat_rel=float(stat_err), masks=len(masks), seconds=time.time() - t0)
     phase(f"train step card vs cpu (bf16, batch 8, {smi}): " + kv(step_row))
     if not (step_row["loss_rel"] <= 2e-2 and whole >= 0.99 and step_row["grad_cos_min"] >= 0.99 and stat_err <= 1e-2):
         fail("the training step on the card disagrees with the CPU's")
@@ -2116,18 +2238,18 @@ def run_training(dev, launches, smi, tmp):
     raw = load_variables(CKPT)
     net = create_efficientnet("b0", 0, resolution=RES, device=dev)[0]
     cfg1 = TrainConfig(num_classes=P1_CLASSES, taps=cfg.taps, resolution=RES, batch_size=P1_BATCH, phase1_epochs=1,
-                       phase2_epochs=0)
+            phase2_epochs=0)
     t1 = MultiExitTrainer(net, {k: raw[k] for k in ("params", "batch_stats")}, cfg1, preprocess=trainer.preprocess,
-                          device=dev)
+            device=dev)
     p0, h0, s0 = _leaves(t1.variables["params"]), _leaves(t1.head_arrays()), _leaves(t1.variables["batch_stats"])
     imgs1, labels1 = device_dataset(P1_CLASSES, 4, RES, seed=13000, device=dev)
     hist = t1.fit(imgs1, labels1, verbose=False)
     logits = t1.head_logits(imgs1[:16])
     p1_row = dict(line="train phase 1", loss=hist["loss"][0], acc=t1.evaluate(imgs1, labels1),
-                  backbone_equal=all(np.array_equal(a, b) for a, b in zip(_leaves(t1.variables["params"]), p0)),
-                  heads_moved=all(not np.array_equal(a, b) for a, b in zip(_leaves(t1.head_arrays()), h0)),
-                  stats_moved=not all(np.array_equal(a, b) for a, b in zip(_leaves(t1.variables["batch_stats"]), s0)),
-                  logits=[list(x.shape) for x in logits])
+            backbone_equal=all(np.array_equal(a, b) for a, b in zip(_leaves(t1.variables["params"]), p0)),
+            heads_moved=all(not np.array_equal(a, b) for a, b in zip(_leaves(t1.head_arrays()), h0)),
+            stats_moved=not all(np.array_equal(a, b) for a, b in zip(_leaves(t1.variables["batch_stats"]), s0)),
+            logits=[list(x.shape) for x in logits])
     phase(f"train phase 1 (trained B0@224, {4 * P1_CLASSES} images, batch {P1_BATCH}): " + kv(p1_row))
     if not (p1_row["backbone_equal"] and p1_row["heads_moved"] and p1_row["stats_moved"]
             and len(logits) == len(cfg.taps) + 1 and all(np.isfinite(x).all() for x in logits)):
@@ -2144,8 +2266,7 @@ def _leaves(tree):
 
 
 def run_extraction(dev, launches, smi, tmp):
-    """``extract_features.main`` over PNG and BMP files vs ``extract_normalized``;
-    the IRv2 extractor vs ``make_serving_fn``."""
+    """``extract_features.main`` over PNG and BMP files; the IRv2 extractor vs ``make_serving_fn``."""
     from fast_image_recognition_tpu_torch.data.feature_io import load_feature_file
     from fast_image_recognition_tpu_torch.models.extractor import FeatureExtractor, list_image_dataset, load_images
     from fast_image_recognition_tpu_torch.scripts import extract_features
@@ -2180,11 +2301,11 @@ def run_extraction(dev, launches, smi, tmp):
     db = load_feature_file(out, fx.embedding_dim)
     g, p = np.arange(n) % 4 < 2, np.arange(n) % 4 >= 2
     r = evaluate_matcher(BruteForceMatcher(db.features[g], device=dev), db.labels[g], db.features[p], db.labels[p],
-                         verbose=False)
+            verbose=False)
     row = dict(line="extract files", images=n, decoded_equal=bool(kept == list(range(n)) and np.array_equal(decoded,
-               arrays)), rows_bit_equal=bool(np.array_equal(rows, want)), names_labels_classes_equal=bool(names_ok),
-               error_pct=100.0 * r.error_rate, files_img_s=n / files_s, decode_img_s=n / decode_s,
-               extract_img_s=n / ext_ms * 1e3)
+            arrays)), rows_bit_equal=bool(np.array_equal(rows, want)), names_labels_classes_equal=bool(names_ok),
+            error_pct=100.0 * r.error_rate, files_img_s=n / files_s, decode_img_s=n / decode_s,
+            extract_img_s=n / ext_ms * 1e3)
     phase(f"extract files ({n} PNG/BMP at {RES}, trained B0, {smi}): " + kv(row) + f"; launches={launches['extract']}")
     if not (n == 4 * EXTRACT_CLASSES and row["decoded_equal"] and row["rows_bit_equal"] and names_ok):
         fail("the extracted file differs from the images or from extract_normalized")
@@ -2206,7 +2327,7 @@ def run_extraction(dev, launches, smi, tmp):
     return dict(extract_files=row, extract_irv2=irv2)
 
 def run_trained_cascade(dev, smi, tmp):
-    """``run_trained_cascade.main`` on synthetic128 at 112 px: pooled ``streams`` 2 = 1, pooled = ``predict()`` but
+    """``run_trained_cascade.main`` on synthetic128 at 112 px: streams 2 = 1, pooled = ``predict()`` but
     near-ties, no host sync in the fused cascade, finite losses."""
     from fast_image_recognition_tpu_torch.scripts import run_trained_cascade as rtc
 
@@ -2221,7 +2342,7 @@ def run_trained_cascade(dev, smi, tmp):
     t = time.time()
     try:
         recs = rtc.main(["--dataset", "synthetic", "--resolution", "112", "--streams", "1,2", "--out",
-                         os.path.join(tmp, "cascade.jsonl")], device=dev)
+                os.path.join(tmp, "cascade.jsonl")], device=dev)
     finally:
         SequentialInferencePipeline.predict_pooled = pooled0
     pipe, x = seen.pop("last")
@@ -2230,7 +2351,7 @@ def run_trained_cascade(dev, smi, tmp):
     r1, r2 = seen[(1, key)], seen[(2, key)]
     same = np.array_equal(r1.predictions, r2.predictions) and np.array_equal(r1.exit_level, r2.exit_level)
     eq, diff, ties = check_cascade_decisions("trained cascade: predict_pooled", r1, pipe.predict(x),
-                                             cascade_margins(pipe, x))
+            cascade_margins(pipe, x))
     no_sync(lambda: pipe.fused_fn(x.shape[0])(x))
     s12 = [r["img_per_s"] for r in recs if r["config"] == "cascade_trained_pooled" and r["far"] == fused["far"]]
     phase(f"trained cascade b0@112 synthetic128 ({smi}): " + "; ".join(kv(r, *[k for k in r if k not in ("dataset",
@@ -2245,8 +2366,7 @@ def run_trained_cascade(dev, smi, tmp):
 
 
 def check_tools(dev):
-    """``PCAModel.project_device`` within 1e-5 of max |``project``|; ``time_jitted``'s steady state within 10 % of
-    ``cuda_ms``'s on one call."""
+    """``project_device`` within 1e-5 of max |``project``|; ``time_jitted`` within 10 % of ``cuda_ms``."""
     from fast_image_recognition_tpu_torch.ops.pca import fit_pca
 
     x = np.random.default_rng(3).standard_normal((4096, 1280)).astype(np.float32)
@@ -2284,7 +2404,7 @@ def run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, de
     for scan, s in (("exact", SHARDS), ("exact", 1), ("packed", SHARDS), ("packed", 1)):
         t = time.time()
         svc = RecognitionService(None, info, gallery, labels=labels, n_valid=GALLERY, serving_fn=serve, match="sharded",
-                                 sharded_scan=scan, pca_dim=124, mesh=gallery_mesh(devices=[dev] * s), device=dev)
+                sharded_scan=scan, pca_dim=124, mesh=gallery_mesh(devices=[dev] * s), device=dev)
         sync()
         build_s = time.time() - t
         if scan == "packed" and s > 1:
@@ -2301,8 +2421,8 @@ def run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, de
             fail(f"{path} differs from match='exact' beyond near-ties")
         exact_rows = out if exact_rows is None else exact_rows
         row = dict(line=path, img_s=BATCH / ms * 1e3, ms=ms, build_s=build_s, shard_rows=int(svc.gallery[0].shape[0]),
-                   error_pct=pct(labels[out] != np.arange(BATCH)), exact_rows_equal_pct=pct(out == idx_exact),
-                   sharded_exact_rows_equal_pct=pct(out == exact_rows))
+                error_pct=pct(labels[out] != np.arange(BATCH)), exact_rows_equal_pct=pct(out == idx_exact),
+                sharded_exact_rows_equal_pct=pct(out == exact_rows))
         rows.append(row)
         phase(f"{path} ({smi}): " + kv(row) + f"; no host sync; launches={launches[path]}")
         del svc
@@ -2321,10 +2441,10 @@ def run_sharded_matcher(gal_bf, q_bf, idx_bf, idx_oracle_bf, launches, smi):
         path = "sharded matcher" + (" precise" if precise else "")
         check_launches(path, launches, **{kernel: SHARDS * 5})
         ok = rows_tie_ok(q_bf, gal_bf, idx, want, rel=0.0 if precise else 2.0**-12, abs_=2.0**-16 * precise,
-                         precise=precise)
+                precise=precise)
         idx = host(idx)
         row = dict(line=path, queries_s=BATCH / ms * 1e3, ms=ms, shard_gib=sum(g.nbytes for g in m.gallery) / 2**30,
-                   rows_equal_pct=pct(idx == np.asarray(want)), error_pct=pct(idx != np.arange(BATCH)))
+                rows_equal_pct=pct(idx == np.asarray(want)), error_pct=pct(idx != np.arange(BATCH)))
         rows.append(row)
         phase(f"{path} ({SHARDS} shards, {BATCH} x {GALLERY} x {q_bf.shape[1]}, CUDA events, {smi}): "
               + kv(row) + f" launches={launches[path]}")
@@ -2368,13 +2488,13 @@ def run_ann_matchers(g, gl, p, pl, dev, launches, smi):
                 fail("the neighbour table differs from the plain build beyond near-ties")
             cpu_m = object.__new__(type(m.matcher))
             cpu_m.__dict__.update({k: v.cpu() if isinstance(v, torch.Tensor) else v for k,
-                                  v in m.matcher.__dict__.items()}, device=torch.device("cpu"))
+                    v in m.matcher.__dict__.items()}, device=torch.device("cpu"))
             extra = f" table_launches={n_build} table_equal_plain={100.0 * (1 - len(r) / got.numel()):.4f}%"
         elif method == "proj":
             cpu_m = build_matcher(method, g, gl, cfg, seed=0, device="cpu")
         equal = pct(m.last.indices == cpu_m.search(q).indices)
         rows.append(dict(line=method, name=m.name, error_pct=res.error_rate, ms_per_probe=res.ms_per_image,
-                    checked_pct=res.checked_percent, build_s=build_s, cpu_rows_equal_pct=equal))
+                checked_pct=res.checked_percent, build_s=build_s, cpu_rows_equal_pct=equal))
         phase(f"build_matcher('{method}') ({g.shape[0]} x {g.shape[1]}, budget {cfg.image_count_to_check}, "
               f"{build_s:.1f} s): {res.summary()} ({smi}) cpu_rows_equal={equal:.2f}%{extra}")
         if equal < 97.0:
@@ -2395,7 +2515,7 @@ def run_classifiers(gal, glab, probes, plab, dev, smi):
     def fitted(d):
         out = []
         for clf in (KNNClassifier(1, c, device=d), KNNClassifier(3, c, device=d), PNNClassifier(c, device=d),
-                    FPNNClassifier(c, device=d)):
+                FPNNClassifier(c, device=d)):
             out.append(clf.fit(gal, glab))
             if hasattr(clf, "bruteforce"):
                 seq = copy.copy(clf)
@@ -2409,7 +2529,7 @@ def run_classifiers(gal, glab, probes, plab, dev, smi):
         ms = host_ms(lambda: clf.predict(probes), 2)
         equal = pred[:CLS_CPU_PROBES] == cpu.predict(probes[:CLS_CPU_PROBES])
         rows.append(dict(line=clf.name, error_pct=pct(pred != plab), ms_per_probe=ms / len(probes),
-                    cpu_equal_pct=100.0 * float(equal.mean())))
+                cpu_equal_pct=100.0 * float(equal.mean())))
         phase(f"{clf.name} ({gal.shape[0]} x {gal.shape[1]}, {c} classes, {len(probes)} probes, {smi}): "
               + kv(rows[-1], "error_pct", "ms_per_probe", "cpu_equal_pct"))
         if not equal.all():
@@ -2419,7 +2539,7 @@ def run_classifiers(gal, glab, probes, plab, dev, smi):
     sec = time.time() - t
     rc = verification_test(gal[sel], glab[sel], tests=10, end=VERIF_DIM, verbose=False, device="cpu")
     rows.append(dict(line=r.name, rows=int(sel.sum()), error_pct=r.error_rate, sigma=r.extras["sigma"], seconds=sec,
-                cpu_error_pct=rc.error_rate))
+            cpu_error_pct=rc.error_rate))
     phase(f"{r.name} ({VERIF_CLASSES} classes, 10 splits, {smi}): " + kv(rows[-1], *list(rows[-1])[1:]))
     if abs(r.error_rate - rc.error_rate) > 100.0 / int(sel.sum()):
         fail("verification_test on the card differs from its CPU run beyond one probe")
@@ -2467,7 +2587,7 @@ def main() -> int:
     mma = {k: v for counts in mma_by_lib.values() for k, v in counts.items()}
     sm90 = {k: v for k, v in mma.items() if "_sm90" in k}
     families = ("topk_pass1_sm90", "topk_pass1_split_sm90", "topk_pass1_split6_sm90", "tilemin_packed_sm90",
-                "tilemin_quant_sm90", "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
+            "tilemin_quant_sm90", "tilemin_sm90", "tilemin_quant_bf16_sm90", "mbconv_sm90")
     if not all(any(k.startswith(f) for k in sm90) for f in families) or not all(
             v["HGMMA"] + v["IGMMA"] > 0 and v["HMMA"] == v["IMMA"] == 0 for v in sm90.values()):
         fail(f"a kernel of the sm90 main loop does not run on wgmma alone: {sm90}")
@@ -2486,7 +2606,7 @@ def main() -> int:
             fail(f"kernels/{build.SOURCES[lib]} still issues HMMA/IMMA: {mma_by_lib[lib]}")
     phase("SASS HGMMA/IGMMA/HMMA/IMMA per kernel: "
           + "; ".join(f"{k} {v['HGMMA']}/{v['IGMMA']}/{v['HMMA']}/{v['IMMA']}" for k, v in sorted(mma.items())
-                      if any(v.values())))
+            if any(v.values())))
     pad_pairs = check_edge_shapes(dev)
     phase(f"edge shapes {EDGE_SHAPES}: every kernel = plain; {pad_pairs} whole-pad (query, tile) minima bit-equal")
     n_cases = check_sm90_edges(dev)
@@ -2542,7 +2662,7 @@ def main() -> int:
     check_topk(gallery, GALLERY, probe_batch[:256], 32, report)
     check_topk(gallery, GALLERY, probe_batch, 1, report, key="topk_l2_precise", precise=True)
     masked_empty_ms = cuda_ms(lambda: dk.topk_l2(probe_batch, gallery, 1, n_valid=GALLERY, row_mask=torch.zeros(BATCH,
-                              dtype=torch.bool, device=dev)), reps=10)
+            dtype=torch.bool, device=dev)), reps=10)
     phase(f"topk_l2 with an empty escalation mask (B={BATCH}, N={GALLERY}): {masked_empty_ms:.4f} ms a launch")
 
     # 5-6. the main path, match='exact' and the oracle, each counted
@@ -2564,7 +2684,7 @@ def main() -> int:
     check_packed_service(info, gallery, labels, emb, images, serve, dev, launches, report)
     # 6'. match='sharded', both scans
     sharded_rows, shard_scan = run_sharded_service(info, gallery, labels, emb, images, serve, idx_exact, dev,
-                                                   launches, smi)
+            launches, smi)
 
     # 6a. the fused MBConv path
     t = time.time()
@@ -2577,15 +2697,15 @@ def main() -> int:
     phase(f"mbconv edge shapes: {len(mb_report['edges'])} cases within {MB_TOL:.2e} of max |plain|, borders too")
     s2d_row = check_s2d_stem(np_vars, serve, serve_f, images, dev)
     fused_row = check_fused_path(serve, serve_f, svc, info, gallery, labels, images, idx, idx_oracle, sec, launches,
-                                 dev, smi, line["flops_per_iter"])
+            dev, smi, line["flops_per_iter"])
     del serve_f, svc, exact
 
     # 6b. JAX's default service (PCA-128, f32 tile scan) and its other scans
     tile_report = {"tilemin": [], "tilemin_quant": []}
     mode_rows = []
     for name, kw, kernel in (("default", {}, "tilemin"), ("pca_scan='bf16'", dict(pca_scan="bf16"), "tilemin"),
-                             ("pca_scan='int8'", dict(pca_scan="int8"), "tilemin_quant"),
-                             ("match='int8'", dict(match="int8"), "tilemin_quant")):
+            ("pca_scan='int8'", dict(pca_scan="int8"), "tilemin_quant"),
+            ("match='int8'", dict(match="int8"), "tilemin_quant")):
         t = time.time()
         ms_ = RecognitionService(None, info, gallery, **skw, **kw)
         sync()
@@ -2594,7 +2714,7 @@ def main() -> int:
             qp = ((emb - ms_._mu) @ ms_._w).to(BF16).contiguous()
             for bf in (False, True):
                 check_tile_scan(f"pca{ms_.pca_dim}-{'bf16' if bf else 'f32'}-scores", qp, ms_._gal_pca, ms_._gal_sq,
-                                1024, tile_report["tilemin"], bf16_scores=bf)
+                        1024, tile_report["tilemin"], bf16_scores=bf)
         counted(lambda: ms_.identify_device(images))
         out, m_ms = timed(lambda: ms_.identify_device(images))
         check_launches(f"service {name}", launches, **{kernel: TIMED_CALLS + 1})
@@ -2602,7 +2722,7 @@ def main() -> int:
         if out.dtype != np.int32 or not ((out >= 0) & (out < GALLERY)).all():
             fail(f"service {name} returned rows outside the gallery")
         row = dict(mode=name, img_s=BATCH / m_ms * 1e3, ms=m_ms, build_s=build_s, error_pct=pct(labels[out] != truth),
-                   agreement_pct=pct(out == idx_oracle), exact_agreement_pct=pct(out == idx_exact))
+                agreement_pct=pct(out == idx_oracle), exact_agreement_pct=pct(out == idx_exact))
         mode_rows.append(row)
         phase(f"service {name} (PCA-{getattr(ms_, 'pca_dim', '-')}, {smi}): " + kv(row)
               + f" launches={launches[f'service {name}']}")
@@ -2641,7 +2761,7 @@ def main() -> int:
 
     # 9-10. the cascade path; its decisions on the plain scan
     casc_row, idx_c = run_cascade(casc, images, "cascade", launches, smi, labels, dict(oracle=idx_oracle,
-                                  exact=idx_exact), plain_sec=sec, breakdown=(caps, scan_report))
+            exact=idx_exact), plain_sec=sec, breakdown=(caps, scan_report))
     casc_row.update(survivors=[round(f, 4) for f in fracs], capacities=caps)
     del casc, tap_gals
 
@@ -2663,8 +2783,8 @@ def main() -> int:
     check_launches("pca_approx", launches, tilemin_packed=TIMED_CALLS + 1)
     idx_apx = host(idx_apx)
     apx_row = dict(line="service approx-select", img_s=BATCH / apx_ms * 1e3, ms=apx_ms, build_s=apx_build_s,
-                   error_pct=pct(labels[idx_apx] != truth), agreement_pct=pct(idx_apx == idx_oracle),
-                   rows_equal_exact_select_pct=pct(idx_apx == idx_none))
+            error_pct=pct(labels[idx_apx] != truth), agreement_pct=pct(idx_apx == idx_oracle),
+            rows_equal_exact_select_pct=pct(idx_apx == idx_none))
     phase(f"service approx-select (PCA-{svc_apx.pca_dim} packed, rescore {svc_apx.rescore}, {smi}): "
           + kv(apx_row) + f" launches={launches['pca_approx']}")
     if svc_apx.escalate is not None or not np.array_equal(idx_apx, idx_none):
@@ -2675,7 +2795,7 @@ def main() -> int:
     t = time.time()
     probes, gal_p, planted = planted_gallery(GALLERY, BATCH, enroll.shape[1], dev)
     svc_p = RecognitionService(None, info, gal_p, n_valid=GALLERY, serving_fn=serve, pca_dim=124,
-                               pca_scan="packed", device=dev)
+            pca_scan="packed", device=dev)
     idx_p = counted(lambda: svc_p._match_emb(probes))
     sync()
     idx_p2 = no_sync(lambda: svc_p._match_emb(probes))
@@ -2703,6 +2823,9 @@ def main() -> int:
     mobilenet_lines = run_mobilenets(dev, launches, smi, mb_v2 := {})
     # 12c. the rest of the zoo
     zoo_lines = run_zoo(dev, report, launches, smi)
+    # 12d. the pruned B0s
+    prune_lines, prune_mb = run_pruning(dev, np_vars, info, images, launches, smi, (line, fused_row))
+    phase(f"prune b0@{RES}: {prune_lines['seconds']:.1f} s")
 
     # 13. bench.py --config bf: 1M x 1536 unit rows, queries row i + 1e-2 noise
     t = time.time()
@@ -2727,14 +2850,14 @@ def main() -> int:
         check_launches(path, launches, **{k: v * (TIMED_CALLS + 1) for k, v in counts.items()})
         found = bf_found[path] = out[1][:, 0].cpu().numpy()
         row = dict(line=name, queries_s=BATCH / b_ms * 1e3, ms=b_ms, error_pct=pct(found != truth),
-                   agreement_pct=pct(found == idx_oracle_bf),
-                   bf16_scan_agreement_pct=pct(found == bf_found.get("bf", found)))
+                agreement_pct=pct(found == idx_oracle_bf),
+                bf16_scan_agreement_pct=pct(found == bf_found.get("bf", found)))
         phase(f"bf line, {name} ({smi}): " + kv(row) + f" launches={launches[path]}")
         return row
 
     bf_rows = [bf_line("fused brute-force (topk_l2, k=1)", lambda: dk.topk_l2(q_bf, gal_bf, 1, n_valid=GALLERY), "bf",
-               topk_l2=1), bf_line(f"feature window {list(BF_WINDOW)}", lambda: dk.topk_l2(q_bf, gal_bf, 1,
-               n_valid=GALLERY, window=BF_WINDOW), "bf_windowed", topk_l2_windowed=1)]
+            topk_l2=1), bf_line(f"feature window {list(BF_WINDOW)}", lambda: dk.topk_l2(q_bf, gal_bf, 1,
+            n_valid=GALLERY, window=BF_WINDOW), "bf_windowed", topk_l2_windowed=1)]
     # 13'. ShardedGalleryMatcher
     sharded_matcher_rows = run_sharded_matcher(gal_bf, q_bf, bf_found["bf"], idx_oracle_bf, launches, smi)
 
@@ -2749,7 +2872,7 @@ def main() -> int:
     q_i8, q_sc = quantize_rows(q_bf)
     for compute in ("int8", "bf16"):
         check_tile_scan(f"bf-quant-{compute}", q_i8, gal_q, gsq_bf, 1024, tile_report["tilemin_quant"],
-                        quant=(q_sc, gsc_bf, compute))
+                quant=(q_sc, gsc_bf, compute))
     for compute in ("int8", "bf16"):
         bf_rows.append(bf_line(f"int8-scan+rescore ({compute}, r=16)",
             lambda compute=compute: dk.topk_l2_quant(q_bf, gal_q, gsq_bf, gsc_bf, gal_bf, 1, r=16, compute=compute),
@@ -2776,35 +2899,37 @@ def main() -> int:
     def kernel_row(name, source, replaces, path, entries, **extra):
         first = {k: entries[0].get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         return dict(name=name, route="cuda", source=src + source, replaces=replaces, launches=launches[path][name],
-                    launches_by_path={p: c[name] for p, c in launches.items()}, **first, **extra, shapes=entries)
+                launches_by_path={p: c[name] for p, c in launches.items()}, **first, **extra, shapes=entries)
 
     mb_tot = mb_report["total"]
-    rows = [kernel_row("tilemin2_packed", "packed_scan.cu", jax_dk + "393", "pca", report["tilemin2_packed"]),
-            kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms),
-            kernel_row("tilemin_packed", "packed_scan.cu", jax_dk + "350", "cascade",
-            scan_report["shapes"] + shard_scan["shapes"], per_level=scan_report["per_level"]), kernel_row("tilemin",
-            "tile_scan.cu", jax_dk + "174", "service default", tile_report["tilemin"]), kernel_row("tilemin_quant",
-            "tile_scan.cu", jax_dk + "671", "bf_quant_int8", tile_report["tilemin_quant"]),
-            kernel_row("topk_l2_precise", "topk_l2.cu", jax_dk + "92 (precise=True)", "oracle",
-            report["topk_l2_precise"],
-            kernel="split_queries + topk_pass1_split_sm90 (bf16 rows; three " "bf16 wgmma products)"),
-            kernel_row("topk_l2_precise_f32", "topk_l2.cu", jax_dk + "92 (precise=True, fp32 rows)", "oracle_f32",
-            report["topk_l2_precise_f32"],
-            kernel="split_queries + topk_pass1_split6_sm90 (fp32 rows split " "on the chip; six bf16 wgmma products)"),
-            kernel_row("topk_l2_windowed", "topk_l2.cu", jax_dk + "92 (window)", "bf_windowed",
-            report["topk_l2_windowed"]), dict(kernel_row("mbconv", "mbconv.cu",
-            "fast_image_recognition_tpu/ops/mbconv_kernel.py:82", "fused", mb_report["blocks"],
-            kernel="mbconv_sm90 (one launch per block)",
-            shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed", yardstick_per_op_ms=mb_tot["per_op_ms"],
-            edges=mb_report["edges"] + mb_v2["edges"], mobilenetv2=dict(blocks=mb_v2["blocks"], total=mb_v2["total"])),
+    rows = [
+        kernel_row("tilemin2_packed", "packed_scan.cu", jax_dk + "393", "pca", report["tilemin2_packed"]),
+        kernel_row("topk_l2", "topk_l2.cu", jax_dk + "92", "pca", report["topk_l2"], empty_mask_ms=masked_empty_ms),
+        kernel_row("tilemin_packed", "packed_scan.cu", jax_dk + "350", "cascade",
+                scan_report["shapes"] + shard_scan["shapes"], per_level=scan_report["per_level"]),
+        kernel_row("tilemin", "tile_scan.cu", jax_dk + "174", "service default", tile_report["tilemin"]),
+        kernel_row("tilemin_quant", "tile_scan.cu", jax_dk + "671", "bf_quant_int8", tile_report["tilemin_quant"]),
+        kernel_row("topk_l2_precise", "topk_l2.cu", jax_dk + "92 (precise=True)", "oracle", report["topk_l2_precise"],
+                kernel="split_queries + topk_pass1_split_sm90 (bf16 rows; three bf16 wgmma products)"),
+        kernel_row("topk_l2_precise_f32", "topk_l2.cu", jax_dk + "92 (precise=True, fp32 rows)", "oracle_f32",
+                report["topk_l2_precise_f32"],
+                kernel="split_queries + topk_pass1_split6_sm90 (fp32 rows split on the chip; six bf16 wgmma products)"),
+        kernel_row("topk_l2_windowed", "topk_l2.cu", jax_dk + "92 (window)", "bf_windowed", report["topk_l2_windowed"]),
+        dict(kernel_row("mbconv", "mbconv.cu", "fast_image_recognition_tpu/ops/mbconv_kernel.py:82", "fused",
+                mb_report["blocks"], kernel="mbconv_sm90 (one launch per block)",
+                shape=f"the 12 stride-1 blocks of B0@{RES} at B={BATCH}, summed",
+                yardstick_per_op_ms=mb_tot["per_op_ms"], edges=mb_report["edges"] + mb_v2["edges"],
+                mobilenetv2=dict(blocks=mb_v2["blocks"], total=mb_v2["total"]), pruned=prune_mb),
             max_abs_err=max(r["max_abs_err"] for r in mb_report["blocks"]), ms=mb_tot["ms"],
-            plain_ms=mb_tot["plain_ms"], bound_ms=mb_tot["bound_ms"], library_ms=None, bound_by=max(("operations",
-            "bytes"), key=lambda by: sum(r["bound_ms"] for r in mb_report["blocks"] if r["bound_by"] == by))), chi2_row,
-            ]
+            plain_ms=mb_tot["plain_ms"], bound_ms=mb_tot["bound_ms"], library_ms=None,
+            bound_by=max(("operations", "bytes"),
+                key=lambda by: sum(r["bound_ms"] for r in mb_report["blocks"] if r["bound_by"] == by))),
+        chi2_row,
+    ]
     print(json.dumps({"lines": {"main": line, "service_modes": mode_rows, "cascade": casc_row, "approx_select": apx_row,
           "bf": bf_rows, "partial_escalation": esc_rows, "fused_path": fused_row, "s2d_stem": s2d_row,
           "flagship": flagship_row, "tools": tools_row, "sharded_service": sharded_rows,
-          "sharded_matcher": sharded_matcher_rows,
+          "sharded_matcher": sharded_matcher_rows, "prune": prune_lines,
           **mobilenet_lines, **zoo_lines, **chi2_lines, **feature_lines}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

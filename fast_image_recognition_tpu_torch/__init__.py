@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of ``fast_image_recognition_tpu`` for one H100: entry
 points run on the card unless given ``device="cpu"``."""
 
-from fast_image_recognition_tpu_torch.device import default_device, resolve_device
+from .device import default_device, resolve_device
 
 __all__ = ["default_device", "resolve_device"]

@@ -1,7 +1,6 @@
 """Early-exit inference over backbone segments (JAX ``cascade/engine.py``):
-``predict``, ``predict_fused`` (static capacities) and ``predict_pooled``
-(``streams``); ``engine`` 'bind' (any zoo module) or 'folded' (MBConv); heads
-'linear' or 'knn', summed in fp64."""
+``predict``, ``predict_fused``, ``predict_pooled``; ``engine`` 'bind' (any zoo
+module) or 'folded' (MBConv); heads 'linear' or 'knn', summed in fp64."""
 
 import contextlib
 import dataclasses
@@ -12,9 +11,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import _pool
-from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, fold_backbone
+from ..device import DeviceLike, resolve_device
+from ..models.efficientnet import _pool
+from ..models.inference import FoldedEfficientNet, fold_backbone
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -83,7 +82,7 @@ class SequentialInferencePipeline:
                 raise ValueError("head_mode='knn' needs one gallery per level and gallery_labels")
             # unit rows once (cosine distance, sequential_inference.py:469)
             self.galleries = [_unit_rows(torch.as_tensor(np.asarray(g, np.float32)).to(dev)).to(torch.float64)
-                              for g in galleries]
+                    for g in galleries]
             self.gallery_labels = torch.as_tensor(np.asarray(gallery_labels), dtype=torch.int64).to(dev)
             self.coefs = self.intercepts = None
         else:
@@ -180,8 +179,8 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def calibrate(self, images, quantile: float = 0.5, tune: Optional[bool] = None) -> List[float]:
-        """Survivor fractions for the capacities and (linear, or ``tune``) thresholds at the ``quantile`` of live
-        confidences (sequential_inference.py:609-631)."""
+        """Survivor fractions and (linear, or ``tune``) thresholds at the ``quantile`` of live confidences
+        (sequential_inference.py:609-631)."""
         if tune is None:
             tune = self.head_mode == "linear"
         carry = self._images(images)
@@ -277,9 +276,8 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def predict_pooled(self, images, bucket: int = 1024, warmup: bool = False, streams: int = 1) -> PipelineResult:
-        """Level-major over a pool in ``bucket`` slices: ``predict``'s decisions, one fetch a level. ``streams``:
-        contiguous sub-pools as an event loop, each on its own CUDA stream, its fetch to pinned memory behind an
-        event: a stream waits on its fetch, compacts and queues its next level before the next is touched."""
+        """Level-major over a pool in ``bucket`` slices, ``predict``'s decisions, one fetch a level. ``streams``:
+        sub-pools as an event loop, each on its own CUDA stream, fetching to pinned memory behind an event."""
         x = self._images(images)
         n = int(x.shape[0])
         preds = np.zeros(n, dtype=np.int64)
@@ -290,7 +288,7 @@ class SequentialInferencePipeline:
         bounds = [n * s // streams for s in range(streams + 1)]
         side = x.device.type == "cuda" and streams > 1
         states = [dict(alive=np.arange(bounds[s], bounds[s + 1]), carry=x[bounds[s] : bounds[s + 1]], level=0,
-                       stream=torch.cuda.Stream(x.device) if side else None) for s in range(streams)]
+                stream=torch.cuda.Stream(x.device) if side else None) for s in range(streams)]
         for st in states if side else []:  # x was made on the current stream
             st["stream"].wait_stream(torch.cuda.current_stream(x.device))
 
@@ -364,7 +362,7 @@ class SequentialInferencePipeline:
             bucket = _bucket(len(gidx), self.buckets)
             if carry.shape[0] < bucket:
                 pad = torch.zeros((bucket - carry.shape[0],) + tuple(carry.shape[1:]), dtype=carry.dtype,
-                                  device=carry.device)
+                        device=carry.device)
                 carry = torch.cat([carry, pad])
             for level in range(self.num_levels):
                 h, lp, cf = self._segment(level, carry)
@@ -388,7 +386,7 @@ class SequentialInferencePipeline:
 
     @torch.no_grad()
     def measure_segment_latency(self, images, iters: int = 5) -> Tuple[np.ndarray, np.ndarray]:
-        """Per-level and cumulative ms an image of the chained segments (sequential_inference.py:1252-1275)."""
+        """Per-level and cumulative ms an image of the chained segments."""
         x = self._images(images)
         n = int(x.shape[0])
         bucket = _bucket(n, self.buckets)

@@ -7,7 +7,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 
 # Per-level linear classifier (SVC-style decision values)
@@ -59,8 +59,8 @@ def train_linear_svc(x: np.ndarray, y: np.ndarray, num_classes: int, use_sklearn
 
 
 def tune_far_threshold(decision_values: np.ndarray, y: np.ndarray, far: float = 0.01) -> float:
-    """Per-level threshold (sequential_inference.py:609-631): the correct predictions' max scores downward until the
-    false accept rate exceeds ``far``."""
+    """Per-level threshold (sequential_inference.py:609-631): correct predictions' max scores downward until
+    the false accept rate exceeds ``far``."""
     predictions = decision_values.argmax(axis=1)
     max_vals = decision_values.max(axis=1)
     mistakes = max_vals[predictions != y]
@@ -146,7 +146,7 @@ class LinearExitCascade:
     def train(x_train_levels: Sequence[np.ndarray], y_train: np.ndarray, num_classes: int, far: float = 0.01,
         fixed_threshold: Optional[float] = None, use_sklearn: bool = True, seed: int = 42, device: DeviceLike = None
     ) -> "LinearExitCascade":
-        """Per-level classifiers; non-final thresholds tuned on a held-out half to FAR <= ``far`` unless fixed."""
+        """Per-level classifiers; non-final thresholds tuned on a held-out half to FAR <= ``far``."""
         num_levels = len(x_train_levels)
         coefs, intercepts, thresholds = [], [], []
         rng = np.random.default_rng(seed)
@@ -183,8 +183,8 @@ class LinearExitCascade:
 
 def entropy_exit_cascade(probs_per_level: Sequence[np.ndarray], threshold: float, mode: str = "entropy"
 ) -> CascadeResult:
-    """BranchyNet (sequential_inference.py:1079-1165) over per-level softmax outputs in NumPy: ``'entropy'`` exits at
-    entropy <= threshold, ``'max_prob'`` at max > threshold."""
+    """BranchyNet (sequential_inference.py:1079-1165) in NumPy: ``'entropy'`` exits at entropy <=
+    threshold, ``'max_prob'`` at max > threshold."""
     num_levels = len(probs_per_level)
     preds, masks = [], []
     for level, p in enumerate(probs_per_level):

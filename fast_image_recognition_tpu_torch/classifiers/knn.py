@@ -5,7 +5,7 @@ the first class to reach K votes wins."""
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 _QUERY_BLOCK = 256  # queries per [B, N] block (distances, sort and votes)
 
@@ -39,7 +39,7 @@ class KNNClassifier:
         self._x = torch.as_tensor(np.asarray(x_train, np.float32), device=self.device)
         self._y = torch.as_tensor(np.asarray(y_train, np.int64), device=self.device)
         self._mean = torch.as_tensor(np.asarray(x_train, np.float64).mean(axis=0).astype(np.float32),
-                                     device=self.device)
+                device=self.device)
         return self
 
     def predict(self, queries: np.ndarray) -> np.ndarray:

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import numpy as np
 
-from fast_image_recognition_tpu_torch.data.feature_io import normalize_features
+from .feature_io import normalize_features
 
 
 def make_synthetic_gallery(num_classes: int, images_per_class: int, num_features: int, seed: int = 123,
@@ -30,7 +30,7 @@ def make_synthetic_gallery(num_classes: int, images_per_class: int, num_features
 
 def make_gallery_and_probes(num_classes: int, gallery_per_class: int, probes_per_class: int, num_features: int,
     seed: int = 123, within_class_noise: float = 0.35):
-    """One clustered pool split into (gallery, glabels, probes, plabels): probes share the gallery's class centers."""
+    """One clustered pool split into (gallery, glabels, probes, plabels) sharing class centers."""
     per = gallery_per_class + probes_per_class
     feats, labels = make_synthetic_gallery(num_classes, per, num_features, seed=seed,
         within_class_noise=within_class_noise)

@@ -1,6 +1,5 @@
 """Procedural textures rendered on the device (JAX ``data/synthetic_device.py``):
-class parameters from JAX's numpy stream (a class seed names the same
-textures), instances from a ``torch.Generator``."""
+class parameters from JAX's numpy stream, instances from a ``torch.Generator``."""
 
 import math
 from typing import Dict, Optional, Tuple
@@ -8,13 +7,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 _TWO_PI = 2.0 * math.pi
 
 
 def make_class_params(num_classes: int, seed: int = 0, waves: int = 6) -> Dict[str, np.ndarray]:
-    """Per-class texture parameters, host-side (tiny); the draw order is the JAX package's, bit for bit."""
+    """Per-class texture parameters on the host, drawn as JAX's, bit for bit."""
     rng = np.random.default_rng(seed)
     C, W = num_classes, waves
     fx = np.empty((C, 3, W), np.float32)
@@ -33,7 +32,7 @@ def make_class_params(num_classes: int, seed: int = 0, waves: int = 6) -> Dict[s
 
 
 def _proto_norms(params: Dict[str, torch.Tensor], res: int, chunk: int = 32):
-    """[C] (lo, inv_scale): joint min and 1/(max - min) of each unwarped prototype rendered at ``res``."""
+    """[C] (lo, inv_scale): min and 1/(max - min) of each unwarped prototype at ``res``."""
     dev = params["fx"].device
     u = torch.linspace(0.0, 1.0, res, dtype=torch.float32, device=dev)
     vv, uu = torch.meshgrid(u, u, indexing="ij")  # v = rows, u = cols
@@ -88,7 +87,7 @@ def _render_batch(per: Dict[str, torch.Tensor], noise: torch.Tensor, res: int, w
 def make_render_fn(params: Dict[str, np.ndarray], res: int, device: DeviceLike = None, max_rotate: float = 0.44,
     scale_range: Tuple[float, float] = (0.8, 1.2), max_shift: float = 0.1, noise_lo: float = 0.0, noise_hi: float = 0.25
 ):
-    """Returns ``render(class_ids [B] int64 tensor, generator) -> uint8 [B, res, res, 3]`` on ``device``."""
+    """``render(class_ids [B] int64 tensor, generator) -> uint8 [B, res, res, 3]`` on ``device``."""
     dev = resolve_device(device)
     pd = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
     lo, inv_scale = _proto_norms(pd, res)

@@ -1,20 +1,19 @@
-"""Config-driven construction (JAX ``factory.py``): a ``FrameworkConfig``
-picks the dataset, matcher and cascade (qt_cpp/db.h defines); all on
-``device`` (default the card) but the host kd-forest."""
+"""Config-driven construction (JAX ``factory.py``): a ``FrameworkConfig`` picks
+the dataset, matcher and cascade; on ``device`` but the host kd-forest."""
 
 from typing import Optional
 
 import numpy as np
 
-from fast_image_recognition_tpu_torch.config import CascadeConfig, DatasetConfig, MatcherConfig
-from fast_image_recognition_tpu_torch.device import DeviceLike
+from .config import CascadeConfig, DatasetConfig, MatcherConfig
+from .device import DeviceLike
 
 METHODS = ("bf", "bf-sharded", "dem", "dem-gather", "dem-full", "proj", "sw", "kdtree")
 
 
 def load_dataset_from_config(cfg: DatasetConfig, seed: int = 123):
-    """Returns (gallery, glabels, probes, plabels, num_classes) using the configured feature file + split policy."""
-    from fast_image_recognition_tpu_torch.data import load_feature_file, train_test_split_images
+    """(gallery, glabels, probes, plabels, num_classes) from the configured file and split."""
+    from .data import load_feature_file, train_test_split_images
 
     db = load_feature_file(cfg.features_file, features_count=cfg.features_count,
         skip_class_substrings=tuple(cfg.skip_class_substrings), max_classes=cfg.max_classes)
@@ -29,17 +28,17 @@ def build_matcher(method: str, gallery: np.ndarray, labels: np.ndarray, cfg: Opt
     """A matcher of :data:`METHODS`; ``bf-sharded`` takes ``mesh``."""
     cfg = cfg or MatcherConfig()
     if method == "bf":
-        from fast_image_recognition_tpu_torch.search import BruteForceMatcher
+        from .search import BruteForceMatcher
 
         return BruteForceMatcher(gallery, kind=cfg.distance, precision=cfg.precision, device=device)
     if method == "bf-sharded":
-        from fast_image_recognition_tpu_torch.parallel import ShardedGalleryMatcher, gallery_mesh
+        from .parallel import ShardedGalleryMatcher, gallery_mesh
 
         if mesh is None:
             mesh = gallery_mesh(devices=None if device is None else [device])
         return ShardedGalleryMatcher(gallery, mesh, tile_g=cfg.gallery_tile)
     if method in ("dem", "dem-gather", "dem-full"):
-        from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
+        from .search.dem import DirectedEnumerationMatcher, FullMatrixDEM
 
         kw = dict(false_accept_rate=cfg.false_accept_rate, image_count_to_check=cfg.image_count_to_check,
             kind=cfg.distance, seed=seed, pivot_fraction=cfg.dem_pivot_fraction, max_pivots=cfg.dem_max_pivots,
@@ -50,7 +49,7 @@ def build_matcher(method: str, gallery: np.ndarray, labels: np.ndarray, cfg: Opt
             gallery, labels, probe_mode="gather" if method == "dem-gather" else "exact", **kw
         )
     if method == "proj":
-        from fast_image_recognition_tpu_torch.search.projection import ProjectionIndexMatcher
+        from .search.projection import ProjectionIndexMatcher
 
         m = ProjectionIndexMatcher(gallery, seed=seed, device=device)
         if cfg.image_count_to_check:
@@ -59,11 +58,11 @@ def build_matcher(method: str, gallery: np.ndarray, labels: np.ndarray, cfg: Opt
     if method == "sw":
         # a baseline (the reference's off-by-default NMSLIB
         # small_world_rand, qt_cpp/ann.h:121-157), never a recommended matcher
-        from fast_image_recognition_tpu_torch.search.small_world import SmallWorldMatcher
+        from .search.small_world import SmallWorldMatcher
 
         return SmallWorldMatcher(gallery, image_count_to_check=cfg.image_count_to_check, seed=seed, device=device)
     if method == "kdtree":
-        from fast_image_recognition_tpu_torch.search.projection import KDTreeMatcher
+        from .search.projection import KDTreeMatcher
 
         return KDTreeMatcher(gallery)
     raise ValueError(f"unknown matcher method {method!r}")
@@ -72,7 +71,7 @@ def build_matcher(method: str, gallery: np.ndarray, labels: np.ndarray, cfg: Opt
 def build_twd_classifiers(gallery: np.ndarray, labels: np.ndarray, num_classes: int,
     cfg: Optional[CascadeConfig] = None, device: DeviceLike = None):
     """The testRecognition classifier battery (ImageTesting.cpp:525-538) from config thresholds."""
-    from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
+    from .cascade import ConventionalTWD, ProposedTWD, TWDType
 
     cfg = cfg or CascadeConfig()
     d = gallery.shape[1]

@@ -13,36 +13,18 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from fast_image_recognition_tpu_torch.kernels.plain import TILE_G
+from .plain import TILE_G
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(KERNEL_DIR), "_build")
 SOURCES = {"packed_scan": "packed_scan.cu", "topk_l2": "topk_l2.cu", "tile_scan": "tile_scan.cu", "mbconv": "mbconv.cu",
     "chi2": "chi2.cu"}
-NVCC_FLAGS = [
-    "-O3",
-    "-std=c++17",
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "--split-compile=0",  # optimize a source's kernels on every core
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-]
-
-LAUNCHES: Dict[str, int] = {
-    "tilemin2_packed": 0,
-    "tilemin_packed": 0,
-    "topk_l2": 0,
-    "topk_l2_windowed": 0,
-    "topk_l2_precise": 0,  # over bf16 rows
-    "topk_l2_precise_f32": 0,  # over fp32 rows
-    "tilemin": 0,
-    "tilemin_quant": 0,
-    "mbconv": 0,  # one launch per block
-    "chi2": 0,
-}
+# --split-compile=0: a source's kernels optimized on every core
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a", "--split-compile=0", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# topk_l2_precise over bf16 rows, _f32 over fp32 rows; mbconv one launch a block
+LAUNCHES: Dict[str, int] = dict.fromkeys(("tilemin2_packed", "tilemin_packed", "topk_l2", "topk_l2_windowed",
+        "topk_l2_precise", "topk_l2_precise_f32", "tilemin", "tilemin_quant", "mbconv", "chi2"), 0)
 # each library's last build: ptxas resource lines and seconds
 BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
@@ -105,47 +87,25 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return out
 
 
+# each extern "C" function's arguments by library: P a pointer, I an int; every one returns an int
+SIGNATURES = {
+    "packed_scan": {"tilemin2_packed_launch": "PPPPIIIP", "tilemin_packed_launch": "PPPIIIIP"},
+    "mbconv": {"mbconv_launch": "P" * 11 + "I" * 17 + "P", "mbconv_smem": "I" * 13},
+    "chi2": {"chi2_launch": "PPIPIIIP"},
+    "tile_scan": {"tilemin_launch": "PPPPPIIIIIP", "tilemin_quant_launch": "PPPPPPPIIIIIP"},
+    "topk_l2": {"topk_l2_launch": "P" * 9 + "I" * 8 + "P", "topk_l2_precise_launch": "PPI" + "P" * 8 + "I" * 8 + "P",
+        "topk_l2_split_smem": "I", "topk_l2_split6_smem": "I", "topk_l2_segment_rows": "II",
+        "topk_l2_query_rows": "", "topk_l2_list_len": "I", "topk_l2_max_k": "",
+        "topk_l2_rescore_launch": "PPIIPPIIIIIP"},
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         lib = ctypes.CDLL(build([name])[name])
-        P, I = ctypes.c_void_p, ctypes.c_int
-        if name == "packed_scan":
-            lib.tilemin2_packed_launch.argtypes = [P, P, P, P, I, I, I, P]
-            lib.tilemin2_packed_launch.restype = I
-            lib.tilemin_packed_launch.argtypes = [P, P, P, I, I, I, I, P]
-            lib.tilemin_packed_launch.restype = I
-        elif name == "mbconv":
-            lib.mbconv_launch.argtypes = [P] * 11 + [I] * 17 + [P]
-            lib.mbconv_launch.restype = I
-            lib.mbconv_smem.argtypes = [I] * 13
-            lib.mbconv_smem.restype = I
-        elif name == "chi2":
-            lib.chi2_launch.argtypes = [P, P, I, P, I, I, I, P]
-            lib.chi2_launch.restype = I
-        elif name == "tile_scan":
-            lib.tilemin_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-            lib.tilemin_launch.restype = I
-            lib.tilemin_quant_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
-            lib.tilemin_quant_launch.restype = I
-        else:
-            lib.topk_l2_launch.argtypes = [P] * 9 + [I] * 8 + [P]
-            lib.topk_l2_launch.restype = I
-            lib.topk_l2_precise_launch.argtypes = [P, P, I] + [P] * 8 + [I] * 8 + [P]
-            lib.topk_l2_precise_launch.restype = I
-            lib.topk_l2_split_smem.argtypes = [I]
-            lib.topk_l2_split_smem.restype = I
-            lib.topk_l2_split6_smem.argtypes = [I]
-            lib.topk_l2_split6_smem.restype = I
-            lib.topk_l2_segment_rows.argtypes = [I, I]
-            lib.topk_l2_segment_rows.restype = I
-            lib.topk_l2_query_rows.argtypes = []
-            lib.topk_l2_query_rows.restype = I
-            lib.topk_l2_list_len.argtypes = [I]
-            lib.topk_l2_list_len.restype = I
-            lib.topk_l2_max_k.argtypes = []
-            lib.topk_l2_rescore_launch.argtypes = [P, P, I, I, P, P, I, I, I, I, I, P]
-            lib.topk_l2_rescore_launch.restype = I
-            lib.topk_l2_max_k.restype = I
+        for fn, sig in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = [ctypes.c_void_p if c == "P" else ctypes.c_int for c in sig], ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -262,9 +222,8 @@ def launch_topk_l2(q: torch.Tensor, g: torch.Tensor, k: int, n_valid: int, windo
     precise: bool = False, row_mask: Optional[torch.Tensor] = None,
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, split_out: Optional[Dict[str, torch.Tensor]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``kernels/topk_l2.cu``: top-k raw squared L2 [B, k] and rows (-1 past n_valid); bf16, or ``precise`` (counted
-    ``topk_l2_precise[_f32]``); ``window``, ``row_mask``, ``floor`` as plain's; ``split_out`` gets ``planes``, ``qsq``.
-"""
+    """``kernels/topk_l2.cu``: top-k raw squared L2 [B, k] and rows (-1 past n_valid), bf16 or ``precise``;
+    ``window``, ``row_mask``, ``floor`` as plain's; ``split_out`` gets ``planes``, ``qsq``."""
     _check(q, "queries", torch.float32 if precise else torch.bfloat16, 2)
     if precise:
         if g.dtype not in (torch.float32, torch.bfloat16):
@@ -328,7 +287,7 @@ def launch_topk_l2(q: torch.Tensor, g: torch.Tensor, k: int, n_valid: int, windo
 
 
 def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor,
-                        window: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        window: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 3 in place on :func:`launch_topk_l2`'s output, as ``plain.topk_rescore_plain``."""
     b, dim = q.shape
     f32, bf16 = torch.float32, torch.bfloat16
@@ -336,17 +295,17 @@ def launch_topk_rescore(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: 
             or idx.dtype != torch.int32 or not d.is_contiguous() or not idx.is_contiguous()
             or (q.dtype, g.dtype) not in ((bf16, bf16), (f32, bf16), (f32, f32))):
         raise ValueError("rescore takes queries [B, D], rows [N, D] (bf16 with bf16 queries) and contiguous fp32 and "
-                         "int32 picks [B, k]")
+                "int32 picks [B, k]")
     lo, hi = window or (0, dim)
     with torch.cuda.device(q.device):
         _raise_on(_lib("topk_l2").topk_l2_rescore_launch(q.contiguous().data_ptr(), g.contiguous().data_ptr(),
-                  int(q.dtype == torch.float32), int(g.dtype == torch.float32), d.data_ptr(), idx.data_ptr(), b,
-                  d.shape[1], dim, int(lo), int(hi), torch.cuda.current_stream().cuda_stream), "topk_rescore")
+                int(q.dtype == torch.float32), int(g.dtype == torch.float32), d.data_ptr(), idx.data_ptr(), b,
+                d.shape[1], dim, int(lo), int(hi), torch.cuda.current_stream().cuda_stream), "topk_rescore")
     return d, idx
 
 
 def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int, tile_g: int,
-                    what: str = "tile scan") -> int:
+        what: str = "tile scan") -> int:
     """The tile scans' shape rules: the tile count, or raises."""
     (b, d), (np_, g_d) = q_shape, g_shape
     if tile_g not in (128, 256, 512, 1024):
@@ -360,7 +319,7 @@ def tile_scan_tiles(q_shape: Tuple[int, int], g_shape: Tuple[int, int], vec: int
 
 
 def _check_scan(q: torch.Tensor, g: torch.Tensor, dtype: torch.dtype, vec: int, tile_g: int,
-                what: str = "tile scan") -> int:
+        what: str = "tile scan") -> int:
     """Validate a scan's operands; returns the number of tiles."""
     _check(q, "queries", dtype, 2)
     _check(g, "gallery", dtype, 2)
@@ -429,7 +388,7 @@ def launch_mbconv(x: torch.Tensor, q: Dict[str, torch.Tensor], kernel: int, pad_
         want.update(w_exp_t=((ce, cin), torch.bfloat16))
     if has_se:
         want.update(w_se1=((ce, s), torch.float32), b_se1=((s,), torch.float32),
-                    w_se2=((s, ce), torch.float32), b_se2=((ce,), torch.float32))
+                w_se2=((s, ce), torch.float32), b_se2=((ce,), torch.float32))
     for n, (shape, dtype) in want.items():
         _check(q[n], n, dtype, len(shape))
         if tuple(q[n].shape) != shape or q[n].device != x.device:

@@ -76,8 +76,7 @@ def tilemin_plain(
     bf16_scores: bool = False,
     chunk_rows: int = 65536,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g`` (``_tilemin_kernel``), the score fp32 or
-    (``bf16_scores``) rounded to bf16 each step."""
+    """Per (query, tile) min and lowest argmin of ``|g|^2 - 2 q.g``, fp32 or (``bf16_scores``) bf16 scores."""
     qf = q.to(torch.float32)
 
     def score(r0, r1):
@@ -139,8 +138,8 @@ def topk_l2_plain(
     chunk_rows: int = 65536,
     floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k (``_topk_kernel``): ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, ties low, empty ``(BIG_DIST,
-    -1)``; ``floor=(d, row)``: only what follows. ``torch.topk`` of keys ``bits(d) << 32 | (row + 1)``."""
+    """Exact L2 top-k: ``max(|q|^2 + |g|^2 - 2 q.g, 0)`` in fp32, ties low, empty ``(BIG_DIST, -1)``;
+    ``floor=(d, row)``: only what follows. ``torch.topk`` of keys ``bits(d) << 32 | (row + 1)``."""
     n = g.shape[0] if n_valid is None else int(n_valid)
     b, dim = q.shape
     qf = q.to(torch.float32)
@@ -156,7 +155,7 @@ def topk_l2_plain(
     if floor is not None:
         fd, fi = floor[0].to(torch.float32).contiguous(), floor[1].to(torch.int64)
         floor_key = torch.where(fi < 0, torch.iinfo(torch.int64).max,
-                                ((fd.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32) | (fi + 1))[:, None]
+                ((fd.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32) | (fi + 1))[:, None]
     for r0 in range(0, n, chunk_rows):
         r1 = min(r0 + chunk_rows, n)
         gf = g[r0:r1].to(torch.float32)
@@ -178,9 +177,9 @@ def topk_l2_plain(
 
 
 def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: torch.Tensor, window: Optional[Tuple[int,
-                       int]] = None, chunk: int = 1 << 24) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass 3 (``topk_rescore``): each pick's d as the fp32 sum of ``(q - g)^2`` over the window, each list sorted
-    again, empty slots last."""
+        int]] = None, chunk: int = 1 << 24) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 3: each pick's d as the fp32 sum of ``(q - g)^2`` over the window, lists sorted again, empty
+    slots last."""
     lo, hi = window or (0, q.shape[1])
     valid, out = idx >= 0, d.clone()
     step = max(1, chunk // max(1, idx.shape[1] * (hi - lo)))
@@ -189,7 +188,7 @@ def topk_rescore_plain(q: torch.Tensor, g: torch.Tensor, d: torch.Tensor, idx: t
         out[s : s + step] = rows.sub_(q[s : s + step, None, lo:hi].to(torch.float32)).square_().sum(dim=2)
     out = torch.where(valid, out, d)
     keys = torch.where(valid, (out.view(torch.int32).to(torch.int64) << 32) | (idx.to(torch.int64) + 1),
-                       torch.iinfo(torch.int64).max)
+            torch.iinfo(torch.int64).max)
     order = torch.sort(keys, dim=1, stable=True).indices
     return out.gather(1, order), idx.gather(1, order)
 
@@ -211,8 +210,7 @@ def chi2_nn_plain(
     n_valid: Optional[int] = None,
     tile_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """chi2 1-NN (``_chi2_kernel``): per query the least ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32 and its lowest
-    row."""
+    """chi2 1-NN: per query the least ``sum (g - q)^2 / max(g + q, 1e-30)`` in fp32, its lowest row."""
     b, d = q.shape
     n = g.shape[0] if n_valid is None else int(n_valid)
     if tile_rows is None:
@@ -255,7 +253,7 @@ def mbconv_plain(
     residual: bool,
     chunk: int = 64,
 ) -> torch.Tensor:
-    """A folded stride-1 MBConv block (``_mbconv_kernel``), rounded where ``mbconv.cu`` rounds to bf16."""
+    """A folded stride-1 MBConv block, rounded where ``mbconv.cu`` rounds to bf16."""
     dt = x.dtype
     b, _, h, w = x.shape
     cout, ce = q["w_proj_t"].shape

@@ -11,8 +11,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import ZooNet, _BatchNorm, _pool, batch_stats, create, keep_mask
+from ..device import DeviceLike
+from .zoo import ZooNet, _BatchNorm, _pool, batch_stats, create, keep_mask
 
 # torchvision's normalization on 0..255 (dnn_feature_extractor.py:116-119)
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
@@ -60,7 +60,7 @@ def block_plan(variant: str) -> List[Dict[str, Any]]:
         fo = round_filters(fo, v.width)
         for i in range(round_repeats(r, v.depth)):
             plan.append(dict(name=f"block{stage}{chr(ord('a') + i)}", kernel=k, stride=s if i == 0 else 1, expand=e,
-                        in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=se, stage=stage, activation="swish"))
+                    in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=se, stage=stage, activation="swish"))
     return plan
 
 
@@ -115,7 +115,7 @@ CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
 
 
 def preprocess_images_caffe(images: torch.Tensor, resolution: Optional[int] = None,
-                            mean: Sequence[float] = CAFFE_MEAN_BGR) -> torch.Tensor:
+        mean: Sequence[float] = CAFFE_MEAN_BGR) -> torch.Tensor:
     """RGB NHWC -> BGR less the mean, resized first."""
     x = _resize(images, resolution).flip(-1)
     return x - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
@@ -142,7 +142,7 @@ def _act(name: str):
 
 
 class _Conv(nn.Module):
-    """flax ``nn.Conv`` with ``'SAME'`` pads; the OIHW fp32 weight cast to the input's dtype at each call."""
+    """flax ``nn.Conv``, ``'SAME'`` pads; the fp32 OIHW weight cast to the input's dtype a call."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1, bias: bool = False):
         super().__init__()
@@ -159,8 +159,7 @@ class _Conv(nn.Module):
 
 
 def _conv_bn(conv: _Conv, bn: _BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """``bn(conv(x))`` as XLA runs it: the conv's fp32 result into the BN, rounded once after it (a rounding between
-    doubled the fold gap). No BN: a folded conv."""
+    """``bn(conv(x))`` as XLA runs it: the conv's fp32 result into the BN, rounded once after it."""
     return conv(x) if bn is None else bn(conv(x, fp32_out=True), x.dtype)
 
 
@@ -177,7 +176,7 @@ class SqueezeExcite(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Inverted residual: expand 1x1, depthwise, (SE), project 1x1, the residual where the shape keeps."""
+    """Inverted residual: expand, depthwise, (SE), project, the residual where the shape keeps."""
 
     def __init__(self, cfg: Dict[str, Any], hidden_filters: Optional[int] = None):
         super().__init__()
@@ -220,8 +219,8 @@ def _remat_block(blk: nn.Module, h: torch.Tensor, mask, keep: float) -> torch.Te
 
 
 class EfficientNet(ZooNet):
-    """EfficientNet with segments and taps. Train mode keeps block i's residual with probability ``1 - drop_connect *
-    i / n`` (``drop_masks(i, batch)`` replays masks); ``remat`` recomputes blocks in the backward pass."""
+    """EfficientNet with segments and taps; train mode keeps block i's residual with probability ``1 -
+    drop_connect * i / n`` (``drop_masks(i, batch)`` replays masks); ``remat`` recomputes blocks backward."""
 
     drop_connect, drop_masks, remat = 0.2, None, False
 
@@ -231,10 +230,10 @@ class EfficientNet(ZooNet):
         v = VARIANTS[variant]
         self.variant, self.resolution, self.remat, self.drop_rate = variant, v.resolution, remat, v.dropout
         self._build(block_plan(variant), round_filters(32, v.width), round_filters(1280, v.width), num_classes, dtype,
-                    hidden_overrides)
+                hidden_overrides)
 
     def _build(self, plan, stem_filters: int, head_filters: Optional[int], num_classes: int, dtype: torch.dtype,
-               hidden_overrides=None, block=None, activation: Optional[str] = None, folded: bool = False) -> None:
+            hidden_overrides=None, block=None, activation: Optional[str] = None, folded: bool = False) -> None:
         """Stem, ``block(cfg, hidden)`` a config, head, dense layer; ``folded``: the stem's BN as a bias."""
         self.num_classes = int(num_classes)
         self.dtype = dtype
@@ -275,7 +274,7 @@ class EfficientNet(ZooNet):
         named = [(("stem_conv",), self.stem_conv), (("stem_bn",), self.stem_bn)]
         for cfg, blk in zip(self.plan, self.blocks):
             named += [((cfg["name"], n), getattr(blk, n, None)) for n in ("expand_conv", "expand_bn", "dw_conv",
-                      "dw_bn", "project_conv", "project_bn", "pw_conv", "pw_bn")]
+                    "dw_bn", "project_conv", "project_bn", "pw_conv", "pw_bn")]
             if getattr(blk, "se", None) is not None:
                 named += [((cfg["name"], "se", "reduce"), blk.se.reduce), ((cfg["name"], "se", "expand"), blk.se.expand)]
         named += [(("head_conv",), self.head_conv), (("head_bn",), self.head_bn)]

@@ -1,6 +1,6 @@
 """Feature extraction (JAX ``models/extractor.py``): ``<root>/<class>/<image>``
-through the folded serving forward, L2-normalized rows in the 3-line format.
-PNG and BMP decoded here; other formats need PIL."""
+through the folded forward into the 3-line format; PNG and BMP decoded here,
+other formats by PIL."""
 
 import os
 import struct
@@ -11,9 +11,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
-from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
+from ..device import DeviceLike, resolve_device
+from . import backbone_info, create_backbone
+from .fold import make_serving_fn
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 NATIVE_FORMATS = "PNG (8-bit, non-interlaced) and BMP (24/32-bit, uncompressed)"
@@ -97,8 +97,7 @@ def _decode_bmp(data: bytes) -> np.ndarray:
 
 
 def decode_image(path: str) -> np.ndarray:
-    """uint8 RGB [H, W, 3] as PIL's ``convert("RGB")``; another format by PIL,
-    without it a ``ValueError`` naming the file; a corrupt file raises else."""
+    """uint8 RGB [H, W, 3] as PIL's ``convert("RGB")``; other formats by PIL, else a ``ValueError``."""
     with open(path, "rb") as fh:
         data = fh.read()
     try:
@@ -162,7 +161,7 @@ class FeatureExtractor:
     padded as JAX pads it."""
 
     def __init__(self, variant: str = "b0", variables=None, resolution: Optional[int] = None, mesh=None,
-                 seed: int = 0, folded: bool = True, device: DeviceLike = None):
+            seed: int = 0, folded: bool = True, device: DeviceLike = None):
         self.variant, self._info, self.mesh = variant, backbone_info(variant), mesh
         self.resolution = resolution or self._info["resolution"]
         devs = [resolve_device(device)] if mesh is None else list(mesh.shard_devices(("data",)))
@@ -204,9 +203,9 @@ class FeatureExtractor:
 
 
 def extract_dataset_to_file(root: str, output_path: str, variant: str = "b0", variables=None, batch_size: int = 64,
-                            mesh=None, device: DeviceLike = None) -> int:
+        mesh=None, device: DeviceLike = None) -> int:
     """Image folders -> feature file; the image count."""
-    from fast_image_recognition_tpu_torch.data.feature_io import write_feature_file
+    from ..data.feature_io import write_feature_file
 
     if not os.path.isdir(root):
         raise FileNotFoundError(f"dataset root is not a directory: {root}")
@@ -215,5 +214,5 @@ def extract_dataset_to_file(root: str, output_path: str, variant: str = "b0", va
     images, kept = load_images(paths, extractor.resolution)
     feats = extractor.extract_normalized(images, batch_size=batch_size)
     write_feature_file(output_path, feats, np.asarray([labels[i] for i in kept]), class_names,
-                       [os.path.basename(paths[i]) for i in kept])
+            [os.path.basename(paths[i]) for i in kept])
     return len(kept)

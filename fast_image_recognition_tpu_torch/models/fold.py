@@ -7,16 +7,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import (CAFFE_MEAN_BGR, MEAN_RGB, STDDEV_RGB, TF_MODE_MEAN,
-    TF_MODE_STD, EfficientNet, preprocess_images, preprocess_images_caffe)
-from fast_image_recognition_tpu_torch.models.inception_resnet import InceptionResNetV2
-from fast_image_recognition_tpu_torch.models.inception_v3 import InceptionV3
-from fast_image_recognition_tpu_torch.models.inference import make_infer_fn
-from fast_image_recognition_tpu_torch.models.mobilenet import MobileNetV1, MobileNetV2, parse_mobilenet_width
-from fast_image_recognition_tpu_torch.models.resnet import ResNet
-from fast_image_recognition_tpu_torch.models.vgg import VGG19
-from fast_image_recognition_tpu_torch.models.zoo import ConvBN
+from ..device import DeviceLike, resolve_device
+from .efficientnet import (CAFFE_MEAN_BGR, MEAN_RGB, STDDEV_RGB, TF_MODE_MEAN, TF_MODE_STD, EfficientNet,
+    preprocess_images, preprocess_images_caffe)
+from .inception_resnet import InceptionResNetV2
+from .inception_v3 import InceptionV3
+from .inference import make_infer_fn
+from .mobilenet import MobileNetV1, MobileNetV2, parse_mobilenet_width
+from .resnet import ResNet
+from .vgg import VGG19
+from .zoo import ConvBN
 
 MBCONV_FAMILIES = ("efficientnet", "mobilenetv2")  # served by make_infer_fn (JAX :179)
 # the generic fold's families; the VALID-stem 'tf' ones take the stem fold (JAX :182)
@@ -83,8 +83,7 @@ def _bn_bias_to_conv(params):
 
 
 def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("stem", "conv1"), scale: float = 127.5):
-    """Fold ``x/scale - 1`` into the VALID stem conv of a tree that
-    ``fold_variables`` already folded (JAX :151-182)."""
+    """``x/scale - 1`` into the VALID stem conv of a ``fold_variables`` tree (JAX :151-182)."""
     params = _to_plain(variables["params"])
     node = params
     for p in stem_path:
@@ -97,11 +96,10 @@ def fold_tf_preprocess_into_valid_stem(variables, stem_path: Sequence[str] = ("s
 
 
 class ServingModule(nn.Module):
-    """uint8 NHWC -> ``{'embedding', 'taps'}`` through ``net``: resized, normalized with ``mean``/``std`` unless folded
-    (``mean=None``); ``bgr``: 'caffe'."""
+    """uint8 NHWC -> ``{'embedding', 'taps'}``: resized, normalized unless folded (``mean=None``); ``bgr``: 'caffe'."""
 
     def __init__(self, net: nn.Module, resolution: int, taps: Sequence[str] = (), mean=None, std=None,
-                 bgr: bool = False):
+            bgr: bool = False):
         super().__init__()
         self.net, self.resolution, self.taps, self.normalize = net, int(resolution), tuple(taps), mean is not None
         self.bgr = bgr
@@ -130,8 +128,8 @@ def _bf16_convs(net: nn.Module, dev) -> nn.Module:
 
 def make_serving_fn(variables: Dict[str, Any], info: Dict[str, Any], resolution: Optional[int] = None,
     taps: Sequence[str] = (), device: DeviceLike = None, folded: bool = True) -> nn.Module:
-    """The serving module for a zoo member's numpy variables: MBConv by :func:`make_infer_fn`, the rest by
-    ``fold_variables``; ``folded=False`` keeps BN."""
+    """A zoo member's serving module: MBConv by :func:`make_infer_fn`, the rest by ``fold_variables``;
+    ``folded=False`` keeps BN."""
     family, dev = info.get("family"), resolve_device(device)
     res = int(resolution or info["resolution"])
     pp = info.get("preprocess", "torch")
@@ -142,10 +140,13 @@ def make_serving_fn(variables: Dict[str, Any], info: Dict[str, Any], resolution:
         mean, std = (TF_MODE_MEAN, TF_MODE_STD) if pp == "tf" else (None, None)
         return make_infer_fn(variables, info["variant"], taps=taps, resolution=res, mean=mean, std=std, device=dev)
     mean, std = {"tf": (TF_MODE_MEAN, TF_MODE_STD), "caffe": (CAFFE_MEAN_BGR, None)}.get(pp, (MEAN_RGB, STDDEV_RGB))
+    # the tree's hidden widths: a pruned one's too
+    hidden = {n: np.shape(p["dw_conv"]["kernel"])[-1] for n, p in variables["params"].items() if "dw_conv" in p}
     if family == "efficientnet":
-        net = EfficientNet(info["variant"]).load_variables(variables).to(dev)
+        net = EfficientNet(info["variant"], hidden_overrides=hidden).load_variables(variables).to(dev)
     elif family == "mobilenetv2":
-        net = MobileNetV2(parse_mobilenet_width(info["variant"])).load_variables(variables).to(dev)
+        net = MobileNetV2(parse_mobilenet_width(info["variant"]), hidden_overrides=hidden).load_variables(variables)
+        net = net.to(dev)
     elif family == "mobilenetv1":  # folded: each neutral BN's bias on its conv, added before the rounding
         v = {"params": _bn_bias_to_conv(fold_variables("MobileNetV1", variables)["params"])} if folded else variables
         net = MobileNetV1(folded=folded).load_variables(v).to(dev)

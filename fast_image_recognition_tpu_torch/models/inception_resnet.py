@@ -1,16 +1,14 @@
 """InceptionResNetV2, the 1536-d gallery producer (JAX
-``models/inception_resnet.py:32-311``): the VALID stem and branch blocks of
-``models/zoo.py``; ``folded=True``: each conv carries its folded BN as a
-bias (``models/fold.py``)."""
+``models/inception_resnet.py``) on ``models/zoo.py``'s blocks; ``folded=True``:
+each conv carries its folded BN as a bias."""
 
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import (_V, ConvBN, ZooNet, _Block, _pool, branch_layers, create,
-    run_stem, stem_convs)
+from ..device import DeviceLike
+from .zoo import _V, ConvBN, ZooNet, _Block, _pool, branch_layers, create, run_stem, stem_convs
 
 INCEPTION_RESNET_EMBED_DIM = 1536
 
@@ -21,7 +19,7 @@ _KINDS = {
     "mixed6a": (320, [[(384, 3, 2, _V)], [(256, 1), (256, 3), (384, 3, 2, _V)], ["max"]], None),
     "block17": (1088, [[(192, 1)], [(128, 1), (160, (1, 7)), (192, (7, 1))]], 0.10),
     "mixed7a": (1088, [[(256, 1), (384, 3, 2, _V)], [(256, 1), (288, 3, 2, _V)],
-                       [(256, 1), (288, 3), (320, 3, 2, _V)], ["max"]], None),
+        [(256, 1), (288, 3), (320, 3, 2, _V)], ["max"]], None),
     "block8": (2080, [[(192, 1)], [(192, 1), (224, (1, 3)), (256, (3, 1))]], 0.20),
 }
 
@@ -50,7 +48,7 @@ class InceptionResNetV2(ZooNet):
         self.num_classes, self.dtype, self.plan = int(num_classes), dtype, inception_resnet_plan()
         self.stem_mod = stem_convs(not folded)
         self.blocks = nn.ModuleList(_Block(_KINDS[b["kind"]], not folded, dtype, b["name"] == "block8_10")
-                                    for b in self.plan)
+                for b in self.plan)
         self.head_conv = ConvBN(2080, INCEPTION_RESNET_EMBED_DIM, bn=not folded)
         self.fc = nn.Linear(INCEPTION_RESNET_EMBED_DIM, self.num_classes) if self.num_classes else None
 
@@ -65,6 +63,6 @@ class InceptionResNetV2(ZooNet):
 
 
 def create_inception_resnet_v2(num_classes: int = 0, seed: int = 0, resolution: int = 299,
-                               dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     """VALID stem reductions need ``resolution`` >= 75 (kept as ``model.resolution``)."""
     return create(InceptionResNetV2(num_classes, dtype), seed, resolution, device)

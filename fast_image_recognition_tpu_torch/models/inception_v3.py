@@ -1,5 +1,4 @@
-"""InceptionV3, 2048-d (JAX ``models/inception_v3.py``): the VALID stem, the
-35x35, 17x17 and 8x8 blocks and the two reductions as branch tables over
+"""InceptionV3, 2048-d (JAX ``models/inception_v3.py``): branch tables over
 ``models/zoo.py``'s ``_Block`` (a pool branch's conv is ``bp``)."""
 
 from typing import Any, Dict, List
@@ -7,9 +6,8 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import (_V, ZooNet, _Block, _pool, branch_layers, create, run_stem,
-                                                        stem_convs)
+from ..device import DeviceLike
+from .zoo import _V, ZooNet, _Block, _pool, branch_layers, create, run_stem, stem_convs
 
 INCEPTION_V3_EMBED_DIM = 2048
 
@@ -39,13 +37,13 @@ def _spec(cfg):
     if kind == "mixed17":
         c = cfg["inner"]
         return 768, [[(192, 1)], [(c, 1), (c, (1, 7)), (192, (7, 1))],
-                     [(c, 1), (c, (7, 1)), (c, (1, 7)), (c, (7, 1)), (192, (1, 7))], ["avg", (192, 1)]], None
+                [(c, 1), (c, (7, 1)), (c, (1, 7)), (c, (7, 1)), (192, (1, 7))], ["avg", (192, 1)]], None
     if kind == "mixed8":
         return 768, [[(192, 1), (320, 3, 2, _V)], [(192, 1), (192, (1, 7)), (192, (7, 1)), (192, 3, 2, _V)],
-                     ["max"]], None
+                ["max"]], None
     split = [(384, (1, 3)), (384, (3, 1))]
     return 1280 if name == "mixed9" else 2048, [[(320, 1)], [(384, 1), split], [(448, 1), (384, 3), split],
-                                                ["avg", (192, 1)]], None
+            ["avg", (192, 1)]], None
 
 
 class InceptionV3(ZooNet):
@@ -71,6 +69,6 @@ class InceptionV3(ZooNet):
 
 
 def create_inception_v3(num_classes: int = 0, seed: int = 0, resolution: int = 299,
-                        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     """The stem's VALID reductions need ``resolution`` >= 75."""
     return create(InceptionV3(num_classes, dtype), seed, resolution, device)

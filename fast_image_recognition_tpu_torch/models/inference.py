@@ -1,6 +1,6 @@
-"""Folded serving forward of the MBConv families (JAX ``models/inference.py``): BN
-folded in fp64, the preprocess into the stem (exact at SAME borders by a
-correction map); ``fused=True``: stride-1 blocks on the fused kernel."""
+"""Folded serving forward of the MBConv families (JAX ``models/inference.py``):
+BN folded in fp64, the preprocess into the stem (exact at SAME borders);
+``fused=True``: stride-1 blocks on the fused kernel."""
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -9,11 +9,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.efficientnet import (MEAN_RGB, STDDEV_RGB, VARIANTS, _act, _same_pad,
-    block_plan, preprocess_images)
-from fast_image_recognition_tpu_torch.models.mobilenet import mobilenet_plan, parse_mobilenet_width
-from fast_image_recognition_tpu_torch.ops.mbconv_kernel import mbconv, prepare_params
+from ..device import DeviceLike, resolve_device
+from .efficientnet import MEAN_RGB, STDDEV_RGB, VARIANTS, _act, _same_pad, block_plan, preprocess_images
+from .mobilenet import mobilenet_plan, parse_mobilenet_width
+from ..ops.mbconv_kernel import mbconv, prepare_params
 
 _BN_EPS = 1e-3
 
@@ -70,8 +69,8 @@ def fold_backbone(
         entry["w_proj"], entry["b_proj"] = conv_bn(bp, bs, "project_conv", "project_bn")
         blocks.append(entry)
         configs.append(dict(name=name, kernel=cfg["kernel"], stride=cfg["stride"], has_expand=has_expand, has_se=has_se,
-                       activation=cfg.get("activation", "swish"),
-                       residual=cfg["stride"] == 1 and cfg["in_filters"] == cfg["out_filters"]))
+                activation=cfg.get("activation", "swish"),
+                residual=cfg["stride"] == 1 and cfg["in_filters"] == cfg["out_filters"]))
     folded["blocks"] = blocks
     return folded, configs
 
@@ -155,7 +154,7 @@ class _FoldedBlock(nn.Module):
 
 
 class _FusedBlock(nn.Module):
-    """A stride-1 block through ``ops.mbconv_kernel.mbconv`` (the kernel on the card, plain on the CPU), in bf16."""
+    """A stride-1 block through ``ops.mbconv_kernel.mbconv`` in bf16."""
 
     def __init__(self, p: Dict[str, torch.Tensor], cfg: Dict[str, Any]):
         super().__init__()
@@ -174,8 +173,8 @@ class _FusedBlock(nn.Module):
 
 
 class FoldedEfficientNet(nn.Module):
-    """BN- and preprocess-folded MBConv backbone: uint8 NHWC -> ``{'embedding', 'taps'}``; ``stem``, ``run_blocks``,
-    ``head``: the cascade's segments."""
+    """BN- and preprocess-folded MBConv backbone: uint8 NHWC -> ``{'embedding', 'taps'}``; ``stem``,
+    ``run_blocks``, ``head``: the cascade's segments."""
 
     def __init__(self, folded: Dict[str, Any], configs: List[Dict[str, Any]], resolution: int, taps: Sequence[str] = (),
         fused: bool = False, mean: Optional[Sequence[float]] = None, std: Optional[Sequence[float]] = None,

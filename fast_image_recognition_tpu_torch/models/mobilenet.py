@@ -8,16 +8,15 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.efficientnet import (EfficientNet, _act, _BatchNorm, _Conv, _conv_bn,
-    _pool, create, round_filters)
+from ..device import DeviceLike
+from .efficientnet import EfficientNet, _act, _BatchNorm, _Conv, _conv_bn, _pool, create, round_filters
 
 # (expand t, out channels c, repeats n, first stride s)
 _MBV2_BLOCKS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
-                (6, 320, 1, 1))
+        (6, 320, 1, 1))
 # (out channels, stride) of each depthwise-separable layer
 _MBV1_LAYERS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2), (512, 1), (512, 1), (512, 1), (512, 1),
-                (512, 1), (1024, 2), (1024, 1))
+        (512, 1), (1024, 2), (1024, 1))
 _relu6 = _act("relu6")
 
 
@@ -39,7 +38,7 @@ def mobilenet_plan(width: float = 1.0) -> List[Dict[str, Any]]:
         fo = _make_divisible(c * width)
         for i in range(n):
             plan.append(dict(name=f"block{stage}{chr(ord('a') + i)}", kernel=3, stride=s if i == 0 else 1, expand=t,
-                        in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=0.0, stage=stage, activation="relu6"))
+                    in_filters=fi if i == 0 else fo, out_filters=fo, se_ratio=0.0, stage=stage, activation="relu6"))
         fi = fo
     return plan
 
@@ -67,11 +66,11 @@ class MobileNetV2(EfficientNet):
     """MobileNetV2 with segments and exit taps; ``num_classes=0``: the pooled extractor."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 hidden_overrides: Optional[Dict[str, int]] = None, resolution: int = 224):
+            hidden_overrides: Optional[Dict[str, int]] = None, resolution: int = 224):
         nn.Module.__init__(self)
         self.width, self.resolution, self.drop_connect, self.drop_rate = float(width), int(resolution), 0.0, 0.2
         self._build(mobilenet_plan(width), _make_divisible(32 * width), _make_divisible(1280 * max(width, 1.0)),
-                    num_classes, dtype, hidden_overrides)
+                num_classes, dtype, hidden_overrides)
 
 
 class DepthwiseSeparable(nn.Module):
@@ -92,22 +91,22 @@ class MobileNetV1(EfficientNet):
     """MobileNetV1; ``folded=True`` takes a folded tree, each BN's bias on its conv."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 resolution: int = 224, folded: bool = False):
+            resolution: int = 224, folded: bool = False):
         nn.Module.__init__(self)
         self.width, self.resolution = float(width), int(resolution)
         self._build(mobilenet_v1_plan(width), _make_divisible(32 * width), None, num_classes, dtype,
-                    block=functools.partial(DepthwiseSeparable, folded=folded), activation="relu6", folded=folded)
+                block=functools.partial(DepthwiseSeparable, folded=folded), activation="relu6", folded=folded)
 
     def head_pool(self, x: torch.Tensor) -> torch.Tensor:
         return _pool(x)
 
 
 def create_mobilenetv2(width: float = 1.0, num_classes: int = 0, seed: int = 0, resolution: int = 224,
-                       dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
-    """``(model on device, its flax-layout numpy variables)``, flax's default init drawn from ``seed``."""
+        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+    """``(model on device, its flax-layout numpy variables)``, flax's init from ``seed``."""
     return create(MobileNetV2(width, num_classes, dtype), seed, resolution, device)
 
 
 def create_mobilenet_v1(width: float = 1.0, num_classes: int = 0, seed: int = 0, resolution: int = 224,
-                        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     return create(MobileNetV1(width, num_classes, dtype), seed, resolution, device)

@@ -1,7 +1,6 @@
 """ResNet50 (v1) and ResNet50/101/152V2 (JAX ``models/resnet.py``): v1 biased
 conv-BN-ReLU bottlenecks, stride on stages 3-5's first block; v2
-pre-activation, stride on stages 2-4's last, ``relu(post_bn)`` before the pool.
-BN eps 1.001e-5."""
+pre-activation, stride on stages 2-4's last. BN eps 1.001e-5."""
 
 from typing import Any, Dict, List
 
@@ -9,13 +8,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import ConvBN, ZooNet, _BatchNorm, _pool, create
+from ..device import DeviceLike
+from .zoo import ConvBN, ZooNet, _BatchNorm, _pool, create
 
 RESNET_EMBED_DIM = 2048
 RESNET_EPS = 1.001e-5
 _DEPTHS = {"resnet50": (3, 4, 6, 3), "resnet50v2": (3, 4, 6, 3), "resnet101v2": (3, 4, 23, 3),
-           "resnet152v2": (3, 8, 36, 3)}
+        "resnet152v2": (3, 8, 36, 3)}
 _FILTERS = (64, 128, 256, 512)  # bottleneck width per stage (out = 4x)
 
 
@@ -29,8 +28,7 @@ def resnet_plan(variant: str) -> List[Dict[str, Any]]:
 
 
 def default_taps_resnet(variant: str) -> List[str]:
-    """The reference's ResNet152V2 taps (sequential_inference.py:385); the
-    first, middle and last block of stage 4 for the others."""
+    """The reference's ResNet152V2 taps (sequential_inference.py:385); else stage 4's first, middle and last."""
     if variant == "resnet152v2":
         return ["conv4_block1", "conv4_block18", "conv4_block36"]
     n4 = _DEPTHS[variant][2]
@@ -63,10 +61,10 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(ZooNet):
-    """``num_classes=0``: the pooled 2048-d extractor; ``folded=True`` takes a folded tree (``models/fold.py``)."""
+    """``num_classes=0``: the pooled 2048-d extractor; ``folded=True`` takes a folded tree."""
 
     def __init__(self, variant: str = "resnet152v2", num_classes: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 folded: bool = False):
+            folded: bool = False):
         super().__init__()
         self.variant, self.num_classes, self.dtype = variant, int(num_classes), dtype
         self.v2, self.plan = variant.endswith("v2"), resnet_plan(variant)
@@ -100,5 +98,5 @@ class ResNet(ZooNet):
 
 
 def create_resnet(variant: str = "resnet152v2", num_classes: int = 0, seed: int = 0, resolution: int = 224,
-                  dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+        dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
     return create(ResNet(variant, num_classes, dtype), seed, resolution, device)

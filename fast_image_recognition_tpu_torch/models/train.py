@@ -1,6 +1,6 @@
-"""Multi-exit fine-tuning (JAX ``models/train.py``): softmax (or cosine) heads on
-each tap's GAP and the embedding, weights ``n_heads - i``; phase 1 the heads
-alone, phase 2 everything, Adam; no host sync in a step."""
+"""Multi-exit fine-tuning (JAX ``models/train.py``): softmax or cosine heads on
+each tap and the embedding; phase 1 the heads, phase 2 everything, Adam; no
+host sync in a step."""
 
 import dataclasses
 import math
@@ -10,13 +10,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models.zoo import _BatchNorm
-from fast_image_recognition_tpu_torch.utils.checkpoint import BestCheckpoint, EarlyStopping
+from ..device import DeviceLike, resolve_device
+from .zoo import _BatchNorm
+from ..utils.checkpoint import BestCheckpoint, EarlyStopping
 
 
 def init_heads(model, variables, taps: Sequence[str], num_classes: int, resolution: int,
-               seed: int = 0) -> List[Dict[str, np.ndarray]]:
+        seed: int = 0) -> List[Dict[str, np.ndarray]]:
     """A head a tap and the embedding: ``w`` N(0, 1/d) from a seeded ``torch.Generator``, ``b`` 0; numpy."""
     dev = next(model.parameters()).device
     with torch.no_grad():
@@ -51,10 +51,10 @@ class TrainConfig:
 
 
 class MultiExitTrainer:
-    """Two-phase fine-tuning of a zoo module on ``device`` (default the card), in place from ``variables``."""
+    """Two-phase fine-tuning of a zoo module on ``device`` (default the card) from ``variables``."""
 
     def __init__(self, model, variables, config: TrainConfig, checkpoint_path: Optional[str] = None,
-                 preprocess=None, device: DeviceLike = None):
+            preprocess=None, device: DeviceLike = None):
         self.device, self.config, self.preprocess = resolve_device(device), config, preprocess
         self.model = model.to(self.device).load_variables(variables)
         heads = init_heads(self.model, variables, config.taps, config.num_classes, config.resolution, config.seed)
@@ -88,7 +88,7 @@ class MultiExitTrainer:
         return total / weight_sum
 
     def _optimizer(self, train_backbone: bool, lr: float) -> torch.optim.Adam:
-        """Phase 1: Adam over the heads (optax's ``set_to_zero`` for the backbone); phase 2: over everything."""
+        """Phase 1: Adam over the heads (optax's ``set_to_zero`` on the backbone); phase 2: everything."""
         self.model.requires_grad_(train_backbone)
         params = [p for h in self.heads for p in h.values()] + (list(self.model.parameters()) if train_backbone else [])
         return torch.optim.Adam(params, lr=lr, capturable=self.device.type == "cuda")
@@ -145,7 +145,7 @@ class MultiExitTrainer:
             for epoch in range(epochs):
                 order = torch.as_tensor(rng.permutation(len(train_images)), device=dev)  # one upload an epoch
                 losses = [self._step(opt, train_images, order[b * bs : (b + 1) * bs], labels, cls_w)
-                          for b in range(len(order) // bs)]
+                        for b in range(len(order) // bs)]
                 history["loss"].append(float(torch.stack(losses).mean()))
                 msg = f"phase{phase + 1} epoch {epoch}: loss={history['loss'][-1]:.4f}"
                 if val_images is not None:

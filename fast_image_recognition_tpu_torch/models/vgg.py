@@ -8,8 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike
-from fast_image_recognition_tpu_torch.models.zoo import ConvBN, ZooNet, _pool, create
+from ..device import DeviceLike
+from .zoo import ConvBN, ZooNet, _pool, create
 
 VGG19_EMBED_DIM = 512
 _STAGES = ((1, 2, 64), (2, 2, 128), (3, 4, 256), (4, 4, 512), (5, 4, 512))  # (stage, convs, filters)
@@ -49,5 +49,5 @@ class VGG19(ZooNet):
 
 
 def create_vgg19(num_classes: int = 0, seed: int = 0, resolution: int = 224, dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None):
+        device: DeviceLike = None):
     return create(VGG19(num_classes, dtype), seed, resolution, device)

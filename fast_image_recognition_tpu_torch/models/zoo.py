@@ -1,6 +1,6 @@
-"""The zoo's shared parts: flax's init, BN (running or batch statistics), the fp32
-pool, ``ZooNet`` (segments, train mode, flax trees), ``create``, ``ConvBN``,
-``_Block`` and the VALID Inception stem. NCHW ``channels_last``, bf16."""
+"""The zoo's shared parts: flax's init, BN, the fp32 pool, ``ZooNet`` (segments,
+train mode, flax trees), ``create``, ``ConvBN``, ``_Block``, the VALID
+Inception stem. NCHW ``channels_last``, bf16."""
 
 import contextlib
 import math
@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 _BN_EPS = 1e-3
 # flax lecun_normal: truncated to [-2, 2], scaled by sqrt(1 / fan_in) / 0.8796
@@ -27,9 +27,8 @@ def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
 
 
 class _BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in fp32, rounded to ``x``'s dtype; under :func:`batch_stats` (JAX's ``train``, never
-    ``nn.Module.training``) on batch statistics (``max(0, E[x^2] - E[x]^2)`` over N, H, W), committed as ``m * old + (1
-    - m) * batch``."""
+    """flax ``nn.BatchNorm`` in fp32, rounded to ``x``'s dtype; under :func:`batch_stats` on batch
+    statistics (``max(0, E[x^2] - E[x]^2)`` over N, H, W), committed as ``m * old + (1 - m) * batch``."""
 
     def __init__(self, c: int, eps: float = _BN_EPS, momentum: float = 0.99):
         super().__init__()
@@ -97,9 +96,8 @@ def _node(tree, path, make=False):
 
 
 class ZooNet(nn.Module):
-    """The segment protocol over ``plan``, ``blocks``: ``forward`` -> ``{'embedding', 'taps'}`` (+ ``logits``);
-    ``_after(i, h)`` between blocks. Subclasses give ``stem``, ``head_pool``, ``fc``, ``_layers``: (conv path, BN path,
-    module)."""
+    """Segments over ``plan``, ``blocks``: ``forward`` -> ``{'embedding', 'taps'}`` (+ ``logits``), ``_after(i,
+    h)`` between blocks. Subclasses give ``stem``, ``head_pool``, ``fc``, ``_layers``: (conv path, BN path, module)."""
 
     def block_names(self) -> List[str]:
         return [b["name"] for b in self.plan]
@@ -114,7 +112,7 @@ class ZooNet(nn.Module):
         return self.blocks[i](h)
 
     def run_blocks(self, x: torch.Tensor, start: int = 0, end: Optional[int] = None, train: bool = False,
-                   rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
         with batch_stats(self, train):
             for i in range(len(self.plan))[start:end]:
                 x = self._after(i, self._block(i, x, train, rng))
@@ -123,7 +121,7 @@ class ZooNet(nn.Module):
     drop_rate = 0.0  # flax nn.Dropout on the embedding before ``fc``, train mode only
 
     def forward(self, x, train: bool = False, taps: Optional[Sequence[str]] = None,
-                include_logits: Optional[bool] = None, rng: Optional[torch.Generator] = None) -> Dict[str, Any]:
+            include_logits: Optional[bool] = None, rng: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """``train``: batch statistics (the running ones updated), stochastic depth and dropout from ``rng``."""
         with batch_stats(self, train):
             h, tap_out = self.stem(x), {}
@@ -197,7 +195,7 @@ class ZooNet(nn.Module):
 
 
 def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
-    """``(model on device, its flax-layout numpy variables)`` with flax's default init drawn from ``seed``."""
+    """``(model on device, its flax-layout numpy variables)``, flax's init from ``seed``."""
     dev = resolve_device(device)
     model.init_weights(seed)
     model.resolution = int(resolution)
@@ -205,9 +203,8 @@ def create(model: ZooNet, seed: int, resolution: int, device: DeviceLike):
 
 
 class ConvBN(nn.Module):
-    """Conv + BN + ReLU, symmetric pads (SAME: ``k // 2``; every SAME conv of the BN zoo is stride 1, odd k); a bias
-    where ``bias`` (default: no BN). A conv feeding a BN runs in fp32 from bf16 operands, rounded once after the BN
-    (XLA's)."""
+    """Conv + BN + ReLU, symmetric pads (SAME: ``k // 2``); a bias where ``bias`` (default: no BN). A conv
+    feeding a BN runs in fp32 from bf16 operands, rounded once after the BN (XLA's)."""
 
     def __init__(self, cin, cout, k=1, stride=1, padding="SAME", relu=True, bn=True, bias=None, eps=_BN_EPS):
         super().__init__()
@@ -224,7 +221,7 @@ class ConvBN(nn.Module):
             y = F.conv2d(x, w, b, self.stride, self.pad)
         else:
             y = self.bn(F.conv2d(x.float(), w.float(), None if b is None else b.float(), self.stride, self.pad),
-                        x.dtype)
+                    x.dtype)
         return F.relu(y) if self.relu else y
 
 

@@ -1,5 +1,1 @@
-from fast_image_recognition_tpu_torch.ops.distances import (  # noqa: F401
-    oracle_distance,
-    oracle_pairwise,
-    pairwise_distances,
-)
+from .distances import oracle_distance, oracle_pairwise, pairwise_distances  # noqa: F401

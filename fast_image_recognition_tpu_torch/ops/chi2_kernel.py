@@ -7,9 +7,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.kernels import build, plain
-from fast_image_recognition_tpu_torch.ops.distance_kernel import _on_card
+from ..device import DeviceLike, resolve_device
+from ..kernels import build, plain
+from .distance_kernel import _on_card
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
 

@@ -1,13 +1,13 @@
-"""Gallery scans (JAX ``ops/distance_kernel.py``): a wrapper runs its CUDA kernel
-on a CUDA tensor, its plain version on a CPU one; on the card a gallery is 8
-lanes wide a multiple (16 for int8): :func:`pad_cols`."""
+"""Gallery scans (JAX ``ops/distance_kernel.py``): CUDA kernels on CUDA tensors,
+plain versions on CPU ones; on the card a gallery is 8 lanes wide a multiple
+(16 for int8): :func:`pad_cols`."""
 
 from typing import Optional, Tuple
 
 import torch
 
-from fast_image_recognition_tpu_torch.kernels import build, plain
-from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
+from ..kernels import build, plain
+from .quant import quantize_rows
 
 BIG_DIST = plain.BIG_DIST
 TILE_G = plain.TILE_G
@@ -221,8 +221,8 @@ def certify_tiles(d1t: torch.Tensor, it: torch.Tensor, d2t: torch.Tensor, r: int
 def topk_candidates_l2_packed_cert(
     queries: torch.Tensor, gallery_aug: torch.Tensor, d: int, r: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cand [B, R] rows, bound [B]): ``bound`` lower-bounds (up to bf16 rounding and the keys) every row outside
-    ``cand``: the (R+1)-th tile min, selected tiles' second mins."""
+    """(cand [B, R] rows, bound [B]): ``bound`` lower-bounds every row outside ``cand`` (up to bf16
+    rounding): the (R+1)-th tile min, selected tiles' second mins."""
     return certify_tiles(*tile_min2_l2_packed(queries, gallery_aug, d), r)
 
 
@@ -273,7 +273,7 @@ def tilemin_quant_scores(q: torch.Tensor, qs: torch.Tensor, g: torch.Tensor, gsq
 
 def tile_min_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor, *,
     tile_g: int = TILE_G, compute: str = "int8") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile approximate L2 min over an int8 gallery (dist / D, row); ``gsq_rows``: norms before quantization."""
+    """Per-tile approximate L2 min over int8 rows (dist / D, row); ``gsq_rows``: unquantized norms."""
     if compute not in ("int8", "bf16"):
         raise ValueError(f"compute must be 'int8' or 'bf16', got {compute!r}")
     d = queries.shape[1]
@@ -295,7 +295,7 @@ def topk_candidates_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq
 def topk_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torch.Tensor, gsc_rows: torch.Tensor,
     rescore_gallery: torch.Tensor, k: int = 1, *, r: int = 16, tile_g: int = TILE_G, compute: str = "int8"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of the best rows of the ``r`` nearest int8 tiles, rescored in fp32: (distances / D, rows)."""
+    """Top-k of the ``r`` nearest int8 tiles' rows, rescored in fp32: (distances / D, rows)."""
     cand = topk_candidates_l2_quant(queries, gallery_q, gsq_rows, gsc_rows, r, tile_g=tile_g, compute=compute)
     rows = rescore_gallery[cand.long()].to(torch.float32)  # [B, R, D]
     qf = queries.to(rescore_gallery.dtype).to(torch.float32)
@@ -311,9 +311,9 @@ def topk_l2_quant(queries: torch.Tensor, gallery_q: torch.Tensor, gsq_rows: torc
 def topk_l2(queries: torch.Tensor, gallery: torch.Tensor, k: int = 1, *, n_valid: Optional[int] = None,
     window: Optional[Tuple[int, int]] = None, precise: bool = False, row_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k: (distances / window width, rows, -1 past ``n_valid``), bf16 or ``precise=True`` (fp32);
-    ``window``; ``row_mask``: False rows empty, unscanned on the card. Past :data:`TOPK_SLAB` in slabs above the last's
-    final entry. Distances summed again as ``(q - g)^2`` (pass 3)."""
+    """Exact L2 top-k: (distances / window width, rows, -1 past ``n_valid``), bf16 or ``precise=True``;
+    ``row_mask``: False rows empty. Past :data:`TOPK_SLAB` in slabs above the last's final entry. Distances
+    summed again as ``(q - g)^2`` (pass 3)."""
     if k < 1:
         raise ValueError(f"topk_l2 takes k >= 1, got k={k}")
     n = gallery.shape[0] if n_valid is None else int(n_valid)

@@ -1,14 +1,13 @@
-"""Fused stride-1 MBConv block (JAX ``ops/mbconv_kernel.py``):
-``kernels/mbconv.cu`` on a CUDA tensor, ``plain.mbconv_plain`` on a CPU one;
-the kernel's geometry (pads, tile plan, shared memory) is computed here. NCHW
-in ``channels_last``."""
+"""Fused stride-1 MBConv block (JAX ``ops/mbconv_kernel.py``): the kernel on a
+CUDA tensor, ``plain.mbconv_plain`` on a CPU one; its pads, tile plan and
+shared memory computed here. NCHW ``channels_last``."""
 
 import functools
 from typing import Any, Dict, Tuple
 
 import torch
 
-from fast_image_recognition_tpu_torch.kernels import build, plain
+from ..kernels import build, plain
 
 # must match kernels/mbconv.cu
 CS = 64  # hidden channels per slab: one 128-byte line of bf16
@@ -33,7 +32,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has_expand: bool, th: int, tw: int,
-               group: int, bufs: int, ipb: int) -> int:
+        group: int, bufs: int, ipb: int) -> int:
     """Shared memory of an ``mbconv.cu`` block for the plan (th, tw, group, bufs, ipb), or -1 where refused (over
     :data:`MAX_SMEM` or :data:`NT_MAX`; two images without one whole-plane tile or at k = 7). ``group``: 64-channel
     project tiles a block; ``bufs``: bit 0 double-buffers the box, bit 1 the weights; ``ipb``: images a block."""
@@ -50,9 +49,9 @@ def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has
     aux = _round_up((k * k + 2) * CS * 4, 1024)  # a slab's w_dw rows, b_dw and b_exp
     wexp, wproj = wbufs * cin_ch * 64 * LINE if has_expand else 0, wbufs * npt * 64 * LINE
     total = (xbufs * cin_ch * rx * LINE + (max(wexp, wproj) if s > 0 else wexp + wproj) + wbufs * aux
-             + (_round_up(ipb * halo * LINE, 1024) if has_expand else 0) + max(ro * LINE, WGS * 4 * ipb * CS * 4)
-             + ipb * _round_up(ce, CS) * 4 + ipb * _round_up(s, 32) * 4 + _round_up(cout, CS) * 4 + 4 * 8
-             + SMEM_ALIGN)
+            + (_round_up(ipb * halo * LINE, 1024) if has_expand else 0) + max(ro * LINE, WGS * 4 * ipb * CS * 4)
+            + ipb * _round_up(ce, CS) * 4 + ipb * _round_up(s, 32) * 4 + _round_up(cout, CS) * 4 + 4 * 8
+            + SMEM_ALIGN)
     if total > MAX_SMEM or -(-(ro // 64 * npt) // WGS) > NT_MAX:
         return -1
     return total
@@ -60,7 +59,7 @@ def plane_smem(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int, has
 
 @functools.lru_cache(maxsize=None)
 def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
-               has_expand: bool) -> Tuple[int, int, int, int, int]:
+        has_expand: bool) -> Tuple[int, int, int, int, int]:
     """The plan of least estimated work an image, ``groups * n_tiles * (round_up(box rows, 64) + 64) / ipb``, a quarter
     more a single buffer (guessed constants); ties to the larger tile."""
     npt_all = -(-cout // CS)
@@ -84,7 +83,7 @@ def plane_plan(h: int, w: int, k: int, cin: int, ce: int, cout: int, s: int,
             break  # one group fits: never split the output channels
     if best is None:
         raise ValueError(f"no plan of a {h}x{w} plane with k={k}, Cin={cin}, Ce={ce}, Cout={cout} fits "
-                         f"{MAX_SMEM} bytes")
+                f"{MAX_SMEM} bytes")
     return best[1]
 
 

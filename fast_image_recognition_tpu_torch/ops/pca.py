@@ -7,7 +7,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass

@@ -1,6 +1,5 @@
-"""Symmetric per-row int8 quantization (JAX ``ops/quant.py``): ``round(x /
-s)`` half-to-even, clipped to [-127, 127], ``s = max|x| / 127`` (1 for a
-zero row): bit-equal to JAX's. The scans keep the true ``|g|^2``."""
+"""Symmetric per-row int8 quantization (JAX ``ops/quant.py``), bit-equal: ``round(x
+/ s)`` half-to-even in [-127, 127], ``s = max|x| / 127`` (1 for a zero row)."""
 
 from typing import Tuple
 

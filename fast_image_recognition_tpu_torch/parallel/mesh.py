@@ -1,13 +1,13 @@
 """Device meshes (JAX ``parallel/mesh.py``): axes ``data``, ``gallery``,
-``model``; a :class:`Mesh` is a grid of ``torch.device``s one process
-drives, a device may repeat (``["cuda:0"] * 4``: four shards on one card)."""
+``model``; a :class:`Mesh` is a grid of ``torch.device``s one process drives,
+a device may repeat."""
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device
 
 
 class Mesh:
@@ -34,7 +34,7 @@ class Mesh:
 
 
 def _devices(devices: Optional[Sequence[DeviceLike]]) -> list:
-    """``None``: every visible CUDA device (raises when there is none); else the given devices, repeats kept."""
+    """``None``: every visible CUDA device (raises without one); else the given ones, repeats kept."""
     if devices is None:
         resolve_device(None)  # raises without a card
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -1,16 +1,15 @@
 """Mesh-sharded search (JAX ``parallel/sharded_gallery.py``): a shard a device,
-scanned there, the ``[B, S*k]`` pairs merged on the first device by a stable
-sort; a -1 slot passes ``i < n_valid`` as in JAX (ROADMAP.md §3)."""
+the ``[B, S*k]`` pairs merged on the first by a stable sort; a -1 slot passes
+``i < n_valid`` as in JAX."""
 
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.ops.distance_kernel import (BIG_DIST, pack_gallery_aug, rescore_rows,
-    topk_candidates_l2_packed, topk_l2)
-from fast_image_recognition_tpu_torch.parallel.mesh import Mesh
-from fast_image_recognition_tpu_torch.search.base import SearchResult
+from ..ops.distance_kernel import BIG_DIST, pack_gallery_aug, rescore_rows, topk_candidates_l2_packed, topk_l2
+from .mesh import Mesh
+from ..search.base import SearchResult
 
 _PROJECTION_ROWS = 65536  # shard rows projected per step: bounds the fp32 temporaries
 
@@ -148,7 +147,7 @@ def shard_gallery(gallery, mesh: Mesh, tile_g: int = 512, dtype: torch.dtype = t
 
 
 class ShardedGalleryMatcher:
-    """Exact 1-NN over a mesh-sharded gallery; ``precise`` stores fp32 shards for the fp32 oracle pass."""
+    """Exact 1-NN over a mesh-sharded gallery; ``precise`` keeps fp32 shards for the oracle."""
 
     def __init__(
         self,

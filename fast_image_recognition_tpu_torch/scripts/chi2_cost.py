@@ -1,6 +1,6 @@
 """chi2/KL streamed-scan cost beside the chi2 kernel and the L2 scan (JAX's
-``scripts/chi2_cost.py``, its flags and fields): host clock between syncs,
-top-1 vs fp64. ``python -m fast_image_recognition_tpu_torch.scripts.chi2_cost``."""
+``scripts/chi2_cost.py``): host clock between syncs, top-1 vs fp64. ``python -m
+fast_image_recognition_tpu_torch.scripts.chi2_cost``."""
 
 import argparse
 import json
@@ -11,8 +11,7 @@ KINDS = ("chi2", "l2", "kl", "chi2_pallas", "chi2_pallas_bf16")
 
 
 def make_data(n: int, b: int, d: int, device, seed: int = 0):
-    """(gallery [n, d], queries [b, d]) fp32 on ``device``: uniform rows,
-    L1-normalized; queries = rows[:b] + 0.05 * U / d, renormalized."""
+    """(gallery [n, d], queries [b, d]) fp32: L1-normalized uniform rows; queries rows[:b] + 0.05 U / d."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -27,7 +26,7 @@ def make_data(n: int, b: int, d: int, device, seed: int = 0):
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     p = argparse.ArgumentParser()
     for name, default in (("gallery", 102_400), ("batch", 1024), ("dim", 1536), ("iters", 5), ("warmup", 1),
-                          ("kinds", "chi2,l2")):
+            ("kinds", "chi2,l2")):
         p.add_argument("--" + name, type=type(default), default=default)
     p.add_argument("--out", default="-", help="'-' = stdout, else append path")
     p.add_argument("--device", default=None, help="default: the card")
@@ -36,11 +35,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     import numpy as np
     import torch
 
-    from fast_image_recognition_tpu_torch.config import DistanceKind
-    from fast_image_recognition_tpu_torch.device import resolve_device
-    from fast_image_recognition_tpu_torch.ops.chi2_kernel import chi2_nn
-    from fast_image_recognition_tpu_torch.ops.distances import oracle_pairwise, streamed_topk
-    from fast_image_recognition_tpu_torch.utils.profiling import host_sync, timed
+    from ..config import DistanceKind
+    from ..device import resolve_device
+    from ..ops.chi2_kernel import chi2_nn
+    from ..ops.distances import oracle_pairwise, streamed_topk
+    from ..utils.profiling import host_sync, timed
 
     kinds = args.kinds.split(",")
     unknown = [k for k in kinds if k not in KINDS]

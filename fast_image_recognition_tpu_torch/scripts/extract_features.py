@@ -16,17 +16,17 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
     parser.add_argument("--device", default=device, help="default the card; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
 
-    from fast_image_recognition_tpu_torch.models.extractor import extract_dataset_to_file
-    from fast_image_recognition_tpu_torch.parallel.mesh import make_mesh
-    from fast_image_recognition_tpu_torch.utils.checkpoint import load_variables
+    from ..models.extractor import extract_dataset_to_file
+    from ..parallel.mesh import make_mesh
+    from ..utils.checkpoint import load_variables
 
     variables = load_variables(args.checkpoint) if args.checkpoint else None
     mesh = None
     if args.data_parallel:  # a device may repeat: --device cpu gives N entries of the CPU
         mesh = make_mesh(data=args.data_parallel, devices=None if args.device is None else
-                         [args.device] * args.data_parallel)
+                [args.device] * args.data_parallel)
     n = extract_dataset_to_file(args.dataset_root, args.output, variant=args.variant, variables=variables,
-                                batch_size=args.batch_size, mesh=mesh, device=args.device)
+            batch_size=args.batch_size, mesh=mesh, device=args.device)
     print(f"extracted {n} images -> {args.output}")
     return n
 

@@ -1,16 +1,16 @@
-"""Exact 1-NN (JAX ``search/brute_force.py``): the distance block and its
-argmin; chi2/KL above ``STREAM_THRESHOLD`` rows streamed; ``precision='int8'``
-on the int8 scan with an exact rescore."""
+"""Exact 1-NN (JAX ``search/brute_force.py``): the distance block's argmin;
+chi2/KL above ``STREAM_THRESHOLD`` rows streamed; ``precision='int8'`` on the
+int8 scan, rescored exactly."""
 
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.config import DistanceKind
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.ops.distances import pairwise_distances, streamed_topk
-from fast_image_recognition_tpu_torch.search.base import SearchResult
+from ..config import DistanceKind
+from ..device import DeviceLike, resolve_device
+from ..ops.distances import pairwise_distances, streamed_topk
+from .base import SearchResult
 
 # above this many rows chi2/KL stream tiles instead of a [B, N] block
 STREAM_THRESHOLD = 65536
@@ -43,9 +43,8 @@ class BruteForceMatcher:
             # nearest tiles from bf16 rows (ops/distance_kernel.py).
             if kind != DistanceKind.L2 or max_features:
                 raise ValueError("precision='int8' supports full-feature L2 only")
-            from fast_image_recognition_tpu_torch.ops.distance_kernel import (gallery_sq_norms, pad_cols, pad_gallery,
-                quant_gallery_scales)
-            from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
+            from ..ops.distance_kernel import gallery_sq_norms, pad_cols, pad_gallery, quant_gallery_scales
+            from ..ops.quant import quantize_rows
 
             self.name = "BF-int8"
             # columns padded once for the card's 16-byte int8 loads (zeros
@@ -64,7 +63,7 @@ class BruteForceMatcher:
     def search(self, queries: np.ndarray) -> SearchResult:
         q = torch.as_tensor(np.asarray(queries, dtype=np.float32), device=self.device)
         if self.precision == "int8":
-            from fast_image_recognition_tpu_torch.ops.distance_kernel import topk_l2_quant
+            from ..ops.distance_kernel import topk_l2_quant
 
             best, idx = topk_l2_quant(q, self._gal_q, self._gsq, self._gsc, self.gallery, k=1)
             best, idx = best[:, 0], idx[:, 0].to(torch.int32)

@@ -4,10 +4,10 @@ device over the rows nearest in a projection; FLANN's kd-forest on the host."""
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.ops.distances import pairwise_distances
-from fast_image_recognition_tpu_torch.ops.pca import fit_pca
-from fast_image_recognition_tpu_torch.search.base import SearchResult
+from ..device import DeviceLike, resolve_device
+from ..ops.distances import pairwise_distances
+from ..ops.pca import fit_pca
+from .base import SearchResult
 
 BIG = 3.4e38
 
@@ -199,7 +199,7 @@ def _heap_pop(hb, hn, hs, rows):
 
 
 class KDTreeMatcher:
-    """Host kd-forest: 4 randomized trees, best-first over one queue, a budget of distances (<= 0: exact)."""
+    """Host kd-forest: 4 randomized trees, best-first, a budget of distances (<= 0: exact)."""
 
     def __init__(
         self,

@@ -7,17 +7,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.ops.distance_kernel import pad_gallery, topk_l2
-from fast_image_recognition_tpu_torch.ops.pca import fit_pca
-from fast_image_recognition_tpu_torch.search.base import SearchResult
+from ..device import DeviceLike, resolve_device
+from ..ops.distance_kernel import pad_gallery, topk_l2
+from ..ops.pca import fit_pca
+from .base import SearchResult
 
 BIG = 3.4e38
 SYNC_EVERY = 8  # waves between the host's reads of "any query active"
 
 
 def build_neighbor_table(gallery: torch.Tensor, k_nn: int = 11, k_rand: int = 4, seed: int = 0,
-                         batch: int = 1024) -> torch.Tensor:
+        batch: int = 1024) -> torch.Tensor:
     """[N, k_nn + k_rand] int32 neighbours, no self loops: a ``topk_l2`` a ``batch`` of rows."""
     n = int(gallery.shape[0])
     padded = pad_gallery(gallery.to(torch.bfloat16))
@@ -67,7 +67,7 @@ class _Walk:
         return ids.gather(1, order), d.gather(1, order), exp, visited, checked, active
 
     def wave(self, front_ids, front_d, front_exp, visited, checked, active):
-        """Expand the active queries' closest unexpanded slots, as many as the remaining budget allows (>= 1)."""
+        """Expand the active queries' closest unexpanded slots, as many as the budget allows (>= 1)."""
         b, beam, k, dev = self.b, self.beam, self.k, front_d.device
         w_act = torch.clamp(torch.div(self.budget - checked, k, rounding_mode="floor"), 1, beam)
         unexp = ~front_exp
@@ -78,7 +78,7 @@ class _Walk:
         # each distinct candidate once (non-expanded slots' keys never alias)
         srt = torch.sort(torch.where(slot, cand, cand + self.n), dim=1, stable=True)
         dup = torch.cat([torch.zeros((b, 1), dtype=torch.bool, device=dev), srt.values[:, 1:] == srt.values[:, :-1]],
-                        dim=1)
+                dim=1)
         fresh = ~seen & slot & ~torch.empty_like(dup).scatter_(1, srt.indices, dup)
         dc = torch.where(fresh, self.true_dist(cand), BIG)
         visited = _mark(visited, cand, torch.where(fresh, _bit_of(cand), 0))  # once, unset: add == OR
@@ -134,13 +134,13 @@ def _sw_search_routed(queries, gallery, gallery_sqnorm, neighbors, sample_ids, b
     front = (sorted_ids[:, :beam], sorted_d[:, :beam], torch.zeros((w.b, beam), dtype=torch.bool, device=dev))
     r0 = torch.ones(w.b, dtype=torch.int32, device=dev)
     state = (*front, visited, torch.full((w.b,), s, dtype=torch.int32, device=dev), front[0][:, 0], front[1][:, 0],
-             r0, torch.full((w.b,), s < budget, dtype=torch.bool, device=dev))
+            r0, torch.full((w.b,), s < budget, dtype=torch.bool, device=dev))
     lanes = torch.arange(beam, device=dev)[None, :]
 
     def step(st):
         front_ids, front_d, front_exp, visited, checked, best_id, best_d, r, active = st
         front_ids, front_d, front_exp, visited, checked = w.wave(front_ids, front_d, front_exp, visited, checked,
-                                                                 active)
+                active)
         better = front_d[:, 0] < best_d  # fold the head into the best before a restart
         best_d, best_id = torch.where(better, front_d[:, 0], best_d), torch.where(better, front_ids[:, 0], best_id)
         saturated, in_budget = ~(~front_exp).any(dim=1), checked < budget
@@ -173,8 +173,8 @@ class SmallWorldMatcher:
     """Budgeted graph-ANN matcher ("small_world_rand", ann.cpp:214)."""
 
     def __init__(self, gallery_features: np.ndarray, k_nn: int = 11, k_rand: int = 4, beam: int = 8,
-                 image_count_to_check: int = 0, seed: int = 0, sample_pool: int = 8192, pca_dim: int = 0,
-                 device: DeviceLike = None):
+            image_count_to_check: int = 0, seed: int = 0, sample_pool: int = 8192, pca_dim: int = 0,
+            device: DeviceLike = None):
         self.device = resolve_device(device)
         self.name = f"small_world_rand(NN={k_nn + k_rand},beam={beam})"
         self._n, self._d = gallery_features.shape
@@ -230,10 +230,10 @@ class SmallWorldMatcher:
         q_walk = (q_full - self._mu) @ self._w if self.pca_dim else q_full
         if entries is not None:
             return _sw_search(q_walk, self._walk_gallery, self._walk_sqnorm, self.neighbors, entries, beam=beam,
-                              budget=self.budget, max_steps=self.budget + beam * k + 8)
+                    budget=self.budget, max_steps=self.budget + beam * k + 8)
         # PCA: the arithmetic budget buys D/P walk probes; beam + 1 rescores at full weight
         walk_budget = (min(self._n, max(1, self.budget - beam - 1) * self._budget_scale) if self.pca_dim
-                       else self.budget)
+                else self.budget)
         best_id, best_d, checked, front_ids = _sw_search_routed(
             q_walk, self._walk_gallery, self._walk_sqnorm, self.neighbors,
             self._sample_pool[: self._sample_size(walk_budget)], beam=beam, budget=walk_budget,
@@ -246,4 +246,4 @@ class SmallWorldMatcher:
     def search(self, queries: np.ndarray) -> SearchResult:
         idx, dist, checked = self.search_device(torch.as_tensor(np.asarray(queries, np.float32), device=self.device))
         return SearchResult(indices=idx.cpu().numpy().astype(np.int32), distances=dist.cpu().numpy().astype(np.float32),
-                            checked_fraction=checked.cpu().numpy().astype(np.float32) / self._n)
+                checked_fraction=checked.cpu().numpy().astype(np.float32) / self._n)

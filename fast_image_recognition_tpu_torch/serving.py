@@ -8,16 +8,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fast_image_recognition_tpu_torch.device import DeviceLike, resolve_device
-from fast_image_recognition_tpu_torch.models import backbone_info, create_backbone
-from fast_image_recognition_tpu_torch.models.efficientnet import default_taps
-from fast_image_recognition_tpu_torch.models.fold import MBCONV_FAMILIES, make_serving_fn
-from fast_image_recognition_tpu_torch.models.inference import FoldedEfficientNet, make_infer_fn, mbconv_plan
-from fast_image_recognition_tpu_torch.ops.distance_kernel import (gallery_sq_norms, pack_gallery_aug, pad_cols,
-    pad_gallery, quant_gallery_scales, rescore_rows, topk_candidates_l2, topk_candidates_l2_packed,
-    topk_candidates_l2_packed_cert, topk_candidates_l2_quant, topk_l2, topk_l2_quant)
-from fast_image_recognition_tpu_torch.ops.pca import fit_pca
-from fast_image_recognition_tpu_torch.ops.quant import quantize_rows
+from .device import DeviceLike, resolve_device
+from .models import backbone_info, create_backbone
+from .models.efficientnet import default_taps
+from .models.fold import MBCONV_FAMILIES, make_serving_fn
+from .models.inference import FoldedEfficientNet, make_infer_fn, mbconv_plan
+from .ops.distance_kernel import (gallery_sq_norms, pack_gallery_aug, pad_cols, pad_gallery, quant_gallery_scales,
+    rescore_rows, topk_candidates_l2, topk_candidates_l2_packed, topk_candidates_l2_packed_cert,
+    topk_candidates_l2_quant, topk_l2, topk_l2_quant)
+from .ops.pca import fit_pca
+from .ops.quant import quantize_rows
 
 # gallery rows projected per step: bounds the bf16 temporaries of the fit
 _PROJECTION_ROWS = 65536
@@ -28,7 +28,7 @@ def _mbconv_only(info: Dict[str, Any]) -> None:
     """JAX's cascade taps the functional fold's ladder (its serving.py:570-574)."""
     if info.get("family") not in MBCONV_FAMILIES:
         raise NotImplementedError(f"the cascade service taps MBConv families only, as JAX's (its serving.py:570-574); "
-                                  f"{info.get('family')!r} cascades through cascade/engine.py")
+                f"{info.get('family')!r} cascades through cascade/engine.py")
 
 
 def _tap_net(variables, info: Dict[str, Any], resolution: int, device: torch.device) -> FoldedEfficientNet:
@@ -52,7 +52,7 @@ def _device_gallery(gallery, n_valid: Optional[int], device: torch.device) -> Tu
 
 
 def _pca_project(gallery: torch.Tensor, n_valid: int, pca_dim: int, pca_sample: int):
-    """PCA fit on a host sample, every row projected in bf16: (pca_dim, mean, components [D, P], rows [Np, P])."""
+    """PCA fit on a host sample, every row projected in bf16: (pca_dim, mean, components, rows)."""
     m = min(n_valid, pca_sample)
     sample = gallery[:m].to(torch.float32).cpu().numpy()
     pca = fit_pca(sample, num_components=min(pca_dim, sample.shape[1]))
@@ -126,9 +126,9 @@ class RecognitionService:
             self._gal_sc = quant_gallery_scales(scales, self.n_valid)
 
     def _build_sharded(self, gallery, n_valid, sharded_scan, mesh, pca_dim, pca_sample):
-        """The first ``n_valid`` rows over ``mesh``'s gallery axis; ``'packed'``: per-shard PCA at tile_g 512."""
-        from fast_image_recognition_tpu_torch.parallel.mesh import gallery_mesh
-        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (shard_gallery, shard_gallery_pca_aug)
+        """The first ``n_valid`` rows over the mesh's gallery axis; ``'packed'``: per-shard PCA, tile_g 512."""
+        from .parallel.mesh import gallery_mesh
+        from .parallel.sharded_gallery import (shard_gallery, shard_gallery_pca_aug)
 
         self.mesh = mesh if mesh is not None else gallery_mesh()
         g = gallery if isinstance(gallery, torch.Tensor) else torch.as_tensor(np.asarray(gallery, np.float32))
@@ -150,7 +150,7 @@ class RecognitionService:
 
     def _match_sharded(self, emb: torch.Tensor) -> torch.Tensor:
         """[B] int32 global rows from the sharded scans, no host sync."""
-        from fast_image_recognition_tpu_torch.parallel.sharded_gallery import (sharded_topk_l2, sharded_topk_pca_packed)
+        from .parallel.sharded_gallery import (sharded_topk_l2, sharded_topk_pca_packed)
 
         if self.sharded_scan == "packed":
             _, idx = sharded_topk_pca_packed(
@@ -309,9 +309,8 @@ def _solve_readouts(feats: List[np.ndarray], emb: np.ndarray, ridge: float) -> L
 
 
 class CascadeRecognitionService:
-    """Early-exit serving: after each segment the live probes matched, exiting when ``d1 < ratio^2 * d2``;
-    survivors, least confident first, fill static capacities, the overflow forced out; ``galleries=None``: ridge
-    readouts."""
+    """Early-exit serving: after each segment the live probes matched, exiting at ``d1 < ratio^2 * d2``;
+    survivors, least confident first, fill static capacities; ``galleries=None``: ridge readouts."""
 
     def __init__(self, variables: Optional[Dict[str, Any]], info: Dict[str, Any], gallery, *,
         labels: Optional[np.ndarray] = None, resolution: Optional[int] = None, taps: Optional[Sequence[str]] = None,
@@ -557,11 +556,11 @@ def _builder(cls, variant, gallery, labels, seed, variables, kwargs):
 
 
 def build_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *, seed: int = 0,
-                  variables: Optional[Dict[str, Any]] = None, **kwargs) -> RecognitionService:
+        variables: Optional[Dict[str, Any]] = None, **kwargs) -> RecognitionService:
     return _builder(RecognitionService, variant, gallery, labels, seed, variables, kwargs)
 
 
 def build_cascade_service(variant: str, gallery, labels: Optional[np.ndarray] = None, *, seed: int = 0,
-                          variables: Optional[Dict[str, Any]] = None, **kwargs) -> CascadeRecognitionService:
+        variables: Optional[Dict[str, Any]] = None, **kwargs) -> CascadeRecognitionService:
     """As :func:`build_service`; the service's own ``seed`` (17) seeds its calibration noise, as in JAX."""
     return _builder(CascadeRecognitionService, variant, gallery, labels, seed, variables, kwargs)

@@ -1,13 +1,12 @@
 """Checkpoints without flax (JAX ``utils/checkpoint.py``): msgpack save and load,
-``BestCheckpoint``, ``EarlyStopping``, ``ema_update``, ``EmbeddingCache``;
-trees of numpy arrays or tensors in, numpy out."""
+``BestCheckpoint``, ``EarlyStopping``, ``ema_update``, ``EmbeddingCache``."""
 
 import os
 from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from fast_image_recognition_tpu_torch.utils.msgpack_lite import msgpack_restore, to_bytes
+from .msgpack_lite import msgpack_restore, to_bytes
 
 
 def save_variables(path: str, variables) -> None:
@@ -25,8 +24,8 @@ def _restore(template, state):
 
 
 def load_variables(path: str, template=None) -> Any:
-    """Flax-msgpack checkpoint -> nested dicts of numpy arrays, leaf for leaf what the JAX package's ``load_variables``
-    returns; with a ``template``, its structure (lists restored)."""
+    """Flax-msgpack checkpoint -> nested dicts of numpy arrays, as the JAX package's; with a ``template``,
+    its structure."""
     with open(path, "rb") as fh:
         state = msgpack_restore(fh.read())
     return state if template is None else _restore(template, state)

@@ -1,6 +1,6 @@
 """Matmul and conv FLOPs of one call (JAX ``utils/flops.py``) by
-``FlopCounterMode``; elementwise ops are left out. A kernel launched through
-ctypes is opaque, as a Pallas call is to JAX's count: count its per-op twin."""
+``FlopCounterMode``; a ctypes kernel is opaque, as a Pallas call to JAX: count
+its per-op twin."""
 
 import torch
 

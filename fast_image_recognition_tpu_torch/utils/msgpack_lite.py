@@ -141,8 +141,7 @@ def _unchunk(tree: Any) -> Any:
 
 
 def msgpack_restore(data: bytes) -> Any:
-    """The port's ``flax.serialization.msgpack_restore``: nested dicts of
-    numpy arrays (read-only views of ``data``)."""
+    """``flax.serialization.msgpack_restore``: nested dicts of numpy arrays (read-only views)."""
     return _unchunk(unpackb(data))
 
 
@@ -163,8 +162,8 @@ def _int(v: int) -> bytes:
     if -32 <= v <= 0x7F:
         return struct.pack(">b" if v < 0 else ">B", v)
     for code, fmt, lo, hi in ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16), (0xCE, ">I", 0, 1 << 32),
-                              (0xCF, ">Q", 0, 1 << 64), (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
-                              (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0)):
+            (0xCF, ">Q", 0, 1 << 64), (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+            (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0)):
         if lo <= v < hi:
             return bytes([code]) + struct.pack(fmt, v)
     raise ValueError(f"integer {v} does not fit msgpack")
@@ -187,7 +186,7 @@ def _array_ext(arr) -> bytes:
         shape, name = arr.shape, arr.dtype.name
     if arr.nbytes > MAX_CHUNK_SIZE:
         raise ValueError(f"an array of {arr.nbytes} bytes exceeds flax's chunk size {MAX_CHUNK_SIZE}; "
-                         "flax would write it in chunks, which this encoder does not")
+                "flax would write it in chunks, which this encoder does not")
     return packb([list(shape), name, np.ascontiguousarray(arr).tobytes()])
 
 
@@ -227,5 +226,5 @@ def to_state_dict(tree: Any) -> Any:
 
 
 def to_bytes(tree: Any) -> bytes:
-    """What ``flax.serialization.to_bytes`` writes for a tree of numpy arrays, torch tensors and Python scalars."""
+    """``flax.serialization.to_bytes`` of a tree of numpy arrays, tensors and Python scalars."""
     return packb(to_state_dict(tree))

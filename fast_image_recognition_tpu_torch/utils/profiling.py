@@ -40,8 +40,7 @@ def _device_of(out):
 
 
 def host_sync(out=None) -> None:
-    """Waits for the card ``out`` lives on (no ``out``: the current card, if
-    CUDA is in use); nothing for the CPU."""
+    """Waits for the card ``out`` lives on (no ``out``: the current card, if CUDA is in use)."""
     dev = _device_of(out)
     if dev is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -66,7 +65,7 @@ class Timer:
 
     def report(self) -> str:
         return "\n".join(f"{k}: total={self.totals[k] * 1e3:.2f}ms n={self.counts[k]} "
-                         f"avg={self.totals[k] * 1e3 / self.counts[k]:.3f}ms" for k in sorted(self.totals))
+                f"avg={self.totals[k] * 1e3 / self.counts[k]:.3f}ms" for k in sorted(self.totals))
 
 
 def timed(fn, reps: int = 5):
@@ -107,8 +106,7 @@ def time_jitted(fn, *args, iters: int = 10) -> dict:
 
 @contextlib.contextmanager
 def device_trace(log_dir=None):
-    """``torch.profiler`` (CUDA activity too) over the block, fenced; a Chrome
-    trace in ``log_dir``. Yields the profiler."""
+    """``torch.profiler`` (CUDA too) over the block, fenced; a Chrome trace in ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * torch.cuda.is_available()) as prof:
@@ -134,4 +132,4 @@ def trace_call(fn):
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     return dict(window_ms=(end - start) / 1e3, busy_ms=busy, idle_share=1.0 - busy * 1e3 / max(end - start, 1e-9),
-                events=len(dev), by_name=dict(by_name))
+            events=len(dev), by_name=dict(by_name))

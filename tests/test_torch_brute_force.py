@@ -1,8 +1,7 @@
-"""The exact 1-NN matcher and evaluation harness against JAX's. Tolerances: rows
-equal but at fp64 ties within 2^-16 relative; distances rtol 2e-4, atol 1e-7
-(tests/test_distances.py), int8 rescored 2^-20 relative + 1e-8; the write ->
-load -> split -> match -> evaluate slice: texts, arrays, splits and every
-``EvalResult`` field but ``ms_per_image`` equal."""
+"""The exact 1-NN matcher and harness against JAX's: rows equal but at fp64
+ties within 2^-16 relative; distances rtol 2e-4, atol 1e-7, int8 rescored
+2^-20 + 1e-8; the file -> split -> match -> evaluate slice equal (but
+``ms_per_image``)."""
 
 import dataclasses
 
@@ -106,9 +105,9 @@ def test_end_to_end_slice_matches_jax(tmp_path):
 
     args = lambda db, s: (db.labels[s.train_idx], db.features[s.test_idx], db.labels[s.test_idx])  # noqa: E731
     pres = PE.evaluate_matcher(BruteForceMatcher(pdb.features[ps.train_idx], device="cpu"), *args(pdb, ps),
-                               num_classes=pdb.num_classes, verbose=False)
+            num_classes=pdb.num_classes, verbose=False)
     jres = JE.evaluate_matcher(JMatcher(jdb.features[js.train_idx]), *args(jdb, js),
-                               num_classes=jdb.num_classes, verbose=False)
+            num_classes=jdb.num_classes, verbose=False)
     for f in ("name", "error_rate", "macro_recall", "checked_percent", "unreliable_percent", "extras"):
         assert getattr(pres, f) == getattr(jres, f), f
     assert pres.error_rate < 5.0 and pres.macro_recall > 95.0 and pres.checked_percent == 100.0

@@ -1,8 +1,7 @@
-"""``CascadeRecognitionService`` and its single-min scan against JAX's.
-Tolerances: scan distances 2^-12 relative, rows equal but at ties within it;
-readouts: the ridge fit on JAX's features 1e-3 relative, on the port's own 5e-2
-(bf16 backbones); answers: rows, levels and forced exits equal but where
-``ratio^2 * d2 - d1`` is within 2^-8 * d1 of zero or rows tie within 2^-8."""
+"""``CascadeRecognitionService`` and its single-min scan against JAX's: scan
+distances 2^-12 relative, rows but at such ties; readouts on JAX's features
+1e-3, on the port's 5e-2 (bf16); rows, levels, forced exits equal but where
+``ratio^2 * d2 - d1`` is within 2^-8 d1 of 0 or rows tie within 2^-8."""
 
 import jax
 import jax.numpy as jnp
@@ -216,8 +215,8 @@ L_PROBES, L_VALID = 16, 1500  # 4 levels, 4 probes per exit level; tile_g 128
 
 
 def _level_layout(feats):
-    """Row-aligned galleries (3 taps + final): probe p has row r_p (label p) and twin t_p (100 + p) in another tile,
-    both its embedding before level p // 4 (d1 = d2: no exit), after it r_p alone. Other rows random."""
+    """Row-aligned galleries (3 taps + final): probe p's row r_p (label p) and twin t_p (100 + p) in another
+    tile hold its embedding before level p // 4 (d1 = d2: no exit), r_p alone after."""
     rng = np.random.default_rng(3)
     r = 90 * np.arange(L_PROBES) + 7
     t = (r + 700) % L_VALID  # never an r row, always another 128-row tile

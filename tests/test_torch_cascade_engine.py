@@ -1,9 +1,8 @@
-"""``SequentialInferencePipeline`` against JAX's, random-init B0 at 32 px.
-Tolerances: within each package ``predict_fused`` and ``predict_pooled`` give
-``predict``'s decisions exactly, the kNN head ``sequential_knn_cascade``'s;
-across them (bf16 backbones) >= 90 % of predictions and >= 80 % of levels,
-folded vs bind too (tests/test_cascade.py:253-265); a level-0 prediction equals
-JAX's but where its two best scores lie within 2^-5 of max |score|."""
+"""``SequentialInferencePipeline`` against JAX's (random B0 at 32 px):
+``predict_fused`` and ``predict_pooled`` = ``predict`` exactly, the kNN head =
+``sequential_knn_cascade``; across packages (bf16) >= 90 % of predictions and
+>= 80 % of levels, folded vs bind too (tests/test_cascade.py:253-265); level 0
+= JAX's but where its two best scores lie within 2^-5 of max |score|."""
 
 import jax
 import jax.numpy as jnp
@@ -194,11 +193,11 @@ def _make_knn_pipe(b0, n_gal=30, n_val=16, num_classes=6, **kw):
     labels = rng.integers(0, num_classes, n_gal)
     model = EfficientNet("b0")
     tmp = SequentialInferencePipeline(model, np_vars, TAPS, head_mode="knn",
-                                      galleries=[np.eye(2, dtype=np.float32)] * (len(TAPS) + 1),
-                                      gallery_labels=np.zeros(2, np.int64), buckets=(8, 16, 32), device="cpu", **kw)
+            galleries=[np.eye(2, dtype=np.float32)] * (len(TAPS) + 1),
+            gallery_labels=np.zeros(2, np.int64), buckets=(8, 16, 32), device="cpu", **kw)
     gal_levels = tmp.level_embeddings(gal_images)
     pipe = SequentialInferencePipeline(model, None, TAPS, head_mode="knn", galleries=gal_levels,
-                                       gallery_labels=labels, buckets=(8, 16, 32), device="cpu", **kw)
+            gallery_labels=labels, buckets=(8, 16, 32), device="cpu", **kw)
     return pipe, gal_levels, labels, gal_images, val_images
 
 
@@ -231,13 +230,13 @@ def test_segment_pipeline_on_pruned_backbone(b0):
     pruned_model, pruned_vars = prune_efficientnet(model, variables, 0.25, "l1")
     pruned_vars = jax.device_get(pruned_vars)
     np_vars = jax.tree_util.tree_map(np.asarray, {"params": pruned_vars["params"],
-                                     "batch_stats": pruned_vars["batch_stats"]})
+            "batch_stats": pruned_vars["batch_stats"]})
     images = _images(6, seed=1)
     rng = np.random.default_rng(0)
     coefs = [rng.normal(0, 0.1, (4, d)).astype(np.float32) for d in DIMS]
     intercepts = [np.zeros(4, np.float32) for _ in DIMS]
     pipe = SequentialInferencePipeline(EfficientNet("b0", hidden_overrides=pruned_model.hidden_overrides), np_vars,
-                                       TAPS, coefs, intercepts, thresholds=[0.05] * 5, buckets=(8,), device="cpu")
+            TAPS, coefs, intercepts, thresholds=[0.05] * 5, buckets=(8,), device="cpu")
     res = pipe.predict(images)
     assert res.predictions.shape == (6,) and np.isclose(res.break_counts.sum(), 1.0)
     full = _jit_apply(pruned_model)(pruned_vars, jnp.asarray(images))

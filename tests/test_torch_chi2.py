@@ -1,10 +1,8 @@
 """chi2 1-NN (``plain.chi2_nn_plain``, exact division) against JAX's interpret
-mode; ``chi2_cost`` tiny. Tolerances: rows equal the fp64 argmin (bf16 gallery
->= 90 %, JAX's bound), distances rtol 2e-5, atol 1e-7; against JAX, indices
-equal but where the oracle's two least lie within 2^-7 relative (JAX's
-approximate reciprocal is up to 2^-8 off a term here), refined distances rtol
-2e-5, atol 1e-7 (tests/test_chi2_kernel.py:34), unrefined rtol 4e-3. The
-launcher refuses CPU tensors."""
+mode; ``chi2_cost`` tiny. Rows = the fp64 argmin (bf16 gallery >= 90 %),
+distances rtol 2e-5, atol 1e-7; vs JAX indices equal but where the oracle's two
+least lie within 2^-7 (JAX's reciprocal is up to 2^-8 off a term), refined
+distances rtol 2e-5, atol 1e-7, unrefined 4e-3. CPU tensors refused."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -108,11 +106,11 @@ def test_chi2_cost_lines_on_cpu():
     """The script's lines at a tiny size: every kind and field, top-1 = the fp64 oracle, L1-normalized data."""
     kinds = ",".join(chi2_cost.KINDS)
     lines = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "1", "--kinds", kinds,
-                           "--device", "cpu"])
+            "--device", "cpu"])
     assert [ln["metric"].split("(")[1].split()[0] for ln in lines] == list(chi2_cost.KINDS)
     for ln in lines:
         assert set(ln) == {"metric", "value", "unit", "sec_per_batch", "elem_triples_per_sec", "probe_agreement",
-                   "device"}
+                "device"}
         assert ln["unit"] == "queries/sec/cpu" and ln["device"] == "cpu"
         assert ln["probe_agreement"] == 1.0, ln
     g, q = chi2_cost.make_data(640, 16, 24, torch.device("cpu"))
@@ -133,5 +131,5 @@ def test_chi2_cost_without_warmup(monkeypatch):
     for warmup in (0, 1):
         calls.clear()
         ln, = chi2_cost.main(["--gallery", "640", "--batch", "16", "--dim", "24", "--iters", "2", "--warmup",
-                             str(warmup), "--kinds", "kl", "--device", "cpu"])
+                str(warmup), "--kinds", "kl", "--device", "cpu"])
         assert len(calls) == 2 + 1 + warmup and ln["probe_agreement"] == 1.0

@@ -42,7 +42,7 @@ CASES = [
     ("knn20", lambda: J.KNNClassifier(20, C), lambda: P.KNNClassifier(20, C, device="cpu")),  # no class reaches 20
     ("pnn", lambda: J.PNNClassifier(C), lambda: P.PNNClassifier(C, device="cpu")),
     ("pnn-seq", lambda: J.PNNClassifier(C, bruteforce=False), lambda: P.PNNClassifier(C, bruteforce=False,
-                                                                                      device="cpu")),
+        device="cpu")),
     ("pnn-clustering", lambda: J.PNNWithClusteringClassifier(C), lambda: P.PNNWithClusteringClassifier(
         C, device="cpu")),
     ("fpnn", lambda: J.FPNNClassifier(C), lambda: P.FPNNClassifier(C, device="cpu")),

@@ -85,9 +85,9 @@ def test_train_test_split_indices_equal(per_class, fraction):
     labels = np.repeat(np.arange(9), [5, 1, 7, 2, 9, 4, 3, 8, 6])
     labels = labels[np.random.default_rng(2).permutation(labels.size)]
     a = PD.train_test_split_images(labels, np.random.default_rng(7), train_images_per_class=per_class,
-                                   train_fraction=fraction, indices_count=20)
+            train_fraction=fraction, indices_count=20)
     b = JD.train_test_split_images(labels, np.random.default_rng(7), train_images_per_class=per_class,
-                                   train_fraction=fraction, indices_count=20)
+            train_fraction=fraction, indices_count=20)
     assert a.train_idx.dtype == np.int64
     np.testing.assert_array_equal(a.train_idx, b.train_idx)
     np.testing.assert_array_equal(a.test_idx, b.test_idx)

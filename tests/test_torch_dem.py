@@ -1,8 +1,7 @@
-"""DEM against JAX's (N = 384, D = 96). Tolerances: host build pivots equal, P and
-other-class minima rtol 1e-5; device build pivots equal, P within rtol 2e-4 +
-atol 1e-5 of the host's; searches: rows vs the oracle >= 92 %, checked within 2
-on >= 90 % (JAX's bounds), rows vs JAX >= 92 %, labels >= 97 %, the oracle's
-answer where the budget leaves no candidate; full matrix >= 90 % / 85 %."""
+"""DEM against JAX's (N = 384, D = 96): host pivots equal, P and minima rtol
+1e-5; device pivots equal, P rtol 2e-4 + atol 1e-5 of the host's; rows vs the
+oracle >= 92 %, checked within 2 on >= 90 % (JAX's bounds), vs JAX >= 92 %,
+labels >= 97 %; full matrix >= 90 % / 85 %."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,9 +53,9 @@ def test_device_build_matches_host_build(data):
     np.testing.assert_allclose(pm_d.numpy(), pm_h, rtol=2e-4, atol=1e-5)
     np.testing.assert_allclose(om_d, om_h, rtol=2e-4, atol=1e-5)
     host_m = P.DirectedEnumerationMatcher(gallery, glabels, seed=9, probe_mode="gather", image_count_to_check=60,
-                                          device="cpu")
+            device="cpu")
     dev_m = P.DirectedEnumerationMatcher.from_device(torch.from_numpy(gallery), glabels, seed=9,
-                                                     image_count_to_check=60, device="cpu")
+            image_count_to_check=60, device="cpu")
     assert dev_m.budget == host_m.budget and dev_m.index.p_matrix is None
     assert abs(dev_m.index.threshold - host_m.index.threshold) <= 1e-3 * max(1.0, abs(host_m.index.threshold))
     r_h, r_d = host_m.search(probes), dev_m.search(probes)

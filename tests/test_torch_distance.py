@@ -67,12 +67,11 @@ def test_gallery_sq_norms_layout(gallery):
 
 
 def test_unported_options_raise_and_card_wrappers_check_device():
-    """``select='approx'`` is the exact selection; an unknown ``select``, k < 1
-    and other devices raise; every launcher refuses CPU tensors before a build."""
+    """An unknown ``select``, k < 1 and other devices raise; launchers refuse CPU tensors before a build."""
     q = torch.zeros((2, 16), dtype=torch.bfloat16)
     g = P.pad_gallery(q, 128)
     torch.testing.assert_close(P.topk_candidates_l2(q, g, 1, tile_g=128, select="approx"),
-                               P.topk_candidates_l2(q, g, 1, tile_g=128), rtol=0, atol=0)
+            P.topk_candidates_l2(q, g, 1, tile_g=128), rtol=0, atol=0)
     with pytest.raises(ValueError):
         P.topk_candidates_l2(q, g, 1, tile_g=128, select="nope")
     with pytest.raises(ValueError):

@@ -1,8 +1,7 @@
-"""``ops/distances.py`` against JAX's. Tolerances: the NumPy oracles bit-equal;
-``pairwise_distances`` rtol 2e-4, atol 1e-7, L2 ``precise=False`` rtol 0.05,
-atol 1e-4; ``streamed_topk`` rtol 2e-4, atol 1e-7, rows equal but at fp64 ties
-within 2^-16; ``window_distance_update`` rtol 1e-5, atol 1e-8 (that file's
-bounds)."""
+"""``ops/distances.py`` against JAX's: oracles bit-equal; ``pairwise_distances``
+rtol 2e-4, atol 1e-7 (L2 ``precise=False`` 0.05, 1e-4); ``streamed_topk``
+rtol 2e-4, atol 1e-7, rows but at 2^-16 fp64 ties; ``window_distance_update``
+rtol 1e-5, atol 1e-8."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,7 +76,7 @@ def test_streamed_topk_matches_jax(kind, k):
     for tile_n in (128, None):
         jd, ji = (np.asarray(a) for a in J.streamed_topk(q, g, k=k, end=end, kind=JKind(kind), tile_n=tile_n))
         pd, pi = P.streamed_topk(torch.from_numpy(q), torch.from_numpy(g), k=k, end=end, kind=DistanceKind(kind),
-                                 tile_n=tile_n)
+                tile_n=tile_n)
         assert pd.shape == (7, k) and pi.dtype == torch.int32
         pd, pi = pd.numpy(), pi.numpy()
         np.testing.assert_allclose(pd, jd, rtol=2e-4, atol=1e-7)
@@ -107,5 +106,5 @@ def test_window_refinement_identity_matches_jax(small_sets):
     fresh = P.pairwise_distances(pq, pg, start=0, end=64)
     np.testing.assert_allclose(d64.numpy(), fresh.numpy(), rtol=1e-5, atol=1e-8)
     jd = J.window_distance_update(J.pairwise_distances(q, g, start=0, end=32), jnp.asarray(q), jnp.asarray(g),
-                                  start=32, end=64, total_start=0)
+            start=32, end=64, total_start=0)
     np.testing.assert_allclose(d64.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-8)

@@ -165,7 +165,7 @@ def test_space_to_depth_stem_is_exact_fp32(random_b0_64):
     plain_stem = pinf.make_infer_fn(variables, "b0", resolution=64, dtype=torch.float32, device="cpu")
     assert module.space_to_depth and not plain_stem.space_to_depth
     np.testing.assert_allclose(module.stem_s2d_w.permute(2, 3, 1, 0).numpy(), np.asarray(jfolded["stem_s2d_w"]),
-                               rtol=1e-6, atol=1e-7)
+            rtol=1e-6, atol=1e-7)
     x = torch.from_numpy(images)
     with torch.no_grad():
         np.testing.assert_allclose(module.stem(x).numpy(), plain_stem.stem(x).numpy(), rtol=2e-5, atol=2e-5)

@@ -1,6 +1,5 @@
-"""The trainable EfficientNet against JAX's, B0 at 32 px. Tolerances: weights
-carried both ways bit-equal, the own init with flax's keys and shapes; fp32
-taps and embedding 1e-4 of max |JAX|; bf16 2^-5 of the largest magnitude and
+"""The trainable EfficientNet against JAX's (B0, 32 px): weights carried both
+ways bit-equal; fp32 taps and embedding 1e-4 of max |JAX|; bf16 2^-5 and
 cosine >= 0.999 an image (flax rounds the conv output, torch once)."""
 
 import jax
@@ -102,9 +101,9 @@ def test_own_init_has_the_flax_tree_and_defaults(b0):
     same = create_efficientnet("b0", 0, seed=0, resolution=RES, device="cpu")[1]
     other = create_efficientnet("b0", 0, seed=1, resolution=RES, device="cpu")[1]
     np.testing.assert_array_equal(same["params"]["block2a"]["expand_conv"]["kernel"],
-                                  v["params"]["block2a"]["expand_conv"]["kernel"])
+            v["params"]["block2a"]["expand_conv"]["kernel"])
     assert not np.array_equal(other["params"]["block2a"]["expand_conv"]["kernel"],
-                              v["params"]["block2a"]["expand_conv"]["kernel"])
+            v["params"]["block2a"]["expand_conv"]["kernel"])
     # the flax module runs the port's init: the same forward
     with torch.no_grad():
         po = m(torch.from_numpy(images), taps=TAPS)

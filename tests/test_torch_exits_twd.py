@@ -133,7 +133,7 @@ def test_conventional_twd_limits_are_prefix_brute_force(twd_data):
     assert never.unreliable_count == probes.shape[0]
     # refining only the unreliable probes equals refining every probe
     c = PT.ConventionalTWD(gallery, glabels, 16, PT.TWDType.DIST_RATIO, 0.8, reduced_features=16, refine_to=64,
-                           device="cpu")
+            device="cpu")
     preds = c.predict(probes)
     q = c._g.new_tensor(probes)
     d1, best, reliable = PT._twd_stage1(q, c._g, c._l, 16, 16, 0.8, PT.TWDType.DIST_RATIO, c.kind)

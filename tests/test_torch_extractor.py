@@ -1,13 +1,9 @@
-"""``models/extractor.py`` against JAX's and PIL's over PNG (RGB, RGBA, L,
-palette) and BMP (24, 32 bit) files and a corrupt one. Tolerances: the port's
-PNG/BMP decode equal to PIL's ``convert("RGB")``; its resize within 1 level of
-PIL's default bicubic at the shapes below (each pass rounded to uint8 as PIL's;
-PIL's coefficients are fixed-point: over 60 random shapes, 8-400 px to 16-300,
-the worst case found is 2); the files written by both packages'
-``extract_dataset_to_file`` from the same port-exported B0 variables: names,
-labels and class lines equal, rows at cosine >= 0.999 (the bf16 folded
-forward's bound in tests/test_torch_efficientnet.py); a ``data`` mesh of two
-CPU entries equal to the unsharded rows."""
+"""``models/extractor.py`` against JAX's and PIL's: PNG (RGB, RGBA, L, palette)
+and BMP (24, 32 bit) decoded as PIL's ``convert("RGB")``, a corrupt file
+refused; the resize within 1 level of PIL's bicubic (fixed-point
+coefficients: 2 at worst over 60 random shapes); both packages'
+``extract_dataset_to_file`` from one B0: names, labels, class lines equal,
+rows at cosine >= 0.999; a two-entry ``data`` mesh = unsharded."""
 
 import sys
 
@@ -32,8 +28,8 @@ def root(tmp_path_factory):
         return Image.fromarray(a, "RGBA").convert(mode)
 
     files = {"a/rgb.png": img("RGB"), "a/rgba.png": img("RGBA"), "a/small.png": img("RGB", 40),
-             "b/gray.png": img("L"), "b/pal.png": img("RGB").quantize(64), "b/gray_alpha.png": img("LA"),
-             "c/rgb.bmp": img("RGB"), "c/rgba.bmp": img("RGBA")}
+            "b/gray.png": img("L"), "b/pal.png": img("RGB").quantize(64), "b/gray_alpha.png": img("LA"),
+            "c/rgb.bmp": img("RGB"), "c/rgba.bmp": img("RGBA")}
     for name, im in files.items():
         (root / name).parent.mkdir(exist_ok=True)
         im.save(root / name)

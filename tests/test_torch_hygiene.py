@@ -5,6 +5,7 @@ import ast
 import os
 import re
 import shutil
+from functools import partial
 
 import pytest
 import torch
@@ -73,9 +74,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from fast_image_recognition_tpu_torch.cascade import ConventionalTWD, ProposedTWD, TWDType
     from fast_image_recognition_tpu_torch.cascade.engine import SequentialInferencePipeline
     from fast_image_recognition_tpu_torch.evaluation.video import make_video_fusion_fn
-    from fast_image_recognition_tpu_torch.models import EfficientNet, create_backbone, create_efficientnet
-    from fast_image_recognition_tpu_torch.models import create_mobilenet_v1, create_mobilenetv2
-    from fast_image_recognition_tpu_torch.models import backbone_info as zoo_info
+    from fast_image_recognition_tpu_torch.models import (EfficientNet, create_backbone, create_efficientnet,
+        create_mobilenet_v1, create_mobilenetv2, backbone_info as zoo_info)
     from fast_image_recognition_tpu_torch.models.fold import make_serving_fn
     from fast_image_recognition_tpu_torch.search.dem import DirectedEnumerationMatcher, FullMatrixDEM
     from fast_image_recognition_tpu_torch.classifiers import FPNNClassifier, KNNClassifier, PNNClassifier
@@ -85,74 +85,76 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from fast_image_recognition_tpu_torch.models.extractor import FeatureExtractor
     from fast_image_recognition_tpu_torch.models.train import MultiExitTrainer, TrainConfig
     from fast_image_recognition_tpu_torch.ops.pca import fit_pca
-    from fast_image_recognition_tpu_torch.scripts import extract_features, run_trained_cascade, train_serving_backbone
+    from fast_image_recognition_tpu_torch.scripts import (extract_features, run_prune_finetune, run_trained_cascade,
+        train_serving_backbone)
 
     _, irv2 = create_backbone("inception_resnet_v2", device="cpu")
     mb = {n: create_backbone(n, resolution=32, device="cpu")[1] for n in ("mobilenetv2", "mobilenetv1")}
     (tmp_path / "ds" / "c0").mkdir(parents=True)
     Image.new("RGB", (2, 2)).save(tmp_path / "ds" / "c0" / "x.bmp")
     train_args = ["--resolution", "32", "--classes", "2", "--per-class", "3", "--train-per-class", "2",
-                  "--batch-size", "2", "--epochs", "1", "--out", str(tmp_path / "ck.msgpack")]
+            "--batch-size", "2", "--epochs", "1", "--out", str(tmp_path / "ck.msgpack")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     feats = torch.rand((40, 16)).numpy()
     labels = torch.arange(40).numpy() % 4
     for make in (
-        lambda **kw: DirectedEnumerationMatcher(feats, labels, **kw),
-        lambda **kw: DirectedEnumerationMatcher.from_device(torch.from_numpy(feats), labels, **kw),
-        lambda **kw: FullMatrixDEM(feats, labels, **kw),
-        lambda **kw: make_video_fusion_fn(feats, labels, 4, 2, **kw),
-        lambda **kw: create_efficientnet("b0", resolution=32, **kw),
-        lambda **kw: create_backbone("inception_resnet_v2", **kw),
+        partial(DirectedEnumerationMatcher, feats, labels),
+        partial(DirectedEnumerationMatcher.from_device, torch.from_numpy(feats), labels),
+        partial(FullMatrixDEM, feats, labels),
+        partial(make_video_fusion_fn, feats, labels, 4, 2),
+        partial(create_efficientnet, "b0", resolution=32),
+        partial(create_backbone, "inception_resnet_v2"),
         lambda **kw: build_service("inception_resnet_v2", feats[:4, :1].repeat(1536, 1), variables=None,
-                                   match="exact", **kw),
-        lambda **kw: make_serving_fn(irv2, zoo_info("inception_resnet_v2"), **kw),
-        lambda **kw: create_mobilenetv2(resolution=32, **kw),
-        lambda **kw: create_mobilenet_v1(resolution=32, **kw),
+            match="exact", **kw),
+        partial(make_serving_fn, irv2, zoo_info("inception_resnet_v2")),
+        partial(create_mobilenetv2, resolution=32),
+        partial(create_mobilenet_v1, resolution=32),
         *(lambda n=n, v=v, **kw: make_serving_fn(v, zoo_info(n), **kw) for n, v in mb.items()),
-        lambda **kw: make_infer_fn(mb["mobilenetv2"], "mobilenetv2", fused=True, **kw),
+        partial(make_infer_fn, mb["mobilenetv2"], "mobilenetv2", fused=True),
         lambda **kw: SequentialInferencePipeline(EfficientNet("b0"), None, ["block5a"], [feats[:4, :1]] * 2,
-                                                 [labels[:4]] * 2, **kw),
-        lambda **kw: ProposedTWD(feats, labels, 4, chunk_features=8, max_features=16, **kw),
-        lambda **kw: ConventionalTWD(feats, labels, 4, TWDType.DIST_RATIO, 0.7, 8, 16, **kw),
-        lambda **kw: SmallWorldMatcher(feats, **kw),
-        lambda **kw: ProjectionIndexMatcher(feats, **kw),
-        lambda **kw: KNNClassifier(1, 4, **kw),
-        lambda **kw: PNNClassifier(4, **kw),
-        lambda **kw: FPNNClassifier(4, **kw),
+            [labels[:4]] * 2, **kw),
+        partial(ProposedTWD, feats, labels, 4, chunk_features=8, max_features=16),
+        partial(ConventionalTWD, feats, labels, 4, TWDType.DIST_RATIO, 0.7, 8, 16),
+        partial(SmallWorldMatcher, feats),
+        partial(ProjectionIndexMatcher, feats),
+        partial(KNNClassifier, 1, 4),
+        partial(PNNClassifier, 4),
+        partial(FPNNClassifier, 4),
         lambda **kw: gallery_mesh(2, devices=None if not kw else [kw["device"]] * 2),
         lambda **kw: ShardedGalleryMatcher(feats, gallery_mesh(devices=None if not kw else [kw["device"]] * 2)),
         lambda **kw: MultiExitTrainer(create_backbone("mobilenetv1", resolution=32, device="cpu")[0], mb["mobilenetv1"],
-                                      TrainConfig(2, ("conv_dw_5",), 32), **kw),
-        lambda **kw: FeatureExtractor("mobilenetv1", mb["mobilenetv1"], resolution=32, **kw),
-        lambda **kw: train_serving_backbone.main(train_args, **kw),
+            TrainConfig(2, ("conv_dw_5",), 32), **kw),
+        partial(FeatureExtractor, "mobilenetv1", mb["mobilenetv1"], resolution=32),
+        partial(train_serving_backbone.main, train_args),
         lambda **kw: extract_features.main([str(tmp_path / "ds"), str(tmp_path / "f.txt"), "--variant",
-                                            "mobilenetv1"], **kw),
+            "mobilenetv1"], **kw),
         lambda **kw: run_trained_cascade.main(["--dataset", "synthetic", "--classes", "4", "--per-class", "6",
             "--phase1-epochs", "0", "--phase2-epochs", "1", "--batch-size", "8", "--pool", "8", "--bucket", "8",
             "--far-sweep", "0.1", "--fused-far", "0.1", "--iters", "1"], **kw),
         lambda **kw: fit_pca(feats, 4).project_device(feats, **kw),
+        partial(run_prune_finetune.main, ["--synthetic", "2,10,32", "--epochs", "0"]),
     ):
         with pytest.raises(RuntimeError):
             make()
         make(device="cpu")  # the CPU only when asked for
     g, rows = torch.zeros((4, 1280)), torch.rand((8, 16)).numpy()
     for make in (lambda: RecognitionService(None, backbone_info("b0"), g),
-                 lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded"),
-                 # the service on the CPU, its mesh left to the default
-                 lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded",
-                                            serving_fn=torch.nn.Identity(), device="cpu"),
-                 lambda: CascadeRecognitionService(None, backbone_info("b0"), g),
-                 lambda: build_cascade_service("b0", g, variables=None), lambda: build_service("b0", g, variables=None),
-                 lambda: make_tap_embed_fn(None, backbone_info("b0")), lambda: device_dataset(2, 1, 8),
-                 lambda: make_infer_fn(None, fused=True), lambda: chi2_nn(rows, rows), lambda: BruteForceMatcher(rows),
-                 lambda: chi2_cost.main(["--gallery", "8", "--batch", "2", "--dim", "16", "--iters", "1"])):
+            lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded"),
+            # the service on the CPU, its mesh left to the default
+            lambda: RecognitionService(None, backbone_info("b0"), g, match="sharded",
+                serving_fn=torch.nn.Identity(), device="cpu"),
+            lambda: CascadeRecognitionService(None, backbone_info("b0"), g),
+            lambda: build_cascade_service("b0", g, variables=None), lambda: build_service("b0", g, variables=None),
+            lambda: make_tap_embed_fn(None, backbone_info("b0")), lambda: device_dataset(2, 1, 8),
+            lambda: make_infer_fn(None, fused=True), lambda: chi2_nn(rows, rows), lambda: BruteForceMatcher(rows),
+            lambda: chi2_cost.main(["--gallery", "8", "--batch", "2", "--dim", "16", "--iters", "1"])):
         with pytest.raises(RuntimeError):
             make()
 
 
 def test_port_files_are_small_source_text():
     paths = list(_port_files(("",))) + [os.path.join(REPO, "chip_smoke.py"), *(os.path.join(REPO, "tests",
-                 f) for f in os.listdir(os.path.join(REPO, "tests")) if f.startswith("test_torch_"))]
+            f) for f in os.listdir(os.path.join(REPO, "tests")) if f.startswith("test_torch_"))]
     total = 0
     for p in paths:
         if p.endswith((".pyc", ".so")):
@@ -165,20 +167,13 @@ def test_port_files_are_small_source_text():
 
 
 def test_ctypes_bindings_match_the_c_launchers():
-    """Each ``extern "C"`` launcher takes as many arguments as its ctypes binding."""
-    expected = {"tilemin2_packed_launch": 8, "tilemin_packed_launch": 8, "topk_l2_launch": 18,
-        "topk_l2_precise_launch": 20, "tilemin_launch": 11, "tilemin_quant_launch": 13, "mbconv_launch": 29,
-        "mbconv_smem": 13, "chi2_launch": 8, "topk_l2_segment_rows": 2, "topk_l2_query_rows": 0, "topk_l2_list_len": 1,
-        "topk_l2_max_k": 0, "topk_l2_split_smem": 1, "topk_l2_split6_smem": 1, "topk_l2_rescore_launch": 12}
+    """Each ``extern "C"`` function takes as many arguments as its ctypes binding declares, and each is bound."""
     for name, src in build.SOURCES.items():
         text = open(os.path.join(build.KERNEL_DIR, src)).read()
-        for fn, n_args in expected.items():
-            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
-            if m:
-                params = [a for a in m.group(1).split(",") if a.strip() not in ("", "void")]
-                assert len(params) == n_args, fn
-                expected[fn] = None
-    assert all(v is None for v in expected.values()), expected
+        assert set(re.findall(r'extern "C" int (\w+)\(', text)) == set(build.SIGNATURES[name]), name
+        for fn, sig in build.SIGNATURES[name].items():
+            params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text).group(1).split(",")
+            assert len([a for a in params if a.strip() not in ("", "void")]) == len(sig), fn
 
 
 def test_build_key_covers_the_headers(monkeypatch, tmp_path):

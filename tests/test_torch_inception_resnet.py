@@ -1,9 +1,7 @@
-"""InceptionResNetV2 against JAX's at 75 px: the trained checkpoint, the serving
-cases from a seeded init (the checkpoint's network dies in Block17 at 75 px).
-
-Tolerances: fp32 segments 1e-4 of max |JAX|; folded bf16 embedding and taps
-0.02 (tests/test_fold_generic.py:102-115); fold trees 1e-6 relative; rows equal
-but at picks within 2^-8 relative."""
+"""InceptionResNetV2 against JAX's at 75 px (the trained checkpoint dies in
+Block17 there, so serving runs a seeded init): fp32 segments 1e-4 of max
+|JAX|; folded bf16 0.02 (tests/test_fold_generic.py:102-115); fold trees
+1e-6; rows but at picks within 2^-8."""
 
 import jax
 import jax.numpy as jnp
@@ -125,9 +123,8 @@ def test_fold_trees_match_jax(setup, tf_stem):
 
 
 def check_planted_rows(emb, jax_emb, images, info, port_service, **kw):
-    """PCA-124 packed service over 2,048 rows in a 96-d span of the probes (a planted row, noise 0.02, and 40
-    distractors, 0.5, a probe): JAX's (on ``jax_emb``) and ``port_service(gallery, **kw)`` pick the same rows but at
-    near-ties, and the planted ones."""
+    """PCA-124 packed service over 2,048 rows in a 96-d span (a planted row, 40 distractors a probe): JAX's
+    (on ``jax_emb``) and ``port_service(gallery, **kw)`` pick the same rows but at near-ties, and the planted."""
     emb = _unit(emb)
     gal, planted = planted_gallery(emb, N, np.random.default_rng(1))
     kw.update(pca_dim=124, pca_scan="packed")
@@ -142,8 +139,8 @@ def check_planted_rows(emb, jax_emb, images, info, port_service, **kw):
 def test_service_rows_match_jax(setup):
     _, _, jax_out = setup["jax"]
     check_planted_rows(setup["out"]["embedding"].numpy(), jax_out["embedding"], setup["images"], jax_info(NAME),
-                       lambda g, **kw: RecognitionService(None, backbone_info(NAME), g, serving_fn=setup["serve"],
-                       device="cpu", **kw), resolution=RES)
+            lambda g, **kw: RecognitionService(None, backbone_info(NAME), g, serving_fn=setup["serve"],
+            device="cpu", **kw), resolution=RES)
 
 
 def test_create_backbone_has_jax_tree():

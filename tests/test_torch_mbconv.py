@@ -113,13 +113,13 @@ def test_plain_matches_per_op_block_fp32(b0, block_index):
     k = cfg["kernel"]
     pads = ((k - 1) // 2, k // 2)
     got = plain.mbconv_plain(x, pmb.prepare_params(p, cfg, torch.float32), k, (pads, pads), "swish",
-                             cfg["residual"]).numpy()
+            cfg["residual"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
 def test_same_pads_and_tile_plan_cover_b0_224():
-    """XLA SAME pads and a tile plan within shared memory for every stride-1 block of B0-B7 and odd planes; 7x7 and
-    B0's 14x14 planes one tile, B0's blocks one output group."""
+    """XLA SAME pads and a plan within shared memory for every stride-1 block of B0-B7 and odd planes; B0's
+    14x14 planes one tile, its blocks one output group."""
     for h, k in [(7, 5), (14, 3), (15, 5), (112, 3)]:
         assert pmb._same_pads(h, k, 1) == jmb._same_pads(h, k, 1) == (h, (k - 1) // 2, k // 2)
     n_s1 = {}

@@ -1,9 +1,7 @@
-"""MobileNetV2 and MobileNetV1 against JAX's at 64 px. Tolerances: fp32 forward
-and segments 1e-4 of max |JAX|; fp32 folded forward and preprocess fold 2e-4
-(tests/test_mobilenet.py:80-121); bf16 serving, cascade taps and folded engine
-levels 0.02 (tests/test_fold_generic.py), the bind engine 1e-4; the fused path
-0.05 of per-op; service rows and levels equal; engines >= 90 % of predictions,
->= 80 % of levels."""
+"""MobileNetV2/V1 against JAX's at 64 px: fp32 forward, segments 1e-4 of max
+|JAX|; fp32 folded and preprocess fold 2e-4; bf16 serving, cascade taps,
+folded engine 0.02, bind engine 1e-4; fused 0.05 of per-op; service rows
+and levels equal; engines >= 90 % of predictions, >= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +39,30 @@ def _close(got, want, tol):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape and np.abs(want).max() > 0
     assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def check_segments(jm, net, v, x, taps, mid):
+    """The fp32 forward with its taps, and stem, blocks [0, mid), [mid, n) and head_pool, within 1e-4 of JAX's."""
+    n = len(net.block_names())
+
+    @jax.jit
+    def ref(v, x):
+        h = jm.apply(v, x, method=type(jm).stem)
+        h1 = jm.apply(v, h, 0, mid, method=type(jm).run_blocks)
+        h2 = jm.apply(v, h1, mid, n, method=type(jm).run_blocks)
+        return jm.apply(v, x, taps=taps), [h, h1, h2, jm.apply(v, h2, method=type(jm).head_pool)]
+
+    want, segs = ref(v, x)
+    with torch.no_grad():
+        out = net(torch.from_numpy(x), taps=taps)
+        h = net.stem(torch.from_numpy(x))
+        h1 = net.run_blocks(h, 0, mid)
+        h2 = net.run_blocks(h1, mid, n)
+        got = [t.permute(0, 2, 3, 1) for t in (h, h1, h2)] + [net.head_pool(h2)]
+    assert sorted(out["taps"]) == sorted(taps)
+    for g, w in zip([out["embedding"]] + [out["taps"][t] for t in taps] + got,
+            [want["embedding"]] + [want["taps"][t] for t in taps] + segs):
+        _close(g.numpy(), w, 1e-4)
 
 
 def _perturb(v, seed):
@@ -97,7 +119,7 @@ def test_variable_shapes_match_flax_init(name, classes):
     want = jax.eval_shape(lambda: model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, RES, RES, 3))))
     got = create_backbone(name, classes, seed=1, resolution=RES, device="cpu")[1]
     paths = lambda t: {jax.tree_util.keystr(p): tuple(x.shape)  # noqa: E731
-                       for p, x in jax.tree_util.tree_flatten_with_path(t)[0]}
+            for p, x in jax.tree_util.tree_flatten_with_path(t)[0]}
     assert paths(got) == paths({k: want[k] for k in ("params", "batch_stats")})
 
 
@@ -105,26 +127,7 @@ def test_variable_shapes_match_flax_init(name, classes):
 def test_fp32_forward_and_segments_match_jax(request, fam):
     jm, v = request.getfixturevalue(fam)
     net = (MobileNetV2 if fam == "v2" else MobileNetV1)(dtype=torch.float32).load_variables(v)
-    x, taps, mid = np.random.default_rng(0).normal(size=(B, RES, RES, 3)).astype(np.float32), TAPS[fam], 8
-    n = len(net.block_names())
-
-    @jax.jit
-    def ref(v, x):
-        h = jm.apply(v, x, method=type(jm).stem)
-        h1 = jm.apply(v, h, 0, mid, method=type(jm).run_blocks)
-        h2 = jm.apply(v, h1, mid, n, method=type(jm).run_blocks)
-        return jm.apply(v, x, taps=taps), [h, h1, h2, jm.apply(v, h2, method=type(jm).head_pool)]
-
-    want, segs = ref(v, x)
-    with torch.no_grad():
-        out = net(torch.from_numpy(x), taps=taps)
-        h = net.stem(torch.from_numpy(x))
-        h1 = net.run_blocks(h, 0, mid)
-        h2 = net.run_blocks(h1, mid, n)
-        got = [t.permute(0, 2, 3, 1) for t in (h, h1, h2)] + [net.head_pool(h2)]
-    for g, w in zip([out["embedding"]] + [out["taps"][t] for t in taps] + got,
-                    [want["embedding"]] + [want["taps"][t] for t in taps] + segs):
-        _close(g.numpy(), w, 1e-4)
+    check_segments(jm, net, v, np.random.default_rng(0).normal(size=(B, RES, RES, 3)).astype(np.float32), TAPS[fam], 8)
 
 
 @pytest.mark.parametrize("fold_pp", [True, False])
@@ -159,7 +162,7 @@ def test_serving_fn_matches_jax(request, fam, folded):
     _, v = request.getfixturevalue(fam)
     name, taps, images = ZOO[fam], TAPS[fam], _images()
     fn, params = jax_serving_fn(J.build_backbone(name), v, J.backbone_info(name), resolution=RES, taps=taps,
-                                folded=folded)
+            folded=folded)
     want = jax.jit(fn)(params, images.astype(np.float32))
     serve = make_serving_fn(v, backbone_info(name), resolution=RES, taps=taps, device="cpu", folded=folded)
     with torch.no_grad():
@@ -211,7 +214,7 @@ def test_engine_matches_jax(v2, engine):
     heads = (taps, coefs, [np.zeros(7, np.float32) for _ in dims])
     x = rng.normal(size=(16, RES, RES, 3)).astype(np.float32)
     port = SequentialInferencePipeline(MobileNetV2(dtype=torch.float32), v, *heads, buckets=(16,), engine=engine,
-                                       device="cpu")
+            device="cpu")
     th = port.calibrate(x)
     jax_pipe = JaxPipeline(jm, v, *heads, thresholds=th, buckets=(16,), engine=engine)
     for g, w in zip(port.level_embeddings(x), jax_pipe.level_embeddings(x)):

@@ -1,16 +1,10 @@
-"""The precise ``topk_l2``'s arithmetic on the card (``split_queries``, the split
-passes over bf16 and fp32 rows) held through its mirror ``plain.split_bf16x3``
-and ``build``'s sizes, and ``topk_l2`` over fp32 rows against JAX's.
-
-- Three terms rebuild fp32 within 2^-26 relative (2^-133 among subnormals).
-- Three products (bf16 rows, 64-feature chunks) within 2^-20 of the fp32
-  matmul; six (fp32 rows, 32-feature chunks, the kernel's order) of fp64.
-- Queries = a bf16 row x (1 + 2^-9 + 2^-18): hi + mid misses fp64 by > 1.5 x
-  2^-18, three terms within 2^-18; rows made so (queries half a row): six
-  products within, three miss.
-- Planes hold whole 128-query boxes; rings fit 227 KB.
-- ``precise=True`` over fp32 rows = JAX's within 2^-16 absolute, rows equal
-  but at fp64 ties."""
+"""The precise ``topk_l2``'s card arithmetic through its mirror
+``plain.split_bf16x3`` and ``build``'s sizes; over fp32 rows against JAX's.
+Three terms rebuild fp32 within 2^-26 (2^-133 subnormal); three products
+(bf16 rows) within 2^-20 of fp32, six (fp32 rows, the kernel's order) of fp64;
+queries = a bf16 row x (1 + 2^-9 + 2^-18): hi + mid miss fp64 by > 1.5 x
+2^-18, three terms within; rows so made: six within, three miss; planes hold
+128-query boxes, rings fit 227 KB; vs JAX 2^-16 absolute, rows but at ties."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,8 +45,8 @@ THREE = [(0, 1), (1, 0), (0, 0)]  # what a pass without hi.lo, lo.hi and mid.mid
 
 
 def _six_products_fp32(q, g, chunk=32):
-    """q.g^T as ``topk_pass1_split6_sm90`` sums it: three bf16 terms each, per ``chunk`` the six products in SIX's
-    order into a fresh fp32 accumulator, then the running sum."""
+    """q.g^T as ``topk_pass1_split6_sm90`` sums it: per ``chunk`` the six products in SIX's order into a
+    fresh fp32 accumulator, then the running sum."""
     qt, gt = plain.split_bf16x3(q), plain.split_bf16x3(g)
     total = torch.zeros((q.shape[0], g.shape[0]), dtype=torch.float32)
     for c0 in range(0, q.shape[1], chunk):

@@ -1,9 +1,7 @@
-"""The int8 path against JAX's. Tolerances: ``quantize_rows`` bit-equal;
-``gallery_sq_norms`` 2^-20 relative, ``quant_gallery_scales`` equal;
-``tile_min_l2_quant`` (both computes) minima 2^-20 relative + 1e-8, rows equal
-but where JAX's compile contracts the epilogue (an FMA) and rows tie within
-2^-20; top-k candidates equal but a tile swapped at a 2^-20 near-tie, rescored
-distances 2^-20 + 1e-8."""
+"""The int8 path against JAX's: ``quantize_rows`` bit-equal; norms 2^-20,
+scales equal; ``tile_min_l2_quant`` minima 2^-20 + 1e-8, rows but where JAX
+contracts an FMA and rows tie within 2^-20; candidates but a tile swapped at
+such a tie, rescored 2^-20 + 1e-8."""
 
 import jax.numpy as jnp
 import numpy as np

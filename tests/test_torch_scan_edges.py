@@ -1,9 +1,8 @@
-"""The Hopper scans' plain versions at the card kernels' tile edges against JAX's
-interpret mode. Tolerances (test_torch_distance.py): top-k rtol 1e-3, indices
-equal but at 2^-12 ties; packed keys 2^-12 + 1e-6, rows equal but at such ties,
-certified sets but a tile swapped, bounds 2^-12 and sound (at most the unscored
-rows' least true distance x 1.03 + 1e-4); int8 minima 2^-20 + 1e-8 (1.28e-6 raw
-at D = 128: JAX may contract an FMA), rows equal but at 2^-20 + 1e-6 fp64 ties."""
+"""The Hopper scans' plain versions at the kernels' tile edges against JAX's
+interpret mode: top-k rtol 1e-3, indices but at 2^-12 ties; packed keys
+2^-12 + 1e-6, rows but at such ties, certified sets but a tile swapped,
+bounds 2^-12 and sound (<= the unscored rows' least distance x 1.03 + 1e-4);
+int8 minima 2^-20 + 1e-8 (1.28e-6 raw: an FMA), rows but at fp64 ties."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,9 +54,9 @@ TOPK_CASES = [(300, 100, 8, 1, 1, None), (300, 100, 8, 129, 16, (1, 7)), (700, 5
 def test_topk_l2_edges_match_jax(n, n_valid, d, b, k, window):
     g, q = _data(n, n_valid, d, b, seed=n + b + k)
     jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, n_valid=n_valid,
-              window=window))
+            window=window))
     pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
-              n_valid=n_valid, window=window))
+            n_valid=n_valid, window=window))
     _check_topk(q, g, n_valid, window, jd, ji, pd, pi)
 
 
@@ -75,7 +74,7 @@ def test_topk_l2_row_masks_match_jax(mask):
     elif mask != "empty":
         on[:mask] = True
     pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k,
-              n_valid=n_valid, row_mask=torch.from_numpy(on)))
+            n_valid=n_valid, row_mask=torch.from_numpy(on)))
     assert (pi[~on] == -1).all() and (pd[~on] > 1e36).all()
     _check_topk(q[on], g, n_valid, None, jd[on], ji[on], pd[on], pi[on])
 

@@ -64,7 +64,7 @@ def test_approx_service_labels_match_jax(setup):
     kw = dict(pca_dim=124, pca_scan="packed", rescore=8, select="approx")
     js = JaxService(model, variables, jax_info("b0"), gal, labels=labels, resolution=RES, serving_fn=jax_serve, **kw)
     ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
-                            device="cpu", **kw)
+            device="cpu", **kw)
     assert js.escalate is None and ps.escalate is None  # the certificate needs the exact selection
     ji, jl = js.identify(images)
     pi, pl = ps.identify(images)
@@ -78,8 +78,8 @@ def test_approx_service_equals_exact_selection(setup, pca_scan):
     """Every scan's approx service gives its exact selection's rows without escalation."""
     _, _, _, serve, images, _, gal, labels = setup
     svc = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
-                             pca_dim=124 if pca_scan == "packed" else 128, pca_scan=pca_scan, rescore=8,
-                             select="approx", device="cpu")
+            pca_dim=124 if pca_scan == "packed" else 128, pca_scan=pca_scan, rescore=8,
+            select="approx", device="cpu")
     assert svc.escalate is None and svc.select == "approx"
     rows = svc.identify(images)[0]
     svc.select = "exact"  # the same service and gallery, the exact selection, no escalation

@@ -75,8 +75,8 @@ def test_pca_packed_uncertified_top1_matches_jax(setup):
 
 @pytest.mark.parametrize("clustered", [False, True])
 def test_certified_pick_is_nearest_candidate(setup, clustered):
-    """The pick before escalation is the candidate nearest by an fp32 rescore (2^-12 relative + 1e-5); on the planted
-    gallery the planted row, no escalation; ``clustered`` (32 rows a probe first) a near-tie among them."""
+    """The pick before escalation is the candidate nearest by fp32 (2^-12 + 1e-5); planted: the planted row
+    unescalated; ``clustered``: a near-tie among its 32 rows."""
     _, _, _, serve, images, gal, planted = setup
     with torch.no_grad():
         emb = torch.from_numpy(_unit(serve(torch.from_numpy(images))["embedding"].numpy()))
@@ -86,7 +86,7 @@ def test_certified_pick_is_nearest_candidate(setup, clustered):
         gal[: PROBES * 32] = _unit(np.repeat(emb.numpy(), 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32,
             1280)) / np.sqrt(1280))
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
-                            pca_dim=124, pca_scan="packed")
+            pca_dim=124, pca_scan="packed")
     cand, pick, esc = ps._certified(emb)
     assert cand.shape == (PROBES, 4)  # rescore 48, capped at the gallery's 4 tiles
     assert pick.shape == esc.shape == (PROBES,)
@@ -112,18 +112,18 @@ def test_identify_labels_and_unported_modes(setup):
     _, _, np_vars, serve, images, gal, planted = setup
     labels = np.arange(N) % 7
     ps = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES,
-                            serving_fn=serve, device="cpu", match="exact")
+            serving_fn=serve, device="cpu", match="exact")
     idx, lab = ps.identify(images[:4])
     np.testing.assert_array_equal(idx, planted[:4])
     np.testing.assert_array_equal(lab, labels[planted[:4]])
     assert idx.dtype == np.int64
     sh = RecognitionService(None, backbone_info("b0"), gal, labels=labels, resolution=RES, serving_fn=serve,
-                            device="cpu", match="sharded", mesh=gallery_mesh(devices=["cpu"] * 2))
+            device="cpu", match="sharded", mesh=gallery_mesh(devices=["cpu"] * 2))
     idx_s, lab_s = sh.identify(images[:4])
     np.testing.assert_array_equal(idx_s, idx)
     np.testing.assert_array_equal(lab_s, lab)
     for kw in (dict(match="nope"), dict(pca_scan="nope"), dict(select="nope"),
-               dict(match="sharded", sharded_scan="nope")):
+            dict(match="sharded", sharded_scan="nope")):
         with pytest.raises(ValueError):
             RecognitionService(None, backbone_info("b0"), gal, serving_fn=serve, device="cpu", **kw)
 
@@ -154,9 +154,9 @@ def test_defaults_top1_and_escalation_mask_match_jax(setup, clustered):
         rows = _unit(np.repeat(emb, 32, axis=0) + 0.5 * rng.standard_normal((PROBES * 32, 1280)) / np.sqrt(1280))
         gal[: PROBES * 32] = rows
     js = JaxService(model, variables, jax_info("b0"), gal, resolution=RES, pca_dim=124,
-                    pca_scan="packed", serving_fn=jax_serve)
+            pca_scan="packed", serving_fn=jax_serve)
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve,
-                            device="cpu", pca_dim=124, pca_scan="packed")
+            device="cpu", pca_dim=124, pca_scan="packed")
     pi = ps._match_emb(torch.from_numpy(emb)).numpy()
     ji = np.asarray(js._match_emb(jnp.asarray(emb), *js.match_args))
     dj, dp = ((emb - gal[ji]) ** 2).sum(1), ((emb - gal[pi]) ** 2).sum(1)
@@ -172,7 +172,7 @@ def test_return_types_match_jax(setup):
     """``identify_device`` int32 rows on the device, ``embed`` host [B, D] fp32 unit rows, ``identify`` int64."""
     _, _, _, serve, images, gal, planted = setup
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, device="cpu",
-                            match="exact")
+            match="exact")
     rows = ps.identify_device(torch.from_numpy(images[:4]))
     assert isinstance(rows, torch.Tensor) and rows.dtype == torch.int32
     emb = ps.embed(images[:4])

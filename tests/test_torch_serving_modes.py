@@ -88,8 +88,8 @@ def test_scan_modes_top1_match_jax(data, kw, clustered):
 
 
 def test_escalation_is_one_masked_scan(data, monkeypatch):
-    """The certified path launches the exact scan once a call, the mask on the device, escalated probes first: the
-    exact row where a probe escalates, the pick elsewhere."""
+    """One exact scan a certified call, mask on the device, escalated probes first: exact rows where a probe
+    escalates, the pick elsewhere."""
     import fast_image_recognition_tpu_torch.serving as port_serving
 
     emb, gal, gal_c, planted = data
@@ -104,7 +104,7 @@ def test_escalation_is_one_masked_scan(data, monkeypatch):
     monkeypatch.setattr(port_serving, "topk_l2", counted)
     for g, clustered in ((gal, False), (gal_c, True)):
         ps = RecognitionService(None, backbone_info("b0"), g, serving_fn=PORT_STUB, device="cpu",
-                                pca_dim=124, pca_scan="packed", pca_sample=1024)
+                pca_dim=124, pca_scan="packed", pca_sample=1024)
         calls.clear()
         idx = ps._match_emb(emb)
         n_esc = int(ps.last_escalated.sum())
@@ -138,7 +138,7 @@ def test_escalate_scans_the_escalated_probes_in_front(data, monkeypatch, pattern
 
     monkeypatch.setattr(port_serving, "topk_l2", spy)
     ps = RecognitionService(None, backbone_info("b0"), gal, serving_fn=PORT_STUB, device="cpu",
-                            pca_dim=124, pca_scan="packed", pca_sample=1024)
+            pca_dim=124, pca_scan="packed", pca_sample=1024)
     pick = torch.arange(b, dtype=torch.int64) + 7
     idx = ps._escalate(emb, pick, esc)
     n_esc = int(esc.sum())

@@ -37,7 +37,7 @@ def cpu_mesh(s):
 
 
 @pytest.mark.parametrize("n_shards,precise,k,n", [(2, False, 3, 720), (4, True, 3, 720), (8, False, 5, 300), (2, False,
-                         8, 5)])
+        8, 5)])
 def test_sharded_topk_l2_matches_jax(sets, n_shards, precise, k, n):
     """(8, 300 rows, k=5): shards 3-7 empty; (2, 5 rows, k=8): JAX's tail (BIG_DIST / D, -1)."""
     q, g = sets
@@ -64,7 +64,7 @@ def test_sharded_topk_pca_packed_matches_jax(sets):
     rng = np.random.default_rng(3)
     planted = np.linspace(0, len(g) - 1, 12).astype(int)
     q = np.concatenate([g[planted] + 0.01 * rng.standard_normal((12, 128)).astype(np.float32),
-                       0.1 * rng.standard_normal((4, 128)).astype(np.float32)])
+            0.1 * rng.standard_normal((4, 128)).astype(np.float32)])
     pca = fit_pca(g, num_components=28)
     mu, w = pca.mean, pca.components.T
     jm = jax_gallery_mesh(4)
@@ -78,7 +78,7 @@ def test_sharded_topk_pca_packed_matches_jax(sets):
     flips = np.asarray(ja, np.float32) != torch.cat(pa).to(torch.float32).numpy()
     assert flips.mean() < 1e-3
     pd, pi = sharded_topk_pca_packed(torch.from_numpy(q), pa, pg, pm, mu, w, k=2, rescore=3,
-                                     n_valid_per_shard=pn, tile_g=TILE)
+            n_valid_per_shard=pn, tile_g=TILE)
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(pi.numpy()[:12, 0], planted)
     np.testing.assert_allclose(pd.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
@@ -128,17 +128,17 @@ def test_sharded_service_matches_jax(service_setup, scan):
     serve, images, emb, gal, planted = service_setup
     kw = dict(match="sharded", sharded_scan=scan, pca_dim=124, rescore=48)
     ps = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve,
-                            mesh=cpu_mesh(4), device="cpu", **kw)
+            mesh=cpu_mesh(4), device="cpu", **kw)
     with torch.no_grad():
         p_emb = ps._embed(torch.from_numpy(images)).numpy()
     js = JaxService(None, None, jax_info("b0"), gal, resolution=RES, mesh=jax_gallery_mesh(4),
-                    serving_fn=(lambda e, _images: {"embedding": e}, jnp.asarray(p_emb)), **kw)
+            serving_fn=(lambda e, _images: {"embedding": e}, jnp.asarray(p_emb)), **kw)
     ji = np.asarray(js.identify_device(images))
     pi = ps.identify_device(torch.from_numpy(images))
     assert pi.dtype == torch.int32 and pi.shape == (PROBES,)
     np.testing.assert_array_equal(pi.numpy(), ji)
     np.testing.assert_array_equal(pi.numpy(), planted)
     exact = RecognitionService(None, backbone_info("b0"), gal, resolution=RES, serving_fn=serve, match="exact",
-                               device="cpu")
+            device="cpu")
     np.testing.assert_array_equal(pi.numpy(), exact.identify_device(torch.from_numpy(images)).numpy())
     assert ps.match_flops(PROBES) == js.match_flops(PROBES)

@@ -23,7 +23,7 @@ def test_dataset_and_split_bit_equal_jax(args):
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     for a, b in zip(J.split_synthetic_image_dataset(*want, 2, seed=1),
-                    P.split_synthetic_image_dataset(*got, 2, seed=1)):
+            P.split_synthetic_image_dataset(*got, 2, seed=1)):
         np.testing.assert_array_equal(a, b)
 
 

@@ -1,11 +1,8 @@
-"""The bf16 tile scan and top-k variants against JAX's interpret mode. Tolerances:
-- ``tile_min_l2`` fp32 scores: minima 2^-20 relative (+1e-6 after |q|^2), rows
-  but at ties;
-- bf16 scores: minima equal (2^-20 + 1e-8 after |q|^2), ties low; where JAX's
-  interpret mode keeps fp32 excess and its ``_masked_argmin`` wraps, the port's
-  row is a row of that tile at the minimum;
-- ``topk_l2(precise=True)``: 2^-20 + 1e-7, rows but at ties; ``window``: lanes
-  outside zeroed, the same."""
+"""The bf16 tile scan and top-k against JAX's interpret mode: fp32 scores
+minima 2^-20 (+1e-6 after |q|^2), rows but at ties; bf16 scores equal, ties
+low, and where JAX keeps fp32 excess and its ``_masked_argmin`` wraps, a row
+of that tile at the minimum; ``precise=True`` 2^-20 + 1e-7; ``window`` the
+same, outside lanes zeroed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +39,9 @@ def _bf16(x):
 def test_tile_min_l2_matches_jax(data, precise_scores, tile_g):
     q, _, gp = data
     jd, ji = (np.asarray(x) for x in J.tile_min_l2(jnp.asarray(q), jnp.asarray(gp, jnp.bfloat16), n_valid=N_VALID,
-              tile_g=tile_g, precise_scores=precise_scores))
+            tile_g=tile_g, precise_scores=precise_scores))
     pd, pi = (x.numpy() for x in P.tile_min_l2(torch.from_numpy(q), torch.from_numpy(gp).to(torch.bfloat16),
-              n_valid=N_VALID, tile_g=tile_g, precise_scores=precise_scores))
+            n_valid=N_VALID, tile_g=tile_g, precise_scores=precise_scores))
     n_tiles = N_PAD // tile_g
     assert pd.shape == pi.shape == (B, n_tiles) and pi.dtype == np.int32
     tiles = np.arange(n_tiles)[None, :] * tile_g
@@ -91,9 +88,9 @@ def test_topk_candidates_l2_matches_jax(data, precise_scores):
     jgsq = J.gallery_sq_norms(jg, N_VALID, tile_g)
     pgsq = P.gallery_sq_norms(pg, N_VALID, tile_g)
     jc = np.asarray(J.topk_candidates_l2(jnp.asarray(q), jg, r, n_valid=N_VALID, tile_g=tile_g, gsq=jgsq,
-                    precise_scores=precise_scores))
+            precise_scores=precise_scores))
     pc = P.topk_candidates_l2(torch.from_numpy(q), pg, r, n_valid=N_VALID, tile_g=tile_g, gsq=pgsq,
-                              precise_scores=precise_scores).numpy()
+            precise_scores=precise_scores).numpy()
     assert pc.shape == (B, r) and pc.dtype == np.int32 and (pc < N_VALID).all()
     jd = np.asarray(J.tile_min_l2(jnp.asarray(q), jg, n_valid=N_VALID, tile_g=tile_g, precise_scores=precise_scores)[0])
     for b in range(B):
@@ -169,7 +166,7 @@ def test_scans_take_a_column_padded_gallery(data, scan):
             return P.topk_l2(qt, gal, 3, n_valid=N_VALID, precise=scan.endswith("precise"))
         gq, sc = P.quantize_rows(gal)
         return P.tile_min_l2_quant(qt, gq, P.gallery_sq_norms(gal, N_VALID, 128),
-                                   P.quant_gallery_scales(sc, N_VALID, 128), tile_g=128)
+                P.quant_gallery_scales(sc, N_VALID, 128), tile_g=128)
 
     (d0, i0), (d1, i1) = run(g), run(gpad)
     np.testing.assert_array_equal(i1.numpy(), i0.numpy())

@@ -39,8 +39,16 @@ def test_topk_l2_large_k_matches_jax(data, k, mode):
     lo, hi = WINDOW if mode == "window" else (0, DIM)
     jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, **kw))
     pd, pi = (x.numpy() for x in P.topk_l2(torch.from_numpy(q), torch.from_numpy(g).to(torch.bfloat16), k, **kw))
-    assert pd.shape == pi.shape == (B, k) and pi.dtype == np.int32
-    assert ((pi >= 0) & (pi < N)).all() and all(len(set(r)) == k for r in pi)
+    check_topk(q, g, k, mode, (jd, ji), (pd, pi), (lo, hi), 2048, 2560)
+
+
+def check_topk(q, g, k, mode, jax_out, port_out, lanes, dup0, dup1):
+    """The port's top-k against JAX's: shapes, distinct rows in the gallery, sorted; distances within the mode's
+    tolerance; rows that differ tie in fp64 within it; each row at its distance; a duplicate row in [dup0, dup1)
+    of row r - dup0 comes after it."""
+    (jd, ji), (pd, pi), (lo, hi) = jax_out, port_out, lanes
+    assert pd.shape == pi.shape == (len(q), k) and pi.dtype == np.int32
+    assert ((pi >= 0) & (pi < len(g))).all() and all(len(set(r)) == k for r in pi)
     assert (np.diff(pd, axis=1) >= 0).all()
     width = hi - lo
     # both sides scan bf16 rows; the bf16 mode's queries are bf16 too
@@ -61,7 +69,7 @@ def test_topk_l2_large_k_matches_jax(data, k, mode):
     # returned, the lower row is too, and comes first
     for row in pi:
         pos = {r: j for j, r in enumerate(row)}
-        assert all(r - 2048 in pos and pos[r - 2048] < pos[r] for r in row if 2048 <= r < 2560)
+        assert all(r - dup0 in pos and pos[r - dup0] < pos[r] for r in row if dup0 <= r < dup1)
 
 
 def test_packed_scan_checks_take_any_width():
@@ -70,7 +78,7 @@ def test_packed_scan_checks_take_any_width():
         assert build.packed_scan_tiles((1024, da), (1024 * 1024, da), 1024) == 1024
     assert build.packed_scan_tiles((192, 768), (70_000 * 128, 768), 128) == 70_000
     for bad in [((8, 760), (1024, 760), 1024), ((8, 768), (1000, 768), 1024), ((8, 768), (1024, 640), 1024),
-                ((8, 768), (1024, 768), 64)]:
+            ((8, 768), (1024, 768), 64)]:
         with pytest.raises(ValueError):
             build.packed_scan_tiles(*bad)
 

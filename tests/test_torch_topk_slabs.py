@@ -12,6 +12,7 @@ import fast_image_recognition_tpu.ops.distance_kernel as J
 import fast_image_recognition_tpu_torch.ops.distance_kernel as P
 from fast_image_recognition_tpu_torch.kernels import plain
 from test_torch_synthetic import _one_thread, _unit  # noqa: F401
+from test_torch_topk_large_k import check_topk
 
 N, DIM, B = 320, 16, 3
 SLAB = 64  # slab width of the CPU runs (the card's is build.TOPK_MAX_K, 256)
@@ -37,26 +38,7 @@ def test_topk_l2_slabs_match_jax(data, k, mode, monkeypatch):
     q, g = data
     kw = dict(precise=True) if mode == "precise" else {}
     jd, ji = (np.asarray(x) for x in J.topk_l2(jnp.asarray(q), jnp.asarray(g, jnp.bfloat16), k, **kw))
-    pd, pi = _port(q, g, k, monkeypatch, **kw)
-    assert pd.shape == pi.shape == (B, k) and pi.dtype == np.int32
-    assert ((pi >= 0) & (pi < N)).all() and all(len(set(r)) == k for r in pi)
-    assert (np.diff(pd, axis=1) >= 0).all()
-    gb = torch.from_numpy(g).to(torch.bfloat16).double().numpy()
-    qs = q.astype(np.float64) if mode == "precise" else torch.from_numpy(q).to(torch.bfloat16).double().numpy()
-    if mode == "precise":
-        tol = np.full_like(jd, 2.0**-16, dtype=np.float64)  # on the raw squared distance
-        np.testing.assert_array_less(np.abs(pd - jd) * DIM, tol)
-    else:
-        tol = 2.0**-12 * np.abs(jd) * DIM
-        np.testing.assert_allclose(pd, jd, rtol=2.0**-12, atol=0)
-    dp = ((gb[pi] - qs[:, None]) ** 2).sum(axis=2)
-    dj = ((gb[ji] - qs[:, None]) ** 2).sum(axis=2)
-    differ = pi != ji
-    assert (np.abs(dp - dj)[differ] <= tol[differ]).all()
-    # a duplicate ties with its original exactly: the lower row comes first
-    for row in pi:
-        pos = {r: j for j, r in enumerate(row)}
-        assert all(r - 256 in pos and pos[r - 256] < pos[r] for r in row if r >= 256)
+    check_topk(q, g, k, mode, (jd, ji), _port(q, g, k, monkeypatch, **kw), (0, DIM), 256, N)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(precise=True), dict(window=(3, 13))])

@@ -1,18 +1,12 @@
-"""The trainer and train mode against JAX's, stochastic depth all-keep on both
-sides: one jitted ``value_and_grad(trainer._loss)`` at fp32, batch 8 at 64 px
-(at 32 px the last BNs see 4 values a channel and bf16 turns the gradient).
-
-Tolerances: loss 1e-5 relative; each gradient leaf within 1e-3 of its L2 norm
-or 1e-6 of the whole gradient's (a BN bias feeding the next BN with no residual
-between has a true gradient of 0: rounding noise ~1e-8 of the whole); new
-statistics within 1e-5 (means of the channel's std, variances of the largest);
-torch's Adam on JAX's gradients = ``optax.adam`` within 1e-6; phase 1: backbone
-bit-equal, heads = optax on JAX's head gradients within 1e-6 (2 lr where that
-gradient is under 1e-6: Adam's first step lr g / (|g| + 1e-8) turns on its
-rounding); ``calibrate_batch_stats`` 1e-3 (the solve ``(new - m old) / (1 -
-m)`` scales rounding by 100); bf16: loss 2e-2 relative, gradient cosine >=
-0.99. MobileNetV1 in train mode, fp32, batch 8 at 96 px (at 32 px its last BN
-sees 3 values: 4e-3): 1e-4 of max |JAX|, statistics as above."""
+"""The trainer and train mode against JAX's (stochastic depth all-keep): one
+jitted ``value_and_grad(trainer._loss)`` at fp32, batch 8 at 64 px (at 32 the
+last BNs see 4 values a channel). Loss 1e-5; a gradient leaf within 1e-3 of
+its norm or 1e-6 of the whole's (a BN bias into a BN has a true gradient of
+0); statistics 1e-5; Adam on JAX's gradients = ``optax.adam`` 1e-6; phase 1
+backbone bit-equal, heads 1e-6 (2 lr under a 1e-6 gradient: Adam's first step
+turns on its rounding); ``calibrate_batch_stats`` 1e-3 (its solve scales
+rounding by 100); bf16 loss 2e-2, gradient cosine >= 0.99. MobileNetV1 fp32
+at 96 px: 1e-4 of max |JAX|."""
 
 import types
 
@@ -87,7 +81,7 @@ def ref():
      jt.batch_stats, jnp.asarray(x), jnp.asarray(y), jnp.asarray(cls_w), keys)
     mp.undo()
     return dict(variables=variables, heads=heads, x=x, y=y, cls_w=cls_w, loss=float(loss),
-                new_bs=jax.device_get(new_bs), g=jax.device_get(g), gh=jax.device_get(gh))
+            new_bs=jax.device_get(new_bs), g=jax.device_get(g), gh=jax.device_get(gh))
 
 
 def _port_loss(ref, dtype=torch.float32):
@@ -115,7 +109,7 @@ def test_bf16_module_at_the_same_point(ref):
     t, loss = _port_loss(ref, torch.bfloat16)
     assert abs(loss - ref["loss"]) <= 2e-2 * abs(ref["loss"])
     a, b = np.concatenate([v.ravel() for v in _leaves(_grads(t))]), np.concatenate([v.ravel() for v in
-                                                                                     _leaves(ref["g"])])
+            _leaves(ref["g"])])
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.99
 
 
@@ -126,7 +120,7 @@ def test_adam_on_jax_gradients_matches_optax(ref):
     torch.optim.Adam(params, lr=1e-3).step()
     tx = optax.adam(1e-3)  # jitted: eager optax over B0's leaves takes ~30 s
     want = jax.jit(lambda p, g: optax.apply_updates(p, tx.update(g, tx.init(p))[0]))(ref["variables"]["params"],
-                   ref["g"])
+            ref["g"])
     for p, w in zip(params, _leaves(want)):
         assert np.abs(p.detach().numpy() - w).max() <= 1e-6
 
@@ -151,7 +145,7 @@ def test_calibrate_batch_stats_solves_jax_step(ref):
     t = _trainer(ref["variables"])
     t.calibrate_batch_stats(ref["x"])
     solved = jax.tree_util.tree_map(lambda new, old: (new - M * old) / (1.0 - M), ref["new_bs"],
-                                    ref["variables"]["batch_stats"])
+            ref["variables"]["batch_stats"])
     _stats(t.variables["batch_stats"], solved, 1e-3)
 
 
@@ -163,8 +157,8 @@ def _moved(stats, rng):
 
 
 def test_evaluate_and_head_logits_match_jax(ref):
-    """Eval mode on moved running statistics behind the serving preprocess: accuracy equal to JAX's ``evaluate``,
-    every head's logits within 1e-4 of max |JAX ``head_logits``| (flax's ``apply`` jitted under JAX's methods)."""
+    """Eval mode on moved statistics behind the serving preprocess: ``evaluate`` = JAX's, every head's logits
+    within 1e-4 of max |JAX| (flax's ``apply`` jitted under JAX's methods)."""
     rng = np.random.default_rng(4)
     v = {"params": ref["variables"]["params"], "batch_stats": _moved(ref["variables"]["batch_stats"], rng)}
     mean, std = np.asarray(MEAN_RGB, np.float32), np.asarray(STDDEV_RGB, np.float32)
@@ -173,7 +167,7 @@ def test_evaluate_and_head_logits_match_jax(ref):
     mp = pytest.MonkeyPatch()
     mp.setattr(jtrain, "init_heads", lambda *a: [{k: jnp.asarray(w) for k, w in h.items()} for h in t.head_arrays()])
     jt = jtrain.MultiExitTrainer(JaxEfficientNet(variant="b0", dtype=jnp.float32), v, CFG,
-                                 preprocess=lambda x: (x - mean) / std)
+            preprocess=lambda x: (x - mean) / std)
     mp.undo()
     jt.model = types.SimpleNamespace(apply=jax.jit(jt.model.apply, static_argnames=("train", "taps")))
     assert t.evaluate(x, y) == jt.evaluate(x, y)
@@ -220,7 +214,7 @@ def test_tiny_fit_history_and_checkpoint(tmp_path):
     cfg = TrainConfig(num_classes=4, taps=TAPS, resolution=32, batch_size=4, phase1_epochs=1, phase2_epochs=1)
     _, variables = create_efficientnet("b0", 0, seed=1, resolution=32, device="cpu")
     t = _trainer(variables, torch.bfloat16, cfg=cfg, checkpoint_path=str(tmp_path / "best.msgpack"),
-                 preprocess=lambda x: x / 127.5 - 1.0)
+            preprocess=lambda x: x / 127.5 - 1.0)
     gen = np.random.default_rng(3)
     imgs, labels = gen.integers(0, 256, (16, 32, 32, 3), dtype=np.uint8), np.arange(16) % 4
     hist = t.fit(torch.from_numpy(imgs), labels, imgs[:8], labels[:8], verbose=False)
@@ -228,7 +222,7 @@ def test_tiny_fit_history_and_checkpoint(tmp_path):
     assert np.isfinite(hist["loss"]).all() and t.ckpt.best == max(hist["val_acc"])
     saved = jax_load(str(tmp_path / "best.msgpack"))
     assert set(saved) == {"params", "batch_stats", "heads"} and set(saved["heads"]) == {"0", "1", "2", "3", "4", "5",
-               "6"}
+            "6"}
     assert jax.tree_util.tree_structure(saved["params"]) == jax.tree_util.tree_structure(t.variables["params"])
     assert [np.shape(a) for a in _leaves(saved["heads"])] == [np.shape(a) for a in _leaves(t.head_arrays())]
     assert len(t.head_logits(imgs[:2])) == len(TAPS) + 1

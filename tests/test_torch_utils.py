@@ -1,7 +1,6 @@
-"""``utils/flops.py``, ``utils/profiling.py`` and ``PCAModel`` against JAX's.
-Tolerances: FLOPs equal JAX's on the known shapes and the fp32 B0 at 64 px (no
-op differs), folded within 5 % of ``folded=False`` (JAX's bound); ``project``
-bit-equal, ``project_device`` within 1e-5 of max |project|."""
+"""``utils/flops.py``, ``utils/profiling.py`` and ``PCAModel`` against JAX's:
+FLOPs equal on the known shapes and the fp32 B0 at 64 px, folded within 5 %;
+``project`` bit-equal, ``project_device`` 1e-5 of max |project|."""
 
 import time
 
@@ -24,7 +23,7 @@ from test_torch_synthetic import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape,want", [((8, 64, 32, 0, 0), 2 * 8 * 64 * 32), ((2, 16, 8, 24, 1), 2 * (2 * 16 * 16 * 24)
-                                        * (3 * 3 * 8)), ((1, 8, 16, 16, 16), 2 * (1 * 8 * 8 * 16) * (3 * 3 * 1))])
+        * (3 * 3 * 8)), ((1, 8, 16, 16, 16), 2 * (1 * 8 * 8 * 16) * (3 * 3 * 1))])
 def test_fn_flops_matches_jax_on_known_shapes(shape, want):
     """A matmul, a SAME conv and a depthwise one (tests/test_flops.py)."""
     n, hw, cin, cout, groups = shape
@@ -36,7 +35,7 @@ def test_fn_flops_matches_jax_on_known_shapes(shape, want):
     assert jax_flops(lambda x, k: jax.lax.conv_general_dilated(x, k, (1, 1), "SAME", dimension_numbers=(
         "NHWC", "HWIO", "NHWC"), feature_group_count=groups), x, k) == want
     assert fn_flops(lambda x, k: F.conv2d(x, k, padding="same", groups=groups), torch.from_numpy(x).permute(0, 3, 1, 2),
-                    torch.from_numpy(k).permute(3, 2, 0, 1)) == want
+            torch.from_numpy(k).permute(3, 2, 0, 1)) == want
 
 
 def test_fn_flops_of_b0_matches_jax_and_folded_within_5_percent():
@@ -48,7 +47,7 @@ def test_fn_flops_of_b0_matches_jax_and_folded_within_5_percent():
     assert 0.6e9 * 2 * (64 / 224) ** 2 < want < 0.9e9 * 2 * (64 / 224) ** 2  # ~0.78 GFLOPs an image at 224
     images = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
     folded, unfolded = (fn_flops(make_serving_fn(v, backbone_info("b0"), resolution=64, device="cpu", folded=f),
-                                 images) for f in (True, False))
+            images) for f in (True, False))
     assert abs(folded - unfolded) < 0.05 * unfolded
 
 

@@ -35,7 +35,7 @@ def frames():
             frame_video += [len(video_person)] * n
             video_person.append(person)
     return np.concatenate(rows), np.asarray(frame_video), np.asarray(video_person), [f"p{i:02d}" for i in
-                                                                                       range(n_people)]
+            range(n_people)]
 
 
 def test_video_file_round_trips_between_packages(frames, tmp_path):
@@ -75,7 +75,7 @@ def test_identities_sampling_and_aggregation_equal_jax(frames):
     dists, preds = rng.random(len(keep)), rng.integers(0, 12, len(keep))
     for mode in ("min_distance", "majority"):
         np.testing.assert_array_equal(PE._aggregate(dists, preds, fv[keep], 12, len(vp), mode),
-                                      JE._aggregate(dists, preds, fv[keep], 12, len(vp), mode))
+                JE._aggregate(dists, preds, fv[keep], 12, len(vp), mode))
     with pytest.raises(ValueError):
         PE._aggregate(dists, preds, fv[keep], 12, len(vp), "nope")
 
@@ -120,7 +120,7 @@ def test_evaluate_video_recognition_matches_jax(frames, aggregation):
     gal, gl = feats[first], vp
     idx = PE.sample_probe_frames(videos, 2)
     pr = PE.evaluate_video_recognition(BruteForceMatcher(gal, device="cpu"), gl, videos, vp, idx, 12,
-                                       aggregation=aggregation, batch_size=16)
+            aggregation=aggregation, batch_size=16)
     jr = JE.evaluate_video_recognition(JaxBF(gal), gl, jvideos, vp, idx, 12, aggregation=aggregation, batch_size=16)
     assert pr.frame_error == pytest.approx(jr.frame_error) and pr.video_error == pytest.approx(jr.video_error)
     assert pr.aggregation == aggregation and pr.ms_per_frame > 0

@@ -1,8 +1,7 @@
-"""The rest of the zoo and the bind engine against JAX at 32 px (75 for the
-Inceptions). Tolerances: fp32 forward, taps, segments 1e-4 of max |JAX|; folded
-bf16 0.02 (tests/test_fold_generic.py:63); fold trees 1e-6; 'caffe' equal, its
-resize rtol 1e-5, atol 1e-5 x 127.5; rows equal but at picks within 2^-8; bind
-engines >= 90 % of predictions, >= 80 % of levels."""
+"""The zoo and the bind engine against JAX at 32 px (Inceptions 75): fp32
+forward, taps, segments 1e-4 of max |JAX|; folded bf16 0.02; fold trees 1e-6;
+'caffe' equal, its resize 1e-5 (x 127.5); rows but at picks within 2^-8;
+bind engines >= 90 % of predictions, >= 80 % of levels."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +23,7 @@ from fast_image_recognition_tpu_torch.models.fold import (fold_tf_preprocess_int
     make_serving_fn)
 from fast_image_recognition_tpu_torch.serving import build_service
 from test_torch_inception_resnet import _leaves, check_planted_rows
-from test_torch_mobilenet import _close
+from test_torch_mobilenet import _close, check_segments
 from test_torch_synthetic import _one_thread  # noqa: F401
 
 FAMILIES = ("resnet50", "resnet50v2", "inception_v3", "vgg19")
@@ -104,29 +103,9 @@ def test_zoo_facts_and_trees_match_jax(name):
 def test_fp32_forward_taps_and_segments_match_jax(name):
     v, res, taps = _vars(name), _res(name), tuple(J.default_taps_for(name))
     jm, net = J.build_backbone(name, dtype=jnp.float32), build_backbone(name, dtype=torch.float32).load_variables(v)
-    x = np.random.default_rng(2).normal(size=(4, res, res, 3)).astype(np.float32)
-    n = len(net.block_names())
-    mid = n // 2
-
-    @jax.jit
-    def ref(v, x):
-        h = jm.apply(v, x, method=type(jm).stem)
-        h1 = jm.apply(v, h, 0, mid, method=type(jm).run_blocks)
-        h2 = jm.apply(v, h1, mid, n, method=type(jm).run_blocks)
-        return jm.apply(v, x, taps=taps), [h, h1, h2, jm.apply(v, h2, method=type(jm).head_pool)]
-
-    want, segs = ref(v, x)
     assert net.block_names() == jm.block_names() and net.plan_configs() == jm.plan_configs()
-    with torch.no_grad():
-        out = net(torch.from_numpy(x), taps=taps)
-        h = net.stem(torch.from_numpy(x))
-        h1 = net.run_blocks(h, 0, mid)
-        h2 = net.run_blocks(h1, mid, n)
-        got = [t.permute(0, 2, 3, 1) for t in (h, h1, h2)] + [net.head_pool(h2)]
-    assert sorted(out["taps"]) == sorted(taps)
-    for g, w in zip([out["embedding"]] + [out["taps"][t] for t in taps] + got,
-                    [want["embedding"]] + [want["taps"][t] for t in taps] + segs):
-        _close(g.numpy(), w, 1e-4)
+    x = np.random.default_rng(2).normal(size=(4, res, res, 3)).astype(np.float32)
+    check_segments(jm, net, v, x, taps, len(net.block_names()) // 2)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -149,7 +128,7 @@ def test_folded_matches_unfolded(name):
 
 
 @pytest.mark.parametrize("name,tf_stem", [("resnet50", False), ("resnet50v2", False), ("inception_v3", False),
-                         ("inception_v3", True), ("vgg19", False)])
+        ("inception_v3", True), ("vgg19", False)])
 def test_fold_trees_match_jax(name, tf_stem):
     """ResNet at its eps (1.001e-5), v2's BNs with no conv affine-only, VGG19 (no BN) returned as it is."""
     v = _vars(name)
@@ -203,7 +182,7 @@ def test_service_rows_match_jax():
     name = "resnet50v2"
     images, want, _, got = _served(name)
     check_planted_rows(got["embedding"].numpy(), want["embedding"], images, J.backbone_info(name), lambda g,
-                       **kw: build_service(name, g, variables=_vars(name), device="cpu", **kw), resolution=_res(name))
+            **kw: build_service(name, g, variables=_vars(name), device="cpu", **kw), resolution=_res(name))
 
 
 @pytest.mark.parametrize("name", ["resnet50v2", "inception_resnet_v2"])
